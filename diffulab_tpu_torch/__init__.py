@@ -1,0 +1,22 @@
+"""diffulab_tpu_torch — the PyTorch/CUDA port of :mod:`diffulab_tpu`.
+
+The JAX package stays the reference; this package mirrors its file layout
+(one port module per reference module) and computes the same functions in
+PyTorch, with every Pallas TPU kernel on a ported path rewritten by hand for
+Hopper (``csrc/``, built at first use by :mod:`diffulab_tpu_torch.ops._build`).
+
+It imports ``torch`` and ``numpy`` only — never ``jax``, ``flax``, ``optax``
+or ``diffulab_tpu``. Entry points run on CUDA unless the caller passes
+``device="cpu"``; on a machine without a card they raise instead of falling
+back to the CPU.
+
+Ported so far (slice A1, serving): class-conditional DiT sampling —
+:class:`~diffulab_tpu_torch.networks.denoisers.mmdit.MMDiT` with
+``simple_dit=True``, the rectified-flow :class:`~diffulab_tpu_torch.diffuse.flow.Flow`
+with the Euler sampler and fused 2x CFG, and
+:meth:`~diffulab_tpu_torch.diffuse.diffuser.Diffuser.generate` in pixel mode,
+with attention in the fused multi-head forward kernel
+(``csrc/fused_mha_fwd.cu``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,111 @@
+"""Diffuser facade binding a denoiser to a formalization (port of
+diffulab_tpu/diffuse/diffuser.py), sampling side, pixel mode.
+
+``generate`` runs the reverse process eagerly under ``torch.no_grad()``: the
+reference jit-compiles one program per sampling configuration, the port runs
+the same steps as launches on the card (a CUDA graph is later work).
+
+Not ported yet (they raise ``NotImplementedError``): latent mode
+(``vision_tower``), intermediates, inpainting, img2img, autoguidance, block
+caching, the training loss, and the Gaussian/EDM formalizations.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from diffulab_tpu_torch.diffuse.flow import Flow
+from diffulab_tpu_torch.utils import resolve_device, resolve_dtype
+
+_UNPORTED_MODEL_TYPES = ("gaussian_diffusion", "edm")
+
+
+class Diffuser:
+    """Unified interface over the diffusion formalizations (diffuser.py:22)."""
+
+    model_registry: dict[str, type] = {"rectified_flow": Flow}
+
+    def __init__(
+        self,
+        denoiser: Any,
+        sampling_method: str,
+        model_type: str = "rectified_flow",
+        n_steps: int = 1000,
+        vision_tower: Any | None = None,
+        extra_args: dict[str, Any] | None = None,
+        extra_losses: list[Any] | None = None,
+    ):
+        if model_type in _UNPORTED_MODEL_TYPES:
+            raise NotImplementedError(f"model type {model_type!r} is not ported yet (ROADMAP queue 1, items 14-15)")
+        if model_type not in self.model_registry:
+            raise NotImplementedError(f"Model type {model_type} is not implemented")
+        if vision_tower is not None:
+            raise NotImplementedError("latent diffusion (vision_tower) is ROADMAP slice B")
+        if extra_losses:
+            raise NotImplementedError("extra losses belong to the training slice (ROADMAP slice A2)")
+        self.model_type = model_type
+        self.denoiser = denoiser
+        self.n_steps = n_steps
+        self.vision_tower = vision_tower
+        self.diffusion = self.model_registry[model_type](
+            n_steps=n_steps,
+            sampling_method=sampling_method,
+            latent_diffusion=False,
+            **(extra_args or {}),
+        )
+
+    def model_fn(self, train: bool = False):
+        """The (x, timesteps, cond, drop) callable the formalizations consume."""
+        def fn(x, timesteps, cond, drop):
+            return self.denoiser(x=x, timesteps=timesteps, cond=cond, drop=drop, train=train)
+        return fn
+
+    def set_steps(self, n_steps: int, **kwargs: Any) -> None:
+        """Swap the sampling schedule (diffuser.py:82)."""
+        self.diffusion = self.diffusion.set_steps(n_steps, **kwargs)
+
+    def set_block_cache(self, interval: int | None, span: tuple[int, int] | None = None) -> None:
+        if interval is not None and int(interval) > 1:
+            raise NotImplementedError("block caching is not ported yet (ROADMAP queue 1, item 7)")
+
+    @torch.no_grad()
+    def generate(
+        self,
+        cond: dict[str, Any],
+        data_shape: tuple[int, ...] | None = None,
+        x: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        clamp_x: bool = False,
+        guidance_scale: float = 0.0,
+        dtype: Any = torch.float32,
+        device: str | torch.device | None = None,
+        return_intermediates: bool = False,
+        inpaint: dict[str, Any] | None = None,
+        img2img: dict[str, Any] | None = None,
+        guide_denoiser: Any = None,
+    ) -> dict[str, torch.Tensor]:
+        """Sample NHWC images of ``data_shape`` (or from the given start ``x``)
+        with CFG when ``guidance_scale > 0``, on ``device`` (default: the card).
+
+        ``generator`` draws the starting noise (it must live on ``device``);
+        torch cannot reproduce the reference's JAX random streams, so parity
+        runs pass ``x`` instead (trap T4). ``cond`` tensors must be on
+        ``device``.
+        """
+        if return_intermediates or inpaint is not None or img2img is not None or guide_denoiser is not None:
+            raise NotImplementedError(
+                "intermediates, inpaint, img2img and autoguidance are not ported yet "
+                "(ROADMAP queue 1, item 15)"
+            )
+        device = resolve_device(device)
+        dtype = resolve_dtype(dtype)
+        if x is not None:
+            x = x.to(device=device, dtype=dtype)
+        return self.diffusion.denoise(
+            self.model_fn(train=False), cond, generator,
+            data_shape=data_shape, x=x, clamp_x=clamp_x,
+            guidance_scale=float(guidance_scale), use_cfg=guidance_scale > 0,
+            dtype=dtype, device=device,
+        )

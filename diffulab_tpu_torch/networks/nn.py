@@ -1,0 +1,204 @@
+"""NN primitives of the DiT path (port of diffulab_tpu/networks/nn.py).
+
+Layouts follow the reference: NHWC images, ``[B, S, H, D]`` attention heads.
+The precision policy is explicit rather than autocast: every module takes a
+compute ``dtype`` (None = promote the input with the fp32 parameters, as
+``nnx.Linear`` does) and norms always compute in fp32. The reference's
+``stable_conditioning_scope`` global becomes the ``enabled`` argument of
+:func:`stable_dtype`, passed down by the model constructor.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def stable_dtype(dtype: torch.dtype | None, enabled: bool = True) -> torch.dtype | None:
+    """Compute dtype of the conditioning path (nn.py:57-75): half dtypes
+    promote to fp32 so time/label embedding, modulation and the final
+    projection stay fp32 under mixed precision. ``enabled=False`` is the
+    reference's ``stable_conditioning=False`` whole-model cast."""
+    if not enabled:
+        return dtype
+    if dtype is not None and dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return torch.float32
+    return dtype
+
+
+class Linear(nn.Module):
+    """``nnx.Linear`` semantics: input, weight and bias are cast to ``dtype``
+    (or, with ``dtype=None``, promoted to their common type) before the
+    product, whose output keeps that type. The weight is stored ``[out, in]``
+    as torch does; :mod:`diffulab_tpu_torch.weights` transposes JAX kernels."""
+
+    def __init__(self, din: int, dout: int, bias: bool = True, *, dtype=None,
+                 zero_init: bool = False, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dout, din, device=device, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(dout, device=device, dtype=param_dtype))
+                     if bias else None)
+        if zero_init:
+            nn.init.zeros_(self.weight)
+        else:
+            nn.init.xavier_uniform_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10_000) -> torch.Tensor:
+    """Sinusoidal timestep embeddings, [B] -> [B, dim], fp32 (nn.py:102):
+    cos block then sin block, zero-padded if dim is odd."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps.float()[:, None] * freqs[None]
+    embedding = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        embedding = torch.cat([embedding, torch.zeros_like(embedding[:, :1])], dim=-1)
+    return embedding
+
+
+def modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """adaLN modulation ``x * (1 + scale) + shift`` (nn.py:130)."""
+    return x * (1 + scale) + shift
+
+
+def packed_swiglu(x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over a packed [..., 2*dim] tensor (nn.py:135)."""
+    x1, x3 = x.chunk(2, dim=-1)
+    return F.silu(x1) * x3
+
+
+def get_cos_sin_ndim_grid(
+    pos_id: torch.Tensor, base: float, axes_dim: Sequence[int]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin for N-D grid positions (nn.py:179).
+
+    pos_id: [B, S, n_axes] integer positions; returns [B, S, sum(axes_dim)/2] fp32.
+    """
+    if len(axes_dim) != pos_id.shape[-1]:
+        raise ValueError("axes_dim length must match pos_id n_axes")
+    cos_chunks, sin_chunks = [], []
+    for axis_idx, axis_dim in enumerate(axes_dim):
+        pos_i = pos_id[..., axis_idx].float()
+        exponent = torch.arange(0, axis_dim, 2, dtype=torch.float32, device=pos_id.device) / axis_dim
+        freqs = 1.0 / (base ** exponent)
+        angles = pos_i[..., None] * freqs
+        cos_chunks.append(torch.cos(angles))
+        sin_chunks.append(torch.sin(angles))
+    return torch.cat(cos_chunks, dim=-1), torch.cat(sin_chunks, dim=-1)
+
+
+def apply_rope_ndim_planar(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, rotary_dim: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate-half N-D RoPE on planar-permuted channels (nn.py:251).
+
+    q/k: [B, S, H, D]; cos/sin: [B, S, rotary_dim/2], cast to q/k's dtype
+    before the multiply as the reference does.
+    """
+    half = rotary_dim // 2
+
+    def rot(x: torch.Tensor) -> torch.Tensor:
+        x1 = x[..., :half]
+        x2 = x[..., half:rotary_dim]
+        x_pass = x[..., rotary_dim:]
+        c = cos[:, :, None, :].to(x.dtype)
+        s = sin[:, :, None, :].to(x.dtype)
+        return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c, x_pass], dim=-1)
+
+    return rot(q), rot(k)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with fp32 statistics (nn.py:304); ``x * rrms`` is rounded to
+    the input dtype before the scale, as in the reference."""
+
+    def __init__(self, dim: int, *, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        rrms = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + 1e-6)
+        return (xf * rrms).to(x.dtype) * self.scale.to(x.dtype)
+
+
+class QKNorm(nn.Module):
+    """Separate RMSNorms for query/key (nn.py:318), cast to v's dtype."""
+
+    def __init__(self, dim: int, *, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.query_norm = RMSNorm(dim, device=device, param_dtype=param_dtype)
+        self.key_norm = RMSNorm(dim, device=device, param_dtype=param_dtype)
+
+    def forward(self, q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.query_norm(q).to(v.dtype), self.key_norm(k).to(v.dtype)
+
+
+class LabelEmbed(nn.Module):
+    """Class-label embedding with a CFG null class (nn.py:401); ``drop`` is a
+    per-sample bool mask that swaps the label for the null class."""
+
+    def __init__(self, num_classes: int, embed_dim: int, classifier_free_guidance: bool = False,
+                 *, dtype=None, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.classifier_free_guidance = classifier_free_guidance
+        self.dtype = dtype
+        n_embed = num_classes + 1 if classifier_free_guidance else num_classes
+        self.embedding = nn.Embedding(n_embed, embed_dim, device=device, dtype=param_dtype)
+        nn.init.normal_(self.embedding.weight, std=embed_dim ** -0.5)
+
+    def forward(self, labels: torch.Tensor, drop: torch.Tensor | None = None) -> torch.Tensor:
+        if drop is not None:
+            if not self.classifier_free_guidance:
+                raise ValueError("Label dropout is only supported with classifier-free guidance.")
+            labels = torch.where(drop, self.num_classes, labels)
+        out = self.embedding(labels)
+        return out.to(self.dtype) if self.dtype is not None else out
+
+
+class ModulationOut:
+    """Six-way adaLN modulation parameters (nn.py:473)."""
+
+    __slots__ = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+
+    def __init__(self, alpha, beta, gamma, delta, epsilon, zeta):
+        self.alpha = alpha
+        self.beta = beta
+        self.gamma = gamma
+        self.delta = delta
+        self.epsilon = epsilon
+        self.zeta = zeta
+
+
+class Modulation(nn.Module):
+    """silu + linear producing ``n_chunks`` adaLN chunks (nn.py:487);
+    zero-initialised (adaLN-zero) by default."""
+
+    def __init__(self, embedding_dim: int, input_dim: int, n_chunks: int = 6, zero_init: bool = True,
+                 *, dtype=None, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.n_chunks = n_chunks
+        self.lin = Linear(embedding_dim, n_chunks * input_dim, dtype=dtype, zero_init=zero_init,
+                          device=device, param_dtype=param_dtype)
+
+    def forward(self, vec: torch.Tensor):
+        out = self.lin(F.silu(vec))
+        if out.ndim == 2:
+            out = out[:, None, :]
+        chunks = out.chunk(self.n_chunks, dim=-1)
+        if self.n_chunks == 6:
+            return ModulationOut(*chunks)
+        return chunks

@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Each source under ``diffulab_tpu_torch/csrc/`` becomes a shared library with
+a plain C interface, compiled by ``nvcc`` for ``sm_90a`` into
+``diffulab_tpu_torch/_build/`` (ignored by git) under a name keyed by a hash
+of the source and flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is. Nothing here runs at import: the CPU tests import every
+module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: kernel library name -> (source, argtypes of its C entry point of the same name)
+KERNELS = {
+    "fused_mha_fwd": (
+        "csrc/fused_mha_fwd.cu",
+        [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P],
+    ),
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    source = _PKG / KERNELS[name][0]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _tmp(so: Path) -> Path:
+    return so.with_suffix(f".{os.getpid()}.tmp")
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
+    """Start ``nvcc`` for kernel ``name`` unless its library is built."""
+    so = _target(name)
+    if so.exists():
+        return so, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp(so)), str(_PKG / KERNELS[name][0])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return so, proc
+
+
+def _finish(name: str, so: Path, proc: subprocess.Popen | None) -> str:
+    """Wait for one build, move it into place, and return the compiler's log."""
+    log = so.with_suffix(".log")
+    if proc is None:
+        return log.read_text() if log.exists() else ""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{out}")
+    log.write_text(out)
+    os.replace(_tmp(so), so)
+    return out
+
+
+def build_all() -> tuple[float, dict[str, str]]:
+    """Build every kernel library, one ``nvcc`` per source, all started at
+    once. Returns (wall seconds, compiler log per kernel)."""
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in KERNELS}
+    logs = {name: _finish(name, so, proc) for name, (so, proc) in started.items()}
+    return time.perf_counter() - t0, logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    so, proc = _start(name)
+    _finish(name, so, proc)
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, name)
+    fn.argtypes = KERNELS[name][1]
+    fn.restype = ctypes.c_int
+    lib.dl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dl_cuda_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def error_string(err: int) -> str:
+    lib = next(iter(_loaded.values()), None)
+    if lib is None:
+        return "unknown"
+    return lib.dl_cuda_error_string(err).decode()

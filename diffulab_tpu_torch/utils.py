@@ -1,0 +1,47 @@
+"""Small shared utilities (port of diffulab_tpu/utils.py), plus the device
+and dtype rules every entry point of the port follows."""
+
+from __future__ import annotations
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """The port's device rule: ``None`` means the card, and raises where there
+    is none. The CPU is used only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def resolve_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
+    """Accept a torch dtype, its name ("bfloat16", as YAML configs spell it) or None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return _DTYPES[str(dtype)]
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to float32 (or kept wider).
+
+    JAX promotes a bf16 array times a non-weak fp32 0-d array to fp32; torch
+    keeps such a product in bf16. Where the reference multiplies by an fp32
+    scalar (schedule steps, the CFG scale), the port promotes explicitly.
+    """
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def batch_broadcast(values: torch.Tensor, target_ndim: int) -> torch.Tensor:
+    """Reshape a per-sample vector ``[B]`` to ``[B, 1, 1, ...]`` for broadcasting."""
+    return values.reshape(values.shape[0], *([1] * (target_ndim - 1)))
+
+
+def flatten_nonbatch_mean(x: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean over all non-batch dims: ``[B, ...] -> [B]``."""
+    return x.reshape(x.shape[0], -1).mean(dim=-1)

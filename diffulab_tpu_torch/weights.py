@@ -1,0 +1,50 @@
+"""Weight bridge from the JAX package's parameters to the port's modules.
+
+:func:`state_dict_from_jax` takes the JAX model's parameters as a flat dict of
+numpy arrays keyed by the ``/``-joined ``nnx.state(model, nnx.Param)`` paths
+(e.g. ``layers/0/attention/qkv/kernel``) and returns the port model's
+``state_dict``. The port names its modules after the reference's paths, so
+the mapping is by leaf name only:
+
+- ``*/kernel`` of rank 2 ``[in, out]`` -> Linear ``weight`` ``[out, in]``;
+- ``*/kernel`` of rank 4 (HWIO conv) -> ``weight`` OIHW;
+- ``*/bias`` -> ``bias``;
+- ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
+  other ``*/scale`` (RMSNorm) stay ``scale``;
+- ``*/embedding/embedding`` -> ``embedding.weight``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    parts = path.split("/")
+    leaf = parts[-1]
+    if leaf == "kernel":
+        if value.ndim == 2:
+            value = value.T
+        elif value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError(f"unexpected kernel rank {value.ndim} at {path}")
+        parts[-1] = "weight"
+    elif leaf == "scale" and len(parts) > 1 and parts[-2] == "norm":
+        parts[-1] = "weight"
+    elif leaf == "embedding" and len(parts) > 1 and parts[-2] == "embedding":
+        parts[-1] = "weight"
+    elif leaf not in ("bias", "scale"):
+        raise ValueError(f"no port mapping for parameter {path}")
+    return ".".join(parts), value
+
+
+def state_dict_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Map a flat ``{path: array}`` JAX parameter dict to a torch state dict
+    (float arrays keep their dtype; load with ``strict=True``)."""
+    out: dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        key, arr = _torch_key(path, np.asarray(value))
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the time of one DiT-B/2 ``generate`` request goes in the PyTorch/CUDA port.
+
+Builds the model as chip_smoke.py does (bench.py's DiT-B/2, bf16 whole-model
+cast, seeded random weights, batch 16, Euler-50, CFG 4.0), times requests
+without the profiler, then records one request under ``torch.profiler`` and
+prints, from the device's kernel records: the kernel launches per request,
+the device busy time (union of kernel intervals) against the request's wall
+time, and the device time by kernel group and by kernel name.
+
+Run on the card from the repository root: ``python3 scripts/profile_torch_generate.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if "mha_fwd" in low:
+        return "attention (fused_mha_fwd)"
+    if any(tag in low for tag in ("gemm", "xmma", "nvjet", "cutlass", "matmul")):
+        return "matmul (cuBLAS)"
+    if "layer_norm" in low or "layernorm" in low:
+        return "layer_norm"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "vectorized" in low or "unrolled" in low:
+        return "elementwise"
+    if "cat" in low:
+        return "cat"
+    return "other"
+
+
+def main() -> int:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_generate: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    model, _ = chip_smoke.build_models()
+    diffuser = Diffuser(model, "euler", n_steps=chip_smoke.STEPS)
+    shape = (chip_smoke.SAMPLE_BATCH, *chip_smoke.LATENT)
+
+    def request(seed: int) -> float:
+        y = torch.arange(chip_smoke.SAMPLE_BATCH, device="cuda") * 7 % 1000
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diffuser.generate({"y": y}, data_shape=shape, generator=gen,
+                          guidance_scale=chip_smoke.CFG, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    request(0)  # warm-up: cuBLAS heuristics, allocator
+    plain_ms = [request(1 + i) for i in range(5)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = request(10)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    window_us = spans[-1][1] - spans[0][0] if spans else 0.0
+    by_group: dict[str, float] = defaultdict(float)
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        dur = e.time_range.elapsed_us()
+        by_group[_group(e.name)] += dur
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+    total = sum(by_group.values())
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"request wall ms without profiler: {[round(m, 2) for m in plain_ms]} "
+          f"(median {statistics.median(plain_ms):.2f}); traced request wall ms {traced_ms:.2f}")
+    print(f"kernel launches per request: {len(kernels)}; device busy {busy_us / 1e3:.2f} ms of a "
+          f"{window_us / 1e3:.2f} ms kernel window (idle share {1 - busy_us / window_us:.3f})")
+    print("device time by group: " + json.dumps(
+        {g: {"ms": round(t / 1e3, 2), "share": round(t / total, 3)}
+         for g, t in sorted(by_group.items(), key=lambda kv: -kv[1])}))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (t, n) in top:
+        print(f"  {t / 1e3:9.2f} ms  {n:6d} launches  {t / n:8.2f} us each  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

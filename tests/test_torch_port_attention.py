@@ -1,0 +1,119 @@
+"""The port's attention (diffulab_tpu_torch.ops) against the JAX fused kernel.
+
+On the CPU the port's wrapper runs its plain PyTorch version
+(``fused_mha_reference``), which follows the kernel's op order; it is held
+against the Pallas kernel ``_mha_fwd_kernel`` run in interpret mode through
+the reference's ``_fused_path`` — not against ``_xla_path``, which returns
+mean(V) on a fully-masked row where the kernels return 0 (trap T1). The
+cases copy tests/test_fused_mha.py, with the same tolerances: 2e-5 in fp32
+and 3e-2 in bf16. The CUDA kernel itself is held against the same plain
+version on the card by chip_smoke.py.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffulab_tpu.ops.attention import _fused_path
+from diffulab_tpu.ops.fused_mha import _mha_forward
+from diffulab_tpu_torch.ops import dot_product_attention
+from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ, use_fused
+from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_reference
+
+jax_fused = functools.partial(_fused_path, interpret=True)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _qkv(seed, b=2, sq=128, skv=128, h=4, d=64):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((b, sq, h, d), (b, skv, h, d), (b, skv, h, d)))
+
+
+def _both(q, k, v, mask, dtype):
+    """(port output, JAX interpret-mode kernel output) as fp32 numpy."""
+    tdt, jdt = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    ours = dot_product_attention(tq, tk, tv, kv_mask=tmask, impl="auto")
+    assert ours.dtype == tdt and ours.shape == tq.shape
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref = jax_fused(*(jnp.asarray(a, jdt) for a in (q, k, v)), jmask, None)
+    return ours.float().numpy(), np.asarray(ref, np.float32)
+
+
+CASES = {
+    "unmasked": dict(),
+    "key_mask": dict(skv=256, lengths=(200, 77)),
+    "unaligned_100_300": dict(sq=100, skv=300),
+    "cross_attention": dict(sq=256, skv=128),
+}
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_attention_matches_jax_fused_kernel(case, dtype, tol):
+    cfg = dict(CASES[case])
+    lengths = cfg.pop("lengths", None)
+    q, k, v = _qkv(len(case), **cfg)
+    mask = None
+    if lengths is not None:
+        mask = np.arange(k.shape[1])[None, :] < np.asarray(lengths)[:, None]
+    ours, ref = _both(q, k, v, mask, dtype)
+    np.testing.assert_allclose(ours, ref, atol=tol, rtol=tol)
+
+
+def test_lse_matches_jax_kernel_with_mask():
+    q, k, v = _qkv(7, skv=256)
+    mask = np.arange(256)[None, :] < np.array([[200], [77]])
+    o, lse = fused_mha_reference(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
+    jo, jlse = _mha_forward(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask), 64 ** -0.5, True)
+    assert lse.shape == (2, 128, 4) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=2e-5, rtol=2e-5)
+
+
+def test_fully_masked_row_is_zero_with_infinite_lse():
+    q, k, v = _qkv(5, h=2)
+    mask = np.stack([np.zeros(128, bool), np.ones(128, bool)])
+    ours, ref = _both(q, k, v, mask, "float32")
+    np.testing.assert_array_equal(ours[0], 0.0)
+    np.testing.assert_array_equal(ref[0], 0.0)
+    np.testing.assert_allclose(ours[1], ref[1], atol=2e-5, rtol=2e-5)
+    _, lse = fused_mha_reference(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
+    assert torch.isinf(lse[0]).all() and (lse[0] > 0).all()
+    assert torch.isfinite(lse[1]).all()
+
+
+def test_plain_impl_equals_auto_on_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(9, sq=100, skv=300))
+    torch.testing.assert_close(dot_product_attention(q, k, v, impl="xla"),
+                               dot_product_attention(q, k, v, impl="auto"), rtol=0, atol=0)
+
+
+def test_dispatch_limits():
+    assert use_fused((32, 256, 12, 64), 256)  # DiT-B/2
+    assert use_fused((2, 100, 4, 16), 300)
+    assert not use_fused((2, 256, 4, 48), 256)  # head dim without a kernel instance
+    assert not use_fused((2, FUSED_MAX_SEQ + 1, 4, 64), 128)
+    q = torch.zeros(1, 1024, 2, 64)
+    with pytest.raises(NotImplementedError, match="flash"):
+        dot_product_attention(q, q, q)
+    dot_product_attention(q, q, q, impl="xla")  # the plain version takes any shape
+
+
+def test_wrapper_has_no_fallback_off_the_cpu():
+    # a tensor on neither the CPU nor a card is refused rather than computed
+    q = torch.zeros(1, 64, 1, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fused_mha(q, q, q)
