@@ -1,20 +1,32 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``diffulab_tpu_torch``) on one card.
 
-Drives the port's main path — DiT-B/2 class-conditional sampling, Euler-50
-with CFG 4.0 as one fused 2x batch, bf16 whole-model cast, batch 16 on
-32x32x4 latents — through ``Diffuser.generate``, with seeded random weights.
+Drives the port's two main paths with seeded random weights: DiT-B/2
+class-conditional sampling (Euler-50, CFG 4.0 as one fused 2x batch, bf16
+whole-model cast, batch 16 on 32x32x4 latents) through ``Diffuser.generate``,
+and DiT-B/2 rectified-flow training (logit-normal t, v-prediction, p_cfg
+0.1, AdamW with bench.py's lr and weight decay 1e-4, EMA, batch 64) through
+``BaseTrainer.train``.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
-     source, all started at once);
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shape and at the edge cases, with the tolerance stated; timings of
-     the kernel, the plain version and one library call (yardstick only);
+     source, all started at once), with each instance's registers and spills;
+  2. K1 (attention forward) against its plain PyTorch version on the card,
+     at the sampling shape and at the edge cases, with the tolerance stated;
+     timings of the kernel, the plain version and one library call
+     (yardstick only);
   3. the DiT-B/2 forward, kernel path against the same model with the plain
      attention (``attention_impl="xla"``);
   4. three ``generate`` requests, with the kernels' launch counts set to 0
-     just before and read just after: 600 fused-MHA launches per request.
+     just before and read just after: 600 K1 launches per request;
+  5. K2 (attention backward) against its plain version, at the training
+     shape and at the edge cases, with its timings and SDPA's backward as the
+     yardstick;
+  6. the DiT-B/2 parameter gradients of one loss at batch 64, kernel path
+     against plain attention: 12 K1 and 12 K2 launches;
+  7. ``BaseTrainer.train`` for 12 steps plus validation and the best-val
+     checkpoint, with the counts set to 0 just before: 12 K1 + 12 K2 launches
+     in every step; ms per step and samples/s.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -27,9 +39,11 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,6 +55,11 @@ DIT_B2 = dict(simple_dit=True, input_channels=4, inner_dim=768, embedding_dim=76
               stable_conditioning=False)
 LATENT = (32, 32, 4)
 SAMPLE_BATCH = 16
+TRAIN_BATCH = 64
+TRAIN_STEPS = 12
+P_CFG = 0.1
+# every phase runs on cuda:0; on a host with more cards the others stay idle
+CARDS_USED = 1
 STEPS = 50
 CFG = 4.0
 N_REQUESTS = 3
@@ -55,6 +74,21 @@ PEAK_BF16_FLOPS = 989e12
 # bf16 step (2^-8 relative).
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
+# K2 against its plain version, per gradient: |kernel - plain| <= tol * (max|plain| + |plain|).
+# fp32: the same arithmetic in another summation order. bf16: p and ds are
+# rounded to bf16 at the same places in both, but exp/sum rounding can flip
+# a rounding of p, ds or the output by one bf16 step (2^-8 relative), and a
+# gradient element near 0 is a sum of terms as large as the largest one.
+BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# gradients through dot_product_attention against autograd of the plain
+# forward (impl="xla"), which rounds the upstream gradient to bf16 at other
+# places than K2: the bf16 tolerance of tests/test_fused_mha.py
+GRAD_PATH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# DiT-B/2 parameter gradients of one loss at the training batch, per
+# parameter ||kernel path - plain path|| / ||plain path||: the attention
+# forward and backward round in bf16 at other places in the two paths, and 12
+# bf16 blocks carry the difference back
+DIT_GRAD_TOL = 5e-2
 # DiT-B/2 forward, max|kernel path - plain path| / max|plain path|: 12 bf16
 # blocks carry the attention difference forward through bf16 rounding
 DIT_REL_TOL = 5e-2
@@ -98,12 +132,47 @@ def check_close(name, ours, ref, atol, rtol) -> float:
     return max_err
 
 
+def check_grads(name, ours, refs, tol) -> float:
+    """Each gradient within tol * (max|ref| + |ref|) of its reference, both
+    finite; returns the largest absolute error."""
+    import torch
+
+    worst = 0.0
+    for label, o, r in zip(("dq", "dk", "dv"), ours, refs):
+        o, r = o.float(), r.float()
+        if not (bool(torch.isfinite(o).all()) and bool(torch.isfinite(r).all())):
+            fail(f"{name} {label}: non-finite gradient")
+        err = (o - r).abs()
+        if bool((err > tol * (r.abs().max() + r.abs())).any()):
+            fail(f"{name} {label}: max_abs_err {float(err.max()):.3e} beyond {tol} * (max|ref| + |ref|), "
+                 f"max|ref| {float(r.abs().max()):.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def ptxas_usage(log: str) -> dict[str, str]:
+    """``{"kernel<D>": "R regs, S B spilled"}`` from an ``nvcc -Xptxas -v`` log."""
+    usage, current, spill = {}, None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '\w*?(mha_\w+?)ILi(\d+)E", line)
+        if entry:
+            # the anonymous namespace mangles as <len>mha_..._cu_<hash>: keep the last name
+            name = re.split(r"\d+(?=mha_)", entry.group(1))[-1]
+            current, spill = f"{name}<{entry.group(2)}>", 0
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = int(stores.group(1))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and current:
+            usage[current] = f"{regs.group(1)} regs, {spill} B spilled"
+    return usage
+
+
 def phase_build():
     from diffulab_tpu_torch.ops import _build
 
     seconds, logs = _build.build_all()
-    usage = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-             for name, log in logs.items()}
+    usage = {name: ptxas_usage(log) for name, log in logs.items()}
     print(f"phase 1 build: {len(logs)} kernel libraries in {seconds:.1f} s; ptxas: {json.dumps(usage)}")
 
 
@@ -302,6 +371,240 @@ def phase_generate(model, plain):
     return total_launches, ms
 
 
+def phase_kernel_bwd():
+    """K2 against its plain version on the same CUDA inputs, from the lse K1 gives."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    def both(q, k, v, do, mask=None):
+        _, lse = fused_mha(q, k, v, mask)
+        return fused_mha_bwd(q, k, v, mask, lse, do), fused_mha_bwd_reference(q, k, v, mask, lse, do)
+
+    with torch.no_grad():
+        # the training shape, q/k/v as views of one packed qkv projection output
+        b, s, h, d = TRAIN_BATCH, 256, 12, 64
+        qkv = rand(b, s, 3 * h * d, dtype=torch.bfloat16)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+        do = rand(b, s, h, d, dtype=torch.bfloat16)
+        _, lse = fused_mha(q, k, v)
+        ours = fused_mha_bwd(q, k, v, None, lse, do)
+        err = check_grads("main bf16", ours, fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["bfloat16"])
+        kernel_ms = cuda_time_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), iters=100)
+        plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=10)
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
+                                  iters=100)
+        del out
+    elem = q.element_size()
+    bytes_moved = 7 * b * s * h * d * elem + b * s * h * 4  # q, k, v, do, dq, dk, dv once each + lse
+    flops = 10 * b * h * s * s * d  # the recomputed s and four products
+    bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+    bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
+    print(f"phase 5 kernel K2 main B={b} S={s} H={h} D={d} bf16: max_abs_err {err:.3e} "
+          f"(tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {library_ms:.4f} (SDPA backward) bound_us {bound_ms * 1e3:.2f} "
+          f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by)
+
+    with torch.no_grad():
+        # fp32 at the training shape (the library's default dtype=None trains in fp32)
+        q32, k32, v32, do32 = (rand(b, s, h, d, dtype=torch.float32) for _ in range(4))
+        err32 = check_grads("main fp32", *both(q32, k32, v32, do32), BWD_TOL["float32"])
+        _, lse32 = fused_mha(q32, k32, v32)
+        ms32 = cuda_time_ms(lambda: fused_mha_bwd(q32, k32, v32, None, lse32, do32), iters=10)
+        del q32, k32, v32, do32, lse32
+    print(f"phase 5 kernel K2 main fp32: max_abs_err {err32:.3e} (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); "
+          f"kernel_ms {ms32:.4f}")
+
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        tol = BWD_TOL[name]
+        with torch.no_grad():
+            # ragged key mask
+            q, k, v, do = (rand(4, 256, 4, 64, dtype=dtype) for _ in range(4))
+            lengths = torch.tensor([256, 200, 77, 1], device="cuda")
+            mask = torch.arange(256, device="cuda")[None, :] < lengths[:, None]
+            e_mask = check_grads(f"mask {name}", *both(q, k, v, do, mask), tol)
+            # cross-attention 256 queries / 128 keys
+            q, do = rand(2, 256, 4, 64, dtype=dtype), rand(2, 256, 4, 64, dtype=dtype)
+            k, v = rand(2, 128, 4, 64, dtype=dtype), rand(2, 128, 4, 64, dtype=dtype)
+            e_cross = check_grads(f"cross {name}", *both(q, k, v, do), tol)
+            # head dims of the other instances
+            e_dims = max(check_grads(f"D={hd} {name}", *both(*(rand(2, 128, 2, hd, dtype=dtype) for _ in range(4))), tol)
+                         for hd in (16, 32, 128))
+            # a fully-masked row: its gradients exactly 0
+            q, k, v, do = (rand(2, 128, 2, 64, dtype=dtype) for _ in range(4))
+            mask = torch.stack([torch.zeros(128, dtype=torch.bool, device="cuda"),
+                                torch.ones(128, dtype=torch.bool, device="cuda")])
+            ours, ref = both(q, k, v, do, mask)
+            if not all(bool((g[0] == 0).all()) for g in ours):
+                fail(f"fully-masked row {name}: gradients not exactly 0")
+            e_full = check_grads(f"fully-masked other row {name}", [g[1] for g in ours], [g[1] for g in ref], tol)
+        # unaligned 100 / 300 with grad through the padding entry point
+        qs, ks, vs = rand(2, 100, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+        do = rand(2, 100, 4, 64, dtype=dtype)
+        grads = []
+        for impl in ("auto", "xla"):
+            leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+            out = dot_product_attention(*leaves, impl=impl)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        e_unal = check_grads(f"unaligned {name}", *grads, GRAD_PATH_TOL[name])
+        print(f"phase 5 kernel K2 edge cases {name} (tol {tol} * (max|ref| + |ref|)): max_abs_err "
+              f"mask {e_mask:.3e} cross_256_128 {e_cross:.3e} D16/32/128 {e_dims:.3e} fully_masked_row "
+              f"grads==0 other_row {e_full:.3e}; unaligned_100_300 autograd vs plain-forward autograd "
+              f"{e_unal:.3e} (tol {GRAD_PATH_TOL[name]})")
+    torch.cuda.synchronize()
+    return result
+
+
+def phase_gradients(model, plain):
+    """One compute_loss at the training batch through the kernel path (K1 and
+    K2) against the same weights through the plain attention."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.networks.nn import make_drop_mask
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b = TRAIN_BATCH
+    x0 = torch.randn(b, *LATENT, generator=gen, device="cuda").bfloat16()
+    y = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    diffusers = [Diffuser(m, "euler", extra_args={"logits_normal": True}) for m in (model, plain)]
+    t = diffusers[0].draw_timesteps(gen, b)
+    noise = torch.randn(x0.shape, generator=gen, device="cuda", dtype=x0.dtype)
+    drop = make_drop_mask(gen, P_CFG, b)
+    grads, losses = [], []
+    for diffuser in diffusers:
+        diffuser.denoiser.zero_grad(set_to_none=True)
+        before = dict(LAUNCHES)
+        loss = diffuser.compute_loss(x0, {"y": y}, t, noise, drop=drop)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        grads.append({n: p.grad for n, p in diffuser.denoiser.named_parameters()})
+        losses.append(float(loss.detach()))
+        if diffuser.denoiser is model and launched != {"fused_mha_fwd": DIT_B2["depth"], "fused_mha_bwd": DIT_B2["depth"]}:
+            fail(f"DiT-B/2 gradients: kernel path launched {launched}, expected {DIT_B2['depth']} of each")
+    worst, worst_name = 0.0, None
+    for name, g in grads[0].items():
+        r = grads[1][name]
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            fail(f"DiT-B/2 gradients: {name} missing or non-finite")
+        rel = float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > DIT_GRAD_TOL or not math.isfinite(losses[0]):
+        fail(f"DiT-B/2 gradients: worst relative error {worst:.3e} at {worst_name} (tol {DIT_GRAD_TOL}), "
+             f"loss {losses[0]}")
+    for m in (model, plain):
+        m.zero_grad(set_to_none=True)
+    print(f"phase 6 DiT-B/2 gradients B={b} bf16: loss kernel path {losses[0]:.6f} plain {losses[1]:.6f}; "
+          f"{len(grads[0])} parameter gradients, worst ||kernel - plain|| / ||plain|| {worst:.3e} at {worst_name} "
+          f"(tol {DIT_GRAD_TOL}); {DIT_B2['depth']} K1 + {DIT_B2['depth']} K2 launches")
+
+
+class TimedLoader:
+    """An in-memory loader that waits for the card and stamps the time and
+    the kernels' launch counts each time the trainer asks for a batch, and
+    once after the last: the differences are the steps."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.marks: list[tuple[float, dict[str, int]]] = []
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def _mark(self) -> None:
+        import torch
+
+        from diffulab_tpu_torch.ops.fused_mha import LAUNCHES
+
+        torch.cuda.synchronize()
+        self.marks.append((time.perf_counter(), dict(LAUNCHES)))
+
+    def __iter__(self):
+        for batch in self.batches:
+            self._mark()
+            yield batch
+        self._mark()
+
+
+def phase_train(model):
+    """BaseTrainer.train, one epoch of TRAIN_STEPS batches plus validation on
+    the EMA weights and the best-val checkpoint."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES
+    from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+    from diffulab_tpu_torch.training.optim import adamw
+    from diffulab_tpu_torch.training.trainer import BaseTrainer
+
+    # the tracker takes its JSONL path: wandb, where it is installed, is neither
+    # imported nor contacted
+    sys.modules["wandb"] = None
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def batch():
+        return {"model_inputs": {"x": torch.randn(TRAIN_BATCH, *LATENT, generator=gen, device="cuda").bfloat16(),
+                                 "y": torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen, device="cuda")}}
+
+    loader = TimedLoader([batch() for _ in range(TRAIN_STEPS)])
+    val = [batch()]
+    diffuser = Diffuser(model, "euler", n_steps=STEPS, extra_args={"logits_normal": True})
+    depth = DIT_B2["depth"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = BaseTrainer(n_epoch=1, save_path=tmp, project_name="chip_smoke", use_ema=True)  # the card
+        torch.cuda.reset_peak_memory_stats()
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        trainer.train(diffuser, adamw(lr=1e-4, weight_decay=1e-4), loader, val,
+                      p_classifier_free_guidance=P_CFG, log_validation_images=False, seed=0)
+        launches = dict(LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        run = Path(tmp) / "chip_smoke"
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
+        for part in ("denoiser", "optimizer", "ema", "scheduler"):
+            if not (run / "checkpoints" / part / "state.pt").is_file():
+                fail(f"train: no best-val checkpoint entry {part}")
+        saved = restore_checkpoint(run / "checkpoints" / "denoiser")["params"]
+        live = model.state_dict()
+        if set(saved) != set(live) or not all(torch.equal(saved[k], live[k].cpu()) for k in live):
+            fail("train: the best-val denoiser checkpoint does not restore to the trained weights")
+    if trainer.step != TRAIN_STEPS or len(losses) != 1 or not math.isfinite(losses[0]) \
+            or not all(math.isfinite(v) for v in val_losses):
+        fail(f"train: step counter {trainer.step}, train losses {losses}, val losses {val_losses}")
+    times, per_step = [], []
+    for (t0, c0), (t1, c1) in zip(loader.marks[:-1], loader.marks[1:]):
+        times.append((t1 - t0) * 1e3)
+        per_step.append((c1["fused_mha_fwd"] - c0["fused_mha_fwd"], c1["fused_mha_bwd"] - c0["fused_mha_bwd"]))
+    if per_step != [(depth, depth)] * TRAIN_STEPS:
+        fail(f"train: kernel launches per step (K1, K2) {per_step}, expected ({depth}, {depth}) each")
+    steady = statistics.median(times[2:])
+    print(f"phase 7 BaseTrainer.train DiT-B/2 bf16 batch {TRAIN_BATCH} AdamW(lr 1e-4, wd 1e-4) EMA p_cfg {P_CFG}: "
+          f"{TRAIN_STEPS} steps, ms/step {[round(m, 2) for m in times]} (median after the first two "
+          f"{steady:.2f}), samples/s {TRAIN_BATCH / steady * 1e3:.1f}; train loss {losses[0]:.5f}, val loss "
+          f"(EMA) {val_losses[0]:.5f}; launches per step {depth} K1 + {depth} K2, in the run {launches} "
+          f"(K1 includes the validation forward); peak mem {peak_gib:.2f} GiB; best-val checkpoint written "
+          f"and restored")
+    return launches, times
+
+
 def main() -> int:
     try:
         import torch
@@ -324,7 +627,11 @@ def main() -> int:
     kernel = phase_kernel()
     model, plain = build_models()
     phase_forward(model, plain)
-    launches, _ = phase_generate(model, plain)
+    gen_launches, _ = phase_generate(model, plain)
+    k2 = phase_kernel_bwd()
+    phase_gradients(model, plain)
+    del plain
+    train_launches, _ = phase_train(model)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -335,16 +642,25 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
-        "launches": launches,
+        "launches": gen_launches + train_launches["fused_mha_fwd"],
+        "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+    }, {
+        "name": "fused_mha_bwd",
+        "route": "cuda",
+        "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
+        "replaces": "diffulab_tpu/ops/fused_mha.py:87",
+        "launches": train_launches["fused_mha_bwd"],
+        "launches_by_path": {"train": train_launches["fused_mha_bwd"]},
+        **k2,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+                                             "count": CARDS_USED}}))
     return 0
 
 

@@ -10,13 +10,16 @@ or ``diffulab_tpu``. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on a machine without a card they raise instead of falling
 back to the CPU.
 
-Ported so far (slice A1, serving): class-conditional DiT sampling —
-:class:`~diffulab_tpu_torch.networks.denoisers.mmdit.MMDiT` with
-``simple_dit=True``, the rectified-flow :class:`~diffulab_tpu_torch.diffuse.flow.Flow`
-with the Euler sampler and fused 2x CFG, and
-:meth:`~diffulab_tpu_torch.diffuse.diffuser.Diffuser.generate` in pixel mode,
-with attention in the fused multi-head forward kernel
-(``csrc/fused_mha_fwd.cu``).
+Ported so far: slice A1, serving — class-conditional DiT sampling with
+:class:`~diffulab_tpu_torch.networks.denoisers.mmdit.MMDiT` (``simple_dit=True``),
+the rectified-flow :class:`~diffulab_tpu_torch.diffuse.flow.Flow` with the
+Euler sampler and fused 2x CFG, and
+:meth:`~diffulab_tpu_torch.diffuse.diffuser.Diffuser.generate` in pixel mode;
+slice A2, training — the flow-matching loss and
+:class:`~diffulab_tpu_torch.training.trainer.BaseTrainer` with AdamW, EMA,
+accumulation and torch-format checkpoints. Attention runs in the fused
+multi-head kernels, forward (``csrc/fused_mha_fwd.cu``) and backward
+(``csrc/fused_mha_bwd.cu``).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,14 @@
 """Diffuser facade binding a denoiser to a formalization (port of
-diffulab_tpu/diffuse/diffuser.py), sampling side, pixel mode.
+diffulab_tpu/diffuse/diffuser.py), pixel mode.
 
 ``generate`` runs the reverse process eagerly under ``torch.no_grad()``: the
 reference jit-compiles one program per sampling configuration, the port runs
 the same steps as launches on the card (a CUDA graph is later work).
+``compute_loss`` is the training loss the trainer differentiates.
 
 Not ported yet (they raise ``NotImplementedError``): latent mode
 (``vision_tower``), intermediates, inpainting, img2img, autoguidance, block
-caching, the training loss, and the Gaussian/EDM formalizations.
+caching, extra losses, the GRPO loss, and the Gaussian/EDM formalizations.
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ class Diffuser:
         if vision_tower is not None:
             raise NotImplementedError("latent diffusion (vision_tower) is ROADMAP slice B")
         if extra_losses:
-            raise NotImplementedError("extra losses belong to the training slice (ROADMAP slice A2)")
+            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
         self.model_type = model_type
+        self.extra_losses: list[Any] = []
         self.denoiser = denoiser
         self.n_steps = n_steps
         self.vision_tower = vision_tower
@@ -61,6 +63,28 @@ class Diffuser:
         def fn(x, timesteps, cond, drop):
             return self.denoiser(x=x, timesteps=timesteps, cond=cond, drop=drop, train=train)
         return fn
+
+    def draw_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        return self.diffusion.draw_timesteps(generator, batch_size)
+
+    def compute_loss(
+        self,
+        x0: torch.Tensor,
+        cond: dict[str, Any],
+        timesteps: torch.Tensor,
+        noise: torch.Tensor,
+        drop: torch.Tensor | None = None,
+        extra_args: dict[str, Any] | None = None,
+        train: bool = True,
+        grpo: bool = False,
+    ) -> dict[str, torch.Tensor]:
+        """The training loss (diffuser.py:117) with the given t, noise and drop mask."""
+        if grpo:
+            raise NotImplementedError("the GRPO loss is not ported yet (ROADMAP queue 1, item 16)")
+        return self.diffusion.compute_loss(
+            self.model_fn(train=train), x0, cond, timesteps, noise,
+            drop=drop, extra_losses=self.extra_losses, extra_args=extra_args,
+        )
 
     def set_steps(self, n_steps: int, **kwargs: Any) -> None:
         """Swap the sampling schedule (diffuser.py:82)."""

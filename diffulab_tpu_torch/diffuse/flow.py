@@ -1,14 +1,19 @@
-"""Rectified-flow / flow-matching formalization, sampling side (port of
+"""Rectified-flow / flow-matching formalization (port of
 diffulab_tpu/diffuse/flow.py).
 
-The reverse process runs the reference's ``lax.scan`` as a Python loop over
-the fp32 timestep grid, with classifier-free guidance as ONE batched 2x model
-call per step. The model is an opaque callable
-``model_fn(x, timesteps, cond, drop)`` returning ``{"x": prediction}``.
+The forward process is ``x_t = (1 - t)·x0 + t·eps``; the training loss is the
+MSE between the model velocity and ``eps - x0`` (with the x-prediction
+conversion ``v = (x_t - x0_hat) / t``); timesteps are drawn uniform or
+logit-normal with a ``torch.Generator``, optionally time-shifted. The reverse
+process runs the reference's ``lax.scan`` as a Python loop over the fp32
+timestep grid, with classifier-free guidance as ONE batched 2x model call per
+step. The model is an opaque callable ``model_fn(x, timesteps, cond, drop)``
+returning ``{"x": prediction}``.
 
-Not ported yet (they raise ``NotImplementedError``): the training loss and
-timestep draws (ROADMAP slice A2), samplers other than Euler, inpainting,
-img2img, autoguidance and block caching.
+Not ported yet (they raise ``NotImplementedError``): extra losses (REPA,
+ROADMAP item 13), guidance distillation, samplers other than Euler,
+inpainting, img2img, autoguidance, block caching and the GRPO loss (items 7,
+15, 16).
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ import torch
 from diffulab_tpu_torch.diffuse.guidance import combine_cfg, effective_scale
 from diffulab_tpu_torch.diffuse.samplers.common import StepResult
 from diffulab_tpu_torch.diffuse.samplers.flow import Euler
-from diffulab_tpu_torch.diffuse.schedules import flow_linear_timesteps
-from diffulab_tpu_torch.utils import at_least_f32
+from diffulab_tpu_torch.diffuse.schedules import flow_linear_timesteps, shift_timestep
+from diffulab_tpu_torch.utils import at_least_f32, batch_broadcast, flatten_nonbatch_mean
 
 ModelFn = Callable[..., dict[str, torch.Tensor]]
 
@@ -64,7 +69,7 @@ def _cfg_model_call(
 
 @dataclasses.dataclass(frozen=True)
 class Flow:
-    """Continuous-time flow matching (Lipman et al. 2022), sampling side."""
+    """Continuous-time flow matching (Lipman et al. 2022)."""
 
     n_steps: int = 50
     sampling_method: str = "euler"
@@ -111,6 +116,69 @@ class Flow:
         """A new Flow with another timestep grid."""
         return dataclasses.replace(self, n_steps=n_steps, schedule=schedule, shift=shift)
 
+    # --- forward process ----------------------------------------------------
+    def at(self, timesteps: torch.Tensor) -> torch.Tensor:
+        return 1.0 - timesteps
+
+    def bt(self, timesteps: torch.Tensor) -> torch.Tensor:
+        return timesteps
+
+    def draw_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
+        """fp32 ``[batch_size]`` on the generator's device (flow.py:161):
+        logit-normal or uniform, then the shift, then the x-prediction clip."""
+        kw = dict(generator=generator, device=generator.device, dtype=torch.float32)
+        if self.logits_normal:
+            t = torch.sigmoid(torch.randn((batch_size,), **kw))
+        else:
+            t = torch.rand((batch_size,), **kw)
+        if self.shift is not None:
+            t = shift_timestep(t, self.shift)
+        if self.x_prediction:
+            t = torch.clamp(t, min=0.05)
+        return t
+
+    def add_noise(
+        self, x: torch.Tensor, timesteps: torch.Tensor, noise: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(at·x + bt·noise, noise)`` with at/bt cast to x's dtype first, as
+        the reference does (flow.py:175-176): at bf16 x the mix is bf16 (T10)."""
+        at = batch_broadcast(self.at(timesteps), x.ndim).to(x.dtype)
+        bt = batch_broadcast(self.bt(timesteps), x.ndim).to(x.dtype)
+        return at * x + bt * noise, noise
+
+    # --- training loss ------------------------------------------------------
+    def compute_loss(
+        self,
+        model_fn: ModelFn,
+        x0: torch.Tensor,
+        cond: dict[str, Any],
+        timesteps: torch.Tensor,
+        noise: torch.Tensor,
+        drop: torch.Tensor | None = None,
+        extra_losses: Sequence[Any] = (),
+        extra_args: dict[str, Any] | None = None,
+        distill_fn: ModelFn | None = None,
+        distill_guidance: float = 0.0,
+    ) -> dict[str, torch.Tensor]:
+        """Flow-matching MSE (flow.py:180), with t, noise and the CFG drop
+        mask given by the caller. ``(noise - x0)`` is formed in x0's dtype and
+        only then promoted against the fp32 prediction (T10)."""
+        del extra_args
+        if distill_fn is not None:
+            raise NotImplementedError("guidance distillation is not ported yet (ROADMAP queue 1, item 15)")
+        if extra_losses:
+            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
+        xt, noise = self.add_noise(x0, timesteps, noise)
+        if drop is None:
+            drop = torch.zeros((x0.shape[0],), dtype=torch.bool, device=x0.device)
+        v_pred = model_fn(x=xt, timesteps=timesteps, cond=cond, drop=drop)["x"]
+        if self.x_prediction:
+            # bf16 / fp32 [B,1,..] promotes to fp32, as in JAX
+            v_pred = (xt - v_pred) / batch_broadcast(timesteps, xt.ndim)
+        losses = ((noise - x0) - v_pred.float()) ** 2
+        return {"loss": flatten_nonbatch_mean(losses).mean()}
+
+    # --- one reverse step ---------------------------------------------------
     def get_v(
         self,
         model_fn: ModelFn,

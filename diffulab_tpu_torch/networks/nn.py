@@ -169,6 +169,15 @@ class LabelEmbed(nn.Module):
         return out.to(self.dtype) if self.dtype is not None else out
 
 
+def make_drop_mask(generator: torch.Generator, p: float, batch_size: int,
+                   device: str | torch.device | None = None) -> torch.Tensor:
+    """Per-sample CFG condition-drop mask, True with probability ``p``
+    (nn.py:441), drawn with ``generator`` on ``device`` (default: the
+    generator's device)."""
+    device = generator.device if device is None else device
+    return torch.rand((batch_size,), generator=generator, device=device) < p
+
+
 class ModulationOut:
     """Six-way adaLN modulation parameters (nn.py:473)."""
 

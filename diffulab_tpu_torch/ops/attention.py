@@ -17,7 +17,9 @@ reference's ``[B, S, H, D]`` layout. Dispatch:
 
 Sequences are padded to :data:`MIN_BLOCK` multiples with a synthesized key
 mask, and padded query rows are sliced off, as in the reference's
-``_fused_path``.
+``_fused_path``. Both are differentiable: under grad the fused path goes
+through :class:`~diffulab_tpu_torch.ops.fused_mha.FusedMHA` (backward K2),
+and ``impl="xla"`` differentiates through the plain forward itself.
 """
 
 from __future__ import annotations

@@ -1,0 +1,570 @@
+"""Supervised trainer on one card (port of diffulab_tpu/training/trainer.py).
+
+The reference runs one jitted, sharded train step over a device mesh; here
+one eager step runs on one card: the loss through the model (attention
+forward K1 and backward K2 on the card), ``.backward()``, and the optimizer
+with optax's accumulation and clipping rules. Mirrored from the reference:
+
+- per step, t, the noise and the CFG drop mask are drawn from one
+  ``torch.Generator`` on the card, seeded from (seed, step) so that a resumed
+  run draws what the uninterrupted one would (the reference folds the step
+  into its key);
+- gradient accumulation with ``optax.MultiSteps`` semantics
+  (:class:`MultiStepOptimizer`: the mean of k micro-gradients, one update
+  every k micro-steps, Adam's bias correction counting updates only);
+- the scheduler as a ``LambdaLR`` multiplier with the reference's
+  per-epoch or per-batch index (trainer.py:584-598);
+- EMA with ema-pytorch semantics on the raw micro-step counter, with
+  ``update_after_step`` and ``update_every`` multiplied by the accumulation
+  (trainer.py:113-119);
+- per-epoch train-loss means (one host sync per epoch), the validation loss
+  on the EMA weights where there are any, validation images through
+  ``Diffuser.generate``, best-val checkpoints, periodic "latest" sets and
+  ``auto_resume`` (torch-format checkpoints, :mod:`.checkpoint`).
+
+:func:`train_step` does one step with its randomness given, so that the
+parity tests can inject the reference's draws; the loop draws and calls it.
+
+Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1): post-hoc
+EMA (item 8), augmentation (``augment_p > 0``, item 15), guidance
+distillation (``distill_teacher``, item 15), LoRA (``lora_only``, item 16),
+trainable embedders and text batches (``train_embedder``,
+``initial_context``, item 9), reflow batches (``coupled_noise``, item 15)
+and meshes of more than one device (item 17).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import logging as pylog
+import shutil
+from datetime import datetime
+from pathlib import Path
+from typing import Any, Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from diffulab_tpu_torch.diffuse.diffuser import Diffuser
+from diffulab_tpu_torch.networks.nn import make_drop_mask
+from diffulab_tpu_torch.training.checkpoint import (
+    STATE_FILE,
+    AsyncCheckpointer,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from diffulab_tpu_torch.training.ema import EMAConfig, ema_update, init_ema
+from diffulab_tpu_torch.training.logging import Tracker
+from diffulab_tpu_torch.training.meters import AverageMeter
+from diffulab_tpu_torch.training.optim import OptimizerFactory, clip_by_global_norm
+from diffulab_tpu_torch.utils import resolve_device
+
+logger = pylog.getLogger(__name__)
+
+#: post-hoc EMA profile widths of the reference (posthoc_ema.py DEFAULT_GAMMAS)
+DEFAULT_GAMMAS: tuple[float, float] = (6.94, 16.97)
+#: offset of the validation draws' seeds, as the reference's fold_in(rng, 1_000_000 + i)
+_VAL_SEED_OFFSET = 1_000_000
+_IMAGE_SEED_OFFSET = 10_000
+
+
+def _fold_seed(seed: int, index: int) -> int:
+    """A generator seed for draw ``index`` of the run seeded ``seed``."""
+    return (int(seed) * 1_000_003 + int(index)) % (2**63)
+
+
+class MultiStepOptimizer:
+    """A torch optimizer under ``optax.MultiSteps`` semantics.
+
+    Call :meth:`step` after each micro-batch's ``backward()``. Every
+    ``every_k``-th call divides the summed gradients by k (``backward()``
+    sums, MultiSteps averages), clips them by global norm with optax's rule
+    when ``grad_clip_norm`` is set, steps the optimizer and the scheduler
+    and zeroes the gradients; the calls in between only accumulate.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1,
+                 grad_clip_norm: float | None = None,
+                 scheduler: torch.optim.lr_scheduler.LRScheduler | None = None):
+        self.optimizer = optimizer
+        self.every_k = int(every_k)
+        self.grad_clip_norm = grad_clip_norm
+        self.scheduler = scheduler
+        self.mini_step = 0
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def _params(self) -> list[torch.nn.Parameter]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def step(self) -> bool:
+        """Returns whether this call applied an update."""
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return False
+        grads = [p.grad for p in self._params() if p.grad is not None]
+        if self.every_k > 1:
+            torch._foreach_div_(grads, float(self.every_k))
+        if self.grad_clip_norm:
+            clip_by_global_norm(grads, self.grad_clip_norm)
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict[str, Any]:
+        acc = {}
+        if self.mini_step:
+            acc = {str(i): p.grad for i, p in enumerate(self._params()) if p.grad is not None}
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
+            "mini_step": self.mini_step,
+            "acc_grads": acc,
+        }
+
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.scheduler is not None and state.get("scheduler") is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+        self.mini_step = int(state.get("mini_step", 0))
+        params = self._params()
+        for i, grad in state.get("acc_grads", {}).items():
+            params[int(i)].grad = grad.to(device=params[int(i)].device, dtype=params[int(i)].dtype)
+
+
+@dataclasses.dataclass
+class EMA:
+    """The EMA of the trainable parameters: fp32 tensors by parameter name."""
+
+    config: EMAConfig
+    params: dict[str, torch.Tensor]
+
+    def update(self, params: dict[str, torch.Tensor], step: int) -> None:
+        ema_update(self.config, self.params, params, step)
+
+
+def _check_ported(model_inputs: dict[str, Any]) -> None:
+    if "coupled_noise" in model_inputs:
+        raise NotImplementedError("reflow batches (coupled_noise) are not ported yet (ROADMAP queue 1, item 15)")
+    if "initial_context" in model_inputs or "context" in model_inputs:
+        raise NotImplementedError("text-conditioned batches are not ported yet (ROADMAP queue 1, items 9 and 11)")
+
+
+def split_batch(batch: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
+    """(x0, conditioning) of a prepared batch; raises on batch keys whose
+    paths are not ported."""
+    model_inputs = dict(batch["model_inputs"])
+    _check_ported(model_inputs)
+    return model_inputs.pop("x"), model_inputs
+
+
+def train_step(
+    diffuser: Diffuser,
+    optimizer: MultiStepOptimizer,
+    ema: EMA | None,
+    batch: dict[str, Any],
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    drop: torch.Tensor | None,
+    step: int,
+) -> dict[str, torch.Tensor]:
+    """One micro-step with its randomness given (trainer.py:371-386): the
+    loss, its gradients, the (accumulated) optimizer update and the EMA
+    update at the raw counter ``step``. Returns the detached losses."""
+    x0, cond = split_batch(batch)
+    losses = diffuser.diffusion.compute_loss(diffuser.model_fn(train=True), x0, cond, t, noise, drop=drop)
+    sum(losses.values()).backward()
+    optimizer.step()
+    if ema is not None:
+        ema.update(dict(diffuser.denoiser.named_parameters()), step)
+    return {key: value.detach() for key, value in losses.items()}
+
+
+class Trainer:
+    """Run set-up: device, tracker, save paths (reference trainers/common.py:72-114)."""
+
+    def __init__(
+        self,
+        n_epoch: int,
+        gradient_accumulation_step: int = 1,
+        precision_type: str = "no",
+        save_path: str | Path | None = None,
+        project_name: str = "my_project",
+        run_config: dict[str, Any] | None = None,
+        init_kwargs: dict[str, Any] | None = None,
+        use_ema: bool = False,
+        ema_rate: float = 0.999,
+        ema_update_after_step: int = 0,
+        ema_update_every: int = 10,
+        ema_inv_gamma: float = 1.0,
+        ema_power: float = 2.0 / 3.0,
+        mesh: Any = None,
+        compile: bool = True,  # noqa: A002 - parity with the reference flag; the port runs eagerly
+        log_every_n_steps: int | None = None,
+        async_checkpointing: bool = True,
+        posthoc_ema: bool = False,
+        posthoc_ema_gammas: tuple[float, ...] = DEFAULT_GAMMAS,
+        save_every_n_epochs: int | None = None,
+        save_optimizer: bool = True,
+        augment_p: float = 0.0,
+        distill_guidance: float = 0.0,
+        device: str | torch.device | None = None,
+    ):
+        del compile, posthoc_ema_gammas, distill_guidance  # config parity: their paths raise or are unported
+        if posthoc_ema:
+            raise NotImplementedError("post-hoc EMA is not ported yet (ROADMAP queue 1, item 8)")
+        if augment_p > 0:
+            raise NotImplementedError("augmentation (augment_p > 0) is not ported yet (ROADMAP queue 1, item 15)")
+        if mesh is not None:
+            sizes = mesh if isinstance(mesh, dict) else dataclasses.asdict(mesh)
+            if any(int(n) not in (1, -1) for n in sizes.values()):
+                raise NotImplementedError(
+                    f"a mesh of more than one device ({sizes}) is not ported yet (ROADMAP queue 1, item 17)"
+                )
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.n_epoch = n_epoch
+        self.log_every_n_steps = log_every_n_steps
+        self.gradient_accumulation_step = gradient_accumulation_step
+        self.precision_type = precision_type
+        self.use_ema = use_ema
+        self.ema_config = EMAConfig(
+            beta=ema_rate,
+            update_after_step=ema_update_after_step * gradient_accumulation_step,
+            update_every=ema_update_every * gradient_accumulation_step,
+            inv_gamma=ema_inv_gamma,
+            power=ema_power,
+        )
+        self.save_every_n_epochs = save_every_n_epochs
+        self.save_optimizer = save_optimizer
+        if save_path is None:
+            save_path = Path.home() / "experiments" / datetime.now().strftime("%Y%m%d_%H%M%S")
+        self.save_path = Path(save_path) / project_name
+        self.tracker = Tracker(self.save_path, project_name=project_name, run_config=run_config,
+                               init_kwargs=init_kwargs)
+        self._async_ckptr = AsyncCheckpointer() if async_checkpointing else None
+        #: the raw micro-step counter, after train()
+        self.step = 0
+
+    # ------------------------------------------------------------------ #
+    def _write(self, entries: dict[Path, dict[str, Any]]) -> None:
+        if self._async_ckptr is not None:
+            self._async_ckptr.save(entries)
+        else:
+            for path, payload in entries.items():
+                save_checkpoint(path, payload)
+
+    def save_model(self, params: dict[str, torch.Tensor], opt_state: dict[str, Any],
+                   ema_params: dict[str, torch.Tensor] | None, step: int) -> None:
+        """Best-val checkpoint (reference trainers/common.py:130-176 artifact set)."""
+        base = self.save_path / "checkpoints"
+        entries: dict[Path, dict[str, Any]] = {base / "denoiser": {"params": params}}
+        if self.save_optimizer:
+            entries[base / "optimizer"] = {"opt_state": opt_state}
+        if ema_params is not None:
+            entries[base / "ema"] = {"params": ema_params}
+        entries[base / "scheduler"] = {"step": step}
+        self._write(entries)
+
+    def save_latest(self, params: dict[str, torch.Tensor], opt_state: dict[str, Any],
+                    ema_params: dict[str, torch.Tensor] | None, step: int, epoch: int,
+                    best_val_loss: float = float("inf")) -> None:
+        """Preemption checkpoint in ``checkpoints_latest/ep<N>/``: the full set
+        plus resume metadata, the scheduler entry written last so that its
+        presence marks the set complete; the previous set is removed first."""
+        root = self.save_path / "checkpoints_latest"
+        self.wait_for_checkpoints()
+        keep = f"ep{epoch:06d}"
+        if root.exists():
+            for old in root.iterdir():
+                if old.name != keep:
+                    shutil.rmtree(old, ignore_errors=True)
+        base = root / keep
+        entries: dict[Path, dict[str, Any]] = {
+            base / "denoiser": {"params": params},
+            base / "optimizer": {"opt_state": opt_state},
+        }
+        if ema_params is not None:
+            entries[base / "ema"] = {"params": ema_params}
+        entries[base / "scheduler"] = {
+            "step": step, "epoch": epoch,
+            "best_val_loss": best_val_loss if np.isfinite(best_val_loss) else 1e30,
+        }
+        self._write(entries)
+
+    @staticmethod
+    def find_latest_checkpoint(root: Path) -> Path | None:
+        """Newest COMPLETE ``checkpoints_latest/ep*`` set."""
+        if not root.exists():
+            return None
+        for cand in sorted(root.glob("ep*"), reverse=True):
+            if all((cand / part / STATE_FILE).is_file() for part in ("scheduler", "denoiser", "optimizer")):
+                return cand
+        return None
+
+    def wait_for_checkpoints(self) -> None:
+        """Join the in-flight background save (re-raising write errors)."""
+        if self._async_ckptr is not None:
+            self._async_ckptr.wait()
+
+
+@contextlib.contextmanager
+def _swapped_params(model: torch.nn.Module, params: dict[str, torch.Tensor] | None) -> Iterator[None]:
+    """Run the block with ``params`` (e.g. the EMA) in the model's parameters,
+    then put the live ones back."""
+    if params is None:
+        yield
+        return
+    live = dict(model.named_parameters())
+    saved = {name: p.detach().clone() for name, p in live.items()}
+    with torch.no_grad():
+        for name, p in live.items():
+            p.copy_(params[name])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for name, p in live.items():
+                p.copy_(saved[name])
+
+
+class BaseTrainer(Trainer):
+    """Supervised diffusion training loop (reference base_trainer.py:22-399)."""
+
+    def _prepare_batch(self, batch: dict[str, Any]) -> dict[str, Any]:
+        """Every array leaf to a tensor on the trainer's device; host-only
+        leaves (strings) dropped, as the reference drops them. Raises first
+        on batch keys whose paths are not ported, such as the captions of a
+        text batch, which would otherwise be dropped silently."""
+        _check_ported(batch["model_inputs"])
+
+        def clean(node):
+            if isinstance(node, dict):
+                out = {}
+                for k, v in node.items():
+                    v = clean(v)
+                    if v is not None:
+                        out[k] = v
+                return out
+            if isinstance(node, torch.Tensor):
+                return node.to(self.device, non_blocking=True)
+            if isinstance(node, (np.ndarray, np.generic, int, float)):
+                return torch.as_tensor(np.asarray(node)).to(self.device)
+            return None
+
+        return clean(batch)
+
+    def log_images(
+        self,
+        diffuser: Diffuser,
+        val_batch: dict[str, Any],
+        epoch: int,
+        val_steps: int,
+        step_shift: float | None = None,
+        guidance_scale: float = 4.0,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        """Generate a validation grid with a temporarily re-stepped sampler
+        (reference trainers/common.py:178-242)."""
+        original = diffuser.diffusion
+        diffuser.set_steps(val_steps, **({} if step_shift is None else {"shift": step_shift}))
+        try:
+            x_ref, cond = split_batch(val_batch)
+            n = min(8, x_ref.shape[0])
+            cond = {k: v[:n] for k, v in cond.items()}
+            out = diffuser.generate(cond, data_shape=(n, *x_ref.shape[1:]), generator=generator,
+                                    guidance_scale=guidance_scale, device=self.device)
+            images = np.clip(out["x"].float().cpu().numpy() * 0.5 + 0.5, 0, 1)
+            self.tracker.log_images(images, step=epoch + 1)
+        finally:
+            diffuser.diffusion = original
+
+    # ------------------------------------------------------------------ #
+    def train(
+        self,
+        diffuser: Diffuser,
+        optimizer: OptimizerFactory | Callable[[Iterable[torch.nn.Parameter]], torch.optim.Optimizer],
+        train_dataloader: Iterable[dict[str, Any]],
+        val_dataloader: Iterable[dict[str, Any]] | None = None,
+        scheduler: Callable[[int], float] | None = None,
+        per_batch_scheduler: bool = False,
+        log_validation_images: bool = True,
+        train_embedder: bool = False,
+        p_classifier_free_guidance: float = 0.2,
+        val_steps: int = 50,
+        val_step_shift: float | None = None,
+        optimizer_ckpt: str | None = None,
+        denoiser_ckpt: str | None = None,
+        ema_ckpt: str | None = None,
+        epoch_start: int = 0,
+        seed: int = 0,
+        steps_per_epoch: int | None = None,
+        lora_only: bool = False,
+        auto_resume: bool = False,
+        distill_teacher: Any = None,
+    ) -> None:
+        if lora_only:
+            raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
+        if train_embedder:
+            raise NotImplementedError("trainable embedders are not ported yet (ROADMAP queue 1, item 9)")
+        if distill_teacher is not None:
+            raise NotImplementedError("guidance distillation is not ported yet (ROADMAP queue 1, item 15)")
+        model = diffuser.denoiser
+        params = dict(model.named_parameters())
+        off = sorted({str(p.device) for p in params.values() if p.device != self.device})
+        if off:
+            raise ValueError(f"the model's parameters are on {off}, the trainer runs on {self.device}; "
+                             "build the model on the trainer's device")
+
+        resume_best_val = float("inf")
+        if auto_resume:
+            # the newest complete periodic set overrides explicit checkpoint arguments
+            latest = self.find_latest_checkpoint(self.save_path / "checkpoints_latest")
+            if latest is not None:
+                meta = restore_checkpoint(latest / "scheduler")
+                epoch_start = int(meta["epoch"])
+                resume_best_val = float(meta.get("best_val_loss", float("inf")))
+                denoiser_ckpt = str(latest / "denoiser")
+                optimizer_ckpt = str(latest / "optimizer")
+                ema_ckpt = str(latest / "ema") if (latest / "ema").exists() else None
+                logger.info(f"auto-resume from {latest} at epoch {epoch_start}")
+
+        if val_step_shift is not None and diffuser.model_type != "rectified_flow":
+            raise ValueError("Time-shifting during validation is only supported for flow-based models.")
+        if not getattr(model, "classifier_free", False):
+            p_classifier_free_guidance = 0.0
+
+        # --- optimizer: schedule + gradient accumulation -------------------
+        if denoiser_ckpt:
+            restored = restore_checkpoint(denoiser_ckpt, {"params": model.state_dict()})["params"]
+            model.load_state_dict(restored, strict=True)
+        torch_opt = optimizer(list(params.values()))
+        lr_scheduler = None
+        if scheduler is not None:
+            if steps_per_epoch is None and not per_batch_scheduler:
+                try:
+                    steps_per_epoch = len(train_dataloader)  # type: ignore[arg-type]
+                except TypeError as e:
+                    raise ValueError("steps_per_epoch required for per-epoch scheduler") from e
+            if per_batch_scheduler:
+                idx = lambda c: c  # noqa: E731
+            else:
+                # the schedule counts real updates; steps_per_epoch counts micro-batches
+                updates_per_epoch = max(steps_per_epoch // self.gradient_accumulation_step, 1)
+                idx = lambda c: c // updates_per_epoch  # noqa: E731
+            lr_scheduler = torch.optim.lr_scheduler.LambdaLR(torch_opt, lambda c: float(scheduler(idx(c))))
+        opt = MultiStepOptimizer(torch_opt, self.gradient_accumulation_step,
+                                 getattr(optimizer, "grad_clip_norm", None), lr_scheduler)
+        if optimizer_ckpt:
+            opt.load_state_dict(restore_checkpoint(optimizer_ckpt)["opt_state"])
+
+        ema = None
+        if self.use_ema:
+            ema = EMA(self.ema_config, init_ema(params))
+            if ema_ckpt:
+                ema.params = restore_checkpoint(ema_ckpt, {"params": ema.params})["params"]
+
+        if epoch_start and steps_per_epoch is None:
+            # resume continues the raw step counter: it drives the EMA ramp and the draws
+            try:
+                steps_per_epoch = len(train_dataloader)  # type: ignore[arg-type]
+            except TypeError as e:
+                raise ValueError("epoch_start > 0 requires steps_per_epoch when the "
+                                 "dataloader has no len()") from e
+        step = epoch_start * (steps_per_epoch or 0)
+
+        best_val_loss = resume_best_val
+        tracker_meter = AverageMeter()
+        generator = torch.Generator(device=self.device)
+        diffusion = diffuser.diffusion
+
+        logger.info("Begin training")
+        for epoch in range(epoch_start, self.n_epoch):
+            if hasattr(train_dataloader, "set_epoch"):
+                train_dataloader.set_epoch(epoch)
+            # --- train epoch: losses summed on the card, one host sync per epoch
+            loss_sums: dict[str, torch.Tensor] = {}
+            n_steps_epoch = 0
+            model.train()
+            for batch in train_dataloader:
+                batch = self._prepare_batch(batch)
+                step += 1
+                generator.manual_seed(_fold_seed(seed, step))
+                x0 = batch["model_inputs"]["x"]
+                bsz = x0.shape[0]
+                t = diffusion.draw_timesteps(generator, bsz)
+                noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
+                drop = None
+                if p_classifier_free_guidance > 0:
+                    drop = make_drop_mask(generator, p_classifier_free_guidance, bsz)
+                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step)
+                n_steps_epoch += 1
+                for key, loss in losses.items():
+                    prev = loss_sums.get(key)
+                    loss_sums[key] = loss if prev is None else prev + loss
+                if self.log_every_n_steps and step % self.log_every_n_steps == 0:
+                    self.tracker.log({f"train_step/{k}": float(v) for k, v in losses.items()}, step=step)
+            self.step = step
+
+            for key, total in loss_sums.items():
+                tracker_meter.update(float(total) / max(n_steps_epoch, 1), key=f"train/{key}")
+            for key, value in tracker_meter.avg.items():
+                if key.startswith("train/"):
+                    self.tracker.log({key: value, "epoch": epoch + 1}, step=step)
+            tracker_meter.reset()
+
+            # --- validation, on the EMA weights where there are any ------------
+            if val_dataloader is not None:
+                model.eval()
+                with _swapped_params(model, None if ema is None else ema.params), torch.no_grad():
+                    val_sums: dict[str, torch.Tensor] = {}
+                    n_val = 0
+                    for vi, val_batch in enumerate(val_dataloader):
+                        val_batch = self._prepare_batch(val_batch)
+                        generator.manual_seed(_fold_seed(seed, _VAL_SEED_OFFSET + vi))
+                        x0, cond = split_batch(val_batch)
+                        t = diffusion.draw_timesteps(generator, x0.shape[0])
+                        noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
+                        val_losses = diffusion.compute_loss(diffuser.model_fn(train=False), x0, cond, t, noise)
+                        n_val += 1
+                        for key, val_loss in val_losses.items():
+                            prev = val_sums.get(key)
+                            val_sums[key] = val_loss if prev is None else prev + val_loss
+                    for key, total in val_sums.items():
+                        tracker_meter.update(float(total) / max(n_val, 1), key=f"val/{key}")
+
+                    total_loss = 0.0
+                    for key, value in tracker_meter.avg.items():
+                        if key.startswith("val/"):
+                            self.tracker.log({key: value, "epoch": epoch + 1}, step=step)
+                            total_loss += value
+
+                    if log_validation_images:
+                        logger.info("creating validation images")
+                        first_val = self._prepare_batch(next(iter(val_dataloader)))
+                        image_gen = torch.Generator(device=self.device)
+                        image_gen.manual_seed(_fold_seed(seed, _IMAGE_SEED_OFFSET + epoch))
+                        self.log_images(
+                            diffuser, first_val, epoch, val_steps, step_shift=val_step_shift,
+                            guidance_scale=4.0 if getattr(model, "classifier_free", False) else 0.0,
+                            generator=image_gen,
+                        )
+
+                if total_loss < best_val_loss:
+                    best_val_loss = total_loss
+                    self.save_model(model.state_dict(), opt.state_dict(),
+                                    None if ema is None else ema.params, step)
+                tracker_meter.reset()
+
+            if self.save_every_n_epochs and (epoch + 1) % self.save_every_n_epochs == 0:
+                self.save_latest(model.state_dict(), opt.state_dict(), None if ema is None else ema.params,
+                                 step, epoch + 1, best_val_loss=best_val_loss)
+
+        self.step = step
+        self.wait_for_checkpoints()
+        self.tracker.finish()
+        logger.info("Training complete")

@@ -12,6 +12,11 @@ the mapping is by leaf name only:
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
   other ``*/scale`` (RMSNorm) stay ``scale``;
 - ``*/embedding/embedding`` -> ``embedding.weight``.
+
+A gradient tree of the JAX model (``jax.grad`` with respect to
+``nnx.state(model, nnx.Param)``) has the same paths and the same layouts, so
+the same mapping bridges it to the port's ``param.grad`` by name; the parity
+tests compare gradients that way.
 """
 
 from __future__ import annotations

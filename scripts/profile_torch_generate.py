@@ -27,22 +27,25 @@ def _group(name: str) -> str:
     low = name.lower()
     if "mha_fwd" in low:
         return "attention (fused_mha_fwd)"
+    if "mha_bwd" in low:
+        return "attention (fused_mha_bwd)"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (foreach)"
     if any(tag in low for tag in ("gemm", "xmma", "nvjet", "cutlass", "matmul")):
         return "matmul (cuBLAS)"
     if "layer_norm" in low or "layernorm" in low:
         return "layer_norm"
     if "reduce" in low:
         return "reductions"
+    if "catarray" in low:
+        return "cat"
     if "elementwise" in low or "vectorized" in low or "unrolled" in low:
         return "elementwise"
-    if "cat" in low:
-        return "cat"
     return "other"
 
 
 def main() -> int:
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -70,7 +73,21 @@ def main() -> int:
     plain_ms = [request(1 + i) for i in range(5)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = request(10)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    summarize(prof, plain_ms, traced_ms, "request")
+    return 0
+
+
+def summarize(prof, plain_ms: list[float], traced_ms: float, unit: str) -> None:
+    """Print the device's kernel records of one traced ``unit`` (a request, a
+    step): launches, busy time against the kernel window, device time by
+    group and the top kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+
+    # device records, without the user annotations (e.g. "Optimizer.step#AdamW.step")
+    # that span the kernels they enclose
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in spans:
@@ -92,9 +109,9 @@ def main() -> int:
         by_name[e.name][1] += 1
     total = sum(by_group.values())
     print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"request wall ms without profiler: {[round(m, 2) for m in plain_ms]} "
-          f"(median {statistics.median(plain_ms):.2f}); traced request wall ms {traced_ms:.2f}")
-    print(f"kernel launches per request: {len(kernels)}; device busy {busy_us / 1e3:.2f} ms of a "
+    print(f"{unit} wall ms without profiler: {[round(m, 2) for m in plain_ms]} "
+          f"(median {statistics.median(plain_ms):.2f}); traced {unit} wall ms {traced_ms:.2f}")
+    print(f"kernel launches per {unit}: {len(kernels)}; device busy {busy_us / 1e3:.2f} ms of a "
           f"{window_us / 1e3:.2f} ms kernel window (idle share {1 - busy_us / window_us:.3f})")
     print("device time by group: " + json.dumps(
         {g: {"ms": round(t / 1e3, 2), "share": round(t / total, 3)}
@@ -102,7 +119,6 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (t, n) in top:
         print(f"  {t / 1e3:9.2f} ms  {n:6d} launches  {t / n:8.2f} us each  {name[:110]}")
-    return 0
 
 
 if __name__ == "__main__":

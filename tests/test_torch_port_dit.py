@@ -172,6 +172,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "diffulab_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10 and all(f.exists() for f in files)
+    training = REPO / "diffulab_tpu_torch" / "training"
+    assert {training / f"{m}.py" for m in ("trainer", "optim", "ema", "checkpoint", "meters", "logging")} <= set(files)
     for f in files:
         for name in _imported_roots(f):
             top = name.split(".")[0]
@@ -179,3 +181,4 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     # the scan sees the imports it should, relative ones included
     assert "torch" in _imported_roots(REPO / "diffulab_tpu_torch" / "ops" / "fused_mha.py")
     assert "diffulab_tpu_torch.ops" in _imported_roots(REPO / "diffulab_tpu_torch" / "networks" / "denoisers" / "mmdit.py")
+    assert "diffulab_tpu_torch.training.checkpoint" in _imported_roots(training / "trainer.py")
