@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``diffulab_tpu_torch``) on one card.
 
-Drives the port's two main paths with seeded random weights: DiT-B/2
+Drives the port's three paths with seeded random weights: DiT-B/2
 class-conditional sampling (Euler-50, CFG 4.0 as one fused 2x batch, bf16
-whole-model cast, batch 16 on 32x32x4 latents) through ``Diffuser.generate``,
-and DiT-B/2 rectified-flow training (logit-normal t, v-prediction, p_cfg
-0.1, AdamW with bench.py's lr and weight decay 1e-4, EMA, batch 64) through
-``BaseTrainer.train``.
+whole-model cast, batch 16 on 32x32x4 latents) through ``Diffuser.generate``;
+DiT-B/2 rectified-flow training (logit-normal t, v-prediction, p_cfg 0.1,
+AdamW with bench.py's lr and weight decay 1e-4, EMA, batch 64) through
+``BaseTrainer.train``; and latent text-to-image sampling with the txt2img
+MMDiT (768 wide, 8 dual + 4 single-stream blocks, mixed bf16, a
+PrecomputedEmbedder with a 128 x 2048 null embedding) on 64x64x128 latents
+(4096 image + 128 text tokens), 4 prompts, Euler-50 with shift 4.63 and CFG
+4.0, decoded by the Flux2 VAE to 1024x1024 pixels, through
+``Diffuser.generate``.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -26,7 +31,17 @@ Phases, one line each:
      against plain attention: 12 K1 and 12 K2 launches;
   7. ``BaseTrainer.train`` for 12 steps plus validation and the best-val
      checkpoint, with the counts set to 0 just before: 12 K1 + 12 K2 launches
-     in every step; ms per step and samples/s.
+     in every step; ms per step and samples/s;
+  8. K3 (flash attention forward) against its plain version, at the txt2img
+     shape (B=8, S=4224, H=12, D=64, bf16) with the fused-CFG ragged text
+     mask, in fp32, and at the edge cases; its timings, SDPA's as the
+     yardstick, the refusal under grad, and K1 against K3 at 256-512 tokens;
+  9. the txt2img MMDiT forward at that shape, kernel path against the plain
+     attention: 12 K3 launches and no K1;
+ 10. two txt2img ``generate`` requests with the Flux2 decode, the counts set
+     to 0 just before each and read just after: 600 K3 launches and 0 K1 per
+     request; ms per request, images/s, peak memory, pixels finite and in
+     [-1, 1]; a 4-step trajectory, kernel path against plain attention.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -58,11 +73,26 @@ SAMPLE_BATCH = 16
 TRAIN_BATCH = 64
 TRAIN_STEPS = 12
 P_CFG = 0.1
-# every phase runs on cuda:0; on a host with more cards the others stay idle
-CARDS_USED = 1
 STEPS = 50
 CFG = 4.0
 N_REQUESTS = 3
+
+# the txt2img MMDiT of README.md:100 at the widths of
+# configs/train_imagenet_repa_txt_to_img_sprint.yaml:26-39 (8 dual + 4
+# single-stream blocks), the library's mixed bf16 policy (precision_type
+# "bf16": bf16 matmuls, fp32 conditioning and stream), a PrecomputedEmbedder
+# with a seeded [128, 2048] null embedding (2048: Qwen3-VL-2B's hidden size),
+# and the Flux2 tower at its defaults with 32 latent channels (128 packed)
+TXT = dict(simple_dit=False, input_channels=128, output_channels=128, inner_dim=768, embedding_dim=768,
+           num_heads=12, mlp_ratio=4, patch_size=1, depth=12, n_single_stream_blocks=4, rope_base=2000,
+           rope_axes_dim=[16, 24, 24], n_classes=None, classifier_free=True)
+TEXT_LEN, TEXT_DIM, NULL_SEQ_LEN = 128, 2048, 1
+TXT_BATCH = 4  # prompts per request; the model batch is 8 under fused CFG
+TXT_LATENT = (64, 64, 128)  # 4096 image tokens, 1024x1024x3 decoded
+TXT_SEQ = TEXT_LEN + TXT_LATENT[0] * TXT_LATENT[1]  # 4224
+TEXT_LENGTHS = (128, 77, 31, 9)  # valid tokens of the 4 prompts
+TXT_EXTRA = {"logits_normal": True, "shift": 4.63}  # the txt2img configs' diffuser extra_args
+TXT_REQUESTS = 2
 
 # H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1)
 PEAK_BYTES_PER_S = 3.35e12
@@ -96,6 +126,12 @@ DIT_REL_TOL = 5e-2
 # same noise: the per-step difference compounds along the trajectory
 # (3.3e-2 measured on an H100 80GB HBM3 at 700 W)
 GEN_REL_TOL = 1e-1
+# the txt2img MMDiT (one forward, and a TRAJ_STEPS-step trajectory), kernel
+# path against plain attention, max|diff| / max|plain|: K3 rounds the
+# unnormalised p to bf16, the plain path (K1's plain version) the normalised
+# p, and 12 bf16 blocks carry the difference
+TXT_REL_TOL = 5e-2
+TRAJ_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -154,10 +190,10 @@ def ptxas_usage(log: str) -> dict[str, str]:
     """``{"kernel<D>": "R regs, S B spilled"}`` from an ``nvcc -Xptxas -v`` log."""
     usage, current, spill = {}, None, 0
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?(mha_\w+?)ILi(\d+)E", line)
+        entry = re.search(r"Compiling entry function '\w*?((?:mha|flash)_\w+?)ILi(\d+)E", line)
         if entry:
-            # the anonymous namespace mangles as <len>mha_..._cu_<hash>: keep the last name
-            name = re.split(r"\d+(?=mha_)", entry.group(1))[-1]
+            # the anonymous namespace mangles as <len><source name>_cu_<hash>: keep the last name
+            name = re.split(r"\d+(?=(?:mha|flash)_)", entry.group(1))[-1]
             current, spill = f"{name}<{entry.group(2)}>", 0
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores:
@@ -261,6 +297,141 @@ def phase_kernel():
                   f"D16/32/128 {max(e_dims):.3e} fully_masked_row o==0 lse==+inf other_row {e_full:.3e}")
         torch.cuda.synchronize()
     return results
+
+
+def txt2img_mask(batch: int, lengths, device="cuda"):
+    """[batch, TEXT_LEN + image tokens] key mask of the fused-CFG model batch:
+    the cond half's text lengths, the uncond half's null embedding with one
+    valid token, every image token valid."""
+    import torch
+
+    lengths = torch.tensor(list(lengths) + [NULL_SEQ_LEN] * batch, device=device)
+    text = torch.arange(TEXT_LEN, device=device)[None, :] < lengths[:, None]
+    image = torch.ones(2 * batch, TXT_LATENT[0] * TXT_LATENT[1], dtype=torch.bool, device=device)
+    return torch.cat([text, image], dim=1)
+
+
+def attention_bound(b, sq, h, d, valid_keys, elem):
+    """(bound ms, what bounds it, MB, GFLOP) of one attention forward: q, k,
+    v, o read or written once, the fp32 lse and the int32 mask, and the two
+    products over the keys each row attends (``valid_keys`` summed over the
+    batch)."""
+    bytes_moved = 4 * b * sq * h * d * elem + b * h * sq * 4 + b * sq * 4
+    flops = 4 * h * sq * d * valid_keys
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"), \
+        bytes_moved / 1e6, flops / 1e9
+
+
+def phase_flash_kernel():
+    """K3 against its plain version on the same CUDA inputs: the slice shape
+    with the fused-CFG ragged text mask, the edge cases, fp32, and K1 against
+    K3 at 256, 384 and 512 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    def both(q, k, v, mask=None, scale=None):
+        return flash_attention(q, k, v, mask, scale), flash_attention_reference(q, k, v, mask, scale)
+
+    def check(name, pair, tol):
+        (o, lse), (ro, rlse) = pair
+        err = check_close(f"{name} o", o, ro, *tol)
+        check_close(f"{name} lse", lse, rlse, *LSE_TOL)
+        return err
+
+    with torch.no_grad():
+        b, s, h, d = 2 * TXT_BATCH, TXT_SEQ, TXT["num_heads"], TXT["inner_dim"] // TXT["num_heads"]
+        mask = txt2img_mask(TXT_BATCH, TEXT_LENGTHS)
+        q, k, v = (rand(b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
+        err = check("main bf16", both(q, k, v, mask), TOL["bfloat16"])
+        kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v, mask), iters=20)
+        plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, mask), iters=2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = mask[:, None, None, :]
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), iters=20)
+        bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, int(mask.sum()), q.element_size())
+        print(f"phase 8 kernel K3 main B={b} S={s} H={h} D={d} bf16, text mask {list(TEXT_LENGTHS)} + "
+              f"{TXT_BATCH}x{NULL_SEQ_LEN}: max_abs_err {err:.3e} (tol atol {TOL['bfloat16'][0]} rtol "
+              f"{TOL['bfloat16'][1]}); kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"{library_ms:.4f} (SDPA, masked) bound_ms {bound_ms:.4f} ({bound_by}: {mb:.1f} MB, "
+              f"{gflop:.1f} GFLOP; {gflop / kernel_ms:.1f} TFLOP/s achieved)")
+        result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+
+        # fp32 at the slice shape (the library's default dtype=None runs fp32)
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        err32 = check("main fp32", both(q32, k32, v32, mask), TOL["float32"])
+        ms32 = cuda_time_ms(lambda: flash_attention(q32, k32, v32, mask), iters=3, warmup=1)
+        del q32, k32, v32
+        print(f"phase 8 kernel K3 main fp32: max_abs_err {err32:.3e} (tol atol {TOL['float32'][0]} "
+              f"rtol {TOL['float32'][1]}); kernel_ms {ms32:.4f}")
+
+        for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+            tol = TOL[name]
+            errs = {}
+            # ragged key mask at a length that is no multiple of the tiles
+            q, k, v = (rand(4, 300, 4, 64, dtype=dtype) for _ in range(3))
+            lengths = torch.tensor([300, 200, 77, 1], device="cuda")
+            kmask = torch.arange(300, device="cuda")[None, :] < lengths[:, None]
+            errs["mask_300"] = check(f"mask {name}", both(q, k, v, kmask), tol)
+            # unaligned 100 / 300, cross-attention 256 / 128, 600 tokens
+            q, k, v = rand(2, 100, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+            errs["unaligned_100_300"] = check(f"unaligned {name}", both(q, k, v), tol)
+            q, k, v = rand(2, 256, 4, 64, dtype=dtype), rand(2, 128, 4, 64, dtype=dtype), rand(2, 128, 4, 64, dtype=dtype)
+            errs["cross_256_128"] = check(f"cross {name}", both(q, k, v), tol)
+            q, k, v = (rand(2, 600, 4, 64, dtype=dtype) for _ in range(3))
+            errs["seq_600"] = check(f"600 tokens {name}", both(q, k, v), tol)
+            errs["scale_0.3"] = check(f"scale override {name}", both(q, k, v, None, 0.3), tol)
+            # q/k/v as strided views of one packed projection output, through the entry point
+            qkv = rand(2, 600, 3 * 4 * 64, dtype=dtype)
+            q, k, v = (t.reshape(2, 600, 4, 64) for t in qkv.chunk(3, dim=-1))
+            errs["packed_views"] = check_close(f"packed views {name}", dot_product_attention(q, k, v, impl="flash"),
+                                               flash_attention_reference(q, k, v)[0], *tol)
+            # head dims of the other instances
+            errs["D16/32/128"] = max(check(f"D={hd} {name}", both(*(rand(2, 200, 2, hd, dtype=dtype) for _ in range(3))), tol)
+                                     for hd in (16, 32, 128))
+            # a fully-masked row: o exactly 0, lse exactly +inf
+            q, k, v = (rand(2, 200, 2, 64, dtype=dtype) for _ in range(3))
+            fmask = torch.stack([torch.zeros(200, dtype=torch.bool, device="cuda"),
+                                 torch.ones(200, dtype=torch.bool, device="cuda")])
+            (o, lse), (ro, _) = both(q, k, v, fmask)
+            if not (bool((o[0] == 0).all()) and bool(torch.isposinf(lse[0]).all())):
+                fail(f"K3 fully-masked row {name}: o not exactly 0 or lse not +inf")
+            errs["fully_masked_other_row"] = check_close(f"fully-masked other row {name}", o[1], ro[1], *tol)
+            print(f"phase 8 kernel K3 edge cases {name} (tol atol {tol[0]} rtol {tol[1]}): max_abs_err "
+                  + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row o==0 lse==+inf")
+
+        # no fallback: under grad the flash route refuses (its backward is slice B2)
+        q, k, v = (rand(1, 200, 2, 64, dtype=torch.bfloat16) for _ in range(3))
+        with torch.enable_grad():
+            try:
+                flash_attention(q.requires_grad_(), k, v)
+            except NotImplementedError:
+                pass
+            else:
+                fail("K3 under grad on the card did not raise")
+
+        # K1 against K3 where the dispatch hands over (FUSED_MAX_SEQ)
+        times = {}
+        for bb in (TXT_BATCH * 2, 32):
+            for ss in (256, 384, 512):
+                q, k, v = (rand(bb, ss, 12, 64, dtype=torch.bfloat16) for _ in range(3))
+                times[f"B{bb}_S{ss}"] = (cuda_time_ms(lambda: fused_mha(q, k, v), iters=50),
+                                         cuda_time_ms(lambda: flash_attention(q, k, v), iters=50))
+        print("phase 8 K1 vs K3 (H=12, D=64, bf16, ms): " + " ".join(
+            f"{key} K1 {k1:.4f} K3 {k3:.4f}" for key, (k1, k3) in times.items()))
+        result["crossover"] = times
+    torch.cuda.synchronize()
+    return result
 
 
 def randomize_(model, seed: int) -> None:
@@ -468,6 +639,136 @@ def phase_kernel_bwd():
     return result
 
 
+def build_txt2img():
+    """The txt2img MMDiT with seeded random weights (and a twin with the plain
+    attention, ``attention_impl="xla"``), its Flux2 tower, and a seeded
+    request ``cond`` of TXT_BATCH prompts, all on the card."""
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+    from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
+    from diffulab_tpu_torch.networks.vision_towers import Flux2VAE
+
+    rng = np.random.default_rng(9)
+    null = rng.standard_normal((TEXT_LEN, TEXT_DIM)).astype(np.float32)
+    embedder = PrecomputedEmbedder(null_embedding=null, null_embedding_seq_len=NULL_SEQ_LEN)
+    model = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16)  # no device: the card
+    randomize_(model, seed=10)
+    plain = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_impl="xla")
+    plain.load_state_dict(model.state_dict(), strict=True)
+    tower = Flux2VAE(latent_channels=TXT_LATENT[2] // 4)
+    randomize_(tower, seed=11)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    emb = torch.randn(TXT_BATCH, TEXT_LEN, TEXT_DIM, generator=gen, device="cuda")
+    lengths = torch.tensor(TEXT_LENGTHS, device="cuda")
+    mask = torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None]
+    cond = {"context": {"embeddings": emb, "attn_mask": mask}}
+    return model.eval(), plain.eval(), tower.eval(), cond
+
+
+def launch_counts() -> dict[str, int]:
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES as FLASH
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES as FUSED
+
+    return {**FUSED, **FLASH}
+
+
+def reset_launch_counts() -> None:
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES as FLASH
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES as FUSED
+
+    for counts in (FUSED, FLASH):
+        for key in counts:
+            counts[key] = 0
+
+
+def phase_txt2img_forward(model, plain, cond):
+    """One forward of the txt2img MMDiT at the slice shape (fused-CFG batch),
+    kernel path against plain attention."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse.flow import _tree_cat2
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b = 2 * TXT_BATCH
+    x = torch.randn(b, *TXT_LATENT, generator=gen, device="cuda")
+    t = torch.rand(b, generator=gen, device="cuda")
+    cond2 = _tree_cat2(cond)
+    drop = torch.arange(b, device="cuda") >= TXT_BATCH
+    with torch.no_grad():
+        reset_launch_counts()
+        out = model(x, t, cond2, drop)["x"]
+        launches = launch_counts()
+        ref = plain(x, t, cond2, drop)["x"]
+    torch.cuda.synchronize()
+    if out.shape != (b, *TXT_LATENT) or not bool(torch.isfinite(out).all()):
+        fail("txt2img forward: bad shape or non-finite output")
+    rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+    depth = TXT["depth"]
+    if rel > TXT_REL_TOL or launches["flash_attn_fwd"] != depth or launches["fused_mha_fwd"] != 0:
+        fail(f"txt2img forward: rel err {rel:.3e} (tol {TXT_REL_TOL}), launches {launches}")
+    print(f"phase 9 txt2img MMDiT forward B={b} S={TXT_SEQ} mixed bf16: kernel path vs plain attention max rel "
+          f"err {rel:.3e} (tol {TXT_REL_TOL}); {launches['flash_attn_fwd']} K3 launches, "
+          f"{launches['fused_mha_fwd']} K1; output max |x| {float(ref.abs().max()):.3f}")
+
+
+def txt2img_request(diffuser, cond, seed: int, **kwargs):
+    """One txt2img ``generate`` request: TXT_BATCH prompts, Euler with fused
+    CFG, clamped decoded pixels (or latents with ``return_latents``)."""
+    import torch
+
+    noise = torch.Generator(device="cuda").manual_seed(seed)
+    return diffuser.generate(cond, data_shape=(TXT_BATCH, *TXT_LATENT), generator=noise, guidance_scale=CFG,
+                             clamp_x=True, **kwargs)["x"]
+
+
+def phase_txt2img_generate(model, plain, tower, cond):
+    """TXT_REQUESTS ``generate`` requests with the Flux2 decode, the launch
+    counts set to 0 just before each and read just after; then a short
+    trajectory of the kernel path against the plain path from the same noise."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    diffuser = Diffuser(model, "euler", n_steps=STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
+    per_request = STEPS * TXT["depth"]
+    image_shape = (TXT_BATCH, TXT_LATENT[0] * tower.compression_factor, TXT_LATENT[1] * tower.compression_factor, 3)
+    times, total = [], {"flash_attn_fwd": 0, "fused_mha_fwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(TXT_REQUESTS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images = txt2img_request(diffuser, cond, seed=200 + r)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = launch_counts()
+        if launched["flash_attn_fwd"] != per_request or launched["fused_mha_fwd"] != 0:
+            fail(f"txt2img request {r}: launches {launched}, expected {per_request} K3 and 0 K1")
+        for key in total:
+            total[key] += launched[key]
+        if images.shape != image_shape or not bool(torch.isfinite(images).all()):
+            fail(f"txt2img request {r}: images {tuple(images.shape)}, expected {image_shape}, all finite")
+        if float(images.abs().max()) > 1.0:
+            fail(f"txt2img request {r}: decoded pixels outside [-1, 1]")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # a short trajectory, kernel path against plain attention, from the same noise
+    short = [Diffuser(m, "euler", n_steps=TRAJ_STEPS, vision_tower=tower, extra_args=TXT_EXTRA) for m in (model, plain)]
+    ours, ref = (txt2img_request(d, cond, seed=300, return_latents=True) for d in short)
+    rel = float((ours.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if rel > TXT_REL_TOL:
+        fail(f"txt2img {TRAJ_STEPS}-step trajectory against plain attention: rel err {rel:.3e} (tol {TXT_REL_TOL})")
+    ms = [t * 1e3 for t in times]
+    print(f"phase 10 txt2img generate x{TXT_REQUESTS}: {TXT_BATCH} prompts, latents {TXT_LATENT} ({TXT_SEQ} tokens), "
+          f"Euler-{STEPS} shift {TXT_EXTRA['shift']} CFG {CFG}, Flux2 decode to {image_shape[1:]}: ms/request "
+          f"{[round(m, 2) for m in ms]}, imgs/s {[round(TXT_BATCH / t, 3) for t in times]}; K3 launches "
+          f"{per_request}/request, K1 0 ({total['flash_attn_fwd']} K3, {total['fused_mha_fwd']} K1 in all); peak mem {peak_gib:.2f} GiB; images finite, in [-1, 1]; "
+          f"{TRAJ_STEPS}-step latents vs plain attention max rel err {rel:.3e} (tol {TXT_REL_TOL})")
+    return total, ms
+
+
 def phase_gradients(model, plain):
     """One compute_loss at the training batch through the kernel path (K1 and
     K2) against the same weights through the plain attention."""
@@ -632,6 +933,12 @@ def main() -> int:
     phase_gradients(model, plain)
     del plain
     train_launches, _ = phase_train(model)
+    del model
+    k3 = phase_flash_kernel()
+    crossover = k3.pop("crossover")
+    txt_model, txt_plain, tower, cond = build_txt2img()
+    phase_txt2img_forward(txt_model, txt_plain, cond)
+    txt_totals, _ = phase_txt2img_generate(txt_model, txt_plain, tower, cond)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -642,8 +949,9 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
-        "launches": gen_launches + train_launches["fused_mha_fwd"],
-        "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"]},
+        "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"],
+        "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
+                             "txt2img_generate": txt_totals["fused_mha_fwd"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -658,9 +966,18 @@ def main() -> int:
         "launches": train_launches["fused_mha_bwd"],
         "launches_by_path": {"train": train_launches["fused_mha_bwd"]},
         **k2,
+    }, {
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "diffulab_tpu/ops/flash_attention.py:81",
+        "launches": txt_totals["flash_attn_fwd"],
+        "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"]},
+        **k3,
+        "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms} for key, (k1, k3_ms) in crossover.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": CARDS_USED}}))
+                                             "count": torch.cuda.device_count()}}))
     return 0
 
 

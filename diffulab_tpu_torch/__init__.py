@@ -17,9 +17,15 @@ Euler sampler and fused 2x CFG, and
 :meth:`~diffulab_tpu_torch.diffuse.diffuser.Diffuser.generate` in pixel mode;
 slice A2, training — the flow-matching loss and
 :class:`~diffulab_tpu_torch.training.trainer.BaseTrainer` with AdamW, EMA,
-accumulation and torch-format checkpoints. Attention runs in the fused
-multi-head kernels, forward (``csrc/fused_mha_fwd.cu``) and backward
-(``csrc/fused_mha_bwd.cu``).
+accumulation and torch-format checkpoints; slice B1, latent text-to-image
+serving — the multimodal ``MMDiT(simple_dit=False)`` with a
+:class:`~diffulab_tpu_torch.networks.embedders.PrecomputedEmbedder`, and
+``Diffuser.generate`` in latent mode with the
+:class:`~diffulab_tpu_torch.networks.vision_towers.Flux2VAE` decode.
+Attention runs in the fused multi-head kernels, forward
+(``csrc/fused_mha_fwd.cu``) and backward (``csrc/fused_mha_bwd.cu``), up to
+512 tokens, and in the flash-attention forward (``csrc/flash_attn_fwd.cu``)
+beyond.
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,16 @@
-"""Diffuser facade binding a denoiser to a formalization (port of
-diffulab_tpu/diffuse/diffuser.py), pixel mode.
+"""Diffuser facade binding a denoiser to a formalization and an optional
+vision tower (port of diffulab_tpu/diffuse/diffuser.py).
 
 ``generate`` runs the reverse process eagerly under ``torch.no_grad()``: the
 reference jit-compiles one program per sampling configuration, the port runs
-the same steps as launches on the card (a CUDA graph is later work).
+the same steps as launches on the card (a CUDA graph is later work). In
+latent mode (``vision_tower``) it decodes ``x / latent_scale + latent_bias``
+through the tower and applies ``clamp_x`` to the decoded pixels.
 ``compute_loss`` is the training loss the trainer differentiates.
 
-Not ported yet (they raise ``NotImplementedError``): latent mode
-(``vision_tower``), intermediates, inpainting, img2img, autoguidance, block
-caching, extra losses, the GRPO loss, and the Gaussian/EDM formalizations.
+Not ported yet (they raise ``NotImplementedError``): intermediates,
+inpainting, img2img, autoguidance, block caching, extra losses, the GRPO
+loss, and the Gaussian/EDM formalizations.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ class Diffuser:
             raise NotImplementedError(f"model type {model_type!r} is not ported yet (ROADMAP queue 1, items 14-15)")
         if model_type not in self.model_registry:
             raise NotImplementedError(f"Model type {model_type} is not implemented")
-        if vision_tower is not None:
-            raise NotImplementedError("latent diffusion (vision_tower) is ROADMAP slice B")
         if extra_losses:
             raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
         self.model_type = model_type
@@ -51,10 +51,13 @@ class Diffuser:
         self.denoiser = denoiser
         self.n_steps = n_steps
         self.vision_tower = vision_tower
+        if vision_tower is not None:
+            self.latent_scale = vision_tower.latent_scale
+            self.latent_bias = vision_tower.latent_bias
         self.diffusion = self.model_registry[model_type](
             n_steps=n_steps,
             sampling_method=sampling_method,
-            latent_diffusion=False,
+            latent_diffusion=vision_tower is not None,
             **(extra_args or {}),
         )
 
@@ -105,6 +108,7 @@ class Diffuser:
         guidance_scale: float = 0.0,
         dtype: Any = torch.float32,
         device: str | torch.device | None = None,
+        return_latents: bool = False,
         return_intermediates: bool = False,
         inpaint: dict[str, Any] | None = None,
         img2img: dict[str, Any] | None = None,
@@ -117,6 +121,13 @@ class Diffuser:
         torch cannot reproduce the reference's JAX random streams, so parity
         runs pass ``x`` instead (trap T4). ``cond`` tensors must be on
         ``device``.
+
+        In latent mode ``data_shape`` and ``x`` are latents; the result is
+        decoded to pixels, and ``clamp_x`` clips those pixels to [-1, 1]
+        (diffuser.py:204-222). ``return_latents=True`` skips the decode and
+        returns the latents unclipped: ``clamp_x`` means the pixel range, and
+        the reference's clip of tower-normalised latents on that path is a
+        residue this port does not copy (ROADMAP trap T5).
         """
         if return_intermediates or inpaint is not None or img2img is not None or guide_denoiser is not None:
             raise NotImplementedError(
@@ -127,9 +138,15 @@ class Diffuser:
         dtype = resolve_dtype(dtype)
         if x is not None:
             x = x.to(device=device, dtype=dtype)
-        return self.diffusion.denoise(
+        latent = self.vision_tower is not None
+        out = self.diffusion.denoise(
             self.model_fn(train=False), cond, generator,
-            data_shape=data_shape, x=x, clamp_x=clamp_x,
+            data_shape=data_shape, x=x, clamp_x=clamp_x and not latent,
             guidance_scale=float(guidance_scale), use_cfg=guidance_scale > 0,
             dtype=dtype, device=device,
         )
+        if latent and not return_latents:
+            out["x"] = self.vision_tower.decode(out["x"] / self.latent_scale + self.latent_bias)
+            if clamp_x:
+                out["x"] = torch.clamp(out["x"], -1.0, 1.0)
+        return out

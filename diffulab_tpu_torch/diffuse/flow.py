@@ -38,6 +38,20 @@ SAMPLER_REGISTRY = {"euler": Euler}
 _UNPORTED_SAMPLERS = ("euler_maruyama", "heun", "dpmpp_2m", "unipc")
 
 
+def _tree_cat2(c: Any) -> Any:
+    """``[c; c]`` along the batch for every tensor of a nested ``cond`` (dicts,
+    lists and tuples; None stays None), as ``jax.tree.map`` does in the
+    reference (flow.py:97): a txt2img ``cond`` is
+    ``{"context": {"embeddings": ..., "attn_mask": ...}}``."""
+    if c is None:
+        return None
+    if isinstance(c, dict):
+        return {key: _tree_cat2(value) for key, value in c.items()}
+    if isinstance(c, (list, tuple)):
+        return type(c)(_tree_cat2(value) for value in c)
+    return torch.cat([c, c], dim=0)
+
+
 def _cfg_model_call(
     model_fn: ModelFn,
     x: torch.Tensor,
@@ -58,7 +72,7 @@ def _cfg_model_call(
 
     x2 = torch.cat([x, x], dim=0)
     t2 = torch.cat([t_vec, t_vec], dim=0)
-    cond2 = {key: torch.cat([c, c], dim=0) for key, c in cond.items()}
+    cond2 = _tree_cat2(cond)
     drop = torch.cat([torch.zeros((batch,), dtype=torch.bool, device=x.device),
                       torch.ones((batch,), dtype=torch.bool, device=x.device)])
     out = model_fn(x=x2, timesteps=t2, cond=cond2, drop=drop)["x"]

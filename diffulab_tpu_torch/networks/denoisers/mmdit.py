@@ -1,19 +1,28 @@
-"""DiT denoiser, simple (class-conditional single-stream) path — port of
-diffulab_tpu/networks/denoisers/mmdit.py.
+"""DiT / MMDiT denoiser — port of diffulab_tpu/networks/denoisers/mmdit.py.
 
-NHWC patchify -> adaLN-zero ``DiTBlock`` stack with QKNorm and 2-axis planar
-RoPE -> modulated last layer -> unpatchify. Attention goes through
-:func:`diffulab_tpu_torch.ops.dot_product_attention` (the fused CUDA kernel
-on the card). Parameter names follow the reference's module paths so that
+NHWC patchify -> adaLN-zero blocks with QKNorm and planar RoPE -> modulated
+last layer -> unpatchify. Two forms:
+
+- ``simple_dit=True``: class-conditional ``DiTBlock`` stack, 2-axis RoPE;
+- ``simple_dit=False``: the multimodal MMDiT over ``[context; image]`` tokens,
+  dual-stream ``MMDiTBlock``s then ``n_single_stream_blocks`` Flux-style
+  ``MMDiTSingleStreamBlock``s, 3-axis RoPE with text positions ``(l, 0, 0)``
+  from l = 1 and image positions ``(0, h, w)``; the context comes from a
+  :class:`~diffulab_tpu_torch.networks.embedders.ContextEmbedder`, whose key
+  mask is extended with ones over the image tokens.
+
+Attention goes through :func:`diffulab_tpu_torch.ops.dot_product_attention`
+(on the card: the fused kernel K1 up to 512 tokens, the flash kernel K3
+beyond). Parameter names follow the reference's module paths so that
 :mod:`diffulab_tpu_torch.weights` maps a JAX state one to one.
 
 The patchify convolution (stride = kernel = patch) is written as a reshape
 plus a matmul over non-overlapping patches: the same function, and on the
 card a float32 matmul stays full fp32 where cuDNN would run the conv in TF32.
 
-Not ported yet (they raise ``NotImplementedError``): the multimodal MMDiT
-(``simple_dit=False``), MoE MLPs, ring attention, GPipe pipelining, block
-caching, REPA feature capture and augmentation labels.
+Not ported yet (they raise ``NotImplementedError``): MoE MLPs, ring
+attention, GPipe pipelining, block caching, REPA feature capture and
+augmentation labels.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffulab_tpu_torch.networks.denoisers.common import Denoiser, ModelOutput
+from diffulab_tpu_torch.networks.embedders.common import ContextEmbedder
 from diffulab_tpu_torch.networks.nn import (
     LabelEmbed,
     Linear,
@@ -131,6 +141,123 @@ class DiTBlock(nn.Module):
         return x
 
 
+class MMDiTAttention(nn.Module):
+    """Dual-stream concat attention (mmdit.py:180): separate qkv/QKNorm/out
+    projections per stream; q/k/v concatenated ``[context; input]`` along the
+    sequence, RoPE'd with the 3-axis grid, attended jointly, split back."""
+
+    def __init__(self, inner_dim: int, num_heads: int, rope_axes_dim: Sequence[int], *,
+                 dtype=None, device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = inner_dim // num_heads
+        self.scale = self.head_dim ** -0.5
+        self.rotary_dim = int(sum(rope_axes_dim))
+        self.attention_impl = attention_impl
+        self.kernel_dtype = dtype
+        kw = dict(bias=False, dtype=dtype, device=device, param_dtype=param_dtype)
+        self.qkv_input = Linear(inner_dim, 3 * inner_dim, **kw)
+        self.qkv_context = Linear(inner_dim, 3 * inner_dim, **kw)
+        self.qk_norm_input = QKNorm(inner_dim, device=device, param_dtype=param_dtype)
+        self.qk_norm_context = QKNorm(inner_dim, device=device, param_dtype=param_dtype)
+        self.input_proj_out = Linear(inner_dim, inner_dim, **kw)
+        self.context_proj_out = Linear(inner_dim, inner_dim, **kw)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor, cos_sin_rope,
+                attn_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        b, s_img, _ = x.shape
+        s_ctx = context.shape[1]
+        iq, ik, iv = self.qkv_input(x).chunk(3, dim=-1)
+        cq, ck, cv = self.qkv_context(context).chunk(3, dim=-1)
+        iq, ik = self.qk_norm_input(iq, ik, iv)
+        cq, ck = self.qk_norm_context(cq, ck, cv)
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], self.num_heads, self.head_dim)
+
+        q = heads(torch.cat([cq, iq], dim=1))
+        k = heads(torch.cat([ck, ik], dim=1))
+        v = heads(torch.cat([cv, iv], dim=1))
+        cos, sin = cos_sin_rope
+        q, k = apply_rope_ndim_planar(q, k, cos, sin, self.rotary_dim)
+        if self.kernel_dtype is not None:
+            q, k, v = (t.to(self.kernel_dtype) for t in (q, k, v))
+        kv_mask = None
+        if attn_mask is not None:
+            kv_mask = torch.cat([attn_mask.bool(), torch.ones((b, s_img), dtype=torch.bool, device=x.device)], dim=1)
+        out = dot_product_attention(q, k, v, kv_mask=kv_mask, scale=self.scale, impl=self.attention_impl)
+        out = out.reshape(b, s_ctx + s_img, -1)
+        return self.input_proj_out(out[:, s_ctx:]), self.context_proj_out(out[:, :s_ctx])
+
+
+class MMDiTBlock(nn.Module):
+    """Dual-stream MMDiT block with per-stream modulation, norms and MLPs
+    (mmdit.py:279)."""
+
+    def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
+                 rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
+                 device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+        super().__init__()
+        kw = dict(device=device, param_dtype=param_dtype)
+        mod_dtype = stable_dtype(dtype, stable_conditioning)
+        self.modulation_context = Modulation(embedding_dim, inner_dim, dtype=mod_dtype, **kw)
+        self.modulation_input = Modulation(embedding_dim, inner_dim, dtype=mod_dtype, **kw)
+        self.context_norm_1 = LayerNormFP32(inner_dim, **kw)
+        self.input_norm_1 = LayerNormFP32(inner_dim, **kw)
+        self.attention = MMDiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=dtype,
+                                        attention_impl=attention_impl, **kw)
+        self.context_norm_2 = LayerNormFP32(inner_dim, **kw)
+        self.input_norm_2 = LayerNormFP32(inner_dim, **kw)
+        self.mlp_context = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
+        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
+
+    def forward(self, x, y, context, cos_sin_rope, attn_mask=None):
+        mod_i = self.modulation_input(y)
+        mod_c = self.modulation_context(y)
+        mi = modulate(self.input_norm_1(x), scale=mod_i.alpha, shift=mod_i.beta)
+        mc = modulate(self.context_norm_1(context), scale=mod_c.alpha, shift=mod_c.beta)
+        mi, mc = self.attention(mi, mc, cos_sin_rope=cos_sin_rope, attn_mask=attn_mask)
+        x = x + mi * mod_i.gamma
+        context = context + mc * mod_c.gamma
+        x = x + self.mlp_input(modulate(self.input_norm_2(x), scale=mod_i.delta, shift=mod_i.epsilon)) * mod_i.zeta
+        context = context + self.mlp_context(
+            modulate(self.context_norm_2(context), scale=mod_c.delta, shift=mod_c.epsilon)
+        ) * mod_c.zeta
+        return x, context
+
+
+class MMDiTSingleStreamBlock(nn.Module):
+    """Flux-style fused single-stream block: 3-param modulation, parallel
+    attention + MLP on the concatenated ``[context; input]`` stream
+    (mmdit.py:319)."""
+
+    def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
+                 rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
+                 device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+        super().__init__()
+        kw = dict(device=device, param_dtype=param_dtype)
+        self.mlp = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
+        self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=dtype,
+                                      attention_impl=attention_impl, **kw)
+        self.modulation = Modulation(embedding_dim, inner_dim, n_chunks=3,
+                                     dtype=stable_dtype(dtype, stable_conditioning), **kw)
+        self.norm = LayerNormFP32(inner_dim, **kw)
+
+    def forward(self, x, y, context, cos_sin_rope, attn_mask=None):
+        b, s_ctx = x.shape[0], context.shape[1]
+        latents = torch.cat([context, x], dim=1)
+        kv_mask = None
+        if attn_mask is not None:
+            kv_mask = torch.cat([attn_mask.bool(), torch.ones((b, x.shape[1]), dtype=torch.bool, device=x.device)],
+                                dim=1)
+        alpha, beta, gamma = self.modulation(y)
+        modulated = modulate(self.norm(latents), scale=alpha, shift=beta)
+        latents = latents + (
+            self.attention(modulated, cos_sin_rope=cos_sin_rope, attn_mask=kv_mask) + self.mlp(modulated)
+        ) * gamma
+        return latents[:, s_ctx:], latents[:, :s_ctx]
+
+
 class ModulatedLastLayer(nn.Module):
     """adaLN-zero final projection to patch*patch*C_out (mmdit.py:356); it and
     its modulation run at the conditioning dtype."""
@@ -163,6 +290,19 @@ class TimeEmbedMlp(nn.Module):
         return self.fc2(F.silu(self.fc1(x)))
 
 
+class PooledContextMlp(nn.Module):
+    """Linear -> SiLU -> Linear pooled-context MLP (mmdit.py:388)."""
+
+    def __init__(self, in_dim: int, dim: int, *, dtype=None, device=None, param_dtype=torch.float32):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.fc1 = Linear(in_dim, dim * 2, **kw)
+        self.fc2 = Linear(dim * 2, dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.silu(self.fc1(x)))
+
+
 class PatchEmbed(nn.Module):
     """Stride-P, P x P, bias-free patch convolution as a matmul over
     non-overlapping patches; ``weight`` is the OIHW conv kernel."""
@@ -190,7 +330,12 @@ class PatchEmbed(nn.Module):
 
 
 class MMDiT(Denoiser):
-    """DiT top-level model, ``simple_dit=True`` path (mmdit.py:407).
+    """DiT/MMDiT top-level model (mmdit.py:407).
+
+    ``simple_dit=True``: class-conditional single-stream DiT (2-axis RoPE);
+    ``simple_dit=False``: the multimodal MMDiT over ``[context; image]``
+    (3-axis RoPE) with ``n_single_stream_blocks`` trailing fused blocks; it
+    needs a ``context_embedder`` and reads ``cond["context"]``.
 
     The precision policy is the reference's: ``dtype`` is the compute dtype of
     the block matmuls (None = fp32); with ``stable_conditioning`` the
@@ -211,12 +356,14 @@ class MMDiT(Denoiser):
         mlp_ratio: int = 4,
         patch_size: int = 16,
         depth: int = 38,
+        n_single_stream_blocks: int = 0,
         rope_base: int = 10_000,
         partial_rotary_factor: float = 1.0,
         rope_axes_dim: Sequence[int] | None = None,
         frequency_embedding: int = 256,
         n_classes: int | None = None,
         classifier_free: bool = False,
+        context_embedder: ContextEmbedder | None = None,
         attention_impl: str = "auto",
         mlp_type: str = "swiglu",
         pipeline_microbatches: int | None = None,
@@ -228,8 +375,10 @@ class MMDiT(Denoiser):
         device: str | torch.device | None = None,
     ):
         super().__init__()
-        if not simple_dit:
-            raise NotImplementedError("the multimodal MMDiT (simple_dit=False) is ROADMAP slice B")
+        if n_classes is not None and context_embedder is not None:
+            raise ValueError("n_classes and context_embedder cannot both be specified")
+        if not simple_dit and context_embedder is None:
+            raise ValueError("the multimodal MMDiT (simple_dit=False) needs a context embedder")
         if mlp_type != "swiglu":
             raise NotImplementedError(f"mlp_type={mlp_type!r} (MoE) is not ported yet")
         if attention_impl == "ring":
@@ -254,22 +403,45 @@ class MMDiT(Denoiser):
 
         kw = dict(device=device, param_dtype=param_dtype)
         heads_dim = inner_dim // num_heads
-        if rope_axes_dim is None:
-            d2 = int((partial_rotary_factor * heads_dim) // 2)
-            d2 -= d2 % 2
-            rope_axes_dim = [d2, d2]  # (H, W)
+        self.pooled_embedding = False
+        self.context_embedder = self.mlp_pooled_context = self.context_embed = self.label_embed = None
+        if simple_dit:
+            if rope_axes_dim is None:
+                d2 = int((partial_rotary_factor * heads_dim) // 2)
+                d2 -= d2 % 2
+                rope_axes_dim = [d2, d2]  # (H, W)
+            self.label_embed = (LabelEmbed(n_classes, embedding_dim, classifier_free, dtype=cond_dtype, **kw)
+                                if n_classes is not None else None)
+            # every block is a single-stream DiT block already (mmdit.py:529-533)
+            n_single_stream_blocks = 0
+        else:
+            self.context_embedder = context_embedder.to(device)
+            sizes = context_embedder.output_size
+            if context_embedder.n_output == 2:
+                self.pooled_embedding = True
+                self.mlp_pooled_context = PooledContextMlp(sizes[0], embedding_dim, dtype=cond_dtype, **kw)
+                self.context_embed = Linear(sizes[1], inner_dim, bias=False, dtype=dtype, **kw)
+            elif context_embedder.n_output == 1:
+                self.context_embed = Linear(sizes[0], inner_dim, bias=False, dtype=dtype, **kw)
+            else:
+                raise ValueError(f"a context embedder gives 1 or 2 outputs, not {context_embedder.n_output}")
+            if rope_axes_dim is None:
+                d3 = int((partial_rotary_factor * heads_dim) // 3)
+                d3 -= d3 % 2  # each axis dim must be even
+                rope_axes_dim = [d3, d3, d3]  # (L text, H, W)
         self.rope_axes_dim = list(rope_axes_dim)
-        self.label_embed = (LabelEmbed(n_classes, embedding_dim, classifier_free, dtype=cond_dtype, **kw)
-                            if n_classes is not None else None)
         self.last_layer = ModulatedLastLayer(embedding_dim, inner_dim, patch_size, self.output_channels,
                                              dtype=cond_dtype, **kw)
         self.time_embed = TimeEmbedMlp(frequency_embedding, embedding_dim, dtype=cond_dtype, **kw)
         self.conv_proj = PatchEmbed(self.input_channels, inner_dim, patch_size, dtype=cond_dtype, **kw)
-        self.layers = nn.ModuleList([
-            DiTBlock(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, dtype=dtype,
-                     stable_conditioning=stable_conditioning, attention_impl=attention_impl, **kw)
-            for _ in range(depth)
-        ])
+        block_kw = dict(dtype=dtype, stable_conditioning=stable_conditioning, attention_impl=attention_impl, **kw)
+        block_cls = DiTBlock if simple_dit else MMDiTBlock
+        self.layers = nn.ModuleList(
+            [block_cls(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, **block_kw)
+             for _ in range(depth - n_single_stream_blocks)]
+            + [MMDiTSingleStreamBlock(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, **block_kw)
+               for _ in range(n_single_stream_blocks)]
+        )
 
     # --- patch ops ---------------------------------------------------------
     def patchify(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
@@ -286,12 +458,22 @@ class MMDiT(Denoiser):
         x = x.reshape(b, hp, wp, p, p, self.output_channels).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, hp * p, wp * p, self.output_channels)
 
-    def _image_pos_ids(self, batch: int, grid_size: tuple[int, int], device) -> torch.Tensor:
+    def _image_pos_ids(self, batch: int, grid_size: tuple[int, int], n_axes: int, device) -> torch.Tensor:
+        """(h, w) per image token; (0, h, w) with a text axis (mmdit.py:613)."""
         hp, wp = grid_size
         hh, ww = torch.meshgrid(torch.arange(hp, device=device), torch.arange(wp, device=device),
                                 indexing="ij")
-        pos = torch.stack([hh.reshape(-1), ww.reshape(-1)], dim=-1)
-        return pos[None].expand(batch, hp * wp, 2)
+        axes = [hh.reshape(-1), ww.reshape(-1)]
+        if n_axes == 3:
+            axes = [torch.zeros_like(axes[0])] + axes
+        pos = torch.stack(axes, dim=-1)
+        return pos[None].expand(batch, hp * wp, n_axes)
+
+    def _text_pos_ids(self, batch: int, seq_len: int, device) -> torch.Tensor:
+        """(l, 0, 0) per text token, l from 1 (mmdit.py:622)."""
+        zeros = torch.zeros((seq_len,), dtype=torch.long, device=device)
+        pos = torch.stack([torch.arange(1, seq_len + 1, device=device), zeros, zeros], dim=-1)
+        return pos[None].expand(batch, seq_len, 3)
 
     def set_block_cache_span(self, span: tuple[int, int] | None) -> None:
         if span is not None:
@@ -303,10 +485,29 @@ class MMDiT(Denoiser):
             if y is None:
                 raise ValueError("class labels y required for label-conditional DiT")
             emb = emb + self.label_embed(y, drop if self.classifier_free else None)
-        pos_ids = self._image_pos_ids(x.shape[0], grid_size, x.device)
+        pos_ids = self._image_pos_ids(x.shape[0], grid_size, 2, x.device)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
         for layer in self.layers:
             x = layer(x, emb, cos_sin, None)
+        return self.last_layer(x, emb)
+
+    def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop):
+        b = x.shape[0]
+        emb = self.time_embed(timestep_embedding(timesteps, self.frequency_embedding).to(x.dtype))
+        context_output = self.context_embedder(context_raw, drop)
+        if self.pooled_embedding:
+            if "pooled_embeddings" not in context_output:
+                raise ValueError("the context embedder gave no pooled embeddings")
+            emb = self.mlp_pooled_context(context_output["pooled_embeddings"].to(x.dtype)) + emb
+        context = self.context_embed(context_output["embeddings"].to(x.dtype))
+        if self.stream_dtype is not None:
+            context = context.to(self.stream_dtype)
+        attn_mask = context_output.get("attn_mask")
+        pos_ids = torch.cat([self._text_pos_ids(b, context.shape[1], x.device),
+                             self._image_pos_ids(b, grid_size, 3, x.device)], dim=1)
+        cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
+        for layer in self.layers:
+            x, context = layer(x, emb, context, cos_sin, attn_mask)
         return self.last_layer(x, emb)
 
     def forward(
@@ -324,9 +525,16 @@ class MMDiT(Denoiser):
         cond = cond or {}
         if cond.get("augment_labels") is not None:
             raise NotImplementedError("augmentation conditioning is not ported yet (ROADMAP queue 1, item 15)")
+        if cond.get("context") is not None and cond.get("y") is not None:
+            raise ValueError("context and y cannot both be specified")
         x_context = cond.get("x_context")
         if x_context is not None:
             x = torch.cat([x, x_context], dim=-1)  # NHWC channel concat
         tokens, grid_size = self.patchify(x)
-        out = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop)
+        if self.simple_dit:
+            out = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop)
+        else:
+            if cond.get("context") is None:
+                raise ValueError("the multimodal MMDiT needs cond['context']")
+            out = self._mmdit_forward(tokens, grid_size, timesteps, cond["context"], drop)
         return {"x": self.unpatchify(out, grid_size)}

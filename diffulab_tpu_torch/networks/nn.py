@@ -68,6 +68,47 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10_0
     return embedding
 
 
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest-neighbour upsample, NHWC, as broadcast + reshape (nn.py:117)."""
+    b, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c)
+    return x.reshape(b, 2 * h, 2 * w, c)
+
+
+class GroupNorm(nn.Module):
+    """``nnx.GroupNorm`` on channels-last input ``[B, ..., C]``: statistics
+    over the spatial axes and the channels of each group, in fp32, with the
+    fast variance ``E[x²] - E[x]²`` clipped at 0 as flax computes it; the
+    output in the promoted dtype of the input and the parameters. The
+    parameters keep nnx's names, ``scale`` and ``bias``."""
+
+    def __init__(self, num_features: int, num_groups: int | None = None, eps: float = 1e-6, *,
+                 dtype=None, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.num_groups = min(32, num_features) if num_groups is None else num_groups
+        if num_features % self.num_groups:
+            raise ValueError(f"{num_features} channels do not split into {self.num_groups} groups")
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(num_features, device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.scale.dtype)
+        b, c = x.shape[0], x.shape[-1]
+        g = self.num_groups
+        xf = x.to(torch.promote_types(dt, torch.float32))
+        grouped = xf.reshape(b, -1, g, c // g)
+        mean = grouped.mean(dim=(1, 3))
+        var = torch.clamp(grouped.square().mean(dim=(1, 3)) - mean.square(), min=0.0)
+        stat_shape = (b,) + (1,) * (x.ndim - 2) + (c,)
+        mean = mean.repeat_interleave(c // g, dim=1).reshape(stat_shape)
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(c // g, dim=1).reshape(stat_shape)
+        mul = mul * self.scale.to(mul.dtype)
+        y = (xf - mean) * mul + self.bias.to(mul.dtype)
+        return y.to(dt)
+
+
 def modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """adaLN modulation ``x * (1 + scale) + shift`` (nn.py:130)."""
     return x * (1 + scale) + shift

@@ -36,6 +36,10 @@ KERNELS = {
         "csrc/fused_mha_bwd.cu",
         [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P],
     ),
+    "flash_attn_fwd": (
+        "csrc/flash_attn_fwd.cu",
+        [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P],
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

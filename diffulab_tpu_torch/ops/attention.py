@@ -3,23 +3,25 @@
 The models call ``dot_product_attention(q, k, v, kv_mask)`` on the
 reference's ``[B, S, H, D]`` layout. Dispatch:
 
-- ``impl="auto"`` / ``"fused"``: the fused whole-softmax kernel
-  (:func:`~diffulab_tpu_torch.ops.fused_mha.fused_mha`; its plain version for
-  CPU tensors), for every shape it supports: head dim in
-  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS` and padded
-  sequences of at most :data:`FUSED_MAX_SEQ` tokens. Longer sequences need
-  the KV-tiled flash kernel, which is not ported yet: they raise
-  ``NotImplementedError``.
-- ``impl="xla"``: the caller's explicit request for the plain version
+- ``impl="auto"``: for head dims in
+  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`, the fused
+  whole-softmax kernel K1 for padded sequences of at most
+  :data:`FUSED_MAX_SEQ` tokens, the KV-tiled flash kernel K3 above (on CPU
+  tensors, their plain versions). The reference keeps K1 while its VMEM
+  budget holds, then XLA SDPA, then flash from ``FLASH_MIN_SEQ``; the port
+  never calls SDPA, so K3 takes the whole range beyond K1's.
+- ``impl="fused"`` / ``"flash"``: that kernel at any length.
+- ``impl="xla"``: the caller's explicit request for the plain version of K1
   (:func:`~diffulab_tpu_torch.ops.fused_mha.fused_mha_reference`) on any
   device. It keeps K1's fully-masked-row rule (o = 0), not the mean(V) of
   the reference's ``jax.nn.dot_product_attention`` path.
 
-Sequences are padded to :data:`MIN_BLOCK` multiples with a synthesized key
-mask, and padded query rows are sliced off, as in the reference's
-``_fused_path``. Both are differentiable: under grad the fused path goes
-through :class:`~diffulab_tpu_torch.ops.fused_mha.FusedMHA` (backward K2),
-and ``impl="xla"`` differentiates through the plain forward itself.
+The fused route pads sequences to :data:`MIN_BLOCK` multiples with a
+synthesized key mask and slices off padded query rows, as the reference's
+``_fused_path``; it is differentiable (backward K2). The flash route pads
+nothing: K3 masks the ragged ends itself, which is what the reference's
+padding mask does. Under grad it runs on the CPU only, through autograd of
+the plain version; on the card the flash backward (K4, K5) is slice B2.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from diffulab_tpu_torch.ops.flash_attention import flash_attention
 from diffulab_tpu_torch.ops.fused_mha import (
     KERNEL_HEAD_DIMS,
     MIN_BLOCK,
@@ -34,10 +37,12 @@ from diffulab_tpu_torch.ops.fused_mha import (
     fused_mha_reference,
 )
 
-#: longest padded sequence the fused kernel takes here: 512 tokens is where
-#: the reference stops using its fused kernel at DiT-B widths, and the
-#: sequences beyond it belong to the flash kernel (ROADMAP queue 2, K3)
+#: longest padded sequence the fused kernel takes under ``auto``; the flash
+#: kernel takes longer ones. K1 against K3 on the H100 (chip_smoke.py phase
+#: 8, PERF.md) sets where the line falls.
 FUSED_MAX_SEQ = 512
+
+IMPLS = ("auto", "fused", "flash", "xla")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -53,7 +58,7 @@ def _pad_to(x: torch.Tensor, axis: int, target: int) -> torch.Tensor:
 
 
 def use_fused(q_shape: tuple[int, ...], kv_len: int) -> bool:
-    """Whether the fused kernel takes this shape (after padding)."""
+    """Whether ``auto`` takes the fused kernel for this shape (after padding)."""
     _, sq, _, d = q_shape
     seq = max(_round_up(sq, MIN_BLOCK), _round_up(kv_len, MIN_BLOCK))
     return d in KERNEL_HEAD_DIMS and seq <= FUSED_MAX_SEQ
@@ -69,16 +74,18 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Bidirectional attention. q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask bool
     [B,Skv] (True = attend). Returns [B, Sq, H, D] in q's dtype."""
-    if impl not in ("auto", "fused", "xla"):
-        raise ValueError(f"impl must be 'auto', 'fused' or 'xla', got {impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "xla":
         return _fused_path(q, k, v, kv_mask, scale, plain=True)
-    if not use_fused(q.shape, k.shape[1]):
-        raise NotImplementedError(
-            f"attention at q {tuple(q.shape)}, kv length {k.shape[1]} needs the KV-tiled "
-            "flash kernel (K3), which is ROADMAP slice B and not ported yet; the fused "
-            f"kernel takes head dims {KERNEL_HEAD_DIMS} and up to {FUSED_MAX_SEQ} tokens"
-        )
+    if impl == "auto":
+        if q.shape[-1] not in KERNEL_HEAD_DIMS:
+            raise NotImplementedError(
+                f"head dim {q.shape[-1]}: the attention kernels are instantiated for {KERNEL_HEAD_DIMS}"
+            )
+        impl = "fused" if use_fused(q.shape, k.shape[1]) else "flash"
+    if impl == "flash":
+        return flash_attention(q, k, v, kv_mask, scale)[0]
     return _fused_path(q, k, v, kv_mask, scale)
 
 

@@ -154,20 +154,21 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.contiguous()
 
 
-def _check_cuda_inputs(q, k, v, kv_mask) -> None:
-    """Raise unless q/k/v/kv_mask meet the kernels' device, shape and dtype contract."""
+def _check_cuda_inputs(q, k, v, kv_mask, block: int = KERNEL_BLOCK, name: str = "fused_mha") -> None:
+    """Raise unless q/k/v/kv_mask meet the kernels' device, shape and dtype
+    contract: Sq and Skv nonzero multiples of ``block`` (1 for the flash kernel)."""
     if q.device.type != "cuda":
-        raise ValueError(f"fused_mha runs on CUDA or CPU tensors, got {q.device}")
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {q.device}")
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if k.shape != (b, skv, h, d) or v.shape != (b, skv, h, d):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"fused_mha takes bf16 or fp32 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
-    if sq % KERNEL_BLOCK or skv % KERNEL_BLOCK:
-        raise ValueError(f"Sq={sq} and Skv={skv} must be multiples of {KERNEL_BLOCK}")
+    if sq < 1 or skv < 1 or sq % block or skv % block:
+        raise ValueError(f"Sq={sq} and Skv={skv} must be nonzero multiples of {block}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
     if kv_mask is not None and kv_mask.shape != (b, skv):

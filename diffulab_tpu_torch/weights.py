@@ -10,8 +10,13 @@ the mapping is by leaf name only:
 - ``*/kernel`` of rank 4 (HWIO conv) -> ``weight`` OIHW;
 - ``*/bias`` -> ``bias``;
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
-  other ``*/scale`` (RMSNorm) stay ``scale``;
+  other ``*/scale`` (RMSNorm, GroupNorm) stay ``scale``;
 - ``*/embedding/embedding`` -> ``embedding.weight``.
+
+The name alone cannot tell a LayerNorm named ``norm`` from a GroupNorm named
+``norm`` (the VAE's mid attention, ``mid_attn/norm/scale``; trap T16): pass
+the port ``module`` and each ``scale`` goes to whichever of ``scale`` and
+``weight`` that module has.
 
 A gradient tree of the JAX model (``jax.grad`` with respect to
 ``nnx.state(model, nnx.Param)``) has the same paths and the same layouts, so
@@ -45,11 +50,18 @@ def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     return ".".join(parts), value
 
 
-def state_dict_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(params: dict[str, np.ndarray],
+                        module: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
     """Map a flat ``{path: array}`` JAX parameter dict to a torch state dict
-    (float arrays keep their dtype; load with ``strict=True``)."""
+    (float arrays keep their dtype; load with ``strict=True``). With
+    ``module``, a ``*/scale`` leaf is named after the parameter that module
+    has at that place (``scale`` or ``weight``)."""
+    names = None if module is None else set(module.state_dict())
     out: dict[str, torch.Tensor] = {}
     for path, value in params.items():
         key, arr = _torch_key(path, np.asarray(value))
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        if names is not None and path.endswith("/scale") and key not in names:
+            stem = key.rsplit(".", 1)[0]
+            key = next((f"{stem}.{leaf}" for leaf in ("scale", "weight") if f"{stem}.{leaf}" in names), key)
+        out[key] = torch.from_numpy(np.array(arr))  # a writable copy
     return out

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Where the time of one DiT-B/2 ``generate`` request goes in the PyTorch/CUDA port.
+"""Where the time of one ``generate`` request goes in the PyTorch/CUDA port.
 
-Builds the model as chip_smoke.py does (bench.py's DiT-B/2, bf16 whole-model
-cast, seeded random weights, batch 16, Euler-50, CFG 4.0), times requests
-without the profiler, then records one request under ``torch.profiler`` and
+Builds the model as chip_smoke.py does, with seeded random weights: by
+default bench.py's DiT-B/2 (bf16 whole-model cast, batch 16, Euler-50, CFG
+4.0); with ``--txt2img`` the txt2img MMDiT with its Flux2 tower (4 prompts,
+64x64x128 latents, 4224 tokens, Euler-50, CFG 4.0, decode to 1024x1024).
+Times requests without the profiler (for txt2img also the denoising loop and
+the decode apart), then records one request under ``torch.profiler`` and
 prints, from the device's kernel records: the kernel launches per request,
 the device busy time (union of kernel intervals) against the request's wall
 time, and the device time by kernel group and by kernel name.
 
-Run on the card from the repository root: ``python3 scripts/profile_torch_generate.py``.
+Run on the card from the repository root:
+``python3 scripts/profile_torch_generate.py [--txt2img]``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -25,12 +31,16 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "flash_fwd" in low:
+        return "attention (flash_attn_fwd)"
     if "mha_fwd" in low:
         return "attention (fused_mha_fwd)"
     if "mha_bwd" in low:
         return "attention (fused_mha_bwd)"
     if "multi_tensor_apply" in low or "foreach" in low:
         return "optimizer (foreach)"
+    if any(tag in low for tag in ("fprop", "dgrad", "conv", "winograd")):
+        return "convolution (cuDNN)"
     if any(tag in low for tag in ("gemm", "xmma", "nvjet", "cutlass", "matmul")):
         return "matmul (cuBLAS)"
     if "layer_norm" in low or "layernorm" in low:
@@ -44,14 +54,63 @@ def _group(name: str) -> str:
     return "other"
 
 
+def _timed(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def txt2img() -> None:
+    """The txt2img request: the loop and the decode timed apart, then traced whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, _, tower, cond = chip_smoke.build_txt2img()
+    diffuser = Diffuser(model, "euler", n_steps=chip_smoke.STEPS, vision_tower=tower,
+                        extra_args=chip_smoke.TXT_EXTRA)
+
+    def request(seed: int) -> float:
+        return _timed(lambda: chip_smoke.txt2img_request(diffuser, cond, seed))
+
+    request(0)  # warm-up: cuBLAS/cuDNN heuristics, allocator
+    plain_ms = [request(1 + i) for i in range(3)]
+    loop_ms, decode_ms = [], []
+    with torch.no_grad():
+        for i in range(2):
+            latents = chip_smoke.txt2img_request(diffuser, cond, 20 + i, return_latents=True)
+            loop_ms.append(_timed(lambda: chip_smoke.txt2img_request(diffuser, cond, 20 + i, return_latents=True)))
+            decode_ms.append(_timed(lambda: tower.decode(latents / diffuser.latent_scale + diffuser.latent_bias)))
+    print(f"denoising loop ms (50 steps, latents only): {[round(m, 2) for m in loop_ms]}; "
+          f"Flux2 decode ms: {[round(m, 2) for m in decode_ms]}; peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced_ms = request(10)
+    summarize(prof, plain_ms, traced_ms, "request")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--txt2img", action="store_true", help="profile the txt2img MMDiT request")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_generate: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.txt2img:
+        txt2img()
+        return 0
     import chip_smoke
     from diffulab_tpu_torch.diffuse import Diffuser
 
@@ -108,7 +167,9 @@ def summarize(prof, plain_ms: list[float], traced_ms: float, unit: str) -> None:
         by_name[e.name][0] += dur
         by_name[e.name][1] += 1
     total = sum(by_group.values())
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
     print(f"{unit} wall ms without profiler: {[round(m, 2) for m in plain_ms]} "
           f"(median {statistics.median(plain_ms):.2f}); traced {unit} wall ms {traced_ms:.2f}")
     print(f"kernel launches per {unit}: {len(kernels)}; device busy {busy_us / 1e3:.2f} ms of a "

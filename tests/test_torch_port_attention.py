@@ -21,6 +21,7 @@ from diffulab_tpu.ops.attention import _fused_path
 from diffulab_tpu.ops.fused_mha import _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ, use_fused
+from diffulab_tpu_torch.ops.flash_attention import flash_attention_reference
 from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_reference
 
 jax_fused = functools.partial(_fused_path, interpret=True)
@@ -106,10 +107,14 @@ def test_dispatch_limits():
     assert use_fused((2, 100, 4, 16), 300)
     assert not use_fused((2, 256, 4, 48), 256)  # head dim without a kernel instance
     assert not use_fused((2, FUSED_MAX_SEQ + 1, 4, 64), 128)
-    q = torch.zeros(1, 1024, 2, 64)
-    with pytest.raises(NotImplementedError, match="flash"):
-        dot_product_attention(q, q, q)
-    dot_product_attention(q, q, q, impl="xla")  # the plain version takes any shape
+    # past FUSED_MAX_SEQ the flash kernel K3 takes over (its plain version on the CPU)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(11, b=1, sq=1024, skv=1024, h=2))
+    torch.testing.assert_close(dot_product_attention(q, k, v), flash_attention_reference(q, k, v)[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dot_product_attention(q, k, v, impl="xla"),  # the plain version takes any shape
+                               dot_product_attention(q, k, v), atol=2e-5, rtol=2e-5)
+    with pytest.raises(NotImplementedError, match="head dim 48"):
+        dot_product_attention(*(t[..., :48] for t in (q, k, v)))
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

@@ -21,6 +21,7 @@ from flax import nnx
 from diffulab_tpu.networks import nn as jnn
 from diffulab_tpu_torch.networks import nn as tnn
 from diffulab_tpu_torch.networks.denoisers.mmdit import LayerNormFP32, MMDiT
+from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
 from diffulab_tpu_torch.weights import state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
@@ -87,6 +88,15 @@ def test_model_needs_a_device_without_cuda(monkeypatch):
     dict(pipeline_microbatches=2),
 ])
 def test_unported_options_raise(kwargs):
+    if kwargs.get("simple_dit") is False:
+        # the multimodal MMDiT is ported: it needs a context embedder instead
+        # of class labels, and with one it builds; MoE still raises on it
+        with pytest.raises(ValueError, match="context embedder"):
+            MMDiT(**{**TINY, **kwargs}, device="cpu")
+        embedder = PrecomputedEmbedder(null_embedding=np.zeros((8, 32), np.float32), device="cpu")
+        mm = dict(TINY, simple_dit=False, n_classes=None, context_embedder=embedder)
+        assert len(MMDiT(**mm, n_single_stream_blocks=1, device="cpu").layers) == TINY["depth"]
+        kwargs = dict(mm, mlp_type="moe")
     with pytest.raises(NotImplementedError):
         MMDiT(**{**TINY, **kwargs}, device="cpu")
 
@@ -174,6 +184,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 10 and all(f.exists() for f in files)
     training = REPO / "diffulab_tpu_torch" / "training"
     assert {training / f"{m}.py" for m in ("trainer", "optim", "ema", "checkpoint", "meters", "logging")} <= set(files)
+    networks = REPO / "diffulab_tpu_torch" / "networks"
+    assert {networks / "embedders" / f"{m}.py" for m in ("common", "precomputed")} <= set(files)
+    assert {networks / "vision_towers" / f"{m}.py" for m in ("common", "vae", "flux2")} <= set(files)
+    assert REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py" in set(files)
     for f in files:
         for name in _imported_roots(f):
             top = name.split(".")[0]
@@ -182,3 +196,4 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "torch" in _imported_roots(REPO / "diffulab_tpu_torch" / "ops" / "fused_mha.py")
     assert "diffulab_tpu_torch.ops" in _imported_roots(REPO / "diffulab_tpu_torch" / "networks" / "denoisers" / "mmdit.py")
     assert "diffulab_tpu_torch.training.checkpoint" in _imported_roots(training / "trainer.py")
+    assert "diffulab_tpu_torch.networks.vision_towers.vae" in _imported_roots(networks / "vision_towers" / "flux2.py")

@@ -27,6 +27,7 @@ from diffulab_tpu_torch.diffuse.guidance import combine_cfg, effective_scale
 from diffulab_tpu_torch.diffuse.samplers.flow import Euler
 from diffulab_tpu_torch.diffuse.schedules import flow_linear_timesteps
 from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+from diffulab_tpu_torch.networks.vision_towers import Flux2VAE
 
 TOL = {"fp32": 1e-5, "bf16_full": 4e-2, "bf16_mixed": 4e-2}
 
@@ -158,8 +159,10 @@ def test_unported_sampling_features_raise():
         Diffuser(model, "heun", n_steps=2)
     with pytest.raises(NotImplementedError):
         Diffuser(model, "euler", model_type="edm")
-    with pytest.raises(NotImplementedError):
-        Diffuser(model, "euler", vision_tower=object())
+    # latent mode is ported: the tower's latent scale and bias are taken over
+    tower = Flux2VAE(base_channels=8, ch_mult=(1,), num_res_blocks=1, latent_channels=1, device="cpu")
+    latent = Diffuser(model, "euler", vision_tower=tower)
+    assert latent.diffusion.latent_diffusion and (latent.latent_scale, latent.latent_bias) == (1.0, 0.0)
     diffuser = Diffuser(model, "euler", n_steps=2)
     with pytest.raises(NotImplementedError):
         diffuser.set_block_cache(2, span=(0, 1))
