@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``diffulab_tpu_torch``) on one card.
 
-Drives the port's three paths with seeded random weights: DiT-B/2
+Drives the port's four paths with seeded random weights: DiT-B/2
 class-conditional sampling (Euler-50, CFG 4.0 as one fused 2x batch, bf16
 whole-model cast, batch 16 on 32x32x4 latents) through ``Diffuser.generate``;
 DiT-B/2 rectified-flow training (logit-normal t, v-prediction, p_cfg 0.1,
@@ -11,7 +11,10 @@ MMDiT (768 wide, 8 dual + 4 single-stream blocks, mixed bf16, a
 PrecomputedEmbedder with a 128 x 2048 null embedding) on 64x64x128 latents
 (4096 image + 128 text tokens), 4 prompts, Euler-50 with shift 4.63 and CFG
 4.0, decoded by the Flux2 VAE to 1024x1024 pixels, through
-``Diffuser.generate``.
+``Diffuser.generate``; and training of that txt2img MMDiT at batch 8
+(rectified flow, logit-normal t with shift 4.63, p_cfg 0.1, AdamW at
+configs/optimizer/adamw.yaml's values, EMA) through ``BaseTrainer.train``
+over shards that the port's ``ShardedDatasetWriter`` writes from a seed.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -35,13 +38,28 @@ Phases, one line each:
   8. K3 (flash attention forward) against its plain version, at the txt2img
      shape (B=8, S=4224, H=12, D=64, bf16) with the fused-CFG ragged text
      mask, in fp32, and at the edge cases; its timings, SDPA's as the
-     yardstick, the refusal under grad, and K1 against K3 at 256-512 tokens;
+     yardstick, and K1 against K3 at 256-512 tokens;
   9. the txt2img MMDiT forward at that shape, kernel path against the plain
      attention: 12 K3 launches and no K1;
  10. two txt2img ``generate`` requests with the Flux2 decode, the counts set
      to 0 just before each and read just after: 600 K3 launches and 0 K1 per
      request; ms per request, images/s, peak memory, pixels finite and in
-     [-1, 1]; a 4-step trajectory, kernel path against plain attention.
+     [-1, 1]; a 4-step trajectory, kernel path against plain attention;
+ 11. K4 and K5 (flash attention backward) against their plain version, from
+     K3's o and lse, at the txt2img training shape (B=8, S=4224, H=12, D=64,
+     bf16) with the training key mask, in fp32 at that shape, at the edge
+     cases and through the entry point under grad; their timings, bounds and
+     SDPA's masked backward as the yardstick; K2 against K4+K5 at 256-512
+     tokens;
+ 12. the txt2img MMDiT parameter gradients of one loss at 4224 tokens (model
+     batch 2), kernel path against plain attention: 12 K3 + 12 K4 + 12 K5
+     launches and no K1/K2;
+ 13. ``BaseTrainer.train`` on the txt2img MMDiT at batch 8 over two
+     aspect-ratio buckets (``ImageNetmultiAR``, ``MultiARBatchSampler``,
+     ``collate_fn``), validation loss on the EMA weights, validation images
+     decoded by the Flux2 tower with their captions, and the best-val
+     checkpoint: 12 K3 + 12 K4 + 12 K5 launches in every step; ms per step,
+     samples/s and peak memory.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -93,6 +111,20 @@ TXT_SEQ = TEXT_LEN + TXT_LATENT[0] * TXT_LATENT[1]  # 4224
 TEXT_LENGTHS = (128, 77, 31, 9)  # valid tokens of the 4 prompts
 TXT_EXTRA = {"logits_normal": True, "shift": 4.63}  # the txt2img configs' diffuser extra_args
 TXT_REQUESTS = 2
+# txt2img training: batch 8 (4224 tokens each); the text lengths of the batch
+# in phase 11, and the rows the CFG drop sent to the null embedding there
+TXT_TRAIN_BATCH = 8
+TRAIN_TEXT_LENGTHS = (128, 77, 31, 9, 100, 54, 16, 3)
+TRAIN_DROPPED = (5,)
+# phase 12's model batch: autograd through the plain attention keeps fp32
+# [B, 12, 4224, 4224] score matrices (1.7 GB each at B=2, several a block)
+TXT_GRAD_BATCH = 2
+# phase 13: configs/optimizer/adamw.yaml's values, passed explicitly (trap T7),
+# and the txt2img configs' validation sampler; shards of a 64x64x128 bucket
+# (4224 tokens) and a 48x80x128 one (3968 tokens), 12 train batches and 1 val
+TXT_ADAMW = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8)
+TXT_VAL_STEPS, TXT_VAL_SHIFT = 4, 6.93
+TXT_BUCKETS = {(64, 64): 8, (48, 80): 4}  # latent (H, W) -> train batches
 
 # H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1)
 PEAK_BYTES_PER_S = 3.35e12
@@ -104,10 +136,11 @@ PEAK_BF16_FLOPS = 989e12
 # bf16 step (2^-8 relative).
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
-# K2 against its plain version, per gradient: |kernel - plain| <= tol * (max|plain| + |plain|).
-# fp32: the same arithmetic in another summation order. bf16: p and ds are
-# rounded to bf16 at the same places in both, but exp/sum rounding can flip
-# a rounding of p, ds or the output by one bf16 step (2^-8 relative), and a
+# K2, and K4/K5, against their plain versions, per gradient:
+# |kernel - plain| <= tol * (max|plain| + |plain|). fp32: the same arithmetic
+# in another summation order. bf16: p and ds are rounded to bf16 at the same
+# places in both, but exp/sum rounding (K4/K5's exp is ex2.approx) can flip a
+# rounding of p, ds or the output by one bf16 step (2^-8 relative), and a
 # gradient element near 0 is a sum of terms as large as the largest one.
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # gradients through dot_product_attention against autograd of the plain
@@ -119,6 +152,12 @@ GRAD_PATH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # forward and backward round in bf16 at other places in the two paths, and 12
 # bf16 blocks carry the difference back
 DIT_GRAD_TOL = 5e-2
+# txt2img MMDiT parameter gradients of one loss (mixed bf16), per parameter
+# ||kernel path - plain path|| / ||plain path||: K3 rounds the unnormalised p
+# and K4/K5 round p and ds to bf16 where autograd of the plain forward rounds
+# the normalised p and the gradient of its bf16 cast, and 12 blocks carry the
+# difference back
+TXT_GRAD_TOL = 5e-2
 # DiT-B/2 forward, max|kernel path - plain path| / max|plain path|: 12 bf16
 # blocks carry the attention difference forward through bf16 rounding
 DIT_REL_TOL = 5e-2
@@ -190,11 +229,14 @@ def ptxas_usage(log: str) -> dict[str, str]:
     """``{"kernel<D>": "R regs, S B spilled"}`` from an ``nvcc -Xptxas -v`` log."""
     usage, current, spill = {}, None, 0
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '\w*?((?:mha|flash)_\w+?)ILi(\d+)E", line)
-        if entry:
-            # the anonymous namespace mangles as <len><source name>_cu_<hash>: keep the last name
-            name = re.split(r"\d+(?=(?:mha|flash)_)", entry.group(1))[-1]
-            current, spill = f"{name}<{entry.group(2)}>", 0
+        if "Compiling entry function" in line:
+            # the anonymous namespace mangles as <len><source name>_cu_<hash>: keep the last name;
+            # an entry that is no head-dim instance (the di pre-pass) is not reported
+            current, spill = None, 0
+            entry = re.search(r"Compiling entry function '\w*?((?:mha|flash)_\w+?)ILi(\d+)E", line)
+            if entry:
+                name = re.split(r"\d+(?=(?:mha|flash)_)", entry.group(1))[-1]
+                current = f"{name}<{entry.group(2)}>"
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores:
             spill = int(stores.group(1))
@@ -410,16 +452,6 @@ def phase_flash_kernel():
             print(f"phase 8 kernel K3 edge cases {name} (tol atol {tol[0]} rtol {tol[1]}): max_abs_err "
                   + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row o==0 lse==+inf")
 
-        # no fallback: under grad the flash route refuses (its backward is slice B2)
-        q, k, v = (rand(1, 200, 2, 64, dtype=torch.bfloat16) for _ in range(3))
-        with torch.enable_grad():
-            try:
-                flash_attention(q.requires_grad_(), k, v)
-            except NotImplementedError:
-                pass
-            else:
-                fail("K3 under grad on the card did not raise")
-
         # K1 against K3 where the dispatch hands over (FUSED_MAX_SEQ)
         times = {}
         for bb in (TXT_BATCH * 2, 32):
@@ -432,6 +464,180 @@ def phase_flash_kernel():
         result["crossover"] = times
     torch.cuda.synchronize()
     return result
+
+
+def txt2img_train_mask(device="cuda"):
+    """[TXT_TRAIN_BATCH, TXT_SEQ] key mask of a txt2img training batch: the
+    batch's text lengths, the rows the CFG drop sent to the null embedding
+    with its one valid token, every image token valid."""
+    import torch
+
+    lengths = torch.tensor(TRAIN_TEXT_LENGTHS, device=device)
+    lengths[list(TRAIN_DROPPED)] = NULL_SEQ_LEN
+    text = torch.arange(TEXT_LEN, device=device)[None, :] < lengths[:, None]
+    image = torch.ones(len(TRAIN_TEXT_LENGTHS), TXT_LATENT[0] * TXT_LATENT[1], dtype=torch.bool, device=device)
+    return torch.cat([text, image], dim=1)
+
+
+def flash_bwd_bounds(b, sq, h, d, valid_keys, elem):
+    """{kernel: (bound ms, what bounds it, MB, GFLOP)} of K4 and K5: K4 reads
+    q, k, v, o, do, lse and the mask and writes dk, dv and di; K5 reads q, k,
+    v, do, lse, di and the mask and writes dq; K4 makes four products over
+    the keys each row attends (s, dv, dp, dk), K5 three (s, dp, dq)."""
+    row = b * sq * h * d * elem
+    vec = b * h * sq * 4
+    out = {}
+    for name, n_bytes, products in (("flash_attn_bwd_dkv", 7 * row + 2 * vec + b * sq * 4, 4),
+                                    ("flash_attn_bwd_dq", 5 * row + 2 * vec + b * sq * 4, 3)):
+        flops = products * 2 * h * sq * d * valid_keys
+        t_bytes, t_flops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        out[name] = (max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations",
+                     n_bytes / 1e6, flops / 1e9)
+    return out
+
+
+def phase_flash_bwd_kernel():
+    """K4 and K5 against their plain version on the same CUDA inputs, from
+    the o and lse K3 gives: the slice shape with the training key mask, fp32,
+    the edge cases, the entry point under grad, and K2 against K4+K5 at 256,
+    384 and 512 tokens."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_reference,
+    )
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+    def both(q, k, v, do, mask=None, scale=None):
+        o, lse = flash_attention(q, k, v, mask, scale)
+        return (flash_attention_bwd(q, k, v, mask, o, lse, do, scale),
+                flash_attention_bwd_reference(q, k, v, mask, o, lse, do, scale))
+
+    b, s, h, d = TXT_TRAIN_BATCH, TXT_SEQ, TXT["num_heads"], TXT["inner_dim"] // TXT["num_heads"]
+    scale = d ** -0.5
+    mask = txt2img_train_mask()
+    with torch.no_grad():
+        # the slice shape, q/k/v as views of one packed qkv projection output
+        qkv = rand(b, s, 3 * h * d, dtype=torch.bfloat16)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+        do = rand(b, s, h, d, dtype=torch.bfloat16)
+        o, lse = flash_attention(q, k, v, mask)
+        ours = flash_attention_bwd(q, k, v, mask, o, lse, do)
+        ref = flash_attention_bwd_reference(q, k, v, mask, o, lse, do)
+        errs = {name: check_grads(f"main bf16 {name}", [g], [r], BWD_TOL["bfloat16"])
+                for name, g, r in zip(("dq", "dk", "dv"), ours, ref)}
+        del ours, ref
+        dkv_ms = cuda_time_ms(lambda: flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale), iters=10)
+        _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
+        dq_ms = cuda_time_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale), iters=10)
+        both_ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, mask, o, lse, do), iters=10)
+        plain_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(q, k, v, mask, o, lse, do), iters=1, warmup=1)
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :])
+        dot = do.transpose(1, 2)
+        library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        del out, qt, kt, vt
+    valid = int(mask.sum())
+    bounds = flash_bwd_bounds(b, s, h, d, valid, q.element_size())
+    results = {}
+    for name, ms, grads in (("flash_attn_bwd_dkv", dkv_ms, ("dk", "dv")), ("flash_attn_bwd_dq", dq_ms, ("dq",))):
+        bound_ms, bound_by, mb, gflop = bounds[name]
+        results[name] = dict(max_abs_err=max(errs[g] for g in grads), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        print(f"phase 11 kernel {'K4' if name.endswith('dkv') else 'K5'} {name} main B={b} S={s} H={h} D={d} bf16, "
+              f"text lengths {list(TRAIN_TEXT_LENGTHS)} with rows {list(TRAIN_DROPPED)} dropped to {NULL_SEQ_LEN}: "
+              f"max_abs_err " + " ".join(f"{g} {errs[g]:.3e}" for g in grads)
+              + f" (tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by}: {mb:.1f} MB, {gflop:.1f} GFLOP; {gflop / ms:.1f} TFLOP/s achieved)")
+    print(f"phase 11 K4+K5 main: kernel_ms {both_ms:.4f} (one flash_attention_bwd call) plain_ms {plain_ms:.4f} "
+          f"(K4 and K5 together) library_ms {library_ms:.4f} (SDPA masked backward: dq, dk and dv together) "
+          f"bound_ms {bounds['flash_attn_bwd_dkv'][0] + bounds['flash_attn_bwd_dq'][0]:.4f}")
+
+    with torch.no_grad():
+        # fp32 at the slice shape (the library's default dtype=None trains in fp32)
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        (g32, r32) = both(q32, k32, v32, do32, mask)
+        err32 = check_grads("main fp32", g32, r32, BWD_TOL["float32"])
+        o32, lse32 = flash_attention(q32, k32, v32, mask)
+        ms32 = cuda_time_ms(lambda: flash_attention_bwd(q32, k32, v32, mask, o32, lse32, do32), iters=2, warmup=1)
+        del q32, k32, v32, do32, g32, r32, o32, lse32
+    print(f"phase 11 kernel K4+K5 main fp32 (the slice shape): max_abs_err {err32:.3e} "
+          f"(tol {BWD_TOL['float32']} * (max|ref| + |ref|)); kernel_ms {ms32:.4f}")
+
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        tol = BWD_TOL[name]
+        errs = {}
+        with torch.no_grad():
+            # ragged key mask at a length that is no multiple of the tiles
+            q, k, v, do = (rand(4, 300, 4, 64, dtype=dtype) for _ in range(4))
+            lengths = torch.tensor([300, 200, 77, 1], device="cuda")
+            kmask = torch.arange(300, device="cuda")[None, :] < lengths[:, None]
+            errs["mask_300"] = check_grads(f"mask {name}", *both(q, k, v, do, kmask), tol)
+            # unaligned 100 / 300, cross-attention 256 / 128, 600 tokens, scale 0.3
+            q, do = rand(2, 100, 4, 64, dtype=dtype), rand(2, 100, 4, 64, dtype=dtype)
+            k, v = rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+            errs["unaligned_100_300"] = check_grads(f"unaligned {name}", *both(q, k, v, do), tol)
+            q, do = rand(2, 256, 4, 64, dtype=dtype), rand(2, 256, 4, 64, dtype=dtype)
+            k, v = rand(2, 128, 4, 64, dtype=dtype), rand(2, 128, 4, 64, dtype=dtype)
+            errs["cross_256_128"] = check_grads(f"cross {name}", *both(q, k, v, do), tol)
+            q, k, v, do = (rand(2, 600, 4, 64, dtype=dtype) for _ in range(4))
+            errs["seq_600"] = check_grads(f"600 tokens {name}", *both(q, k, v, do), tol)
+            errs["scale_0.3"] = check_grads(f"scale override {name}", *both(q, k, v, do, None, 0.3), tol)
+            # q/k/v and do as strided views of packed tensors
+            qkv = rand(2, 600, 3 * 4 * 64, dtype=dtype)
+            q, k, v = (t.reshape(2, 600, 4, 64) for t in qkv.chunk(3, dim=-1))
+            do = rand(2, 4, 600, 64, dtype=dtype).transpose(1, 2)
+            errs["packed_views"] = check_grads(f"packed views {name}", *both(q, k, v, do), tol)
+            # head dims of the other instances
+            errs["D16/32/128"] = max(check_grads(f"D={hd} {name}", *both(*(rand(2, 200, 2, hd, dtype=dtype)
+                                                                            for _ in range(4))), tol)
+                                     for hd in (16, 32, 128))
+            # a fully-masked row: its dq exactly 0, and no key of it gets a gradient from it
+            q, k, v, do = (rand(2, 200, 2, 64, dtype=dtype) for _ in range(4))
+            fmask = torch.stack([torch.zeros(200, dtype=torch.bool, device="cuda"),
+                                 torch.ones(200, dtype=torch.bool, device="cuda")])
+            ours, ref = both(q, k, v, do, fmask)
+            if not all(bool((g[0] == 0).all()) for g in ours):
+                fail(f"K4/K5 fully-masked row {name}: dq, dk or dv not exactly 0")
+            errs["fully_masked_other_row"] = check_grads(f"fully-masked other row {name}", [g[1] for g in ours],
+                                                         [g[1] for g in ref], tol)
+        # the entry point under grad (autograd through FlashAttention: K3, then K4 and K5)
+        qs, ks, vs = rand(2, 100, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+        do = rand(2, 100, 4, 64, dtype=dtype)
+        leaves = [t.clone().requires_grad_() for t in (qs, ks, vs)]
+        grads = torch.autograd.grad(dot_product_attention(*leaves, impl="flash"), leaves, do)
+        o, lse = flash_attention(qs, ks, vs)
+        errs["entry_point_grad"] = check_grads(f"entry point {name}", grads,
+                                               flash_attention_bwd_reference(qs, ks, vs, None, o, lse, do), tol)
+        print(f"phase 11 kernel K4/K5 edge cases {name} (tol {tol} * (max|ref| + |ref|)): max_abs_err "
+              + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row grads==0")
+
+    # K2 against K4+K5 where the dispatch hands over (FUSED_MAX_SEQ), each after its own forward
+    times = {}
+    with torch.no_grad():
+        for ss in (256, 384, 512):
+            q, k, v, do = (rand(TRAIN_BATCH, ss, 12, 64, dtype=torch.bfloat16) for _ in range(4))
+            _, lse1 = fused_mha(q, k, v)
+            o3, lse3 = flash_attention(q, k, v)
+            times[f"B{TRAIN_BATCH}_S{ss}"] = (
+                cuda_time_ms(lambda: fused_mha_bwd(q, k, v, None, lse1, do), iters=30),
+                cuda_time_ms(lambda: flash_attention_bwd(q, k, v, None, o3, lse3, do), iters=30))
+    print("phase 11 K2 vs K4+K5 (H=12, D=64, bf16, ms): " + " ".join(
+        f"{key} K2 {k2:.4f} K4+K5 {k45:.4f}" for key, (k2, k45) in times.items()))
+    torch.cuda.synchronize()
+    return results, times
 
 
 def randomize_(model, seed: int) -> None:
@@ -831,10 +1037,8 @@ class TimedLoader:
     def _mark(self) -> None:
         import torch
 
-        from diffulab_tpu_torch.ops.fused_mha import LAUNCHES
-
         torch.cuda.synchronize()
-        self.marks.append((time.perf_counter(), dict(LAUNCHES)))
+        self.marks.append((time.perf_counter(), launch_counts()))
 
     def __iter__(self):
         for batch in self.batches:
@@ -849,8 +1053,6 @@ def phase_train(model):
     import torch
 
     from diffulab_tpu_torch.diffuse import Diffuser
-    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES
-    from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
     from diffulab_tpu_torch.training.optim import adamw
     from diffulab_tpu_torch.training.trainer import BaseTrainer
 
@@ -870,11 +1072,10 @@ def phase_train(model):
     with tempfile.TemporaryDirectory() as tmp:
         trainer = BaseTrainer(n_epoch=1, save_path=tmp, project_name="chip_smoke", use_ema=True)  # the card
         torch.cuda.reset_peak_memory_stats()
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
+        reset_launch_counts()
         trainer.train(diffuser, adamw(lr=1e-4, weight_decay=1e-4), loader, val,
                       p_classifier_free_guidance=P_CFG, log_validation_images=False, seed=0)
-        launches = dict(LAUNCHES)
+        launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         run = Path(tmp) / "chip_smoke"
         rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
@@ -883,10 +1084,7 @@ def phase_train(model):
         for part in ("denoiser", "optimizer", "ema", "scheduler"):
             if not (run / "checkpoints" / part / "state.pt").is_file():
                 fail(f"train: no best-val checkpoint entry {part}")
-        saved = restore_checkpoint(run / "checkpoints" / "denoiser")["params"]
-        live = model.state_dict()
-        if set(saved) != set(live) or not all(torch.equal(saved[k], live[k].cpu()) for k in live):
-            fail("train: the best-val denoiser checkpoint does not restore to the trained weights")
+        check_restores(run, model, "train")
     if trainer.step != TRAIN_STEPS or len(losses) != 1 or not math.isfinite(losses[0]) \
             or not all(math.isfinite(v) for v in val_losses):
         fail(f"train: step counter {trainer.step}, train losses {losses}, val losses {val_losses}")
@@ -904,6 +1102,189 @@ def phase_train(model):
           f"(K1 includes the validation forward); peak mem {peak_gib:.2f} GiB; best-val checkpoint written "
           f"and restored")
     return launches, times
+
+
+def check_restores(run: Path, model, label: str) -> None:
+    """The run's best-val denoiser entry (trainable params and the rest of the
+    state) holds exactly the model's trained state."""
+    import torch
+
+    from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+
+    entry = restore_checkpoint(run / "checkpoints" / "denoiser")
+    saved = {**entry["params"], **entry["rest"]}
+    live = model.state_dict()
+    if set(saved) != set(live) or not all(torch.equal(saved[k], live[k].cpu()) for k in live):
+        fail(f"{label}: the best-val denoiser checkpoint does not restore to the trained weights")
+
+
+def phase_txt2img_gradients(model, plain):
+    """One compute_loss of the txt2img MMDiT at 4224 tokens through the kernel
+    path (K3, K4, K5) against the same weights through the plain attention,
+    with injected t, noise and CFG drop and a ragged text mask."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    b = TXT_GRAD_BATCH
+    x0 = torch.randn(b, *TXT_LATENT, generator=gen, device="cuda")
+    emb = torch.randn(b, TEXT_LEN, TEXT_DIM, generator=gen, device="cuda")
+    mask = torch.arange(TEXT_LEN, device="cuda")[None, :] < torch.tensor([77, 9], device="cuda")[:, None]
+    cond = {"context": {"embeddings": emb, "attn_mask": mask}}
+    diffusers = [Diffuser(m, "euler", extra_args=TXT_EXTRA) for m in (model, plain)]
+    t = diffusers[0].draw_timesteps(gen, b)
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    drop = torch.tensor([False, True], device="cuda")  # the second row takes the null embedding
+    # the plain path recomputes each block in the backward (use_checkpoint), so
+    # that one block's fp32 score matrices are held at a time
+    plain.use_checkpoint = True
+    grads, losses, launched = [], [], []
+    for diffuser in diffusers:
+        diffuser.denoiser.zero_grad(set_to_none=True)
+        reset_launch_counts()
+        loss = diffuser.compute_loss(x0, cond, t, noise, drop=drop)["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        launched.append(launch_counts())
+        grads.append({n: p.grad for n, p in diffuser.denoiser.named_parameters()})
+        losses.append(float(loss.detach()))
+    plain.use_checkpoint = False
+    depth = TXT["depth"]
+    expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
+                "flash_attn_bwd_dq": depth}
+    if launched[0] != expected or any(launched[1].values()):
+        fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
+    worst, worst_name = 0.0, None
+    for name, g in grads[0].items():
+        r = grads[1][name]
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            fail(f"txt2img gradients: {name} missing or non-finite")
+        rel = float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if worst > TXT_GRAD_TOL or not math.isfinite(losses[0]):
+        fail(f"txt2img gradients: worst relative error {worst:.3e} at {worst_name} (tol {TXT_GRAD_TOL}), "
+             f"loss {losses[0]}")
+    for m in (model, plain):
+        m.zero_grad(set_to_none=True)
+    print(f"phase 12 txt2img MMDiT gradients B={b} (cut from 8: the plain path's fp32 score matrices) S={TXT_SEQ} "
+          f"mixed bf16, text lengths [77, 9], row 1 dropped: loss kernel path {losses[0]:.6f} plain {losses[1]:.6f}; "
+          f"{len(grads[0])} parameter gradients, worst ||kernel - plain|| / ||plain|| {worst:.3e} at {worst_name} "
+          f"(tol {TXT_GRAD_TOL}); launches {depth} K3 + {depth} K4 + {depth} K5, 0 K1/K2")
+
+
+def write_txt2img_shards(root: Path) -> tuple[Path, Path]:
+    """Seeded train and val shards in the reference's format, written by the
+    port's ShardedDatasetWriter: per sample vision_latents [H, W, 128] of
+    TXT_BUCKETS' sizes, caption_embeddings [128, 2048], a ragged caption_mask
+    and the caption string."""
+    import numpy as np
+
+    from diffulab_tpu_torch.data.streaming import ShardedDatasetWriter
+
+    rng = np.random.default_rng(15)
+
+    def sample(hw, i):
+        length = int(rng.integers(1, TEXT_LEN + 1))
+        return {"vision_latents": rng.standard_normal((*hw, TXT_LATENT[2]), dtype=np.float32),
+                "caption_embeddings": rng.standard_normal((TEXT_LEN, TEXT_DIM), dtype=np.float32),
+                "caption_mask": np.arange(TEXT_LEN) < length,
+                "caption": f"caption {i} of {hw[0]}x{hw[1]} latents, {length} tokens"}
+
+    train, val = root / "train", root / "val"
+    with ShardedDatasetWriter(train, shard_size=32) as writer:
+        i = 0
+        for hw, n_batches in TXT_BUCKETS.items():
+            for _ in range(n_batches * TXT_TRAIN_BATCH):
+                writer.write(sample(hw, i))
+                i += 1
+    with ShardedDatasetWriter(val, shard_size=32) as writer:
+        for j in range(TXT_TRAIN_BATCH):
+            writer.write(sample(TXT_LATENT[:2], i + j))
+    return train, val
+
+
+def phase_txt2img_train(model, tower):
+    """BaseTrainer.train on the txt2img MMDiT at batch 8 over both buckets,
+    AdamW, EMA, validation loss on the EMA weights, validation images decoded
+    by the Flux2 tower, and the best-val checkpoint."""
+    import torch
+
+    from diffulab_tpu_torch.data.imagenet import ImageNetmultiAR, MultiARBatchSampler, collate_fn
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.training.optim import adamw
+    from diffulab_tpu_torch.training.trainer import BaseTrainer
+
+    sys.modules["wandb"] = None  # metrics go to metrics.jsonl; wandb is neither imported nor contacted
+    depth = TXT["depth"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_dir, val_dir = write_txt2img_shards(Path(tmp) / "data")
+        datasets = [ImageNetmultiAR(str(d), cache_dir=Path(tmp) / "cache") for d in (train_dir, val_dir)]
+        for ds in datasets:
+            ds.set_latent_scale(1.0)
+        train_ds, val_ds = datasets
+        loader = TimedLoader([collate_fn([train_ds[i] for i in idx])
+                              for idx in MultiARBatchSampler(train_ds, TXT_TRAIN_BATCH, seed=0)])
+        val = [collate_fn([val_ds[i] for i in idx])
+               for idx in MultiARBatchSampler(val_ds, TXT_TRAIN_BATCH, shuffle=False)]
+        data_s = time.perf_counter() - t0
+        diffuser = Diffuser(model, "euler", n_steps=STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
+        trainer = BaseTrainer(n_epoch=1, save_path=tmp, project_name="chip_smoke_txt2img", use_ema=True)  # the card
+        logged = []
+        log_images = trainer.tracker.log_images
+
+        def record(images, step, key="val/images", captions=None):
+            logged.append((images.shape, captions, bool(((images >= 0) & (images <= 1)).all())))
+            log_images(images, step, key=key, captions=captions)
+
+        trainer.tracker.log_images = record
+        model.train()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        trainer.train(diffuser, adamw(**TXT_ADAMW), loader, val, p_classifier_free_guidance=P_CFG,
+                      val_steps=TXT_VAL_STEPS, val_step_shift=TXT_VAL_SHIFT, seed=0)
+        launches = launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        run = Path(tmp) / "chip_smoke_txt2img"
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
+        for part in ("denoiser", "optimizer", "ema", "scheduler"):
+            if not (run / "checkpoints" / part / "state.pt").is_file():
+                fail(f"txt2img train: no best-val checkpoint entry {part}")
+        check_restores(run, model, "txt2img train")
+    model.eval()
+    n_steps = len(loader)
+    if trainer.step != n_steps or len(losses) != 1 or not math.isfinite(losses[0]) \
+            or not all(math.isfinite(v) for v in val_losses):
+        fail(f"txt2img train: step counter {trainer.step}, train losses {losses}, val losses {val_losses}")
+    image_shape = (TXT_TRAIN_BATCH, TXT_LATENT[0] * tower.compression_factor,
+                   TXT_LATENT[1] * tower.compression_factor, 3)
+    if len(logged) != 1 or logged[0][0] != image_shape or not logged[0][2] or logged[0][1] is None \
+            or len(logged[0][1]) != TXT_TRAIN_BATCH:
+        fail(f"txt2img train: validation images {logged}, expected {image_shape} in [0, 1] with captions")
+    expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
+                "flash_attn_bwd_dq": depth}
+    per_bucket: dict[tuple[int, int], list[float]] = {}
+    for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
+        step = {key: c1[key] - c0[key] for key in c1}
+        if step != expected:
+            fail(f"txt2img train: kernel launches in a step {step}, expected {expected}")
+        per_bucket.setdefault(tuple(batch["model_inputs"]["x"].shape[1:3]), []).append((t1 - t0) * 1e3)
+    steady = statistics.median([m for times in per_bucket.values() for m in times[2:]])
+    print(f"phase 13 BaseTrainer.train txt2img MMDiT mixed bf16 batch {TXT_TRAIN_BATCH} AdamW(lr 1e-4, wd 0.01, "
+          f"betas 0.9/0.999, eps 1e-8) EMA p_cfg {P_CFG}, shift {TXT_EXTRA['shift']}: {n_steps} steps over buckets "
+          + ", ".join(f"{h}x{w}x{TXT_LATENT[2]} ({TEXT_LEN + h * w} tokens) ms/step {[round(m, 2) for m in times]}"
+                      for (h, w), times in per_bucket.items())
+          + f"; median after the first two of each bucket {steady:.2f} ms, samples/s "
+          f"{TXT_TRAIN_BATCH / steady * 1e3:.2f}; train loss {losses[0]:.5f}, val loss (EMA) {val_losses[0]:.5f}; "
+          f"launches per step {depth} K3 + {depth} K4 + {depth} K5, 0 K1/K2, in the run {launches} (K3 includes "
+          f"validation); validation images {image_shape[1:]} with {len(logged[0][1])} captions ({TXT_VAL_STEPS} "
+          f"steps, shift {TXT_VAL_SHIFT}); peak mem {peak_gib:.2f} GiB; data set-up {data_s:.1f} s; best-val "
+          f"checkpoint written and restored")
+    return launches, steady
 
 
 def main() -> int:
@@ -939,6 +1320,10 @@ def main() -> int:
     txt_model, txt_plain, tower, cond = build_txt2img()
     phase_txt2img_forward(txt_model, txt_plain, cond)
     txt_totals, _ = phase_txt2img_generate(txt_model, txt_plain, tower, cond)
+    k45, bwd_crossover = phase_flash_bwd_kernel()
+    phase_txt2img_gradients(txt_model, txt_plain)
+    del txt_plain
+    txt_train_launches, _ = phase_txt2img_train(txt_model, tower)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -949,9 +1334,11 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
-        "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"],
+        "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
+        + txt_train_launches["fused_mha_fwd"],
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
-                             "txt2img_generate": txt_totals["fused_mha_fwd"]},
+                             "txt2img_generate": txt_totals["fused_mha_fwd"],
+                             "txt2img_train": txt_train_launches["fused_mha_fwd"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -963,19 +1350,33 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
-        "launches": train_launches["fused_mha_bwd"],
-        "launches_by_path": {"train": train_launches["fused_mha_bwd"]},
+        "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"],
+        "launches_by_path": {"train": train_launches["fused_mha_bwd"],
+                             "txt2img_train": txt_train_launches["fused_mha_bwd"]},
         **k2,
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "diffulab_tpu/ops/flash_attention.py:81",
-        "launches": txt_totals["flash_attn_fwd"],
-        "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"]},
+        "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"],
+        "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
+                             "txt2img_train": txt_train_launches["flash_attn_fwd"]},
         **k3,
         "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms} for key, (k1, k3_ms) in crossover.items()},
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": replaces,
+        "launches": txt_train_launches[name],
+        "launches_by_path": {"txt2img_train": txt_train_launches[name]},
+        **k45[name],
+        "library_computes": "dq, dk and dv together (SDPA masked backward)",
+        "vs_fused_bwd_ms": {key: {"fused_mha_bwd": k2, "flash_attn_bwd": k45_ms}
+                            for key, (k2, k45_ms) in bwd_crossover.items()},
+    } for name, replaces in (("flash_attn_bwd_dkv", "diffulab_tpu/ops/flash_attention.py:196"),
+                             ("flash_attn_bwd_dq", "diffulab_tpu/ops/flash_attention.py:237"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

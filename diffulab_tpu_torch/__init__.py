@@ -21,10 +21,14 @@ accumulation and torch-format checkpoints; slice B1, latent text-to-image
 serving — the multimodal ``MMDiT(simple_dit=False)`` with a
 :class:`~diffulab_tpu_torch.networks.embedders.PrecomputedEmbedder`, and
 ``Diffuser.generate`` in latent mode with the
-:class:`~diffulab_tpu_torch.networks.vision_towers.Flux2VAE` decode.
+:class:`~diffulab_tpu_torch.networks.vision_towers.Flux2VAE` decode; slice
+B2, latent text-to-image training — text batches from
+:mod:`diffulab_tpu_torch.data.imagenet` through ``BaseTrainer`` with the
+trainable split of ``training.checkpoint.trainable_filter``.
 Attention runs in the fused multi-head kernels, forward
 (``csrc/fused_mha_fwd.cu``) and backward (``csrc/fused_mha_bwd.cu``), up to
-512 tokens, and in the flash-attention forward (``csrc/flash_attn_fwd.cu``)
+512 tokens, and in the flash-attention kernels, forward
+(``csrc/flash_attn_fwd.cu``) and backward (``csrc/flash_attn_bwd.cu``),
 beyond.
 """
 

@@ -1,0 +1,740 @@
+// KV-tiled flash-attention backward for Hopper (sm_90a): K4 (dk, dv) and K5 (dq).
+//
+// Replaces the Pallas TPU kernels diffulab_tpu/ops/flash_attention.py::
+// _bwd_dkv_kernel (K4) and ::_bwd_dq_kernel (K5), both launched by
+// _flash_backward. From the forward's residuals q, k, v, the key mask, o and
+// lse (K3's [B, H, Sq] layout), with di = rowsum(o * do) in fp32 formed from
+// the STORED o (the reference forms it outside Pallas, flash_attention.py:275;
+// here a pre-pass kernel launched by flash_attn_bwd_dkv), per (batch, head):
+//   s  = q.k^T * scale in fp32; masked keys (and keys past Skv) get the
+//        finite MASK_VALUE, so p = exp(MASK_VALUE - lse) = 0 for them;
+//   p  = exp(s - lse) in fp32 (a fully-masked row has lse = +inf: p = 0);
+//   dv = round(p)^T . do     (K4; p rounded to do's dtype);
+//   dp = do . v^T            in fp32;
+//   ds = p * (dp - di) * scale;
+//   dk = round(ds)^T . q     (K4; ds rounded to q's dtype);
+//   dq = round(ds) . k       (K5; ds rounded to k's dtype);
+// fp32 accumulation, dq/dk/dv written in the input dtype.
+//
+// Bound on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT
+// training shape (B=8, S=4224, H=12, D=64, bf16, the ragged text mask) K4
+// makes four products over the valid keys (s, dv, dp, dk) and K5 three (s,
+// dp, dq): ~860 and ~645 GFLOP, 0.87 and 0.65 ms at 989 TFLOP/s, against
+// ~367 MB (q, k, v, o, do, lse and the mask in; dk, dv and di out) and ~263 MB
+// (q, k, v, do, lse, di and the mask in; dq out), 0.11 and 0.08 ms at
+// 3.35 TB/s. Both are compute-bound, and ~1.7 G exponentials each (as K3) are a second
+// ceiling on the SFUs. So the scores stay on chip and the products run on the
+// tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate), p as one
+// ex2.approx of (s * scale - lse) * log2(e).
+//
+// The TPU kernels ran a sequential grid axis and carried the sums in VMEM
+// scratch; on Hopper that axis is a loop inside one CTA, and each sum stays
+// in one CTA's registers (no atomics: the result does not depend on the run,
+// as the reference's two-kernel split does not):
+//  K4: one CTA per (64 keys, head, batch), 4 warps of 16 keys with k and v
+//      held in mma A fragments and dk/dv in fp32 registers. It walks 64-query
+//      tiles of q and do (with their lse and di), double-buffered in shared
+//      memory by cp.async, and recomputes p^T = exp(k.q^T * scale - lse) with
+//      keys as rows, 32 queries at a time to bound registers. Capped at 168
+//      registers (44 B spilled at D = 64) so that three CTAs share an SM:
+//      12% faster than two at 177 registers on the H100.
+//  K5: one CTA per (64 queries, head, batch), 4 warps of 16 queries with q and
+//      do in A fragments and dq in fp32 registers. It walks 64-key tiles of K
+//      and V, double-buffered by cp.async, the tile's key mask read once per
+//      warp as two ballot words. Capped at 128 registers, four CTAs an SM.
+// In both, the C layout of two adjacent 16x8 score tiles is the A layout of a
+// 16x16 operand, so p and ds go from the accumulators straight into the next
+// product; the B operands whose reduction runs along the staged rows (do and
+// q in K4, K in K5) are read with ldmatrix.trans, the others with ldmatrix.
+// q/k/v/o/do are read in the [B, S, H, D] layout at the caller's batch and row
+// strides (no transpose, no padded copy): the ragged ends of Sq and Skv are
+// zero-filled in shared memory and masked here.
+//
+// fp32 inputs run a second pair of kernels with one thread per row and fp32
+// FMAs (the tensor cores take no exact fp32 product), with plain staged tiles.
+//
+// Plain C interface (bound with ctypes): flash_attn_bwd_dkv launches the di
+// pre-pass and K4, flash_attn_bwd_dq launches K5; each returns the first
+// CUDA error of its launches.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+// -0.7 * FLT_MAX, formed in double and rounded once, as the reference forms it
+constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e+38);
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr int BLOCK = 64;     // rows per CTA and rows per staged tile (bf16 kernels)
+constexpr int WARPS = 4;      // bf16 kernels: 16 rows per warp
+constexpr int CHUNK = 32;     // score columns held in registers at a time
+constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
+constexpr int F32_ROWS = 64;  // fp32 kernels: rows per CTA, one per thread
+constexpr int F32_TILE = 16;  // fp32 kernels: rows of the other operands per staged tile
+static_assert(BLOCK == 2 * CHUNK && CHUNK == 32, "K5 holds a tile's key mask in two 32-bit words");
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the row
+// addresses of matrix i, whose fragment lands in r[i]
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* ptr) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* ptr) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// the same, transposed
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* ptr) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// 16 bytes global -> shared, asynchronous; src_bytes = 0 fills zeros
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(src_bytes));
+}
+
+// 4 bytes global -> shared, asynchronous; src_bytes = 0 fills zeros
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// 2^x; 2^-inf = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> one register of two bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+using Tile = bf16 (*)[D + PAD];
+
+// rows [r0, r0 + BLOCK) of one head (D columns) into shared memory, 16 bytes
+// a thread, asynchronously; rows past S are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_async(Tile<D> dst, const bf16* src, long long row_stride, int r0, int S) {
+  constexpr int CHUNKS = D / 8;
+  for (int i = threadIdx.x; i < BLOCK * CHUNKS; i += WARPS * 32) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const bool in = r0 + r < S;
+    const bf16* s = in ? src + (long long)(r0 + r) * row_stride + c : src;
+    cp_async_16(&dst[r][c], s, in ? 16 : 0);
+  }
+}
+
+// BLOCK fp32 values src[r0 ..] into shared memory, asynchronously; past S, zeros
+__device__ __forceinline__ void stage_vec_async(float* dst, const float* src, int r0, int S) {
+  for (int i = threadIdx.x; i < BLOCK; i += WARPS * 32) {
+    const bool in = r0 + i < S;
+    cp_async_4(dst + i, in ? src + r0 + i : src, in ? 4 : 0);
+  }
+}
+
+// A fragments (16 rows x D) of rows row, row + 8 read from global memory;
+// rows at or past S are zeros
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t f[D / 16][4], const bf16* base, long long stride, int row, int S,
+                                       int t4) {
+  const bool in0 = row < S, in1 = row + 8 < S;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* r0 = base + (long long)row * stride + kk * 16 + 2 * t4;
+    const bf16* r1 = r0 + 8 * stride;
+    f[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(r0) : 0u;
+    f[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(r1) : 0u;
+    f[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(r0 + 8) : 0u;
+    f[kk][3] = in1 ? *reinterpret_cast<const uint32_t*>(r1 + 8) : 0u;
+  }
+}
+
+// c[nt][j] = sum_d A[row][d] * T[c0 + col][d] for the warp's 16 rows against
+// tile rows c0 + [0, CHUNK). C layout: j = 0,1 -> row g, col nt*8 + 2*t4 + j;
+// j = 2,3 -> row g + 8. T's rows are the n axis, read with ldmatrix.
+template <int D>
+__device__ __forceinline__ void rows_dot_tile(float c[CHUNK / 8][4], const uint32_t af[D / 16][4], Tile<D> ts,
+                                              int c0, int lane) {
+  const int mat = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < CHUNK / 8; ++nt) {
+    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+    if constexpr (D >= 32) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; kk += 2) {
+        // matrices: (rows c0+nt*8.., cols kk*16..), (.., kk*16+8..), (.., kk*16+16..), (.., kk*16+24..)
+        uint32_t b[4];
+        ldsm_x4(b, &ts[c0 + nt * 8 + mr][kk * 16 + mat * 8]);
+        mma_16816(c[nt], af[kk], b);
+        mma_16816(c[nt], af[kk + 1], b + 2);
+      }
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, &ts[c0 + nt * 8 + mr][(mat & 1) * 8]);
+      mma_16816(c[nt], af[0], b);
+    }
+  }
+}
+
+// acc[16 rows x D] += round_bf16(x[16 rows x CHUNK]) . T[c0 .. c0 + CHUNK)[0 .. D):
+// x in the C layout of rows_dot_tile becomes the A operand in registers; T's
+// rows are the reduction axis, read with ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void chunk_times_tile(float acc[D / 8][4], const float x[CHUNK / 8][4], Tile<D> ts,
+                                                 int c0, int lane) {
+  const int mat = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+    const int k0 = c0 + kk * 16;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; dn += 2) {
+      // matrices: (rows k0.., cols dn*8..), (k0+8.., dn*8..), (k0.., dn*8+8..), (k0+8.., dn*8+8..)
+      uint32_t b[4];
+      ldsm_x4_trans(b, &ts[k0 + (mat & 1) * 8 + r][dn * 8 + (mat >> 1) * 8]);
+      mma_16816(acc[dn], a, b);
+      mma_16816(acc[dn + 1], a, b + 2);
+    }
+  }
+}
+
+// rows row, row + 8 of a contiguous [.., H * D] output, in bf16; rows at or past S skipped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long row_stride, int row, int S,
+                                           const float acc[D / 8][4], int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+    if (row < S)
+      *reinterpret_cast<uint32_t*>(out + (long long)row * row_stride + col) = pack_bf16(acc[dn][0], acc[dn][1]);
+    if (row + 8 < S)
+      *reinterpret_cast<uint32_t*>(out + (long long)(row + 8) * row_stride + col) = pack_bf16(acc[dn][2], acc[dn][3]);
+  }
+}
+
+template <int D>
+constexpr int bf16_smem_bytes() {
+  // two stages of two [BLOCK][D + PAD] tiles, and (K4) two stages of lse and di
+  return 4 * BLOCK * (D + PAD) * static_cast<int>(sizeof(bf16)) + 4 * BLOCK * static_cast<int>(sizeof(float));
+}
+
+// --- di = rowsum(o * do), fp32, [B, H, Sq] ----------------------------------
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void flash_bwd_di(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ di, int Sq,
+                             int H, int D, long long o_sb, long long o_ss, long long do_sb, long long do_ss,
+                             long long rows) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // (b, q, h), h fastest
+  if (i >= rows) return;
+  const int h = static_cast<int>(i % H);
+  const long long bq = i / H;
+  const int qi = static_cast<int>(bq % Sq), b = static_cast<int>(bq / Sq);
+  const T* orow = o + b * o_sb + qi * o_ss + h * D;
+  const T* drow = dout + b * do_sb + qi * do_ss + h * D;
+  float acc = 0.f;
+  for (int d = 0; d < D; ++d) acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
+  di[((long long)b * H + h) * Sq + qi] = acc;
+}
+
+// --- bf16 -----------------------------------------------------------------------
+
+// K4: dk, dv for 64 keys of one (batch, head), over every query tile; three
+// CTAs an SM where the registers allow it (D <= 64: at most 168 a thread)
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 3 : 1)
+flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                   const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
+                   int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                   long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<D> tiles = reinterpret_cast<Tile<D>>(smem);
+  Tile<D> qbuf[2] = {tiles, tiles + BLOCK};
+  Tile<D> dobuf[2] = {tiles + 2 * BLOCK, tiles + 3 * BLOCK};
+  float* vecs = reinterpret_cast<float*>(tiles + 4 * BLOCK);
+  float* lse_s[2] = {vecs, vecs + BLOCK};
+  float* di_s[2] = {vecs + 2 * BLOCK, vecs + 3 * BLOCK};
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int key0 = blockIdx.x * BLOCK + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+
+  const bf16* qb = q + b * q_sb + h * D;
+  const bf16* dob = dout + b * do_sb + h * D;
+  const float* lb = lse + ((long long)b * H + h) * Sq;
+  const float* db = di + ((long long)b * H + h) * Sq;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const bool keep[2] = {key0 < Skv && (mb == nullptr || mb[key0] != 0),
+                        key0 + 8 < Skv && (mb == nullptr || mb[key0 + 8] != 0)};
+  const float scale_log2 = sm_scale * LOG2E;
+  const int n_tiles = (Sq + BLOCK - 1) / BLOCK;
+
+  stage_async<D>(qbuf[0], qb, q_ss, 0, Sq);
+  stage_async<D>(dobuf[0], dob, do_ss, 0, Sq);
+  stage_vec_async(lse_s[0], lb, 0, Sq);
+  stage_vec_async(di_s[0], db, 0, Sq);
+  cp_async_commit();
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, k + b * k_sb + h * D, k_ss, key0, Skv, t4);
+  load_a<D>(vf, v + b * v_sb + h * D, v_ss, key0, Skv, t4);
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    dk_acc[dn][0] = dk_acc[dn][1] = dk_acc[dn][2] = dk_acc[dn][3] = 0.f;
+    dv_acc[dn][0] = dv_acc[dn][1] = dv_acc[dn][2] = dv_acc[dn][3] = 0.f;
+  }
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_tiles) {
+      const int m1 = (j + 1) * BLOCK;
+      stage_async<D>(qbuf[st ^ 1], qb, q_ss, m1, Sq);
+      stage_async<D>(dobuf[st ^ 1], dob, do_ss, m1, Sq);
+      stage_vec_async(lse_s[st ^ 1], lb, m1, Sq);
+      stage_vec_async(di_s[st ^ 1], db, m1, Sq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    Tile<D> qs = qbuf[st], dos = dobuf[st];
+    const float* ls = lse_s[st];
+    const float* ds_ = di_s[st];
+#pragma unroll
+    for (int c0 = 0; c0 < BLOCK; c0 += CHUNK) {
+      // p^T [key, query] = exp(k.q^T * scale - lse[query]), 0 for a masked key
+      float p[CHUNK / 8][4], dp[CHUNK / 8][4];
+      rows_dot_tile<D>(p, kf, qs, c0, lane);
+#pragma unroll
+      for (int nt = 0; nt < CHUNK / 8; ++nt)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float l2 = ls[c0 + nt * 8 + 2 * t4 + (jj & 1)] * LOG2E;
+          p[nt][jj] = keep[jj >> 1] ? exp2_approx(fmaf(p[nt][jj], scale_log2, -l2)) : 0.f;
+        }
+      chunk_times_tile<D>(dv_acc, p, dos, c0, lane);  // dv += round(p)^T . do
+      rows_dot_tile<D>(dp, vf, dos, c0, lane);       // dp^T = v . do^T
+#pragma unroll
+      for (int nt = 0; nt < CHUNK / 8; ++nt)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          dp[nt][jj] = p[nt][jj] * (dp[nt][jj] - ds_[c0 + nt * 8 + 2 * t4 + (jj & 1)]) * sm_scale;
+      chunk_times_tile<D>(dk_acc, dp, qs, c0, lane);  // dk += round(ds)^T . q
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+
+  // dk, dv [B, Skv, H, D] contiguous
+  const long long o_ss = (long long)H * D;
+  store_rows<D>(dk + (long long)b * Skv * o_ss + h * D, o_ss, key0, Skv, dk_acc, t4);
+  store_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, key0, Skv, dv_acc, t4);
+}
+
+// K5: dq for 64 queries of one (batch, head), over every key tile; four CTAs
+// an SM where the registers allow it (D <= 64: at most 128 a thread)
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 4 : 1)
+flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                  const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                  const float* __restrict__ di, bf16* __restrict__ dq, int Sq, int Skv, int H, long long q_sb,
+                  long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                  long long do_sb, long long do_ss, float sm_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Tile<D> tiles = reinterpret_cast<Tile<D>>(smem);
+  Tile<D> kbuf[2] = {tiles, tiles + BLOCK};
+  Tile<D> vbuf[2] = {tiles + 2 * BLOCK, tiles + 3 * BLOCK};
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int row0 = blockIdx.x * BLOCK + warp * 16 + g;  // this thread's queries: row0, row0 + 8
+
+  const bf16* kb = k + b * k_sb + h * D;
+  const bf16* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const float scale_log2 = sm_scale * LOG2E;
+  const int n_tiles = (Skv + BLOCK - 1) / BLOCK;
+
+  stage_async<D>(kbuf[0], kb, k_ss, 0, Skv);
+  stage_async<D>(vbuf[0], vb, v_ss, 0, Skv);
+  cp_async_commit();
+
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a<D>(qf, q + b * q_sb + h * D, q_ss, row0, Sq, t4);
+  load_a<D>(df, dout + b * do_sb + h * D, do_ss, row0, Sq, t4);
+  // lse in log2 units (+inf past Sq: p = 0 there) and di of the two rows
+  const long long lrow = ((long long)b * H + h) * Sq;
+  const float l2[2] = {row0 < Sq ? lse[lrow + row0] * LOG2E : INFINITY,
+                       row0 + 8 < Sq ? lse[lrow + row0 + 8] * LOG2E : INFINITY};
+  const float dir[2] = {row0 < Sq ? di[lrow + row0] : 0.f, row0 + 8 < Sq ? di[lrow + row0 + 8] : 0.f};
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int n0 = j * BLOCK, st = j & 1;
+    // the tile's key mask as two warp-uniform words: keys n0 + [0, 32), n0 + [32, 64)
+    const int key_lo = n0 + lane, key_hi = n0 + 32 + lane;
+    const unsigned keep_lo = __ballot_sync(0xffffffffu, key_lo < Skv && (mb == nullptr || mb[key_lo] != 0));
+    const unsigned keep_hi = __ballot_sync(0xffffffffu, key_hi < Skv && (mb == nullptr || mb[key_hi] != 0));
+    if (j + 1 < n_tiles) {
+      stage_async<D>(kbuf[st ^ 1], kb, k_ss, n0 + BLOCK, Skv);
+      stage_async<D>(vbuf[st ^ 1], vb, v_ss, n0 + BLOCK, Skv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    Tile<D> ks = kbuf[st], vs = vbuf[st];
+#pragma unroll
+    for (int c0 = 0; c0 < BLOCK; c0 += CHUNK) {
+      const unsigned word = c0 == 0 ? keep_lo : keep_hi;
+      float p[CHUNK / 8][4], dp[CHUNK / 8][4];
+      rows_dot_tile<D>(p, qf, ks, c0, lane);  // s = q.k^T
+#pragma unroll
+      for (int nt = 0; nt < CHUNK / 8; ++nt)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const bool kept = (word >> (nt * 8 + 2 * t4 + (jj & 1))) & 1u;
+          p[nt][jj] = kept ? exp2_approx(fmaf(p[nt][jj], scale_log2, -l2[jj >> 1])) : 0.f;
+        }
+      rows_dot_tile<D>(dp, df, vs, c0, lane);  // dp = do.v^T
+#pragma unroll
+      for (int nt = 0; nt < CHUNK / 8; ++nt)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) dp[nt][jj] = p[nt][jj] * (dp[nt][jj] - dir[jj >> 1]) * sm_scale;
+      chunk_times_tile<D>(acc, dp, ks, c0, lane);  // dq += round(ds) . k
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+
+  // dq [B, Sq, H, D] contiguous
+  const long long o_ss = (long long)H * D;
+  store_rows<D>(dq + (long long)b * Sq * o_ss + h * D, o_ss, row0, Sq, acc, t4);
+}
+
+// --- fp32 -------------------------------------------------------------------------
+
+// shared memory of the fp32 kernels: the CTA's own rows (two operands, padded
+// to D + 1 so that a warp reading one column of 32 rows hits 32 banks) and a
+// staged tile of F32_TILE rows of the other two operands with their lse and di
+template <int D>
+constexpr int f32_smem_bytes() {
+  return static_cast<int>(sizeof(float)) * (2 * F32_ROWS * (D + 1) + 2 * F32_TILE * D + 2 * F32_TILE);
+}
+
+// rows [r0, r0 + F32_ROWS) of one head into padded shared memory; past S, zeros
+template <int D>
+__device__ __forceinline__ void stage_own_rows(float* dst, const float* src, long long row_stride, int r0, int S) {
+  for (int i = threadIdx.x; i < F32_ROWS * D; i += F32_ROWS) {
+    const int r = i / D, c = i % D;
+    dst[r * (D + 1) + c] = r0 + r < S ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void stage_f32_tile(float* dst, const float* src, long long row_stride, int r0, int S) {
+  for (int i = threadIdx.x; i < F32_TILE * D; i += F32_ROWS) {
+    const int r = i / D, c = i % D;
+    dst[i] = r0 + r < S ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot_row(const float* own, const float* other) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc = fmaf(own[d], other[d], acc);
+  return acc;
+}
+
+// K4 in fp32: one thread per key
+template <int D>
+__global__ void __launch_bounds__(F32_ROWS)
+flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                  const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                  int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                  long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* ks = fsmem;                       // [F32_ROWS][D + 1]
+  float* vs = ks + F32_ROWS * (D + 1);     // [F32_ROWS][D + 1]
+  float* qt = vs + F32_ROWS * (D + 1);     // [F32_TILE][D]
+  float* dt = qt + F32_TILE * D;           // [F32_TILE][D]
+  float* lse_t = dt + F32_TILE * D;        // [F32_TILE]
+  float* di_t = lse_t + F32_TILE;          // [F32_TILE]
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int n0 = blockIdx.x * F32_ROWS, key = n0 + tid;
+  const float* qb = q + b * q_sb + h * D;
+  const float* dob = dout + b * do_sb + h * D;
+  const long long lrow = ((long long)b * H + h) * Sq;
+  const bool keep = key < Skv && (mask == nullptr || mask[(long long)b * Skv + key] != 0);
+
+  stage_own_rows<D>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
+  stage_own_rows<D>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
+  const float* kr = ks + tid * (D + 1);
+  const float* vr = vs + tid * (D + 1);
+
+  float dk_acc[D], dv_acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
+  for (int m0 = 0; m0 < Sq; m0 += F32_TILE) {
+    __syncthreads();
+    stage_f32_tile<D>(qt, qb, q_ss, m0, Sq);
+    stage_f32_tile<D>(dt, dob, do_ss, m0, Sq);
+    if (tid < F32_TILE) {
+      const bool in = m0 + tid < Sq;
+      lse_t[tid] = in ? lse[lrow + m0 + tid] : INFINITY;  // past Sq: p = 0
+      di_t[tid] = in ? di[lrow + m0 + tid] : 0.f;
+    }
+    __syncthreads();
+    for (int j = 0; j < F32_TILE; ++j) {
+      const float x = keep ? dot_row<D>(kr, qt + j * D) * sm_scale : MASK_VALUE;
+      const float p = expf(x - lse_t[j]);
+      const float ds = p * (dot_row<D>(vr, dt + j * D) - di_t[j]) * sm_scale;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dv_acc[d] = fmaf(p, dt[j * D + d], dv_acc[d]);
+        dk_acc[d] = fmaf(ds, qt[j * D + d], dk_acc[d]);
+      }
+    }
+  }
+  if (key >= Skv) return;
+  const long long out_off = ((long long)b * Skv + key) * H * D + h * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    dk[out_off + d] = dk_acc[d];
+    dv[out_off + d] = dv_acc[d];
+  }
+}
+
+// K5 in fp32: one thread per query
+template <int D>
+__global__ void __launch_bounds__(F32_ROWS)
+flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                 const float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, long long q_sb,
+                 long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                 long long do_sb, long long do_ss, float sm_scale) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* qs = fsmem;                       // [F32_ROWS][D + 1]
+  float* dos = qs + F32_ROWS * (D + 1);    // [F32_ROWS][D + 1]
+  float* kt = dos + F32_ROWS * (D + 1);    // [F32_TILE][D]
+  float* vt = kt + F32_TILE * D;           // [F32_TILE][D]
+  float* keep_t = vt + F32_TILE * D;       // [F32_TILE], 1 = attend
+
+  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
+  const int m0 = blockIdx.x * F32_ROWS, row = m0 + tid;
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const long long lrow = ((long long)b * H + h) * Sq;
+
+  stage_own_rows<D>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+  stage_own_rows<D>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
+  const float* qr = qs + tid * (D + 1);
+  const float* dr = dos + tid * (D + 1);
+  const float lse_r = row < Sq ? lse[lrow + row] : INFINITY;
+  const float di_r = row < Sq ? di[lrow + row] : 0.f;
+
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
+    __syncthreads();
+    stage_f32_tile<D>(kt, kb, k_ss, n0, Skv);
+    stage_f32_tile<D>(vt, vb, v_ss, n0, Skv);
+    if (tid < F32_TILE) {
+      const int key = n0 + tid;
+      keep_t[tid] = key < Skv && (mb == nullptr || mb[key] != 0) ? 1.f : 0.f;
+    }
+    __syncthreads();
+    for (int j = 0; j < F32_TILE; ++j) {
+      const float x = keep_t[j] != 0.f ? dot_row<D>(qr, kt + j * D) * sm_scale : MASK_VALUE;
+      const float p = expf(x - lse_r);
+      const float ds = p * (dot_row<D>(dr, vt + j * D) - di_r) * sm_scale;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kt[j * D + d], acc[d]);
+    }
+  }
+  if (row >= Sq) return;
+  float* out = dq + ((long long)b * Sq + row) * H * D + h * D;
+#pragma unroll
+  for (int d = 0; d < D; ++d) out[d] = acc[d];
+}
+
+// --- launches -------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const int* mask;
+  const float* lse;
+  float* di;
+  void *dq, *dk, *dv;
+  int B, Sq, Skv, H;
+  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
+  float sm_scale;
+};
+
+template <typename T>
+cudaError_t launch_di(int D, const Args& a, cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  const int threads = 256;
+  const long long blocks = (rows + threads - 1) / threads;
+  flash_bwd_di<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.di, a.Sq, a.H, D, a.o_sb, a.o_ss, a.do_sb,
+      a.do_ss, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
+  if (dtype == 1) {
+    cudaError_t err = launch_di<bf16>(D, a, stream);
+    if (err != cudaSuccess) return err;
+    constexpr int bytes = bf16_smem_bytes<D>();
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Skv + BLOCK - 1) / BLOCK, a.H, a.B);
+    flash_bwd_dkv_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+    return cudaGetLastError();
+  }
+  cudaError_t err = launch_di<float>(D, a, stream);
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = f32_smem_bytes<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Skv + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
+  flash_bwd_dkv_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
+  if (dtype == 1) {
+    constexpr int bytes = bf16_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Sq + BLOCK - 1) / BLOCK, a.H, a.B);
+    flash_bwd_dq_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
+        a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+    return cudaGetLastError();
+  }
+  constexpr int bytes = f32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
+  flash_bwd_dq_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
+enum Which { DKV, DQ };
+
+template <int D>
+cudaError_t launch(Which which, int dtype, const Args& a, cudaStream_t stream) {
+  return which == DKV ? launch_dkv<D>(dtype, a, stream) : launch_dq<D>(dtype, a, stream);
+}
+
+int dispatch(Which which, int D, int dtype, const Args& a, void* stream) {
+  if (a.Sq < 1 || a.Skv < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return static_cast<int>(launch<16>(which, dtype, a, s));
+    case 32: return static_cast<int>(launch<32>(which, dtype, a, s));
+    case 64: return static_cast<int>(launch<64>(which, dtype, a, s));
+    case 128: return static_cast<int>(launch<128>(which, dtype, a, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// q/o/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
+// stride D over heads and the given batch/row strides (in elements; 16-byte
+// aligned rows); any Sq, Skv >= 1; D in {16, 32, 64, 128}; dtype 0 = fp32,
+// 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse: contiguous
+// fp32 [B, H, Sq] from K3. flash_attn_bwd_dkv writes di = rowsum(o * do) to
+// the fp32 [B, H, Sq] workspace `di`, then dk and dv; flash_attn_bwd_dq reads
+// that di and writes dq. dq/dk/dv: contiguous, in the input dtype.
+extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                  const void* mask, const void* lse, void* di, void* dk, void* dv, int B, int Sq,
+                                  int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
+                                  long long k_ss, long long v_sb, long long v_ss, long long o_sb, long long o_ss,
+                                  long long do_sb, long long do_ss, float sm_scale, int dtype, void* stream) {
+  const Args a{q, k, v, o, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
+               static_cast<float*>(di), nullptr, dk, dv, B, Sq, Skv, H,
+               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss, sm_scale};
+  return dispatch(DKV, D, dtype, a, stream);
+}
+
+extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* mask,
+                                 const void* lse, const void* di, void* dq, int B, int Sq, int Skv, int H, int D,
+                                 long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                                 long long v_ss, long long do_sb, long long do_ss, float sm_scale, int dtype,
+                                 void* stream) {
+  const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
+               const_cast<float*>(static_cast<const float*>(di)), dq, nullptr, nullptr, B, Sq, Skv, H,
+               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, 0, 0, do_sb, do_ss, sm_scale};
+  return dispatch(DQ, D, dtype, a, stream);
+}
+
+extern "C" const char* dl_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -12,8 +12,11 @@ last layer -> unpatchify. Two forms:
   mask is extended with ones over the image tokens.
 
 Attention goes through :func:`diffulab_tpu_torch.ops.dot_product_attention`
-(on the card: the fused kernel K1 up to 512 tokens, the flash kernel K3
-beyond). Parameter names follow the reference's module paths so that
+(on the card: the fused kernels K1/K2 up to 512 tokens, the flash kernels
+K3/K4/K5 beyond). ``use_checkpoint`` recomputes each block in the backward
+(``torch.utils.checkpoint``, where the reference applies ``nnx.remat``),
+so a block's forward, attention included, runs twice under grad. Parameter
+names follow the reference's module paths so that
 :mod:`diffulab_tpu_torch.weights` maps a JAX state one to one.
 
 The patchify convolution (stride = kernel = patch) is written as a reshape
@@ -31,6 +34,7 @@ from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from diffulab_tpu_torch.networks.denoisers.common import Denoiser, ModelOutput
@@ -364,6 +368,7 @@ class MMDiT(Denoiser):
         n_classes: int | None = None,
         classifier_free: bool = False,
         context_embedder: ContextEmbedder | None = None,
+        use_checkpoint: bool = False,
         attention_impl: str = "auto",
         mlp_type: str = "swiglu",
         pipeline_microbatches: int | None = None,
@@ -397,6 +402,7 @@ class MMDiT(Denoiser):
         self.n_classes = n_classes
         self.classifier_free = classifier_free
         self.inner_dim = inner_dim
+        self.use_checkpoint = use_checkpoint
         self.attention_impl = attention_impl
         cond_dtype = stable_dtype(dtype, stable_conditioning)
         self.stream_dtype = stream_dtype if stream_dtype is not None else cond_dtype
@@ -475,6 +481,13 @@ class MMDiT(Denoiser):
         pos = torch.stack([torch.arange(1, seq_len + 1, device=device), zeros, zeros], dim=-1)
         return pos[None].expand(batch, seq_len, 3)
 
+    def _run_block(self, layer: nn.Module, *args):
+        """One block; with ``use_checkpoint`` and under grad, recomputed in the
+        backward instead of keeping its activations (mmdit.py:627-630)."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
     def set_block_cache_span(self, span: tuple[int, int] | None) -> None:
         if span is not None:
             raise NotImplementedError("block caching is not ported yet (ROADMAP queue 1, item 7)")
@@ -488,7 +501,7 @@ class MMDiT(Denoiser):
         pos_ids = self._image_pos_ids(x.shape[0], grid_size, 2, x.device)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
         for layer in self.layers:
-            x = layer(x, emb, cos_sin, None)
+            x = self._run_block(layer, x, emb, cos_sin, None)
         return self.last_layer(x, emb)
 
     def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop):
@@ -507,7 +520,7 @@ class MMDiT(Denoiser):
                              self._image_pos_ids(b, grid_size, 3, x.device)], dim=1)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
         for layer in self.layers:
-            x, context = layer(x, emb, context, cos_sin, attn_mask)
+            x, context = self._run_block(layer, x, emb, context, cos_sin, attn_mask)
         return self.last_layer(x, emb)
 
     def forward(

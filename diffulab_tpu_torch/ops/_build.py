@@ -26,19 +26,24 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: kernel library name -> (source, argtypes of its C entry point of the same name)
+#: kernel library name -> (source, {C entry point: its argtypes})
 KERNELS = {
     "fused_mha_fwd": (
         "csrc/fused_mha_fwd.cu",
-        [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P],
+        {"fused_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]},
     ),
     "fused_mha_bwd": (
         "csrc/fused_mha_bwd.cu",
-        [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P],
+        {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P]},
     ),
     "flash_attn_fwd": (
         "csrc/flash_attn_fwd.cu",
-        [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P],
+        {"flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]},
+    ),
+    "flash_attn_bwd": (
+        "csrc/flash_attn_bwd.cu",
+        {"flash_attn_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 10 + [ctypes.c_float, _I, _P],
+         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P]},
     ),
 }
 
@@ -106,9 +111,10 @@ def load(name: str) -> ctypes.CDLL:
     so, proc = _start(name)
     _finish(name, so, proc)
     lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, name)
-    fn.argtypes = KERNELS[name][1]
-    fn.restype = ctypes.c_int
+    for entry, argtypes in KERNELS[name][1].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.dl_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dl_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

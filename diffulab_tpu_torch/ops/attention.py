@@ -20,8 +20,8 @@ The fused route pads sequences to :data:`MIN_BLOCK` multiples with a
 synthesized key mask and slices off padded query rows, as the reference's
 ``_fused_path``; it is differentiable (backward K2). The flash route pads
 nothing: K3 masks the ragged ends itself, which is what the reference's
-padding mask does. Under grad it runs on the CPU only, through autograd of
-the plain version; on the card the flash backward (K4, K5) is slice B2.
+padding mask does; it is differentiable too (backward K4 then K5, through
+:class:`~diffulab_tpu_torch.ops.flash_attention.FlashAttention`).
 """
 
 from __future__ import annotations

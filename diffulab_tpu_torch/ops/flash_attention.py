@@ -1,4 +1,5 @@
-"""KV-tiled flash attention for long sequences (Hopper CUDA), forward.
+"""KV-tiled flash attention for long sequences (Hopper CUDA), forward and
+backward.
 
 **Forward (K3)** replaces the Pallas TPU kernel
 ``diffulab_tpu/ops/flash_attention.py::_fwd_kernel`` (launched by
@@ -21,24 +22,41 @@ where the key tiles start, since p is rounded relative to the running max of
 the tiles seen so far; the kernel and :func:`flash_attention_reference` share
 :data:`KERNEL_BLOCK_N`, so they differ only in summation order.
 
-What bounds it on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT sampling shape (B=8,
-S=4224, H=12, D=64, bf16) the two products are 438.5 GFLOP (0.443 ms at 989
-TFLOP/s) against ~209 MB of q/k/v/o/lse (62 µs at 3.35 TB/s): it is
-compute-bound. ``csrc/flash_attn_fwd.cu`` therefore keeps the scores on chip
-and the tensor cores fed: one CTA per (batch, head, 128 queries), eight
-warps of ``mma.sync`` m16n8k16 (bf16 in, fp32 accumulate), K/V tiles of 64
-keys double-buffered in shared memory by ``cp.async``, m/l/o in registers.
-q/k/v are read in the ``[B, S, H, D]`` layout at the caller's strides (no
-transpose, no padded copy: the ragged ends are masked inside the kernel).
-fp32 tensors run a second kernel with fp32 FMAs, one thread per query row.
-``lse`` is written ``[B, H, Sq]``, the layout the backward kernels (K4, K5)
-will read.
+What bounds it on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT
+sampling shape (B=8, S=4224, H=12, D=64, bf16) the two products are 438.5
+GFLOP (0.443 ms at 989 TFLOP/s) against ~209 MB of q/k/v/o/lse (62 µs at
+3.35 TB/s): it is compute-bound. ``csrc/flash_attn_fwd.cu`` therefore keeps
+the scores on chip and the tensor cores fed: one CTA per (batch, head, 128
+queries), eight warps of ``mma.sync`` m16n8k16 (bf16 in, fp32 accumulate),
+K/V tiles of 64 keys double-buffered in shared memory by ``cp.async``, m/l/o
+in registers. q/k/v are read in the ``[B, S, H, D]`` layout at the caller's
+strides (no transpose, no padded copy: the ragged ends are masked inside the
+kernel). fp32 tensors run a second kernel with fp32 FMAs, one thread per
+query row. ``lse`` is written ``[B, H, Sq]``, the layout the backward reads.
 
-:func:`flash_attention_reference` is the plain PyTorch version, the same
-recurrence over the same key tiles. :func:`flash_attention` uses it only for
-tensors on the CPU (where autograd runs through it); a CUDA tensor launches
-the kernel or raises, and under grad on the card it raises: the backward
-kernels K4 and K5 are ROADMAP slice B2.
+**Backward (K4, K5)** replaces ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
+(launched by ``_flash_backward``). From the forward's q, k, v, mask, o and
+lse, with ``di = rowsum(o·do)`` in fp32 from the stored o (the reference
+forms it outside Pallas, flash_attention.py:275):
+``p = exp(s - lse)`` (0 on a row with lse = +inf), ``dv = round(p)ᵀ·do``,
+``dp = do·vᵀ``, ``ds = p·(dp - di)·scale``, ``dk = round(ds)ᵀ·q`` (K4) and
+``dq = round(ds)·k`` (K5), where ``round`` is the cast to the input dtype and
+every product accumulates in fp32. At the txt2img training shape K4 makes
+four products over the valid keys and K5 three: compute-bound, ~0.87 and
+~0.65 ms at 989 TFLOP/s. ``csrc/flash_attn_bwd.cu`` turns each TPU kernel's
+sequential grid axis into a loop inside one CTA: K4 per (64 keys, head,
+batch) over 64-query tiles with dk/dv in fp32 registers, K5 per (64 queries,
+head, batch) over 64-key tiles with dq in registers; tiles double-buffered by
+``cp.async``, ``mma.sync`` for bf16 and fp32 FMAs for fp32, the ragged ends
+masked in the kernel, no atomics (deterministic, as the reference's two
+kernels are). A pre-pass launched with K4 forms di.
+
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
+are the plain PyTorch versions, the same arithmetic over the same key tiles.
+The wrappers use them only for tensors on the CPU; a CUDA tensor launches the
+kernels or raises. :class:`FlashAttention` ties forward and backward into
+autograd, as the reference's ``jax.custom_vjp`` does: on the CPU it runs the
+plain forward and the plain backward (not autograd of the plain forward).
 """
 
 from __future__ import annotations
@@ -60,8 +78,10 @@ from diffulab_tpu_torch.ops.fused_mha import (
 #: keys per tile of the kernel and of its plain version
 KERNEL_BLOCK_N = 64
 
-#: launches of the CUDA kernel by :func:`flash_attention` (read by chip_smoke.py)
-LAUNCHES = {"flash_attn_fwd": 0}
+#: launches of the CUDA kernels: K3 by :func:`flash_attention`, K4 by
+#: :func:`flash_attention_bwd_dkv`, K5 by :func:`flash_attention_bwd_dq`
+#: (read by chip_smoke.py)
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
 
 
 def flash_attention_reference(
@@ -107,31 +127,50 @@ def flash_attention_reference(
     return o.permute(0, 2, 1, 3).to(q.dtype), lse
 
 
-def flash_attention(
+def flash_attention_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    kv_mask: torch.Tensor | None = None,
+    kv_mask: torch.Tensor | None,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
     sm_scale: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention forward. q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B,Skv].
-    Returns (o [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32).
+    block_k: int = KERNEL_BLOCK_N,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels K4 and K5, in their op
+    order and roundings, over key tiles of ``block_k`` keys (so no
+    ``[B, H, Sq, Skv]`` intermediate is held whole).
 
-    On CUDA tensors it launches K3 (any lengths, head dim in
-    :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`, bf16 or fp32, no grad); on CPU tensors it runs
-    :func:`flash_attention_reference`, differentiable by autograd.
+    q/o/do [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask bool [B,Skv] or None, lse fp32
+    [B,H,Sq] from the forward. Returns (dq, dk, dv) in q's, k's and v's dtypes.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    qf, dof = q.float(), do.float()
+    di = (o.float() * dof).sum(dim=-1).permute(0, 2, 1)  # [B, H, Sq], from the stored o
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for n0 in range(0, k.shape[1], block_k):
+        kt, vt = k[:, n0:n0 + block_k].float(), v[:, n0:n0 + block_k].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * sm_scale
+        if kv_mask is not None:
+            s = torch.where(kv_mask[:, None, None, n0:n0 + block_k].bool(), s, DEFAULT_MASK_VALUE)
+        p = torch.exp(s - lse[..., None])  # 0 on a row with lse = +inf
+        # K4: p rounds to do's dtype before dv = pᵀ·do, ds to q's before dk = dsᵀ·q
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof))
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vt)
+        ds = p * (dp - di[..., None]) * sm_scale
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf))
+        # K5: ds rounds to k's dtype before dq += ds·k
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kt)
+    return dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype)
+
+
+def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash attention backward (K4 _bwd_dkv_kernel, K5 _bwd_dq_kernel) is ROADMAP "
-            "slice B2 and not ported yet: the flash route runs without grad on the card"
-        )
     _check_cuda_inputs(q, k, v, kv_mask, block=1, name="flash_attention")
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -152,3 +191,143 @@ def flash_attention(
     _raise_on(err, "flash_attn_fwd")
     LAUNCHES["flash_attn_fwd"] += 1
     return o, lse
+
+
+def _check_bwd_inputs(q, k, v, kv_mask, lse, *like_q) -> None:
+    """Raise unless the backward's inputs meet the kernels' contract: q/k/v as
+    for K3, each of ``like_q`` (o, do) q's shape and dtype, lse fp32 [B, H, Sq]."""
+    _check_cuda_inputs(q, k, v, kv_mask, block=1, name="flash_attention_bwd")
+    b, sq, h, _ = q.shape
+    for t in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"o/do {tuple(t.shape)} {t.dtype} do not match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be fp32 {(b, h, sq)} on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
+    """K4 on CUDA tensors (the di pre-pass, then dk/dv): returns (dk, dv, di
+    fp32 [B, H, Sq]). The contract of :func:`flash_attention_bwd`."""
+    _check_bwd_inputs(q, k, v, kv_mask, lse, o, do)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    q, k, v, o, do = (_kernel_ready(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    mask = _int_mask(kv_mask, q.device)
+    di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
+    lib = _build.load("flash_attn_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            b, sq, skv, h, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+            ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
+        )
+    _raise_on(err, "flash_attn_bwd_dkv")
+    LAUNCHES["flash_attn_bwd_dkv"] += 1
+    return dk, dv, di
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
+    """K5 on CUDA tensors, from the di of :func:`flash_attention_bwd_dkv`: returns dq."""
+    _check_bwd_inputs(q, k, v, kv_mask, lse, do)
+    if di.shape != lse.shape or di.dtype != torch.float32 or di.device != q.device:
+        raise ValueError(f"di must be fp32 {tuple(lse.shape)} on {q.device}, got {tuple(di.shape)} {di.dtype}")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
+    lse, di = lse.contiguous(), di.contiguous()
+    mask = _int_mask(kv_mask, q.device)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load("flash_attn_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            b, sq, skv, h, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            do.stride(0), do.stride(1),
+            ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
+        )
+    _raise_on(err, "flash_attn_bwd_dq")
+    LAUNCHES["flash_attn_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash attention backward from the forward's o and lse: (dq, dk, dv).
+
+    Shapes as :func:`flash_attention_bwd_reference`. On CUDA tensors it
+    launches K4 then K5 (the shape contract of :func:`flash_attention`; o and
+    do in q's dtype); on CPU tensors it runs
+    :func:`flash_attention_bwd_reference`.
+    """
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, sm_scale)
+    dk, dv, di = flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale)
+    return flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Autograd of the flash attention (the reference's ``flash_attention``
+    custom_vjp, flash_attention.py:357-394): the forward is K3 and saves q,
+    k, v, the mask, o and lse, as ``_flash_fwd_rule``; the backward is K4 and
+    K5. On CPU tensors both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, sm_scale):
+        o, lse = _forward(q, k, v, kv_mask, sm_scale)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.sm_scale = sm_scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, o, lse, do.to(q.dtype), ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention. q [B,Sq,H,D], k/v [B,Skv,H,D], kv_mask [B,Skv].
+    Returns (o [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32); o is
+    differentiable in q, k and v.
+
+    On CUDA tensors it launches K3 and, under grad, K4 and K5 in the backward
+    (any lengths, head dim in
+    :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`, bf16 or fp32);
+    on CPU tensors it runs the plain versions. Without grad (sampling) it is
+    the forward alone and saves nothing.
+    """
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, kv_mask, sm_scale)
+    return _forward(q, k, v, kv_mask, sm_scale)

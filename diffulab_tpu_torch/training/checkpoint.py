@@ -7,9 +7,15 @@ entry directory holds one file, ``state.pt``: ``torch.save`` of a dict of CPU
 tensors and Python scalars, written to a temporary name and renamed into
 place, so an entry is either complete or absent.
 
-Not ported yet (ROADMAP queue 1, item 8): ``trainable_filter``,
-``restore_train_modules``, ``restore_sampling_model`` and an importer of the
-JAX package's orbax runs.
+The layout of a model entry follows :func:`trainable_filter`, as the
+reference's (checkpoint.py:113-160): the ``denoiser`` entry holds
+``{"params": <the trainable parameters by name>, "rest": <every other
+state_dict entry: frozen parameters such as a frozen context embedder's, and
+persistent buffers>}``, so the whole model restores from it; the ``ema``
+entry holds ``{"params": <the EMA of the trainable parameters>}`` only.
+
+Not ported yet (ROADMAP queue 1, item 8): ``restore_train_modules``,
+``restore_sampling_model`` and an importer of the JAX package's orbax runs.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from __future__ import annotations
 import os
 import threading
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -25,20 +31,21 @@ import torch
 STATE_FILE = "state.pt"
 
 
-def _map_tensors(tree: Any, fn) -> Any:
+def map_tensors(tree: Any, fn) -> Any:
+    """``fn`` applied to every tensor of a nested dict/list/tuple tree."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn) for v in tree)
+        return type(tree)(map_tensors(v, fn) for v in tree)
     return tree
 
 
 def to_cpu(tree: Any, copy: bool = True) -> Any:
     """Every tensor of a nested dict/list payload detached on the CPU (copied
     even where it already lies there, unless ``copy=False``)."""
-    return _map_tensors(tree, lambda t: t.detach().to("cpu", copy=copy))
+    return map_tensors(tree, lambda t: t.detach().to("cpu", copy=copy))
 
 
 def save_checkpoint(path: str | Path, payload: dict[str, Any]) -> None:
@@ -111,3 +118,35 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=work, daemon=True, name="ckpt-writer")
         self._thread.start()
+
+
+def trainable_filter(denoiser: torch.nn.Module, *, lora: bool = False,
+                     train_embedder: bool = False) -> Callable[[str], bool]:
+    """The trainer's trainable-parameter filter (reference checkpoint.py:113-134):
+    a predicate on ``named_parameters()`` names, true for every parameter
+    except those of a frozen ``context_embedder`` (excluded unless
+    ``train_embedder``). It sets what the optimizer and the EMA hold and the
+    checkpoint layout (:func:`split_state`). LoRA (item 16) and a live REPA
+    ``repa_encoder`` (item 13) are not ported and raise."""
+    if lora:
+        raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
+    if any("repa_encoder" in name.split(".") for name, _ in denoiser.named_modules()):
+        raise NotImplementedError("a REPA encoder (repa_encoder) is not ported yet (ROADMAP queue 1, item 13)")
+    frozen = []
+    if not train_embedder and getattr(denoiser, "context_embedder", None) is not None:
+        frozen.append("context_embedder")
+
+    def trainable(name: str) -> bool:
+        return not any(part in frozen for part in name.split("."))
+
+    return trainable
+
+
+def split_state(model: torch.nn.Module, trainable: Callable[[str], bool]
+                ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """(params, rest) of ``model.state_dict()``: the trainable parameters, and
+    every other entry (the ``denoiser`` checkpoint's two halves)."""
+    names = {name for name, _ in model.named_parameters() if trainable(name)}
+    state = model.state_dict()
+    return ({k: v for k, v in state.items() if k in names},
+            {k: v for k, v in state.items() if k not in names})

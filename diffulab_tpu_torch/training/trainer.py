@@ -1,9 +1,10 @@
 """Supervised trainer on one card (port of diffulab_tpu/training/trainer.py).
 
 The reference runs one jitted, sharded train step over a device mesh; here
-one eager step runs on one card: the loss through the model (attention
-forward K1 and backward K2 on the card), ``.backward()``, and the optimizer
-with optax's accumulation and clipping rules. Mirrored from the reference:
+one eager step runs on one card: the loss through the model (on the card the
+attention runs K1 forward and K2 backward up to 512 tokens, K3 forward and
+K4/K5 backward beyond), ``.backward()``, and the optimizer with optax's
+accumulation and clipping rules. Mirrored from the reference:
 
 - per step, t, the noise and the CFG drop mask are drawn from one
   ``torch.Generator`` on the card, seeded from (seed, step) so that a resumed
@@ -17,6 +18,13 @@ with optax's accumulation and clipping rules. Mirrored from the reference:
 - EMA with ema-pytorch semantics on the raw micro-step counter, with
   ``update_after_step`` and ``update_every`` multiplied by the accumulation
   (trainer.py:113-119);
+- the trainable split of :func:`.checkpoint.trainable_filter`: the optimizer
+  and the EMA hold the trainable parameters (a frozen context embedder's are
+  left out), and checkpoints store them apart from the rest of the state;
+- text batches (``ImageNetmultiAR`` + ``collate_fn``): a precomputed
+  ``context`` passes through :meth:`BaseTrainer._host_embed` untouched, and
+  the caption strings (``initial_context``) are dropped from the batch the
+  model sees and handed to the tracker with the validation images;
 - per-epoch train-loss means (one host sync per epoch), the validation loss
   on the EMA weights where there are any, validation images through
   ``Diffuser.generate``, best-val checkpoints, periodic "latest" sets and
@@ -28,9 +36,10 @@ parity tests can inject the reference's draws; the loop draws and calls it.
 Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1): post-hoc
 EMA (item 8), augmentation (``augment_p > 0``, item 15), guidance
 distillation (``distill_teacher``, item 15), LoRA (``lora_only``, item 16),
-trainable embedders and text batches (``train_embedder``,
-``initial_context``, item 9), reflow batches (``coupled_noise``, item 15)
-and meshes of more than one device (item 17).
+trainable embedders (``train_embedder``, items 9 and 16: the HF and
+trainable embedders, whose ``tokenize``/``embed_host`` turn caption strings
+into conditioning, are not ported), reflow batches (``coupled_noise``, item
+15) and meshes of more than one device (item 17).
 """
 
 from __future__ import annotations
@@ -51,8 +60,11 @@ from diffulab_tpu_torch.networks.nn import make_drop_mask
 from diffulab_tpu_torch.training.checkpoint import (
     STATE_FILE,
     AsyncCheckpointer,
+    map_tensors,
     restore_checkpoint,
     save_checkpoint,
+    split_state,
+    trainable_filter,
 )
 from diffulab_tpu_torch.training.ema import EMAConfig, ema_update, init_ema
 from diffulab_tpu_torch.training.logging import Tracker
@@ -147,15 +159,15 @@ class EMA:
 
 
 def _check_ported(model_inputs: dict[str, Any]) -> None:
+    """Raise on batch keys whose paths are not ported: reflow batches."""
     if "coupled_noise" in model_inputs:
         raise NotImplementedError("reflow batches (coupled_noise) are not ported yet (ROADMAP queue 1, item 15)")
-    if "initial_context" in model_inputs or "context" in model_inputs:
-        raise NotImplementedError("text-conditioned batches are not ported yet (ROADMAP queue 1, items 9 and 11)")
 
 
 def split_batch(batch: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
-    """(x0, conditioning) of a prepared batch; raises on batch keys whose
-    paths are not ported."""
+    """(x0, conditioning) of a prepared batch: the conditioning is every other
+    model input (``y``, or a text batch's nested ``context``); raises on batch
+    keys whose paths are not ported (:func:`_check_ported`)."""
     model_inputs = dict(batch["model_inputs"])
     _check_ported(model_inputs)
     return model_inputs.pop("x"), model_inputs
@@ -258,11 +270,12 @@ class Trainer:
             for path, payload in entries.items():
                 save_checkpoint(path, payload)
 
-    def save_model(self, params: dict[str, torch.Tensor], opt_state: dict[str, Any],
-                   ema_params: dict[str, torch.Tensor] | None, step: int) -> None:
-        """Best-val checkpoint (reference trainers/common.py:130-176 artifact set)."""
+    def save_model(self, params: dict[str, torch.Tensor], rest: dict[str, torch.Tensor],
+                   opt_state: dict[str, Any], ema_params: dict[str, torch.Tensor] | None, step: int) -> None:
+        """Best-val checkpoint (reference trainers/common.py:130-176 artifact
+        set; the denoiser entry split as :func:`.checkpoint.split_state`)."""
         base = self.save_path / "checkpoints"
-        entries: dict[Path, dict[str, Any]] = {base / "denoiser": {"params": params}}
+        entries: dict[Path, dict[str, Any]] = {base / "denoiser": {"params": params, "rest": rest}}
         if self.save_optimizer:
             entries[base / "optimizer"] = {"opt_state": opt_state}
         if ema_params is not None:
@@ -270,8 +283,8 @@ class Trainer:
         entries[base / "scheduler"] = {"step": step}
         self._write(entries)
 
-    def save_latest(self, params: dict[str, torch.Tensor], opt_state: dict[str, Any],
-                    ema_params: dict[str, torch.Tensor] | None, step: int, epoch: int,
+    def save_latest(self, params: dict[str, torch.Tensor], rest: dict[str, torch.Tensor],
+                    opt_state: dict[str, Any], ema_params: dict[str, torch.Tensor] | None, step: int, epoch: int,
                     best_val_loss: float = float("inf")) -> None:
         """Preemption checkpoint in ``checkpoints_latest/ep<N>/``: the full set
         plus resume metadata, the scheduler entry written last so that its
@@ -285,7 +298,7 @@ class Trainer:
                     shutil.rmtree(old, ignore_errors=True)
         base = root / keep
         entries: dict[Path, dict[str, Any]] = {
-            base / "denoiser": {"params": params},
+            base / "denoiser": {"params": params, "rest": rest},
             base / "optimizer": {"opt_state": opt_state},
         }
         if ema_params is not None:
@@ -314,32 +327,51 @@ class Trainer:
 
 @contextlib.contextmanager
 def _swapped_params(model: torch.nn.Module, params: dict[str, torch.Tensor] | None) -> Iterator[None]:
-    """Run the block with ``params`` (e.g. the EMA) in the model's parameters,
-    then put the live ones back."""
+    """Run the block with ``params`` (e.g. the EMA of the trainable
+    parameters) in those of the model's parameters, then put the live ones back."""
     if params is None:
         yield
         return
     live = dict(model.named_parameters())
-    saved = {name: p.detach().clone() for name, p in live.items()}
+    saved = {name: live[name].detach().clone() for name in params}
     with torch.no_grad():
-        for name, p in live.items():
-            p.copy_(params[name])
+        for name, value in params.items():
+            live[name].copy_(value)
     try:
         yield
     finally:
         with torch.no_grad():
-            for name, p in live.items():
-                p.copy_(saved[name])
+            for name, value in saved.items():
+                live[name].copy_(value)
 
 
 class BaseTrainer(Trainer):
     """Supervised diffusion training loop (reference base_trainer.py:22-399)."""
 
+    @staticmethod
+    def _host_embed(batch: dict[str, Any], diffuser: Diffuser) -> dict[str, Any]:
+        """Embed raw caption strings on the host (reference trainer.py:417-438):
+        an embedder with ``tokenize`` (trainable) or ``embed_host`` (HF, when the
+        batch has no precomputed ``context``) turns ``initial_context`` into
+        the ``context``; otherwise the batch passes through untouched, as it
+        does for a :class:`PrecomputedEmbedder` (neither method is ported)."""
+        mi = batch.get("model_inputs", {})
+        texts = mi.get("initial_context")
+        embedder = getattr(diffuser.denoiser, "context_embedder", None)
+        if texts is None:
+            return batch
+        if hasattr(embedder, "tokenize"):
+            out = embedder.tokenize(list(texts))
+        elif hasattr(embedder, "embed_host") and "context" not in mi:
+            out = embedder.embed_host(list(texts))
+        else:
+            return batch
+        return {**batch, "model_inputs": {**mi, "context": dict(out)}}
+
     def _prepare_batch(self, batch: dict[str, Any]) -> dict[str, Any]:
         """Every array leaf to a tensor on the trainer's device; host-only
-        leaves (strings) dropped, as the reference drops them. Raises first
-        on batch keys whose paths are not ported, such as the captions of a
-        text batch, which would otherwise be dropped silently."""
+        leaves (caption strings) dropped, as the reference drops them. Raises
+        first on batch keys whose paths are not ported (:func:`_check_ported`)."""
         _check_ported(batch["model_inputs"])
 
         def clean(node):
@@ -369,17 +401,22 @@ class BaseTrainer(Trainer):
         generator: torch.Generator | None = None,
     ) -> None:
         """Generate a validation grid with a temporarily re-stepped sampler
-        (reference trainers/common.py:178-242)."""
+        (reference trainers/common.py:178-242, trainer.py:465-506) from the
+        first ``min(8, batch)`` rows of a raw validation batch; a text batch's
+        captions go to the tracker beside the images."""
         original = diffuser.diffusion
         diffuser.set_steps(val_steps, **({} if step_shift is None else {"shift": step_shift}))
         try:
-            x_ref, cond = split_batch(val_batch)
+            val_batch = self._host_embed(val_batch, diffuser)
+            captions_raw = val_batch["model_inputs"].get("initial_context")
+            x_ref, cond = split_batch(self._prepare_batch(val_batch))
             n = min(8, x_ref.shape[0])
-            cond = {k: v[:n] for k, v in cond.items()}
-            out = diffuser.generate(cond, data_shape=(n, *x_ref.shape[1:]), generator=generator,
-                                    guidance_scale=guidance_scale, device=self.device)
+            # x_ref's shape is the latent shape when the diffuser has a vision tower
+            out = diffuser.generate(map_tensors(cond, lambda t: t[:n]), data_shape=(n, *x_ref.shape[1:]),
+                                    generator=generator, guidance_scale=guidance_scale, device=self.device)
             images = np.clip(out["x"].float().cpu().numpy() * 0.5 + 0.5, 0, 1)
-            self.tracker.log_images(images, step=epoch + 1)
+            captions = list(captions_raw[:n]) if isinstance(captions_raw, (list, tuple)) else None
+            self.tracker.log_images(images, step=epoch + 1, captions=captions)
         finally:
             diffuser.diffusion = original
 
@@ -414,8 +451,11 @@ class BaseTrainer(Trainer):
         if distill_teacher is not None:
             raise NotImplementedError("guidance distillation is not ported yet (ROADMAP queue 1, item 15)")
         model = diffuser.denoiser
-        params = dict(model.named_parameters())
-        off = sorted({str(p.device) for p in params.values() if p.device != self.device})
+        # the trainable split (checkpoint.py::trainable_filter) sets what the
+        # optimizer and the EMA hold, and the checkpoint layout
+        trainable = trainable_filter(model, lora=lora_only, train_embedder=train_embedder)
+        params = {name: p for name, p in model.named_parameters() if trainable(name)}
+        off = sorted({str(p.device) for p in model.parameters() if p.device != self.device})
         if off:
             raise ValueError(f"the model's parameters are on {off}, the trainer runs on {self.device}; "
                              "build the model on the trainer's device")
@@ -440,8 +480,9 @@ class BaseTrainer(Trainer):
 
         # --- optimizer: schedule + gradient accumulation -------------------
         if denoiser_ckpt:
-            restored = restore_checkpoint(denoiser_ckpt, {"params": model.state_dict()})["params"]
-            model.load_state_dict(restored, strict=True)
+            live_params, live_rest = split_state(model, trainable)
+            restored = restore_checkpoint(denoiser_ckpt, {"params": live_params, "rest": live_rest})
+            model.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
         torch_opt = optimizer(list(params.values()))
         lr_scheduler = None
         if scheduler is not None:
@@ -491,7 +532,7 @@ class BaseTrainer(Trainer):
             n_steps_epoch = 0
             model.train()
             for batch in train_dataloader:
-                batch = self._prepare_batch(batch)
+                batch = self._prepare_batch(self._host_embed(batch, diffuser))
                 step += 1
                 generator.manual_seed(_fold_seed(seed, step))
                 x0 = batch["model_inputs"]["x"]
@@ -524,7 +565,7 @@ class BaseTrainer(Trainer):
                     val_sums: dict[str, torch.Tensor] = {}
                     n_val = 0
                     for vi, val_batch in enumerate(val_dataloader):
-                        val_batch = self._prepare_batch(val_batch)
+                        val_batch = self._prepare_batch(self._host_embed(val_batch, diffuser))
                         generator.manual_seed(_fold_seed(seed, _VAL_SEED_OFFSET + vi))
                         x0, cond = split_batch(val_batch)
                         t = diffusion.draw_timesteps(generator, x0.shape[0])
@@ -545,7 +586,7 @@ class BaseTrainer(Trainer):
 
                     if log_validation_images:
                         logger.info("creating validation images")
-                        first_val = self._prepare_batch(next(iter(val_dataloader)))
+                        first_val = next(iter(val_dataloader))
                         image_gen = torch.Generator(device=self.device)
                         image_gen.manual_seed(_fold_seed(seed, _IMAGE_SEED_OFFSET + epoch))
                         self.log_images(
@@ -556,13 +597,13 @@ class BaseTrainer(Trainer):
 
                 if total_loss < best_val_loss:
                     best_val_loss = total_loss
-                    self.save_model(model.state_dict(), opt.state_dict(),
+                    self.save_model(*split_state(model, trainable), opt.state_dict(),
                                     None if ema is None else ema.params, step)
                 tracker_meter.reset()
 
             if self.save_every_n_epochs and (epoch + 1) % self.save_every_n_epochs == 0:
-                self.save_latest(model.state_dict(), opt.state_dict(), None if ema is None else ema.params,
-                                 step, epoch + 1, best_val_loss=best_val_loss)
+                self.save_latest(*split_state(model, trainable), opt.state_dict(),
+                                 None if ema is None else ema.params, step, epoch + 1, best_val_loss=best_val_loss)
 
         self.step = step
         self.wait_for_checkpoints()

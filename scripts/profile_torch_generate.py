@@ -31,6 +31,12 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "flash_bwd_dkv" in low:
+        return "attention (flash_attn_bwd_dkv)"
+    if "flash_bwd_dq" in low:
+        return "attention (flash_attn_bwd_dq)"
+    if "flash_bwd_di" in low:
+        return "attention (flash_attn_bwd_dkv di pre-pass)"
     if "flash_fwd" in low:
         return "attention (flash_attn_fwd)"
     if "mha_fwd" in low:

@@ -188,6 +188,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {networks / "embedders" / f"{m}.py" for m in ("common", "precomputed")} <= set(files)
     assert {networks / "vision_towers" / f"{m}.py" for m in ("common", "vae", "flux2")} <= set(files)
     assert REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py" in set(files)
+    data = REPO / "diffulab_tpu_torch" / "data"
+    assert {data / f"{m}.py" for m in ("base", "streaming", "imagenet")} <= set(files)
+    # the flash backward's CUDA source is bound by the module the scan reads
+    assert (REPO / "diffulab_tpu_torch" / "csrc" / "flash_attn_bwd.cu").is_file()
+    assert "flash_attn_bwd_dkv" in (REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py").read_text()
     for f in files:
         for name in _imported_roots(f):
             top = name.split(".")[0]
@@ -197,3 +202,4 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "diffulab_tpu_torch.ops" in _imported_roots(REPO / "diffulab_tpu_torch" / "networks" / "denoisers" / "mmdit.py")
     assert "diffulab_tpu_torch.training.checkpoint" in _imported_roots(training / "trainer.py")
     assert "diffulab_tpu_torch.networks.vision_towers.vae" in _imported_roots(networks / "vision_towers" / "flux2.py")
+    assert "diffulab_tpu_torch.data.streaming" in _imported_roots(data / "imagenet.py")

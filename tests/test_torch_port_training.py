@@ -44,6 +44,7 @@ from diffulab_tpu_torch.training.checkpoint import (
     AsyncCheckpointer,
     restore_checkpoint,
     save_checkpoint,
+    split_state,
 )
 from diffulab_tpu_torch.training.trainer import (
     EMA,
@@ -425,10 +426,14 @@ def test_base_trainer_end_to_end_on_cpu(tmp_path):
     assert len(train_loss) == 1 and len(val_loss) == 1
     assert np.isfinite(train_loss[0]) and np.isfinite(val_loss[0])
     assert any((run / "images").glob("*.png"))
-    # the best-val set, and it restores to the trained tensors
+    # the best-val set, and it restores to the trained tensors (the trainable
+    # parameters and the rest of the state, as the reference's layout)
     for part in ("denoiser", "optimizer", "ema", "scheduler"):
         assert (run / "checkpoints" / part / "state.pt").is_file(), part
-    restored = restore_checkpoint(run / "checkpoints" / "denoiser", {"params": model.state_dict()})["params"]
+    params, rest = split_state(model, lambda name: True)
+    restored = restore_checkpoint(run / "checkpoints" / "denoiser", {"params": params, "rest": rest})
+    restored = {**restored["params"], **restored["rest"]}
+    assert set(restored) == set(model.state_dict())
     for name, tensor in model.state_dict().items():
         torch.testing.assert_close(restored[name], tensor, rtol=0, atol=0)
     assert restore_checkpoint(run / "checkpoints" / "scheduler")["step"] == 3
@@ -480,12 +485,31 @@ def test_unported_train_options_raise(tmp_path, kwargs):
 
 @pytest.mark.parametrize("key", ["coupled_noise", "initial_context"])
 def test_unported_batches_raise(tmp_path, key):
-    batches = _loader(1, 0)
-    batches[0]["model_inputs"][key] = (np.zeros((4, *LATENT), np.float32) if key == "coupled_noise"
-                                       else ["a caption"] * 4)
+    """Reflow batches raise; a text batch (captions and a precomputed
+    context, as ImageNetmultiAR + collate_fn give it) trains since the
+    txt2img slice: the captions are dropped from what the model sees."""
     trainer = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError):
-        trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), batches)
+    if key == "coupled_noise":
+        batches = _loader(1, 0)
+        batches[0]["model_inputs"][key] = np.zeros((4, *LATENT), np.float32)
+        with pytest.raises(NotImplementedError):
+            trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), batches)
+        return
+    from _torch_port_common import CONTEXT, TINY_MM, context_inputs, null_embedding
+
+    from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
+
+    emb, mask = context_inputs(2)
+    batch = {"model_inputs": {"x": np.random.default_rng(3).standard_normal((2, 4, 4, 4)).astype(np.float32),
+                              "context": {"embeddings": emb, "attn_mask": mask},
+                              key: ["a caption", "another"]}}
+    model = MMDiT(**TINY_MM, context_embedder=PrecomputedEmbedder(null_embedding=null_embedding(),
+                                                                  null_embedding_seq_len=1, device="cpu"),
+                  device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer.train(Diffuser(model, "euler", n_steps=4), toptim.adamw(lr=1e-3, weight_decay=1e-2), [batch], seed=0)
+    assert trainer.step == 1 and emb.shape[1:] == CONTEXT
+    assert any(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
 
 
 def test_unported_loss_paths_raise():
