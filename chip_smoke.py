@@ -20,9 +20,12 @@ Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
      source, all started at once), with each instance's registers and spills;
   2. K1 (attention forward) against its plain PyTorch version on the card,
-     at the sampling shape and at the edge cases, with the tolerance stated;
-     timings of the kernel, the plain version and one library call
-     (yardstick only);
+     at the sampling shape, at each of its other instances (two passes over
+     resident K and V, 192- and 64-key chunks, K and V streamed) and at the
+     edge cases, with the tolerance stated; the device time of the kernel and
+     of one library call (yardstick only) from CUDA-graph replays, their wall
+     time per call beside it, the plain version's time, and the kernel at the
+     training batch;
   3. the DiT-B/2 forward, kernel path against the same model with the plain
      attention (``attention_impl="xla"``);
   4. three ``generate`` requests, with the kernels' launch counts set to 0
@@ -38,7 +41,8 @@ Phases, one line each:
   8. K3 (flash attention forward) against its plain version, at the txt2img
      shape (B=8, S=4224, H=12, D=64, bf16) with the fused-CFG ragged text
      mask, in fp32, and at the edge cases; its timings, SDPA's as the
-     yardstick, and K1 against K3 at 256-512 tokens;
+     yardstick, and K1 against K3 (and SDPA) at 256-512 tokens, device times
+     from CUDA-graph replays;
   9. the txt2img MMDiT forward at that shape, kernel path against the plain
      attention: 12 K3 launches and no K1;
  10. two txt2img ``generate`` requests with the Flux2 decode, the counts set
@@ -178,6 +182,8 @@ def fail(msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Wall time per call of ``fn`` called back to back, between two events:
+    the device's time, or the host's per call where the host is slower."""
     import torch
 
     for _ in range(warmup):
@@ -190,6 +196,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``replays`` times between two events, so that the host's
+    time per call does not enter it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # builds, allocator, library heuristics: outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def check_close(name, ours, ref, atol, rtol) -> float:
@@ -233,10 +267,10 @@ def ptxas_usage(log: str) -> dict[str, str]:
             # the anonymous namespace mangles as <len><source name>_cu_<hash>: keep the last name;
             # an entry that is no head-dim instance (the di pre-pass) is not reported
             current, spill = None, 0
-            entry = re.search(r"Compiling entry function '\w*?((?:mha|flash)_\w+?)ILi(\d+)E", line)
+            entry = re.search(r"Compiling entry function '\w*?((?:mha|flash)_\w+?)I((?:L[ib]\d+E)+)E", line)
             if entry:
                 name = re.split(r"\d+(?=(?:mha|flash)_)", entry.group(1))[-1]
-                current = f"{name}<{entry.group(2)}>"
+                current = f"{name}<{','.join(re.findall(r'L[ib](\d+)E', entry.group(2)))}>"
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores:
             spill = int(stores.group(1))
@@ -260,7 +294,7 @@ def phase_kernel():
     import torch.nn.functional as F
 
     from diffulab_tpu_torch.ops import dot_product_attention
-    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_reference
+    from diffulab_tpu_torch.ops.fused_mha import forward_instance, fused_mha, fused_mha_reference
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -277,21 +311,48 @@ def phase_kernel():
         ro, rlse = fused_mha_reference(q, k, v)
         err = check_close("main bf16 o", o, ro, *TOL["bfloat16"])
         check_close("main bf16 lse", lse, rlse, *LSE_TOL)
-        kernel_ms = cuda_time_ms(lambda: fused_mha(q, k, v), iters=200)
-        plain_ms = cuda_time_ms(lambda: fused_mha_reference(q, k, v), iters=20)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=200)
-        elem = q.element_size()
-        bytes_moved = 4 * b * s * h * d * elem + b * s * h * 4  # q, k, v, o once each + lse
-        flops = 4 * b * h * s * s * d
-        bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
-        bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
-        print(f"phase 2 kernel main B={b} S={s} H={h} D={d} bf16: max_abs_err {err:.3e} "
-              f"(tol atol {TOL['bfloat16'][0]} rtol {TOL['bfloat16'][1]}); kernel_ms {kernel_ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_us {bound_ms * 1e3:.2f} "
-              f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt)
+
+        # device time from CUDA-graph replays; wall time per call back to back beside it
+        kernel_ms = cuda_graph_ms(lambda: fused_mha(q, k, v))
+        library_ms = cuda_graph_ms(sdpa)
+        kernel_wall_ms = cuda_time_ms(lambda: fused_mha(q, k, v), iters=200)
+        library_wall_ms = cuda_time_ms(sdpa, iters=200)
+        plain_ms = cuda_time_ms(lambda: fused_mha_reference(q, k, v), iters=20)
+        qkv64 = rand(TRAIN_BATCH, s, 3 * h * d, dtype=torch.bfloat16)
+        q64, k64, v64 = (t.reshape(TRAIN_BATCH, s, h, d) for t in qkv64.chunk(3, dim=-1))
+        train_ms = cuda_graph_ms(lambda: fused_mha(q64, k64, v64))
+        del qkv64, q64, k64, v64
+        bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, b * s, q.element_size(), mask=False)
+        inst = forward_instance(s, d)
+        print(f"phase 2 kernel main B={b} S={s} H={h} D={d} bf16 ({inst}): max_abs_err {err:.3e} "
+              f"(tol atol {TOL['bfloat16'][0]} rtol {TOL['bfloat16'][1]}); device ms (CUDA-graph replay) kernel "
+              f"{kernel_ms:.4f} SDPA {library_ms:.4f}; wall ms per call back to back kernel {kernel_wall_ms:.4f} "
+              f"SDPA {library_wall_ms:.4f}; plain_ms {plain_ms:.4f}; bound_us {bound_ms * 1e3:.2f} ({bound_by}: "
+              f"{mb:.1f} MB, {gflop:.2f} GFLOP); kernel at B={TRAIN_BATCH} (training shape) device ms {train_ms:.4f}")
         results["main"] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                               bound_ms=bound_ms, bound_by=bound_by)
+                               bound_ms=bound_ms, bound_by=bound_by, wall_ms=kernel_wall_ms,
+                               library_wall_ms=library_wall_ms, train_shape_ms=train_ms)
+
+        # the instances off the main path: two passes over resident K and V, chunks of 192 and 64
+        # keys, and K and V streamed where they do not fit in shared memory, each with a ragged mask
+        errs = {}
+        for sq, skv, hd in ((512, 512, 64), (384, 384, 128), (192, 192, 32), (256, 320, 64), (448, 448, 128),
+                            (128, 1024, 64), (64, 4096, 16)):
+            q, k, v = rand(2, sq, 2, hd, dtype=torch.bfloat16), *(rand(2, skv, 2, hd, dtype=torch.bfloat16)
+                                                                 for _ in range(2))
+            kmask = torch.arange(skv, device="cuda")[None, :] < torch.tensor([skv, skv // 3 + 1], device="cuda")[:, None]
+            o, lse = fused_mha(q, k, v, kmask)
+            ro, rlse = fused_mha_reference(q, k, v, kmask)
+            inst = forward_instance(skv, hd)
+            key = f"{sq}x{skv}_D{hd}_{'resident' if inst.resident else 'streamed'}_chunk{inst.chunk}"
+            errs[key] = check_close(f"instance {key} o", o, ro, *TOL["bfloat16"])
+            check_close(f"instance {key} lse", lse, rlse, *LSE_TOL)
+        print(f"phase 2 kernel instances bf16 (ragged mask; tol atol {TOL['bfloat16'][0]} rtol "
+              f"{TOL['bfloat16'][1]}): max_abs_err " + " ".join(f"{key} {val:.3e}" for key, val in errs.items()))
 
         # fp32 at the main shape (the library's default dtype=None runs fp32)
         q32, k32, v32 = (rand(b, s, h, d, dtype=torch.float32) for _ in range(3))
@@ -353,12 +414,12 @@ def txt2img_mask(batch: int, lengths, device="cuda"):
     return torch.cat([text, image], dim=1)
 
 
-def attention_bound(b, sq, h, d, valid_keys, elem):
+def attention_bound(b, sq, h, d, valid_keys, elem, mask: bool = True):
     """(bound ms, what bounds it, MB, GFLOP) of one attention forward: q, k,
-    v, o read or written once, the fp32 lse and the int32 mask, and the two
-    products over the keys each row attends (``valid_keys`` summed over the
-    batch)."""
-    bytes_moved = 4 * b * sq * h * d * elem + b * h * sq * 4 + b * sq * 4
+    v, o read or written once, the fp32 lse and the int32 mask (if any), and
+    the two products over the keys each row attends (``valid_keys`` summed
+    over the batch)."""
+    bytes_moved = 4 * b * sq * h * d * elem + b * h * sq * 4 + (b * sq * 4 if mask else 0)
     flops = 4 * h * sq * d * valid_keys
     t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"), \
@@ -452,15 +513,17 @@ def phase_flash_kernel():
             print(f"phase 8 kernel K3 edge cases {name} (tol atol {tol[0]} rtol {tol[1]}): max_abs_err "
                   + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row o==0 lse==+inf")
 
-        # K1 against K3 where the dispatch hands over (FUSED_MAX_SEQ)
+        # K1 against K3 where the dispatch hands over (FUSED_MAX_SEQ): device times from CUDA-graph replays
         times = {}
         for bb in (TXT_BATCH * 2, 32):
             for ss in (256, 384, 512):
                 q, k, v = (rand(bb, ss, 12, 64, dtype=torch.bfloat16) for _ in range(3))
-                times[f"B{bb}_S{ss}"] = (cuda_time_ms(lambda: fused_mha(q, k, v), iters=50),
-                                         cuda_time_ms(lambda: flash_attention(q, k, v), iters=50))
-        print("phase 8 K1 vs K3 (H=12, D=64, bf16, ms): " + " ".join(
-            f"{key} K1 {k1:.4f} K3 {k3:.4f}" for key, (k1, k3) in times.items()))
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                times[f"B{bb}_S{ss}"] = (cuda_graph_ms(lambda: fused_mha(q, k, v)),
+                                         cuda_graph_ms(lambda: flash_attention(q, k, v)),
+                                         cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+        print("phase 8 K1 vs K3 (H=12, D=64, bf16, device ms from CUDA-graph replays; SDPA as the yardstick): "
+              + " ".join(f"{key} K1 {k1:.4f} K3 {k3:.4f} SDPA {sd:.4f}" for key, (k1, k3, sd) in times.items()))
         result["crossover"] = times
     torch.cuda.synchronize()
     return result
@@ -1345,6 +1408,10 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "timing": "ms and library_ms: device time per call from CUDA-graph replays; wall_ms: per call back to back",
+        "wall_ms": main_case["wall_ms"],
+        "library_wall_ms": main_case["library_wall_ms"],
+        "train_shape_ms": main_case["train_shape_ms"],
     }, {
         "name": "fused_mha_bwd",
         "route": "cuda",
@@ -1363,7 +1430,8 @@ def main() -> int:
         "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
                              "txt2img_train": txt_train_launches["flash_attn_fwd"]},
         **k3,
-        "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms} for key, (k1, k3_ms) in crossover.items()},
+        "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms, "sdpa": sdpa_ms}
+                        for key, (k1, k3_ms, sdpa_ms) in crossover.items()},
     }] + [{
         "name": name,
         "route": "cuda",

@@ -8,25 +8,44 @@
 //
 // Bound on an H100: at the DiT-B/2 sampling shape (B=32, S=256, H=12, D=64,
 // bf16) 6.4 GFLOP over 50.7 MB is ~127 FLOP/byte, below the card's ~295:
-// memory-bound. So q/k/v are read in the [B, S, H*D] layout the qkv
-// projection writes (a head is a D-wide column slice, rows at a caller-given
-// stride: no transpose pass), the scores never leave the SM, and only o and
-// lse are written.
+// memory-bound. So each head's k and v should leave device memory once for
+// many query rows, the scores never leave the SM, and only o and lse are
+// written.
 //
-// Two kernels:
-//  - mha_fwd_bf16: one CTA per (64 queries, head, batch); 4 warps own 16
-//    query rows each, with Q held in mma fragments. K (and V) tiles of 64 keys
-//    are staged through shared memory. Pass 1 over the keys gives the row max
-//    and sum (online); pass 2 recomputes s, forms p = exp(s - m) / l, rounds
-//    it to bf16 into the A fragment of the PV mma (the C layout of two
-//    adjacent 16x8 score tiles is the A layout of one 16x16 operand) and
-//    accumulates o in fp32. mma.sync m16n8k16, bf16 in, fp32 accumulate.
-//  - mha_fwd_f32: the same two passes with one thread per query row and
-//    fp32 FMAs, because the tensor cores have no exact fp32 product.
+// bf16: q/k/v are read in the [B, S, H*D] layout the qkv projection writes (a
+// head is a D-wide column slice at the caller's row and batch strides), and
+// o written in [B, Sq, H*D], through TMA tensor maps with a {min(D, 64), 64,
+// 1} box: a tile's o is staged in shared memory where its Q was and leaves in
+// one TMA store, in whole 128-byte rows rather than 4-byte pieces. The box's
+// swizzle (128, 64 or 32 bytes for a row of 64, 32 or 16 bf16) is the layout
+// wgmma's shared-memory descriptors read; D = 128 takes two boxes a row, one
+// per 64-column half. S = Q.K^T is wgmma m64n{CHUNK}k16 per 64-row tile, Q and
+// K read from shared memory, K-major. When CHUNK = Skv (up to 256 keys; 128
+// for D = 128) the whole row of scores stays in registers: row max and sum by
+// quad shuffles, one reciprocal per row, p = exp(s - m) * (1 / l) rounded to
+// bf16 straight into the register A operand of wgmma m64n{D}k16, V read from
+// shared memory as an MN-major (transposed) B. One pass over the keys. For
+// longer rows, pass 1 finds m and l chunk by chunk and pass 2 recomputes each
+// chunk's scores. Scores are kept in log2 units (s * scale * log2 e) and
+// exponentiated with ex2.approx.
+//  - mha_fwd_resident<D, CHUNK>: a head's K and V fit in shared memory.
+//    Persistent CTAs of two consumer warpgroups walk (batch, head, 128
+//    queries) items; an item's K, then its V, land in shared memory once,
+//    each on its own mbarrier. With two buffers the next item's Q, K and V
+//    are in flight while this one computes, and the warpgroups take turns at
+//    the tensor cores, so that one's exponentials overlap the other's
+//    products.
+//  - mha_fwd_streamed<D>: K + V beyond shared memory. One warpgroup a 64-row
+//    tile; K, then K and V, stream through a two-slot TMA ring of 64 keys.
+// fp32, mha_fwd_f32<D>: two passes with one thread per query row and fp32
+// FMAs, because the tensor cores have no exact fp32 product.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
+// picks the bf16 instance (resident or streamed, CHUNK, buffers) from the
+// shape alone.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,70 +53,321 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 // -0.7 * FLT_MAX, formed in double and rounded once, as the reference forms it
 constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e+38);
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int BLOCK_M = 64;  // query rows per CTA
-constexpr int BLOCK_N = 64;  // keys per staged tile (bf16 kernel)
-constexpr int WARPS = 4;     // bf16 kernel: 16 query rows per warp
-constexpr int PAD = 8;       // bf16 elements of padding per shared-memory row
-constexpr int F32_TILE = 32; // keys per staged tile (fp32 kernel)
+constexpr int BLOCK_M = 64;          // query rows of a tile (one wgmma M), and of an fp32 CTA
+constexpr int TMA_ROWS = 64;         // rows of one TMA box
+constexpr int THREADS = 128;         // one warpgroup
+constexpr int STREAM_CHUNK = 64;     // keys of a ring slot of the streaming instance
+constexpr int SMEM_LIMIT = 232448;   // dynamic shared memory one block may use on an H100
+constexpr int F32_TILE = 32;         // keys per staged tile (fp32 kernel)
+constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+// bytes of dynamic shared memory of a bf16 instance: 1 KB of alignment slack;
+// resident, `buffers` buffers of two Q tiles and a head's K and V; streamed,
+// one Q tile and two ring slots of K and V; then the mbarriers.
+// ops/fused_mha.py::_smem_bytes mirrors it.
+constexpr int smem_bytes(int D, bool resident, int Skv, int buffers) {
+  return 1024 + (resident ? buffers * (2 * BLOCK_M * D * 2 + 2 * Skv * D * 2)
+                          : BLOCK_M * D * 2 + 2 * 2 * STREAM_CHUNK * D * 2) +
+         128;
+}
+
+template <int D>
+struct Geometry {
+  static constexpr int ROWB = (D < 64 ? D : 64) * 2;        // bytes of a row of one 64-column half
+  static constexpr int HALVES = D > 64 ? D / 64 : 1;        // TMA boxes (64-column halves) a row takes
+  static constexpr int KSTEPS_PER_HALF = ROWB / 32;         // k16 steps of wgmma within one half
+  static constexpr uint64_t SWIZZLE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // descriptor layout type
+  static constexpr int TILE_BYTES = TMA_ROWS * D * 2;       // 64 rows of one head
+};
+
+// ---- shared memory, mbarriers, TMA
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed; a
+// copy that never lands (a malformed tensor map) traps after ~10 s of clock
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > 20000000000LL) __trap();
+  } while (!done);
+}
+
+// one TMA box {c0 (column), c1 (row), c2 (batch)} of `map` into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// o's tile from shared memory (the same box and swizzle) to device memory
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// the stores' reads of shared memory are done (the source may be overwritten)
+__device__ __forceinline__ void tma_store_read_done() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void tma_store_done() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+// generic-proxy writes to shared memory made visible to the TMA unit
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---- wgmma
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// keeps the compiler from moving reads or writes of wgmma registers across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, swizzle layout (1 = 128 B, 2 = 64 B, 3 = 32 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+template <int N>
+struct Wgmma;
+template <int N>
+struct WgmmaRs;
+
+template <>
+struct Wgmma<64> {
+  // d[32] (+)= A (shared, K-major) x B (shared, K-major), m64n64k16
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64] (+)= A (shared, K-major) x B (shared, K-major), m64n128k16
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  // d[96] (+)= A (shared, K-major) x B (shared, K-major), m64n192k16
+  __device__ __forceinline__ static void ss(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d[128] (+)= A (shared, K-major) x B (shared, K-major), m64n256k16
+  __device__ __forceinline__ static void ss(float (&d)[128], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRs<16> {
+  // d[8] (+)= A (registers) x B (shared, MN-major), m64n16k16
+  __device__ __forceinline__ static void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRs<32> {
+  // d[16] (+)= A (registers) x B (shared, MN-major), m64n32k16
+  __device__ __forceinline__ static void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRs<64> {
+  // d[32] (+)= A (registers) x B (shared, MN-major), m64n64k16
+  __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaRs<128> {
+  // d[64] (+)= A (registers) x B (shared, MN-major), m64n128k16
+  __device__ __forceinline__ static void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+};
+
+// ---- softmax pieces
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // two floats -> one register of two bf16, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// rows [n0, n0 + BLOCK_N) of one head (D columns) into shared memory, 16 bytes a thread
-template <int D>
-__device__ __forceinline__ void stage_tile(__nv_bfloat16 (*dst)[D + PAD], const __nv_bfloat16* src,
-                                           long long row_stride, int n0) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < BLOCK_N * CHUNKS; i += WARPS * 32) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    *reinterpret_cast<int4*>(&dst[r][c]) =
-        *reinterpret_cast<const int4*>(src + (long long)(n0 + r) * row_stride + c);
-  }
-}
-
-// s[nt][j]: this thread's scores of the warp's 16 rows against keys n0 + [0, 64),
-// scaled and masked. C layout: j = 0,1 -> row g, key nt*8 + 2*t4 + j; j = 2,3 -> row g + 8.
-template <int D>
-__device__ __forceinline__ void tile_scores(float s[BLOCK_N / 8][4], const uint32_t qf[D / 16][4],
-                                            const __nv_bfloat16 (*ks)[D + PAD], float sm_scale,
-                                            const int* mask, int n0, int g, int t4) {
-#pragma unroll
-  for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t b[2];
-      b[0] = *reinterpret_cast<const uint32_t*>(&ks[nt * 8 + g][kk * 16 + 2 * t4]);
-      b[1] = *reinterpret_cast<const uint32_t*>(&ks[nt * 8 + g][kk * 16 + 2 * t4 + 8]);
-      mma_16816(c, qf[kk], b);
-    }
-    const int key = n0 + nt * 8 + 2 * t4;
-    const bool keep0 = mask == nullptr || mask[key] != 0;
-    const bool keep1 = mask == nullptr || mask[key + 1] != 0;
-    s[nt][0] = keep0 ? c[0] * sm_scale : MASK_VALUE;
-    s[nt][1] = keep1 ? c[1] * sm_scale : MASK_VALUE;
-    s[nt][2] = keep0 ? c[2] * sm_scale : MASK_VALUE;
-    s[nt][3] = keep1 ? c[3] * sm_scale : MASK_VALUE;
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -110,115 +380,473 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-mha_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const int* __restrict__ mask,
-             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
-             long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-             long long v_ss, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BLOCK_N][D + PAD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BLOCK_N][D + PAD];
+// Scores are wgmma accumulators of 64 rows x CHUNK keys: s[4j + 2r + e] is
+// row 16*warp + g + 8r, key 8j + 2*t4 + e (g = lane / 4, t4 = lane % 4).
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * BLOCK_M + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * D;
-  const __nv_bfloat16* kb = k + b * k_sb + h * D;
-  const __nv_bfloat16* vb = v + b * v_sb + h * D;
-  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
-
-  // A fragments of Q (16 rows x D), read once from global memory
-  uint32_t qf[D / 16][4];
+// s = Q.K^T issued and committed (not awaited): q_addr the Q tile, k_addr the
+// chunk's first key row, k_half the bytes between K's 64-column halves
+template <int D, int CHUNK>
+__device__ __forceinline__ void qk_issue(float (&s)[CHUNK / 2], uint32_t q_addr, uint32_t k_addr, uint32_t k_half) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int i = 0; i < CHUNK / 2; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* r0 = qb + (long long)row0 * q_ss + kk * 16 + 2 * t4;
-    const __nv_bfloat16* r1 = r0 + 8 * q_ss;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
+    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
+    const uint64_t da = smem_desc(q_addr + half * TMA_ROWS * G::ROWB + within, 16, 8 * G::ROWB, G::SWIZZLE);
+    const uint64_t db = smem_desc(k_addr + half * k_half + within, 16, 8 * G::ROWB, G::SWIZZLE);
+    Wgmma<CHUNK>::ss(s, da, db, kk > 0);
   }
+  wgmma_commit();
+}
 
-  // pass 1: row max m and row sum l = sum exp(s - m), online over key tiles
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int n0 = 0; n0 < Skv; n0 += BLOCK_N) {
-    __syncthreads();
-    stage_tile<D>(ks, kb, k_ss, n0);
-    __syncthreads();
-    float s[BLOCK_N / 8][4];
-    tile_scores<D>(s, qf, ks, sm_scale, mb, n0, g, t4);
+// wait for the warpgroup's products in flight; their accumulators are then readable
+template <int N>
+__device__ __forceinline__ void wgmma_done(float (&d)[N]) {
+  wgmma_wait0();
+  fence_regs(d);
+}
+
+template <int D, int CHUNK>
+__device__ __forceinline__ void qk_scores(float (&s)[CHUNK / 2], uint32_t q_addr, uint32_t k_addr, uint32_t k_half) {
+  qk_issue<D, CHUNK>(s, q_addr, k_addr, k_half);
+  wgmma_done(s);
+}
+
+// raw scores -> s * scale * log2(e); a masked key (0 in the batch's mask row
+// `mrow`, when there is one) -> MASK_VALUE. The two keys a thread holds in an
+// 8-key block are adjacent: one 8-byte load.
+template <int CHUNK>
+__device__ __forceinline__ void scale_and_mask(float (&s)[CHUNK / 2], float scale_log2, const int* mrow, int key0,
+                                               int t4) {
+  if (mrow == nullptr) {
+#pragma unroll
+    for (int i = 0; i < CHUNK / 2; ++i) s[i] *= scale_log2;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) {
+    const int2 keep = *reinterpret_cast<const int2*>(mrow + key0 + 8 * j + 2 * t4);
+    s[4 * j + 0] = keep.x ? s[4 * j + 0] * scale_log2 : MASK_VALUE;
+    s[4 * j + 1] = keep.y ? s[4 * j + 1] * scale_log2 : MASK_VALUE;
+    s[4 * j + 2] = keep.x ? s[4 * j + 2] * scale_log2 : MASK_VALUE;
+    s[4 * j + 3] = keep.y ? s[4 * j + 3] * scale_log2 : MASK_VALUE;
+  }
+}
+
+// a row's max and sum over this thread's scores, in four independent partials
+// (short dependency chains), then over the quad that holds the row
+template <int CHUNK>
+__device__ __forceinline__ float row_max(const float (&s)[CHUNK / 2], int r) {
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  return quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+}
+
+template <int CHUNK>
+__device__ __forceinline__ float row_sum(const float (&s)[CHUNK / 2], int r) {
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) sum[j % 4] += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+  return quad_sum((sum[0] + sum[1]) + (sum[2] + sum[3]));
+}
+
+// s <- exp2(s - m) for both rows
+template <int CHUNK>
+__device__ __forceinline__ void exp_rows(float (&s)[CHUNK / 2], const float (&m)[2]) {
+#pragma unroll
+  for (int i = 0; i < CHUNK / 2; ++i) s[i] = exp2_approx(s[i] - m[(i >> 1) & 1]);
+}
+
+// raw scores s <- exp2(s * scale_log2 - m), the scale folded into one FMA (no
+// mask); returns the two rows' sums, accumulated as the exponentials form
+template <int CHUNK>
+__device__ __forceinline__ void exp_rows_scaled(float (&s)[CHUNK / 2], float scale_log2, const float (&m)[2],
+                                                float (&l)[2]) {
+  float sum[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < CHUNK / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_approx(fmaf(s[i], scale_log2, -m[r]));
+    sum[r][(i >> 2) % 4] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum((sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+}
+
+// pass 1 over one chunk: running max m and sum l = sum exp2(s - m)
+template <int CHUNK>
+__device__ __forceinline__ void online_update(const float (&s)[CHUNK / 2], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], row_max<CHUNK>(s, r));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CHUNK / 8; ++j)
+      sum += exp2_approx(s[4 * j + 2 * r] - m_new) + exp2_approx(s[4 * j + 2 * r + 1] - m_new);
+    l[r] = l[r] * exp2_approx(m[r] - m_new) + quad_sum(sum);
+    m[r] = m_new;
+  }
+}
+
+// acc += round_bf16(p * inv) . V over CHUNK keys, issued and committed (not
+// awaited): p in the score layout, which is the register A layout of m64k16
+// for keys 16kk..16kk+15; v_addr the chunk's first key row of V, v_half the
+// bytes between V's 64-column halves
+template <int D, int CHUNK>
+__device__ __forceinline__ void pv_issue(float (&acc)[D / 2], const float (&p)[CHUNK / 2], const float (&inv)[2],
+                                         uint32_t v_addr, uint32_t v_half) {
+  using G = Geometry<D>;
+  uint32_t a[CHUNK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 16; ++kk) {
+    a[kk][0] = pack_bf16(p[8 * kk + 0] * inv[0], p[8 * kk + 1] * inv[0]);
+    a[kk][1] = pack_bf16(p[8 * kk + 2] * inv[1], p[8 * kk + 3] * inv[1]);
+    a[kk][2] = pack_bf16(p[8 * kk + 4] * inv[0], p[8 * kk + 5] * inv[0]);
+    a[kk][3] = pack_bf16(p[8 * kk + 6] * inv[1], p[8 * kk + 7] * inv[1]);
+  }
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CHUNK / 16; ++kk) {
+    // MN-major B: rows of 16 keys at ROWB bytes, 8-key groups SBO apart, 64-column halves LBO apart
+    const uint64_t db = smem_desc(v_addr + kk * 16 * G::ROWB, v_half, 8 * G::ROWB, G::SWIZZLE);
+    WgmmaRs<D>::rs(acc, a[kk], db, 1);
+  }
+  wgmma_commit();
+}
+
+template <int D, int CHUNK>
+__device__ __forceinline__ void pv_accumulate(float (&acc)[D / 2], const float (&p)[CHUNK / 2], const float (&inv)[2],
+                                              uint32_t v_addr, uint32_t v_half) {
+  pv_issue<D, CHUNK>(acc, p, inv, v_addr, v_half);
+  wgmma_done(acc);
+}
+
+// rows [row0, row0 + rows) of head h of batch b into dst, 64 rows a box; the
+// 64-column halves of a row (D = 128) `half` bytes apart
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, int b, int h, int row0, int rows,
+                                          uint32_t half, uint32_t bar) {
+  using G = Geometry<D>;
+  for (int r = 0; r < rows; r += TMA_ROWS)
+    for (int hh = 0; hh < G::HALVES; ++hh)
+      tma_load_3d(dst + hh * half + r * G::ROWB, map, h * D + hh * 64, row0 + r, b, bar);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// named barriers: 0 is __syncthreads; SCHED_BAR + w is warpgroup w's turn at
+// the tensor cores; DONE_BAR + w gathers warpgroup w's threads
+constexpr int SCHED_BAR = 1, DONE_BAR = 3;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// per thread, its two rows: max m and sum l (log2 units), 1 / l, fully masked
+struct Rows {
+  float m[2], l[2], inv[2];
+  bool dead[2];
+
+  __device__ __forceinline__ void finish(bool has_mask) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt)
-        sum += expf(s[nt][2 * r] - m_new) + expf(s[nt][2 * r + 1] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + quad_sum(sum);
-      m[r] = m_new;
+      dead[r] = has_mask && m[r] <= MASK_VALUE;
+      inv[r] = dead[r] ? 0.f : __frcp_rn(l[r]);
     }
   }
-  const bool dead[2] = {mb != nullptr && m[0] <= MASK_VALUE, mb != nullptr && m[1] <= MASK_VALUE};
+};
 
-  // pass 2: p = exp(s - m) / l rounded to bf16, o += p.v in fp32
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += BLOCK_N) {
-    __syncthreads();
-    stage_tile<D>(ks, kb, k_ss, n0);
-    stage_tile<D>(vs, vb, v_ss, n0);
-    __syncthreads();
-    float s[BLOCK_N / 8][4];
-    tile_scores<D>(s, qf, ks, sm_scale, mb, n0, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1;
-        s[nt][j] = dead[r] ? 0.f : expf(s[nt][j] - m[r]) / l[r];
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int key = kk * 16 + 2 * t4;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const int col = dn * 8 + g;
-        uint32_t bfrag[2];
-        bfrag[0] = pack_bf16_raw(vs[key][col], vs[key + 1][col]);
-        bfrag[1] = pack_bf16_raw(vs[key + 8][col], vs[key + 9][col]);
-        mma_16816(acc[dn], a, bfrag);
-      }
-    }
-  }
-
-  // o [B, Sq, H, D] contiguous; lse [B, Sq, H]
-  const long long o_ss = (long long)H * D;
-  __nv_bfloat16* ob = o + (long long)b * Sq * o_ss + h * D;
+// The tile's o (rows r_lo and r_lo + 8 of this thread) into shared memory at
+// dst in the layout of a TMA box of o (64-column halves, rows of ROWB bytes,
+// 16-byte chunks swizzled by the row), for one TMA store; its lse straight to
+// device memory, [B, Sq, H] fp32
+template <int D>
+__device__ __forceinline__ void stage_tile(uint32_t dst, float* lse, const float (&acc)[D / 2], const Rows& rows,
+                                           int b, int h, int Sq, int H, int row_base, int r_lo, int t4) {
+  using G = Geometry<D>;
+  constexpr uint32_t SWZ = G::ROWB / 16 - 1;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int col = dn * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(ob + (long long)row0 * o_ss + col) = pack_bf16(acc[dn][0], acc[dn][1]);
-    *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * o_ss + col) = pack_bf16(acc[dn][2], acc[dn][3]);
-  }
-  if (t4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float val = dead[r] ? INFINITY : m[r] + logf(l[r]);
-      lse[((long long)b * Sq + row0 + 8 * r) * H + h] = val;
+      uint32_t off = (col / 64) * TMA_ROWS * G::ROWB + (r_lo + 8 * r) * G::ROWB + (col % 64) * 2;
+      off ^= ((off >> 7) & SWZ) << 4;
+      const uint32_t val = rows.dead[r] ? 0u : pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + off), "r"(val) : "memory");
     }
+  }
+  fence_async_smem();
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      lse[((long long)b * Sq + row_base + r_lo + 8 * r) * H + h] =
+          rows.dead[r] ? INFINITY : rows.m[r] * LN2 + logf(rows.l[r]);
+  }
+}
+
+// one thread: the staged tile at src to rows [row0, row0 + 64) of head h of batch b of o
+template <int D>
+__device__ __forceinline__ void store_tile(const CUtensorMap* to, uint32_t src, int b, int h, int row0) {
+  using G = Geometry<D>;
+  for (int hh = 0; hh < G::HALVES; ++hh) tma_store_3d(to, src + hh * TMA_ROWS * G::ROWB, h * D + hh * 64, row0, b);
+  tma_store_commit();
+}
+
+// Resident instance: persistent CTAs of two consumer warpgroups walk items
+// (batch, head, 128 query rows), one 64-row tile per warpgroup. An item's two
+// Q tiles and the head's K land on one mbarrier and its V on another. With two
+// buffers, item i + 2's loads are issued as soon as both warpgroups are done
+// with item i and its o stores have read their tiles (early in item i + 1),
+// so they overlap item i + 1's compute. On the one-pass path the warpgroups
+// take turns at the tensor cores (two named barriers): while one issues its
+// Q.K^T or P.V, the other computes exponentials.
+template <int D, int CHUNK>
+__global__ void __launch_bounds__(2 * THREADS, 1)
+mha_fwd_resident(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                 const int* __restrict__ mask, float* __restrict__ lse, int Sq, int Skv, int H, float sm_scale,
+                 int n_items, int buffers) {
+  using G = Geometry<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x, wg = tid / THREADS, wtid = tid % THREADS, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * (wtid / 32) + g;  // this thread's rows of its tile: r_lo and r_lo + 8
+  const int n_qt = Sq / BLOCK_M, n_pairs = (n_qt + 1) / 2, n_chunks = Skv / CHUNK;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // per buffer: two Q tiles | K | V; then per buffer three barriers: Q and K landed, V landed, warpgroup 0 done
+  const uint32_t kv_bytes = Skv * D * 2, buf_bytes = 2 * G::TILE_BYTES + 2 * kv_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + buffers * buf_bytes);
+  const uint32_t base = smem_u32(smem), kv_half = Skv * G::ROWB;
+  auto bar = [&](int buf, int which) { return smem_u32(&bars[3 * buf + which]); };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3 * buffers; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // item -> (batch, head, pair of query tiles), pairs fastest
+  auto decode = [&](int item, int& b, int& h, int& pair) {
+    const unsigned bh = unsigned(item) / unsigned(n_pairs);
+    pair = item - int(bh) * n_pairs;
+    b = int(bh / unsigned(H));
+    h = int(bh) - b * H;
+  };
+  auto issue = [&](int item, int buf) {  // K first, so that Q.K^T starts while V lands
+    int b, h, pair;
+    decode(item, b, h, pair);
+    const int tiles = min(2, n_qt - 2 * pair);
+    const uint32_t q_dst = base + buf * buf_bytes, k_dst = q_dst + 2 * G::TILE_BYTES;
+    mbar_expect_tx(bar(buf, 0), tiles * G::TILE_BYTES + kv_bytes);
+    for (int t = 0; t < tiles; ++t)
+      load_rows<D>(q_dst + t * G::TILE_BYTES, &tq, b, h, (2 * pair + t) * BLOCK_M, BLOCK_M, TMA_ROWS * G::ROWB,
+                   bar(buf, 0));
+    load_rows<D>(k_dst, &tk, b, h, 0, Skv, kv_half, bar(buf, 0));
+    mbar_expect_tx(bar(buf, 1), kv_bytes);
+    load_rows<D>(k_dst + kv_bytes, &tv, b, h, 0, Skv, kv_half, bar(buf, 1));
+  };
+
+  const int first = blockIdx.x, stride = gridDim.x;
+  if (tid == 0)
+    for (int j = 0; j < buffers && first + j * stride < n_items; ++j) issue(first + j * stride, j);
+  // a buffer is free once both warpgroups are done with its item and their o
+  // stores have read it: warpgroup 0's first thread reports, warpgroup 1's
+  // waits for that and refills it with the item `buffers` strides on
+  auto release = [&](int done_item, int done_buf, uint32_t done_parity) {
+    if (wtid != 0) return;
+    tma_store_read_done();
+    const int next = done_item + buffers * stride;
+    if (wg == 0) {
+      mbar_arrive(bar(done_buf, 2));
+    } else if (next < n_items) {
+      mbar_wait(bar(done_buf, 2), done_parity);
+      issue(next, done_buf);
+    }
+  };
+  auto turn = [&]() { named_sync(SCHED_BAR + wg, 2 * THREADS); };
+  auto pass_turn = [&]() { named_arrive(SCHED_BAR + 1 - wg, 2 * THREADS); };
+  if (wg == 1) pass_turn();  // warpgroup 0 takes the tensor cores first
+
+  int i = 0;
+  for (int item = first; item < n_items; item += stride, ++i) {
+    const int buf = buffers == 2 ? i & 1 : 0;
+    const uint32_t parity = buffers == 2 ? (i >> 1) & 1 : i & 1;
+    int b, h, pair;
+    decode(item, b, h, pair);
+    const int tile = 2 * pair + wg;
+    const int* mrow = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+    const uint32_t q_addr = base + buf * buf_bytes + wg * G::TILE_BYTES;
+    const uint32_t k_addr = base + buf * buf_bytes + 2 * G::TILE_BYTES, v_addr = k_addr + kv_bytes;
+    // the last item's buffer: released once this warpgroup's o store has read
+    // it (and, for warpgroup 1, once warpgroup 0 has released it too), then
+    // refilled; with one buffer before this item's wait, with two after it, so
+    // that the last store's read overlaps that wait
+    if (buffers == 1 && i > 0) release(item - stride, 0, (i - 1) & 1);
+    mbar_wait(bar(buf, 0), parity);
+    if (buffers == 2 && i > 0) release(item - stride, (i - 1) & 1, ((i - 1) >> 1) & 1);
+    if (n_chunks == 1) {  // the whole row in registers: one pass
+      if (tile < n_qt) {
+        float acc[D / 2];
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+        Rows rows;
+        float s[CHUNK / 2];
+        turn();
+        qk_issue<D, CHUNK>(s, q_addr, k_addr, kv_half);
+        pass_turn();
+        wgmma_done(s);
+        if (mrow == nullptr) {  // the max of the raw scores, the scale folded into the exponent
+          rows.m[0] = row_max<CHUNK>(s, 0) * scale_log2;
+          rows.m[1] = row_max<CHUNK>(s, 1) * scale_log2;
+          exp_rows_scaled<CHUNK>(s, scale_log2, rows.m, rows.l);
+        } else {
+          scale_and_mask<CHUNK>(s, scale_log2, mrow, 0, t4);
+          rows.m[0] = row_max<CHUNK>(s, 0);
+          rows.m[1] = row_max<CHUNK>(s, 1);
+          exp_rows<CHUNK>(s, rows.m);
+          rows.l[0] = row_sum<CHUNK>(s, 0);
+          rows.l[1] = row_sum<CHUNK>(s, 1);
+        }
+        rows.finish(mrow != nullptr);
+        mbar_wait(bar(buf, 1), parity);
+        turn();
+        pv_issue<D, CHUNK>(acc, s, rows.inv, v_addr, kv_half);
+        pass_turn();
+        wgmma_done(acc);
+        stage_tile<D>(q_addr, lse, acc, rows, b, h, Sq, H, tile * BLOCK_M, r_lo, t4);  // Q is done with
+      } else {  // the second warpgroup idles on an odd last tile, keeping its turns
+        turn();
+        pass_turn();
+        turn();
+        pass_turn();
+      }
+    } else if (tile < n_qt) {  // pass 1: m and l chunk by chunk; pass 2: the scores again from the resident K, then PV
+      float acc[D / 2];
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+      Rows rows;
+      rows.m[0] = rows.m[1] = -INFINITY;
+      rows.l[0] = rows.l[1] = 0.f;
+      for (int c = 0; c < n_chunks; ++c) {
+        float s[CHUNK / 2];
+        qk_scores<D, CHUNK>(s, q_addr, k_addr + c * CHUNK * G::ROWB, kv_half);
+        scale_and_mask<CHUNK>(s, scale_log2, mrow, c * CHUNK, t4);
+        online_update<CHUNK>(s, rows.m, rows.l);
+      }
+      rows.finish(mrow != nullptr);
+      mbar_wait(bar(buf, 1), parity);
+      for (int c = 0; c < n_chunks; ++c) {
+        float s[CHUNK / 2];
+        qk_scores<D, CHUNK>(s, q_addr, k_addr + c * CHUNK * G::ROWB, kv_half);
+        scale_and_mask<CHUNK>(s, scale_log2, mrow, c * CHUNK, t4);
+        exp_rows<CHUNK>(s, rows.m);
+        pv_accumulate<D, CHUNK>(acc, s, rows.inv, v_addr + c * CHUNK * G::ROWB, kv_half);
+      }
+      stage_tile<D>(q_addr, lse, acc, rows, b, h, Sq, H, tile * BLOCK_M, r_lo, t4);
+    }
+
+    // the tile's o leaves through one TMA store from where its Q was
+    named_sync(DONE_BAR + wg, THREADS);
+    if (wtid == 0 && tile < n_qt) store_tile<D>(&to, q_addr, b, h, tile * BLOCK_M);
+  }
+  if (wtid == 0) tma_store_done();
+}
+
+// Streamed instance (a head's K and V beyond shared memory): one warpgroup and
+// one 64-row query tile a CTA; K (pass 1), then K and V (pass 2), stream
+// through a ring of two slots of STREAM_CHUNK keys, each slot refilled once
+// every warp's wgmma is done with it.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+mha_fwd_streamed(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                 const int* __restrict__ mask, float* __restrict__ lse, int Sq, int Skv, int H, float sm_scale) {
+  using G = Geometry<D>;
+  constexpr int CHUNK = STREAM_CHUNK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, tile = blockIdx.x;
+  const int n_chunks = Skv / CHUNK;
+  const float scale_log2 = sm_scale * LOG2E;
+
+  // Q | two slots of K then V | barriers (Q, slot 0, slot 1)
+  const uint32_t slot_bytes = 2 * CHUNK * D * 2, kv_half = CHUNK * G::ROWB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::TILE_BYTES + 2 * slot_bytes);
+  const uint32_t q_addr = smem_u32(smem), ring = q_addr + G::TILE_BYTES;
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // item j < n_chunks is chunk j's K (pass 1), item n_chunks + c chunk c's K and V (pass 2)
+  auto load_item = [&](int j) {
+    const int c = j < n_chunks ? j : j - n_chunks;
+    const uint32_t bar = smem_u32(&bars[1 + (j & 1)]), dst = ring + (j & 1) * slot_bytes;
+    mbar_expect_tx(bar, (j < n_chunks ? 1 : 2) * CHUNK * D * 2);
+    load_rows<D>(dst, &tk, b, h, c * CHUNK, CHUNK, kv_half, bar);
+    if (j >= n_chunks) load_rows<D>(dst + CHUNK * D * 2, &tv, b, h, c * CHUNK, CHUNK, kv_half, bar);
+  };
+
+  if (tid == 0) {
+    mbar_expect_tx(smem_u32(&bars[0]), G::TILE_BYTES);
+    load_rows<D>(q_addr, &tq, b, h, tile * BLOCK_M, BLOCK_M, TMA_ROWS * G::ROWB, smem_u32(&bars[0]));
+    load_item(0);
+    load_item(1);
+  }
+  const int* mrow = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  mbar_wait(smem_u32(&bars[0]), 0);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  Rows rows;
+  rows.m[0] = rows.m[1] = -INFINITY;
+  rows.l[0] = rows.l[1] = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    mbar_wait(smem_u32(&bars[1 + (c & 1)]), (c >> 1) & 1);
+    float s[CHUNK / 2];
+    qk_scores<D, CHUNK>(s, q_addr, ring + (c & 1) * slot_bytes, kv_half);
+    __syncthreads();  // every warp's wgmma is done with the slot
+    if (tid == 0 && c + 2 < 2 * n_chunks) load_item(c + 2);
+    scale_and_mask<CHUNK>(s, scale_log2, mrow, c * CHUNK, t4);
+    online_update<CHUNK>(s, rows.m, rows.l);
+  }
+  rows.finish(mrow != nullptr);
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j = n_chunks + c;
+    mbar_wait(smem_u32(&bars[1 + (j & 1)]), (j >> 1) & 1);
+    const uint32_t slot = ring + (j & 1) * slot_bytes;
+    float s[CHUNK / 2];
+    qk_scores<D, CHUNK>(s, q_addr, slot, kv_half);
+    scale_and_mask<CHUNK>(s, scale_log2, mrow, c * CHUNK, t4);
+    exp_rows<CHUNK>(s, rows.m);
+    pv_accumulate<D, CHUNK>(acc, s, rows.inv, slot + CHUNK * D * 2, kv_half);
+    __syncthreads();
+    if (tid == 0 && j + 2 < 2 * n_chunks) load_item(j + 2);
+  }
+  stage_tile<D>(q_addr, lse, acc, rows, b, h, Sq, H, tile * BLOCK_M, 16 * warp + g, t4);  // Q is done with
+  __syncthreads();
+  if (tid == 0) {
+    store_tile<D>(&to, q_addr, b, h, tile * BLOCK_M);
+    tma_store_done();
   }
 }
 
@@ -291,49 +919,179 @@ mha_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const floa
   lse[((long long)b * Sq + row) * H + h] = dead ? INFINITY : m + logf(l);
 }
 
-template <int D>
-void launch(int dtype, const void* q, const void* k, const void* v, const int* mask, void* o,
-            float* lse, int B, int Sq, int Skv, int H, long long q_sb, long long q_ss,
-            long long k_sb, long long k_ss, long long v_sb, long long v_ss, float sm_scale,
-            cudaStream_t stream) {
-  const dim3 grid(Sq / BLOCK_M, H, B);
-  if (dtype == 1) {
-    mha_fwd_bf16<D><<<grid, WARPS * 32, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), mask, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv,
-        H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
-  } else {
-    mha_fwd_f32<D><<<grid, BLOCK_M, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        mask, static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-        sm_scale);
+// ---- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found once through the runtime (no link against libcuda)
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
   }
+  return fn;
+}
+
+// a 3-D map {H*D columns, S rows, B} over one of q, k, v, o (bf16, row and batch
+// strides in elements), read in {min(D, 64), 64, 1} boxes with the swizzle
+// wgmma reads
+bool encode_rows(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, long long sb, long long ss) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(H) * D, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const long long batch_stride = B == 1 ? S * ss : sb;  // a single batch's stride is never used
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ss) * 2, static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D < 64 ? D : 64), TMA_ROWS, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = D == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_128B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a kernel's dynamic shared memory opted in to SMEM_LIMIT once per device
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&configured)[MAX_DEVICES], int device) {
+  if (configured[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+  configured[device] = err == cudaSuccess;
+  return err;
+}
+
+template <int D, int CHUNK>
+cudaError_t launch_resident(const CUtensorMap (&maps)[4], const int* mask, float* lse, int B, int Sq,
+                            int Skv, int H, float sm_scale, int buffers, int device, cudaStream_t stream) {
+  auto kernel = mha_fwd_resident<D, CHUNK>;
+  static bool configured[MAX_DEVICES] = {};
+  static int slots[MAX_DEVICES][2] = {};  // (shared memory, resident CTAs an SM) last seen on each device
+  cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  const int smem = smem_bytes(D, true, Skv, buffers);
+  if (slots[device][0] != smem) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 2 * THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    slots[device][0] = smem;
+    slots[device][1] = sms * per_sm;
+  }
+  const int n_items = B * H * ((Sq / BLOCK_M + 1) / 2);
+  const int grid = n_items < slots[device][1] ? n_items : slots[device][1];
+  kernel<<<grid, 2 * THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], mask, lse, Sq, Skv, H, sm_scale,
+                                             n_items, buffers);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_streamed(const CUtensorMap (&maps)[4], const int* mask, float* lse, int B, int Sq,
+                            int Skv, int H, float sm_scale, int device, cudaStream_t stream) {
+  auto kernel = mha_fwd_streamed<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Sq / BLOCK_M, H, B), THREADS, smem_bytes(D, false, Skv, 2), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, Sq, Skv, H, sm_scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(int D, int chunk, int resident, const CUtensorMap (&maps)[4], const int* mask,
+                          float* lse, int B, int Sq, int Skv, int H, float sm_scale, int buffers, int device,
+                          cudaStream_t stream) {
+  if (!resident) {
+    switch (D) {
+      case 16: return launch_streamed<16>(maps, mask, lse, B, Sq, Skv, H, sm_scale, device, stream);
+      case 32: return launch_streamed<32>(maps, mask, lse, B, Sq, Skv, H, sm_scale, device, stream);
+      case 64: return launch_streamed<64>(maps, mask, lse, B, Sq, Skv, H, sm_scale, device, stream);
+      case 128: return launch_streamed<128>(maps, mask, lse, B, Sq, Skv, H, sm_scale, device, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+#define K1_RESIDENT(DD, CC)                    \
+  if (D == DD && chunk == CC)                  \
+    return launch_resident<DD, CC>(maps, mask, lse, B, Sq, Skv, H, sm_scale, buffers, device, stream);
+  K1_RESIDENT(16, 64) K1_RESIDENT(16, 128) K1_RESIDENT(16, 192) K1_RESIDENT(16, 256)
+  K1_RESIDENT(32, 64) K1_RESIDENT(32, 128) K1_RESIDENT(32, 192) K1_RESIDENT(32, 256)
+  K1_RESIDENT(64, 64) K1_RESIDENT(64, 128) K1_RESIDENT(64, 192) K1_RESIDENT(64, 256)
+  K1_RESIDENT(128, 64) K1_RESIDENT(128, 128)
+#undef K1_RESIDENT
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+void launch_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
+                int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                long long v_ss, float sm_scale, cudaStream_t stream) {
+  mha_fwd_f32<D><<<dim3(Sq / BLOCK_M, H, B), BLOCK_M, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
+      static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+}
+
+cudaError_t run(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
+                int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                long long v_ss, float sm_scale, int dtype, int resident, int chunk, int buffers, int device,
+                cudaStream_t stream) {
+  if (dtype == 1) {
+    if (smem_bytes(D, resident != 0, Skv, buffers) > SMEM_LIMIT) return cudaErrorInvalidValue;
+    CUtensorMap maps[4];  // q, k, v, o
+    if (!encode_rows(&maps[0], q, B, Sq, H, D, q_sb, q_ss) || !encode_rows(&maps[1], k, B, Skv, H, D, k_sb, k_ss) ||
+        !encode_rows(&maps[2], v, B, Skv, H, D, v_sb, v_ss) ||
+        !encode_rows(&maps[3], o, B, Sq, H, D, (long long)Sq * H * D, (long long)H * D))
+      return cudaErrorInvalidValue;
+    return dispatch_bf16(D, chunk, resident, maps, mask, lse, B, Sq, Skv, H, sm_scale, buffers, device, stream);
+  }
+  switch (D) {
+    case 16: launch_f32<16>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
+    case 32: launch_f32<32>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
+    case 64: launch_f32<64>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
+    case 128: launch_f32<128>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q/k/v: [B, S, H, D] with unit stride over D, stride D over heads and the given
-// batch/row strides (in elements); Sq, Skv multiples of 64; D in {16, 32, 64, 128};
-// dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null.
-// o: contiguous [B, Sq, H, D] in the input dtype; lse: contiguous fp32 [B, Sq, H].
-extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const void* mask,
-                             void* o, void* lse, int B, int Sq, int Skv, int H, int D,
-                             long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-                             long long v_sb, long long v_ss, float sm_scale, int dtype,
-                             void* stream) {
-  const int* m = static_cast<const int*>(mask);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq % BLOCK_M != 0 || Skv % BLOCK_N != 0 || (dtype != 0 && dtype != 1))
+// batch/row strides (in elements, multiples of 16 bytes); Sq, Skv multiples of
+// 64; D in {16, 32, 64, 128}; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
+// (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
+// lse: contiguous fp32 [B, Sq, H]. bf16 instance: resident (a head's K and V
+// in shared memory; `buffers` 1 or 2, 2 prefetching the next item) with
+// `chunk` keys a score product (Skv a multiple of it), or streamed (chunk 64,
+// buffers 2: the ring). Launches on `stream` of `device`, which is made
+// current for the call.
+extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
+                             int B, int Sq, int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
+                             long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int resident,
+                             int chunk, int buffers, int device, void* stream) {
+  if (Sq % BLOCK_M != 0 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) || device < 0 ||
+      device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 16: launch<16>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
-    case 32: launch<32>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
-    case 64: launch<64>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
-    case 128: launch<128>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 1 && (buffers < 1 || buffers > 2 || chunk < 64 || Skv % chunk != 0 ||
+                     (!resident && (chunk != STREAM_CHUNK || buffers != 2))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int previous = device;
+  cudaError_t err = cudaGetDevice(&previous);
+  if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run(q, k, v, static_cast<const int*>(mask), o, static_cast<float*>(lse), B, Sq, Skv, H, D, q_sb, q_ss, k_sb,
+            k_ss, v_sb, v_ss, sm_scale, dtype, resident, chunk, buffers, device, static_cast<cudaStream_t>(stream));
+  if (previous != device) cudaSetDevice(previous);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

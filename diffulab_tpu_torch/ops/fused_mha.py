@@ -20,12 +20,17 @@ byte, under the card's ~295 FLOP/byte balance point: it is memory-bound
 ``[B, S, H·D]`` layout the qkv projection writes (a head is a D-wide column
 slice, so no transpose pass), keeps the ``[S, S]`` scores out of device
 memory, and writes only o and lse. ``csrc/fused_mha_fwd.cu`` holds two
-kernels: for bf16, one CTA per (batch, head, 64 queries) with four warps of
-``mma.sync`` m16n8k16 (bf16 in, fp32 accumulate) over 64-key tiles staged in
-shared memory, in two passes over the keys (pass 1: row max and sum; pass 2:
-``p`` rounded to bf16, then PV) so that K1's rounding order holds at any
-length; for fp32, the same two passes with one thread per query row and
-fp32 FMAs, since the tensor cores take no exact fp32 product.
+kernels. For bf16, persistent CTAs of two warpgroups walk (batch, head, 128
+queries) items: TMA loads the head's K, then its V, into shared memory once
+per item (the next item's while this one computes; where they do not fit,
+one warpgroup a query tile streams them through a two-slot ring), ``wgmma``
+forms a whole row of up to 256 scores in registers,
+and ``p = exp(s - m)·(1/l)`` is rounded to bf16 straight into the register
+operand of the PV ``wgmma`` — one pass over the keys; longer rows take two
+(pass 1: row max and sum chunk by chunk; pass 2: the scores again, then PV),
+so that K1's rounding order holds at any length. :func:`forward_instance`
+picks the instance from the shape. For fp32, two passes with one thread per
+query row and fp32 FMAs, since the tensor cores take no exact fp32 product.
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -52,6 +57,8 @@ for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -61,11 +68,59 @@ from diffulab_tpu_torch.ops import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: sequence padding granularity of the fused path (flash_attention.py MIN_BLOCK)
 MIN_BLOCK = 128
-#: query rows per CTA and keys per staged tile: Sq and Skv must be multiples
+#: query rows of a tile and keys of a TMA box: Sq and Skv must be multiples
 KERNEL_BLOCK = 64
 #: head dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: dynamic shared memory one block may use on an H100 (bytes)
+SMEM_LIMIT = 232448
+#: keys of one score product the bf16 kernel is instantiated for, by head dim:
+#: a chunk of 256 scores takes 128 fp32 registers a thread, 128 at D=128
+#: (whose output takes 64 more)
+KERNEL_CHUNKS = {16: (64, 128, 192, 256), 32: (64, 128, 192, 256), 64: (64, 128, 192, 256), 128: (64, 128)}
+#: keys of a ring slot when K and V stream instead of staying resident
+STREAM_CHUNK = 64
+
+
+class FwdInstance(NamedTuple):
+    """The bf16 forward kernel instance a shape takes."""
+
+    resident: bool  # the head's K and V loaded once into shared memory (else streamed through a ring)
+    chunk: int  # keys of one score product; one pass over the keys when chunk == Skv
+    buffers: int  # resident: with 2, the next item's loads overlap this one's compute; streamed: the ring's 2 slots
+    smem: int  # dynamic shared memory bytes
+
+
+def _smem_bytes(d: int, resident: bool, skv: int, buffers: int) -> int:
+    """Shared memory of the bf16 kernel (``smem_bytes`` in the source): 1 KB
+    of alignment slack; resident, per buffer two Q tiles and the head's K and
+    V; streamed, one Q tile and two ring slots of K and V; then the mbarriers."""
+    tile = KERNEL_BLOCK * d * 2
+    data = buffers * (2 * tile + 2 * skv * d * 2) if resident else tile + 2 * 2 * STREAM_CHUNK * d * 2
+    return 1024 + data + 128
+
+
+@functools.lru_cache(maxsize=None)
+def forward_instance(skv: int, d: int) -> FwdInstance:
+    """The bf16 forward instance for ``Skv`` keys (a multiple of 64) and
+    head dim ``d``, from the shape alone.
+
+    K and V stay resident when a head's K and V and two Q tiles fit in shared
+    memory: persistent CTAs of two warpgroups then walk (batch, head, 128
+    queries) items, with a second buffer where it fits, so that the next
+    item's loads overlap this one's compute. The chunk is the largest
+    instantiated one that divides ``Skv``: the whole row, and one pass, up to
+    256 keys (128 at D=128). Otherwise K and V stream in 64-key slots, one
+    query tile a CTA.
+    """
+    for buffers in (2, 1):
+        smem = _smem_bytes(d, True, skv, buffers)
+        if smem <= SMEM_LIMIT:
+            chunk = max(c for c in KERNEL_CHUNKS[d] if skv % c == 0)
+            return FwdInstance(True, chunk, buffers, smem)
+    return FwdInstance(False, STREAM_CHUNK, 2, _smem_bytes(d, False, skv, 2))
+
 
 #: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`
 #: (read by chip_smoke.py)
@@ -140,36 +195,37 @@ def fused_mha_bwd_reference(
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read each row with 16-byte loads: heads contiguous
-    (strides ``(.., .., D, 1)``), rows and the base 16-byte aligned. A view
-    such as the v slice of the packed qkv output passes as it is; so does a
-    gradient that arrives contiguous, and one that does not is copied."""
-    b, s, h, d = t.shape
+    """The kernels read each row with 16-byte loads or TMA boxes: heads
+    contiguous (strides ``(.., .., D, 1)``), rows and the base 16-byte
+    aligned. A view such as the v slice of the packed qkv output passes as it
+    is; so does a gradient that arrives contiguous, and one that does not is
+    copied."""
+    sb, ss, sh, sd = t.stride()
     items = 16 // t.element_size()
-    ok = (
-        t.stride(3) == 1 and t.stride(2) == d
-        and t.stride(1) % items == 0 and t.stride(0) % items == 0
-        and t.data_ptr() % 16 == 0
-    )
-    return t if ok else t.contiguous()
+    if sd == 1 and sh == t.shape[3] and ss % items == 0 and sb % items == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
 
 
 def _check_cuda_inputs(q, k, v, kv_mask, block: int = KERNEL_BLOCK, name: str = "fused_mha") -> None:
     """Raise unless q/k/v/kv_mask meet the kernels' device, shape and dtype
     contract: Sq and Skv nonzero multiples of ``block`` (1 for the flash kernel)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {q.device}")
+    device = q.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {device}")
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    if k.shape != (b, skv, h, d) or v.shape != (b, skv, h, d):
+    kv_shape = (b, skv, h, d)
+    if k.shape != kv_shape or v.shape != kv_shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES or k.dtype != dtype or v.dtype != dtype:
+        raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {dtype}/{k.dtype}/{v.dtype}")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
     if sq < 1 or skv < 1 or sq % block or skv % block:
         raise ValueError(f"Sq={sq} and Skv={skv} must be nonzero multiples of {block}")
-    if not (q.device == k.device == v.device):
+    if k.device != device or v.device != device:
         raise ValueError("q, k and v must be on one device")
     if kv_mask is not None and kv_mask.shape != (b, skv):
         raise ValueError(f"kv_mask shape {tuple(kv_mask.shape)} != {(b, skv)}")
@@ -193,20 +249,22 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
     _check_cuda_inputs(q, k, v, kv_mask)
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    q, k, v = (_kernel_ready(t) for t in (q, k, v))
-    mask = _int_mask(kv_mask, q.device)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    lib = _build.load("fused_mha_fwd")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.fused_mha_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
-            o.data_ptr(), lse.data_ptr(),
-            b, sq, skv, h, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
-        )
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    device = q.device
+    mask = _int_mask(kv_mask, device)  # held until the launch: o must not take its memory
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=device)
+    inst = forward_instance(skv, d)
+    q_sb, q_ss = q.stride()[:2]
+    k_sb, k_ss = k.stride()[:2]
+    v_sb, v_ss = v.stride()[:2]
+    # the C side makes the tensors' device current for the launch
+    err = _build.load("fused_mha_fwd").fused_mha_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), b, sq, skv, h, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+        sm_scale, _DTYPE_CODES[q.dtype], inst.resident, inst.chunk, inst.buffers,
+        device.index, torch.cuda.current_stream(device).cuda_stream,
+    )
     _raise_on(err, "fused_mha_fwd")
     LAUNCHES["fused_mha_fwd"] += 1
     return o, lse

@@ -22,7 +22,16 @@ from diffulab_tpu.ops.fused_mha import _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ, use_fused
 from diffulab_tpu_torch.ops.flash_attention import flash_attention_reference
-from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_reference
+from diffulab_tpu_torch.ops.fused_mha import (
+    KERNEL_CHUNKS,
+    KERNEL_HEAD_DIMS,
+    SMEM_LIMIT,
+    STREAM_CHUNK,
+    FwdInstance,
+    forward_instance,
+    fused_mha,
+    fused_mha_reference,
+)
 
 jax_fused = functools.partial(_fused_path, interpret=True)
 
@@ -115,6 +124,39 @@ def test_dispatch_limits():
                                dot_product_attention(q, k, v), atol=2e-5, rtol=2e-5)
     with pytest.raises(NotImplementedError, match="head dim 48"):
         dot_product_attention(*(t[..., :48] for t in (q, k, v)))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_dit_b2_packed_head_layout_matches_jax_fused_kernel(dtype, tol):
+    # DiT-B/2's attention: q/k/v are strided views of the packed qkv projection
+    # output [B, S, 3·H·D] (row stride 3·H·D), the layout the kernel reads in place
+    b, s, h, d = 2, 256, 12, 64
+    qkv = np.random.default_rng(21).standard_normal((b, s, 3 * h * d)).astype(np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    q, k, v = (t.reshape(b, s, h, d) for t in torch.from_numpy(qkv).to(tdt).chunk(3, dim=-1))
+    assert q.stride() == (s * 3 * h * d, 3 * h * d, d, 1) and not v.is_contiguous()
+    ours = dot_product_attention(q, k, v)
+    ref = jax_fused(*(jnp.asarray(a.reshape(b, s, h, d), jdt) for a in np.split(qkv, 3, axis=-1)), None, None)
+    assert ours.shape == (b, s, h, d) and ours.dtype == tdt
+    np.testing.assert_allclose(ours.float().numpy(), np.asarray(ref, np.float32), atol=tol, rtol=tol)
+
+
+def test_forward_instance_is_pinned_by_shape():
+    # DiT-B/2 (256 keys, D=64): K and V resident with a second buffer, the whole
+    # 256-key row in one score product (one pass over the keys)
+    assert forward_instance(256, 64) == FwdInstance(resident=True, chunk=256, buffers=2, smem=164992)
+    # the other lengths the fused route pads to: one pass up to 256 keys, two passes beyond
+    assert forward_instance(128, 64).chunk == 128 and forward_instance(384, 64).chunk == 192
+    assert forward_instance(512, 64)[:3] == (True, 256, 1)  # two 256-key chunks; no room for a second buffer
+    assert forward_instance(384, 128)[:3] == (True, 128, 1)
+    assert forward_instance(320, 64).chunk == 64  # 320 keys: five 64-key chunks
+    # K + V beyond shared memory: streamed through the ring of 64-key slots
+    assert forward_instance(448, 128)[:3] == (False, STREAM_CHUNK, 2)
+    assert forward_instance(4224, 64)[:3] == (False, STREAM_CHUNK, 2)
+    for skv in range(64, 4097, 64):
+        for d in KERNEL_HEAD_DIMS:
+            inst = forward_instance(skv, d)
+            assert inst.smem <= SMEM_LIMIT and skv % inst.chunk == 0 and inst.chunk in KERNEL_CHUNKS[d]
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():
