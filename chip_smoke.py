@@ -18,7 +18,8 @@ over shards that the port's ``ShardedDatasetWriter`` writes from a seed.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
-     source, all started at once), with each instance's registers and spills;
+     source, all started at once), with each instance's registers and spills
+     and any warning of ptxas;
   2. K1 (attention forward) against its plain PyTorch version on the card,
      at the sampling shape, at each of its other instances (two passes over
      resident K and V, 192- and 64-key chunks, K and V streamed) and at the
@@ -52,9 +53,10 @@ Phases, one line each:
  11. K4 and K5 (flash attention backward) against their plain version, from
      K3's o and lse, at the txt2img training shape (B=8, S=4224, H=12, D=64,
      bf16) with the training key mask, in fp32 at that shape, at the edge
-     cases and through the entry point under grad; their timings, bounds and
-     SDPA's masked backward as the yardstick; K2 against K4+K5 at 256-512
-     tokens;
+     cases (among them the tile edges of the Hopper kernels: Skv 129 and 130,
+     Sq 65, a 128-key masked hole, D=128 at ragged lengths, Skv <= 64) and
+     through the entry point under grad; their timings, bounds and SDPA's
+     masked backward as the yardstick; K2 against K4+K5 at 256-512 tokens;
  12. the txt2img MMDiT parameter gradients of one loss at 4224 tokens (model
      batch 2), kernel path against plain attention: 12 K3 + 12 K4 + 12 K5
      launches and no K1/K2;
@@ -285,7 +287,10 @@ def phase_build():
 
     seconds, logs = _build.build_all()
     usage = {name: ptxas_usage(log) for name, log in logs.items()}
-    print(f"phase 1 build: {len(logs)} kernel libraries in {seconds:.1f} s; ptxas: {json.dumps(usage)}")
+    # ptxas warns where it serialises wgmma (an accumulator touched in flight, too few registers)
+    warnings = sorted({line.strip() for log in logs.values() for line in log.splitlines() if "warning" in line})
+    print(f"phase 1 build: {len(logs)} kernel libraries in {seconds:.1f} s; ptxas: {json.dumps(usage)}; "
+          f"warnings: {json.dumps(warnings)}")
 
 
 def phase_kernel():
@@ -667,6 +672,33 @@ def phase_flash_bwd_kernel():
             errs["D16/32/128"] = max(check_grads(f"D={hd} {name}", *both(*(rand(2, 200, 2, hd, dtype=dtype)
                                                                             for _ in range(4))), tol)
                                      for hd in (16, 32, 128))
+            # the tile edges of the bf16 kernels at D = 64 and 128 (128 keys a K4 CTA, 128 queries a K5
+            # CTA, 64-query and 64-key ring tiles, 32-query tiles at D = 128)
+            q, do = rand(2, 200, 4, 64, dtype=dtype), rand(2, 200, 4, 64, dtype=dtype)
+            for skv in (129, 130):  # one and two keys past a K4 CTA
+                k, v = rand(2, skv, 4, 64, dtype=dtype), rand(2, skv, 4, 64, dtype=dtype)
+                kmask = torch.arange(skv, device="cuda")[None, :] < torch.tensor([[skv], [100]], device="cuda")
+                errs[f"skv_{skv}"] = check_grads(f"Skv={skv} {name}", *both(q, k, v, do, kmask), tol)
+            q, do = rand(2, 65, 4, 64, dtype=dtype), rand(2, 65, 4, 64, dtype=dtype)  # one query past a tile
+            k, v = rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+            errs["sq_65"] = check_grads(f"Sq=65 {name}", *both(q, k, v, do), tol)
+            # a 128-key hole in the middle: a whole K4 CTA and two K5 tiles of masked keys
+            q, k, v, do = (rand(2, 384, 4, 64, dtype=dtype) for _ in range(4))
+            hmask = torch.ones(2, 384, dtype=torch.bool, device="cuda")
+            hmask[:, 128:256] = False
+            ours, ref = both(q, k, v, do, hmask)
+            if not all(bool((g[:, 128:256] == 0).all()) for g in ours[1:]):
+                fail(f"K4 128-key hole {name}: dk or dv of a masked key not exactly 0")
+            errs["hole_128"] = check_grads(f"128-key hole {name}", ours, ref, tol)
+            # D = 128 at ragged lengths, with a mask
+            q, do = rand(2, 130, 2, 128, dtype=dtype), rand(2, 130, 2, 128, dtype=dtype)
+            k, v = rand(2, 300, 2, 128, dtype=dtype), rand(2, 300, 2, 128, dtype=dtype)
+            kmask = torch.arange(300, device="cuda")[None, :] < torch.tensor([[300], [131]], device="cuda")
+            errs["D128_130_300"] = check_grads(f"D=128 130/300 {name}", *both(q, k, v, do, kmask), tol)
+            # at most one key tile: Skv 64 and 50 (the second warpgroup of K4 has no key)
+            q, do = rand(2, 200, 4, 64, dtype=dtype), rand(2, 200, 4, 64, dtype=dtype)
+            errs["skv_64_50"] = max(check_grads(f"Skv={skv} {name}", *both(
+                q, rand(2, skv, 4, 64, dtype=dtype), rand(2, skv, 4, 64, dtype=dtype), do), tol) for skv in (64, 50))
             # a fully-masked row: its dq exactly 0, and no key of it gets a gradient from it
             q, k, v, do = (rand(2, 200, 2, 64, dtype=dtype) for _ in range(4))
             fmask = torch.stack([torch.zeros(200, dtype=torch.bool, device="cuda"),

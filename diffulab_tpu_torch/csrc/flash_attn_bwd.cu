@@ -6,77 +6,75 @@
 // lse (K3's [B, H, Sq] layout), with di = rowsum(o * do) in fp32 formed from
 // the STORED o (the reference forms it outside Pallas, flash_attention.py:275;
 // here a pre-pass kernel launched by flash_attn_bwd_dkv), per (batch, head):
-//   s  = q.k^T * scale in fp32; masked keys (and keys past Skv) get the
-//        finite MASK_VALUE, so p = exp(MASK_VALUE - lse) = 0 for them;
+//   s  = q.k^T * scale in fp32; masked keys (and keys past Skv) give p = 0;
 //   p  = exp(s - lse) in fp32 (a fully-masked row has lse = +inf: p = 0);
 //   dv = round(p)^T . do     (K4; p rounded to do's dtype);
 //   dp = do . v^T            in fp32;
 //   ds = p * (dp - di) * scale;
 //   dk = round(ds)^T . q     (K4; ds rounded to q's dtype);
 //   dq = round(ds) . k       (K5; ds rounded to k's dtype);
-// fp32 accumulation, dq/dk/dv written in the input dtype.
+// fp32 accumulation, dq/dk/dv written in the input dtype; p as one
+// ex2.approx of s * scale * log2(e) - lse * log2(e).
 //
 // Bound on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT
 // training shape (B=8, S=4224, H=12, D=64, bf16, the ragged text mask) K4
 // makes four products over the valid keys (s, dv, dp, dk) and K5 three (s,
 // dp, dq): ~860 and ~645 GFLOP, 0.87 and 0.65 ms at 989 TFLOP/s, against
-// ~367 MB (q, k, v, o, do, lse and the mask in; dk, dv and di out) and ~263 MB
-// (q, k, v, do, lse, di and the mask in; dq out), 0.11 and 0.08 ms at
-// 3.35 TB/s. Both are compute-bound, and ~1.7 G exponentials each (as K3) are a second
-// ceiling on the SFUs. So the scores stay on chip and the products run on the
-// tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate), p as one
-// ex2.approx of (s * scale - lse) * log2(e).
+// ~367 MB and ~263 MB of inputs and outputs, 0.11 and 0.08 ms at 3.35 TB/s.
+// Both are compute-bound, and ~1.7 G exponentials each are a second ceiling
+// (~0.45 ms at 16 ex2 a clock on each of 132 SMs) that has to overlap the
+// products. The pre-pass is bound by its bytes: o and do read once (104 MB,
+// 31 us).
 //
 // The TPU kernels ran a sequential grid axis and carried the sums in VMEM
 // scratch; on Hopper that axis is a loop inside one CTA, and each sum stays
 // in one CTA's registers (no atomics: the result does not depend on the run,
-// as the reference's two-kernel split does not):
-//  K4: one CTA per (64 keys, head, batch), 4 warps of 16 keys with k and v
-//      held in mma A fragments and dk/dv in fp32 registers. It walks 64-query
-//      tiles of q and do (with their lse and di), double-buffered in shared
-//      memory by cp.async, and recomputes p^T = exp(k.q^T * scale - lse) with
-//      keys as rows, 32 queries at a time to bound registers. Capped at 168
-//      registers (44 B spilled at D = 64) so that three CTAs share an SM:
-//      12% faster than two at 177 registers on the H100.
-//  K5: one CTA per (64 queries, head, batch), 4 warps of 16 queries with q and
-//      do in A fragments and dq in fp32 registers. It walks 64-key tiles of K
-//      and V, double-buffered by cp.async, the tile's key mask read once per
-//      warp as two ballot words. Capped at 128 registers, four CTAs an SM.
-// In both, the C layout of two adjacent 16x8 score tiles is the A layout of a
-// 16x16 operand, so p and ds go from the accumulators straight into the next
-// product; the B operands whose reduction runs along the staged rows (do and
-// q in K4, K in K5) are read with ldmatrix.trans, the others with ldmatrix.
-// q/k/v/o/do are read in the [B, S, H, D] layout at the caller's batch and row
-// strides (no transpose, no padded copy): the ragged ends of Sq and Skv are
-// zero-filled in shared memory and masked here.
+// as the reference's two-kernel split does not).
 //
-// fp32 inputs run a second pair of kernels with one thread per row and fp32
-// FMAs (the tensor cores take no exact fp32 product), with plain staged tiles.
+// bf16 at D = 64 and 128 (flash_bwd_dkv_hopper, flash_bwd_dq_hopper): one CTA
+// per 128 keys (K4) or 128 queries (K5) of one (batch, head), two warpgroups
+// of 64 rows. The CTA's own rows (K and V in K4, Q and dO in K5) land once by
+// TMA and stay in shared memory, at D = 64 also as register A operands; the
+// other operands stream through a four-slot TMA ring (K4: Q and dO tiles of 64
+// queries, 32 at D = 128, with their lse and di vectors; K5: K and V tiles of
+// 128 keys, 64 at D = 128), refilled by one thread as soon as both warpgroups
+// have released a slot. Every product is a wgmma with fp32 accumulators: the
+// score-like products (S = Q.K^T and dP = dO.V^T, or their transposes with
+// keys as rows in K4) against a K-major B, the gradient products taking p or
+// ds from the accumulators straight into A registers (rounded to bf16)
+// against an MN-major B. A warpgroup issues a tile's score products together
+// with the last tile's gradient products, then forms p while dP runs; the two
+// warpgroups take turns at the tensor cores, so that one's exponentials
+// overlap the other's products. Results are staged in shared memory where
+// the warpgroup's own rows were and leave by TMA store. q/k/v/o/do are read
+// in the [B, S, H, D] layout at the caller's batch and row strides through
+// 3-D tensor maps (no transpose, no padded copy); TMA zero-fills the ragged
+// ends, which the kernels mask.
 //
-// Plain C interface (bound with ctypes): flash_attn_bwd_dkv launches the di
-// pre-pass and K4, flash_attn_bwd_dq launches K5; each returns the first
-// CUDA error of its launches.
+// bf16 at D = 16 and 32: the first kernels, mma.sync m16n8k16 with tiles
+// double-buffered by cp.async (K4 one CTA per 64 keys, K5 per 64 queries, four
+// warps of 16 rows, p and ds from the C fragments into A fragments, B operands
+// by ldmatrix[.trans]). fp32 inputs run a second pair of kernels with one
+// thread per row and fp32 FMAs (the tensor cores take no exact fp32 product).
+//
+// Plain C interface (bound with ctypes): flash_attn_bwd_dkv launches the
+// pre-pass and K4, flash_attn_bwd_dq launches K5; each returns the first CUDA
+// error of its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma and the tensor-map encoder
+
 namespace {
 
-// -0.7 * FLT_MAX, formed in double and rounded once, as the reference forms it
-constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e+38);
-constexpr float LOG2E = 1.4426950408889634f;
-
-constexpr int BLOCK = 64;     // rows per CTA and rows per staged tile (bf16 kernels)
-constexpr int WARPS = 4;      // bf16 kernels: 16 rows per warp
+constexpr int BLOCK = 64;     // rows per CTA and rows per staged tile (bf16 kernels at D = 16, 32)
+constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
 constexpr int F32_ROWS = 64;  // fp32 kernels: rows per CTA, one per thread
 constexpr int F32_TILE = 16;  // fp32 kernels: rows of the other operands per staged tile
 static_assert(BLOCK == 2 * CHUNK && CHUNK == 32, "K5 holds a tile's key mask in two 32-bit words");
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -126,19 +124,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// 2^x; 2^-inf = 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 using Tile = bf16 (*)[D + PAD];
@@ -254,37 +239,89 @@ constexpr int bf16_smem_bytes() {
   return 4 * BLOCK * (D + PAD) * static_cast<int>(sizeof(bf16)) + 4 * BLOCK * static_cast<int>(sizeof(float));
 }
 
-// --- di = rowsum(o * do), fp32, [B, H, Sq] ----------------------------------
+// --- the pre-pass: lse in log2 units and di = rowsum(o * do), fp32 ----------------
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
+// fp32 dot product of two 16-byte pieces of a row
 template <typename T>
-__global__ void flash_bwd_di(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ di, int Sq,
-                             int H, int D, long long o_sb, long long o_ss, long long do_sb, long long do_ss,
-                             long long rows) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;  // (b, q, h), h fastest
-  if (i >= rows) return;
-  const int h = static_cast<int>(i % H);
-  const long long bq = i / H;
-  const int qi = static_cast<int>(bq % Sq), b = static_cast<int>(bq / Sq);
-  const T* orow = o + b * o_sb + qi * o_ss + h * D;
-  const T* drow = dout + b * do_sb + qi * do_ss + h * D;
+__device__ __forceinline__ float dot16(const uint4& x, const uint4& y);
+
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& x, const uint4& y) {
+  float acc = __uint_as_float(x.x) * __uint_as_float(y.x);
+  acc = fmaf(__uint_as_float(x.y), __uint_as_float(y.y), acc);
+  acc = fmaf(__uint_as_float(x.z), __uint_as_float(y.z), acc);
+  return fmaf(__uint_as_float(x.w), __uint_as_float(y.w), acc);
+}
+
+template <>
+__device__ __forceinline__ float dot16<bf16>(const uint4& x, const uint4& y) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
   float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(to_float(orow[d]), to_float(drow[d]), acc);
-  di[((long long)b * H + h) * Sq + qi] = acc;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(a.x, c.x, acc);
+    acc = fmaf(a.y, c.y, acc);
+  }
+  return acc;
+}
+
+// One pass over o and do before K4. For each row (b, q, h): di = rowsum(o *
+// do) in fp32 from the stored o, and lse2 = lse * log2(e), into the fp32
+// workspace ws = [2][B * H][ws_rs] (lse2, then di; row q of (b, h) at (b * H +
+// h) * ws_rs + q), with lse2 = +inf and di = 0 on the padding rows [Sq,
+// ws_rs), which K4's last query tile reads. A row of one head is LANES
+// 16-byte pieces, one a lane: a warp reads 32 / LANES neighbouring rows
+// ([B, Sq, H, D] with the heads contiguous), 512 contiguous bytes, and sums
+// each row over its lanes by shuffles.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep(const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+               float* __restrict__ ws, int B, int Sq, int H, int ws_rs, long long o_sb, long long o_ss,
+               long long do_sb, long long do_ss) {
+  constexpr int LANES = D * static_cast<int>(sizeof(T)) / 16;
+  constexpr int ELEMS = 16 / static_cast<int>(sizeof(T));
+  static_assert(LANES >= 1 && LANES <= 32 && (LANES & (LANES - 1)) == 0, "a row is 1-32 lanes, a power of two");
+  const long long rows = (long long)B * Sq * H;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = t / LANES;  // (b, q, h), h fastest
+  const int part = static_cast<int>(t % LANES);
+  const int h = static_cast<int>(row % H);
+  const long long bq = row / H;
+  const int qi = static_cast<int>(bq % Sq), b = static_cast<int>(bq / Sq);
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4 x = *reinterpret_cast<const uint4*>(o + b * o_sb + qi * o_ss + h * D + part * ELEMS);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + b * do_sb + qi * do_ss + h * D + part * ELEMS);
+    acc = dot16<T>(x, y);
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const long long plane = (long long)B * H * ws_rs;
+  if (row < rows && part == 0) {
+    const long long i = ((long long)b * H + h) * ws_rs + qi;
+    ws[i] = lse[((long long)b * H + h) * Sq + qi] * LOG2E;
+    ws[plane + i] = acc;
+  }
+  const int pad = ws_rs - Sq;
+  for (long long i = t; i < (long long)B * H * pad; i += (long long)gridDim.x * blockDim.x) {
+    const long long j = (i / pad) * ws_rs + Sq + i % pad;
+    ws[j] = INFINITY;
+    ws[plane + j] = 0.f;
+  }
 }
 
 // --- bf16 -----------------------------------------------------------------------
 
-// K4: dk, dv for 64 keys of one (batch, head), over every query tile; three
-// CTAs an SM where the registers allow it (D <= 64: at most 168 a thread)
+// K4 at D = 16 and 32: dk, dv for 64 keys of one (batch, head), over every
+// query tile; three CTAs an SM (at most 168 registers a thread)
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(WARPS * 32, 3)
 flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
                    const float* __restrict__ di, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv,
-                   int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                   int H, int di_rs, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                    long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   Tile<D> tiles = reinterpret_cast<Tile<D>>(smem);
@@ -302,7 +339,7 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   const bf16* qb = q + b * q_sb + h * D;
   const bf16* dob = dout + b * do_sb + h * D;
   const float* lb = lse + ((long long)b * H + h) * Sq;
-  const float* db = di + ((long long)b * H + h) * Sq;
+  const float* db = di + ((long long)b * H + h) * di_rs;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
   const bool keep[2] = {key0 < Skv && (mb == nullptr || mb[key0] != 0),
                         key0 + 8 < Skv && (mb == nullptr || mb[key0 + 8] != 0)};
@@ -373,13 +410,14 @@ flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   store_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, key0, Skv, dv_acc, t4);
 }
 
-// K5: dq for 64 queries of one (batch, head), over every key tile; four CTAs
-// an SM where the registers allow it (D <= 64: at most 128 a thread)
+// K5 at D = 16 and 32: dq for 64 queries of one (batch, head), over every key
+// tile; four CTAs an SM (at most 128 registers a thread)
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 4 : 1)
+__global__ void __launch_bounds__(WARPS * 32, 4)
 flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                   const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
-                  const float* __restrict__ di, bf16* __restrict__ dq, int Sq, int Skv, int H, long long q_sb,
+                  const float* __restrict__ di, bf16* __restrict__ dq, int Sq, int Skv, int H, int di_rs,
+                  long long q_sb,
                   long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                   long long do_sb, long long do_ss, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -409,7 +447,8 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
   const long long lrow = ((long long)b * H + h) * Sq;
   const float l2[2] = {row0 < Sq ? lse[lrow + row0] * LOG2E : INFINITY,
                        row0 + 8 < Sq ? lse[lrow + row0 + 8] * LOG2E : INFINITY};
-  const float dir[2] = {row0 < Sq ? di[lrow + row0] : 0.f, row0 + 8 < Sq ? di[lrow + row0 + 8] : 0.f};
+  const float* drow = di + ((long long)b * H + h) * di_rs;
+  const float dir[2] = {row0 < Sq ? drow[row0] : 0.f, row0 + 8 < Sq ? drow[row0 + 8] : 0.f};
 
   float acc[D / 8][4];
 #pragma unroll
@@ -499,7 +538,7 @@ __global__ void __launch_bounds__(F32_ROWS)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
                   const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-                  int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                  int H, int di_rs, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                   long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
   extern __shared__ __align__(16) float fsmem[];
   float* ks = fsmem;                       // [F32_ROWS][D + 1]
@@ -531,7 +570,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, cons
     if (tid < F32_TILE) {
       const bool in = m0 + tid < Sq;
       lse_t[tid] = in ? lse[lrow + m0 + tid] : INFINITY;  // past Sq: p = 0
-      di_t[tid] = in ? di[lrow + m0 + tid] : 0.f;
+      di_t[tid] = in ? di[((long long)b * H + h) * di_rs + m0 + tid] : 0.f;
     }
     __syncthreads();
     for (int j = 0; j < F32_TILE; ++j) {
@@ -559,7 +598,8 @@ template <int D>
 __global__ void __launch_bounds__(F32_ROWS)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
-                 const float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, long long q_sb,
+                 const float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, int di_rs,
+                 long long q_sb,
                  long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                  long long do_sb, long long do_ss, float sm_scale) {
   extern __shared__ __align__(16) float fsmem[];
@@ -581,7 +621,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
   const float* qr = qs + tid * (D + 1);
   const float* dr = dos + tid * (D + 1);
   const float lse_r = row < Sq ? lse[lrow + row] : INFINITY;
-  const float di_r = row < Sq ? di[lrow + row] : 0.f;
+  const float di_r = row < Sq ? di[((long long)b * H + h) * di_rs + row] : 0.f;
 
   float acc[D];
 #pragma unroll
@@ -609,46 +649,565 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
   for (int d = 0; d < D; ++d) out[d] = acc[d];
 }
 
+// --- bf16 at D = 64 and 128: wgmma on TMA-fed tiles ------------------------------
+
+constexpr int HB_ROWS = 128;             // keys of a K4 CTA, queries of a K5 CTA
+constexpr int WG = 128;                  // threads of a warpgroup, which owns 64 of those rows
+constexpr int HB_THREADS = 2 * WG;       // two warpgroups: up to 255 registers a thread
+constexpr int STAGES = 4;                // slots of the ring
+// named barriers: SCHED_BAR + w is warpgroup w's turn at the tensor cores,
+// DONE_BAR + w gathers warpgroup w's threads
+constexpr int SCHED_BAR = 1, DONE_BAR = 3;
+constexpr int WS_ALIGN = 64;             // the workspace's rows are padded to a multiple of this
+
+// K4's shared memory, from a 1024-byte aligned base: the CTA's K, then V
+// ([half][128 rows][128 B], the swizzled TMA boxes), STAGES slots of a Q and
+// a dO tile of BQ queries, the slots' lse2 and di vectors, the barriers
+template <int D>
+struct DkvSmem {
+  static constexpr int BQ = D == 128 ? 32 : 64;  // queries a tile: at D = 128, dk and dv hold 128 registers
+  static constexpr int KV = HB_ROWS * D * 2;
+  static constexpr int TILE = BQ * D * 2;
+  static constexpr int VEC = BQ * 4;
+  static constexpr int RING = 2 * KV;
+  static constexpr int VECS = RING + STAGES * 2 * TILE;
+  static constexpr int BARS = VECS + STAGES * 2 * VEC;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
+};
+
+// K5's: the CTA's Q, then dO, STAGES slots of a K and a V tile of KT keys,
+// the barriers
+template <int D>
+struct DqSmem {
+  static constexpr int KT = D == 128 ? 64 : 128;  // keys a tile: at D = 128, 128 would not fit four slots
+  static constexpr int QD = HB_ROWS * D * 2;
+  static constexpr int TILE = KT * D * 2;
+  static constexpr int RING = 2 * QD;
+  static constexpr int BARS = RING + STAGES * 2 * TILE;
+  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
+};
+
+// acc = A . B^T over D, both K-major in shared memory: A 64 rows at a_addr, B N
+// rows at b_addr, their 64-column halves a_half and b_half bytes apart; issued
+// and committed, not awaited
+template <int D, int N>
+__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint32_t a_addr, uint32_t a_half, uint32_t b_addr,
+                                         uint32_t b_half) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
+    Wgmma<N>::ss(acc, smem_desc(a_addr + half * a_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
+                 smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// x (64 rows x N columns in the accumulator layout: x[4c + 2r + e] is row
+// 16 * warp + g + 8r, column 8c + 2 * t4 + e) rounded to bf16 into the
+// register A operand of N / 16 k16 steps
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// acc += A . B over 16 * KSTEPS rows of B: A in registers (pack_a), B MN-major
+// in shared memory (rows of D bf16 from b_addr, 64-column halves b_half bytes
+// apart); issued and committed, not awaited
+template <int D, int KSTEPS>
+__device__ __forceinline__ void rs_issue(float (&acc)[D / 2], const uint32_t (&a)[KSTEPS][4], uint32_t b_addr,
+                                         uint32_t b_half) {
+  using G = Geometry<D>;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    WgmmaRs<D>::rs(acc, a[kk], smem_desc(b_addr + kk * 16 * G::ROWB, b_half, 8 * G::ROWB, G::SWIZZLE), 1);
+  wgmma_commit();
+}
+
+// acc = A . B^T over D: A (64 rows x D) in registers (load_a), B N rows
+// K-major in shared memory at b_addr, its 64-column halves b_half bytes apart;
+// issued and committed, not awaited
+template <int D, int N>
+__device__ __forceinline__ void rs_issue_t(float (&acc)[N / 2], const uint32_t (&a)[D / 16][4], uint32_t b_addr,
+                                           uint32_t b_half) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
+    WgmmaRs<N>::template rs<0>(acc, a[kk], smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
+                               kk > 0);
+  }
+  wgmma_commit();
+}
+
+// the register A operand of rows [row0, row0 + 64) (x D, K-major) of a
+// [half][rows][128 B] region that TMA filled with the 128-byte swizzle:
+// a[kk][i] holds row 16 * warp + g + 8 (i & 1), columns 16 kk + 2 t4 + 8 (i >> 1)
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], uint32_t region, uint32_t half, int row0, int warp,
+                                       int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 16 * warp + g + 8 * (i & 1), col = 16 * kk + 2 * t4 + 8 * (i >> 1);
+      const uint32_t off = (col / 64) * half + row * 128 + ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[kk][i]) : "r"(region + off) : "memory");
+    }
+}
+
+// a warpgroup's 64 x D accumulator, rounded to bf16, into rows [row0, row0 +
+// 64) of a [half][rows][128 B] region (halves `half` bytes apart) in the
+// swizzled layout of a TMA box: rows r_lo and r_lo + 8 of this thread
+template <int D>
+__device__ __forceinline__ void stage_acc(uint32_t region, uint32_t half, int row0, const float (&acc)[D / 2],
+                                          int r_lo, int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t off = (col / 64) * half + (row0 + r_lo + 8 * r) * 128 + (col % 64) * 2;
+      off ^= ((off >> 7) & 7) << 4;
+      const uint32_t val = pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(region + off), "r"(val) : "memory");
+    }
+  }
+}
+
+// the rows of [row0, row0 + HB_ROWS) that TMA boxes of 64 rows load: boxes
+// wholly past S are not loaded (their rows are masked and never stored)
+__device__ __forceinline__ int loaded_rows(int row0, int S) {
+  return min(HB_ROWS, (S - row0 + TMA_ROWS - 1) / TMA_ROWS * TMA_ROWS);
+}
+
+// K4 (dk, dv), one CTA per (128 keys, head, batch): two warpgroups of 64 keys.
+// The CTA's K and V land once by TMA and stay (at D = 64 also as register A
+// operands); Q and dO tiles of BQ queries, with their lse2 and di vectors by
+// bulk copy, stream through a ring of STAGES slots, refilled by one thread of
+// the second warpgroup as soon as both have released a slot. Per tile, keys as
+// rows: S^T = K.Q^T and dP^T = V.dO^T (RS wgmma at D = 64, SS at D = 128,
+// where the registers are short; Q and dO K-major B); P^T = ex2(S^T * scale *
+// log2 e - lse2), 0 on a masked key (one predicate a row), while dP^T runs;
+// dS^T = P^T * (dP^T - di) * scale; then, issued with the next tile's scores,
+// dV += round(P^T).dO and dK += round(dS^T).Q (RS: P^T and dS^T from the
+// accumulators into A registers, dO and Q MN-major B). The warpgroups take
+// turns at the tensor cores, one batch of products a tile each, so that one's
+// exponentials overlap the other's products. A slot is released once every
+// product that read it is done. dk and dv are staged where the warpgroup's own
+// K and V were and leave by TMA store.
+template <int D>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                     const int* __restrict__ mask, const float* __restrict__ ws, int Sq, int Skv, int H, int ws_rs,
+                     float sm_scale) {
+  using G = Geometry<D>;
+  using S = DkvSmem<D>;
+  constexpr int BQ = S::BQ;
+  constexpr bool KV_REGS = D == 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem), kv_half = HB_ROWS * G::ROWB, tile_half = BQ * G::ROWB;
+  // barriers: 0 the CTA's K and V landed; 1 + s slot s full; 1 + STAGES + s slot s free
+  auto bar = [&](int i) { return base + S::BARS + 8 * i; };
+  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * HB_ROWS;
+  const int n_tiles = (Sq + BQ - 1) / BQ;
+  const float* lse2_g = ws + ((long long)b * H + h) * ws_rs;
+  const float* di_g = lse2_g + (long long)gridDim.z * H * ws_rs;
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES;
+    const uint32_t dst = base + S::RING + s * 2 * S::TILE, vec = base + S::VECS + s * 2 * S::VEC;
+    mbar_expect_tx(bar(1 + s), 2 * S::TILE + 2 * S::VEC);
+    load_rows<D, BQ>(dst, &tq, b, h, t * BQ, BQ, tile_half, bar(1 + s));
+    load_rows<D, BQ>(dst + S::TILE, &tdo, b, h, t * BQ, BQ, tile_half, bar(1 + s));
+    bulk_load(vec, lse2_g + t * BQ, S::VEC, bar(1 + s));
+    bulk_load(vec + S::VEC, di_g + t * BQ, S::VEC, bar(1 + s));
+  };
+
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(1 + s), 1);
+      mbar_init(bar(1 + STAGES + s), 8);  // one arrival from each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const int kv_rows = loaded_rows(n0, Skv);
+    mbar_expect_tx(bar(0), 2 * kv_rows * D * 2);
+    load_rows<D>(base, &tk, b, h, n0, kv_rows, kv_half, bar(0));
+    load_rows<D>(base + S::KV, &tv, b, h, n0, kv_rows, kv_half, bar(0));
+    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_tile(t);
+  }
+
+  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * warp + g;  // this thread's keys: rows r_lo and r_lo + 8 of the warpgroup's 64
+  const float scale_log2 = sm_scale * LOG2E;
+  bool keep[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = n0 + 64 * wg + r_lo + 8 * r;
+    keep[r] = key < Skv && (mask == nullptr || mask[(long long)b * Skv + key] != 0);
+  }
+  const uint32_t k_w = base + wg * 64 * G::ROWB, v_w = k_w + S::KV;
+  const float* vecs = reinterpret_cast<const float*>(smem + S::VECS);
+  auto turn = [&]() { named_sync(SCHED_BAR + wg, 2 * WG); };
+  auto pass_turn = [&]() { named_arrive(SCHED_BAR + 1 - wg, 2 * WG); };
+  if (wg == 1) pass_turn();  // the first warpgroup takes the tensor cores first
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float s[BQ / 2], dp[BQ / 2];
+  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+  uint32_t ka[KV_REGS ? D / 16 : 1][4], va[KV_REGS ? D / 16 : 1][4];
+  mbar_wait(bar(0), 0);
+  if constexpr (KV_REGS) {
+    load_a<D>(ka, base, kv_half, 64 * wg, warp, g, t4);
+    load_a<D>(va, base + S::KV, kv_half, 64 * wg, warp, g, t4);
+  }
+  uint32_t q_last = 0, do_last = 0;  // the last tile's Q and dO, which its gradient products read
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const uint32_t q_t = base + S::RING + st * 2 * S::TILE, do_t = q_t + S::TILE;
+    mbar_wait(bar(1 + st), (j / STAGES) & 1);
+    turn();
+    if (j > 0) {
+      rs_issue<D, BQ / 16>(dv, pa, do_last, tile_half);   // dV += round(P^T).dO of the last tile
+      rs_issue<D, BQ / 16>(dk, dsa, q_last, tile_half);   // dK += round(dS^T).Q of the last tile
+    }
+    if constexpr (KV_REGS) {
+      rs_issue_t<D, BQ>(s, ka, q_t, tile_half);    // S^T = K.Q^T
+      rs_issue_t<D, BQ>(dp, va, do_t, tile_half);  // dP^T = V.dO^T
+    } else {
+      ss_issue<D, BQ>(s, k_w, kv_half, q_t, tile_half);
+      ss_issue<D, BQ>(dp, v_w, kv_half, do_t, tile_half);
+    }
+    pass_turn();
+    wgmma_wait<1>();  // S^T, and the last tile's products, done
+    fence_regs(s);
+    if (j > 0) {  // the last tile's slot is free: refill it
+      const int free_slot = (j - 1) % STAGES;
+      if (lane == 0) mbar_arrive(bar(1 + STAGES + free_slot));
+      if (tid == WG && j - 1 + STAGES < n_tiles) {
+        mbar_wait(bar(1 + STAGES + free_slot), ((j - 1) / STAGES) & 1);
+        load_tile(j - 1 + STAGES);
+      }
+    }
+    const float* lse2 = vecs + st * 2 * BQ;
+    const float* di = lse2 + BQ;
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * c + 2 * t4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        s[4 * c + 2 * r] = keep[r] ? exp2_approx(fmaf(s[4 * c + 2 * r], scale_log2, -l2.x)) : 0.f;
+        s[4 * c + 2 * r + 1] = keep[r] ? exp2_approx(fmaf(s[4 * c + 2 * r + 1], scale_log2, -l2.y)) : 0.f;
+      }
+    }
+    pack_a<BQ>(pa, s);
+    wgmma_wait<0>();  // dP^T done
+    fence_regs(dp);
+#pragma unroll
+    for (int c = 0; c < BQ / 8; ++c) {
+      const float2 d2 = *reinterpret_cast<const float2*>(di + 8 * c + 2 * t4);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dp[4 * c + 2 * r] = s[4 * c + 2 * r] * (dp[4 * c + 2 * r] - d2.x) * sm_scale;
+        dp[4 * c + 2 * r + 1] = s[4 * c + 2 * r + 1] * (dp[4 * c + 2 * r + 1] - d2.y) * sm_scale;
+      }
+    }
+    pack_a<BQ>(dsa, dp);
+    q_last = q_t;
+    do_last = do_t;
+  }
+  turn();
+  rs_issue<D, BQ / 16>(dv, pa, do_last, tile_half);
+  rs_issue<D, BQ / 16>(dk, dsa, q_last, tile_half);
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
+  // dk and dv where this warpgroup's K and V were (no other warpgroup reads those rows)
+  stage_acc<D>(base, kv_half, 64 * wg, dk, r_lo, t4);
+  stage_acc<D>(base + S::KV, kv_half, 64 * wg, dv, r_lo, t4);
+  fence_async_smem();
+  named_sync(DONE_BAR + wg, WG);
+  if (tid % WG == 0 && n0 + 64 * wg < Skv) {
+    for (int hh = 0; hh < G::HALVES; ++hh) {
+      tma_store_3d(&tdk, k_w + hh * kv_half, h * D + hh * 64, n0 + 64 * wg, b);
+      tma_store_3d(&tdv, v_w + hh * kv_half, h * D + hh * 64, n0 + 64 * wg, b);
+    }
+    tma_store_commit();
+    tma_store_done();
+  }
+}
+
+// K5 (dq), one CTA per (128 queries, head, batch): two warpgroups of 64
+// queries. The CTA's Q and dO land once and stay (at D = 64 also as register A
+// operands); lse2 and di of each thread's two queries sit in registers. K and
+// V tiles of KT keys stream through the ring; each warp forms a tile's key
+// mask as ballot words, its loads issued a tile ahead. Per tile: S =
+// Q.K^T and dP = dO.V^T (RS at D = 64, SS at D = 128; K and V K-major B); P =
+// ex2(S * scale * log2 e - lse2), 0 on a masked key, while dP runs; dS = P *
+// (dP - di) * scale; then, issued with the next tile's scores, dQ +=
+// round(dS).K (RS, K an MN-major B). The warpgroups take turns at the tensor
+// cores. dq is staged where the warpgroup's Q was and leaves by TMA store.
+template <int D>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tdq, const int* __restrict__ mask,
+                    const float* __restrict__ lse, const float* __restrict__ di, int Sq, int Skv, int H, int di_rs,
+                    float sm_scale) {
+  using G = Geometry<D>;
+  using S = DqSmem<D>;
+  constexpr int KT = S::KT;
+  constexpr bool QD_REGS = D == 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem), qd_half = HB_ROWS * G::ROWB, tile_half = KT * G::ROWB;
+  // barriers: 0 the CTA's Q and dO landed; 1 + s slot s full; 1 + STAGES + s slot s free
+  auto bar = [&](int i) { return base + S::BARS + 8 * i; };
+  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * HB_ROWS;
+  const int n_tiles = (Skv + KT - 1) / KT;
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES;
+    const uint32_t dst = base + S::RING + s * 2 * S::TILE;
+    mbar_expect_tx(bar(1 + s), 2 * S::TILE);
+    load_rows<D>(dst, &tk, b, h, t * KT, KT, tile_half, bar(1 + s));
+    load_rows<D>(dst + S::TILE, &tv, b, h, t * KT, KT, tile_half, bar(1 + s));
+  };
+
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(1 + s), 1);
+      mbar_init(bar(1 + STAGES + s), 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const int q_rows = loaded_rows(m0, Sq);
+    mbar_expect_tx(bar(0), 2 * q_rows * D * 2);
+    load_rows<D>(base, &tq, b, h, m0, q_rows, qd_half, bar(0));
+    load_rows<D>(base + S::QD, &tdo, b, h, m0, q_rows, qd_half, bar(0));
+    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_tile(t);
+  }
+
+  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * warp + g;  // this thread's queries: rows r_lo and r_lo + 8 of the warpgroup's 64
+  const float scale_log2 = sm_scale * LOG2E;
+  float l2[2], dd[2];  // lse in log2 units (+inf past Sq: p = 0 there) and di of the two queries
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + 64 * wg + r_lo + 8 * r;
+    l2[r] = row < Sq ? lse[((long long)b * H + h) * Sq + row] * LOG2E : INFINITY;
+    dd[r] = row < Sq ? di[((long long)b * H + h) * di_rs + row] : 0.f;
+  }
+  const int* mrow = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  // a key kept: in range and not masked (a tile's rows past Skv load as zeros, fully-OOB boxes too)
+  auto kept_key = [&](int key) { return key < Skv && (mrow == nullptr || mrow[key] != 0); };
+  const uint32_t q_w = base + wg * 64 * G::ROWB, do_w = q_w + S::QD;
+  auto turn = [&]() { named_sync(SCHED_BAR + wg, 2 * WG); };
+  auto pass_turn = [&]() { named_arrive(SCHED_BAR + 1 - wg, 2 * WG); };
+  if (wg == 1) pass_turn();
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float s[KT / 2], dp[KT / 2];
+  uint32_t dsa[KT / 16][4];
+  uint32_t qa[QD_REGS ? D / 16 : 1][4], doa[QD_REGS ? D / 16 : 1][4];
+  bool next[KT / 32];  // this lane's keys of the next tile kept: the mask of tile 0 first
+#pragma unroll
+  for (int w = 0; w < KT / 32; ++w) next[w] = kept_key(32 * w + lane);
+  mbar_wait(bar(0), 0);
+  if constexpr (QD_REGS) {
+    load_a<D>(qa, base, qd_half, 64 * wg, warp, g, t4);
+    load_a<D>(doa, base + S::QD, qd_half, 64 * wg, warp, g, t4);
+  }
+  uint32_t k_last = 0;  // the last tile's K, which its dQ product reads
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const uint32_t k_t = base + S::RING + st * 2 * S::TILE, v_t = k_t + S::TILE;
+    uint32_t words[KT / 32];  // bit 8c + e of word w: key 32w + 8c + 2 t4 + e of the tile kept
+#pragma unroll
+    for (int w = 0; w < KT / 32; ++w) {
+      words[w] = __ballot_sync(0xffffffffu, next[w]) >> (2 * t4);
+      next[w] = kept_key((j + 1) * KT + 32 * w + lane);  // the next tile's mask, loaded a tile ahead
+    }
+    mbar_wait(bar(1 + st), (j / STAGES) & 1);
+    turn();
+    if (j > 0) rs_issue<D, KT / 16>(dq, dsa, k_last, tile_half);  // dQ += round(dS).K of the last tile
+    if constexpr (QD_REGS) {
+      rs_issue_t<D, KT>(s, qa, k_t, tile_half);    // S = Q.K^T
+      rs_issue_t<D, KT>(dp, doa, v_t, tile_half);  // dP = dO.V^T
+    } else {
+      ss_issue<D, KT>(s, q_w, qd_half, k_t, tile_half);
+      ss_issue<D, KT>(dp, do_w, qd_half, v_t, tile_half);
+    }
+    pass_turn();
+    wgmma_wait<1>();  // S, and the last tile's dQ product, done
+    fence_regs(s);
+    if (j > 0) {
+      const int free_slot = (j - 1) % STAGES;
+      if (lane == 0) mbar_arrive(bar(1 + STAGES + free_slot));
+      if (tid == WG && j - 1 + STAGES < n_tiles) {
+        mbar_wait(bar(1 + STAGES + free_slot), ((j - 1) / STAGES) & 1);
+        load_tile(j - 1 + STAGES);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < KT / 8; ++c)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * c + 2 * r + e;
+          const bool kept = (words[c / 4] >> (8 * (c % 4) + e)) & 1u;
+          s[i] = kept ? exp2_approx(fmaf(s[i], scale_log2, -l2[r])) : 0.f;
+        }
+    wgmma_wait<0>();  // dP done
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) dp[i] = s[i] * (dp[i] - dd[(i >> 1) & 1]) * sm_scale;
+    pack_a<KT>(dsa, dp);
+    k_last = k_t;
+  }
+  turn();
+  rs_issue<D, KT / 16>(dq, dsa, k_last, tile_half);
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(dq);
+  stage_acc<D>(base, qd_half, 64 * wg, dq, r_lo, t4);  // where this warpgroup's Q was
+  fence_async_smem();
+  named_sync(DONE_BAR + wg, WG);
+  if (tid % WG == 0 && m0 + 64 * wg < Sq) {
+    for (int hh = 0; hh < G::HALVES; ++hh) tma_store_3d(&tdq, q_w + hh * qd_half, h * D + hh * 64, m0 + 64 * wg, b);
+    tma_store_commit();
+    tma_store_done();
+  }
+}
+
 // --- launches -------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
   const int* mask;
   const float* lse;
-  float* di;
+  float* ws;         // K4: the pre-pass's [2][B * H][ws_rs] workspace (lse2, di)
+  const float* di;   // rows of di, ws_rs apart
   void *dq, *dk, *dv;
-  int B, Sq, Skv, H;
+  int B, Sq, Skv, H, ws_rs;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
   float sm_scale;
 };
 
-template <typename T>
-cudaError_t launch_di(int D, const Args& a, cudaStream_t stream) {
-  const long long rows = (long long)a.B * a.Sq * a.H;
-  const int threads = 256;
-  const long long blocks = (rows + threads - 1) / threads;
-  flash_bwd_di<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.di, a.Sq, a.H, D, a.o_sb, a.o_ss, a.do_sb,
-      a.do_ss, rows);
+template <typename T, int D>
+cudaError_t launch_prep(const Args& a, cudaStream_t stream) {
+  constexpr int lanes = D * static_cast<int>(sizeof(T)) / 16, threads = 256;
+  const long long blocks = ((long long)a.B * a.Sq * a.H * lanes + threads - 1) / threads;
+  flash_bwd_prep<T, D><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.ws, a.B, a.Sq, a.H, a.ws_rs, a.o_sb,
+      a.o_ss, a.do_sb, a.do_ss);
+  return cudaGetLastError();
+}
+
+// the current device, for the once-per-device opt-in to large shared memory
+cudaError_t current_device(int& device) {
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device < 0 || device >= MAX_DEVICES)) return cudaErrorInvalidDevice;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dkv_hopper(const Args& a, cudaStream_t stream) {
+  using S = DkvSmem<D>;
+  const long long out_ss = (long long)a.H * D, out_sb = (long long)a.Skv * out_ss;
+  CUtensorMap maps[6];  // q, k, v, do, dk, dv
+  if (!encode_rows(&maps[0], a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, S::BQ) ||
+      !encode_rows(&maps[1], a.k, a.B, a.Skv, a.H, D, a.k_sb, a.k_ss) ||
+      !encode_rows(&maps[2], a.v, a.B, a.Skv, a.H, D, a.v_sb, a.v_ss) ||
+      !encode_rows(&maps[3], a.dout, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss, S::BQ) ||
+      !encode_rows(&maps[4], a.dk, a.B, a.Skv, a.H, D, out_sb, out_ss) ||
+      !encode_rows(&maps[5], a.dv, a.B, a.Skv, a.H, D, out_sb, out_ss))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dkv_hopper<D>;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Skv + HB_ROWS - 1) / HB_ROWS, a.H, a.B);
+  kernel<<<grid, HB_THREADS, S::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.mask, a.ws,
+                                                 a.Sq, a.Skv, a.H, a.ws_rs, a.sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_hopper(const Args& a, cudaStream_t stream) {
+  const long long out_ss = (long long)a.H * D, out_sb = (long long)a.Sq * out_ss;
+  CUtensorMap maps[5];  // q, k, v, do, dq
+  if (!encode_rows(&maps[0], a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss) ||
+      !encode_rows(&maps[1], a.k, a.B, a.Skv, a.H, D, a.k_sb, a.k_ss) ||
+      !encode_rows(&maps[2], a.v, a.B, a.Skv, a.H, D, a.v_sb, a.v_ss) ||
+      !encode_rows(&maps[3], a.dout, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss) ||
+      !encode_rows(&maps[4], a.dq, a.B, a.Sq, a.H, D, out_sb, out_ss))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_bwd_dq_hopper<D>;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + HB_ROWS - 1) / HB_ROWS, a.H, a.B);
+  kernel<<<grid, HB_THREADS, DqSmem<D>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], a.mask, a.lse, a.di,
+                                                 a.Sq, a.Skv, a.H, a.ws_rs, a.sm_scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
-    cudaError_t err = launch_di<bf16>(D, a, stream);
+    cudaError_t err = launch_prep<bf16, D>(a, stream);
     if (err != cudaSuccess) return err;
-    constexpr int bytes = bf16_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Skv + BLOCK - 1) / BLOCK, a.H, a.B);
-    flash_bwd_dkv_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-    return cudaGetLastError();
+    if constexpr (D >= 64) {
+      return launch_dkv_hopper<D>(a, stream);
+    } else {
+      constexpr int bytes = bf16_smem_bytes<D>();
+      err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((a.Skv + BLOCK - 1) / BLOCK, a.H, a.B);
+      flash_bwd_dkv_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+          static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.ws_rs, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
+          a.do_sb, a.do_ss, a.sm_scale);
+      return cudaGetLastError();
+    }
   }
-  cudaError_t err = launch_di<float>(D, a, stream);
+  cudaError_t err = launch_prep<float, D>(a, stream);
   if (err != cudaSuccess) return err;
   constexpr int bytes = f32_smem_bytes<D>();
   err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -657,22 +1216,27 @@ cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
   flash_bwd_dkv_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+      a.Sq, a.Skv, a.H, a.ws_rs, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
-    constexpr int bytes = bf16_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + BLOCK - 1) / BLOCK, a.H, a.B);
-    flash_bwd_dq_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
-        a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-    return cudaGetLastError();
+    if constexpr (D >= 64) {
+      return launch_dq_hopper<D>(a, stream);
+    } else {
+      constexpr int bytes = bf16_smem_bytes<D>();
+      cudaError_t err =
+          cudaFuncSetAttribute(flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((a.Sq + BLOCK - 1) / BLOCK, a.H, a.B);
+      flash_bwd_dq_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+          static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
+          a.ws_rs, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+      return cudaGetLastError();
+    }
   }
   constexpr int bytes = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -680,7 +1244,7 @@ cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Sq + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
   flash_bwd_dq_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H,
+      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H, a.ws_rs,
       a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   return cudaGetLastError();
 }
@@ -693,7 +1257,7 @@ cudaError_t launch(Which which, int dtype, const Args& a, cudaStream_t stream) {
 }
 
 int dispatch(Which which, int D, int dtype, const Args& a, void* stream) {
-  if (a.Sq < 1 || a.Skv < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.Sq < 1 || a.Skv < 1 || (dtype != 0 && dtype != 1) || a.ws_rs < a.Sq) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return static_cast<int>(launch<16>(which, dtype, a, s));
@@ -710,27 +1274,32 @@ int dispatch(Which which, int D, int dtype, const Args& a, void* stream) {
 // stride D over heads and the given batch/row strides (in elements; 16-byte
 // aligned rows); any Sq, Skv >= 1; D in {16, 32, 64, 128}; dtype 0 = fp32,
 // 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse: contiguous
-// fp32 [B, H, Sq] from K3. flash_attn_bwd_dkv writes di = rowsum(o * do) to
-// the fp32 [B, H, Sq] workspace `di`, then dk and dv; flash_attn_bwd_dq reads
-// that di and writes dq. dq/dk/dv: contiguous, in the input dtype.
+// fp32 [B, H, Sq] from K3. flash_attn_bwd_dkv writes lse * log2(e) and di =
+// rowsum(o * do) to the fp32 workspace ws = [2][B, H, ws_rs] (ws_rs >= Sq, a
+// multiple of 64: rows padded with +inf and 0), then dk and dv;
+// flash_attn_bwd_dq reads di (rows (b, h) at (b * H + h) * di_rs) and writes
+// dq. dq/dk/dv: contiguous, in the input dtype. Launches on `stream` of the
+// current device.
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                  const void* mask, const void* lse, void* di, void* dk, void* dv, int B, int Sq,
-                                  int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
+                                  const void* mask, const void* lse, void* ws, void* dk, void* dv, int B, int Sq,
+                                  int Skv, int H, int D, int ws_rs, long long q_sb, long long q_ss, long long k_sb,
                                   long long k_ss, long long v_sb, long long v_ss, long long o_sb, long long o_ss,
                                   long long do_sb, long long do_ss, float sm_scale, int dtype, void* stream) {
+  if (ws_rs % WS_ALIGN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* w = static_cast<float*>(ws);
   const Args a{q, k, v, o, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
-               static_cast<float*>(di), nullptr, dk, dv, B, Sq, Skv, H,
+               w, w + (long long)B * H * ws_rs, nullptr, dk, dv, B, Sq, Skv, H, ws_rs,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss, sm_scale};
   return dispatch(DKV, D, dtype, a, stream);
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* mask,
                                  const void* lse, const void* di, void* dq, int B, int Sq, int Skv, int H, int D,
-                                 long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                                 long long v_ss, long long do_sb, long long do_ss, float sm_scale, int dtype,
-                                 void* stream) {
+                                 int di_rs, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                                 long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale,
+                                 int dtype, void* stream) {
   const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
-               const_cast<float*>(static_cast<const float*>(di)), dq, nullptr, nullptr, B, Sq, Skv, H,
+               nullptr, static_cast<const float*>(di), dq, nullptr, nullptr, B, Sq, Skv, H, di_rs,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, 0, 0, do_sb, do_ss, sm_scale};
   return dispatch(DQ, D, dtype, a, stream);
 }

@@ -3,8 +3,9 @@
 Each source under ``diffulab_tpu_torch/csrc/`` becomes a shared library with
 a plain C interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``diffulab_tpu_torch/_build/`` (ignored by git) under a name keyed by a hash
-of the source and flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. Nothing here runs at import: the CPU tests import every
+of the source, the headers beside it (``csrc/hopper.cuh``) and the flags, so
+an edited source or header is rebuilt and an unchanged one is loaded as it
+is. Nothing here runs at import: the CPU tests import every
 module on machines without ``nvcc``.
 """
 
@@ -42,8 +43,8 @@ KERNELS = {
     ),
     "flash_attn_bwd": (
         "csrc/flash_attn_bwd.cu",
-        {"flash_attn_bwd_dkv": [_P] * 10 + [_I] * 5 + [_L] * 10 + [ctypes.c_float, _I, _P],
-         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P]},
+        {"flash_attn_bwd_dkv": [_P] * 10 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _I, _P],
+         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 8 + [ctypes.c_float, _I, _P]},
     ),
 }
 
@@ -61,9 +62,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, keyed by the source, every header beside it (a
+    source may include any of them) and the flags."""
     source = _PKG / KERNELS[name][0]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _tmp(so: Path) -> Path:

@@ -44,12 +44,14 @@ forms it outside Pallas, flash_attention.py:275):
 every product accumulates in fp32. At the txt2img training shape K4 makes
 four products over the valid keys and K5 three: compute-bound, ~0.87 and
 ~0.65 ms at 989 TFLOP/s. ``csrc/flash_attn_bwd.cu`` turns each TPU kernel's
-sequential grid axis into a loop inside one CTA: K4 per (64 keys, head,
-batch) over 64-query tiles with dk/dv in fp32 registers, K5 per (64 queries,
-head, batch) over 64-key tiles with dq in registers; tiles double-buffered by
-``cp.async``, ``mma.sync`` for bf16 and fp32 FMAs for fp32, the ragged ends
-masked in the kernel, no atomics (deterministic, as the reference's two
-kernels are). A pre-pass launched with K4 forms di.
+sequential grid axis into a loop inside one CTA, with no atomics
+(deterministic, as the reference's two kernels are). In bf16 at head dims 64
+and 128: K4 per (128 keys, head, batch) over TMA-fed 64-query tiles (32 at
+D = 128), K5 per (128 queries, head, batch) over 128-key tiles (64 at
+D = 128), two warpgroups of 64 rows taking turns at ``wgmma``, the sums in
+fp32 registers; p and ds go from the accumulators into register operands.
+At head dims 16 and 32 the first ``mma.sync`` kernels run, and fp32 runs
+fp32 FMAs. A coalesced pre-pass launched with K4 forms di and lse·log2 e.
 
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions, the same arithmetic over the same key tiles.
@@ -77,6 +79,15 @@ from diffulab_tpu_torch.ops.fused_mha import (
 
 #: keys per tile of the kernel and of its plain version
 KERNEL_BLOCK_N = 64
+
+#: keys per tile of the backward's sums: K4's CTA and K5's tile at head dim 64.
+#: The backward has no online rescale, so the tiling moves only the fp32
+#: summation order
+BWD_BLOCK_K = 128
+
+#: the backward's fp32 workspace rows (lse and di of each (batch, head)) are
+#: padded to a multiple of this, so that K4's last query tile reads whole rows
+BWD_ROW_ALIGN = 64
 
 #: launches of the CUDA kernels: K3 by :func:`flash_attention`, K4 by
 #: :func:`flash_attention_bwd_dkv`, K5 by :func:`flash_attention_bwd_dq`
@@ -136,7 +147,7 @@ def flash_attention_bwd_reference(
     lse: torch.Tensor,
     do: torch.Tensor,
     sm_scale: float | None = None,
-    block_k: int = KERNEL_BLOCK_N,
+    block_k: int = BWD_BLOCK_K,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels K4 and K5, in their op
     order and roundings, over key tiles of ``block_k`` keys (so no
@@ -206,15 +217,18 @@ def _check_bwd_inputs(q, k, v, kv_mask, lse, *like_q) -> None:
 
 
 def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
-    """K4 on CUDA tensors (the di pre-pass, then dk/dv): returns (dk, dv, di
-    fp32 [B, H, Sq]). The contract of :func:`flash_attention_bwd`."""
+    """K4 on CUDA tensors (the pre-pass, then dk/dv): returns (dk, dv, di
+    fp32 [B, H, Sq]). The contract of :func:`flash_attention_bwd`. di is a view
+    of the pre-pass's workspace ``[2, B, H, Sq padded to BWD_ROW_ALIGN]``
+    (lse·log2 e, then di), whose rows K4 reads whole."""
     _check_bwd_inputs(q, k, v, kv_mask, lse, o, do)
     b, sq, h, d = q.shape
     skv = k.shape[1]
     q, k, v, o, do = (_kernel_ready(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     mask = _int_mask(kv_mask, q.device)
-    di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    sq_pad = -(-sq // BWD_ROW_ALIGN) * BWD_ROW_ALIGN
+    ws = torch.empty((2, b, h, sq_pad), dtype=torch.float32, device=q.device)
     dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
     lib = _build.load("flash_attn_bwd")
@@ -222,16 +236,16 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
     with torch.cuda.device(q.device):
         err = lib.flash_attn_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            None if mask is None else mask.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(), ws.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            b, sq, skv, h, d,
+            b, sq, skv, h, d, sq_pad,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             o.stride(0), o.stride(1), do.stride(0), do.stride(1),
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_bwd_dkv")
     LAUNCHES["flash_attn_bwd_dkv"] += 1
-    return dk, dv, di
+    return dk, dv, ws[1, :, :, :sq]
 
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
@@ -242,7 +256,9 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
     b, sq, h, d = q.shape
     skv = k.shape[1]
     q, k, v, do = (_kernel_ready(t) for t in (q, k, v, do))
-    lse, di = lse.contiguous(), di.contiguous()
+    lse = lse.contiguous()
+    if di.stride(2) != 1 or di.stride(0) != h * di.stride(1):  # rows (b, h) evenly spaced, as K4's view is
+        di = di.contiguous()
     mask = _int_mask(kv_mask, q.device)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attn_bwd")
@@ -251,7 +267,7 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
         err = lib.flash_attn_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             None if mask is None else mask.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            b, sq, skv, h, d,
+            b, sq, skv, h, d, di.stride(1),
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             do.stride(0), do.stride(1),
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,

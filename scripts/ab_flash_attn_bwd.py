@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""K4 and K5 (the flash-attention backward) of two checkouts of the port,
+timed on one card.
+
+``--root DIR`` times the ``diffulab_tpu_torch`` package under DIR and prints
+one JSON line. At the txt2img training shape (B=8, S=4224, H=12, D=64,
+bf16, q/k/v as views of one packed qkv tensor, chip_smoke.py's training key
+mask): K4 with its pre-pass (``flash_attention_bwd_dkv``), K5
+(``flash_attention_bwd_dq``) and both (``flash_attention_bwd``), each as
+wall time per call back to back between two events (the kernels run for
+milliseconds, so the host's launch time hides behind them); the device time
+of each kernel alone (the pre-pass, K4, K5) from ``torch.profiler``; masked
+SDPA's backward (dq, dk and dv together) as the yardstick. Then K4+K5 at
+B=64 and 256, 384 and 512 tokens without a mask (the dispatch line of
+``ops/attention.py``), and K1's device time at B=32, S=256 from CUDA-graph
+replays (a kernel this change should not move: it shares the Hopper header).
+
+``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
+checkout again, and PARENT again, each in its own process (the two packages
+share a name), and prints the four lines and their medians side by side;
+with ``--train`` it then runs ``scripts/profile_torch_train.py --txt2img``
+of PARENT and of this checkout, one after the other, for the ms per step.
+Unpack the parent commit into a directory that git ignores, e.g.
+``git archive HEAD~1 | tar -x -C _parent``, then run from the repository
+root on the card: ``python3 scripts/ab_flash_attn_bwd.py --ab _parent --train``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "scripts"))
+from ab_fused_mha_fwd import graph_ms, wall_ms  # noqa: E402
+
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, 700 W
+
+
+def kernel_device_ms(fn, calls: int = 10) -> dict[str, float]:
+    """Device ms per call of each backward kernel ``fn`` launches: the
+    pre-pass, K4 and K5, by name, from ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"prepass": 0.0, "K4": 0.0, "K5": 0.0}
+    for evt in prof.key_averages():
+        name = evt.key
+        part = ("prepass" if "flash_bwd_di" in name or "flash_bwd_prep" in name
+                else "K4" if "flash_bwd_dkv" in name else "K5" if "flash_bwd_dq" in name else None)
+        if part is not None:
+            total_us = getattr(evt, "device_time_total", None)
+            if total_us is None:
+                total_us = evt.cuda_time_total
+            out[part] += total_us / 1e3 / calls
+    return out
+
+
+def measure(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from diffulab_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+    )
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def packed(b, s, h=12, d=64):
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").bfloat16()
+        return tuple(t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+
+    b, s, h, d = chip_smoke.TXT_TRAIN_BATCH, chip_smoke.TXT_SEQ, 12, 64
+    out = {"root": str(root)}
+    mask = chip_smoke.txt2img_train_mask()
+    with torch.no_grad():
+        q, k, v = packed(b, s)
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        o, lse = flash_attention(q, k, v, mask)
+        scale = d ** -0.5
+        _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
+        out["K4_with_prepass_ms"] = wall_ms(lambda: flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale), 20)
+        out["K5_ms"] = wall_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale), 20)
+        out["K4_K5_ms"] = wall_ms(lambda: flash_attention_bwd(q, k, v, mask, o, lse, do), 20)
+        for part, ms in kernel_device_ms(lambda: flash_attention_bwd(q, k, v, mask, o, lse, do)).items():
+            out[f"{part}_device_ms"] = ms
+    # the pre-pass's bytes: o and do read once, lse read, the workspace (lse and di) written
+    prepass_bytes = 2 * b * s * h * d * 2 + b * h * s * 4 + 2 * b * h * s * 4
+    out["prepass_bound_ms"] = prepass_bytes / PEAK_BYTES_PER_S * 1e3
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :])
+        dot = do.transpose(1, 2)
+        out["sdpa_bwd_ms"] = wall_ms(lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), 20)
+        del sdpa, qt, kt, vt
+    del q, k, v, do, o, lse, di
+    with torch.no_grad():
+        for ss in (256, 384, 512):
+            q, k, v = packed(64, ss)
+            do = torch.randn(64, ss, h, d, generator=gen, device="cuda").bfloat16()
+            o, lse = flash_attention(q, k, v)
+            out[f"K4_K5_B64_S{ss}_ms"] = wall_ms(lambda: flash_attention_bwd(q, k, v, None, o, lse, do), 50)
+        q, k, v = packed(32, 256)
+        out["K1_device_ms_B32_S256"] = graph_ms(lambda: fused_mha(q, k, v))
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    group = parser.add_mutually_exclusive_group(required=True)
+    group.add_argument("--root", type=Path, help="time the package under this directory")
+    group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
+    parser.add_argument("--train", action="store_true", help="with --ab: the txt2img train profile of both trees")
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_flash_attn_bwd: no CUDA device", file=sys.stderr)
+        return 2
+    if args.root is not None:
+        print(json.dumps(measure(args.root)))
+        return 0
+    runs = []
+    for root in (args.ab, ROOT, ROOT, args.ab):
+        done = subprocess.run([sys.executable, __file__, "--root", str(root)], capture_output=True, text=True)
+        if done.returncode != 0:
+            print(done.stdout, done.stderr, file=sys.stderr)
+            return done.returncode
+        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    for key in runs[0]:
+        if key == "root":
+            continue
+        parent = statistics.median([runs[0][key], runs[3][key]])
+        change = statistics.median([runs[1][key], runs[2][key]])
+        print(f"{key}: parent {runs[0][key]:.4f} / {runs[3][key]:.4f}, change {runs[1][key]:.4f} / "
+              f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, x{parent / change:.2f})")
+    if args.train:
+        for label, root in (("parent", args.ab.resolve()), ("change", ROOT)):
+            done = subprocess.run([sys.executable, str(root / "scripts" / "profile_torch_train.py"), "--txt2img"],
+                                  capture_output=True, text=True, cwd=root)
+            if done.returncode != 0:
+                print(done.stdout, done.stderr, file=sys.stderr)
+                return done.returncode
+            print(f"--- profile_torch_train.py --txt2img, {label} ({root}):")
+            print(done.stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -35,7 +35,7 @@ def _group(name: str) -> str:
         return "attention (flash_attn_bwd_dkv)"
     if "flash_bwd_dq" in low:
         return "attention (flash_attn_bwd_dq)"
-    if "flash_bwd_di" in low:
+    if "flash_bwd_prep" in low:
         return "attention (flash_attn_bwd_dkv di pre-pass)"
     if "flash_fwd" in low:
         return "attention (flash_attn_fwd)"
