@@ -32,8 +32,10 @@ Phases, one line each:
   4. three ``generate`` requests, with the kernels' launch counts set to 0
      just before and read just after: 600 K1 launches per request;
   5. K2 (attention backward) against its plain version, at the training
-     shape and at the edge cases, with its timings and SDPA's backward as the
-     yardstick;
+     shape and at the edge cases (among them the Hopper K2's: Skv 64 to 768,
+     K and V resident for both passes or streamed twice, a 64-key masked
+     block, D=128, packed qkv views), with its wall and device times and
+     SDPA's backward as the yardstick;
   6. the DiT-B/2 parameter gradients of one loss at batch 64, kernel path
      against plain attention: 12 K1 and 12 K2 launches;
   7. ``BaseTrainer.train`` for 12 steps plus validation and the best-val
@@ -41,9 +43,10 @@ Phases, one line each:
      in every step; ms per step and samples/s;
   8. K3 (flash attention forward) against its plain version, at the txt2img
      shape (B=8, S=4224, H=12, D=64, bf16) with the fused-CFG ragged text
-     mask, in fp32, and at the edge cases; its timings, SDPA's as the
-     yardstick, and K1 against K3 (and SDPA) at 256-512 tokens, device times
-     from CUDA-graph replays;
+     mask, in fp32, and at the edge cases (among them the Hopper K3's tile
+     edges: Skv 129/130, Sq 65/129, Skv <= 64, a 128-key hole, D=128 ragged);
+     its wall and device times, SDPA's as the yardstick, and K1 against K3
+     (and SDPA) at 256-768 tokens, device times from CUDA-graph replays;
   9. the txt2img MMDiT forward at that shape, kernel path against the plain
      attention: 12 K3 launches and no K1;
  10. two txt2img ``generate`` requests with the Flux2 decode, the counts set
@@ -56,7 +59,9 @@ Phases, one line each:
      cases (among them the tile edges of the Hopper kernels: Skv 129 and 130,
      Sq 65, a 128-key masked hole, D=128 at ragged lengths, Skv <= 64) and
      through the entry point under grad; their timings, bounds and SDPA's
-     masked backward as the yardstick; K2 against K4+K5 at 256-512 tokens;
+     masked backward as the yardstick; K2 against K4+K5 at 256-768 tokens,
+     and with phase 8's forwards the fused route (K1 + K2) against the flash
+     route (K3 + K4 + K5) about the dispatch line;
  12. the txt2img MMDiT parameter gradients of one loss at 4224 tokens (model
      batch 2), kernel path against plain attention: 12 K3 + 12 K4 + 12 K5
      launches and no K1/K2;
@@ -177,6 +182,9 @@ GEN_REL_TOL = 1e-1
 # p, and 12 bf16 blocks carry the difference
 TXT_REL_TOL = 5e-2
 TRAJ_STEPS = 4
+# padded lengths about the fused/flash dispatch line (FUSED_MAX_SEQ = 512; the
+# reference's VMEM budget admits the fused kernel to 640 at H=12, D=64)
+CROSSOVER_SEQS = (256, 384, 512, 640, 768)
 
 
 def fail(msg: str) -> None:
@@ -226,6 +234,26 @@ def cuda_graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (calls * replays)
+
+
+def profiled_ms(fn, calls: int = 10) -> float:
+    """Device time per call of ``fn``: its kernels' times summed by
+    ``torch.profiler``, for a call that a CUDA graph cannot capture (autograd's
+    backward), and beside it for the kernel it is compared with."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        device_us = getattr(evt, "device_time_total", None)
+        total_us += evt.cuda_time_total if device_us is None else device_us
+    return total_us / 1e3 / calls
 
 
 def check_close(name, ours, ref, atol, rtol) -> float:
@@ -462,18 +490,24 @@ def phase_flash_kernel():
         q, k, v = (rand(b, s, h, d, dtype=torch.bfloat16) for _ in range(3))
         err = check("main bf16", both(q, k, v, mask), TOL["bfloat16"])
         kernel_ms = cuda_time_ms(lambda: flash_attention(q, k, v, mask), iters=20)
+        device_ms = cuda_graph_ms(lambda: flash_attention(q, k, v, mask), calls=10, replays=5)
         plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, mask), iters=2, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa_mask = mask[:, None, None, :]
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), iters=20)
+        library_device_ms = cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask),
+                                          calls=10, replays=5)
         bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, int(mask.sum()), q.element_size())
         print(f"phase 8 kernel K3 main B={b} S={s} H={h} D={d} bf16, text mask {list(TEXT_LENGTHS)} + "
               f"{TXT_BATCH}x{NULL_SEQ_LEN}: max_abs_err {err:.3e} (tol atol {TOL['bfloat16'][0]} rtol "
-              f"{TOL['bfloat16'][1]}); kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-              f"{library_ms:.4f} (SDPA, masked) bound_ms {bound_ms:.4f} ({bound_by}: {mb:.1f} MB, "
-              f"{gflop:.1f} GFLOP; {gflop / kernel_ms:.1f} TFLOP/s achieved)")
+              f"{TOL['bfloat16'][1]}); wall ms per call back to back kernel {kernel_ms:.4f} SDPA (masked) "
+              f"{library_ms:.4f}; device ms (CUDA-graph replay) kernel {device_ms:.4f} SDPA {library_device_ms:.4f}; "
+              f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {mb:.1f} MB, "
+              f"{gflop:.1f} GFLOP; {gflop / device_ms:.1f} TFLOP/s achieved)")
         result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
+                      bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms, library_device_ms=library_device_ms,
+                      timing="ms and library_ms: wall time per call back to back; device_ms and library_device_ms: "
+                             "device time per call from CUDA-graph replays")
 
         # fp32 at the slice shape (the library's default dtype=None runs fp32)
         q32, k32, v32 = (t.float() for t in (q, k, v))
@@ -515,13 +549,41 @@ def phase_flash_kernel():
             if not (bool((o[0] == 0).all()) and bool(torch.isposinf(lse[0]).all())):
                 fail(f"K3 fully-masked row {name}: o not exactly 0 or lse not +inf")
             errs["fully_masked_other_row"] = check_close(f"fully-masked other row {name}", o[1], ro[1], *tol)
+            # the Hopper K3's tile edges: 128 queries a CTA in 64-row warpgroup tiles, 128-key ring tiles
+            q = rand(2, 200, 4, 64, dtype=dtype)
+            for skv in (129, 130):  # one and two keys past a tile
+                k, v = rand(2, skv, 4, 64, dtype=dtype), rand(2, skv, 4, 64, dtype=dtype)
+                kmask = torch.arange(skv, device="cuda")[None, :] < torch.tensor([[skv], [100]], device="cuda")
+                errs[f"skv_{skv}"] = check(f"Skv={skv} {name}", both(q, k, v, kmask), tol)
+            k, v = rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
+            for sq in (65, 129):  # one query past a warpgroup's tile and past a CTA
+                errs[f"sq_{sq}"] = check(f"Sq={sq} {name}", both(rand(2, sq, 4, 64, dtype=dtype), k, v), tol)
+            errs["skv_64_50"] = max(check(f"Skv={skv} {name}", both(
+                q, rand(2, skv, 4, 64, dtype=dtype), rand(2, skv, 4, 64, dtype=dtype)), tol) for skv in (64, 50))
+            # a 128-key hole: a whole tile of masked keys between two valid ones
+            q, k, v = (rand(2, 384, 4, 64, dtype=dtype) for _ in range(3))
+            hmask = torch.ones(2, 384, dtype=torch.bool, device="cuda")
+            hmask[:, 128:256] = False
+            errs["hole_128"] = check(f"128-key hole {name}", both(q, k, v, hmask), tol)
+            # D = 128 at ragged lengths, with a mask
+            kmask = torch.arange(300, device="cuda")[None, :] < torch.tensor([[300], [131]], device="cuda")
+            errs["D128_130_300"] = check(f"D=128 130/300 {name}", both(
+                rand(2, 130, 2, 128, dtype=dtype), rand(2, 300, 2, 128, dtype=dtype), rand(2, 300, 2, 128, dtype=dtype),
+                kmask), tol)
+            if dtype == torch.bfloat16:  # past the key-mask words a CTA holds (65536 keys): read tile by tile
+                skv = 65600
+                kmask = torch.rand(1, skv, generator=gen, device="cuda") < 0.9
+                errs["skv_65600_mask"] = check(f"Skv={skv} {name}", both(
+                    rand(1, 64, 1, 64, dtype=dtype), rand(1, skv, 1, 64, dtype=dtype), rand(1, skv, 1, 64, dtype=dtype),
+                    kmask), tol)
             print(f"phase 8 kernel K3 edge cases {name} (tol atol {tol[0]} rtol {tol[1]}): max_abs_err "
                   + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row o==0 lse==+inf")
 
-        # K1 against K3 where the dispatch hands over (FUSED_MAX_SEQ): device times from CUDA-graph replays
+        # K1 against K3 about the dispatch line (FUSED_MAX_SEQ; the reference's budget reaches 640 at H=12):
+        # device times from CUDA-graph replays
         times = {}
-        for bb in (TXT_BATCH * 2, 32):
-            for ss in (256, 384, 512):
+        for bb in (TXT_BATCH * 2, 32, TRAIN_BATCH):
+            for ss in CROSSOVER_SEQS:
                 q, k, v = (rand(bb, ss, 12, 64, dtype=torch.bfloat16) for _ in range(3))
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 times[f"B{bb}_S{ss}"] = (cuda_graph_ms(lambda: fused_mha(q, k, v)),
@@ -564,11 +626,12 @@ def flash_bwd_bounds(b, sq, h, d, valid_keys, elem):
     return out
 
 
-def phase_flash_bwd_kernel():
+def phase_flash_bwd_kernel(forward_times=None):
     """K4 and K5 against their plain version on the same CUDA inputs, from
     the o and lse K3 gives: the slice shape with the training key mask, fp32,
-    the edge cases, the entry point under grad, and K2 against K4+K5 at 256,
-    384 and 512 tokens."""
+    the edge cases, the entry point under grad, and K2 against K4+K5 at
+    CROSSOVER_SEQS tokens (with ``forward_times``, phase 8's K1 and K3 there,
+    the two routes' sums)."""
     import torch
     import torch.nn.functional as F
 
@@ -719,18 +782,25 @@ def phase_flash_bwd_kernel():
         print(f"phase 11 kernel K4/K5 edge cases {name} (tol {tol} * (max|ref| + |ref|)): max_abs_err "
               + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row grads==0")
 
-    # K2 against K4+K5 where the dispatch hands over (FUSED_MAX_SEQ), each after its own forward
+    # K2 against K4+K5 about the dispatch line, each after its own forward: device times from CUDA-graph
+    # replays; with phase 8's forwards, the fused route (K1 + K2) against the flash route (K3 + K4 + K5)
     times = {}
     with torch.no_grad():
-        for ss in (256, 384, 512):
-            q, k, v, do = (rand(TRAIN_BATCH, ss, 12, 64, dtype=torch.bfloat16) for _ in range(4))
-            _, lse1 = fused_mha(q, k, v)
-            o3, lse3 = flash_attention(q, k, v)
-            times[f"B{TRAIN_BATCH}_S{ss}"] = (
-                cuda_time_ms(lambda: fused_mha_bwd(q, k, v, None, lse1, do), iters=30),
-                cuda_time_ms(lambda: flash_attention_bwd(q, k, v, None, o3, lse3, do), iters=30))
-    print("phase 11 K2 vs K4+K5 (H=12, D=64, bf16, ms): " + " ".join(
+        for bb in (32, TRAIN_BATCH):
+            for ss in CROSSOVER_SEQS:
+                q, k, v, do = (rand(bb, ss, 12, 64, dtype=torch.bfloat16) for _ in range(4))
+                _, lse1 = fused_mha(q, k, v)
+                o3, lse3 = flash_attention(q, k, v)
+                times[f"B{bb}_S{ss}"] = (
+                    cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse1, do), calls=10, replays=5),
+                    cuda_graph_ms(lambda: flash_attention_bwd(q, k, v, None, o3, lse3, do), calls=10, replays=5))
+                del q, k, v, do, lse1, o3, lse3
+    print("phase 11 K2 vs K4+K5 (H=12, D=64, bf16, device ms from CUDA-graph replays): " + " ".join(
         f"{key} K2 {k2:.4f} K4+K5 {k45:.4f}" for key, (k2, k45) in times.items()))
+    if forward_times is not None:
+        print("phase 11 fused route K1+K2 vs flash route K3+K4+K5 (forward and backward, device ms): " + " ".join(
+            f"{key} {forward_times[key][0] + k2:.4f} vs {forward_times[key][1] + k45:.4f}"
+            for key, (k2, k45) in times.items() if key in forward_times))
     torch.cuda.synchronize()
     return results, times
 
@@ -870,6 +940,7 @@ def phase_kernel_bwd():
         ours = fused_mha_bwd(q, k, v, None, lse, do)
         err = check_grads("main bf16", ours, fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["bfloat16"])
         kernel_ms = cuda_time_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), iters=100)
+        device_ms = profiled_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do))
         plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=10)
     with torch.enable_grad():
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -877,6 +948,7 @@ def phase_kernel_bwd():
         dot = do.transpose(1, 2)
         library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
                                   iters=100)
+        library_device_ms = profiled_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
         del out
     elem = q.element_size()
     bytes_moved = 7 * b * s * h * d * elem + b * s * h * 4  # q, k, v, do, dq, dk, dv once each + lse
@@ -884,11 +956,14 @@ def phase_kernel_bwd():
     bound_ms = max(bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
     bound_by = "bytes" if bytes_moved / PEAK_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
     print(f"phase 5 kernel K2 main B={b} S={s} H={h} D={d} bf16: max_abs_err {err:.3e} "
-          f"(tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {library_ms:.4f} (SDPA backward) bound_us {bound_ms * 1e3:.2f} "
+          f"(tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); wall ms per call back to back kernel {kernel_ms:.4f} "
+          f"SDPA backward {library_ms:.4f}; device ms (kernels summed by torch.profiler) kernel {device_ms:.4f} SDPA "
+          f"backward {library_device_ms:.4f}; plain_ms {plain_ms:.4f}; bound_us {bound_ms * 1e3:.2f} "
           f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms, bound_by=bound_by)
+                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms, library_device_ms=library_device_ms,
+                  timing="ms and library_ms: wall time per call back to back; device_ms and library_device_ms: "
+                         "device time per call, kernels summed by torch.profiler")
 
     with torch.no_grad():
         # fp32 at the training shape (the library's default dtype=None trains in fp32)
@@ -923,6 +998,32 @@ def phase_kernel_bwd():
             if not all(bool((g[0] == 0).all()) for g in ours):
                 fail(f"fully-masked row {name}: gradients not exactly 0")
             e_full = check_grads(f"fully-masked other row {name}", [g[1] for g in ours], [g[1] for g in ref], tol)
+            # the Hopper K2's edges: key counts of one tile (64, 128), of tiles that K and V stay resident in
+            # for both passes (320: 192 + 128 at D = 64), and of tiles streamed through the ring twice (640, 768)
+            e_skv = {}
+            for skv in (64, 128, 320, 640, 768):
+                q, do = rand(2, 192, 4, 64, dtype=dtype), rand(2, 192, 4, 64, dtype=dtype)
+                k, v = rand(2, skv, 4, 64, dtype=dtype), rand(2, skv, 4, 64, dtype=dtype)
+                kmask = torch.arange(skv, device="cuda")[None, :] < torch.tensor([[skv], [skv // 2 + 1]], device="cuda")
+                e_skv[skv] = check_grads(f"Skv={skv} {name}", *both(q, k, v, do, kmask), tol)
+            # a 64-key masked block in the middle: its keys get exactly zero dk and dv
+            q, k, v, do = (rand(2, 256, 4, 64, dtype=dtype) for _ in range(4))
+            hmask = torch.ones(2, 256, dtype=torch.bool, device="cuda")
+            hmask[:, 64:128] = False
+            ours, ref = both(q, k, v, do, hmask)
+            if not all(bool((g[:, 64:128] == 0).all()) for g in ours[1:]):
+                fail(f"K2 64-key masked block {name}: dk or dv of a masked key not exactly 0")
+            e_hole = check_grads(f"64-key masked block {name}", ours, ref, tol)
+            # D = 128 past one tile, with a mask (resident at 256 keys, streamed at 320)
+            e_d128 = max(check_grads(f"D=128 Skv={skv} {name}", *both(
+                rand(2, 128, 2, 128, dtype=dtype), rand(2, skv, 2, 128, dtype=dtype), rand(2, skv, 2, 128, dtype=dtype),
+                rand(2, 128, 2, 128, dtype=dtype),
+                torch.arange(skv, device="cuda")[None, :] < torch.tensor([[skv], [70]], device="cuda")), tol)
+                for skv in (256, 320))
+            # q/k/v as strided views of one packed qkv projection output, at 384 tokens
+            qkv = rand(2, 384, 3 * 4 * 64, dtype=dtype)
+            q, k, v = (t.reshape(2, 384, 4, 64) for t in qkv.chunk(3, dim=-1))
+            e_packed = check_grads(f"packed views {name}", *both(q, k, v, rand(2, 384, 4, 64, dtype=dtype)), tol)
         # unaligned 100 / 300 with grad through the padding entry point
         qs, ks, vs = rand(2, 100, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype), rand(2, 300, 4, 64, dtype=dtype)
         do = rand(2, 100, 4, 64, dtype=dtype)
@@ -934,7 +1035,10 @@ def phase_kernel_bwd():
         e_unal = check_grads(f"unaligned {name}", *grads, GRAD_PATH_TOL[name])
         print(f"phase 5 kernel K2 edge cases {name} (tol {tol} * (max|ref| + |ref|)): max_abs_err "
               f"mask {e_mask:.3e} cross_256_128 {e_cross:.3e} D16/32/128 {e_dims:.3e} fully_masked_row "
-              f"grads==0 other_row {e_full:.3e}; unaligned_100_300 autograd vs plain-forward autograd "
+              f"grads==0 other_row {e_full:.3e} "
+              + " ".join(f"skv_{skv} {e:.3e}" for skv, e in e_skv.items())
+              + f" masked_block_64 {e_hole:.3e} (dk, dv == 0 there) D128_256/320 {e_d128:.3e} packed_views_384 "
+              f"{e_packed:.3e}; unaligned_100_300 autograd vs plain-forward autograd "
               f"{e_unal:.3e} (tol {GRAD_PATH_TOL[name]})")
     torch.cuda.synchronize()
     return result
@@ -1415,7 +1519,7 @@ def main() -> int:
     txt_model, txt_plain, tower, cond = build_txt2img()
     phase_txt2img_forward(txt_model, txt_plain, cond)
     txt_totals, _ = phase_txt2img_generate(txt_model, txt_plain, tower, cond)
-    k45, bwd_crossover = phase_flash_bwd_kernel()
+    k45, bwd_crossover = phase_flash_bwd_kernel(crossover)
     phase_txt2img_gradients(txt_model, txt_plain)
     del txt_plain
     txt_train_launches, _ = phase_txt2img_train(txt_model, tower)

@@ -31,7 +31,8 @@
 // in one CTA's registers (no atomics: the result does not depend on the run,
 // as the reference's two-kernel split does not).
 //
-// bf16 at D = 64 and 128 (flash_bwd_dkv_hopper, flash_bwd_dq_hopper): one CTA
+// bf16 at D = 64 and 128 (flash_bwd_dkv_hopper, flash_bwd_dq_hopper, whose
+// bodies live in attn_bwd_hopper.cuh, where K2 shares them): one CTA
 // per 128 keys (K4) or 128 queries (K5) of one (batch, head), two warpgroups
 // of 64 rows. The CTA's own rows (K and V in K4, Q and dO in K5) land once by
 // TMA and stay in shared memory, at D = 64 also as register A operands; the
@@ -64,7 +65,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"  // mbarriers, TMA, wgmma and the tensor-map encoder
+#include "attn_bwd_hopper.cuh"  // the Hopper kernels at D = 64 and 128 (shared with K2), hopper.cuh
 
 namespace {
 
@@ -649,169 +650,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
   for (int d = 0; d < D; ++d) out[d] = acc[d];
 }
 
-// --- bf16 at D = 64 and 128: wgmma on TMA-fed tiles ------------------------------
+// --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh -----------
 
-constexpr int HB_ROWS = 128;             // keys of a K4 CTA, queries of a K5 CTA
-constexpr int WG = 128;                  // threads of a warpgroup, which owns 64 of those rows
-constexpr int HB_THREADS = 2 * WG;       // two warpgroups: up to 255 registers a thread
-constexpr int STAGES = 4;                // slots of the ring
-// named barriers: SCHED_BAR + w is warpgroup w's turn at the tensor cores,
-// DONE_BAR + w gathers warpgroup w's threads
-constexpr int SCHED_BAR = 1, DONE_BAR = 3;
-constexpr int WS_ALIGN = 64;             // the workspace's rows are padded to a multiple of this
-
-// K4's shared memory, from a 1024-byte aligned base: the CTA's K, then V
-// ([half][128 rows][128 B], the swizzled TMA boxes), STAGES slots of a Q and
-// a dO tile of BQ queries, the slots' lse2 and di vectors, the barriers
-template <int D>
-struct DkvSmem {
-  static constexpr int BQ = D == 128 ? 32 : 64;  // queries a tile: at D = 128, dk and dv hold 128 registers
-  static constexpr int KV = HB_ROWS * D * 2;
-  static constexpr int TILE = BQ * D * 2;
-  static constexpr int VEC = BQ * 4;
-  static constexpr int RING = 2 * KV;
-  static constexpr int VECS = RING + STAGES * 2 * TILE;
-  static constexpr int BARS = VECS + STAGES * 2 * VEC;
-  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
-};
-
-// K5's: the CTA's Q, then dO, STAGES slots of a K and a V tile of KT keys,
-// the barriers
-template <int D>
-struct DqSmem {
-  static constexpr int KT = D == 128 ? 64 : 128;  // keys a tile: at D = 128, 128 would not fit four slots
-  static constexpr int QD = HB_ROWS * D * 2;
-  static constexpr int TILE = KT * D * 2;
-  static constexpr int RING = 2 * QD;
-  static constexpr int BARS = RING + STAGES * 2 * TILE;
-  static constexpr int BYTES = 1024 + BARS + (1 + 2 * STAGES) * 8;
-};
-
-// acc = A . B^T over D, both K-major in shared memory: A 64 rows at a_addr, B N
-// rows at b_addr, their 64-column halves a_half and b_half bytes apart; issued
-// and committed, not awaited
-template <int D, int N>
-__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint32_t a_addr, uint32_t a_half, uint32_t b_addr,
-                                         uint32_t b_half) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
-    Wgmma<N>::ss(acc, smem_desc(a_addr + half * a_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
-                 smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE), kk > 0);
-  }
-  wgmma_commit();
-}
-
-// x (64 rows x N columns in the accumulator layout: x[4c + 2r + e] is row
-// 16 * warp + g + 8r, column 8c + 2 * t4 + e) rounded to bf16 into the
-// register A operand of N / 16 k16 steps
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
-    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
-    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
-    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
-  }
-}
-
-// acc += A . B over 16 * KSTEPS rows of B: A in registers (pack_a), B MN-major
-// in shared memory (rows of D bf16 from b_addr, 64-column halves b_half bytes
-// apart); issued and committed, not awaited
-template <int D, int KSTEPS>
-__device__ __forceinline__ void rs_issue(float (&acc)[D / 2], const uint32_t (&a)[KSTEPS][4], uint32_t b_addr,
-                                         uint32_t b_half) {
-  using G = Geometry<D>;
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk)
-    WgmmaRs<D>::rs(acc, a[kk], smem_desc(b_addr + kk * 16 * G::ROWB, b_half, 8 * G::ROWB, G::SWIZZLE), 1);
-  wgmma_commit();
-}
-
-// acc = A . B^T over D: A (64 rows x D) in registers (load_a), B N rows
-// K-major in shared memory at b_addr, its 64-column halves b_half bytes apart;
-// issued and committed, not awaited
-template <int D, int N>
-__device__ __forceinline__ void rs_issue_t(float (&acc)[N / 2], const uint32_t (&a)[D / 16][4], uint32_t b_addr,
-                                           uint32_t b_half) {
-  using G = Geometry<D>;
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
-    WgmmaRs<N>::template rs<0>(acc, a[kk], smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
-                               kk > 0);
-  }
-  wgmma_commit();
-}
-
-// the register A operand of rows [row0, row0 + 64) (x D, K-major) of a
-// [half][rows][128 B] region that TMA filled with the 128-byte swizzle:
-// a[kk][i] holds row 16 * warp + g + 8 (i & 1), columns 16 kk + 2 t4 + 8 (i >> 1)
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4], uint32_t region, uint32_t half, int row0, int warp,
-                                       int g, int t4) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + 16 * warp + g + 8 * (i & 1), col = 16 * kk + 2 * t4 + 8 * (i >> 1);
-      const uint32_t off = (col / 64) * half + row * 128 + ((((col % 64) / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
-      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(a[kk][i]) : "r"(region + off) : "memory");
-    }
-}
-
-// a warpgroup's 64 x D accumulator, rounded to bf16, into rows [row0, row0 +
-// 64) of a [half][rows][128 B] region (halves `half` bytes apart) in the
-// swizzled layout of a TMA box: rows r_lo and r_lo + 8 of this thread
-template <int D>
-__device__ __forceinline__ void stage_acc(uint32_t region, uint32_t half, int row0, const float (&acc)[D / 2],
-                                          int r_lo, int t4) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      uint32_t off = (col / 64) * half + (row0 + r_lo + 8 * r) * 128 + (col % 64) * 2;
-      off ^= ((off >> 7) & 7) << 4;
-      const uint32_t val = pack_bf16(acc[4 * dn + 2 * r], acc[4 * dn + 2 * r + 1]);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(region + off), "r"(val) : "memory");
-    }
-  }
-}
-
-// the rows of [row0, row0 + HB_ROWS) that TMA boxes of 64 rows load: boxes
-// wholly past S are not loaded (their rows are masked and never stored)
-__device__ __forceinline__ int loaded_rows(int row0, int S) {
-  return min(HB_ROWS, (S - row0 + TMA_ROWS - 1) / TMA_ROWS * TMA_ROWS);
-}
-
-// K4 (dk, dv), one CTA per (128 keys, head, batch): two warpgroups of 64 keys.
-// The CTA's K and V land once by TMA and stay (at D = 64 also as register A
-// operands); Q and dO tiles of BQ queries, with their lse2 and di vectors by
-// bulk copy, stream through a ring of STAGES slots, refilled by one thread of
-// the second warpgroup as soon as both have released a slot. Per tile, keys as
-// rows: S^T = K.Q^T and dP^T = V.dO^T (RS wgmma at D = 64, SS at D = 128,
-// where the registers are short; Q and dO K-major B); P^T = ex2(S^T * scale *
-// log2 e - lse2), 0 on a masked key (one predicate a row), while dP^T runs;
-// dS^T = P^T * (dP^T - di) * scale; then, issued with the next tile's scores,
-// dV += round(P^T).dO and dK += round(dS^T).Q (RS: P^T and dS^T from the
-// accumulators into A registers, dO and Q MN-major B). The warpgroups take
-// turns at the tensor cores, one batch of products a tile each, so that one's
-// exponentials overlap the other's products. A slot is released once every
-// product that read it is done. dk and dv are staged where the warpgroup's own
-// K and V were and leave by TMA store.
+// K4 (dk, dv), one CTA per (128 keys, head, batch): bwd_dkv_hopper
 template <int D>
 __global__ void __launch_bounds__(HB_THREADS, 1)
 flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -819,310 +660,22 @@ flash_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq, const __grid_consta
                      const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
                      const int* __restrict__ mask, const float* __restrict__ ws, int Sq, int Skv, int H, int ws_rs,
                      float sm_scale) {
-  using G = Geometry<D>;
-  using S = DkvSmem<D>;
-  constexpr int BQ = S::BQ;
-  constexpr bool KV_REGS = D == 64;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t base = smem_u32(smem), kv_half = HB_ROWS * G::ROWB, tile_half = BQ * G::ROWB;
-  // barriers: 0 the CTA's K and V landed; 1 + s slot s full; 1 + STAGES + s slot s free
-  auto bar = [&](int i) { return base + S::BARS + 8 * i; };
-  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * HB_ROWS;
-  const int n_tiles = (Sq + BQ - 1) / BQ;
-  const float* lse2_g = ws + ((long long)b * H + h) * ws_rs;
-  const float* di_g = lse2_g + (long long)gridDim.z * H * ws_rs;
-  auto load_tile = [&](int t) {
-    const int s = t % STAGES;
-    const uint32_t dst = base + S::RING + s * 2 * S::TILE, vec = base + S::VECS + s * 2 * S::VEC;
-    mbar_expect_tx(bar(1 + s), 2 * S::TILE + 2 * S::VEC);
-    load_rows<D, BQ>(dst, &tq, b, h, t * BQ, BQ, tile_half, bar(1 + s));
-    load_rows<D, BQ>(dst + S::TILE, &tdo, b, h, t * BQ, BQ, tile_half, bar(1 + s));
-    bulk_load(vec, lse2_g + t * BQ, S::VEC, bar(1 + s));
-    bulk_load(vec + S::VEC, di_g + t * BQ, S::VEC, bar(1 + s));
-  };
-
-  if (tid == 0) {
-    mbar_init(bar(0), 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar(1 + s), 1);
-      mbar_init(bar(1 + STAGES + s), 8);  // one arrival from each warp
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const int kv_rows = loaded_rows(n0, Skv);
-    mbar_expect_tx(bar(0), 2 * kv_rows * D * 2);
-    load_rows<D>(base, &tk, b, h, n0, kv_rows, kv_half, bar(0));
-    load_rows<D>(base + S::KV, &tv, b, h, n0, kv_rows, kv_half, bar(0));
-    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_tile(t);
-  }
-
-  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
-  const int r_lo = 16 * warp + g;  // this thread's keys: rows r_lo and r_lo + 8 of the warpgroup's 64
-  const float scale_log2 = sm_scale * LOG2E;
-  bool keep[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = n0 + 64 * wg + r_lo + 8 * r;
-    keep[r] = key < Skv && (mask == nullptr || mask[(long long)b * Skv + key] != 0);
-  }
-  const uint32_t k_w = base + wg * 64 * G::ROWB, v_w = k_w + S::KV;
-  const float* vecs = reinterpret_cast<const float*>(smem + S::VECS);
-  auto turn = [&]() { named_sync(SCHED_BAR + wg, 2 * WG); };
-  auto pass_turn = [&]() { named_arrive(SCHED_BAR + 1 - wg, 2 * WG); };
-  if (wg == 1) pass_turn();  // the first warpgroup takes the tensor cores first
-
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
-  float s[BQ / 2], dp[BQ / 2];
-  uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-  uint32_t ka[KV_REGS ? D / 16 : 1][4], va[KV_REGS ? D / 16 : 1][4];
-  mbar_wait(bar(0), 0);
-  if constexpr (KV_REGS) {
-    load_a<D>(ka, base, kv_half, 64 * wg, warp, g, t4);
-    load_a<D>(va, base + S::KV, kv_half, 64 * wg, warp, g, t4);
-  }
-  uint32_t q_last = 0, do_last = 0;  // the last tile's Q and dO, which its gradient products read
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % STAGES;
-    const uint32_t q_t = base + S::RING + st * 2 * S::TILE, do_t = q_t + S::TILE;
-    mbar_wait(bar(1 + st), (j / STAGES) & 1);
-    turn();
-    if (j > 0) {
-      rs_issue<D, BQ / 16>(dv, pa, do_last, tile_half);   // dV += round(P^T).dO of the last tile
-      rs_issue<D, BQ / 16>(dk, dsa, q_last, tile_half);   // dK += round(dS^T).Q of the last tile
-    }
-    if constexpr (KV_REGS) {
-      rs_issue_t<D, BQ>(s, ka, q_t, tile_half);    // S^T = K.Q^T
-      rs_issue_t<D, BQ>(dp, va, do_t, tile_half);  // dP^T = V.dO^T
-    } else {
-      ss_issue<D, BQ>(s, k_w, kv_half, q_t, tile_half);
-      ss_issue<D, BQ>(dp, v_w, kv_half, do_t, tile_half);
-    }
-    pass_turn();
-    wgmma_wait<1>();  // S^T, and the last tile's products, done
-    fence_regs(s);
-    if (j > 0) {  // the last tile's slot is free: refill it
-      const int free_slot = (j - 1) % STAGES;
-      if (lane == 0) mbar_arrive(bar(1 + STAGES + free_slot));
-      if (tid == WG && j - 1 + STAGES < n_tiles) {
-        mbar_wait(bar(1 + STAGES + free_slot), ((j - 1) / STAGES) & 1);
-        load_tile(j - 1 + STAGES);
-      }
-    }
-    const float* lse2 = vecs + st * 2 * BQ;
-    const float* di = lse2 + BQ;
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * c + 2 * t4);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        s[4 * c + 2 * r] = keep[r] ? exp2_approx(fmaf(s[4 * c + 2 * r], scale_log2, -l2.x)) : 0.f;
-        s[4 * c + 2 * r + 1] = keep[r] ? exp2_approx(fmaf(s[4 * c + 2 * r + 1], scale_log2, -l2.y)) : 0.f;
-      }
-    }
-    pack_a<BQ>(pa, s);
-    wgmma_wait<0>();  // dP^T done
-    fence_regs(dp);
-#pragma unroll
-    for (int c = 0; c < BQ / 8; ++c) {
-      const float2 d2 = *reinterpret_cast<const float2*>(di + 8 * c + 2 * t4);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        dp[4 * c + 2 * r] = s[4 * c + 2 * r] * (dp[4 * c + 2 * r] - d2.x) * sm_scale;
-        dp[4 * c + 2 * r + 1] = s[4 * c + 2 * r + 1] * (dp[4 * c + 2 * r + 1] - d2.y) * sm_scale;
-      }
-    }
-    pack_a<BQ>(dsa, dp);
-    q_last = q_t;
-    do_last = do_t;
-  }
-  turn();
-  rs_issue<D, BQ / 16>(dv, pa, do_last, tile_half);
-  rs_issue<D, BQ / 16>(dk, dsa, q_last, tile_half);
-  pass_turn();
-  wgmma_wait<0>();
-  fence_regs(dk);
-  fence_regs(dv);
-  // dk and dv where this warpgroup's K and V were (no other warpgroup reads those rows)
-  stage_acc<D>(base, kv_half, 64 * wg, dk, r_lo, t4);
-  stage_acc<D>(base + S::KV, kv_half, 64 * wg, dv, r_lo, t4);
-  fence_async_smem();
-  named_sync(DONE_BAR + wg, WG);
-  if (tid % WG == 0 && n0 + 64 * wg < Skv) {
-    for (int hh = 0; hh < G::HALVES; ++hh) {
-      tma_store_3d(&tdk, k_w + hh * kv_half, h * D + hh * 64, n0 + 64 * wg, b);
-      tma_store_3d(&tdv, v_w + hh * kv_half, h * D + hh * 64, n0 + 64 * wg, b);
-    }
-    tma_store_commit();
-    tma_store_done();
-  }
+  bwd_dkv_hopper<D>(tq, tk, tv, tdo, tdk, tdv, mask, ws, Sq, Skv, H, ws_rs, sm_scale);
 }
 
-// K5 (dq), one CTA per (128 queries, head, batch): two warpgroups of 64
-// queries. The CTA's Q and dO land once and stay (at D = 64 also as register A
-// operands); lse2 and di of each thread's two queries sit in registers. K and
-// V tiles of KT keys stream through the ring; each warp forms a tile's key
-// mask as ballot words, its loads issued a tile ahead. Per tile: S =
-// Q.K^T and dP = dO.V^T (RS at D = 64, SS at D = 128; K and V K-major B); P =
-// ex2(S * scale * log2 e - lse2), 0 on a masked key, while dP runs; dS = P *
-// (dP - di) * scale; then, issued with the next tile's scores, dQ +=
-// round(dS).K (RS, K an MN-major B). The warpgroups take turns at the tensor
-// cores. dq is staged where the warpgroup's Q was and leaves by TMA store.
+// K5 (dq), one CTA per (128 queries, head, batch): bwd_dq_hopper from K3's
+// lse [B, H, Sq] and the pre-pass's di (`ws` unused)
 template <int D>
 __global__ void __launch_bounds__(HB_THREADS, 1)
 flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tdq, const int* __restrict__ mask,
-                    const float* __restrict__ lse, const float* __restrict__ di, int Sq, int Skv, int H, int di_rs,
-                    float sm_scale) {
-  using G = Geometry<D>;
-  using S = DqSmem<D>;
-  constexpr int KT = S::KT;
-  constexpr bool QD_REGS = D == 64;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const uint32_t base = smem_u32(smem), qd_half = HB_ROWS * G::ROWB, tile_half = KT * G::ROWB;
-  // barriers: 0 the CTA's Q and dO landed; 1 + s slot s full; 1 + STAGES + s slot s free
-  auto bar = [&](int i) { return base + S::BARS + 8 * i; };
-  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * HB_ROWS;
-  const int n_tiles = (Skv + KT - 1) / KT;
-  auto load_tile = [&](int t) {
-    const int s = t % STAGES;
-    const uint32_t dst = base + S::RING + s * 2 * S::TILE;
-    mbar_expect_tx(bar(1 + s), 2 * S::TILE);
-    load_rows<D>(dst, &tk, b, h, t * KT, KT, tile_half, bar(1 + s));
-    load_rows<D>(dst + S::TILE, &tv, b, h, t * KT, KT, tile_half, bar(1 + s));
-  };
-
-  if (tid == 0) {
-    mbar_init(bar(0), 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar(1 + s), 1);
-      mbar_init(bar(1 + STAGES + s), 8);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    const int q_rows = loaded_rows(m0, Sq);
-    mbar_expect_tx(bar(0), 2 * q_rows * D * 2);
-    load_rows<D>(base, &tq, b, h, m0, q_rows, qd_half, bar(0));
-    load_rows<D>(base + S::QD, &tdo, b, h, m0, q_rows, qd_half, bar(0));
-    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_tile(t);
-  }
-
-  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
-  const int r_lo = 16 * warp + g;  // this thread's queries: rows r_lo and r_lo + 8 of the warpgroup's 64
-  const float scale_log2 = sm_scale * LOG2E;
-  float l2[2], dd[2];  // lse in log2 units (+inf past Sq: p = 0 there) and di of the two queries
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + 64 * wg + r_lo + 8 * r;
-    l2[r] = row < Sq ? lse[((long long)b * H + h) * Sq + row] * LOG2E : INFINITY;
-    dd[r] = row < Sq ? di[((long long)b * H + h) * di_rs + row] : 0.f;
-  }
-  const int* mrow = mask == nullptr ? nullptr : mask + (long long)b * Skv;
-  // a key kept: in range and not masked (a tile's rows past Skv load as zeros, fully-OOB boxes too)
-  auto kept_key = [&](int key) { return key < Skv && (mrow == nullptr || mrow[key] != 0); };
-  const uint32_t q_w = base + wg * 64 * G::ROWB, do_w = q_w + S::QD;
-  auto turn = [&]() { named_sync(SCHED_BAR + wg, 2 * WG); };
-  auto pass_turn = [&]() { named_arrive(SCHED_BAR + 1 - wg, 2 * WG); };
-  if (wg == 1) pass_turn();
-
-  float dq[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
-  float s[KT / 2], dp[KT / 2];
-  uint32_t dsa[KT / 16][4];
-  uint32_t qa[QD_REGS ? D / 16 : 1][4], doa[QD_REGS ? D / 16 : 1][4];
-  bool next[KT / 32];  // this lane's keys of the next tile kept: the mask of tile 0 first
-#pragma unroll
-  for (int w = 0; w < KT / 32; ++w) next[w] = kept_key(32 * w + lane);
-  mbar_wait(bar(0), 0);
-  if constexpr (QD_REGS) {
-    load_a<D>(qa, base, qd_half, 64 * wg, warp, g, t4);
-    load_a<D>(doa, base + S::QD, qd_half, 64 * wg, warp, g, t4);
-  }
-  uint32_t k_last = 0;  // the last tile's K, which its dQ product reads
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % STAGES;
-    const uint32_t k_t = base + S::RING + st * 2 * S::TILE, v_t = k_t + S::TILE;
-    uint32_t words[KT / 32];  // bit 8c + e of word w: key 32w + 8c + 2 t4 + e of the tile kept
-#pragma unroll
-    for (int w = 0; w < KT / 32; ++w) {
-      words[w] = __ballot_sync(0xffffffffu, next[w]) >> (2 * t4);
-      next[w] = kept_key((j + 1) * KT + 32 * w + lane);  // the next tile's mask, loaded a tile ahead
-    }
-    mbar_wait(bar(1 + st), (j / STAGES) & 1);
-    turn();
-    if (j > 0) rs_issue<D, KT / 16>(dq, dsa, k_last, tile_half);  // dQ += round(dS).K of the last tile
-    if constexpr (QD_REGS) {
-      rs_issue_t<D, KT>(s, qa, k_t, tile_half);    // S = Q.K^T
-      rs_issue_t<D, KT>(dp, doa, v_t, tile_half);  // dP = dO.V^T
-    } else {
-      ss_issue<D, KT>(s, q_w, qd_half, k_t, tile_half);
-      ss_issue<D, KT>(dp, do_w, qd_half, v_t, tile_half);
-    }
-    pass_turn();
-    wgmma_wait<1>();  // S, and the last tile's dQ product, done
-    fence_regs(s);
-    if (j > 0) {
-      const int free_slot = (j - 1) % STAGES;
-      if (lane == 0) mbar_arrive(bar(1 + STAGES + free_slot));
-      if (tid == WG && j - 1 + STAGES < n_tiles) {
-        mbar_wait(bar(1 + STAGES + free_slot), ((j - 1) / STAGES) & 1);
-        load_tile(j - 1 + STAGES);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < KT / 8; ++c)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * c + 2 * r + e;
-          const bool kept = (words[c / 4] >> (8 * (c % 4) + e)) & 1u;
-          s[i] = kept ? exp2_approx(fmaf(s[i], scale_log2, -l2[r])) : 0.f;
-        }
-    wgmma_wait<0>();  // dP done
-    fence_regs(dp);
-#pragma unroll
-    for (int i = 0; i < KT / 2; ++i) dp[i] = s[i] * (dp[i] - dd[(i >> 1) & 1]) * sm_scale;
-    pack_a<KT>(dsa, dp);
-    k_last = k_t;
-  }
-  turn();
-  rs_issue<D, KT / 16>(dq, dsa, k_last, tile_half);
-  pass_turn();
-  wgmma_wait<0>();
-  fence_regs(dq);
-  stage_acc<D>(base, qd_half, 64 * wg, dq, r_lo, t4);  // where this warpgroup's Q was
-  fence_async_smem();
-  named_sync(DONE_BAR + wg, WG);
-  if (tid % WG == 0 && m0 + 64 * wg < Sq) {
-    for (int hh = 0; hh < G::HALVES; ++hh) tma_store_3d(&tdq, q_w + hh * qd_half, h * D + hh * 64, m0 + 64 * wg, b);
-    tma_store_commit();
-    tma_store_done();
-  }
+                    const float* __restrict__ lse, const float* __restrict__ di, float* __restrict__ ws, int Sq,
+                    int Skv, int H, int di_rs, float sm_scale) {
+  bwd_dq_hopper<D, false>(tq, tk, tv, tdo, tdq, mask, lse, di, ws, Sq, Skv, H, di_rs, sm_scale);
 }
 
 // --- launches -------------------------------------------------------------------
-
-struct Args {
-  const void *q, *k, *v, *o, *dout;
-  const int* mask;
-  const float* lse;
-  float* ws;         // K4: the pre-pass's [2][B * H][ws_rs] workspace (lse2, di)
-  const float* di;   // rows of di, ws_rs apart
-  void *dq, *dk, *dv;
-  int B, Sq, Skv, H, ws_rs;
-  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
-  float sm_scale;
-};
 
 template <typename T, int D>
 cudaError_t launch_prep(const Args& a, cudaStream_t stream) {
@@ -1134,66 +687,14 @@ cudaError_t launch_prep(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the current device, for the once-per-device opt-in to large shared memory
-cudaError_t current_device(int& device) {
-  const cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess && (device < 0 || device >= MAX_DEVICES)) return cudaErrorInvalidDevice;
-  return err;
-}
-
-template <int D>
-cudaError_t launch_dkv_hopper(const Args& a, cudaStream_t stream) {
-  using S = DkvSmem<D>;
-  const long long out_ss = (long long)a.H * D, out_sb = (long long)a.Skv * out_ss;
-  CUtensorMap maps[6];  // q, k, v, do, dk, dv
-  if (!encode_rows(&maps[0], a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss, S::BQ) ||
-      !encode_rows(&maps[1], a.k, a.B, a.Skv, a.H, D, a.k_sb, a.k_ss) ||
-      !encode_rows(&maps[2], a.v, a.B, a.Skv, a.H, D, a.v_sb, a.v_ss) ||
-      !encode_rows(&maps[3], a.dout, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss, S::BQ) ||
-      !encode_rows(&maps[4], a.dk, a.B, a.Skv, a.H, D, out_sb, out_ss) ||
-      !encode_rows(&maps[5], a.dv, a.B, a.Skv, a.H, D, out_sb, out_ss))
-    return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dkv_hopper<D>;
-  static bool configured[MAX_DEVICES] = {};
-  int device = 0;
-  cudaError_t err = current_device(device);
-  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + HB_ROWS - 1) / HB_ROWS, a.H, a.B);
-  kernel<<<grid, HB_THREADS, S::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a.mask, a.ws,
-                                                 a.Sq, a.Skv, a.H, a.ws_rs, a.sm_scale);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dq_hopper(const Args& a, cudaStream_t stream) {
-  const long long out_ss = (long long)a.H * D, out_sb = (long long)a.Sq * out_ss;
-  CUtensorMap maps[5];  // q, k, v, do, dq
-  if (!encode_rows(&maps[0], a.q, a.B, a.Sq, a.H, D, a.q_sb, a.q_ss) ||
-      !encode_rows(&maps[1], a.k, a.B, a.Skv, a.H, D, a.k_sb, a.k_ss) ||
-      !encode_rows(&maps[2], a.v, a.B, a.Skv, a.H, D, a.v_sb, a.v_ss) ||
-      !encode_rows(&maps[3], a.dout, a.B, a.Sq, a.H, D, a.do_sb, a.do_ss) ||
-      !encode_rows(&maps[4], a.dq, a.B, a.Sq, a.H, D, out_sb, out_ss))
-    return cudaErrorInvalidValue;
-  auto kernel = flash_bwd_dq_hopper<D>;
-  static bool configured[MAX_DEVICES] = {};
-  int device = 0;
-  cudaError_t err = current_device(device);
-  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + HB_ROWS - 1) / HB_ROWS, a.H, a.B);
-  kernel<<<grid, HB_THREADS, DqSmem<D>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], a.mask, a.lse, a.di,
-                                                 a.Sq, a.Skv, a.H, a.ws_rs, a.sm_scale);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
     cudaError_t err = launch_prep<bf16, D>(a, stream);
     if (err != cudaSuccess) return err;
     if constexpr (D >= 64) {
-      return launch_dkv_hopper<D>(a, stream);
+      static bool configured[MAX_DEVICES] = {};
+      return launch_dkv_hopper<D>(flash_bwd_dkv_hopper<D>, configured, a, stream);
     } else {
       constexpr int bytes = bf16_smem_bytes<D>();
       err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1224,7 +725,8 @@ template <int D>
 cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
     if constexpr (D >= 64) {
-      return launch_dq_hopper<D>(a, stream);
+      static bool configured[MAX_DEVICES] = {};
+      return launch_dq_hopper<D>(flash_bwd_dq_hopper<D>, configured, a, stream);
     } else {
       constexpr int bytes = bf16_smem_bytes<D>();
       cudaError_t err =

@@ -9,299 +9,294 @@
 //   l = alpha * l + rowsum(p) (fp32 p); acc = acc * alpha + round(p).v.
 // At the end o = acc / l_safe (l_safe = 1 where l == 0) and lse = m + log(l_safe);
 // a fully-masked row (m <= MASK_VALUE) gives o = 0 and lse = +inf.
-// This is not K1's rounding order (K1 normalises p before PV).
+// This is not K1's rounding order (K1 normalises p before PV), and the bf16
+// result depends on BLOCK_N (m_new is taken once a tile): the plain version
+// in ops/flash_attention.py tiles the keys by the same 128.
 //
 // Bound on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT
-// sampling shape (B=8, S=4224, H=12, D=64, bf16) the two products are 438.5
-// GFLOP, 0.443 ms at 989 TFLOP/s, against ~209 MB of q/k/v/o/lse (62 us at
-// 3.35 TB/s): compute-bound. So the design keeps the tensor cores fed and the
-// scores on chip: one CTA per (128 queries, head, batch), eight warps of
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), each warp owning 16 query
-// rows with Q in registers; K and V tiles of 64 keys are double-buffered in
-// shared memory by cp.async, so the next tile's copy overlaps this tile's
-// products; K is read with ldmatrix, V with ldmatrix.trans, the tile's key
-// mask once per warp as two ballot words; m, l and o stay in registers (at
-// most 128 a thread for D <= 64, so two CTAs share an SM); the C layout of
-// two 16x8 score tiles is the A layout of one 16x16 operand, so p goes from
-// the QK^T accumulators straight into the PV product. exp, ~1.7 G of them a
-// launch at the slice shape and as slow on the SFUs as the products on the
-// tensor cores, runs as one ex2.approx on (s - m) * log2(e). q/k/v are read in
-// the [B, S, H, D] layout at the caller's batch and row strides (no transpose
-// pass), the ragged ends of Sq and Skv are masked here (no padded copies), and
-// only o and lse are written.
+// sampling shape (B=8, S=4224, H=12, D=64, bf16, the fused-CFG text mask) the
+// two products over the keys each row attends are 428.4 GFLOP, 0.433 ms at
+// 989 TFLOP/s (438.5 GFLOP over every key, masked ones included, which the
+// kernel multiplies too), against 209.4 MB of q/k/v/o/lse/mask (62.5 us at
+// 3.35 TB/s): compute-bound. The ~1.71 G exponentials are a second ceiling of
+// the same height (~0.46 ms at 16 ex2 a clock on 132 SMs), so the softmax has
+// to overlap the products rather than follow them.
+//
+// bf16 (flash_fwd_hopper<D>, D = 16, 32, 64, 128), an FA3-style design on the
+// helpers of hopper.cuh: one CTA per (64 * NWG queries, head, batch), NWG
+// consumer warpgroups of 64 query rows (three at D <= 64, two at D = 128,
+// where the registers are short). Q lands once by TMA; K and V tiles of 128
+// keys stream through a ring of STAGES slots (TMA, one mbarrier a slot),
+// refilled by one consumer thread as soon as all warps have released a slot
+// (a separate producer warp caps the registers, as K4/K5 found). Per
+// tile a warpgroup issues, in its turn at the tensor cores, S = Q.K^T (SS
+// wgmma, Q and K K-major) and the last tile's acc += round(p).V (RS wgmma: p
+// from the accumulators into A registers, V an MN-major B), then hands the
+// tensor cores to the next warpgroup (named barriers, in a ring) and forms
+// the new tile's max, alpha and p = ex2(s * scale * log2 e - m) while its own
+// PV and the others' products run; acc is rescaled by alpha once PV is done,
+// and only where the running max moved. Every product retires in the
+// iteration that issues it. The batch's key mask is read once per CTA, while
+// the first tiles load, into 32-key words in shared memory (up to 65536 keys;
+// past that each warp reads it tile by tile); a tile with no masked key takes
+// a path without selects. q/k/v are read in the [B, S, H, D] layout at the
+// caller's batch and row strides through 3-D tensor maps (no transpose, no
+// padded copy); TMA zero-fills rows past Sq and Skv, and keys past Skv score
+// MASK_VALUE. o is staged where the warpgroup's Q was and leaves by TMA store;
+// lse is written [B, H, Sq], the layout K4/K5 read.
+//
+// What holds it (clock64 spans per warpgroup and tile at the txt2img shape,
+// measured on an H100): ~1.3-1.9 k cycles waiting to issue its
+// products behind the other warpgroups', ~1.3 k in the softmax, ~0.5 k in
+// the mask, the slot release and the packing of p; the tensor cores work
+// ~45% of the time. Neither the exponentials nor the bf16 packing is the
+// limit: replacing either with a cheap stand-in changed nothing.
 //
 // fp32 inputs run a second kernel with one thread per query row and fp32
-// FMAs (the tensor cores take no exact fp32 product), with the same tiles.
+// FMAs (the tensor cores take no exact fp32 product), over the same tiles.
 //
 // Plain C interface (bound with ctypes): flash_attn_fwd returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, turns and the tensor-map encoder
+
 namespace {
 
-// -0.7 * FLT_MAX, formed in double and rounded once, as the reference forms it
-constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e+38);
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int BLOCK_M = 128;  // query rows per CTA (bf16 kernel)
-constexpr int BLOCK_N = 64;   // keys per tile (both kernels; the plain version's tile)
-constexpr int WARPS = 8;      // bf16 kernel: 16 query rows per warp
-constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
-constexpr int F32_ROWS = 64;  // query rows per CTA (fp32 kernel), one per thread
-static_assert(BLOCK_N == 64, "the bf16 kernel holds a tile's key mask in two 32-bit words");
+constexpr int BLOCK_N = 128;   // keys a tile (both kernels; the plain version's tile, KERNEL_BLOCK_N)
+constexpr int F32_ROWS = 64;   // query rows per CTA (fp32 kernel), one per thread
 
-using bf16 = __nv_bfloat16;
+// consumer warpgroups of a bf16 CTA, 64 query rows each
+constexpr int fwd_warpgroups(int D) { return D == 128 ? 2 : 3; }
 
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// named barriers: TURN_BAR + w is warpgroup w's turn at the tensor cores,
+// STORE_BAR + w gathers warpgroup w's threads before its o leaves (w < 3)
+constexpr int TURN_BAR = 1, STORE_BAR = 4;
+
+// 32-key words of the key mask a CTA holds in shared memory: up to 65536 keys
+constexpr int MASK_WORDS = 2048;
+
+// the bf16 kernel's shared memory, from a 1024-byte aligned base: the CTA's
+// Q tiles ([wg][half][64 rows][ROWB], the swizzled TMA boxes), STAGES slots
+// of a K and a V tile ([half][128 rows][ROWB]), the barriers, the key mask's
+// words
+template <int D>
+struct FwdSmem {
+  static constexpr int NWG = fwd_warpgroups(D);
+  static constexpr int ROWS = NWG * TMA_ROWS;  // query rows of a CTA
+  static constexpr int Q = ROWS * D * 2;
+  static constexpr int TILE = BLOCK_N * D * 2;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 128 - Q - 4 * MASK_WORDS) / (2 * TILE);  // slots beside Q
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int RING = Q;
+  static constexpr int BARS = RING + STAGES * 2 * TILE;
+  static constexpr int WORDS = BARS + 128;
+  static constexpr int BYTES = 1024 + WORDS + 4 * MASK_WORDS;
+  static_assert(BYTES <= SMEM_LIMIT, "the ring must fit in shared memory");
+};
+
+// a warpgroup's 64 x D accumulator times inv (0 on a dead row), rounded to
+// bf16, into a 64-row TMA box of o at dst ([half][64 rows][ROWB], 16-byte
+// chunks swizzled by the row): rows r_lo and r_lo + 8 of this thread
+template <int D>
+__device__ __forceinline__ void stage_o(uint32_t dst, const float (&acc)[D / 2], const float (&inv)[2],
+                                        const bool (&dead)[2], int r_lo, int t4) {
+  using G = Geometry<D>;
+  constexpr uint32_t SWZ = G::ROWB / 16 - 1;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t off = (col / 64) * TMA_ROWS * G::ROWB + (r_lo + 8 * r) * G::ROWB + (col % 64) * 2;
+      off ^= ((off >> 7) & SWZ) << 4;
+      const uint32_t val = dead[r] ? 0u : pack_bf16(acc[4 * dn + 2 * r] * inv[r], acc[4 * dn + 2 * r + 1] * inv[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst + off), "r"(val) : "memory");
+    }
+  }
 }
 
-// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7 give
-// the row addresses of matrix i, whose fragment lands in r[i]
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+template <int D>
+__global__ void __launch_bounds__(FwdSmem<D>::NWG * WG, 1)
+flash_fwd_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                 const int* __restrict__ mask, float* __restrict__ lse, int Sq, int Skv, int H, float sm_scale) {
+  using G = Geometry<D>;
+  using S = FwdSmem<D>;
+  constexpr int STAGES = S::STAGES, NWG = S::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem), q_half = TMA_ROWS * G::ROWB, tile_half = BLOCK_N * G::ROWB;
+  // barriers: 0 the CTA's Q landed; 1 + s slot s full; 1 + STAGES + s slot s free
+  auto bar = [&](int i) { return base + S::BARS + 8 * i; };
+  const int tid = threadIdx.x, b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * S::ROWS;
+  const int n_tiles = (Skv + BLOCK_N - 1) / BLOCK_N;
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES;
+    const uint32_t dst = base + S::RING + s * 2 * S::TILE;
+    mbar_expect_tx(bar(1 + s), 2 * S::TILE);
+    load_rows<D>(dst, &tk, b, h, t * BLOCK_N, BLOCK_N, tile_half, bar(1 + s));
+    load_rows<D>(dst + S::TILE, &tv, b, h, t * BLOCK_N, BLOCK_N, tile_half, bar(1 + s));
+  };
 
-// four (two) 8x8 bf16 matrices from shared memory: lanes 8i..8i+7 give the
-// row addresses of matrix i, whose fragment lands in r[i]
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+  if (tid == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(1 + s), 1);
+      mbar_init(bar(1 + STAGES + s), 4 * NWG);  // one arrival from each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar(0), S::Q);
+    for (int w = 0; w < NWG; ++w)
+      load_rows<D>(base + w * G::TILE_BYTES, &tq, b, h, m0 + w * TMA_ROWS, TMA_ROWS, q_half, bar(0));
+    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_tile(t);
+  }
 
-__device__ __forceinline__ void ldsm_x2(uint32_t r[2], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
+  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * warp + g;  // this thread's rows: r_lo and r_lo + 8 of the warpgroup's 64
+  const float scale_log2 = sm_scale * LOG2E;
+  const int* mrow = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  // a key kept: in range and not masked (a tile's rows past Skv load as zeros)
+  auto kept_key = [&](int key) { return key < Skv && (mrow == nullptr || mrow[key] != 0); };
+  // the batch's key mask as 32-key words in shared memory (bit i of word w: key 32w + i kept), formed
+  // while the first loads are in flight; past MASK_WORDS words each warp reads it tile by tile
+  uint32_t* key_words = reinterpret_cast<uint32_t*>(smem + S::WORDS);
+  const bool words_held = n_tiles * (BLOCK_N / 32) <= MASK_WORDS;
+  if (words_held) {
+    constexpr int BATCH = 8;  // words a warp reads before it forms them: loads in flight together
+    for (int w0 = tid / 32; w0 < n_tiles * (BLOCK_N / 32); w0 += BATCH * 4 * NWG) {
+      bool kept[BATCH];
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) kept[i] = kept_key(32 * (w0 + i * 4 * NWG) + lane);
+#pragma unroll
+      for (int i = 0; i < BATCH; ++i) {
+        const uint32_t ballot = __ballot_sync(0xffffffffu, kept[i]);
+        if (lane == 0 && w0 + i * 4 * NWG < n_tiles * (BLOCK_N / 32)) key_words[w0 + i * 4 * NWG] = ballot;
+      }
+    }
+  }
+  __syncthreads();
+  const uint32_t q_w = base + wg * G::TILE_BYTES;
+  // the warpgroups take turns in order, each handing them to the next
+  auto turn = [&]() { named_sync(TURN_BAR + wg, 2 * WG); };
+  auto pass_turn = [&]() { named_arrive(TURN_BAR + (wg + 1) % NWG, 2 * WG); };
+  if (wg == NWG - 1) pass_turn();  // the first warpgroup takes the tensor cores first
 
-// 16 bytes global -> shared, asynchronous; src_bytes = 0 fills zeros
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(src_bytes));
-}
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // running max (log2 units) and sum of the two rows
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[BLOCK_N / 2];  // scores, then p
+  uint32_t pa[BLOCK_N / 16][4];  // the last tile's round(p), the A operand of its PV product
+  mbar_wait(bar(0), 0);
+  uint32_t v_last = 0;  // the last tile's V, which its PV product reads
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % STAGES;
+    const uint32_t k_t = base + S::RING + st * 2 * S::TILE, v_t = k_t + S::TILE;
+    // the tile's mask: bit 8c + e of word w is key 32w + 8c + 2 t4 + e of the tile kept
+    uint32_t words[BLOCK_N / 32];
+    bool full = true;  // no masked key in the tile (warp-uniform)
+#pragma unroll
+    for (int w = 0; w < BLOCK_N / 32; ++w) {
+      const int word = j * (BLOCK_N / 32) + w;
+      const uint32_t ballot = words_held ? key_words[word] : __ballot_sync(0xffffffffu, kept_key(32 * word + lane));
+      full &= ballot == 0xffffffffu;
+      words[w] = ballot >> (2 * t4);
+    }
+    mbar_wait(bar(1 + st), (j / STAGES) & 1);
+    turn();
+    ss_issue<D, BLOCK_N>(s, q_w, q_half, k_t, tile_half);               // S = Q.K^T
+    if (j > 0) rs_issue<D, BLOCK_N / 16>(acc, pa, v_last, tile_half);  // acc += round(p).V of the last tile
+    pass_turn();
+    if (j > 0) {
+      wgmma_wait<1>();  // S done; the last tile's PV may still run
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(s);
+    float m_new[2];
+    if (full) {  // the max of the raw scores, the scale folded into the exponent
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], row_max<BLOCK_N>(s, r) * scale_log2);
+#pragma unroll
+      for (int i = 0; i < BLOCK_N / 2; ++i) s[i] = exp2_approx(fmaf(s[i], scale_log2, -m_new[(i >> 1) & 1]));
+    } else {  // s * scale * log2 e, MASK_VALUE on a masked key
+#pragma unroll
+      for (int c = 0; c < BLOCK_N / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool kept = (words[c / 4] >> (8 * (c % 4) + (e & 1))) & 1u;
+          s[4 * c + e] = kept ? s[4 * c + e] * scale_log2 : MASK_VALUE;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m_new[r] = fmaxf(m[r], row_max<BLOCK_N>(s, r));
+#pragma unroll
+      for (int i = 0; i < BLOCK_N / 2; ++i) s[i] = exp2_approx(s[i] - m_new[(i >> 1) & 1]);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = exp2_approx(m[r] - m_new[r]);
+      l[r] = alpha[r] * l[r] + row_sum<BLOCK_N>(s, r);
+      m[r] = m_new[r];
+    }
+    if (j > 0) {
+      wgmma_wait<0>();  // the last tile's PV done: acc and pa are free, and its slot
+      fence_regs(acc);
+      const int free_slot = (j - 1) % STAGES;
+      if (lane == 0) mbar_arrive(bar(1 + STAGES + free_slot));
+      if (tid == (NWG - 1) * WG && j - 1 + STAGES < n_tiles) {  // the last warpgroup releases last
+        mbar_wait(bar(1 + STAGES + free_slot), ((j - 1) / STAGES) & 1);
+        load_tile(j - 1 + STAGES);
+      }
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // past the first tiles the max rarely moves
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+    pack_a<BLOCK_N>(pa, s);  // p rounded to bf16
+    v_last = v_t;
+  }
+  turn();
+  rs_issue<D, BLOCK_N / 16>(acc, pa, v_last, tile_half);
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(acc);
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
+  // o = acc / l where the row attends a key, 0 on a fully-masked row; staged where this warpgroup's Q was
+  bool dead[2];
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dead[r] = m[r] <= MASK_VALUE;
+    inv[r] = __frcp_rn(l[r] == 0.f ? 1.f : l[r]);
+  }
+  stage_o<D>(q_w, acc, inv, dead, r_lo, t4);
+  fence_async_smem();
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 64 * wg + r_lo + 8 * r;
+      if (row < Sq)
+        lse[((long long)b * H + h) * Sq + row] = dead[r] ? INFINITY : m[r] * LN2 + logf(l[r] == 0.f ? 1.f : l[r]);
+    }
+  }
+  named_sync(STORE_BAR + wg, WG);
+  if (tid % WG == 0 && m0 + 64 * wg < Sq) {
+    store_tile<D>(&to, q_w, b, h, m0 + 64 * wg);
+    tma_store_done();
+  }
 }
 
 // exp(x) as 2^(x * log2 e); exp(-inf) = 0
 __device__ __forceinline__ float fast_exp(float x) { return exp2_approx(x * LOG2E); }
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int D>
-using Tile = bf16 (*)[D + PAD];
-
-template <int D>
-constexpr int bf16_smem_bytes() {
-  return 4 * BLOCK_N * (D + PAD) * static_cast<int>(sizeof(bf16));  // K and V, two stages each
-}
-
-// keys [n0, n0 + BLOCK_N) of one head into shared memory, 16 bytes a thread,
-// asynchronously; rows past Skv are zero-filled
-template <int D>
-__device__ __forceinline__ void stage_async(Tile<D> dst, const bf16* src, long long row_stride, int n0,
-                                            int Skv) {
-  constexpr int CHUNKS = D / 8;
-  for (int i = threadIdx.x; i < BLOCK_N * CHUNKS; i += WARPS * 32) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    const bool in = n0 + r < Skv;
-    const bf16* s = in ? src + (long long)(n0 + r) * row_stride + c : src;
-    cp_async_16(&dst[r][c], s, in ? 16 : 0);
-  }
-}
-
-// two CTAs an SM where the registers allow it (D <= 64: at most 128 a thread)
-template <int D>
-__global__ void __launch_bounds__(WARPS * 32, D <= 64 ? 2 : 1)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               const int* __restrict__ mask, bf16* __restrict__ o, float* __restrict__ lse, int Sq,
-               int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-               long long v_sb, long long v_ss, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Tile<D> kbuf[2] = {reinterpret_cast<Tile<D>>(smem),
-                     reinterpret_cast<Tile<D>>(smem) + BLOCK_N};
-  Tile<D> vbuf[2] = {reinterpret_cast<Tile<D>>(smem) + 2 * BLOCK_N,
-                     reinterpret_cast<Tile<D>>(smem) + 3 * BLOCK_N};
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * BLOCK_M + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  const bf16* qb = q + b * q_sb + h * D;
-  const bf16* kb = k + b * k_sb + h * D;
-  const bf16* vb = v + b * v_sb + h * D;
-  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
-  const int n_tiles = (Skv + BLOCK_N - 1) / BLOCK_N;
-
-  stage_async<D>(kbuf[0], kb, k_ss, 0, Skv);
-  stage_async<D>(vbuf[0], vb, v_ss, 0, Skv);
-  cp_async_commit();
-
-  // A fragments of Q (16 rows x D), read once from global memory; rows past Sq are 0
-  uint32_t qf[D / 16][4];
-  const bool in0 = row0 < Sq, in1 = row0 + 8 < Sq;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* r0 = qb + (long long)row0 * q_ss + kk * 16 + 2 * t4;
-    const bf16* r1 = r0 + 8 * q_ss;
-    qf[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(r0) : 0u;
-    qf[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(r1) : 0u;
-    qf[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(r0 + 8) : 0u;
-    qf[kk][3] = in1 ? *reinterpret_cast<const uint32_t*>(r1 + 8) : 0u;
-  }
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int mat = lane >> 3, mr = lane & 7;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int n0 = j * BLOCK_N, st = j & 1;
-    // the tile's key mask as two warp-uniform words: keys n0 + [0, 32), n0 + [32, 64)
-    const int key_lo = n0 + lane, key_hi = n0 + 32 + lane;
-    const unsigned keep_lo = __ballot_sync(0xffffffffu, key_lo < Skv && (mb == nullptr || mb[key_lo] != 0));
-    const unsigned keep_hi = __ballot_sync(0xffffffffu, key_hi < Skv && (mb == nullptr || mb[key_hi] != 0));
-    if (j + 1 < n_tiles) {
-      stage_async<D>(kbuf[st ^ 1], kb, k_ss, n0 + BLOCK_N, Skv);
-      stage_async<D>(vbuf[st ^ 1], vb, v_ss, n0 + BLOCK_N, Skv);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    Tile<D> ks = kbuf[st], vs = vbuf[st];
-
-    // s = q.k^T * scale, masked; C layout: j = 0,1 -> row g, key nt*8 + 2*t4 + j; 2,3 -> row g + 8
-    float s[BLOCK_N / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      if constexpr (D >= 32) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; kk += 2) {
-          // matrices: (keys nt*8.., cols kk*16..), (.., kk*16+8..), (.., kk*16+16..), (.., kk*16+24..)
-          uint32_t bf[4];
-          ldsm_x4(bf, &ks[nt * 8 + mr][kk * 16 + mat * 8]);
-          mma_16816(c, qf[kk], bf);
-          mma_16816(c, qf[kk + 1], bf + 2);
-        }
-      } else {
-        uint32_t bf[2];
-        ldsm_x2(bf, &ks[nt * 8 + mr][(mat & 1) * 8]);
-        mma_16816(c, qf[0], bf);
-      }
-      const int bit = (nt * 8 + 2 * t4) & 31;
-      const unsigned word = nt < 4 ? keep_lo : keep_hi;
-      const bool keep0 = (word >> bit) & 1u, keep1 = (word >> (bit + 1)) & 1u;
-      s[nt][0] = keep0 ? c[0] * sm_scale : MASK_VALUE;
-      s[nt][1] = keep1 ? c[1] * sm_scale : MASK_VALUE;
-      s[nt][2] = keep0 ? c[2] * sm_scale : MASK_VALUE;
-      s[nt][3] = keep1 ? c[3] * sm_scale : MASK_VALUE;
-    }
-
-    // online softmax: running max and sum, p = exp(s - m_new) unnormalised
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      const float m_new = fmaxf(m[r], quad_max(mx));
-      const float alpha = fast_exp(m[r] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BLOCK_N / 8; ++nt) {
-        s[nt][2 * r] = fast_exp(s[nt][2 * r] - m_new);
-        s[nt][2 * r + 1] = fast_exp(s[nt][2 * r + 1] - m_new);
-        sum += s[nt][2 * r] + s[nt][2 * r + 1];
-      }
-      l[r] = alpha * l[r] + quad_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        acc[dn][2 * r] *= alpha;
-        acc[dn][2 * r + 1] *= alpha;
-      }
-    }
-
-    // acc += round_bf16(p) . V
-#pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; dn += 2) {
-        // matrices: (keys kk*16.., cols dn*8..), (kk*16+8.., dn*8..), (kk*16.., dn*8+8..), (kk*16+8.., dn*8+8..)
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, &vs[kk * 16 + (mat & 1) * 8 + mr][dn * 8 + (mat >> 1) * 8]);
-        mma_16816(acc[dn], a, bf);
-        mma_16816(acc[dn + 1], a, bf + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's copy
-  }
-
-  // o [B, Sq, H, D] contiguous; lse [B, H, Sq]
-  const long long o_ss = (long long)H * D;
-  bf16* ob = o + (long long)b * Sq * o_ss + h * D;
-  float* lb = lse + ((long long)b * H + h) * Sq;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= Sq) continue;
-    const bool dead = m[r] <= MASK_VALUE;
-    const float l_safe = l[r] == 0.f ? 1.f : l[r];
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      const float x0 = dead ? 0.f : acc[dn][2 * r] / l_safe;
-      const float x1 = dead ? 0.f : acc[dn][2 * r + 1] / l_safe;
-      *reinterpret_cast<uint32_t*>(ob + (long long)row * o_ss + dn * 8 + 2 * t4) = pack_bf16(x0, x1);
-    }
-    if (t4 == 0) lb[row] = dead ? INFINITY : m[r] + logf(l_safe);
-  }
-}
 
 template <int D>
 constexpr int f32_smem_bytes() {
@@ -314,8 +309,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
               const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq,
               int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
               long long v_sb, long long v_ss, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float (*ks)[D] = reinterpret_cast<float (*)[D]>(smem);
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float (*ks)[D] = reinterpret_cast<float (*)[D]>(smem_f32);
   float (*vs)[D] = ks + BLOCK_N;
   float (*ss)[F32_ROWS] = reinterpret_cast<float (*)[F32_ROWS]>(vs + BLOCK_N);  // [key][thread]
 
@@ -377,27 +372,51 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const fl
 }
 
 template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
-           int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-           long long v_sb, long long v_ss, float sm_scale, cudaStream_t stream) {
-  if (dtype == 1) {
-    constexpr int bytes = bf16_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, H, B);
-    flash_fwd_bf16<D><<<grid, WARPS * 32, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
-        static_cast<bf16*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
-  } else {
-    constexpr int bytes = f32_smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Sq + F32_ROWS - 1) / F32_ROWS, H, B);
-    flash_fwd_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
-        static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B,
+                        int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                        long long v_sb, long long v_ss, float sm_scale, int device, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, o
+  if (!encode_rows(&maps[0], q, B, Sq, H, D, q_sb, q_ss) || !encode_rows(&maps[1], k, B, Skv, H, D, k_sb, k_ss) ||
+      !encode_rows(&maps[2], v, B, Skv, H, D, v_sb, v_ss) ||
+      !encode_rows(&maps[3], o, B, Sq, H, D, (long long)Sq * H * D, (long long)H * D))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_hopper<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + FwdSmem<D>::ROWS - 1) / FwdSmem<D>::ROWS, H, B);
+  kernel<<<grid, FwdSmem<D>::NWG * WG, FwdSmem<D>::BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], mask, lse, Sq, Skv, H,
+                                                      sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B,
+                       int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, float sm_scale, int device, cudaStream_t stream) {
+  auto kernel = flash_fwd_f32<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + F32_ROWS - 1) / F32_ROWS, H, B);
+  kernel<<<grid, F32_ROWS, f32_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
+      static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+                   int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                   long long v_sb, long long v_ss, float sm_scale, cudaStream_t stream) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device < 0 || device >= MAX_DEVICES)) err = cudaErrorInvalidDevice;
+  if (err != cudaSuccess) return err;
+  return dtype == 1 ? launch_bf16<D>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                     sm_scale, device, stream)
+                    : launch_f32<D>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                    sm_scale, device, stream);
 }
 
 }  // namespace
@@ -407,6 +426,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, const int* ma
 // D in {16, 32, 64, 128}; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
 // (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
 // lse: contiguous fp32 [B, H, Sq] (the layout the backward kernels read).
+// Launches on `stream` of the current device.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                               void* lse, int B, int Sq, int Skv, int H, int D, long long q_sb,
                               long long q_ss, long long k_sb, long long k_ss, long long v_sb,
@@ -415,13 +435,15 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sq < 1 || Skv < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
   switch (D) {
-    case 16: return launch<16>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s);
-    case 32: return launch<32>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s);
-    case 64: return launch<64>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s);
-    case 128: return launch<128>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s);
+    case 16: err = launch<16>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
+    case 32: err = launch<32>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
+    case 64: err = launch<64>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
+    case 128: err = launch<128>(dtype, q, k, v, m, o, l, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

@@ -12,57 +12,56 @@
 //   dq = round(ds) . k, dk = round(ds)^T . q   (ds rounded to the input dtype);
 // fp32 accumulation, dq/dk/dv written in the input dtype.
 //
-// Bound on an H100: at the DiT-B/2 training shape (B=64, S=256, H=12, D=64,
-// bf16) it must read q, k, v, do (4 x 25.2 MB) and lse and write dq, dk, dv:
-// 176.9 MB, 52.8 us at 3.35 TB/s, against 10*B*H*S^2*D = 32.2 GFLOP, 32.6 us
-// at 989 TFLOP/s. Memory-bound, so the scores stay on the SM and q/k/v/do are
-// read in the [B, S, H*D] layout the qkv projection writes (a head is a
-// D-wide column slice at a caller-given row stride: no transpose pass).
+// Bound on an H100 SXM (data-sheet peaks at 700 W): at the DiT-B/2 training
+// shape (B=64, S=256, H=12, D=64, bf16) it must read q, k, v, do (4 x 25.2 MB)
+// and lse and write dq, dk, dv: 176.9 MB, 52.8 us at 3.35 TB/s, against
+// 10*B*H*S^2*D = 32.2 GFLOP, 32.6 us at 989 TFLOP/s. Memory-bound, so the
+// scores stay on the SM and q/k/v/do are read in the [B, S, H*D] layout the
+// qkv projection writes (a head is a D-wide column slice at a caller-given
+// row stride: no transpose pass).
 //
 // The TPU kernel ran one program per batch element with the whole K/V in
 // VMEM and summed dq over keys and dk/dv over queries in one pass. On Hopper
 // the work spreads over CTAs, and one of the two sums would cross them. The
 // design keeps every sum inside a CTA, without atomics, so results do not
-// depend on the run:
-//  1. dq kernel, one CTA per (64 queries, head, batch), 4 warps of 16 query
-//     rows with q and do held in mma A fragments. Pass 1 over 64-key tiles of
-//     K and V staged in shared memory gives di for its rows over every key;
-//     pass 2 recomputes p and dp, forms ds, rounds it to bf16 straight into
-//     the A fragment of the dq mma (the C layout of two adjacent 16x8 tiles is
-//     the A layout of one 16x16 operand) and accumulates dq. It also writes di
-//     to an fp32 workspace [B, Sq, H].
-//  2. dk/dv kernel, one CTA per (64 keys, head, batch), 4 warps of 16 key
-//     rows with k and v held in A fragments. It walks 64-query tiles of q and
-//     do staged in shared memory, recomputes p^T = exp(k.q^T*scale - lse) with
-//     keys as rows, and accumulates dv += round(p)^T.do and dk += round(ds)^T.q
-//     with the di of kernel 1.
-// The B operands whose reduction runs along the staged rows (K in dq, do and q
-// in dk/dv) are read with ldmatrix.trans. mma.sync m16n8k16, bf16 in, fp32
-// accumulate. Scores are kept 32 columns at a time to bound registers.
-// fp32 inputs run the same two kernels with one thread per row and fp32 FMAs
-// (the tensor cores take no exact fp32 product); each thread's own q/do (or
-// k/v) row sits in padded shared memory.
+// depend on the run: two kernels, launched back to back by one call.
+//
+// bf16 at D = 64 and 128: the flash backward's Hopper kernels (K4, K5), whose
+// bodies attn_bwd_hopper.cuh shares, under names of their own:
+//  1. mha_bwd_dq_hopper, one CTA per (128 queries, head, batch), two
+//     warpgroups of 64 queries: K5's kernel with a first pass over the key
+//     tiles that sums p * dp into di for the CTA's rows (the same wgmma S =
+//     Q.K^T and dP = dO.V^T, p from the fp32 accumulators), then K5's pass
+//     for dq with that di. K and V come through a TMA ring; at up to four
+//     key tiles (DiT-B/2's 256 keys) they land once and stay for both passes.
+//     The CTA writes lse * log2 e and di into the fp32 workspace [2][B * H][Sq].
+//  2. mha_bwd_dkv_hopper, one CTA per (128 keys, head, batch): K4's kernel,
+//     which walks TMA-fed query tiles with that workspace's lse and di.
+// bf16 at D = 16 and 32, the first kernels: mma.sync m16n8k16, one CTA per 64
+// rows, 4 warps of 16 rows with q and do (or k and v) in A fragments; the dq
+// kernel makes two passes over 64-key tiles staged in shared memory (di, then
+// dq) and the dk/dv kernel walks 64-query tiles with that di; scores 32
+// columns at a time, p and ds from the C fragments into A fragments, B
+// operands along the staged rows by ldmatrix.trans. fp32 inputs run the same
+// two kernels with one thread per row and fp32 FMAs (the tensor cores take no
+// exact fp32 product); each thread's own q/do (or k/v) row sits in padded
+// shared memory.
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attn_bwd_hopper.cuh"  // K4/K5's Hopper kernels; hopper.cuh: MASK_VALUE, bf16, pack_bf16, quad_sum
+
 namespace {
 
-// -0.7 * FLT_MAX, formed in double and rounded once, as the reference forms it
-constexpr float MASK_VALUE = static_cast<float>(-0.7 * 3.4028234663852886e+38);
-
-constexpr int BLOCK = 64;     // rows per CTA, and rows per staged tile
-constexpr int WARPS = 4;      // bf16 kernels: 16 rows per warp
+constexpr int BLOCK = 64;     // rows per CTA, and rows per staged tile (D = 16, 32 and fp32)
+constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
 constexpr int F32_TILE = 16;  // fp32 kernels: rows of the other operand per staged tile
-
-using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -79,17 +78,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* ptr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-// two floats -> one register of two bf16, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 template <int D>
@@ -176,7 +164,7 @@ __device__ __forceinline__ void store_rows(bf16* out, long long row_stride, int 
   }
 }
 
-// --- bf16 -------------------------------------------------------------------
+// --- bf16 at D = 16 and 32 -----------------------------------------------------
 
 // s -> p = exp(s * scale - lse) for query rows (g, g + 8) against keys key0 + col
 __device__ __forceinline__ void probs_rows(float s[CHUNK / 8][4], float sm_scale, const int* mask,
@@ -493,34 +481,57 @@ mha_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const 
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const int* mask;
-  const float* lse;
-  float* di;
-  void *dq, *dk, *dv;
-  int B, Sq, Skv, H;
-  long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;
-  float sm_scale;
-};
+// --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
+
+// dq, and the workspace's lse2 and di: K5's kernel with the di pass, from K1's lse [B, Sq, H]
+template <int D>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+mha_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tdq, const int* __restrict__ mask,
+                  const float* __restrict__ lse, const float* __restrict__ di, float* __restrict__ ws, int Sq,
+                  int Skv, int H, int ws_rs, float sm_scale) {
+  bwd_dq_hopper<D, true>(tq, tk, tv, tdo, tdq, mask, lse, di, ws, Sq, Skv, H, ws_rs, sm_scale);
+}
+
+// dk, dv from the workspace: K4's kernel
+template <int D>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+mha_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+                   const int* __restrict__ mask, const float* __restrict__ ws, int Sq, int Skv, int H, int ws_rs,
+                   float sm_scale) {
+  bwd_dkv_hopper<D>(tq, tk, tv, tdo, tdk, tdv, mask, ws, Sq, Skv, H, ws_rs, sm_scale);
+}
+
+// --- launches -------------------------------------------------------------------
 
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
-  const dim3 grid_q(a.Sq / BLOCK, a.H, a.B), grid_kv(a.Skv / BLOCK, a.H, a.B);
   if (dtype == 1) {
-    mha_bwd_dq_bf16<D><<<grid_q, WARPS * 32, 0, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dq), a.Sq, a.Skv,
-        a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    mha_bwd_dkv_bf16<D><<<grid_kv, WARPS * 32, 0, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const bf16*>(a.dout), a.mask, a.lse, a.di, static_cast<bf16*>(a.dk),
-        static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
-        a.do_sb, a.do_ss, a.sm_scale);
-    return cudaGetLastError();
+    if constexpr (D >= 64) {
+      static bool dq_configured[MAX_DEVICES] = {}, dkv_configured[MAX_DEVICES] = {};
+      const cudaError_t err = launch_dq_hopper<D>(mha_bwd_dq_hopper<D>, dq_configured, a, stream);
+      if (err != cudaSuccess) return err;
+      return launch_dkv_hopper<D>(mha_bwd_dkv_hopper<D>, dkv_configured, a, stream);
+    } else {
+      const dim3 grid_q(a.Sq / BLOCK, a.H, a.B), grid_kv(a.Skv / BLOCK, a.H, a.B);
+      mha_bwd_dq_bf16<D><<<grid_q, WARPS * 32, 0, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+          static_cast<const bf16*>(a.dout), a.mask, a.lse, a.ws, static_cast<bf16*>(a.dq), a.Sq, a.Skv,
+          a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      mha_bwd_dkv_bf16<D><<<grid_kv, WARPS * 32, 0, stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+          static_cast<const bf16*>(a.dout), a.mask, a.lse, a.ws, static_cast<bf16*>(a.dk),
+          static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
+          a.do_sb, a.do_ss, a.sm_scale);
+      return cudaGetLastError();
+    }
   }
+  const dim3 grid_q(a.Sq / BLOCK, a.H, a.B), grid_kv(a.Skv / BLOCK, a.H, a.B);
   constexpr size_t smem = f32_smem_bytes<D>();
   static bool configured = false;  // shared memory beyond 48 KB needs the opt-in (D = 128)
   if (!configured) {
@@ -532,13 +543,13 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   }
   mha_bwd_dq_f32<D><<<grid_q, BLOCK, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dq), a.Sq, a.Skv,
+      static_cast<const float*>(a.dout), a.mask, a.lse, a.ws, static_cast<float*>(a.dq), a.Sq, a.Skv,
       a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   mha_bwd_dkv_f32<D><<<grid_kv, BLOCK, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dk),
+      static_cast<const float*>(a.dout), a.mask, a.lse, a.ws, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
       a.do_sb, a.do_ss, a.sm_scale);
   return cudaGetLastError();
@@ -547,22 +558,24 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 }  // namespace
 
 // q/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
-// stride D over heads and the given batch/row strides (in elements); Sq, Skv
-// multiples of 64; D in {16, 32, 64, 128}; dtype 0 = fp32, 1 = bf16; mask:
-// int32 [B, Skv] (nonzero = attend) or null; lse: contiguous fp32 [B, Sq, H]
-// from the forward; di: fp32 [B, Sq, H] workspace. dq/dk/dv: contiguous, in
-// the input dtype.
+// stride D over heads and the given batch/row strides (in elements; 16-byte
+// aligned rows); Sq, Skv multiples of 64; D in {16, 32, 64, 128}; dtype 0 =
+// fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
+// contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
+// H * Sq (bf16 at D = 64, 128: lse * log2 e, then di, rows (b, h) Sq apart;
+// otherwise di in its first B * Sq * H). dq/dk/dv: contiguous, in the input
+// dtype. Launches on `stream` of the current device.
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* mask, const void* lse, void* di, void* dq, void* dk,
+                             const void* mask, const void* lse, void* ws, void* dq, void* dk,
                              void* dv, int B, int Sq, int Skv, int H, int D, long long q_sb,
                              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long do_sb, long long do_ss, float sm_scale,
                              int dtype, void* stream) {
-  if (Sq % BLOCK != 0 || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
+  if (Sq < 1 || Skv < 1 || Sq % BLOCK != 0 || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
-               static_cast<float*>(di), dq, dk, dv, B, Sq, Skv, H,
-               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss, sm_scale};
+  const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
+               static_cast<float*>(ws), nullptr, dq, dk, dv, B, Sq, Skv, H, Sq,
+               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, 0, 0, do_sb, do_ss, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D) {

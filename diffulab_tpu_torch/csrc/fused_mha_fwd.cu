@@ -71,16 +71,6 @@ constexpr int smem_bytes(int D, bool resident, int Skv, int buffers) {
 
 // ---- softmax pieces
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Scores are wgmma accumulators of 64 rows x CHUNK keys: s[4j + 2r + e] is
 // row 16*warp + g + 8r, key 8j + 2*t4 + e (g = lane / 4, t4 = lane % 4).
 
@@ -128,24 +118,6 @@ __device__ __forceinline__ void scale_and_mask(float (&s)[CHUNK / 2], float scal
     s[4 * j + 2] = keep.x ? s[4 * j + 2] * scale_log2 : MASK_VALUE;
     s[4 * j + 3] = keep.y ? s[4 * j + 3] * scale_log2 : MASK_VALUE;
   }
-}
-
-// a row's max and sum over this thread's scores, in four independent partials
-// (short dependency chains), then over the quad that holds the row
-template <int CHUNK>
-__device__ __forceinline__ float row_max(const float (&s)[CHUNK / 2], int r) {
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < CHUNK / 8; ++j) mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-  return quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
-}
-
-template <int CHUNK>
-__device__ __forceinline__ float row_sum(const float (&s)[CHUNK / 2], int r) {
-  float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < CHUNK / 8; ++j) sum[j % 4] += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
-  return quad_sum((sum[0] + sum[1]) + (sum[2] + sum[3]));
 }
 
 // s <- exp2(s - m) for both rows
@@ -219,10 +191,6 @@ __device__ __forceinline__ void pv_accumulate(float (&acc)[D / 2], const float (
   pv_issue<D, CHUNK>(acc, p, inv, v_addr, v_half);
   wgmma_done(acc);
 }
-
-// named barriers: 0 is __syncthreads; SCHED_BAR + w is warpgroup w's turn at
-// the tensor cores; DONE_BAR + w gathers warpgroup w's threads
-constexpr int SCHED_BAR = 1, DONE_BAR = 3;
 
 // per thread, its two rows: max m and sum l (log2 units), 1 / l, fully masked
 struct Rows {

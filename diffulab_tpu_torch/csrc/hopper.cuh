@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA loads and stores through 3-D tensor maps {H*D columns, S rows, B} over
 // [B, S, H, D] rows at the caller's strides, wgmma (shared-memory descriptors,
-// SS and RS products with fp32 accumulators), and the driver's
+// SS and RS products with fp32 accumulators, issued on whole tiles), named
+// barriers for two warpgroups taking turns, and the driver's
 // cuTensorMapEncodeTiled reached through the runtime (no link against
-// libcuda). Included by fused_mha_fwd.cu (K1) and flash_attn_bwd.cu (K4, K5);
-// each source is its own shared library, so everything here has internal
-// linkage.
+// libcuda). Included by fused_mha_fwd.cu (K1) and flash_attn_fwd.cu (K3), and
+// through attn_bwd_hopper.cuh by flash_attn_bwd.cu (K4, K5) and
+// fused_mha_bwd.cu (K2); each source is its own shared library, so everything
+// here has internal linkage.
 //
 // Layout contract between TMA and wgmma: a row of one head is D bf16 values
 // in 64-column halves (D = 128 takes two boxes a row); a box of rows lands
@@ -354,6 +356,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// a row's max and sum over this thread's scores of a 64-row accumulator tile
+// (s[4j + 2r + e] is row 16 * warp + g + 8r, key 8j + 2 t4 + e), in four
+// independent partials (short dependency chains), then over the quad that
+// holds the row
+template <int CHUNK>
+__device__ __forceinline__ float row_max(const float (&s)[CHUNK / 2], int r) {
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) mx[j % 4] = fmaxf(mx[j % 4], fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  return quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])));
+}
+
+template <int CHUNK>
+__device__ __forceinline__ float row_sum(const float (&s)[CHUNK / 2], int r) {
+  float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) sum[j % 4] += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+  return quad_sum((sum[0] + sum[1]) + (sum[2] + sum[3]));
+}
+
 // wait for the warpgroup's products in flight; their accumulators are then readable
 template <int N>
 __device__ __forceinline__ void wgmma_done(float (&d)[N]) {
@@ -376,13 +408,88 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// named barriers (0 is __syncthreads)
+// threads of a warpgroup. Named barriers: 0 is __syncthreads; SCHED_BAR + w is
+// warpgroup w's turn at the tensor cores, DONE_BAR + w gathers warpgroup w's threads
+constexpr int WG = 128;
+constexpr int SCHED_BAR = 1, DONE_BAR = 3;
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- whole-tile wgmma products (a warpgroup's 64 rows)
+
+// acc = A . B^T over D, both K-major in shared memory: A 64 rows at a_addr, B N
+// rows at b_addr, their 64-column halves a_half and b_half bytes apart; issued
+// and committed, not awaited
+template <int D, int N>
+__device__ __forceinline__ void ss_issue(float (&acc)[N / 2], uint32_t a_addr, uint32_t a_half, uint32_t b_addr,
+                                         uint32_t b_half) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
+    Wgmma<N>::ss(acc, smem_desc(a_addr + half * a_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
+                 smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// x (64 rows x N columns in the accumulator layout: x[4c + 2r + e] is row
+// 16 * warp + g + 8r, column 8c + 2 * t4 + e) rounded to bf16 into the
+// register A operand of N / 16 k16 steps
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// acc += A . B over 16 * KSTEPS rows of B: A in registers (pack_a), B MN-major
+// in shared memory (rows of D bf16 from b_addr, 64-column halves b_half bytes
+// apart); issued and committed, not awaited
+template <int D, int KSTEPS>
+__device__ __forceinline__ void rs_issue(float (&acc)[D / 2], const uint32_t (&a)[KSTEPS][4], uint32_t b_addr,
+                                         uint32_t b_half) {
+  using G = Geometry<D>;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    WgmmaRs<D>::rs(acc, a[kk], smem_desc(b_addr + kk * 16 * G::ROWB, b_half, 8 * G::ROWB, G::SWIZZLE), 1);
+  wgmma_commit();
+}
+
+// acc = A . B^T over D: A (64 rows x D) in registers (load_a), B N rows
+// K-major in shared memory at b_addr, its 64-column halves b_half bytes apart;
+// issued and committed, not awaited
+template <int D, int N>
+__device__ __forceinline__ void rs_issue_t(float (&acc)[N / 2], const uint32_t (&a)[D / 16][4], uint32_t b_addr,
+                                           uint32_t b_half) {
+  using G = Geometry<D>;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t half = kk / G::KSTEPS_PER_HALF, within = (kk % G::KSTEPS_PER_HALF) * 32;
+    WgmmaRs<N>::template rs<0>(acc, a[kk], smem_desc(b_addr + half * b_half + within, 16, 8 * G::ROWB, G::SWIZZLE),
+                               kk > 0);
+  }
+  wgmma_commit();
 }
 
 // one thread: the staged tile at src to rows [row0, row0 + 64) of head h of batch b of the map's tensor

@@ -23,16 +23,21 @@ the tiles seen so far; the kernel and :func:`flash_attention_reference` share
 :data:`KERNEL_BLOCK_N`, so they differ only in summation order.
 
 What bounds it on an H100 SXM (data-sheet peaks at 700 W): at the txt2img MMDiT
-sampling shape (B=8, S=4224, H=12, D=64, bf16) the two products are 438.5
-GFLOP (0.443 ms at 989 TFLOP/s) against ~209 MB of q/k/v/o/lse (62 µs at
-3.35 TB/s): it is compute-bound. ``csrc/flash_attn_fwd.cu`` therefore keeps
-the scores on chip and the tensor cores fed: one CTA per (batch, head, 128
-queries), eight warps of ``mma.sync`` m16n8k16 (bf16 in, fp32 accumulate),
-K/V tiles of 64 keys double-buffered in shared memory by ``cp.async``, m/l/o
-in registers. q/k/v are read in the ``[B, S, H, D]`` layout at the caller's
-strides (no transpose, no padded copy: the ragged ends are masked inside the
-kernel). fp32 tensors run a second kernel with fp32 FMAs, one thread per
-query row. ``lse`` is written ``[B, H, Sq]``, the layout the backward reads.
+sampling shape (B=8, S=4224, H=12, D=64, bf16, the fused-CFG text mask) the
+two products over the keys each row attends are 428.4 GFLOP (0.433 ms at 989
+TFLOP/s) against ~209 MB of q/k/v/o/lse (62 µs at 3.35 TB/s): it is
+compute-bound, and its ~1.7 G exponentials take as long on the SMs' ``ex2``
+units, so the softmax has to overlap the products. ``csrc/flash_attn_fwd.cu``
+therefore keeps the scores on chip and the tensor cores fed: in bf16, one CTA
+per (batch, head, 192 queries; 128 at head dim 128), warpgroups of 64 rows
+taking turns at ``wgmma`` (S = Q·Kᵀ from shared memory; round(p)·V with p
+from the accumulators in registers), Q loaded once and K/V tiles of 128 keys
+streamed through a TMA ring, the key mask held as bit words in shared memory,
+m/l/o in registers, o written back by TMA store. q/k/v are
+read in the ``[B, S, H, D]`` layout at the caller's strides (no transpose, no
+padded copy: the ragged ends are masked inside the kernel). fp32 tensors run a
+second kernel with fp32 FMAs, one thread per query row. ``lse`` is written
+``[B, H, Sq]``, the layout the backward reads.
 
 **Backward (K4, K5)** replaces ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
 (launched by ``_flash_backward``). From the forward's q, k, v, mask, o and
@@ -77,8 +82,10 @@ from diffulab_tpu_torch.ops.fused_mha import (
     _raise_on,
 )
 
-#: keys per tile of the kernel and of its plain version
-KERNEL_BLOCK_N = 64
+#: keys per tile of the kernel and of its plain version. In bf16 the result
+#: depends on it (p is rounded relative to the running max of the tiles seen
+#: so far); 128 is the Hopper kernel's tile, one ``wgmma`` of 128 keys
+KERNEL_BLOCK_N = 128
 
 #: keys per tile of the backward's sums: K4's CTA and K5's tile at head dim 64.
 #: The backward has no online rescale, so the tiling moves only the fp32
@@ -158,8 +165,26 @@ def flash_attention_bwd_reference(
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    di = (o.float() * do.float()).sum(dim=-1).permute(0, 2, 1)  # [B, H, Sq], from the stored o
+    return flash_attention_bwd_from_di(q, k, v, kv_mask, lse, di, do, sm_scale, block_k)
+
+
+def flash_attention_bwd_from_di(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None,
+    lse: torch.Tensor,
+    di: torch.Tensor,
+    do: torch.Tensor,
+    sm_scale: float,
+    block_k: int = BWD_BLOCK_K,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain K4 and K5 from a given ``di`` fp32 ``[B, H, Sq]`` (and lse
+    ``[B, H, Sq]``) instead of o: the backward that the Hopper K2 runs with
+    its own ``di = rowsum(p·dp)``
+    (:func:`~diffulab_tpu_torch.ops.fused_mha.fused_mha_bwd_di`)."""
     qf, dof = q.float(), do.float()
-    di = (o.float() * dof).sum(dim=-1).permute(0, 2, 1)  # [B, H, Sq], from the stored o
     dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
     dks, dvs = [], []
     for n0 in range(0, k.shape[1], block_k):

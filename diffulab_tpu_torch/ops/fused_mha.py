@@ -42,10 +42,16 @@ At the DiT-B/2 training shape (B=64, S=256, H=12, D=64, bf16) it reads q, k,
 v, do and lse and writes dq, dk, dv: 176.9 MB, 52.8 µs at 3.35 TB/s, against
 32.2 GFLOP (32.6 µs at 989 TFLOP/s): memory-bound. ``csrc/fused_mha_bwd.cu``
 splits it in two kernels, launched back to back by one call, so that no sum
-crosses CTAs and no atomics make the result depend on the run: a dq kernel
-per (batch, head, 64 queries) that forms di over every key and then dq, and
-writes di to an fp32 workspace; then a dk/dv kernel per (batch, head, 64
-keys) that walks the query tiles with that di. Both recompute p, as K2 did.
+crosses CTAs and no atomics make the result depend on the run. In bf16 at
+head dims 64 and 128 they are the flash backward's Hopper kernels
+(``csrc/attn_bwd_hopper.cuh``): K5's dq kernel with a first pass over the
+keys that forms di for its 128 queries (TMA-fed K and V, ``wgmma``, the
+head's K and V loaded once for both passes up to 512 keys at head dim 64,
+256 at 128), which writes lse·log2 e and di to an fp32 workspace
+``[2, B, H, Sq]``; then K4's dk/dv kernel per 128 keys, which walks the
+query tiles with that workspace. At
+head dims 16 and 32, the first ``mma.sync`` kernels (64 queries or keys a
+CTA); in fp32, fp32 FMAs. All recompute p, as K2 did.
 
 :func:`fused_mha_reference` and :func:`fused_mha_bwd_reference` are the
 plain PyTorch versions with the same op order. The wrappers use them only
@@ -165,6 +171,23 @@ def fused_mha_reference(
     return o.to(q.dtype), lse[..., 0].permute(0, 2, 1).contiguous()
 
 
+def _probs_and_dp(q, k, v, kv_mask, lse, do, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``p = exp(s - lse)`` (0 on an lse = +inf row) and ``dp = do·vᵀ``,
+    both ``[B, H, Sq, Skv]``, from K1's lse ``[B, Sq, H]``."""
+    p = torch.exp(_scores(q, k, kv_mask, sm_scale) - lse.permute(0, 2, 1)[..., None])
+    return p, torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+
+
+def fused_mha_bwd_di(q, k, v, kv_mask, lse, do, sm_scale: float | None = None) -> torch.Tensor:
+    """K2's ``di = rowsum(p·dp)`` over the whole key row from the fp32 p and
+    dp, fp32 ``[B, H, Sq]``: what the Hopper K2's dq kernel forms in its first
+    pass and hands, with lse, to K4's dk/dv kernel."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    p, dp = _probs_and_dp(q, k, v, kv_mask, lse, do, sm_scale)
+    return (p * dp).sum(dim=-1)
+
+
 def fused_mha_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -181,11 +204,9 @@ def fused_mha_bwd_reference(
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    s = _scores(q, k, kv_mask, sm_scale)
-    p = torch.exp(s - lse.permute(0, 2, 1)[..., None])  # normalised softmax; 0 on an lse = +inf row
+    p, dp = _probs_and_dp(q, k, v, kv_mask, lse, do, sm_scale)
     # p rounds to do's dtype before dv = pᵀ·do
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     di = (p * dp).sum(dim=-1, keepdim=True)  # == rowsum(o·do), from the fp32 p
     ds = p * (dp - di) * sm_scale
     # ds rounds to the input dtype before dq = ds·k and dk = dsᵀ·q
@@ -302,13 +323,13 @@ def fused_mha_bwd(
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
-    di = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)  # workspace
+    ws = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # lse·log2 e and di, or di
     lib = _build.load("fused_mha_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.fused_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            None if mask is None else mask.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(), ws.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, sq, skv, h, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),

@@ -41,9 +41,14 @@ from ab_fused_mha_fwd import graph_ms, wall_ms  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, 700 W
 
 
-def kernel_device_ms(fn, calls: int = 10) -> dict[str, float]:
-    """Device ms per call of each backward kernel ``fn`` launches: the
-    pre-pass, K4 and K5, by name, from ``torch.profiler``."""
+#: the flash backward's kernels by a piece of their names: the pre-pass, K4, K5
+BWD_PARTS = {"prepass": ("flash_bwd_di", "flash_bwd_prep"), "K4": ("flash_bwd_dkv",), "K5": ("flash_bwd_dq",)}
+
+
+def kernel_device_ms(fn, parts: dict[str, tuple[str, ...]] = BWD_PARTS, calls: int = 10) -> dict[str, float]:
+    """Device ms per call of ``fn``'s kernels, summed by ``parts`` (a part
+    takes the kernels whose names hold one of its pieces), from
+    ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,11 +58,9 @@ def kernel_device_ms(fn, calls: int = 10) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {"prepass": 0.0, "K4": 0.0, "K5": 0.0}
+    out = dict.fromkeys(parts, 0.0)
     for evt in prof.key_averages():
-        name = evt.key
-        part = ("prepass" if "flash_bwd_di" in name or "flash_bwd_prep" in name
-                else "K4" if "flash_bwd_dkv" in name else "K5" if "flash_bwd_dq" in name else None)
+        part = next((name for name, pieces in parts.items() if any(p in evt.key for p in pieces)), None)
         if part is not None:
             total_us = getattr(evt, "device_time_total", None)
             if total_us is None:
@@ -123,24 +126,31 @@ def measure(root: Path) -> dict:
     return out
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[str]]]) -> int:
+    """The command line the A/B scripts share: ``--root DIR`` prints one JSON
+    line of ``measure(DIR)``; ``--ab PARENT`` runs ``--root PARENT``, this
+    checkout twice and PARENT again, each in its own process, prints the four
+    lines and their medians, and then, for each flag of ``profiles`` given
+    (flag -> (help, profile command)), the profile command in PARENT and in
+    this checkout."""
+    parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--root", type=Path, help="time the package under this directory")
     group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
-    parser.add_argument("--train", action="store_true", help="with --ab: the txt2img train profile of both trees")
+    for flag, (help_text, _) in profiles.items():
+        parser.add_argument(f"--{flag}", action="store_true", help=help_text)
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
-        print("ab_flash_attn_bwd: no CUDA device", file=sys.stderr)
+        print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 2
     if args.root is not None:
         print(json.dumps(measure(args.root)))
         return 0
     runs = []
     for root in (args.ab, ROOT, ROOT, args.ab):
-        done = subprocess.run([sys.executable, __file__, "--root", str(root)], capture_output=True, text=True)
+        done = subprocess.run([sys.executable, script, "--root", str(root)], capture_output=True, text=True)
         if done.returncode != 0:
             print(done.stdout, done.stderr, file=sys.stderr)
             return done.returncode
@@ -150,22 +160,30 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     for key in runs[0]:
-        if key == "root":
+        if key == "root" or key not in runs[1]:
             continue
         parent = statistics.median([runs[0][key], runs[3][key]])
         change = statistics.median([runs[1][key], runs[2][key]])
         print(f"{key}: parent {runs[0][key]:.4f} / {runs[3][key]:.4f}, change {runs[1][key]:.4f} / "
               f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, x{parent / change:.2f})")
-    if args.train:
+    for flag, (_, command) in profiles.items():
+        if not getattr(args, flag):
+            continue
         for label, root in (("parent", args.ab.resolve()), ("change", ROOT)):
-            done = subprocess.run([sys.executable, str(root / "scripts" / "profile_torch_train.py"), "--txt2img"],
+            done = subprocess.run([sys.executable, str(root / command[0]), *command[1:]],
                                   capture_output=True, text=True, cwd=root)
             if done.returncode != 0:
                 print(done.stdout, done.stderr, file=sys.stderr)
                 return done.returncode
-            print(f"--- profile_torch_train.py --txt2img, {label} ({root}):")
+            print(f"--- {' '.join(command)}, {label} ({root}):")
             print(done.stdout.strip())
     return 0
+
+
+def main() -> int:
+    return ab_main(__doc__, __file__, measure,
+                   {"train": ("with --ab: the txt2img train profile of both trees",
+                              ["scripts/profile_torch_train.py", "--txt2img"])})
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The port's flash attention (K3's plain version) against the JAX flash kernel.
 
 On the CPU the port's wrapper runs ``flash_attention_reference``, the kernel's
-online recurrence over 64-key tiles. It is held against the Pallas kernel
+online recurrence over 128-key tiles. It is held against the Pallas kernel
 ``_fwd_kernel`` run in interpret mode through the reference's ``_flash_path``,
 as tests/test_flash_attention.py runs it. Tolerances: 2e-5 in fp32, where the
 tiles change only the summation order; 3e-2 in bf16, where p is rounded to
@@ -20,11 +20,12 @@ import pytest
 import torch
 
 from diffulab_tpu.ops.attention import _flash_path
+from diffulab_tpu.ops.attention import use_fused as jax_use_fused
 from diffulab_tpu.ops.flash_attention import _flash_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ, use_fused
 from diffulab_tpu_torch.ops.flash_attention import KERNEL_BLOCK_N, flash_attention, flash_attention_reference
-from diffulab_tpu_torch.ops.fused_mha import fused_mha_reference
+from diffulab_tpu_torch.ops.fused_mha import KERNEL_HEAD_DIMS, MIN_BLOCK, SMEM_LIMIT, forward_instance, fused_mha_reference
 
 jax_flash = functools.partial(_flash_path, interpret=True)
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -124,7 +125,7 @@ def test_bf16_rounds_unnormalised_p_unlike_the_fused_kernel():
 
 
 def test_dispatch_takes_fused_to_512_and_flash_beyond():
-    assert KERNEL_BLOCK_N == 64 and FUSED_MAX_SEQ == 512
+    assert KERNEL_BLOCK_N == 128 and FUSED_MAX_SEQ == 512
     assert use_fused((8, 512, 12, 64), 512)  # padded to 512: K1
     assert use_fused((32, 256, 12, 64), 256)  # DiT-B/2 stays on K1
     assert not use_fused((8, 513, 12, 64), 513)  # padded to 640: K3
@@ -136,6 +137,43 @@ def test_dispatch_takes_fused_to_512_and_flash_beyond():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="impl must be"):
         dot_product_attention(q, k, v, impl="sdpa")
+
+
+#: (S, H, D) -> whether the reference's VMEM budget and the port's 512-token
+#: line disagree (trap T21): the budget admits K1 to 640 padded tokens at
+#: H=12, D=64 and to 768 at H=6-8, and refuses it from 384 tokens at H=16,
+#: D=128 (512 at H=12); the port keeps its line, since on the H100 the flash kernels
+#: are as fast as K1 and K2 from 384 tokens and faster beyond (PERF.md §6)
+DISPATCH_CASES = {
+    (256, 12, 64): False,  # DiT-B/2: K1 on both sides
+    (512, 12, 64): False,
+    (513, 12, 64): True,  # 640 padded: the reference's K1, the port's K3
+    (640, 12, 64): True,
+    (641, 12, 64): False,  # 768 padded: past both
+    (768, 8, 64): True,
+    (768, 6, 64): True,
+    (896, 6, 64): False,
+    (1024, 1, 64): True,
+    (1024, 1, 16): True,
+    (384, 16, 128): True,  # the budget refuses, the port takes K1
+    (256, 16, 128): False,
+    (512, 12, 128): True,
+    (384, 12, 128): False,
+    (512, 16, 64): False,
+    (4224, 12, 64): False,  # the txt2img MMDiT: flash on both sides
+}
+
+
+@pytest.mark.parametrize("s,h,d", sorted(DISPATCH_CASES))
+def test_dispatch_divergence_from_the_reference_budget_is_pinned(s, h, d):
+    shape = (2, s, h, d)
+    padded = -(-s // MIN_BLOCK) * MIN_BLOCK
+    ours, ref = use_fused(shape, s), jax_use_fused(shape, s, backend="tpu")
+    assert ours == (padded <= FUSED_MAX_SEQ)
+    assert (ours != ref) == DISPATCH_CASES[(s, h, d)]
+    # any shape either rule sends to the fused route has a K1 instance (and K2 takes any multiple of 64)
+    if ours or ref:
+        assert d in KERNEL_HEAD_DIMS and forward_instance(padded, d).smem <= SMEM_LIMIT
 
 
 def test_cpu_grad_through_flash_matches_jax_flash_backward():
