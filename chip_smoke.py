@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``diffulab_tpu_torch``) on one card.
 
-Drives the port's four paths with seeded random weights: DiT-B/2
+Drives the port's five paths with seeded random weights: DiT-B/2
 class-conditional sampling (Euler-50, CFG 4.0 as one fused 2x batch, bf16
 whole-model cast, batch 16 on 32x32x4 latents) through ``Diffuser.generate``;
 DiT-B/2 rectified-flow training (logit-normal t, v-prediction, p_cfg 0.1,
@@ -14,7 +14,11 @@ PrecomputedEmbedder with a 128 x 2048 null embedding) on 64x64x128 latents
 ``Diffuser.generate``; and training of that txt2img MMDiT at batch 8
 (rectified flow, logit-normal t with shift 4.63, p_cfg 0.1, AdamW at
 configs/optimizer/adamw.yaml's values, EMA) through ``BaseTrainer.train``
-over shards that the port's ``ShardedDatasetWriter`` writes from a seed.
+over shards that the port's ``ShardedDatasetWriter`` writes from a seed;
+and slice C1, ``configs/train_synthetic_flow_matching.yaml`` through the
+port's own CLIs (``diffulab_tpu_torch.examples``: train with post-hoc EMA,
+reconstruct an EMA horizon, sample a grid from it) at the config's full
+width and depth in fp32, cut only in epochs and dataset size.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -70,7 +74,19 @@ Phases, one line each:
      ``collate_fn``), validation loss on the EMA weights, validation images
      decoded by the Flux2 tower with their captions, and the best-val
      checkpoint: 12 K3 + 12 K4 + 12 K5 launches in every step; ms per step,
-     samples/s and peak memory.
+     samples/s and peak memory;
+ 14. slice C1: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128) at
+     the config's attention shape (S=256, H=8, D=64) against their plain
+     versions, device times from CUDA-graph replays, bounds at the fp32
+     CUDA-core peak, fp32 SDPA as the yardstick; then, in process, the
+     ``train_diffusion`` CLI on ``train_synthetic_flow_matching`` (2 epochs of
+     2048 samples, 256 for validation; everything else at the config's
+     values), ``reconstruct_ema`` at sigma_rel 0.05 and 0.10, and ``sample``
+     of 16 images at CFG 1.5 from the 0.05 reconstruction: 10 K1 + 10 K2
+     launches in every train step, 4 post-hoc EMA snapshots, reconstruction
+     weights finite and summing to about 1, the native collate loaded, 500
+     K1 and 0 K3 launches in the sample request, a PNG grid of the expected
+     size; ms per step, samples/s, peak memory, ms per sample request.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -137,9 +153,19 @@ TXT_ADAMW = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8)
 TXT_VAL_STEPS, TXT_VAL_SHIFT = 4, 6.93
 TXT_BUCKETS = {(64, 64): 8, (48, 80): 4}  # latent (H, W) -> train batches
 
-# H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1)
+# H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1); fp32
+# outside the tensor cores, the peak of the fp32 instances' exact FFMA products
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+
+# slice C1: configs/train_synthetic_flow_matching.yaml through the port's CLIs,
+# cut only in epochs (12 -> 2) and data (10000 -> 2048 train, 2000 -> 256 val)
+C1_CONFIG = "train_synthetic_flow_matching"
+C1_CUTS = {"trainer.n_epoch": (12, 2), "dataset.train.n_samples": (10000, 2048), "dataset.val.n_samples": (2000, 256)}
+C1_BATCH, C1_DEPTH, C1_HEADS, C1_SEQ = 128, 10, 8, 256  # the config's batch, depth, heads; 32x32 / patch 2
+C1_SIGMA_RELS = ("0.05", "0.10")
+C1_SAMPLES, C1_GUIDANCE, C1_STEPS = 16, 1.5, 50  # the sample request: 2x16 under fused CFG, Euler-50
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: the same
 # arithmetic in another summation order. bf16: p is rounded to bf16 before
@@ -447,14 +473,14 @@ def txt2img_mask(batch: int, lengths, device="cuda"):
     return torch.cat([text, image], dim=1)
 
 
-def attention_bound(b, sq, h, d, valid_keys, elem, mask: bool = True):
+def attention_bound(b, sq, h, d, valid_keys, elem, mask: bool = True, peak_flops: float = PEAK_BF16_FLOPS):
     """(bound ms, what bounds it, MB, GFLOP) of one attention forward: q, k,
     v, o read or written once, the fp32 lse and the int32 mask (if any), and
     the two products over the keys each row attends (``valid_keys`` summed
-    over the batch)."""
+    over the batch), at ``peak_flops``."""
     bytes_moved = 4 * b * sq * h * d * elem + b * h * sq * 4 + (b * sq * 4 if mask else 0)
     flops = 4 * h * sq * d * valid_keys
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_flops) * 1e3, ("bytes" if t_bytes >= t_flops else "operations"), \
         bytes_moved / 1e6, flops / 1e9
 
@@ -1486,6 +1512,203 @@ def phase_txt2img_train(model, tower):
     return launches, steady
 
 
+def phase_c1_kernels():
+    """Phase 14a: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128)
+    at the C1 config's attention shape (S=256, H=8, D=64) against their plain
+    versions; device times from CUDA-graph replays, the bound at the fp32
+    CUDA-core peak (the kernels' products are exact fp32 FFMAs), fp32 SDPA
+    forward and backward as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    s, h, d = C1_SEQ, C1_HEADS, 64
+
+    def rand(b):
+        return torch.randn(b, s, h, d, generator=gen, device="cuda", dtype=torch.float32)
+
+    results = {}
+    with torch.no_grad():
+        for b in (C1_BATCH, 2 * C1_SAMPLES):
+            q, k, v = rand(b), rand(b), rand(b)
+            o, lse = fused_mha(q, k, v)
+            ro, rlse = fused_mha_reference(q, k, v)
+            err = check_close(f"C1 K1 fp32 B={b} o", o, ro, *TOL["float32"])
+            check_close(f"C1 K1 fp32 B={b} lse", lse, rlse, *LSE_TOL)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, b * s, 4, mask=False,
+                                                            peak_flops=PEAK_FP32_FLOPS)
+            results[f"fwd_b{b}"] = dict(
+                max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v)),
+                plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v), iters=5),
+                library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop)
+            del q, k, v, o, ro, qt, kt, vt
+        b = C1_BATCH
+        q, k, v, do = rand(b), rand(b), rand(b), rand(b)
+        _, lse = fused_mha(q, k, v)
+        err = check_grads("C1 K2 fp32", fused_mha_bwd(q, k, v, None, lse, do),
+                          fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["float32"])
+        graph_ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10, replays=5)
+        device_ms = profiled_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do))
+        plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=3)
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        library_ms = profiled_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        del out
+    bytes_moved = 7 * b * s * h * d * 4 + b * s * h * 4  # q, k, v, do, dq, dk, dv once each + lse
+    flops = 10 * b * h * s * s * d  # the recomputed s and four products
+    t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    results["bwd_b128"] = dict(max_abs_err=err, ms=graph_ms, plain_ms=plain_ms, library_ms=library_ms,
+                               device_ms=device_ms, bound_ms=max(t_bytes, t_flops) * 1e3,
+                               bound_by="bytes" if t_bytes >= t_flops else "operations",
+                               mb=bytes_moved / 1e6, gflop=flops / 1e9)
+    del q, k, v, do, lse, qt, kt, vt
+    torch.cuda.synchronize()
+    f128, f32, bw = results[f"fwd_b{C1_BATCH}"], results[f"fwd_b{2 * C1_SAMPLES}"], results["bwd_b128"]
+    print(f"phase 14 kernels fp32 at the C1 shape (S={s} H={h} D={d}; device ms from CUDA-graph replays; bounds at "
+          f"the fp32 CUDA-core peak {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s): "
+          + " ".join(f"K1 B={bb} max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} SDPA fp32 "
+                     f"{r['library_ms']:.4f} plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}: "
+                     f"{r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP);" for bb, r in ((C1_BATCH, f128), (2 * C1_SAMPLES, f32)))
+          + f" K2 B={C1_BATCH} max_abs_err {bw['max_abs_err']:.3e} (tol {BWD_TOL['float32']} * (max|ref| + |ref|)) "
+          f"kernel {bw['ms']:.4f} (torch.profiler {bw['device_ms']:.4f}) SDPA fp32 backward (torch.profiler) "
+          f"{bw['library_ms']:.4f} plain {bw['plain_ms']:.4f} bound {bw['bound_ms']:.4f} ({bw['bound_by']}: "
+          f"{bw['mb']:.1f} MB, {bw['gflop']:.2f} GFLOP); K1 tol atol {TOL['float32'][0]} rtol {TOL['float32'][1]}")
+    return results
+
+
+def _run_cli(fn, argv, log: Path):
+    """One CLI's ``main(argv)`` in this process (the launch counters see it),
+    its printed output kept in ``log`` and shown only if it fails."""
+    import contextlib
+
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        try:
+            return fn(argv)
+        except BaseException:
+            f.flush()
+            sys.stderr.write(log.read_text()[-4000:])
+            raise
+
+
+def phase_c1_cli():
+    """Phase 14b: train_synthetic_flow_matching through the port's three CLIs,
+    in process: train_diffusion (post-hoc EMA, validation images every
+    epoch), reconstruct_ema, sample. The counts are set to 0 just before the
+    training and read at each train step, and set to 0 again just before the
+    sample request."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffulab_tpu_torch.data import native
+    from diffulab_tpu_torch.examples import reconstruct_ema, sample, train_diffusion
+    from diffulab_tpu_torch.training import trainer as trainer_mod
+    from diffulab_tpu_torch.training.posthoc_ema import list_snapshots
+
+    sys.modules["wandb"] = None  # metrics go to metrics.jsonl; wandb is neither imported nor contacted
+    marks = []
+    original = trainer_mod.train_step
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = (time.perf_counter(), launch_counts())
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append((start, (time.perf_counter(), launch_counts())))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = Path(tmp) / "cli.log"
+        overrides = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()] + [f"trainer.save_path={tmp}"]
+        trainer_mod.train_step = timed_step
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            (trainer,) = _run_cli(train_diffusion.main, ["--config-name", C1_CONFIG, *overrides], log)
+            train_s = time.perf_counter() - t0
+            train_launches = launch_counts()
+        finally:
+            trainer_mod.train_step = original
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        run = Path(tmp) / "synthetic_flow_matching"
+        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in rows if "train/loss" in r]
+        val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
+        n_epochs = C1_CUTS["trainer.n_epoch"][1]
+        steps_per_epoch = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
+        if trainer.step != n_epochs * steps_per_epoch or len(marks) != trainer.step or len(losses) != n_epochs                 or not all(math.isfinite(v) for v in losses + val_losses) or len(val_losses) != n_epochs:
+            fail(f"C1 train: step counter {trainer.step}, {len(marks)} steps timed, train losses {losses}, "
+                 f"val losses {val_losses}")
+        per_step = [(c1["fused_mha_fwd"] - c0["fused_mha_fwd"], c1["fused_mha_bwd"] - c0["fused_mha_bwd"],
+                     c1["flash_attn_fwd"] - c0["flash_attn_fwd"]) for (_, c0), (_, c1) in marks]
+        if per_step != [(C1_DEPTH, C1_DEPTH, 0)] * trainer.step:
+            fail(f"C1 train: kernel launches per step (K1, K2, K3) {sorted(set(per_step))}, "
+                 f"expected ({C1_DEPTH}, {C1_DEPTH}, 0) each")
+        images = sorted((run / "images").glob("val_images_step*.png"))
+        if len(images) != n_epochs:
+            fail(f"C1 train: validation image grids {images}, one an epoch expected")
+        # start to start within an epoch: the host's batch and draws included
+        starts = [t for (t, _), _ in marks]
+        step_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(starts[:-1], starts[1:]))
+                   if (i + 1) % steps_per_epoch]
+        kernel_ms = [(t1 - t0) * 1e3 for (t0, _), (t1, _) in marks]
+        steady = statistics.median(step_ms[2:])
+        snaps = list_snapshots(run / "checkpoints" / "phema")
+        if len(snaps) != n_epochs * 2:
+            fail(f"C1 train: post-hoc EMA snapshots {[(s, g) for s, g, _ in snaps]}, expected {n_epochs} x 2")
+        if not native.HAS_NATIVE:
+            fail("C1 train: the native collate library did not load on this machine")
+
+        t0 = time.perf_counter()
+        results = _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", *C1_SIGMA_RELS], log)
+        reconstruct_s = time.perf_counter() - t0
+        sums = [float(r["weights"].sum()) for r in results]
+        if not all(np.isfinite(r["weights"]).all() for r in results) or any(abs(x - 1) > 5e-2 for x in sums):
+            fail(f"C1 reconstruct: weights {[r['weights'].tolist() for r in results]}")
+        ckpt = run / "checkpoints" / f"phema_sr{float(C1_SIGMA_RELS[0]):g}"
+        labels = ",".join(str(i) for i in range(10))
+        out = Path(tmp) / "samples.png"
+        reset_launch_counts()
+        result = _run_cli(sample.main, ["--config-name", C1_CONFIG, "--ckpt", str(ckpt), "--n", str(C1_SAMPLES),
+                                        "--guidance", str(C1_GUIDANCE), "--labels", labels, "--out", str(out),
+                                        *overrides], log)
+        sample_launches = launch_counts()
+        grid = np.asarray(Image.open(out))
+    if sample_launches["fused_mha_fwd"] != C1_STEPS * C1_DEPTH or sample_launches["flash_attn_fwd"]             or sample_launches["fused_mha_bwd"]:
+        fail(f"C1 sample: launches {sample_launches}, expected {C1_STEPS * C1_DEPTH} K1 and no other")
+    images = result["images"]
+    grid_shape = (2 + 2 * 34, 2 + 8 * 34, 3)  # 16 images of 32x32, 8 a row, 2 pixels apart
+    if images.shape != (C1_SAMPLES, 32, 32, 3) or not np.isfinite(images).all() or grid.shape != grid_shape:
+        fail(f"C1 sample: images {images.shape} finite {np.isfinite(images).all()}, grid {grid.shape}")
+    cuts = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in C1_CUTS.items())
+    print(f"phase 14 CLIs {C1_CONFIG} (cut: {cuts}; else the config's: batch {C1_BATCH}, fp32, DiT depth {C1_DEPTH} "
+          f"width 512, {C1_HEADS} heads, AdamW lr 3e-4, p_cfg 0.1, post-hoc EMA gammas 6.94/16.97, 50 validation "
+          f"steps, Euler-{C1_STEPS}): train {trainer.step} steps in {train_s:.1f} s, ms/step start to start "
+          f"median after the first two {steady:.2f} (min {min(step_ms):.2f} max {max(step_ms):.2f}; train_step "
+          f"alone median {statistics.median(kernel_ms[2:]):.2f}), samples/s {C1_BATCH / steady * 1e3:.1f}, peak mem "
+          f"{peak_gib:.2f} GiB; train losses {[round(x, 5) for x in losses]}, val losses (EMA) "
+          f"{[round(x, 5) for x in val_losses]}; launches per step {C1_DEPTH} K1 + {C1_DEPTH} K2, 0 K3, in the run "
+          f"{train_launches} (K1 includes validation); {len(snaps)} phema snapshots; native collate loaded; "
+          f"reconstruct sigma_rel {' '.join(C1_SIGMA_RELS)} in {reconstruct_s:.2f} s, weight sums "
+          f"{[round(x, 6) for x in sums]}; sample {C1_SAMPLES} images (labels 0-9 tiled) CFG {C1_GUIDANCE}: "
+          f"generate {result['generate_ms']:.1f} ms, {sample_launches['fused_mha_fwd']} K1 and 0 K3 launches; PNG "
+          f"grid {grid.shape}, pixels finite")
+    return {"train": train_launches, "sample": sample_launches, "step_ms": steady,
+            "generate_ms": result["generate_ms"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1523,6 +1746,10 @@ def main() -> int:
     phase_txt2img_gradients(txt_model, txt_plain)
     del txt_plain
     txt_train_launches, _ = phase_txt2img_train(txt_model, tower)
+    del txt_model, tower, cond
+    torch.cuda.empty_cache()
+    c1_kernels = phase_c1_kernels()
+    c1 = phase_c1_cli()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -1549,6 +1776,19 @@ def main() -> int:
         "library_wall_ms": main_case["library_wall_ms"],
         "train_shape_ms": main_case["train_shape_ms"],
     }, {
+        "name": "fused_mha_fwd (fp32 instance, slice C1)",
+        "route": "cuda",
+        "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
+        "replaces": "diffulab_tpu/ops/fused_mha.py:50",
+        "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"],
+        "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"]},
+        **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key]
+           for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
+        "sample_shape_b32": {key: c1_kernels[f"fwd_b{2 * C1_SAMPLES}"][key]
+                             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "timing": "ms and library_ms: device time per call from CUDA-graph replays; bound at the fp32 CUDA-core peak",
+    }, {
         "name": "fused_mha_bwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
@@ -1557,6 +1797,18 @@ def main() -> int:
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
                              "txt2img_train": txt_train_launches["fused_mha_bwd"]},
         **k2,
+    }, {
+        "name": "fused_mha_bwd (fp32 instance, slice C1)",
+        "route": "cuda",
+        "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
+        "replaces": "diffulab_tpu/ops/fused_mha.py:87",
+        "launches": c1["train"]["fused_mha_bwd"],
+        "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"]},
+        **{key: c1_kernels["bwd_b128"][key]
+           for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")},
+        "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
+        "timing": "ms: device time per call from CUDA-graph replays; device_ms and library_ms (SDPA fp32 "
+                  "backward): kernels summed by torch.profiler; bound at the fp32 CUDA-core peak",
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",

@@ -24,7 +24,12 @@ serving — the multimodal ``MMDiT(simple_dit=False)`` with a
 :class:`~diffulab_tpu_torch.networks.vision_towers.Flux2VAE` decode; slice
 B2, latent text-to-image training — text batches from
 :mod:`diffulab_tpu_torch.data.imagenet` through ``BaseTrainer`` with the
-trainable split of ``training.checkpoint.trainable_filter``.
+trainable split of ``training.checkpoint.trainable_filter``; slice C1, the
+main path end to end from its config — :mod:`diffulab_tpu_torch.config`
+(the JAX package's YAML tree, ``_target_`` remapped to this package), the
+in-memory datasets and the threaded ``data.loader.DataLoader`` with the
+native uint8 batch path, post-hoc EMA (``training.posthoc_ema``) and the
+``examples.{train_diffusion,reconstruct_ema,sample}`` CLIs.
 Attention runs in the fused multi-head kernels, forward
 (``csrc/fused_mha_fwd.cu``) and backward (``csrc/fused_mha_bwd.cu``), up to
 512 tokens, and in the flash-attention kernels, forward

@@ -15,6 +15,8 @@ from typing import Any, Dict, Sequence
 
 import numpy as np
 
+from diffulab_tpu_torch.data import native
+
 BatchData = Dict[str, Any]
 
 
@@ -44,15 +46,15 @@ class BaseDataset:
         return {"model_inputs": {"x": image, "y": label}}
 
     def get_batch(self, indices: Sequence[int]) -> BatchData:
-        """A whole batch at once: float images through ``preprocess_image``.
-        The reference's fused uint8 gather-and-normalise (``data/native.py``,
-        a C++ helper) is not ported yet (ROADMAP queue 1, item 8)."""
+        """A whole batch at once: uint8 stores through the fused gather +
+        uint8->[-1,1] normalize of :mod:`~diffulab_tpu_torch.data.native`
+        (one multithreaded C++ call), other stores through
+        ``preprocess_image``, bypassing the per-item __getitem__ + collate loop."""
         if self.images is None or self.labels is None:
             raise ValueError("Dataset has not been initialized properly.")
         idx = np.asarray(indices, np.int64)
         if self.images.dtype == np.uint8:
-            raise NotImplementedError(
-                "the native uint8 batch path (data/native.py) is not ported yet (ROADMAP queue 1, item 8)"
-            )
-        x = np.stack([self.preprocess_image(self.images[i]) for i in idx])
+            x = native.gather_normalize_u8(self.images, idx)
+        else:
+            x = np.stack([self.preprocess_image(self.images[i]) for i in idx])
         return {"model_inputs": {"x": x, "y": self.labels[idx].astype(np.int64)}}

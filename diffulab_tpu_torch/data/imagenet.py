@@ -7,8 +7,9 @@ and ``caption_mask`` (the ``context`` a ``PrecomputedEmbedder`` reads) from a
 :class:`~diffulab_tpu_torch.data.streaming.ShardedDataset`.
 :class:`MultiARBatchSampler` yields same-bucket index batches, so every batch
 is shape-uniform, and :func:`collate_fn` stacks them (captions stay a list).
-A batch is ``[collate_fn([ds[i] for i in idx]) for idx in sampler]``; the
-reference's threaded ``data/loader.py`` waits for ROADMAP queue 1, item 8.
+A batch is ``[collate_fn([ds[i] for i in idx]) for idx in sampler]``, or
+:class:`~diffulab_tpu_torch.data.loader.DataLoader` with ``sampler=`` and
+``collate_fn=`` for the threaded prefetch.
 
 Not ported yet: ``ImageNetLatentREPA`` (class-conditional latents with REPA
 features) waits for REPA (ROADMAP queue 1, item 13).

@@ -1,0 +1,103 @@
+"""Host-side batching data loader with background prefetch (port of
+diffulab_tpu/data/loader.py).
+
+Replaces torch.utils.data.DataLoader (reference configs/dataloader/default.yaml):
+collates dataset items (numpy pytrees) into stacked batches, shuffles with a
+per-epoch seed, drops the trailing partial batch (the reference's jit wants
+static shapes; the port keeps the batch count), and prefetches batches on a
+background thread so host collation overlaps device compute. An error in
+the prefetch thread is raised in the consumer, not taken for the epoch's end.
+
+One process: the reference's ``jax.process_count()`` / ``process_index()``
+are 1 and 0 here until multi-process training is ported (ROADMAP queue 1,
+item 17), and its ``sampler`` / ``collate_fn`` / ``drop_last`` options wait
+for a caller. The batch order is the reference's for the same seed and epoch.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Iterator, Sequence
+
+import numpy as np
+
+
+def default_collate(items: Sequence[Any]) -> Any:
+    """Stack a list of numpy pytrees into one batched pytree."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: default_collate([it[k] for it in items]) for k in first}
+    if isinstance(first, (list, tuple)) and not isinstance(first, str):
+        return type(first)(default_collate([it[i] for it in items]) for i in range(len(first)))
+    if isinstance(first, str):
+        return list(items)
+    return np.stack([np.asarray(it) for it in items], axis=0)
+
+
+class DataLoader:
+    def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True, seed: int = 0, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.prefetch = prefetch
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the shuffle epoch (torch DistributedSampler convention): a
+        resumed run calls this with the 0-based trainer epoch so epoch N
+        replays epoch N's order instead of restarting the counter at 0.
+        ``__iter__`` pre-increments, so the next iteration shuffles with
+        ``seed + epoch + 1`` — exactly what an uninterrupted run used."""
+        self._epoch = epoch
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def _batch_indices(self) -> Iterator[Sequence[int]]:
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        for start in range(0, n - n % self.batch_size, self.batch_size):
+            yield order[start : start + self.batch_size]
+
+    def _make_batch(self, idx: Sequence[int]) -> Any:
+        # datasets exposing get_batch (native fused gather+normalize) skip the
+        # per-item collate loop entirely
+        if hasattr(self.dataset, "get_batch"):
+            return self.dataset.get_batch(idx)
+        return default_collate([self.dataset[int(i)] for i in idx])
+
+    def __iter__(self) -> Iterator[Any]:
+        self._epoch += 1
+        if self.prefetch <= 0:
+            for idx in self._batch_indices():
+                yield self._make_batch(idx)
+            return
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error: list[BaseException] = []
+
+        def producer():
+            try:
+                for idx in self._batch_indices():
+                    q.put(self._make_batch(idx))
+            except BaseException as e:  # raised in the consumer after the batches before it
+                error.append(e)
+            finally:
+                q.put(sentinel)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        thread.join()
+        if error:
+            raise error[0]

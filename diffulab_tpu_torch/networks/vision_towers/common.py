@@ -2,8 +2,8 @@
 
 A vision tower encodes NHWC images to latents and back. The latent scale and
 bias are floats or per-channel ``[1, 1, 1, C]`` fp32 tensors (non-persistent
-buffers, so they follow the tower's device). ``compute_on_dataset`` waits
-for the data layer (ROADMAP item 8).
+buffers, so they follow the tower's device). ``compute_on_dataset`` is not
+ported yet (ROADMAP item 10r).
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ of the source, the headers beside it (``csrc/hopper.cuh``) and the flags, so
 an edited source or header is rebuilt and an unchanged one is loaded as it
 is. Nothing here runs at import: the CPU tests import every
 module on machines without ``nvcc``.
+
+:func:`build_library` does the same for a host library with another
+compiler (``data/native.py`` builds its ``g++`` library through it).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
@@ -61,30 +65,39 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    """The library's path, keyed by the source, every header beside it (a
-    source may include any of them) and the flags."""
-    source = _PKG / KERNELS[name][0]
+def library_path(stem: str, source: Path, flags: Sequence[str]) -> Path:
+    """The library built from ``source``, keyed by the source, every header
+    beside it (a source may include any of them) and the flags."""
     digest = hashlib.sha256(source.read_bytes())
     for header in sorted(source.parent.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _target(name: str) -> Path:
+    return library_path(name, _PKG / KERNELS[name][0], NVCC_FLAGS)
 
 
 def _tmp(so: Path) -> Path:
     return so.with_suffix(f".{os.getpid()}.tmp")
 
 
-def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
-    """Start ``nvcc`` for kernel ``name`` unless its library is built."""
-    so = _target(name)
+def _start_build(stem: str, source: Path, compiler: Callable[[], str], flags: Sequence[str]
+                 ) -> tuple[Path, subprocess.Popen | None]:
+    """Start compiling ``source`` unless its library is built."""
+    so = library_path(stem, source, flags)
     if so.exists():
         return so, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp(so)), str(_PKG / KERNELS[name][0])]
+    cmd = [compiler(), *flags, "-o", str(_tmp(so)), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return so, proc
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen | None]:
+    """Start ``nvcc`` for kernel ``name`` unless its library is built."""
+    return _start_build(name, _PKG / KERNELS[name][0], _nvcc, NVCC_FLAGS)
 
 
 def _finish(name: str, so: Path, proc: subprocess.Popen | None) -> str:
@@ -94,10 +107,20 @@ def _finish(name: str, so: Path, proc: subprocess.Popen | None) -> str:
         return log.read_text() if log.exists() else ""
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{out}")
+        _tmp(so).unlink(missing_ok=True)
+        raise RuntimeError(f"{proc.args[0]} failed for {name} (exit {proc.returncode}):\n{out}")
     log.write_text(out)
     os.replace(_tmp(so), so)
     return out
+
+
+def build_library(stem: str, source: Path, compiler: Callable[[], str], flags: Sequence[str]) -> Path:
+    """Build ``source`` with ``compiler()`` and ``flags`` into ``BUILD_DIR``
+    unless it is built, and return the library's path. A failed build raises
+    ``RuntimeError``, a missing compiler ``OSError``."""
+    so, proc = _start_build(stem, source, compiler, flags)
+    _finish(stem, so, proc)
+    return so
 
 
 def build_all() -> tuple[float, dict[str, str]]:
@@ -114,9 +137,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    so, proc = _start(name)
-    _finish(name, so, proc)
-    lib = ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(build_library(name, _PKG / KERNELS[name][0], _nvcc, NVCC_FLAGS)))
     for entry, argtypes in KERNELS[name][1].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes

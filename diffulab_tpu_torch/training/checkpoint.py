@@ -14,8 +14,12 @@ state_dict entry: frozen parameters such as a frozen context embedder's, and
 persistent buffers>}``, so the whole model restores from it; the ``ema``
 entry holds ``{"params": <the EMA of the trainable parameters>}`` only.
 
-Not ported yet (ROADMAP queue 1, item 8): ``restore_train_modules``,
-``restore_sampling_model`` and an importer of the JAX package's orbax runs.
+:func:`restore_train_modules` and :func:`restore_sampling_model` restore a
+run's entry into a freshly built model for the CLIs: entries named ``ema``
+or ``phema*`` (a post-hoc EMA snapshot or reconstruction) hold
+``{"params"}`` only, the others ``{"params", "rest"}``. Not ported yet: an
+importer of the JAX package's orbax runs (ROADMAP queue 1, item 8: reading
+one needs orbax or tensorstore, which the port does not import).
 """
 
 from __future__ import annotations
@@ -150,3 +154,34 @@ def split_state(model: torch.nn.Module, trainable: Callable[[str], bool]
     state = model.state_dict()
     return ({k: v for k, v in state.items() if k in names},
             {k: v for k, v in state.items() if k not in names})
+
+
+def restore_train_modules(path: str | Path, denoiser: torch.nn.Module) -> None:
+    """Restore a trainer checkpoint entry (``denoiser``, ``ema`` or a post-hoc
+    EMA ``phema*`` directory) into a live model, with the trainer's default
+    trainable split (:func:`trainable_filter`: the reference's sampling CLIs
+    restore with it too). ``ema`` and ``phema*`` entries hold ``{"params"}`` only and
+    leave the rest of the model's state as it is; others hold
+    ``{"params", "rest"}`` and restore the whole state. A key or shape that
+    does not match raises."""
+    path = Path(path)
+    params, rest = split_state(denoiser, trainable_filter(denoiser))
+    if path.name == "ema" or path.name.startswith("phema"):
+        restored = restore_checkpoint(path, {"params": params})
+        denoiser.load_state_dict({**rest, **restored["params"]}, strict=True)
+    else:
+        restored = restore_checkpoint(path, {"params": params, "rest": rest})
+        denoiser.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
+
+
+def restore_sampling_model(ckpt_path: str | Path, denoiser: torch.nn.Module, extra_losses: list,
+                           trainer_cfg: dict) -> None:
+    """Restore a run checkpoint into a freshly built denoiser for the
+    sampling CLI (reference checkpoint.py:188-225). A LoRA run
+    (``trainer.lora_rank``) would restore its base, wrap the model and then
+    the adapters; LoRA is not ported yet and raises."""
+    if trainer_cfg.get("lora_rank"):
+        raise NotImplementedError("LoRA checkpoints (trainer.lora_rank) are not ported yet (ROADMAP queue 1, item 16)")
+    if extra_losses:
+        raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
+    restore_train_modules(ckpt_path, denoiser)

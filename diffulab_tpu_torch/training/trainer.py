@@ -18,6 +18,12 @@ accumulation and clipping rules. Mirrored from the reference:
 - EMA with ema-pytorch semantics on the raw micro-step counter, with
   ``update_after_step`` and ``update_every`` multiplied by the accumulation
   (trainer.py:113-119);
+- post-hoc EMA (``posthoc_ema``, :mod:`.posthoc_ema`): one power-function
+  track per gamma, fp32 copies of the trainable parameters updated after
+  every micro-step with the raw counter (trainer.py:381-386), snapshot in
+  fp16 every epoch under ``checkpoints/phema/`` through the asynchronous
+  checkpointer (:712-722), and on resume restored from the newest snapshot
+  at or before the resume step, never a later one (:234-264);
 - the trainable split of :func:`.checkpoint.trainable_filter`: the optimizer
   and the EMA hold the trainable parameters (a frozen context embedder's are
   left out), and checkpoints store them apart from the rest of the state;
@@ -33,8 +39,8 @@ accumulation and clipping rules. Mirrored from the reference:
 :func:`train_step` does one step with its randomness given, so that the
 parity tests can inject the reference's draws; the loop draws and calls it.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1): post-hoc
-EMA (item 8), augmentation (``augment_p > 0``, item 15), guidance
+Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
+augmentation (``augment_p > 0``, item 15), guidance
 distillation (``distill_teacher``, item 15), LoRA (``lora_only``, item 16),
 trainable embedders (``train_embedder``, items 9 and 16: the HF and
 trainable embedders, whose ``tokenize``/``embed_host`` turn caption strings
@@ -70,12 +76,18 @@ from diffulab_tpu_torch.training.ema import EMAConfig, ema_update, init_ema
 from diffulab_tpu_torch.training.logging import Tracker
 from diffulab_tpu_torch.training.meters import AverageMeter
 from diffulab_tpu_torch.training.optim import OptimizerFactory, clip_by_global_norm
+from diffulab_tpu_torch.training.posthoc_ema import (
+    DEFAULT_GAMMAS,
+    cast_tree_f16,
+    init_tracks,
+    list_snapshots,
+    power_ema_update,
+    snapshot_dir,
+)
 from diffulab_tpu_torch.utils import resolve_device
 
 logger = pylog.getLogger(__name__)
 
-#: post-hoc EMA profile widths of the reference (posthoc_ema.py DEFAULT_GAMMAS)
-DEFAULT_GAMMAS: tuple[float, float] = (6.94, 16.97)
 #: offset of the validation draws' seeds, as the reference's fold_in(rng, 1_000_000 + i)
 _VAL_SEED_OFFSET = 1_000_000
 _IMAGE_SEED_OFFSET = 10_000
@@ -173,6 +185,19 @@ def split_batch(batch: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
     return model_inputs.pop("x"), model_inputs
 
 
+@dataclasses.dataclass
+class PowerEMA:
+    """The post-hoc EMA tracks: one dict of fp32 tensors by parameter name
+    per gamma."""
+
+    gammas: tuple[float, ...]
+    tracks: tuple[dict[str, torch.Tensor], ...]
+
+    def update(self, params: dict[str, torch.Tensor], step: int) -> None:
+        for track, gamma in zip(self.tracks, self.gammas):
+            power_ema_update(track, params, step, gamma)
+
+
 def train_step(
     diffuser: Diffuser,
     optimizer: MultiStepOptimizer,
@@ -182,16 +207,22 @@ def train_step(
     noise: torch.Tensor,
     drop: torch.Tensor | None,
     step: int,
+    phema: PowerEMA | None = None,
 ) -> dict[str, torch.Tensor]:
     """One micro-step with its randomness given (trainer.py:371-386): the
-    loss, its gradients, the (accumulated) optimizer update and the EMA
-    update at the raw counter ``step``. Returns the detached losses."""
+    loss, its gradients, the (accumulated) optimizer update, and the EMA and
+    post-hoc EMA updates at the raw counter ``step``. Returns the detached
+    losses."""
     x0, cond = split_batch(batch)
     losses = diffuser.diffusion.compute_loss(diffuser.model_fn(train=True), x0, cond, t, noise, drop=drop)
     sum(losses.values()).backward()
     optimizer.step()
-    if ema is not None:
-        ema.update(dict(diffuser.denoiser.named_parameters()), step)
+    if ema is not None or phema is not None:
+        params = dict(diffuser.denoiser.named_parameters())
+        if ema is not None:
+            ema.update(params, step)
+        if phema is not None:
+            phema.update(params, step)
     return {key: value.detach() for key, value in losses.items()}
 
 
@@ -225,9 +256,7 @@ class Trainer:
         distill_guidance: float = 0.0,
         device: str | torch.device | None = None,
     ):
-        del compile, posthoc_ema_gammas, distill_guidance  # config parity: their paths raise or are unported
-        if posthoc_ema:
-            raise NotImplementedError("post-hoc EMA is not ported yet (ROADMAP queue 1, item 8)")
+        del compile, distill_guidance  # config parity: their paths raise or are unported
         if augment_p > 0:
             raise NotImplementedError("augmentation (augment_p > 0) is not ported yet (ROADMAP queue 1, item 15)")
         if mesh is not None:
@@ -251,6 +280,8 @@ class Trainer:
             inv_gamma=ema_inv_gamma,
             power=ema_power,
         )
+        self.posthoc_ema = posthoc_ema
+        self.posthoc_ema_gammas = tuple(float(g) for g in posthoc_ema_gammas)
         self.save_every_n_epochs = save_every_n_epochs
         self.save_optimizer = save_optimizer
         if save_path is None:
@@ -323,6 +354,31 @@ class Trainer:
         """Join the in-flight background save (re-raising write errors)."""
         if self._async_ckptr is not None:
             self._async_ckptr.wait()
+
+    def _init_phema(self, params: dict[str, torch.Tensor], phema_base: Path, resume_step: int) -> PowerEMA:
+        """Fresh power-EMA tracks (fp32 copies of the trainable parameters),
+        or, when resuming, the stored fp16 snapshots at (or before) the resume
+        step. Snapshots PAST the resume point are never used: the re-trained
+        steps would be double-counted in the average. The fp16 roundtrip
+        costs <1e-3 relative, far under the width of any profile being
+        reconstructed."""
+        tracks = []
+        snaps = list_snapshots(phema_base) if resume_step else []
+        for gamma in self.posthoc_ema_gammas:
+            candidates = [(s, p) for s, g, p in snaps
+                          if abs(g - gamma) < 1e-6 * max(abs(gamma), 1.0) and s <= resume_step]
+            track = init_tracks(params)
+            if candidates:
+                snap_step, path = max(candidates)
+                if snap_step != resume_step:
+                    logger.warning(
+                        f"phema track gamma={gamma}: resuming from snapshot at step "
+                        f"{snap_step} != resume step {resume_step}; the gap's steps "
+                        "are missing from this track's average"
+                    )
+                track = restore_checkpoint(path, {"params": track})["params"]
+            tracks.append(track)
+        return PowerEMA(self.posthoc_ema_gammas, tuple(tracks))
 
 
 @contextlib.contextmanager
@@ -517,6 +573,10 @@ class BaseTrainer(Trainer):
                 raise ValueError("epoch_start > 0 requires steps_per_epoch when the "
                                  "dataloader has no len()") from e
         step = epoch_start * (steps_per_epoch or 0)
+        phema = None
+        phema_base = self.save_path / "checkpoints" / "phema"
+        if self.posthoc_ema:
+            phema = self._init_phema(params, phema_base, step)
 
         best_val_loss = resume_best_val
         tracker_meter = AverageMeter()
@@ -542,7 +602,7 @@ class BaseTrainer(Trainer):
                 drop = None
                 if p_classifier_free_guidance > 0:
                     drop = make_drop_mask(generator, p_classifier_free_guidance, bsz)
-                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step)
+                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step, phema)
                 n_steps_epoch += 1
                 for key, loss in losses.items():
                     prev = loss_sums.get(key)
@@ -557,6 +617,12 @@ class BaseTrainer(Trainer):
                 if key.startswith("train/"):
                     self.tracker.log({key: value, "epoch": epoch + 1}, step=step)
             tracker_meter.reset()
+
+            # post-hoc EMA snapshots go out EVERY epoch (the reconstruction
+            # basis must cover the whole trajectory, unlike best-val checkpoints)
+            if phema is not None:
+                self._write({snapshot_dir(phema_base, step, gamma): {"params": cast_tree_f16(track)}
+                             for gamma, track in zip(phema.gammas, phema.tracks)})
 
             # --- validation, on the EMA weights where there are any ------------
             if val_dataloader is not None:

@@ -9,15 +9,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The port's device rule: ``None`` means the card, and raises where there
-    is none. The CPU is used only when the caller asks for it."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
+    """The port's device rule: ``None`` means the card, and a CUDA device
+    raises where there is none. The CPU is used only when the caller asks
+    for it."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return device
 
 
 def resolve_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:

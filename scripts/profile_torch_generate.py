@@ -4,7 +4,12 @@
 Builds the model as chip_smoke.py does, with seeded random weights: by
 default bench.py's DiT-B/2 (bf16 whole-model cast, batch 16, Euler-50, CFG
 4.0); with ``--txt2img`` the txt2img MMDiT with its Flux2 tower (4 prompts,
-64x64x128 latents, 4224 tokens, Euler-50, CFG 4.0, decode to 1024x1024).
+64x64x128 latents, 4224 tokens, Euler-50, CFG 4.0, decode to 1024x1024);
+with ``--c1`` slice C1's sample request: the DiT of
+configs/train_synthetic_flow_matching.yaml built through the port's config
+layer (width 512, depth 10, fp32), 16 images of 32x32x3 for labels 0-9
+tiled, Euler-50, CFG 1.5 (the request chip_smoke.py phase 14 makes through
+the sample CLI).
 Times requests without the profiler (for txt2img also the denoising loop and
 the decode apart), then records one request under ``torch.profiler`` and
 prints, from the device's kernel records: the kernel launches per request,
@@ -12,7 +17,7 @@ the device busy time (union of kernel intervals) against the request's wall
 time, and the device time by kernel group and by kernel name.
 
 Run on the card from the repository root:
-``python3 scripts/profile_torch_generate.py [--txt2img]``.
+``python3 scripts/profile_torch_generate.py [--txt2img | --c1]``.
 """
 
 from __future__ import annotations
@@ -103,12 +108,37 @@ def txt2img() -> None:
     summarize(prof, plain_ms, traced_ms, "request")
 
 
+def _c1_request():
+    """Slice C1's sample request, built from its config: (request fn, label)."""
+    import torch
+
+    import chip_smoke
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    cfg = compose_config(ROOT / "configs", chip_smoke.C1_CONFIG)
+    torch.manual_seed(0)
+    model = instantiate(cfg["model"], device="cuda").eval()
+    diffuser = Diffuser(model, cfg["diffuser"]["sampling_method"], n_steps=cfg["diffuser"]["n_steps"],
+                        extra_args=cfg["diffuser"].get("extra_args", {}))
+    n = chip_smoke.C1_SAMPLES
+    y = torch.arange(n, device="cuda") % 10
+
+    def run(gen):
+        diffuser.generate({"y": y}, data_shape=(n, 32, 32, 3), generator=gen, clamp_x=True,
+                          guidance_scale=chip_smoke.C1_GUIDANCE)
+
+    return run, f"C1 DiT fp32, {n} images, CFG {chip_smoke.C1_GUIDANCE}"
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--txt2img", action="store_true", help="profile the txt2img MMDiT request")
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--txt2img", action="store_true", help="profile the txt2img MMDiT request")
+    which.add_argument("--c1", action="store_true", help="profile slice C1's sample request, from its config")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_generate: no CUDA device", file=sys.stderr)
@@ -120,17 +150,26 @@ def main() -> int:
     import chip_smoke
     from diffulab_tpu_torch.diffuse import Diffuser
 
-    model, _ = chip_smoke.build_models()
-    diffuser = Diffuser(model, "euler", n_steps=chip_smoke.STEPS)
-    shape = (chip_smoke.SAMPLE_BATCH, *chip_smoke.LATENT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.c1:
+        run, label = _c1_request()
+    else:
+        model, _ = chip_smoke.build_models()
+        diffuser = Diffuser(model, "euler", n_steps=chip_smoke.STEPS)
+        shape = (chip_smoke.SAMPLE_BATCH, *chip_smoke.LATENT)
+        y = torch.arange(chip_smoke.SAMPLE_BATCH, device="cuda") * 7 % 1000
+        label = "DiT-B/2 bf16, batch 16, CFG 4.0"
+
+        def run(gen):
+            diffuser.generate({"y": y}, data_shape=shape, generator=gen,
+                              guidance_scale=chip_smoke.CFG, dtype=torch.bfloat16)
 
     def request(seed: int) -> float:
-        y = torch.arange(chip_smoke.SAMPLE_BATCH, device="cuda") * 7 % 1000
         gen = torch.Generator(device="cuda").manual_seed(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        diffuser.generate({"y": y}, data_shape=shape, generator=gen,
-                          guidance_scale=chip_smoke.CFG, dtype=torch.bfloat16)
+        run(gen)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
@@ -138,6 +177,7 @@ def main() -> int:
     plain_ms = [request(1 + i) for i in range(5)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = request(10)
+    print(f"request: {label}, Euler-{chip_smoke.STEPS}")
     summarize(prof, plain_ms, traced_ms, "request")
     return 0
 

@@ -1,0 +1,305 @@
+"""The port's config layer and CLIs (diffulab_tpu_torch.config,
+diffulab_tpu_torch.examples) against the JAX package.
+
+- ``compose_config``: the composed dict equals the JAX package's exactly,
+  for every ``configs/train_*.yaml`` and for CLI overrides, once the
+  ``_target_`` paths are remapped (``diffulab_tpu.`` -> ``diffulab_tpu_torch.``)
+  on both sides;
+- every ``_target_`` under ``configs/`` resolves in the port or raises
+  ``NotImplementedError``; the main path's (DiT, synthetic shapes, AdamW)
+  resolve, and the DiT the config builds has the JAX model's parameters,
+  name for name and shape for shape;
+- sweeps expand and dispatch as the JAX package's;
+- the three CLIs end to end on the CPU at depth 2, width 64, 64 samples,
+  2 epochs and 2 sampling steps: post-hoc EMA snapshots, then the
+  reconstruction (its weights equal the JAX package's solve to 1e-12), then
+  a PNG grid; ``--device`` defaults to ``cuda`` and raises without a card.
+"""
+
+import argparse
+import fractions
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+from PIL import Image
+
+from diffulab_tpu.config import compose_config as jax_compose
+from diffulab_tpu.config import instantiate as jax_instantiate
+from diffulab_tpu.config import sweep as jax_sweep
+from diffulab_tpu.training import posthoc_ema as jphema
+from diffulab_tpu_torch.config import compose_config, instantiate, sweep
+from diffulab_tpu_torch.config.instantiate import locate, model_dtype_kwargs, port_path
+from diffulab_tpu_torch.examples import reconstruct_ema, sample, train_diffusion
+from diffulab_tpu_torch.training import posthoc_ema
+from diffulab_tpu_torch.weights import state_dict_from_jax
+
+REPO = Path(__file__).resolve().parent.parent
+CONFIGS = REPO / "configs"
+TRAIN_CONFIGS = sorted(p.stem for p in CONFIGS.glob("train_*.yaml"))
+#: the CLI runs' cut: depth 2, width 64 (4 heads of 16), 64 train and 32 val
+#: samples at batch 32 (2 steps an epoch), 2 epochs, 2 sampling steps
+TINY_OVERRIDES = ["model.depth=2", "model.inner_dim=64", "model.embedding_dim=64", "model.num_heads=4",
+                  "dataset.train.n_samples=64", "dataset.val.n_samples=32", "dataloader.batch_size=32",
+                  "trainer.n_epoch=2", "trainer.val_steps=2", "diffuser.n_steps=2"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(autouse=True)
+def _no_wandb(monkeypatch):
+    # the tracker writes metrics.jsonl; where wandb is installed it is not imported
+    monkeypatch.setitem(sys.modules, "wandb", None)
+
+
+def _remap(node):
+    """The tree with every ``_target_`` remapped to the port."""
+    if isinstance(node, dict):
+        return {k: (port_path(v) if k == "_target_" and isinstance(v, str) else _remap(v)) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_remap(v) for v in node]
+    return node
+
+
+def _targets(node, out):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == "_target_" and isinstance(v, str):
+                out.add(v)
+            else:
+                _targets(v, out)
+    elif isinstance(node, list):
+        for v in node:
+            _targets(v, out)
+    return out
+
+
+ALL_TARGETS = sorted(set().union(*(_targets(jax_compose(CONFIGS, name), set()) for name in TRAIN_CONFIGS)))
+
+
+# --- compose -----------------------------------------------------------------
+
+def test_every_train_config_is_covered():
+    assert len(TRAIN_CONFIGS) >= 20 and "train_synthetic_flow_matching" in TRAIN_CONFIGS
+
+
+@pytest.mark.parametrize("name", TRAIN_CONFIGS)
+def test_compose_config_equals_jax(name):
+    ours = compose_config(CONFIGS, name)
+    ref = jax_compose(CONFIGS, name)
+    assert _remap(ours) == _remap(ref)
+    # the port composes the tree as it is: the remap happens at instantiate
+    assert ours == ref
+
+
+@pytest.mark.parametrize("overrides", [
+    ["trainer.n_epoch=2", "optimizer.lr=3e-4", "dataloader.batch_size=16"],
+    ["optimizer=sgd", "trainer.mesh.data=2"],
+    ["trainer.lr_scheduler._target_=optax.cosine_decay_schedule", "trainer.lr_scheduler.decay_steps=100"],
+    ["model.depth=2", "trainer.posthoc_ema_gammas=[5.0, 10.0]", "trainer.save_path=null", "dataset.train.seed=1e1"],
+])
+def test_compose_overrides_equal_jax(overrides):
+    ours = compose_config(CONFIGS, "train_synthetic_flow_matching", overrides)
+    assert ours == jax_compose(CONFIGS, "train_synthetic_flow_matching", overrides)
+
+
+def test_compose_coerces_scientific_floats_like_jax():
+    cfg = compose_config(CONFIGS, "train_synthetic_flow_matching")
+    assert cfg["optimizer"]["lr"] == 3e-4 and isinstance(cfg["optimizer"]["eps"], float)
+    assert cfg["trainer"]["posthoc_ema"] is True and cfg["trainer"]["precision_type"] == "no"
+    with pytest.raises(ValueError, match="key=value"):
+        compose_config(CONFIGS, "train_synthetic_flow_matching", ["trainer.n_epoch"])
+
+
+# --- instantiate -------------------------------------------------------------
+
+def test_targets_are_collected():
+    assert "diffulab_tpu.networks.denoisers.mmdit.MMDiT" in ALL_TARGETS and len(ALL_TARGETS) >= 15
+
+
+@pytest.mark.parametrize("target", ALL_TARGETS)
+def test_every_target_resolves_in_the_port_or_raises_not_implemented(target):
+    try:
+        obj = locate(target)
+    except NotImplementedError as e:
+        assert target in str(e) and "ROADMAP queue 1" in str(e)
+        return
+    assert callable(obj)
+    assert obj.__module__.startswith("diffulab_tpu_torch.")
+
+
+@pytest.mark.parametrize("target", ["diffulab_tpu.networks.denoisers.mmdit.MMDiT",
+                                    "diffulab_tpu.data.SyntheticShapesDataset",
+                                    "diffulab_tpu.data.MNISTDataset", "diffulab_tpu.data.CIFAR10Dataset",
+                                    "diffulab_tpu.data.ImageFolderDataset", "diffulab_tpu.training.optim.adamw",
+                                    "diffulab_tpu.networks.embedders.precomputed.PrecomputedEmbedder",
+                                    "diffulab_tpu.networks.vision_towers.flux2.Flux2VAE"])
+def test_ported_targets_resolve(target):
+    assert locate(target).__module__.startswith("diffulab_tpu_torch.")
+
+
+def test_unported_and_jax_side_targets_raise():
+    with pytest.raises(NotImplementedError, match="ddt.DDT"):
+        locate("diffulab_tpu.networks.denoisers.ddt.DDT")
+    with pytest.raises(NotImplementedError, match="ImageNetLatentREPA"):
+        locate("diffulab_tpu.data.imagenet.ImageNetLatentREPA")
+    with pytest.raises(NotImplementedError, match="optax.cosine_decay_schedule"):
+        instantiate({"_target_": "optax.cosine_decay_schedule", "init_value": 1.0, "decay_steps": 10})
+    with pytest.raises(ImportError, match="cannot locate"):
+        locate("no_such_package.Thing")
+
+
+@pytest.mark.parametrize("cfg", [
+    {"_target_": "fractions.Fraction", "_args_": [3, 4]},
+    {"_target_": "fractions.Fraction", "numerator": 6, "denominator": 8},
+    {"a": [{"_target_": "fractions.Fraction", "_args_": [1, 2]}, 3], "b": {"c": None}},
+])
+def test_instantiate_equals_jax(cfg):
+    assert instantiate(cfg) == jax_instantiate(cfg)
+
+
+def test_instantiate_partial_and_kwargs():
+    part = instantiate({"_target_": "fractions.Fraction", "_partial_": True, "numerator": 1})
+    ref = jax_instantiate({"_target_": "fractions.Fraction", "_partial_": True, "numerator": 1})
+    assert part(denominator=3) == ref(denominator=3) == fractions.Fraction(1, 3)
+    assert instantiate({"_target_": "fractions.Fraction", "_args_": [1]}, denominator=5) == fractions.Fraction(1, 5)
+
+
+def test_model_dtype_kwargs_are_torch_dtypes():
+    assert model_dtype_kwargs({"precision_type": "bf16"}) == {"dtype": torch.bfloat16}
+    assert model_dtype_kwargs({"precision_type": "no"}) == {} == model_dtype_kwargs({})
+
+
+def test_config_dit_has_the_jax_models_parameters():
+    """The config's DiT (cut to depth 2, width 64) built by both packages'
+    instantiate: the bridged JAX state dict loads strictly into the port's."""
+    cfg = compose_config(CONFIGS, "train_synthetic_flow_matching", TINY_OVERRIDES)
+    jmodel = jax_instantiate(cfg["model"], rngs=nnx.Rngs(0))
+    torch.manual_seed(0)
+    model = instantiate(cfg["model"], device="cpu", **model_dtype_kwargs(cfg["trainer"]))
+    flat = {"/".join(str(p) for p in path): np.asarray(var.get_value())
+            for path, var in nnx.state(jmodel, nnx.Param).flat_state()}
+    sd = state_dict_from_jax(flat, model)
+    live = model.state_dict()
+    assert {k: tuple(v.shape) for k, v in sd.items()} == {k: tuple(live[k].shape) for k in sd}
+    model.load_state_dict(sd, strict=True)
+    assert model.classifier_free and model.n_classes == 10 and model.patch_size == 2
+
+
+def test_config_optimizer_and_dataset_instantiate():
+    cfg = compose_config(CONFIGS, "train_synthetic_flow_matching",
+                         ["dataset.train.n_samples=8", "dataset.val.n_samples=4"])
+    opt = instantiate(cfg["optimizer"])([torch.nn.Parameter(torch.zeros(2))])
+    assert isinstance(opt, torch.optim.AdamW)
+    assert opt.defaults["lr"] == 3e-4 and opt.defaults["weight_decay"] == 0.01 and opt.defaults["eps"] == 1e-8
+    ours = instantiate(cfg["dataset"]["train"])
+    ref = jax_instantiate(cfg["dataset"]["train"])
+    assert np.array_equal(ours.images, ref.images) and np.array_equal(ours.labels, ref.labels)
+
+
+# --- sweep -------------------------------------------------------------------
+
+@pytest.mark.parametrize("overrides", [
+    [],
+    ["trainer.ema_rate=0.99,0.999", "optimizer.lr=1e-4,3e-4"],
+    ["diffuser.cache_span=[2, 10]", "model.channel_mult=1, 2", "trainer.project_name='a,b'"],
+])
+def test_expand_sweep_equals_jax(overrides):
+    assert sweep.expand_sweep(overrides) == jax_sweep.expand_sweep(overrides)
+    for ov in overrides:
+        value = ov.partition("=")[2]
+        assert sweep.split_top_level_commas(value) == jax_sweep.split_top_level_commas(value)
+
+
+@pytest.mark.parametrize("sweep_on", [False, True])
+def test_dispatch_equals_jax(sweep_on, capsys):
+    args = argparse.Namespace(config_dir=str(CONFIGS), config_name="train_synthetic_flow_matching", seed=3,
+                              sweep=sweep_on, overrides=["trainer.ema_rate=0.99,0.999", "trainer.n_epoch=2"]
+                              if sweep_on else ["trainer.n_epoch=2"])
+    ours, ref = [], []
+    returned = sweep.dispatch(args, lambda cfg, seed: ours.append((cfg, seed)) or len(ours))
+    jax_sweep.dispatch(args, lambda cfg, seed: ref.append((cfg, seed)))
+    assert ours == ref and len(ours) == (2 if sweep_on else 1)
+    assert returned == list(range(1, len(ours) + 1))
+    if sweep_on:
+        assert ours[1][0]["trainer"]["project_name"] == "synthetic_flow_matching/trainer.ema_rate=0.999"
+
+
+# --- the CLIs ----------------------------------------------------------------
+
+def test_cli_train_reconstruct_sample_end_to_end(tmp_path):
+    """train_synthetic_flow_matching through the port's three CLIs on the CPU."""
+    (trainer,) = train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching",
+                                       *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+    run = tmp_path / "synthetic_flow_matching"
+    assert trainer.step == 4 and trainer.posthoc_ema and trainer.posthoc_ema_gammas == (6.94, 16.97)
+    snaps = posthoc_ema.list_snapshots(run / "checkpoints" / "phema")
+    assert [(s, g) for s, g, _ in snaps] == [(2, 6.94), (2, 16.97), (4, 6.94), (4, 16.97)]
+    assert sorted((run / "images").glob("val_images_step*.png"))  # validation images every epoch
+    for part in ("denoiser", "optimizer", "ema", "scheduler"):
+        assert (run / "checkpoints" / part / "state.pt").is_file()
+
+    results = reconstruct_ema.main(["--run-dir", str(run), "--sigma-rel", "0.05", "0.10"])
+    for result, sigma_rel in zip(results, (0.05, 0.10)):
+        gamma = jphema.sigma_rel_to_gamma(sigma_rel)
+        ref_w = jphema.solve_weights([s for s, _, _ in snaps], [g for _, g, _ in snaps], 4, gamma)
+        np.testing.assert_allclose(result["weights"], ref_w, rtol=1e-12, atol=1e-12)
+        assert abs(result["weights"].sum() - 1.0) < 1e-2 and result["out"].name == f"phema_sr{sigma_rel:g}"
+        # the saved reconstruction is the JAX package's combination of the same fp16 snapshots
+        trees = [{k: v.numpy() for k, v in torch.load(p / "state.pt")["params"].items()} for _, _, p in snaps]
+        ref = jphema.combine_snapshots(trees, ref_w)
+        saved = torch.load(result["out"] / "state.pt")["params"]
+        assert set(saved) == set(ref)
+        for name, value in saved.items():
+            np.testing.assert_array_equal(value.numpy(), ref[name])
+
+    out = tmp_path / "grid.png"
+    result = sample.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching",
+                          "--ckpt", str(run / "checkpoints" / "phema_sr0.05"), "--n", "6", "--guidance", "1.5",
+                          "--labels", "0,1,2", "--steps", "2", "--separate", "--out", str(out), *TINY_OVERRIDES])
+    assert result["labels"].tolist() == [0, 1, 2, 0, 1, 2]
+    assert result["images"].shape == (6, 32, 32, 3) and np.isfinite(result["images"]).all()
+    grid = np.asarray(Image.open(out))
+    assert grid.shape == (2 + 1 * 34, 2 + 6 * 34, 3)
+    assert len(list(tmp_path.glob("grid_*.png"))) == 6
+
+
+@pytest.mark.parametrize("cli", ["train_diffusion", "sample"])
+def test_cli_device_defaults_to_cuda_and_raises_without_a_card(cli, monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = {"train_diffusion": train_diffusion, "sample": sample}[cli]
+    argv = ["--ckpt", str(tmp_path)] if cli == "sample" else []
+    assert module.parse_args(argv).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--config-name", "train_synthetic_flow_matching", *argv])
+
+
+@pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"), ("trainer.distill_from=x", "item 15"),
+                                           ("+repa", "item 13")])
+def test_train_cli_unported_options_raise(override, item, tmp_path):
+    overrides = [override] if override != "+repa" else ["repa.alignment_layer=1"]
+    with pytest.raises(NotImplementedError, match=item):
+        train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching",
+                              *overrides, *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+
+
+@pytest.mark.parametrize("flags,item", [(["--guide-ckpt", "x"], "item 15"), (["--prompts", "a cat"], "item 16"),
+                                        (["--cache-interval", "2"], "item 7"), (["--inpaint-image", "x.png"], "item 15"),
+                                        (["--img2img-image", "x.png"], "item 15"), (["--sampler", "heun"], "heun")])
+def test_sample_cli_unported_options_raise(flags, item, tmp_path):
+    with pytest.raises(NotImplementedError, match=item):
+        sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])
+
+
+def test_reconstruct_cli_without_snapshots_exits(tmp_path):
+    with pytest.raises(SystemExit, match="no phema snapshots"):
+        reconstruct_ema.main(["--run-dir", str(tmp_path), "--sigma-rel", "0.05"])

@@ -189,7 +189,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {networks / "vision_towers" / f"{m}.py" for m in ("common", "vae", "flux2")} <= set(files)
     assert REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py" in set(files)
     data = REPO / "diffulab_tpu_torch" / "data"
-    assert {data / f"{m}.py" for m in ("base", "streaming", "imagenet")} <= set(files)
+    assert {data / f"{m}.py" for m in ("base", "streaming", "imagenet", "synthetic", "loader", "native", "mnist",
+                                       "cifar10", "folder")} <= set(files)
+    assert training / "posthoc_ema.py" in set(files)
+    config, examples = REPO / "diffulab_tpu_torch" / "config", REPO / "diffulab_tpu_torch" / "examples"
+    assert {config / f"{m}.py" for m in ("compose", "instantiate", "sweep")} <= set(files)
+    assert {examples / f"{m}.py" for m in ("train_diffusion", "reconstruct_ema", "sample")} <= set(files)
     # the flash backward's CUDA source is bound by the module the scan reads
     assert (REPO / "diffulab_tpu_torch" / "csrc" / "flash_attn_bwd.cu").is_file()
     assert "flash_attn_bwd_dkv" in (REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py").read_text()
@@ -203,3 +208,4 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "diffulab_tpu_torch.training.checkpoint" in _imported_roots(training / "trainer.py")
     assert "diffulab_tpu_torch.networks.vision_towers.vae" in _imported_roots(networks / "vision_towers" / "flux2.py")
     assert "diffulab_tpu_torch.data.streaming" in _imported_roots(data / "imagenet.py")
+    assert "diffulab_tpu_torch.training.trainer" in _imported_roots(examples / "train_diffusion.py")

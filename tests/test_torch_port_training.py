@@ -467,7 +467,7 @@ def test_trainer_with_accumulation_and_per_epoch_schedule(tmp_path):
     assert trainer.step == 4 and seen == [0, 0, 1]
 
 
-@pytest.mark.parametrize("kwargs", [dict(posthoc_ema=True), dict(augment_p=0.1), dict(mesh={"data": 2}),
+@pytest.mark.parametrize("kwargs", [dict(mesh={"fsdp": 2}), dict(augment_p=0.1), dict(mesh={"data": 2}),
                                     dict(mesh={"data": -1, "tensor": 2})])
 def test_unported_trainer_options_raise(tmp_path, kwargs):
     with pytest.raises(NotImplementedError):
