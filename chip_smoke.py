@@ -75,10 +75,13 @@ Phases, one line each:
      decoded by the Flux2 tower with their captions, and the best-val
      checkpoint: 12 K3 + 12 K4 + 12 K5 launches in every step; ms per step,
      samples/s and peak memory;
- 14. slice C1: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128) at
-     the config's attention shape (S=256, H=8, D=64) against their plain
-     versions, device times from CUDA-graph replays, bounds at the fp32
-     CUDA-core peak, fp32 SDPA as the yardstick; then, in process, the
+ 14. slice C1: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128),
+     3xTF32 on the tensor cores, at the config's attention shape (S=256,
+     H=8, D=64) against their plain versions, each timed as its yardstick is
+     (K1 and fp32 SDPA, K2 and SDPA's fp32 backward op, all from CUDA-graph
+     replays; K2's and the SDPA autograd backward's kernels also summed by
+     torch.profiler), bounds at 3xTF32 and at the fp32 CUDA-core peak, the
+     products each design runs; then, in process, the
      ``train_diffusion`` CLI on ``train_synthetic_flow_matching`` (2 epochs of
      2048 samples, 256 for validation; everything else at the config's
      values), ``reconstruct_ema`` at sigma_rel 0.05 and 0.10, and ``sample``
@@ -153,11 +156,13 @@ TXT_ADAMW = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8)
 TXT_VAL_STEPS, TXT_VAL_SHIFT = 4, 6.93
 TXT_BUCKETS = {(64, 64): 8, (48, 80): 4}  # latent (H, W) -> train batches
 
-# H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1); fp32
-# outside the tensor cores, the peak of the fp32 instances' exact FFMA products
+# H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1): fp32
+# outside the tensor cores (FFMA), and TF32 on them, which the fp32 instances
+# run three times over (3xTF32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 
 # slice C1: configs/train_synthetic_flow_matching.yaml through the port's CLIs,
 # cut only in epochs (12 -> 2) and data (10000 -> 2048 train, 2000 -> 256 val)
@@ -167,18 +172,23 @@ C1_BATCH, C1_DEPTH, C1_HEADS, C1_SEQ = 128, 10, 8, 256  # the config's batch, de
 C1_SIGMA_RELS = ("0.05", "0.10")
 C1_SAMPLES, C1_GUIDANCE, C1_STEPS = 16, 1.5, 50  # the sample request: 2x16 under fused CFG, Euler-50
 
-# kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: the same
-# arithmetic in another summation order. bf16: p is rounded to bf16 before
-# PV in both, but exp/sum rounding can flip a rounding of p or of o by one
-# bf16 step (2^-8 relative).
+# kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
+# products are 3xTF32 on the tensor cores (each operand split into two TF32
+# halves, about 2^-21 relative per product) where the plain version's are
+# exact fp32, and the sums run in another order (K1 divides o by l at the end
+# of an online softmax, the plain version normalises p first); K3's are exact
+# FFMA products in another order. bf16: p is rounded to bf16 before PV in
+# both, but exp/sum rounding can flip a rounding of p or of o by one bf16
+# step (2^-8 relative).
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
 # K2, and K4/K5, against their plain versions, per gradient:
-# |kernel - plain| <= tol * (max|plain| + |plain|). fp32: the same arithmetic
-# in another summation order. bf16: p and ds are rounded to bf16 at the same
-# places in both, but exp/sum rounding (K4/K5's exp is ex2.approx) can flip a
-# rounding of p, ds or the output by one bf16 step (2^-8 relative), and a
-# gradient element near 0 is a sum of terms as large as the largest one.
+# |kernel - plain| <= tol * (max|plain| + |plain|). fp32: K2's products are
+# 3xTF32 (about 2^-21 relative each), K4/K5's exact FFMA, both summed in
+# another order. bf16: p and ds are rounded to bf16 at the same places in
+# both, but exp/sum rounding (K4/K5's exp is ex2.approx) can flip a rounding
+# of p, ds or the output by one bf16 step (2^-8 relative), and a gradient
+# element near 0 is a sum of terms as large as the largest one.
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # gradients through dot_product_attention against autograd of the plain
 # forward (impl="xla"), which rounds the upstream gradient to bf16 at other
@@ -262,24 +272,52 @@ def cuda_graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def profiled_ms(fn, calls: int = 10) -> float:
-    """Device time per call of ``fn``: its kernels' times summed by
-    ``torch.profiler``, for a call that a CUDA graph cannot capture (autograd's
-    backward), and beside it for the kernel it is compared with."""
+def profiled_kernels(fn, calls: int = 10) -> tuple[float, int]:
+    """Device time per call of ``fn`` and the number of device activities
+    (kernels, copies, fills) ``torch.profiler`` saw over ``calls`` calls, in a
+    profiler session of its own: for a call that a CUDA graph cannot capture
+    (autograd's backward), and beside it for the kernel it is compared with.
+    The session records a warm-up step of ``calls`` calls first and keeps
+    only the second: late in a long process, a session without one saw 16
+    of K2's 20 kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total_us, seen = 0.0, 0
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:  # the runtime's launch calls
+            continue
         device_us = getattr(evt, "device_time_total", None)
         total_us += evt.cuda_time_total if device_us is None else device_us
-    return total_us / 1e3 / calls
+        seen += evt.count
+    return total_us / 1e3 / calls, seen
+
+
+def sdpa_fp32_backward(q, k, v, do):
+    """SDPA's backward as one call that a CUDA graph can capture: the
+    memory-efficient attention's backward op (what the autograd of
+    ``F.scaled_dot_product_attention`` runs for fp32 on this card) from that
+    op's forward. q, k, v, do: [B, S, H, D]; the call returns (dq, dk, dv) as
+    [B, H, S, D]."""
+    import torch
+
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    out, lse, seed, offset = torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, None, out, lse, seed, offset, 0.0, [True, True, True, False])[:3]
+
+    return call
 
 
 def check_close(name, ours, ref, atol, rtol) -> float:
@@ -966,7 +1004,7 @@ def phase_kernel_bwd():
         ours = fused_mha_bwd(q, k, v, None, lse, do)
         err = check_grads("main bf16", ours, fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["bfloat16"])
         kernel_ms = cuda_time_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), iters=100)
-        device_ms = profiled_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do))
+        device_ms = profiled_kernels(lambda: fused_mha_bwd(q, k, v, None, lse, do))[0]
         plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=10)
     with torch.enable_grad():
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -974,7 +1012,8 @@ def phase_kernel_bwd():
         dot = do.transpose(1, 2)
         library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
                                   iters=100)
-        library_device_ms = profiled_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        library_device_ms = profiled_kernels(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))[0]
         del out
     elem = q.element_size()
     bytes_moved = 7 * b * s * h * d * elem + b * s * h * 4  # q, k, v, do, dq, dk, dv once each + lse
@@ -1515,12 +1554,20 @@ def phase_txt2img_train(model, tower):
 def phase_c1_kernels():
     """Phase 14a: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128)
     at the C1 config's attention shape (S=256, H=8, D=64) against their plain
-    versions; device times from CUDA-graph replays, the bound at the fp32
-    CUDA-core peak (the kernels' products are exact fp32 FFMAs), fp32 SDPA
-    forward and backward as the yardstick."""
+    versions. Each kernel and its PyTorch call timed the same way, by CUDA-graph
+    replays: K1 against fp32 SDPA, K2 against SDPA's fp32 backward as its
+    memory-efficient backward op (:func:`sdpa_fp32_backward`, its gradients
+    held to the plain version too). Beside them, K2's and the SDPA autograd
+    backward's kernels summed by ``torch.profiler``, each in a session of its
+    own over the same calls, with the number of device activities it saw (K2
+    must show its two kernels a call). Bounds at the 3xTF32 rate (three TF32
+    products at 495 TFLOP/s, what the kernels run) and, beside them, at the
+    fp32 CUDA-core peak; the [S x S x D] products each design runs (K2's from
+    the built library, by the rule its launch follows) beside the bound's."""
     import torch
     import torch.nn.functional as F
 
+    from diffulab_tpu_torch.ops import _build
     from diffulab_tpu_torch.ops.fused_mha import (
         fused_mha,
         fused_mha_bwd,
@@ -1544,46 +1591,64 @@ def phase_c1_kernels():
             check_close(f"C1 K1 fp32 B={b} lse", lse, rlse, *LSE_TOL)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, b * s, 4, mask=False,
-                                                            peak_flops=PEAK_FP32_FLOPS)
+                                                            peak_flops=PEAK_TF32_FLOPS / 3)
             results[f"fwd_b{b}"] = dict(
                 max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v)),
                 plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v), iters=5),
                 library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-                bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop)
+                bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop,
+                ffma_ms=attention_bound(b, s, h, d, b * s, 4, mask=False, peak_flops=PEAK_FP32_FLOPS)[0])
             del q, k, v, o, ro, qt, kt, vt
         b = C1_BATCH
         q, k, v, do = rand(b), rand(b), rand(b), rand(b)
         _, lse = fused_mha(q, k, v)
-        err = check_grads("C1 K2 fp32", fused_mha_bwd(q, k, v, None, lse, do),
-                          fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["float32"])
-        graph_ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10, replays=5)
-        device_ms = profiled_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do))
+        refs = fused_mha_bwd_reference(q, k, v, None, lse, do)
+        err = check_grads("C1 K2 fp32", fused_mha_bwd(q, k, v, None, lse, do), refs, BWD_TOL["float32"])
+        sdpa_bwd = sdpa_fp32_backward(q, k, v, do)
+        check_grads("C1 SDPA fp32 backward op", [g.transpose(1, 2) for g in sdpa_bwd()], refs, BWD_TOL["float32"])
+        del refs
+        ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10, replays=5)
+        library_ms = cuda_graph_ms(sdpa_bwd, calls=10, replays=5)
         plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=3)
+        profiled = {"kernel": [profiled_kernels(lambda: fused_mha_bwd(q, k, v, None, lse, do)) for _ in range(2)]}
     with torch.enable_grad():
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
-        library_ms = profiled_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+        profiled["SDPA autograd"] = [
+            profiled_kernels(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
+            for _ in range(2)]
         del out
+    if any(seen != 2 * 10 for _, seen in profiled["kernel"]) or any(seen % 10 for _, seen in profiled["SDPA autograd"]):
+        fail(f"C1 K2 fp32: torch.profiler saw {profiled} (ms, device activities) over 10 calls; K2 runs 2 a call")
+    products = _build.load("fused_mha_bwd").fused_mha_bwd_f32_products(d, s)
+    if products not in (7, 9):
+        fail(f"C1 K2 fp32: the library counts {products} products at D={d}, Skv={s}")
     bytes_moved = 7 * b * s * h * d * 4 + b * s * h * 4  # q, k, v, do, dq, dk, dv once each + lse
     flops = 10 * b * h * s * s * d  # the recomputed s and four products
-    t_bytes, t_flops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
-    results["bwd_b128"] = dict(max_abs_err=err, ms=graph_ms, plain_ms=plain_ms, library_ms=library_ms,
-                               device_ms=device_ms, bound_ms=max(t_bytes, t_flops) * 1e3,
-                               bound_by="bytes" if t_bytes >= t_flops else "operations",
-                               mb=bytes_moved / 1e6, gflop=flops / 1e9)
-    del q, k, v, do, lse, qt, kt, vt
+    t_bytes, t_tf32, t_ffma = bytes_moved / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS, flops / PEAK_FP32_FLOPS
+    results["bwd_b128"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=max(t_bytes, t_tf32) * 1e3,
+                               bound_by="bytes" if t_bytes >= t_tf32 else "operations")
+    del q, k, v, do, lse, qt, kt, vt, sdpa_bwd
     torch.cuda.synchronize()
-    f128, f32, bw = results[f"fwd_b{C1_BATCH}"], results[f"fwd_b{2 * C1_SAMPLES}"], results["bwd_b128"]
-    print(f"phase 14 kernels fp32 at the C1 shape (S={s} H={h} D={d}; device ms from CUDA-graph replays; bounds at "
-          f"the fp32 CUDA-core peak {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s): "
+    bw = results["bwd_b128"]
+    print(f"phase 14 kernels fp32 at the C1 shape (S={s} H={h} D={d}; bounds at 3xTF32 = "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f}/3 TFLOP/s and, as ffma, at the fp32 CUDA-core peak "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s, with {PEAK_BYTES_PER_S / 1e12} TB/s; device ms from CUDA-graph "
+          f"replays): "
           + " ".join(f"K1 B={bb} max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} SDPA fp32 "
                      f"{r['library_ms']:.4f} plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}: "
-                     f"{r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP);" for bb, r in ((C1_BATCH, f128), (2 * C1_SAMPLES, f32)))
+                     f"{r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP) ffma {r['ffma_ms']:.4f}; products 2 (bound 2);"
+                     for bb, r in ((C1_BATCH, results[f"fwd_b{C1_BATCH}"]),
+                                   (2 * C1_SAMPLES, results[f"fwd_b{2 * C1_SAMPLES}"])))
           + f" K2 B={C1_BATCH} max_abs_err {bw['max_abs_err']:.3e} (tol {BWD_TOL['float32']} * (max|ref| + |ref|)) "
-          f"kernel {bw['ms']:.4f} (torch.profiler {bw['device_ms']:.4f}) SDPA fp32 backward (torch.profiler) "
-          f"{bw['library_ms']:.4f} plain {bw['plain_ms']:.4f} bound {bw['bound_ms']:.4f} ({bw['bound_by']}: "
-          f"{bw['mb']:.1f} MB, {bw['gflop']:.2f} GFLOP); K1 tol atol {TOL['float32'][0]} rtol {TOL['float32'][1]}")
+          f"kernel {bw['ms']:.4f} SDPA fp32 backward op {bw['library_ms']:.4f} plain {bw['plain_ms']:.4f} bound "
+          f"{bw['bound_ms']:.4f} ({bw['bound_by']}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) ffma "
+          f"{max(t_bytes, t_ffma) * 1e3:.4f}; products {products} (bound 5); torch.profiler over 10 calls, "
+          f"(ms, device activities) of two sessions each: "
+          + "; ".join(f"{name} {[(round(t, 4), n) for t, n in turns]}" for name, turns in profiled.items())
+          + f"; K1 tol atol {TOL['float32'][0]} rtol {TOL['float32'][1]}")
     return results
 
 
@@ -1709,6 +1774,10 @@ def phase_c1_cli():
             "generate_ms": result["generate_ms"]}
 
 
+#: the keys of phase 14a's results that its JSON rows carry
+C1_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def main() -> int:
     try:
         import torch
@@ -1782,12 +1851,11 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"],
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"]},
-        **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key]
-           for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
-        "sample_shape_b32": {key: c1_kernels[f"fwd_b{2 * C1_SAMPLES}"][key]
-                             for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "timing": "ms and library_ms: device time per call from CUDA-graph replays; bound at the fp32 CUDA-core peak",
+        "sample_shape_b32": {key: c1_kernels[f"fwd_b{2 * C1_SAMPLES}"][key] for key in C1_KEYS},
+        "timing": "ms and library_ms (fp32 SDPA): device time per call from CUDA-graph replays; bound_ms at "
+                  "3xTF32 (three TF32 products at 495 TFLOP/s)",
     }, {
         "name": "fused_mha_bwd",
         "route": "cuda",
@@ -1804,11 +1872,10 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": c1["train"]["fused_mha_bwd"],
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"]},
-        **{key: c1_kernels["bwd_b128"][key]
-           for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")},
+        **{key: c1_kernels["bwd_b128"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
-        "timing": "ms: device time per call from CUDA-graph replays; device_ms and library_ms (SDPA fp32 "
-                  "backward): kernels summed by torch.profiler; bound at the fp32 CUDA-core peak",
+        "timing": "ms and library_ms (SDPA's fp32 backward, its memory-efficient backward op): device time per "
+                  "call from CUDA-graph replays; bound_ms at 3xTF32 (three TF32 products at 495 TFLOP/s)",
     }, {
         "name": "flash_attn_fwd",
         "route": "cuda",

@@ -42,10 +42,31 @@
 // kernel makes two passes over 64-key tiles staged in shared memory (di, then
 // dq) and the dk/dv kernel walks 64-query tiles with that di; scores 32
 // columns at a time, p and ds from the C fragments into A fragments, B
-// operands along the staged rows by ldmatrix.trans. fp32 inputs run the same
-// two kernels with one thread per row and fp32 FMAs (the tensor cores take no
-// exact fp32 product); each thread's own q/do (or k/v) row sits in padded
-// shared memory.
+// operands along the staged rows by ldmatrix.trans.
+//
+// fp32 (the fp32 instance of the TPU kernel, diffulab_tpu/ops/fused_mha.py:87;
+// slice C1 trains through it at B=128, S=256, H=8, D=64): 42.9 GFLOP on 471 MB, 0.64 ms at the CUDA cores' 67
+// TFLOP/s against 0.14 ms of bytes, so it is bound by operations, and a
+// product formed again costs time directly. The products run on the tensor
+// cores as 3xTF32 (tf32x3.cuh: each operand split into two TF32 halves, three
+// mma.sync products, about 2^-21 relative each): 3 x 42.9 GFLOP at 495
+// TFLOP/s is 0.26 ms. The same split as the bf16 kernels, no atomics:
+//  1. The dq kernel, one CTA per (64 queries, head, batch). Pass 1 forms s,
+//     p and dp tile by tile and di = rowsum(p * dp) over the whole key row;
+//     pass 2 forms ds and dq = ds.K. Where the CTA's fp32 p and dp fit in
+//     shared memory (64 x Skv x 8 bytes: up to 256 keys at D = 64; D <= 64),
+//     mha_bwd_dq_kept_tf32x3<D> leaves them there in pass 1 and streams K
+//     alone in pass 2: 3 products of [64 x Skv x D], not 5. They take 128 KB
+//     at 256 keys, so one CTA fills an SM: it runs eight warps, two for each
+//     16 rows, each taking half of every 64-key tile, with q's and dO's split
+//     fragments in registers; the two halves' di and dq are added in a fixed
+//     order. Elsewhere mha_bwd_dq_tf32x3<D>, four warps of 16 rows, forms s
+//     and dp again (5 products). The CTA writes lse and di to the workspace.
+//  2. mha_bwd_dkv_tf32x3<D>, one CTA per (64 keys, head, batch), four warps
+//     of 16 keys: p^T, dv, dp^T, ds^T and dk over query tiles that a
+//     two-slot cp.async ring brings with their lse and di: 4 products.
+// So 7 products of [Sq x Skv x D] where the bound counts 5 (9 where p and dp
+// do not fit). p and ds stay fp32: the input dtype's rounding is none.
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
@@ -54,14 +75,14 @@
 #include <stdint.h>
 
 #include "attn_bwd_hopper.cuh"  // K4/K5's Hopper kernels; hopper.cuh: MASK_VALUE, bf16, pack_bf16, quad_sum
+#include "tf32x3.cuh"            // the fp32 kernels' 3xTF32 mma.sync fragments
 
 namespace {
 
-constexpr int BLOCK = 64;     // rows per CTA, and rows per staged tile (D = 16, 32 and fp32)
+constexpr int BLOCK = 64;     // rows per CTA, and rows per staged tile (bf16 at D = 16, 32)
 constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
-constexpr int F32_TILE = 16;  // fp32 kernels: rows of the other operand per staged tile
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
   asm volatile(
@@ -332,153 +353,387 @@ mha_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
   store_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, row0, dv_acc, t4);
 }
 
-// --- fp32 -------------------------------------------------------------------
+// --- fp32: 3xTF32 products on the tensor cores (tf32x3.cuh) ----------------------
 
-// shared memory of the fp32 kernels: the CTA's own rows (two operands,
-// padded to D + 1 so that a warp reading one column of 32 rows hits 32
-// banks) and a staged tile of F32_TILE rows of the other two operands
+constexpr int KEPT_THREADS = 2 * F32_THREADS;  // the kept dq kernel: eight warps, two for each 16 rows
+constexpr int KEPT_STEP = 64;                  // keys of its ring slot, 32 for each of the two warps
+
+// keys of a ring slot of the dq kernel that forms p and dp again: 64, or 32
+// at D = 128, where dq takes 64 registers a thread
 template <int D>
-constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (2 * BLOCK * (D + 1) + 2 * F32_TILE * D + 2 * F32_TILE);
+__host__ __device__ constexpr int dq_keys() {
+  return D <= 64 ? 64 : 32;
 }
 
+// queries of a ring slot of the dk/dv kernel: 32 at D = 128, where dk and dv take 128 registers a thread
 template <int D>
-__device__ __forceinline__ void stage_own_rows(float* dst, const float* src, long long row_stride, int r0) {
-  for (int i = threadIdx.x; i < BLOCK * D; i += BLOCK)
-    dst[(i / D) * (D + 1) + i % D] = src[(long long)(r0 + i / D) * row_stride + i % D];
+__host__ __device__ constexpr int dkv_queries() {
+  return D <= 64 ? 64 : 32;
 }
 
+// shared memory of the dq kernel that forms p and dp again: the CTA's q and
+// dO rows and two ring slots of K and V
 template <int D>
-__device__ __forceinline__ void stage_f32_tile(float* dst, const float* src, long long row_stride, int r0) {
-  for (int i = threadIdx.x; i < F32_TILE * D; i += BLOCK)
-    dst[i] = src[(long long)(r0 + i / D) * row_stride + i % D];
+__host__ __device__ constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * ld<D>() * (2 * F32_ROWS + 2 * 2 * dq_keys<D>());
 }
 
+// shared memory of the kept dq kernel: two ring slots of K and V, the two
+// halves' di, and the CTA's fp32 p and dp over the whole key row
 template <int D>
-__device__ __forceinline__ float dot_row(const float* own, const float* other) {
-  float acc = 0.f;
+__host__ __device__ constexpr size_t dq_kept_smem_bytes(int Skv) {
+  return sizeof(float) * (ld<D>() * 2 * 2 * KEPT_STEP + 2 * F32_ROWS + (size_t)2 * F32_ROWS * Skv);
+}
+
+// whether the fp32 dq kernel keeps p and dp between its passes: where they
+// fit in shared memory, and q's and dO's split fragments in registers (D <= 64)
+template <int D>
+constexpr bool f32_keeps(int Skv) {
+  return D <= 64 && dq_kept_smem_bytes<D>(Skv) <= SMEM_LIMIT;
+}
+
+// shared memory of the dk/dv kernel: the CTA's K and V rows, two ring slots of Q and dO, and their lse and di
+template <int D>
+__host__ __device__ constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (ld<D>() * (2 * F32_ROWS + 2 * 2 * dkv_queries<D>()) + 2 * 2 * dkv_queries<D>());
+}
+
+// s -> p = exp(s * scale - lse) for query rows (g, g + 8) against keys key0 + [0, N)
+template <int N>
+__device__ __forceinline__ void probs_f32(float (&s)[N / 8][4], float sm_scale, const int* mrow, int key0,
+                                          const float (&lse_r)[2], int t4) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc = fmaf(own[d], other[d], acc);
-  return acc;
+  for (int nt = 0; nt < N / 8; ++nt) {
+    const int2 keep = mrow == nullptr ? make_int2(1, 1)
+                                      : *reinterpret_cast<const int2*>(mrow + key0 + nt * 8 + 2 * t4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = ((j & 1) ? keep.y : keep.x) ? s[nt][j] * sm_scale : MASK_VALUE;
+      s[nt][j] = expf(x - lse_r[j >> 1]);
+    }
+  }
 }
 
+// dq for 64 queries of a (batch, head) where their fp32 p and dp fit in
+// shared memory (f32_keeps): eight warps, two for each 16 rows, each of the
+// two taking 32 keys of a 64-key step, q's and dO's split fragments in
+// registers. Pass 1 forms s, p = exp(s - lse) and dp = dO.V^T, sums di =
+// rowsum(p * dp) and leaves each thread's p and dp in shared memory; the
+// two warps' di are added in a fixed order. Pass 2 streams K alone: ds = p *
+// (dp - di) * scale, dq = ds.K, the two warps' partial dq added in a fixed
+// order. 3 products of [64 x Skv x D]. The CTA writes lse
+// and di, rows (b, h) Sq apart, for the dk/dv kernel.
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
-mha_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-               const float* __restrict__ dout, const int* __restrict__ mask,
-               const float* __restrict__ lse, float* __restrict__ di_out, float* __restrict__ dq,
-               int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-               long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+__global__ void __launch_bounds__(KEPT_THREADS, 1)
+mha_bwd_dq_kept_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                       float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq,
+                       int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int LD = ld<D>(), KH = KEPT_STEP / 2;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                    // [BLOCK][D + 1]
-  float* dos = qs + BLOCK * (D + 1);   // [BLOCK][D + 1]
-  float* ks = dos + BLOCK * (D + 1);   // [F32_TILE][D]
-  float* vs = ks + F32_TILE * D;       // [F32_TILE][D]
+  float* ks = smem;                        // [2][64][LD]
+  float* vs = ks + 2 * KEPT_STEP * LD;     // [2][64][LD]
+  float* di_s = vs + 2 * KEPT_STEP * LD;   // [2][64]: each half's di
+  float4* kept_p = reinterpret_cast<float4*>(di_s + 2 * F32_ROWS);  // [Skv / 16][256], then dp
+  float4* kept_dp = kept_p + (Skv / 16) * KEPT_THREADS;
 
-  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int m0 = blockIdx.x * BLOCK, row = m0 + tid;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int half = warp >> 2, r0 = 16 * (warp & 3);  // this warp's keys of a step, and rows
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS;
+  const int row = m0 + r0 + g;  // this thread's rows: row, row + 8
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_steps = Skv / KEPT_STEP;
+  const float lse_r[2] = {lse[((long long)b * Sq + row) * H + h], lse[((long long)b * Sq + row + 8) * H + h]};
 
-  stage_own_rows<D>(qs, q + b * q_sb + h * D, q_ss, m0);
-  stage_own_rows<D>(dos, dout + b * do_sb + h * D, do_ss, m0);
-  const float* qr = qs + tid * (D + 1);
-  const float* dr = dos + tid * (D + 1);
-  const float lse_r = lse[((long long)b * Sq + row) * H + h];
-
-  // pass 1: di = rowsum(p * dp)
-  float di = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
-    __syncthreads();
-    stage_f32_tile<D>(ks, kb, k_ss, n0);
-    stage_f32_tile<D>(vs, vb, v_ss, n0);
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float x = (mb == nullptr || mb[n0 + j] != 0) ? dot_row<D>(qr, ks + j * D) * sm_scale : MASK_VALUE;
-      di += expf(x - lse_r) * dot_row<D>(dr, vs + j * D);
+  // loads 0 .. n_steps - 1: K and V for pass 1; n_steps .. 2 n_steps - 1: K for pass 2
+  auto stage = [&](int j) {
+    const int step = j < n_steps ? j : j - n_steps;
+    stage_rows<D, KEPT_STEP, KEPT_THREADS>(ks + (j & 1) * KEPT_STEP * LD, kb, k_ss, step * KEPT_STEP);
+    if (j < n_steps) stage_rows<D, KEPT_STEP, KEPT_THREADS>(vs + (j & 1) * KEPT_STEP * LD, vb, v_ss, step * KEPT_STEP);
+  };
+  auto advance = [&](int j) {  // the next load in flight, then load j landed
+    if (j + 1 < 2 * n_steps) {
+      stage(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+  };
+  stage(0);
+  cp_async_commit();
+  uint32_t qh[D / 8][4], ql[D / 8][4], dh[D / 8][4], dl[D / 8][4];
+  frags_a_global<D>(qh, ql, q + b * q_sb + h * D, q_ss, row, t4);
+  frags_a_global<D>(dh, dl, dout + b * do_sb + h * D, do_ss, row, t4);
+
+  // pass 1: p, dp kept; di = rowsum(p * dp)
+  float di[2] = {0.f, 0.f};
+  for (int j = 0; j < n_steps; ++j) {
+    advance(j);
+    const int off = ((j & 1) * KEPT_STEP + half * KH) * LD;
+    float p[KH / 8][4], dp[KH / 8][4];
+    rows_dot<D, KH>(p, qh, ql, ks + off, g, t4);
+    probs_f32<KH>(p, sm_scale, mb, j * KEPT_STEP + half * KH, lse_r, t4);
+    rows_dot<D, KH>(dp, dh, dl, vs + off, g, t4);
+#pragma unroll
+    for (int nt = 0; nt < KH / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+      const int at = (j * (KH / 8) + nt) * KEPT_THREADS + threadIdx.x;
+      kept_p[at] = make_float4(p[nt][0], p[nt][1], p[nt][2], p[nt][3]);
+      kept_dp[at] = make_float4(dp[nt][0], dp[nt][1], dp[nt][2], dp[nt][3]);
+    }
+    __syncthreads();  // the slot is refilled next
+  }
+  di[0] = quad_sum(di[0]);
+  di[1] = quad_sum(di[1]);
+  if (t4 == 0) {
+    di_s[half * F32_ROWS + r0 + g] = di[0];
+    di_s[half * F32_ROWS + r0 + g + 8] = di[1];
+  }
+  __syncthreads();
+  di[0] = di_s[r0 + g] + di_s[F32_ROWS + r0 + g];
+  di[1] = di_s[r0 + g + 8] + di_s[F32_ROWS + r0 + g + 8];
+
+  // pass 2: ds = p * (dp - di) * scale; dq += ds.K
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int j = n_steps; j < 2 * n_steps; ++j) {
+    advance(j);
+    float ds[KH / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KH / 8; ++nt) {
+      const int at = ((j - n_steps) * (KH / 8) + nt) * KEPT_THREADS + threadIdx.x;
+      const float4 pp = kept_p[at], dd = kept_dp[at];
+      ds[nt][0] = pp.x * (dd.x - di[0]) * sm_scale;
+      ds[nt][1] = pp.y * (dd.y - di[0]) * sm_scale;
+      ds[nt][2] = pp.z * (dd.z - di[1]) * sm_scale;
+      ds[nt][3] = pp.w * (dd.w - di[1]) * sm_scale;
+    }
+    scores_times_tile<D, KH>(acc, ds, ks + ((j & 1) * KEPT_STEP + half * KH) * LD, g, t4);
+    __syncthreads();
   }
 
-  // pass 2: ds = p * (dp - di) * scale; dq += ds . K
-  float acc[D];
+  // dq = half 0's sum + half 1's, through the ring's shared memory
+  float* part = smem;  // [D / 2][128]
+  if (half == 1) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
-    __syncthreads();
-    stage_f32_tile<D>(ks, kb, k_ss, n0);
-    stage_f32_tile<D>(vs, vb, v_ss, n0);
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float x = (mb == nullptr || mb[n0 + j] != 0) ? dot_row<D>(qr, ks + j * D) * sm_scale : MASK_VALUE;
-      const float p = expf(x - lse_r);
-      const float ds = p * (dot_row<D>(dr, vs + j * D) - di) * sm_scale;
+    for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
-    }
+      for (int e = 0; e < 4; ++e) part[(dn * 4 + e) * F32_THREADS + threadIdx.x - F32_THREADS] = acc[dn][e];
   }
-  float* out = dq + ((long long)b * Sq + row) * H * D + h * D;
+  __syncthreads();
+  if (half == 1) return;
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[d] = acc[d];
-  di_out[((long long)b * Sq + row) * H + h] = di;
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] += part[(dn * 4 + e) * F32_THREADS + threadIdx.x];
+  const long long o_ss = (long long)H * D;
+  store_c_rows<D>(dq + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4);
+  if (t4 == 0) {
+    const long long w = ((long long)b * H + h) * Sq + row;
+    ws_lse[w] = lse_r[0];
+    ws_lse[w + 8] = lse_r[1];
+    ws_di[w] = di[0];
+    ws_di[w + 8] = di[1];
+  }
 }
 
+// dq for 64 queries of a (batch, head) where p and dp do not fit: four warps
+// of 16 rows, K and V through a two-slot cp.async ring. Pass 1 forms s, p and
+// dp tile by tile and di = rowsum(p * dp) over the whole key row; pass 2
+// forms s and dp again, ds and dq = ds.K: 5 products of [64 x Skv x D]. The
+// CTA writes lse and di for the dk/dv kernel.
 template <int D>
-__global__ void __launch_bounds__(BLOCK)
-mha_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                const float* __restrict__ dout, const int* __restrict__ mask,
-                const float* __restrict__ lse, const float* __restrict__ di, float* __restrict__ dk,
-                float* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
-                long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
-                long long do_ss, float sm_scale) {
+__global__ void __launch_bounds__(F32_THREADS)
+mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                  const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                  float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq, int Skv,
+                  int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                  long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = dq_keys<D>(), LD = ld<D>();
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                      // [BLOCK][D + 1]
-  float* vs = ks + BLOCK * (D + 1);      // [BLOCK][D + 1]
-  float* qt = vs + BLOCK * (D + 1);      // [F32_TILE][D]
-  float* dt = qt + F32_TILE * D;         // [F32_TILE][D]
-  float* lse_t = dt + F32_TILE * D;      // [F32_TILE]
-  float* di_t = lse_t + F32_TILE;        // [F32_TILE]
+  float* qs = smem;                 // [64][LD]
+  float* dos = qs + F32_ROWS * LD;  // [64][LD]
+  float* ks = dos + F32_ROWS * LD;  // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;     // [2][KT][LD]
 
-  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int n0 = blockIdx.x * BLOCK, row = n0 + tid;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
+  const int row = m0 + r0 + g;  // this thread's rows: row, row + 8
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  const float lse_r[2] = {lse[((long long)b * Sq + row) * H + h], lse[((long long)b * Sq + row + 8) * H + h]};
+
+  auto stage = [&](int j) {  // loads 0 .. n_tiles - 1 feed pass 1, the next n_tiles pass 2
+    const int tile = j < n_tiles ? j : j - n_tiles;
+    stage_rows<D, KT>(ks + (j & 1) * KT * LD, kb, k_ss, tile * KT);
+    stage_rows<D, KT>(vs + (j & 1) * KT * LD, vb, v_ss, tile * KT);
+  };
+  auto advance = [&](int j) {  // the next load in flight, then load j landed
+    if (j + 1 < 2 * n_tiles) {
+      stage(j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  };
+  // s and dp of key tile `tile` (in slot `slot`) for the warp's rows
+  auto scores = [&](float (&p)[KT / 8][4], float (&dp)[KT / 8][4], int slot, int tile) {
+    rows_dot<D, KT>(p, qs, r0, ks + slot * KT * LD, g, t4);
+    probs_f32<KT>(p, sm_scale, mb, tile * KT, lse_r, t4);
+    rows_dot<D, KT>(dp, dos, r0, vs + slot * KT * LD, g, t4);
+  };
+
+  stage_rows<D, F32_ROWS>(qs, q + b * q_sb + h * D, q_ss, m0);
+  stage_rows<D, F32_ROWS>(dos, dout + b * do_sb + h * D, do_ss, m0);
+  stage(0);
+  cp_async_commit();
+
+  // pass 1: di = rowsum(p * dp) over every key
+  float di[2] = {0.f, 0.f};
+  for (int j = 0; j < n_tiles; ++j) {
+    advance(j);
+    float p[KT / 8][4], dp[KT / 8][4];
+    scores(p, dp, j & 1, j);
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+    __syncthreads();  // the slot is refilled next
+  }
+  di[0] = quad_sum(di[0]);
+  di[1] = quad_sum(di[1]);
+
+  // pass 2: s and dp again; ds = p * (dp - di) * scale; dq += ds.K
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int j = n_tiles; j < 2 * n_tiles; ++j) {
+    advance(j);
+    float p[KT / 8][4], dp[KT / 8][4];
+    scores(p, dp, j & 1, j - n_tiles);
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;
+    scores_times_tile<D, KT>(acc, p, ks + (j & 1) * KT * LD, g, t4);
+    __syncthreads();
+  }
+
+  // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
+  const long long o_ss = (long long)H * D;
+  store_c_rows<D>(dq + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4);
+  if (t4 == 0) {
+    const long long w = ((long long)b * H + h) * Sq + row;
+    ws_lse[w] = lse_r[0];
+    ws_lse[w + 8] = lse_r[1];
+    ws_di[w] = di[0];
+    ws_di[w + 8] = di[1];
+  }
+}
+
+// dk and dv for 64 keys of a (batch, head): four warps of 16 keys walk the
+// query tiles (Q, dO, and their lse and di through a two-slot cp.async ring):
+// p^T = exp(K.Q^T * scale - lse), dv += p^T.dO, dp^T = V.dO^T, ds^T = p^T *
+// (dp^T - di) * scale, dk += ds^T.Q. Four products of [64 x Sq x D].
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                   const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ ws_lse,
+                   const float* __restrict__ ws_di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                   int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                   long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int QT = dkv_queries<D>(), LD = ld<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [64][LD]
+  float* vs = ks + F32_ROWS * LD;    // [64][LD]
+  float* qs = vs + F32_ROWS * LD;    // [2][QT][LD]
+  float* dos = qs + 2 * QT * LD;     // [2][QT][LD]
+  float* lse_s = dos + 2 * QT * LD;  // [2][QT]
+  float* di_s = lse_s + 2 * QT;      // [2][QT]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
+  const int row = n0 + r0 + g;  // this thread's keys: row, row + 8
   const float* qb = q + b * q_sb + h * D;
   const float* dob = dout + b * do_sb + h * D;
-  const bool keep = mask == nullptr || mask[(long long)b * Skv + row] != 0;
+  const float* wl = ws_lse + ((long long)b * H + h) * Sq;
+  const float* wd = ws_di + ((long long)b * H + h) * Sq;
+  const bool keep[2] = {mask == nullptr || mask[(long long)b * Skv + row] != 0,
+                        mask == nullptr || mask[(long long)b * Skv + row + 8] != 0};
+  const int n_tiles = Sq / QT;
 
-  stage_own_rows<D>(ks, k + b * k_sb + h * D, k_ss, n0);
-  stage_own_rows<D>(vs, v + b * v_sb + h * D, v_ss, n0);
-  const float* kr = ks + tid * (D + 1);
-  const float* vr = vs + tid * (D + 1);
+  auto stage = [&](int t) {
+    const int slot = t & 1;
+    stage_rows<D, QT>(qs + slot * QT * LD, qb, q_ss, t * QT);
+    stage_rows<D, QT>(dos + slot * QT * LD, dob, do_ss, t * QT);
+    const int i = threadIdx.x;  // QT / 4 chunks of lse, then of di
+    if (i < QT / 4)
+      cp_async16(lse_s + slot * QT + 4 * i, wl + t * QT + 4 * i);
+    else if (i < QT / 2)
+      cp_async16(di_s + slot * QT + 4 * (i - QT / 4), wd + t * QT + 4 * (i - QT / 4));
+  };
 
-  float dk_acc[D], dv_acc[D];
+  stage_rows<D, F32_ROWS>(ks, k + b * k_sb + h * D, k_ss, n0);
+  stage_rows<D, F32_ROWS>(vs, v + b * v_sb + h * D, v_ss, n0);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  for (int m0 = 0; m0 < Sq; m0 += F32_TILE) {
-    __syncthreads();
-    stage_f32_tile<D>(qt, qb, q_ss, m0);
-    stage_f32_tile<D>(dt, dob, do_ss, m0);
-    if (tid < F32_TILE) {
-      lse_t[tid] = lse[((long long)b * Sq + m0 + tid) * H + h];
-      di_t[tid] = di[((long long)b * Sq + m0 + tid) * H + h];
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float x = keep ? dot_row<D>(kr, qt + j * D) * sm_scale : MASK_VALUE;
-      const float p = expf(x - lse_t[j]);
-      const float ds = p * (dot_row<D>(vr, dt + j * D) - di_t[j]) * sm_scale;
+    const int slot = t & 1;
+    const float* qt = qs + slot * QT * LD;
+    const float* dot = dos + slot * QT * LD;
+    const float* lt = lse_s + slot * QT;
+    const float* dt = di_s + slot * QT;
+
+    // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key
+    float p[QT / 8][4], dp[QT / 8][4];
+    rows_dot<D, QT>(p, ks, r0, qt, g, t4);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dv_acc[d] = fmaf(p, dt[j * D + d], dv_acc[d]);
-        dk_acc[d] = fmaf(ds, qt[j * D + d], dk_acc[d]);
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+        p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
       }
-    }
-  }
-  const long long out_off = ((long long)b * Skv + row) * H * D + h * D;
+    scores_times_tile<D, QT>(dv_acc, p, dot, g, t4);  // dv += p^T.dO
+    rows_dot<D, QT>(dp, vs, r0, dot, g, t4);          // dp^T = v.dO^T
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[out_off + d] = dk_acc[d];
-    dv[out_off + d] = dv_acc[d];
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+    scores_times_tile<D, QT>(dk_acc, dp, qt, g, t4);  // dk += ds^T.Q
+    __syncthreads();
   }
+
+  // dk, dv [B, Skv, H, D] contiguous
+  const long long o_ss = (long long)H * D;
+  store_c_rows<D>(dk + (long long)b * Skv * o_ss + h * D, o_ss, row, dk_acc, t4);
+  store_c_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, row, dv_acc, t4);
 }
 
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
@@ -507,6 +762,47 @@ mha_bwd_dkv_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant
 
 // --- launches -------------------------------------------------------------------
 
+// the fp32 dq kernel (p and dp kept where f32_keeps, else formed again),
+// then the dk/dv kernel; a.ws holds lse, then di, rows (b, h) Sq apart
+template <int D>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  static bool configured[3][MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err != cudaSuccess) return err;
+  float* ws_lse = a.ws;
+  float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
+  const dim3 grid_q(a.Sq / F32_ROWS, a.H, a.B);
+  const bool keep = f32_keeps<D>(a.Skv);
+  if constexpr (D <= 64) {
+    if (keep) {
+      err = allow_smem(mha_bwd_dq_kept_tf32x3<D>, configured[0], device);
+      if (err != cudaSuccess) return err;
+      mha_bwd_dq_kept_tf32x3<D><<<grid_q, KEPT_THREADS, dq_kept_smem_bytes<D>(a.Skv), stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+          static_cast<const float*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<float*>(a.dq), a.Sq, a.Skv,
+          a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+    }
+  }
+  if (!keep) {
+    err = allow_smem(mha_bwd_dq_tf32x3<D>, configured[1], device);
+    if (err != cudaSuccess) return err;
+    mha_bwd_dq_tf32x3<D><<<grid_q, F32_THREADS, dq_smem_bytes<D>(), stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const float*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<float*>(a.dq), a.Sq, a.Skv,
+        a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  }
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dkv_tf32x3<D>, configured[2], device);
+  if (err != cudaSuccess) return err;
+  mha_bwd_dkv_tf32x3<D><<<dim3(a.Skv / F32_ROWS, a.H, a.B), F32_THREADS, dkv_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, ws_lse, ws_di, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
+      a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
@@ -531,28 +827,7 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
       return cudaGetLastError();
     }
   }
-  const dim3 grid_q(a.Sq / BLOCK, a.H, a.B), grid_kv(a.Skv / BLOCK, a.H, a.B);
-  constexpr size_t smem = f32_smem_bytes<D>();
-  static bool configured = false;  // shared memory beyond 48 KB needs the opt-in (D = 128)
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(mha_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mha_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  mha_bwd_dq_f32<D><<<grid_q, BLOCK, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.ws, static_cast<float*>(a.dq), a.Sq, a.Skv,
-      a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  mha_bwd_dkv_f32<D><<<grid_kv, BLOCK, smem, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.ws, static_cast<float*>(a.dk),
-      static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
-      a.do_sb, a.do_ss, a.sm_scale);
-  return cudaGetLastError();
+  return launch_f32<D>(a, stream);
 }
 
 }  // namespace
@@ -563,7 +838,9 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 // fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
 // contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
 // H * Sq (bf16 at D = 64, 128: lse * log2 e, then di, rows (b, h) Sq apart;
-// otherwise di in its first B * Sq * H). dq/dk/dv: contiguous, in the input
+// fp32: lse, then di, rows (b, h) Sq apart; bf16 at D = 16, 32: di [B, Sq,
+// H] in its first B * Sq * H). fp32 keeps p and dp in shared memory between
+// the dq kernel's passes where f32_keeps. dq/dk/dv: contiguous, in the input
 // dtype. Launches on `stream` of the current device.
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* mask, const void* lse, void* ws, void* dq, void* dk,
@@ -586,6 +863,20 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// [Sq x Skv x D] products the fp32 backward runs at head dim D and Skv keys,
+// by the rule its launch follows: the dq kernel's s and dp, then dq (and s and
+// dp again unless f32_keeps), and the dk/dv kernel's s, dv, dp and dk; 0 for
+// another D
+extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
+  switch (D) {
+    case 16: return (f32_keeps<16>(Skv) ? 3 : 5) + 4;
+    case 32: return (f32_keeps<32>(Skv) ? 3 : 5) + 4;
+    case 64: return (f32_keeps<64>(Skv) ? 3 : 5) + 4;
+    case 128: return (f32_keeps<128>(Skv) ? 3 : 5) + 4;
+    default: return 0;
+  }
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

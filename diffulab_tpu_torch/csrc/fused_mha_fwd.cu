@@ -37,8 +37,20 @@
 //    products.
 //  - mha_fwd_streamed<D>: K + V beyond shared memory. One warpgroup a 64-row
 //    tile; K, then K and V, stream through a two-slot TMA ring of 64 keys.
-// fp32, mha_fwd_f32<D>: two passes with one thread per query row and fp32
-// FMAs, because the tensor cores have no exact fp32 product.
+// fp32, mha_fwd_tf32x3<D>: the same function in fp32 (the fp32 instance of
+// the TPU kernel, diffulab_tpu/ops/fused_mha.py:50). At slice C1's shapes
+// (B=128, S=256, H=8, D=64) it does 17.2 GFLOP on 269.5 MB: 0.26 ms at the
+// CUDA cores' 67 TFLOP/s against 0.08 ms of bytes, so it is bound by
+// operations. The products run on the tensor cores as 3xTF32 (tf32x3.cuh:
+// each operand split into two TF32 halves, three mma.sync products, about
+// 2^-21 relative each): 3 x 17.2 GFLOP at 495 TFLOP/s is 0.10 ms. One CTA
+// per (64 queries, head, batch), four warps of 16 rows; K and V stream in
+// 32-key tiles through a two-slot cp.async ring; Q's split fragments stay in
+// registers (D <= 64). One pass over the keys: an online row max and sum,
+// the running O rescaled, P in registers as the A operand of P.V, and O / l
+// at the end. That differs from the reference's "normalise p before PV" in
+// rounding only: fp32 p is never rounded to a narrower type. Two products of
+// [S x S x D], not the three of a two-pass softmax.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
 // cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
@@ -49,15 +61,15 @@
 #include <stdint.h>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma and the tensor-map encoder
+#include "tf32x3.cuh"  // the fp32 instance's 3xTF32 mma.sync fragments
 
 namespace {
 
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int BLOCK_M = 64;          // query rows of a tile (one wgmma M), and of an fp32 CTA
+constexpr int BLOCK_M = 64;          // query rows of a tile (one wgmma M)
 constexpr int THREADS = 128;         // one warpgroup
 constexpr int STREAM_CHUNK = 64;     // keys of a ring slot of the streaming instance
-constexpr int F32_TILE = 32;         // keys per staged tile (fp32 kernel)
 
 // bytes of dynamic shared memory of a bf16 instance: 1 KB of alignment slack;
 // resident, `buffers` buffers of two Q tiles and a head's K and V; streamed,
@@ -481,73 +493,138 @@ mha_fwd_streamed(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(BLOCK_M)
-mha_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq,
-            int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-            long long v_sb, long long v_ss, float sm_scale) {
-  __shared__ __align__(16) float ks[F32_TILE][D];
-  __shared__ __align__(16) float vs[F32_TILE][D];
+// ---- fp32: 3xTF32 products on the tensor cores (tf32x3.cuh)
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int row = blockIdx.x * BLOCK_M + threadIdx.x;
+// keys of a ring slot: 32, so that three CTAs (twelve warps) fit on an SM at
+// D = 64 (52 KB of shared memory and 167 registers a thread each); with
+// 64-key slots two fit, and the kernel took 0.4340 ms at C1's B=128 against
+// 0.3606 (scripts/fp32_attn_variants.py, NVIDIA H100 80GB HBM3, 700 W)
+constexpr int F32_KEYS = 32;
+
+// bytes of dynamic shared memory: the CTA's 64 Q rows and two ring slots of K and V
+template <int D>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  return 4 * ld<D>() * (F32_ROWS + 2 * 2 * F32_KEYS);
+}
+
+// One CTA per (64 queries, head, batch), four warps of 16 query rows, one
+// pass over the keys: each 32-key tile's scores S = Q.K^T, the running row
+// max and sum updated online (the running O rescaled), P = exp(S - m) in C
+// layout straight into the A operand of O += P.V. O / l at the end.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+               const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
+               long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+               float sm_scale) {
+  constexpr int KT = F32_KEYS, LD = ld<D>();
+  constexpr bool QREG = D <= 64;  // Q's split fragments stay in registers for every key tile
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // [64][LD]
+  float* ks = qs + F32_ROWS * LD;  // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
 
-  float qr[D];
-  const float* qrow = q + b * q_sb + (long long)row * q_ss + h * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = qrow[d];
+  stage_rows<D, F32_ROWS>(qs, q + b * q_sb + h * D, q_ss, m0);
+  cp_async_commit();
+  stage_rows<D, KT>(ks, kb, k_ss, 0);
+  stage_rows<D, KT>(vs, vb, v_ss, 0);
+  cp_async_commit();
 
-  // pass 1: online row max and sum
-  float m = -INFINITY, l = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
+  uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
+  if constexpr (QREG) {
+    cp_async_wait<1>();
     __syncthreads();
-    for (int i = threadIdx.x; i < F32_TILE * D; i += BLOCK_M)
-      ks[i / D][i % D] = kb[(long long)(n0 + i / D) * k_ss + i % D];
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const float s = (mb == nullptr || mb[n0 + j] != 0) ? dot * sm_scale : MASK_VALUE;
-      if (s > m) {
-        l = l * expf(m - s) + 1.f;
-        m = s;
-      } else {
-        l += expf(s - m);
+    for (int kk = 0; kk < D / 8; ++kk) frag_a<D>(qh[kk], ql[kk], qs, r0, kk, g, t4);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad at the end
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int slot = t & 1;
+    if (t + 1 < n_tiles) {
+      stage_rows<D, KT>(ks + (slot ^ 1) * KT * LD, kb, k_ss, (t + 1) * KT);
+      stage_rows<D, KT>(vs + (slot ^ 1) * KT * LD, vb, v_ss, (t + 1) * KT);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + slot * KT * LD;
+    float s[KT / 8][4];
+    if constexpr (QREG)
+      rows_dot<D, KT>(s, qh, ql, kt, g, t4);
+    else
+      rows_dot<D, KT>(s, qs, r0, kt, g, t4);
+
+    // scale, mask, and the tile's row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt) {
+      const int2 keep = mb == nullptr ? make_int2(1, 1)
+                                      : *reinterpret_cast<const int2*>(mb + t * KT + nt * 8 + 2 * t4);
+      s[nt][0] = keep.x ? s[nt][0] * sm_scale : MASK_VALUE;
+      s[nt][1] = keep.y ? s[nt][1] * sm_scale : MASK_VALUE;
+      s[nt][2] = keep.x ? s[nt][2] * sm_scale : MASK_VALUE;
+      s[nt][3] = keep.y ? s[nt][3] * sm_scale : MASK_VALUE;
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = expf(m[r] - m_new);  // 0 on the first tile (m = -inf)
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[nt][j] = expf(s[nt][j] - m[j >> 1]);  // a masked key beside a real score: exactly 0
+        l[j >> 1] += s[nt][j];
       }
-    }
+    scores_times_tile<D, KT>(acc, s, vs + slot * KT * LD, g, t4);
+    __syncthreads();  // the slot is refilled next iteration
   }
-  const bool dead = mb != nullptr && m <= MASK_VALUE;
 
-  // pass 2: p = exp(s - m) / l, o += p.v
-  float acc[D];
+  // o = acc / l; a fully-masked row (m still MASK_VALUE) gives o = 0, lse = +inf
+  bool dead[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < F32_TILE * D; i += BLOCK_M) {
-      ks[i / D][i % D] = kb[(long long)(n0 + i / D) * k_ss + i % D];
-      vs[i / D][i % D] = vb[(long long)(n0 + i / D) * v_ss + i % D];
-    }
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const float s = (mb == nullptr || mb[n0 + j] != 0) ? dot * sm_scale : MASK_VALUE;
-      const float p = dead ? 0.f : expf(s - m) / l;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    dead[r] = mb != nullptr && m[r] <= MASK_VALUE;
   }
-  float* orow = o + ((long long)b * Sq + row) * H * D + h * D;
 #pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = acc[d];
-  lse[((long long)b * Sq + row) * H + h] = dead ? INFINITY : m + logf(l);
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dn][j] = dead[j >> 1] ? 0.f : acc[dn][j] / l[j >> 1];
+  const long long o_ss = (long long)H * D;
+  const int row = m0 + r0 + g;
+  store_c_rows<D>(o + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4);
+  if (t4 == 0) {
+    lse[((long long)b * Sq + row) * H + h] = dead[0] ? INFINITY : m[0] + logf(l[0]);
+    lse[((long long)b * Sq + row + 8) * H + h] = dead[1] ? INFINITY : m[1] + logf(l[1]);
+  }
 }
 
 // ---- host side
@@ -613,12 +690,17 @@ cudaError_t dispatch_bf16(int D, int chunk, int resident, const CUtensorMap (&ma
 }
 
 template <int D>
-void launch_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
-                int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                long long v_ss, float sm_scale, cudaStream_t stream) {
-  mha_fwd_f32<D><<<dim3(Sq / BLOCK_M, H, B), BLOCK_M, 0, stream>>>(
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B,
+                       int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, float sm_scale, int device, cudaStream_t stream) {
+  auto kernel = mha_fwd_tf32x3<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(Sq / F32_ROWS, H, B), F32_THREADS, f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
       static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+  return cudaGetLastError();
 }
 
 cudaError_t run(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
@@ -634,14 +716,11 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
       return cudaErrorInvalidValue;
     return dispatch_bf16(D, chunk, resident, maps, mask, lse, B, Sq, Skv, H, sm_scale, buffers, device, stream);
   }
-  switch (D) {
-    case 16: launch_f32<16>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
-    case 32: launch_f32<32>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
-    case 64: launch_f32<64>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
-    case 128: launch_f32<128>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+#define K1_F32(DD) \
+  if (D == DD) return launch_f32<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
+  K1_F32(16) K1_F32(32) K1_F32(64) K1_F32(128)
+#undef K1_F32
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

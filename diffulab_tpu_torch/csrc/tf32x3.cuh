@@ -1,0 +1,226 @@
+// fp32 attention products on Hopper's tensor cores as 3xTF32, shared by the
+// fp32 instances of K1 (fused_mha_fwd.cu) and K2 (fused_mha_bwd.cu).
+//
+// The tensor cores take no fp32 operand, but TF32 (8 exponent bits, 10
+// mantissa bits) at 495 TFLOP/s dense. Each fp32 operand x is split into
+// hi = tf32(x), rounded to nearest with ties away (cvt.rna.tf32.f32's
+// rounding), and lo = x - hi, exact in fp32, of which the tensor cores read
+// the top 19 bits; a product accumulates lo.hi + hi.lo + hi.hi in fp32, the
+// small terms first, as CUTLASS's OpMultiplyAddFastF32 does. hi.hi is exact
+// in fp32, |lo| <= 2^-11 |x|, so the dropped lo.lo is about 2^-22 of |a||b|
+// and lo's truncation 2^-21: about 2^-21 relative per product
+// (ops/fused_mha.py::matmul_3xtf32 is the plain emulation). Three products at
+// 495 TFLOP/s still beat the fp32 CUDA cores (67 TFLOP/s) by 2.5x.
+//
+// The split is bit arithmetic: add half of the 13 dropped bits, clear them
+// (an IADD3 and a LOP3), and one FADD for lo. cvt.rna.tf32.f32 compiles to a
+// sequence of IMAD, FSETP and SEL instructions, and rounding lo as well
+// costs two more: at C1's shapes (B=128, S=256, H=8, D=64) the fp32 K1 took
+// 0.4525 ms with cvt.rna for hi and lo, 0.3841 with this rounding for both,
+// 0.3606 with lo left to the tensor cores, and K2 1.7231, 1.4099 and 1.3286
+// (scripts/fp32_attn_variants.py, NVIDIA H100 80GB HBM3, 700 W).
+//
+// The instruction is mma.sync m16n8k8 .tf32 (a warp's 16 x 8 tile, k = 8).
+// wgmma takes .tf32 operands from shared memory only K-major (the transpose
+// flags are for 16-bit types), and P.V, dS.K, dS^T.Q and P^T.dO each read an
+// operand stored N-major; mma.sync fragments are loaded by the threads and
+// read either layout. Operands are split when their fragment is loaded.
+//
+// Fragments (g = lane / 4, t4 = lane % 4): A a0 (row g, k t4), a1 (g + 8, t4),
+// a2 (g, t4 + 4), a3 (g + 8, t4 + 4); B b0 (k t4, col g), b1 (k t4 + 4, g); C
+// c0, c1 (row g, cols 2 t4, 2 t4 + 1), c2, c3 (row g + 8, same cols). A score
+// tile in C layout becomes the A operand of the next product without a
+// shuffle by permuting the reduction axis: k slot t4 takes key 2 t4 and slot
+// t4 + 4 key 2 t4 + 1, and the B operand reads its rows in the same order.
+//
+// Tiles sit in shared memory as [rows][D + 4] fp32: a row stride of 4 words
+// mod 32 banks keeps both fragment patterns below free of bank conflicts
+// (4 g + t4, and 8 t4 + g, are 32 distinct banks). They arrive by cp.async,
+// 16 bytes a thread, from rows of one head at the caller's strides.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+constexpr int F32_THREADS = 128;  // four warps of 16 rows: 64 rows a CTA
+constexpr int F32_ROWS = 64;
+
+template <int D>
+__host__ __device__ constexpr int ld() {
+  return D + 4;
+}
+
+// x rounded to TF32, to nearest with ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// ---- cp.async
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [r0, r0 + ROWS) of one head (D floats at row stride `ss` elements)
+// into a [ROWS][D + 4] tile by the CTA's THREADS threads; not awaited
+template <int D, int ROWS, int THREADS = F32_THREADS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long ss, int r0) {
+  constexpr int CHUNKS = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+    cp_async16(dst + r * ld<D>() + c, src + (long long)(r0 + r) * ss + c);
+  }
+}
+
+// ---- fragments from a [rows][D + 4] tile, split at the load
+
+// A: rows r0 + [0, 16), reduction over columns 8 kk + [0, 8)
+template <int D>
+__device__ __forceinline__ void frag_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* t, int r0, int kk, int g,
+                                       int t4) {
+  const float* p = t + (r0 + g) * ld<D>() + kk * 8 + t4;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * ld<D>()], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * ld<D>() + 4], hi[3], lo[3]);
+}
+
+// B of a row-by-row product (s = A.T^T): columns n0 + [0, 8) are tile rows,
+// the reduction runs over the tile's columns 8 kk + [0, 8)
+template <int D>
+__device__ __forceinline__ void frag_b_rows(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* t, int n0, int kk,
+                                            int g, int t4) {
+  const float* p = t + (n0 + g) * ld<D>() + kk * 8 + t4;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[4], hi[1], lo[1]);
+}
+
+// B of a product over the tile's rows (o = P.T): the reduction runs over tile
+// rows 8 kk + [0, 8) in the permuted order (slot t4: row 2 t4, slot t4 + 4:
+// row 2 t4 + 1), the columns are the tile's columns n0 + [0, 8)
+template <int D>
+__device__ __forceinline__ void frag_b_cols(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* t, int kk, int n0,
+                                            int g, int t4) {
+  const float* p = t + (kk * 8 + 2 * t4) * ld<D>() + n0 + g;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[ld<D>()], hi[1], lo[1]);
+}
+
+// A fragments of a warp's 16 rows (row, row + 8 for this thread) of one head
+// read from device memory (row stride `ss` elements), split
+template <int D>
+__device__ __forceinline__ void frags_a_global(uint32_t (&hi)[D / 8][4], uint32_t (&lo)[D / 8][4], const float* src,
+                                               long long ss, int row, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const float* p = src + (long long)row * ss + kk * 8 + t4;
+    split_tf32(p[0], hi[kk][0], lo[kk][0]);
+    split_tf32(p[8 * ss], hi[kk][1], lo[kk][1]);
+    split_tf32(p[4], hi[kk][2], lo[kk][2]);
+    split_tf32(p[8 * ss + 4], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// A from 8 columns (n-tile kk) of a C-layout tile, in the permuted order
+__device__ __forceinline__ void frag_a_from_c(uint32_t (&hi)[4], uint32_t (&lo)[4], const float (&c)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// s[nt] = A.T^T for a warp's 16 rows (rows a0 of tile `a`) against tile rows 8 nt
+template <int D, int N>
+__device__ __forceinline__ void rows_dot(float (&s)[N / 8][4], const float* a, int a0, const float* t, int g, int t4) {
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    frag_a<D>(ah, al, a, a0, kk, g, t4);
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      uint32_t bh[2], bl[2];
+      frag_b_rows<D>(bh, bl, t, nt * 8, kk, g, t4);
+      mma3(s[nt], ah, al, bh, bl);
+    }
+  }
+}
+
+// the same with A's fragments held in registers
+template <int D, int N>
+__device__ __forceinline__ void rows_dot(float (&s)[N / 8][4], const uint32_t (&ah)[D / 8][4],
+                                         const uint32_t (&al)[D / 8][4], const float* t, int g, int t4) {
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      uint32_t bh[2], bl[2];
+      frag_b_rows<D>(bh, bl, t, nt * 8, kk, g, t4);
+      mma3(s[nt], ah[kk], al[kk], bh, bl);
+    }
+}
+
+// acc[16 rows x D] += x[16 rows x N] . T[N rows][D], x in C layout
+template <int D, int N>
+__device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4], const float (&x)[N / 8][4], const float* t,
+                                                  int g, int t4) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    frag_a_from_c(ah, al, x[kk]);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      uint32_t bh[2], bl[2];
+      frag_b_cols<D>(bh, bl, t, kk, dn * 8, g, t4);
+      mma3(acc[dn], ah, al, bh, bl);
+    }
+  }
+}
+
+// a C-layout [16 x D] accumulator to rows `row`, `row` + 8 of `out` (row
+// stride `ss` elements), two floats a store
+template <int D>
+__device__ __forceinline__ void store_c_rows(float* out, long long ss, int row, const float (&acc)[D / 8][4], int t4) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(out + (long long)row * ss + col) = make_float2(acc[dn][0], acc[dn][1]);
+    *reinterpret_cast<float2*>(out + (long long)(row + 8) * ss + col) = make_float2(acc[dn][2], acc[dn][3]);
+  }
+}
+
+}  // namespace

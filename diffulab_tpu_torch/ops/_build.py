@@ -3,7 +3,7 @@
 Each source under ``diffulab_tpu_torch/csrc/`` becomes a shared library with
 a plain C interface, compiled by ``nvcc`` for ``sm_90a`` into
 ``diffulab_tpu_torch/_build/`` (ignored by git) under a name keyed by a hash
-of the source, the headers beside it (``csrc/hopper.cuh``) and the flags, so
+of the source, the headers beside it (``csrc/*.cuh``) and the flags, so
 an edited source or header is rebuilt and an unchanged one is loaded as it
 is. Nothing here runs at import: the CPU tests import every
 module on machines without ``nvcc``.
@@ -39,7 +39,8 @@ KERNELS = {
     ),
     "fused_mha_bwd": (
         "csrc/fused_mha_bwd.cu",
-        {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P]},
+        {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P],
+         "fused_mha_bwd_f32_products": [_I, _I]},
     ),
     "flash_attn_fwd": (
         "csrc/flash_attn_fwd.cu",

@@ -29,8 +29,12 @@ and ``p = exp(s - m)·(1/l)`` is rounded to bf16 straight into the register
 operand of the PV ``wgmma`` — one pass over the keys; longer rows take two
 (pass 1: row max and sum chunk by chunk; pass 2: the scores again, then PV),
 so that K1's rounding order holds at any length. :func:`forward_instance`
-picks the instance from the shape. For fp32, two passes with one thread per
-query row and fp32 FMAs, since the tensor cores take no exact fp32 product.
+picks the instance from the shape. For fp32 (bound by operations: 17.2
+GFLOP at slice C1's B=128, S=256, H=8, D=64) the products run on the tensor
+cores as 3xTF32 (each operand split into two TF32 halves, three ``mma.sync``
+products, about 2^-21 relative each; :func:`matmul_3xtf32` emulates them),
+one CTA per 64 queries in one pass over 32-key tiles with an online softmax
+and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`).
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -51,7 +55,11 @@ head's K and V loaded once for both passes up to 512 keys at head dim 64,
 ``[2, B, H, Sq]``; then K4's dk/dv kernel per 128 keys, which walks the
 query tiles with that workspace. At
 head dims 16 and 32, the first ``mma.sync`` kernels (64 queries or keys a
-CTA); in fp32, fp32 FMAs. All recompute p, as K2 did.
+CTA). In fp32, 3xTF32 ``mma.sync`` kernels of 64 queries or keys a CTA: the
+dq kernel keeps its fp32 p and dp in shared memory between the di pass and
+the dq pass where they fit (the launch decides, ``f32_keeps`` in the source),
+so the pair runs 7 products of [Sq x Skv x D] (the bound counts 5), else 9;
+:func:`fused_mha_bwd_tf32x3_emulation` emulates both forms.
 
 :func:`fused_mha_reference` and :func:`fused_mha_bwd_reference` are the
 plain PyTorch versions with the same op order. The wrappers use them only
@@ -128,18 +136,28 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
     return FwdInstance(False, STREAM_CHUNK, 2, _smem_bytes(d, False, skv, 2))
 
 
+#: query (or key) rows of an fp32 CTA
+F32_ROWS = 64
+#: keys of a ring slot of the fp32 K1 (``F32_KEYS`` in the source)
+F32_KEYS = 32
+
+
 #: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`
 #: (read by chip_smoke.py)
 LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0}
 
 
-def _scores(q, k, kv_mask, sm_scale) -> torch.Tensor:
-    """fp32 ``s = q·kᵀ·scale`` ``[B, H, Sq, Skv]``, masked keys at the mask value."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+def _masked_scores(s, kv_mask, sm_scale) -> torch.Tensor:
+    """``s·scale`` for raw scores ``[B, H, Sq, Skv]``, masked keys at the mask value."""
     s = s * sm_scale
     if kv_mask is not None:
         s = torch.where(kv_mask[:, None, None, :].bool(), s, DEFAULT_MASK_VALUE)
     return s
+
+
+def _scores(q, k, kv_mask, sm_scale) -> torch.Tensor:
+    """fp32 ``s = q·kᵀ·scale`` ``[B, H, Sq, Skv]``, masked keys at the mask value."""
+    return _masked_scores(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()), kv_mask, sm_scale)
 
 
 def fused_mha_reference(
@@ -213,6 +231,116 @@ def fused_mha_bwd_reference(
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --- the fp32 kernels' arithmetic: 3xTF32 products, emulated ------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: half of the 13 dropped bits added to the
+    bit pattern, then the 13 bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two TF32 halves of x that the fp32 kernels' tensor cores read:
+    ``hi = tf32_round(x)`` and ``lo = x - hi`` (exact in fp32) truncated to
+    its top 19 bits, as the tensor cores take a TF32 operand from an fp32
+    register."""
+    hi = tf32_round(x)
+    lo = (x.float() - hi).contiguous().view(torch.int32) & -0x2000
+    return hi, lo.view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a @ b`` (batched as :func:`torch.matmul`) as the fp32 kernels
+    form it on the tensor cores (``csrc/tf32x3.cuh``): a and b split into
+    TF32 halves, and per k step of 8 the fp32 accumulator takes lo·hi, then
+    hi·lo, then hi·hi. hi·hi is exact in fp32; the dropped lo·lo and lo's
+    truncation leave about 2^-21 of ``|a|@|b|``."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    acc = torch.zeros(*torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]), a.shape[-2], b.shape[-1])
+    for k0 in range(0, a.shape[-1], 8):
+        ka, kb = (..., slice(k0, k0 + 8)), (..., slice(k0, k0 + 8), slice(None))
+        acc = acc + al[ka] @ bh[kb]
+        acc = acc + ah[ka] @ bl[kb]
+        acc = acc + ah[ka] @ bh[kb]
+    return acc
+
+
+def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 K1's tile math on fp32 CPU tensors: :func:`matmul_3xtf32`
+    products, one pass over tiles of :data:`F32_KEYS` keys with an online row
+    max and sum (the running o rescaled), and o divided by l at the end (not
+    p before PV: fp32 p is never rounded to a narrower type, so the two
+    orders differ in rounding only). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+    b, h, sq, d = qh.shape
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, d)
+    kt = F32_KEYS
+    for n0 in range(0, kh.shape[2], kt):
+        tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
+        s = _masked_scores(matmul_3xtf32(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2)), tile_mask, sm_scale)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + matmul_3xtf32(p, vh[:, :, n0:n0 + kt])
+        m = m_new
+    o = acc / l
+    lse = m + torch.log(l)
+    if kv_mask is not None:
+        dead = m <= DEFAULT_MASK_VALUE
+        o = torch.where(dead, 0.0, o)
+        lse = torch.where(dead, torch.inf, lse)
+    return o.permute(0, 2, 1, 3).contiguous(), lse[..., 0].permute(0, 2, 1).contiguous()
+
+
+def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kept=True):
+    """The fp32 K2's split on fp32 CPU tensors, products by
+    :func:`matmul_3xtf32`: the dq kernel's pass over the keys (``p = exp(s -
+    lse)``, ``dp = do·vᵀ``, ``di = rowsum(p·dp)``), its dq = ds·k, then the
+    dk/dv kernel's pᵀ = exp(k·qᵀ - lse), dv = pᵀ·do, dpᵀ = v·doᵀ, dsᵀ and dk
+    = dsᵀ·q. ``kept``: the dq kernel that keeps p and dp between its passes,
+    two warps a row each summing di and dq over one half of every 64-key
+    step, half 0's sum plus half 1's; else the one that forms s and dp again
+    for dq. Returns (dq, dk, dv, di [B,H,Sq])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
+    lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
+
+    def probs_and_dp():
+        p = torch.exp(_masked_scores(matmul_3xtf32(qh, kh.transpose(-1, -2)), kv_mask, sm_scale) - lse_r)
+        return p, matmul_3xtf32(doh, vh.transpose(-1, -2))
+
+    p, dp = probs_and_dp()
+    if kept:
+        halves = [(torch.arange(kh.shape[2]) // 32) % 2 == i for i in (0, 1)]  # of each 64-key step
+        di = sum((p[..., m] * dp[..., m]).sum(dim=-1, keepdim=True) for m in halves)
+        ds = p * (dp - di) * sm_scale
+        dq = sum(matmul_3xtf32(ds[..., m], kh[:, :, m]) for m in halves)
+    else:
+        di = (p * dp).sum(dim=-1, keepdim=True)
+        p, dp = probs_and_dp()
+        dq = matmul_3xtf32(p * (dp - di) * sm_scale, kh)
+    # the dk/dv kernel: rows are keys, masked by key; lse and di by query column
+    st = matmul_3xtf32(kh, qh.transpose(-1, -2)) * sm_scale
+    if kv_mask is not None:
+        st = torch.where(kv_mask[:, None, :, None].bool(), st, DEFAULT_MASK_VALUE)
+    pt = torch.exp(st - lse_r.transpose(-1, -2))
+    dv = matmul_3xtf32(pt, doh)
+    dst = pt * (matmul_3xtf32(vh, doh.transpose(-1, -2)) - di.transpose(-1, -2)) * sm_scale
+    dk = matmul_3xtf32(dst, qh)
+    back = (t.permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
+    return (*back, di[..., 0])
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
@@ -323,7 +451,7 @@ def fused_mha_bwd(
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
-    ws = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # lse·log2 e and di, or di
+    ws = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # lse (·log2 e in bf16) and di, or di
     lib = _build.load("fused_mha_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):

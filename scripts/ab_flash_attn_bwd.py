@@ -50,6 +50,7 @@ def kernel_device_ms(fn, parts: dict[str, tuple[str, ...]] = BWD_PARTS, calls: i
     takes the kernels whose names hold one of its pieces), from
     ``torch.profiler``."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -60,6 +61,8 @@ def kernel_device_ms(fn, parts: dict[str, tuple[str, ...]] = BWD_PARTS, calls: i
         torch.cuda.synchronize()
     out = dict.fromkeys(parts, 0.0)
     for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CPU:  # the runtime's launch calls
+            continue
         part = next((name for name, pieces in parts.items() if any(p in evt.key for p in pieces)), None)
         if part is not None:
             total_us = getattr(evt, "device_time_total", None)
@@ -126,17 +129,21 @@ def measure(root: Path) -> dict:
     return out
 
 
-def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[str]]]) -> int:
+def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[list[str]]]],
+            fp32_measure=None) -> int:
     """The command line the A/B scripts share: ``--root DIR`` prints one JSON
-    line of ``measure(DIR)``; ``--ab PARENT`` runs ``--root PARENT``, this
-    checkout twice and PARENT again, each in its own process, prints the four
-    lines and their medians, and then, for each flag of ``profiles`` given
-    (flag -> (help, profile command)), the profile command in PARENT and in
-    this checkout."""
+    line of ``measure(DIR)`` (``fp32_measure(DIR)`` with ``--fp32``, where the
+    script has one); ``--ab PARENT`` runs ``--root PARENT``, this checkout
+    twice and PARENT again, each in its own process, prints the four lines and
+    their medians, and then, for each flag of ``profiles`` given (flag ->
+    (help, profile commands)), the profile commands in PARENT and in this
+    checkout."""
     parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--root", type=Path, help="time the package under this directory")
     group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
+    if fp32_measure is not None:
+        parser.add_argument("--fp32", action="store_true", help="time the fp32 instances at slice C1's shapes")
     for flag, (help_text, _) in profiles.items():
         parser.add_argument(f"--{flag}", action="store_true", help=help_text)
     args = parser.parse_args()
@@ -145,12 +152,14 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
     if not torch.cuda.is_available():
         print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 2
+    fp32 = getattr(args, "fp32", False)
     if args.root is not None:
-        print(json.dumps(measure(args.root)))
+        print(json.dumps((fp32_measure if fp32 else measure)(args.root)))
         return 0
     runs = []
     for root in (args.ab, ROOT, ROOT, args.ab):
-        done = subprocess.run([sys.executable, script, "--root", str(root)], capture_output=True, text=True)
+        done = subprocess.run([sys.executable, script, "--root", str(root), *(["--fp32"] if fp32 else [])],
+                              capture_output=True, text=True)
         if done.returncode != 0:
             print(done.stdout, done.stderr, file=sys.stderr)
             return done.returncode
@@ -166,24 +175,25 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
         change = statistics.median([runs[1][key], runs[2][key]])
         print(f"{key}: parent {runs[0][key]:.4f} / {runs[3][key]:.4f}, change {runs[1][key]:.4f} / "
               f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, x{parent / change:.2f})")
-    for flag, (_, command) in profiles.items():
+    for flag, (_, commands) in profiles.items():
         if not getattr(args, flag):
             continue
-        for label, root in (("parent", args.ab.resolve()), ("change", ROOT)):
-            done = subprocess.run([sys.executable, str(root / command[0]), *command[1:]],
-                                  capture_output=True, text=True, cwd=root)
-            if done.returncode != 0:
-                print(done.stdout, done.stderr, file=sys.stderr)
-                return done.returncode
-            print(f"--- {' '.join(command)}, {label} ({root}):")
-            print(done.stdout.strip())
+        for command in commands:
+            for label, root in (("parent", args.ab.resolve()), ("change", ROOT)):
+                done = subprocess.run([sys.executable, str(root / command[0]), *command[1:]],
+                                      capture_output=True, text=True, cwd=root)
+                if done.returncode != 0:
+                    print(done.stdout, done.stderr, file=sys.stderr)
+                    return done.returncode
+                print(f"--- {' '.join(command)}, {label} ({root}):")
+                print(done.stdout.strip())
     return 0
 
 
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the txt2img train profile of both trees",
-                              ["scripts/profile_torch_train.py", "--txt2img"])})
+                              [["scripts/profile_torch_train.py", "--txt2img"]])})
 
 
 if __name__ == "__main__":

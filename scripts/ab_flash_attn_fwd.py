@@ -79,9 +79,9 @@ def measure(root: Path) -> dict:
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"generate": ("with --ab: the txt2img request profile of both trees",
-                                 ["scripts/profile_torch_generate.py", "--txt2img"]),
+                                 [["scripts/profile_torch_generate.py", "--txt2img"]]),
                     "train": ("with --ab: the txt2img train profile of both trees",
-                              ["scripts/profile_torch_train.py", "--txt2img"])})
+                              [["scripts/profile_torch_train.py", "--txt2img"]])})
 
 
 if __name__ == "__main__":

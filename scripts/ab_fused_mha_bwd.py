@@ -12,14 +12,24 @@ CUDA graph cannot capture autograd); then K2's device time at 384, 512, 640
 and 768 tokens (B=64), and K1's device time at B=32, S=256 (a kernel this
 change should not move).
 
+With ``--fp32``, the fp32 instance at slice C1's shape instead (B=128,
+S=256, H=8, D=64, fp32, from K1's lse): the device time of K2 and of SDPA's
+fp32 backward (its memory-efficient backward op,
+``chip_smoke.sdpa_fp32_backward`` of this checkout for both trees), both from
+CUDA-graph replays; beside them K2's two kernels and the SDPA autograd
+backward's kernels summed by ``torch.profiler``.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
 with ``--train`` it then runs ``scripts/profile_torch_train.py`` (the
-DiT-B/2 train step) of PARENT and of this checkout. Unpack the parent commit
+DiT-B/2 train step) of PARENT and of this checkout, with ``--c1``
+``scripts/profile_torch_train.py --c1`` and ``scripts/profile_torch_generate.py
+--c1`` (slice C1's train step and sample request). Unpack the parent commit
 into a directory that git ignores, e.g. ``git archive HEAD~1 | tar -x -C
 _parent``, then run from the repository root on the card:
-``python3 scripts/ab_fused_mha_bwd.py --ab _parent --train``.
+``python3 scripts/ab_fused_mha_bwd.py --ab _parent --train``, or for the fp32
+instance ``python3 scripts/ab_fused_mha_bwd.py --ab _parent --fp32 --c1``.
 """
 
 from __future__ import annotations
@@ -32,8 +42,12 @@ sys.path.insert(0, str(ROOT / "scripts"))
 from ab_flash_attn_bwd import ab_main, kernel_device_ms  # noqa: E402
 from ab_fused_mha_fwd import graph_ms, wall_ms  # noqa: E402
 
-#: K2's two kernels by a piece of their names (the bf16 kernels of both trees)
+#: K2's two kernels by a piece of their names (both trees' kernels, bf16 and fp32)
 K2_PARTS = {"K2_dq": ("mha_bwd_dq",), "K2_dkv": ("mha_bwd_dkv",)}
+#: slice C1's attention shape: the config's batch, 256 tokens, 8 heads of 64
+C1_SHAPE = (128, 256, 8, 64)
+#: slice C1's train step and sample request profiles
+C1_PROFILES = [["scripts/profile_torch_train.py", "--c1"], ["scripts/profile_torch_generate.py", "--c1"]]
 
 
 def measure(root: Path) -> dict:
@@ -78,10 +92,44 @@ def measure(root: Path) -> dict:
     return out
 
 
+def measure_fp32(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke  # this checkout's, before the measured tree's package is on the path
+
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(*C1_SHAPE, generator=gen, device="cuda") for _ in range(4))
+    out = {"root": str(root)}
+    with torch.no_grad():
+        _, lse = fused_mha(q, k, v)
+        out["K2_fp32_device_ms"] = graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10)
+        out["sdpa_bwd_fp32_device_ms"] = graph_ms(chip_smoke.sdpa_fp32_backward(q, k, v, do), calls=10)
+        parts = kernel_device_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), K2_PARTS)
+        for part, ms in parts.items():
+            out[f"{part}_fp32_profiler_ms"] = ms
+        out["K2_fp32_profiler_ms"] = sum(parts.values())
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        out["sdpa_autograd_bwd_fp32_profiler_ms"] = kernel_device_ms(
+            lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True), {"all": ("",)})["all"]
+    return out
+
+
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the DiT-B/2 train profile of both trees",
-                              ["scripts/profile_torch_train.py"])})
+                              [["scripts/profile_torch_train.py"]]),
+                    "c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
+                   fp32_measure=measure_fp32)
 
 
 if __name__ == "__main__":

@@ -8,20 +8,23 @@ q/k/v as views of one packed qkv tensor) and at 384 and 512 tokens (B=32),
 its wall time per call back to back, and the wrapper's host time per call
 at a one-head shape whose kernel takes a few microseconds.
 
+With ``--fp32``, the fp32 instance at slice C1's shapes instead (B=128, the
+train step's, and B=32, the sample request's; S=256, H=8, D=64, fp32): K1's
+and fp32 SDPA's device times from CUDA-graph replays.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
-share a name), and prints the four lines and their medians side by side.
+share a name), and prints the four lines and their medians side by side;
+with ``--c1`` it then runs ``scripts/profile_torch_train.py --c1`` and
+``scripts/profile_torch_generate.py --c1`` of PARENT and of this checkout.
 Unpack the parent commit into a directory that git ignores, e.g.
 ``git archive HEAD~1 | tar -x -C _parent``, then run from the repository
-root on the card: ``python3 scripts/ab_fused_mha_fwd.py --ab _parent``.
+root on the card: ``python3 scripts/ab_fused_mha_fwd.py --ab _parent``, or
+``python3 scripts/ab_fused_mha_fwd.py --ab _parent --fp32``.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -110,39 +113,33 @@ def measure(root: Path) -> dict:
     return out
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    group = parser.add_mutually_exclusive_group(required=True)
-    group.add_argument("--root", type=Path, help="time the package under this directory")
-    group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
-    args = parser.parse_args()
+def measure_fp32(root: Path) -> dict:
+    sys.path.insert(0, str(root))
     import torch
+    import torch.nn.functional as F
 
-    if not torch.cuda.is_available():
-        print("ab_fused_mha_fwd: no CUDA device", file=sys.stderr)
-        return 2
-    if args.root is not None:
-        print(json.dumps(measure(args.root)))
-        return 0
-    runs = []
-    for root in (args.ab, ROOT, ROOT, args.ab):
-        done = subprocess.run([sys.executable, __file__, "--root", str(root)], capture_output=True, text=True)
-        if done.returncode != 0:
-            print(done.stdout, done.stderr, file=sys.stderr)
-            return done.returncode
-        runs.append(json.loads(done.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
-    for key in runs[0]:
-        if key == "root":
-            continue
-        parent = statistics.median([runs[0][key], runs[3][key]])
-        change = statistics.median([runs[1][key], runs[2][key]])
-        print(f"{key}: parent {runs[0][key]:.4f} / {runs[3][key]:.4f}, change {runs[1][key]:.4f} / "
-              f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, x{parent / change:.2f})")
-    return 0
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for b in (128, 32):
+            q, k, v = (torch.randn(b, 256, 8, 64, generator=gen, device="cuda") for _ in range(3))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            out[f"K1_fp32_device_ms_B{b}"] = graph_ms(lambda: fused_mha(q, k, v))
+            out[f"sdpa_fp32_device_ms_B{b}"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    return out
+
+
+def main() -> int:
+    from ab_flash_attn_bwd import ab_main
+    from ab_fused_mha_bwd import C1_PROFILES
+
+    return ab_main(__doc__, __file__, measure,
+                   {"c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
+                   fp32_measure=measure_fp32)
 
 
 if __name__ == "__main__":

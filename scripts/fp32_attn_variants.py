@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Variants of the fp32 K1 and K2 (3xTF32, ``csrc/tf32x3.cuh``) built side
+by side and timed on one card.
+
+Each variant is the kernels' sources (``fused_mha_fwd.cu``,
+``fused_mha_bwd.cu`` and the ``tf32x3.cuh`` they include) under textual
+substitutions (each asserted to apply), built with the port's ``nvcc`` flags
+into ``diffulab_tpu_torch/_build/variants/`` and called through the same C
+interfaces:
+
+- ``kernel``: the sources as they are: hi = x rounded to TF32 by bit
+  arithmetic (nearest, ties away), lo = x - hi left for the tensor cores to
+  read to its top 19 bits;
+- ``cvt_rna``: hi and lo both by ``cvt.rna.tf32.f32``;
+- ``rounded_lo``: lo rounded by the same bit arithmetic as hi;
+- ``fwd_keys64``: K1 with 64-key ring slots (two CTAs an SM at D = 64, not
+  three);
+- ``dkv_queries32``: K2's dk/dv kernel with 32-query ring slots (three CTAs
+  an SM, not two, and half the columns for each split fragment of k or v);
+- ``dq_recompute``: K2's dq kernel forming s and dp again for dq (5
+  products) where the sources keep p and dp in shared memory (3).
+
+At slice C1's shapes (S=256, H=8, D=64, fp32) it prints, for each variant,
+ptxas's registers and spills, K1's device ms per call from CUDA-graph
+replays at B=128 and B=32, K2's at B=128, and each one's largest difference
+from its plain version.
+
+Run from the repository root on the card:
+``python3 scripts/fp32_attn_variants.py [variant ...]`` (all by default).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CSRC = ROOT / "diffulab_tpu_torch/csrc"
+SOURCES = ("fused_mha_fwd", "fused_mha_bwd")
+
+HI_BITS = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+HI_CVT = '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;'
+LO_RAW = "  lo = __float_as_uint(x - __uint_as_float(hi));"
+LO_ROUNDED = "  lo = tf32_rna(x - __uint_as_float(hi));"
+FWD_KEYS = "constexpr int F32_KEYS = 32;"
+DKV_QUERIES = "constexpr int dkv_queries() {\n  return D <= 64 ? 64 : 32;"
+KEEPS = "  return D <= 64 && dq_kept_smem_bytes<D>(Skv) <= SMEM_LIMIT;"
+#: variant -> [(file under csrc/, text, its replacement)]
+VARIANTS = {
+    "kernel": [],
+    "cvt_rna": [("tf32x3.cuh", HI_BITS, HI_CVT), ("tf32x3.cuh", LO_RAW, LO_ROUNDED)],
+    "rounded_lo": [("tf32x3.cuh", LO_RAW, LO_ROUNDED)],
+    "fwd_keys64": [("fused_mha_fwd.cu", FWD_KEYS, "constexpr int F32_KEYS = 64;")],
+    "dkv_queries32": [("fused_mha_bwd.cu", DKV_QUERIES, DKV_QUERIES.replace("D <= 64 ? 64 : 32", "32"))],
+    "dq_recompute": [("fused_mha_bwd.cu", KEEPS, "  return false;")],
+}
+
+
+def build(names) -> dict:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from diffulab_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        texts = {f: (CSRC / f).read_text() for f in ("tf32x3.cuh", *(f"{src}.cu" for src in SOURCES))}
+        for f, old, new in VARIANTS[name]:
+            assert old in texts[f], f"{name}: {f} no longer holds {old[:60]!r}"
+            texts[f] = texts[f].replace(old, new)
+        (out / f"tf32x3_{name}.cuh").write_text(texts["tf32x3.cuh"])
+        for src in SOURCES:
+            text = texts[f"{src}.cu"]
+            assert '#include "tf32x3.cuh"' in text
+            (out / f"{src}_{name}.cu").write_text(text.replace('#include "tf32x3.cuh"',
+                                                               f'#include "tf32x3_{name}.cuh"'))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"{src}_{name}.so"),
+                   str(out / f"{src}_{name}.cu")]
+            procs[name, src] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, src), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name} {src}: nvcc failed\n{log[-3000:]}")
+        print(name, src, json.dumps({k: v for k, v in chip_smoke.ptxas_usage(log).items() if "tf32x3<64" in k}))
+        lib = ctypes.CDLL(str(out / f"{src}_{name}.so"))
+        fn = getattr(lib, src)
+        fn.argtypes = _build.KERNELS[src][1][src]
+        fn.restype = ctypes.c_int
+        libs[name, src] = fn
+    return libs
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fp32_attn_variants: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = build(names)
+    import chip_smoke
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha_bwd_reference, fused_mha_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    s, h, d = chip_smoke.C1_SEQ, chip_smoke.C1_HEADS, 64
+
+    def fwd(fn, q, k, v, o, lse):
+        b = q.shape[0]
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), b, s, s, h, d,
+                 q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+                 ctypes.c_float(d ** -0.5), 0, 0, 0, 0, torch.cuda.current_device(),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+
+    def bwd(fn, q, k, v, do, lse, out):
+        dq, dk, dv, ws = out
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), None, lse.data_ptr(), ws.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0], s, s, h, d, q.stride(0), q.stride(1),
+                 k.stride(0), k.stride(1), v.stride(0), v.stride(1), do.stride(0), do.stride(1),
+                 ctypes.c_float(d ** -0.5), 0, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+
+    rows = {name: {} for name in names}
+    for b in (chip_smoke.C1_BATCH, 2 * chip_smoke.C1_SAMPLES):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(3))
+        ref, _ = fused_mha_reference(q, k, v)
+        for name in names:
+            o, lse = torch.empty_like(q), torch.empty(b, s, h, device="cuda")
+            fn = libs[name, "fused_mha_fwd"]
+            fwd(fn, q, k, v, o, lse)
+            torch.cuda.synchronize()
+            rows[name][f"K1_B{b}"] = {
+                "device_ms": round(chip_smoke.cuda_graph_ms(lambda: fwd(fn, q, k, v, o, lse)), 4),
+                "max_abs_err": float(f"{float((o - ref).abs().max()):.3e}")}
+    b = chip_smoke.C1_BATCH
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(4))
+    _, lse = fused_mha_reference(q, k, v)
+    refs = fused_mha_bwd_reference(q, k, v, None, lse, do)
+    for name in names:
+        fn = libs[name, "fused_mha_bwd"]
+        out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), torch.empty(2, b, h, s, device="cuda"))
+        bwd(fn, q, k, v, do, lse, out)
+        torch.cuda.synchronize()
+        err = chip_smoke.check_grads(name, out[:3], refs, chip_smoke.BWD_TOL["float32"])
+        ms = chip_smoke.cuda_graph_ms(lambda: bwd(fn, q, k, v, do, lse, out), calls=10, replays=5)
+        rows[name][f"K2_B{b}"] = {"device_ms": round(ms, 4), "max_abs_err": float(f"{err:.3e}")}
+    for name, row in rows.items():
+        print(name, json.dumps(row))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
