@@ -18,7 +18,11 @@ over shards that the port's ``ShardedDatasetWriter`` writes from a seed;
 and slice C1, ``configs/train_synthetic_flow_matching.yaml`` through the
 port's own CLIs (``diffulab_tpu_torch.examples``: train with post-hoc EMA,
 reconstruct an EMA horizon, sample a grid from it) at the config's full
-width and depth in fp32, cut only in epochs and dataset size.
+width and depth in fp32, cut only in epochs and dataset size; bench.py's
+DPM++ and block-cache sampling arms on DiT-B/2; and slice C2,
+``configs/train_synthetic_edm.yaml`` through the same CLIs with the rest of
+the sampler family, block caching, autoguidance, inpainting and img2img,
+then guidance distillation and reflow from the C1 run.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -89,7 +93,28 @@ Phases, one line each:
      launches in every train step, 4 post-hoc EMA snapshots, reconstruction
      weights finite and summing to about 1, the native collate loaded, 500
      K1 and 0 K3 launches in the sample request, a PNG grid of the expected
-     size; ms per step, samples/s, peak memory, ms per sample request.
+     size; ms per step, samples/s, peak memory, ms per sample request;
+ 15. bench.py's other two sampling arms on DiT-B/2 (bf16, batch 16, CFG 4.0):
+     K1 at their shape against its plain version; DPM-Solver++(2M) at 15
+     steps (180 K1 launches a request) and Euler-50 with
+     ``set_block_cache(2, span=(2, 10))`` (400), each request 0 against the
+     plain-attention model's, ms a request (median of 3 after a warm-up);
+     the cached request's first (refresh) step bit for bit the uncached
+     one's, and ``set_block_cache(1, ...)`` turning caching off;
+ 16. slice C2: the fp32 K1 (B=128, 32) and K2 (B=128) against their plain
+     versions; ``configs/train_synthetic_edm.yaml`` (EDM, Heun-18) through
+     ``train_diffusion`` (10 K1 + 10 K2 a step), ``reconstruct_ema`` and
+     ``sample`` (350 K1 a Heun-18 request), then one request each of
+     DPM++-15, UniPC-10, block caching, autoguidance with the epoch-1
+     post-hoc EMA snapshot, an inpaint box (the known region back exactly)
+     and img2img at strength 0.6, each with its K1 count; on phase 14's flow
+     run a UniPC-10 request, one epoch of
+     ``train_synthetic_flow_distill`` from its checkpoint (20 K1 + 10 K2 a
+     step: the teacher's guided forward is one 2x call), and the ``reflow``
+     CLI on 512 pairs for one epoch; ms per step, samples/s, peak memory,
+     ms per request.
+Phases 8 and 11 also time the flash kernels' fp32 instances at their slice
+shapes beside fp32 SDPA.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -171,6 +196,20 @@ C1_CUTS = {"trainer.n_epoch": (12, 2), "dataset.train.n_samples": (10000, 2048),
 C1_BATCH, C1_DEPTH, C1_HEADS, C1_SEQ = 128, 10, 8, 256  # the config's batch, depth, heads; 32x32 / patch 2
 C1_SIGMA_RELS = ("0.05", "0.10")
 C1_SAMPLES, C1_GUIDANCE, C1_STEPS = 16, 1.5, 50  # the sample request: 2x16 under fused CFG, Euler-50
+
+# phase 15: bench.py's other two sampling arms on DiT-B/2 (bench.py:128-150): DPM++(2M)
+# at 15 steps, and Euler-50 with a block cache refreshed every 2nd step over blocks
+# [2, 10): 25 refresh steps of 12 blocks and 25 reuse steps of 4
+C2_DPM_STEPS = 15
+C2_DIT_CACHE = (2, (2, 10))
+C2_DIT_CACHED_K1 = sum(12 if i % 2 == 0 else 12 - 8 for i in range(50))  # 400
+# phase 16: slice C2, configs/train_synthetic_edm.yaml (the C1 DiT under EDM, Heun-18:
+# 17 two-eval steps and the collapse, 35 evals) with phase 14's cuts; the cached request
+# refreshes every 2nd step over blocks [2, 8); reflow on 512 pairs (+128 for validation)
+C2_CONFIG = "train_synthetic_edm"
+C2_STEPS = 18
+C2_EDM_CACHE = (2, (2, 8))
+C2_REFLOW_PAIRS, C2_REFLOW_VAL = 512, 128
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -573,13 +612,24 @@ def phase_flash_kernel():
                       timing="ms and library_ms: wall time per call back to back; device_ms and library_device_ms: "
                              "device time per call from CUDA-graph replays")
 
-        # fp32 at the slice shape (the library's default dtype=None runs fp32)
+        # fp32 at the slice shape (the library's default dtype=None runs fp32): the PR 3
+        # design (one thread a row, FFMA), timed beside fp32 SDPA in this call
         q32, k32, v32 = (t.float() for t in (q, k, v))
         err32 = check("main fp32", both(q32, k32, v32, mask), TOL["float32"])
         ms32 = cuda_time_ms(lambda: flash_attention(q32, k32, v32, mask), iters=3, warmup=1)
-        del q32, k32, v32
-        print(f"phase 8 kernel K3 main fp32: max_abs_err {err32:.3e} (tol atol {TOL['float32'][0]} "
-              f"rtol {TOL['float32'][1]}); kernel_ms {ms32:.4f}")
+        plain32 = cuda_time_ms(lambda: flash_attention_reference(q32, k32, v32, mask), iters=1, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q32, k32, v32))
+        library32 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), iters=3,
+                                 warmup=1)
+        del q32, k32, v32, qt, kt, vt
+        bound32, by32, mb32, gflop32 = attention_bound(b, s, h, d, int(mask.sum()), 4, peak_flops=PEAK_TF32_FLOPS / 3)
+        ffma32 = attention_bound(b, s, h, d, int(mask.sum()), 4, peak_flops=PEAK_FP32_FLOPS)[0]
+        result["fp32"] = dict(max_abs_err=err32, ms=ms32, plain_ms=plain32, library_ms=library32, bound_ms=bound32,
+                              bound_by=by32)
+        print(f"phase 8 kernel K3 main fp32 (flash_fwd_f32): max_abs_err {err32:.3e} (tol atol "
+              f"{TOL['float32'][0]} rtol {TOL['float32'][1]}); wall ms per call back to back kernel {ms32:.4f} "
+              f"SDPA fp32 (masked) {library32:.4f} plain {plain32:.4f}; bound_ms {bound32:.4f} at 3xTF32 ({by32}: "
+              f"{mb32:.1f} MB, {gflop32:.1f} GFLOP), {ffma32:.4f} at the fp32 CUDA-core peak")
 
         for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
             tol = TOL[name]
@@ -673,18 +723,19 @@ def txt2img_train_mask(device="cuda"):
     return torch.cat([text, image], dim=1)
 
 
-def flash_bwd_bounds(b, sq, h, d, valid_keys, elem):
+def flash_bwd_bounds(b, sq, h, d, valid_keys, elem, peak_flops: float = PEAK_BF16_FLOPS):
     """{kernel: (bound ms, what bounds it, MB, GFLOP)} of K4 and K5: K4 reads
     q, k, v, o, do, lse and the mask and writes dk, dv and di; K5 reads q, k,
     v, do, lse, di and the mask and writes dq; K4 makes four products over
-    the keys each row attends (s, dv, dp, dk), K5 three (s, dp, dq)."""
+    the keys each row attends (s, dv, dp, dk), K5 three (s, dp, dq), at
+    ``peak_flops``."""
     row = b * sq * h * d * elem
     vec = b * h * sq * 4
     out = {}
     for name, n_bytes, products in (("flash_attn_bwd_dkv", 7 * row + 2 * vec + b * sq * 4, 4),
                                     ("flash_attn_bwd_dq", 5 * row + 2 * vec + b * sq * 4, 3)):
         flops = products * 2 * h * sq * d * valid_keys
-        t_bytes, t_flops = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        t_bytes, t_flops = n_bytes / PEAK_BYTES_PER_S, flops / peak_flops
         out[name] = (max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations",
                      n_bytes / 1e6, flops / 1e9)
     return out
@@ -761,15 +812,41 @@ def phase_flash_bwd_kernel(forward_times=None):
           f"bound_ms {bounds['flash_attn_bwd_dkv'][0] + bounds['flash_attn_bwd_dq'][0]:.4f}")
 
     with torch.no_grad():
-        # fp32 at the slice shape (the library's default dtype=None trains in fp32)
+        # fp32 at the slice shape (the library's default dtype=None trains in fp32): the PR 4
+        # designs (one thread a row, FFMA), each timed, beside SDPA's fp32 masked backward
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
         (g32, r32) = both(q32, k32, v32, do32, mask)
-        err32 = check_grads("main fp32", g32, r32, BWD_TOL["float32"])
+        errs32 = {name: check_grads(f"main fp32 {name}", [g], [r], BWD_TOL["float32"])
+                  for name, g, r in zip(("dq", "dk", "dv"), g32, r32)}
         o32, lse32 = flash_attention(q32, k32, v32, mask)
         ms32 = cuda_time_ms(lambda: flash_attention_bwd(q32, k32, v32, mask, o32, lse32, do32), iters=2, warmup=1)
-        del q32, k32, v32, do32, g32, r32, o32, lse32
-    print(f"phase 11 kernel K4+K5 main fp32 (the slice shape): max_abs_err {err32:.3e} "
-          f"(tol {BWD_TOL['float32']} * (max|ref| + |ref|)); kernel_ms {ms32:.4f}")
+        dkv32 = cuda_time_ms(lambda: flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale), iters=2,
+                             warmup=1)
+        _, _, di32 = flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale)
+        dq32 = cuda_time_ms(lambda: flash_attention_bwd_dq(q32, k32, v32, mask, lse32, di32, do32, scale), iters=2,
+                            warmup=1)
+        plain32 = cuda_time_ms(lambda: flash_attention_bwd_reference(q32, k32, v32, mask, o32, lse32, do32), iters=1,
+                               warmup=1)
+        del g32, r32, o32, lse32, di32
+    with torch.enable_grad():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q32, k32, v32))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :])
+        dot = do32.transpose(1, 2)
+        library32 = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=2,
+                                 warmup=1)
+        del out, qt, kt, vt, dot, q32, k32, v32, do32
+    bounds32 = flash_bwd_bounds(b, s, h, d, valid, 4, peak_flops=PEAK_TF32_FLOPS / 3)
+    ffma32 = flash_bwd_bounds(b, s, h, d, valid, 4, peak_flops=PEAK_FP32_FLOPS)
+    for name, ms, grads in (("flash_attn_bwd_dkv", dkv32, ("dk", "dv")), ("flash_attn_bwd_dq", dq32, ("dq",))):
+        results[name]["fp32"] = dict(max_abs_err=max(errs32[g] for g in grads), ms=ms, plain_ms=plain32,
+                                     library_ms=library32, bound_ms=bounds32[name][0], bound_by=bounds32[name][1])
+    print(f"phase 11 kernel K4+K5 main fp32 (the slice shape; flash_bwd_dkv_f32, flash_bwd_dq_f32): max_abs_err "
+          + " ".join(f"{g} {e:.3e}" for g, e in errs32.items())
+          + f" (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); wall ms per call back to back K4 {dkv32:.4f} K5 "
+          f"{dq32:.4f} both {ms32:.4f} plain {plain32:.4f} SDPA fp32 masked backward {library32:.4f} (dq, dk, dv "
+          f"together); bounds at 3xTF32 K4 {bounds32['flash_attn_bwd_dkv'][0]:.4f} K5 "
+          f"{bounds32['flash_attn_bwd_dq'][0]:.4f}, at the fp32 CUDA-core peak K4 "
+          f"{ffma32['flash_attn_bwd_dkv'][0]:.4f} K5 {ffma32['flash_attn_bwd_dq'][0]:.4f}")
 
     for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         tol = BWD_TOL[name]
@@ -935,7 +1012,7 @@ def phase_generate(model, plain):
     per_request = STEPS * DIT_B2["depth"]
     times, first = [], None
     torch.cuda.reset_peak_memory_stats()
-    LAUNCHES["fused_mha_fwd"] = 0
+    reset_launch_counts()
     labels = torch.Generator(device="cuda").manual_seed(99)
     for r in range(N_REQUESTS):
         y = torch.randint(0, 1000, (SAMPLE_BATCH,), generator=labels, device="cuda")
@@ -956,7 +1033,8 @@ def phase_generate(model, plain):
             fail(f"request {r}: {launched} fused_mha_fwd launches, expected {per_request}")
         if first is None:
             first = (y, out)
-    total_launches = LAUNCHES["fused_mha_fwd"]
+    counts = launch_counts()
+    total_launches = counts["fused_mha_fwd"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     # request 0 again with the plain attention, from the same starting noise
@@ -974,7 +1052,7 @@ def phase_generate(model, plain):
           f"{[round(SAMPLE_BATCH / t, 2) for t in times]}; fused_mha_fwd launches {per_request}/request "
           f"({total_launches} total); peak mem {peak_gib:.2f} GiB; request 0 vs plain-attention rerun "
           f"max rel err {rel:.3e} (tol {GEN_REL_TOL})")
-    return total_launches, ms
+    return counts, ms
 
 
 def phase_kernel_bwd():
@@ -1204,7 +1282,7 @@ def phase_txt2img_generate(model, plain, tower, cond):
     diffuser = Diffuser(model, "euler", n_steps=STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
     per_request = STEPS * TXT["depth"]
     image_shape = (TXT_BATCH, TXT_LATENT[0] * tower.compression_factor, TXT_LATENT[1] * tower.compression_factor, 3)
-    times, total = [], {"flash_attn_fwd": 0, "fused_mha_fwd": 0}
+    times, total = [], {"flash_attn_fwd": 0, "fused_mha_fwd": 0, "flash_attn_fwd_f32": 0}
     torch.cuda.reset_peak_memory_stats()
     for r in range(TXT_REQUESTS):
         torch.cuda.synchronize()
@@ -1416,7 +1494,8 @@ def phase_txt2img_gradients(model, plain):
     plain.use_checkpoint = False
     depth = TXT["depth"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
-                "flash_attn_bwd_dq": depth}
+                "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
+                "flash_attn_bwd_dq_f32": 0}
     if launched[0] != expected or any(launched[1].values()):
         fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
     worst, worst_name = 0.0, None
@@ -1530,7 +1609,8 @@ def phase_txt2img_train(model, tower):
             or len(logged[0][1]) != TXT_TRAIN_BATCH:
         fail(f"txt2img train: validation images {logged}, expected {image_shape} in [0, 1] with captions")
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
-                "flash_attn_bwd_dq": depth}
+                "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
+                "flash_attn_bwd_dq_f32": 0}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
         step = {key: c1[key] - c0[key] for key in c1}
@@ -1666,22 +1746,19 @@ def _run_cli(fn, argv, log: Path):
             raise
 
 
-def phase_c1_cli():
-    """Phase 14b: train_synthetic_flow_matching through the port's three CLIs,
-    in process: train_diffusion (post-hoc EMA, validation images every
-    epoch), reconstruct_ema, sample. The counts are set to 0 just before the
-    training and read at each train step, and set to 0 again just before the
-    sample request."""
-    import numpy as np
+def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_epoch: int, label: str,
+                     val_images: bool = True):
+    """A training CLI's ``main(argv)`` (``train_diffusion`` or ``reflow``) in
+    process, writing its run to ``run``, with every train step timed (the
+    card synchronised at both ends) and its launch counts read at both ends;
+    the counts are set to 0 just before. Checks the step counter, one finite
+    train and validation loss an epoch, and, with ``val_images``, one
+    validation grid an epoch. Returns the trainer, the per-step launches (K1,
+    K2, K3), the step times and the run's totals."""
     import torch
-    from PIL import Image
 
-    from diffulab_tpu_torch.data import native
-    from diffulab_tpu_torch.examples import reconstruct_ema, sample, train_diffusion
     from diffulab_tpu_torch.training import trainer as trainer_mod
-    from diffulab_tpu_torch.training.posthoc_ema import list_snapshots
 
-    sys.modules["wandb"] = None  # metrics go to metrics.jsonl; wandb is neither imported nor contacted
     marks = []
     original = trainer_mod.train_step
 
@@ -1693,85 +1770,370 @@ def phase_c1_cli():
         marks.append((start, (time.perf_counter(), launch_counts())))
         return out
 
-    with tempfile.TemporaryDirectory() as tmp:
-        log = Path(tmp) / "cli.log"
-        overrides = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()] + [f"trainer.save_path={tmp}"]
-        trainer_mod.train_step = timed_step
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            (trainer,) = _run_cli(train_diffusion.main, ["--config-name", C1_CONFIG, *overrides], log)
-            train_s = time.perf_counter() - t0
-            train_launches = launch_counts()
-        finally:
-            trainer_mod.train_step = original
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        run = Path(tmp) / "synthetic_flow_matching"
-        rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train/loss"] for r in rows if "train/loss" in r]
-        val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
-        n_epochs = C1_CUTS["trainer.n_epoch"][1]
-        steps_per_epoch = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
-        if trainer.step != n_epochs * steps_per_epoch or len(marks) != trainer.step or len(losses) != n_epochs                 or not all(math.isfinite(v) for v in losses + val_losses) or len(val_losses) != n_epochs:
-            fail(f"C1 train: step counter {trainer.step}, {len(marks)} steps timed, train losses {losses}, "
-                 f"val losses {val_losses}")
-        per_step = [(c1["fused_mha_fwd"] - c0["fused_mha_fwd"], c1["fused_mha_bwd"] - c0["fused_mha_bwd"],
-                     c1["flash_attn_fwd"] - c0["flash_attn_fwd"]) for (_, c0), (_, c1) in marks]
-        if per_step != [(C1_DEPTH, C1_DEPTH, 0)] * trainer.step:
-            fail(f"C1 train: kernel launches per step (K1, K2, K3) {sorted(set(per_step))}, "
-                 f"expected ({C1_DEPTH}, {C1_DEPTH}, 0) each")
-        images = sorted((run / "images").glob("val_images_step*.png"))
-        if len(images) != n_epochs:
-            fail(f"C1 train: validation image grids {images}, one an epoch expected")
-        # start to start within an epoch: the host's batch and draws included
-        starts = [t for (t, _), _ in marks]
-        step_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(starts[:-1], starts[1:]))
-                   if (i + 1) % steps_per_epoch]
-        kernel_ms = [(t1 - t0) * 1e3 for (t0, _), (t1, _) in marks]
-        steady = statistics.median(step_ms[2:])
-        snaps = list_snapshots(run / "checkpoints" / "phema")
-        if len(snaps) != n_epochs * 2:
-            fail(f"C1 train: post-hoc EMA snapshots {[(s, g) for s, g, _ in snaps]}, expected {n_epochs} x 2")
-        if not native.HAS_NATIVE:
-            fail("C1 train: the native collate library did not load on this machine")
-
-        t0 = time.perf_counter()
-        results = _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", *C1_SIGMA_RELS], log)
-        reconstruct_s = time.perf_counter() - t0
-        sums = [float(r["weights"].sum()) for r in results]
-        if not all(np.isfinite(r["weights"]).all() for r in results) or any(abs(x - 1) > 5e-2 for x in sums):
-            fail(f"C1 reconstruct: weights {[r['weights'].tolist() for r in results]}")
-        ckpt = run / "checkpoints" / f"phema_sr{float(C1_SIGMA_RELS[0]):g}"
-        labels = ",".join(str(i) for i in range(10))
-        out = Path(tmp) / "samples.png"
+    trainer_mod.train_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        result = _run_cli(sample.main, ["--config-name", C1_CONFIG, "--ckpt", str(ckpt), "--n", str(C1_SAMPLES),
-                                        "--guidance", str(C1_GUIDANCE), "--labels", labels, "--out", str(out),
-                                        *overrides], log)
-        sample_launches = launch_counts()
-        grid = np.asarray(Image.open(out))
-    if sample_launches["fused_mha_fwd"] != C1_STEPS * C1_DEPTH or sample_launches["flash_attn_fwd"]             or sample_launches["fused_mha_bwd"]:
+        t0 = time.perf_counter()
+        out = _run_cli(main, argv, log)
+        (trainer,) = out if isinstance(out, list) else (out,)  # train_diffusion returns one trainer a sweep entry
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        trainer_mod.train_step = original
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
+    if trainer.step != n_epochs * steps_per_epoch or len(marks) != trainer.step or len(losses) != n_epochs \
+            or not all(math.isfinite(v) for v in losses + val_losses) or len(val_losses) != n_epochs:
+        fail(f"{label} train: step counter {trainer.step}, {len(marks)} steps timed, train losses {losses}, "
+             f"val losses {val_losses}")
+    images = sorted((run / "images").glob("val_images_step*.png"))
+    if len(images) != (n_epochs if val_images else 0):
+        fail(f"{label} train: validation image grids {images}, one an epoch expected")
+    per_step = [(c1["fused_mha_fwd"] - c0["fused_mha_fwd"], c1["fused_mha_bwd"] - c0["fused_mha_bwd"],
+                 c1["flash_attn_fwd"] - c0["flash_attn_fwd"]) for (_, c0), (_, c1) in marks]
+    # start to start within an epoch: the host's batch and draws included
+    starts = [t for (t, _), _ in marks]
+    step_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(starts[:-1], starts[1:])) if (i + 1) % steps_per_epoch]
+    kernel_ms = [(t1 - t0) * 1e3 for (t0, _), (t1, _) in marks]
+    return dict(trainer=trainer, per_step=per_step, step_ms=step_ms, steady=statistics.median(step_ms[2:]),
+                kernel_ms=statistics.median(kernel_ms[2:]), train_s=train_s, launches=launches,
+                peak_gib=peak_gib, losses=losses, val_losses=val_losses)
+
+
+def _sample_request(argv, log: Path):
+    """One ``sample`` CLI request in process, the launch counts set to 0 just
+    before and read just after; its images finite."""
+    import numpy as np
+
+    from diffulab_tpu_torch.examples import sample
+
+    reset_launch_counts()
+    result = _run_cli(sample.main, argv, log)
+    result["launches"] = launch_counts()
+    if not np.isfinite(result["images"]).all():
+        fail(f"sample {argv}: non-finite images")
+    return result
+
+
+def phase_c1_cli(root: Path):
+    """Phase 14b: train_synthetic_flow_matching through the port's three CLIs,
+    in process, under ``root``: train_diffusion (post-hoc EMA, validation
+    images every epoch), reconstruct_ema, sample. The counts are set to 0 just
+    before the training and read at each train step, and set to 0 again just
+    before the sample request. The run stays for phase 16."""
+    import numpy as np
+    from PIL import Image
+
+    from diffulab_tpu_torch.data import native
+    from diffulab_tpu_torch.examples import reconstruct_ema, train_diffusion
+    from diffulab_tpu_torch.training.posthoc_ema import list_snapshots
+
+    sys.modules["wandb"] = None  # metrics go to metrics.jsonl; wandb is neither imported nor contacted
+    log = root / "cli.log"
+    overrides = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()] + [f"trainer.save_path={root}"]
+    run = root / "synthetic_flow_matching"
+    n_epochs = C1_CUTS["trainer.n_epoch"][1]
+    steps_per_epoch = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
+    tr = _timed_train_cli(train_diffusion.main, ["--config-name", C1_CONFIG, *overrides], log, run, n_epochs,
+                          steps_per_epoch, "C1")
+    trainer, train_launches = tr["trainer"], tr["launches"]
+    if tr["per_step"] != [(C1_DEPTH, C1_DEPTH, 0)] * trainer.step:
+        fail(f"C1 train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, "
+             f"expected ({C1_DEPTH}, {C1_DEPTH}, 0) each")
+    snaps = list_snapshots(run / "checkpoints" / "phema")
+    if len(snaps) != n_epochs * 2:
+        fail(f"C1 train: post-hoc EMA snapshots {[(s, g) for s, g, _ in snaps]}, expected {n_epochs} x 2")
+    if not native.HAS_NATIVE:
+        fail("C1 train: the native collate library did not load on this machine")
+
+    t0 = time.perf_counter()
+    results = _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", *C1_SIGMA_RELS], log)
+    reconstruct_s = time.perf_counter() - t0
+    sums = [float(r["weights"].sum()) for r in results]
+    if not all(np.isfinite(r["weights"]).all() for r in results) or any(abs(x - 1) > 5e-2 for x in sums):
+        fail(f"C1 reconstruct: weights {[r['weights'].tolist() for r in results]}")
+    ckpt = run / "checkpoints" / f"phema_sr{float(C1_SIGMA_RELS[0]):g}"
+    labels = ",".join(str(i) for i in range(10))
+    out = root / "samples.png"
+    result = _sample_request(["--config-name", C1_CONFIG, "--ckpt", str(ckpt), "--n", str(C1_SAMPLES),
+                              "--guidance", str(C1_GUIDANCE), "--labels", labels, "--out", str(out), *overrides], log)
+    sample_launches = result["launches"]
+    grid = np.asarray(Image.open(out))
+    if sample_launches["fused_mha_fwd"] != C1_STEPS * C1_DEPTH or sample_launches["flash_attn_fwd"] \
+            or sample_launches["fused_mha_bwd"]:
         fail(f"C1 sample: launches {sample_launches}, expected {C1_STEPS * C1_DEPTH} K1 and no other")
     images = result["images"]
     grid_shape = (2 + 2 * 34, 2 + 8 * 34, 3)  # 16 images of 32x32, 8 a row, 2 pixels apart
-    if images.shape != (C1_SAMPLES, 32, 32, 3) or not np.isfinite(images).all() or grid.shape != grid_shape:
-        fail(f"C1 sample: images {images.shape} finite {np.isfinite(images).all()}, grid {grid.shape}")
+    if images.shape != (C1_SAMPLES, 32, 32, 3) or grid.shape != grid_shape:
+        fail(f"C1 sample: images {images.shape}, grid {grid.shape}")
+    step_ms = tr["step_ms"]
     cuts = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in C1_CUTS.items())
     print(f"phase 14 CLIs {C1_CONFIG} (cut: {cuts}; else the config's: batch {C1_BATCH}, fp32, DiT depth {C1_DEPTH} "
           f"width 512, {C1_HEADS} heads, AdamW lr 3e-4, p_cfg 0.1, post-hoc EMA gammas 6.94/16.97, 50 validation "
-          f"steps, Euler-{C1_STEPS}): train {trainer.step} steps in {train_s:.1f} s, ms/step start to start "
-          f"median after the first two {steady:.2f} (min {min(step_ms):.2f} max {max(step_ms):.2f}; train_step "
-          f"alone median {statistics.median(kernel_ms[2:]):.2f}), samples/s {C1_BATCH / steady * 1e3:.1f}, peak mem "
-          f"{peak_gib:.2f} GiB; train losses {[round(x, 5) for x in losses]}, val losses (EMA) "
-          f"{[round(x, 5) for x in val_losses]}; launches per step {C1_DEPTH} K1 + {C1_DEPTH} K2, 0 K3, in the run "
-          f"{train_launches} (K1 includes validation); {len(snaps)} phema snapshots; native collate loaded; "
+          f"steps, Euler-{C1_STEPS}): train {trainer.step} steps in {tr['train_s']:.1f} s, ms/step start to start "
+          f"median after the first two {tr['steady']:.2f} (min {min(step_ms):.2f} max {max(step_ms):.2f}; train_step "
+          f"alone median {tr['kernel_ms']:.2f}), samples/s {C1_BATCH / tr['steady'] * 1e3:.1f}, peak mem "
+          f"{tr['peak_gib']:.2f} GiB; train losses {[round(x, 5) for x in tr['losses']]}, val losses (EMA) "
+          f"{[round(x, 5) for x in tr['val_losses']]}; launches per step {C1_DEPTH} K1 + {C1_DEPTH} K2, 0 K3, in the "
+          f"run {train_launches} (K1 includes validation); {len(snaps)} phema snapshots; native collate loaded; "
           f"reconstruct sigma_rel {' '.join(C1_SIGMA_RELS)} in {reconstruct_s:.2f} s, weight sums "
           f"{[round(x, 6) for x in sums]}; sample {C1_SAMPLES} images (labels 0-9 tiled) CFG {C1_GUIDANCE}: "
           f"generate {result['generate_ms']:.1f} ms, {sample_launches['fused_mha_fwd']} K1 and 0 K3 launches; PNG "
           f"grid {grid.shape}, pixels finite")
-    return {"train": train_launches, "sample": sample_launches, "step_ms": steady,
-            "generate_ms": result["generate_ms"]}
+    return {"train": train_launches, "sample": sample_launches, "step_ms": tr["steady"],
+            "generate_ms": result["generate_ms"], "run": run}
+
+
+def phase_dit_arms():
+    """Phase 15: bench.py's two sampling arms the earlier phases do not run
+    (bench.py:128-150), on DiT-B/2 at the bench's bf16 cast, batch 16, CFG
+    4.0 (a model batch of 32): DPM-Solver++(2M) at 15 steps and Euler-50
+    with ``set_block_cache(2, span=(2, 10))``. K1 at the arms' shape against
+    its plain version; per arm a warm-up and three requests, the counts set to
+    0 just before each and read just after (180 and 400 K1 launches), and
+    request 0 against the plain-attention model's from the same noise. Then
+    the caching protocol: step 0 refreshes, so the cached request's first
+    step (``xt[:, 1]``) equals the uncached request's bit for bit, and
+    ``set_block_cache(1, ...)`` turns caching off (600 launches)."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_reference
+
+    model, plain = build_models()
+    depth = DIT_B2["depth"]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, s, h, d = 2 * SAMPLE_BATCH, 256, DIT_B2["num_heads"], DIT_B2["inner_dim"] // DIT_B2["num_heads"]
+    with torch.no_grad():
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16() for _ in range(3))
+        (o, lse), (ro, rlse) = fused_mha(q, k, v), fused_mha_reference(q, k, v)
+        k1_err = check_close("phase 15 K1 bf16 o", o, ro, *TOL["bfloat16"])
+        check_close("phase 15 K1 bf16 lse", lse, rlse, *LSE_TOL)
+        del q, k, v, o, lse, ro, rlse
+    labels = torch.randint(0, 1000, (SAMPLE_BATCH,), generator=gen, device="cuda")
+
+    def request(diffuser, seed, **kw):
+        noise = torch.Generator(device="cuda").manual_seed(seed)
+        return diffuser.generate({"y": labels}, data_shape=(SAMPLE_BATCH, *LATENT), generator=noise,
+                                 guidance_scale=CFG, dtype=torch.bfloat16, **kw)
+
+    arms, totals = {}, {"fused_mha_fwd": 0, "flash_attn_fwd_f32": 0}
+    for name, sampler, steps, cache, expected in (
+            ("dpmpp_2m", "dpmpp_2m", C2_DPM_STEPS, None, C2_DPM_STEPS * depth),
+            ("euler_cached", "euler", STEPS, C2_DIT_CACHE, C2_DIT_CACHED_K1)):
+        diffusers = []
+        for m in (model, plain):
+            dif = Diffuser(m, sampler, n_steps=steps, extra_args={"logits_normal": True})
+            if cache:
+                dif.set_block_cache(*cache)
+            diffusers.append(dif)
+        request(diffusers[0], 199)  # warm-up
+        times, outs = [], []
+        for r in range(N_REQUESTS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = request(diffusers[0], 200 + r)["x"]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launched = launch_counts()
+            if launched["fused_mha_fwd"] != expected or launched["flash_attn_fwd"]:
+                fail(f"phase 15 {name} request {r}: launches {launched}, expected {expected} K1")
+            for key in totals:
+                totals[key] += launched[key]
+            if out.shape != (SAMPLE_BATCH, *LATENT) or not bool(torch.isfinite(out).all()):
+                fail(f"phase 15 {name} request {r}: bad shape or non-finite output")
+            outs.append(out)
+        ref = request(diffusers[1], 200)["x"]
+        rel = float((outs[0].float() - ref.float()).abs().max() / ref.float().abs().max())
+        if rel > GEN_REL_TOL:
+            fail(f"phase 15 {name}: request 0 against its plain-attention rerun rel err {rel:.3e} (tol {GEN_REL_TOL})")
+        arms[name] = dict(ms=times, median_ms=statistics.median(times), launches=expected, rel_err=rel)
+        if cache:
+            cached = request(diffusers[0], 300, return_intermediates=True)["xt"]
+            diffusers[0].set_block_cache(1, cache[1])  # interval 1 disables, as in the reference
+            if model.cache_span is not None or diffusers[0]._block_cache is not None:
+                fail("phase 15: set_block_cache(1, ...) left caching on")
+            reset_launch_counts()
+            uncached = request(diffusers[0], 300, return_intermediates=True)["xt"]
+            if launch_counts()["fused_mha_fwd"] != STEPS * depth:
+                fail(f"phase 15: the uncached request launched {launch_counts()['fused_mha_fwd']} K1")
+            if not torch.equal(cached[:, 1], uncached[:, 1]):
+                fail("phase 15: the cached request's refresh step differs from the uncached one's "
+                     f"(max {float((cached[:, 1].float() - uncached[:, 1].float()).abs().max()):.3e})")
+            arms[name]["refresh_step_bitwise"] = True
+            arms[name]["final_vs_uncached_rel"] = float((cached[:, -1].float() - uncached[:, -1].float()).abs().max()
+                                                        / uncached[:, -1].float().abs().max())
+        del diffusers
+    del model, plain
+    torch.cuda.empty_cache()
+    dpm, cached = arms["dpmpp_2m"], arms["euler_cached"]
+    print(f"phase 15 DiT-B/2 sampling arms, batch {SAMPLE_BATCH} {LATENT} CFG {CFG} bf16 (model batch {b}): K1 bf16 "
+          f"at B={b} S={s} H={h} D={d} max_abs_err {k1_err:.3e} (tol atol {TOL['bfloat16'][0]} rtol "
+          f"{TOL['bfloat16'][1]}); dpmpp_2m-{C2_DPM_STEPS}: ms/request {[round(t, 2) for t in dpm['ms']]} (median "
+          f"{dpm['median_ms']:.2f}), {dpm['launches']} K1 a request, request 0 vs plain attention rel err "
+          f"{dpm['rel_err']:.3e}; Euler-{STEPS} block cache interval {C2_DIT_CACHE[0]} span {C2_DIT_CACHE[1]}: "
+          f"ms/request {[round(t, 2) for t in cached['ms']]} (median {cached['median_ms']:.2f}), "
+          f"{cached['launches']} K1 a request ({STEPS * depth} uncached), request 0 vs plain attention rel err "
+          f"{cached['rel_err']:.3e} (tol {GEN_REL_TOL}); refresh step xt[:, 1] bitwise equal to the uncached "
+          f"request's; final sample vs uncached rel diff {cached['final_vs_uncached_rel']:.3e}; set_block_cache(1) "
+          f"disables ({STEPS * depth} K1)")
+    return {"k1_err": k1_err, "launches": totals, "arms": arms}
+
+
+def edm_k1(sampler: str, n_steps: int, depth: int, start_idx: int = 0, cache=None, models: int = 1) -> int:
+    """K1 launches of one EDM request: the solver's evals over the Karras
+    pairs from ``start_idx`` (Heun 2 a step, the others 1), each running
+    ``depth`` blocks (``depth - (hi - lo)`` on a reuse step of ``cache =
+    (interval, (lo, hi))``), then the uncached collapse; ``models`` = 2 with
+    an autoguidance model."""
+    evals = 2 if sampler == "heun" else 1
+    total = 0
+    for i in range(n_steps - 1 - start_idx):
+        blocks = depth
+        if cache and i % cache[0]:
+            blocks -= cache[1][1] - cache[1][0]
+        total += evals * blocks
+    return models * (total + depth)
+
+
+def phase_c2_cli(root: Path, c1_run: Path):
+    """Phase 16: slice C2. K1 and K2 fp32 at the EDM config's attention shapes
+    against their plain versions; train_synthetic_edm through train_diffusion
+    (the counts set to 0 before and read at each step), reconstruct_ema and a
+    Heun-18 sample request; one request each of DPM++-15, UniPC-10, block
+    caching, autoguidance with the epoch-1 post-hoc EMA snapshot, an inpaint
+    box (the known region back exactly) and img2img at strength 0.6, each
+    with its K1 count; then on phase 14's flow run: a UniPC-10 request,
+    one epoch of train_synthetic_flow_distill from its checkpoint, and the
+    reflow CLI on 512 pairs for one epoch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffulab_tpu_torch.examples import reconstruct_ema, reflow, train_diffusion
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+
+    sys.modules["wandb"] = None
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    s, h, d = C1_SEQ, C1_HEADS, 64
+    errs = {}
+    with torch.no_grad():
+        # the train step's, the distillation teacher's guided forward (one 2x call), a CFG request's, and
+        # autoguidance's (main and guide model, one conditional call each)
+        for b in (C1_BATCH, 2 * C1_BATCH, 2 * C1_SAMPLES, C1_SAMPLES):
+            q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(4))
+            (o, lse), (ro, rlse) = fused_mha(q, k, v), fused_mha_reference(q, k, v)
+            errs[f"K1 B={b}"] = check_close(f"phase 16 K1 fp32 B={b} o", o, ro, *TOL["float32"])
+            check_close(f"phase 16 K1 fp32 B={b} lse", lse, rlse, *LSE_TOL)
+            if b == C1_BATCH:
+                errs[f"K2 B={b}"] = check_grads("phase 16 K2 fp32", fused_mha_bwd(q, k, v, None, lse, do),
+                                                fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["float32"])
+            del q, k, v, do, o, lse, ro, rlse
+
+    log = root / "c2.log"
+    cuts = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()]
+    overrides = cuts + [f"trainer.save_path={root}"]
+    run = root / "synthetic_edm"
+    n_epochs = C1_CUTS["trainer.n_epoch"][1]
+    steps_per_epoch = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
+    tr = _timed_train_cli(train_diffusion.main, ["--config-name", C2_CONFIG, *overrides], log, run, n_epochs,
+                          steps_per_epoch, "C2")
+    if tr["per_step"] != [(C1_DEPTH, C1_DEPTH, 0)] * tr["trainer"].step:
+        fail(f"C2 train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}")
+    _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", *C1_SIGMA_RELS], log)
+    ckpts = run / "checkpoints"
+    # the epoch-1 post-hoc EMA snapshot as an entry the restore reads (params only): the early model
+    first = sorted((ckpts / "phema").glob("step*_g6.94"))[0]
+    shutil.copytree(first, ckpts / "phema_epoch1")
+    labels = ",".join(str(i) for i in range(10))
+    base = ["--config-name", C2_CONFIG, "--ckpt", str(ckpts / f"phema_sr{float(C1_SIGMA_RELS[0]):g}"), "--n",
+            str(C1_SAMPLES), "--guidance", str(C1_GUIDANCE), "--labels", labels, *overrides]
+    requests = {}
+    main = _sample_request([*base, "--out", str(root / "edm.png"), "--separate"], log)
+    requests["heun-18"] = (main, edm_k1("heun", C2_STEPS, C1_DEPTH))
+    png = root / "edm_000.png"  # the first generated image: the inpaint and img2img source
+    strength = 0.6
+    start_idx = C2_STEPS - min(max(int(round(strength * C2_STEPS)), 1), C2_STEPS)
+    for name, flags, expected in (
+            ("dpmpp_2m-15", ["--sampler", "dpmpp_2m", "--steps", "15"], edm_k1("dpmpp_2m", 15, C1_DEPTH)),
+            ("unipc-10", ["--sampler", "unipc", "--steps", "10"], edm_k1("unipc", 10, C1_DEPTH)),
+            ("heun-18 cached", ["--cache-interval", str(C2_EDM_CACHE[0]), "--cache-span",
+                                *map(str, C2_EDM_CACHE[1])], edm_k1("heun", C2_STEPS, C1_DEPTH, cache=C2_EDM_CACHE)),
+            ("autoguidance", ["--guide-ckpt", str(ckpts / "phema_epoch1")], edm_k1("heun", C2_STEPS, C1_DEPTH, models=2)),
+            ("inpaint", ["--inpaint-image", str(png), "--inpaint-box", "8:24,8:24"], edm_k1("heun", C2_STEPS, C1_DEPTH)),
+            ("img2img", ["--img2img-image", str(png), "--strength", str(strength)],
+             edm_k1("heun", C2_STEPS, C1_DEPTH, start_idx=start_idx))):
+        requests[name] = (_sample_request([*base, "--out", str(root / f"{name}.png"), *flags], log), expected)
+    for name, (result, expected) in requests.items():
+        got = result["launches"]
+        if got["fused_mha_fwd"] != expected or got["flash_attn_fwd"] or got["fused_mha_bwd"]:
+            fail(f"C2 sample {name}: launches {got}, expected {expected} K1 and no other")
+        if result["images"].shape != (C1_SAMPLES, 32, 32, 3):
+            fail(f"C2 sample {name}: images {result['images'].shape}")
+    ip = requests["inpaint"][0]
+    keep = np.broadcast_to(ip["inpaint"]["mask"], ip["images"].shape) > 0
+    expected = np.clip(ip["inpaint"]["known"] * 0.5 + 0.5, 0, 1)
+    if not np.array_equal(ip["images"][keep], expected[keep]):
+        fail(f"C2 inpaint: the known region changed (max {np.abs(ip['images'][keep] - expected[keep]).max():.3e})")
+    src = np.asarray(Image.open(png), np.float32) / 255.0
+    img2img_diff = float(np.abs(requests["img2img"][0]["images"] - src).mean())
+
+    # phase 14's flow run: UniPC-10 (the rectified_flow_fast setting), distillation, reflow
+    c1_ckpt = c1_run / "checkpoints" / f"phema_sr{float(C1_SIGMA_RELS[0]):g}"
+    fast = _sample_request(["--config-name", C1_CONFIG, "--ckpt", str(c1_ckpt), "--n", str(C1_SAMPLES), "--guidance",
+                            str(C1_GUIDANCE), "--labels", labels, "--sampler", "unipc", "--steps", "10", "--out",
+                            str(root / "unipc.png"), *overrides], log)
+    if fast["launches"]["fused_mha_fwd"] != 10 * C1_DEPTH:
+        fail(f"C1 UniPC-10: launches {fast['launches']}, expected {10 * C1_DEPTH} K1")
+    distill_run = root / "synthetic_flow_distill"
+    dist = _timed_train_cli(train_diffusion.main, ["--config-name", "train_synthetic_flow_distill", *cuts,
+                                                   "trainer.n_epoch=1", f"trainer.distill_from={c1_ckpt}",
+                                                   f"trainer.save_path={root}"], log, distill_run, 1,
+                            steps_per_epoch, "distill")
+    # the student's forward and backward, and the teacher's guided forward (one 2x call)
+    if dist["per_step"] != [(2 * C1_DEPTH, C1_DEPTH, 0)] * dist["trainer"].step:
+        fail(f"distill train: kernel launches per step (K1, K2, K3) {sorted(set(dist['per_step']))}")
+    # the reflow CLI: pair generation, then one epoch (validation logs no images, as in the reference)
+    rf = _timed_train_cli(reflow.main, ["--ckpt", str(c1_ckpt), "--n-pairs", str(C2_REFLOW_PAIRS), "--val-pairs",
+                                        str(C2_REFLOW_VAL), "--epochs", "1", *overrides], log,
+                          root / "synthetic_flow_matching_reflow", 1, C2_REFLOW_PAIRS // C1_BATCH, "reflow",
+                          val_images=False)
+    if rf["per_step"] != [(C1_DEPTH, C1_DEPTH, 0)] * rf["trainer"].step:
+        fail(f"reflow train: kernel launches per step (K1, K2, K3) {sorted(set(rf['per_step']))}")
+    reflow_launches = rf["launches"]
+
+    def ms(name):
+        return round(requests[name][0]["generate_ms"], 1)
+
+    cut_text = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in C1_CUTS.items())
+    print(f"phase 16 slice C2 {C2_CONFIG} (cut: {cut_text}; else the config's: batch {C1_BATCH}, fp32, DiT depth "
+          f"{C1_DEPTH} width 512, {C1_HEADS} heads, EDM sigma_data 0.5 sigma 0.002-80 rho 7, AdamW lr 3e-4, p_cfg 0.1, "
+          f"post-hoc EMA): kernels fp32 vs plain max_abs_err " + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (K1 tol atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * (max|ref| + "
+          f"|ref|)); train {tr['trainer'].step} steps in {tr['train_s']:.1f} s, ms/step start to start median after "
+          f"the first two {tr['steady']:.2f} (min {min(tr['step_ms']):.2f} max {max(tr['step_ms']):.2f}; train_step "
+          f"alone {tr['kernel_ms']:.2f}), samples/s {C1_BATCH / tr['steady'] * 1e3:.1f}, peak mem {tr['peak_gib']:.2f} "
+          f"GiB, train losses {[round(x, 5) for x in tr['losses']]}, val losses {[round(x, 5) for x in tr['val_losses']]}, "
+          f"{C1_DEPTH} K1 + {C1_DEPTH} K2 a step, in the run {tr['launches']}; requests of {C1_SAMPLES} images CFG "
+          f"{C1_GUIDANCE}, generate ms and K1 launches: "
+          + "; ".join(f"{name} {ms(name)} ms {requests[name][1]} K1" for name in requests)
+          + f"; inpaint known region exact; img2img mean |image - source| {img2img_diff:.4f}; on the C1 flow run: "
+          f"UniPC-10 {fast['generate_ms']:.1f} ms {fast['launches']['fused_mha_fwd']} K1; distill 1 epoch "
+          f"{dist['trainer'].step} steps, ms/step {dist['steady']:.2f}, {2 * C1_DEPTH} K1 + {C1_DEPTH} K2 a step, "
+          f"losses {[round(x, 6) for x in dist['losses']]}; reflow {C2_REFLOW_PAIRS} + {C2_REFLOW_VAL} pairs, 1 epoch "
+          f"({rf['trainer'].step} steps) in {rf['train_s']:.1f} s with the pairs' generation, ms/step "
+          f"{rf['steady']:.2f}, {C1_DEPTH} K1 + {C1_DEPTH} K2 a step, losses {[round(x, 6) for x in rf['losses']]}, "
+          f"{reflow_launches['fused_mha_fwd']} K1 and {reflow_launches['fused_mha_bwd']} K2 in all")
+    windows = [tr["launches"], *(r["launches"] for r, _ in requests.values()), fast["launches"], dist["launches"],
+               reflow_launches]
+    totals = {key: sum(w[key] for w in windows) for key in windows[0]}
+    return {**totals, "errs": errs}
 
 
 #: the keys of phase 14a's results that its JSON rows carry
@@ -1800,7 +2162,8 @@ def main() -> int:
     kernel = phase_kernel()
     model, plain = build_models()
     phase_forward(model, plain)
-    gen_launches, _ = phase_generate(model, plain)
+    gen_counts, _ = phase_generate(model, plain)
+    gen_launches = gen_counts["fused_mha_fwd"]
     k2 = phase_kernel_bwd()
     phase_gradients(model, plain)
     del plain
@@ -1818,7 +2181,16 @@ def main() -> int:
     del txt_model, tower, cond
     torch.cuda.empty_cache()
     c1_kernels = phase_c1_kernels()
-    c1 = phase_c1_cli()
+    with tempfile.TemporaryDirectory() as tmp:
+        c1 = phase_c1_cli(Path(tmp))
+        arms = phase_dit_arms()
+        c2 = phase_c2_cli(Path(tmp), c1["run"])
+    k3_fp32 = k3.pop("fp32")
+    k45_fp32 = {name: k45[name].pop("fp32") for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
+    # the fp32 flash instances' launches in every main-path run that reads all the counts
+    windows = {"generate": gen_counts, "train": train_launches, "txt2img_generate": txt_totals,
+               "txt2img_train": txt_train_launches, "c1_train": c1["train"], "c1_sample": c1["sample"],
+               "dit_sampling_arms": arms["launches"], "c2": c2}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -1830,10 +2202,12 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
-        + txt_train_launches["fused_mha_fwd"],
+        + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"],
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
-                             "txt2img_train": txt_train_launches["fused_mha_fwd"]},
+                             "txt2img_train": txt_train_launches["fused_mha_fwd"],
+                             "dit_sampling_arms": arms["launches"]["fused_mha_fwd"]},
+        "dit_sampling_arms_max_abs_err": arms["k1_err"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1849,8 +2223,10 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
-        "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"],
-        "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"]},
+        "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"],
+        "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
+                             "c2": c2["fused_mha_fwd"]},
+        "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
         **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
         "sample_shape_b32": {key: c1_kernels[f"fwd_b{2 * C1_SAMPLES}"][key] for key in C1_KEYS},
@@ -1870,8 +2246,9 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
-        "launches": c1["train"]["fused_mha_bwd"],
-        "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"]},
+        "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"],
+        "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"]},
+        "c2_max_abs_err": c2["errs"][f"K2 B={C1_BATCH}"],
         **{key: c1_kernels["bwd_b128"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
         "timing": "ms and library_ms (SDPA's fp32 backward, its memory-efficient backward op): device time per "
@@ -1899,7 +2276,24 @@ def main() -> int:
         "vs_fused_bwd_ms": {key: {"fused_mha_bwd": k2, "flash_attn_bwd": k45_ms}
                             for key, (k2, k45_ms) in bwd_crossover.items()},
     } for name, replaces in (("flash_attn_bwd_dkv", "diffulab_tpu/ops/flash_attention.py:196"),
-                             ("flash_attn_bwd_dq", "diffulab_tpu/ops/flash_attention.py:237"))]}))
+                             ("flash_attn_bwd_dq", "diffulab_tpu/ops/flash_attention.py:237"))] + [{
+        "name": f"{name} (fp32 instance)",
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": sum(counts.get(f"{name}_f32", 0) for counts in windows.values()),
+        "launches_by_path": {path: counts[f"{name}_f32"] for path, counts in windows.items() if f"{name}_f32" in counts},
+        **{key: numbers[key] for key in C1_KEYS},
+        "shape": shape,
+        "timing": "ms, plain_ms and library_ms (fp32 SDPA): wall time per call back to back; bound_ms at 3xTF32; "
+                  "launches: the fp32 instance's own count (fp32 above 512 tokens)",
+    } for name, source, replaces, numbers, shape in (
+        ("flash_attn_fwd", "diffulab_tpu_torch/csrc/flash_attn_fwd.cu", "diffulab_tpu/ops/flash_attention.py:81",
+         k3_fp32, f"B={2 * TXT_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the phase 8 text mask"),
+        ("flash_attn_bwd_dkv", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu", "diffulab_tpu/ops/flash_attention.py:196",
+         k45_fp32["flash_attn_bwd_dkv"], f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"),
+        ("flash_attn_bwd_dq", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu", "diffulab_tpu/ops/flash_attention.py:237",
+         k45_fp32["flash_attn_bwd_dq"], f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -32,6 +32,7 @@ def combine_cfg(
     out_uncond: torch.Tensor,
     scale: float | torch.Tensor,
     rescale: float = 0.0,
+    promote: bool = True,
 ) -> torch.Tensor:
     """``uncond + scale * (cond - uncond)``, optionally std-rescaled.
 
@@ -40,10 +41,18 @@ def combine_cfg(
     times that scale to fp32, so the product and the sum are taken in fp32
     here too (trap T8); the difference itself rounds in the outputs' dtype.
     ``scale`` may be a float or a [B] vector (from :func:`effective_scale`).
+    ``promote=False`` is the reference's Python-float scale (a weak type, as
+    guidance distillation passes it, flow.py:226): the combine stays in the
+    outputs' dtype.
     """
     if isinstance(scale, torch.Tensor) and scale.ndim == 1:
         scale = scale.reshape(-1, *([1] * (out_cond.ndim - 1)))
-    guided = at_least_f32(out_uncond) + scale * at_least_f32(out_cond - out_uncond)
+    if not promote:
+        if isinstance(scale, torch.Tensor):
+            scale = scale.to(out_cond.dtype)
+        guided = out_uncond + scale * (out_cond - out_uncond)
+    else:
+        guided = at_least_f32(out_uncond) + scale * at_least_f32(out_cond - out_uncond)
     if rescale:
         dims = tuple(range(1, guided.ndim))
         std_cond = torch.std(out_cond, dim=dims, keepdim=True, correction=0)

@@ -12,10 +12,14 @@ The config tree is the JAX package's ``configs/``, unedited; its
 ``_target_`` paths are remapped to the port
 (:mod:`diffulab_tpu_torch.config.instantiate`). The model is built on
 ``--device`` (default ``cuda``) under a torch RNG seeded with ``--seed``.
+``trainer.distill_from`` (with ``trainer.distill_guidance``) distils a
+frozen teacher restored from a port checkpoint directory (``denoiser``,
+``ema`` or ``phema_sr*``) into the student, which warm-starts from the same
+weights unless ``trainer.denoiser_ckpt`` is given; ``trainer.augment_p``
+turns on non-leaky augmentation (a model with ``augment_dim > 0``).
 Options whose modules are not ported raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: ``trainer.lora_rank`` (16),
-``trainer.distill_from`` (15), a ``repa:`` or ``perceiver_resampler:``
-section (13).
+their ROADMAP queue 1 item: ``trainer.lora_rank`` (16), a ``repa:`` or
+``perceiver_resampler:`` section (13).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from diffulab_tpu_torch.config import instantiate, sweep
 from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
+from diffulab_tpu_torch.training.checkpoint import restore_train_modules
 from diffulab_tpu_torch.training.trainer import BaseTrainer
 from diffulab_tpu_torch.utils import resolve_device
 
@@ -45,10 +50,6 @@ def check_ported(cfg: dict) -> None:
     trainer_cfg = cfg["trainer"]
     if trainer_cfg.get("lora_rank"):
         raise NotImplementedError("LoRA finetuning (trainer.lora_rank) is not ported yet (ROADMAP queue 1, item 16)")
-    if trainer_cfg.get("distill_from"):
-        raise NotImplementedError(
-            "guidance distillation (trainer.distill_from) is not ported yet (ROADMAP queue 1, item 15)"
-        )
     if cfg.get("repa") or cfg.get("perceiver_resampler"):
         raise NotImplementedError("REPA (a repa: section) is not ported yet (ROADMAP queue 1, item 13)")
 
@@ -95,6 +96,18 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
 
     torch.manual_seed(seed)  # the port's counterpart of the reference's rngs=nnx.Rngs(seed)
     denoiser = instantiate(cfg["model"], device=device, **model_dtype_kwargs(cfg["trainer"]))
+
+    # guidance distillation: the teacher is a frozen copy restored from a trained
+    # checkpoint; the student warm-starts from the same weights unless a denoiser_ckpt is given
+    distill_teacher = None
+    distill_from = cfg["trainer"].get("distill_from")
+    if distill_from:
+        distill_teacher = instantiate(cfg["model"], device=device, **model_dtype_kwargs(cfg["trainer"]))
+        restore_train_modules(distill_from, distill_teacher)
+        print(f"distillation teacher restored from {distill_from}")
+        if not cfg["trainer"].get("denoiser_ckpt"):
+            restore_train_modules(distill_from, denoiser)
+            print("student warm-started from the teacher weights")
     print(f"Number of trainable parameters: {count_parameters(denoiser):,}")
 
     diffuser = Diffuser(
@@ -157,6 +170,7 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
         epoch_start=trainer_cfg.get("epoch_start", 0),
         auto_resume=trainer_cfg.get("auto_resume", False),
         seed=seed,
+        distill_teacher=distill_teacher,
     )
     return trainer
 

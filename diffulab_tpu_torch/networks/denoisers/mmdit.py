@@ -23,9 +23,16 @@ The patchify convolution (stride = kernel = patch) is written as a reshape
 plus a matmul over non-overlapping patches: the same function, and on the
 card a float32 matmul stays full fp32 where cuDNN would run the conv in TF32.
 
+Sampling-time block caching (Delta-DiT, arXiv:2406.01125; mmdit.py:641-700):
+with a ``cache_span`` set, a call given ``block_cache`` and
+``cache_refresh`` runs the span's blocks and returns their residual delta on
+a refresh, or skips them and adds the cached delta otherwise (a host bool:
+the branch is picked in Python). ``augment_dim > 0`` adds the non-leaky
+augmentation labels (``cond["augment_labels"]``, :mod:`..diffuse.augment`)
+to the time embedding through a zero-initialised, bias-free Linear.
+
 Not ported yet (they raise ``NotImplementedError``): MoE MLPs, ring
-attention, GPipe pipelining, block caching, REPA feature capture and
-augmentation labels.
+attention, GPipe pipelining and REPA feature capture.
 """
 
 from __future__ import annotations
@@ -372,6 +379,7 @@ class MMDiT(Denoiser):
         attention_impl: str = "auto",
         mlp_type: str = "swiglu",
         pipeline_microbatches: int | None = None,
+        augment_dim: int = 0,
         stable_conditioning: bool = True,
         stream_dtype: Any = None,
         *,
@@ -435,6 +443,12 @@ class MMDiT(Denoiser):
                 d3 = int((partial_rotary_factor * heads_dim) // 3)
                 d3 -= d3 % 2  # each axis dim must be even
                 rope_axes_dim = [d3, d3, d3]  # (L text, H, W)
+        # non-leaky augmentation conditioning (diffuse/augment.py): zero-init and
+        # bias-free, so an absent label vector is exactly the zero-label path
+        self.augment_embed = (Linear(augment_dim, embedding_dim, bias=False, dtype=dtype, zero_init=True, **kw)
+                              if augment_dim > 0 else None)
+        # the (lo, hi) block span of sampling-time block caching; None = off
+        self.cache_span: tuple[int, int] | None = None
         self.rope_axes_dim = list(rope_axes_dim)
         self.last_layer = ModulatedLastLayer(embedding_dim, inner_dim, patch_size, self.output_channels,
                                              dtype=cond_dtype, **kw)
@@ -488,25 +502,96 @@ class MMDiT(Denoiser):
             return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
+    # --- sampling-time block caching (Delta-DiT-style) -----------------------
     def set_block_cache_span(self, span: tuple[int, int] | None) -> None:
-        if span is not None:
-            raise NotImplementedError("block caching is not ported yet (ROADMAP queue 1, item 7)")
+        """Set (or, with None, clear) the ``[lo, hi)`` block span whose combined
+        residual delta is cached across denoise steps (mmdit.py:641)."""
+        if span is None:
+            self.cache_span = None
+            return
+        lo, hi = int(span[0]), int(span[1])
+        if not 0 <= lo < hi <= len(self.layers):
+            raise ValueError(f"cache span [{lo}, {hi}) out of range for depth {len(self.layers)}")
+        self.cache_span = (lo, hi)
 
-    def _simple_dit_forward(self, x, grid_size, timesteps, y, drop):
+    def _cache_dtype(self) -> torch.dtype:
+        return self.stream_dtype if self.stream_dtype is not None else torch.float32
+
+    @torch.no_grad()
+    def init_block_cache(self, data_shape, cond: dict[str, Any], use_cfg: bool) -> tuple[torch.Tensor, ...]:
+        """Zero-filled block cache for the denoise loop (mmdit.py:654): one
+        [B, tokens, inner_dim] delta per token stream, 2x-batched under fused
+        CFG. The first step always refreshes, so the zeros are never read."""
+        if self.cache_span is None:
+            raise ValueError("call set_block_cache_span first")
+        b = data_shape[0] * (2 if use_cfg else 1)
+        t = (data_shape[1] // self.patch_size) * (data_shape[2] // self.patch_size)
+        kw = dict(dtype=self._cache_dtype(), device=self.conv_proj.weight.device)
+        x_delta = torch.zeros((b, t, self.inner_dim), **kw)
+        if self.simple_dit:
+            return (x_delta,)
+        # the context length is the embedder's output length
+        ctx = self.context_embedder(cond["context"], torch.zeros((data_shape[0],), dtype=torch.bool,
+                                                                  device=kw["device"]))["embeddings"]
+        return (x_delta, torch.zeros((b, ctx.shape[1], self.inner_dim), **kw))
+
+    def _cached_block_stack(self, streams, run, block_cache, cache_refresh: bool):
+        """The block stack with the ``cache_span`` segment computed and its
+        delta stored (refresh: the streams pass through unchanged, bit-exact
+        with the uncached stack) or skipped with the cached delta added
+        (mmdit.py:678). Returns (streams, new_cache)."""
+        lo, hi = self.cache_span
+        dt = self._cache_dtype()
+        for i in range(lo):
+            streams = run(i, streams)
+        if cache_refresh:
+            s_in = streams
+            for i in range(lo, hi):
+                streams = run(i, streams)
+            deltas = tuple(a.to(dt) - b.to(dt) for a, b in zip(streams, s_in))
+        else:
+            deltas = tuple(c.to(dt) for c in block_cache)
+            streams = tuple(a + d.to(a.dtype) for a, d in zip(streams, deltas))
+        for i in range(hi, len(self.layers)):
+            streams = run(i, streams)
+        return streams, deltas
+
+    def _use_cache(self, block_cache, cache_refresh) -> bool:
+        return self.cache_span is not None and block_cache is not None and cache_refresh is not None
+
+    def _add_augment(self, emb, aug):
+        if aug is None:
+            return emb
+        if self.augment_embed is None:
+            raise ValueError("augment labels need augment_dim > 0")
+        return emb + self.augment_embed(aug.to(emb.dtype))
+
+    def _simple_dit_forward(self, x, grid_size, timesteps, y, drop, aug=None, block_cache=None,
+                            cache_refresh=None):
         emb = self.time_embed(timestep_embedding(timesteps, self.frequency_embedding).to(x.dtype))
         if self.label_embed is not None:
             if y is None:
                 raise ValueError("class labels y required for label-conditional DiT")
             emb = emb + self.label_embed(y, drop if self.classifier_free else None)
+        emb = self._add_augment(emb, aug)
         pos_ids = self._image_pos_ids(x.shape[0], grid_size, 2, x.device)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
-        for layer in self.layers:
-            x = self._run_block(layer, x, emb, cos_sin, None)
-        return self.last_layer(x, emb)
+        new_cache = None
+        if self._use_cache(block_cache, cache_refresh):
+            def run(i, s):
+                return (self._run_block(self.layers[i], s[0], emb, cos_sin, None),)
 
-    def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop):
+            (x,), new_cache = self._cached_block_stack((x,), run, block_cache, cache_refresh)
+        else:
+            for layer in self.layers:
+                x = self._run_block(layer, x, emb, cos_sin, None)
+        return self.last_layer(x, emb), new_cache
+
+    def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop, aug=None, block_cache=None,
+                       cache_refresh=None):
         b = x.shape[0]
         emb = self.time_embed(timestep_embedding(timesteps, self.frequency_embedding).to(x.dtype))
+        emb = self._add_augment(emb, aug)
         context_output = self.context_embedder(context_raw, drop)
         if self.pooled_embedding:
             if "pooled_embeddings" not in context_output:
@@ -519,9 +604,16 @@ class MMDiT(Denoiser):
         pos_ids = torch.cat([self._text_pos_ids(b, context.shape[1], x.device),
                              self._image_pos_ids(b, grid_size, 3, x.device)], dim=1)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
-        for layer in self.layers:
-            x, context = self._run_block(layer, x, emb, context, cos_sin, attn_mask)
-        return self.last_layer(x, emb)
+        new_cache = None
+        if self._use_cache(block_cache, cache_refresh):
+            def run(i, s):
+                return self._run_block(self.layers[i], s[0], emb, s[1], cos_sin, attn_mask)
+
+            (x, context), new_cache = self._cached_block_stack((x, context), run, block_cache, cache_refresh)
+        else:
+            for layer in self.layers:
+                x, context = self._run_block(layer, x, emb, context, cos_sin, attn_mask)
+        return self.last_layer(x, emb), new_cache
 
     def forward(
         self,
@@ -531,23 +623,28 @@ class MMDiT(Denoiser):
         drop: torch.Tensor | None = None,
         train: bool = False,
         capture_features: bool = False,
+        block_cache: Any = None,
+        cache_refresh: bool | None = None,
     ) -> ModelOutput:
         del train
         if capture_features:
             raise NotImplementedError("REPA feature capture is not ported yet (ROADMAP queue 1, item 13)")
         cond = cond or {}
-        if cond.get("augment_labels") is not None:
-            raise NotImplementedError("augmentation conditioning is not ported yet (ROADMAP queue 1, item 15)")
         if cond.get("context") is not None and cond.get("y") is not None:
             raise ValueError("context and y cannot both be specified")
         x_context = cond.get("x_context")
         if x_context is not None:
             x = torch.cat([x, x_context], dim=-1)  # NHWC channel concat
+        aug = cond.get("augment_labels")
+        extra = dict(aug=aug, block_cache=block_cache, cache_refresh=cache_refresh)
         tokens, grid_size = self.patchify(x)
         if self.simple_dit:
-            out = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop)
+            out, new_cache = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop, **extra)
         else:
             if cond.get("context") is None:
                 raise ValueError("the multimodal MMDiT needs cond['context']")
-            out = self._mmdit_forward(tokens, grid_size, timesteps, cond["context"], drop)
-        return {"x": self.unpatchify(out, grid_size)}
+            out, new_cache = self._mmdit_forward(tokens, grid_size, timesteps, cond["context"], drop, **extra)
+        result: ModelOutput = {"x": self.unpatchify(out, grid_size)}
+        if new_cache is not None:
+            result["block_cache"] = new_cache
+        return result

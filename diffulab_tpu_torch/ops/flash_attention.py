@@ -97,9 +97,17 @@ BWD_BLOCK_K = 128
 BWD_ROW_ALIGN = 64
 
 #: launches of the CUDA kernels: K3 by :func:`flash_attention`, K4 by
-#: :func:`flash_attention_bwd_dkv`, K5 by :func:`flash_attention_bwd_dq`
-#: (read by chip_smoke.py)
-LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0}
+#: :func:`flash_attention_bwd_dkv`, K5 by :func:`flash_attention_bwd_dq`;
+#: an ``_f32`` key counts the fp32 instance's launches alone, which its
+#: kernel's key counts too (read by chip_smoke.py)
+LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0,
+            "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0, "flash_attn_bwd_dq_f32": 0}
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[name] += 1
+    if dtype == torch.float32:
+        LAUNCHES[f"{name}_f32"] += 1
 
 
 def flash_attention_reference(
@@ -225,7 +233,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_fwd")
-    LAUNCHES["flash_attn_fwd"] += 1
+    _count("flash_attn_fwd", q.dtype)
     return o, lse
 
 
@@ -269,7 +277,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_bwd_dkv")
-    LAUNCHES["flash_attn_bwd_dkv"] += 1
+    _count("flash_attn_bwd_dkv", q.dtype)
     return dk, dv, ws[1, :, :, :sq]
 
 
@@ -298,7 +306,7 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_bwd_dq")
-    LAUNCHES["flash_attn_bwd_dq"] += 1
+    _count("flash_attn_bwd_dq", q.dtype)
     return dq
 
 

@@ -38,14 +38,24 @@ accumulation and clipping rules. Mirrored from the reference:
 
 :func:`train_step` does one step with its randomness given, so that the
 parity tests can inject the reference's draws; the loop draws and calls it.
+Also mirrored:
+
+- EDM-style non-leaky augmentation (``augment_p > 0``, trainer.py:312-341):
+  each step's x0 goes through :class:`..diffuse.augment.AugmentPipe` with
+  the step's generator and the labels ride in ``cond["augment_labels"]``;
+  refused on reflow batches, whose (noise, data) coupling it would scramble;
+- guidance distillation (``distill_teacher`` with ``distill_guidance > 0``,
+  trainer.py:278-302): the frozen teacher's guided prediction is the target;
+  it is kept out of the trainable split and the checkpoints, and the CFG
+  drop is forced off;
+- reflow batches: a ``coupled_noise`` model input replaces the step's noise
+  draw (trainer.py:329-345).
 
 Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
-augmentation (``augment_p > 0``, item 15), guidance
-distillation (``distill_teacher``, item 15), LoRA (``lora_only``, item 16),
-trainable embedders (``train_embedder``, items 9 and 16: the HF and
-trainable embedders, whose ``tokenize``/``embed_host`` turn caption strings
-into conditioning, are not ported), reflow batches (``coupled_noise``, item
-15) and meshes of more than one device (item 17).
+LoRA (``lora_only``, item 16), trainable embedders (``train_embedder``,
+items 9 and 16: the HF and trainable embedders, whose
+``tokenize``/``embed_host`` turn caption strings into conditioning, are not
+ported) and meshes of more than one device (item 17).
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from diffulab_tpu_torch.diffuse.augment import AugmentPipe
 from diffulab_tpu_torch.diffuse.diffuser import Diffuser
 from diffulab_tpu_torch.networks.nn import make_drop_mask
 from diffulab_tpu_torch.training.checkpoint import (
@@ -170,19 +181,14 @@ class EMA:
         ema_update(self.config, self.params, params, step)
 
 
-def _check_ported(model_inputs: dict[str, Any]) -> None:
-    """Raise on batch keys whose paths are not ported: reflow batches."""
-    if "coupled_noise" in model_inputs:
-        raise NotImplementedError("reflow batches (coupled_noise) are not ported yet (ROADMAP queue 1, item 15)")
-
-
-def split_batch(batch: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any]]:
-    """(x0, conditioning) of a prepared batch: the conditioning is every other
-    model input (``y``, or a text batch's nested ``context``); raises on batch
-    keys whose paths are not ported (:func:`_check_ported`)."""
+def split_batch(batch: dict[str, Any]) -> tuple[torch.Tensor, dict[str, Any], torch.Tensor | None]:
+    """(x0, conditioning, coupled noise) of a prepared batch: the conditioning
+    is every other model input (``y``, or a text batch's nested ``context``);
+    the coupled noise is a reflow batch's ``coupled_noise`` (None elsewhere),
+    the z each x was generated from (trainer.py:324-329)."""
     model_inputs = dict(batch["model_inputs"])
-    _check_ported(model_inputs)
-    return model_inputs.pop("x"), model_inputs
+    coupled = model_inputs.pop("coupled_noise", None)
+    return model_inputs.pop("x"), model_inputs, coupled
 
 
 @dataclasses.dataclass
@@ -208,13 +214,20 @@ def train_step(
     drop: torch.Tensor | None,
     step: int,
     phema: PowerEMA | None = None,
+    distill: dict[str, Any] | None = None,
 ) -> dict[str, torch.Tensor]:
     """One micro-step with its randomness given (trainer.py:371-386): the
     loss, its gradients, the (accumulated) optimizer update, and the EMA and
-    post-hoc EMA updates at the raw counter ``step``. Returns the detached
+    post-hoc EMA updates at the raw counter ``step``. ``batch`` holds the
+    (augmented) x0 and the conditioning; a reflow batch's ``coupled_noise``
+    takes the place of ``noise``. ``distill`` is the ``distill_fn`` /
+    ``distill_guidance`` pair of guidance distillation. Returns the detached
     losses."""
-    x0, cond = split_batch(batch)
-    losses = diffuser.diffusion.compute_loss(diffuser.model_fn(train=True), x0, cond, t, noise, drop=drop)
+    x0, cond, coupled = split_batch(batch)
+    if coupled is not None:
+        noise = coupled.to(x0.dtype)
+    losses = diffuser.diffusion.compute_loss(diffuser.model_fn(train=True), x0, cond, t, noise, drop=drop,
+                                             **(distill or {}))
     sum(losses.values()).backward()
     optimizer.step()
     if ema is not None or phema is not None:
@@ -256,9 +269,7 @@ class Trainer:
         distill_guidance: float = 0.0,
         device: str | torch.device | None = None,
     ):
-        del compile, distill_guidance  # config parity: their paths raise or are unported
-        if augment_p > 0:
-            raise NotImplementedError("augmentation (augment_p > 0) is not ported yet (ROADMAP queue 1, item 15)")
+        del compile  # config parity: the port runs eagerly
         if mesh is not None:
             sizes = mesh if isinstance(mesh, dict) else dataclasses.asdict(mesh)
             if any(int(n) not in (1, -1) for n in sizes.values()):
@@ -284,6 +295,10 @@ class Trainer:
         self.posthoc_ema_gammas = tuple(float(g) for g in posthoc_ema_gammas)
         self.save_every_n_epochs = save_every_n_epochs
         self.save_optimizer = save_optimizer
+        # EDM-style non-leaky augmentation (diffuse/augment.py), in the train loss only
+        self.augment_p = augment_p
+        # guidance distillation: the CFG weight the frozen teacher is evaluated at
+        self.distill_guidance = distill_guidance
         if save_path is None:
             save_path = Path.home() / "experiments" / datetime.now().strftime("%Y%m%d_%H%M%S")
         self.save_path = Path(save_path) / project_name
@@ -426,9 +441,7 @@ class BaseTrainer(Trainer):
 
     def _prepare_batch(self, batch: dict[str, Any]) -> dict[str, Any]:
         """Every array leaf to a tensor on the trainer's device; host-only
-        leaves (caption strings) dropped, as the reference drops them. Raises
-        first on batch keys whose paths are not ported (:func:`_check_ported`)."""
-        _check_ported(batch["model_inputs"])
+        leaves (caption strings) dropped, as the reference drops them."""
 
         def clean(node):
             if isinstance(node, dict):
@@ -465,7 +478,7 @@ class BaseTrainer(Trainer):
         try:
             val_batch = self._host_embed(val_batch, diffuser)
             captions_raw = val_batch["model_inputs"].get("initial_context")
-            x_ref, cond = split_batch(self._prepare_batch(val_batch))
+            x_ref, cond, _ = split_batch(self._prepare_batch(val_batch))
             n = min(8, x_ref.shape[0])
             # x_ref's shape is the latent shape when the diffuser has a vision tower
             out = diffuser.generate(map_tensors(cond, lambda t: t[:n]), data_shape=(n, *x_ref.shape[1:]),
@@ -504,8 +517,6 @@ class BaseTrainer(Trainer):
             raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
         if train_embedder:
             raise NotImplementedError("trainable embedders are not ported yet (ROADMAP queue 1, item 9)")
-        if distill_teacher is not None:
-            raise NotImplementedError("guidance distillation is not ported yet (ROADMAP queue 1, item 15)")
         model = diffuser.denoiser
         # the trainable split (checkpoint.py::trainable_filter) sets what the
         # optimizer and the EMA hold, and the checkpoint layout
@@ -533,6 +544,24 @@ class BaseTrainer(Trainer):
             raise ValueError("Time-shifting during validation is only supported for flow-based models.")
         if not getattr(model, "classifier_free", False):
             p_classifier_free_guidance = 0.0
+        distill = None
+        if distill_teacher is not None:
+            if self.distill_guidance <= 0:
+                raise ValueError("distill_teacher needs trainer.distill_guidance > 0 (the CFG weight being "
+                                 "distilled into the student)")
+            # the student regresses onto guided targets and samples at guidance 0:
+            # training its own uncond branch is meaningless
+            p_classifier_free_guidance = 0.0
+            distill_teacher.eval().requires_grad_(False)  # frozen, outside the trainable split
+            distill = {"distill_fn": Diffuser._model_fn(distill_teacher, train=False),
+                       "distill_guidance": self.distill_guidance}
+            logger.info(f"guidance distillation: teacher CFG w={self.distill_guidance}, p_cfg forced to 0")
+        augment_pipe = None
+        if self.augment_p > 0:
+            if getattr(model, "augment_embed", None) is None:
+                raise ValueError("trainer.augment_p > 0 requires the model's augment_dim > 0 (the non-leaky "
+                                 "conditioning path, diffuse/augment.py)")
+            augment_pipe = AugmentPipe(p=self.augment_p)
 
         # --- optimizer: schedule + gradient accumulation -------------------
         if denoiser_ckpt:
@@ -595,14 +624,26 @@ class BaseTrainer(Trainer):
                 batch = self._prepare_batch(self._host_embed(batch, diffuser))
                 step += 1
                 generator.manual_seed(_fold_seed(seed, step))
-                x0 = batch["model_inputs"]["x"]
+                mi = batch["model_inputs"]
+                x0 = mi["x"]
                 bsz = x0.shape[0]
+                if augment_pipe is not None:
+                    if "coupled_noise" in mi:
+                        raise ValueError(
+                            "trainer.augment_p > 0 would scramble a reflow dataset's deterministic (noise, "
+                            "data) coupling: the flip/rotate/translate of x0 cannot be applied to its paired z. "
+                            "Disable augmentation for straightening runs.")
+                    x0, labels = augment_pipe(x0, generator)
+                    batch = {**batch, "model_inputs": {**mi, "x": x0, "augment_labels": labels}}
                 t = diffusion.draw_timesteps(generator, bsz)
-                noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
+                noise = None
+                if "coupled_noise" not in mi:
+                    noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
                 drop = None
                 if p_classifier_free_guidance > 0:
                     drop = make_drop_mask(generator, p_classifier_free_guidance, bsz)
-                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step, phema)
+                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step, phema,
+                                    **({"distill": distill} if distill else {}))
                 n_steps_epoch += 1
                 for key, loss in losses.items():
                     prev = loss_sums.get(key)
@@ -633,10 +674,12 @@ class BaseTrainer(Trainer):
                     for vi, val_batch in enumerate(val_dataloader):
                         val_batch = self._prepare_batch(self._host_embed(val_batch, diffuser))
                         generator.manual_seed(_fold_seed(seed, _VAL_SEED_OFFSET + vi))
-                        x0, cond = split_batch(val_batch)
+                        x0, cond, coupled = split_batch(val_batch)
                         t = diffusion.draw_timesteps(generator, x0.shape[0])
-                        noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
-                        val_losses = diffusion.compute_loss(diffuser.model_fn(train=False), x0, cond, t, noise)
+                        noise = (coupled.to(x0.dtype) if coupled is not None else
+                                 torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype))
+                        val_losses = diffusion.compute_loss(diffuser.model_fn(train=False), x0, cond, t, noise,
+                                                            **(distill or {}))
                         n_val += 1
                         for key, val_loss in val_losses.items():
                             prev = val_sums.get(key)

@@ -9,6 +9,7 @@ only patchify and the last layer (trap T9). Every parameter is therefore
 replaced before the weights are bridged.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -202,3 +203,31 @@ def tower_pair(sd: dict[str, np.ndarray], bn_stats: bool = False):
     tower = Flux2VAE(**TINY_TOWER, **stats, device="cpu")
     load_autoencoder_kl_state_dict(tower.encoder, tower.decoder, sd)
     return jax_tower, tower
+
+
+# --- injected randomness (trap T4) ---------------------------------------------
+
+def jax_scan_noise(key, n_steps: int, shape, dtype, inpaint: bool = False, kind: str = "step") -> dict:
+    """The draws of the reference's denoise scan from ``key`` (flow.py:360-370,
+    edm.py:375-397): per step ``step_rng, use_rng = split(step_rng)`` for the
+    sampler (``kind``: "step", or EDM's "churn") and, with inpainting,
+    ``step_rng, ip_rng = split(step_rng)``; keyed ``(kind, step)`` as the
+    port's ``draw_noise`` asks for them."""
+    draws = {}
+    step_rng = key
+    for i in range(n_steps):
+        step_rng, use_rng = jax.random.split(step_rng)
+        draws[(kind, i)] = np.asarray(jax.random.normal(use_rng, shape, dtype=dtype), np.float32)
+        if inpaint:
+            step_rng, ip_rng = jax.random.split(step_rng)
+            draws[("inpaint", i)] = np.asarray(jax.random.normal(ip_rng, shape, dtype=dtype), np.float32)
+    return draws
+
+
+def injected(draws: dict):
+    """A ``draw_noise`` callable that hands out the reference's draws."""
+    def draw(kind, step, shape, dtype):
+        value = torch.from_numpy(np.array(draws[(kind, step)])).to(dtype)
+        assert tuple(value.shape) == tuple(shape)
+        return value
+    return draw

@@ -283,19 +283,31 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(cli, monkeypatch,
         module.main(["--config-name", "train_synthetic_flow_matching", *argv])
 
 
-@pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"), ("trainer.distill_from=x", "item 15"),
-                                           ("+repa", "item 13")])
+@pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"),
+                                           ("train_synthetic_edm_repa", "item 13"), ("+repa", "item 13")])
 def test_train_cli_unported_options_raise(override, item, tmp_path):
-    overrides = [override] if override != "+repa" else ["repa.alignment_layer=1"]
+    """LoRA (item 16) and REPA (item 13: a ``repa:`` section, as in
+    train_synthetic_edm_repa) raise; ``trainer.distill_from`` is ported
+    (tests/test_torch_port_c2_cli.py)."""
+    config, overrides = "train_synthetic_flow_matching", [override]
+    if override == "+repa":
+        overrides = ["repa.alignment_layer=1"]
+    elif not override.startswith("trainer."):
+        config, overrides = override, []
     with pytest.raises(NotImplementedError, match=item):
-        train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching",
+        train_diffusion.main(["--device", "cpu", "--config-name", config,
                               *overrides, *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("flags,item", [(["--guide-ckpt", "x"], "item 15"), (["--prompts", "a cat"], "item 16"),
-                                        (["--cache-interval", "2"], "item 7"), (["--inpaint-image", "x.png"], "item 15"),
-                                        (["--img2img-image", "x.png"], "item 15"), (["--sampler", "heun"], "heun")])
+@pytest.mark.parametrize("flags,item", [(["--prompts", "a cat"], "item 16"),
+                                        (["diffuser=gaussian_diffusion"], "item 14"),
+                                        (["trainer.lora_rank=4"], "item 16"),
+                                        (["--config-name", "train_synthetic_edm_repa"], "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
+    """--prompts and LoRA checkpoints (item 16), the Gaussian formalization
+    (item 14) and REPA configs (item 13) raise. --guide-ckpt, --cache-*,
+    --inpaint-*, --img2img-image and every sampler are ported and run in
+    tests/test_torch_port_c2_cli.py."""
     with pytest.raises(NotImplementedError, match=item):
         sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])
 

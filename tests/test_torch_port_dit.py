@@ -102,12 +102,19 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_call_paths_raise():
+    """REPA feature capture (ROADMAP item 13) still raises; block caching and
+    augmentation labels are ported (tests/test_torch_port_{caching,edm}.py)."""
     model = MMDiT(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.set_block_cache_span((0, 1))
     x, t, y = torch.zeros(1, *LATENT), torch.zeros(1), torch.zeros(1, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 13"):
         model(x, t, {"y": y}, capture_features=True)
+    model.set_block_cache_span((0, 1))
+    cache = model.init_block_cache((1, *LATENT), {"y": y}, use_cfg=False)
+    with torch.no_grad():
+        out = model(x, t, {"y": y}, block_cache=cache, cache_refresh=True)
+    assert out["x"].shape == (1, *LATENT) and out["block_cache"][0].shape == cache[0].shape
+    with pytest.raises(ValueError, match="augment_dim"):
+        model(x, t, {"y": y, "augment_labels": torch.zeros(1, 6)})
 
 
 # --- primitives, each against its JAX counterpart --------------------------

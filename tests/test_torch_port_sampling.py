@@ -154,20 +154,35 @@ def test_generate_needs_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_sampling_features_raise():
+    """What still raises: the Gaussian formalization (ROADMAP item 14) and
+    the GRPO loss (item 16). The samplers, EDM, block caching and the
+    generate options are ported (tests/test_torch_port_{samplers,edm,caching,guided}.py):
+    each builds here and runs one request."""
     model = MMDiT(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Diffuser(model, "heun", n_steps=2)
-    with pytest.raises(NotImplementedError):
-        Diffuser(model, "euler", model_type="edm")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Diffuser(model, "ddim", model_type="gaussian_diffusion")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        Diffuser(model, "euler_maruyama", n_steps=2).compute_loss(None, {}, None, None, grpo=True)
+    cond = {"y": torch.tensor([0])}
+    gen = torch.Generator().manual_seed(0)
+    for sampler, model_type in (("heun", "rectified_flow"), ("heun", "edm")):
+        out = Diffuser(model, sampler, model_type=model_type, n_steps=2).generate(
+            cond, data_shape=(1, *LATENT), generator=gen, guidance_scale=2.0, device="cpu")["x"]
+        assert out.shape == (1, *LATENT) and bool(torch.isfinite(out).all())
     # latent mode is ported: the tower's latent scale and bias are taken over
     tower = Flux2VAE(base_channels=8, ch_mult=(1,), num_res_blocks=1, latent_channels=1, device="cpu")
     latent = Diffuser(model, "euler", vision_tower=tower)
     assert latent.diffusion.latent_diffusion and (latent.latent_scale, latent.latent_bias) == (1.0, 0.0)
     diffuser = Diffuser(model, "euler", n_steps=2)
-    with pytest.raises(NotImplementedError):
-        diffuser.set_block_cache(2, span=(0, 1))
-    cond = {"y": torch.tensor([0])}
-    for kwargs in (dict(inpaint={}), dict(img2img={}), dict(return_intermediates=True),
-                   dict(guide_denoiser=model)):
-        with pytest.raises(NotImplementedError):
-            diffuser.generate(cond, data_shape=(1, *LATENT), guidance_scale=2.0, device="cpu", **kwargs)
+    diffuser.set_block_cache(2, span=(0, 1))
+    assert model.cache_span == (0, 1)
+    known = torch.zeros(1, *LATENT)
+    mask = torch.ones(1, *LATENT[:2], 1)
+    for kwargs in (dict(inpaint={"known": known, "mask": mask}), dict(img2img={"init": known, "strength": 0.5}),
+                   dict(return_intermediates=True), dict(guide_denoiser=model)):
+        out = diffuser.generate(cond, data_shape=(1, *LATENT), generator=gen, guidance_scale=2.0, device="cpu",
+                                **kwargs)
+        assert out["x"].shape == (1, *LATENT) and bool(torch.isfinite(out["x"]).all())
+    assert "xt" not in out  # the intermediates only when asked for
+    diffuser.set_block_cache(None)
+    assert model.cache_span is None

@@ -467,33 +467,47 @@ def test_trainer_with_accumulation_and_per_epoch_schedule(tmp_path):
     assert trainer.step == 4 and seen == [0, 0, 1]
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh={"fsdp": 2}), dict(augment_p=0.1), dict(mesh={"data": 2}),
-                                    dict(mesh={"data": -1, "tensor": 2})])
+@pytest.mark.parametrize("kwargs", [dict(mesh={"fsdp": 2}), dict(mesh={"tensor": 4}, augment_p=0.1),
+                                    dict(mesh={"data": 2}), dict(mesh={"data": -1, "tensor": 2})])
 def test_unported_trainer_options_raise(tmp_path, kwargs):
-    with pytest.raises(NotImplementedError):
+    """Meshes of more than one device (ROADMAP item 17) raise; augmentation
+    is ported (tests/test_torch_port_guided.py) and builds on its own."""
+    with pytest.raises(NotImplementedError, match="item 17"):
         BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu", **kwargs)
+    if "augment_p" in kwargs:
+        assert BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu", augment_p=0.1).augment_p == 0.1
 
 
 @pytest.mark.parametrize("kwargs", [dict(lora_only=True), dict(train_embedder=True),
                                     dict(distill_teacher=object())])
 def test_unported_train_options_raise(tmp_path, kwargs):
+    """LoRA (item 16) and trainable embedders (item 9) raise. Guidance
+    distillation is ported (tests/test_torch_port_guided.py); a teacher
+    without ``distill_guidance > 0`` is refused, as the reference asserts."""
     trainer = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError):
+    error = ValueError if "distill_teacher" in kwargs else NotImplementedError
+    with pytest.raises(error):
         trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(),
                       _loader(1, 0), **kwargs)
 
 
 @pytest.mark.parametrize("key", ["coupled_noise", "initial_context"])
 def test_unported_batches_raise(tmp_path, key):
-    """Reflow batches raise; a text batch (captions and a precomputed
-    context, as ImageNetmultiAR + collate_fn give it) trains since the
-    txt2img slice: the captions are dropped from what the model sees."""
+    """Reflow batches train (their coupled noise is the step's noise,
+    tests/test_torch_port_guided.py) and raise under augmentation, whose
+    transform would break the coupling; a text batch (captions and a
+    precomputed context, as ImageNetmultiAR + collate_fn give it) trains
+    since the txt2img slice: the captions are dropped from what the model sees."""
     trainer = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu")
     if key == "coupled_noise":
         batches = _loader(1, 0)
         batches[0]["model_inputs"][key] = np.zeros((4, *LATENT), np.float32)
-        with pytest.raises(NotImplementedError):
-            trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), batches)
+        trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), batches)
+        assert trainer.step == 1
+        augmenting = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu", augment_p=0.5)
+        with pytest.raises(ValueError, match="reflow"):
+            augmenting.train(Diffuser(MMDiT(**TINY, augment_dim=6, device="cpu"), "euler", n_steps=4),
+                             toptim.adamw(), batches)
         return
     from _torch_port_common import CONTEXT, TINY_MM, context_inputs, null_embedding
 
@@ -518,8 +532,8 @@ def test_unported_loss_paths_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         Diffuser(diffuser.denoiser, "euler", extra_losses=[object()])
     x0, t = torch.zeros(1, *LATENT), torch.full((1,), 0.5)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        diffuser.diffusion.compute_loss(diffuser.model_fn(), x0, {}, t, x0, distill_fn=lambda **kw: kw)
+    with pytest.raises(NotImplementedError, match="item 16"):  # distill_fn is ported; the GRPO loss is not
+        diffuser.compute_loss(x0, {}, t, x0, grpo=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         diffuser.diffusion.compute_loss(diffuser.model_fn(), x0, {}, t, x0, extra_losses=[object()])
 

@@ -195,8 +195,11 @@ def test_mmdit_argument_checks():
         model(x, t, {})
     with pytest.raises(NotImplementedError):
         model(x, t, _cond(*context_inputs(1)), capture_features=True)
-    with pytest.raises(NotImplementedError):
-        model.set_block_cache_span((0, 1))
+    # block caching is ported (tests/test_torch_port_caching.py); a span must lie inside the stack
+    with pytest.raises(ValueError, match="out of range"):
+        model.set_block_cache_span((0, 4))
+    model.set_block_cache_span((0, 1))
+    assert model.cache_span == (0, 1)
 
 
 # --- primitives and the tower -------------------------------------------------
