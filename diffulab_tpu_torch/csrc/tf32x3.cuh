@@ -105,36 +105,37 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
 
 // ---- fragments from a [rows][D + 4] tile, split at the load
 
-// A: rows r0 + [0, 16), reduction over columns 8 kk + [0, 8)
-template <int D>
+// A: rows r0 + [0, 16), reduction over columns 8 kk + [0, 8); rows LDT floats apart
+template <int D, int LDT = ld<D>()>
 __device__ __forceinline__ void frag_a(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* t, int r0, int kk, int g,
                                        int t4) {
-  const float* p = t + (r0 + g) * ld<D>() + kk * 8 + t4;
+  const float* p = t + (r0 + g) * LDT + kk * 8 + t4;
   split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * ld<D>()], hi[1], lo[1]);
+  split_tf32(p[8 * LDT], hi[1], lo[1]);
   split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * ld<D>() + 4], hi[3], lo[3]);
+  split_tf32(p[8 * LDT + 4], hi[3], lo[3]);
 }
 
 // B of a row-by-row product (s = A.T^T): columns n0 + [0, 8) are tile rows,
-// the reduction runs over the tile's columns 8 kk + [0, 8)
-template <int D>
+// the reduction runs over the tile's columns 8 kk + [0, 8); rows LDT floats apart
+template <int D, int LDT = ld<D>()>
 __device__ __forceinline__ void frag_b_rows(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* t, int n0, int kk,
                                             int g, int t4) {
-  const float* p = t + (n0 + g) * ld<D>() + kk * 8 + t4;
+  const float* p = t + (n0 + g) * LDT + kk * 8 + t4;
   split_tf32(p[0], hi[0], lo[0]);
   split_tf32(p[4], hi[1], lo[1]);
 }
 
 // B of a product over the tile's rows (o = P.T): the reduction runs over tile
 // rows 8 kk + [0, 8) in the permuted order (slot t4: row 2 t4, slot t4 + 4:
-// row 2 t4 + 1), the columns are the tile's columns n0 + [0, 8)
-template <int D>
+// row 2 t4 + 1), the columns are the tile's columns n0 + [0, 8); rows LDT
+// floats apart (a D-wide tile by default; a column slice of a wider one)
+template <int D, int LDT = ld<D>()>
 __device__ __forceinline__ void frag_b_cols(uint32_t (&hi)[2], uint32_t (&lo)[2], const float* t, int kk, int n0,
                                             int g, int t4) {
-  const float* p = t + (kk * 8 + 2 * t4) * ld<D>() + n0 + g;
+  const float* p = t + (kk * 8 + 2 * t4) * LDT + n0 + g;
   split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[ld<D>()], hi[1], lo[1]);
+  split_tf32(p[LDT], hi[1], lo[1]);
 }
 
 // A fragments of a warp's 16 rows (row, row + 8 for this thread) of one head
@@ -160,19 +161,20 @@ __device__ __forceinline__ void frag_a_from_c(uint32_t (&hi)[4], uint32_t (&lo)[
   split_tf32(c[3], hi[3], lo[3]);
 }
 
-// s[nt] = A.T^T for a warp's 16 rows (rows a0 of tile `a`) against tile rows 8 nt
-template <int D, int N>
+// s[nt] = A.T^T for a warp's 16 rows (rows a0 of tile `a`) against tile rows
+// 8 nt, over D columns (a column slice of wider tiles whose rows are LDT floats apart)
+template <int D, int N, int LDT = ld<D>()>
 __device__ __forceinline__ void rows_dot(float (&s)[N / 8][4], const float* a, int a0, const float* t, int g, int t4) {
 #pragma unroll
   for (int nt = 0; nt < N / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     uint32_t ah[4], al[4];
-    frag_a<D>(ah, al, a, a0, kk, g, t4);
+    frag_a<D, LDT>(ah, al, a, a0, kk, g, t4);
 #pragma unroll
     for (int nt = 0; nt < N / 8; ++nt) {
       uint32_t bh[2], bl[2];
-      frag_b_rows<D>(bh, bl, t, nt * 8, kk, g, t4);
+      frag_b_rows<D, LDT>(bh, bl, t, nt * 8, kk, g, t4);
       mma3(s[nt], ah, al, bh, bl);
     }
   }
@@ -194,8 +196,9 @@ __device__ __forceinline__ void rows_dot(float (&s)[N / 8][4], const uint32_t (&
     }
 }
 
-// acc[16 rows x D] += x[16 rows x N] . T[N rows][D], x in C layout
-template <int D, int N>
+// acc[16 rows x D] += x[16 rows x N] . T[N rows][D], x in C layout; T's rows
+// LDT floats apart (T may be a D-wide column slice of a wider tile)
+template <int D, int N, int LDT = ld<D>()>
 __device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4], const float (&x)[N / 8][4], const float* t,
                                                   int g, int t4) {
 #pragma unroll
@@ -205,7 +208,7 @@ __device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4], const 
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
       uint32_t bh[2], bl[2];
-      frag_b_cols<D>(bh, bl, t, kk, dn * 8, g, t4);
+      frag_b_cols<D, LDT>(bh, bl, t, kk, dn * 8, g, t4);
       mma3(acc[dn], ah, al, bh, bl);
     }
   }
@@ -221,6 +224,39 @@ __device__ __forceinline__ void store_c_rows(float* out, long long ss, int row, 
     *reinterpret_cast<float2*>(out + (long long)row * ss + col) = make_float2(acc[dn][0], acc[dn][1]);
     *reinterpret_cast<float2*>(out + (long long)(row + 8) * ss + col) = make_float2(acc[dn][2], acc[dn][3]);
   }
+}
+
+// ---- a score product's D-reduction split over column groups of warps
+
+// a warp's C-layout [16 x N] tile (its rows r0 + [0, 16)) into a [rows][N] buffer
+template <int N>
+__device__ __forceinline__ void put_c(float* buf, const float (&c)[N / 8][4], int r0, int g, int t4) {
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) {
+    const int col = nt * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(buf + (r0 + g) * N + col) = make_float2(c[nt][0], c[nt][1]);
+    *reinterpret_cast<float2*>(buf + (r0 + g + 8) * N + col) = make_float2(c[nt][2], c[nt][3]);
+  }
+}
+
+// c = the sum of GROUPS partial tiles, [GROUPS][rows][N] apart by `stride`
+// floats, added in group order, so that every group's warps hold the same sum
+template <int N, int GROUPS>
+__device__ __forceinline__ void sum_c(float (&c)[N / 8][4], const float* buf, int stride, int r0, int g, int t4) {
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int grp = 0; grp < GROUPS; ++grp)
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      const int col = nt * 8 + 2 * t4;
+      const float2 a = *reinterpret_cast<const float2*>(buf + grp * stride + (r0 + g) * N + col);
+      const float2 b = *reinterpret_cast<const float2*>(buf + grp * stride + (r0 + g + 8) * N + col);
+      c[nt][0] += a.x;
+      c[nt][1] += a.y;
+      c[nt][2] += b.x;
+      c[nt][3] += b.y;
+    }
 }
 
 }  // namespace

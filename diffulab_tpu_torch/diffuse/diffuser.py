@@ -11,9 +11,9 @@ img2img, an autoguidance model (``guide_denoiser``) and Delta-DiT block
 caching (:meth:`Diffuser.set_block_cache`). ``compute_loss`` is the training
 loss the trainer differentiates.
 
+Formalizations: ``rectified_flow``, ``edm`` and ``gaussian_diffusion``.
 Not ported yet (they raise ``NotImplementedError``): extra losses (REPA,
-ROADMAP item 13), the GRPO loss (item 16) and the Gaussian formalization
-(item 14).
+ROADMAP item 13) and the GRPO loss (item 16).
 """
 
 from __future__ import annotations
@@ -24,15 +24,14 @@ import torch
 
 from diffulab_tpu_torch.diffuse.edm import EDM
 from diffulab_tpu_torch.diffuse.flow import Flow
+from diffulab_tpu_torch.diffuse.gaussian_diffusion import GaussianDiffusion
 from diffulab_tpu_torch.utils import resolve_device, resolve_dtype
-
-_UNPORTED_MODEL_TYPES = ("gaussian_diffusion",)
 
 
 class Diffuser:
     """Unified interface over the diffusion formalizations (diffuser.py:22)."""
 
-    model_registry: dict[str, type] = {"rectified_flow": Flow, "edm": EDM}
+    model_registry: dict[str, type] = {"rectified_flow": Flow, "edm": EDM, "gaussian_diffusion": GaussianDiffusion}
 
     def __init__(
         self,
@@ -44,8 +43,6 @@ class Diffuser:
         extra_args: dict[str, Any] | None = None,
         extra_losses: list[Any] | None = None,
     ):
-        if model_type in _UNPORTED_MODEL_TYPES:
-            raise NotImplementedError(f"model type {model_type!r} is not ported yet (ROADMAP queue 1, item 14)")
         if model_type not in self.model_registry:
             raise NotImplementedError(f"Model type {model_type} is not implemented")
         if extra_losses:
@@ -100,7 +97,7 @@ class Diffuser:
         )
 
     def set_steps(self, n_steps: int, **kwargs: Any) -> None:
-        """Swap the sampling schedule (diffuser.py:82)."""
+        """Swap the sampling schedule (diffuser.py:82); a Gaussian formalization respaces."""
         self.diffusion = self.diffusion.set_steps(n_steps, **kwargs)
 
     def set_block_cache(self, interval: int | None, span: tuple[int, int] | None = None) -> None:

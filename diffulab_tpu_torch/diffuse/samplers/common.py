@@ -8,6 +8,8 @@ the stochastic sampler ``x_prev_mean``/``x_prev_std``/``logprob``.
 Multistep samplers (``is_multistep = True``) carry a state from step to step:
 ``init_state(x)`` gives the first, ``step(..., state=...)`` takes it and
 returns the next under ``"state"``. The tensors of a state live on the card;
+the Gaussian samplers keep their per-sample schedule scalars as ``[B, 1, ...]``
+tensors, as the reference does;
 its scalars (log-SNR gaps, history depth) are host numbers, so the loop never
 waits on the device to decide a branch.
 """
@@ -41,6 +43,17 @@ class FlowSampler(Sampler):
     def with_timesteps(self, timesteps) -> "FlowSampler":
         """Return a sampler with any schedule-derived constants bound."""
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianSampler(Sampler):
+    """Discrete-time samplers over a beta table (common.py:50):
+    ``step(model_prediction, timesteps, xt, *, noise=None, clamp_x=False)``,
+    where ``noise`` is the step's standard normal draw of a stochastic
+    sampler (the reference takes a PRNG key)."""
+
+    def with_betas(self, betas) -> "GaussianSampler":
+        raise NotImplementedError
 
 
 def unipc_bh2_correction(hh_c_safe, r0c_safe, n_prev: int, m0: torch.Tensor, m_last: torch.Tensor,

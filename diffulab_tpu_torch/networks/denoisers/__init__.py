@@ -1,4 +1,5 @@
 from diffulab_tpu_torch.networks.denoisers.common import Denoiser, ModelOutput
 from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+from diffulab_tpu_torch.networks.denoisers.unet import UNetModel
 
-__all__ = ["Denoiser", "MMDiT", "ModelOutput"]
+__all__ = ["Denoiser", "MMDiT", "ModelOutput", "UNetModel"]

@@ -131,16 +131,20 @@ class DiTBlock(nn.Module):
 
     def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
                  rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
-                 device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+                 device=None, param_dtype=torch.float32, attention_impl: str = "auto",
+                 attention_dtype=None, mlp_dtype=None):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
+        # per-component precision overrides, defaulting to the block's compute dtype (mmdit.py:253)
+        attention_dtype = attention_dtype if attention_dtype is not None else dtype
+        mlp_dtype = mlp_dtype if mlp_dtype is not None else dtype
         self.modulation = Modulation(embedding_dim, inner_dim,
                                      dtype=stable_dtype(dtype, stable_conditioning), **kw)
         self.norm_1 = LayerNormFP32(inner_dim, **kw)
-        self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=dtype,
+        self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=attention_dtype,
                                       attention_impl=attention_impl, **kw)
         self.norm_2 = LayerNormFP32(inner_dim, **kw)
-        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
+        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, cos_sin_rope, attn_mask=None) -> torch.Tensor:
         mod = self.modulation(y)
@@ -207,20 +211,23 @@ class MMDiTBlock(nn.Module):
 
     def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
                  rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
-                 device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+                 device=None, param_dtype=torch.float32, attention_impl: str = "auto",
+                 attention_dtype=None, mlp_dtype=None):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
+        attention_dtype = attention_dtype if attention_dtype is not None else dtype
+        mlp_dtype = mlp_dtype if mlp_dtype is not None else dtype
         mod_dtype = stable_dtype(dtype, stable_conditioning)
         self.modulation_context = Modulation(embedding_dim, inner_dim, dtype=mod_dtype, **kw)
         self.modulation_input = Modulation(embedding_dim, inner_dim, dtype=mod_dtype, **kw)
         self.context_norm_1 = LayerNormFP32(inner_dim, **kw)
         self.input_norm_1 = LayerNormFP32(inner_dim, **kw)
-        self.attention = MMDiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=dtype,
+        self.attention = MMDiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=attention_dtype,
                                         attention_impl=attention_impl, **kw)
         self.context_norm_2 = LayerNormFP32(inner_dim, **kw)
         self.input_norm_2 = LayerNormFP32(inner_dim, **kw)
-        self.mlp_context = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
-        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
+        self.mlp_context = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
+        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
 
     def forward(self, x, y, context, cos_sin_rope, attn_mask=None):
         mod_i = self.modulation_input(y)
@@ -244,11 +251,14 @@ class MMDiTSingleStreamBlock(nn.Module):
 
     def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
                  rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
-                 device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
+                 device=None, param_dtype=torch.float32, attention_impl: str = "auto",
+                 attention_dtype=None, mlp_dtype=None):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
-        self.mlp = SwiGLUMlp(inner_dim, mlp_ratio, dtype=dtype, **kw)
-        self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=dtype,
+        attention_dtype = attention_dtype if attention_dtype is not None else dtype
+        mlp_dtype = mlp_dtype if mlp_dtype is not None else dtype
+        self.mlp = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
+        self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=attention_dtype,
                                       attention_impl=attention_impl, **kw)
         self.modulation = Modulation(embedding_dim, inner_dim, n_chunks=3,
                                      dtype=stable_dtype(dtype, stable_conditioning), **kw)
@@ -351,7 +361,9 @@ class MMDiT(Denoiser):
     The precision policy is the reference's: ``dtype`` is the compute dtype of
     the block matmuls (None = fp32); with ``stable_conditioning`` the
     conditioning path and the residual stream stay fp32 under a half
-    ``dtype``; ``stream_dtype`` overrides the residual stream's dtype.
+    ``dtype``; ``stream_dtype`` overrides the residual stream's dtype, and
+    ``attention_dtype`` / ``mlp_dtype`` the attention's and the MLP's compute
+    dtype in the DiT and dual-stream blocks.
     The bench configuration is the whole-model bf16 cast:
     ``dtype=torch.bfloat16, stable_conditioning=False, stream_dtype=torch.bfloat16``.
     """
@@ -381,6 +393,8 @@ class MMDiT(Denoiser):
         pipeline_microbatches: int | None = None,
         augment_dim: int = 0,
         stable_conditioning: bool = True,
+        attention_dtype: Any = None,
+        mlp_dtype: Any = None,
         stream_dtype: Any = None,
         *,
         dtype: Any = None,
@@ -400,6 +414,9 @@ class MMDiT(Denoiser):
             raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP queue 1, item 17)")
         device = resolve_device(device)
         dtype = resolve_dtype(dtype)
+        # per-component precision overrides of the dual-stream / DiT blocks ("float32" accepted from YAML)
+        attention_dtype = resolve_dtype(attention_dtype)
+        mlp_dtype = resolve_dtype(mlp_dtype)
         stream_dtype = resolve_dtype(stream_dtype)
         self.simple_dit = simple_dit
         self.patch_size = patch_size
@@ -456,8 +473,10 @@ class MMDiT(Denoiser):
         self.conv_proj = PatchEmbed(self.input_channels, inner_dim, patch_size, dtype=cond_dtype, **kw)
         block_kw = dict(dtype=dtype, stable_conditioning=stable_conditioning, attention_impl=attention_impl, **kw)
         block_cls = DiTBlock if simple_dit else MMDiTBlock
+        # the overrides reach the DiT / dual-stream blocks only, as in the reference (mmdit.py:566-575)
         self.layers = nn.ModuleList(
-            [block_cls(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, **block_kw)
+            [block_cls(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim,
+                       attention_dtype=attention_dtype, mlp_dtype=mlp_dtype, **block_kw)
              for _ in range(depth - n_single_stream_blocks)]
             + [MMDiTSingleStreamBlock(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, **block_kw)
                for _ in range(n_single_stream_blocks)]

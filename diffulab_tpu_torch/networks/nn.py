@@ -1,4 +1,4 @@
-"""NN primitives of the DiT path (port of diffulab_tpu/networks/nn.py).
+"""NN primitives (port of diffulab_tpu/networks/nn.py).
 
 Layouts follow the reference: NHWC images, ``[B, S, H, D]`` attention heads.
 The precision policy is explicit rather than autocast: every module takes a
@@ -33,13 +33,15 @@ def stable_dtype(dtype: torch.dtype | None, enabled: bool = True) -> torch.dtype
 class Linear(nn.Module):
     """``nnx.Linear`` semantics: input, weight and bias are cast to ``dtype``
     (or, with ``dtype=None``, promoted to their common type) before the
-    product, whose output keeps that type. The weight is stored ``[out, in]``
-    as torch does; :mod:`diffulab_tpu_torch.weights` transposes JAX kernels."""
+    product, whose output keeps that type (or ``out_dtype``, the reference's
+    ``preferred_element_type``). The weight is stored ``[out, in]`` as torch
+    does; :mod:`diffulab_tpu_torch.weights` transposes JAX kernels."""
 
     def __init__(self, din: int, dout: int, bias: bool = True, *, dtype=None,
-                 zero_init: bool = False, device=None, param_dtype=torch.float32):
+                 zero_init: bool = False, device=None, param_dtype=torch.float32, out_dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.out_dtype = out_dtype
         self.weight = nn.Parameter(torch.empty(dout, din, device=device, dtype=param_dtype))
         self.bias = (nn.Parameter(torch.zeros(dout, device=device, dtype=param_dtype))
                      if bias else None)
@@ -51,7 +53,72 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.out_dtype is not None:
+            out = F.linear(x.to(dt).to(self.out_dtype), self.weight.to(dt).to(self.out_dtype))
+            return out if bias is None else out + bias.to(self.out_dtype)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(nn.Module):
+    """``nnx.Conv`` on NHWC input: ``weight`` OIHW (torch's layout; the
+    bridge transposes JAX's HWIO kernels), ``bias``; ``padding`` is an int
+    (symmetric) or ``((top, bottom), (left, right))``. ``dtype`` as in
+    :class:`Linear`. An NHWC tensor permuted to NCHW is a channels-last view,
+    which cuDNN convolves without a copy, and the result permutes back to
+    NHWC the same way."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
+                 padding: int | tuple[tuple[int, int], tuple[int, int]] = 0, *, bias: bool = True,
+                 zero_init: bool = False, dtype=None, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size,
+                                               device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device, dtype=param_dtype)) if bias else None
+        if zero_init:
+            nn.init.zeros_(self.weight)
+        else:  # nnx.Conv's default kernel init: lecun normal
+            nn.init.normal_(self.weight, std=(cin * kernel_size * kernel_size) ** -0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        x = x.to(dt).permute(0, 3, 1, 2)
+        bias = None if self.bias is None else self.bias.to(dt)
+        pad = self.padding
+        if isinstance(pad, int):
+            out = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad)
+        else:
+            (top, bottom), (left, right) = pad
+            out = F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight.to(dt), bias, self.stride)
+        return out.permute(0, 2, 3, 1)
+
+
+def zero_linear(din: int, dout: int, *, dtype=None, device=None, param_dtype=torch.float32) -> Linear:
+    """Zero-initialised Linear (nn.py:524, the reference's ``zero_module``)."""
+    return Linear(din, dout, dtype=dtype, zero_init=True, device=device, param_dtype=param_dtype,
+                  **accum_dtype_kwargs(dtype))
+
+
+def zero_conv(cin: int, cout: int, kernel: int, *, dtype=None, device=None, param_dtype=torch.float32) -> Conv2d:
+    """Zero-initialised 'same' conv (nn.py:533), as guided-diffusion's out convs."""
+    return Conv2d(cin, cout, kernel, padding=kernel // 2, zero_init=True, dtype=dtype, device=device,
+                  param_dtype=param_dtype)
+
+
+#: the reference's opt-in switch for fp32 matmul outputs under a half compute
+#: dtype (nn.py:79); off there by default, and so here
+ACCUM_FP32 = False
+
+
+def accum_dtype_kwargs(dtype: torch.dtype | None) -> dict:
+    """Matmul constructor kwargs that keep an fp32 output under a half
+    compute dtype (nn.py:87): ``{"out_dtype": torch.float32}`` when
+    :data:`ACCUM_FP32` is on, else nothing."""
+    if ACCUM_FP32 and dtype is not None and dtype.is_floating_point and torch.finfo(dtype).bits < 32:
+        return {"out_dtype": torch.float32}
+    return {}
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10_000) -> torch.Tensor:
@@ -109,6 +176,71 @@ class GroupNorm(nn.Module):
         return y.to(dt)
 
 
+class GroupNorm32(nn.Module):
+    """GroupNorm computed in fp32 (nn.py:282), NHWC: ``min(num_groups, C)``
+    groups, eps 1e-5, the output cast back to the input dtype. The
+    parameters sit in ``norm`` (``norm.scale``, ``norm.bias``), as the
+    reference's do."""
+
+    def __init__(self, num_groups: int, channels: int, *, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.norm = GroupNorm(channels, min(num_groups, channels), eps=1e-5, dtype=torch.float32,
+                              device=device, param_dtype=param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x.float()).to(x.dtype)
+
+
+def normalization(channels: int, *, device=None) -> GroupNorm32:
+    """The standard 32-group normalization layer (nn.py:300)."""
+    return GroupNorm32(32, channels, device=device)
+
+
+class Upsample(nn.Module):
+    """2x nearest-neighbour upsample with an optional 3x3 conv, NHWC (nn.py:334)."""
+
+    def __init__(self, channels: int, use_conv: bool, out_channels: int | None = None, *,
+                 dtype=torch.float32, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.channels = channels
+        self.out_channels = out_channels or channels
+        self.use_conv = use_conv
+        if use_conv:
+            self.conv = Conv2d(channels, self.out_channels, 3, padding=1, dtype=dtype, device=device,
+                               param_dtype=param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.channels:
+            raise ValueError(f"Upsample of {self.channels} channels got {x.shape[-1]}")
+        x = nearest_upsample_2x(x)
+        return self.conv(x) if self.use_conv else x
+
+
+class Downsample(nn.Module):
+    """2x downsample by a stride-2 3x3 conv (padding 1) or a 2x2 average
+    pool, NHWC (nn.py:365)."""
+
+    def __init__(self, channels: int, use_conv: bool, out_channels: int | None = None, *,
+                 dtype=torch.float32, device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.channels = channels
+        self.out_channels = out_channels or channels
+        self.use_conv = use_conv
+        if use_conv:
+            self.op = Conv2d(channels, self.out_channels, 3, stride=2, padding=1, dtype=dtype, device=device,
+                             param_dtype=param_dtype)
+        elif self.channels != self.out_channels:
+            raise ValueError("an average-pool Downsample keeps its channels")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.channels:
+            raise ValueError(f"Downsample of {self.channels} channels got {x.shape[-1]}")
+        if self.use_conv:
+            return self.op(x)
+        b, h, w, c = x.shape
+        return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))
+
+
 def modulate(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     """adaLN modulation ``x * (1 + scale) + shift`` (nn.py:130)."""
     return x * (1 + scale) + shift
@@ -118,6 +250,13 @@ def packed_swiglu(x: torch.Tensor) -> torch.Tensor:
     """SwiGLU over a packed [..., 2*dim] tensor (nn.py:135)."""
     x1, x3 = x.chunk(2, dim=-1)
     return F.silu(x1) * x3
+
+
+def geglu(x: torch.Tensor) -> torch.Tensor:
+    """GEGLU over a packed [..., 2*dim] tensor (nn.py:141), with the tanh
+    GELU that ``jax.nn.gelu`` defaults to (trap T2)."""
+    x1, gate = x.chunk(2, dim=-1)
+    return x1 * F.gelu(gate, approximate="tanh")
 
 
 def get_cos_sin_ndim_grid(
@@ -217,6 +356,23 @@ def make_drop_mask(generator: torch.Generator, p: float, batch_size: int,
     generator's device)."""
     device = generator.device if device is None else device
     return torch.rand((batch_size,), generator=generator, device=device) < p
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal embedding + 2-layer SiLU MLP (nn.py:449); the conditioning
+    path, so fp32 under a half ``dtype``."""
+
+    def __init__(self, hidden_dim: int, frequency_dim: int = 256, *, dtype=None, device=None,
+                 param_dtype=torch.float32):
+        super().__init__()
+        self.frequency_dim = frequency_dim
+        dtype = stable_dtype(dtype)
+        self.fc1 = Linear(frequency_dim, hidden_dim, dtype=dtype, device=device, param_dtype=param_dtype)
+        self.fc2 = Linear(hidden_dim, hidden_dim, dtype=dtype, device=device, param_dtype=param_dtype)
+
+    def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        emb = timestep_embedding(timesteps, self.frequency_dim).to(self.fc1.weight.dtype)
+        return self.fc2(F.silu(self.fc1(emb)))
 
 
 class ModulationOut:

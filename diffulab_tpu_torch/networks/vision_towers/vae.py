@@ -7,9 +7,8 @@ diffusers' ``AutoencoderKL`` family, the Flux VAEs included, instantiates.
 :func:`load_autoencoder_kl_state_dict` maps a diffusers checkpoint, given as
 numpy arrays, onto these modules.
 
-Convolutions keep the JAX package's NHWC layout at their boundaries: an NHWC
-tensor permuted to NCHW is a channels-last view, which cuDNN convolves
-without a copy, and the result permutes back to NHWC the same way. The mid
+Convolutions (:class:`~diffulab_tpu_torch.networks.nn.Conv2d`) keep the JAX
+package's NHWC layout at their boundaries. The mid
 attention is plain einsum + softmax in the JAX package (vae.py:53-61), not a
 Pallas kernel, so it stays ``torch.matmul`` here; it runs one image at a
 time, since at 128x128 latents its fp32 score matrix is 1 GiB an image.
@@ -24,38 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diffulab_tpu_torch.networks.nn import GroupNorm, Linear, nearest_upsample_2x
-
-
-class Conv2d(nn.Module):
-    """``nnx.Conv`` on NHWC input: ``weight`` OIHW (torch's layout; the
-    bridge transposes JAX's HWIO kernels), ``bias``; ``padding`` is an int
-    (symmetric) or ``((top, bottom), (left, right))``. ``dtype`` as in
-    :class:`~diffulab_tpu_torch.networks.nn.Linear`."""
-
-    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
-                 padding: int | tuple[tuple[int, int], tuple[int, int]] = 0, *,
-                 dtype=None, device=None, param_dtype=torch.float32):
-        super().__init__()
-        self.stride = stride
-        self.padding = padding
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size,
-                                               device=device, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(cout, device=device, dtype=param_dtype))
-        # nnx.Conv's default kernel init: lecun normal
-        nn.init.normal_(self.weight, std=(cin * kernel_size * kernel_size) ** -0.5)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        x = x.to(dt).permute(0, 3, 1, 2)
-        pad = self.padding
-        if isinstance(pad, int):
-            out = F.conv2d(x, self.weight.to(dt), self.bias.to(dt), self.stride, pad)
-        else:
-            (top, bottom), (left, right) = pad
-            out = F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight.to(dt), self.bias.to(dt), self.stride)
-        return out.permute(0, 2, 3, 1)
+from diffulab_tpu_torch.networks.nn import Conv2d, GroupNorm, Linear, nearest_upsample_2x
 
 
 class VAEResnetBlock(nn.Module):

@@ -3,11 +3,15 @@
 The models call ``dot_product_attention(q, k, v, kv_mask)`` on the
 reference's ``[B, S, H, D]`` layout. Dispatch:
 
-- ``impl="auto"``: for head dims in
-  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`, the fused
-  whole-softmax kernel K1 for padded sequences of at most
-  :data:`FUSED_MAX_SEQ` tokens, the KV-tiled flash kernel K3 above (on CPU
-  tensors, their plain versions). The reference keeps K1 while its VMEM
+- ``impl="auto"``: the fused whole-softmax kernel K1 for padded sequences
+  of at most :data:`FUSED_MAX_SEQ` tokens, the KV-tiled flash kernel K3
+  above (on CPU tensors, their plain versions), for head dims in
+  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`; at the UNet's
+  head dims :data:`~diffulab_tpu_torch.ops.fused_mha.F32_ONLY_HEAD_DIMS`, K1
+  in fp32 alone. Any other head dim, a bf16 tensor at those, or those past
+  the fused kernel's length raise ``NotImplementedError``
+  (:func:`~diffulab_tpu_torch.ops.fused_mha.check_head_dim`; the last two
+  name ROADMAP queue 2a). The reference keeps K1 while its VMEM
   budget holds, then XLA SDPA, then flash from ``FLASH_MIN_SEQ``; the port
   never calls SDPA, so K3 takes the whole range beyond K1's.
 - ``impl="fused"`` / ``"flash"``: that kernel at any length.
@@ -31,8 +35,9 @@ import torch.nn.functional as F
 
 from diffulab_tpu_torch.ops.flash_attention import flash_attention
 from diffulab_tpu_torch.ops.fused_mha import (
-    KERNEL_HEAD_DIMS,
+    FUSED_HEAD_DIMS,
     MIN_BLOCK,
+    check_head_dim,
     fused_mha,
     fused_mha_reference,
 )
@@ -61,7 +66,7 @@ def use_fused(q_shape: tuple[int, ...], kv_len: int) -> bool:
     """Whether ``auto`` takes the fused kernel for this shape (after padding)."""
     _, sq, _, d = q_shape
     seq = max(_round_up(sq, MIN_BLOCK), _round_up(kv_len, MIN_BLOCK))
-    return d in KERNEL_HEAD_DIMS and seq <= FUSED_MAX_SEQ
+    return d in FUSED_HEAD_DIMS and seq <= FUSED_MAX_SEQ
 
 
 def dot_product_attention(
@@ -79,11 +84,8 @@ def dot_product_attention(
     if impl == "xla":
         return _fused_path(q, k, v, kv_mask, scale, plain=True)
     if impl == "auto":
-        if q.shape[-1] not in KERNEL_HEAD_DIMS:
-            raise NotImplementedError(
-                f"head dim {q.shape[-1]}: the attention kernels are instantiated for {KERNEL_HEAD_DIMS}"
-            )
         impl = "fused" if use_fused(q.shape, k.shape[1]) else "flash"
+        check_head_dim(q.shape[-1], q.dtype, impl)
     if impl == "flash":
         return flash_attention(q, k, v, kv_mask, scale)[0]
     return _fused_path(q, k, v, kv_mask, scale)

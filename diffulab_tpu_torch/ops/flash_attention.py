@@ -215,7 +215,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
     """K3 on CUDA tensors, its plain version on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask, sm_scale)
-    _check_cuda_inputs(q, k, v, kv_mask, block=1, name="flash_attention")
+    _check_cuda_inputs(q, k, v, kv_mask, route="flash", name="flash_attention")
     b, sq, h, d = q.shape
     skv = k.shape[1]
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
@@ -240,7 +240,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
 def _check_bwd_inputs(q, k, v, kv_mask, lse, *like_q) -> None:
     """Raise unless the backward's inputs meet the kernels' contract: q/k/v as
     for K3, each of ``like_q`` (o, do) q's shape and dtype, lse fp32 [B, H, Sq]."""
-    _check_cuda_inputs(q, k, v, kv_mask, block=1, name="flash_attention_bwd")
+    _check_cuda_inputs(q, k, v, kv_mask, route="flash", name="flash_attention_bwd")
     b, sq, h, _ = q.shape
     for t in like_q:
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

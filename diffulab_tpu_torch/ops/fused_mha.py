@@ -34,7 +34,11 @@ GFLOP at slice C1's B=128, S=256, H=8, D=64) the products run on the tensor
 cores as 3xTF32 (each operand split into two TF32 halves, three ``mma.sync``
 products, about 2^-21 relative each; :func:`matmul_3xtf32` emulates them),
 one CTA per 64 queries in one pass over 32-key tiles with an online softmax
-and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`).
+and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`). The
+UNet's head dims 192 and 384 have fp32 instances alone
+(:data:`F32_ONLY_HEAD_DIMS`): there column groups of warps split each row's
+output and, at 384, the score products' reduction over D
+(:func:`f32_groups`).
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -84,8 +88,13 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MIN_BLOCK = 128
 #: query rows of a tile and keys of a TMA box: Sq and Skv must be multiples
 KERNEL_BLOCK = 64
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for, bf16 and fp32
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+#: head dims with an fp32 instance alone (the UNet's, ``train_synthetic_ddpm.yaml``);
+#: their bf16 instances are ROADMAP queue 2a
+F32_ONLY_HEAD_DIMS = (192, 384)
+#: every head dim of the fused kernels K1/K2
+FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + F32_ONLY_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may use on an H100 (bytes)
 SMEM_LIMIT = 232448
@@ -138,13 +147,53 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
 
 #: query (or key) rows of an fp32 CTA
 F32_ROWS = 64
-#: keys of a ring slot of the fp32 K1 (``F32_KEYS`` in the source)
+#: keys of a ring slot of the fp32 K1 up to D = 192 (``f32_keys`` in the source)
 F32_KEYS = 32
 
 
-#: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`
-#: (read by chip_smoke.py)
-LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0}
+def f32_keys(d: int) -> int:
+    """Keys of a ring slot of the fp32 K1 at head dim ``d``: 32, and 16 at
+    D = 384 (``f32_keys`` in the source), the tile of its online softmax.
+    This and :func:`f32_groups` mirror the built libraries'
+    ``fused_mha_fwd_f32_tiles`` and ``fused_mha_bwd_f32_groups``, which
+    chip_smoke.py holds them to on the card."""
+    return F32_KEYS if d <= 192 else 16
+
+
+def f32_groups(d: int) -> tuple[int, int]:
+    """Column groups of warps that split the score products' D-reduction in
+    the fp32 kernels at head dim ``d``, (K1 and K2's dq kernel, K2's dk/dv
+    kernel): at D = 384, (2, 4), each group's partial tile summed with the
+    others' in group order (``f32_cols``, ``dq_cols``, ``dkv_shares`` in the
+    sources); else (1, 1)."""
+    return (2, 4) if d == 384 else (1, 1)
+
+
+def check_head_dim(d: int, dtype: torch.dtype, route: str = "fused") -> None:
+    """Raise ``NotImplementedError`` unless the ``route``'s kernels ("fused":
+    K1/K2, "flash": K3-K5) have an instance for head dim ``d`` in ``dtype``,
+    naming ROADMAP queue 2a where the instance is queued: a bf16 tensor at an
+    fp32-only dim, or the flash route at one."""
+    if d in F32_ONLY_HEAD_DIMS and (route == "flash" or dtype != torch.float32):
+        kernels = "flash kernels' instances" if route == "flash" else f"fused kernels' {dtype} instances"
+        raise NotImplementedError(f"head dim {d}: the {kernels} at head dims {F32_ONLY_HEAD_DIMS} are not ported yet "
+                                  "(ROADMAP queue 2a)")
+    if d not in (FUSED_HEAD_DIMS if route == "fused" else KERNEL_HEAD_DIMS):
+        raise NotImplementedError(f"head dim {d}: the attention kernels are instantiated for {KERNEL_HEAD_DIMS} "
+                                  f"(and in fp32 for {F32_ONLY_HEAD_DIMS} on the fused route)")
+
+
+#: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`;
+#: a ``_f32_d<D>`` key counts the launches of the fp32 instance at an fp32-only
+#: head dim alone, which its kernel's key counts too (read by chip_smoke.py)
+LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0,
+            **{f"fused_mha_{kind}_f32_d{d}": 0 for kind in ("fwd", "bwd") for d in F32_ONLY_HEAD_DIMS}}
+
+
+def _count(name: str, d: int) -> None:
+    LAUNCHES[name] += 1
+    if d in F32_ONLY_HEAD_DIMS:
+        LAUNCHES[f"{name}_f32_d{d}"] += 1
 
 
 def _masked_scores(s, kv_mask, sm_scale) -> torch.Tensor:
@@ -271,12 +320,26 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def matmul_3xtf32_grouped(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
+    """:func:`matmul_3xtf32` with the reduction split into ``groups`` equal
+    chunks, each chunk's product formed alone and the partials added in
+    order: the fp32 kernels' score products split over column groups."""
+    if groups == 1:
+        return matmul_3xtf32(a, b)
+    n = a.shape[-1] // groups
+    out = torch.zeros(())
+    for c in range(groups):
+        out = out + matmul_3xtf32(a[..., c * n:(c + 1) * n], b[..., c * n:(c + 1) * n, :])
+    return out
+
+
 def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The fp32 K1's tile math on fp32 CPU tensors: :func:`matmul_3xtf32`
-    products, one pass over tiles of :data:`F32_KEYS` keys with an online row
+    products, one pass over tiles of :func:`f32_keys` keys with an online row
     max and sum (the running o rescaled), and o divided by l at the end (not
     p before PV: fp32 p is never rounded to a narrower type, so the two
-    orders differ in rounding only). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    orders differ in rounding only). At D = 384 the scores are the sum of
+    two half-D products (:func:`f32_groups`). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
@@ -284,10 +347,11 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     m = torch.full((b, h, sq, 1), -torch.inf)
     l = torch.zeros(b, h, sq, 1)
     acc = torch.zeros(b, h, sq, d)
-    kt = F32_KEYS
+    kt = f32_keys(d)
     for n0 in range(0, kh.shape[2], kt):
         tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
-        s = _masked_scores(matmul_3xtf32(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2)), tile_mask, sm_scale)
+        s = _masked_scores(matmul_3xtf32_grouped(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), f32_groups(d)[0]),
+                           tile_mask, sm_scale)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -311,15 +375,18 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     = dsᵀ·q. ``kept``: the dq kernel that keeps p and dp between its passes,
     two warps a row each summing di and dq over one half of every 64-key
     step, half 0's sum plus half 1's; else the one that forms s and dp again
-    for dq. Returns (dq, dk, dv, di [B,H,Sq])."""
+    for dq. At D = 384 the score products are split over column groups
+    (:func:`f32_groups`). Returns (dq, dk, dv, di [B,H,Sq])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    dq_groups, dkv_groups = f32_groups(q.shape[-1])
     qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
     lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
 
     def probs_and_dp():
-        p = torch.exp(_masked_scores(matmul_3xtf32(qh, kh.transpose(-1, -2)), kv_mask, sm_scale) - lse_r)
-        return p, matmul_3xtf32(doh, vh.transpose(-1, -2))
+        s = matmul_3xtf32_grouped(qh, kh.transpose(-1, -2), dq_groups)
+        p = torch.exp(_masked_scores(s, kv_mask, sm_scale) - lse_r)
+        return p, matmul_3xtf32_grouped(doh, vh.transpose(-1, -2), dq_groups)
 
     p, dp = probs_and_dp()
     if kept:
@@ -332,12 +399,12 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
         p, dp = probs_and_dp()
         dq = matmul_3xtf32(p * (dp - di) * sm_scale, kh)
     # the dk/dv kernel: rows are keys, masked by key; lse and di by query column
-    st = matmul_3xtf32(kh, qh.transpose(-1, -2)) * sm_scale
+    st = matmul_3xtf32_grouped(kh, qh.transpose(-1, -2), dkv_groups) * sm_scale
     if kv_mask is not None:
         st = torch.where(kv_mask[:, None, :, None].bool(), st, DEFAULT_MASK_VALUE)
     pt = torch.exp(st - lse_r.transpose(-1, -2))
     dv = matmul_3xtf32(pt, doh)
-    dst = pt * (matmul_3xtf32(vh, doh.transpose(-1, -2)) - di.transpose(-1, -2)) * sm_scale
+    dst = pt * (matmul_3xtf32_grouped(vh, doh.transpose(-1, -2), dkv_groups) - di.transpose(-1, -2)) * sm_scale
     dk = matmul_3xtf32(dst, qh)
     back = (t.permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
     return (*back, di[..., 0])
@@ -356,9 +423,10 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _check_cuda_inputs(q, k, v, kv_mask, block: int = KERNEL_BLOCK, name: str = "fused_mha") -> None:
-    """Raise unless q/k/v/kv_mask meet the kernels' device, shape and dtype
-    contract: Sq and Skv nonzero multiples of ``block`` (1 for the flash kernel)."""
+def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fused_mha") -> None:
+    """Raise unless q/k/v/kv_mask meet the ``route``'s kernels' device, shape
+    and dtype contract: Sq and Skv nonzero multiples of :data:`KERNEL_BLOCK`
+    (of 1 on the flash route), the head dim one :func:`check_head_dim` takes."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {device}")
@@ -370,8 +438,8 @@ def _check_cuda_inputs(q, k, v, kv_mask, block: int = KERNEL_BLOCK, name: str = 
     dtype = q.dtype
     if dtype not in _DTYPE_CODES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {dtype}/{k.dtype}/{v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    check_head_dim(d, dtype, route)
+    block = 1 if route == "flash" else KERNEL_BLOCK
     if sq < 1 or skv < 1 or sq % block or skv % block:
         raise ValueError(f"Sq={sq} and Skv={skv} must be nonzero multiples of {block}")
     if k.device != device or v.device != device:
@@ -403,7 +471,8 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
     mask = _int_mask(kv_mask, device)  # held until the launch: o must not take its memory
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=device)
-    inst = forward_instance(skv, d)
+    # the bf16 kernel's instance; the fp32 kernel takes its tiles from the head dim alone
+    inst = forward_instance(skv, d) if q.dtype == torch.bfloat16 else None
     q_sb, q_ss = q.stride()[:2]
     k_sb, k_ss = k.stride()[:2]
     v_sb, v_ss = v.stride()[:2]
@@ -411,11 +480,11 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
     err = _build.load("fused_mha_fwd").fused_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, sq, skv, h, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-        sm_scale, _DTYPE_CODES[q.dtype], inst.resident, inst.chunk, inst.buffers,
+        sm_scale, _DTYPE_CODES[q.dtype], *((inst.resident, inst.chunk, inst.buffers) if inst else (0, 0, 0)),
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, "fused_mha_fwd")
-    LAUNCHES["fused_mha_fwd"] += 1
+    _count("fused_mha_fwd", d)
     return o, lse
 
 
@@ -465,7 +534,7 @@ def fused_mha_bwd(
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "fused_mha_bwd")
-    LAUNCHES["fused_mha_bwd"] += 1
+    _count("fused_mha_bwd", d)
     return dq, dk, dv
 
 
@@ -501,7 +570,8 @@ def fused_mha(
     Returns (o, lse); o is differentiable in q, k and v.
 
     On CUDA tensors it launches the kernels (Sq and Skv multiples of 64,
-    head dim in :data:`KERNEL_HEAD_DIMS`, bf16 or fp32 — pad through
+    head dim in :data:`KERNEL_HEAD_DIMS` in bf16 or fp32, or in
+    :data:`F32_ONLY_HEAD_DIMS` in fp32 — pad through
     :func:`diffulab_tpu_torch.ops.attention.dot_product_attention`); on CPU
     tensors it runs the plain versions. Without grad (sampling) it is the
     forward alone and saves nothing.

@@ -300,14 +300,15 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [(["--prompts", "a cat"], "item 16"),
-                                        (["diffuser=gaussian_diffusion"], "item 14"),
+                                        (["model.attention_impl=ring"], "item 17"),
                                         (["trainer.lora_rank=4"], "item 16"),
                                         (["--config-name", "train_synthetic_edm_repa"], "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
-    """--prompts and LoRA checkpoints (item 16), the Gaussian formalization
-    (item 14) and REPA configs (item 13) raise. --guide-ckpt, --cache-*,
-    --inpaint-*, --img2img-image and every sampler are ported and run in
-    tests/test_torch_port_c2_cli.py."""
+    """--prompts and LoRA checkpoints (item 16), ring attention (item 17) and
+    REPA configs (item 13) raise. --guide-ckpt, --cache-*, --inpaint-*,
+    --img2img-image and every sampler are ported and run in
+    tests/test_torch_port_c2_cli.py; the Gaussian formalization in
+    tests/test_torch_port_d1_cli.py."""
     with pytest.raises(NotImplementedError, match=item):
         sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])
 

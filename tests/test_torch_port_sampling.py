@@ -154,20 +154,19 @@ def test_generate_needs_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_sampling_features_raise():
-    """What still raises: the Gaussian formalization (ROADMAP item 14) and
-    the GRPO loss (item 16). The samplers, EDM, block caching and the
-    generate options are ported (tests/test_torch_port_{samplers,edm,caching,guided}.py):
-    each builds here and runs one request."""
+    """What still raises: the GRPO loss (item 16). The samplers, EDM, the
+    Gaussian formalization, block caching and the generate options are ported
+    (tests/test_torch_port_{samplers,edm,gaussian,caching,guided}.py): each
+    builds here and runs one request."""
     model = MMDiT(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Diffuser(model, "ddim", model_type="gaussian_diffusion")
     with pytest.raises(NotImplementedError, match="item 16"):
         Diffuser(model, "euler_maruyama", n_steps=2).compute_loss(None, {}, None, None, grpo=True)
     cond = {"y": torch.tensor([0])}
     gen = torch.Generator().manual_seed(0)
-    for sampler, model_type in (("heun", "rectified_flow"), ("heun", "edm")):
-        out = Diffuser(model, sampler, model_type=model_type, n_steps=2).generate(
-            cond, data_shape=(1, *LATENT), generator=gen, guidance_scale=2.0, device="cpu")["x"]
+    for sampler, model_type in (("heun", "rectified_flow"), ("heun", "edm"), ("ddim", "gaussian_diffusion")):
+        diffuser = Diffuser(model, sampler, model_type=model_type, n_steps=1000 if sampler == "ddim" else 2)
+        diffuser.set_steps(2)  # a Gaussian schedule respaces its 1000 training steps
+        out = diffuser.generate(cond, data_shape=(1, *LATENT), generator=gen, guidance_scale=2.0, device="cpu")["x"]
         assert out.shape == (1, *LATENT) and bool(torch.isfinite(out).all())
     # latent mode is ported: the tower's latent scale and bias are taken over
     tower = Flux2VAE(base_channels=8, ch_mult=(1,), num_res_blocks=1, latent_channels=1, device="cpu")
