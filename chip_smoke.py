@@ -88,7 +88,7 @@ Phases, one line each:
      replays; K2's and the SDPA autograd backward's kernels also summed by
      torch.profiler), bounds at 3xTF32 and at the fp32 CUDA-core peak, the
      products each design runs; then, in process, the
-     ``train_diffusion`` CLI on ``train_synthetic_flow_matching`` (2 epochs of
+     ``train_diffusion`` CLI on ``train_synthetic_flow_matching`` (1 epoch of
      2048 samples, 256 for validation; everything else at the config's
      values), ``reconstruct_ema`` at sigma_rel 0.05 and 0.10, and ``sample``
      of 16 images at CFG 1.5 from the 0.05 reconstruction: 10 K1 + 10 K2
@@ -121,11 +121,28 @@ Phases, one line each:
      fp32 SDPA with the same mask; the config's UNet (155.7M parameters,
      fp32) forward and gradients on the kernel path against plain attention
      (11 K1, 11 K2); ``configs/train_synthetic_ddpm.yaml`` (the ADM UNet under
-     Gaussian diffusion) through ``train_diffusion`` with post-hoc EMA (2
-     epochs of 1024 samples, 256 for validation; 11 K1 + 11 K2 a step),
+     Gaussian diffusion) through ``train_diffusion`` with post-hoc EMA (1
+     epoch of 1024 samples, 256 for validation; 11 K1 + 11 K2 a step),
      ``reconstruct_ema`` and two DDIM-50 ``sample`` requests of 16 images at
      CFG 1.5 (550 K1 each), every K1/K2 launch an instance at D=192 or D=384
-     by their own counters; ms per step, samples/s, peak memory, ms per request.
+     by their own counters; ms per step, samples/s, peak memory, ms per request;
+ 18. slice E1, the hard synthetic dataset and live-encoder REPA: the bf16 K1
+     and K2 at the hard configs' attention shape (B=128, S=256, H=8, D=64;
+     K1 also at the teacher's B=256) against their plain versions, K1 timed
+     beside bf16 SDPA and its bound; then six configs through the CLIs, each
+     one epoch of 1024 samples (256 for validation): (a)
+     ``train_synthetic_hard_flow`` (bf16: 10 bf16 K1 + 10 bf16 K2 a step by
+     the instances' own counters), ``reconstruct_ema``,
+     ``train_synthetic_hard_distill`` from its ``phema_sr0.05`` (20 + 10 a
+     step) and a 16-image Euler-50 request at CFG 1.5 from the student (500
+     K1, fp32 as the sample CLI builds the model), with the samples' caption
+     consistency; (b) ``train_synthetic_colorize`` and a request on the
+     validation luma; (c) ``train_synthetic_{flow,edm,ddpm}_repa`` (the
+     seed-4321 FixedViT as the frozen target; 10 + 10 or, for the UNet, 11 +
+     11 a step at D=192/384), a request from each restored checkpoint (500,
+     350, 550 K1), one REPA loss dict recomputed on the host with the same
+     weights, rows and draws (rtol 1e-3), and the card's FixedViT against
+     jax_prng's draw, bit for bit.
 Phases 8 and 11 also time the flash kernels' fp32 instances at their slice
 shapes beside fp32 SDPA.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
@@ -147,6 +164,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Any
 
 ROOT = Path(__file__).resolve().parent
 
@@ -203,9 +221,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 
 # slice C1: configs/train_synthetic_flow_matching.yaml through the port's CLIs,
-# cut only in epochs (12 -> 2) and data (10000 -> 2048 train, 2000 -> 256 val)
+# cut only in epochs (12 -> 1; 2 until slice E1's phase 18 took the time) and data
+# (10000 -> 2048 train, 2000 -> 256 val)
 C1_CONFIG = "train_synthetic_flow_matching"
-C1_CUTS = {"trainer.n_epoch": (12, 2), "dataset.train.n_samples": (10000, 2048), "dataset.val.n_samples": (2000, 256)}
+C1_CUTS = {"trainer.n_epoch": (12, 1), "dataset.train.n_samples": (10000, 2048), "dataset.val.n_samples": (2000, 256)}
 C1_BATCH, C1_DEPTH, C1_HEADS, C1_SEQ = 128, 10, 8, 256  # the config's batch, depth, heads; 32x32 / patch 2
 C1_SIGMA_RELS = ("0.05", "0.10")
 C1_SAMPLES, C1_GUIDANCE, C1_STEPS = 16, 1.5, 50  # the sample request: 2x16 under fused CFG, Euler-50
@@ -227,9 +246,10 @@ C2_REFLOW_PAIRS, C2_REFLOW_VAL = 512, 128
 # phase 17: slice D1, configs/train_synthetic_ddpm.yaml (the ADM UNet at model_channels 96,
 # channel_mult 1,2,4,8, 2 heads, attention at ds 4 and 8 and in the middle block; Gaussian
 # diffusion sampled by DDIM; fp32, batch 128) through the CLIs, cut in epochs and data as C1
-# (12 -> 2 epochs, 10000 -> 1024 train and 2000 -> 256 validation samples), with post-hoc EMA
+# (12 -> 1 epoch, 2 until phase 18; 10000 -> 1024 train and 2000 -> 256 validation samples),
+# with post-hoc EMA
 D1_CONFIG = "train_synthetic_ddpm"
-D1_CUTS = {"trainer.n_epoch": (12, 2), "dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256)}
+D1_CUTS = {"trainer.n_epoch": (12, 1), "dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256)}
 D1_ON = ("trainer.posthoc_ema=true",)  # the config leaves post-hoc EMA off; the reconstruct step needs it
 D1_BATCH, D1_HEADS, D1_PADDED = 128, 2, 128
 # (head dim, tokens, attention calls a forward): 8x8 tokens at ds 4 (2 encoder + 3 decoder
@@ -238,6 +258,30 @@ D1_ATTN = ((192, 64, 5), (384, 16, 6))
 D1_CALLS = sum(n for _, _, n in D1_ATTN)  # 11 K1 a forward, 11 K2 a backward
 D1_SAMPLES, D1_GUIDANCE, D1_STEPS = 16, 1.5, 50  # a DDIM-50 request, 2x16 under fused CFG
 D1_COUNTERS = tuple(f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d, _, _ in D1_ATTN)
+BF16_COUNTERS = ("fused_mha_fwd_bf16", "fused_mha_bwd_bf16")  # the bf16 instances' own counts (slice E1)
+
+# phase 18: slice E1, the hard synthetic dataset and live-encoder REPA: six download-free configs
+# through the CLIs at their full width and depth, each cut to one epoch and in data (10000 -> 1024
+# train, 2000 -> 256 validation samples: 8 steps of 128 an epoch, 2 validation batches). The hard
+# configs are bf16 DiTs with patch 4 on 64x64 (256 tokens, 8 heads of 64); colorize and the DiT REPA
+# configs are C1's fp32 DiT; ddpm_repa is D1's UNet; the REPA encoder is the seed-4321 FixedViT.
+E1_DATA = {"dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256)}
+E1_BATCH, E1_STEPS_PER_EPOCH, E1_SEQ = 128, 1024 // 128, 256
+E1_SAMPLES, E1_GUIDANCE = 16, 1.5
+# per config: K1, K2 and K3 launches a train step, K1 a sample request and the request's flags
+# (the DiTs: 10 blocks; Euler-50 with CFG as one 2x call, EDM's Heun-18 35 evals; the UNet: 11
+# attention calls, DDIM-50); the distillation step adds the teacher's guided forward (one 2x call)
+E1_RUNS = {
+    "train_synthetic_hard_flow": ((C1_DEPTH, C1_DEPTH, 0), None, ()),
+    "train_synthetic_hard_distill": ((2 * C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ("--guidance", str(E1_GUIDANCE))),
+    "train_synthetic_colorize": ((C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ()),
+    "train_synthetic_flow_repa": ((C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ("--guidance", str(E1_GUIDANCE))),
+    "train_synthetic_edm_repa": ((C1_DEPTH, C1_DEPTH, 0), None, ("--guidance", str(E1_GUIDANCE))),
+    "train_synthetic_ddpm_repa": ((D1_CALLS, D1_CALLS, 0), 50 * D1_CALLS, ("--guidance", str(E1_GUIDANCE),
+                                                                          "--steps", "50")),
+}
+E1_CPU_BATCH = 4  # the rows of a batch whose REPA loss dict is recomputed on the host
+E1_LOSS_RTOL = 1e-3
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -1398,6 +1442,7 @@ def phase_gradients(model, plain):
         grads.append({n: p.grad for n, p in diffuser.denoiser.named_parameters()})
         losses.append(float(loss.detach()))
         if diffuser.denoiser is model and launched != {"fused_mha_fwd": DIT_B2["depth"], "fused_mha_bwd": DIT_B2["depth"],
+                                                        **dict.fromkeys(BF16_COUNTERS, DIT_B2["depth"]),
                                                         **dict.fromkeys(D1_COUNTERS, 0)}:
             fail(f"DiT-B/2 gradients: kernel path launched {launched}, expected {DIT_B2['depth']} of each")
     worst, worst_name = 0.0, None
@@ -1549,7 +1594,7 @@ def phase_txt2img_gradients(model, plain):
     depth = TXT["depth"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys(D1_COUNTERS, 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *D1_COUNTERS), 0)}
     if launched[0] != expected or any(launched[1].values()):
         fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
     worst, worst_name = 0.0, None
@@ -1664,7 +1709,7 @@ def phase_txt2img_train(model, tower):
         fail(f"txt2img train: validation images {logged}, expected {image_shape} in [0, 1] with captions")
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys(D1_COUNTERS, 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *D1_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
         step = {key: c1[key] - c0[key] for key in c1}
@@ -2104,7 +2149,8 @@ def phase_c2_cli(root: Path, c1_run: Path):
         fail(f"C2 train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}")
     _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", *C1_SIGMA_RELS], log)
     ckpts = run / "checkpoints"
-    # the epoch-1 post-hoc EMA snapshot as an entry the restore reads (params only): the early model
+    # the epoch-1 post-hoc EMA snapshot (gamma 6.94, the shorter horizon) as an entry the restore reads
+    # (params only): the guide
     first = sorted((ckpts / "phema").glob("step*_g6.94"))[0]
     shutil.copytree(first, ckpts / "phema_epoch1")
     labels = ",".join(str(i) for i in range(10))
@@ -2458,6 +2504,281 @@ def phase_d1_cli(root: Path):
             "generate_ms": requests, "peak_gib": tr["peak_gib"]}
 
 
+def phase_e1_kernels():
+    """Phase 18a's kernels: the bf16 K1 and K2 instances at D=64 at slice
+    E1's attention shape (the hard configs' DiT: B=128, S=256, H=8; K1 also
+    at the distillation teacher's 2x batch), against their plain versions.
+    K1 timed from CUDA-graph replays beside bf16 SDPA, its plain version and
+    its bound at the bf16 peak; K2 beside its bound. The fp32 instances at
+    E1's other shapes are phase 14a's (D=64: colorize, flow_repa, edm_repa)
+    and phase 17a's (D=192, 384: ddpm_repa)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    s, h, d = E1_SEQ, C1_HEADS, 64
+
+    def rand(b):
+        return torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+
+    with torch.no_grad():
+        q, k, v = rand(2 * E1_BATCH), rand(2 * E1_BATCH), rand(2 * E1_BATCH)
+        teacher_err = check_close("E1 K1 bf16 B=256 o", fused_mha(q, k, v)[0], fused_mha_reference(q, k, v)[0],
+                                  *TOL["bfloat16"])
+        b = E1_BATCH
+        q, k, v, do = q[:b], k[:b], v[:b], rand(b)
+        o, lse = fused_mha(q, k, v)
+        ro, rlse = fused_mha_reference(q, k, v)
+        err = check_close("E1 K1 bf16 o", o, ro, *TOL["bfloat16"])
+        check_close("E1 K1 bf16 lse", lse, rlse, *LSE_TOL)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, b * s, 2, mask=False)
+        fwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v)),
+                   plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v), iters=5),
+                   library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        bwd_err = check_grads("E1 K2 bf16", fused_mha_bwd(q, k, v, None, lse, do),
+                              fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["bfloat16"])
+        bwd_ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10, replays=5)
+        bytes_moved = 7 * b * s * h * d * 2 + b * s * h * 4
+        flops = 10 * b * h * s * s * d
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+        del q, k, v, do, o, lse, ro, rlse, qt, kt, vt
+    torch.cuda.synchronize()
+    print(f"phase 18 kernels bf16 at the E1 shape (B={b} S={s} H={h} D={d}; device ms from CUDA-graph replays, bound "
+          f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s): K1 max_abs_err "
+          f"{fwd['max_abs_err']:.3e} (B={2 * b}: {teacher_err:.3e}) kernel {fwd['ms']:.4f} SDPA bf16 "
+          f"{fwd['library_ms']:.4f} plain {fwd['plain_ms']:.4f} bound {fwd['bound_ms']:.4f} ({fwd['bound_by']}: "
+          f"{mb:.1f} MB, {gflop:.2f} GFLOP); K2 max_abs_err {bwd_err:.3e} kernel {bwd_ms:.4f} bound "
+          f"{max(t_bytes, t_ops) * 1e3:.4f} ({'bytes' if t_bytes >= t_ops else 'operations'}: "
+          f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); tol K1 atol {TOL['bfloat16'][0]} rtol "
+          f"{TOL['bfloat16'][1]}, K2 {BWD_TOL['bfloat16']} * (max|ref| + |ref|)")
+    bwd = dict(max_abs_err=bwd_err, ms=bwd_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return fwd, bwd
+
+
+def _e1_overrides(config: str, root: Path) -> tuple[list[str], list[tuple[str, Any, Any]]]:
+    """The E1 cuts of ``config`` as CLI overrides (and as (key, old, new) for the phase line)."""
+    from diffulab_tpu_torch.config import compose_config
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    cuts = [("trainer.n_epoch", compose_config(CONFIG_DIR, config)["trainer"]["n_epoch"], 1),
+            *((key, old, new) for key, (old, new) in E1_DATA.items())]
+    return [f"{key}={new}" for key, _, new in cuts] + [f"trainer.save_path={root}"], cuts
+
+
+def _e1_instances(label: str, launches: dict, kind: str) -> None:
+    """Every K1/K2 launch of a window ran the ``kind`` instances: "bf16"
+    (D=64), "fp32" (D=64) or "unet" (fp32 at D=192, 5 a model call, and
+    D=384, 6), by the instances' own counters."""
+    for op in ("fwd", "bwd"):
+        total, bf16 = launches[f"fused_mha_{op}"], launches[f"fused_mha_{op}_bf16"]
+        by_dim = [launches[f"fused_mha_{op}_f32_d{d}"] for d, _, _ in D1_ATTN]
+        ok = {"bf16": bf16 == total and not any(by_dim),
+              "fp32": bf16 == 0 and not any(by_dim),
+              "unet": bf16 == 0 and sum(by_dim) == total and by_dim[0] * 6 == by_dim[1] * 5}[kind]
+        if not ok:
+            fail(f"E1 {label}: {op} launches {launches}: every one expected on the {kind} instances")
+
+
+def _e1_train(config: str, root: Path, log: Path, kind: str, extra=()):
+    """One E1 config through train_diffusion (timed, launch counts per step)."""
+    from diffulab_tpu_torch.examples import train_diffusion
+
+    overrides, cuts = _e1_overrides(config, root)
+    run = root / config.removeprefix("train_")
+    tr = _timed_train_cli(train_diffusion.main, ["--config-name", config, *overrides, *extra], log, run, 1,
+                          E1_STEPS_PER_EPOCH, config)
+    expected = E1_RUNS[config][0]
+    if tr["per_step"] != [expected] * tr["trainer"].step:
+        fail(f"{config} train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, expected {expected}")
+    _e1_instances(f"{config} train", tr["launches"], kind)
+    return {**tr, "overrides": overrides, "cuts": cuts, "run": run}
+
+
+def _e1_request(config: str, ckpt: Path, out: Path, overrides, log: Path, expected_k1: int, kind: str, *flags):
+    result = _sample_request(["--config-name", config, "--ckpt", str(ckpt), "--n", str(E1_SAMPLES), "--out",
+                              str(out), *E1_RUNS[config][2], *flags, *overrides], log)
+    got = result["launches"]
+    if got["fused_mha_fwd"] != expected_k1 or got["fused_mha_bwd"] or got["flash_attn_fwd"]:
+        fail(f"{config} sample: launches {got}, expected {expected_k1} K1 and no other")
+    _e1_instances(f"{config} sample", got, kind)
+    return result
+
+
+def _e1_line(tr) -> str:
+    cuts = ", ".join(f"{key} {old} -> {new}" for key, old, new in tr["cuts"])
+    return (f"(cut: {cuts}): {tr['trainer'].step} steps in {tr['train_s']:.1f} s, ms/step start to start median after "
+            f"the first two {tr['steady']:.2f} (min {min(tr['step_ms']):.2f} max {max(tr['step_ms']):.2f}; train_step "
+            f"alone {tr['kernel_ms']:.2f}), samples/s {E1_BATCH / tr['steady'] * 1e3:.1f}, peak mem "
+            f"{tr['peak_gib']:.2f} GiB, train loss {[round(x, 5) for x in tr['losses']]}, val loss "
+            f"{[round(x, 5) for x in tr['val_losses']]}")
+
+
+def phase_e1_hard(root: Path):
+    """Phase 18a: train_synthetic_hard_flow (bf16) through train_diffusion,
+    reconstruct_ema to phema_sr0.05, train_synthetic_hard_distill from that
+    snapshot, then its post-hoc EMA reconstruction and a 16-image Euler-50
+    request at CFG 1.5 from the distilled student, the labels and captions of
+    the first 16 validation scenes; the samples' caption consistency
+    (reported, not a gate). Every K1/K2 launch of the train runs (their
+    validation images included) a bf16 instance; the request's fp32: the
+    sample CLI builds the model without the trainer's precision, as the
+    reference's examples/sample.py does."""
+    import numpy as np
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.data.synthetic_txt2img import caption_consistency
+    from diffulab_tpu_torch.examples import reconstruct_ema
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    sys.modules["wandb"] = None
+    log = root / "e1_hard.log"
+    flow = _e1_train("train_synthetic_hard_flow", root, log, "bf16")
+    _run_cli(reconstruct_ema.main, ["--run-dir", str(flow["run"]), "--sigma-rel", "0.05"], log)
+    teacher = flow["run"] / "checkpoints" / "phema_sr0.05"
+    distill = _e1_train("train_synthetic_hard_distill", root, log, "bf16", [f"trainer.distill_from={teacher}"])
+    # each run's K1: the train steps, the validation batches (the distillation loss's teacher as in a
+    # step) and one bf16 request, the validation images (8 of them, Euler-50 at CFG 4.0, one 2x call a step)
+    val_batches = E1_DATA["dataset.val.n_samples"][1] // E1_BATCH
+    for tr in (flow, distill):
+        k1_step = E1_RUNS[f"train_{tr['run'].name}"][0][0]
+        want = (E1_STEPS_PER_EPOCH + val_batches) * k1_step + 50 * C1_DEPTH
+        if tr["launches"]["fused_mha_fwd_bf16"] != want:
+            fail(f"{tr['run'].name}: {tr['launches']['fused_mha_fwd_bf16']} bf16 K1 in the run, expected {want} "
+                 f"({E1_STEPS_PER_EPOCH} steps and {val_batches} validation batches of {k1_step}, and the "
+                 f"validation images' {50 * C1_DEPTH})")
+    _run_cli(reconstruct_ema.main, ["--run-dir", str(distill["run"]), "--sigma-rel", "0.05"], log)
+    config = "train_synthetic_hard_distill"
+    val = instantiate(compose_config(CONFIG_DIR, config, distill["overrides"])["dataset"]["val"])
+    labels, captions = val.labels[:E1_SAMPLES], val.captions[:E1_SAMPLES]
+    result = _e1_request(config, distill["run"] / "checkpoints" / "phema_sr0.05", root / "hard.png",
+                         distill["overrides"], log, E1_RUNS[config][1], "fp32",
+                         "--labels", ",".join(str(int(y)) for y in labels))
+    images = result["images"]
+    if images.shape != (E1_SAMPLES, 64, 64, 3):
+        fail(f"{config} sample: images {images.shape}")
+    consistency = caption_consistency(images * 2.0 - 1.0, captions)
+    print(f"phase 18a hard_flow (bf16, DiT depth {C1_DEPTH} width 512, patch 4 on 64x64) {_e1_line(flow)}, "
+          f"{C1_DEPTH} bf16 K1 + {C1_DEPTH} bf16 K2 a step, in the run {flow['launches']} (the validation images' "
+          f"request {50 * C1_DEPTH} bf16 K1); hard_distill from its "
+          f"phema_sr0.05 {_e1_line(distill)}, {2 * C1_DEPTH} bf16 K1 (the teacher's guided forward one 2x call) + "
+          f"{C1_DEPTH} bf16 K2 a step, in the run {distill['launches']}; the student's phema_sr0.05: {E1_SAMPLES} "
+          f"images Euler-50 CFG {E1_GUIDANCE} (fp32, as the reference's sample CLI builds the model) generate "
+          f"{result['generate_ms']:.1f} ms, {result['launches']['fused_mha_fwd']} fp32 K1; caption "
+          f"consistency against the first {E1_SAMPLES} validation captions (their labels asked; reported only) "
+          f"{ {k: round(v, 3) for k, v in consistency.items()} }")
+    return {"hard_flow": flow, "hard_distill": distill, "sample": result}
+
+
+def phase_e1_colorize(root: Path):
+    """Phase 18b: train_synthetic_colorize (fp32, the luma as x_context)
+    through train_diffusion, one epoch, and a 16-image Euler-50 request
+    conditioned on the validation images' luma."""
+    sys.modules["wandb"] = None
+    log = root / "e1_colorize.log"
+    config = "train_synthetic_colorize"
+    tr = _e1_train(config, root, log, "fp32")
+    result = _e1_request(config, tr["run"] / "checkpoints" / "denoiser", root / "colorize.png", tr["overrides"], log,
+                         E1_RUNS[config][1], "fp32")
+    if result["images"].shape != (E1_SAMPLES, 32, 32, 3):
+        fail(f"{config} sample: images {result['images'].shape}")
+    print(f"phase 18b colorize (fp32, the C1 DiT on RGB + luma, gradient accumulation 2) {_e1_line(tr)}, "
+          f"{C1_DEPTH} fp32 K1 + {C1_DEPTH} fp32 K2 a step; {E1_SAMPLES} images Euler-50 on the validation luma "
+          f"generate {result['generate_ms']:.1f} ms, {result['launches']['fused_mha_fwd']} K1")
+    return {"train": tr, "sample": result}
+
+
+def _repa_step_on_both(config: str, overrides, run: Path):
+    """One REPA compute_loss (train mode, capture on) of the run's best-val
+    checkpoint on the card and on the host, the same weights, the first
+    validation rows and the same t, noise and drop mask; and whether the
+    card's FixedViT holds jax_prng's draw bit for bit. The extra losses are
+    built (drawn) once, on the host, and copied to the card."""
+    import copy
+
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+    from diffulab_tpu_torch.networks.nn import make_drop_mask
+    from diffulab_tpu_torch.training.checkpoint import restore_train_modules
+    from diffulab_tpu_torch.training.losses import build_extra_losses
+
+    cfg = compose_config(CONFIG_DIR, config, overrides)
+    batch = instantiate(cfg["dataset"]["val"]).get_batch(range(E1_CPU_BATCH))["model_inputs"]
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    host_losses = build_extra_losses(cfg, device="cpu")
+    fresh = {k: v.clone() for k, v in host_losses[0].repa_encoder.state_dict().items()}  # jax_prng's draw
+    out, draws = {}, None
+    for device in ("cuda", "cpu"):
+        denoiser = instantiate(cfg["model"], device=device)
+        losses = host_losses if device == "cpu" else [copy.deepcopy(loss).to(device) for loss in host_losses]
+        restore_train_modules(run / "checkpoints" / "denoiser", denoiser, losses)
+        d = cfg["diffuser"]
+        diffuser = Diffuser(denoiser, d["sampling_method"], model_type=d["model_type"], n_steps=d["n_steps"],
+                            extra_args=d.get("extra_args", {}), extra_losses=losses)
+        losses[0].set_model(denoiser)
+        if draws is None:
+            x0 = torch.as_tensor(batch["x"], device="cuda")
+            draws = (x0, torch.as_tensor(batch["y"], device="cuda"), diffuser.draw_timesteps(gen, E1_CPU_BATCH),
+                     torch.randn(x0.shape, generator=gen, device="cuda"), make_drop_mask(gen, 0.1, E1_CPU_BATCH))
+            held = losses[0].repa_encoder.state_dict()  # the checkpoint's, as restored on the card
+            vit_equal = set(fresh) == set(held) and all(torch.equal(held[k].cpu(), fresh[k]) for k in fresh)
+        x0, y, t, noise, drop = (a.to(device) for a in draws)
+        with torch.no_grad():
+            out[device] = {k: float(v) for k, v in diffuser.compute_loss(x0, {"y": y}, t, noise, drop=drop).items()}
+        del denoiser, diffuser
+    torch.cuda.empty_cache()
+    return out["cuda"], out["cpu"], vit_equal
+
+
+def phase_e1_repa(root: Path):
+    """Phase 18c: train_synthetic_{flow,edm,ddpm}_repa through train_diffusion
+    (one epoch each; the REPA loss beside the diffusion loss, the seed-4321
+    FixedViT as the frozen target), then a sample request through ``sample``
+    with the run's checkpoint restored with its extra losses; one REPA
+    compute_loss recomputed on the host with the same weights, rows and
+    draws (rtol E1_LOSS_RTOL a loss entry); the card's FixedViT against
+    jax_prng's draw, bit for bit."""
+    sys.modules["wandb"] = None
+    log = root / "e1_repa.log"
+    results = {}
+    for config, kind in (("train_synthetic_flow_repa", "fp32"), ("train_synthetic_edm_repa", "fp32"),
+                         ("train_synthetic_ddpm_repa", "unet")):
+        tr = _e1_train(config, root, log, kind)
+        rows = [json.loads(line) for line in (tr["run"] / "metrics.jsonl").read_text().splitlines()]
+        repa = {key: [r[key] for r in rows if key in r] for key in ("train/RepaLoss", "val/RepaLoss")}
+        if any(len(v) != 1 or not math.isfinite(v[0]) for v in repa.values()):
+            fail(f"{config} train: REPA loss rows {repa}")
+        expected = edm_k1("heun", C2_STEPS, C1_DEPTH) if "edm" in config else E1_RUNS[config][1]
+        result = _e1_request(config, tr["run"] / "checkpoints" / "denoiser", root / f"{config}.png", tr["overrides"],
+                             log, expected, kind, "--labels", ",".join(str(i) for i in range(10)))
+        card, host, vit_equal = _repa_step_on_both(config, tr["overrides"], tr["run"])
+        worst = max(abs(card[k] - host[k]) / abs(host[k]) for k in host)
+        if set(card) != {"loss", "RepaLoss"} or set(host) != set(card) or worst > E1_LOSS_RTOL:
+            fail(f"{config}: the card's loss dict {card} against the host's {host} (rtol {E1_LOSS_RTOL})")
+        if not vit_equal:
+            fail(f"{config}: the card's FixedViT differs from jax_prng's draw of seed 4321")
+        per_step = E1_RUNS[config][0]
+        print(f"phase 18c {config.removeprefix('train_synthetic_')} ({'D1 UNet' if kind == 'unet' else 'C1 DiT'}, fp32, "
+              f"FixedViT seed 4321) {_e1_line(tr)}, RepaLoss train {repa['train/RepaLoss'][0]:.5f} val "
+              f"{repa['val/RepaLoss'][0]:.5f}, {per_step[0]} K1 + {per_step[1]} K2 a step "
+              + ("(5 at D=192, 6 at D=384)" if kind == "unet" else "(D=64)")
+              + f"; sample {E1_SAMPLES} images CFG {E1_GUIDANCE} from the restored checkpoint generate "
+              f"{result['generate_ms']:.1f} ms, {result['launches']['fused_mha_fwd']} K1; one loss dict on the card "
+              f"{ {k: round(v, 6) for k, v in card.items()} } vs the host {'{'}"
+              + ", ".join(f"'{k}': {v:.6f}" for k, v in host.items())
+              + f"{'}'} (B={E1_CPU_BATCH}, worst rel {worst:.2e}, rtol {E1_LOSS_RTOL}); FixedViT on the card bitwise "
+              f"jax_prng's draw")
+        results[config] = {"train": tr, "sample": result, "card": card, "host": host}
+    return results
+
+
 #: the keys of phase 14a's results that its JSON rows carry
 C1_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -2475,50 +2796,83 @@ def main() -> int:
         print(f"chip_smoke: the diffulab_tpu_torch package is not beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    # full-precision fp32 products everywhere (cuDNN would otherwise default to TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from diffulab_tpu_torch.utils import full_fp32_products
+
+    full_fp32_products()  # the port's fp32 policy, as its CLIs set it: no TF32 in cuBLAS or cuDNN
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    seconds: dict[str, float] = {}
+    mark = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal mark
+        now = time.perf_counter()
+        seconds[name] = round(now - mark, 1)
+        mark = now
 
     phase_build()
+    lap("1 build")
     kernel = phase_kernel()
     model, plain = build_models()
     phase_forward(model, plain)
     gen_counts, _ = phase_generate(model, plain)
     gen_launches = gen_counts["fused_mha_fwd"]
+    lap("2-4 DiT-B/2 serving")
     k2 = phase_kernel_bwd()
     phase_gradients(model, plain)
     del plain
     train_launches, _ = phase_train(model)
     del model
+    lap("5-7 DiT-B/2 training")
     k3 = phase_flash_kernel()
     crossover = k3.pop("crossover")
     txt_model, txt_plain, tower, cond = build_txt2img()
     phase_txt2img_forward(txt_model, txt_plain, cond)
     txt_totals, _ = phase_txt2img_generate(txt_model, txt_plain, tower, cond)
+    lap("8-10 txt2img serving")
     k45, bwd_crossover = phase_flash_bwd_kernel(crossover)
     phase_txt2img_gradients(txt_model, txt_plain)
     del txt_plain
     txt_train_launches, _ = phase_txt2img_train(txt_model, tower)
     del txt_model, tower, cond
     torch.cuda.empty_cache()
+    lap("11-13 txt2img training")
     c1_kernels = phase_c1_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         c1 = phase_c1_cli(Path(tmp))
+        lap("14 C1")
         arms = phase_dit_arms()
+        lap("15 DiT arms")
         c2 = phase_c2_cli(Path(tmp), c1["run"])
+        lap("16 C2")
         d1_kernels = phase_d1_kernels()
         phase_d1_model()
         d1 = phase_d1_cli(Path(tmp))
+        lap("17 D1")
+        e1_fwd, e1_bwd = phase_e1_kernels()
+        e1_hard = phase_e1_hard(Path(tmp))
+        e1_color = phase_e1_colorize(Path(tmp))
+        e1_repa = phase_e1_repa(Path(tmp))
+        lap("18 E1")
+    e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
+                  "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
+                  "e1_hard_sample": e1_hard["sample"]["launches"],
+                  "e1_colorize_train": e1_color["train"]["launches"], "e1_colorize_sample": e1_color["sample"]["launches"],
+                  **{f"e1_{c.removeprefix('train_synthetic_')}_{w}": r[w]["launches"] for c, r in e1_repa.items()
+                     for w in ("train", "sample")}}
+    e1_bf16 = {k: v for k, v in e1_windows.items() if k.startswith("e1_hard")}
+    e1_d64 = {k: v for k, v in e1_windows.items() if not k.startswith(("e1_hard", "e1_ddpm"))}
+    e1_unet = {k: v for k, v in e1_windows.items() if k.startswith("e1_ddpm")}
     k3_fp32 = k3.pop("fp32")
     k45_fp32 = {name: k45[name].pop("fp32") for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     # the fp32 flash instances' launches in every main-path run that reads all the counts
     windows = {"generate": gen_counts, "train": train_launches, "txt2img_generate": txt_totals,
                "txt2img_train": txt_train_launches, "c1_train": c1["train"], "c1_sample": c1["sample"],
-               "dit_sampling_arms": arms["launches"], "c2": c2, "d1_train": d1["train"], "d1_sample": d1["sample"]}
+               "dit_sampling_arms": arms["launches"], "c2": c2, "d1_train": d1["train"], "d1_sample": d1["sample"],
+               **e1_windows}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"phase seconds: {seconds}")
     print(f"card: {smi}")
     main_case = kernel["main"]
     print(json.dumps({"kernels": [{
@@ -2527,11 +2881,15 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
-        + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"],
+        + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
+        + sum(w["fused_mha_fwd_bf16"] for w in e1_bf16.values()),
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
-                             "dit_sampling_arms": arms["launches"]["fused_mha_fwd"]},
+                             "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in e1_bf16.items()}},
+        "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
+                     "timing": "device time per call from CUDA-graph replays"},
         "dit_sampling_arms_max_abs_err": arms["k1_err"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
@@ -2548,9 +2906,10 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
-        "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"],
+        "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
+        + sum(w["fused_mha_fwd"] for w in e1_d64.values()),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
-                             "c2": c2["fused_mha_fwd"]},
+                             "c2": c2["fused_mha_fwd"], **{k: w["fused_mha_fwd"] for k, w in e1_d64.items()}},
         "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
         **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -2562,17 +2921,22 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
-        "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"],
+        "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"]
+        + sum(w["fused_mha_bwd_bf16"] for w in e1_bf16.values()),
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
-                             "txt2img_train": txt_train_launches["fused_mha_bwd"]},
+                             "txt2img_train": txt_train_launches["fused_mha_bwd"],
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in e1_bf16.items()}},
+        "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
+                     "timing": "device time per call from CUDA-graph replays"},
         **k2,
     }, {
         "name": "fused_mha_bwd (fp32 instance, slice C1)",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
-        "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"],
-        "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"]},
+        "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"] + sum(w["fused_mha_bwd"] for w in e1_d64.values()),
+        "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
+                             **{k: w["fused_mha_bwd"] for k, w in e1_d64.items()}},
         "c2_max_abs_err": c2["errs"][f"K2 B={C1_BATCH}"],
         **{key: c1_kernels["bwd_b128"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -2583,9 +2947,11 @@ def main() -> int:
         "route": "cuda",
         "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
         "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
-        "launches": d1["train"][f"fused_mha_{kind}_f32_d{d}"] + d1["sample"][f"fused_mha_{kind}_f32_d{d}"],
+        "launches": d1["train"][f"fused_mha_{kind}_f32_d{d}"] + d1["sample"][f"fused_mha_{kind}_f32_d{d}"]
+        + sum(w[f"fused_mha_{kind}_f32_d{d}"] for w in e1_unet.values()),
         "launches_by_path": {"d1_train": d1["train"][f"fused_mha_{kind}_f32_d{d}"],
-                             "d1_sample": d1["sample"][f"fused_mha_{kind}_f32_d{d}"]},
+                             "d1_sample": d1["sample"][f"fused_mha_{kind}_f32_d{d}"],
+                             **{k: w[f"fused_mha_{kind}_f32_d{d}"] for k, w in e1_unet.items()}},
         **{key: d1_kernels[f"{kind}_d{d}_b{D1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={D1_BATCH} S={D1_PADDED} (padded from {tokens} tokens, the padding key mask) H={D1_HEADS} "
                  f"D={d} fp32",

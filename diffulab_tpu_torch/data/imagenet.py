@@ -12,7 +12,7 @@ A batch is ``[collate_fn([ds[i] for i in idx]) for idx in sampler]``, or
 ``collate_fn=`` for the threaded prefetch.
 
 Not ported yet: ``ImageNetLatentREPA`` (class-conditional latents with REPA
-features) waits for REPA (ROADMAP queue 1, item 13).
+features) waits for REPA's precomputed half (ROADMAP queue 1, item 13b).
 """
 
 from __future__ import annotations

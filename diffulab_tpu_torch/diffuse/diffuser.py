@@ -9,11 +9,13 @@ through the tower and applies ``clamp_x`` to the decoded pixels. It takes the
 reference's sampling options: the per-step intermediates, inpainting,
 img2img, an autoguidance model (``guide_denoiser``) and Delta-DiT block
 caching (:meth:`Diffuser.set_block_cache`). ``compute_loss`` is the training
-loss the trainer differentiates.
+loss the trainer differentiates, with the ``extra_losses`` (REPA) beside it,
+each under its own name; with extra losses the denoiser's forward captures
+the features they read.
 
 Formalizations: ``rectified_flow``, ``edm`` and ``gaussian_diffusion``.
-Not ported yet (they raise ``NotImplementedError``): extra losses (REPA,
-ROADMAP item 13) and the GRPO loss (item 16).
+Not ported yet (it raises ``NotImplementedError``): the GRPO loss
+(ROADMAP queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -45,10 +47,8 @@ class Diffuser:
     ):
         if model_type not in self.model_registry:
             raise NotImplementedError(f"Model type {model_type} is not implemented")
-        if extra_losses:
-            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
         self.model_type = model_type
-        self.extra_losses: list[Any] = []
+        self.extra_losses: list[Any] = list(extra_losses or [])
         self.denoiser = denoiser
         self.n_steps = n_steps
         self.vision_tower = vision_tower
@@ -64,15 +64,18 @@ class Diffuser:
         self._block_cache: dict[str, Any] | None = None
 
     @staticmethod
-    def _model_fn(denoiser: Any, train: bool):
+    def _model_fn(denoiser: Any, train: bool, capture_features: bool = False):
         def fn(x, timesteps, cond, drop, **kwargs):
+            if capture_features:
+                kwargs["capture_features"] = True
             return denoiser(x=x, timesteps=timesteps, cond=cond, drop=drop, train=train, **kwargs)
         return fn
 
-    def model_fn(self, train: bool = False):
+    def model_fn(self, train: bool = False, capture_features: bool = False):
         """The (x, timesteps, cond, drop) callable the formalizations consume;
-        further keywords (the block cache) go through to the denoiser."""
-        return self._model_fn(self.denoiser, train)
+        further keywords (the block cache) go through to the denoiser;
+        ``capture_features`` returns the features the extra losses read."""
+        return self._model_fn(self.denoiser, train, capture_features)
 
     def draw_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         return self.diffusion.draw_timesteps(generator, batch_size)
@@ -92,7 +95,7 @@ class Diffuser:
         if grpo:
             raise NotImplementedError("the GRPO loss is not ported yet (ROADMAP queue 1, item 16)")
         return self.diffusion.compute_loss(
-            self.model_fn(train=train), x0, cond, timesteps, noise,
+            self.model_fn(train=train, capture_features=bool(self.extra_losses)), x0, cond, timesteps, noise,
             drop=drop, extra_losses=self.extra_losses, extra_args=extra_args,
         )
 

@@ -143,14 +143,13 @@ class EDM:
     ) -> dict[str, torch.Tensor]:
         """mean(lambda(sigma) (D(x0 + sigma n; sigma) - target)^2), lambda =
         (sigma^2 + sd^2) / (sigma sd)^2 (edm.py:136); the target is x0, or the
-        frozen teacher's guided D at ``distill_guidance``."""
-        del extra_args
-        if extra_losses:
-            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
+        frozen teacher's guided D at ``distill_guidance``. Each extra loss
+        (REPA) is called on the raw model output with D in ``"x"``, with x0
+        and then ``extra_args`` as keywords (edm.py:169-173)."""
         xt, noise = self.add_noise(x0, timesteps, noise)
         if drop is None:
             drop = torch.zeros((x0.shape[0],), dtype=torch.bool, device=x0.device)
-        denoised = self._denoised(model_fn, xt, timesteps, cond, drop)
+        denoised, prediction = self._denoised(model_fn, xt, timesteps, cond, drop, return_prediction=True)
         sd = self.sigma_data
         s = batch_broadcast(timesteps, x0.ndim).float()
         weight = (s**2 + sd**2) / (s * sd) ** 2
@@ -158,7 +157,11 @@ class EDM:
         if distill_fn is not None:
             with torch.no_grad():
                 target = self._denoised_cfg(distill_fn, xt, timesteps, cond, distill_guidance, use_cfg=True)
-        return {"loss": torch.mean(weight * (denoised - target) ** 2)}
+        loss_dict = {"loss": torch.mean(weight * (denoised - target) ** 2)}
+        for extra_loss in extra_losses:
+            loss_dict[extra_loss.name] = extra_loss(model_output={**prediction, "x": denoised},
+                                                    **{"x0": x0, **(extra_args or {})})
+        return loss_dict
 
     # --- sampling -----------------------------------------------------------
     def one_step_denoise(

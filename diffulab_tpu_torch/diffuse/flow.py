@@ -20,8 +20,8 @@ steps, inpaint re-noising) goes through one ``draw_noise(kind, step, shape,
 dtype)`` callable, by default standard normals from the caller's generator;
 the parity tests pass the reference's draws through it (trap T4).
 
-Not ported yet (they raise ``NotImplementedError``): extra losses (REPA,
-ROADMAP item 13) and the GRPO loss (item 16).
+Not ported yet (it raises ``NotImplementedError``): the GRPO loss (ROADMAP
+queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -227,26 +227,29 @@ class Flow:
         mask given by the caller. ``(noise - x0)`` is formed in x0's dtype and
         only then promoted against the fp32 prediction (T10). With
         ``distill_fn`` (a frozen teacher) the target is the teacher's guided
-        raw prediction at ``distill_guidance``, formed without gradients."""
-        del extra_args
-        if extra_losses:
-            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
+        raw prediction at ``distill_guidance``, formed without gradients.
+        Each extra loss (REPA) is called on the model's output, with x0 and
+        then ``extra_args`` as keywords, under its own name (flow.py:219-234)."""
         xt, noise = self.add_noise(x0, timesteps, noise)
         if drop is None:
             drop = torch.zeros((x0.shape[0],), dtype=torch.bool, device=x0.device)
-        v_pred = model_fn(x=xt, timesteps=timesteps, cond=cond, drop=drop)["x"]
+        prediction = model_fn(x=xt, timesteps=timesteps, cond=cond, drop=drop)
+        v_pred = prediction["x"]
         if distill_fn is not None:
             with torch.no_grad():
                 target = _cfg_model_call(distill_fn, xt, timesteps, cond, distill_guidance, use_cfg=True,
                                          guidance_interval=self.guidance_interval,
                                          guidance_rescale=self.guidance_rescale, promote=False).float()
             losses = (target - v_pred.float()) ** 2
-            return {"loss": flatten_nonbatch_mean(losses).mean()}
-        if self.x_prediction:
-            # bf16 / fp32 [B,1,..] promotes to fp32, as in JAX
-            v_pred = (xt - v_pred) / batch_broadcast(timesteps, xt.ndim)
-        losses = ((noise - x0) - v_pred.float()) ** 2
-        return {"loss": flatten_nonbatch_mean(losses).mean()}
+        else:
+            if self.x_prediction:
+                # bf16 / fp32 [B,1,..] promotes to fp32, as in JAX
+                v_pred = (xt - v_pred) / batch_broadcast(timesteps, xt.ndim)
+            losses = ((noise - x0) - v_pred.float()) ** 2
+        loss_dict = {"loss": flatten_nonbatch_mean(losses).mean()}
+        for extra_loss in extra_losses:
+            loss_dict[extra_loss.name] = extra_loss(model_output=prediction, **{"x0": x0, **(extra_args or {})})
+        return loss_dict
 
     # --- one reverse step ---------------------------------------------------
     def get_v(

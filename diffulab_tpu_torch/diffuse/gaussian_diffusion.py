@@ -173,15 +173,15 @@ class GaussianDiffusion:
         weighted if asked, plus under a learned variance the hybrid VLB term
         ``vlb`` (the mean detached, so only the variance trains through it;
         the discretised NLL at t = 0). With ``distill_fn`` (a frozen teacher)
-        the target is its guided head at ``distill_guidance``."""
-        del extra_args
-        if extra_losses:
-            raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
+        the target is its guided head at ``distill_guidance``. Each extra loss
+        (REPA) is called on the model's output, with x0 and then
+        ``extra_args`` as keywords (gaussian_diffusion.py:276-279)."""
         xt, noise = self.add_noise(x0, timesteps, noise)
         if drop is None:
             drop = torch.zeros((x0.shape[0],), dtype=torch.bool, device=x0.device)
         model_timesteps = self._map_timesteps(timesteps)
-        out = model_fn(x=xt, timesteps=model_timesteps, cond=cond, drop=drop)["x"].float()
+        prediction = model_fn(x=xt, timesteps=model_timesteps, cond=cond, drop=drop)
+        out = prediction["x"].float()
         learned_var = self._learned_var
         head = out.chunk(2, dim=-1)[0] if learned_var else out
         if distill_fn is not None:
@@ -221,6 +221,8 @@ class GaussianDiffusion:
             t_mask = (timesteps == 0).reshape(-1, *([1] * (xt.ndim - 1)))
             vlb = torch.where(t_mask, nll, kl)
             loss_dict["vlb"] = vlb_weight * vlb.reshape(vlb.shape[0], -1).mean(dim=-1).mean()
+        for extra_loss in extra_losses:
+            loss_dict[extra_loss.name] = extra_loss(model_output=prediction, **{"x0": x0, **(extra_args or {})})
         return loss_dict
 
     # --- prediction-parametrization conversions -------------------------------

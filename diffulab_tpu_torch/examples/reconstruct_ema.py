@@ -30,6 +30,7 @@ from diffulab_tpu_torch.training.posthoc_ema import (
     reconstruct_from_dir,
     save_reconstruction,
 )
+from diffulab_tpu_torch.utils import full_fp32_products
 
 
 def main(argv: list[str] | None = None) -> list[dict[str, Any]]:
@@ -44,6 +45,7 @@ def main(argv: list[str] | None = None) -> list[dict[str, Any]]:
     parser.add_argument("--max-snapshots", type=int, default=None,
                         help="thin the basis to at most this many snapshots")
     args = parser.parse_args(argv)
+    full_fp32_products()
 
     ckpt_dir = Path(args.run_dir) / "checkpoints"
     phema_dir = ckpt_dir / "phema"

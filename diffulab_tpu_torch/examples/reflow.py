@@ -28,7 +28,7 @@ from diffulab_tpu_torch.data.reflow import ReflowPairsDataset, generate_pairs
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.training.checkpoint import restore_train_modules
 from diffulab_tpu_torch.training.trainer import BaseTrainer
-from diffulab_tpu_torch.utils import resolve_device
+from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
@@ -55,6 +55,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def main(argv: list[str] | None = None) -> BaseTrainer:
     """Generate the pairs and straighten; returns the trainer."""
     args = parse_args(argv)
+    full_fp32_products()
     device = resolve_device(args.device)
     cfg = compose_config(args.config_dir, args.config_name, args.overrides)
     if cfg["diffuser"]["model_type"] != "rectified_flow":

@@ -15,9 +15,13 @@ heun, dpmpp_2m, unipc; heun, euler, dpmpp_2m, unipc for EDM configs);
 ``--guide-ckpt`` replaces the unconditional branch by a degraded checkpoint
 (autoguidance, needs ``--guidance`` > 0); ``--inpaint-image`` with
 ``--inpaint-box y0:y1,x0:x1`` regenerates that box and keeps the rest;
-``--img2img-image`` with ``--strength`` edits an image (SDEdit).
-``--prompts`` (HF text embedders, ROADMAP queue 1 item 16) and a config's
-``repa:`` section (item 13) raise ``NotImplementedError``.
+``--img2img-image`` with ``--strength`` edits an image (SDEdit). A REPA
+config's checkpoint is restored with its extra losses, built as the training
+CLI builds them. A model that takes channel-concatenated context (more input
+than output channels, ``train_synthetic_colorize``) is conditioned on the
+``x_context`` of the first ``--n`` images of the config's validation set, as
+the trainer's validation images are. ``--prompts`` (HF text embedders,
+ROADMAP queue 1 item 16) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,16 +38,15 @@ from diffulab_tpu_torch.config import compose_config, instantiate
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.training.checkpoint import restore_sampling_model
 from diffulab_tpu_torch.training.logging import make_grid
-from diffulab_tpu_torch.utils import resolve_device
+from diffulab_tpu_torch.training.losses import build_extra_losses
+from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
 
-def _check_ported(args: argparse.Namespace, cfg: dict) -> None:
+def _check_ported(args: argparse.Namespace) -> None:
     if args.prompts:
         raise NotImplementedError("--prompts (HF text embedders) is not ported yet (ROADMAP queue 1, item 16)")
-    if cfg.get("repa") or cfg.get("perceiver_resampler"):
-        raise NotImplementedError("REPA (a repa: section) is not ported yet (ROADMAP queue 1, item 13)")
 
 
 def _load_image(path: str, px: int, channels: int) -> np.ndarray:
@@ -100,9 +103,10 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     ``generate`` call alone, the card synchronised; ``inpaint`` the known
     pixels and keep-mask, or None)."""
     args = parse_args(argv)
+    full_fp32_products()
     device = resolve_device(args.device)
     cfg = compose_config(args.config_dir, args.config_name, args.overrides)
-    _check_ported(args, cfg)
+    _check_ported(args)
     ds_cfg = cfg["dataset"]["val"]
 
     torch.manual_seed(args.seed)  # the random init the checkpoint overwrites
@@ -122,6 +126,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         n_steps=cfg["diffuser"]["n_steps"],
         sampling_method=args.sampler or cfg["diffuser"]["sampling_method"],
         extra_args=cfg["diffuser"].get("extra_args", {}),
+        extra_losses=build_extra_losses(cfg, seed=args.seed, device=device),
         vision_tower=vision_tower,
     )
     if args.steps:
@@ -140,7 +145,8 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         if args.guidance <= 0:
             raise SystemExit("--guide-ckpt requires --guidance > 0")
         guide_denoiser = instantiate(cfg["model"], device=device, **model_kwargs)
-        restore_sampling_model(args.guide_ckpt, guide_denoiser, [], cfg["trainer"])
+        restore_sampling_model(args.guide_ckpt, guide_denoiser, build_extra_losses(cfg, seed=args.seed, device=device),
+                               cfg["trainer"])
         guide_denoiser.eval()
         print(f"autoguidance: negative branch from {args.guide_ckpt}")
 
@@ -151,6 +157,15 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         size //= vision_tower.compression_factor
 
     cond: dict[str, torch.Tensor] = {}
+    out_channels = cfg["model"].get("output_channels", cfg["model"].get("out_channels")) or channels
+    if out_channels < channels:  # the rest are x_context channels, concatenated by the denoiser
+        context = instantiate(ds_cfg).get_batch(range(args.n))["model_inputs"].get("x_context")
+        if context is None:
+            raise SystemExit(f"the model takes {channels - out_channels} context channels; the config's "
+                             "validation set gives no x_context")
+        cond["x_context"] = torch.as_tensor(context, device=device)
+        channels = out_channels
+        print(f"conditioned on the x_context of the first {args.n} validation images")
     labels = None
     n_classes = cfg["model"].get("n_classes")
     if n_classes:

@@ -16,10 +16,12 @@ The config tree is the JAX package's ``configs/``, unedited; its
 frozen teacher restored from a port checkpoint directory (``denoiser``,
 ``ema`` or ``phema_sr*``) into the student, which warm-starts from the same
 weights unless ``trainer.denoiser_ckpt`` is given; ``trainer.augment_p``
-turns on non-leaky augmentation (a model with ``augment_dim > 0``).
-Options whose modules are not ported raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item: ``trainer.lora_rank`` (16), a ``repa:`` or
-``perceiver_resampler:`` section (13).
+turns on non-leaky augmentation (a model with ``augment_dim > 0``). A
+``repa:`` section adds the REPA loss with its live frozen encoder
+(:func:`~diffulab_tpu_torch.training.losses.build_extra_losses`). Options
+whose modules are not ported raise ``NotImplementedError`` naming their
+ROADMAP queue 1 item: ``trainer.lora_rank`` (16), precomputed REPA features,
+the DINO encoders and the Perceiver resampler (13b).
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.training.checkpoint import restore_train_modules
+from diffulab_tpu_torch.training.losses import build_extra_losses
 from diffulab_tpu_torch.training.trainer import BaseTrainer
-from diffulab_tpu_torch.utils import resolve_device
+from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
 
@@ -50,8 +53,6 @@ def check_ported(cfg: dict) -> None:
     trainer_cfg = cfg["trainer"]
     if trainer_cfg.get("lora_rank"):
         raise NotImplementedError("LoRA finetuning (trainer.lora_rank) is not ported yet (ROADMAP queue 1, item 16)")
-    if cfg.get("repa") or cfg.get("perceiver_resampler"):
-        raise NotImplementedError("REPA (a repa: section) is not ported yet (ROADMAP queue 1, item 13)")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -68,6 +69,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def main(argv: list[str] | None = None) -> list[BaseTrainer]:
     """Train once per sweep combination; returns the trainers."""
     args = parse_args(argv)
+    full_fp32_products()
     device = resolve_device(args.device)
     return sweep.dispatch(args, lambda cfg, seed: run_one(cfg, seed, device))
 
@@ -110,12 +112,14 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
             print("student warm-started from the teacher weights")
     print(f"Number of trainable parameters: {count_parameters(denoiser):,}")
 
+    # a repa: section builds RepaLoss with its live frozen encoder; the formalizations hand it x0
     diffuser = Diffuser(
         denoiser=denoiser,
         model_type=cfg["diffuser"]["model_type"],
         n_steps=cfg["diffuser"]["n_steps"],
         sampling_method=cfg["diffuser"]["sampling_method"],
         extra_args=cfg["diffuser"].get("extra_args", {}),
+        extra_losses=build_extra_losses(cfg, seed=seed, device=device),
     )
 
     optimizer = instantiate(cfg["optimizer"])

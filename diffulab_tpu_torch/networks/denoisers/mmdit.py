@@ -31,8 +31,15 @@ the branch is picked in Python). ``augment_dim > 0`` adds the non-leaky
 augmentation labels (``cond["augment_labels"]``, :mod:`..diffuse.augment`)
 to the time embedding through a zero-initialised, bias-free Linear.
 
+REPA feature capture (mmdit.py:712-819): with ``capture_features=True`` the
+forward also returns ``out["features"]``, the image tokens after each block
+whose index is in ``feature_layers`` (``RepaLoss.set_model`` writes it), on
+the ``use_checkpoint`` path too, where gradients reach them through the
+recomputed blocks. Capture and block caching do not compose (a training and
+a sampling feature; the reference asserts it).
+
 Not ported yet (they raise ``NotImplementedError``): MoE MLPs, ring
-attention, GPipe pipelining and REPA feature capture.
+attention and GPipe pipelining.
 """
 
 from __future__ import annotations
@@ -396,6 +403,7 @@ class MMDiT(Denoiser):
         attention_dtype: Any = None,
         mlp_dtype: Any = None,
         stream_dtype: Any = None,
+        feature_layers: Sequence[int] = (),
         *,
         dtype: Any = None,
         param_dtype: torch.dtype = torch.float32,
@@ -429,6 +437,8 @@ class MMDiT(Denoiser):
         self.inner_dim = inner_dim
         self.use_checkpoint = use_checkpoint
         self.attention_impl = attention_impl
+        #: 0-based block indices whose output a capturing forward returns (REPA)
+        self.feature_layers = tuple(feature_layers)
         cond_dtype = stable_dtype(dtype, stable_conditioning)
         self.stream_dtype = stream_dtype if stream_dtype is not None else cond_dtype
 
@@ -575,8 +585,12 @@ class MMDiT(Denoiser):
             streams = run(i, streams)
         return streams, deltas
 
-    def _use_cache(self, block_cache, cache_refresh) -> bool:
-        return self.cache_span is not None and block_cache is not None and cache_refresh is not None
+    def _use_cache(self, block_cache, cache_refresh, capture_features: bool) -> bool:
+        use = self.cache_span is not None and block_cache is not None and cache_refresh is not None
+        if use and capture_features:
+            raise ValueError("block caching is a sampling-time feature; feature capture (REPA) is a training-time "
+                             "one: they don't compose")
+        return use
 
     def _add_augment(self, emb, aug):
         if aug is None:
@@ -585,7 +599,7 @@ class MMDiT(Denoiser):
             raise ValueError("augment labels need augment_dim > 0")
         return emb + self.augment_embed(aug.to(emb.dtype))
 
-    def _simple_dit_forward(self, x, grid_size, timesteps, y, drop, aug=None, block_cache=None,
+    def _simple_dit_forward(self, x, grid_size, timesteps, y, drop, capture_features, aug=None, block_cache=None,
                             cache_refresh=None):
         emb = self.time_embed(timestep_embedding(timesteps, self.frequency_embedding).to(x.dtype))
         if self.label_embed is not None:
@@ -595,19 +609,21 @@ class MMDiT(Denoiser):
         emb = self._add_augment(emb, aug)
         pos_ids = self._image_pos_ids(x.shape[0], grid_size, 2, x.device)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
-        new_cache = None
-        if self._use_cache(block_cache, cache_refresh):
+        new_cache, features = None, []
+        if self._use_cache(block_cache, cache_refresh, capture_features):
             def run(i, s):
                 return (self._run_block(self.layers[i], s[0], emb, cos_sin, None),)
 
             (x,), new_cache = self._cached_block_stack((x,), run, block_cache, cache_refresh)
         else:
-            for layer in self.layers:
+            for i, layer in enumerate(self.layers):
                 x = self._run_block(layer, x, emb, cos_sin, None)
-        return self.last_layer(x, emb), new_cache
+                if capture_features and i in self.feature_layers:
+                    features.append(x)
+        return self.last_layer(x, emb), new_cache, features
 
-    def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop, aug=None, block_cache=None,
-                       cache_refresh=None):
+    def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop, capture_features, aug=None,
+                       block_cache=None, cache_refresh=None):
         b = x.shape[0]
         emb = self.time_embed(timestep_embedding(timesteps, self.frequency_embedding).to(x.dtype))
         emb = self._add_augment(emb, aug)
@@ -623,16 +639,18 @@ class MMDiT(Denoiser):
         pos_ids = torch.cat([self._text_pos_ids(b, context.shape[1], x.device),
                              self._image_pos_ids(b, grid_size, 3, x.device)], dim=1)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
-        new_cache = None
-        if self._use_cache(block_cache, cache_refresh):
+        new_cache, features = None, []
+        if self._use_cache(block_cache, cache_refresh, capture_features):
             def run(i, s):
                 return self._run_block(self.layers[i], s[0], emb, s[1], cos_sin, attn_mask)
 
             (x, context), new_cache = self._cached_block_stack((x, context), run, block_cache, cache_refresh)
         else:
-            for layer in self.layers:
+            for i, layer in enumerate(self.layers):
                 x, context = self._run_block(layer, x, emb, context, cos_sin, attn_mask)
-        return self.last_layer(x, emb), new_cache
+                if capture_features and i in self.feature_layers:
+                    features.append(x)
+        return self.last_layer(x, emb), new_cache, features
 
     def forward(
         self,
@@ -646,8 +664,6 @@ class MMDiT(Denoiser):
         cache_refresh: bool | None = None,
     ) -> ModelOutput:
         del train
-        if capture_features:
-            raise NotImplementedError("REPA feature capture is not ported yet (ROADMAP queue 1, item 13)")
         cond = cond or {}
         if cond.get("context") is not None and cond.get("y") is not None:
             raise ValueError("context and y cannot both be specified")
@@ -658,12 +674,16 @@ class MMDiT(Denoiser):
         extra = dict(aug=aug, block_cache=block_cache, cache_refresh=cache_refresh)
         tokens, grid_size = self.patchify(x)
         if self.simple_dit:
-            out, new_cache = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop, **extra)
+            out, new_cache, features = self._simple_dit_forward(tokens, grid_size, timesteps, cond.get("y"), drop,
+                                                                capture_features, **extra)
         else:
             if cond.get("context") is None:
                 raise ValueError("the multimodal MMDiT needs cond['context']")
-            out, new_cache = self._mmdit_forward(tokens, grid_size, timesteps, cond["context"], drop, **extra)
+            out, new_cache, features = self._mmdit_forward(tokens, grid_size, timesteps, cond["context"], drop,
+                                                           capture_features, **extra)
         result: ModelOutput = {"x": self.unpatchify(out, grid_size)}
+        if capture_features:
+            result["features"] = features
         if new_cache is not None:
             result["block_cache"] = new_cache
         return result

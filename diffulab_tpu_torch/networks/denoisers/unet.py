@@ -24,7 +24,12 @@ the residual sums stay fp32 under a half ``dtype``; norms compute in fp32.
 ``set_block_cache_span((k, N))``, a call given ``block_cache`` and
 ``cache_refresh`` runs the deep segment (encoder groups ``[k, N)``, the
 middle block and the matching decoder groups) and returns its output on a
-refresh, or splices in the cached one otherwise (a host bool).
+refresh, or splices in the cached one otherwise (a host bool). U-REPA
+feature capture (``capture_features=True``; unet.py:517-547): the output of
+each input group, of the middle block and of each output group is a capture
+point, flat-indexed in that order (:attr:`UNetModel.layers`), and the
+points listed in ``feature_layers`` come back as ``[B, H*W, C]`` tokens in
+``out["features"]``.
 
 Parameter names follow the reference's module paths, so that
 :func:`diffulab_tpu_torch.weights.state_dict_from_jax` (given this module,
@@ -346,9 +351,18 @@ class UNetModel(Denoiser):
         self._out_group_meta = out_group_meta
         self._compute_dtype = dtype
         self.cache_split: int | None = None  # DeepCache: set through set_block_cache_span
+        # U-REPA feature capture (arXiv:2503.18414; RepaLoss.set_model writes this): flat capture-point
+        # indices over the input groups (0..N-1), the middle block (N) and the output groups (N+1..2N)
+        self.feature_layers: tuple[int, ...] = ()
 
         self.out_norm = GroupNorm32(32, ch, device=device, param_dtype=param_dtype)
         self.out_conv = zero_conv(input_ch, out_channels, 3, **kw)
+
+    @property
+    def layers(self) -> list[nn.Module]:
+        """The flat capture points, in the forward's capture order: the input
+        groups, the middle block, the output groups (unet.py:416-420)."""
+        return list(self.input_blocks) + [self.middle_block] + list(self.output_blocks)
 
     # --- blocks -----------------------------------------------------------------
     def _apply_block(self, block: nn.Module, h, emb, context, attn_mask, train: bool):
@@ -414,8 +428,6 @@ class UNetModel(Denoiser):
         block_cache: Any = None,
         cache_refresh: bool | None = None,
     ) -> ModelOutput:
-        if capture_features:
-            raise NotImplementedError("U-REPA feature capture is not ported yet (ROADMAP queue 1, item 13)")
         cond = cond or {}
         y, context_raw, x_context = cond.get("y"), cond.get("context"), cond.get("x_context")
         if list(x.shape[1:3]) != self.image_size:
@@ -442,17 +454,36 @@ class UNetModel(Denoiser):
             x = torch.cat([x, x_context], dim=-1)
 
         if self.cache_split is not None and block_cache is not None and cache_refresh is not None:
+            if capture_features:
+                raise ValueError("block caching is a sampling-time feature; feature capture (REPA) is a "
+                                 "training-time one: they don't compose")
             return self._cached_forward(x, emb, context, attn_mask, train, block_cache, cache_refresh)
+
+        # U-REPA capture points (unet.py:517-547): each group's (and the middle block's) output,
+        # flattened to [B, H*W, C] tokens
+        points = iter(range(len(self.input_blocks) + 1 + len(self.output_blocks)))
+        capture = set(self.feature_layers) if capture_features else set()
+        features: list[torch.Tensor] = []
+
+        def tap(t: torch.Tensor) -> None:
+            if next(points) in capture:
+                features.append(t.reshape(t.shape[0], -1, t.shape[-1]))
 
         hs: list[torch.Tensor] = []
         h = x
         for group in self.input_blocks:
             h = self._run_group(group, h, emb, context, attn_mask, train)
             hs.append(h)
+            tap(h)
         h = self._run_group(self.middle_block, h, emb, context, attn_mask, train)
+        tap(h)
         for group in self.output_blocks:
             h = self._run_group(group, torch.cat([h, hs.pop()], dim=-1), emb, context, attn_mask, train)
-        return {"x": self.out_conv(F.silu(self.out_norm(h)))}
+            tap(h)
+        out: ModelOutput = {"x": self.out_conv(F.silu(self.out_norm(h)))}
+        if capture_features:
+            out["features"] = features
+        return out
 
     def _cached_forward(self, x, emb, context, attn_mask, train, block_cache, cache_refresh: bool) -> ModelOutput:
         """DeepCache forward (unet.py:551): the deep segment (encoder groups

@@ -184,14 +184,17 @@ def check_head_dim(d: int, dtype: torch.dtype, route: str = "fused") -> None:
 
 
 #: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`;
-#: a ``_f32_d<D>`` key counts the launches of the fp32 instance at an fp32-only
-#: head dim alone, which its kernel's key counts too (read by chip_smoke.py)
-LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0,
+#: a ``_bf16`` key counts the launches of the bf16 instances alone, a
+#: ``_f32_d<D>`` key those of the fp32 instance at an fp32-only head dim, and
+#: the kernel's key counts them too (read by chip_smoke.py)
+LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_fwd_bf16": 0, "fused_mha_bwd_bf16": 0,
             **{f"fused_mha_{kind}_f32_d{d}": 0 for kind in ("fwd", "bwd") for d in F32_ONLY_HEAD_DIMS}}
 
 
-def _count(name: str, d: int) -> None:
+def _count(name: str, d: int, dtype: torch.dtype) -> None:
     LAUNCHES[name] += 1
+    if dtype == torch.bfloat16:
+        LAUNCHES[f"{name}_bf16"] += 1
     if d in F32_ONLY_HEAD_DIMS:
         LAUNCHES[f"{name}_f32_d{d}"] += 1
 
@@ -484,7 +487,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, "fused_mha_fwd")
-    _count("fused_mha_fwd", d)
+    _count("fused_mha_fwd", d, q.dtype)
     return o, lse
 
 
@@ -534,7 +537,7 @@ def fused_mha_bwd(
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "fused_mha_bwd")
-    _count("fused_mha_bwd", d)
+    _count("fused_mha_bwd", d, q.dtype)
     return dq, dk, dv
 
 

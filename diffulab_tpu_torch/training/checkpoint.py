@@ -10,9 +10,12 @@ place, so an entry is either complete or absent.
 The layout of a model entry follows :func:`trainable_filter`, as the
 reference's (checkpoint.py:113-160): the ``denoiser`` entry holds
 ``{"params": <the trainable parameters by name>, "rest": <every other
-state_dict entry: frozen parameters such as a frozen context embedder's, and
-persistent buffers>}``, so the whole model restores from it; the ``ema``
-entry holds ``{"params": <the EMA of the trainable parameters>}`` only.
+state_dict entry: frozen parameters such as a frozen context embedder's or a
+REPA encoder's, and persistent buffers>}``, so the whole model restores from
+it; the ``ema`` entry holds ``{"params": <the EMA of the trainable
+parameters>}`` only. The names are the denoiser's own; a run with extra
+losses (REPA) saves :class:`TrainModules`, the reference's ``_TrainModules``
+bundle, whose names are ``denoiser.*`` and ``extra_losses.<i>.*``.
 
 :func:`restore_train_modules` and :func:`restore_sampling_model` restore a
 run's entry into a freshly built model for the CLIs: entries named ``ema``
@@ -27,9 +30,10 @@ from __future__ import annotations
 import os
 import threading
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
+from torch import nn
 
 #: the one file of an entry directory
 STATE_FILE = "state.pt"
@@ -124,19 +128,35 @@ class AsyncCheckpointer:
         self._thread.start()
 
 
+class TrainModules(nn.Module):
+    """The denoiser and its extra-loss modules as one module (the reference's
+    ``_TrainModules``, trainer.py:63-70): one trainable split, optimizer, EMA
+    and checkpoint cover the denoiser and, for REPA, the projector."""
+
+    def __init__(self, denoiser: nn.Module, extra_losses: Sequence[nn.Module]):
+        super().__init__()
+        self.denoiser = denoiser
+        self.extra_losses = nn.ModuleList(extra_losses)
+
+
+def train_modules(denoiser: nn.Module, extra_losses: Sequence[nn.Module] = ()) -> nn.Module:
+    """What the trainer optimises and checkpoints: the denoiser alone, or with
+    extra losses their :class:`TrainModules` bundle."""
+    return TrainModules(denoiser, extra_losses) if extra_losses else denoiser
+
+
 def trainable_filter(denoiser: torch.nn.Module, *, lora: bool = False,
                      train_embedder: bool = False) -> Callable[[str], bool]:
     """The trainer's trainable-parameter filter (reference checkpoint.py:113-134):
-    a predicate on ``named_parameters()`` names, true for every parameter
-    except those of a frozen ``context_embedder`` (excluded unless
-    ``train_embedder``). It sets what the optimizer and the EMA hold and the
-    checkpoint layout (:func:`split_state`). LoRA (item 16) and a live REPA
-    ``repa_encoder`` (item 13) are not ported and raise."""
+    a predicate on ``named_parameters()`` names (of the denoiser or of its
+    :class:`TrainModules`), true for every parameter except those of a live
+    REPA ``repa_encoder`` (a frozen alignment target) and of a frozen
+    ``context_embedder`` (excluded unless ``train_embedder``). It sets what
+    the optimizer and the EMA hold and the checkpoint layout
+    (:func:`split_state`). LoRA (item 16) is not ported and raises."""
     if lora:
         raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
-    if any("repa_encoder" in name.split(".") for name, _ in denoiser.named_modules()):
-        raise NotImplementedError("a REPA encoder (repa_encoder) is not ported yet (ROADMAP queue 1, item 13)")
-    frozen = []
+    frozen = ["repa_encoder"]
     if not train_embedder and getattr(denoiser, "context_embedder", None) is not None:
         frozen.append("context_embedder")
 
@@ -156,32 +176,33 @@ def split_state(model: torch.nn.Module, trainable: Callable[[str], bool]
             {k: v for k, v in state.items() if k not in names})
 
 
-def restore_train_modules(path: str | Path, denoiser: torch.nn.Module) -> None:
+def restore_train_modules(path: str | Path, denoiser: torch.nn.Module,
+                          extra_losses: Sequence[nn.Module] = ()) -> None:
     """Restore a trainer checkpoint entry (``denoiser``, ``ema`` or a post-hoc
-    EMA ``phema*`` directory) into a live model, with the trainer's default
-    trainable split (:func:`trainable_filter`: the reference's sampling CLIs
-    restore with it too). ``ema`` and ``phema*`` entries hold ``{"params"}`` only and
-    leave the rest of the model's state as it is; others hold
-    ``{"params", "rest"}`` and restore the whole state. A key or shape that
-    does not match raises."""
+    EMA ``phema*`` directory) into a live model and its extra losses (the
+    run's :func:`train_modules`), with the trainer's default trainable split
+    (:func:`trainable_filter`: the reference's sampling CLIs restore with it
+    too). ``ema`` and ``phema*`` entries hold ``{"params"}`` only and leave
+    the rest of the state as it is; others hold ``{"params", "rest"}`` and
+    restore the whole state. A key or shape that does not match raises."""
     path = Path(path)
-    params, rest = split_state(denoiser, trainable_filter(denoiser))
+    modules = train_modules(denoiser, extra_losses)
+    params, rest = split_state(modules, trainable_filter(denoiser))
     if path.name == "ema" or path.name.startswith("phema"):
         restored = restore_checkpoint(path, {"params": params})
-        denoiser.load_state_dict({**rest, **restored["params"]}, strict=True)
+        modules.load_state_dict({**rest, **restored["params"]}, strict=True)
     else:
         restored = restore_checkpoint(path, {"params": params, "rest": rest})
-        denoiser.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
+        modules.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
 
 
 def restore_sampling_model(ckpt_path: str | Path, denoiser: torch.nn.Module, extra_losses: list,
                            trainer_cfg: dict) -> None:
-    """Restore a run checkpoint into a freshly built denoiser for the
+    """Restore a run checkpoint into a freshly built denoiser (and the run's
+    extra losses, which a REPA run's checkpoint holds beside it) for the
     sampling CLI (reference checkpoint.py:188-225). A LoRA run
     (``trainer.lora_rank``) would restore its base, wrap the model and then
     the adapters; LoRA is not ported yet and raises."""
     if trainer_cfg.get("lora_rank"):
         raise NotImplementedError("LoRA checkpoints (trainer.lora_rank) are not ported yet (ROADMAP queue 1, item 16)")
-    if extra_losses:
-        raise NotImplementedError("extra losses (REPA) are not ported yet (ROADMAP queue 1, item 13)")
-    restore_train_modules(ckpt_path, denoiser)
+    restore_train_modules(ckpt_path, denoiser, extra_losses)

@@ -49,7 +49,13 @@ Also mirrored:
   it is kept out of the trainable split and the checkpoints, and the CFG
   drop is forced off;
 - reflow batches: a ``coupled_noise`` model input replaces the step's noise
-  draw (trainer.py:329-345).
+  draw (trainer.py:329-345);
+- extra losses (REPA, ``Diffuser(extra_losses=...)``): ``set_model`` runs
+  before the split (trainer.py:567-570), the train and validation forwards
+  capture features (:283), and the extra losses' trainable parameters (the
+  projector) share the optimizer, the EMA and the checkpoints with the
+  denoiser's (:class:`.checkpoint.TrainModules`), the frozen encoder in the
+  checkpoint's ``rest``.
 
 Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
 LoRA (``lora_only``, item 16), trainable embedders (``train_embedder``,
@@ -81,6 +87,7 @@ from diffulab_tpu_torch.training.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
     split_state,
+    train_modules,
     trainable_filter,
 )
 from diffulab_tpu_torch.training.ema import EMAConfig, ema_update, init_ema
@@ -221,17 +228,20 @@ def train_step(
     post-hoc EMA updates at the raw counter ``step``. ``batch`` holds the
     (augmented) x0 and the conditioning; a reflow batch's ``coupled_noise``
     takes the place of ``noise``. ``distill`` is the ``distill_fn`` /
-    ``distill_guidance`` pair of guidance distillation. Returns the detached
-    losses."""
+    ``distill_guidance`` pair of guidance distillation. The diffuser's extra
+    losses join the loss dict (their features captured by the forward).
+    Returns the detached losses."""
     x0, cond, coupled = split_batch(batch)
     if coupled is not None:
         noise = coupled.to(x0.dtype)
-    losses = diffuser.diffusion.compute_loss(diffuser.model_fn(train=True), x0, cond, t, noise, drop=drop,
+    extra_losses = diffuser.extra_losses
+    model_fn = diffuser.model_fn(train=True, capture_features=bool(extra_losses))
+    losses = diffuser.diffusion.compute_loss(model_fn, x0, cond, t, noise, drop=drop, extra_losses=extra_losses,
                                              **(distill or {}))
     sum(losses.values()).backward()
     optimizer.step()
     if ema is not None or phema is not None:
-        params = dict(diffuser.denoiser.named_parameters())
+        params = dict(train_modules(diffuser.denoiser, extra_losses).named_parameters())
         if ema is not None:
             ema.update(params, step)
         if phema is not None:
@@ -518,11 +528,17 @@ class BaseTrainer(Trainer):
         if train_embedder:
             raise NotImplementedError("trainable embedders are not ported yet (ROADMAP queue 1, item 9)")
         model = diffuser.denoiser
-        # the trainable split (checkpoint.py::trainable_filter) sets what the
-        # optimizer and the EMA hold, and the checkpoint layout
+        extra_losses = diffuser.extra_losses
+        # attach the extra losses (REPA's feature-capture registration) before the split
+        for loss in extra_losses:
+            loss.set_model(model)
+        capture = bool(extra_losses)
+        # the trainable split (checkpoint.py::trainable_filter) of the denoiser and its extra
+        # losses sets what the optimizer and the EMA hold, and the checkpoint layout
+        modules = train_modules(model, extra_losses)
         trainable = trainable_filter(model, lora=lora_only, train_embedder=train_embedder)
-        params = {name: p for name, p in model.named_parameters() if trainable(name)}
-        off = sorted({str(p.device) for p in model.parameters() if p.device != self.device})
+        params = {name: p for name, p in modules.named_parameters() if trainable(name)}
+        off = sorted({str(p.device) for p in modules.parameters() if p.device != self.device})
         if off:
             raise ValueError(f"the model's parameters are on {off}, the trainer runs on {self.device}; "
                              "build the model on the trainer's device")
@@ -565,9 +581,9 @@ class BaseTrainer(Trainer):
 
         # --- optimizer: schedule + gradient accumulation -------------------
         if denoiser_ckpt:
-            live_params, live_rest = split_state(model, trainable)
+            live_params, live_rest = split_state(modules, trainable)
             restored = restore_checkpoint(denoiser_ckpt, {"params": live_params, "rest": live_rest})
-            model.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
+            modules.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
         torch_opt = optimizer(list(params.values()))
         lr_scheduler = None
         if scheduler is not None:
@@ -619,7 +635,7 @@ class BaseTrainer(Trainer):
             # --- train epoch: losses summed on the card, one host sync per epoch
             loss_sums: dict[str, torch.Tensor] = {}
             n_steps_epoch = 0
-            model.train()
+            modules.train()
             for batch in train_dataloader:
                 batch = self._prepare_batch(self._host_embed(batch, diffuser))
                 step += 1
@@ -667,8 +683,8 @@ class BaseTrainer(Trainer):
 
             # --- validation, on the EMA weights where there are any ------------
             if val_dataloader is not None:
-                model.eval()
-                with _swapped_params(model, None if ema is None else ema.params), torch.no_grad():
+                modules.eval()
+                with _swapped_params(modules, None if ema is None else ema.params), torch.no_grad():
                     val_sums: dict[str, torch.Tensor] = {}
                     n_val = 0
                     for vi, val_batch in enumerate(val_dataloader):
@@ -678,8 +694,9 @@ class BaseTrainer(Trainer):
                         t = diffusion.draw_timesteps(generator, x0.shape[0])
                         noise = (coupled.to(x0.dtype) if coupled is not None else
                                  torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype))
-                        val_losses = diffusion.compute_loss(diffuser.model_fn(train=False), x0, cond, t, noise,
-                                                            **(distill or {}))
+                        val_losses = diffusion.compute_loss(
+                            diffuser.model_fn(train=False, capture_features=capture), x0, cond, t, noise,
+                            extra_losses=extra_losses, **(distill or {}))
                         n_val += 1
                         for key, val_loss in val_losses.items():
                             prev = val_sums.get(key)
@@ -706,12 +723,12 @@ class BaseTrainer(Trainer):
 
                 if total_loss < best_val_loss:
                     best_val_loss = total_loss
-                    self.save_model(*split_state(model, trainable), opt.state_dict(),
+                    self.save_model(*split_state(modules, trainable), opt.state_dict(),
                                     None if ema is None else ema.params, step)
                 tracker_meter.reset()
 
             if self.save_every_n_epochs and (epoch + 1) % self.save_every_n_epochs == 0:
-                self.save_latest(*split_state(model, trainable), opt.state_dict(),
+                self.save_latest(*split_state(modules, trainable), opt.state_dict(),
                                  None if ema is None else ema.params, step, epoch + 1, best_val_loss=best_val_loss)
 
         self.step = step

@@ -20,6 +20,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
+def full_fp32_products() -> None:
+    """The port's fp32 policy: float32 matmuls and convolutions run as full
+    fp32 products, as the reference's do (PyTorch's default lets cuDNN, and
+    may let cuBLAS, run them in TF32). Every CLI's ``main`` sets it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def resolve_dtype(dtype: str | torch.dtype | None) -> torch.dtype | None:
     """Accept a torch dtype, its name ("bfloat16", as YAML configs spell it) or None."""
     if dtype is None or isinstance(dtype, torch.dtype):

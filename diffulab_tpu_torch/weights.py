@@ -11,7 +11,15 @@ the mapping is by leaf name only:
 - ``*/bias`` -> ``bias``;
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
   other ``*/scale`` (RMSNorm, GroupNorm) stay ``scale``;
-- ``*/embedding/embedding`` -> ``embedding.weight``.
+- ``*/embedding/embedding`` -> ``embedding.weight``;
+- the ViT's bare arrays (``cls_token``, ``register_tokens``, ``pos_embed``,
+  ``ls1``, ``ls2``) keep their name and layout.
+
+A JAX ``RepaLoss`` maps the same way (its projector ``proj_fc*``, its frozen
+encoder under ``repa_encoder/_encoder/``), and so does the trainer's
+``_TrainModules`` tree ``{denoiser/..., extra_losses/<i>/...}``: the port's
+:class:`~diffulab_tpu_torch.training.checkpoint.TrainModules` has those module
+paths.
 
 The name alone cannot tell a LayerNorm named ``norm`` from a GroupNorm named
 ``norm`` (the VAE's mid attention, ``mid_attn/norm/scale``; trap T16): pass
@@ -30,6 +38,10 @@ import numpy as np
 import torch
 
 
+#: parameters held as a bare array, the same layout on both sides (the ViT's tokens and LayerScale)
+_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2"})
+
+
 def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     parts = path.split("/")
     leaf = parts[-1]
@@ -45,7 +57,7 @@ def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
         parts[-1] = "weight"
     elif leaf == "embedding" and len(parts) > 1 and parts[-2] == "embedding":
         parts[-1] = "weight"
-    elif leaf not in ("bias", "scale"):
+    elif leaf not in ("bias", "scale") and leaf not in _PLAIN_LEAVES:
         raise ValueError(f"no port mapping for parameter {path}")
     return ".".join(parts), value
 

@@ -286,14 +286,16 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(cli, monkeypatch,
 @pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"),
                                            ("train_synthetic_edm_repa", "item 13"), ("+repa", "item 13")])
 def test_train_cli_unported_options_raise(override, item, tmp_path):
-    """LoRA (item 16) and REPA (item 13: a ``repa:`` section, as in
-    train_synthetic_edm_repa) raise; ``trainer.distill_from`` is ported
+    """LoRA (item 16) and the REPA paths of item 13b raise: a DINO encoder in
+    train_synthetic_edm_repa, and a ``repa:`` section naming no encoder
+    (precomputed features). The live FixedViT REPA is ported
+    (tests/test_torch_port_e1_cli.py), and so is ``trainer.distill_from``
     (tests/test_torch_port_c2_cli.py)."""
     config, overrides = "train_synthetic_flow_matching", [override]
     if override == "+repa":
         overrides = ["repa.alignment_layer=1"]
     elif not override.startswith("trainer."):
-        config, overrides = override, []
+        config, overrides = override, ["repa.repa_encoder=dinov2"]
     with pytest.raises(NotImplementedError, match=item):
         train_diffusion.main(["--device", "cpu", "--config-name", config,
                               *overrides, *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
@@ -302,10 +304,12 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
 @pytest.mark.parametrize("flags,item", [(["--prompts", "a cat"], "item 16"),
                                         (["model.attention_impl=ring"], "item 17"),
                                         (["trainer.lora_rank=4"], "item 16"),
-                                        (["--config-name", "train_synthetic_edm_repa"], "item 13")])
+                                        (["--config-name", "train_synthetic_edm_repa", "repa.repa_encoder=dinov2"],
+                                         "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
     """--prompts and LoRA checkpoints (item 16), ring attention (item 17) and
-    REPA configs (item 13) raise. --guide-ckpt, --cache-*, --inpaint-*,
+    a REPA config with a DINO encoder (item 13b) raise; the live FixedViT
+    REPA configs sample (tests/test_torch_port_e1_cli.py). --guide-ckpt, --cache-*, --inpaint-*,
     --img2img-image and every sampler are ported and run in
     tests/test_torch_port_c2_cli.py; the Gaussian formalization in
     tests/test_torch_port_d1_cli.py."""

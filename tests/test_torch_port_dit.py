@@ -102,14 +102,17 @@ def test_unported_options_raise(kwargs):
 
 
 def test_unported_call_paths_raise():
-    """REPA feature capture (ROADMAP item 13) still raises; block caching and
+    """REPA feature capture (ROADMAP item 13, ported: tests/test_torch_port_repa.py)
+    does not compose with block caching and raises with it; block caching and
     augmentation labels are ported (tests/test_torch_port_{caching,edm}.py)."""
     model = MMDiT(**TINY, device="cpu")
     x, t, y = torch.zeros(1, *LATENT), torch.zeros(1), torch.zeros(1, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        model(x, t, {"y": y}, capture_features=True)
+    with torch.no_grad():
+        assert model(x, t, {"y": y}, capture_features=True)["features"] == []  # no feature_layers set
     model.set_block_cache_span((0, 1))
     cache = model.init_block_cache((1, *LATENT), {"y": y}, use_cfg=False)
+    with pytest.raises(ValueError, match="don't compose"):
+        model(x, t, {"y": y}, block_cache=cache, cache_refresh=True, capture_features=True)
     with torch.no_grad():
         out = model(x, t, {"y": y}, block_cache=cache, cache_refresh=True)
     assert out["x"].shape == (1, *LATENT) and out["block_cache"][0].shape == cache[0].shape

@@ -527,15 +527,25 @@ def test_unported_batches_raise(tmp_path, key):
 
 
 def test_unported_loss_paths_raise():
+    """The GRPO loss (item 16) raises; extra losses (item 13) are ported: each
+    joins the loss dict under its name, called on the model's output with x0
+    (REPA itself: tests/test_torch_port_repa.py)."""
     diffuser = Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4, extra_losses=[])
     assert diffuser.extra_losses == []
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Diffuser(diffuser.denoiser, "euler", extra_losses=[object()])
     x0, t = torch.zeros(1, *LATENT), torch.full((1,), 0.5)
     with pytest.raises(NotImplementedError, match="item 16"):  # distill_fn is ported; the GRPO loss is not
         diffuser.compute_loss(x0, {}, t, x0, grpo=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        diffuser.diffusion.compute_loss(diffuser.model_fn(), x0, {}, t, x0, extra_losses=[object()])
+
+    class Probe:
+        name = "probe"
+
+        def __call__(self, model_output, x0, **_):
+            return model_output["x"].float().mean() + x0.sum()
+
+    with_extra = Diffuser(diffuser.denoiser, "euler", extra_losses=[Probe()])
+    y = torch.zeros(1, dtype=torch.long)
+    losses = with_extra.compute_loss(x0, {"y": y}, t, x0)
+    assert set(losses) == {"loss", "probe"} and torch.isfinite(losses["probe"])
 
 
 def test_trainer_needs_a_device_without_cuda(monkeypatch, tmp_path):

@@ -193,8 +193,10 @@ def test_mmdit_argument_checks():
     x, t = torch.zeros(1, 4, 4, 4), torch.zeros(1)
     with pytest.raises(ValueError, match="context"):
         model(x, t, {})
-    with pytest.raises(NotImplementedError):
-        model(x, t, _cond(*context_inputs(1)), capture_features=True)
+    model.feature_layers = (0, 2)  # REPA capture is ported (tests/test_torch_port_repa.py): the image tokens
+    with torch.no_grad():
+        feats = model(x, t, _cond(*context_inputs(1)), capture_features=True)["features"]
+    assert [f.shape for f in feats] == [(1, 16, TINY_MM["inner_dim"])] * 2
     # block caching is ported (tests/test_torch_port_caching.py); a span must lie inside the stack
     with pytest.raises(ValueError, match="out of range"):
         model.set_block_cache_span((0, 4))

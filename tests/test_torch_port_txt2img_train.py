@@ -233,9 +233,10 @@ def test_trainable_filter_leaves_out_the_context_embedder():
     assert all(trainable_filter(pre)(n) for n, _ in pre.named_parameters())
     with pytest.raises(NotImplementedError, match="item 16"):
         trainable_filter(model, lora=True)
-    model.repa_encoder = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        trainable_filter(model)
+    model.repa_encoder = torch.nn.Linear(2, 2)  # a live REPA encoder is a frozen target (checkpoint.py:114-131)
+    trainable = trainable_filter(model)
+    assert not trainable("repa_encoder.weight") and not trainable("extra_losses.0.repa_encoder._encoder.pos_embed")
+    assert trainable("extra_losses.0.proj_fc1.weight")
 
 
 def test_trainer_optimises_and_saves_only_the_trainable_parameters(tmp_path):
