@@ -24,7 +24,11 @@ DPM++ and block-cache sampling arms on DiT-B/2; and slice C2,
 the sampler family, block caching, autoguidance, inpainting and img2img,
 then guidance distillation and reflow from the C1 run; and slice D1,
 ``configs/train_synthetic_ddpm.yaml`` (the ADM UNet under Gaussian diffusion,
-attention at head dims 192 and 384) through the same CLIs.
+attention at head dims 192 and 384) through the same CLIs; slice E1's six
+configs; and slice D2, ``configs/train_mnist_ddpm.yaml`` and
+``configs/train_mnist_flow_matching.yaml`` (the MNIST UNet, attention at
+head dims 256 and 512) through the same CLIs on MNIST files written from a
+seed.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -142,7 +146,22 @@ Phases, one line each:
      11 a step at D=192/384), a request from each restored checkpoint (500,
      350, 550 K1), one REPA loss dict recomputed on the host with the same
      weights, rows and draws (rtol 1e-3), and the card's FixedViT against
-     jax_prng's draw, bit for bit.
+     jax_prng's draw, bit for bit;
+ 19. slice D2, the MNIST UNet: (a) the fp32 K1 and K2 instances at head dims
+     256 and 512, built around the valid rows, at the UNet's shapes (B=128,
+     H=2, the unpadded 64 or 16 query rows, keys padded to 128 with the
+     padding mask) against their plain versions, with an empty key tile
+     between live ones beside a fully masked row and a ragged Sq; each timed
+     beside fp32 SDPA on the same inputs, on the padded and on the unpadded
+     tensors, with bounds over the valid rows and keys and over the padded
+     rows; (b) the config's UNet (276.7M parameters, fp32) forward and
+     gradients on the kernel path against plain attention (11 K1, 11 K2: 5 at D=256, 6 at
+     D=512); (c) ``train_mnist_ddpm`` and ``train_mnist_flow_matching`` through
+     ``train_diffusion`` (one epoch of 1024 images, 256 for validation,
+     written as MNIST idx files from a seed; 11 K1 + 11 K2 a step) and two
+     ``sample`` requests each of 16 images at 50 steps (DDPM ancestral, Euler;
+     550 K1 each), every K1/K2 launch an instance at D=256 or D=512 by their
+     own counters; ms per step, samples/s, peak memory, ms per request.
 Phases 8 and 11 also time the flash kernels' fp32 instances at their slice
 shapes beside fp32 SDPA.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
@@ -257,7 +276,6 @@ D1_BATCH, D1_HEADS, D1_PADDED = 128, 2, 128
 D1_ATTN = ((192, 64, 5), (384, 16, 6))
 D1_CALLS = sum(n for _, _, n in D1_ATTN)  # 11 K1 a forward, 11 K2 a backward
 D1_SAMPLES, D1_GUIDANCE, D1_STEPS = 16, 1.5, 50  # a DDIM-50 request, 2x16 under fused CFG
-D1_COUNTERS = tuple(f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d, _, _ in D1_ATTN)
 BF16_COUNTERS = ("fused_mha_fwd_bf16", "fused_mha_bwd_bf16")  # the bf16 instances' own counts (slice E1)
 
 # phase 18: slice E1, the hard synthetic dataset and live-encoder REPA: six download-free configs
@@ -282,6 +300,26 @@ E1_RUNS = {
 }
 E1_CPU_BATCH = 4  # the rows of a batch whose REPA loss dict is recomputed on the host
 E1_LOSS_RTOL = 1e-3
+
+# phase 19: slice D2, configs/train_mnist_ddpm.yaml (Gaussian, DDPM ancestral) and
+# configs/train_mnist_flow_matching.yaml (rectified flow, Euler) on the MNIST UNet
+# (configs/model/unet.yaml: model_channels 128, channel_mult 1,2,4,8, 2 heads, attention at ds 4
+# and 8 and in the middle block; fp32, batch 128, gradient accumulation 2) through the CLIs, on
+# MNIST idx files written from a seed, cut only in epochs (50 -> 1) and in the images written
+# (60000 -> 1024 train, 10000 -> 256 validation)
+D2_CONFIGS = {"train_mnist_ddpm": ("mnist_ddpm", "DDPM ancestral"),
+              "train_mnist_flow_matching": ("mnist_flow_matching", "Euler")}
+D2_CUTS = {"trainer.n_epoch": (50, 1)}
+D2_IMAGES = {"train": (60000, 1024), "t10k": (10000, 256)}
+D2_BATCH, D2_HEADS, D2_PADDED = 128, 2, 128
+# (head dim, tokens, attention calls a forward): 8x8 tokens at ds 4 (2 encoder + 3 decoder
+# blocks), 4x4 at ds 8 (2 + 3) and in the middle block; keys padded to 128, queries not
+D2_ATTN = ((256, 64, 5), (512, 16, 6))
+D2_CALLS = sum(n for _, _, n in D2_ATTN)  # 11 K1 a forward, 11 K2 a backward
+# the counters of every fp32-only instance: D1's and D2's head dims
+F32_ONLY_COUNTERS = tuple(f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d, _, _ in (*D1_ATTN, *D2_ATTN))
+D2_SAMPLES, D2_STEPS = 16, 50  # a request of 16 images, 50 steps, no CFG (classifier_free: false)
+D2_PARAMS = 276_690_433
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -1443,7 +1481,7 @@ def phase_gradients(model, plain):
         losses.append(float(loss.detach()))
         if diffuser.denoiser is model and launched != {"fused_mha_fwd": DIT_B2["depth"], "fused_mha_bwd": DIT_B2["depth"],
                                                         **dict.fromkeys(BF16_COUNTERS, DIT_B2["depth"]),
-                                                        **dict.fromkeys(D1_COUNTERS, 0)}:
+                                                        **dict.fromkeys(F32_ONLY_COUNTERS, 0)}:
             fail(f"DiT-B/2 gradients: kernel path launched {launched}, expected {DIT_B2['depth']} of each")
     worst, worst_name = 0.0, None
     for name, g in grads[0].items():
@@ -1594,7 +1632,7 @@ def phase_txt2img_gradients(model, plain):
     depth = TXT["depth"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *D1_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
     if launched[0] != expected or any(launched[1].values()):
         fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
     worst, worst_name = 0.0, None
@@ -1709,7 +1747,7 @@ def phase_txt2img_train(model, tower):
         fail(f"txt2img train: validation images {logged}, expected {image_shape} in [0, 1] with captions")
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *D1_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
         step = {key: c1[key] - c0[key] for key in c1}
@@ -2247,13 +2285,16 @@ def phase_d1_kernels():
     backward as its memory-efficient backward op, :func:`sdpa_fp32_backward`,
     the same way), the plain version's time and the bound at the 3xTF32 rate
     over the valid keys. First the libraries' tile rules against the ones
-    the emulation in ``ops/fused_mha.py`` mirrors, at every fused head dim."""
+    the emulation in ``ops/fused_mha.py`` mirrors, at every fused head dim,
+    and the head dims whose instances take the unpadded query rows against
+    its ``VALID_ROWS_HEAD_DIMS``."""
     import torch
     import torch.nn.functional as F
 
     from diffulab_tpu_torch.ops import _build
     from diffulab_tpu_torch.ops.fused_mha import (
         FUSED_HEAD_DIMS,
+        VALID_ROWS_HEAD_DIMS,
         f32_groups,
         f32_keys,
         fused_mha,
@@ -2270,6 +2311,10 @@ def phase_d1_kernels():
     if tiles != mirrored:
         fail(f"D1 fp32 tile rules: the libraries' (K1 keys, (K1 groups, dk/dv groups), dq groups) {tiles} differ "
              f"from ops/fused_mha.py's {mirrored}")
+    valid_rows = tuple(d for d in FUSED_HEAD_DIMS if fwd_lib.fused_mha_fwd_f32_tiles(d, 2))
+    if valid_rows != VALID_ROWS_HEAD_DIMS:
+        fail(f"the libraries take the unpadded query rows at head dims {valid_rows}, ops/fused_mha.py's "
+             f"VALID_ROWS_HEAD_DIMS is {VALID_ROWS_HEAD_DIMS}")
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     s, h = D1_PADDED, D1_HEADS
@@ -2783,6 +2828,327 @@ def phase_e1_repa(root: Path):
 C1_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
+def d2_mask(kind: str, b: int, tokens: int):
+    """[b, 128] key mask: the UNet's padding mask (its first ``tokens`` keys);
+    or ``"hole"``: batch row 0 with keys 8-15 masked and as many valid keys
+    after them (an empty 8-key tile between live ones), row 1 fully masked,
+    the others padded."""
+    import torch
+
+    keys = torch.arange(D2_PADDED, device="cuda")
+    mask = (keys < tokens)[None].expand(b, -1).clone()
+    if kind == "hole":
+        mask[0] = (keys < 8) | ((keys >= 16) & (keys < tokens + 8))
+        mask[1] = False
+    return mask
+
+
+def d2_bounds(b: int, tokens: int, h: int, d: int, backward: bool, padded: bool) -> dict[str, Any]:
+    """The bound of one fp32 K1 (or, ``backward``, K2) call at the MNIST
+    UNet's shape, at 3xTF32 and 3.35 TB/s: the valid rows of q and o (K2: q,
+    do and dq), the valid keys of k and v (K2: and of dk and dv, the
+    gradients the route keeps: its pad's backward drops the padded keys'),
+    lse over the valid rows, the mask, and the products over the valid rows
+    and keys; ``padded``: the padded contract, q and o (do, dq), lse, dk and
+    dv over the 128 padded rows (the zero rows the kernel writes included)
+    and the products over the padded rows and valid keys."""
+    rows = D2_PADDED if padded else tokens
+    s = D2_PADDED
+    if backward:
+        elems = (3 * b * rows + 2 * b * tokens + 2 * b * rows) * h * d
+        flops = 10 * b * h * rows * tokens * d
+    else:
+        elems = (2 * b * rows + 2 * b * tokens) * h * d
+        flops = 4 * b * h * rows * tokens * d
+    bytes_moved = elems * 4 + b * rows * h * 4 + b * s * 4
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                mb=bytes_moved / 1e6, gflop=flops / 1e9)
+
+
+def phase_d2_kernels(d1_kernels=None):
+    """Phase 19a: the fp32 K1 and K2 instances at head dims 256 and 512 (the
+    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2) against
+    their plain versions, as the fused route hands them over: the unpadded
+    query rows, k, v and the padding mask at 128 keys. First two edge cases
+    each (an empty key tile between live ones beside a fully masked row: o =
+    0, lse = +inf and zero gradients there; a ragged Sq). Then each kernel
+    timed from CUDA-graph replays beside fp32 SDPA on the same inputs (the
+    yardstick), on the padded q, k, v with the mask, and on the unpadded q,
+    k, v; SDPA's backward as its memory-efficient backward op
+    (:func:`sdpa_fp32_backward`); the plain version's time; two bounds
+    (:func:`d2_bounds`). With phase 17a's results of the same run, the line
+    repeats the padded instances at D = 192/384 beside them (phase 17a also
+    holds the libraries' tile rules at every head dim to the emulation's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    s, h, b = D2_PADDED, D2_HEADS, D2_BATCH
+    results, edges = {}, {}
+    for d, tokens, _ in D2_ATTN:
+        def rand(n):
+            return torch.randn(b, n, h, d, generator=gen, device="cuda", dtype=torch.float32)
+
+        for label, sq, mask in (("hole", tokens, d2_mask("hole", b, tokens)),
+                                ("ragged", tokens // 2 + 5, d2_mask("padded", b, tokens))):
+            q, k, v, do = rand(sq), rand(s), rand(s), rand(sq)
+            with torch.no_grad():
+                o, lse = fused_mha(q, k, v, mask)
+                ro, rlse = fused_mha_reference(q, k, v, mask)
+                err = check_close(f"D2 K1 fp32 D={d} {label} o", o, ro, *TOL["float32"])
+                check_close(f"D2 K1 fp32 D={d} {label} lse", lse, rlse, *LSE_TOL)
+                grads = fused_mha_bwd(q, k, v, mask, lse, do)
+                bwd_err = check_grads(f"D2 K2 fp32 D={d} {label}", grads,
+                                      fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL["float32"])
+            if label == "hole" and (bool(o[1].any()) or not bool((lse[1] == math.inf).all())
+                                    or any(bool(g[1].any()) for g in grads)):
+                fail(f"D2 D={d}: the fully masked row's o {float(o[1].abs().max())}, lse {lse[1].min().item()}, "
+                     "gradients not 0, +inf and 0")
+            edges[f"d{d}_{label}_sq{sq}"] = (err, bwd_err)
+
+        mask = d2_mask("padded", b, tokens)
+        q, k, v, do = rand(tokens), rand(s), rand(s), rand(tokens)
+        qp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, do))  # the padded route's q and do
+        kv = [t[:, :tokens].contiguous() for t in (k, v)]  # the unpadded keys
+        attn = mask[:, None, None, :]
+        qt, kt, vt, qpt = (t.transpose(1, 2) for t in (q, k, v, qp))
+        kvt = [t.transpose(1, 2) for t in kv]
+        with torch.no_grad():
+            o, lse = fused_mha(q, k, v, mask)
+            ro, rlse = fused_mha_reference(q, k, v, mask)
+            err = check_close(f"D2 K1 fp32 D={d} o", o, ro, *TOL["float32"])
+            check_close(f"D2 K1 fp32 D={d} lse", lse, rlse, *LSE_TOL)
+            sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn).transpose(1, 2) - ro)
+                             .abs().max())
+            results[f"fwd_d{d}"] = dict(
+                max_abs_err=err, sdpa_err=sdpa_err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
+                plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v, mask), iters=5),
+                library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn)),
+                sdpa_padded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kt, vt, attn_mask=attn)),
+                sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, *kvt)),
+                **d2_bounds(b, tokens, h, d, False, False),
+                padded=d2_bounds(b, tokens, h, d, False, True))
+            refs = fused_mha_bwd_reference(q, k, v, mask, lse, do)
+            err = check_grads(f"D2 K2 fp32 D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs, BWD_TOL["float32"])
+            sdpa_bwd = sdpa_fp32_backward(q, k, v, do, mask)
+            sdpa_err = max(float((g.transpose(1, 2) - r).abs().max()) for g, r in zip(sdpa_bwd(), refs))
+            results[f"bwd_d{d}"] = dict(
+                max_abs_err=err, sdpa_err=sdpa_err,
+                ms=cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10, replays=5),
+                plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, mask, lse, do), iters=3),
+                library_ms=cuda_graph_ms(sdpa_bwd, calls=10, replays=5),
+                sdpa_padded_ms=cuda_graph_ms(sdpa_fp32_backward(qp, k, v, dop, mask), calls=10, replays=5),
+                sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, *kv, do), calls=10, replays=5),
+                **d2_bounds(b, tokens, h, d, True, False),
+                padded=d2_bounds(b, tokens, h, d, True, True))
+        del q, k, v, do, qp, dop, kv, o, lse, ro, rlse, refs, sdpa_bwd
+    torch.cuda.synchronize()
+    print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={b}, H={h}, the unpadded query rows, "
+          f"keys padded to {s} with the padding mask; device ms from CUDA-graph replays; SDPA fp32 on the same "
+          f"inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, its backward as its "
+          f"memory-efficient backward op; bounds at 3xTF32 = {PEAK_TF32_FLOPS / 1e12:.0f}/3 TFLOP/s and "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s over the valid rows and keys, and over the padded contract's {s} rows): "
+          "edge cases (max_abs_err K1 o, K2) "
+          + ", ".join(f"{key} {e1:.3e} {e2:.3e}" for key, (e1, e2) in edges.items()) + "; "
+          + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) kernel {r['ms']:.4f} "
+                      f"SDPA fp32 {r['library_ms']:.4f} (padded {r['sdpa_padded_ms']:.4f}, unpadded "
+                      f"{r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+                      f"({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
+                      f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']}: {r['padded']['mb']:.1f} MB)"
+                      for key, r in results.items())
+          + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * (max|ref| + |ref|)"
+          + ("" if d1_kernels is None else "; in this run (phase 17a) the padded instances at B=128: " + ", ".join(
+              f"{key} {d1_kernels[f'{key}_b{D1_BATCH}']['ms']:.4f} (SDPA {d1_kernels[f'{key}_b{D1_BATCH}']['library_ms']:.4f})"
+              for key in ("fwd_d192", "bwd_d192", "fwd_d384", "bwd_d384"))))
+    return results
+
+
+def _d2_unet(config: str, seed: int):
+    """The config's UNet at full width, seeded noise in every parameter (its
+    out convs are zero-initialised), on the card."""
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    model = instantiate(compose_config(CONFIG_DIR, config)["model"], device="cuda")
+    randomize_(model, seed)
+    return model
+
+
+def _d2_instances(launches: dict, label: str) -> None:
+    """Every K1 and K2 launch of a run an instance at D=256 (5 a model call)
+    or D=512 (6), by their own counters, and no other attention kernel."""
+    for kind in ("fwd", "bwd"):
+        by_dim = [launches[f"fused_mha_{kind}_f32_d{d}"] for d, _, _ in D2_ATTN]
+        if sum(by_dim) != launches[f"fused_mha_{kind}"] or by_dim[0] * 6 != by_dim[1] * 5:
+            fail(f"D2 {label}: {kind} launches {launches}: every one an instance at D=256 (5 a model call) "
+                 "or D=512 (6)")
+    if any(launches[key] for key in ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")):
+        fail(f"D2 {label}: flash launches {launches}")
+
+
+def phase_d2_model():
+    """Phase 19b: the MNIST UNet at full width (276.7M parameters), fp32:
+    one forward at B=32 and the parameter gradients of one epsilon loss at
+    B=16, each on the kernel path against the same model with the plain
+    attention (``impl="xla"``), the launch counts set to 0 just before and
+    read just after: 11 K1 a forward (5 at D=256, 6 at D=512), 11 K2 a
+    backward."""
+    import functools
+
+    import torch
+
+    import diffulab_tpu_torch.networks.denoisers.unet as unet_mod
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.ops import dot_product_attention
+
+    model = _d2_unet("train_mnist_ddpm", 191)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != D2_PARAMS:
+        fail(f"D2 UNet: {n_params} parameters, expected {D2_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(192)
+
+    def both_paths(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        unet_mod.dot_product_attention = functools.partial(dot_product_attention, impl="xla")
+        try:
+            ref = fn()
+        finally:
+            unet_mod.dot_product_attention = dot_product_attention
+        return out, ref, launched
+
+    b = 32
+    x = torch.randn(b, 32, 32, 1, generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        out, ref, fwd = both_paths(lambda: model(x, t, {"y": y})["x"])
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    want = {"fused_mha_fwd": D2_CALLS, "fused_mha_fwd_f32_d256": 5, "fused_mha_fwd_f32_d512": 6, "fused_mha_bwd": 0}
+    if not bool(torch.isfinite(out).all()) or rel > 1e-4 or any(fwd[k] != v for k, v in want.items()):
+        fail(f"D2 UNet forward: rel err {rel:.3e} (tol 1e-4), launches {fwd}, expected {want}")
+
+    gb = 16
+    diffuser = Diffuser(model, "ddpm", model_type="gaussian_diffusion")
+    x0, noise = (torch.randn(gb, 32, 32, 1, generator=gen, device="cuda") for _ in range(2))
+    t, y = torch.randint(0, 1000, (gb,), generator=gen, device="cuda"), y[:gb]
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        diffuser.compute_loss(x0, {"y": y}, t, noise)["loss"].backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    ours, plain, bwd = both_paths(grads)
+    worst = max(float((ours[n] - plain[n]).norm() / plain[n].norm().clamp_min(1e-30)) for n in plain
+                if float(plain[n].norm()) > 0)
+    want = {"fused_mha_fwd": D2_CALLS, "fused_mha_bwd": D2_CALLS, "fused_mha_bwd_f32_d256": 5,
+            "fused_mha_bwd_f32_d512": 6}
+    if worst > 1e-3 or any(bwd[k] != v for k, v in want.items()):
+        fail(f"D2 UNet gradients: worst per-parameter rel err {worst:.3e} (tol 1e-3), launches {bwd}")
+    model.zero_grad(set_to_none=True)
+    del model, diffuser, ours, plain
+    torch.cuda.empty_cache()
+    print(f"phase 19 D2 MNIST UNet ({n_params} parameters, fp32, in_channels 1, no CFG null class) forward B={b}: "
+          f"kernel path vs plain attention max rel err {rel:.3e} (tol 1e-4), launches "
+          f"{fwd['fused_mha_fwd_f32_d256']} K1 D=256 + {fwd['fused_mha_fwd_f32_d512']} K1 D=512; epsilon-loss "
+          f"gradients B={gb}: worst per-parameter ||kernel - plain|| / ||plain|| {worst:.3e} (tol 1e-3), "
+          f"{bwd['fused_mha_bwd']} K2 ({bwd['fused_mha_bwd_f32_d256']} at D=256, {bwd['fused_mha_bwd_f32_d512']} "
+          "at D=512)")
+
+
+def write_mnist(root: Path, seed: int = 0) -> None:
+    """MNIST idx files of D2_IMAGES' cut sizes from a seed (valid idx
+    headers, uniform uint8 pixels and labels): no download."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for prefix, (_, n) in D2_IMAGES.items():
+        with open(root / f"{prefix}-images-idx3-ubyte", "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28))
+            f.write(rng.integers(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
+        with open(root / f"{prefix}-labels-idx1-ubyte", "wb") as f:
+            f.write(struct.pack(">II", 2049, n))
+            f.write(rng.integers(0, 10, n, dtype=np.uint8).tobytes())
+
+
+def phase_d2_cli(root: Path):
+    """Phase 19c: both MNIST configs through the port's CLIs, in process,
+    under ``root``, on idx files written from a seed: train_diffusion (the
+    validation grid of 8 images by the config's sampler at val_steps 50
+    every epoch) and two sample requests of 16 images at 50 steps (DDPM
+    ancestral for the Gaussian config, Euler for the flow one) from the EMA
+    checkpoint. The counts are set to 0 just before the training and read at
+    each train step (11 K1 + 11 K2), and set to 0 again just before each
+    request (550 K1); every K1 and K2 launch of these runs an instance at
+    D=256 or D=512 by their own counters."""
+    import numpy as np
+    from PIL import Image
+
+    from diffulab_tpu_torch.examples import train_diffusion
+
+    sys.modules["wandb"] = None
+    data = root / "mnist"
+    write_mnist(data)
+    log = root / "d2.log"
+    n_epochs = D2_CUTS["trainer.n_epoch"][1]
+    steps_per_epoch = D2_IMAGES["train"][1] // D2_BATCH
+    cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in D2_CUTS.items()]
+                     + [f"{prefix} images {old} -> {new}" for prefix, (old, new) in D2_IMAGES.items()])
+    results = {}
+    for config, (project, sampler) in D2_CONFIGS.items():
+        overrides = [f"{key}={new}" for key, (_, new) in D2_CUTS.items()] + [
+            f"dataset.train.data_path={data}", f"dataset.val.data_path={data}", f"trainer.save_path={root}"]
+        run = root / project
+        tr = _timed_train_cli(train_diffusion.main, ["--config-name", config, *overrides], log, run, n_epochs,
+                              steps_per_epoch, f"D2 {config}")
+        if tr["per_step"] != [(D2_CALLS, D2_CALLS, 0)] * tr["trainer"].step:
+            fail(f"D2 {config} train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, "
+                 f"expected ({D2_CALLS}, {D2_CALLS}, 0) each")
+        _d2_instances(tr["launches"], f"{config} train")
+        out = root / f"{project}_samples.png"
+        requests, sample_total = [], {}
+        for seed in (0, 1):  # the first request's time includes the process's first calls at its shapes
+            result = _sample_request(["--config-name", config, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
+                                      str(D2_SAMPLES), "--labels", ",".join(str(i) for i in range(10)), "--steps",
+                                      str(D2_STEPS), "--seed", str(seed), "--out", str(out), *overrides], log)
+            launches = result["launches"]
+            if launches["fused_mha_fwd"] != D2_STEPS * D2_CALLS or launches["fused_mha_bwd"]:
+                fail(f"D2 {config} sample: launches {launches}, expected {D2_STEPS * D2_CALLS} K1 and no K2")
+            _d2_instances(launches, f"{config} sample")
+            requests.append(result["generate_ms"])
+            sample_total = {key: sample_total.get(key, 0) + n for key, n in launches.items()}
+        grid = np.asarray(Image.open(out))
+        if result["images"].shape != (D2_SAMPLES, 32, 32, 1) or grid.shape != (2 + 2 * 34, 2 + 8 * 34):
+            fail(f"D2 {config} sample: images {result['images'].shape}, grid {grid.shape}")
+        step_ms = tr["step_ms"]
+        print(f"phase 19 CLIs {config} (cut: {cuts}; else the config's: batch {D2_BATCH}, gradient accumulation 2, "
+              f"fp32, UNet model_channels 128 channel_mult 1,2,4,8, {D2_HEADS} heads, {sampler}-{D2_STEPS} "
+              f"validation): train {tr['trainer'].step} steps in {tr['train_s']:.1f} s, ms/step start to start "
+              f"median after the first two {tr['steady']:.2f} (min {min(step_ms):.2f} max {max(step_ms):.2f}; "
+              f"train_step alone median {tr['kernel_ms']:.2f}), samples/s {D2_BATCH / tr['steady'] * 1e3:.1f}, peak "
+              f"mem {tr['peak_gib']:.2f} GiB; train losses {[round(x, 5) for x in tr['losses']]}, val losses (EMA) "
+              f"{[round(x, 5) for x in tr['val_losses']]}; launches per step {D2_CALLS} K1 + {D2_CALLS} K2, 0 K3, "
+              f"in the run {tr['launches']}; sample {D2_SAMPLES} images {sampler}-{D2_STEPS} from the EMA "
+              f"checkpoint, two requests: generate {' and '.join(f'{ms:.1f}' for ms in requests)} ms, launches each "
+              f"{launches}; PNG grid {grid.shape}, pixels finite")
+        results[config] = {"train": tr["launches"], "sample": sample_total, "step_ms": tr["steady"],
+                           "generate_ms": requests, "peak_gib": tr["peak_gib"]}
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -2853,6 +3219,10 @@ def main() -> int:
         e1_color = phase_e1_colorize(Path(tmp))
         e1_repa = phase_e1_repa(Path(tmp))
         lap("18 E1")
+        d2_kernels = phase_d2_kernels(d1_kernels)
+        phase_d2_model()
+        d2 = phase_d2_cli(Path(tmp))
+        lap("19 D2")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -2862,13 +3232,15 @@ def main() -> int:
     e1_bf16 = {k: v for k, v in e1_windows.items() if k.startswith("e1_hard")}
     e1_d64 = {k: v for k, v in e1_windows.items() if not k.startswith(("e1_hard", "e1_ddpm"))}
     e1_unet = {k: v for k, v in e1_windows.items() if k.startswith("e1_ddpm")}
+    d2_windows = {f"d2_{D2_CONFIGS[c][0].removeprefix('mnist_')}_{w}": r[w] for c, r in d2.items()
+                  for w in ("train", "sample")}
     k3_fp32 = k3.pop("fp32")
     k45_fp32 = {name: k45[name].pop("fp32") for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     # the fp32 flash instances' launches in every main-path run that reads all the counts
     windows = {"generate": gen_counts, "train": train_launches, "txt2img_generate": txt_totals,
                "txt2img_train": txt_train_launches, "c1_train": c1["train"], "c1_sample": c1["sample"],
                "dit_sampling_arms": arms["launches"], "c2": c2, "d1_train": d1["train"], "d1_sample": d1["sample"],
-               **e1_windows}
+               **e1_windows, **d2_windows}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -2961,6 +3333,24 @@ def main() -> int:
                   + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
                   + "; bound_ms at 3xTF32, operations and k/v bytes over the valid keys",
     } for kind in ("fwd", "bwd") for d, tokens, _ in D1_ATTN] + [{
+        "name": f"fused_mha_{kind} (fp32 instance D={d}, slice D2)",
+        "route": "cuda",
+        "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
+        "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
+        "launches": sum(w[f"fused_mha_{kind}_f32_d{d}"] for w in d2_windows.values()),
+        "launches_by_path": {k: w[f"fused_mha_{kind}_f32_d{d}"] for k, w in d2_windows.items()},
+        **{key: d2_kernels[f"{kind}_d{d}"][key] for key in C1_KEYS},
+        "bound_padded_ms": d2_kernels[f"{kind}_d{d}"]["padded"]["bound_ms"],
+        "sdpa_padded_ms": d2_kernels[f"{kind}_d{d}"]["sdpa_padded_ms"],
+        "sdpa_unpadded_ms": d2_kernels[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
+        "shape": f"B={D2_BATCH} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
+                 f"mask) H={D2_HEADS} D={d} fp32",
+        "timing": "ms and library_ms (fp32 SDPA on the same inputs): device time per call from CUDA-graph replays"
+                  + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
+                  + "; bound_ms at 3xTF32 and 3.35 TB/s over the valid rows and keys; bound_padded_ms with q, o "
+                    "and lse (K2: q, do, dq, lse, dk and dv) padded to 128 rows; sdpa_padded_ms and sdpa_unpadded_ms: SDPA on the padded q/k/v with the "
+                    "mask and on the unpadded q/k/v",
+    } for kind in ("fwd", "bwd") for d, tokens, _ in D2_ATTN] + [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -70,7 +70,12 @@
 // D = 128 (the UNet's 192 and 384) column groups of warps split the rows'
 // outputs (dq_cols, dkv_cols) where one warp could not hold them, and at
 // D = 384, where a CTA takes 32 rows, also the score products' reduction over
-// D, their partial tiles added in group order in shared memory.
+// D, their partial tiles added in group order in shared memory. At D = 256
+// and 512 (the MNIST UNet's 64 and 16 tokens, padded to 128 keys),
+// mha_bwd_{dq,dkv}_tf32x3_valid<D> are built around the valid rows: the dq
+// CTAs cover the unpadded query rows alone and skip every key tile whose mask
+// is all 0, a dk/dv CTA whose keys are all masked writes zeros, and the dk/dv
+// query loop walks the valid query rows; column groups of 128 columns.
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
@@ -834,6 +839,263 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
   store_c_rows<DO>(dv + (long long)b * Skv * o_ss + h * D + col0, o_ss, row, dv_acc, t4);
 }
 
+// --- fp32 at D = 256 and 512: built around the valid rows (tf32x3.cuh) ----------
+//
+// The MNIST UNet's 64 tokens at D = 256 and 16 at D = 512, padded to 128 keys.
+// The q, dO and lse rows are the unpadded ones (ragged ends guarded); a warp
+// for each 16 rows in each column group of 128 output columns, the groups
+// splitting the score products' reduction over D and adding their partial
+// tiles in group order; no atomics.
+
+// dq for vr_rows queries of a (batch, head): K and V stream in tiles of
+// VR_TILE keys through a two-slot cp.async ring, and only the tiles whose mask
+// has an attended key: a tile whose mask is all 0 has p = 0 exactly, so it adds
+// nothing to di or dq, and is neither loaded nor multiplied. Pass 1 forms s, p
+// and dp and di = rowsum(p * dp); pass 2 forms s and dp again, ds and dq =
+// ds.K (5 products of [rows x live keys x D]). The CTA writes lse and di for
+// the dk/dv kernel.
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                        float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq,
+                        int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                        long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // [ROWS][LD]
+  float* dos = qs + ROWS * LD;     // [ROWS][LD]
+  float* ks = dos + ROWS * LD;     // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
+  float* part = vs + 2 * KT * LD;  // [2][GROUPS][ROWS][KT]: the groups' partial s, then dp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dq columns: col0 + [0, DO)
+  const int row = m0 + r0 + g;                        // this thread's rows: row, row + 8
+  const bool active = m0 + r0 < Sq;                   // the warp has a valid row
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
+                          row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
+
+  auto stage = [&](int tile, int slot) {
+    stage_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT);
+    stage_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT);
+  };
+  // the load sequence: the live tiles for pass 1, then again for pass 2
+  int pass = 0, cur = next_live(mb, 0, n_tiles);
+  if (cur < n_tiles) {
+    stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+    stage_rows_upto<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
+    stage(cur, 0);
+    cp_async_commit();
+  }
+
+  float di[2] = {0.f, 0.f}, acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int i = 0; cur < n_tiles; ++i) {
+    const int slot = i & 1;
+    int next_pass = pass, nxt = next_live(mb, cur + 1, n_tiles);
+    if (nxt == n_tiles && pass == 0) {
+      next_pass = 1;
+      nxt = next_live(mb, 0, n_tiles);
+    }
+    if (nxt < n_tiles) {
+      stage(nxt, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float p[KT / 8][4], dp[KT / 8][4];
+    if (active) {  // this group's columns of D
+      rows_dot<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+      rows_dot<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
+      put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
+      put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
+    }
+    __syncthreads();
+    if (active) {
+      sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
+      sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
+      probs_f32<KT>(p, sm_scale, mb, cur * KT, lse_r, t4);
+      if (pass == 0) {
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;
+        scores_times_tile<DO, KT, LD>(acc, p, ks + slot * KT * LD + col0, g, t4);
+      }
+    }
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+    if (pass == 0 && next_pass == 1) {  // di over the whole key row, before pass 2
+      di[0] = quad_sum(di[0]);
+      di[1] = quad_sum(di[1]);
+    }
+    pass = next_pass;
+    cur = nxt;
+  }
+
+  // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
+  if (!active) return;
+  const long long o_ss = (long long)H * D;
+  store_c_rows_upto<DO>(dq + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    const long long w = ((long long)b * H + h) * Sq + row;
+    if (row < Sq) {
+      ws_lse[w] = lse_r[0];
+      ws_di[w] = di[0];
+    }
+    if (row + 8 < Sq) {
+      ws_lse[w + 8] = lse_r[1];
+      ws_di[w + 8] = di[1];
+    }
+  }
+}
+
+// dk and dv for vr_rows keys of a (batch, head). A CTA whose keys are all
+// masked writes zeros and forms no product: their p is exactly 0 for every
+// query. Otherwise its K and V rows stay in shared memory and the valid query
+// rows (Sq, unpadded) stream in tiles of VR_TILE queries, with their lse and
+// di, through a two-slot ring; rows past Sq are zero-filled with lse = +inf,
+// so that their p is 0. p^T = exp(K.Q^T * scale - lse), dv += p^T.dO, dp^T =
+// V.dO^T, ds^T = p^T * (dp^T - di) * scale, dk += ds^T.Q: 4 products of [keys
+// x Sq x D].
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                         const float* __restrict__ dout, const int* __restrict__ mask,
+                         const float* __restrict__ ws_lse, const float* __restrict__ ws_di, float* __restrict__ dk,
+                         float* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
+                         long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
+                         long long do_ss, float sm_scale) {
+  constexpr int QT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                  // [ROWS][LD]
+  float* vs = ks + ROWS * LD;        // [ROWS][LD]
+  float* qs = vs + ROWS * LD;        // [2][QT][LD]
+  float* dos = qs + 2 * QT * LD;     // [2][QT][LD]
+  float* lse_s = dos + 2 * QT * LD;  // [2][QT]
+  float* di_s = lse_s + 2 * QT;      // [2][QT]
+  float* part = di_s + 2 * QT;       // [2][GROUPS][ROWS][QT]: the groups' partial s^T, then dp^T
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dk and dv columns: col0 + [0, DO)
+  const int row = n0 + r0 + g;                        // this thread's keys: row, row + 8
+  const long long o_ss = (long long)H * D;
+  float* dkb = dk + (long long)b * Skv * o_ss + h * D;
+  float* dvb = dv + (long long)b * Skv * o_ss + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+
+  bool live = mb == nullptr;
+  for (int t = 0; !live && t < ROWS / VR_TILE; ++t) live = tile_live(mb + n0, t);
+  if (!live) {  // every key masked: dk = dv = 0
+    for (int i = threadIdx.x; i < ROWS * (D / 4); i += THREADS) {
+      const long long at = (long long)(n0 + i / (D / 4)) * o_ss + (i % (D / 4)) * 4;
+      *reinterpret_cast<float4*>(dkb + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dvb + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  const float* qb = q + b * q_sb + h * D;
+  const float* dob = dout + b * do_sb + h * D;
+  const float* wl = ws_lse + ((long long)b * H + h) * Sq;
+  const float* wd = ws_di + ((long long)b * H + h) * Sq;
+  const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
+  const int n_tiles = (Sq + QT - 1) / QT;
+
+  auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
+    const int slot = t & 1;
+    stage_rows_upto<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT, Sq);
+    stage_rows_upto<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT, Sq);
+    const int i = threadIdx.x, r = t * QT + i % QT;
+    if (i < QT)
+      lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
+    else if (i < 2 * QT)
+      di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+  };
+
+  stage_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0);
+  stage_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int slot = t & 1;
+    const float* qt = qs + slot * QT * LD;
+    const float* dot = dos + slot * QT * LD;
+    const float* lt = lse_s + slot * QT;
+    const float* dt = di_s + slot * QT;
+
+    // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
+    float p[QT / 8][4], dp[QT / 8][4];
+    rows_dot<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
+    rows_dot<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
+    put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
+    put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
+    __syncthreads();
+    sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
+    sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+        p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
+      }
+    scores_times_tile<DO, QT, LD>(dv_acc, p, dot + col0, g, t4);  // dv += p^T.dO
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+    scores_times_tile<DO, QT, LD>(dk_acc, dp, qt + col0, g, t4);  // dk += ds^T.Q
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+  }
+
+  // dk, dv [B, Skv, H, D] contiguous
+  store_c_rows<DO>(dkb + col0, o_ss, row, dk_acc, t4);
+  store_c_rows<DO>(dvb + col0, o_ss, row, dv_acc, t4);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_dq_smem_bytes() {
+  return sizeof(float) * (ld<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_TILE) + 2 * vr_groups<D>() * vr_rows<D>() * VR_TILE);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_dkv_smem_bytes() {
+  return sizeof(float) * (ld<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_TILE) + 2 * 2 * VR_TILE +
+                          2 * vr_groups<D>() * vr_rows<D>() * VR_TILE);
+}
+
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
 
 // dq, and the workspace's lse2 and di: K5's kernel with the di pass, from K1's lse [B, Sq, H]
@@ -904,6 +1166,35 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the fp32 dq kernel, then the dk/dv kernel, at D = 256 and 512; a.ws holds
+// lse, then di, rows (b, h) Sq apart
+template <int D>
+cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
+  static bool configured[2][MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dq_tf32x3_valid<D>, configured[0], device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dkv_tf32x3_valid<D>, configured[1], device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_dq_smem_bytes<D>() <= SMEM_LIMIT && vr_dkv_smem_bytes<D>() <= SMEM_LIMIT,
+                "the fp32 K2's tiles exceed shared memory");
+  float* ws_lse = a.ws;
+  float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
+  constexpr int ROWS = vr_rows<D>();
+  mha_bwd_dq_tf32x3_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(), vr_dq_smem_bytes<D>(),
+                               stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mha_bwd_dkv_tf32x3_valid<D><<<dim3(a.Skv / ROWS, a.H, a.B), vr_threads<D>(), vr_dkv_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, ws_lse, ws_di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
@@ -935,8 +1226,9 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 
 // q/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
 // stride D over heads and the given batch/row strides (in elements; 16-byte
-// aligned rows); Sq, Skv multiples of 64; D in {16, 32, 64, 128}, and for
-// fp32 also 192 and 384; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
+// aligned rows); Sq, Skv multiples of 64 (fp32 at D = 256 and 512: any Sq,
+// the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
+// 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
 // contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
 // H * Sq (bf16 at D = 64, 128: lse * log2 e, then di, rows (b, h) Sq apart;
 // fp32: lse, then di, rows (b, h) Sq apart; bf16 at D = 16, 32: di [B, Sq,
@@ -949,7 +1241,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
                              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long do_sb, long long do_ss, float sm_scale,
                              int dtype, void* stream) {
-  if (Sq < 1 || Skv < 1 || Sq % BLOCK != 0 || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
+  // the fp32 instances at D = 256 and 512 take the unpadded query rows
+  const bool any_rows = dtype == 0 && valid_rows_instance(D);
+  if (Sq < 1 || Skv < 1 || (!any_rows && Sq % BLOCK != 0) || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
                static_cast<float*>(ws), nullptr, dq, dk, dv, B, Sq, Skv, H, Sq,
@@ -963,6 +1257,8 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
     case 128: err = launch<128>(dtype, a, s); break;
     case 192: err = dtype == 0 ? launch_f32<192>(a, s) : cudaErrorInvalidValue; break;  // fp32 alone
     case 384: err = dtype == 0 ? launch_f32<384>(a, s) : cudaErrorInvalidValue; break;
+    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : cudaErrorInvalidValue; break;
+    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : cudaErrorInvalidValue; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -980,6 +1276,7 @@ extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
     case 128: return (f32_keeps<128>(Skv) ? 3 : 5) + 4;
     case 192: return (f32_keeps<192>(Skv) ? 3 : 5) + 4;
     case 384: return (f32_keeps<384>(Skv) ? 3 : 5) + 4;
+    case 256: case 512: return 5 + 4;  // over the live key tiles alone
     default: return 0;
   }
 }
@@ -991,7 +1288,10 @@ extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
 // ops/fused_mha.py (f32_groups) mirrors them.
 template <int D>
 constexpr int f32_shared_groups(int which) {
-  return which == 0 ? D / dq_cols<D>() : dkv_shares<D>() ? D / dkv_cols<D>() : 1;
+  if constexpr (valid_rows_instance(D))
+    return vr_groups<D>();
+  else
+    return which == 0 ? D / dq_cols<D>() : dkv_shares<D>() ? D / dkv_cols<D>() : 1;
 }
 
 extern "C" int fused_mha_bwd_f32_groups(int D, int which) {
@@ -1002,6 +1302,8 @@ extern "C" int fused_mha_bwd_f32_groups(int D, int which) {
     case 128: return f32_shared_groups<128>(which);
     case 192: return f32_shared_groups<192>(which);
     case 384: return f32_shared_groups<384>(which);
+    case 256: return f32_shared_groups<256>(which);
+    case 512: return f32_shared_groups<512>(which);
     default: return 0;
   }
 }

@@ -54,7 +54,11 @@
 // 64 tokens at ds 4) a warp holds its rows' whole output (96 registers at
 // 192); at D = 384 (16 tokens at ds 8) two column groups of four warps split
 // the output and the score product's reduction over D, their partial score
-// tiles added in group order in shared memory, over 16-key tiles.
+// tiles added in group order in shared memory, over 16-key tiles. At D = 256
+// and 512 (the MNIST UNet's 64 and 16 tokens, padded to 128 keys),
+// mha_fwd_tf32x3_valid<D> is built around the valid rows: it takes the
+// unpadded query rows, loads and multiplies no key tile whose mask is all 0,
+// and splits the head into column groups of 128 output columns.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
 // cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
@@ -663,6 +667,141 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
   }
 }
 
+// At the MNIST UNet's head dims 256 (64 tokens at ds 4) and 512 (16 tokens at
+// ds 8), built around the valid rows (tf32x3.cuh, valid_rows_instance): one
+// CTA per (vr_rows queries, head, batch) of the UNPADDED query rows, rows past
+// Sq zero-filled in shared memory and never stored; a warp for each 16 rows in
+// each column group of 128 output columns (2 groups at D = 256, 4 at 512),
+// each group forming the scores over its 128 columns of D and the partial
+// tiles added in group order. The ring brings only the key tiles of VR_TILE
+// keys that hold an attended key: a tile whose mask is all 0 is neither loaded
+// nor multiplied. That is exact: such a tile's p is exactly 0 after a live
+// one, and before the first live one the online max it leaves (MASK_VALUE) is
+// dropped by alpha = exp(MASK_VALUE - m) = 0. A batch row with no live tile
+// writes o = 0, lse = +inf without loading Q. 2 CTAs an SM (101-104 KB each).
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
+                     int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                     long long v_ss, float sm_scale) {
+  constexpr int KT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // [ROWS][LD]
+  float* ks = qs + ROWS * LD;      // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
+  float* part = vs + 2 * KT * LD;  // [GROUPS][ROWS][KT]: the groups' partial scores
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's output columns: col0 + [0, DO)
+  const bool active = m0 + r0 < Sq;  // the warp has a valid row
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+
+  auto stage = [&](int tile, int slot) {
+    stage_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT);
+    stage_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT);
+  };
+  int cur = next_live(mb, 0, n_tiles);
+  if (cur < n_tiles) {
+    stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+    stage(cur, 0);
+    cp_async_commit();
+  }
+
+  float acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad at the end
+
+  for (int i = 0; cur < n_tiles; ++i) {
+    const int slot = i & 1, nxt = next_live(mb, cur + 1, n_tiles);
+    if (nxt < n_tiles) {
+      stage(nxt, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[KT / 8][4];
+    if (active) {  // this group's columns of D
+      rows_dot<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+      put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+    }
+    __syncthreads();
+    if (active) {
+      sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);  // the whole of D, in group order
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt) {
+        const int2 keep = mb == nullptr ? make_int2(1, 1)
+                                        : *reinterpret_cast<const int2*>(mb + cur * KT + nt * 8 + 2 * t4);
+        s[nt][0] = keep.x ? s[nt][0] * sm_scale : MASK_VALUE;
+        s[nt][1] = keep.y ? s[nt][1] * sm_scale : MASK_VALUE;
+        s[nt][2] = keep.x ? s[nt][2] * sm_scale : MASK_VALUE;
+        s[nt][3] = keep.y ? s[nt][3] * sm_scale : MASK_VALUE;
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = expf(m[r] - m_new);  // 0 on the first live tile (m = -inf)
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int dn = 0; dn < DO / 8; ++dn) {
+        acc[dn][0] *= alpha[0];
+        acc[dn][1] *= alpha[0];
+        acc[dn][2] *= alpha[1];
+        acc[dn][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[nt][j] = expf(s[nt][j] - m[j >> 1]);
+          l[j >> 1] += s[nt][j];
+        }
+      scores_times_tile<DO, KT, LD>(acc, s, vs + slot * KT * LD + col0, g, t4);
+    }
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+    cur = nxt;
+  }
+
+  // o = acc / l; a row without an attended key (m still -inf or MASK_VALUE) gives o = 0, lse = +inf
+  if (!active) return;
+  bool dead[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    dead[r] = mb != nullptr && m[r] <= MASK_VALUE;
+  }
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[dn][j] = dead[j >> 1] ? 0.f : acc[dn][j] / l[j >> 1];
+  const long long o_ss = (long long)H * D;
+  const int row = m0 + r0 + g;
+  store_c_rows_upto<DO>(o + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    if (row < Sq) lse[((long long)b * Sq + row) * H + h] = dead[0] ? INFINITY : m[0] + logf(l[0]);
+    if (row + 8 < Sq) lse[((long long)b * Sq + row + 8) * H + h] = dead[1] ? INFINITY : m[1] + logf(l[1]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int vr_fwd_smem_bytes() {
+  return 4 * (ld<D>() * (vr_rows<D>() + 2 * 2 * VR_TILE) + vr_groups<D>() * vr_rows<D>() * VR_TILE);
+}
+
 // ---- host side
 
 template <int D, int CHUNK>
@@ -740,6 +879,22 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* m
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_f32_valid(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+                             int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
+                             long long k_ss, long long v_sb, long long v_ss, float sm_scale, int device,
+                             cudaStream_t stream) {
+  auto kernel = mha_fwd_tf32x3_valid<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K1's tiles exceed shared memory");
+  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), vr_fwd_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
+      static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
                 int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                 long long v_ss, float sm_scale, int dtype, int resident, int chunk, int buffers, int device,
@@ -757,6 +912,10 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
   if (D == DD) return launch_f32<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
   K1_F32(16) K1_F32(32) K1_F32(64) K1_F32(128) K1_F32(192) K1_F32(384)
 #undef K1_F32
+#define K1_F32_VALID(DD) \
+  if (D == DD) return launch_f32_valid<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
+  K1_F32_VALID(256) K1_F32_VALID(512)
+#undef K1_F32_VALID
   return cudaErrorInvalidValue;
 }
 
@@ -764,7 +923,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
 
 // q/k/v: [B, S, H, D] with unit stride over D, stride D over heads and the given
 // batch/row strides (in elements, multiples of 16 bytes); Sq, Skv multiples of
-// 64; D in {16, 32, 64, 128}, and for fp32 also 192 and 384; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
+// 64 (fp32 at D = 256 and 512: any Sq, the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
+// 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
 // (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
 // lse: contiguous fp32 [B, Sq, H]. bf16 instance: resident (a head's K and V
 // in shared memory; `buffers` 1 or 2, 2 prefetching the next item) with
@@ -775,8 +935,10 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
                              int B, int Sq, int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
                              long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int resident,
                              int chunk, int buffers, int device, void* stream) {
-  if (Sq % BLOCK_M != 0 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) || device < 0 ||
-      device >= MAX_DEVICES)
+  // the fp32 instances at D = 256 and 512 take the unpadded query rows
+  const bool any_rows = dtype == 0 && valid_rows_instance(D);
+  if (Sq < 1 || (!any_rows && Sq % BLOCK_M != 0) || Skv < 1 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) ||
+      device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && (buffers < 1 || buffers > 2 || chunk < 64 || Skv % chunk != 0 ||
                      (!resident && (chunk != STREAM_CHUNK || buffers != 2))))
@@ -794,11 +956,18 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
 // keys of the fp32 K1's ring slot (what = 0) and its column groups of warps
 // (what = 1) at head dim D, by the rules its launch follows; 0 for another D.
 // The emulation in ops/fused_mha.py (f32_keys, f32_groups) mirrors them.
+// what = 2: 1 where the fp32 K1 and K2 take the unpadded query rows
+// (valid_rows_instance; VALID_ROWS_HEAD_DIMS in ops/fused_mha.py), else 0.
 extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
+  if (what == 2) return valid_rows_instance(D) ? 1 : 0;
 #define K1_TILES(DD) \
   if (D == DD) return what == 0 ? f32_keys<DD>() : DD / f32_cols<DD>();
   K1_TILES(16) K1_TILES(32) K1_TILES(64) K1_TILES(128) K1_TILES(192) K1_TILES(384)
 #undef K1_TILES
+#define K1_TILES_VALID(DD) \
+  if (D == DD) return what == 0 ? VR_TILE : vr_groups<DD>();
+  K1_TILES_VALID(256) K1_TILES_VALID(512)
+#undef K1_TILES_VALID
   return 0;
 }
 

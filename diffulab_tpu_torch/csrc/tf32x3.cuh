@@ -103,6 +103,74 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
   }
 }
 
+// rows [r0, r0 + ROWS) as stage_rows, but only those below `end` come from
+// device memory: the rest of the tile is zero-filled (a ragged last tile)
+template <int D, int ROWS, int THREADS = F32_THREADS>
+__device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, long long ss, int r0, int end) {
+  constexpr int CHUNKS = D / 4;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+    if (r0 + r < end)
+      cp_async16(dst + r * ld<D>() + c, src + (long long)(r0 + r) * ss + c);
+    else
+      *reinterpret_cast<float4*>(dst + r * ld<D>() + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ---- the instances built around the valid rows (head dims 256 and 512)
+//
+// The MNIST UNet attends over 64 tokens at D = 256 and 16 at D = 512, padded
+// to 128 keys. These instances take the unpadded query rows (ragged ends
+// guarded), skip every key tile whose mask is all 0 (found from the mask by
+// each thread, so that no barrier is needed), and split the head into column
+// groups of warps of VR_COLS output columns, which also split the score
+// products' reduction over D: the partial tiles are added in group order in
+// shared memory (put_c, sum_c).
+
+// the head dims built so, the one place that names them: both entry points'
+// Sq rule and the bwd library's group rule read it, the fwd library exports it
+// (fused_mha_fwd_f32_tiles(D, 2)), and chip_smoke.py holds
+// ops/fused_mha.py's VALID_ROWS_HEAD_DIMS to that export
+__host__ __device__ constexpr bool valid_rows_instance(int D) {
+  return D == 256 || D == 512;
+}
+
+constexpr int VR_COLS = 128;  // output columns of a column group of warps
+constexpr int VR_TILE = 8;    // keys (K1, K2's dq kernel) or queries (the dk/dv kernel) of a ring slot
+
+// rows (queries, or keys in the dk/dv kernel) of a CTA, a tile size: 64 at
+// D = 256 and 16 at D = 512, so that one CTA holds a head's valid rows at the
+// MNIST UNet's token counts; any Sq runs, its last tile ragged
+template <int D>
+__host__ __device__ constexpr int vr_rows() {
+  return D == 256 ? 64 : 16;
+}
+
+template <int D>
+__host__ __device__ constexpr int vr_groups() {
+  return D / VR_COLS;
+}
+
+// a warp for each 16 rows in each column group
+template <int D>
+__host__ __device__ constexpr int vr_threads() {
+  return 32 * (vr_rows<D>() / 16) * vr_groups<D>();
+}
+
+// whether key tile t (VR_TILE keys) of a mask row has an attended key
+__device__ __forceinline__ bool tile_live(const int* mrow, int t) {
+  const int4 a = *reinterpret_cast<const int4*>(mrow + t * VR_TILE);
+  const int4 b = *reinterpret_cast<const int4*>(mrow + t * VR_TILE + 4);
+  return (a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w) != 0;
+}
+
+// the first live key tile at or after t, n_tiles if none; every tile is live without a mask
+__device__ __forceinline__ int next_live(const int* mrow, int t, int n_tiles) {
+  if (mrow == nullptr) return t;
+  while (t < n_tiles && !tile_live(mrow, t)) ++t;
+  return t;
+}
+
 // ---- fragments from a [rows][D + 4] tile, split at the load
 
 // A: rows r0 + [0, 16), reduction over columns 8 kk + [0, 8); rows LDT floats apart
@@ -223,6 +291,19 @@ __device__ __forceinline__ void store_c_rows(float* out, long long ss, int row, 
     const int col = dn * 8 + 2 * t4;
     *reinterpret_cast<float2*>(out + (long long)row * ss + col) = make_float2(acc[dn][0], acc[dn][1]);
     *reinterpret_cast<float2*>(out + (long long)(row + 8) * ss + col) = make_float2(acc[dn][2], acc[dn][3]);
+  }
+}
+
+// store_c_rows for the rows below `end` alone (a ragged last tile)
+template <int D>
+__device__ __forceinline__ void store_c_rows_upto(float* out, long long ss, int row, const float (&acc)[D / 8][4],
+                                                  int t4, int end) {
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t4;
+    if (row < end) *reinterpret_cast<float2*>(out + (long long)row * ss + col) = make_float2(acc[dn][0], acc[dn][1]);
+    if (row + 8 < end)
+      *reinterpret_cast<float2*>(out + (long long)(row + 8) * ss + col) = make_float2(acc[dn][2], acc[dn][3]);
   }
 }
 

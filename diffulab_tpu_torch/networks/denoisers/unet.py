@@ -7,7 +7,8 @@ NHWC at every module boundary.
 - ``AttentionBlock``: GroupNorm'd token self/cross attention with a
   residual, through :func:`diffulab_tpu_torch.ops.dot_product_attention`
   (on the card the fused kernels K1/K2: ``train_synthetic_ddpm.yaml`` attends
-  over 64 and 16 tokens at head dims 192 and 384);
+  over 64 and 16 tokens at head dims 192 and 384, the MNIST configs at 256
+  and 512);
 - ``FeedForward`` (GEGLU), ``TransformerAttentionBlock`` (self + cross +
   ff) and ``TransformerBlock`` (proj_in/out around them) for a context
   embedder;

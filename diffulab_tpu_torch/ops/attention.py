@@ -22,7 +22,11 @@ reference's ``[B, S, H, D]`` layout. Dispatch:
 
 The fused route pads sequences to :data:`MIN_BLOCK` multiples with a
 synthesized key mask and slices off padded query rows, as the reference's
-``_fused_path``; it is differentiable (backward K2). The flash route pads
+``_fused_path``; it is differentiable (backward K2). At the head dims of
+:data:`~diffulab_tpu_torch.ops.fused_mha.VALID_ROWS_HEAD_DIMS` it pads k, v
+and the mask alone: their instances take the unpadded query rows, so that
+no padded row is read, multiplied or stored (the rows are independent, so
+o is the same). The flash route pads
 nothing: K3 masks the ragged ends itself, which is what the reference's
 padding mask does; it is differentiable too (backward K4 then K5, through
 :class:`~diffulab_tpu_torch.ops.flash_attention.FlashAttention`).
@@ -37,6 +41,7 @@ from diffulab_tpu_torch.ops.flash_attention import flash_attention
 from diffulab_tpu_torch.ops.fused_mha import (
     FUSED_HEAD_DIMS,
     MIN_BLOCK,
+    VALID_ROWS_HEAD_DIMS,
     check_head_dim,
     fused_mha,
     fused_mha_reference,
@@ -92,9 +97,9 @@ def dot_product_attention(
 
 
 def _fused_path(q, k, v, kv_mask, scale, plain: bool = False):
-    b, sq, _, _ = q.shape
+    b, sq, _, d = q.shape
     skv = k.shape[1]
-    sq_p = _round_up(sq, MIN_BLOCK)
+    sq_p = sq if d in VALID_ROWS_HEAD_DIMS else _round_up(sq, MIN_BLOCK)
     skv_p = _round_up(skv, MIN_BLOCK)
 
     if kv_mask is None and skv_p != skv:

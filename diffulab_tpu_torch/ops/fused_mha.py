@@ -35,10 +35,15 @@ cores as 3xTF32 (each operand split into two TF32 halves, three ``mma.sync``
 products, about 2^-21 relative each; :func:`matmul_3xtf32` emulates them),
 one CTA per 64 queries in one pass over 32-key tiles with an online softmax
 and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`). The
-UNet's head dims 192 and 384 have fp32 instances alone
+UNet's head dims 192, 256, 384 and 512 have fp32 instances alone
 (:data:`F32_ONLY_HEAD_DIMS`): there column groups of warps split each row's
-output and, at 384, the score products' reduction over D
-(:func:`f32_groups`).
+output and, at 256, 384 and 512, the score products' reduction over D
+(:func:`f32_groups`). The instances at 256 and 512
+(:data:`VALID_ROWS_HEAD_DIMS`, the MNIST UNet's 64 and 16 tokens padded to
+128 keys) are built around the valid rows: they take the unpadded query rows
+(``ops/attention.py`` pads only k, v and the mask for them) and neither load
+nor multiply a key tile whose mask is all 0; K2's dk/dv kernel writes zeros
+for a CTA whose keys are all masked.
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -90,9 +95,13 @@ MIN_BLOCK = 128
 KERNEL_BLOCK = 64
 #: head dims the kernels are instantiated for, bf16 and fp32
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: head dims with an fp32 instance alone (the UNet's, ``train_synthetic_ddpm.yaml``);
-#: their bf16 instances are ROADMAP queue 2a
-F32_ONLY_HEAD_DIMS = (192, 384)
+#: head dims with an fp32 instance alone (the UNet's: ``train_synthetic_ddpm.yaml``
+#: at 192 and 384, the MNIST configs at 256 and 512); their bf16 instances are
+#: ROADMAP queue 2a
+F32_ONLY_HEAD_DIMS = (192, 256, 384, 512)
+#: fp32 instances built around the valid rows: they take the unpadded query
+#: rows (any Sq) and skip the key tiles whose mask is all 0
+VALID_ROWS_HEAD_DIMS = (256, 512)
 #: every head dim of the fused kernels K1/K2
 FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + F32_ONLY_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,20 +161,27 @@ F32_KEYS = 32
 
 
 def f32_keys(d: int) -> int:
-    """Keys of a ring slot of the fp32 K1 at head dim ``d``: 32, and 16 at
-    D = 384 (``f32_keys`` in the source), the tile of its online softmax.
-    This and :func:`f32_groups` mirror the built libraries'
+    """Keys of a ring slot of the fp32 K1 at head dim ``d``, the tile of its
+    online softmax: 32, 16 at D = 384 (``f32_keys`` in the source), and 8 at
+    D = 256 and 512 (``VR_TILE``), where K2's dq kernel takes key tiles and
+    its dk/dv kernel query tiles of the same size. This and
+    :func:`f32_groups` mirror the built libraries'
     ``fused_mha_fwd_f32_tiles`` and ``fused_mha_bwd_f32_groups``, which
     chip_smoke.py holds them to on the card."""
+    if d in VALID_ROWS_HEAD_DIMS:
+        return 8
     return F32_KEYS if d <= 192 else 16
 
 
 def f32_groups(d: int) -> tuple[int, int]:
     """Column groups of warps that split the score products' D-reduction in
     the fp32 kernels at head dim ``d``, (K1 and K2's dq kernel, K2's dk/dv
-    kernel): at D = 384, (2, 4), each group's partial tile summed with the
-    others' in group order (``f32_cols``, ``dq_cols``, ``dkv_shares`` in the
-    sources); else (1, 1)."""
+    kernel): at D = 384, (2, 4); at D = 256 and 512 groups of 128 columns
+    (``VR_COLS``), (2, 2) and (4, 4); each group's partial tile summed with
+    the others' in group order (``f32_cols``, ``dq_cols``, ``dkv_shares``,
+    ``vr_groups`` in the sources); else (1, 1)."""
+    if d in VALID_ROWS_HEAD_DIMS:
+        return d // 128, d // 128
     return (2, 4) if d == 384 else (1, 1)
 
 
@@ -342,7 +358,11 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     max and sum (the running o rescaled), and o divided by l at the end (not
     p before PV: fp32 p is never rounded to a narrower type, so the two
     orders differ in rounding only). At D = 384 the scores are the sum of
-    two half-D products (:func:`f32_groups`). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    two half-D products, at D = 256 and 512 of 128-column ones
+    (:func:`f32_groups`). The kernels there skip a key tile whose mask is
+    all 0; that changes no value (a masked p is exactly 0, and alpha = 0
+    drops what a masked tile leaves before the first live one), so the
+    emulation walks every tile. Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
@@ -378,8 +398,10 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     = dsᵀ·q. ``kept``: the dq kernel that keeps p and dp between its passes,
     two warps a row each summing di and dq over one half of every 64-key
     step, half 0's sum plus half 1's; else the one that forms s and dp again
-    for dq. At D = 384 the score products are split over column groups
-    (:func:`f32_groups`). Returns (dq, dk, dv, di [B,H,Sq])."""
+    for dq (the only one above D = 64). At D = 256, 384 and 512 the score
+    products are split over column groups (:func:`f32_groups`); the key tiles
+    the kernels skip at D = 256 and 512 add exact zeros here. Returns (dq, dk,
+    dv, di [B,H,Sq])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     dq_groups, dkv_groups = f32_groups(q.shape[-1])
@@ -429,7 +451,9 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fused_mha") -> None:
     """Raise unless q/k/v/kv_mask meet the ``route``'s kernels' device, shape
     and dtype contract: Sq and Skv nonzero multiples of :data:`KERNEL_BLOCK`
-    (of 1 on the flash route), the head dim one :func:`check_head_dim` takes."""
+    (of 1 on the flash route; Sq any nonzero length for the fp32 instances at
+    :data:`VALID_ROWS_HEAD_DIMS`), the head dim one :func:`check_head_dim`
+    takes."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {device}")
@@ -443,8 +467,9 @@ def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fuse
         raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(d, dtype, route)
     block = 1 if route == "flash" else KERNEL_BLOCK
-    if sq < 1 or skv < 1 or sq % block or skv % block:
-        raise ValueError(f"Sq={sq} and Skv={skv} must be nonzero multiples of {block}")
+    q_block = 1 if route == "fused" and d in VALID_ROWS_HEAD_DIMS else block
+    if sq < 1 or skv < 1 or sq % q_block or skv % block:
+        raise ValueError(f"Sq={sq} must be a nonzero multiple of {q_block}, Skv={skv} of {block}")
     if k.device != device or v.device != device:
         raise ValueError("q, k and v must be on one device")
     if kv_mask is not None and kv_mask.shape != (b, skv):
@@ -574,7 +599,8 @@ def fused_mha(
 
     On CUDA tensors it launches the kernels (Sq and Skv multiples of 64,
     head dim in :data:`KERNEL_HEAD_DIMS` in bf16 or fp32, or in
-    :data:`F32_ONLY_HEAD_DIMS` in fp32 — pad through
+    :data:`F32_ONLY_HEAD_DIMS` in fp32, where at :data:`VALID_ROWS_HEAD_DIMS`
+    Sq may be any length — pad through
     :func:`diffulab_tpu_torch.ops.attention.dot_product_attention`); on CPU
     tensors it runs the plain versions. Without grad (sampling) it is the
     forward alone and saves nothing.

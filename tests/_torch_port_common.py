@@ -9,6 +9,8 @@ only patchify and the last layer (trap T9). Every parameter is therefore
 replaced before the weights are bridged.
 """
 
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -231,3 +233,17 @@ def injected(draws: dict):
         assert tuple(value.shape) == tuple(shape)
         return value
     return draw
+
+
+def write_mnist(root, n_train: int = 12, n_test: int = 5, seed: int = 0) -> None:
+    """Valid MNIST idx files from a seed (idx headers, uniform uint8 pixels
+    and labels) in ``root``: train and t10k images and labels."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for prefix, n in (("train", n_train), ("t10k", n_test)):
+        with open(root / f"{prefix}-images-idx3-ubyte", "wb") as f:
+            f.write(struct.pack(">IIII", 2051, n, 28, 28))
+            f.write(rng.integers(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
+        with open(root / f"{prefix}-labels-idx1-ubyte", "wb") as f:
+            f.write(struct.pack(">II", 2049, n))
+            f.write(rng.integers(0, 10, n, dtype=np.uint8).tobytes())

@@ -17,11 +17,11 @@
 """
 
 import pickle
-import struct
 
 import numpy as np
 import pytest
 import torch
+from _torch_port_common import write_mnist
 from PIL import Image
 
 from diffulab_tpu.data import native as jnative
@@ -236,21 +236,9 @@ def test_get_batch_takes_the_native_path_for_uint8(monkeypatch):
 
 # --- file datasets --------------------------------------------------------------------
 
-def _write_mnist(root, n_train=12, n_test=5):
-    rng = np.random.default_rng(0)
-    root.mkdir(parents=True, exist_ok=True)
-    for prefix, n in (("train", n_train), ("t10k", n_test)):
-        with open(root / f"{prefix}-images-idx3-ubyte", "wb") as f:
-            f.write(struct.pack(">IIII", 2051, n, 28, 28))
-            f.write(rng.integers(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
-        with open(root / f"{prefix}-labels-idx1-ubyte", "wb") as f:
-            f.write(struct.pack(">II", 2049, n))
-            f.write(rng.integers(0, 10, n, dtype=np.uint8).tobytes())
-
-
 @pytest.mark.parametrize("train", [True, False])
 def test_mnist_equals_jax(tmp_path, train):
-    _write_mnist(tmp_path)
+    write_mnist(tmp_path)
     ours, ref = MNISTDataset(str(tmp_path), train=train), JaxMNIST(str(tmp_path), train=train)
     assert ours.images.shape == ((12 if train else 5), 32, 32, 1)
     np.testing.assert_array_equal(ours.images, ref.images)
