@@ -119,10 +119,12 @@ Phases, one line each:
      step: the teacher's guided forward is one 2x call), and the ``reflow``
      CLI on 512 pairs for one epoch; ms per step, samples/s, peak memory,
      ms per request;
- 17. slice D1: the fp32 K1 (B=128, and the CFG sample's B=32) and K2 (B=128)
-     instances at head dims 192 and 384 (S=128 padded from 64 or 16 tokens,
-     the padding key mask, H=2) against their plain versions, timed beside
-     fp32 SDPA with the same mask; the config's UNet (155.7M parameters,
+ 17. slice D1: the libraries' fp32 tile rules against the emulation's; the
+     fp32 K1 (B=128, and the CFG sample's B=32) and K2 (B=128) instances at
+     head dims 192 and 384, built around the valid rows, at the UNet's shapes
+     (H=2, the unpadded 64 or 16 query rows, keys padded to 128 with the
+     padding mask) against their plain versions, with the edge cases, timings
+     and bounds of 19a; the config's UNet (155.7M parameters,
      fp32) forward and gradients on the kernel path against plain attention
      (11 K1, 11 K2); ``configs/train_synthetic_ddpm.yaml`` (the ADM UNet under
      Gaussian diffusion) through ``train_diffusion`` with post-hoc EMA (1
@@ -2277,114 +2279,39 @@ def phase_c2_cli(root: Path, c1_run: Path):
 
 
 def phase_d1_kernels():
-    """Phase 17a: the fp32 K1 (B=128 and the CFG sample's B=32) and K2
-    (B=128) instances at head dims 192 and 384 against their plain versions,
-    at the UNet's attention shapes as the fused route hands them over: S=128
-    padded from 64 or 16 tokens with the padding key mask, H=2. Each kernel
-    timed from CUDA-graph replays beside fp32 SDPA with the same mask (its
-    backward as its memory-efficient backward op, :func:`sdpa_fp32_backward`,
-    the same way), the plain version's time and the bound at the 3xTF32 rate
-    over the valid keys. First the libraries' tile rules against the ones
-    the emulation in ``ops/fused_mha.py`` mirrors, at every fused head dim,
-    and the head dims whose instances take the unpadded query rows against
-    its ``VALID_ROWS_HEAD_DIMS``."""
-    import torch
-    import torch.nn.functional as F
-
+    """Phase 17a: the fp32 K1 and K2 instances at head dims 192 and 384 (the
+    D1 UNet's: 64 and 16 tokens, keys padded to 128, H=2) against their plain
+    versions, as the fused route hands them over: the unpadded query rows, k,
+    v and the padding mask at 128 keys; K1 at B=128 and at the CFG sample's
+    B=32, K2 at B=128. The edge cases, timings and bounds of phase 19a
+    (:func:`valid_rows_kernels`). First the libraries' tile rules against the
+    ones the emulation in ``ops/fused_mha.py`` mirrors, at every fused head
+    dim, and the head dims whose instances take the unpadded query rows
+    against its ``VALID_ROWS_HEAD_DIMS``."""
     from diffulab_tpu_torch.ops import _build
-    from diffulab_tpu_torch.ops.fused_mha import (
-        FUSED_HEAD_DIMS,
-        VALID_ROWS_HEAD_DIMS,
-        f32_groups,
-        f32_keys,
-        fused_mha,
-        fused_mha_bwd,
-        fused_mha_bwd_reference,
-        fused_mha_reference,
-    )
+    from diffulab_tpu_torch.ops.fused_mha import FUSED_HEAD_DIMS, VALID_ROWS_HEAD_DIMS, f32_groups, f32_keys
 
     fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
-    tiles = {d: (fwd_lib.fused_mha_fwd_f32_tiles(d, 0),
-                 (fwd_lib.fused_mha_fwd_f32_tiles(d, 1), bwd_lib.fused_mha_bwd_f32_groups(d, 1)),
-                 bwd_lib.fused_mha_bwd_f32_groups(d, 0)) for d in FUSED_HEAD_DIMS}
-    mirrored = {d: (f32_keys(d), f32_groups(d), f32_groups(d)[0]) for d in FUSED_HEAD_DIMS}
+    tiles = {d: (fwd_lib.fused_mha_fwd_f32_tiles(d, 0), fwd_lib.fused_mha_fwd_f32_tiles(d, 1),
+                 bwd_lib.fused_mha_bwd_f32_groups(d)) for d in FUSED_HEAD_DIMS}
+    mirrored = {d: (f32_keys(d), f32_groups(d), f32_groups(d)) for d in FUSED_HEAD_DIMS}
     if tiles != mirrored:
-        fail(f"D1 fp32 tile rules: the libraries' (K1 keys, (K1 groups, dk/dv groups), dq groups) {tiles} differ "
-             f"from ops/fused_mha.py's {mirrored}")
+        fail(f"D1 fp32 tile rules: the libraries' (K1 keys, K1 groups, K2 groups) {tiles} differ from "
+             f"ops/fused_mha.py's {mirrored}")
     valid_rows = tuple(d for d in FUSED_HEAD_DIMS if fwd_lib.fused_mha_fwd_f32_tiles(d, 2))
     if valid_rows != VALID_ROWS_HEAD_DIMS:
         fail(f"the libraries take the unpadded query rows at head dims {valid_rows}, ops/fused_mha.py's "
              f"VALID_ROWS_HEAD_DIMS is {VALID_ROWS_HEAD_DIMS}")
+    products = {d: bwd_lib.fused_mha_bwd_f32_products(d, D1_PADDED) for d, _, _ in D1_ATTN}
+    if set(products.values()) != {9}:
+        fail(f"D1 K2: the library counts {products} products at D = 192/384, expected 5 + 4 over the live tiles")
 
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    s, h = D1_PADDED, D1_HEADS
-    results = {}
-    for d, tokens, _ in D1_ATTN:
-        def rand(b):
-            return torch.randn(b, s, h, d, generator=gen, device="cuda", dtype=torch.float32)
-
-        for b in (D1_BATCH, 2 * D1_SAMPLES):
-            mask = (torch.arange(s, device="cuda") < tokens)[None].expand(b, s).contiguous()
-            q, k, v = rand(b), rand(b), rand(b)
-            with torch.no_grad():
-                o, lse = fused_mha(q, k, v, mask)
-                ro, rlse = fused_mha_reference(q, k, v, mask)
-                err = check_close(f"D1 K1 fp32 D={d} B={b} o", o, ro, *TOL["float32"])
-                check_close(f"D1 K1 fp32 D={d} B={b} lse", lse, rlse, *LSE_TOL)
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                attn = mask[:, None, None, :]
-                sdpa = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn).transpose(1, 2)
-                sdpa_err = float((sdpa - ro).abs().max())  # the yardstick's own distance, reported
-                del sdpa
-                bound_ms, bound_by, mb, gflop = attention_bound(b, s, h, d, b * tokens, 4,
-                                                                peak_flops=PEAK_TF32_FLOPS / 3)
-                results[f"fwd_d{d}_b{b}"] = dict(
-                    max_abs_err=err, sdpa_err=sdpa_err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
-                    plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v, mask), iters=5),
-                    library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn)),
-                    bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop)
-            if b != D1_BATCH:
-                continue
-            do = rand(b)
-            with torch.no_grad():
-                refs = fused_mha_bwd_reference(q, k, v, mask, lse, do)
-                err = check_grads(f"D1 K2 fp32 D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs,
-                                  BWD_TOL["float32"])
-                ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10, replays=5)
-                plain_ms = cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, mask, lse, do), iters=3)
-                sdpa_bwd = sdpa_fp32_backward(q, k, v, do, mask)
-                op_grads = [g.transpose(1, 2) for g in sdpa_bwd()]
-                sdpa_err = max(float((g - r).abs().max()) for g, r in zip(op_grads, refs))
-            with torch.enable_grad():  # the timed op computes what SDPA's autograd does with the boolean mask
-                leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None, None, :])
-                sdpa_grads = torch.autograd.grad(out, leaves, do.transpose(1, 2))
-                check_grads(f"D1 SDPA fp32 backward op D={d} vs its autograd", op_grads,
-                            [g.transpose(1, 2) for g in sdpa_grads], BWD_TOL["float32"])
-                del out, sdpa_grads, op_grads
-            with torch.no_grad():
-                library_ms = cuda_graph_ms(sdpa_bwd, calls=10, replays=5)
-            # q and do read and dq, dk, dv written once, the rows of k and v that a query attends, lse and the
-            # mask; 5 products over the valid keys
-            bytes_moved = (5 * b * s + 2 * b * tokens) * h * d * 4 + b * s * h * 4 + b * s * 4
-            flops = 10 * h * s * d * b * tokens
-            t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
-            results[f"bwd_d{d}_b{b}"] = dict(
-                max_abs_err=err, sdpa_err=sdpa_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
-                mb=bytes_moved / 1e6, gflop=flops / 1e9)
-            del do, refs, sdpa_bwd
-        del q, k, v, o, lse, ro, rlse, qt, kt, vt
-    torch.cuda.synchronize()
-    print(f"phase 17 kernels fp32 at the D1 UNet's attention shapes (S={s} padded, H={h}; bounds at 3xTF32 = "
-          f"{PEAK_TF32_FLOPS / 1e12:.0f}/3 TFLOP/s and bytes over the valid keys, with {PEAK_BYTES_PER_S / 1e12} TB/s; "
-          f"device ms from CUDA-graph replays, SDPA's backward as its memory-efficient backward op; tile rules "
-          f"(K1 keys, (K1 groups, dk/dv groups), dq groups) {tiles}, as the emulation's): "
-          + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) kernel {r['ms']:.4f} "
-                      f"SDPA fp32 {r['library_ms']:.4f} "
-                      f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, "
-                      f"{r['gflop']:.2f} GFLOP)" for key, r in results.items())
-          + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * (max|ref| + |ref|)")
+    results, edges = valid_rows_kernels("D1", D1_ATTN, D1_BATCH, D1_HEADS, 17, sample_batch=2 * D1_SAMPLES)
+    print(f"phase 17 kernels fp32 at the D1 UNet's attention shapes (B={D1_BATCH}, K1 also at the CFG sample's "
+          f"B={2 * D1_SAMPLES}, H={D1_HEADS}, the unpadded query rows, keys padded to {D1_PADDED} with the padding "
+          f"mask; tile rules (K1 keys, K1 groups, K2 groups) {tiles}, as the emulation's; the "
+          f"unpadded query rows at head dims {valid_rows}; K2 products {products}; {VALID_ROWS_TIMING}): "
+          + valid_rows_line(results, edges))
     return results
 
 
@@ -2866,20 +2793,19 @@ def d2_bounds(b: int, tokens: int, h: int, d: int, backward: bool, padded: bool)
                 mb=bytes_moved / 1e6, gflop=flops / 1e9)
 
 
-def phase_d2_kernels(d1_kernels=None):
-    """Phase 19a: the fp32 K1 and K2 instances at head dims 256 and 512 (the
-    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2) against
-    their plain versions, as the fused route hands them over: the unpadded
-    query rows, k, v and the padding mask at 128 keys. First two edge cases
-    each (an empty key tile between live ones beside a fully masked row: o =
-    0, lse = +inf and zero gradients there; a ragged Sq). Then each kernel
-    timed from CUDA-graph replays beside fp32 SDPA on the same inputs (the
-    yardstick), on the padded q, k, v with the mask, and on the unpadded q,
-    k, v; SDPA's backward as its memory-efficient backward op
-    (:func:`sdpa_fp32_backward`); the plain version's time; two bounds
-    (:func:`d2_bounds`). With phase 17a's results of the same run, the line
-    repeats the padded instances at D = 192/384 beside them (phase 17a also
-    holds the libraries' tile rules at every head dim to the emulation's)."""
+def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: int | None = None):
+    """The fp32 K1 and K2 instances built around the valid rows at the head
+    dims and token counts of ``attn`` against their plain versions, as the
+    fused route hands them over: the unpadded query rows, k, v and the
+    padding mask at 128 keys. First two edge cases each (an empty key tile
+    between live ones beside a fully masked row: o = 0, lse = +inf and zero
+    gradients there; a ragged Sq). Then each kernel timed from CUDA-graph
+    replays at batch ``b`` (K1 also at ``sample_batch``) beside fp32 SDPA on
+    the same inputs (the yardstick), on the padded q, k, v with the mask, and
+    on the unpadded q, k, v; SDPA's backward as its memory-efficient backward
+    op (:func:`sdpa_fp32_backward`); the plain version's time; two bounds
+    (:func:`d2_bounds`). Returns (results by ``{fwd,bwd}_d{D}`` and, at
+    ``sample_batch``, ``fwd_d{D}_b{B}``; the edge cases' errors)."""
     import torch
     import torch.nn.functional as F
 
@@ -2890,84 +2816,115 @@ def phase_d2_kernels(d1_kernels=None):
         fused_mha_reference,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(19)
-    s, h, b = D2_PADDED, D2_HEADS, D2_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = D2_PADDED
     results, edges = {}, {}
-    for d, tokens, _ in D2_ATTN:
-        def rand(n):
-            return torch.randn(b, n, h, d, generator=gen, device="cuda", dtype=torch.float32)
+    for d, tokens, _ in attn:
+        def rand(bb, n):
+            return torch.randn(bb, n, h, d, generator=gen, device="cuda", dtype=torch.float32)
 
         for label, sq, mask in (("hole", tokens, d2_mask("hole", b, tokens)),
                                 ("ragged", tokens // 2 + 5, d2_mask("padded", b, tokens))):
-            q, k, v, do = rand(sq), rand(s), rand(s), rand(sq)
+            q, k, v, do = rand(b, sq), rand(b, s), rand(b, s), rand(b, sq)
             with torch.no_grad():
                 o, lse = fused_mha(q, k, v, mask)
                 ro, rlse = fused_mha_reference(q, k, v, mask)
-                err = check_close(f"D2 K1 fp32 D={d} {label} o", o, ro, *TOL["float32"])
-                check_close(f"D2 K1 fp32 D={d} {label} lse", lse, rlse, *LSE_TOL)
+                err = check_close(f"{tag} K1 fp32 D={d} {label} o", o, ro, *TOL["float32"])
+                check_close(f"{tag} K1 fp32 D={d} {label} lse", lse, rlse, *LSE_TOL)
                 grads = fused_mha_bwd(q, k, v, mask, lse, do)
-                bwd_err = check_grads(f"D2 K2 fp32 D={d} {label}", grads,
+                bwd_err = check_grads(f"{tag} K2 fp32 D={d} {label}", grads,
                                       fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL["float32"])
             if label == "hole" and (bool(o[1].any()) or not bool((lse[1] == math.inf).all())
                                     or any(bool(g[1].any()) for g in grads)):
-                fail(f"D2 D={d}: the fully masked row's o {float(o[1].abs().max())}, lse {lse[1].min().item()}, "
+                fail(f"{tag} D={d}: the fully masked row's o {float(o[1].abs().max())}, lse {lse[1].min().item()}, "
                      "gradients not 0, +inf and 0")
             edges[f"d{d}_{label}_sq{sq}"] = (err, bwd_err)
 
-        mask = d2_mask("padded", b, tokens)
-        q, k, v, do = rand(tokens), rand(s), rand(s), rand(tokens)
-        qp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, do))  # the padded route's q and do
-        kv = [t[:, :tokens].contiguous() for t in (k, v)]  # the unpadded keys
-        attn = mask[:, None, None, :]
-        qt, kt, vt, qpt = (t.transpose(1, 2) for t in (q, k, v, qp))
-        kvt = [t.transpose(1, 2) for t in kv]
-        with torch.no_grad():
-            o, lse = fused_mha(q, k, v, mask)
-            ro, rlse = fused_mha_reference(q, k, v, mask)
-            err = check_close(f"D2 K1 fp32 D={d} o", o, ro, *TOL["float32"])
-            check_close(f"D2 K1 fp32 D={d} lse", lse, rlse, *LSE_TOL)
-            sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn).transpose(1, 2) - ro)
-                             .abs().max())
-            results[f"fwd_d{d}"] = dict(
-                max_abs_err=err, sdpa_err=sdpa_err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
-                plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v, mask), iters=5),
-                library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn)),
-                sdpa_padded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kt, vt, attn_mask=attn)),
-                sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, *kvt)),
-                **d2_bounds(b, tokens, h, d, False, False),
-                padded=d2_bounds(b, tokens, h, d, False, True))
-            refs = fused_mha_bwd_reference(q, k, v, mask, lse, do)
-            err = check_grads(f"D2 K2 fp32 D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs, BWD_TOL["float32"])
-            sdpa_bwd = sdpa_fp32_backward(q, k, v, do, mask)
-            sdpa_err = max(float((g.transpose(1, 2) - r).abs().max()) for g, r in zip(sdpa_bwd(), refs))
-            results[f"bwd_d{d}"] = dict(
-                max_abs_err=err, sdpa_err=sdpa_err,
-                ms=cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10, replays=5),
-                plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, mask, lse, do), iters=3),
-                library_ms=cuda_graph_ms(sdpa_bwd, calls=10, replays=5),
-                sdpa_padded_ms=cuda_graph_ms(sdpa_fp32_backward(qp, k, v, dop, mask), calls=10, replays=5),
-                sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, *kv, do), calls=10, replays=5),
-                **d2_bounds(b, tokens, h, d, True, False),
-                padded=d2_bounds(b, tokens, h, d, True, True))
-        del q, k, v, do, qp, dop, kv, o, lse, ro, rlse, refs, sdpa_bwd
+        for bb in (b,) if sample_batch is None else (b, sample_batch):
+            key = f"d{d}" if bb == b else f"d{d}_b{bb}"
+            mask = d2_mask("padded", bb, tokens)
+            q, k, v, do = rand(bb, tokens), rand(bb, s), rand(bb, s), rand(bb, tokens)
+            qp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, do))  # the padded route's q and do
+            kv = [t[:, :tokens].contiguous() for t in (k, v)]  # the unpadded keys
+            attn_mask = mask[:, None, None, :]
+            qt, kt, vt, qpt = (t.transpose(1, 2) for t in (q, k, v, qp))
+            kvt = [t.transpose(1, 2) for t in kv]
+            with torch.no_grad():
+                o, lse = fused_mha(q, k, v, mask)
+                ro, rlse = fused_mha_reference(q, k, v, mask)
+                err = check_close(f"{tag} K1 fp32 D={d} B={bb} o", o, ro, *TOL["float32"])
+                check_close(f"{tag} K1 fp32 D={d} B={bb} lse", lse, rlse, *LSE_TOL)
+                sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask).transpose(1, 2)
+                                  - ro).abs().max())
+                results[f"fwd_{key}"] = dict(
+                    max_abs_err=err, sdpa_err=sdpa_err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
+                    plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v, mask), iters=5),
+                    library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask)),
+                    sdpa_padded_ms=cuda_graph_ms(
+                        lambda: F.scaled_dot_product_attention(qpt, kt, vt, attn_mask=attn_mask)),
+                    sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, *kvt)),
+                    **d2_bounds(bb, tokens, h, d, False, False),
+                    padded=d2_bounds(bb, tokens, h, d, False, True))
+                if bb == b:
+                    refs = fused_mha_bwd_reference(q, k, v, mask, lse, do)
+                    err = check_grads(f"{tag} K2 fp32 D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs,
+                                      BWD_TOL["float32"])
+                    sdpa_bwd = sdpa_fp32_backward(q, k, v, do, mask)
+                    op_grads = [g.transpose(1, 2) for g in sdpa_bwd()]
+                    sdpa_err = max(float((g - r).abs().max()) for g, r in zip(op_grads, refs))
+                    with torch.enable_grad():  # the timed op computes what SDPA's autograd does with the mask
+                        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+                        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+                        sdpa_grads = torch.autograd.grad(out, leaves, do.transpose(1, 2))
+                        check_grads(f"{tag} SDPA fp32 backward op D={d} vs its autograd", op_grads,
+                                    [g.transpose(1, 2) for g in sdpa_grads], BWD_TOL["float32"])
+                        del out, sdpa_grads, op_grads
+                    results[f"bwd_{key}"] = dict(
+                        max_abs_err=err, sdpa_err=sdpa_err,
+                        ms=cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10, replays=5),
+                        plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, mask, lse, do), iters=3),
+                        library_ms=cuda_graph_ms(sdpa_bwd, calls=10, replays=5),
+                        sdpa_padded_ms=cuda_graph_ms(sdpa_fp32_backward(qp, k, v, dop, mask), calls=10, replays=5),
+                        sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, *kv, do), calls=10, replays=5),
+                        **d2_bounds(bb, tokens, h, d, True, False),
+                        padded=d2_bounds(bb, tokens, h, d, True, True))
+                    del refs, sdpa_bwd
+            del q, k, v, do, qp, dop, kv, o, lse, ro, rlse
     torch.cuda.synchronize()
-    print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={b}, H={h}, the unpadded query rows, "
-          f"keys padded to {s} with the padding mask; device ms from CUDA-graph replays; SDPA fp32 on the same "
-          f"inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, its backward as its "
-          f"memory-efficient backward op; bounds at 3xTF32 = {PEAK_TF32_FLOPS / 1e12:.0f}/3 TFLOP/s and "
-          f"{PEAK_BYTES_PER_S / 1e12} TB/s over the valid rows and keys, and over the padded contract's {s} rows): "
-          "edge cases (max_abs_err K1 o, K2) "
-          + ", ".join(f"{key} {e1:.3e} {e2:.3e}" for key, (e1, e2) in edges.items()) + "; "
-          + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) kernel {r['ms']:.4f} "
-                      f"SDPA fp32 {r['library_ms']:.4f} (padded {r['sdpa_padded_ms']:.4f}, unpadded "
-                      f"{r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
-                      f"({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
-                      f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']}: {r['padded']['mb']:.1f} MB)"
-                      for key, r in results.items())
-          + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * (max|ref| + |ref|)"
-          + ("" if d1_kernels is None else "; in this run (phase 17a) the padded instances at B=128: " + ", ".join(
-              f"{key} {d1_kernels[f'{key}_b{D1_BATCH}']['ms']:.4f} (SDPA {d1_kernels[f'{key}_b{D1_BATCH}']['library_ms']:.4f})"
-              for key in ("fwd_d192", "bwd_d192", "fwd_d384", "bwd_d384"))))
+    return results, edges
+
+
+#: how :func:`valid_rows_kernels` measures, for the lines of phases 17a and 19a
+VALID_ROWS_TIMING = (f"device ms from CUDA-graph replays; SDPA fp32 on the same inputs, on the padded q/k/v with the "
+                     f"mask, and on the unpadded q/k/v, its backward as its memory-efficient backward op (held to "
+                     f"SDPA's autograd); bounds at 3xTF32 = {PEAK_TF32_FLOPS / 1e12:.0f}/3 TFLOP/s and "
+                     f"{PEAK_BYTES_PER_S / 1e12} TB/s over the valid rows and keys, and over the padded contract's "
+                     f"{D2_PADDED} rows")
+
+
+def valid_rows_line(results, edges) -> str:
+    """The edge cases and timings of :func:`valid_rows_kernels` as text."""
+    return ("edge cases (max_abs_err K1 o, K2) "
+            + ", ".join(f"{key} {e1:.3e} {e2:.3e}" for key, (e1, e2) in edges.items()) + "; "
+            + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) kernel {r['ms']:.4f} "
+                        f"SDPA fp32 {r['library_ms']:.4f} (padded {r['sdpa_padded_ms']:.4f}, unpadded "
+                        f"{r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
+                        f"({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
+                        f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']}: {r['padded']['mb']:.1f} MB)"
+                        for key, r in results.items())
+            + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * "
+              "(max|ref| + |ref|)")
+
+
+def phase_d2_kernels():
+    """Phase 19a: the fp32 K1 and K2 instances at head dims 256 and 512 (the
+    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2) against
+    their plain versions, as the fused route hands them over, with the edge
+    cases, timings and bounds of :func:`valid_rows_kernels`."""
+    results, edges = valid_rows_kernels("D2", D2_ATTN, D2_BATCH, D2_HEADS, 19)
+    print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={D2_BATCH}, H={D2_HEADS}, the unpadded "
+          f"query rows, keys padded to {D2_PADDED} with the padding mask; {VALID_ROWS_TIMING}): "
+          + valid_rows_line(results, edges))
     return results
 
 
@@ -3219,7 +3176,7 @@ def main() -> int:
         e1_color = phase_e1_colorize(Path(tmp))
         e1_repa = phase_e1_repa(Path(tmp))
         lap("18 E1")
-        d2_kernels = phase_d2_kernels(d1_kernels)
+        d2_kernels = phase_d2_kernels()
         phase_d2_model()
         d2 = phase_d2_cli(Path(tmp))
         lap("19 D2")
@@ -3315,42 +3272,29 @@ def main() -> int:
         "timing": "ms and library_ms (SDPA's fp32 backward, its memory-efficient backward op): device time per "
                   "call from CUDA-graph replays; bound_ms at 3xTF32 (three TF32 products at 495 TFLOP/s)",
     }] + [{
-        "name": f"fused_mha_{kind} (fp32 instance D={d}, slice D1)",
+        "name": f"fused_mha_{kind} (fp32 instance D={d}, slice {slice_name})",
         "route": "cuda",
         "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
         "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
-        "launches": d1["train"][f"fused_mha_{kind}_f32_d{d}"] + d1["sample"][f"fused_mha_{kind}_f32_d{d}"]
-        + sum(w[f"fused_mha_{kind}_f32_d{d}"] for w in e1_unet.values()),
-        "launches_by_path": {"d1_train": d1["train"][f"fused_mha_{kind}_f32_d{d}"],
-                             "d1_sample": d1["sample"][f"fused_mha_{kind}_f32_d{d}"],
-                             **{k: w[f"fused_mha_{kind}_f32_d{d}"] for k, w in e1_unet.items()}},
-        **{key: d1_kernels[f"{kind}_d{d}_b{D1_BATCH}"][key] for key in C1_KEYS},
-        "shape": f"B={D1_BATCH} S={D1_PADDED} (padded from {tokens} tokens, the padding key mask) H={D1_HEADS} "
-                 f"D={d} fp32",
-        **({"sample_shape_b32": {key: d1_kernels[f"fwd_d{d}_b{2 * D1_SAMPLES}"][key] for key in C1_KEYS}}
-           if kind == "fwd" else {}),
-        "timing": "ms and library_ms (fp32 SDPA with the same mask): device time per call from CUDA-graph replays"
-                  + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
-                  + "; bound_ms at 3xTF32, operations and k/v bytes over the valid keys",
-    } for kind in ("fwd", "bwd") for d, tokens, _ in D1_ATTN] + [{
-        "name": f"fused_mha_{kind} (fp32 instance D={d}, slice D2)",
-        "route": "cuda",
-        "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
-        "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
-        "launches": sum(w[f"fused_mha_{kind}_f32_d{d}"] for w in d2_windows.values()),
-        "launches_by_path": {k: w[f"fused_mha_{kind}_f32_d{d}"] for k, w in d2_windows.items()},
-        **{key: d2_kernels[f"{kind}_d{d}"][key] for key in C1_KEYS},
-        "bound_padded_ms": d2_kernels[f"{kind}_d{d}"]["padded"]["bound_ms"],
-        "sdpa_padded_ms": d2_kernels[f"{kind}_d{d}"]["sdpa_padded_ms"],
-        "sdpa_unpadded_ms": d2_kernels[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
-        "shape": f"B={D2_BATCH} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
-                 f"mask) H={D2_HEADS} D={d} fp32",
+        "launches": sum(w[f"fused_mha_{kind}_f32_d{d}"] for w in paths.values()),
+        "launches_by_path": {k: w[f"fused_mha_{kind}_f32_d{d}"] for k, w in paths.items()},
+        **{key: numbers[f"{kind}_d{d}"][key] for key in C1_KEYS},
+        "bound_padded_ms": numbers[f"{kind}_d{d}"]["padded"]["bound_ms"],
+        "sdpa_padded_ms": numbers[f"{kind}_d{d}"]["sdpa_padded_ms"],
+        "sdpa_unpadded_ms": numbers[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
+        "shape": f"B={batch} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
+                 f"mask) H=2 D={d} fp32",
+        **({"sample_shape_b32": {key: numbers[f"fwd_d{d}_b{2 * D1_SAMPLES}"][key] for key in C1_KEYS}}
+           if f"{kind}_d{d}_b{2 * D1_SAMPLES}" in numbers else {}),
         "timing": "ms and library_ms (fp32 SDPA on the same inputs): device time per call from CUDA-graph replays"
                   + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
                   + "; bound_ms at 3xTF32 and 3.35 TB/s over the valid rows and keys; bound_padded_ms with q, o "
-                    "and lse (K2: q, do, dq, lse, dk and dv) padded to 128 rows; sdpa_padded_ms and sdpa_unpadded_ms: SDPA on the padded q/k/v with the "
-                    "mask and on the unpadded q/k/v",
-    } for kind in ("fwd", "bwd") for d, tokens, _ in D2_ATTN] + [{
+                    "and lse (K2: q, do, dq, lse, dk and dv) padded to 128 rows; sdpa_padded_ms and sdpa_unpadded_ms: "
+                    "SDPA on the padded q/k/v with the mask and on the unpadded q/k/v",
+    } for slice_name, attn, batch, numbers, paths in (
+        ("D1", D1_ATTN, D1_BATCH, d1_kernels, {"d1_train": d1["train"], "d1_sample": d1["sample"], **e1_unet}),
+        ("D2", D2_ATTN, D2_BATCH, d2_kernels, d2_windows))
+      for kind in ("fwd", "bwd") for d, tokens, _ in attn] + [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",

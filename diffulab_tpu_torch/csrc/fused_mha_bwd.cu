@@ -66,16 +66,12 @@
 //     of 16 keys: p^T, dv, dp^T, ds^T and dk over query tiles that a
 //     two-slot cp.async ring brings with their lse and di: 4 products.
 // So 7 products of [Sq x Skv x D] where the bound counts 5 (9 where p and dp
-// do not fit). p and ds stay fp32: the input dtype's rounding is none. Above
-// D = 128 (the UNet's 192 and 384) column groups of warps split the rows'
-// outputs (dq_cols, dkv_cols) where one warp could not hold them, and at
-// D = 384, where a CTA takes 32 rows, also the score products' reduction over
-// D, their partial tiles added in group order in shared memory. At D = 256
-// and 512 (the MNIST UNet's 64 and 16 tokens, padded to 128 keys),
+// do not fit). p and ds stay fp32: the input dtype's rounding is none. At the
+// UNets' head dims 192-512 (64 or 16 tokens, padded to 128 keys),
 // mha_bwd_{dq,dkv}_tf32x3_valid<D> are built around the valid rows: the dq
 // CTAs cover the unpadded query rows alone and skip every key tile whose mask
 // is all 0, a dk/dv CTA whose keys are all masked writes zeros, and the dk/dv
-// query loop walks the valid query rows; column groups of 128 columns.
+// query loop walks the valid query rows; column groups of vr_cols columns.
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
@@ -367,69 +363,24 @@ mha_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
 constexpr int KEPT_THREADS = 2 * F32_THREADS;  // the kept dq kernel: eight warps, two for each 16 rows
 constexpr int KEPT_STEP = 64;                  // keys of its ring slot, 32 for each of the two warps
 
-// keys of a ring slot of the dq kernel that forms p and dp again: 64, 32 at
-// D = 128 and 192, where dq takes 64 and 96 registers a thread, and 16 at D = 384
+// keys of a ring slot of the dq kernel that forms p and dp again: 64, and 32
+// at D = 128, where dq takes 64 registers a thread
 template <int D>
 __host__ __device__ constexpr int dq_keys() {
-  return D <= 64 ? 64 : D <= 192 ? 32 : 16;
+  return D <= 64 ? 64 : 32;
 }
 
-// query rows of a dq CTA: 64, and 32 (two warps) at D = 384, so that its q and
-// dO rows and a ring of K and V fit in shared memory
-template <int D>
-__host__ __device__ constexpr int dq_rows() {
-  return D <= 192 ? 64 : 32;
-}
-
-// dq columns of a dq warp: the whole head, and half of it at D = 384, where
-// two column groups of warps take half of dq = ds.K each; each group forms s
-// and dp over its half of D, and the partial tiles meet in shared memory
-template <int D>
-__host__ __device__ constexpr int dq_cols() {
-  return D <= 192 ? D : D / 2;
-}
-
-// threads of a dq CTA: a warp for each 16 rows in each column group
-template <int D>
-__host__ __device__ constexpr int dq_threads() {
-  return 2 * dq_rows<D>() * (D / dq_cols<D>());
-}
-
-// queries of a ring slot of the dk/dv kernel: 32 at D = 128 and 192, 16 at D = 384
+// queries of a ring slot of the dk/dv kernel: 64, and 32 at D = 128
 template <int D>
 __host__ __device__ constexpr int dkv_queries() {
-  return D <= 64 ? 64 : D <= 192 ? 32 : 16;
-}
-
-// key rows of a dk/dv CTA: 64, and 32 (two warps) at D = 384
-template <int D>
-__host__ __device__ constexpr int dkv_rows() {
-  return D <= 192 ? 64 : 32;
-}
-
-// dk and dv columns of a dk/dv warp: the whole head up to D = 128 (dk and dv
-// take D registers a thread), else 96: two column groups of warps at D = 192,
-// four at D = 384. At D = 384 each group forms s^T and dp^T over its quarter
-// of D and the partial tiles meet in shared memory (dkv_shares); at D = 192,
-// where they would not fit, each group forms them over the whole of D
-template <int D>
-__host__ __device__ constexpr int dkv_cols() {
-  return D <= 128 ? D : 96;
-}
-
-// threads of a dk/dv CTA: a warp for each 16 keys in each column group
-template <int D>
-__host__ __device__ constexpr int dkv_threads() {
-  return 2 * dkv_rows<D>() * (D / dkv_cols<D>());
+  return D <= 64 ? 64 : 32;
 }
 
 // shared memory of the dq kernel that forms p and dp again: the CTA's q and
-// dO rows, two ring slots of K and V, and with column groups their partial s and dp
+// dO rows and two ring slots of K and V
 template <int D>
 __host__ __device__ constexpr size_t dq_smem_bytes() {
-  constexpr int groups = D / dq_cols<D>();
-  return sizeof(float) * (ld<D>() * (2 * dq_rows<D>() + 2 * 2 * dq_keys<D>()) +
-                          (groups > 1 ? 2 * groups * dq_rows<D>() * dq_keys<D>() : 0));
+  return sizeof(float) * ld<D>() * (2 * F32_ROWS + 2 * 2 * dq_keys<D>());
 }
 
 // shared memory of the kept dq kernel: two ring slots of K and V, the two
@@ -448,25 +399,8 @@ constexpr bool f32_keeps(int Skv) {
 
 // shared memory of the dk/dv kernel: the CTA's K and V rows, two ring slots of Q and dO, and their lse and di
 template <int D>
-__host__ __device__ constexpr size_t dkv_base_bytes() {
-  return sizeof(float) * (ld<D>() * (2 * dkv_rows<D>() + 2 * 2 * dkv_queries<D>()) + 2 * 2 * dkv_queries<D>());
-}
-
-// bytes of the column groups' partial s^T and dp^T tiles
-template <int D>
-__host__ __device__ constexpr size_t dkv_part_bytes() {
-  return sizeof(float) * 2 * (D / dkv_cols<D>()) * dkv_rows<D>() * dkv_queries<D>();
-}
-
-// whether the dk/dv kernel's column groups share the score products' D-reduction
-template <int D>
-__host__ __device__ constexpr bool dkv_shares() {
-  return D / dkv_cols<D>() > 1 && dkv_base_bytes<D>() + dkv_part_bytes<D>() <= SMEM_LIMIT;
-}
-
-template <int D>
 __host__ __device__ constexpr size_t dkv_smem_bytes() {
-  return dkv_base_bytes<D>() + (dkv_shares<D>() ? dkv_part_bytes<D>() : 0);
+  return sizeof(float) * (ld<D>() * (2 * F32_ROWS + 2 * 2 * dkv_queries<D>()) + 2 * 2 * dkv_queries<D>());
 }
 
 // s -> p = exp(s * scale - lse) for query rows (g, g + 8) against keys key0 + [0, N)
@@ -619,27 +553,23 @@ mha_bwd_dq_kept_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
 // of 16 rows, K and V through a two-slot cp.async ring. Pass 1 forms s, p and
 // dp tile by tile and di = rowsum(p * dp) over the whole key row; pass 2
 // forms s and dp again, ds and dq = ds.K: 5 products of [64 x Skv x D]. The
-// CTA writes lse and di for the dk/dv kernel. At D = 384, 32 queries a CTA,
-// and two column groups of two warps for them, each taking half of dq's columns.
+// CTA writes lse and di for the dk/dv kernel.
 template <int D>
-__global__ void __launch_bounds__(dq_threads<D>())
+__global__ void __launch_bounds__(F32_THREADS)
 mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
                   float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq, int Skv,
                   int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                   long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  constexpr int KT = dq_keys<D>(), ROWS = dq_rows<D>(), THREADS = dq_threads<D>(), DO = dq_cols<D>();
-  constexpr int LD = ld<D>(), ROW_WARPS = ROWS / 16, GROUPS = D / DO;
+  constexpr int KT = dq_keys<D>(), LD = ld<D>();
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // [ROWS][LD]
-  float* dos = qs + ROWS * LD;   // [ROWS][LD]
-  float* ks = dos + ROWS * LD;   // [2][KT][LD]
-  float* vs = ks + 2 * KT * LD;  // [2][KT][LD]
-  float* part = vs + 2 * KT * LD;  // [2][GROUPS][ROWS][KT]: the groups' partial s, then dp
+  float* qs = smem;                  // [64][LD]
+  float* dos = qs + F32_ROWS * LD;   // [64][LD]
+  float* ks = dos + F32_ROWS * LD;   // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;      // [2][KT][LD]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
-  const int col0 = (warp / ROW_WARPS) * DO;  // this warp's dq columns: col0 + [0, DO)
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
   const int row = m0 + r0 + g;  // this thread's rows: row, row + 8
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
@@ -649,8 +579,8 @@ mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, cons
 
   auto stage = [&](int j) {  // loads 0 .. n_tiles - 1 feed pass 1, the next n_tiles pass 2
     const int tile = j < n_tiles ? j : j - n_tiles;
-    stage_rows<D, KT, THREADS>(ks + (j & 1) * KT * LD, kb, k_ss, tile * KT);
-    stage_rows<D, KT, THREADS>(vs + (j & 1) * KT * LD, vb, v_ss, tile * KT);
+    stage_rows<D, KT>(ks + (j & 1) * KT * LD, kb, k_ss, tile * KT);
+    stage_rows<D, KT>(vs + (j & 1) * KT * LD, vb, v_ss, tile * KT);
   };
   auto advance = [&](int j) {  // the next load in flight, then load j landed
     if (j + 1 < 2 * n_tiles) {
@@ -662,27 +592,15 @@ mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, cons
     }
     __syncthreads();
   };
-  // s and dp of key tile `tile` (in slot `slot`) for the warp's rows; with
-  // column groups, each over the group's columns of D, then summed
+  // p and dp of key tile `tile` (in slot `slot`) for the warp's rows
   auto scores = [&](float (&p)[KT / 8][4], float (&dp)[KT / 8][4], int slot, int tile) {
-    if constexpr (GROUPS > 1) {
-      constexpr int PART = GROUPS * ROWS * KT;
-      rows_dot<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
-      rows_dot<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
-      put_c<KT>(part + (warp / ROW_WARPS) * ROWS * KT, p, r0, g, t4);
-      put_c<KT>(part + PART + (warp / ROW_WARPS) * ROWS * KT, dp, r0, g, t4);
-      __syncthreads();
-      sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
-      sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
-    } else {
-      rows_dot<D, KT>(p, qs, r0, ks + slot * KT * LD, g, t4);
-      rows_dot<D, KT>(dp, dos, r0, vs + slot * KT * LD, g, t4);
-    }
+    rows_dot<D, KT>(p, qs, r0, ks + slot * KT * LD, g, t4);
+    rows_dot<D, KT>(dp, dos, r0, vs + slot * KT * LD, g, t4);
     probs_f32<KT>(p, sm_scale, mb, tile * KT, lse_r, t4);
   };
 
-  stage_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0);
-  stage_rows<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0);
+  stage_rows<D, F32_ROWS>(qs, q + b * q_sb + h * D, q_ss, m0);
+  stage_rows<D, F32_ROWS>(dos, dout + b * do_sb + h * D, do_ss, m0);
   stage(0);
   cp_async_commit();
 
@@ -701,10 +619,10 @@ mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, cons
   di[0] = quad_sum(di[0]);
   di[1] = quad_sum(di[1]);
 
-  // pass 2: s and dp again; ds = p * (dp - di) * scale; dq += ds.K (the warp's columns)
-  float acc[DO / 8][4];
+  // pass 2: s and dp again; ds = p * (dp - di) * scale; dq += ds.K
+  float acc[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   for (int j = n_tiles; j < 2 * n_tiles; ++j) {
     advance(j);
     float p[KT / 8][4], dp[KT / 8][4];
@@ -713,14 +631,14 @@ mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, cons
     for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;
-    scores_times_tile<DO, KT, LD>(acc, p, ks + (j & 1) * KT * LD + col0, g, t4);
+    scores_times_tile<D, KT>(acc, p, ks + (j & 1) * KT * LD, g, t4);
     __syncthreads();
   }
 
   // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
   const long long o_ss = (long long)H * D;
-  store_c_rows<DO>(dq + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4);
-  if (col0 == 0 && t4 == 0) {
+  store_c_rows<D>(dq + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4);
+  if (t4 == 0) {
     const long long w = ((long long)b * H + h) * Sq + row;
     ws_lse[w] = lse_r[0];
     ws_lse[w + 8] = lse_r[1];
@@ -732,30 +650,25 @@ mha_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, cons
 // dk and dv for 64 keys of a (batch, head): four warps of 16 keys walk the
 // query tiles (Q, dO, and their lse and di through a two-slot cp.async ring):
 // p^T = exp(K.Q^T * scale - lse), dv += p^T.dO, dp^T = V.dO^T, ds^T = p^T *
-// (dp^T - di) * scale, dk += ds^T.Q. Four products of [64 x Sq x D]. Above
-// D = 128 column groups of warps split dk's and dv's columns 96 at a time
-// (each forming p^T and dp^T for the CTA's keys); at D = 384 a CTA takes 32 keys.
+// (dp^T - di) * scale, dk += ds^T.Q. Four products of [64 x Sq x D].
 template <int D>
-__global__ void __launch_bounds__(dkv_threads<D>())
+__global__ void __launch_bounds__(F32_THREADS)
 mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ ws_lse,
                    const float* __restrict__ ws_di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
                    int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                    long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  constexpr int QT = dkv_queries<D>(), ROWS = dkv_rows<D>(), THREADS = dkv_threads<D>(), DO = dkv_cols<D>();
-  constexpr int LD = ld<D>(), ROW_WARPS = ROWS / 16, GROUPS = D / DO;
+  constexpr int QT = dkv_queries<D>(), LD = ld<D>();
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                  // [ROWS][LD]
-  float* vs = ks + ROWS * LD;        // [ROWS][LD]
-  float* qs = vs + ROWS * LD;        // [2][QT][LD]
+  float* ks = smem;                  // [64][LD]
+  float* vs = ks + F32_ROWS * LD;    // [64][LD]
+  float* qs = vs + F32_ROWS * LD;    // [2][QT][LD]
   float* dos = qs + 2 * QT * LD;     // [2][QT][LD]
   float* lse_s = dos + 2 * QT * LD;  // [2][QT]
   float* di_s = lse_s + 2 * QT;      // [2][QT]
-  float* part = di_s + 2 * QT;       // dkv_shares: [2][GROUPS][ROWS][QT], the groups' partial s^T, then dp^T
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
-  const int col0 = (warp / ROW_WARPS) * DO;  // this warp's dk and dv columns: col0 + [0, DO)
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
   const int row = n0 + r0 + g;  // this thread's keys: row, row + 8
   const float* qb = q + b * q_sb + h * D;
   const float* dob = dout + b * do_sb + h * D;
@@ -767,8 +680,8 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
 
   auto stage = [&](int t) {
     const int slot = t & 1;
-    stage_rows<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT);
-    stage_rows<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT);
+    stage_rows<D, QT>(qs + slot * QT * LD, qb, q_ss, t * QT);
+    stage_rows<D, QT>(dos + slot * QT * LD, dob, do_ss, t * QT);
     const int i = threadIdx.x;  // QT / 4 chunks of lse, then of di
     if (i < QT / 4)
       cp_async16(lse_s + slot * QT + 4 * i, wl + t * QT + 4 * i);
@@ -776,14 +689,14 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
       cp_async16(di_s + slot * QT + 4 * (i - QT / 4), wd + t * QT + 4 * (i - QT / 4));
   };
 
-  stage_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0);
-  stage_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0);
+  stage_rows<D, F32_ROWS>(ks, k + b * k_sb + h * D, k_ss, n0);
+  stage_rows<D, F32_ROWS>(vs, v + b * v_sb + h * D, v_ss, n0);
   stage(0);
   cp_async_commit();
 
-  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < DO / 8; ++dn)
+  for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
 
@@ -804,19 +717,8 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
 
     // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
     float p[QT / 8][4], dp[QT / 8][4];
-    if constexpr (dkv_shares<D>()) {  // this group's columns of D, then the sum over the groups
-      constexpr int PART = GROUPS * ROWS * QT;
-      rows_dot<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
-      rows_dot<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
-      put_c<QT>(part + (warp / ROW_WARPS) * ROWS * QT, p, r0, g, t4);
-      put_c<QT>(part + PART + (warp / ROW_WARPS) * ROWS * QT, dp, r0, g, t4);
-      __syncthreads();
-      sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
-      sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
-    } else {
-      rows_dot<D, QT>(p, ks, r0, qt, g, t4);
-      rows_dot<D, QT>(dp, vs, r0, dot, g, t4);
-    }
+    rows_dot<D, QT>(p, ks, r0, qt, g, t4);
+    rows_dot<D, QT>(dp, vs, r0, dot, g, t4);
 #pragma unroll
     for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
@@ -824,28 +726,36 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
         const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
         p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
       }
-    scores_times_tile<DO, QT, LD>(dv_acc, p, dot + col0, g, t4);  // dv += p^T.dO
+    scores_times_tile<D, QT>(dv_acc, p, dot, g, t4);  // dv += p^T.dO
 #pragma unroll
     for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
-    scores_times_tile<DO, QT, LD>(dk_acc, dp, qt + col0, g, t4);  // dk += ds^T.Q
+    scores_times_tile<D, QT>(dk_acc, dp, qt, g, t4);  // dk += ds^T.Q
     __syncthreads();
   }
 
   // dk, dv [B, Skv, H, D] contiguous
   const long long o_ss = (long long)H * D;
-  store_c_rows<DO>(dk + (long long)b * Skv * o_ss + h * D + col0, o_ss, row, dk_acc, t4);
-  store_c_rows<DO>(dv + (long long)b * Skv * o_ss + h * D + col0, o_ss, row, dv_acc, t4);
+  store_c_rows<D>(dk + (long long)b * Skv * o_ss + h * D, o_ss, row, dk_acc, t4);
+  store_c_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, row, dv_acc, t4);
 }
 
-// --- fp32 at D = 256 and 512: built around the valid rows (tf32x3.cuh) ----------
+// --- fp32 at D = 192-512: built around the valid rows (tf32x3.cuh) ------------
 //
-// The MNIST UNet's 64 tokens at D = 256 and 16 at D = 512, padded to 128 keys.
-// The q, dO and lse rows are the unpadded ones (ragged ends guarded); a warp
-// for each 16 rows in each column group of 128 output columns, the groups
-// splitting the score products' reduction over D and adding their partial
-// tiles in group order; no atomics.
+// The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the UNets'
+// head dims: 64 tokens at D = 192 and 256, 16 at D = 384 and 512, keys padded
+// to 128. At B=128, H=2 a call must read q, do, k and v and write dq, dk and
+// dv over the valid rows and keys (dk and dv: the route's pad drops the
+// padded keys' rows), 88.1 / 117.4 / 44.0 / 58.7 MB at D = 192 / 256 / 384 /
+// 512 (0.026 / 0.035 / 0.013 / 0.018 ms at 3.35 TB/s), against 2.01 / 2.68 /
+// 0.25 / 0.34 GFLOP (0.016 ms or less at 3xTF32): bound by bytes. Padded to
+// 128 query rows and walking every key tile, the instances before this design
+// did 2x (64 tokens) and 8x (16) the bytes of q, do and dq and 4x and 64x the
+// score work. So the q, dO and lse rows are the unpadded ones (ragged ends
+// guarded); a warp for each 16 rows in each column group of vr_cols output
+// columns, the groups splitting the score products' reduction over D and
+// adding their partial tiles in group order; no atomics.
 
 // dq for vr_rows queries of a (batch, head): K and V stream in tiles of
 // VR_TILE keys through a two-slot cp.async ring, and only the tiles whose mask
@@ -861,7 +771,7 @@ mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq,
                         int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                         long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  constexpr int KT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int KT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
   constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                // [ROWS][LD]
@@ -980,7 +890,7 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
                          long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
                          long long do_ss, float sm_scale) {
-  constexpr int QT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int QT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
   constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;                  // [ROWS][LD]
@@ -1149,7 +1059,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
                   "the fp32 K2's tiles exceed shared memory");
     err = allow_smem(mha_bwd_dq_tf32x3<D>, configured[1], device);
     if (err != cudaSuccess) return err;
-    mha_bwd_dq_tf32x3<D><<<dim3(a.Sq / dq_rows<D>(), a.H, a.B), dq_threads<D>(), dq_smem_bytes<D>(), stream>>>(
+    mha_bwd_dq_tf32x3<D><<<grid_q, F32_THREADS, dq_smem_bytes<D>(), stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
         static_cast<const float*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<float*>(a.dq), a.Sq, a.Skv,
         a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
@@ -1157,8 +1067,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err == cudaSuccess) err = allow_smem(mha_bwd_dkv_tf32x3<D>, configured[2], device);
   if (err != cudaSuccess) return err;
-  mha_bwd_dkv_tf32x3<D><<<dim3(a.Skv / dkv_rows<D>(), a.H, a.B), dkv_threads<D>(), dkv_smem_bytes<D>(),
-                          stream>>>(
+  mha_bwd_dkv_tf32x3<D><<<dim3(a.Skv / F32_ROWS, a.H, a.B), F32_THREADS, dkv_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const float*>(a.dout), a.mask, ws_lse, ws_di, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
@@ -1166,7 +1075,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the fp32 dq kernel, then the dk/dv kernel, at D = 256 and 512; a.ws holds
+// the fp32 dq kernel, then the dk/dv kernel, at D = 192-512; a.ws holds
 // lse, then di, rows (b, h) Sq apart
 template <int D>
 cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
@@ -1226,7 +1135,7 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 
 // q/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
 // stride D over heads and the given batch/row strides (in elements; 16-byte
-// aligned rows); Sq, Skv multiples of 64 (fp32 at D = 256 and 512: any Sq,
+// aligned rows); Sq, Skv multiples of 64 (fp32 at D = 192-512: any Sq,
 // the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
 // 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
 // contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
@@ -1241,7 +1150,7 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
                              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long do_sb, long long do_ss, float sm_scale,
                              int dtype, void* stream) {
-  // the fp32 instances at D = 256 and 512 take the unpadded query rows
+  // the fp32 instances at D = 192-512 take the unpadded query rows
   const bool any_rows = dtype == 0 && valid_rows_instance(D);
   if (Sq < 1 || Skv < 1 || (!any_rows && Sq % BLOCK != 0) || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1255,9 +1164,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
     case 32: err = launch<32>(dtype, a, s); break;
     case 64: err = launch<64>(dtype, a, s); break;
     case 128: err = launch<128>(dtype, a, s); break;
-    case 192: err = dtype == 0 ? launch_f32<192>(a, s) : cudaErrorInvalidValue; break;  // fp32 alone
-    case 384: err = dtype == 0 ? launch_f32<384>(a, s) : cudaErrorInvalidValue; break;
+    case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : cudaErrorInvalidValue; break;  // fp32 alone
     case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : cudaErrorInvalidValue; break;
+    case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : cudaErrorInvalidValue; break;
     case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : cudaErrorInvalidValue; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1274,36 +1183,23 @@ extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
     case 32: return (f32_keeps<32>(Skv) ? 3 : 5) + 4;
     case 64: return (f32_keeps<64>(Skv) ? 3 : 5) + 4;
     case 128: return (f32_keeps<128>(Skv) ? 3 : 5) + 4;
-    case 192: return (f32_keeps<192>(Skv) ? 3 : 5) + 4;
-    case 384: return (f32_keeps<384>(Skv) ? 3 : 5) + 4;
-    case 256: case 512: return 5 + 4;  // over the live key tiles alone
+    case 192: case 256: case 384: case 512: return 5 + 4;  // over the live key tiles alone
     default: return 0;
   }
 }
 
 // column groups of warps whose partial score tiles are summed in shared
-// memory, in the fp32 dq kernel (which = 0) and dk/dv kernel (which = 1) at
-// head dim D, by the rules their launch follows: 1 where a warp forms the
-// products over the whole of D; 0 for another D. The emulation in
-// ops/fused_mha.py (f32_groups) mirrors them.
-template <int D>
-constexpr int f32_shared_groups(int which) {
-  if constexpr (valid_rows_instance(D))
-    return vr_groups<D>();
-  else
-    return which == 0 ? D / dq_cols<D>() : dkv_shares<D>() ? D / dkv_cols<D>() : 1;
-}
-
-extern "C" int fused_mha_bwd_f32_groups(int D, int which) {
+// memory, in the fp32 dq and dk/dv kernels at head dim D, by the rule their
+// launch follows: vr_groups at the valid-rows head dims, 1 where a warp forms
+// the products over the whole of D; 0 for another D. The emulation in
+// ops/fused_mha.py (f32_groups) mirrors it.
+extern "C" int fused_mha_bwd_f32_groups(int D) {
   switch (D) {
-    case 16: return f32_shared_groups<16>(which);
-    case 32: return f32_shared_groups<32>(which);
-    case 64: return f32_shared_groups<64>(which);
-    case 128: return f32_shared_groups<128>(which);
-    case 192: return f32_shared_groups<192>(which);
-    case 384: return f32_shared_groups<384>(which);
-    case 256: return f32_shared_groups<256>(which);
-    case 512: return f32_shared_groups<512>(which);
+    case 16: case 32: case 64: case 128: return 1;
+    case 192: return vr_groups<192>();
+    case 256: return vr_groups<256>();
+    case 384: return vr_groups<384>();
+    case 512: return vr_groups<512>();
     default: return 0;
   }
 }

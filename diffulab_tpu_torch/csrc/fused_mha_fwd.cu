@@ -50,15 +50,8 @@
 // the running O rescaled, P in registers as the A operand of P.V, and O / l
 // at the end. That differs from the reference's "normalise p before PV" in
 // rounding only: fp32 p is never rounded to a narrower type. Two products of
-// [S x S x D], not the three of a two-pass softmax. Up to D = 192 (the UNet's
-// 64 tokens at ds 4) a warp holds its rows' whole output (96 registers at
-// 192); at D = 384 (16 tokens at ds 8) two column groups of four warps split
-// the output and the score product's reduction over D, their partial score
-// tiles added in group order in shared memory, over 16-key tiles. At D = 256
-// and 512 (the MNIST UNet's 64 and 16 tokens, padded to 128 keys),
-// mha_fwd_tf32x3_valid<D> is built around the valid rows: it takes the
-// unpadded query rows, loads and multiplies no key tile whose mask is all 0,
-// and splits the head into column groups of 128 output columns.
+// [S x S x D], not the three of a two-pass softmax. At the UNets' head dims
+// 192-512, mha_fwd_tf32x3_valid<D> is built around the valid rows.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
 // cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
@@ -506,69 +499,44 @@ mha_fwd_streamed(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 // keys of a ring slot: 32, so that three CTAs (twelve warps) fit on an SM at
 // D = 64 (52 KB of shared memory and 167 registers a thread each); with
 // 64-key slots two fit, and the kernel took 0.4340 ms at C1's B=128 against
-// 0.3606 (scripts/fp32_attn_variants.py, NVIDIA H100 80GB HBM3, 700 W). At
-// D = 384, 16, so that a CTA's Q, K and V fit in shared memory.
-template <int D>
-__host__ __device__ constexpr int f32_keys() {
-  return D <= 192 ? 32 : 16;
-}
+// 0.3606 (scripts/fp32_attn_variants.py, NVIDIA H100 80GB HBM3, 700 W)
+constexpr int F32_KEYS = 32;
 
-// output columns of a warp: the whole head up to D = 192 (D / 2 accumulators
-// a thread, 96 at D = 192); at D = 384 two column groups of four warps each
-// take half the columns over the same rows (192 accumulators a thread would
-// not fit), and each group forms the scores over its half of D: the two
-// partial score tiles meet in shared memory and are added in group order
-template <int D>
-__host__ __device__ constexpr int f32_cols() {
-  return D <= 192 ? D : D / 2;
-}
-
-// threads of a CTA: four warps of 16 query rows for each column group
-template <int D>
-__host__ __device__ constexpr int f32_threads() {
-  return F32_THREADS * (D / f32_cols<D>());
-}
-
-// bytes of dynamic shared memory: the CTA's 64 Q rows, two ring slots of K
-// and V, and with column groups their partial score tiles
+// bytes of dynamic shared memory: the CTA's 64 Q rows and two ring slots of K and V
 template <int D>
 __host__ __device__ constexpr int f32_smem_bytes() {
-  constexpr int groups = D / f32_cols<D>();
-  return 4 * (ld<D>() * (F32_ROWS + 2 * 2 * f32_keys<D>()) + (groups > 1 ? groups * F32_ROWS * f32_keys<D>() : 0));
+  return 4 * ld<D>() * (F32_ROWS + 2 * 2 * F32_KEYS);
 }
 
-// One CTA per (64 queries, head, batch), four warps of 16 query rows (eight
-// at D = 384, two column groups), one pass over the keys: each key tile's
-// scores S = Q.K^T, the running row max and sum updated online (the running
-// O rescaled), P = exp(S - m) in C layout straight into the A operand of O +=
-// P.V over the warp's output columns. O / l at the end.
+// One CTA per (64 queries, head, batch), four warps of 16 query rows, one
+// pass over the keys: each key tile's scores S = Q.K^T, the running row max
+// and sum updated online (the running O rescaled), P = exp(S - m) in C layout
+// straight into the A operand of O += P.V. O / l at the end. D <= 128: a warp
+// holds its rows' whole output (64 accumulators a thread at 128).
 template <int D>
-__global__ void __launch_bounds__(f32_threads<D>())
+__global__ void __launch_bounds__(F32_THREADS)
 mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
                long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                float sm_scale) {
-  constexpr int KT = f32_keys<D>(), DO = f32_cols<D>(), THREADS = f32_threads<D>(), LD = ld<D>();
-  constexpr int GROUPS = D / DO;
+  constexpr int KT = F32_KEYS, LD = ld<D>();
   constexpr bool QREG = D <= 64;  // Q's split fragments stay in registers for every key tile
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                // [64][LD]
   float* ks = qs + F32_ROWS * LD;  // [2][KT][LD]
   float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
-  float* part = vs + 2 * KT * LD;  // [GROUPS][64][KT]: the groups' partial scores
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS, r0 = 16 * (warp % 4);
-  const int col0 = (warp / 4) * DO;  // this warp's output columns: col0 + [0, DO)
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * F32_ROWS, r0 = 16 * warp;
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
   const int n_tiles = Skv / KT;
 
-  stage_rows<D, F32_ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0);
+  stage_rows<D, F32_ROWS>(qs, q + b * q_sb + h * D, q_ss, m0);
   cp_async_commit();
-  stage_rows<D, KT, THREADS>(ks, kb, k_ss, 0);
-  stage_rows<D, KT, THREADS>(vs, vb, v_ss, 0);
+  stage_rows<D, KT>(ks, kb, k_ss, 0);
+  stage_rows<D, KT>(vs, vb, v_ss, 0);
   cp_async_commit();
 
   uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
@@ -579,16 +547,16 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
     for (int kk = 0; kk < D / 8; ++kk) frag_a<D>(qh[kk], ql[kk], qs, r0, kk, g, t4);
   }
 
-  float acc[DO / 8][4];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad at the end
 
   for (int t = 0; t < n_tiles; ++t) {
     const int slot = t & 1;
     if (t + 1 < n_tiles) {
-      stage_rows<D, KT, THREADS>(ks + (slot ^ 1) * KT * LD, kb, k_ss, (t + 1) * KT);
-      stage_rows<D, KT, THREADS>(vs + (slot ^ 1) * KT * LD, vb, v_ss, (t + 1) * KT);
+      stage_rows<D, KT>(ks + (slot ^ 1) * KT * LD, kb, k_ss, (t + 1) * KT);
+      stage_rows<D, KT>(vs + (slot ^ 1) * KT * LD, vb, v_ss, (t + 1) * KT);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -597,16 +565,10 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
     __syncthreads();
     const float* kt = ks + slot * KT * LD;
     float s[KT / 8][4];
-    if constexpr (QREG) {
+    if constexpr (QREG)
       rows_dot<D, KT>(s, qh, ql, kt, g, t4);
-    } else if constexpr (GROUPS > 1) {  // this group's half of D, then the sum of the halves
-      rows_dot<DO, KT, LD>(s, qs + col0, r0, kt + col0, g, t4);
-      put_c<KT>(part + (warp / 4) * F32_ROWS * KT, s, r0, g, t4);
-      __syncthreads();
-      sum_c<KT, GROUPS>(s, part, F32_ROWS * KT, r0, g, t4);
-    } else {
+    else
       rows_dot<D, KT>(s, qs, r0, kt, g, t4);
-    }
 
     // scale, mask, and the tile's row max
     float mx[2] = {-INFINITY, -INFINITY};
@@ -630,7 +592,7 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int dn = 0; dn < DO / 8; ++dn) {
+    for (int dn = 0; dn < D / 8; ++dn) {
       acc[dn][0] *= alpha[0];
       acc[dn][1] *= alpha[0];
       acc[dn][2] *= alpha[1];
@@ -643,7 +605,7 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
         s[nt][j] = expf(s[nt][j] - m[j >> 1]);  // a masked key beside a real score: exactly 0
         l[j >> 1] += s[nt][j];
       }
-    scores_times_tile<DO, KT, LD>(acc, s, vs + slot * KT * LD + col0, g, t4);
+    scores_times_tile<D, KT>(acc, s, vs + slot * KT * LD, g, t4);
     __syncthreads();  // the slot is refilled next iteration
   }
 
@@ -655,37 +617,47 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
     dead[r] = mb != nullptr && m[r] <= MASK_VALUE;
   }
 #pragma unroll
-  for (int dn = 0; dn < DO / 8; ++dn)
+  for (int dn = 0; dn < D / 8; ++dn)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[dn][j] = dead[j >> 1] ? 0.f : acc[dn][j] / l[j >> 1];
   const long long o_ss = (long long)H * D;
   const int row = m0 + r0 + g;
-  store_c_rows<DO>(o + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4);
-  if (col0 == 0 && t4 == 0) {
+  store_c_rows<D>(o + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4);
+  if (t4 == 0) {
     lse[((long long)b * Sq + row) * H + h] = dead[0] ? INFINITY : m[0] + logf(l[0]);
     lse[((long long)b * Sq + row + 8) * H + h] = dead[1] ? INFINITY : m[1] + logf(l[1]);
   }
 }
 
-// At the MNIST UNet's head dims 256 (64 tokens at ds 4) and 512 (16 tokens at
-// ds 8), built around the valid rows (tf32x3.cuh, valid_rows_instance): one
-// CTA per (vr_rows queries, head, batch) of the UNPADDED query rows, rows past
-// Sq zero-filled in shared memory and never stored; a warp for each 16 rows in
-// each column group of 128 output columns (2 groups at D = 256, 4 at 512),
-// each group forming the scores over its 128 columns of D and the partial
-// tiles added in group order. The ring brings only the key tiles of VR_TILE
-// keys that hold an attended key: a tile whose mask is all 0 is neither loaded
-// nor multiplied. That is exact: such a tile's p is exactly 0 after a live
-// one, and before the first live one the online max it leaves (MASK_VALUE) is
-// dropped by alpha = exp(MASK_VALUE - m) = 0. A batch row with no live tile
-// writes o = 0, lse = +inf without loading Q. 2 CTAs an SM (101-104 KB each).
+// The fp32 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the UNets'
+// head dims, built around the valid rows (tf32x3.cuh, valid_rows_instance):
+// 64 tokens at D = 192 (train_synthetic_ddpm, ds 4) and 256 (the MNIST
+// configs), 16 at D = 384 and 512 (ds 8), keys padded to 128 with the mask.
+// At B=128, H=2 a call must read q, k and v and write o over the valid rows
+// and keys, 50.4 / 67.1 / 25.2 / 33.6 MB at D = 192 / 256 / 384 / 512 (0.015
+// / 0.020 / 0.0075 / 0.010 ms at 3.35 TB/s), against 0.81 / 1.07 / 0.10 /
+// 0.13 GFLOP (0.005 ms or less at 3xTF32): bound by bytes. Padded to 128
+// rows and walking every key tile, the instances before this design did 2x
+// (64 tokens) and 8x (16) the bytes of q and o and 4x and 64x the score
+// work. So: one CTA per (vr_rows queries, head, batch) of the UNPADDED query
+// rows (32 at D = 192, 64 at 256, 16 at 384 and 512), rows past Sq
+// zero-filled in shared memory and never stored; a warp for each 16 rows in
+// each column group of vr_cols output columns (2 groups at D = 192 and 256, 6
+// at 384, 4 at 512), each group forming the scores over its columns of D and
+// the partial tiles added in group order. The ring
+// brings only the key tiles of VR_TILE keys that hold an attended key: a tile
+// whose mask is all 0 is neither loaded nor multiplied. That is exact: such a
+// tile's p is exactly 0 after a live one, and before the first live one the
+// online max it leaves (MASK_VALUE) is dropped by alpha = exp(MASK_VALUE - m)
+// = 0. A batch row with no live tile writes o = 0, lse = +inf without loading
+// Q. 52-104 KB of shared memory: 2 CTAs an SM, 4 at D = 192.
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
                      int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                      long long v_ss, float sm_scale) {
-  constexpr int KT = VR_TILE, DO = VR_COLS, ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int KT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
   constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                // [ROWS][LD]
@@ -873,7 +845,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* m
   const cudaError_t err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
   static_assert(f32_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K1's tiles exceed shared memory");
-  kernel<<<dim3(Sq / F32_ROWS, H, B), f32_threads<D>(), f32_smem_bytes<D>(), stream>>>(
+  kernel<<<dim3(Sq / F32_ROWS, H, B), F32_THREADS, f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
       static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
   return cudaGetLastError();
@@ -910,11 +882,11 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
   }
 #define K1_F32(DD) \
   if (D == DD) return launch_f32<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
-  K1_F32(16) K1_F32(32) K1_F32(64) K1_F32(128) K1_F32(192) K1_F32(384)
+  K1_F32(16) K1_F32(32) K1_F32(64) K1_F32(128)
 #undef K1_F32
 #define K1_F32_VALID(DD) \
   if (D == DD) return launch_f32_valid<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
-  K1_F32_VALID(256) K1_F32_VALID(512)
+  K1_F32_VALID(192) K1_F32_VALID(256) K1_F32_VALID(384) K1_F32_VALID(512)
 #undef K1_F32_VALID
   return cudaErrorInvalidValue;
 }
@@ -923,7 +895,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
 
 // q/k/v: [B, S, H, D] with unit stride over D, stride D over heads and the given
 // batch/row strides (in elements, multiples of 16 bytes); Sq, Skv multiples of
-// 64 (fp32 at D = 256 and 512: any Sq, the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
+// 64 (fp32 at D = 192-512: any Sq, the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
 // 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
 // (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
 // lse: contiguous fp32 [B, Sq, H]. bf16 instance: resident (a head's K and V
@@ -935,7 +907,7 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
                              int B, int Sq, int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
                              long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int resident,
                              int chunk, int buffers, int device, void* stream) {
-  // the fp32 instances at D = 256 and 512 take the unpadded query rows
+  // the fp32 instances at D = 192-512 take the unpadded query rows
   const bool any_rows = dtype == 0 && valid_rows_instance(D);
   if (Sq < 1 || (!any_rows && Sq % BLOCK_M != 0) || Skv < 1 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) ||
       device < 0 || device >= MAX_DEVICES)
@@ -960,13 +932,10 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
 // (valid_rows_instance; VALID_ROWS_HEAD_DIMS in ops/fused_mha.py), else 0.
 extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
   if (what == 2) return valid_rows_instance(D) ? 1 : 0;
-#define K1_TILES(DD) \
-  if (D == DD) return what == 0 ? f32_keys<DD>() : DD / f32_cols<DD>();
-  K1_TILES(16) K1_TILES(32) K1_TILES(64) K1_TILES(128) K1_TILES(192) K1_TILES(384)
-#undef K1_TILES
+  if (D == 16 || D == 32 || D == 64 || D == 128) return what == 0 ? F32_KEYS : 1;
 #define K1_TILES_VALID(DD) \
   if (D == DD) return what == 0 ? VR_TILE : vr_groups<DD>();
-  K1_TILES_VALID(256) K1_TILES_VALID(512)
+  K1_TILES_VALID(192) K1_TILES_VALID(256) K1_TILES_VALID(384) K1_TILES_VALID(512)
 #undef K1_TILES_VALID
   return 0;
 }

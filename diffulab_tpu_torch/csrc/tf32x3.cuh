@@ -117,38 +117,52 @@ __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, lo
   }
 }
 
-// ---- the instances built around the valid rows (head dims 256 and 512)
+// ---- the instances built around the valid rows (head dims 192-512)
 //
-// The MNIST UNet attends over 64 tokens at D = 256 and 16 at D = 512, padded
-// to 128 keys. These instances take the unpadded query rows (ragged ends
-// guarded), skip every key tile whose mask is all 0 (found from the mask by
-// each thread, so that no barrier is needed), and split the head into column
-// groups of warps of VR_COLS output columns, which also split the score
-// products' reduction over D: the partial tiles are added in group order in
-// shared memory (put_c, sum_c).
+// The ADM UNets attend over 64 tokens at D = 192 and 256 and over 16 at D =
+// 384 and 512, padded to 128 keys. These instances take the unpadded query
+// rows (ragged ends guarded), skip every key tile whose mask is all 0 (found
+// from the mask by each thread, so that no barrier is needed), and split the
+// head into column groups of warps of vr_cols output columns, which also
+// split the score products' reduction over D: the partial tiles are added in
+// group order in shared memory (put_c, sum_c).
 
 // the head dims built so, the one place that names them: both entry points'
 // Sq rule and the bwd library's group rule read it, the fwd library exports it
 // (fused_mha_fwd_f32_tiles(D, 2)), and chip_smoke.py holds
 // ops/fused_mha.py's VALID_ROWS_HEAD_DIMS to that export
 __host__ __device__ constexpr bool valid_rows_instance(int D) {
-  return D == 256 || D == 512;
+  return D == 192 || D == 256 || D == 384 || D == 512;
 }
 
-constexpr int VR_COLS = 128;  // output columns of a column group of warps
-constexpr int VR_TILE = 8;    // keys (K1, K2's dq kernel) or queries (the dk/dv kernel) of a ring slot
+constexpr int VR_TILE = 8;  // keys (K1, K2's dq kernel) or queries (the dk/dv kernel) of a ring slot
 
+// This rule and vr_cols at D = 192 and 384 were picked by timing chip_smoke.py
+// phase 17a with them varied (B=128 and 32, H=2; NVIDIA H100 80GB HBM3, 700
+// W; PERF.md §6).
+//
 // rows (queries, or keys in the dk/dv kernel) of a CTA, a tile size: 64 at
-// D = 256 and 16 at D = 512, so that one CTA holds a head's valid rows at the
-// MNIST UNet's token counts; any Sq runs, its last tile ragged
+// D = 256 and 16 at D = 384 and 512, so that one CTA holds a head's valid
+// rows at the UNets' token counts (64 and 16); 32 at D = 192, where two CTAs
+// for a head's 64 rows took K2 0.1780 ms against 0.1966-0.1988 with one, and
+// K1 at B=32 0.0226 against 0.0263. Any Sq runs, its last tile ragged.
 template <int D>
 __host__ __device__ constexpr int vr_rows() {
-  return D == 256 ? 64 : 16;
+  return D == 192 ? 32 : D <= 256 ? 64 : 16;
+}
+
+// output columns of a column group of warps: 96 at D = 192 (2 groups, 48
+// accumulators a thread in K1, 96 in the dk/dv kernel; 64-column groups took
+// K1 0.0573 ms against 0.0420), 64 at D = 384 (6 groups: K1 0.0173 ms, 0.0194
+// with 128 columns), else 128 (2 and 4 groups at D = 256 and 512)
+template <int D>
+__host__ __device__ constexpr int vr_cols() {
+  return D == 192 ? 96 : D == 384 ? 64 : 128;
 }
 
 template <int D>
 __host__ __device__ constexpr int vr_groups() {
-  return D / VR_COLS;
+  return D / vr_cols<D>();
 }
 
 // a warp for each 16 rows in each column group

@@ -41,7 +41,7 @@ KERNELS = {
     "fused_mha_bwd": (
         "csrc/fused_mha_bwd.cu",
         {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P],
-         "fused_mha_bwd_f32_products": [_I, _I], "fused_mha_bwd_f32_groups": [_I, _I]},
+         "fused_mha_bwd_f32_products": [_I, _I], "fused_mha_bwd_f32_groups": [_I]},
     ),
     "flash_attn_fwd": (
         "csrc/flash_attn_fwd.cu",

@@ -35,15 +35,15 @@ cores as 3xTF32 (each operand split into two TF32 halves, three ``mma.sync``
 products, about 2^-21 relative each; :func:`matmul_3xtf32` emulates them),
 one CTA per 64 queries in one pass over 32-key tiles with an online softmax
 and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`). The
-UNet's head dims 192, 256, 384 and 512 have fp32 instances alone
-(:data:`F32_ONLY_HEAD_DIMS`): there column groups of warps split each row's
-output and, at 256, 384 and 512, the score products' reduction over D
-(:func:`f32_groups`). The instances at 256 and 512
-(:data:`VALID_ROWS_HEAD_DIMS`, the MNIST UNet's 64 and 16 tokens padded to
-128 keys) are built around the valid rows: they take the unpadded query rows
-(``ops/attention.py`` pads only k, v and the mask for them) and neither load
-nor multiply a key tile whose mask is all 0; K2's dk/dv kernel writes zeros
-for a CTA whose keys are all masked.
+UNets' head dims 192, 256, 384 and 512 have fp32 instances alone
+(:data:`F32_ONLY_HEAD_DIMS`), built around the valid rows
+(:data:`VALID_ROWS_HEAD_DIMS`; 64 tokens at D = 192 and 256, 16 at 384 and
+512, padded to 128 keys): they take the unpadded query rows
+(``ops/attention.py`` pads only k, v and the mask for them), neither load
+nor multiply a key tile whose mask is all 0, and split each row's output and
+the score products' reduction over D between column groups of warps
+(:func:`f32_groups`); K2's dk/dv kernel writes zeros for a CTA whose keys
+are all masked.
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -101,7 +101,7 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 F32_ONLY_HEAD_DIMS = (192, 256, 384, 512)
 #: fp32 instances built around the valid rows: they take the unpadded query
 #: rows (any Sq) and skip the key tiles whose mask is all 0
-VALID_ROWS_HEAD_DIMS = (256, 512)
+VALID_ROWS_HEAD_DIMS = (192, 256, 384, 512)
 #: every head dim of the fused kernels K1/K2
 FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + F32_ONLY_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -154,35 +154,29 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
     return FwdInstance(False, STREAM_CHUNK, 2, _smem_bytes(d, False, skv, 2))
 
 
-#: query (or key) rows of an fp32 CTA
-F32_ROWS = 64
-#: keys of a ring slot of the fp32 K1 up to D = 192 (``f32_keys`` in the source)
+#: keys of a ring slot of the fp32 K1 at D <= 128 (``F32_KEYS`` in the source)
 F32_KEYS = 32
 
 
 def f32_keys(d: int) -> int:
     """Keys of a ring slot of the fp32 K1 at head dim ``d``, the tile of its
-    online softmax: 32, 16 at D = 384 (``f32_keys`` in the source), and 8 at
-    D = 256 and 512 (``VR_TILE``), where K2's dq kernel takes key tiles and
-    its dk/dv kernel query tiles of the same size. This and
+    online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), and 8 at
+    :data:`VALID_ROWS_HEAD_DIMS` (``VR_TILE``), where K2's dq kernel takes
+    key tiles and its dk/dv kernel query tiles of the same size. This and
     :func:`f32_groups` mirror the built libraries'
     ``fused_mha_fwd_f32_tiles`` and ``fused_mha_bwd_f32_groups``, which
     chip_smoke.py holds them to on the card."""
-    if d in VALID_ROWS_HEAD_DIMS:
-        return 8
-    return F32_KEYS if d <= 192 else 16
+    return 8 if d in VALID_ROWS_HEAD_DIMS else F32_KEYS
 
 
-def f32_groups(d: int) -> tuple[int, int]:
+def f32_groups(d: int) -> int:
     """Column groups of warps that split the score products' D-reduction in
-    the fp32 kernels at head dim ``d``, (K1 and K2's dq kernel, K2's dk/dv
-    kernel): at D = 384, (2, 4); at D = 256 and 512 groups of 128 columns
-    (``VR_COLS``), (2, 2) and (4, 4); each group's partial tile summed with
-    the others' in group order (``f32_cols``, ``dq_cols``, ``dkv_shares``,
-    ``vr_groups`` in the sources); else (1, 1)."""
-    if d in VALID_ROWS_HEAD_DIMS:
-        return d // 128, d // 128
-    return (2, 4) if d == 384 else (1, 1)
+    the fp32 kernels (K1, and K2's dq and dk/dv kernels) at head dim ``d``:
+    at :data:`VALID_ROWS_HEAD_DIMS` groups of 96 columns at D = 192, 64 at
+    384 and 128 at 256 and 512 (``vr_cols``, ``vr_groups`` in
+    ``csrc/tf32x3.cuh``), 2, 2, 6 and 4 groups at D = 192, 256, 384 and 512,
+    each group's partial tile summed with the others' in group order; else 1."""
+    return d // {192: 96, 384: 64}.get(d, 128) if d in VALID_ROWS_HEAD_DIMS else 1
 
 
 def check_head_dim(d: int, dtype: torch.dtype, route: str = "fused") -> None:
@@ -357,12 +351,12 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     products, one pass over tiles of :func:`f32_keys` keys with an online row
     max and sum (the running o rescaled), and o divided by l at the end (not
     p before PV: fp32 p is never rounded to a narrower type, so the two
-    orders differ in rounding only). At D = 384 the scores are the sum of
-    two half-D products, at D = 256 and 512 of 128-column ones
-    (:func:`f32_groups`). The kernels there skip a key tile whose mask is
-    all 0; that changes no value (a masked p is exactly 0, and alpha = 0
-    drops what a masked tile leaves before the first live one), so the
-    emulation walks every tile. Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    orders differ in rounding only). At :data:`VALID_ROWS_HEAD_DIMS` the
+    scores are the sum of the column groups' products (:func:`f32_groups`),
+    and the kernels skip a key tile whose mask is all 0; that changes no
+    value (a masked p is exactly 0, and alpha = 0 drops what a masked tile
+    leaves before the first live one), so the emulation walks every tile.
+    Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
@@ -373,7 +367,7 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     kt = f32_keys(d)
     for n0 in range(0, kh.shape[2], kt):
         tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
-        s = _masked_scores(matmul_3xtf32_grouped(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), f32_groups(d)[0]),
+        s = _masked_scores(matmul_3xtf32_grouped(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), f32_groups(d)),
                            tile_mask, sm_scale)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -398,20 +392,20 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     = dsᵀ·q. ``kept``: the dq kernel that keeps p and dp between its passes,
     two warps a row each summing di and dq over one half of every 64-key
     step, half 0's sum plus half 1's; else the one that forms s and dp again
-    for dq (the only one above D = 64). At D = 256, 384 and 512 the score
-    products are split over column groups (:func:`f32_groups`); the key tiles
-    the kernels skip at D = 256 and 512 add exact zeros here. Returns (dq, dk,
-    dv, di [B,H,Sq])."""
+    for dq (the only one above D = 64). At :data:`VALID_ROWS_HEAD_DIMS` the
+    score products are split over column groups (:func:`f32_groups`), and
+    the key tiles the kernels skip add exact zeros here. Returns (dq, dk, dv,
+    di [B,H,Sq])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    dq_groups, dkv_groups = f32_groups(q.shape[-1])
+    groups = f32_groups(q.shape[-1])
     qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
     lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
 
     def probs_and_dp():
-        s = matmul_3xtf32_grouped(qh, kh.transpose(-1, -2), dq_groups)
+        s = matmul_3xtf32_grouped(qh, kh.transpose(-1, -2), groups)
         p = torch.exp(_masked_scores(s, kv_mask, sm_scale) - lse_r)
-        return p, matmul_3xtf32_grouped(doh, vh.transpose(-1, -2), dq_groups)
+        return p, matmul_3xtf32_grouped(doh, vh.transpose(-1, -2), groups)
 
     p, dp = probs_and_dp()
     if kept:
@@ -424,12 +418,12 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
         p, dp = probs_and_dp()
         dq = matmul_3xtf32(p * (dp - di) * sm_scale, kh)
     # the dk/dv kernel: rows are keys, masked by key; lse and di by query column
-    st = matmul_3xtf32_grouped(kh, qh.transpose(-1, -2), dkv_groups) * sm_scale
+    st = matmul_3xtf32_grouped(kh, qh.transpose(-1, -2), groups) * sm_scale
     if kv_mask is not None:
         st = torch.where(kv_mask[:, None, :, None].bool(), st, DEFAULT_MASK_VALUE)
     pt = torch.exp(st - lse_r.transpose(-1, -2))
     dv = matmul_3xtf32(pt, doh)
-    dst = pt * (matmul_3xtf32_grouped(vh, doh.transpose(-1, -2), dkv_groups) - di.transpose(-1, -2)) * sm_scale
+    dst = pt * (matmul_3xtf32_grouped(vh, doh.transpose(-1, -2), groups) - di.transpose(-1, -2)) * sm_scale
     dk = matmul_3xtf32(dst, qh)
     back = (t.permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
     return (*back, di[..., 0])

@@ -1,17 +1,24 @@
 """The fp32 K1 and K2 at the ADM UNet's head dims 192 and 384
-(``train_synthetic_ddpm.yaml``: 96 channels x 4 and x 8 over 2 heads),
-emulated on the CPU at their designs' arithmetic and tiles, against the JAX
-kernels run in interpret mode in fp32; and the dispatch rules at those dims.
+(``train_synthetic_ddpm.yaml``: 96 channels x 4 and x 8 over 2 heads, 64
+tokens at ds 4 and 16 at ds 8), emulated on the CPU at their designs'
+arithmetic and tiles, against the JAX kernels run in interpret mode in fp32;
+and the dispatch rules at those dims.
 
 The fp32 instances form every product as 3xTF32 on the tensor cores
-(``ops/fused_mha.py::matmul_3xtf32`` emulates it). K1 runs one pass over
-ring slots of ``f32_keys(d)`` keys (32 at D = 192, 16 at D = 384) with an
-online softmax; at D = 384 two CTAs split the output columns, which changes
-no sum. K2 runs the dq kernel that forms s and dp again (``kept=False``: q's
-and dO's fragments do not fit in registers above D = 64), then the dk/dv
-kernel, whose CTAs split dk's and dv's columns above D = 128. Shapes as the
-fused route hands them over: S = 128, padded from the UNet's 64 or 16
-tokens with the padding key mask, and unpadded. Tolerances are those of
+(``ops/fused_mha.py::matmul_3xtf32`` emulates it). They are built around the
+valid rows (``VALID_ROWS_HEAD_DIMS``), as at the MNIST UNet's 256 and 512:
+they take the unpadded q, do and lse rows, while k, v and the key mask stay
+padded to 128; K1 walks tiles of ``f32_keys(d)`` = 8 keys with an online
+softmax and skips a tile whose mask is all 0 (which changes no value, so the
+emulation walks every tile), and column groups of warps (96 columns at D =
+192, 64 at 384: 2 and 6 groups) split the score products' reduction over
+D. K2 runs the dq kernel that forms s and dp again (``kept=False``: q's and
+dO's fragments do not fit in registers above D = 64), then the dk/dv kernel
+over the valid query rows. The JAX kernels take the reference's padded q
+(its ``_fused_path``): the rows are independent, so the valid rows are
+compared. Masks: the UNet's padding mask, an empty key tile between live
+ones beside a fully masked batch row (o = 0, lse = +inf and zero gradients
+there), no mask, and a ragged Sq. Tolerances are those of
 ``tests/test_torch_port_fp32_tiles.py`` and of ``chip_smoke.py``: o within
 atol 2e-5 + rtol 2e-5, lse within atol 1e-4 + rtol 1e-5, each gradient
 within 2e-5·(max|ref| + |ref|).
@@ -29,6 +36,7 @@ from diffulab_tpu_torch.ops.attention import use_fused
 from diffulab_tpu_torch.ops.fused_mha import (
     F32_ONLY_HEAD_DIMS,
     LAUNCHES,
+    MIN_BLOCK,
     check_head_dim,
     f32_keys,
     fused_mha,
@@ -42,12 +50,15 @@ O_TOL = (2e-5, 2e-5)
 LSE_TOL = (1e-4, 1e-5)
 GRAD_TOL = 2e-5
 
-#: (Sq, Skv, D, valid keys of each batch row or None)
+#: (valid query rows Sq, head dim, mask kind); keys are padded to 128
 CASES = {
-    "d192_ds4_padded": (128, 128, 192, (64, 64)),
-    "d192_unmasked": (128, 128, 192, None),
-    "d384_ds8_padded": (128, 128, 384, (16, 16)),
-    "d384_ragged": (64, 128, 384, (128, 37)),
+    "d192_ds4_padded": (64, 192, "padded"),
+    "d192_hole_and_dead_row": (64, 192, "hole"),
+    "d192_unmasked": (64, 192, None),
+    "d192_ragged": (37, 192, "padded"),
+    "d384_ds8_padded": (16, 384, "padded"),
+    "d384_hole_and_dead_row": (16, 384, "hole"),
+    "d384_ragged": (11, 384, "padded"),
 }
 
 
@@ -59,14 +70,31 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
+def _mask(kind, sq, b):
+    """The padding mask (the first sq keys), or: batch row 0 with keys 8-15
+    masked and as many valid keys after them (an empty 8-key tile between
+    live ones), every other batch row fully masked."""
+    keys = np.arange(MIN_BLOCK)
+    if kind is None:
+        return None
+    mask = np.repeat((keys < sq)[None], b, axis=0)
+    if kind == "hole":
+        mask[0] = (keys < 8) | ((keys >= 16) & (keys < sq + 8))
+        mask[1:] = False
+    return mask
+
+
 def _inputs(case):
-    sq, skv, d, valid = CASES[case]
-    rng = np.random.default_rng(sq + skv + d + (0 if valid is None else sum(valid)))
+    sq, d, kind = CASES[case]
+    rng = np.random.default_rng(sq + d + len(case))
     b, h = 2, 1
     q, do = (rng.standard_normal((b, sq, h, d)).astype(np.float32) for _ in range(2))
-    k, v = (rng.standard_normal((b, skv, h, d)).astype(np.float32) for _ in range(2))
-    mask = None if valid is None else np.arange(skv)[None, :] < np.asarray(valid)[:, None]
-    return q, k, v, do, mask, d ** -0.5
+    k, v = (rng.standard_normal((b, MIN_BLOCK, h, d)).astype(np.float32) for _ in range(2))
+    return q, k, v, do, _mask(kind, sq, b), d ** -0.5
+
+
+def _pad_rows(x):
+    return np.pad(x, ((0, 0), (0, MIN_BLOCK - x.shape[1])) + ((0, 0),) * (x.ndim - 2))
 
 
 def _close(ours, ref, atol, rtol, label):
@@ -83,43 +111,56 @@ def _within(ours, ref, label):
     assert np.all(np.abs(ours - ref) <= bound), f"{label}: max err {np.abs(ours - ref).max():.3e}"
 
 
+def _jax_forward(q, k, v, mask, scale):
+    """The interpret-mode K1 on the reference's padded q, cut to the valid rows."""
+    jmask = None if mask is None else jnp.asarray(mask)
+    o, lse = _mha_forward(jnp.asarray(_pad_rows(q)), jnp.asarray(k), jnp.asarray(v), jmask, scale, True)
+    return np.asarray(o)[:, :q.shape[1]], np.asarray(lse)[:, :q.shape[1]], lse
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k1_tiles_at_the_unet_head_dims_match_the_jax_kernel(case):
     q, k, v, _, mask, scale = _inputs(case)
-    jmask = None if mask is None else jnp.asarray(mask)
-    jo, jlse = _mha_forward(*(jnp.asarray(a) for a in (q, k, v)), jmask, scale, True)
+    jo, jlse, _ = _jax_forward(q, k, v, mask, scale)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     tmask = None if mask is None else torch.from_numpy(mask)
     o, lse = fused_mha_tf32x3_emulation(tq, tk, tv, tmask, scale)
-    _close(o.numpy(), np.asarray(jo), *O_TOL, "o vs JAX")
-    _close(lse.numpy(), np.asarray(jlse), *LSE_TOL, "lse vs JAX")
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+    _close(o.numpy(), jo, *O_TOL, "o vs JAX")
+    _close(lse.numpy(), jlse, *LSE_TOL, "lse vs JAX")
     ro, rlse = fused_mha_reference(tq, tk, tv, tmask, scale)
     _close(o.numpy(), ro.numpy(), *O_TOL, "o vs plain")
     _close(lse.numpy(), rlse.numpy(), *LSE_TOL, "lse vs plain")
+    if CASES[case][2] == "hole":  # the fully masked row: o = 0, lse = +inf
+        assert (o[1] == 0).all() and torch.isinf(lse[1]).all() and (lse[1] > 0).all()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k2_split_at_the_unet_head_dims_matches_the_jax_kernel(case):
     q, k, v, do, mask, scale = _inputs(case)
-    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    sq = q.shape[1]
+    _, _, jlse = _jax_forward(q, k, v, mask, scale)
     jmask = None if mask is None else jnp.asarray(mask)
-    _, jlse = _mha_forward(jq, jk, jv, jmask, scale, True)
-    jax_grads = _mha_backward(jq, jk, jv, jmask, jlse, jdo, scale, True)
+    jdq, jdk, jdv = _mha_backward(jnp.asarray(_pad_rows(q)), jnp.asarray(k), jnp.asarray(v), jmask, jlse,
+                                  jnp.asarray(_pad_rows(do)), scale, True)
+    jax_grads = (np.asarray(jdq)[:, :sq], np.asarray(jdk), np.asarray(jdv))
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     tmask = None if mask is None else torch.from_numpy(mask)
-    lse = torch.from_numpy(np.array(jlse))
+    lse = torch.from_numpy(np.array(jlse)[:, :sq])
     *grads, _ = fused_mha_bwd_tf32x3_emulation(tq, tk, tv, tmask, lse, tdo, scale, kept=False)
     plain = fused_mha_bwd_reference(tq, tk, tv, tmask, lse, tdo, scale)
     for label, g, r, pr in zip(("dq", "dk", "dv"), grads, jax_grads, plain):
-        _within(g.numpy(), np.asarray(r), f"{label} vs JAX")
+        _within(g.numpy(), r, f"{label} vs JAX")
         _within(g.numpy(), pr.numpy(), f"{label} vs plain")
-    if mask is not None and mask[0].sum() < mask.shape[1]:  # padded keys get exactly zero dk and dv
-        n = int(mask[0].sum())
-        assert all((g[0, n:] == 0).all() for g in grads[1:])
+    if mask is not None:  # masked keys, and every key of a fully masked row, get exactly zero dk and dv
+        dead = ~torch.from_numpy(mask)
+        assert all((g[dead] == 0).all() for g in grads[1:])
+    if CASES[case][2] == "hole":
+        assert (grads[0][1] == 0).all()
 
 
 def test_k1_key_tile_by_head_dim():
-    assert [f32_keys(d) for d in (16, 64, 128, 192, 384)] == [32, 32, 32, 32, 16]
+    assert [f32_keys(d) for d in (16, 64, 128, 192, 384)] == [32, 32, 32, 8, 8]
 
 
 @pytest.mark.parametrize("shape", [(128, 64, 2, 192), (128, 16, 2, 384), (32, 64, 2, 192), (32, 16, 2, 384)])

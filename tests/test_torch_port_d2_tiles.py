@@ -164,10 +164,11 @@ def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
 
 
 def test_the_tile_rules_at_the_mnist_head_dims():
-    assert set(VALID_ROWS_HEAD_DIMS) <= set(F32_ONLY_HEAD_DIMS)
-    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, (2, 2)), (8, (4, 4))]
-    # the earlier instances keep their tiles
-    assert [(f32_keys(d), f32_groups(d)) for d in (64, 192, 384)] == [(32, (1, 1)), (32, (1, 1)), (16, (2, 4))]
+    # every fp32-only head dim (the D1 UNet's 192 and 384 too) is built around the valid rows
+    assert VALID_ROWS_HEAD_DIMS == F32_ONLY_HEAD_DIMS == (192, 256, 384, 512)
+    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (8, 2), (8, 6), (8, 4)]
+    # the padded instances keep their tiles
+    assert [(f32_keys(d), f32_groups(d)) for d in (64, 128)] == [(32, 1), (32, 1)]
 
 
 def _recording(monkeypatch):
@@ -181,7 +182,7 @@ def _recording(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("d", [64, 192])
+@pytest.mark.parametrize("d", [64, 128])
 def test_the_padded_contract_of_the_other_head_dims_is_unchanged(monkeypatch, d):
     """q, k, v and the synthesized key mask padded to 128 rows with zeros, o
     sliced back: the kernels' inputs are bitwise what they were."""
