@@ -85,6 +85,13 @@ Phases, one line each:
      decoded by the Flux2 tower with their captions, and the best-val
      checkpoint: 12 K3 + 12 K4 + 12 K5 launches in every step; ms per step,
      samples/s and peak memory;
+ 13b. the same MMDiT (build_txt2img's seeded weights) with fp32 attention in
+     its 8 dual-stream blocks (``attention_dtype=float32``, the reference's
+     stability option): a forward at the fused-CFG batch against its plain
+     twin (8 fp32 K3 + 4 bf16 K3), an Euler-10 request of 4 prompts with the
+     Flux2 decode (80 fp32 K3 + 40 bf16), and two train steps at batch 8 (8
+     fp32 K3, K4 and K5 and 4 bf16 of each a step, by the fp32 instances' own
+     counters); ms per request and per step, peak memory;
  14. slice C1: the fp32 instances of K1 (B=128 and B=32) and K2 (B=128),
      3xTF32 on the tensor cores, at the config's attention shape (S=256,
      H=8, D=64) against their plain versions, each timed as its yardstick is
@@ -164,8 +171,10 @@ Phases, one line each:
      ``sample`` requests each of 16 images at 50 steps (DDPM ancestral, Euler;
      550 K1 each), every K1/K2 launch an instance at D=256 or D=512 by their
      own counters; ms per step, samples/s, peak memory, ms per request.
-Phases 8 and 11 also time the flash kernels' fp32 instances at their slice
-shapes beside fp32 SDPA.
+Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's and K4's
+3xTF32 designs, K5's FFMA one) to their plain versions at the slice shapes
+and the edge cases, each timed beside fp32 SDPA, and the fp32 K3's and K4's
+tiles to the emulation's (``ops/flash_attention.py``).
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -232,6 +241,11 @@ TXT_GRAD_BATCH = 2
 TXT_ADAMW = dict(lr=1e-4, weight_decay=0.01, betas=(0.9, 0.999), eps=1e-8)
 TXT_VAL_STEPS, TXT_VAL_SHIFT = 4, 6.93
 TXT_BUCKETS = {(64, 64): 8, (48, 80): 4}  # latent (H, W) -> train batches
+# phase 13b: the same MMDiT with fp32 attention in its dual-stream blocks (attention_dtype=float32):
+# an Euler request at 10 steps (50 in the request of phase 10: cut for the script's time) and
+# two train steps, the second after the first's warm-up
+TXT32_STEPS = 10
+TXT32_TRAIN_STEPS = 2
 
 # H100 SXM data-sheet peaks at 700 W (hopper-kernels guide, section 1): fp32
 # outside the tensor cores (FFMA), and TF32 on them, which the fp32 instances
@@ -327,20 +341,22 @@ D2_PARAMS = 276_690_433
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
 # halves, about 2^-21 relative per product) where the plain version's are
 # exact fp32, and the sums run in another order (K1 divides o by l at the end
-# of an online softmax, the plain version normalises p first); K3's are exact
-# FFMA products in another order. bf16: p is rounded to bf16 before PV in
+# of an online softmax, the plain version normalises p first); K3's are
+# 3xTF32 too, in log2 units (ex2.approx). bf16: p is rounded to bf16 before PV in
 # both, but exp/sum rounding can flip a rounding of p or of o by one bf16
 # step (2^-8 relative).
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
 # K2, and K4/K5, against their plain versions, per gradient:
 # |kernel - plain| <= tol * (max|plain| + |plain|). fp32: K2's products are
-# 3xTF32 (about 2^-21 relative each), K4/K5's exact FFMA, both summed in
-# another order. bf16: p and ds are rounded to bf16 at the same places in
+# 3xTF32 (about 2^-21 relative each), and so are K4's, K5's exact FFMA, all
+# summed in another order. bf16: p and ds are rounded to bf16 at the same places in
 # both, but exp/sum rounding (K4/K5's exp is ex2.approx) can flip a rounding
 # of p, ds or the output by one bf16 step (2^-8 relative), and a gradient
 # element near 0 is a sum of terms as large as the largest one.
 BWD_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# seeds of the fp32 slice-shape inputs of phase 8 (K3) and phase 11 (K4, K5), drawn by txt2img_fp32_inputs
+FP32_FWD_SEED, FP32_BWD_SEED = 15, 16
 # gradients through dot_product_attention against autograd of the plain
 # forward (impl="xla"), which rounds the upstream gradient to bf16 at other
 # places than K2: the bf16 tolerance of tests/test_fused_mha.py
@@ -685,6 +701,19 @@ def txt2img_mask(batch: int, lengths, device="cuda"):
     return torch.cat([text, image], dim=1)
 
 
+def txt2img_fp32_inputs(batch: int, seed: int, with_do: bool = False):
+    """q, k, v (and do) of the fp32 slice shape [batch, TXT_SEQ, 12, 64],
+    drawn in fp32 from their own seed: a bf16 draw cast up holds exactly in
+    TF32, so the low halves of the 3xTF32 split would be zero and a wrong
+    split product or a drifting sum could not show. Phases 8 and 11 and
+    scripts/flash_fp32_variants.py check the kernels on these."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h, d = TXT["num_heads"], TXT["inner_dim"] // TXT["num_heads"]
+    return tuple(torch.randn(batch, TXT_SEQ, h, d, generator=gen, device="cuda") for _ in range(4 if with_do else 3))
+
+
 def attention_bound(b, sq, h, d, valid_keys, elem, mask: bool = True, peak_flops: float = PEAK_BF16_FLOPS):
     """(bound ms, what bounds it, MB, GFLOP) of one self-attention forward:
     q read and o written once, the rows of k and v that a row attends read
@@ -706,9 +735,9 @@ def phase_flash_kernel():
     import torch
     import torch.nn.functional as F
 
-    from diffulab_tpu_torch.ops import dot_product_attention
-    from diffulab_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
-    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+    from diffulab_tpu_torch.ops import _build, dot_product_attention
+    from diffulab_tpu_torch.ops.flash_attention import f32_fwd_keys, flash_attention, flash_attention_reference
+    from diffulab_tpu_torch.ops.fused_mha import KERNEL_HEAD_DIMS, fused_mha
 
     gen = torch.Generator(device="cuda").manual_seed(8)
 
@@ -744,29 +773,34 @@ def phase_flash_kernel():
               f"{library_ms:.4f}; device ms (CUDA-graph replay) kernel {device_ms:.4f} SDPA {library_device_ms:.4f}; "
               f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {mb:.1f} MB, "
               f"{gflop:.1f} GFLOP; {gflop / device_ms:.1f} TFLOP/s achieved)")
-        result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                      bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms, library_device_ms=library_device_ms,
-                      timing="ms and library_ms: wall time per call back to back; device_ms and library_device_ms: "
-                             "device time per call from CUDA-graph replays")
+        result = dict(max_abs_err=err, ms=device_ms, plain_ms=plain_ms, library_ms=library_device_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, wall_ms=kernel_ms, library_wall_ms=library_ms,
+                      timing="ms and library_ms: device time per call from CUDA-graph replays; wall_ms and "
+                             "library_wall_ms: wall time per call back to back")
 
-        # fp32 at the slice shape (the library's default dtype=None runs fp32): the PR 3
-        # design (one thread a row, FFMA), timed beside fp32 SDPA in this call
-        q32, k32, v32 = (t.float() for t in (q, k, v))
+        # fp32 at the slice shape (the library's default dtype=None runs fp32, and so does the MMDiT's
+        # attention_dtype=float32 of phase 13b): flash_fwd_tf32x3, 3xTF32 mma.sync, its key tile the
+        # emulation's (ops/flash_attention.py::f32_fwd_keys), timed beside fp32 SDPA in this call
+        tiles = {hd: _build.load("flash_attn_fwd").flash_attn_fwd_f32_tiles(hd) for hd in KERNEL_HEAD_DIMS}
+        if tiles != {hd: f32_fwd_keys(hd) for hd in KERNEL_HEAD_DIMS}:
+            fail(f"fp32 K3 key tiles {tiles} differ from the emulation's f32_fwd_keys")
+        q32, k32, v32 = txt2img_fp32_inputs(b, FP32_FWD_SEED)
         err32 = check("main fp32", both(q32, k32, v32, mask), TOL["float32"])
-        ms32 = cuda_time_ms(lambda: flash_attention(q32, k32, v32, mask), iters=3, warmup=1)
+        ms32 = cuda_graph_ms(lambda: flash_attention(q32, k32, v32, mask), calls=10, replays=3)
         plain32 = cuda_time_ms(lambda: flash_attention_reference(q32, k32, v32, mask), iters=1, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q32, k32, v32))
-        library32 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), iters=3,
-                                 warmup=1)
+        library32 = cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask), calls=10,
+                                  replays=3)
         del q32, k32, v32, qt, kt, vt
         bound32, by32, mb32, gflop32 = attention_bound(b, s, h, d, int(mask.sum()), 4, peak_flops=PEAK_TF32_FLOPS / 3)
         ffma32 = attention_bound(b, s, h, d, int(mask.sum()), 4, peak_flops=PEAK_FP32_FLOPS)[0]
         result["fp32"] = dict(max_abs_err=err32, ms=ms32, plain_ms=plain32, library_ms=library32, bound_ms=bound32,
-                              bound_by=by32)
-        print(f"phase 8 kernel K3 main fp32 (flash_fwd_f32): max_abs_err {err32:.3e} (tol atol "
-              f"{TOL['float32'][0]} rtol {TOL['float32'][1]}); wall ms per call back to back kernel {ms32:.4f} "
-              f"SDPA fp32 (masked) {library32:.4f} plain {plain32:.4f}; bound_ms {bound32:.4f} at 3xTF32 ({by32}: "
-              f"{mb32:.1f} MB, {gflop32:.1f} GFLOP), {ffma32:.4f} at the fp32 CUDA-core peak")
+                              bound_by=by32, key_tiles=tiles)
+        print(f"phase 8 kernel K3 main fp32 (flash_fwd_tf32x3, key tiles {tiles}): max_abs_err {err32:.3e} (tol "
+              f"atol {TOL['float32'][0]} rtol {TOL['float32'][1]}); device ms (CUDA-graph replay) kernel {ms32:.4f} "
+              f"SDPA fp32 (masked) {library32:.4f}; wall ms plain {plain32:.4f}; bound_ms {bound32:.4f} at 3xTF32 ({by32}: {mb32:.1f} MB, "
+              f"{gflop32:.1f} GFLOP; {3 * gflop32 / ms32:.1f} TFLOP/s of TF32 products achieved), {ffma32:.4f} at "
+              f"the fp32 CUDA-core peak")
 
         for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
             tol = TOL[name]
@@ -887,15 +921,16 @@ def phase_flash_bwd_kernel(forward_times=None):
     import torch
     import torch.nn.functional as F
 
-    from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops import _build, dot_product_attention
     from diffulab_tpu_torch.ops.flash_attention import (
+        f32_dkv_queries,
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_reference,
     )
-    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd
+    from diffulab_tpu_torch.ops.fused_mha import KERNEL_HEAD_DIMS, fused_mha, fused_mha_bwd
 
     gen = torch.Generator(device="cuda").manual_seed(11)
 
@@ -925,65 +960,81 @@ def phase_flash_bwd_kernel(forward_times=None):
         _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
         dq_ms = cuda_time_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale), iters=10)
         both_ms = cuda_time_ms(lambda: flash_attention_bwd(q, k, v, mask, o, lse, do), iters=10)
+        dkv_device = cuda_graph_ms(lambda: flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale), calls=10,
+                                   replays=3)
+        dq_device = cuda_graph_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale), calls=10,
+                                  replays=3)
         plain_ms = cuda_time_ms(lambda: flash_attention_bwd_reference(q, k, v, mask, o, lse, do), iters=1, warmup=1)
     with torch.enable_grad():
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :])
         dot = do.transpose(1, 2)
         library_ms = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=10)
+        # SDPA's bf16 autograd backward is not the memory-efficient op that sdpa_fp32_backward replays (on an
+        # H100 80GB HBM3 that op took 10.8 ms where autograd's whole call took 3.7), so its kernels are summed
+        library_device = profiled_kernels(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))[0]
         del out, qt, kt, vt
     valid = int(mask.sum())
     bounds = flash_bwd_bounds(b, s, h, d, valid, q.element_size())
     results = {}
-    for name, ms, grads in (("flash_attn_bwd_dkv", dkv_ms, ("dk", "dv")), ("flash_attn_bwd_dq", dq_ms, ("dq",))):
+    for name, ms, device, grads in (("flash_attn_bwd_dkv", dkv_ms, dkv_device, ("dk", "dv")),
+                                    ("flash_attn_bwd_dq", dq_ms, dq_device, ("dq",))):
         bound_ms, bound_by, mb, gflop = bounds[name]
-        results[name] = dict(max_abs_err=max(errs[g] for g in grads), ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        results[name] = dict(max_abs_err=max(errs[g] for g in grads), ms=device, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_device, wall_ms=ms,
+                             library_wall_ms=library_ms,
+                             timing="ms: device time per call from CUDA-graph replays; library_ms: device time "
+                                    "per call of SDPA's masked autograd backward (dq, dk and dv together), kernels "
+                                    "summed by torch.profiler; wall_ms and library_wall_ms: wall time per call back "
+                                    "to back")
         print(f"phase 11 kernel {'K4' if name.endswith('dkv') else 'K5'} {name} main B={b} S={s} H={h} D={d} bf16, "
               f"text lengths {list(TRAIN_TEXT_LENGTHS)} with rows {list(TRAIN_DROPPED)} dropped to {NULL_SEQ_LEN}: "
               f"max_abs_err " + " ".join(f"{g} {errs[g]:.3e}" for g in grads)
-              + f" (tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} "
-              f"({bound_by}: {mb:.1f} MB, {gflop:.1f} GFLOP; {gflop / ms:.1f} TFLOP/s achieved)")
-    print(f"phase 11 K4+K5 main: kernel_ms {both_ms:.4f} (one flash_attention_bwd call) plain_ms {plain_ms:.4f} "
-          f"(K4 and K5 together) library_ms {library_ms:.4f} (SDPA masked backward: dq, dk and dv together) "
+              + f" (tol {BWD_TOL['bfloat16']} * (max|ref| + |ref|)); device ms (CUDA-graph replay) {device:.4f} "
+              f"wall ms per call back to back {ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}: {mb:.1f} MB, "
+              f"{gflop:.1f} GFLOP; {gflop / device:.1f} TFLOP/s achieved)")
+    print(f"phase 11 K4+K5 main: wall ms {both_ms:.4f} (one flash_attention_bwd call) plain_ms {plain_ms:.4f} "
+          f"(K4 and K5 together) SDPA masked autograd backward (dq, dk and dv together): device ms (kernels summed "
+          f"by torch.profiler) {library_device:.4f} wall ms {library_ms:.4f} "
           f"bound_ms {bounds['flash_attn_bwd_dkv'][0] + bounds['flash_attn_bwd_dq'][0]:.4f}")
 
     with torch.no_grad():
-        # fp32 at the slice shape (the library's default dtype=None trains in fp32): the PR 4
-        # designs (one thread a row, FFMA), each timed, beside SDPA's fp32 masked backward
-        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        # fp32 at the slice shape (the library's default dtype=None trains in fp32, and so does the
+        # MMDiT's attention_dtype=float32 of phase 13b): K4 as flash_bwd_dkv_tf32x3 (3xTF32 mma.sync, its
+        # query tile the emulation's, ops/flash_attention.py::f32_dkv_queries) after the pre-pass, K5
+        # as the first design (one thread a query, FFMA), each timed, beside SDPA's fp32 masked backward
+        tiles = {hd: _build.load("flash_attn_bwd").flash_attn_bwd_f32_tiles(hd) for hd in KERNEL_HEAD_DIMS}
+        if tiles != {hd: f32_dkv_queries(hd) for hd in KERNEL_HEAD_DIMS}:
+            fail(f"fp32 K4 query tiles {tiles} differ from the emulation's f32_dkv_queries")
+        q32, k32, v32, do32 = txt2img_fp32_inputs(b, FP32_BWD_SEED, with_do=True)
         (g32, r32) = both(q32, k32, v32, do32, mask)
         errs32 = {name: check_grads(f"main fp32 {name}", [g], [r], BWD_TOL["float32"])
                   for name, g, r in zip(("dq", "dk", "dv"), g32, r32)}
         o32, lse32 = flash_attention(q32, k32, v32, mask)
-        ms32 = cuda_time_ms(lambda: flash_attention_bwd(q32, k32, v32, mask, o32, lse32, do32), iters=2, warmup=1)
-        dkv32 = cuda_time_ms(lambda: flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale), iters=2,
-                             warmup=1)
+        dkv32 = cuda_graph_ms(lambda: flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale), calls=5,
+                              replays=3)
         _, _, di32 = flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale)
-        dq32 = cuda_time_ms(lambda: flash_attention_bwd_dq(q32, k32, v32, mask, lse32, di32, do32, scale), iters=2,
-                            warmup=1)
+        dq32 = cuda_graph_ms(lambda: flash_attention_bwd_dq(q32, k32, v32, mask, lse32, di32, do32, scale), calls=3,
+                             replays=2)
         plain32 = cuda_time_ms(lambda: flash_attention_bwd_reference(q32, k32, v32, mask, o32, lse32, do32), iters=1,
                                warmup=1)
-        del g32, r32, o32, lse32, di32
-    with torch.enable_grad():
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q32, k32, v32))
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :])
-        dot = do32.transpose(1, 2)
-        library32 = cuda_time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters=2,
-                                 warmup=1)
-        del out, qt, kt, vt, dot, q32, k32, v32, do32
+        library_device32 = cuda_graph_ms(sdpa_fp32_backward(q32, k32, v32, do32, mask), calls=3, replays=2)
+        del g32, r32, o32, lse32, di32, q32, k32, v32, do32
     bounds32 = flash_bwd_bounds(b, s, h, d, valid, 4, peak_flops=PEAK_TF32_FLOPS / 3)
     ffma32 = flash_bwd_bounds(b, s, h, d, valid, 4, peak_flops=PEAK_FP32_FLOPS)
     for name, ms, grads in (("flash_attn_bwd_dkv", dkv32, ("dk", "dv")), ("flash_attn_bwd_dq", dq32, ("dq",))):
         results[name]["fp32"] = dict(max_abs_err=max(errs32[g] for g in grads), ms=ms, plain_ms=plain32,
-                                     library_ms=library32, bound_ms=bounds32[name][0], bound_by=bounds32[name][1])
-    print(f"phase 11 kernel K4+K5 main fp32 (the slice shape; flash_bwd_dkv_f32, flash_bwd_dq_f32): max_abs_err "
-          + " ".join(f"{g} {e:.3e}" for g, e in errs32.items())
-          + f" (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); wall ms per call back to back K4 {dkv32:.4f} K5 "
-          f"{dq32:.4f} both {ms32:.4f} plain {plain32:.4f} SDPA fp32 masked backward {library32:.4f} (dq, dk, dv "
-          f"together); bounds at 3xTF32 K4 {bounds32['flash_attn_bwd_dkv'][0]:.4f} K5 "
-          f"{bounds32['flash_attn_bwd_dq'][0]:.4f}, at the fp32 CUDA-core peak K4 "
-          f"{ffma32['flash_attn_bwd_dkv'][0]:.4f} K5 {ffma32['flash_attn_bwd_dq'][0]:.4f}")
+                                     library_ms=library_device32, bound_ms=bounds32[name][0],
+                                     bound_by=bounds32[name][1],
+                                     **({"query_tiles": tiles} if name == "flash_attn_bwd_dkv" else {}))
+    gflop_dkv = bounds32["flash_attn_bwd_dkv"][3]
+    print(f"phase 11 kernel K4+K5 main fp32 (the slice shape; flash_bwd_dkv_tf32x3 with query tiles {tiles} after "
+          f"the pre-pass, flash_bwd_dq_f32): max_abs_err " + " ".join(f"{g} {e:.3e}" for g, e in errs32.items())
+          + f" (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); device ms (CUDA-graph replay) K4 with its pre-pass "
+          f"{dkv32:.4f} ({3 * gflop_dkv / dkv32:.1f} TFLOP/s of TF32 products achieved) K5 {dq32:.4f} SDPA fp32 "
+          f"masked backward op {library_device32:.4f} (dq, dk, dv together); wall ms plain {plain32:.4f}; bounds at 3xTF32 K4 "
+          f"{bounds32['flash_attn_bwd_dkv'][0]:.4f} K5 {bounds32['flash_attn_bwd_dq'][0]:.4f}, at the fp32 "
+          f"CUDA-core peak K4 {ffma32['flash_attn_bwd_dkv'][0]:.4f} K5 {ffma32['flash_attn_bwd_dq'][0]:.4f}")
 
     for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         tol = BWD_TOL[name]
@@ -1240,10 +1291,10 @@ def phase_kernel_bwd():
           f"SDPA backward {library_ms:.4f}; device ms (kernels summed by torch.profiler) kernel {device_ms:.4f} SDPA "
           f"backward {library_device_ms:.4f}; plain_ms {plain_ms:.4f}; bound_us {bound_ms * 1e3:.2f} "
           f"({bound_by}: {bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    result = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms, bound_by=bound_by, device_ms=device_ms, library_device_ms=library_device_ms,
-                  timing="ms and library_ms: wall time per call back to back; device_ms and library_device_ms: "
-                         "device time per call, kernels summed by torch.profiler")
+    result = dict(max_abs_err=err, ms=device_ms, plain_ms=plain_ms, library_ms=library_device_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, wall_ms=kernel_ms, library_wall_ms=library_ms,
+                  timing="ms and library_ms: device time per call, kernels summed by torch.profiler; wall_ms and "
+                         "library_wall_ms: wall time per call back to back")
 
     with torch.no_grad():
         # fp32 at the training shape (the library's default dtype=None trains in fp32)
@@ -1324,10 +1375,12 @@ def phase_kernel_bwd():
     return result
 
 
-def build_txt2img():
+def build_txt2img(attention_dtype=None):
     """The txt2img MMDiT with seeded random weights (and a twin with the plain
     attention, ``attention_impl="xla"``), its Flux2 tower, and a seeded
-    request ``cond`` of TXT_BATCH prompts, all on the card."""
+    request ``cond`` of TXT_BATCH prompts, all on the card. ``attention_dtype``:
+    the dual-stream blocks' attention dtype (the reference's fp32-attention
+    option), the same seeded weights."""
     import numpy as np
     import torch
 
@@ -1338,9 +1391,10 @@ def build_txt2img():
     rng = np.random.default_rng(9)
     null = rng.standard_normal((TEXT_LEN, TEXT_DIM)).astype(np.float32)
     embedder = PrecomputedEmbedder(null_embedding=null, null_embedding_seq_len=NULL_SEQ_LEN)
-    model = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16)  # no device: the card
+    model = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype)  # the card
     randomize_(model, seed=10)
-    plain = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_impl="xla")
+    plain = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype,
+                  attention_impl="xla")
     plain.load_state_dict(model.state_dict(), strict=True)
     tower = Flux2VAE(latent_channels=TXT_LATENT[2] // 4)
     randomize_(tower, seed=11)
@@ -1768,6 +1822,114 @@ def phase_txt2img_train(model, tower):
           f"steps, shift {TXT_VAL_SHIFT}); peak mem {peak_gib:.2f} GiB; data set-up {data_s:.1f} s; best-val "
           f"checkpoint written and restored")
     return launches, steady
+
+
+def phase_txt2img_fp32_attention():
+    """Phase 13b: the txt2img MMDiT of phases 9-13 (build_txt2img's seeded
+    weights) with fp32 attention in its dual-stream blocks
+    (``attention_dtype=float32``, the reference's stability option): one
+    forward at the request's fused-CFG batch against its plain twin, one
+    Euler request of TXT_BATCH prompts at TXT32_STEPS steps with the Flux2
+    decode, and TXT32_TRAIN_STEPS train steps (``train_step``: loss, backward,
+    AdamW) at TXT_TRAIN_BATCH, each with the launch counts set to 0 just
+    before and read just after."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.diffuse.flow import _tree_cat2
+    from diffulab_tpu_torch.training.optim import adamw
+    from diffulab_tpu_torch.training.trainer import MultiStepOptimizer, train_step
+
+    model, plain, tower, cond = build_txt2img(attention_dtype=torch.float32)
+    dual = TXT["depth"] - TXT["n_single_stream_blocks"]
+    single = TXT["n_single_stream_blocks"]
+    windows: dict[str, dict[str, int]] = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        windows[name] = launch_counts()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def expect(name, f32, bf16, backward):
+        """f32 and bf16 K3 launches, and as many K4 and K5 of each when ``backward``"""
+        got, bwd_f32, bwd_all = windows[name], f32 * backward, (f32 + bf16) * backward
+        want = {"flash_attn_fwd": f32 + bf16, "flash_attn_fwd_f32": f32,
+                "flash_attn_bwd_dkv": bwd_all, "flash_attn_bwd_dkv_f32": bwd_f32,
+                "flash_attn_bwd_dq": bwd_all, "flash_attn_bwd_dq_f32": bwd_f32, "fused_mha_fwd": 0, "fused_mha_bwd": 0}
+        if any(got[key] != n for key, n in want.items()):
+            fail(f"txt2img fp32 attention {name}: launches {got}, expected {want}")
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    b = 2 * TXT_BATCH
+    x = torch.randn(b, *TXT_LATENT, generator=gen, device="cuda")
+    t = torch.rand(b, generator=gen, device="cuda")
+    cond2 = _tree_cat2(cond)
+    drop = torch.arange(b, device="cuda") >= TXT_BATCH
+    with torch.no_grad():
+        out, _ = counted("forward", lambda: model(x, t, cond2, drop)["x"])
+        ref = plain(x, t, cond2, drop)["x"]
+    del plain
+    torch.cuda.empty_cache()
+    expect("forward", dual, single, False)
+    if out.shape != (b, *TXT_LATENT) or not bool(torch.isfinite(out).all()):
+        fail("txt2img fp32 attention forward: bad shape or non-finite output")
+    rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if rel > TXT_REL_TOL:
+        fail(f"txt2img fp32 attention forward: rel err {rel:.3e} (tol {TXT_REL_TOL})")
+    del out, ref
+
+    diffuser = Diffuser(model, "euler", n_steps=TXT32_STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
+    images, request_ms = counted("generate", lambda: txt2img_request(diffuser, cond, seed=400))
+    expect("generate", TXT32_STEPS * dual, TXT32_STEPS * single, False)
+    image_shape = (TXT_BATCH, TXT_LATENT[0] * tower.compression_factor, TXT_LATENT[1] * tower.compression_factor, 3)
+    if images.shape != image_shape or not bool(torch.isfinite(images).all()) or float(images.abs().max()) > 1.0:
+        fail(f"txt2img fp32 attention request: images {tuple(images.shape)}, expected {image_shape}, finite, "
+             "in [-1, 1]")
+    del images, tower
+    torch.cuda.empty_cache()
+
+    # train steps at the training batch: the batch's text lengths, the dropped rows on the null embedding
+    x0 = torch.randn(TXT_TRAIN_BATCH, *TXT_LATENT, generator=gen, device="cuda")
+    emb = torch.randn(TXT_TRAIN_BATCH, TEXT_LEN, TEXT_DIM, generator=gen, device="cuda")
+    lengths = torch.tensor(TRAIN_TEXT_LENGTHS, device="cuda")
+    text_mask = torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None]
+    batch = {"model_inputs": {"x": x0, "context": {"embeddings": emb, "attn_mask": text_mask}}}
+    drop = torch.zeros(TXT_TRAIN_BATCH, dtype=torch.bool, device="cuda")
+    drop[list(TRAIN_DROPPED)] = True
+    model.train()
+    optimizer = MultiStepOptimizer(adamw(**TXT_ADAMW)(model.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for step in range(TXT32_TRAIN_STEPS):
+        tt = diffuser.draw_timesteps(gen, TXT_TRAIN_BATCH)
+        noise = torch.randn(x0.shape, generator=gen, device="cuda")
+        loss, ms = counted(f"train_step_{step}", lambda: train_step(diffuser, optimizer, None, batch, tt, noise, drop,
+                                                                   step)["loss"])
+        expect(f"train_step_{step}", dual, single, True)
+        losses.append(float(loss))
+        step_ms.append(ms)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    model.eval()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"txt2img fp32 attention train: losses {losses}")
+    print(f"phase 13b txt2img MMDiT, bf16 with fp32 attention in its {dual} dual-stream blocks: forward B={b} "
+          f"S={TXT_SEQ} kernel path vs plain attention max rel err {rel:.3e} (tol {TXT_REL_TOL}), {dual} fp32 K3 + "
+          f"{single} bf16 K3; Euler-{TXT32_STEPS} request of {TXT_BATCH} prompts with the Flux2 decode "
+          f"{request_ms:.2f} ms, {TXT32_STEPS * dual} fp32 K3 + {TXT32_STEPS * single} bf16 K3, images finite, in "
+          f"[-1, 1]; {TXT32_TRAIN_STEPS} train steps at batch {TXT_TRAIN_BATCH} (AdamW, the training text mask): "
+          f"ms/step {[round(m, 2) for m in step_ms]}, losses {[round(v, 5) for v in losses]}; a step {dual} fp32 K3 + "
+          f"{dual} fp32 K4 + {dual} fp32 K5, {single} bf16 K3 + {single} K4 + {single} K5, 0 K1/K2; peak mem "
+          f"{peak_gib:.2f} GiB")
+    del model, diffuser, optimizer
+    torch.cuda.empty_cache()
+    windows["train"] = {key: sum(w[key] for name, w in windows.items() if name.startswith("train_step"))
+                        for key in windows["forward"]}
+    return {"forward": windows["forward"], "generate": windows["generate"], "train": windows["train"],
+            "request_ms": request_ms, "step_ms": step_ms, "rel_err": rel}
 
 
 def phase_c1_kernels():
@@ -3159,6 +3321,8 @@ def main() -> int:
     del txt_model, tower, cond
     torch.cuda.empty_cache()
     lap("11-13 txt2img training")
+    txt32 = phase_txt2img_fp32_attention()
+    lap("13b txt2img fp32 attention")
     c1_kernels = phase_c1_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         c1 = phase_c1_cli(Path(tmp))
@@ -3194,8 +3358,9 @@ def main() -> int:
     k3_fp32 = k3.pop("fp32")
     k45_fp32 = {name: k45[name].pop("fp32") for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
     # the fp32 flash instances' launches in every main-path run that reads all the counts
+    txt32_windows = {f"txt2img_fp32_attention_{w}": txt32[w] for w in ("forward", "generate", "train")}
     windows = {"generate": gen_counts, "train": train_launches, "txt2img_generate": txt_totals,
-               "txt2img_train": txt_train_launches, "c1_train": c1["train"], "c1_sample": c1["sample"],
+               "txt2img_train": txt_train_launches, **txt32_windows, "c1_train": c1["train"], "c1_sample": c1["sample"],
                "dit_sampling_arms": arms["launches"], "c2": c2, "d1_train": d1["train"], "d1_sample": d1["sample"],
                **e1_windows, **d2_windows}
 
@@ -3299,9 +3464,11 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "diffulab_tpu/ops/flash_attention.py:81",
-        "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"],
+        "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"]
+        + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in txt32_windows.values()),
         "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
-                             "txt2img_train": txt_train_launches["flash_attn_fwd"]},
+                             "txt2img_train": txt_train_launches["flash_attn_fwd"],
+                             **{k: w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for k, w in txt32_windows.items()}},
         **k3,
         "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms, "sdpa": sdpa_ms}
                         for key, (k1, k3_ms, sdpa_ms) in crossover.items()},
@@ -3310,8 +3477,9 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": replaces,
-        "launches": txt_train_launches[name],
-        "launches_by_path": {"txt2img_train": txt_train_launches[name]},
+        "launches": txt_train_launches[name] + txt32["train"][name] - txt32["train"][f"{name}_f32"],
+        "launches_by_path": {"txt2img_train": txt_train_launches[name],
+                             "txt2img_fp32_attention_train": txt32["train"][name] - txt32["train"][f"{name}_f32"]},
         **k45[name],
         "library_computes": "dq, dk and dv together (SDPA masked backward)",
         "vs_fused_bwd_ms": {key: {"fused_mha_bwd": k2, "flash_attn_bwd": k45_ms}
@@ -3326,8 +3494,11 @@ def main() -> int:
         "launches_by_path": {path: counts[f"{name}_f32"] for path, counts in windows.items() if f"{name}_f32" in counts},
         **{key: numbers[key] for key in C1_KEYS},
         "shape": shape,
-        "timing": "ms, plain_ms and library_ms (fp32 SDPA): wall time per call back to back; bound_ms at 3xTF32; "
-                  "launches: the fp32 instance's own count (fp32 above 512 tokens)",
+        "timing": "ms and library_ms (fp32 SDPA; the backward's: its memory-efficient backward op, dq, dk and dv "
+                  "together): device time per call from CUDA-graph replays; plain_ms: wall time per call; bound_ms "
+                  "at 3xTF32; launches: the fp32 instance's own count (fp32 above 512 tokens)",
+        "path_times_ms": {"txt2img_fp32_attention_request": txt32["request_ms"],
+                          "txt2img_fp32_attention_steps": txt32["step_ms"]},
     } for name, source, replaces, numbers, shape in (
         ("flash_attn_fwd", "diffulab_tpu_torch/csrc/flash_attn_fwd.cu", "diffulab_tpu/ops/flash_attention.py:81",
          k3_fp32, f"B={2 * TXT_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the phase 8 text mask"),

@@ -55,8 +55,28 @@
 // bf16 at D = 16 and 32: the first kernels, mma.sync m16n8k16 with tiles
 // double-buffered by cp.async (K4 one CTA per 64 keys, K5 per 64 queries, four
 // warps of 16 rows, p and ds from the C fragments into A fragments, B operands
-// by ldmatrix[.trans]). fp32 inputs run a second pair of kernels with one
-// thread per row and fp32 FMAs (the tensor cores take no exact fp32 product).
+// by ldmatrix[.trans]).
+//
+// fp32 K4 (flash_bwd_dkv_tf32x3<D>, D = 16-128): the tensor cores take no
+// fp32 operand, so its four products run as 3xTF32 (tf32x3.cuh: each operand
+// split into two TF32 halves, three mma.sync m16n8k8 products, about 2^-21
+// relative each). At the training shape that is 3 x 859.9 GFLOP at 495
+// TFLOP/s, 5.211 ms, against 12.834 at the CUDA cores' 67 TFLOP/s and ~0.7
+// GB of fp32 operands (0.2 ms): bound by operations. One CTA per (128
+// keys, head, batch; 64 at D = 128), warps of 16 keys, the CTA's K and V rows
+// staged once; Q and dO tiles of dkv_f32_queries queries, with their lse2
+// and di from the pre-pass's workspace, through a two-slot cp.async ring
+// (rows past Sq and Skv zero-filled by the copy itself, source size 0). Per
+// tile p^T = ex2(K.Q^T * scale * log2 e - lse2) (0 on a masked key, and on a
+// query past Sq, whose lse2 is +inf), dv += p^T.dO, dp^T = V.dO^T, ds^T =
+// p^T * (dp^T - di) * scale, dk += ds^T.Q: four products of [keys x Sq x D],
+// p and ds from the C fragments straight into A operands. dk and dv stay in
+// fp32 registers until one store of the rows below Skv; each tile's dv and
+// dk sums start from zero and are added to them in fp32, since the tensor
+// cores round an mma's sum toward zero and a sum carried through 4224
+// queries drifted one way (dv 1.0e-5 off at max |dv| 0.28 in a 2e-5 * (max
+// + |dv|) check; tf32x3.cuh, scores_times_tile_fresh). K5's fp32 kernel
+// (flash_bwd_dq_f32) is one thread a query with fp32 FMAs.
 //
 // Plain C interface (bound with ctypes): flash_attn_bwd_dkv launches the
 // pre-pass and K4, flash_attn_bwd_dq launches K5; each returns the first CUDA
@@ -66,6 +86,7 @@
 #include <stdint.h>
 
 #include "attn_bwd_hopper.cuh"  // the Hopper kernels at D = 64 and 128 (shared with K2), hopper.cuh
+#include "tf32x3.cuh"            // fp32 K4's 3xTF32 mma.sync fragments, cp.async staging, F32_ROWS
 
 namespace {
 
@@ -73,8 +94,7 @@ constexpr int BLOCK = 64;     // rows per CTA and rows per staged tile (bf16 ker
 constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
-constexpr int F32_ROWS = 64;  // fp32 kernels: rows per CTA, one per thread
-constexpr int F32_TILE = 16;  // fp32 kernels: rows of the other operands per staged tile
+constexpr int F32_TILE = 16;  // fp32 K5: keys per staged tile (its CTA: F32_ROWS queries, one per thread)
 static_assert(BLOCK == 2 * CHUNK && CHUNK == 32, "K5 holds a tile's key mask in two 32-bit words");
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -120,11 +140,6 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_b
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src), "r"(src_bytes));
 }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 template <int D>
 using Tile = bf16 (*)[D + PAD];
@@ -500,11 +515,11 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
 
 // --- fp32 -------------------------------------------------------------------------
 
-// shared memory of the fp32 kernels: the CTA's own rows (two operands, padded
-// to D + 1 so that a warp reading one column of 32 rows hits 32 banks) and a
-// staged tile of F32_TILE rows of the other two operands with their lse and di
+// shared memory of K5's fp32 kernel: its own rows (q and do, padded to D + 1
+// so that a warp reading one column of 32 rows hits 32 banks) and a staged
+// tile of F32_TILE keys of k and v with their mask
 template <int D>
-constexpr int f32_smem_bytes() {
+constexpr int dq_f32_smem_bytes() {
   return static_cast<int>(sizeof(float)) * (2 * F32_ROWS * (D + 1) + 2 * F32_TILE * D + 2 * F32_TILE);
 }
 
@@ -533,65 +548,128 @@ __device__ __forceinline__ float dot_row(const float* own, const float* other) {
   return acc;
 }
 
-// K4 in fp32: one thread per key
-template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
-                  const float* __restrict__ di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
-                  int H, int di_rs, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                  long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  extern __shared__ __align__(16) float fsmem[];
-  float* ks = fsmem;                       // [F32_ROWS][D + 1]
-  float* vs = ks + F32_ROWS * (D + 1);     // [F32_ROWS][D + 1]
-  float* qt = vs + F32_ROWS * (D + 1);     // [F32_TILE][D]
-  float* dt = qt + F32_TILE * D;           // [F32_TILE][D]
-  float* lse_t = dt + F32_TILE * D;        // [F32_TILE]
-  float* di_t = lse_t + F32_TILE;          // [F32_TILE]
+// K4 in fp32: 3xTF32 products on the tensor cores (tf32x3.cuh)
 
-  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int n0 = blockIdx.x * F32_ROWS, key = n0 + tid;
+// The tiles below were picked by timing scripts/flash_fp32_variants.py at the
+// txt2img training shape (B=8, S=4224, H=12, D=64, the training mask; NVIDIA
+// H100 80GB HBM3, 700 W): with its pre-pass, eight warps took 14.05 ms, four
+// 14.80; 32-query slots 15.27 (PERF.md §6).
+
+// warps of 16 keys in a CTA: eight at D <= 64 (128 keys), four at D = 128,
+// where dk and dv take 128 registers a thread
+template <int D>
+__host__ __device__ constexpr int dkv_f32_warps() {
+  return D <= 64 ? 8 : 4;
+}
+
+// queries of a ring slot: 64, and 32 at D = 128; a divisor of WS_ALIGN, so
+// that the last tile reads whole workspace rows (+inf and 0 past Sq)
+template <int D>
+__host__ __device__ constexpr int dkv_f32_queries() {
+  return D <= 64 ? 64 : 32;
+}
+
+// bytes of dynamic shared memory: the CTA's K and V rows, two ring slots of Q and dO, and their lse2 and di
+template <int D>
+__host__ __device__ constexpr int dkv_f32_smem_bytes() {
+  return 4 * (ld<D>() * (2 * 16 * dkv_f32_warps<D>() + 2 * 2 * dkv_f32_queries<D>()) + 2 * 2 * dkv_f32_queries<D>());
+}
+
+// dk and dv for 16 * dkv_f32_warps keys of a (batch, head) over every query
+// tile, from the pre-pass's lse2 (lse * log2 e) and di rows, ws_rs apart
+template <int D>
+__global__ void __launch_bounds__(32 * dkv_f32_warps<D>())
+flash_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ ws_lse2,
+                     const float* __restrict__ ws_di, float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv,
+                     int H, int ws_rs, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                     long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int QT = dkv_f32_queries<D>(), LD = ld<D>(), KEYS = 16 * dkv_f32_warps<D>(), THREADS = 2 * KEYS;
+  // columns of a tile sum's block: 32 at D = 128, where dk and dv hold 128 registers (64 spilled 76 bytes)
+  constexpr int CB = D <= 64 ? D : 32;
+  static_assert(WS_ALIGN % QT == 0 && QT / 2 <= THREADS,
+                "a slot's lse2 and di: whole workspace rows, one 16-byte copy a thread");
+  extern __shared__ __align__(16) float fsmem[];
+  float* ks = fsmem;                 // [KEYS][LD]
+  float* vs = ks + KEYS * LD;        // [KEYS][LD]
+  float* qs = vs + KEYS * LD;        // [2][QT][LD]
+  float* dos = qs + 2 * QT * LD;     // [2][QT][LD]
+  float* lse_s = dos + 2 * QT * LD;  // [2][QT]
+  float* di_s = lse_s + 2 * QT;      // [2][QT]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * KEYS, r0 = 16 * warp;
+  const int key = n0 + r0 + g;  // this thread's keys: key, key + 8
   const float* qb = q + b * q_sb + h * D;
   const float* dob = dout + b * do_sb + h * D;
-  const long long lrow = ((long long)b * H + h) * Sq;
-  const bool keep = key < Skv && (mask == nullptr || mask[(long long)b * Skv + key] != 0);
-
-  stage_own_rows<D>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
-  stage_own_rows<D>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
-  const float* kr = ks + tid * (D + 1);
-  const float* vr = vs + tid * (D + 1);
-
-  float dk_acc[D], dv_acc[D];
+  const float* wl = ws_lse2 + ((long long)b * H + h) * ws_rs;
+  const float* wd = ws_di + ((long long)b * H + h) * ws_rs;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  bool keep[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  for (int m0 = 0; m0 < Sq; m0 += F32_TILE) {
-    __syncthreads();
-    stage_f32_tile<D>(qt, qb, q_ss, m0, Sq);
-    stage_f32_tile<D>(dt, dob, do_ss, m0, Sq);
-    if (tid < F32_TILE) {
-      const bool in = m0 + tid < Sq;
-      lse_t[tid] = in ? lse[lrow + m0 + tid] : INFINITY;  // past Sq: p = 0
-      di_t[tid] = in ? di[((long long)b * H + h) * di_rs + m0 + tid] : 0.f;
+  for (int r = 0; r < 2; ++r) keep[r] = key + 8 * r < Skv && (mb == nullptr || mb[key + 8 * r] != 0);
+  const float scale_log2 = sm_scale * LOG2E;
+  const int n_tiles = (Sq + QT - 1) / QT;
+
+  auto stage = [&](int t) {
+    const int slot = t & 1;
+    stage_rows_upto<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT, Sq);
+    stage_rows_upto<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT, Sq);
+    const int i = threadIdx.x;  // QT / 4 chunks of lse2, then of di
+    if (i < QT / 4)
+      cp_async16(lse_s + slot * QT + 4 * i, wl + t * QT + 4 * i);
+    else if (i < QT / 2)
+      cp_async16(di_s + slot * QT + 4 * (i - QT / 4), wd + t * QT + 4 * (i - QT / 4));
+  };
+
+  stage_rows_upto<D, KEYS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
+  stage_rows_upto<D, KEYS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float x = keep ? dot_row<D>(kr, qt + j * D) * sm_scale : MASK_VALUE;
-      const float p = expf(x - lse_t[j]);
-      const float ds = p * (dot_row<D>(vr, dt + j * D) - di_t[j]) * sm_scale;
+    const int slot = t & 1;
+    const float* qt = qs + slot * QT * LD;
+    const float* dot = dos + slot * QT * LD;
+    const float* lt = lse_s + slot * QT;
+    const float* dt = di_s + slot * QT;
+
+    // p^T [key, query] = ex2(k.q^T * scale * log2 e - lse2[query]), 0 on a masked key; dp^T = v.dO^T
+    float p[QT / 8][4], dp[QT / 8][4];
+    rows_dot<D, QT>(p, ks, r0, qt, g, t4);
+    rows_dot<D, QT>(dp, vs, r0, dot, g, t4);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dv_acc[d] = fmaf(p, dt[j * D + d], dv_acc[d]);
-        dk_acc[d] = fmaf(ds, qt[j * D + d], dk_acc[d]);
-      }
-    }
-  }
-  if (key >= Skv) return;
-  const long long out_off = ((long long)b * Skv + key) * H * D + h * D;
+    for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[out_off + d] = dk_acc[d];
-    dv[out_off + d] = dv_acc[d];
+      for (int e = 0; e < 4; ++e)
+        p[nt][e] = keep[e >> 1] ? exp2_approx(fmaf(p[nt][e], scale_log2, -lt[nt * 8 + 2 * t4 + (e & 1)])) : 0.f;
+    scores_times_tile_fresh<D, QT, CB>(dv_acc, p, dot, g, t4);  // dv += p^T.dO, the tile's sum added
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+    scores_times_tile_fresh<D, QT, CB>(dk_acc, dp, qt, g, t4);  // dk += ds^T.Q, the tile's sum added
+    __syncthreads();  // the slot is refilled next iteration
   }
+
+  // dk, dv [B, Skv, H, D] contiguous, the rows below Skv
+  const long long o_ss = (long long)H * D;
+  store_c_rows_upto<D>(dk + (long long)b * Skv * o_ss + h * D, o_ss, key, dk_acc, t4, Skv);
+  store_c_rows_upto<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, key, dv_acc, t4, Skv);
 }
 
 // K5 in fp32: one thread per query
@@ -710,13 +788,18 @@ cudaError_t launch_dkv(int dtype, const Args& a, cudaStream_t stream) {
   }
   cudaError_t err = launch_prep<float, D>(a, stream);
   if (err != cudaSuccess) return err;
-  constexpr int bytes = f32_smem_bytes<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = flash_bwd_dkv_tf32x3<D>;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
-  flash_bwd_dkv_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
+  static_assert(dkv_f32_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K4's tiles exceed shared memory");
+  constexpr int KEYS = 16 * dkv_f32_warps<D>();
+  const dim3 grid((a.Skv + KEYS - 1) / KEYS, a.H, a.B);
+  kernel<<<grid, 2 * KEYS, dkv_f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
-      static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      static_cast<const float*>(a.dout), a.mask, a.ws, a.di, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.Sq, a.Skv, a.H, a.ws_rs, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
   return cudaGetLastError();
 }
@@ -740,7 +823,7 @@ cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
       return cudaGetLastError();
     }
   }
-  constexpr int bytes = f32_smem_bytes<D>();
+  constexpr int bytes = dq_f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
@@ -804,6 +887,19 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
                nullptr, static_cast<const float*>(di), dq, nullptr, nullptr, B, Sq, Skv, H, di_rs,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, 0, 0, do_sb, do_ss, sm_scale};
   return dispatch(DQ, D, dtype, a, stream);
+}
+
+// queries of the fp32 dk/dv kernel's ring slot at head dim D, by the rule its
+// launch follows; 0 for another D. The emulation in ops/flash_attention.py
+// (f32_dkv_queries) mirrors it.
+extern "C" int flash_attn_bwd_f32_tiles(int D) {
+  switch (D) {
+    case 16: return dkv_f32_queries<16>();
+    case 32: return dkv_f32_queries<32>();
+    case 64: return dkv_f32_queries<64>();
+    case 128: return dkv_f32_queries<128>();
+    default: return 0;
+  }
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

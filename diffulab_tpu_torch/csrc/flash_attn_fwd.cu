@@ -52,8 +52,25 @@
 // ~45% of the time. Neither the exponentials nor the bf16 packing is the
 // limit: replacing either with a cheap stand-in changed nothing.
 //
-// fp32 inputs run a second kernel with one thread per query row and fp32
-// FMAs (the tensor cores take no exact fp32 product), over the same tiles.
+// fp32 (flash_fwd_tf32x3<D>, D = 16-128). The tensor cores take no fp32
+// operand, so the two products run as 3xTF32 (tf32x3.cuh: each operand split
+// into two TF32 halves, three mma.sync m16n8k8 products, about 2^-21
+// relative each). At the slice shape that is 3 x 428.4 GFLOP at 495 TFLOP/s,
+// 2.597 ms, against 6.395 at the CUDA cores' 67 TFLOP/s and ~415 MB of fp32
+// q/k/v/o (0.12 ms): bound by operations. One CTA per (128 queries, head,
+// batch; 64 at D = 128), warps of 16 query rows; K and V tiles of
+// fwd_f32_keys keys through a two-slot cp.async ring at the caller's
+// strides, rows past Sq and Skv zero-filled by the copy itself (source size
+// 0); Q's split fragments stay in registers at D <= 64. Per tile S = Q.K^T,
+// scaled into log2 units, keys masked or past Skv at MASK_VALUE (the tile's
+// mask read once a warp as ballot words), the online row max and sum with
+// alpha rescaling O, and P = ex2(S - m) from the C fragments straight into
+// the A operand of P.V. The tile's P.V starts from zero and is added to O in
+// fp32: the tensor cores round an mma's fp32 sum toward zero, and O carried
+// through 4224 keys drifted one way (tf32x3.cuh, scores_times_tile_fresh).
+// O / l at the end. fp32 p is never rounded to a narrower type, so this is
+// K3's order up to rounding. The first live tile's alpha = ex2(MASK_VALUE -
+// m) = 0 clears what masked tiles before it left in l and O.
 //
 // Plain C interface (bound with ctypes): flash_attn_fwd returns
 // cudaGetLastError() after the launch.
@@ -62,13 +79,13 @@
 #include <stdint.h>
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma, turns and the tensor-map encoder
+#include "tf32x3.cuh"  // the fp32 kernel's 3xTF32 mma.sync fragments and cp.async staging
 
 namespace {
 
 constexpr float LN2 = 0.6931471805599453f;
 
-constexpr int BLOCK_N = 128;   // keys a tile (both kernels; the plain version's tile, KERNEL_BLOCK_N)
-constexpr int F32_ROWS = 64;   // query rows per CTA (fp32 kernel), one per thread
+constexpr int BLOCK_N = 128;   // keys a tile of the bf16 kernel (the plain version's tile, KERNEL_BLOCK_N)
 
 // consumer warpgroups of a bf16 CTA, 64 query rows each
 constexpr int fwd_warpgroups(int D) { return D == 128 ? 2 : 3; }
@@ -295,80 +312,162 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// exp(x) as 2^(x * log2 e); exp(-inf) = 0
-__device__ __forceinline__ float fast_exp(float x) { return exp2_approx(x * LOG2E); }
+// ---- fp32: 3xTF32 products on the tensor cores (tf32x3.cuh)
 
+// The tiles below were picked by timing scripts/flash_fp32_variants.py at the
+// txt2img shape (B=8, S=4224, H=12, D=64, the text mask; NVIDIA H100 80GB
+// HBM3, 700 W): eight warps and 64-key slots took 7.89 ms, four warps and
+// 32-key slots 8.27, four and 64 8.01, eight and 32 8.34 (PERF.md §6).
+
+// warps of 16 query rows in a CTA: eight at D <= 64 (one CTA an SM at 240
+// registers a thread), four at D = 128, where the output takes 64 registers
 template <int D>
-constexpr int f32_smem_bytes() {
-  return (2 * BLOCK_N * D + BLOCK_N * F32_ROWS) * static_cast<int>(sizeof(float));  // K, V, scores
+__host__ __device__ constexpr int fwd_f32_warps() {
+  return D <= 64 ? 8 : 4;
 }
 
+// keys of a ring slot, the tile of the online softmax (KT / 32 mask words):
+// 64 at D <= 64, 32 at D = 128
 template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-              const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq,
-              int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-              long long v_sb, long long v_ss, float sm_scale) {
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  float (*ks)[D] = reinterpret_cast<float (*)[D]>(smem_f32);
-  float (*vs)[D] = ks + BLOCK_N;
-  float (*ss)[F32_ROWS] = reinterpret_cast<float (*)[F32_ROWS]>(vs + BLOCK_N);  // [key][thread]
+__host__ __device__ constexpr int fwd_f32_keys() {
+  return D <= 64 ? 64 : 32;
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int row = blockIdx.x * F32_ROWS + tid;
+// bytes of dynamic shared memory: the CTA's Q rows and two ring slots of K and V
+template <int D>
+__host__ __device__ constexpr int fwd_f32_smem_bytes() {
+  return 4 * ld<D>() * (16 * fwd_f32_warps<D>() + 2 * 2 * fwd_f32_keys<D>());
+}
+
+// One CTA per (16 * fwd_f32_warps query rows, head, batch), one pass over the
+// key tiles; lse [B, H, Sq] and o [B, Sq, H, D] written for the rows below Sq.
+template <int D>
+__global__ void __launch_bounds__(32 * fwd_f32_warps<D>())
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
+                 long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                 float sm_scale) {
+  constexpr int KT = fwd_f32_keys<D>(), LD = ld<D>(), ROWS = 16 * fwd_f32_warps<D>(), THREADS = 2 * ROWS;
+  constexpr bool QREG = D <= 64;  // Q's split fragments stay in registers for every key tile
+  static_assert(KT % 32 == 0, "a tile's mask is KT / 32 ballot words");
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;             // [ROWS][LD]
+  float* ks = qs + ROWS * LD;   // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD; // [2][KT][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * warp;
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = (Skv + KT - 1) / KT;
+  const float scale_log2 = sm_scale * LOG2E;
 
-  float qr[D];
-  const float* qrow = q + b * q_sb + (long long)row * q_ss + h * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = row < Sq ? qrow[d] : 0.f;
+  auto stage = [&](int t) {
+    stage_rows_upto<D, KT, THREADS>(ks + (t & 1) * KT * LD, kb, k_ss, t * KT, Skv);
+    stage_rows_upto<D, KT, THREADS>(vs + (t & 1) * KT * LD, vb, v_ss, t * KT, Skv);
+  };
+  stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+  cp_async_commit();
+  stage(0);
+  cp_async_commit();
 
-  float m = -INFINITY, l = 0.f;
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += BLOCK_N) {
+  uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
+  if constexpr (QREG) {
+    cp_async_wait<1>();
     __syncthreads();
-    for (int i = tid; i < BLOCK_N * D; i += F32_ROWS) {
-      const int r = i / D, c = i % D;
-      const bool in = n0 + r < Skv;
-      ks[r][c] = in ? kb[(long long)(n0 + r) * k_ss + c] : 0.f;
-      vs[r][c] = in ? vb[(long long)(n0 + r) * v_ss + c] : 0.f;
-    }
-    __syncthreads();
-    float mx = -INFINITY;
-    for (int j = 0; j < BLOCK_N; ++j) {
-      float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const int key = n0 + j;
-      const float s = (key < Skv && (mb == nullptr || mb[key] != 0)) ? dot * sm_scale : MASK_VALUE;
-      ss[j][tid] = s;
-      mx = fmaxf(mx, s);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = fast_exp(m - m_new);
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-    float sum = 0.f;
-    for (int j = 0; j < BLOCK_N; ++j) {
-      const float p = fast_exp(ss[j][tid] - m_new);
-      sum += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
-    l = alpha * l + sum;
-    m = m_new;
+    for (int kk = 0; kk < D / 8; ++kk) frag_a<D>(qh[kk], ql[kk], qs, r0, kk, g, t4);
   }
-  if (row >= Sq) return;
-  const bool dead = m <= MASK_VALUE;
-  const float l_safe = l == 0.f ? 1.f : l;
-  float* orow = o + ((long long)b * Sq + row) * H * D + h * D;
+
+  float acc[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = dead ? 0.f : acc[d] / l_safe;
-  lse[((long long)b * H + h) * Sq + row] = dead ? INFINITY : m + logf(l_safe);
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  // rows g, g + 8 of the warp: running max (log2 units) and sum, l summed over the quad at the end
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // the tile's mask: bit i of word w is key t * KT + 32 w + i kept (0 past Skv), the same in every lane
+    uint32_t words[KT / 32];
+    bool full = true;
+#pragma unroll
+    for (int w = 0; w < KT / 32; ++w) {
+      const int key = t * KT + 32 * w + lane;
+      words[w] = __ballot_sync(0xffffffffu, key < Skv && (mb == nullptr || mb[key] != 0));
+      full &= words[w] == 0xffffffffu;
+    }
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + (t & 1) * KT * LD;
+    float s[KT / 8][4];
+    if constexpr (QREG)
+      rows_dot<D, KT>(s, qh, ql, kt, g, t4);
+    else
+      rows_dot<D, KT>(s, qs, r0, kt, g, t4);
+
+    // s * scale * log2 e, MASK_VALUE on a key masked or past Skv; the tile's row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * t4 + (e & 1);
+        const bool kept = full || ((words[col / 32] >> (col % 32)) & 1u);
+        s[nt][e] = kept ? s[nt][e] * scale_log2 : MASK_VALUE;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2_approx(m[r] - m_new);  // 0 on the first tile (m = -inf), and past masked tiles
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2_approx(s[nt][e] - m[e >> 1]);  // a masked key beside a live score: exactly 0
+        l[e >> 1] += s[nt][e];
+      }
+    scores_times_tile_fresh<D, KT>(acc, s, vs + (t & 1) * KT * LD, g, t4);  // O += P.V, the tile's sum added
+    __syncthreads();  // the slot is refilled next iteration
+  }
+
+  // o = acc / l; a fully-masked row (m still MASK_VALUE) gives o = 0, lse = +inf
+  bool dead[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    dead[r] = m[r] <= MASK_VALUE;
+  }
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = dead[e >> 1] ? 0.f : acc[dn][e] / l[e >> 1];
+  const long long o_ss = (long long)H * D;
+  const int row = m0 + r0 + g;  // this thread's rows: row, row + 8
+  store_c_rows_upto<D>(o + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4, Sq);
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < Sq)
+        lse[((long long)b * H + h) * Sq + row + 8 * r] = dead[r] ? INFINITY : m[r] * LN2 + logf(l[r]);
+  }
 }
 
 template <int D>
@@ -394,12 +493,14 @@ template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B,
                        int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                        long long v_sb, long long v_ss, float sm_scale, int device, cudaStream_t stream) {
-  auto kernel = flash_fwd_f32<D>;
+  auto kernel = flash_fwd_tf32x3<D>;
   static bool configured[MAX_DEVICES] = {};
   const cudaError_t err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + F32_ROWS - 1) / F32_ROWS, H, B);
-  kernel<<<grid, F32_ROWS, f32_smem_bytes<D>(), stream>>>(
+  static_assert(fwd_f32_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K3's tiles exceed shared memory");
+  constexpr int ROWS = 16 * fwd_f32_warps<D>();
+  const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
+  kernel<<<grid, 2 * ROWS, fwd_f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
       static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
   return cudaGetLastError();
@@ -444,6 +545,19 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// keys of the fp32 kernel's ring slot at head dim D, the tile of its online
+// softmax, by the rule its launch follows; 0 for another D. The emulation in
+// ops/flash_attention.py (f32_fwd_keys) mirrors it.
+extern "C" int flash_attn_fwd_f32_tiles(int D) {
+  switch (D) {
+    case 16: return fwd_f32_keys<16>();
+    case 32: return fwd_f32_keys<32>();
+    case 64: return fwd_f32_keys<64>();
+    case 128: return fwd_f32_keys<128>();
+    default: return 0;
+  }
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

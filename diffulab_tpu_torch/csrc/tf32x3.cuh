@@ -1,5 +1,6 @@
 // fp32 attention products on Hopper's tensor cores as 3xTF32, shared by the
-// fp32 instances of K1 (fused_mha_fwd.cu) and K2 (fused_mha_bwd.cu).
+// fp32 instances of K1 (fused_mha_fwd.cu), K2 (fused_mha_bwd.cu), K3
+// (flash_attn_fwd.cu) and K4's dk/dv kernel (flash_attn_bwd.cu).
 //
 // The tensor cores take no fp32 operand, but TF32 (8 exponent bits, 10
 // mantissa bits) at 495 TFLOP/s dense. Each fp32 operand x is split into
@@ -80,9 +81,11 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4], con
 
 // ---- cp.async
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// 16 bytes global -> shared, of which the first `bytes` (16 or 0) are read:
+// the rest is zero-filled by the copy itself
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes = 16) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src) : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -104,16 +107,15 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
 }
 
 // rows [r0, r0 + ROWS) as stage_rows, but only those below `end` come from
-// device memory: the rest of the tile is zero-filled (a ragged last tile)
+// device memory: a row at or past it is read with a source size of 0, so the
+// copy fills it with zeros (a ragged last tile); not awaited
 template <int D, int ROWS, int THREADS = F32_THREADS>
 __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, long long ss, int r0, int end) {
   constexpr int CHUNKS = D / 4;
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
-    if (r0 + r < end)
-      cp_async16(dst + r * ld<D>() + c, src + (long long)(r0 + r) * ss + c);
-    else
-      *reinterpret_cast<float4*>(dst + r * ld<D>() + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    const bool in = r0 + r < end;
+    cp_async16(dst + r * ld<D>() + c, in ? src + (long long)(r0 + r) * ss + c : src, in ? 16 : 0);
   }
 }
 
@@ -293,6 +295,40 @@ __device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4], const 
       frag_b_cols<D, LDT>(bh, bl, t, kk, dn * 8, g, t4);
       mma3(acc[dn], ah, al, bh, bl);
     }
+  }
+}
+
+// scores_times_tile over a long reduction: the tensor cores round the fp32
+// sum of an mma toward zero, so an accumulator carried through thousands of
+// products drifts by up to an ulp a product, always the same way. Here each
+// block of CB output columns is summed over the tile's N rows in a fresh
+// accumulator (a chain of 3 N / 8 products) and then added to acc with
+// fp32 adds, which round to nearest. A block of CB columns (64 by default)
+// takes CB / 2 registers a thread for its partial.
+template <int D, int N, int CB = (D < 64 ? D : 64), int LDT = ld<D>()>
+__device__ __forceinline__ void scores_times_tile_fresh(float (&acc)[D / 8][4], const float (&x)[N / 8][4],
+                                                        const float* t, int g, int t4) {
+  static_assert(D % CB == 0, "whole column blocks");
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += CB) {
+    float part[CB / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < CB / 8; ++dn) part[dn][0] = part[dn][1] = part[dn][2] = part[dn][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < N / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      frag_a_from_c(ah, al, x[kk]);
+#pragma unroll
+      for (int dn = 0; dn < CB / 8; ++dn) {
+        uint32_t bh[2], bl[2];
+        frag_b_cols<D, LDT>(bh, bl, t, kk, c0 + dn * 8, g, t4);
+        mma3(part[dn], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int dn = 0; dn < CB / 8; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 / 8 + dn][e] += part[dn][e];
   }
 }
 

@@ -415,7 +415,7 @@ class MMDiT(Denoiser):
         if not simple_dit and context_embedder is None:
             raise ValueError("the multimodal MMDiT (simple_dit=False) needs a context embedder")
         if mlp_type != "swiglu":
-            raise NotImplementedError(f"mlp_type={mlp_type!r} (MoE) is not ported yet")
+            raise NotImplementedError(f"mlp_type={mlp_type!r} (MoE) is not ported yet (ROADMAP queue 1, item 17)")
         if attention_impl == "ring":
             raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1, item 17)")
         if pipeline_microbatches is not None:

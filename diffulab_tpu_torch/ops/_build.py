@@ -45,12 +45,14 @@ KERNELS = {
     ),
     "flash_attn_fwd": (
         "csrc/flash_attn_fwd.cu",
-        {"flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P]},
+        {"flash_attn_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _I, _P],
+         "flash_attn_fwd_f32_tiles": [_I]},
     ),
     "flash_attn_bwd": (
         "csrc/flash_attn_bwd.cu",
         {"flash_attn_bwd_dkv": [_P] * 10 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _I, _P],
-         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 8 + [ctypes.c_float, _I, _P]},
+         "flash_attn_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 8 + [ctypes.c_float, _I, _P],
+         "flash_attn_bwd_f32_tiles": [_I]},
     ),
 }
 

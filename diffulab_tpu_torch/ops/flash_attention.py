@@ -35,9 +35,15 @@ from the accumulators in registers), Q loaded once and K/V tiles of 128 keys
 streamed through a TMA ring, the key mask held as bit words in shared memory,
 m/l/o in registers, o written back by TMA store. q/k/v are
 read in the ``[B, S, H, D]`` layout at the caller's strides (no transpose, no
-padded copy: the ragged ends are masked inside the kernel). fp32 tensors run a
-second kernel with fp32 FMAs, one thread per query row. ``lse`` is written
-``[B, H, Sq]``, the layout the backward reads.
+padded copy: the ragged ends are masked inside the kernel). ``lse`` is written
+``[B, H, Sq]``, the layout the backward reads. fp32 tensors (the library's
+default ``dtype=None``, the ``sample`` CLI, the MMDiT's
+``attention_dtype=float32``) run a second kernel, bound by operations: its
+products on the tensor cores as 3xTF32 (each operand split into two TF32
+halves, three ``mma.sync`` products, about 2^-21 relative each), one CTA per
+128 queries (64 at head dim 128) in one pass over tiles of :func:`f32_fwd_keys` keys with an online
+softmax in log2 units and o divided by l at the end
+(:func:`flash_attention_tf32x3_emulation` emulates it).
 
 **Backward (K4, K5)** replaces ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``
 (launched by ``_flash_backward``). From the forward's q, k, v, mask, o and
@@ -55,8 +61,12 @@ and 128: K4 per (128 keys, head, batch) over TMA-fed 64-query tiles (32 at
 D = 128), K5 per (128 queries, head, batch) over 128-key tiles (64 at
 D = 128), two warpgroups of 64 rows taking turns at ``wgmma``, the sums in
 fp32 registers; p and ds go from the accumulators into register operands.
-At head dims 16 and 32 the first ``mma.sync`` kernels run, and fp32 runs
-fp32 FMAs. A coalesced pre-pass launched with K4 forms di and lse·log2 e.
+At head dims 16 and 32 the first ``mma.sync`` kernels run. A coalesced
+pre-pass launched with K4 forms di and lse·log2 e into a workspace. In fp32,
+K4 runs its four products as 3xTF32 ``mma.sync``, one CTA per 128 keys (64 at head dim 128) over
+query tiles of :func:`f32_dkv_queries` with lse·log2 e and di from that
+workspace (:func:`flash_attention_bwd_dkv_tf32x3_emulation` emulates it); K5
+runs fp32 FMAs, one thread a query.
 
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions, the same arithmetic over the same key tiles.
@@ -80,6 +90,7 @@ from diffulab_tpu_torch.ops.fused_mha import (
     _int_mask,
     _kernel_ready,
     _raise_on,
+    matmul_3xtf32,
 )
 
 #: keys per tile of the kernel and of its plain version. In bf16 the result
@@ -95,6 +106,26 @@ BWD_BLOCK_K = 128
 #: the backward's fp32 workspace rows (lse and di of each (batch, head)) are
 #: padded to a multiple of this, so that K4's last query tile reads whole rows
 BWD_ROW_ALIGN = 64
+
+#: log2(e) and ln(2) as the kernels hold them (fp32)
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+_LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+
+
+def f32_fwd_keys(d: int) -> int:
+    """Keys of a ring slot of the fp32 K3 at head dim ``d``, the tile of its
+    online softmax: 64, and 32 at D = 128 (``fwd_f32_keys`` in
+    ``csrc/flash_attn_fwd.cu``, which the library exports as
+    ``flash_attn_fwd_f32_tiles``; chip_smoke.py holds this to it on the
+    card)."""
+    return 64 if d <= 64 else 32
+
+
+def f32_dkv_queries(d: int) -> int:
+    """Queries of a ring slot of the fp32 K4 at head dim ``d``: 64, and 32 at
+    D = 128 (``dkv_f32_queries`` in ``csrc/flash_attn_bwd.cu``, exported as
+    ``flash_attn_bwd_f32_tiles``). Each divides :data:`BWD_ROW_ALIGN`."""
+    return 64 if d <= 64 else 32
 
 #: launches of the CUDA kernels: K3 by :func:`flash_attention`, K4 by
 #: :func:`flash_attention_bwd_dkv`, K5 by :func:`flash_attention_bwd_dq`;
@@ -209,6 +240,79 @@ def flash_attention_bwd_from_di(
         # K5: ds rounds to k's dtype before dq += ds·k
         dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kt)
     return dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype)
+
+
+def _scale_log2(sm_scale: float) -> torch.Tensor:
+    """``sm_scale·log2 e`` as the kernels form it, in fp32."""
+    return torch.tensor(sm_scale, dtype=torch.float32) * _LOG2E
+
+
+def flash_attention_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 K3's tile math on fp32 CPU tensors: :func:`matmul_3xtf32`
+    products, one pass over tiles of :func:`f32_fwd_keys` keys with the
+    scores in log2 units (``s·scale·log2 e``, masked keys at
+    ``DEFAULT_MASK_VALUE``), the online row max m and sum l, ``alpha =
+    2^(m - m_new)`` rescaling l and o, ``p = 2^(s - m_new)`` into ``o =
+    alpha·o + p·v``, and at the end ``o / l`` and
+    ``lse = m·ln 2 + log l``; a fully-masked row gives o = 0, lse = +inf.
+    Each tile's ``p·v`` is summed from zero and then added, as the kernel
+    adds it (the tensor cores' own accumulation rounds toward zero, which a
+    sum over thousands of keys would carry).
+    The kernel's last tile is padded to whole tiles with masked keys: they
+    add exact zeros past a live key, and a row with none is dead, so the
+    emulation walks the ragged tile as it is.
+    Returns (o [B,Sq,H,D], lse [B,H,Sq])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+    b, h, sq, d = qh.shape
+    scale_log2 = _scale_log2(sm_scale)
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, d)
+    kt = f32_fwd_keys(d)
+    for n0 in range(0, kh.shape[2], kt):
+        s = matmul_3xtf32(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2)) * scale_log2
+        if kv_mask is not None:
+            s = torch.where(kv_mask[:, None, None, n0:n0 + kt].bool(), s, DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + matmul_3xtf32(p, vh[:, :, n0:n0 + kt])
+        m = m_new
+    dead = m <= DEFAULT_MASK_VALUE
+    o = torch.where(dead, 0.0, acc / l)
+    lse = torch.where(dead, torch.inf, m * _LN2 + torch.log(l))
+    return o.permute(0, 2, 1, 3).contiguous(), lse[..., 0].contiguous()
+
+
+def flash_attention_bwd_dkv_tf32x3_emulation(q, k, v, kv_mask, o, lse, do, sm_scale=None):
+    """The fp32 K4's tile math on fp32 CPU tensors: the pre-pass's ``di =
+    rowsum(o·do)`` from the stored o and ``lse2 = lse·log2 e``, then over
+    query tiles of :func:`f32_dkv_queries`, with :func:`matmul_3xtf32`
+    products, ``pᵀ = 2^(k·qᵀ·scale·log2 e - lse2)`` (0 on a masked key, and
+    on a row with lse = +inf), ``dv += pᵀ·do``, ``dpᵀ = v·doᵀ``, ``dsᵀ =
+    pᵀ·(dpᵀ - di)·scale`` and ``dk += dsᵀ·q``, each tile's sums formed from
+    zero and then added to dk and dv. Returns (dk, dv [B,Skv,H,D], di
+    [B,H,Sq])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
+    di = (o.float() * do.float()).sum(dim=-1).permute(0, 2, 1)  # [B, H, Sq]
+    lse2 = lse.float() * _LOG2E
+    scale_log2 = _scale_log2(sm_scale)
+    dk, dv = torch.zeros(kh.shape), torch.zeros(vh.shape)
+    qt = f32_dkv_queries(qh.shape[-1])
+    for m0 in range(0, qh.shape[2], qt):
+        rows = slice(m0, m0 + qt)
+        pt = torch.exp2(matmul_3xtf32(kh, qh[:, :, rows].transpose(-1, -2)) * scale_log2 - lse2[:, :, None, rows])
+        if kv_mask is not None:
+            pt = torch.where(kv_mask[:, None, :, None].bool(), pt, 0.0)
+        dv = dv + matmul_3xtf32(pt, doh[:, :, rows])
+        dst = pt * (matmul_3xtf32(vh, doh[:, :, rows].transpose(-1, -2)) - di[:, :, None, rows]) * sm_scale
+        dk = dk + matmul_3xtf32(dst, qh[:, :, rows])
+    return dk.permute(0, 2, 1, 3).contiguous(), dv.permute(0, 2, 1, 3).contiguous(), di
 
 
 def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,6 +15,15 @@ B=64 and 256, 384 and 512 tokens without a mask (the dispatch line of
 ``ops/attention.py``), and K1's device time at B=32, S=256 from CUDA-graph
 replays (a kernel this change should not move: it shares the Hopper header).
 
+With ``--fp32``, the fp32 instances at that shape instead (q/k/v fp32 views
+of one packed tensor, the plain forward's o and lse): K4 with its pre-pass,
+K5 and both, each as device time per call from CUDA-graph replays, beside
+SDPA's fp32 masked backward op (``chip_smoke.sdpa_fp32_backward``, dq, dk
+and dv together, CUDA-graph replays); then a train step's loss and backward
+of the txt2img MMDiT in bf16 with fp32 attention in its dual-stream blocks
+(``attention_dtype=float32``, chip_smoke.py's seeded weights, batch 8, the
+training text lengths), ms per step.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -22,7 +31,8 @@ with ``--train`` it then runs ``scripts/profile_torch_train.py --txt2img``
 of PARENT and of this checkout, one after the other, for the ms per step.
 Unpack the parent commit into a directory that git ignores, e.g.
 ``git archive HEAD~1 | tar -x -C _parent``, then run from the repository
-root on the card: ``python3 scripts/ab_flash_attn_bwd.py --ab _parent --train``.
+root on the card: ``python3 scripts/ab_flash_attn_bwd.py --ab _parent --train``,
+or ``python3 scripts/ab_flash_attn_bwd.py --ab _parent --fp32``.
 """
 
 from __future__ import annotations
@@ -129,6 +139,91 @@ def measure(root: Path) -> dict:
     return out
 
 
+def fp32_attention_mmdit():
+    """The txt2img MMDiT of chip_smoke.py (its seeded weights and null
+    embedding), bf16 with fp32 attention in the dual-stream blocks, on the
+    card."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+    from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
+
+    rng = np.random.default_rng(9)
+    null = rng.standard_normal((chip_smoke.TEXT_LEN, chip_smoke.TEXT_DIM)).astype(np.float32)
+    embedder = PrecomputedEmbedder(null_embedding=null, null_embedding_seq_len=chip_smoke.NULL_SEQ_LEN)
+    model = MMDiT(**chip_smoke.TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=torch.float32)
+    chip_smoke.randomize_(model, seed=10)
+    return model
+
+
+def text_cond(gen, batch: int, lengths):
+    """A text conditioning of ``batch`` seeded embeddings with ``lengths`` valid tokens."""
+    import torch
+
+    import chip_smoke
+
+    emb = torch.randn(batch, chip_smoke.TEXT_LEN, chip_smoke.TEXT_DIM, generator=gen, device="cuda")
+    mask = torch.arange(chip_smoke.TEXT_LEN, device="cuda")[None, :] < torch.tensor(lengths, device="cuda")[:, None]
+    return {"context": {"embeddings": emb, "attn_mask": mask}}
+
+
+def measure_fp32(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_reference,
+    )
+    from diffulab_tpu_torch.utils import full_fp32_products
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    full_fp32_products()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, d = chip_smoke.TXT_TRAIN_BATCH, chip_smoke.TXT_SEQ, 12, 64
+    scale = d ** -0.5
+    out = {"root": str(root)}
+    mask = chip_smoke.txt2img_train_mask()
+    with torch.no_grad():
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda")
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.chunk(3, dim=-1))
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        o, lse = flash_attention_reference(q, k, v, mask)
+        _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
+        out["K4_fp32_with_prepass_device_ms"] = graph_ms(
+            lambda: flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale), calls=3, replays=2)
+        out["K5_fp32_device_ms"] = graph_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale),
+                                            calls=3, replays=2)
+        out["K4_K5_fp32_device_ms"] = graph_ms(lambda: flash_attention_bwd(q, k, v, mask, o, lse, do), calls=3,
+                                               replays=2)
+        out["sdpa_bwd_fp32_device_ms"] = graph_ms(chip_smoke.sdpa_fp32_backward(q, k, v, do, mask), calls=3,
+                                                  replays=2)
+        del qkv, q, k, v, do, o, lse, di
+    # a train step's loss and backward of the MMDiT with fp32 attention
+    model = fp32_attention_mmdit().train()
+    diffuser = Diffuser(model, "euler", extra_args=chip_smoke.TXT_EXTRA)
+    x0 = torch.randn(b, *chip_smoke.TXT_LATENT, generator=gen, device="cuda")
+    cond = text_cond(gen, b, chip_smoke.TRAIN_TEXT_LENGTHS)
+    t = diffuser.draw_timesteps(gen, b)
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    drop = torch.zeros(b, dtype=torch.bool, device="cuda")
+    drop[list(chip_smoke.TRAIN_DROPPED)] = True
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        diffuser.compute_loss(x0, cond, t, noise, drop=drop)["loss"].backward()
+
+    out["mmdit_fp32_attention_loss_backward_ms"] = wall_ms(step, 3)
+    return out
+
+
 def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[list[str]]]],
             fp32_measure=None) -> int:
     """The command line the A/B scripts share: ``--root DIR`` prints one JSON
@@ -143,7 +238,7 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
     group.add_argument("--root", type=Path, help="time the package under this directory")
     group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
     if fp32_measure is not None:
-        parser.add_argument("--fp32", action="store_true", help="time the fp32 instances at slice C1's shapes")
+        parser.add_argument("--fp32", action="store_true", help="time the fp32 instances (the docstring's shapes)")
     for flag, (help_text, _) in profiles.items():
         parser.add_argument(f"--{flag}", action="store_true", help=help_text)
     args = parser.parse_args()
@@ -193,7 +288,8 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the txt2img train profile of both trees",
-                              [["scripts/profile_torch_train.py", "--txt2img"]])})
+                              [["scripts/profile_torch_train.py", "--txt2img"]])},
+                   fp32_measure=measure_fp32)
 
 
 if __name__ == "__main__":

@@ -30,12 +30,11 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-SRC = (ROOT / "diffulab_tpu_torch/csrc/flash_attn_fwd.cu").read_text()
+from variant_build import CSRC, build_variants, card
+
+SRC = (CSRC / "flash_attn_fwd.cu").read_text()
 
 SPANS_HEAD = "\n__device__ unsigned long long g_spans[3][12];\n"
 SPANS_TAIL = """
@@ -93,36 +92,6 @@ VARIANTS = {
 }
 
 
-def build(names) -> dict:
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
-    from diffulab_tpu_torch.ops import _build
-
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = SRC
-        for old, new in VARIANTS[name]:
-            assert old in text, f"{name}: the kernel's source no longer holds {old[:60]!r}"
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(ROOT / "diffulab_tpu_torch/csrc"),
-               "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
-        print(name, json.dumps({k: v for k, v in chip_smoke.ptxas_usage(log).items() if "hopper" in k}))
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.flash_attn_fwd.argtypes = _build.KERNELS["flash_attn_fwd"][1]["flash_attn_fwd"]
-        lib.flash_attn_fwd.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def main() -> int:
     import torch
 
@@ -130,7 +99,9 @@ def main() -> int:
         print("flash_fwd_variants: no CUDA device", file=sys.stderr)
         return 2
     names = sys.argv[1:] or list(VARIANTS)
-    libs = build(names)
+    libs = {name: lib for (name, _), lib in build_variants(
+        {name: [("flash_attn_fwd.cu", old, new) for old, new in VARIANTS[name]] for name in names}, names,
+        ("flash_attn_fwd",), "hopper").items()}
     import chip_smoke
     from diffulab_tpu_torch.ops.flash_attention import flash_attention_reference
 
@@ -185,9 +156,7 @@ def main() -> int:
                             {lab: round(spans[i] / ctas / (tiles if 1 <= i <= 7 else 1), 1)
                              for i, lab in enumerate(SPAN_LABELS)}))
         print(cname, json.dumps(row))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {card()}")
     return 0
 
 

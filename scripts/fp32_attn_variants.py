@@ -33,12 +33,10 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-CSRC = ROOT / "diffulab_tpu_torch/csrc"
+from variant_build import build_variants, card
+
 SOURCES = ("fused_mha_fwd", "fused_mha_bwd")
 
 HI_BITS = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
@@ -59,42 +57,6 @@ VARIANTS = {
 }
 
 
-def build(names) -> dict:
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke
-    from diffulab_tpu_torch.ops import _build
-
-    out = _build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        texts = {f: (CSRC / f).read_text() for f in ("tf32x3.cuh", *(f"{src}.cu" for src in SOURCES))}
-        for f, old, new in VARIANTS[name]:
-            assert old in texts[f], f"{name}: {f} no longer holds {old[:60]!r}"
-            texts[f] = texts[f].replace(old, new)
-        (out / f"tf32x3_{name}.cuh").write_text(texts["tf32x3.cuh"])
-        for src in SOURCES:
-            text = texts[f"{src}.cu"]
-            assert '#include "tf32x3.cuh"' in text
-            (out / f"{src}_{name}.cu").write_text(text.replace('#include "tf32x3.cuh"',
-                                                               f'#include "tf32x3_{name}.cuh"'))
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(CSRC), "-o", str(out / f"{src}_{name}.so"),
-                   str(out / f"{src}_{name}.cu")]
-            procs[name, src] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for (name, src), proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{name} {src}: nvcc failed\n{log[-3000:]}")
-        print(name, src, json.dumps({k: v for k, v in chip_smoke.ptxas_usage(log).items() if "tf32x3<64" in k}))
-        lib = ctypes.CDLL(str(out / f"{src}_{name}.so"))
-        fn = getattr(lib, src)
-        fn.argtypes = _build.KERNELS[src][1][src]
-        fn.restype = ctypes.c_int
-        libs[name, src] = fn
-    return libs
-
-
 def main() -> int:
     import torch
 
@@ -103,7 +65,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     names = sys.argv[1:] or list(VARIANTS)
-    libs = build(names)
+    libs = build_variants(VARIANTS, names, SOURCES, "tf32x3<64")
     import chip_smoke
     from diffulab_tpu_torch.ops.fused_mha import fused_mha_bwd_reference, fused_mha_reference
 
@@ -132,7 +94,7 @@ def main() -> int:
         ref, _ = fused_mha_reference(q, k, v)
         for name in names:
             o, lse = torch.empty_like(q), torch.empty(b, s, h, device="cuda")
-            fn = libs[name, "fused_mha_fwd"]
+            fn = libs[name, "fused_mha_fwd"].fused_mha_fwd
             fwd(fn, q, k, v, o, lse)
             torch.cuda.synchronize()
             rows[name][f"K1_B{b}"] = {
@@ -143,7 +105,7 @@ def main() -> int:
     _, lse = fused_mha_reference(q, k, v)
     refs = fused_mha_bwd_reference(q, k, v, None, lse, do)
     for name in names:
-        fn = libs[name, "fused_mha_bwd"]
+        fn = libs[name, "fused_mha_bwd"].fused_mha_bwd
         out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), torch.empty(2, b, h, s, device="cuda"))
         bwd(fn, q, k, v, do, lse, out)
         torch.cuda.synchronize()
@@ -152,9 +114,7 @@ def main() -> int:
         rows[name][f"K2_B{b}"] = {"device_ms": round(ms, 4), "max_abs_err": float(f"{err:.3e}")}
     for name, row in rows.items():
         print(name, json.dumps(row))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
+    print(f"card: {card()}")
     return 0
 
 

@@ -101,6 +101,14 @@ def test_unported_options_raise(kwargs):
         MMDiT(**{**TINY, **kwargs}, device="cpu")
 
 
+def test_moe_refusal_names_its_queue_item():
+    """MoE (the JAX package's parallel/moe.py) waits in ROADMAP queue 1, item
+    17, with the other multi-device options, and its refusal says so."""
+    message = r"mlp_type='moe' \(MoE\) is not ported yet \(ROADMAP queue 1, item 17\)"
+    with pytest.raises(NotImplementedError, match=message):
+        MMDiT(**TINY, mlp_type="moe", device="cpu")
+
+
 def test_unported_call_paths_raise():
     """REPA feature capture (ROADMAP item 13, ported: tests/test_torch_port_repa.py)
     does not compose with block caching and raises with it; block caching and
