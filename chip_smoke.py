@@ -141,9 +141,10 @@ Phases, one line each:
      by their own counters; ms per step, samples/s, peak memory, ms per request;
  18. slice E1, the hard synthetic dataset and live-encoder REPA: the bf16 K1
      and K2 at the hard configs' attention shape (B=128, S=256, H=8, D=64;
-     K1 also at the teacher's B=256) against their plain versions, K1 timed
-     beside bf16 SDPA and its bound; then six configs through the CLIs, each
-     one epoch of 1024 samples (256 for validation): (a)
+     K1 also at the teacher's B=256) against their plain versions, each timed
+     beside bf16 SDPA (K2 beside SDPA's backward) and its bound; then six
+     configs through the CLIs, each one epoch of 1024 samples (256 for
+     validation): (a)
      ``train_synthetic_hard_flow`` (bf16: 10 bf16 K1 + 10 bf16 K2 a step by
      the instances' own counters), ``reconstruct_ema``,
      ``train_synthetic_hard_distill`` from its ``phema_sr0.05`` (20 + 10 a
@@ -171,10 +172,11 @@ Phases, one line each:
      ``sample`` requests each of 16 images at 50 steps (DDPM ancestral, Euler;
      550 K1 each), every K1/K2 launch an instance at D=256 or D=512 by their
      own counters; ms per step, samples/s, peak memory, ms per request.
-Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's and K4's
-3xTF32 designs, K5's FFMA one) to their plain versions at the slice shapes
-and the edge cases, each timed beside fp32 SDPA, and the fp32 K3's and K4's
-tiles to the emulation's (``ops/flash_attention.py``).
+Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
+K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
+cases, each timed beside fp32 SDPA, and their tiles to the emulations'
+(``ops/flash_attention.py``); phases 2, 5 and 11 print every fp32 error as a
+fraction of its tolerance, phases 2 and 5 with the fp32 K1/K2 at 512 keys.
 Then the card's name and power limit, a JSON line of per-kernel numbers, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises and
 exits non-zero; without a CUDA card, or without the package beside it, it
@@ -348,9 +350,9 @@ D2_PARAMS = 276_690_433
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
 # K2, and K4/K5, against their plain versions, per gradient:
-# |kernel - plain| <= tol * (max|plain| + |plain|). fp32: K2's products are
-# 3xTF32 (about 2^-21 relative each), and so are K4's, K5's exact FFMA, all
-# summed in another order. bf16: p and ds are rounded to bf16 at the same places in
+# |kernel - plain| <= tol * (max|plain| + |plain|). fp32: K2's, K4's and
+# K5's products are 3xTF32 (about 2^-21 relative each), summed in another
+# order. bf16: p and ds are rounded to bf16 at the same places in
 # both, but exp/sum rounding (K4/K5's exp is ex2.approx) can flip a rounding
 # of p, ds or the output by one bf16 step (2^-8 relative), and a gradient
 # element near 0 is a sum of terms as large as the largest one.
@@ -510,16 +512,30 @@ def sdpa_fp32_backward(q, k, v, do, mask=None):
     return call
 
 
+# (check name, its largest error as a fraction of its tolerance: above 1 the check fails), one entry a
+# check_close or check_grads call (a gradient each), in the order of the calls; phases 2, 5 and 11 print
+# their fp32 entries
+TOL_FRACTIONS: list[tuple[str, float]] = []
+
+
+def fp32_fractions(since: int) -> str:
+    """The fp32 entries of TOL_FRACTIONS from index ``since`` on, as 'name: fraction' pairs."""
+    return ", ".join(f"{name}: {frac:.3f}" for name, frac in TOL_FRACTIONS[since:]
+                     if "fp32" in name or "float32" in name)
+
+
 def check_close(name, ours, ref, atol, rtol) -> float:
     import torch
 
     err = (ours.float() - ref.float()).abs()
-    bad = err > atol + rtol * ref.float().abs()
+    allowed = atol + rtol * ref.float().abs()
+    bad = err > allowed
     finite = torch.isfinite(ref)
     if not torch.equal(torch.isfinite(ours), finite):
         fail(f"{name}: non-finite values differ")
     bad &= finite
     max_err = float(err[finite].max()) if finite.any() else 0.0
+    TOL_FRACTIONS.append((name, float((err[finite] / allowed[finite]).max()) if finite.any() else 0.0))
     if bool(bad.any()):
         fail(f"{name}: max_abs_err {max_err:.3e} beyond atol {atol} + rtol {rtol}")
     return max_err
@@ -536,7 +552,10 @@ def check_grads(name, ours, refs, tol) -> float:
         if not (bool(torch.isfinite(o).all()) and bool(torch.isfinite(r).all())):
             fail(f"{name} {label}: non-finite gradient")
         err = (o - r).abs()
-        if bool((err > tol * (r.abs().max() + r.abs())).any()):
+        allowed = tol * (r.abs().max() + r.abs())
+        frac = torch.where(err == 0, 0.0, err / allowed)  # an all-zero reference allows nothing
+        TOL_FRACTIONS.append((name if len(ours) == 1 else f"{name} {label}", float(frac.max())))
+        if bool((err > allowed).any()):
             fail(f"{name} {label}: max_abs_err {float(err.max()):.3e} beyond {tol} * (max|ref| + |ref|), "
                  f"max|ref| {float(r.abs().max()):.3e}")
         worst = max(worst, float(err.max()))
@@ -581,9 +600,11 @@ def phase_kernel():
     import torch.nn.functional as F
 
     from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ
     from diffulab_tpu_torch.ops.fused_mha import forward_instance, fused_mha, fused_mha_reference
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    mark = len(TOL_FRACTIONS)
 
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
@@ -650,6 +671,14 @@ def phase_kernel():
         ms32 = cuda_time_ms(lambda: fused_mha(q32, k32, v32), iters=20)
         print(f"phase 2 kernel main fp32: max_abs_err {err:.3e} (tol atol {TOL['float32'][0]} "
               f"rtol {TOL['float32'][1]}); kernel_ms {ms32:.4f}")
+        # the fp32 K1 sums P.V over every key in the tensor cores' accumulator, which rounds toward zero:
+        # its longest rows, Sq = Skv = FUSED_MAX_SEQ, at D = 64 and 128, on inputs drawn in fp32
+        for hd in (64, 128):
+            q, k, v = (rand(4, FUSED_MAX_SEQ, 4, hd, dtype=torch.float32) for _ in range(3))
+            o, lse = fused_mha(q, k, v)
+            ro, rlse = fused_mha_reference(q, k, v)
+            check_close(f"fp32 {FUSED_MAX_SEQ} keys D={hd} o", o, ro, *TOL["float32"])
+            check_close(f"fp32 {FUSED_MAX_SEQ} keys D={hd} lse", lse, rlse, *LSE_TOL)
 
         for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
             tol = TOL[name]
@@ -686,6 +715,7 @@ def phase_kernel():
                   f"mask {e_mask:.3e} unaligned_100_300 {e_unal:.3e} cross_256_128 {e_cross:.3e} "
                   f"D16/32/128 {max(e_dims):.3e} fully_masked_row o==0 lse==+inf other_row {e_full:.3e}")
         torch.cuda.synchronize()
+    print(f"phase 2 fp32 errors as a fraction of the tolerance (above 1 fails): {fp32_fractions(mark)}")
     return results
 
 
@@ -924,6 +954,7 @@ def phase_flash_bwd_kernel(forward_times=None):
     from diffulab_tpu_torch.ops import _build, dot_product_attention
     from diffulab_tpu_torch.ops.flash_attention import (
         f32_dkv_queries,
+        f32_dq_keys,
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
@@ -933,6 +964,7 @@ def phase_flash_bwd_kernel(forward_times=None):
     from diffulab_tpu_torch.ops.fused_mha import KERNEL_HEAD_DIMS, fused_mha, fused_mha_bwd
 
     gen = torch.Generator(device="cuda").manual_seed(11)
+    mark = len(TOL_FRACTIONS)
 
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
@@ -1000,16 +1032,23 @@ def phase_flash_bwd_kernel(forward_times=None):
 
     with torch.no_grad():
         # fp32 at the slice shape (the library's default dtype=None trains in fp32, and so does the
-        # MMDiT's attention_dtype=float32 of phase 13b): K4 as flash_bwd_dkv_tf32x3 (3xTF32 mma.sync, its
-        # query tile the emulation's, ops/flash_attention.py::f32_dkv_queries) after the pre-pass, K5
-        # as the first design (one thread a query, FFMA), each timed, beside SDPA's fp32 masked backward
-        tiles = {hd: _build.load("flash_attn_bwd").flash_attn_bwd_f32_tiles(hd) for hd in KERNEL_HEAD_DIMS}
+        # MMDiT's attention_dtype=float32 of phase 13b): K4 as flash_bwd_dkv_tf32x3 after the pre-pass
+        # and K5 as flash_bwd_dq_tf32x3 (3xTF32 mma.sync, their query and key tiles the emulations',
+        # ops/flash_attention.py::f32_dkv_queries and f32_dq_keys), each timed, beside SDPA's fp32 masked
+        # backward
+        lib = _build.load("flash_attn_bwd")
+        tiles = {hd: lib.flash_attn_bwd_f32_tiles(hd, 0) for hd in KERNEL_HEAD_DIMS}
         if tiles != {hd: f32_dkv_queries(hd) for hd in KERNEL_HEAD_DIMS}:
             fail(f"fp32 K4 query tiles {tiles} differ from the emulation's f32_dkv_queries")
+        dq_tiles = {hd: lib.flash_attn_bwd_f32_tiles(hd, 1) for hd in KERNEL_HEAD_DIMS}
+        if dq_tiles != {hd: f32_dq_keys(hd) for hd in KERNEL_HEAD_DIMS}:
+            fail(f"fp32 K5 key tiles {dq_tiles} differ from the emulation's f32_dq_keys")
         q32, k32, v32, do32 = txt2img_fp32_inputs(b, FP32_BWD_SEED, with_do=True)
         (g32, r32) = both(q32, k32, v32, do32, mask)
+        slice_mark = len(TOL_FRACTIONS)
         errs32 = {name: check_grads(f"main fp32 {name}", [g], [r], BWD_TOL["float32"])
                   for name, g, r in zip(("dq", "dk", "dv"), g32, r32)}
+        of_tol32 = dict(zip(("dq", "dk", "dv"), (frac for _, frac in TOL_FRACTIONS[slice_mark:])))
         o32, lse32 = flash_attention(q32, k32, v32, mask)
         dkv32 = cuda_graph_ms(lambda: flash_attention_bwd_dkv(q32, k32, v32, mask, o32, lse32, do32, scale), calls=5,
                               replays=3)
@@ -1025,16 +1064,20 @@ def phase_flash_bwd_kernel(forward_times=None):
     for name, ms, grads in (("flash_attn_bwd_dkv", dkv32, ("dk", "dv")), ("flash_attn_bwd_dq", dq32, ("dq",))):
         results[name]["fp32"] = dict(max_abs_err=max(errs32[g] for g in grads), ms=ms, plain_ms=plain32,
                                      library_ms=library_device32, bound_ms=bounds32[name][0],
-                                     bound_by=bounds32[name][1],
-                                     **({"query_tiles": tiles} if name == "flash_attn_bwd_dkv" else {}))
-    gflop_dkv = bounds32["flash_attn_bwd_dkv"][3]
+                                     bound_by=bounds32[name][1], of_tol={g: of_tol32[g] for g in grads},
+                                     **({"query_tiles": tiles} if name == "flash_attn_bwd_dkv" else
+                                        {"key_tiles": dq_tiles}))
+    gflop_dkv, gflop_dq = bounds32["flash_attn_bwd_dkv"][3], bounds32["flash_attn_bwd_dq"][3]
     print(f"phase 11 kernel K4+K5 main fp32 (the slice shape; flash_bwd_dkv_tf32x3 with query tiles {tiles} after "
-          f"the pre-pass, flash_bwd_dq_f32): max_abs_err " + " ".join(f"{g} {e:.3e}" for g, e in errs32.items())
-          + f" (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); device ms (CUDA-graph replay) K4 with its pre-pass "
-          f"{dkv32:.4f} ({3 * gflop_dkv / dkv32:.1f} TFLOP/s of TF32 products achieved) K5 {dq32:.4f} SDPA fp32 "
-          f"masked backward op {library_device32:.4f} (dq, dk, dv together); wall ms plain {plain32:.4f}; bounds at 3xTF32 K4 "
-          f"{bounds32['flash_attn_bwd_dkv'][0]:.4f} K5 {bounds32['flash_attn_bwd_dq'][0]:.4f}, at the fp32 "
-          f"CUDA-core peak K4 {ffma32['flash_attn_bwd_dkv'][0]:.4f} K5 {ffma32['flash_attn_bwd_dq'][0]:.4f}")
+          f"the pre-pass, flash_bwd_dq_tf32x3 with key tiles {dq_tiles}): max_abs_err "
+          + " ".join(f"{g} {e:.3e}" for g, e in errs32.items())
+          + f" (tol {BWD_TOL['float32']} * (max|ref| + |ref|); as a fraction of it "
+          + " ".join(f"{g} {f:.3f}" for g, f in of_tol32.items())
+          + f"); device ms (CUDA-graph replay) K4 with its pre-pass {dkv32:.4f} ({3 * gflop_dkv / dkv32:.1f} TFLOP/s "
+          f"of TF32 products achieved) K5 {dq32:.4f} ({3 * gflop_dq / dq32:.1f} TFLOP/s) K4+K5 {dkv32 + dq32:.4f} SDPA "
+          f"fp32 masked backward op {library_device32:.4f} (dq, dk, dv together); wall ms plain {plain32:.4f}; bounds "
+          f"at 3xTF32 K4 {bounds32['flash_attn_bwd_dkv'][0]:.4f} K5 {bounds32['flash_attn_bwd_dq'][0]:.4f}, at the "
+          f"fp32 CUDA-core peak K4 {ffma32['flash_attn_bwd_dkv'][0]:.4f} K5 {ffma32['flash_attn_bwd_dq'][0]:.4f}")
 
     for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         tol = BWD_TOL[name]
@@ -1110,6 +1153,7 @@ def phase_flash_bwd_kernel(forward_times=None):
                                                flash_attention_bwd_reference(qs, ks, vs, None, o, lse, do), tol)
         print(f"phase 11 kernel K4/K5 edge cases {name} (tol {tol} * (max|ref| + |ref|)): max_abs_err "
               + " ".join(f"{key} {val:.3e}" for key, val in errs.items()) + "; fully_masked_row grads==0")
+    print(f"phase 11 fp32 errors as a fraction of the tolerance (above 1 fails): {fp32_fractions(mark)}")
 
     # K2 against K4+K5 about the dispatch line, each after its own forward: device times from CUDA-graph
     # replays; with phase 8's forwards, the fused route (K1 + K2) against the flash route (K3 + K4 + K5)
@@ -1249,9 +1293,11 @@ def phase_kernel_bwd():
     import torch.nn.functional as F
 
     from diffulab_tpu_torch.ops import dot_product_attention
+    from diffulab_tpu_torch.ops.attention import FUSED_MAX_SEQ
     from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    mark = len(TOL_FRACTIONS)
 
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
@@ -1303,6 +1349,11 @@ def phase_kernel_bwd():
         _, lse32 = fused_mha(q32, k32, v32)
         ms32 = cuda_time_ms(lambda: fused_mha_bwd(q32, k32, v32, None, lse32, do32), iters=10)
         del q32, k32, v32, do32, lse32
+        # the fp32 K2 sums dq over every key and dk, dv over every query in the tensor cores' accumulator:
+        # its longest rows, Sq = Skv = FUSED_MAX_SEQ, at D = 64 and 128, on inputs drawn in fp32
+        for hd in (64, 128):
+            check_grads(f"fp32 {FUSED_MAX_SEQ} keys D={hd}", *both(
+                *(rand(4, FUSED_MAX_SEQ, 4, hd, dtype=torch.float32) for _ in range(4))), BWD_TOL["float32"])
     print(f"phase 5 kernel K2 main fp32: max_abs_err {err32:.3e} (tol {BWD_TOL['float32']} * (max|ref| + |ref|)); "
           f"kernel_ms {ms32:.4f}")
 
@@ -1372,6 +1423,7 @@ def phase_kernel_bwd():
               f"{e_packed:.3e}; unaligned_100_300 autograd vs plain-forward autograd "
               f"{e_unal:.3e} (tol {GRAD_PATH_TOL[name]})")
     torch.cuda.synchronize()
+    print(f"phase 5 fp32 errors as a fraction of the tolerance (above 1 fails): {fp32_fractions(mark)}")
     return result
 
 
@@ -2643,7 +2695,9 @@ def phase_e1_kernels():
     E1's attention shape (the hard configs' DiT: B=128, S=256, H=8; K1 also
     at the distillation teacher's 2x batch), against their plain versions.
     K1 timed from CUDA-graph replays beside bf16 SDPA, its plain version and
-    its bound at the bf16 peak; K2 beside its bound. The fp32 instances at
+    its bound at the bf16 peak; K2 beside its bound and SDPA's bf16 autograd
+    backward (dq, dk and dv; its kernels summed by torch.profiler, as phases 5
+    and 11 time it: a CUDA graph cannot capture autograd). The fp32 instances at
     E1's other shapes are phase 14a's (D=64: colorize, flow_repa, edm_repa)
     and phase 17a's (D=192, 384: ddpm_repa)."""
     import torch
@@ -2676,20 +2730,26 @@ def phase_e1_kernels():
         bwd_err = check_grads("E1 K2 bf16", fused_mha_bwd(q, k, v, None, lse, do),
                               fused_mha_bwd_reference(q, k, v, None, lse, do), BWD_TOL["bfloat16"])
         bwd_ms = cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do), calls=10, replays=5)
-        bytes_moved = 7 * b * s * h * d * 2 + b * s * h * 4
-        flops = 10 * b * h * s * s * d
-        t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-        del q, k, v, do, o, lse, ro, rlse, qt, kt, vt
+    with torch.enable_grad():
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves)
+        dot = do.transpose(1, 2)
+        sdpa_bwd_ms = profiled_kernels(lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True))[0]
+        del out, leaves, dot, q, k, v, do, o, lse, ro, rlse, qt, kt, vt
+    bytes_moved = 7 * b * s * h * d * 2 + b * s * h * 4
+    flops = 10 * b * h * s * s * d
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
     torch.cuda.synchronize()
     print(f"phase 18 kernels bf16 at the E1 shape (B={b} S={s} H={h} D={d}; device ms from CUDA-graph replays, bound "
           f"at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s): K1 max_abs_err "
           f"{fwd['max_abs_err']:.3e} (B={2 * b}: {teacher_err:.3e}) kernel {fwd['ms']:.4f} SDPA bf16 "
           f"{fwd['library_ms']:.4f} plain {fwd['plain_ms']:.4f} bound {fwd['bound_ms']:.4f} ({fwd['bound_by']}: "
-          f"{mb:.1f} MB, {gflop:.2f} GFLOP); K2 max_abs_err {bwd_err:.3e} kernel {bwd_ms:.4f} bound "
+          f"{mb:.1f} MB, {gflop:.2f} GFLOP); K2 max_abs_err {bwd_err:.3e} kernel {bwd_ms:.4f} SDPA bf16 backward "
+          f"{sdpa_bwd_ms:.4f} (autograd's kernels summed by torch.profiler) bound "
           f"{max(t_bytes, t_ops) * 1e3:.4f} ({'bytes' if t_bytes >= t_ops else 'operations'}: "
           f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); tol K1 atol {TOL['bfloat16'][0]} rtol "
           f"{TOL['bfloat16'][1]}, K2 {BWD_TOL['bfloat16']} * (max|ref| + |ref|)")
-    bwd = dict(max_abs_err=bwd_err, ms=bwd_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
+    bwd = dict(max_abs_err=bwd_err, ms=bwd_ms, library_ms=sdpa_bwd_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return fwd, bwd
 
@@ -3421,7 +3481,8 @@ def main() -> int:
                              "txt2img_train": txt_train_launches["fused_mha_bwd"],
                              **{k: w["fused_mha_bwd_bf16"] for k, w in e1_bf16.items()}},
         "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
-                     "timing": "device time per call from CUDA-graph replays"},
+                     "timing": "ms: device time per call from CUDA-graph replays; library_ms: device time per call "
+                               "of SDPA's bf16 autograd backward, kernels summed by torch.profiler"},
         **k2,
     }, {
         "name": "fused_mha_bwd (fp32 instance, slice C1)",
@@ -3486,26 +3547,30 @@ def main() -> int:
                             for key, (k2, k45_ms) in bwd_crossover.items()},
     } for name, replaces in (("flash_attn_bwd_dkv", "diffulab_tpu/ops/flash_attention.py:196"),
                              ("flash_attn_bwd_dq", "diffulab_tpu/ops/flash_attention.py:237"))] + [{
-        "name": f"{name} (fp32 instance)",
+        "name": f"{name} (fp32 instance, {kernel})",
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": sum(counts.get(f"{name}_f32", 0) for counts in windows.values()),
         "launches_by_path": {path: counts[f"{name}_f32"] for path, counts in windows.items() if f"{name}_f32" in counts},
         **{key: numbers[key] for key in C1_KEYS},
+        **{key: numbers[key] for key in ("of_tol", "query_tiles", "key_tiles") if key in numbers},
         "shape": shape,
         "timing": "ms and library_ms (fp32 SDPA; the backward's: its memory-efficient backward op, dq, dk and dv "
                   "together): device time per call from CUDA-graph replays; plain_ms: wall time per call; bound_ms "
                   "at 3xTF32; launches: the fp32 instance's own count (fp32 above 512 tokens)",
         "path_times_ms": {"txt2img_fp32_attention_request": txt32["request_ms"],
                           "txt2img_fp32_attention_steps": txt32["step_ms"]},
-    } for name, source, replaces, numbers, shape in (
-        ("flash_attn_fwd", "diffulab_tpu_torch/csrc/flash_attn_fwd.cu", "diffulab_tpu/ops/flash_attention.py:81",
-         k3_fp32, f"B={2 * TXT_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the phase 8 text mask"),
-        ("flash_attn_bwd_dkv", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu", "diffulab_tpu/ops/flash_attention.py:196",
-         k45_fp32["flash_attn_bwd_dkv"], f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"),
-        ("flash_attn_bwd_dq", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu", "diffulab_tpu/ops/flash_attention.py:237",
-         k45_fp32["flash_attn_bwd_dq"], f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"))]}))
+    } for name, kernel, source, replaces, numbers, shape in (
+        ("flash_attn_fwd", "flash_fwd_tf32x3", "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
+         "diffulab_tpu/ops/flash_attention.py:81", k3_fp32,
+         f"B={2 * TXT_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the phase 8 text mask"),
+        ("flash_attn_bwd_dkv", "flash_bwd_dkv_tf32x3", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
+         "diffulab_tpu/ops/flash_attention.py:196", k45_fp32["flash_attn_bwd_dkv"],
+         f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"),
+        ("flash_attn_bwd_dq", "flash_bwd_dq_tf32x3", "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
+         "diffulab_tpu/ops/flash_attention.py:237", k45_fp32["flash_attn_bwd_dq"],
+         f"B={TXT_TRAIN_BATCH} S={TXT_SEQ} H=12 D=64 fp32, the training mask"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

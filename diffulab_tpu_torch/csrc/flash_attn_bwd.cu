@@ -57,12 +57,13 @@
 // warps of 16 rows, p and ds from the C fragments into A fragments, B operands
 // by ldmatrix[.trans]).
 //
-// fp32 K4 (flash_bwd_dkv_tf32x3<D>, D = 16-128): the tensor cores take no
-// fp32 operand, so its four products run as 3xTF32 (tf32x3.cuh: each operand
-// split into two TF32 halves, three mma.sync m16n8k8 products, about 2^-21
-// relative each). At the training shape that is 3 x 859.9 GFLOP at 495
-// TFLOP/s, 5.211 ms, against 12.834 at the CUDA cores' 67 TFLOP/s and ~0.7
-// GB of fp32 operands (0.2 ms): bound by operations. One CTA per (128
+// fp32 K4 and K5 (flash_bwd_dkv_tf32x3<D>, flash_bwd_dq_tf32x3<D>, D =
+// 16-128): the tensor cores take no fp32 operand, so their products run as
+// 3xTF32 (tf32x3.cuh: each operand split into two TF32 halves, three mma.sync
+// m16n8k8 products, about 2^-21 relative each). At the training shape that is
+// 3 x 859.9 GFLOP (K4) and 3 x 644.9 (K5) at 495 TFLOP/s, 5.211 and 3.909
+// ms, against 12.834 and 9.626 at the CUDA cores' 67 TFLOP/s and ~0.7 and
+// ~0.5 GB of fp32 operands (0.2 and 0.15 ms): bound by operations. K4: one CTA per (128
 // keys, head, batch; 64 at D = 128), warps of 16 keys, the CTA's K and V rows
 // staged once; Q and dO tiles of dkv_f32_queries queries, with their lse2
 // and di from the pre-pass's workspace, through a two-slot cp.async ring
@@ -75,8 +76,14 @@
 // dk sums start from zero and are added to them in fp32, since the tensor
 // cores round an mma's sum toward zero and a sum carried through 4224
 // queries drifted one way (dv 1.0e-5 off at max |dv| 0.28 in a 2e-5 * (max
-// + |dv|) check; tf32x3.cuh, scores_times_tile_fresh). K5's fp32 kernel
-// (flash_bwd_dq_f32) is one thread a query with fp32 FMAs.
+// + |dv|) check; tf32x3.cuh, scores_times_tile_fresh). K5 is the fp32 K3's
+// structure (flash_attn_fwd.cu) with K in V's place: one CTA per (128 query
+// rows, head, batch; 64 at D = 128), warps of 16 rows, Q and dO staged once
+// (Q's split fragments kept in registers at D <= 64), K and V tiles of
+// dq_f32_keys keys through a two-slot cp.async ring, the tile's mask as
+// ballot words; per tile s = Q.K^T, p = ex2(s * scale * log2 e - lse2),
+// dp = dO.V^T, ds = p * (dp - di) * scale and dq += ds.K, each tile's dq
+// summed from zero as K4's sums are, and dq stored once.
 //
 // Plain C interface (bound with ctypes): flash_attn_bwd_dkv launches the
 // pre-pass and K4, flash_attn_bwd_dq launches K5; each returns the first CUDA
@@ -86,7 +93,7 @@
 #include <stdint.h>
 
 #include "attn_bwd_hopper.cuh"  // the Hopper kernels at D = 64 and 128 (shared with K2), hopper.cuh
-#include "tf32x3.cuh"            // fp32 K4's 3xTF32 mma.sync fragments, cp.async staging, F32_ROWS
+#include "tf32x3.cuh"            // fp32 K4/K5's 3xTF32 mma.sync fragments, cp.async staging
 
 namespace {
 
@@ -94,7 +101,6 @@ constexpr int BLOCK = 64;     // rows per CTA and rows per staged tile (bf16 ker
 constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
-constexpr int F32_TILE = 16;  // fp32 K5: keys per staged tile (its CTA: F32_ROWS queries, one per thread)
 static_assert(BLOCK == 2 * CHUNK && CHUNK == 32, "K5 holds a tile's key mask in two 32-bit words");
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -515,39 +521,6 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const 
 
 // --- fp32 -------------------------------------------------------------------------
 
-// shared memory of K5's fp32 kernel: its own rows (q and do, padded to D + 1
-// so that a warp reading one column of 32 rows hits 32 banks) and a staged
-// tile of F32_TILE keys of k and v with their mask
-template <int D>
-constexpr int dq_f32_smem_bytes() {
-  return static_cast<int>(sizeof(float)) * (2 * F32_ROWS * (D + 1) + 2 * F32_TILE * D + 2 * F32_TILE);
-}
-
-// rows [r0, r0 + F32_ROWS) of one head into padded shared memory; past S, zeros
-template <int D>
-__device__ __forceinline__ void stage_own_rows(float* dst, const float* src, long long row_stride, int r0, int S) {
-  for (int i = threadIdx.x; i < F32_ROWS * D; i += F32_ROWS) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void stage_f32_tile(float* dst, const float* src, long long row_stride, int r0, int S) {
-  for (int i = threadIdx.x; i < F32_TILE * D; i += F32_ROWS) {
-    const int r = i / D, c = i % D;
-    dst[i] = r0 + r < S ? src[(long long)(r0 + r) * row_stride + c] : 0.f;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float* own, const float* other) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc = fmaf(own[d], other[d], acc);
-  return acc;
-}
-
 // K4 in fp32: 3xTF32 products on the tensor cores (tf32x3.cuh)
 
 // The tiles below were picked by timing scripts/flash_fp32_variants.py at the
@@ -672,60 +645,154 @@ flash_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, c
   store_c_rows_upto<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, key, dv_acc, t4, Skv);
 }
 
-// K5 in fp32: one thread per query
-template <int D>
-__global__ void __launch_bounds__(F32_ROWS)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
-                 const float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, int di_rs,
-                 long long q_sb,
-                 long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
-                 long long do_sb, long long do_ss, float sm_scale) {
-  extern __shared__ __align__(16) float fsmem[];
-  float* qs = fsmem;                       // [F32_ROWS][D + 1]
-  float* dos = qs + F32_ROWS * (D + 1);    // [F32_ROWS][D + 1]
-  float* kt = dos + F32_ROWS * (D + 1);    // [F32_TILE][D]
-  float* vt = kt + F32_TILE * D;           // [F32_TILE][D]
-  float* keep_t = vt + F32_TILE * D;       // [F32_TILE], 1 = attend
+// K5 in fp32: 3xTF32 products on the tensor cores (tf32x3.cuh), K3's fp32
+// structure with K in V's place in the last product
 
-  const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int m0 = blockIdx.x * F32_ROWS, row = m0 + tid;
+// The tiles and the operand rule below were picked by timing
+// scripts/flash_fp32_variants.py at the txt2img training shape (B=8, S=4224,
+// H=12, D=64, the training mask; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6):
+// eight warps, 64-key slots and Q's fragments held took 10.80 ms; four warps
+// 10.98; 32-key slots 11.67; dO's fragments held too 12.38 (80 bytes
+// spilled); Q's split from shared memory as well 12.62.
+
+// warps of 16 query rows in a CTA: eight at D <= 64, four at D = 128, where dq takes 64 registers a thread
+template <int D>
+__host__ __device__ constexpr int dq_f32_warps() {
+  return D <= 64 ? 8 : 4;
+}
+
+// keys of a ring slot (KT / 32 mask words): 64 at D <= 64, 32 at D = 128
+template <int D>
+__host__ __device__ constexpr int dq_f32_keys() {
+  return D <= 64 ? 64 : 32;
+}
+
+// bytes of dynamic shared memory: the CTA's Q and dO rows and two ring slots of K and V
+template <int D>
+__host__ __device__ constexpr int dq_f32_bytes() {
+  return 4 * ld<D>() * (2 * 16 * dq_f32_warps<D>() + 2 * 2 * dq_f32_keys<D>());
+}
+
+// dq for 16 * dq_f32_warps query rows of a (batch, head) over every key
+// tile, from K3's lse [B, H, Sq] and the pre-pass's di (rows di_rs apart):
+// per tile s = Q.K^T, p = ex2(s * scale * log2 e - lse2) (0 on a key masked
+// or past Skv, and on a row past Sq, whose lse2 is +inf), dp = dO.V^T, ds =
+// p * (dp - di) * scale, dq += ds.K summed from zero and added in fp32. A
+// tile without an attended key adds exactly 0 and is skipped.
+template <int D>
+__global__ void __launch_bounds__(32 * dq_f32_warps<D>())
+flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                    const float* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                    const float* __restrict__ di, float* __restrict__ dq, int Sq, int Skv, int H, int di_rs,
+                    long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                    long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = dq_f32_keys<D>(), LD = ld<D>(), ROWS = 16 * dq_f32_warps<D>(), THREADS = 2 * ROWS;
+  // Q's split fragments stay in registers for every key tile at D <= 64; dO's are split from shared memory
+  // every tile (DOREG holds them too: the variant that spilled)
+  constexpr bool QREG = D <= 64, DOREG = false;
+  static_assert(KT % 32 == 0, "a tile's mask is KT / 32 ballot words");
+  extern __shared__ __align__(16) float fsmem[];
+  float* qs = fsmem;             // [ROWS][LD]
+  float* dos = qs + ROWS * LD;   // [ROWS][LD]
+  float* ks = dos + ROWS * LD;   // [2][KT][LD]
+  float* vs = ks + 2 * KT * LD;  // [2][KT][LD]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * warp;
+  const int row = m0 + r0 + g;  // this thread's rows: row, row + 8
   const float* kb = k + b * k_sb + h * D;
   const float* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
-  const long long lrow = ((long long)b * H + h) * Sq;
+  const int n_tiles = (Skv + KT - 1) / KT;
+  const float scale_log2 = sm_scale * LOG2E;
 
-  stage_own_rows<D>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
-  stage_own_rows<D>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
-  const float* qr = qs + tid * (D + 1);
-  const float* dr = dos + tid * (D + 1);
-  const float lse_r = row < Sq ? lse[lrow + row] : INFINITY;
-  const float di_r = row < Sq ? di[((long long)b * H + h) * di_rs + row] : 0.f;
+  auto stage = [&](int t) {
+    stage_rows_upto<D, KT, THREADS>(ks + (t & 1) * KT * LD, kb, k_ss, t * KT, Skv);
+    stage_rows_upto<D, KT, THREADS>(vs + (t & 1) * KT * LD, vb, v_ss, t * KT, Skv);
+  };
+  stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+  stage_rows_upto<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
+  cp_async_commit();
+  stage(0);
+  cp_async_commit();
 
-  float acc[D];
+  // lse2 = lse * log2 e, the pre-pass's multiply, and di of the two rows; +inf and 0 past Sq
+  const long long bh = (long long)b * H + h;
+  float lse2[2], dir[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int n0 = 0; n0 < Skv; n0 += F32_TILE) {
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    lse2[r] = i < Sq ? lse[bh * Sq + i] * LOG2E : INFINITY;
+    dir[r] = i < Sq ? di[bh * di_rs + i] : 0.f;
+  }
+
+  [[maybe_unused]] uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
+  [[maybe_unused]] uint32_t dh[DOREG ? D / 8 : 1][4], dl[DOREG ? D / 8 : 1][4];
+  if constexpr (QREG || DOREG) {
+    cp_async_wait<1>();
     __syncthreads();
-    stage_f32_tile<D>(kt, kb, k_ss, n0, Skv);
-    stage_f32_tile<D>(vt, vb, v_ss, n0, Skv);
-    if (tid < F32_TILE) {
-      const int key = n0 + tid;
-      keep_t[tid] = key < Skv && (mb == nullptr || mb[key] != 0) ? 1.f : 0.f;
-    }
-    __syncthreads();
-    for (int j = 0; j < F32_TILE; ++j) {
-      const float x = keep_t[j] != 0.f ? dot_row<D>(qr, kt + j * D) * sm_scale : MASK_VALUE;
-      const float p = expf(x - lse_r);
-      const float ds = p * (dot_row<D>(dr, vt + j * D) - di_r) * sm_scale;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, kt[j * D + d], acc[d]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      if constexpr (QREG) frag_a<D>(qh[kk], ql[kk], qs, r0, kk, g, t4);
+      if constexpr (DOREG) frag_a<D>(dh[kk], dl[kk], dos, r0, kk, g, t4);
     }
   }
-  if (row >= Sq) return;
-  float* out = dq + ((long long)b * Sq + row) * H * D + h * D;
+
+  float acc[D / 8][4];
 #pragma unroll
-  for (int d = 0; d < D; ++d) out[d] = acc[d];
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // the tile's mask: bit i of word w is key t * KT + 32 w + i kept (0 past Skv), the same in every lane
+    uint32_t words[KT / 32];
+    uint32_t any = 0u;
+    bool full = true;
+#pragma unroll
+    for (int w = 0; w < KT / 32; ++w) {
+      const int key = t * KT + 32 * w + lane;
+      words[w] = __ballot_sync(0xffffffffu, key < Skv && (mb == nullptr || mb[key] != 0));
+      any |= words[w];
+      full &= words[w] == 0xffffffffu;
+    }
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (any != 0u) {  // the same in every warp of the CTA
+      const float* kt = ks + (t & 1) * KT * LD;
+      const float* vt = vs + (t & 1) * KT * LD;
+      float s[KT / 8][4], dp[KT / 8][4];
+      if constexpr (QREG)
+        rows_dot<D, KT>(s, qh, ql, kt, g, t4);
+      else
+        rows_dot<D, KT>(s, qs, r0, kt, g, t4);
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool kept = full || ((words[nt / 4] >> ((nt % 4) * 8 + 2 * t4 + (e & 1))) & 1u);
+          s[nt][e] = kept ? exp2_approx(fmaf(s[nt][e], scale_log2, -lse2[e >> 1])) : 0.f;
+        }
+      if constexpr (DOREG)
+        rows_dot<D, KT>(dp, dh, dl, vt, g, t4);  // dp = dO.V^T
+      else
+        rows_dot<D, KT>(dp, dos, r0, vt, g, t4);
+#pragma unroll
+      for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt][e] = s[nt][e] * (dp[nt][e] - dir[e >> 1]) * sm_scale;
+      scores_times_tile_fresh<D, KT>(acc, dp, kt, g, t4);  // dq += ds.K, the tile's sum added
+    }
+    __syncthreads();  // the slot is refilled next iteration
+  }
+
+  // dq [B, Sq, H, D] contiguous, the rows below Sq
+  const long long o_ss = (long long)H * D;
+  store_c_rows_upto<D>(dq + (long long)b * Sq * o_ss + h * D, o_ss, row, acc, t4, Sq);
 }
 
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh -----------
@@ -823,11 +890,16 @@ cudaError_t launch_dq(int dtype, const Args& a, cudaStream_t stream) {
       return cudaGetLastError();
     }
   }
-  constexpr int bytes = dq_f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  auto kernel = flash_bwd_dq_tf32x3<D>;
+  static bool configured[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + F32_ROWS - 1) / F32_ROWS, a.H, a.B);
-  flash_bwd_dq_f32<D><<<grid, F32_ROWS, bytes, stream>>>(
+  static_assert(dq_f32_bytes<D>() <= SMEM_LIMIT, "the fp32 K5's tiles exceed shared memory");
+  constexpr int ROWS = 16 * dq_f32_warps<D>();
+  const dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, a.B);
+  kernel<<<grid, 2 * ROWS, dq_f32_bytes<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const float*>(a.dout), a.mask, a.lse, a.di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H, a.ws_rs,
       a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
@@ -889,17 +961,16 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, co
   return dispatch(DQ, D, dtype, a, stream);
 }
 
-// queries of the fp32 dk/dv kernel's ring slot at head dim D, by the rule its
-// launch follows; 0 for another D. The emulation in ops/flash_attention.py
-// (f32_dkv_queries) mirrors it.
-extern "C" int flash_attn_bwd_f32_tiles(int D) {
-  switch (D) {
-    case 16: return dkv_f32_queries<16>();
-    case 32: return dkv_f32_queries<32>();
-    case 64: return dkv_f32_queries<64>();
-    case 128: return dkv_f32_queries<128>();
-    default: return 0;
-  }
+// the tiles of the fp32 kernels at head dim D, by the rules their launches
+// follow: the queries of the dk/dv kernel's ring slot (what = 0) and the keys
+// of the dq kernel's (what = 1); 0 for another D. The emulations in
+// ops/flash_attention.py (f32_dkv_queries, f32_dq_keys) mirror them.
+extern "C" int flash_attn_bwd_f32_tiles(int D, int what) {
+#define F32_TILES(DD) \
+  if (D == DD) return what == 0 ? dkv_f32_queries<DD>() : dq_f32_keys<DD>();
+  F32_TILES(16) F32_TILES(32) F32_TILES(64) F32_TILES(128)
+#undef F32_TILES
+  return 0;
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

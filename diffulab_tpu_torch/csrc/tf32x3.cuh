@@ -1,6 +1,6 @@
 // fp32 attention products on Hopper's tensor cores as 3xTF32, shared by the
 // fp32 instances of K1 (fused_mha_fwd.cu), K2 (fused_mha_bwd.cu), K3
-// (flash_attn_fwd.cu) and K4's dk/dv kernel (flash_attn_bwd.cu).
+// (flash_attn_fwd.cu) and K4's dk/dv and K5's dq kernels (flash_attn_bwd.cu).
 //
 // The tensor cores take no fp32 operand, but TF32 (8 exponent bits, 10
 // mantissa bits) at 495 TFLOP/s dense. Each fp32 operand x is split into

@@ -52,7 +52,7 @@ KERNELS = {
         "csrc/flash_attn_bwd.cu",
         {"flash_attn_bwd_dkv": [_P] * 10 + [_I] * 6 + [_L] * 10 + [ctypes.c_float, _I, _P],
          "flash_attn_bwd_dq": [_P] * 8 + [_I] * 6 + [_L] * 8 + [ctypes.c_float, _I, _P],
-         "flash_attn_bwd_f32_tiles": [_I]},
+         "flash_attn_bwd_f32_tiles": [_I, _I]},
     ),
 }
 

@@ -62,11 +62,14 @@ D = 128), K5 per (128 queries, head, batch) over 128-key tiles (64 at
 D = 128), two warpgroups of 64 rows taking turns at ``wgmma``, the sums in
 fp32 registers; p and ds go from the accumulators into register operands.
 At head dims 16 and 32 the first ``mma.sync`` kernels run. A coalesced
-pre-pass launched with K4 forms di and lse·log2 e into a workspace. In fp32,
-K4 runs its four products as 3xTF32 ``mma.sync``, one CTA per 128 keys (64 at head dim 128) over
-query tiles of :func:`f32_dkv_queries` with lse·log2 e and di from that
-workspace (:func:`flash_attention_bwd_dkv_tf32x3_emulation` emulates it); K5
-runs fp32 FMAs, one thread a query.
+pre-pass launched with K4 forms di and lse·log2 e into a workspace. In fp32
+both run their products as 3xTF32 ``mma.sync``: K4 one CTA per 128 keys (64
+at head dim 128) over query tiles of :func:`f32_dkv_queries` with lse·log2 e
+and di from that workspace (:func:`flash_attention_bwd_dkv_tf32x3_emulation`
+emulates it), K5 one CTA per 128 query rows (64 at head dim 128) over key
+tiles of :func:`f32_dq_keys` from K3's lse and that di
+(:func:`flash_attention_bwd_dq_tf32x3_emulation`); each tile's sums start
+from zero and are added in fp32.
 
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions, the same arithmetic over the same key tiles.
@@ -124,7 +127,14 @@ def f32_fwd_keys(d: int) -> int:
 def f32_dkv_queries(d: int) -> int:
     """Queries of a ring slot of the fp32 K4 at head dim ``d``: 64, and 32 at
     D = 128 (``dkv_f32_queries`` in ``csrc/flash_attn_bwd.cu``, exported as
-    ``flash_attn_bwd_f32_tiles``). Each divides :data:`BWD_ROW_ALIGN`."""
+    ``flash_attn_bwd_f32_tiles(d, 0)``). Each divides :data:`BWD_ROW_ALIGN`."""
+    return 64 if d <= 64 else 32
+
+
+def f32_dq_keys(d: int) -> int:
+    """Keys of a ring slot of the fp32 K5 at head dim ``d``: 64, and 32 at
+    D = 128, whole 32-key ballot words of mask (``dq_f32_keys`` in
+    ``csrc/flash_attn_bwd.cu``, exported as ``flash_attn_bwd_f32_tiles(d, 1)``)."""
     return 64 if d <= 64 else 32
 
 #: launches of the CUDA kernels: K3 by :func:`flash_attention`, K4 by
@@ -313,6 +323,31 @@ def flash_attention_bwd_dkv_tf32x3_emulation(q, k, v, kv_mask, o, lse, do, sm_sc
         dst = pt * (matmul_3xtf32(vh, doh[:, :, rows].transpose(-1, -2)) - di[:, :, None, rows]) * sm_scale
         dk = dk + matmul_3xtf32(dst, qh[:, :, rows])
     return dk.permute(0, 2, 1, 3).contiguous(), dv.permute(0, 2, 1, 3).contiguous(), di
+
+
+def flash_attention_bwd_dq_tf32x3_emulation(q, k, v, kv_mask, lse, di, do, sm_scale=None):
+    """The fp32 K5's tile math on fp32 CPU tensors: from K3's lse and the
+    pre-pass's di (both ``[B, H, Sq]``), over key tiles of
+    :func:`f32_dq_keys`, with :func:`matmul_3xtf32` products, ``p =
+    2^(q·kᵀ·scale·log2 e - lse·log2 e)`` (0 on a masked key, and on a row with
+    lse = +inf), ``dp = do·vᵀ``, ``ds = p·(dp - di)·scale``, and each tile's
+    ``ds·k`` summed from zero and then added to dq. The kernel skips a tile
+    with no attended key, which adds exactly 0. Returns dq [B,Sq,H,D]."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
+    lse2 = lse.float() * _LOG2E
+    scale_log2 = _scale_log2(sm_scale)
+    dq = torch.zeros(qh.shape)
+    kt = f32_dq_keys(qh.shape[-1])
+    for n0 in range(0, kh.shape[2], kt):
+        keys = slice(n0, n0 + kt)
+        p = torch.exp2(matmul_3xtf32(qh, kh[:, :, keys].transpose(-1, -2)) * scale_log2 - lse2[..., None])
+        if kv_mask is not None:
+            p = torch.where(kv_mask[:, None, None, keys].bool(), p, 0.0)
+        ds = p * (matmul_3xtf32(doh, vh[:, :, keys].transpose(-1, -2)) - di[..., None]) * sm_scale
+        dq = dq + matmul_3xtf32(ds, kh[:, :, keys])
+    return dq.permute(0, 2, 1, 3).contiguous()
 
 
 def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:

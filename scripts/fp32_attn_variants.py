@@ -18,12 +18,20 @@ interfaces:
 - ``dkv_queries32``: K2's dk/dv kernel with 32-query ring slots (three CTAs
   an SM, not two, and half the columns for each split fragment of k or v);
 - ``dq_recompute``: K2's dq kernel forming s and dp again for dq (5
-  products) where the sources keep p and dp in shared memory (3).
+  products) where the sources keep p and dp in shared memory (3);
+- ``fresh``: K1's P.V and K2's dq, dk and dv (at head dims up to 128) summed
+  from zero a tile and added in fp32 (``scores_times_tile_fresh``, as the
+  flash kernels sum), where the sources carry them through every tile in the
+  tensor cores' accumulator, which rounds toward zero.
 
 At slice C1's shapes (S=256, H=8, D=64, fp32) it prints, for each variant,
 ptxas's registers and spills, K1's device ms per call from CUDA-graph
 replays at B=128 and B=32, K2's at B=128, and each one's largest difference
-from its plain version.
+from its plain version. Then, on the same inputs for every variant (drawn in
+fp32), the fp32 checks of ``chip_smoke.py``'s phases 2 and 5 whose sums are
+longest (Sq = Skv = 512, D = 64 and 128) and phase 5's ragged mask (lengths
+256, 200, 77 and 1): each output's largest error as a fraction of the
+phase's tolerance (above 1 the phase fails).
 
 Run from the repository root on the card:
 ``python3 scripts/fp32_attn_variants.py [variant ...]`` (all by default).
@@ -46,6 +54,13 @@ LO_ROUNDED = "  lo = tf32_rna(x - __uint_as_float(hi));"
 FWD_KEYS = "constexpr int F32_KEYS = 32;"
 DKV_QUERIES = "constexpr int dkv_queries() {\n  return D <= 64 ? 64 : 32;"
 KEEPS = "  return D <= 64 && dq_kept_smem_bytes<D>(Skv) <= SMEM_LIMIT;"
+CARRIED = "scores_times_tile<"
+FRESH = "scores_times_tile_fresh<"
+#: the carried sums of the instances at head dims up to 128; dk and dv take 32-column blocks at D = 128
+FRESH_SITES = [("fused_mha_fwd.cu", CARRIED + "D, KT>(acc, s,", FRESH + "D, KT>(acc, s,"),
+               ("fused_mha_bwd.cu", CARRIED + "D, KH>(acc, ds,", FRESH + "D, KH>(acc, ds,"),
+               ("fused_mha_bwd.cu", CARRIED + "D, KT>(acc, p,", FRESH + "D, KT>(acc, p,"),
+               ("fused_mha_bwd.cu", CARRIED + "D, QT>(", FRESH + "D, QT, (D <= 64 ? D : 32)>(")]
 #: variant -> [(file under csrc/, text, its replacement)]
 VARIANTS = {
     "kernel": [],
@@ -54,7 +69,47 @@ VARIANTS = {
     "fwd_keys64": [("fused_mha_fwd.cu", FWD_KEYS, "constexpr int F32_KEYS = 64;")],
     "dkv_queries32": [("fused_mha_bwd.cu", DKV_QUERIES, DKV_QUERIES.replace("D <= 64 ? 64 : 32", "32"))],
     "dq_recompute": [("fused_mha_bwd.cu", KEEPS, "  return false;")],
+    "fresh": FRESH_SITES,
 }
+
+
+def margins(libs, names, gen) -> dict[str, dict[str, dict[str, float]]]:
+    """{variant: {case: {output: largest error / tolerance}}} of the fp32 K1
+    and K2 through the port's wrappers with each variant's libraries in
+    place, at phases 2 and 5's tolerances, on the same inputs for every
+    variant."""
+    import torch
+
+    import chip_smoke
+    from diffulab_tpu_torch.ops import _build
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    cases = {f"512_D{hd}": (tuple(rand(4, 512, 4, hd) for _ in range(4)), None) for hd in (64, 128)}
+    lengths = torch.tensor([256, 200, 77, 1], device="cuda")
+    cases["mask_256"] = (tuple(rand(4, 256, 4, 64) for _ in range(4)),
+                         torch.arange(256, device="cuda")[None, :] < lengths[:, None])
+    atol, rtol = chip_smoke.TOL["float32"]
+    tol = chip_smoke.BWD_TOL["float32"]
+    out = {name: {} for name in names}
+    for case, (tensors, mask) in cases.items():
+        q, k, v, do = tensors
+        ro, rlse = fused_mha_reference(q, k, v, mask)
+        refs = fused_mha_bwd_reference(q, k, v, mask, rlse, do)
+        for name in names:
+            _build._loaded["fused_mha_fwd"] = libs[name, "fused_mha_fwd"]
+            _build._loaded["fused_mha_bwd"] = libs[name, "fused_mha_bwd"]
+            o, _ = fused_mha(q, k, v, mask)
+            row = {"o": float(((o - ro).abs() / (atol + rtol * ro.abs())).max())}
+            for label, g, r in zip(("dq", "dk", "dv"), fused_mha_bwd(q, k, v, mask, rlse, do), refs):
+                err = (g - r).abs()
+                row[label] = float(torch.where(err == 0, 0.0, err / (tol * (r.abs().max() + r.abs()))).max())
+            out[name][case] = {key: round(val, 3) for key, val in row.items()}
+    _build._loaded.pop("fused_mha_fwd", None)
+    _build._loaded.pop("fused_mha_bwd", None)
+    return out
 
 
 def main() -> int:
@@ -112,8 +167,9 @@ def main() -> int:
         err = chip_smoke.check_grads(name, out[:3], refs, chip_smoke.BWD_TOL["float32"])
         ms = chip_smoke.cuda_graph_ms(lambda: bwd(fn, q, k, v, do, lse, out), calls=10, replays=5)
         rows[name][f"K2_B{b}"] = {"device_ms": round(ms, 4), "max_abs_err": float(f"{err:.3e}")}
+    fractions = margins(libs, names, gen)
     for name, row in rows.items():
-        print(name, json.dumps(row))
+        print(name, json.dumps(row), "of_tol", json.dumps(fractions[name]))
     print(f"card: {card()}")
     return 0
 
