@@ -28,7 +28,10 @@ attention at head dims 192 and 384) through the same CLIs; slice E1's six
 configs; and slice D2, ``configs/train_mnist_ddpm.yaml`` and
 ``configs/train_mnist_flow_matching.yaml`` (the MNIST UNet, attention at
 head dims 256 and 512) through the same CLIs on MNIST files written from a
-seed.
+seed; and slice F1, SprintDiT and DDT: the txt2img SprintDiT of
+``configs/train_imagenet_repa_txt_to_img_sprint.yaml`` serving and training,
+the hard-txt2img SprintDiT and DDT, and ``model=sprint``, ``model=ddt`` and
+``configs/train_cifar10_flow_matching.yaml`` through the same CLIs.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -171,7 +174,35 @@ Phases, one line each:
      written as MNIST idx files from a seed; 11 K1 + 11 K2 a step) and two
      ``sample`` requests each of 16 images at 50 steps (DDPM ancestral, Euler;
      550 K1 each), every K1/K2 launch an instance at D=256 or D=512 by their
-     own counters; ms per step, samples/s, peak memory, ms per request.
+     own counters; ms per step, samples/s, peak memory, ms per request;
+ 20. slice F1, the txt2img SprintDiT (the config's model block as composed:
+     2 MMDiT + 8 single-stream deep + 2 MMDiT blocks, 768 wide, bf16; phase
+     8-13's shapes, context and tower, seeded weights): a forward at the
+     fused-CFG batch of 8 against its plain twin (12 K3 at 4224 tokens); two
+     4-prompt Euler-50 requests with fused CFG, shift 4.63 and the Flux2
+     decode (600 K3 each; the null half's deep output all mask tokens: path
+     drop); the gradients of one loss at batch 2 against the plain twin with
+     the same kept tokens; ``BaseTrainer.train`` at batch 8 over phase 13's
+     shards (per step 12 K3, K4 and K5: 4 at 4224 / 3968 tokens, 8 at 1152 /
+     1088, the deep path's kept tokens and the text); the bf16 K3, K4 and
+     K5 at 1152 tokens against their plain versions, timed beside masked
+     SDPA and their bounds;
+ 21. the hard-txt2img SprintDiT and DDT (``configs/train_hard_txt2img_{sprint,
+     ddt}.yaml``' model blocks, bf16) on 16x16x32 latents (64x64 images
+     through the hard benchmark's tower) with 8-token captions: each a
+     forward against its plain twin, a 16-image Euler-50 request at CFG 1.5
+     and two train steps at batch 64, with exact bf16 K1/K2 counts by padded
+     length (SprintDiT 8 a forward, DDT 9);
+ 22. ``train_synthetic_flow_matching`` with ``model=sprint`` and
+     ``model=ddt`` (fp32, batch 128, post-hoc EMA; phase 14's cuts) and
+     ``train_cifar10_flow_matching`` on CIFAR-10 pickles written from a seed
+     (batch 32, accumulation 2; 1024 + 256 images, one epoch) through
+     ``train_diffusion`` and a 16-image ``sample`` request at CFG 1.5 each,
+     with exact fp32 K1/K2 counts by padded length (SprintDiT 12 a step: 4 at
+     256 tokens, 8 at 64 padded to 128; DDT 12, CIFAR 10 at 256); then the
+     fp32 K2 at B=32 and the fp32 K1/K2 at 64 tokens padded to 128 against
+     their plain versions, beside fp32 SDPA on the same and on the unpadded
+     tensors, and their bounds.
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -338,6 +369,41 @@ D2_CALLS = sum(n for _, _, n in D2_ATTN)  # 11 K1 a forward, 11 K2 a backward
 F32_ONLY_COUNTERS = tuple(f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d, _, _ in (*D1_ATTN, *D2_ATTN))
 D2_SAMPLES, D2_STEPS = 16, 50  # a request of 16 images, 50 steps, no CFG (classifier_free: false)
 D2_PARAMS = 276_690_433
+
+# phase 20: slice F1, the txt2img SprintDiT: the model block of configs/train_imagenet_repa_txt_to_img_sprint.yaml
+# as composed (768 wide, 12 heads of 64, patch 1, 128 channels; encoder 2 MMDiT blocks; deep_layers_depth 8 with
+# n_single_stream_blocks 8, so 0 dual + 8 single-stream deep blocks; decoder 2; drop 0.75, rope base 2000, axes
+# [16, 24, 24], a CFG null), bf16 (its precision_type), on phases 8-13's shapes, context, tower and shards, with
+# seeded random weights. Cut: the config's accumulation of 8 (1), its compile (the port runs eagerly), its 50
+# epochs (one of 12 batches) and its REPA loss (precomputed DINOv2 features: ROADMAP item 13b)
+F1_TXT_CONFIG = "train_imagenet_repa_txt_to_img_sprint"
+F1_TXT_CUTS = {"trainer.gradient_accumulation_step": (8, 1), "trainer.compile": (True, "eager"),
+               "trainer.n_epoch": (50, 1), "repa": ("RepaLoss on precomputed DINOv2-S features", "none")}
+F1_TXT_REQUESTS = 2
+FLASH_KERNELS = ("flash_attn_fwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+# phase 21: the hard-txt2img SprintDiT and DDT, the model blocks of configs/train_hard_txt2img_{sprint,ddt}.yaml
+# (384 wide, 6 heads of 64, patch 1, 32 channels, bf16) on the shapes the hard benchmark's tower gives: 64x64
+# images through scripts/build_hard_txt2img.py:51's Flux2VAE (base 32, ch_mult (1, 2), 8 latent channels), f =
+# 2 ** len(ch_mult) = 4 and latents packed 2x2 to 32 channels, so 16x16x32 (256 image tokens); captions of
+# EMB_LEN = 8 tokens of the caption table's 512 (data/synthetic_txt2img.py), the null embedding of
+# build_hard_txt2img.py:158 (zeros); seeded random latents and weights, no tower checkpoint (item 8), so no decode.
+# The DDT's block carries `simple_dit: false` from its MMDiT sibling, which DDT does not take (nor the JAX one):
+# dropped here. A request of 16 at evaluate_txt2img.py's CFG 1.5, two train steps at the configs' batch of 64
+F1_HARD = {"sprint": "train_hard_txt2img_sprint", "ddt": "train_hard_txt2img_ddt"}
+F1_HARD_LATENT, F1_HARD_TEXT = (16, 16, 32), (8, 512)
+F1_HARD_SAMPLES, F1_HARD_GUIDANCE, F1_HARD_BATCH, F1_HARD_STEPS = 16, 1.5, 64, 2
+# phase 22: slice F1 through the CLIs: train_synthetic_flow_matching with model=sprint and model=ddt (the widths
+# of configs/model/{sprint,ddt}.yaml on C1's 32x32x3 shapes, fp32, batch 128, post-hoc EMA), cut as phase 14
+# cuts C1, and train_cifar10_flow_matching (C1's DiT without a CFG null, fp32, batch 32, accumulation 2, 100
+# sampling steps) on CIFAR-10 pickles written from a seed, cut in epochs (100 -> 1) and images (50000 -> 1024
+# in data_batch_1-4, 10000 -> 256 in data_batch_5); a 16-image request at CFG 1.5 from each EMA checkpoint
+F1_CLI = {"sprint": ("train_synthetic_flow_matching", ("model=sprint",)),
+          "ddt": ("train_synthetic_flow_matching", ("model=ddt",)),
+          "cifar10": ("train_cifar10_flow_matching", ())}
+F1_CIFAR_CUTS = {"trainer.n_epoch": (100, 1)}
+F1_CIFAR_IMAGES = {"train": (50000, 1024), "val": (10000, 256)}
+F1_CIFAR_BATCH = 32
+F1_SAMPLES, F1_GUIDANCE = 16, 1.5
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -1433,29 +1499,39 @@ def build_txt2img(attention_dtype=None):
     request ``cond`` of TXT_BATCH prompts, all on the card. ``attention_dtype``:
     the dual-stream blocks' attention dtype (the reference's fp32-attention
     option), the same seeded weights."""
-    import numpy as np
     import torch
 
     from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+
+    embedder, tower, cond = txt2img_context()
+    model = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype)  # the card
+    randomize_(model, seed=10)
+    plain = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype,
+                  attention_impl="xla")
+    plain.load_state_dict(model.state_dict(), strict=True)
+    return model.eval(), plain.eval(), tower, cond
+
+
+def txt2img_context():
+    """The txt2img paths' PrecomputedEmbedder (a seeded [128, 2048] null
+    embedding), their Flux2 tower with seeded weights, and a seeded request
+    ``cond`` of TXT_BATCH prompts with the TEXT_LENGTHS mask, on the card."""
+    import numpy as np
+    import torch
+
     from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
     from diffulab_tpu_torch.networks.vision_towers import Flux2VAE
 
     rng = np.random.default_rng(9)
     null = rng.standard_normal((TEXT_LEN, TEXT_DIM)).astype(np.float32)
     embedder = PrecomputedEmbedder(null_embedding=null, null_embedding_seq_len=NULL_SEQ_LEN)
-    model = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype)  # the card
-    randomize_(model, seed=10)
-    plain = MMDiT(**TXT, context_embedder=embedder, dtype=torch.bfloat16, attention_dtype=attention_dtype,
-                  attention_impl="xla")
-    plain.load_state_dict(model.state_dict(), strict=True)
     tower = Flux2VAE(latent_channels=TXT_LATENT[2] // 4)
     randomize_(tower, seed=11)
     gen = torch.Generator(device="cuda").manual_seed(12)
     emb = torch.randn(TXT_BATCH, TEXT_LEN, TEXT_DIM, generator=gen, device="cuda")
     lengths = torch.tensor(TEXT_LENGTHS, device="cuda")
     mask = torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None]
-    cond = {"context": {"embeddings": emb, "attn_mask": mask}}
-    return model.eval(), plain.eval(), tower.eval(), cond
+    return embedder, tower.eval(), {"context": {"embeddings": emb, "attn_mask": mask}}
 
 
 def launch_counts() -> dict[str, int]:
@@ -1465,13 +1541,30 @@ def launch_counts() -> dict[str, int]:
     return {**FUSED, **FLASH}
 
 
+def launch_keys() -> dict[tuple[str, str, int], int]:
+    """The launches by (kernel, dtype, Skv): the padded key length each took."""
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES_BY_KEYS as FLASH
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES_BY_KEYS as FUSED
+
+    return {**FUSED, **FLASH}
+
+
+def key_diff(after: dict, before: dict) -> dict:
+    """The launches by (kernel, dtype, Skv) between two :func:`launch_keys` readings, zeros left out."""
+    return {key: n - before.get(key, 0) for key, n in after.items() if n != before.get(key, 0)}
+
+
 def reset_launch_counts() -> None:
     from diffulab_tpu_torch.ops.flash_attention import LAUNCHES as FLASH
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES_BY_KEYS as FLASH_KEYS
     from diffulab_tpu_torch.ops.fused_mha import LAUNCHES as FUSED
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES_BY_KEYS as FUSED_KEYS
 
     for counts in (FUSED, FLASH):
         for key in counts:
             counts[key] = 0
+    FUSED_KEYS.clear()
+    FLASH_KEYS.clear()
 
 
 def phase_txt2img_forward(model, plain, cond):
@@ -1617,6 +1710,7 @@ class TimedLoader:
     def __init__(self, batches):
         self.batches = batches
         self.marks: list[tuple[float, dict[str, int]]] = []
+        self.key_marks: list[dict] = []  # launch_keys() at each mark
 
     def __len__(self) -> int:
         return len(self.batches)
@@ -1626,6 +1720,7 @@ class TimedLoader:
 
         torch.cuda.synchronize()
         self.marks.append((time.perf_counter(), launch_counts()))
+        self.key_marks.append(launch_keys())
 
     def __iter__(self):
         for batch in self.batches:
@@ -1793,10 +1888,14 @@ def write_txt2img_shards(root: Path) -> tuple[Path, Path]:
     return train, val
 
 
-def phase_txt2img_train(model, tower):
-    """BaseTrainer.train on the txt2img MMDiT at batch 8 over both buckets,
-    AdamW, EMA, validation loss on the EMA weights, validation images decoded
-    by the Flux2 tower, and the best-val checkpoint."""
+def txt2img_train_run(model, tower, project: str, label: str) -> dict[str, Any]:
+    """BaseTrainer.train on a txt2img model at batch 8 over both buckets of
+    seeded shards (:func:`write_txt2img_shards`), AdamW, EMA, validation loss
+    on the EMA weights, validation images decoded by the Flux2 tower, and the
+    best-val checkpoint, written and restored; the launch counts set to 0
+    just before. Checks the step counter, the losses and the validation
+    images; returns the loader (its marks time each step), the run's
+    launches, losses, peak memory and data set-up seconds."""
     import torch
 
     from diffulab_tpu_torch.data.imagenet import ImageNetmultiAR, MultiARBatchSampler, collate_fn
@@ -1805,7 +1904,6 @@ def phase_txt2img_train(model, tower):
     from diffulab_tpu_torch.training.trainer import BaseTrainer
 
     sys.modules["wandb"] = None  # metrics go to metrics.jsonl; wandb is neither imported nor contacted
-    depth = TXT["depth"]
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         train_dir, val_dir = write_txt2img_shards(Path(tmp) / "data")
@@ -1819,7 +1917,7 @@ def phase_txt2img_train(model, tower):
                for idx in MultiARBatchSampler(val_ds, TXT_TRAIN_BATCH, shuffle=False)]
         data_s = time.perf_counter() - t0
         diffuser = Diffuser(model, "euler", n_steps=STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
-        trainer = BaseTrainer(n_epoch=1, save_path=tmp, project_name="chip_smoke_txt2img", use_ema=True)  # the card
+        trainer = BaseTrainer(n_epoch=1, save_path=tmp, project_name=project, use_ema=True)  # the card
         logged = []
         log_images = trainer.tracker.log_images
 
@@ -1835,24 +1933,35 @@ def phase_txt2img_train(model, tower):
                       val_steps=TXT_VAL_STEPS, val_step_shift=TXT_VAL_SHIFT, seed=0)
         launches = launch_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        run = Path(tmp) / "chip_smoke_txt2img"
+        run = Path(tmp) / project
         rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
         losses = [r["train/loss"] for r in rows if "train/loss" in r]
         val_losses = [r["val/loss"] for r in rows if "val/loss" in r]
         for part in ("denoiser", "optimizer", "ema", "scheduler"):
             if not (run / "checkpoints" / part / "state.pt").is_file():
-                fail(f"txt2img train: no best-val checkpoint entry {part}")
-        check_restores(run, model, "txt2img train")
+                fail(f"{label}: no best-val checkpoint entry {part}")
+        check_restores(run, model, label)
     model.eval()
     n_steps = len(loader)
     if trainer.step != n_steps or len(losses) != 1 or not math.isfinite(losses[0]) \
             or not all(math.isfinite(v) for v in val_losses):
-        fail(f"txt2img train: step counter {trainer.step}, train losses {losses}, val losses {val_losses}")
+        fail(f"{label}: step counter {trainer.step}, train losses {losses}, val losses {val_losses}")
     image_shape = (TXT_TRAIN_BATCH, TXT_LATENT[0] * tower.compression_factor,
                    TXT_LATENT[1] * tower.compression_factor, 3)
     if len(logged) != 1 or logged[0][0] != image_shape or not logged[0][2] or logged[0][1] is None \
             or len(logged[0][1]) != TXT_TRAIN_BATCH:
-        fail(f"txt2img train: validation images {logged}, expected {image_shape} in [0, 1] with captions")
+        fail(f"{label}: validation images {logged}, expected {image_shape} in [0, 1] with captions")
+    return dict(loader=loader, launches=launches, peak_gib=peak_gib, losses=losses, val_losses=val_losses,
+                n_steps=n_steps, image_shape=image_shape, captions=len(logged[0][1]), data_s=data_s)
+
+
+def phase_txt2img_train(model, tower):
+    """BaseTrainer.train on the txt2img MMDiT at batch 8 over both buckets,
+    AdamW, EMA, validation loss on the EMA weights, validation images decoded
+    by the Flux2 tower, and the best-val checkpoint."""
+    depth = TXT["depth"]
+    tr = txt2img_train_run(model, tower, "chip_smoke_txt2img", "txt2img train")
+    loader, launches = tr["loader"], tr["launches"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
                 "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
@@ -1864,15 +1973,16 @@ def phase_txt2img_train(model, tower):
         per_bucket.setdefault(tuple(batch["model_inputs"]["x"].shape[1:3]), []).append((t1 - t0) * 1e3)
     steady = statistics.median([m for times in per_bucket.values() for m in times[2:]])
     print(f"phase 13 BaseTrainer.train txt2img MMDiT mixed bf16 batch {TXT_TRAIN_BATCH} AdamW(lr 1e-4, wd 0.01, "
-          f"betas 0.9/0.999, eps 1e-8) EMA p_cfg {P_CFG}, shift {TXT_EXTRA['shift']}: {n_steps} steps over buckets "
+          f"betas 0.9/0.999, eps 1e-8) EMA p_cfg {P_CFG}, shift {TXT_EXTRA['shift']}: {tr['n_steps']} steps over buckets "
           + ", ".join(f"{h}x{w}x{TXT_LATENT[2]} ({TEXT_LEN + h * w} tokens) ms/step {[round(m, 2) for m in times]}"
                       for (h, w), times in per_bucket.items())
           + f"; median after the first two of each bucket {steady:.2f} ms, samples/s "
-          f"{TXT_TRAIN_BATCH / steady * 1e3:.2f}; train loss {losses[0]:.5f}, val loss (EMA) {val_losses[0]:.5f}; "
+          f"{TXT_TRAIN_BATCH / steady * 1e3:.2f}; train loss {tr['losses'][0]:.5f}, val loss (EMA) "
+          f"{tr['val_losses'][0]:.5f}; "
           f"launches per step {depth} K3 + {depth} K4 + {depth} K5, 0 K1/K2, in the run {launches} (K3 includes "
-          f"validation); validation images {image_shape[1:]} with {len(logged[0][1])} captions ({TXT_VAL_STEPS} "
-          f"steps, shift {TXT_VAL_SHIFT}); peak mem {peak_gib:.2f} GiB; data set-up {data_s:.1f} s; best-val "
-          f"checkpoint written and restored")
+          f"validation); validation images {tr['image_shape'][1:]} with {tr['captions']} captions ({TXT_VAL_STEPS} "
+          f"steps, shift {TXT_VAL_SHIFT}); peak mem {tr['peak_gib']:.2f} GiB; data set-up {tr['data_s']:.1f} s; "
+          f"best-val checkpoint written and restored")
     return launches, steady
 
 
@@ -2109,20 +2219,22 @@ def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_
     the counts are set to 0 just before. Checks the step counter, one finite
     train and validation loss an epoch, and, with ``val_images``, one
     validation grid an epoch. Returns the trainer, the per-step launches (K1,
-    K2, K3), the step times and the run's totals."""
+    K2, K3, and by kernel, dtype and key length), the step times and the
+    run's totals."""
     import torch
 
     from diffulab_tpu_torch.training import trainer as trainer_mod
 
-    marks = []
+    marks, step_keys = [], []
     original = trainer_mod.train_step
 
     def timed_step(*args, **kwargs):
         torch.cuda.synchronize()
-        start = (time.perf_counter(), launch_counts())
+        start, keys = (time.perf_counter(), launch_counts()), launch_keys()
         out = original(*args, **kwargs)
         torch.cuda.synchronize()
         marks.append((start, (time.perf_counter(), launch_counts())))
+        step_keys.append(key_diff(launch_keys(), keys))
         return out
 
     trainer_mod.train_step = timed_step
@@ -2153,7 +2265,8 @@ def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_
     starts = [t for (t, _), _ in marks]
     step_ms = [(b - a) * 1e3 for i, (a, b) in enumerate(zip(starts[:-1], starts[1:])) if (i + 1) % steps_per_epoch]
     kernel_ms = [(t1 - t0) * 1e3 for (t0, _), (t1, _) in marks]
-    return dict(trainer=trainer, per_step=per_step, step_ms=step_ms, steady=statistics.median(step_ms[2:]),
+    return dict(trainer=trainer, per_step=per_step, step_keys=step_keys, step_ms=step_ms,
+                steady=statistics.median(step_ms[2:]),
                 kernel_ms=statistics.median(kernel_ms[2:]), train_s=train_s, launches=launches,
                 peak_gib=peak_gib, losses=losses, val_losses=val_losses)
 
@@ -3328,6 +3441,587 @@ def phase_d2_cli(root: Path):
     return results
 
 
+def padded_keys(n: int) -> int:
+    """The fused route's padded length of ``n`` keys (MIN_BLOCK = 128)."""
+    return -(-n // 128) * 128
+
+
+def f1_deep_kernels():
+    """Phase 20's kernels: the bf16 K3, K4 and K5 at the txt2img SprintDiT's
+    deep-path shape in training (B=8, 128 text + 1024 kept image tokens =
+    1152, H=12, D=64, the training text mask) against their plain versions,
+    each timed from CUDA-graph replays beside its bound and masked SDPA (the
+    backward: SDPA's bf16 autograd backward, its kernels summed by
+    torch.profiler, dq, dk and dv together, as phase 11 times it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, h, d = TXT_TRAIN_BATCH, TXT["num_heads"], TXT["inner_dim"] // TXT["num_heads"]
+    image = TXT_LATENT[0] * TXT_LATENT[1] // 4  # int(4096 * 0.25) kept
+    s, scale = TEXT_LEN + image, d ** -0.5
+    lengths = torch.tensor(TRAIN_TEXT_LENGTHS, device="cuda")
+    lengths[list(TRAIN_DROPPED)] = NULL_SEQ_LEN
+    mask = torch.cat([torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None],
+                      torch.ones(b, image, dtype=torch.bool, device="cuda")], dim=1)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16() for _ in range(4))
+    out = {}
+    with torch.no_grad():
+        o, lse = flash_attention(q, k, v, mask)
+        ro, rlse = flash_attention_reference(q, k, v, mask)
+        fwd_err = check_close("F1 deep K3 bf16 o", o, ro, *TOL["bfloat16"])
+        check_close("F1 deep K3 bf16 lse", lse, rlse, *LSE_TOL)
+        grads = flash_attention_bwd(q, k, v, mask, o, lse, do)
+        refs = flash_attention_bwd_reference(q, k, v, mask, o, lse, do)
+        errs = {name: check_grads(f"F1 deep bf16 {name}", [g], [r], BWD_TOL["bfloat16"])
+                for name, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+        del grads, refs
+        _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_mask = mask[:, None, None, :]
+        out["flash_attn_fwd"] = dict(
+            max_abs_err=fwd_err, ms=cuda_graph_ms(lambda: flash_attention(q, k, v, mask), calls=10, replays=5),
+            plain_ms=cuda_time_ms(lambda: flash_attention_reference(q, k, v, mask), iters=2, warmup=1),
+            library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask),
+                                     calls=10, replays=5))
+        out["flash_attn_bwd_dkv"] = dict(
+            max_abs_err=max(errs["dk"], errs["dv"]),
+            ms=cuda_graph_ms(lambda: flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale), calls=10, replays=5))
+        out["flash_attn_bwd_dq"] = dict(
+            max_abs_err=errs["dq"],
+            ms=cuda_graph_ms(lambda: flash_attention_bwd_dq(q, k, v, mask, lse, di, do, scale), calls=10, replays=5))
+        bwd_plain = cuda_time_ms(lambda: flash_attention_bwd_reference(q, k, v, mask, o, lse, do), iters=2, warmup=1)
+    with torch.enable_grad():
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask)
+        dot = do.transpose(1, 2)
+        sdpa_bwd = profiled_kernels(lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))[0]
+        del sdpa_out, leaves
+    valid = int(mask.sum())
+    bounds = {"flash_attn_fwd": attention_bound(b, s, h, d, valid, 2), **flash_bwd_bounds(b, s, h, d, valid, 2)}
+    for name in FLASH_KERNELS[1:]:
+        out[name].update(plain_ms=bwd_plain, library_ms=sdpa_bwd)
+    for name, (bound_ms, bound_by, mb, gflop) in bounds.items():
+        out[name].update(bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop,
+                         shape=f"B={b} S={s} (128 text + {image} kept image tokens) H={h} D={d} bf16, the training "
+                               f"text mask")
+    del q, k, v, do, o, lse, ro, rlse, di, qt, kt, vt
+    torch.cuda.synchronize()
+    print(f"phase 20 kernels bf16 at the txt2img SprintDiT's deep shape in training (B={b} S={s}: 128 text + "
+          f"{image} kept image tokens, H={h} D={d}, the training text mask; device ms from CUDA-graph replays; "
+          f"library: masked SDPA, its backward SDPA's bf16 autograd backward summed by torch.profiler, dq, dk and "
+          f"dv together; plain: wall ms, the backward K4 and K5 together): "
+          + "; ".join(f"{name} max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} library {r['library_ms']:.4f} "
+                      f"plain {r['plain_ms']:.2f} bound {r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, "
+                      f"{r['gflop']:.1f} GFLOP)" for name, r in out.items())
+          + f"; tol K3 atol {TOL['bfloat16'][0]} rtol {TOL['bfloat16'][1]}, K4/K5 {BWD_TOL['bfloat16']} * "
+            "(max|ref| + |ref|)")
+    return out
+
+
+def phase_f1_txt2img_sprint():
+    """Phase 20: the txt2img SprintDiT (F1_TXT_CONFIG's model block, bf16,
+    seeded weights; txt2img_context's embedder, tower and prompts): (a) a
+    forward at the fused-CFG batch of 8 against its plain-attention twin,
+    12 K3 at 4224 tokens; (b) F1_TXT_REQUESTS 4-prompt Euler-50 requests
+    with fused CFG 4.0, shift 4.63 and the Flux2 decode, 600 K3 each, the
+    null half's deep output all mask tokens at every step (path drop);
+    (c) the gradients of one loss at batch 2 against the plain twin, the
+    same token drop on both (generators of one seed): 4 K3, K4 and K5 at
+    4224 tokens and 8 at 1152; (d) BaseTrainer.train at batch 8 over phase
+    13's shards, both buckets: per step 12 K3, K4 and K5, 4 at 4224 / 3968
+    tokens and 8 at 1152 / 1088 (the deep path's kept 1024 / 960 and the
+    text); then its deep-path kernels (:func:`f1_deep_kernels`). Each count
+    window set to 0 just before and read just after."""
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.diffuse.flow import _tree_cat2
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiTBlock, MMDiTSingleStreamBlock
+
+    cfg = compose_config(CONFIG_DIR, F1_TXT_CONFIG)
+    embedder, tower, cond = txt2img_context()
+    kw = dict(context_embedder=embedder, dtype=torch.bfloat16)  # the config's precision_type bf16
+    model = instantiate(cfg["model"], **kw).eval()
+    randomize_(model, seed=20)
+    plain = instantiate({**cfg["model"], "attention_impl": "xla"}, **kw).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    encoder, deep, decoder = (len(m) for m in (model.layers, model.deep_layers, model.decoder_layers))
+    if (encoder, deep, decoder) != (2, 8, 2) or not all(isinstance(m, MMDiTSingleStreamBlock)
+                                                         for m in model.deep_layers) \
+            or not all(isinstance(m, MMDiTBlock) for m in (*model.layers, *model.decoder_layers)):
+        fail(f"txt2img SprintDiT: blocks {encoder} + {deep} + {decoder}, expected 2 dual + 8 single-stream + 2 dual")
+    blocks = encoder + deep + decoder
+    windows: dict[str, dict[str, int]] = {}
+
+    # (a) the eval forward: every block at the full length, nothing dropped
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b = 2 * TXT_BATCH
+    x = torch.randn(b, *TXT_LATENT, generator=gen, device="cuda")
+    t = torch.rand(b, generator=gen, device="cuda")
+    cond2 = _tree_cat2(cond)
+    drop = torch.arange(b, device="cuda") >= TXT_BATCH
+    with torch.no_grad():
+        reset_launch_counts()
+        out = model(x, t, cond2, drop)["x"]
+        fwd_keys = launch_keys()
+        ref = plain(x, t, cond2, drop)["x"]
+    torch.cuda.synchronize()
+    rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if out.shape != (b, *TXT_LATENT) or not bool(torch.isfinite(out).all()) or rel > TXT_REL_TOL \
+            or fwd_keys != {("flash_attn_fwd", "bfloat16", TXT_SEQ): blocks}:
+        fail(f"txt2img SprintDiT forward: rel err {rel:.3e} (tol {TXT_REL_TOL}), launches {fwd_keys}")
+    del out, ref, x
+
+    # (b) requests; the fuse's input holds the restored deep output: the null half's is all mask tokens
+    diffuser = Diffuser(model, "euler", n_steps=STEPS, vision_tower=tower, extra_args=TXT_EXTRA)
+    inner = model.mask_token.shape[-1]
+    mask_token = model.mask_token.detach()[0, 0]
+    null_rows = []
+    hook = model.fuse.register_forward_hook(
+        lambda m, args, out: null_rows.append((args[0][TXT_BATCH:, :, :inner] == mask_token).all()))
+    image_shape = (TXT_BATCH, TXT_LATENT[0] * tower.compression_factor, TXT_LATENT[1] * tower.compression_factor, 3)
+    request_ms, totals = [], {}
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(F1_TXT_REQUESTS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        images = txt2img_request(diffuser, cond, seed=500 + r)
+        torch.cuda.synchronize()
+        request_ms.append((time.perf_counter() - t0) * 1e3)
+        keys, launched = launch_keys(), launch_counts()
+        if keys != {("flash_attn_fwd", "bfloat16", TXT_SEQ): STEPS * blocks}:
+            fail(f"txt2img SprintDiT request {r}: launches {keys}, expected {STEPS * blocks} bf16 K3 at {TXT_SEQ}")
+        totals = {key: totals.get(key, 0) + n for key, n in launched.items()}
+        if images.shape != image_shape or not bool(torch.isfinite(images).all()) or float(images.abs().max()) > 1:
+            fail(f"txt2img SprintDiT request {r}: images {tuple(images.shape)}, expected {image_shape}, finite, in "
+                 "[-1, 1]")
+    hook.remove()
+    request_peak = torch.cuda.max_memory_allocated() / 2**30
+    if len(null_rows) != F1_TXT_REQUESTS * STEPS or not bool(torch.stack(null_rows).all()):
+        fail(f"txt2img SprintDiT requests: the null half's restored deep output is not all mask tokens "
+             f"({len(null_rows)} steps seen)")
+    windows["generate"] = totals
+    del images, null_rows
+
+    # (c) gradients of one loss, the kernel path against the plain twin with the same kept tokens
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x0 = torch.randn(TXT_GRAD_BATCH, *TXT_LATENT, generator=gen, device="cuda")
+    emb = torch.randn(TXT_GRAD_BATCH, TEXT_LEN, TEXT_DIM, generator=gen, device="cuda")
+    text_mask = torch.arange(TEXT_LEN, device="cuda")[None, :] < torch.tensor([77, 9], device="cuda")[:, None]
+    gcond = {"context": {"embeddings": emb, "attn_mask": text_mask}}
+    diffusers = [Diffuser(m, "euler", extra_args=TXT_EXTRA) for m in (model, plain)]
+    t = diffusers[0].draw_timesteps(gen, TXT_GRAD_BATCH)
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    gdrop = torch.tensor([False, True], device="cuda")  # the second row: null context and path drop
+    plain.use_checkpoint = True  # one block's fp32 score matrices at a time
+    grads, losses, keys = [], [], []
+    for d in diffusers:
+        d.denoiser.zero_grad(set_to_none=True)
+        reset_launch_counts()
+        loss = d.compute_loss(x0, gcond, t, noise, drop=gdrop,
+                              generator=torch.Generator(device="cuda").manual_seed(22))["loss"]
+        loss.backward()
+        torch.cuda.synchronize()
+        keys.append(launch_keys())
+        grads.append({n: p.grad for n, p in d.denoiser.named_parameters()})
+        losses.append(float(loss.detach()))
+    kept = TEXT_LEN + model.kept_tokens(TXT_LATENT[0] * TXT_LATENT[1])
+    want = {(name, "bfloat16", n): c for name in FLASH_KERNELS for n, c in ((TXT_SEQ, encoder + decoder), (kept, deep))}
+    if keys[0] != want or keys[1]:
+        fail(f"txt2img SprintDiT gradients: launches kernel path {keys[0]}, expected {want}; plain {keys[1]}")
+    worst, worst_name, unused = 0.0, None, []
+    for name, g in grads[0].items():
+        r = grads[1][name]
+        if g is None and r is None:  # the last decoder block's text-stream outputs reach no output
+            unused.append(name)
+            continue
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            fail(f"txt2img SprintDiT gradients: {name} missing or non-finite")
+        rel_g = float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+        if rel_g > worst:
+            worst, worst_name = rel_g, name
+    if not all(name.startswith(f"decoder_layers.{decoder - 1}.") for name in unused):
+        fail(f"txt2img SprintDiT gradients: no gradient on both paths for {unused}")
+    mask_grad = float(grads[0]["mask_token"].norm())
+    if worst > TXT_GRAD_TOL or not math.isfinite(losses[0]) or not mask_grad > 0:
+        fail(f"txt2img SprintDiT gradients: worst relative error {worst:.3e} at {worst_name} (tol {TXT_GRAD_TOL}), "
+             f"loss {losses[0]}, |mask_token grad| {mask_grad}")
+    del plain, diffusers, grads
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # (d) training over both buckets
+    tr = txt2img_train_run(model, tower, "chip_smoke_txt2img_sprint", "txt2img SprintDiT train")
+    loader = tr["loader"]
+    expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, **dict.fromkeys(FLASH_KERNELS, blocks),
+                **{f"{name}_f32": 0 for name in FLASH_KERNELS}, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
+    per_bucket: dict[tuple[int, int], list[float]] = {}
+    step_keys = {}
+    for batch, (t0, c0), (t1, c1), k0, k1 in zip(loader.batches, loader.marks[:-1], loader.marks[1:],
+                                                 loader.key_marks[:-1], loader.key_marks[1:]):
+        hw = tuple(batch["model_inputs"]["x"].shape[1:3])
+        full, kept = TEXT_LEN + hw[0] * hw[1], TEXT_LEN + model.kept_tokens(hw[0] * hw[1])
+        want = {(name, "bfloat16", n): c for name in FLASH_KERNELS for n, c in ((full, encoder + decoder), (kept, deep))}
+        step = {key: c1[key] - c0[key] for key in c1}
+        if step != expected or key_diff(k1, k0) != want:
+            fail(f"txt2img SprintDiT train: launches in a step {step} by length {key_diff(k1, k0)}, expected "
+                 f"{expected}, {want}")
+        step_keys[hw] = want
+        per_bucket.setdefault(hw, []).append((t1 - t0) * 1e3)
+    steady = statistics.median([m for times in per_bucket.values() for m in times[2:]])
+    windows["train"] = tr["launches"]
+    cuts = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in F1_TXT_CUTS.items())
+    print(f"phase 20 txt2img SprintDiT ({F1_TXT_CONFIG} model block as composed: {encoder} MMDiT + {deep} "
+          f"single-stream deep + {decoder} MMDiT blocks, 768 wide, drop {model.drop_rate}; bf16; cut: {cuts}): "
+          f"(a) forward B={b} S={TXT_SEQ} kernel path vs plain attention max rel err {rel:.3e} (tol {TXT_REL_TOL}), "
+          f"{blocks} K3 at {TXT_SEQ}; (b) {F1_TXT_REQUESTS} requests of {TXT_BATCH} prompts Euler-{STEPS} shift "
+          f"{TXT_EXTRA['shift']} CFG {CFG} with the Flux2 decode to {image_shape[1:]}: ms/request "
+          f"{[round(m, 2) for m in request_ms]}, {STEPS * blocks} K3 at {TXT_SEQ} each, the null half's deep output "
+          f"all mask tokens at every step, images finite in [-1, 1], peak mem {request_peak:.2f} GiB; (c) gradients "
+          f"B={TXT_GRAD_BATCH} (row 1 dropped, the same kept tokens on both paths): loss kernel path {losses[0]:.6f} "
+          f"plain {losses[1]:.6f}, worst ||kernel - plain|| / ||plain|| {worst:.3e} at {worst_name} (tol "
+          f"{TXT_GRAD_TOL}), |mask_token grad| {mask_grad:.3e}, {len(unused)} parameters of the last block's text "
+          f"stream without a gradient on both paths; (d) BaseTrainer.train batch {TXT_TRAIN_BATCH}: "
+          f"{tr['n_steps']} steps, "
+          + ", ".join(f"{h}x{w} ms/step {[round(m, 2) for m in times]}" for (h, w), times in per_bucket.items())
+          + f"; median after the first two of each bucket {steady:.2f} ms, samples/s "
+          f"{TXT_TRAIN_BATCH / steady * 1e3:.2f}; per step {blocks} K3 + {blocks} K4 + {blocks} K5, by length "
+          + ", ".join(f"{h}x{w}: {encoder + decoder} at {TEXT_LEN + h * w} and {deep} at "
+                      f"{TEXT_LEN + model.kept_tokens(h * w)}" for h, w in step_keys)
+          + f"; train loss {tr['losses'][0]:.5f}, val loss (EMA) {tr['val_losses'][0]:.5f}; validation images "
+          f"{tr['image_shape'][1:]}; peak mem {tr['peak_gib']:.2f} GiB; best-val checkpoint written and restored")
+    del model, diffuser, tower, loader
+    torch.cuda.empty_cache()
+    kernels = f1_deep_kernels()
+    return {"windows": windows, "request_ms": request_ms, "step_ms": steady, "peak_gib": tr["peak_gib"],
+            "kernels": kernels}
+
+
+def phase_f1_hard():
+    """Phase 21: the hard-txt2img SprintDiT and DDT (F1_HARD's model blocks,
+    bf16, seeded weights) on F1_HARD_LATENT latents with captions embedded
+    by the caption table: per model an eval forward at the fused-CFG batch
+    of 32 against its plain-attention twin, one 16-image Euler-50 request at
+    CFG 1.5, and two train steps at batch 64 (train_step: loss, backward,
+    AdamW; p_cfg 0.1), each with exact bf16 K1/K2 counts by key length: the
+    SprintDiT 8 a forward (its 264 tokens padded to 384; in training 4 at
+    384 and its 4 deep blocks at 8 + 64 kept = 72, padded to 128), the DDT 9
+    (6 encoder blocks at 384, 3 decoder blocks over the 256 image tokens)."""
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
+    from diffulab_tpu_torch.data.synthetic_txt2img import (
+        EMB_LEN,
+        SyntheticCompositionalDataset,
+        caption_embedding_table,
+        embed_captions,
+    )
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.diffuse.flow import _tree_cat2
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+    from diffulab_tpu_torch.networks.embedders import PrecomputedEmbedder
+    from diffulab_tpu_torch.networks.nn import make_drop_mask
+    from diffulab_tpu_torch.training.trainer import MultiStepOptimizer, train_step
+
+    if EMB_LEN != F1_HARD_TEXT[0]:
+        fail(f"hard txt2img: captions of {EMB_LEN} tokens, expected {F1_HARD_TEXT[0]}")
+    captions = SyntheticCompositionalDataset(train=True, n_samples=F1_HARD_BATCH, image_size=64, seed=0).captions
+    emb, text_mask = (torch.as_tensor(a, device="cuda")
+                      for a in embed_captions(captions, caption_embedding_table(F1_HARD_TEXT[1])))
+    text, image = F1_HARD_TEXT[0], F1_HARD_LATENT[0] * F1_HARD_LATENT[1]
+    results = {}
+    for kind, config in F1_HARD.items():
+        cfg = compose_config(CONFIG_DIR, config)
+        model_cfg = {k: v for k, v in cfg["model"].items() if not (kind == "ddt" and k == "simple_dit")}
+        null = np.zeros(F1_HARD_TEXT, np.float32)  # what build_hard_txt2img.py writes
+        embedder = PrecomputedEmbedder(null_embedding=null,
+                                       null_embedding_seq_len=cfg["embedder"]["null_embedding_seq_len"])
+        kw = dict(context_embedder=embedder, **model_dtype_kwargs(cfg["trainer"]))
+        model = instantiate(model_cfg, **kw).eval()
+        randomize_(model, seed=24)
+        plain = instantiate({**model_cfg, "attention_impl": "xla"}, **kw).eval()
+        plain.load_state_dict(model.state_dict(), strict=True)
+        full = padded_keys(text + image)
+        if kind == "sprint":
+            outer, deep = len(model.layers) + len(model.decoder_layers), len(model.deep_layers)
+            eval_keys = {full: outer + deep}
+            train_keys = {full: outer, padded_keys(text + model.kept_tokens(image)): deep}
+        else:
+            eval_keys = train_keys = {full: len(model.layers), padded_keys(image): len(model.decoder_layers)}
+        per_forward = sum(eval_keys.values())
+
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        b = 2 * F1_HARD_SAMPLES
+        x = torch.randn(b, *F1_HARD_LATENT, generator=gen, device="cuda")
+        t = torch.rand(b, generator=gen, device="cuda")
+        cond = {"context": {"embeddings": emb[:F1_HARD_SAMPLES], "attn_mask": text_mask[:F1_HARD_SAMPLES]}}
+        drop = torch.arange(b, device="cuda") >= F1_HARD_SAMPLES
+        with torch.no_grad():
+            reset_launch_counts()
+            out = model(x, t, _tree_cat2(cond), drop)["x"]
+            fwd_keys = launch_keys()
+            ref = plain(x, t, _tree_cat2(cond), drop)["x"]
+        rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+        want = {("fused_mha_fwd", "bfloat16", n): c for n, c in eval_keys.items()}
+        if out.shape != (b, *F1_HARD_LATENT) or not bool(torch.isfinite(out).all()) or rel > TXT_REL_TOL \
+                or fwd_keys != want:
+            fail(f"hard {kind} forward: rel err {rel:.3e} (tol {TXT_REL_TOL}), launches {fwd_keys}, expected {want}")
+        del plain, out, ref
+
+        diffuser = Diffuser(model, "euler", n_steps=STEPS, extra_args=cfg["diffuser"].get("extra_args", {}))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        latents = diffuser.generate(cond, data_shape=(F1_HARD_SAMPLES, *F1_HARD_LATENT),
+                                    generator=torch.Generator(device="cuda").manual_seed(26),
+                                    guidance_scale=F1_HARD_GUIDANCE)["x"]
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1e3
+        sample, sample_keys = launch_counts(), launch_keys()
+        want = {("fused_mha_fwd", "bfloat16", n): STEPS * c for n, c in eval_keys.items()}
+        if sample_keys != want or latents.shape != (F1_HARD_SAMPLES, *F1_HARD_LATENT) \
+                or not bool(torch.isfinite(latents).all()):
+            fail(f"hard {kind} request: launches {sample_keys}, expected {want}; latents {tuple(latents.shape)}")
+
+        model.train()
+        optimizer = MultiStepOptimizer(instantiate(cfg["optimizer"])(model.parameters()))
+        p_cfg = cfg["trainer"]["p_classifier_free_guidance"]
+        batch = {"model_inputs": {"x": None, "context": {"embeddings": emb, "attn_mask": text_mask}}}
+        step_ms, losses, train = [], [], {}
+        want = {(name, "bfloat16", n): c for name in ("fused_mha_fwd", "fused_mha_bwd") for n, c in train_keys.items()}
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(F1_HARD_STEPS):
+            x0 = torch.randn(F1_HARD_BATCH, *F1_HARD_LATENT, generator=gen, device="cuda")
+            batch["model_inputs"]["x"] = x0
+            tt = diffuser.draw_timesteps(gen, F1_HARD_BATCH)
+            noise = torch.randn(x0.shape, generator=gen, device="cuda")
+            drop = make_drop_mask(gen, p_cfg, F1_HARD_BATCH)
+            model_gen = torch.Generator(device="cuda").manual_seed(27 + step) if model.draws_in_training else None
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            losses.append(float(train_step(diffuser, optimizer, None, batch, tt, noise, drop, step,
+                                           generator=model_gen)["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if launch_keys() != want:
+                fail(f"hard {kind} train step {step}: launches {launch_keys()}, expected {want}")
+            train = {key: train.get(key, 0) + n for key, n in launch_counts().items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"hard {kind} train: losses {losses}")
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"phase 21 hard txt2img {kind} ({config} model block, {n_params / 1e6:.1f}M parameters, bf16; "
+              f"{F1_HARD_LATENT} latents of 64x64 images, captions of {text} tokens of {F1_HARD_TEXT[1]}; no decode): "
+              f"forward B={b} vs plain attention max rel err {rel:.3e} (tol {TXT_REL_TOL}), bf16 K1 by padded "
+              f"length {eval_keys}; request of {F1_HARD_SAMPLES} Euler-{STEPS} CFG {F1_HARD_GUIDANCE} "
+              f"{request_ms:.1f} ms, {STEPS * per_forward} bf16 K1; {F1_HARD_STEPS} train steps at batch "
+              f"{F1_HARD_BATCH} (AdamW lr {cfg['optimizer']['lr']}, p_cfg {p_cfg}): ms/step "
+              f"{[round(m, 2) for m in step_ms]}, losses {[round(v, 5) for v in losses]}, bf16 K1 and K2 a step by "
+              f"padded length {train_keys}; peak mem {peak_gib:.2f} GiB")
+        results[kind] = {"sample": sample, "train": train, "request_ms": request_ms, "step_ms": step_ms}
+        model.eval()
+        del model, diffuser, optimizer, latents
+        torch.cuda.empty_cache()
+    return results
+
+
+def write_cifar10(root: Path, seed: int = 0) -> None:
+    """CIFAR-10 python pickles of F1_CIFAR_IMAGES' cut sizes from a seed
+    (uint8 rows of 3072 in CHW order, integer labels): data_batch_1-4
+    share the training images, data_batch_5 holds the validation ones."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    sizes = [F1_CIFAR_IMAGES["train"][1] // 4] * 4 + [F1_CIFAR_IMAGES["val"][1]]
+    for i, n in enumerate(sizes, start=1):
+        with open(root / f"data_batch_{i}", "wb") as f:
+            pickle.dump({"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                         "labels": rng.integers(0, 10, n).tolist()}, f)
+
+
+def f1_cli_kernels():
+    """Phase 22's kernels: the fp32 K2 at the CIFAR config's micro-batch
+    (B=32, S=256, H=8, D=64), and the fp32 K1 and K2 at the SprintDiT CLI
+    run's deep shape as the fused route hands it over (B=128, 64 kept tokens
+    padded to 128 query rows and keys, the padding mask, H=8, D=64), against
+    their plain versions; each timed from CUDA-graph replays beside fp32
+    SDPA (the backward: its memory-efficient backward op) on the same
+    inputs and, for the padded shape, on the unpadded 64-token tensors too;
+    bounds at 3xTF32 (:func:`d2_bounds`: over the valid rows and keys, and
+    over the padded contract's 128 rows)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    h, d = C1_HEADS, 64
+
+    def rand(b, n):
+        return torch.randn(b, n, h, d, generator=gen, device="cuda", dtype=torch.float32)
+
+    out = {}
+    b, s = F1_CIFAR_BATCH, C1_SEQ
+    q, k, v, do = rand(b, s), rand(b, s), rand(b, s), rand(b, s)
+    with torch.no_grad():
+        _, lse = fused_mha(q, k, v)
+        refs = fused_mha_bwd_reference(q, k, v, None, lse, do)
+        err = check_grads("F1 K2 fp32 B=32", fused_mha_bwd(q, k, v, None, lse, do), refs, BWD_TOL["float32"])
+        sdpa_bwd = sdpa_fp32_backward(q, k, v, do)
+        bytes_moved = 7 * b * s * h * d * 4 + b * s * h * 4
+        flops = 10 * b * h * s * s * d
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+        out["k2_b32"] = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(q, k, v, None, lse, do),
+                                                               calls=10, replays=5),
+                             plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(q, k, v, None, lse, do), iters=3),
+                             library_ms=cuda_graph_ms(sdpa_bwd, calls=10, replays=5),
+                             bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                             mb=bytes_moved / 1e6, gflop=flops / 1e9,
+                             shape=f"B={b} S={s} H={h} D={d} fp32 (the CIFAR config's micro-batch)")
+        del q, k, v, do, lse, refs, sdpa_bwd
+
+        b, tokens, s = C1_BATCH, C1_SEQ // 4, D2_PADDED
+        q, k, v, do = rand(b, tokens), rand(b, tokens), rand(b, tokens), rand(b, tokens)
+        qp, kp, vp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, k, v, do))  # the fused route's padding
+        mask = d2_mask("padded", b, tokens)
+        o, lse = fused_mha(qp, kp, vp, mask)
+        ro, rlse = fused_mha_reference(qp, kp, vp, mask)
+        err = check_close("F1 K1 fp32 64 padded to 128 o", o, ro, *TOL["float32"])
+        check_close("F1 K1 fp32 64 padded to 128 lse", lse, rlse, *LSE_TOL)
+        qpt, kpt, vpt, qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp, q, k, v))
+        attn_mask = mask[:, None, None, :]
+        shape = f"B={b} Sq=Skv={s} padded from {tokens} (the padding mask) H={h} D={d} fp32 (the SprintDiT deep path)"
+        out["k1_pad64"] = dict(
+            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qp, kp, vp, mask)),
+            plain_ms=cuda_time_ms(lambda: fused_mha_reference(qp, kp, vp, mask), iters=5),
+            library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kpt, vpt, attn_mask=attn_mask)),
+            sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            **d2_bounds(b, tokens, h, d, False, False), padded=d2_bounds(b, tokens, h, d, False, True), shape=shape)
+        refs = fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop)
+        err = check_grads("F1 K2 fp32 64 padded to 128", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs,
+                          BWD_TOL["float32"])
+        out["k2_pad64"] = dict(
+            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qp, kp, vp, mask, lse, dop), calls=10, replays=5),
+            plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop), iters=3),
+            library_ms=cuda_graph_ms(sdpa_fp32_backward(qp, kp, vp, dop, mask), calls=10, replays=5),
+            sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, k, v, do), calls=10, replays=5),
+            **d2_bounds(b, tokens, h, d, True, False), padded=d2_bounds(b, tokens, h, d, True, True), shape=shape)
+        del q, k, v, do, qp, kp, vp, dop, o, lse, ro, rlse, refs
+    torch.cuda.synchronize()
+    print("phase 22 kernels fp32 (device ms from CUDA-graph replays; library: fp32 SDPA on the same inputs, the "
+          "backward its memory-efficient backward op; bounds at 3xTF32 and 3.35 TB/s, over the valid rows and keys "
+          "and over the padded contract's 128 rows): "
+          + "; ".join(f"{key} ({r['shape']}) max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} SDPA fp32 "
+                      f"{r['library_ms']:.4f}"
+                      + (f" (unpadded {r['sdpa_unpadded_ms']:.4f})" if "sdpa_unpadded_ms" in r else "")
+                      + f" plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, "
+                      f"{r['gflop']:.2f} GFLOP)"
+                      + (f", padded {r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']})" if "padded" in r else "")
+                      for key, r in out.items())
+          + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * (max|ref| + |ref|)")
+    return out
+
+
+def phase_f1_cli(root: Path):
+    """Phase 22: F1_CLI's three runs through train_diffusion (one epoch of
+    the cut set, every step timed, its K1/K2 launches by key length), then
+    one 16-image sample request at CFG 1.5 from each EMA checkpoint, every
+    launch an fp32 instance at D=64: a SprintDiT step 12 K1 + 12 K2 (its 2 +
+    2 outer blocks at 256 tokens, its 8 deep blocks at 64 kept, padded to
+    128), a DDT step 12 + 12 at 256, a CIFAR step 10 + 10 at 256 (B=32); a
+    request the blocks a forward times the config's steps (50; CIFAR 100).
+    Then their kernels (:func:`f1_cli_kernels`)."""
+    from diffulab_tpu_torch.config import compose_config
+    from diffulab_tpu_torch.examples import train_diffusion
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    sys.modules["wandb"] = None
+    log = root / "f1_cli.log"
+    data = root / "cifar-10-batches-py"
+    write_cifar10(data)
+    results = {}
+    labels = ",".join(str(i) for i in range(10))
+    for kind, (config, group) in F1_CLI.items():
+        save = root / f"f1_{kind}"
+        if kind == "cifar10":
+            cuts = {**F1_CIFAR_CUTS, **{f"dataset.{split}.data_path": ("data/cifar-10-batches-py", data)
+                                        for split in ("train", "val")}}
+            steps_per_epoch = F1_CIFAR_IMAGES["train"][1] // F1_CIFAR_BATCH
+        else:
+            cuts = C1_CUTS
+            steps_per_epoch = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
+        overrides = [*group, *(f"{key}={new}" for key, (_, new) in cuts.items())]
+        cfg = compose_config(CONFIG_DIR, config, overrides)
+        model = cfg["model"]
+        tokens = (32 // model["patch_size"]) ** 2
+        if kind == "sprint":
+            kept = max(1, int(tokens * (1.0 - model["drop_rate"])))
+            by_len = {tokens: model["encoder_depth"] + model["decoder_depth"], padded_keys(kept): model["deep_layers_depth"]}
+            eval_blocks = sum(by_len.values())
+        elif kind == "ddt":
+            by_len = {tokens: model["encoder_depth"] + model["decoder_depth"]}
+            eval_blocks = by_len[tokens]
+        else:
+            by_len = {tokens: model["depth"]}
+            eval_blocks = model["depth"]
+        run = save / cfg["trainer"]["project_name"]
+        tr = _timed_train_cli(train_diffusion.main, ["--config-name", config, *overrides,
+                                                     f"trainer.save_path={save}"], log, run, 1, steps_per_epoch,
+                              f"F1 {kind}")
+        per_step = sum(by_len.values())
+        want = {(name, "float32", n): c for name in ("fused_mha_fwd", "fused_mha_bwd") for n, c in by_len.items()}
+        if tr["per_step"] != [(per_step, per_step, 0)] * tr["trainer"].step or any(k != want for k in tr["step_keys"]):
+            fail(f"F1 {kind} train: launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, by length "
+                 f"{[k for k in tr['step_keys'] if k != want][:1]}, expected {per_step} each, {want}")
+        _e1_instances(f"F1 {kind} train", tr["launches"], "fp32")
+        n_steps = cfg["diffuser"]["n_steps"]
+        result = _sample_request(["--config-name", config, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
+                                  str(F1_SAMPLES), "--guidance", str(F1_GUIDANCE), "--labels", labels, "--out",
+                                  str(root / f"f1_{kind}.png"), *overrides], log)
+        keys = launch_keys()
+        if keys != {("fused_mha_fwd", "float32", tokens): n_steps * eval_blocks} \
+                or result["images"].shape != (F1_SAMPLES, 32, 32, 3):
+            fail(f"F1 {kind} sample: launches {keys}, expected {n_steps * eval_blocks} fp32 K1 at {tokens}; images "
+                 f"{result['images'].shape}")
+        _e1_instances(f"F1 {kind} sample", result["launches"], "fp32")
+        batch = cfg["dataloader"]["batch_size"]
+        cut_text = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in cuts.items())
+        print(f"phase 22 CLIs {config}{' ' + ' '.join(group) if group else ''} (cut: {cut_text}"
+              + (f", images {F1_CIFAR_IMAGES} written from a seed" if kind == "cifar10" else "")
+              + f"; batch {batch}, accumulation {cfg['trainer']['gradient_accumulation_step']}, fp32, "
+              f"classifier_free {model['classifier_free']}): {tr['trainer'].step} steps in {tr['train_s']:.1f} s, "
+              f"ms/step start to start median after the first two {tr['steady']:.2f} (min {min(tr['step_ms']):.2f} "
+              f"max {max(tr['step_ms']):.2f}; train_step alone {tr['kernel_ms']:.2f}), samples/s "
+              f"{batch / tr['steady'] * 1e3:.1f}, peak mem {tr['peak_gib']:.2f} GiB; train loss "
+              f"{[round(x, 5) for x in tr['losses']]}, val loss {[round(x, 5) for x in tr['val_losses']]}; fp32 K1 + "
+              f"K2 a step by padded length {by_len}, in the run {tr['launches']}; sample {F1_SAMPLES} images "
+              f"Euler-{n_steps} CFG {F1_GUIDANCE}: generate {result['generate_ms']:.1f} ms, "
+              f"{n_steps * eval_blocks} fp32 K1 at {tokens}")
+        results[kind] = {"train": tr["launches"], "sample": result["launches"], "step_ms": tr["steady"],
+                         "generate_ms": result["generate_ms"]}
+    results["kernels"] = f1_cli_kernels()
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -3404,6 +4098,12 @@ def main() -> int:
         phase_d2_model()
         d2 = phase_d2_cli(Path(tmp))
         lap("19 D2")
+        f1_txt = phase_f1_txt2img_sprint()
+        lap("20 F1 txt2img SprintDiT")
+        f1_hard = phase_f1_hard()
+        lap("21 F1 hard SprintDiT/DDT")
+        f1_cli = phase_f1_cli(Path(tmp))
+        lap("22 F1 CLIs")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -3423,6 +4123,10 @@ def main() -> int:
                "txt2img_train": txt_train_launches, **txt32_windows, "c1_train": c1["train"], "c1_sample": c1["sample"],
                "dit_sampling_arms": arms["launches"], "c2": c2, "d1_train": d1["train"], "d1_sample": d1["sample"],
                **e1_windows, **d2_windows}
+    # slice F1's windows: the hard pair's bf16 K1/K2, the CLI runs' fp32 K1/K2 at D=64, the txt2img SprintDiT's K3-K5
+    f1_bf16 = {f"f1_hard_{kind}_{w}": r[w] for kind, r in f1_hard.items() for w in ("sample", "train")}
+    f1_fp32 = {f"f1_{kind}_{w}": f1_cli[kind][w] for kind in F1_CLI for w in ("train", "sample")}
+    f1_flash = {f"f1_txt2img_sprint_{w}": counts for w, counts in f1_txt["windows"].items()}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -3436,12 +4140,12 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
         + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd_bf16"] for w in e1_bf16.values()),
+        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values())),
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
                              "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd_bf16"] for k, w in e1_bf16.items()}},
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()}},
         "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "device time per call from CUDA-graph replays"},
         "dit_sampling_arms_max_abs_err": arms["k1_err"],
@@ -3461,9 +4165,11 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd"] for w in e1_d64.values()),
+        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
-                             "c2": c2["fused_mha_fwd"], **{k: w["fused_mha_fwd"] for k, w in e1_d64.items()}},
+                             "c2": c2["fused_mha_fwd"],
+                             **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()}},
+        "f1_padded64": f1_cli["kernels"]["k1_pad64"],
         "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
         **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -3476,10 +4182,10 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd_bf16"] for w in e1_bf16.values()),
+        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values())),
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
                              "txt2img_train": txt_train_launches["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd_bf16"] for k, w in e1_bf16.items()}},
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()}},
         "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "ms: device time per call from CUDA-graph replays; library_ms: device time per call "
                                "of SDPA's bf16 autograd backward, kernels summed by torch.profiler"},
@@ -3489,9 +4195,12 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
-        "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"] + sum(w["fused_mha_bwd"] for w in e1_d64.values()),
+        "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"]
+        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd"] for k, w in e1_d64.items()}},
+                             **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()}},
+        "cifar_b32": f1_cli["kernels"]["k2_b32"],
+        "f1_padded64": f1_cli["kernels"]["k2_pad64"],
         "c2_max_abs_err": c2["errs"][f"K2 B={C1_BATCH}"],
         **{key: c1_kernels["bwd_b128"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -3526,11 +4235,13 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "diffulab_tpu/ops/flash_attention.py:81",
         "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"]
-        + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in txt32_windows.values()),
+        + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in (*txt32_windows.values(), *f1_flash.values())),
         "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
                              "txt2img_train": txt_train_launches["flash_attn_fwd"],
-                             **{k: w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for k, w in txt32_windows.items()}},
+                             **{k: w["flash_attn_fwd"] - w["flash_attn_fwd_f32"]
+                                for k, w in {**txt32_windows, **f1_flash}.items()}},
         **k3,
+        "f1_deep_shape": f1_txt["kernels"]["flash_attn_fwd"],
         "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms, "sdpa": sdpa_ms}
                         for key, (k1, k3_ms, sdpa_ms) in crossover.items()},
     }] + [{
@@ -3538,10 +4249,13 @@ def main() -> int:
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": replaces,
-        "launches": txt_train_launches[name] + txt32["train"][name] - txt32["train"][f"{name}_f32"],
+        "launches": txt_train_launches[name] + txt32["train"][name] - txt32["train"][f"{name}_f32"]
+        + f1_txt["windows"]["train"][name],
         "launches_by_path": {"txt2img_train": txt_train_launches[name],
-                             "txt2img_fp32_attention_train": txt32["train"][name] - txt32["train"][f"{name}_f32"]},
+                             "txt2img_fp32_attention_train": txt32["train"][name] - txt32["train"][f"{name}_f32"],
+                             "f1_txt2img_sprint_train": f1_txt["windows"]["train"][name]},
         **k45[name],
+        "f1_deep_shape": f1_txt["kernels"][name],
         "library_computes": "dq, dk and dv together (SDPA masked backward)",
         "vs_fused_bwd_ms": {key: {"fused_mha_bwd": k2, "flash_attn_bwd": k45_ms}
                             for key, (k2, k45_ms) in bwd_crossover.items()},

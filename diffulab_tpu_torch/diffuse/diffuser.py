@@ -64,18 +64,24 @@ class Diffuser:
         self._block_cache: dict[str, Any] | None = None
 
     @staticmethod
-    def _model_fn(denoiser: Any, train: bool, capture_features: bool = False):
+    def _model_fn(denoiser: Any, train: bool, capture_features: bool = False,
+                  generator: torch.Generator | None = None):
         def fn(x, timesteps, cond, drop, **kwargs):
             if capture_features:
                 kwargs["capture_features"] = True
+            if generator is not None:
+                kwargs["generator"] = generator
             return denoiser(x=x, timesteps=timesteps, cond=cond, drop=drop, train=train, **kwargs)
         return fn
 
-    def model_fn(self, train: bool = False, capture_features: bool = False):
+    def model_fn(self, train: bool = False, capture_features: bool = False,
+                 generator: torch.Generator | None = None):
         """The (x, timesteps, cond, drop) callable the formalizations consume;
         further keywords (the block cache) go through to the denoiser;
-        ``capture_features`` returns the features the extra losses read."""
-        return self._model_fn(self.denoiser, train, capture_features)
+        ``capture_features`` returns the features the extra losses read;
+        ``generator`` is the one the denoiser's own draws take (the token
+        drop of a training forward)."""
+        return self._model_fn(self.denoiser, train, capture_features, generator)
 
     def draw_timesteps(self, generator: torch.Generator, batch_size: int) -> torch.Tensor:
         return self.diffusion.draw_timesteps(generator, batch_size)
@@ -90,12 +96,15 @@ class Diffuser:
         extra_args: dict[str, Any] | None = None,
         train: bool = True,
         grpo: bool = False,
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
-        """The training loss (diffuser.py:117) with the given t, noise and drop mask."""
+        """The training loss (diffuser.py:117) with the given t, noise and drop
+        mask; ``generator`` goes to the denoiser (see :meth:`model_fn`)."""
         if grpo:
             raise NotImplementedError("the GRPO loss is not ported yet (ROADMAP queue 1, item 16)")
         return self.diffusion.compute_loss(
-            self.model_fn(train=train, capture_features=bool(self.extra_losses)), x0, cond, timesteps, noise,
+            self.model_fn(train=train, capture_features=bool(self.extra_losses), generator=generator), x0, cond,
+            timesteps, noise,
             drop=drop, extra_losses=self.extra_losses, extra_args=extra_args,
         )
 

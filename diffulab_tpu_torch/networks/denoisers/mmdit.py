@@ -357,7 +357,52 @@ class PatchEmbed(nn.Module):
         return F.linear(patches.to(dt), kernel.to(dt)), (hp, wp)
 
 
-class MMDiT(Denoiser):
+class PatchGridMixin:
+    """Patchify / unpatchify, the RoPE position ids and the block call with
+    ``use_checkpoint``, shared by the DiT-family denoisers (:class:`MMDiT`,
+    SprintDiT, DDT). Needs ``conv_proj``, ``stream_dtype``, ``patch_size``,
+    ``output_channels`` and ``use_checkpoint``."""
+
+    def patchify(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
+        """NHWC image -> [B, Hp*Wp, inner_dim]; returns the token grid size."""
+        tokens, grid_size = self.conv_proj(x)
+        if self.stream_dtype is not None:
+            tokens = tokens.to(self.stream_dtype)
+        return tokens, grid_size
+
+    def unpatchify(self, x: torch.Tensor, grid_size: tuple[int, int]) -> torch.Tensor:
+        hp, wp = grid_size
+        p = self.patch_size
+        b = x.shape[0]
+        x = x.reshape(b, hp, wp, p, p, self.output_channels).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, hp * p, wp * p, self.output_channels)
+
+    def _image_pos_ids(self, batch: int, grid_size: tuple[int, int], n_axes: int, device) -> torch.Tensor:
+        """(h, w) per image token; (0, h, w) with a text axis (mmdit.py:613)."""
+        hp, wp = grid_size
+        hh, ww = torch.meshgrid(torch.arange(hp, device=device), torch.arange(wp, device=device),
+                                indexing="ij")
+        axes = [hh.reshape(-1), ww.reshape(-1)]
+        if n_axes == 3:
+            axes = [torch.zeros_like(axes[0])] + axes
+        pos = torch.stack(axes, dim=-1)
+        return pos[None].expand(batch, hp * wp, n_axes)
+
+    def _text_pos_ids(self, batch: int, seq_len: int, device) -> torch.Tensor:
+        """(l, 0, 0) per text token, l from 1 (mmdit.py:622)."""
+        zeros = torch.zeros((seq_len,), dtype=torch.long, device=device)
+        pos = torch.stack([torch.arange(1, seq_len + 1, device=device), zeros, zeros], dim=-1)
+        return pos[None].expand(batch, seq_len, 3)
+
+    def _run_block(self, layer: nn.Module, *args):
+        """One block; with ``use_checkpoint`` and under grad, recomputed in the
+        backward instead of keeping its activations (mmdit.py:627-630)."""
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+
+class MMDiT(PatchGridMixin, Denoiser):
     """DiT/MMDiT top-level model (mmdit.py:407).
 
     ``simple_dit=True``: class-conditional single-stream DiT (2-axis RoPE);
@@ -492,45 +537,6 @@ class MMDiT(Denoiser):
                for _ in range(n_single_stream_blocks)]
         )
 
-    # --- patch ops ---------------------------------------------------------
-    def patchify(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int]]:
-        """NHWC image -> [B, Hp*Wp, inner_dim]; returns the token grid size."""
-        tokens, grid_size = self.conv_proj(x)
-        if self.stream_dtype is not None:
-            tokens = tokens.to(self.stream_dtype)
-        return tokens, grid_size
-
-    def unpatchify(self, x: torch.Tensor, grid_size: tuple[int, int]) -> torch.Tensor:
-        hp, wp = grid_size
-        p = self.patch_size
-        b = x.shape[0]
-        x = x.reshape(b, hp, wp, p, p, self.output_channels).permute(0, 1, 3, 2, 4, 5)
-        return x.reshape(b, hp * p, wp * p, self.output_channels)
-
-    def _image_pos_ids(self, batch: int, grid_size: tuple[int, int], n_axes: int, device) -> torch.Tensor:
-        """(h, w) per image token; (0, h, w) with a text axis (mmdit.py:613)."""
-        hp, wp = grid_size
-        hh, ww = torch.meshgrid(torch.arange(hp, device=device), torch.arange(wp, device=device),
-                                indexing="ij")
-        axes = [hh.reshape(-1), ww.reshape(-1)]
-        if n_axes == 3:
-            axes = [torch.zeros_like(axes[0])] + axes
-        pos = torch.stack(axes, dim=-1)
-        return pos[None].expand(batch, hp * wp, n_axes)
-
-    def _text_pos_ids(self, batch: int, seq_len: int, device) -> torch.Tensor:
-        """(l, 0, 0) per text token, l from 1 (mmdit.py:622)."""
-        zeros = torch.zeros((seq_len,), dtype=torch.long, device=device)
-        pos = torch.stack([torch.arange(1, seq_len + 1, device=device), zeros, zeros], dim=-1)
-        return pos[None].expand(batch, seq_len, 3)
-
-    def _run_block(self, layer: nn.Module, *args):
-        """One block; with ``use_checkpoint`` and under grad, recomputed in the
-        backward instead of keeping its activations (mmdit.py:627-630)."""
-        if self.use_checkpoint and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False)
-        return layer(*args)
-
     # --- sampling-time block caching (Delta-DiT-style) -----------------------
     def set_block_cache_span(self, span: tuple[int, int] | None) -> None:
         """Set (or, with None, clear) the ``[lo, hi)`` block span whose combined
@@ -662,8 +668,9 @@ class MMDiT(Denoiser):
         capture_features: bool = False,
         block_cache: Any = None,
         cache_refresh: bool | None = None,
+        generator: torch.Generator | None = None,
     ) -> ModelOutput:
-        del train
+        del train, generator  # nothing random in the forward
         cond = cond or {}
         if cond.get("context") is not None and cond.get("y") is not None:
             raise ValueError("context and y cannot both be specified")

@@ -428,7 +428,9 @@ class UNetModel(Denoiser):
         capture_features: bool = False,
         block_cache: Any = None,
         cache_refresh: bool | None = None,
+        generator: torch.Generator | None = None,
     ) -> ModelOutput:
+        del generator  # dropout draws from torch's global generator, as nn.Dropout does
         cond = cond or {}
         y, context_raw, x_context = cond.get("y"), cond.get("context"), cond.get("x_context")
         if list(x.shape[1:3]) != self.image_size:

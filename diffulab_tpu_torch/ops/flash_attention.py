@@ -81,6 +81,7 @@ plain forward and the plain backward (not autograd of the plain forward).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -145,8 +146,13 @@ LAUNCHES = {"flash_attn_fwd": 0, "flash_attn_bwd_dkv": 0, "flash_attn_bwd_dq": 0
             "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0, "flash_attn_bwd_dq_f32": 0}
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
+#: the same launches by ``(kernel, dtype name, Skv)`` (read by chip_smoke.py)
+LAUNCHES_BY_KEYS: collections.Counter = collections.Counter()
+
+
+def _count(name: str, dtype: torch.dtype, skv: int) -> None:
     LAUNCHES[name] += 1
+    LAUNCHES_BY_KEYS[name, str(dtype).removeprefix("torch."), skv] += 1
     if dtype == torch.float32:
         LAUNCHES[f"{name}_f32"] += 1
 
@@ -372,7 +378,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_fwd")
-    _count("flash_attn_fwd", q.dtype)
+    _count("flash_attn_fwd", q.dtype, skv)
     return o, lse
 
 
@@ -416,7 +422,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_bwd_dkv")
-    _count("flash_attn_bwd_dkv", q.dtype)
+    _count("flash_attn_bwd_dkv", q.dtype, skv)
     return dk, dv, ws[1, :, :, :sq]
 
 
@@ -445,7 +451,7 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "flash_attn_bwd_dq")
-    _count("flash_attn_bwd_dq", q.dtype)
+    _count("flash_attn_bwd_dq", q.dtype, skv)
     return dq
 
 

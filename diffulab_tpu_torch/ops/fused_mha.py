@@ -79,6 +79,7 @@ for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -201,8 +202,14 @@ LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_fwd_bf16": 0, "fu
             **{f"fused_mha_{kind}_f32_d{d}": 0 for kind in ("fwd", "bwd") for d in F32_ONLY_HEAD_DIMS}}
 
 
-def _count(name: str, d: int, dtype: torch.dtype) -> None:
+#: the same launches by ``(kernel, dtype name, Skv)``: the padded key length a
+#: launch took (read by chip_smoke.py, which tells the paths' lengths apart)
+LAUNCHES_BY_KEYS: collections.Counter = collections.Counter()
+
+
+def _count(name: str, d: int, dtype: torch.dtype, skv: int) -> None:
     LAUNCHES[name] += 1
+    LAUNCHES_BY_KEYS[name, str(dtype).removeprefix("torch."), skv] += 1
     if dtype == torch.bfloat16:
         LAUNCHES[f"{name}_bf16"] += 1
     if d in F32_ONLY_HEAD_DIMS:
@@ -506,7 +513,7 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, "fused_mha_fwd")
-    _count("fused_mha_fwd", d, q.dtype)
+    _count("fused_mha_fwd", d, q.dtype, skv)
     return o, lse
 
 
@@ -556,7 +563,7 @@ def fused_mha_bwd(
             ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(err, "fused_mha_bwd")
-    _count("fused_mha_bwd", d, q.dtype)
+    _count("fused_mha_bwd", d, q.dtype, skv)
     return dq, dk, dv
 
 

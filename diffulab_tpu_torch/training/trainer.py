@@ -9,7 +9,9 @@ accumulation and clipping rules. Mirrored from the reference:
 - per step, t, the noise and the CFG drop mask are drawn from one
   ``torch.Generator`` on the card, seeded from (seed, step) so that a resumed
   run draws what the uninterrupted one would (the reference folds the step
-  into its key);
+  into its key); a denoiser with ``draws_in_training`` (SprintDiT) gets a
+  second one for its forward, seeded from that step seed (the reference's
+  call-time ``rngs``, the fourth split of the step key);
 - gradient accumulation with ``optax.MultiSteps`` semantics
   (:class:`MultiStepOptimizer`: the mean of k micro-gradients, one update
   every k micro-steps, Adam's bias correction counting updates only);
@@ -109,6 +111,9 @@ logger = pylog.getLogger(__name__)
 #: offset of the validation draws' seeds, as the reference's fold_in(rng, 1_000_000 + i)
 _VAL_SEED_OFFSET = 1_000_000
 _IMAGE_SEED_OFFSET = 10_000
+#: index of the denoiser's draws under a step's seed: the fourth of the
+#: reference's split of the step key, its call-time ``rngs`` (trainer.py:342-355)
+_MODEL_DRAW = 3
 
 
 def _fold_seed(seed: int, index: int) -> int:
@@ -222,6 +227,7 @@ def train_step(
     step: int,
     phema: PowerEMA | None = None,
     distill: dict[str, Any] | None = None,
+    generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """One micro-step with its randomness given (trainer.py:371-386): the
     loss, its gradients, the (accumulated) optimizer update, and the EMA and
@@ -230,12 +236,13 @@ def train_step(
     takes the place of ``noise``. ``distill`` is the ``distill_fn`` /
     ``distill_guidance`` pair of guidance distillation. The diffuser's extra
     losses join the loss dict (their features captured by the forward).
-    Returns the detached losses."""
+    ``generator`` is the denoiser's own for the forward's draws (SprintDiT's
+    token drop). Returns the detached losses."""
     x0, cond, coupled = split_batch(batch)
     if coupled is not None:
         noise = coupled.to(x0.dtype)
     extra_losses = diffuser.extra_losses
-    model_fn = diffuser.model_fn(train=True, capture_features=bool(extra_losses))
+    model_fn = diffuser.model_fn(train=True, capture_features=bool(extra_losses), generator=generator)
     losses = diffuser.diffusion.compute_loss(model_fn, x0, cond, t, noise, drop=drop, extra_losses=extra_losses,
                                              **(distill or {}))
     sum(losses.values()).backward()
@@ -626,6 +633,9 @@ class BaseTrainer(Trainer):
         best_val_loss = resume_best_val
         tracker_meter = AverageMeter()
         generator = torch.Generator(device=self.device)
+        # the denoiser's own draws (SprintDiT's token drop), from a generator seeded per step
+        model_generator = (torch.Generator(device=self.device)
+                           if getattr(diffuser.denoiser, "draws_in_training", False) else None)
         diffusion = diffuser.diffusion
 
         logger.info("Begin training")
@@ -658,8 +668,10 @@ class BaseTrainer(Trainer):
                 drop = None
                 if p_classifier_free_guidance > 0:
                     drop = make_drop_mask(generator, p_classifier_free_guidance, bsz)
-                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step, phema,
-                                    **({"distill": distill} if distill else {}))
+                extra: dict[str, Any] = {"distill": distill} if distill else {}
+                if model_generator is not None:
+                    extra["generator"] = model_generator.manual_seed(_fold_seed(_fold_seed(seed, step), _MODEL_DRAW))
+                losses = train_step(diffuser, opt, ema, batch, t, noise, drop, step, phema, **extra)
                 n_steps_epoch += 1
                 for key, loss in losses.items():
                     prev = loss_sums.get(key)

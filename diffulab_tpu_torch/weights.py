@@ -12,8 +12,9 @@ the mapping is by leaf name only:
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
   other ``*/scale`` (RMSNorm, GroupNorm) stay ``scale``;
 - ``*/embedding/embedding`` -> ``embedding.weight``;
-- the ViT's bare arrays (``cls_token``, ``register_tokens``, ``pos_embed``,
-  ``ls1``, ``ls2``) keep their name and layout.
+- the bare arrays (the ViT's ``cls_token``, ``register_tokens``,
+  ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``) keep their
+  name and layout.
 
 A JAX ``RepaLoss`` maps the same way (its projector ``proj_fc*``, its frozen
 encoder under ``repa_encoder/_encoder/``), and so does the trainer's
@@ -38,8 +39,9 @@ import numpy as np
 import torch
 
 
-#: parameters held as a bare array, the same layout on both sides (the ViT's tokens and LayerScale)
-_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2"})
+#: parameters held as a bare array, the same layout on both sides (the ViT's tokens and LayerScale,
+#: SprintDiT's mask token)
+_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token"})
 
 
 def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:

@@ -138,6 +138,8 @@ def test_every_target_resolves_in_the_port_or_raises_not_implemented(target):
 
 
 @pytest.mark.parametrize("target", ["diffulab_tpu.networks.denoisers.mmdit.MMDiT",
+                                    "diffulab_tpu.networks.denoisers.sprint.SprintDiT",
+                                    "diffulab_tpu.networks.denoisers.ddt.DDT",
                                     "diffulab_tpu.data.SyntheticShapesDataset",
                                     "diffulab_tpu.data.MNISTDataset", "diffulab_tpu.data.CIFAR10Dataset",
                                     "diffulab_tpu.data.ImageFolderDataset", "diffulab_tpu.training.optim.adamw",
@@ -148,8 +150,8 @@ def test_ported_targets_resolve(target):
 
 
 def test_unported_and_jax_side_targets_raise():
-    with pytest.raises(NotImplementedError, match="ddt.DDT"):
-        locate("diffulab_tpu.networks.denoisers.ddt.DDT")
+    with pytest.raises(NotImplementedError, match="dinov2.DinoV2"):
+        locate("diffulab_tpu.networks.repa.dinov2.DinoV2")
     with pytest.raises(NotImplementedError, match="ImageNetLatentREPA"):
         locate("diffulab_tpu.data.imagenet.ImageNetLatentREPA")
     with pytest.raises(NotImplementedError, match="optax.cosine_decay_schedule"):
