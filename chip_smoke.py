@@ -31,7 +31,11 @@ head dims 256 and 512) through the same CLIs on MNIST files written from a
 seed; and slice F1, SprintDiT and DDT: the txt2img SprintDiT of
 ``configs/train_imagenet_repa_txt_to_img_sprint.yaml`` serving and training,
 the hard-txt2img SprintDiT and DDT, and ``model=sprint``, ``model=ddt`` and
-``configs/train_cifar10_flow_matching.yaml`` through the same CLIs.
+``configs/train_cifar10_flow_matching.yaml`` through the same CLIs; and
+slice G1, ``configs/train_imagenet_flow_matching_repa.yaml`` (a DiT-B at
+patch 1 on DC-AE latents with REPA on precomputed DINOv2-L features through
+a Perceiver resampler) through the port's ``precompute``, ``train_repa``
+and ``sample`` CLIs on images written from a seed.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -202,7 +206,25 @@ Phases, one line each:
      256 tokens, 8 at 64 padded to 128; DDT 12, CIFAR 10 at 256); then the
      fp32 K2 at B=32 and the fp32 K1/K2 at 64 tokens padded to 128 against
      their plain versions, beside fp32 SDPA on the same and on the unpadded
-     tensors, and their bounds.
+     tensors, and their bounds;
+ 23. slice G1, ``configs/train_imagenet_flow_matching_repa.yaml`` at its
+     widths: (a) 1024 + 128 seeded 256x256 images with labels written by the
+     port's ShardedDatasetWriter, the validation split also as MDS shards,
+     read back the same; (b) ``precompute latents`` with the full DC-AE
+     f32c32 tower (seeded random weights), 8x8x32 latents, images/s, peak
+     memory, one batch decoded back to finite pixels; (c) ``precompute
+     features`` with dinov2_vitl14_reg at 224 px (256 tokens of 1024),
+     images/s; (d) ``train_repa`` one epoch of 8 steps at batch 128, bf16, 12
+     bf16 K1 + 12 bf16 K2 at 128 padded keys every step (64 tokens), the REPA
+     term non-zero, ms per step, peak memory; (e) ``sample`` of 16 images
+     Euler-50 at CFG 4.0 with the DC-AE decode, 600 K1 at 128 padded keys;
+     (f) a B=128 forward and the gradients of a B=2 loss with the
+     precomputed RepaLoss and its resampler against the plain-attention
+     twin; (g) the bf16 K1/K2 at B=128, 64 tokens padded to 128, H=12, the
+     fp32 K1 at the request's B=32, and the hard txt2img pair's bf16 K1/K2
+     instances (phase 21's: 264 tokens padded to 384, 256, 72 padded to 128;
+     H=6), each beside SDPA on the padded and the unpadded tensors, its plain
+     version and both bounds.
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -404,6 +426,22 @@ F1_CIFAR_CUTS = {"trainer.n_epoch": (100, 1)}
 F1_CIFAR_IMAGES = {"train": (50000, 1024), "val": (10000, 256)}
 F1_CIFAR_BATCH = 32
 F1_SAMPLES, F1_GUIDANCE = 16, 1.5
+# phase 23: slice G1, configs/train_imagenet_flow_matching_repa.yaml (a class-conditional DiT-B at patch 1 on the
+# 8x8x32 latents of the DC-AE f32c32 tower: 768 wide, 12 heads of 64, 12 blocks, 1000 classes with a CFG null,
+# bf16, batch 128; REPA at block 8 through a 3-deep Perceiver resampler of 256 latents onto precomputed DINOv2-L
+# features) through the port's CLIs: precompute latents (vision_tower=dcae), precompute features
+# (dinov2_vitl14_reg at resolution 256: 224 px, 256 patch tokens of 1024), train_repa, sample. Cut: ImageNet's
+# images (1,281,167 train, 50,000 val) -> seeded 256x256 RGB images with labels in 0-999, its 150 epochs -> 1, the
+# pretrained DC-AE and DINOv2-L weights -> seeded random weights (their download is not available)
+G1_CONFIG = "train_imagenet_flow_matching_repa"
+G1_IMAGES = {"train": (1_281_167, 1024), "val": (50_000, 128)}
+G1_CUTS = {"trainer.n_epoch": (150, 1)}
+G1_PX, G1_BATCH, G1_DEPTH, G1_HEADS = 256, 128, 12, 12
+G1_TOKENS = 64  # 8x8 latents at patch 1, padded to 128 keys by the fused route
+G1_DINO = "{dino_model: dinov2_vitl14_reg, resolution: 256}"
+G1_PRECOMPUTE_BATCH = 64
+G1_SAMPLES, G1_GUIDANCE = 16, 4.0  # one Euler-50 request at CFG 4.0: 2x16 under fused CFG
+G1_GRAD_BATCH = 2
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -3107,23 +3145,31 @@ def d2_mask(kind: str, b: int, tokens: int):
 
 def d2_bounds(b: int, tokens: int, h: int, d: int, backward: bool, padded: bool) -> dict[str, Any]:
     """The bound of one fp32 K1 (or, ``backward``, K2) call at the MNIST
-    UNet's shape, at 3xTF32 and 3.35 TB/s: the valid rows of q and o (K2: q,
-    do and dq), the valid keys of k and v (K2: and of dk and dv, the
-    gradients the route keeps: its pad's backward drops the padded keys'),
-    lse over the valid rows, the mask, and the products over the valid rows
-    and keys; ``padded``: the padded contract, q and o (do, dq), lse, dk and
-    dv over the 128 padded rows (the zero rows the kernel writes included)
-    and the products over the padded rows and valid keys."""
-    rows = D2_PADDED if padded else tokens
-    s = D2_PADDED
+    UNet's shape, keys padded to 128, at 3xTF32 (:func:`padded_bounds`)."""
+    return padded_bounds(b, tokens, D2_PADDED, h, d, backward, padded)
+
+
+def padded_bounds(b: int, tokens: int, s: int, h: int, d: int, backward: bool, padded: bool, elem: int = 4,
+                  peak_flops: float = PEAK_TF32_FLOPS, passes: int = 3) -> dict[str, Any]:
+    """The bound of one K1 (or, ``backward``, K2) call on ``tokens`` valid
+    rows and keys padded to ``s``, at ``passes`` products of ``peak_flops``
+    (fp32: 3xTF32; bf16: one pass at the bf16 peak) and 3.35 TB/s, elements
+    of ``elem`` bytes: the valid rows of q and o (K2: q, do and dq), the
+    valid keys of k and v (K2: and of dk and dv, the gradients the route
+    keeps: its pad's backward drops the padded keys'), lse over the valid
+    rows, the mask, and the products over the valid rows and keys;
+    ``padded``: the padded contract, q and o (do, dq), lse, dk and dv over
+    the ``s`` padded rows (the zero rows the kernel writes included) and the
+    products over the padded rows and valid keys."""
+    rows = s if padded else tokens
     if backward:
         elems = (3 * b * rows + 2 * b * tokens + 2 * b * rows) * h * d
         flops = 10 * b * h * rows * tokens * d
     else:
         elems = (2 * b * rows + 2 * b * tokens) * h * d
         flops = 4 * b * h * rows * tokens * d
-    bytes_moved = elems * 4 + b * rows * h * 4 + b * s * 4
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOPS
+    bytes_moved = elems * elem + b * rows * h * 4 + b * s * 4
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, passes * flops / peak_flops
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
                 mb=bytes_moved / 1e6, gflop=flops / 1e9)
 
@@ -4022,6 +4068,355 @@ def phase_f1_cli(root: Path):
     return results
 
 
+def write_g1_images(root: Path, seed: int = 0) -> dict[str, Any]:
+    """Phase 23a: G1_IMAGES' cut counts of seeded 256x256 RGB uint8 images
+    with labels in 0-999, through the port's ShardedDatasetWriter (npz
+    shards of 1024), and the validation split once more through its
+    MDSDatasetWriter (``image`` as ``ndarray:uint8:256,256,3``, ``label`` as
+    ``int``); ShardedDataset must read the same samples from both. Returns
+    the source directories and the seconds."""
+    import numpy as np
+
+    from diffulab_tpu_torch.data.mds import MDSDatasetWriter
+    from diffulab_tpu_torch.data.streaming import ShardedDataset, ShardedDatasetWriter
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    for split, (_, n) in G1_IMAGES.items():
+        images = rng.integers(0, 256, (n, G1_PX, G1_PX, 3), dtype=np.uint8)
+        labels = rng.integers(0, 1000, n)
+        with ShardedDatasetWriter(root / "raw" / split) as writer:
+            for image, label in zip(images, labels):
+                writer.write({"image": image, "label": int(label)})
+        if split == "val":
+            columns = {"image": f"ndarray:uint8:{G1_PX},{G1_PX},3", "label": "int"}
+            with MDSDatasetWriter(root / "raw_mds" / split, columns, shard_size=64) as writer:
+                for image, label in zip(images, labels):
+                    writer.write({"image": image, "label": int(label)})
+    npz, mds = ShardedDataset(root / "raw" / "val"), ShardedDataset(root / "raw_mds" / "val")
+    same = len(npz) == len(mds) == G1_IMAGES["val"][1] and all(
+        np.array_equal(npz[i]["image"], mds[i]["image"]) and int(npz[i]["label"]) == mds[i]["label"]
+        for i in range(len(npz)))
+    if not same:
+        fail("G1 data: the npz and MDS copies of the validation split differ")
+    return {"train": root / "raw" / "train", "val": root / "raw_mds" / "val", "s": time.perf_counter() - t0}
+
+
+def _timed_cli(main, argv, log: Path) -> dict[str, Any]:
+    """A CLI's ``main(argv)`` in process, timed with the card synchronised at
+    both ends, its peak memory and its K1-K5 launches (the counts set to 0
+    just before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _run_cli(main, argv, log)
+    torch.cuda.synchronize()
+    return {"out": out, "s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launch_counts()}
+
+
+def g1_kernels() -> dict[str, Any]:
+    """Phase 23g's kernels: the bf16 K1 and K2 at slice G1's training shape
+    (B=128, 64 tokens padded to 128 query rows and keys with the padding
+    mask, H=12, D=64), K1 also at its request's B=32 in fp32 (the sample CLI
+    builds the model in fp32, as the reference's does), and the bf16 K1/K2
+    instances of the hard txt2img pair (phase 21: H=6, D=64; 264 tokens
+    padded to 384 at B=32 in a request and B=64 in training, 256 unpadded
+    (the DDT decoder), 72 padded to 128 (the SprintDiT's deep path in
+    training)); against their plain versions, each timed from CUDA-graph
+    replays beside SDPA on the same padded inputs with the mask and on the
+    unpadded tensors (the backward: SDPA's autograd backward, its kernels
+    summed by torch.profiler), with bounds over the valid rows and keys and
+    over the padded contract (:func:`padded_bounds`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    d = 64
+    cases = [("g1_train", G1_BATCH, G1_HEADS, G1_TOKENS, torch.bfloat16, True),
+             ("g1_sample", 2 * G1_SAMPLES, G1_HEADS, G1_TOKENS, torch.float32, False),
+             ("hard_request_384", 2 * F1_HARD_SAMPLES, 6, 264, torch.bfloat16, False),
+             ("hard_request_256", 2 * F1_HARD_SAMPLES, 6, 256, torch.bfloat16, False),
+             ("hard_train_384", F1_HARD_BATCH, 6, 264, torch.bfloat16, True),
+             ("hard_train_256", F1_HARD_BATCH, 6, 256, torch.bfloat16, True),
+             ("hard_train_128", F1_HARD_BATCH, 6, 72, torch.bfloat16, True)]
+    out = {}
+    for tag, b, h, tokens, dtype, backward in cases:
+        s = padded_keys(tokens)
+        bf16 = dtype == torch.bfloat16
+        kind = "bfloat16" if bf16 else "float32"
+        bounds = dict(elem=2, peak_flops=PEAK_BF16_FLOPS, passes=1) if bf16 else {}
+        q, k, v, do = (torch.randn(b, tokens, h, d, generator=gen, device="cuda").to(dtype) for _ in range(4))
+        qp, kp, vp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, k, v, do))  # the fused route's padding
+        mask = (torch.arange(s, device="cuda") < tokens)[None].expand(b, -1).contiguous() if s != tokens else None
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        shape = f"B={b} Sq=Skv={s}" + (f" padded from {tokens} (the padding mask)" if s != tokens else "") \
+            + f" H={h} D={d} {kind}"
+        with torch.no_grad():
+            o, lse = fused_mha(qp, kp, vp, mask)
+            ro, rlse = fused_mha_reference(qp, kp, vp, mask)
+            err = check_close(f"G1 {tag} K1 o", o, ro, *TOL[kind])
+            check_close(f"G1 {tag} K1 lse", lse, rlse, *LSE_TOL)
+            qpt, kpt, vpt, qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp, q, k, v))
+            fwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qp, kp, vp, mask)),
+                       plain_ms=cuda_time_ms(lambda: fused_mha_reference(qp, kp, vp, mask), iters=5),
+                       library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kpt, vpt,
+                                                                                       attn_mask=attn_mask)),
+                       sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                       **padded_bounds(b, tokens, s, h, d, False, False, **bounds),
+                       padded=padded_bounds(b, tokens, s, h, d, False, True, **bounds), shape=shape)
+            out[f"k1_{tag}"] = fwd
+            if backward:
+                refs = fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop)
+                err = check_grads(f"G1 {tag} K2", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs, BWD_TOL[kind])
+                bwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qp, kp, vp, mask, lse, dop),
+                                                             calls=10, replays=5),
+                           plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop), iters=3),
+                           **padded_bounds(b, tokens, s, h, d, True, False, **bounds),
+                           padded=padded_bounds(b, tokens, s, h, d, True, True, **bounds), shape=shape)
+                del refs
+        if backward:
+            timings = {}
+            for name, (tq, tk, tv, tdo, m) in (("library_ms", (qp, kp, vp, dop, attn_mask)),
+                                               ("sdpa_unpadded_ms", (q, k, v, do, None))):
+                with torch.enable_grad():
+                    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (tq, tk, tv)]
+                    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=m)
+                    dot = tdo.transpose(1, 2)
+                    timings[name] = profiled_kernels(
+                        lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))[0]
+                    del sdpa_out, leaves
+            out[f"k2_{tag}"] = {**bwd, **timings}
+        del q, k, v, do, qp, kp, vp, dop, o, lse, ro, rlse
+    torch.cuda.synchronize()
+    print("phase 23 kernels (device ms from CUDA-graph replays; library: SDPA on the same padded inputs with the "
+          "mask, beside SDPA on the unpadded tensors; the backward SDPA's autograd backward, its kernels summed by "
+          "torch.profiler; bounds at 3.35 TB/s and the bf16 peak (fp32: 3xTF32), over the valid rows and keys and "
+          "over the padded contract): "
+          + "; ".join(f"{key} ({r['shape']}) max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} SDPA "
+                      f"{r['library_ms']:.4f} (unpadded {r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound "
+                      f"{r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
+                      f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']})" for key, r in out.items())
+          + f"; tol K1 bf16 atol/rtol {TOL['bfloat16'][0]}, fp32 {TOL['float32'][0]}; K2 bf16 {BWD_TOL['bfloat16']} "
+            "* (max|ref| + |ref|)")
+    return out
+
+
+def _g1_twin_checks(cfg: dict, shards: Path, scale) -> dict[str, Any]:
+    """Phase 23f: the config's DiT (bf16, seeded noise weights) against its
+    plain-attention twin: an eval forward at B=G1_BATCH on the first
+    validation latents (12 bf16 K1 at 128 padded keys), and the gradients of
+    one compute_loss at B=G1_GRAD_BATCH with the precomputed RepaLoss and its
+    resampler (the same weights on both paths), the batch's dst_features
+    passed as the trainer passes them (12 K1 + 12 K2), every parameter's
+    ||kernel - plain|| / ||plain|| against DIT_GRAD_TOL."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.config import instantiate
+    from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
+    from diffulab_tpu_torch.data.streaming import ShardedDataset
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.networks.nn import make_drop_mask
+    from diffulab_tpu_torch.training.checkpoint import TrainModules
+    from diffulab_tpu_torch.training.losses import build_extra_losses
+
+    kw = model_dtype_kwargs(cfg["trainer"])
+    model = instantiate(cfg["model"], **kw).eval()
+    randomize_(model, seed=30)
+    plain = instantiate({**cfg["model"], "attention_impl": "xla"}, **kw).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    val = ShardedDataset(shards / "val")
+    rows = [val[i] for i in range(G1_BATCH)]
+    x = torch.as_tensor(np.stack([r["vision_latents"] for r in rows]) * np.float32(scale), device="cuda")
+    feats = torch.as_tensor(np.stack([r["dst_features"] for r in rows]), device="cuda")
+    y = torch.as_tensor([int(r["label"]) for r in rows], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    t = torch.rand(G1_BATCH, generator=gen, device="cuda")
+    drop = torch.zeros(G1_BATCH, dtype=torch.bool, device="cuda")
+    want_fwd = {("fused_mha_fwd", "bfloat16", padded_keys(G1_TOKENS)): G1_DEPTH}
+    with torch.no_grad():
+        reset_launch_counts()
+        out = model(x, t, {"y": y}, drop)["x"]
+        fwd_keys = launch_keys()
+        ref = plain(x, t, {"y": y}, drop)["x"]
+    rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if out.shape != x.shape or not bool(torch.isfinite(out).all()) or rel > DIT_REL_TOL or fwd_keys != want_fwd:
+        fail(f"G1 forward vs plain: rel err {rel:.3e} (tol {DIT_REL_TOL}), launches {fwd_keys}, expected {want_fwd}")
+    del out, ref
+
+    (loss,) = build_extra_losses(cfg, device="cuda")
+    losses = [loss, copy.deepcopy(loss)]
+    b = G1_GRAD_BATCH
+    d = cfg["diffuser"]
+    tt = torch.rand(b, generator=gen, device="cuda")
+    noise = torch.randn((b, *x.shape[1:]), generator=gen, device="cuda")
+    drop = make_drop_mask(gen, cfg["trainer"]["p_classifier_free_guidance"], b)
+    grads, values = [], []
+    want = {(name, "bfloat16", padded_keys(G1_TOKENS)): G1_DEPTH for name in ("fused_mha_fwd", "fused_mha_bwd")}
+    for m, repa in ((model, losses[0]), (plain, losses[1])):
+        m.train()
+        repa.set_model(m)
+        diffuser = Diffuser(m, d["sampling_method"], model_type=d["model_type"], n_steps=d["n_steps"],
+                            extra_args=d.get("extra_args", {}), extra_losses=[repa])
+        reset_launch_counts()
+        parts = diffuser.compute_loss(x[:b], {"y": y[:b]}, tt, noise, drop=drop,
+                                      extra_args={"dst_features": feats[:b]})
+        sum(parts.values()).backward()
+        torch.cuda.synchronize()
+        if m is model and launch_keys() != want:
+            fail(f"G1 gradients: kernel path launched {launch_keys()}, expected {want}")
+        grads.append({n: p.grad for n, p in TrainModules(m, [repa]).named_parameters()})
+        values.append({k: float(v.detach()) for k, v in parts.items()})
+    worst, worst_name = 0.0, None
+    for name, g in grads[0].items():
+        r = grads[1][name]
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            fail(f"G1 gradients: {name} missing or non-finite")
+        rel_g = float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+        if rel_g > worst:
+            worst, worst_name = rel_g, name
+    if worst > DIT_GRAD_TOL or set(values[0]) != {"loss", "RepaLoss"} or values[0]["RepaLoss"] == 0 \
+            or not all(math.isfinite(v) for v in values[0].values()):
+        fail(f"G1 gradients: worst relative error {worst:.3e} at {worst_name} (tol {DIT_GRAD_TOL}), losses {values}")
+    del model, plain, losses, grads
+    torch.cuda.empty_cache()
+    return {"forward_rel": rel, "grad_worst": worst, "grad_worst_name": worst_name, "losses": values}
+
+
+def phase_g1(root: Path) -> dict[str, Any]:
+    """Phase 23: slice G1 through the port's CLIs, in process, under ``root``:
+    (a) the seeded images (:func:`write_g1_images`); (b) ``precompute
+    latents`` with the full DC-AE f32c32 tower (seeded random weights), the
+    latents [8, 8, 32], images/s and peak memory, and one batch of 16
+    decoded back to finite [16, 256, 256, 3] pixels; (c) ``precompute
+    features`` with dinov2_vitl14_reg at resolution 256 ([256, 1024] a row),
+    images/s; neither launches K1-K5 (the towers' attention is not Pallas in
+    the reference); (d) ``train_repa`` for one epoch of 8 steps at batch 128
+    over (b)-(c)'s shards: 12 bf16 K1 + 12 bf16 K2 at 128 padded keys every
+    step, 12 K1 a validation forward and 600 for the validation images
+    (Euler-50 at CFG 4.0, 8 images), the loss finite and the REPA term
+    non-zero, the step time start to start after the first two, peak memory;
+    (e) ``sample`` from its EMA checkpoint: 16 images Euler-50 at CFG 4.0
+    with the DC-AE decode, exactly 600 K1 at 128 padded keys (fp32: the
+    sample CLI builds the model without the trainer's precision, as the
+    reference's does), the request's ms; (f) :func:`_g1_twin_checks`; (g)
+    :func:`g1_kernels`."""
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config
+    from diffulab_tpu_torch.data.streaming import ShardedDataset
+    from diffulab_tpu_torch.examples import precompute, train_repa
+
+    sys.modules["wandb"] = None
+    t_phase = time.perf_counter()
+    log = root / "g1.log"
+    src = write_g1_images(root)
+    shards = root / "imagenet"
+    pre = {}
+    for mode, args in (("latents", ["--vision-tower", "dcae"]), ("features", ["--encoder", "dinov2", "--encoder-args",
+                                                                             G1_DINO])):
+        pre[mode] = {"s": 0.0, "peak_gib": 0.0, "launches": {}}
+        for split in ("train", "val"):
+            source = src[split] if mode == "latents" else root / "latents" / split
+            dst = (root / "latents" if mode == "latents" else shards) / split
+            r = _timed_cli(precompute.main, [mode, *args, "--src", str(source), "--dst", str(dst), "--batch-size",
+                                             str(G1_PRECOMPUTE_BATCH)], log)
+            pre[mode]["s"] += r["s"]
+            pre[mode]["peak_gib"] = max(pre[mode]["peak_gib"], r["peak_gib"])
+            if any(r["launches"].values()):
+                fail(f"G1 precompute {mode}: K1-K5 launches {r['launches']}, expected none")
+    n_images = sum(n for _, n in G1_IMAGES.values())
+    row = ShardedDataset(shards / "train")[0]
+    latent_shape = (G1_PX // 32, G1_PX // 32, 32)
+    if row["vision_latents"].shape != latent_shape or row["dst_features"].shape != (256, 1024) \
+            or not (np.isfinite(row["vision_latents"]).all() and np.isfinite(row["dst_features"]).all()):
+        fail(f"G1 shards: latents {row['vision_latents'].shape}, features {row['dst_features'].shape}")
+    # the tower the latents CLI built (the same seed), decoding one batch of the latents back to pixels
+    tower = precompute.build(precompute.parse_args(["latents", "--vision-tower", "dcae", "--src", "-", "--dst", "-"]),
+                             torch.device("cuda"))
+    n_params = sum(p.numel() for p in tower.parameters())
+    val = ShardedDataset(shards / "val")
+    z = torch.as_tensor(np.stack([val[i]["vision_latents"] for i in range(G1_SAMPLES)]), device="cuda")
+    with torch.no_grad():
+        pixels = tower.decode(z)
+    if pixels.shape != (G1_SAMPLES, G1_PX, G1_PX, 3) or not bool(torch.isfinite(pixels).all()):
+        fail(f"G1 decode: pixels {tuple(pixels.shape)}, finite {bool(torch.isfinite(pixels).all())}")
+    scale = tower.latent_scale
+    del tower, pixels, z
+    torch.cuda.empty_cache()
+
+    cfg = compose_config(train_repa.CONFIG_DIR, G1_CONFIG)
+    save = root / "g1_runs"
+    overrides = [f"dataset.{split}.data_path={shards}" for split in ("train", "val")] \
+        + [f"{key}={new}" for key, (_, new) in G1_CUTS.items()]
+    run = save / cfg["trainer"]["project_name"]
+    steps_per_epoch = G1_IMAGES["train"][1] // G1_BATCH
+    tr = _timed_train_cli(train_repa.main, ["--config-name", G1_CONFIG, *overrides, f"trainer.save_path={save}"], log,
+                          run, 1, steps_per_epoch, "G1 train_repa")
+    padded = padded_keys(G1_TOKENS)
+    want_step = {(name, "bfloat16", padded): G1_DEPTH for name in ("fused_mha_fwd", "fused_mha_bwd")}
+    val_batches = G1_IMAGES["val"][1] // G1_BATCH
+    val_steps = cfg["trainer"]["val_steps"]
+    want_k1 = (steps_per_epoch + val_batches) * G1_DEPTH + val_steps * G1_DEPTH
+    if tr["per_step"] != [(G1_DEPTH, G1_DEPTH, 0)] * tr["trainer"].step or any(k != want_step for k in tr["step_keys"]):
+        fail(f"G1 train_repa: launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, by length "
+             f"{[k for k in tr['step_keys'] if k != want_step][:1]}, expected {want_step}")
+    if tr["launches"]["fused_mha_fwd_bf16"] != want_k1 or tr["launches"]["fused_mha_fwd"] != want_k1 \
+            or tr["launches"]["fused_mha_bwd_bf16"] != steps_per_epoch * G1_DEPTH:
+        fail(f"G1 train_repa: run launches {tr['launches']}, expected {want_k1} bf16 K1 ({steps_per_epoch} steps and "
+             f"{val_batches} validation batches of {G1_DEPTH}, the validation images' {val_steps * G1_DEPTH}) and "
+             f"{steps_per_epoch * G1_DEPTH} bf16 K2")
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    repa = {key: [r[key] for r in rows if key in r] for key in ("train/RepaLoss", "val/RepaLoss")}
+    if any(len(v) != 1 or not math.isfinite(v[0]) or v[0] == 0 for v in repa.values()):
+        fail(f"G1 train_repa: REPA loss rows {repa}")
+
+    labels = ",".join(str(i) for i in range(0, 1000, 1000 // G1_SAMPLES))
+    request = _sample_request(["--config-name", G1_CONFIG, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
+                               str(G1_SAMPLES), "--guidance", str(G1_GUIDANCE), "--image-size", str(G1_PX), "--labels",
+                               labels, "--out", str(root / "g1.png"), *overrides], log)
+    want = {("fused_mha_fwd", "float32", padded): STEPS * G1_DEPTH}
+    if launch_keys() != want or request["images"].shape != (G1_SAMPLES, G1_PX, G1_PX, 3):
+        fail(f"G1 sample: launches {launch_keys()}, expected {want}; images {request['images'].shape}")
+
+    twin = _g1_twin_checks(cfg, shards, scale)
+    kernels = g1_kernels()
+    cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in G1_CUTS.items()]
+                     + [f"ImageNet {split} images {old} -> {new} seeded 256x256" for split, (old, new) in
+                        G1_IMAGES.items()] + ["pretrained DC-AE f32c32 and DINOv2-L weights -> seeded random"])
+    print(f"phase 23 G1 {G1_CONFIG} (cut: {cuts}): (a) {n_images} images written in {src['s']:.1f} s, the validation "
+          f"split's npz and MDS copies read the same, the latents precomputed from the MDS copy; (b) precompute latents "
+          f"DC-AE f32c32 ({n_params / 1e6:.1f}M parameters, fp32) {n_images} images in {pre['latents']['s']:.1f} s "
+          f"({n_images / pre['latents']['s']:.1f} images/s, the tower's init included), peak mem "
+          f"{pre['latents']['peak_gib']:.2f} GiB, latents {latent_shape}, {G1_SAMPLES} decoded to "
+          f"[{G1_SAMPLES}, {G1_PX}, {G1_PX}, 3] finite; (c) precompute features dinov2_vitl14_reg at 224 px {n_images} "
+          f"images in {pre['features']['s']:.1f} s ({n_images / pre['features']['s']:.1f} images/s), peak mem "
+          f"{pre['features']['peak_gib']:.2f} GiB, features (256, 1024), no K1-K5 in (b)-(c); (d) train_repa "
+          f"(DiT-B at patch 1, bf16, batch {G1_BATCH}, RepaLoss through the 3-deep resampler) {tr['trainer'].step} "
+          f"steps in {tr['train_s']:.1f} s, ms/step start to start median after the first two {tr['steady']:.2f} (min "
+          f"{min(tr['step_ms']):.2f} max {max(tr['step_ms']):.2f}; train_step alone {tr['kernel_ms']:.2f}), samples/s "
+          f"{G1_BATCH / tr['steady'] * 1e3:.1f}, peak mem {tr['peak_gib']:.2f} GiB, train loss "
+          f"{[round(x, 5) for x in tr['losses']]} val loss {[round(x, 5) for x in tr['val_losses']]}, RepaLoss train "
+          f"{repa['train/RepaLoss'][0]:.5f} val {repa['val/RepaLoss'][0]:.5f}; bf16 K1 + K2 a step by padded length "
+          f"{ {padded: G1_DEPTH} }, in the run {tr['launches']}; (e) sample {G1_SAMPLES} images Euler-{STEPS} CFG "
+          f"{G1_GUIDANCE} with the DC-AE decode: generate {request['generate_ms']:.1f} ms, {STEPS * G1_DEPTH} fp32 K1 "
+          f"at {padded}; (f) forward B={G1_BATCH} vs plain attention max rel err {twin['forward_rel']:.3e} (tol "
+          f"{DIT_REL_TOL}), {G1_DEPTH} bf16 K1; gradients B={G1_GRAD_BATCH} with the precomputed RepaLoss and resampler "
+          f"worst ||kernel - plain|| / ||plain|| {twin['grad_worst']:.3e} at {twin['grad_worst_name']} (tol "
+          f"{DIT_GRAD_TOL}), losses kernel {twin['losses'][0]} plain {twin['losses'][1]}; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train": tr["launches"], "sample": request["launches"], "step_ms": tr["steady"],
+            "generate_ms": request["generate_ms"], "kernels": kernels}
+
+
 def main() -> int:
     try:
         import torch
@@ -4104,6 +4499,8 @@ def main() -> int:
         lap("21 F1 hard SprintDiT/DDT")
         f1_cli = phase_f1_cli(Path(tmp))
         lap("22 F1 CLIs")
+        g1 = phase_g1(Path(tmp))
+        lap("23 G1")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -4140,12 +4537,15 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
         + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values())),
+        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"])),
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
                              "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()}},
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
+                             "g1_train_repa": g1["train"]["fused_mha_fwd_bf16"]},
+        "g1_shape": g1["kernels"]["k1_g1_train"],
+        "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k1_hard")},
         "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "device time per call from CUDA-graph replays"},
         "dit_sampling_arms_max_abs_err": arms["k1_err"],
@@ -4165,11 +4565,13 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values())),
+        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"])),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()}},
+                             **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
+                             "g1_sample": g1["sample"]["fused_mha_fwd"]},
         "f1_padded64": f1_cli["kernels"]["k1_pad64"],
+        "g1_sample_padded64": g1["kernels"]["k1_g1_sample"],
         "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
         **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -4182,10 +4584,13 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values())),
+        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"])),
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
                              "txt2img_train": txt_train_launches["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()}},
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
+                             "g1_train_repa": g1["train"]["fused_mha_bwd_bf16"]},
+        "g1_shape": g1["kernels"]["k2_g1_train"],
+        "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k2_hard")},
         "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "ms: device time per call from CUDA-graph replays; library_ms: device time per call "
                                "of SDPA's bf16 autograd backward, kernels summed by torch.profiler"},

@@ -1,7 +1,10 @@
-"""Caption-conditioned latent dataset with aspect-ratio bucketing (port of
-diffulab_tpu/data/imagenet.py; reference src/diffulab/datasets/imagenet.py:89-236).
+"""ImageNet latent datasets and aspect-ratio bucketing (port of
+diffulab_tpu/data/imagenet.py; reference src/diffulab/datasets/imagenet.py:18-236).
 
-:class:`ImageNetmultiAR` streams precomputed ``vision_latents`` (NHWC), the
+:class:`ImageNetLatentREPA` streams class-conditional ``vision_latents``
+(NHWC) scaled by the tower's ``latent_scale``, the label, and the REPA
+target: precomputed ``dst_features`` where the shards carry them, else the
+``image`` as ``x0`` for a live encoder. :class:`ImageNetmultiAR` streams precomputed ``vision_latents`` (NHWC), the
 caption and, where the shards carry them, precomputed ``caption_embeddings``
 and ``caption_mask`` (the ``context`` a ``PrecomputedEmbedder`` reads) from a
 :class:`~diffulab_tpu_torch.data.streaming.ShardedDataset`.
@@ -9,10 +12,8 @@ and ``caption_mask`` (the ``context`` a ``PrecomputedEmbedder`` reads) from a
 is shape-uniform, and :func:`collate_fn` stacks them (captions stay a list).
 A batch is ``[collate_fn([ds[i] for i in idx]) for idx in sampler]``, or
 :class:`~diffulab_tpu_torch.data.loader.DataLoader` with ``sampler=`` and
-``collate_fn=`` for the threaded prefetch.
-
-Not ported yet: ``ImageNetLatentREPA`` (class-conditional latents with REPA
-features) waits for REPA's precomputed half (ROADMAP queue 1, item 13b).
+``collate_fn=`` for the threaded prefetch. Both read npz or MDS shards
+(:class:`~diffulab_tpu_torch.data.streaming.ShardedDataset`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,43 @@ def _per_sample(value):
     if value is None or np.isscalar(value):
         return value
     return np.squeeze(np.asarray(value, np.float32))
+
+
+class ImageNetLatentREPA:
+    """Class-conditional latents and REPA features (imagenet.py:49-80)."""
+
+    def __init__(self, data_path: str, split: str | None = None, batch_size: int = 64) -> None:
+        del batch_size  # parity arg; batching is the loader's job here
+        path = Path(data_path) if split is None else Path(data_path) / split
+        self.dataset = ShardedDataset(path)
+        self.latent_scale: float | None = None
+
+    def set_latent_scale(self, scale: float) -> None:
+        self.latent_scale = _per_sample(scale)
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, idx: int) -> BatchData:
+        if self.latent_scale is None:
+            raise ValueError("Latent scale must be set before getting items")
+        sample = self.dataset[idx]
+        if "vision_latents" not in sample:
+            raise KeyError("precompute the latents before training")
+        if "label" not in sample:
+            raise KeyError("add labels to the dataset")
+        latent = np.asarray(sample["vision_latents"], np.float32)
+        batch: BatchData = {
+            "model_inputs": {"x": latent * self.latent_scale, "y": np.int64(sample["label"])},
+            "extra": {},
+        }
+        if "dst_features" in sample:
+            batch["extra"]["dst_features"] = np.asarray(sample["dst_features"], np.float32)
+        elif "image" in sample:
+            batch["extra"]["x0"] = _to_float_image(sample["image"])
+        else:
+            raise KeyError("need either 'dst_features' or 'image'")
+        return batch
 
 
 class ImageNetmultiAR:

@@ -13,9 +13,8 @@ Columns with uniform per-sample shapes (latents, features, labels) are stacked
 ndarrays; strings (captions) are object arrays. Shards load lazily with an LRU
 cache, so epoch-shuffled random access streams at most a few shards at a time.
 ``ShardedDatasetWriter`` appends samples and flushes every ``shard_size``.
-
-Not ported yet: reading a MosaicML MDS directory (the reference's
-``data/mds.py``, ROADMAP queue 1, item 11) raises.
+:class:`ShardedDataset` also reads a MosaicML MDS directory (the
+reference-produced datasets), through :mod:`diffulab_tpu_torch.data.mds`.
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ from pathlib import Path
 from typing import Any, Iterator
 
 import numpy as np
+
+from diffulab_tpu_torch.data.mds import MDSShardedDataset, is_mds_index
 
 INDEX_NAME = "index.json"
 
@@ -84,23 +85,23 @@ class ShardedDatasetWriter:
         self.close()
 
 
-def _is_mds_index(index: dict) -> bool:
-    shards = index.get("shards") or []
-    return bool(shards) and isinstance(shards[0], dict) and shards[0].get("format") == "mds"
-
-
 class ShardedDataset:
-    """Random-access reader with an LRU shard cache."""
+    """Random-access reader with an LRU shard cache.
+
+    Detects the format from ``index.json``: this module's npz shards or a
+    MosaicML MDS directory (read by :class:`~diffulab_tpu_torch.data.mds.MDSShardedDataset`)."""
 
     def __init__(self, dataset_dir: str | Path, cache_shards: int = 4):
         self.dataset_dir = Path(dataset_dir)
         with open(self.dataset_dir / INDEX_NAME) as f:
             index = json.load(f)
-        if _is_mds_index(index):
-            raise NotImplementedError(
-                f"{self.dataset_dir} is a MosaicML MDS directory; its reader (data/mds.py) is not ported yet "
-                "(ROADMAP queue 1, item 11)"
-            )
+        self._mds: MDSShardedDataset | None = None
+        if is_mds_index(index):
+            self._mds = MDSShardedDataset(self.dataset_dir, index)
+            self.shards = []
+            self.columns = self._mds.columns
+            self._offsets = self._mds._offsets
+            return
         self.shards: list[dict[str, Any]] = index["shards"]
         self.columns: list[str] = index["columns"]
         self._offsets = np.cumsum([0] + [s["n"] for s in self.shards])
@@ -123,6 +124,8 @@ class ShardedDataset:
         return shard
 
     def __getitem__(self, idx: int) -> dict[str, Any]:
+        if self._mds is not None:
+            return self._mds[idx]
         if idx < 0:
             idx += len(self)
         shard_idx = int(np.searchsorted(self._offsets, idx, side="right")) - 1

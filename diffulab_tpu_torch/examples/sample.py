@@ -17,7 +17,10 @@ heun, dpmpp_2m, unipc; heun, euler, dpmpp_2m, unipc for EDM configs);
 ``--inpaint-box y0:y1,x0:x1`` regenerates that box and keeps the rest;
 ``--img2img-image`` with ``--strength`` edits an image (SDEdit). A REPA
 config's checkpoint is restored with its extra losses, built as the training
-CLI builds them. A model that takes channel-concatenated context (more input
+CLI builds them (the Perceiver resampler of a precomputed-feature config
+among them). A config with a ``vision_tower`` samples latents of
+``--image-size`` over the tower's compression (the dataset's ``image_size``
+where it has one, else 32 as in the reference) and decodes them. A model that takes channel-concatenated context (more input
 than output channels, ``train_synthetic_colorize``) is conditioned on the
 ``x_context`` of the first ``--n`` images of the config's validation set, as
 the trainer's validation images are. ``--prompts`` (HF text embedders,

@@ -18,10 +18,12 @@ frozen teacher restored from a port checkpoint directory (``denoiser``,
 weights unless ``trainer.denoiser_ckpt`` is given; ``trainer.augment_p``
 turns on non-leaky augmentation (a model with ``augment_dim > 0``). A
 ``repa:`` section adds the REPA loss with its live frozen encoder
-(:func:`~diffulab_tpu_torch.training.losses.build_extra_losses`). Options
-whose modules are not ported raise ``NotImplementedError`` naming their
-ROADMAP queue 1 item: ``trainer.lora_rank`` (16), precomputed REPA features,
-the DINO encoders and the Perceiver resampler (13b).
+(``fixed_vit``, ``dinov2`` or ``dinov3``;
+:func:`~diffulab_tpu_torch.training.losses.build_extra_losses`); REPA on
+precomputed features trains through
+:mod:`~diffulab_tpu_torch.examples.train_repa`, whose latent shards carry
+them. ``trainer.lora_rank`` (ROADMAP queue 1, item 16) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -62,37 +62,43 @@ class Linear(nn.Module):
 class Conv2d(nn.Module):
     """``nnx.Conv`` on NHWC input: ``weight`` OIHW (torch's layout; the
     bridge transposes JAX's HWIO kernels), ``bias``; ``padding`` is an int
-    (symmetric) or ``((top, bottom), (left, right))``. ``dtype`` as in
+    (symmetric) or ``((top, bottom), (left, right))``; ``groups`` as
+    ``feature_group_count``. ``dtype`` as in
     :class:`Linear`. An NHWC tensor permuted to NCHW is a channels-last view,
     which cuDNN convolves without a copy, and the result permutes back to
     NHWC the same way."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
                  padding: int | tuple[tuple[int, int], tuple[int, int]] = 0, *, bias: bool = True,
-                 zero_init: bool = False, dtype=None, device=None, param_dtype=torch.float32):
+                 groups: int = 1, zero_init: bool = False, dtype=None, device=None, param_dtype=torch.float32):
         super().__init__()
         self.stride = stride
         self.padding = padding
+        self.groups = groups
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size,
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel_size, kernel_size,
                                                device=device, dtype=param_dtype))
         self.bias = nn.Parameter(torch.zeros(cout, device=device, dtype=param_dtype)) if bias else None
         if zero_init:
             nn.init.zeros_(self.weight)
         else:  # nnx.Conv's default kernel init: lecun normal
-            nn.init.normal_(self.weight, std=(cin * kernel_size * kernel_size) ** -0.5)
+            nn.init.normal_(self.weight, std=(cin // groups * kernel_size * kernel_size) ** -0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def conv(self, x: torch.Tensor, pad) -> torch.Tensor:
+        """The convolution of NHWC ``x`` with ``pad`` (as ``padding``)."""
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         x = x.to(dt).permute(0, 3, 1, 2)
         bias = None if self.bias is None else self.bias.to(dt)
-        pad = self.padding
         if isinstance(pad, int):
-            out = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad)
+            out = F.conv2d(x, self.weight.to(dt), bias, self.stride, pad, groups=self.groups)
         else:
             (top, bottom), (left, right) = pad
-            out = F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight.to(dt), bias, self.stride)
+            out = F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight.to(dt), bias, self.stride,
+                           groups=self.groups)
         return out.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.padding)
 
 
 def zero_linear(din: int, dout: int, *, dtype=None, device=None, param_dtype=torch.float32) -> Linear:

@@ -1,17 +1,26 @@
-"""Vision tower interface (port of diffulab_tpu/networks/vision_towers/common.py).
+"""Vision tower interface and the offline latent precompute (port of
+diffulab_tpu/networks/vision_towers/common.py).
 
 A vision tower encodes NHWC images to latents and back. The latent scale and
 bias are floats or per-channel ``[1, 1, 1, C]`` fp32 tensors (non-persistent
-buffers, so they follow the tower's device). ``compute_on_dataset`` is not
-ported yet (ROADMAP item 10r).
+buffers, so they follow the tower's device). ``compute_on_dataset`` streams
+a sharded dataset, encodes its image column and writes a new sharded
+dataset with an added ``vision_latents`` column; a stochastic encoder (the
+Flux2 VAE) draws batch ``bi``'s noise from the JAX key
+``fold_in(key(seed), bi)`` (common.py:93), reproduced by :mod:`...jax_prng`.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
+
+from diffulab_tpu_torch import jax_prng
+from diffulab_tpu_torch.data.streaming import ShardedDataset, ShardedDatasetWriter
 
 
 def normalize_to_pm1(x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +52,9 @@ class VisionTower(nn.Module):
     def latent_channels(self) -> int:
         raise NotImplementedError
 
-    def encode(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, generator: Any = None) -> torch.Tensor:
+        """NHWC image -> latents; ``generator`` (a torch Generator or a JAX
+        PRNG key) draws a stochastic encoder's sample."""
         raise NotImplementedError
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -51,3 +62,38 @@ class VisionTower(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return self.decode(self.encode(x, generator))
+
+    def compute_on_dataset(
+        self,
+        dataset_path: str | Path,
+        dst_path: str | Path,
+        batch_size: int = 64,
+        to_process_data_key: str | None = None,
+        target_type: str = "float32",
+        column_target: str = "vision_latents",
+        shard_size: int = 1024,
+        seed: int = 0,
+    ) -> None:
+        """Stream ``dataset_path``, add a ``vision_latents`` column, write
+        ``dst_path`` (common.py:66-100). Each batch goes to the tower's
+        device as fp32 pixels."""
+        dataset = ShardedDataset(dataset_path)
+        if to_process_data_key is None:
+            image_cols = [c for c in dataset.columns if c.startswith("image")]
+            if len(image_cols) != 1:
+                raise ValueError(f"need exactly one image column, got {image_cols}")
+            to_process_data_key = image_cols[0]
+        if target_type not in ("float32", "float16"):
+            raise ValueError("target_type must be 'float32' or 'float16'")
+        out_dtype = np.float32 if target_type == "float32" else np.float16
+        device = next(self.parameters()).device
+        key = jax_prng.key(seed)
+        with ShardedDatasetWriter(dst_path, shard_size=shard_size) as writer, torch.no_grad():
+            n = len(dataset)
+            for bi, start in enumerate(range(0, n, batch_size)):
+                samples = [dataset[i] for i in range(start, min(start + batch_size, n))]
+                images = torch.as_tensor(np.stack([np.asarray(s[to_process_data_key], np.float32) for s in samples]),
+                                         device=device)
+                latents = self.encode(images, jax_prng.fold_in(key, bi)).float().cpu().numpy().astype(out_dtype)
+                for i, s in enumerate(samples):
+                    writer.write({**s, column_target: latents[i]})

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffulab_tpu_torch import jax_prng
 from diffulab_tpu_torch.networks.nn import Conv2d, GroupNorm, Linear, nearest_upsample_2x
 
 
@@ -154,16 +155,21 @@ class VAEDecoder(nn.Module):
         return self.conv_out(F.silu(self.norm_out(h)))
 
 
-def diagonal_gaussian_sample(moments: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
+def diagonal_gaussian_sample(moments: torch.Tensor, generator: torch.Generator | np.ndarray | None) -> torch.Tensor:
     """Sample (or take the mean when ``generator`` is None) from encoder
     moments ``[..., 2*z]``: first half mean, second half logvar (diffusers
-    convention); the noise is drawn with ``generator`` on its device."""
+    convention). The noise is drawn with a torch ``generator`` on its
+    device, or, when ``generator`` is a JAX PRNG key (two uint32 words), as
+    ``jax.random.normal(key, mean.shape)`` draws it (:mod:`...jax_prng`)."""
     mean, logvar = moments.chunk(2, dim=-1)
     if generator is None:
         return mean
     logvar = torch.clamp(logvar, -30.0, 20.0)
     std = torch.exp(0.5 * logvar)
-    noise = torch.randn(mean.shape, generator=generator, device=generator.device, dtype=mean.dtype)
+    if isinstance(generator, np.ndarray):
+        noise = torch.as_tensor(jax_prng.normal(generator, tuple(mean.shape)), dtype=mean.dtype)
+    else:
+        noise = torch.randn(mean.shape, generator=generator, device=generator.device, dtype=mean.dtype)
     return mean + std * noise.to(mean.device)
 
 

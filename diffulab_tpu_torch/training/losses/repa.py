@@ -9,11 +9,13 @@ encoder's features through a 3-layer SiLU projection MLP; the loss is
 ``capture_features=True`` and the loss reads the captured tokens from
 ``model_output["features"]``.
 
-The encoder is computed live from x0. Ported: ``fixed_vit``
-(:class:`~diffulab_tpu_torch.networks.repa.FixedViT`). Not ported yet
-(``NotImplementedError``, ROADMAP queue 1, item 13b): the pretrained
-``dinov2`` / ``dinov3`` encoders, the Perceiver resampler
-(``use_resampler``) and precomputed features (``load_dino=False``).
+The target is a frozen encoder's features computed live from x0
+(``load_dino=True``: ``dinov2``, ``dinov3`` or ``fixed_vit``), or the
+dataset's precomputed ``dst_features`` (``load_dino=False``, ``embedding_dim``
+their width), which the trainer passes in from the batch's ``extra``. With
+``use_resampler`` a :class:`~diffulab_tpu_torch.networks.repa.PerceiverResampler`
+(``resampler_params``) maps the projected tokens onto the target's token
+count (repa.py:96-101).
 """
 
 from __future__ import annotations
@@ -24,16 +26,16 @@ import torch
 import torch.nn.functional as F
 
 from diffulab_tpu_torch.networks.nn import Linear
+from diffulab_tpu_torch.networks.repa.dinov2 import DinoV2
+from diffulab_tpu_torch.networks.repa.dinov3 import DinoV3
 from diffulab_tpu_torch.networks.repa.fixed import FixedViT
+from diffulab_tpu_torch.networks.repa.perceiver_resampler import PerceiverResampler
 from diffulab_tpu_torch.training.losses.common import LossFunction
 from diffulab_tpu_torch.utils import resolve_device
 
-_ITEM_13B = "is not ported yet (ROADMAP queue 1, item 13b)"
-
 
 class RepaLoss(LossFunction):
-    #: the reference's registry; None marks an encoder not ported yet
-    encoder_registry: dict[str, type | None] = {"dinov2": None, "dinov3": None, "fixed_vit": FixedViT}
+    encoder_registry: dict[str, type] = {"dinov2": DinoV2, "dinov3": DinoV3, "fixed_vit": FixedViT}
     name: str = "RepaLoss"
 
     def __init__(
@@ -56,19 +58,19 @@ class RepaLoss(LossFunction):
         super().__init__()
         if repa_encoder not in self.encoder_registry:
             raise ValueError(f"Encoder {repa_encoder} is not supported. Available: {list(self.encoder_registry)}")
-        if not load_dino:
-            raise NotImplementedError(f"REPA on precomputed features (load_dino=False) {_ITEM_13B}")
-        if self.encoder_registry[repa_encoder] is None:
-            raise NotImplementedError(f"the {repa_encoder} REPA encoder {_ITEM_13B}")
-        if use_resampler:
-            raise NotImplementedError(f"the Perceiver resampler (use_resampler) {_ITEM_13B}")
-        del embedding_dim, resampler_params  # the precomputed-feature and resampler paths (13b)
         device = resolve_device(device)
-        self.repa_encoder = self.encoder_registry[repa_encoder](**(encoder_args or {}), device=device)
+        self.repa_encoder = (self.encoder_registry[repa_encoder](**(encoder_args or {}), device=device)
+                             if load_dino else None)
+        target_dim = self.repa_encoder.embedding_dim if self.repa_encoder is not None else embedding_dim
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.proj_fc1 = Linear(denoiser_dimension, hidden_dim, **kw)
         self.proj_fc2 = Linear(hidden_dim, hidden_dim, **kw)
-        self.proj_fc3 = Linear(hidden_dim, self.repa_encoder.embedding_dim, **kw)
+        self.proj_fc3 = Linear(hidden_dim, target_dim, **kw)
+        self.resampler = None
+        if use_resampler:
+            if resampler_params is None:
+                raise ValueError("Resampler parameters must be provided when using the perceiver resampler.")
+            self.resampler = PerceiverResampler(**resampler_params, **kw)
         self.alignment_layer = alignment_layer
         self.coeff = coeff
         self._feature_index: int | None = None
@@ -96,8 +98,14 @@ class RepaLoss(LossFunction):
         if dst_features is None:
             if x0 is None:
                 raise ValueError("Either x0 or dst_features must be provided.")
+            if self.repa_encoder is None:
+                raise ValueError("REPA encoder must be initialized to compute features: the batch gives no "
+                                 "dst_features and the loss has no encoder (load_dino=False)")
             dst_features = self.repa_encoder(x0)
-        p = self.proj(features[self._feature_index]).float()
+        projected = self.proj(features[self._feature_index])
+        if self.resampler is not None:
+            projected = self.resampler(projected)
+        p = projected.float()
         d = dst_features.float()
         cos_sim = (p * d).sum(-1) / (torch.linalg.vector_norm(p, dim=-1) * torch.linalg.vector_norm(d, dim=-1)
                                      + 1e-8)

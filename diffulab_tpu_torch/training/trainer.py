@@ -57,7 +57,8 @@ Also mirrored:
   capture features (:283), and the extra losses' trainable parameters (the
   projector) share the optimizer, the EMA and the checkpoints with the
   denoiser's (:class:`.checkpoint.TrainModules`), the frozen encoder in the
-  checkpoint's ``rest``.
+  checkpoint's ``rest``; a batch's ``extra`` (precomputed ``dst_features``)
+  reaches them as keywords (:363, :408).
 
 Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
 LoRA (``lora_only``, item 16), trainable embedders (``train_embedder``,
@@ -235,7 +236,8 @@ def train_step(
     (augmented) x0 and the conditioning; a reflow batch's ``coupled_noise``
     takes the place of ``noise``. ``distill`` is the ``distill_fn`` /
     ``distill_guidance`` pair of guidance distillation. The diffuser's extra
-    losses join the loss dict (their features captured by the forward).
+    losses join the loss dict (their features captured by the forward), the
+    batch's ``extra`` entries (precomputed ``dst_features``) passed to them.
     ``generator`` is the denoiser's own for the forward's draws (SprintDiT's
     token drop). Returns the detached losses."""
     x0, cond, coupled = split_batch(batch)
@@ -244,7 +246,7 @@ def train_step(
     extra_losses = diffuser.extra_losses
     model_fn = diffuser.model_fn(train=True, capture_features=bool(extra_losses), generator=generator)
     losses = diffuser.diffusion.compute_loss(model_fn, x0, cond, t, noise, drop=drop, extra_losses=extra_losses,
-                                             **(distill or {}))
+                                             extra_args=batch.get("extra") or {}, **(distill or {}))
     sum(losses.values()).backward()
     optimizer.step()
     if ema is not None or phema is not None:
@@ -708,7 +710,7 @@ class BaseTrainer(Trainer):
                                  torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype))
                         val_losses = diffusion.compute_loss(
                             diffuser.model_fn(train=False, capture_features=capture), x0, cond, t, noise,
-                            extra_losses=extra_losses, **(distill or {}))
+                            extra_losses=extra_losses, extra_args=val_batch.get("extra") or {}, **(distill or {}))
                         n_val += 1
                         for key, val_loss in val_losses.items():
                             prev = val_sums.get(key)

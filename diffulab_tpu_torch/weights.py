@@ -12,9 +12,14 @@ the mapping is by leaf name only:
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
   other ``*/scale`` (RMSNorm, GroupNorm) stay ``scale``;
 - ``*/embedding/embedding`` -> ``embedding.weight``;
-- the bare arrays (the ViT's ``cls_token``, ``register_tokens``,
-  ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``) keep their
-  name and layout.
+- the bare arrays (the ViTs' ``cls_token``, ``register_tokens``,
+  ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``; the Perceiver
+  resampler's ``latents``) keep their name and layout.
+
+The DINOv3 ViT, the Perceiver resampler and DC-AE map by these rules too:
+their LayerNorms named ``norm1``, ``norm_x``... and DC-AE's
+``ChannelRMSNorm`` (``scale``, ``bias``) need the port ``module`` (below),
+and a depthwise conv's HWIO kernel ``[k, k, 1, C]`` becomes ``[C, 1, k, k]``.
 
 A JAX ``RepaLoss`` maps the same way (its projector ``proj_fc*``, its frozen
 encoder under ``repa_encoder/_encoder/``), and so does the trainer's
@@ -39,9 +44,9 @@ import numpy as np
 import torch
 
 
-#: parameters held as a bare array, the same layout on both sides (the ViT's tokens and LayerScale,
-#: SprintDiT's mask token)
-_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token"})
+#: parameters held as a bare array, the same layout on both sides (the ViTs' tokens and LayerScale,
+#: SprintDiT's mask token, the Perceiver resampler's latents)
+_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token", "latents"})
 
 
 def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -79,3 +84,14 @@ def state_dict_from_jax(params: dict[str, np.ndarray],
             key = next((f"{stem}.{leaf}" for leaf in ("scale", "weight") if f"{stem}.{leaf}" in names), key)
         out[key] = torch.from_numpy(np.array(arr))  # a writable copy
     return out
+
+
+def copy_checked_(param: torch.Tensor, value: np.ndarray, name: str) -> None:
+    """Copy a checkpoint array (a torch layout) into ``param``, cast to its
+    dtype; a shape that differs raises, naming the entry (the checkpoint
+    loaders of the DINO ViTs and DC-AE)."""
+    value = torch.as_tensor(np.asarray(value, np.float32))
+    if tuple(param.shape) != tuple(value.shape):
+        raise ValueError(f"{name}: {tuple(param.shape)} vs {tuple(value.shape)}")
+    with torch.no_grad():
+        param.copy_(value.to(param.dtype))

@@ -144,16 +144,20 @@ def test_every_target_resolves_in_the_port_or_raises_not_implemented(target):
                                     "diffulab_tpu.data.MNISTDataset", "diffulab_tpu.data.CIFAR10Dataset",
                                     "diffulab_tpu.data.ImageFolderDataset", "diffulab_tpu.training.optim.adamw",
                                     "diffulab_tpu.networks.embedders.precomputed.PrecomputedEmbedder",
-                                    "diffulab_tpu.networks.vision_towers.flux2.Flux2VAE"])
+                                    "diffulab_tpu.networks.vision_towers.flux2.Flux2VAE",
+                                    "diffulab_tpu.networks.vision_towers.dc_ae.DCAE",
+                                    "diffulab_tpu.networks.repa.dinov2.DinoV2",
+                                    "diffulab_tpu.networks.repa.perceiver_resampler.PerceiverResampler",
+                                    "diffulab_tpu.data.imagenet.ImageNetLatentREPA"])
 def test_ported_targets_resolve(target):
     assert locate(target).__module__.startswith("diffulab_tpu_torch.")
 
 
 def test_unported_and_jax_side_targets_raise():
-    with pytest.raises(NotImplementedError, match="dinov2.DinoV2"):
-        locate("diffulab_tpu.networks.repa.dinov2.DinoV2")
-    with pytest.raises(NotImplementedError, match="ImageNetLatentREPA"):
-        locate("diffulab_tpu.data.imagenet.ImageNetLatentREPA")
+    with pytest.raises(NotImplementedError, match="hf_text.QwenTextEmbedder"):
+        locate("diffulab_tpu.networks.embedders.hf_text.QwenTextEmbedder")
+    with pytest.raises(NotImplementedError, match="PrefGRPORewardModel"):
+        locate("diffulab_tpu.networks.rewards.grpo.PrefGRPORewardModel")
     with pytest.raises(NotImplementedError, match="optax.cosine_decay_schedule"):
         instantiate({"_target_": "optax.cosine_decay_schedule", "init_value": 1.0, "decay_steps": 10})
     with pytest.raises(ImportError, match="cannot locate"):
@@ -285,22 +289,75 @@ def test_cli_device_defaults_to_cuda_and_raises_without_a_card(cli, monkeypatch,
         module.main(["--config-name", "train_synthetic_flow_matching", *argv])
 
 
+#: ROADMAP item 13b's options at a toy size: the live DINOv2 (ViT-S/14 with registers, 4 tokens at 28 px) on the
+#: DiT at patch 16 (4 tokens), aligned at its first block
+DINO_OVERRIDES = ["repa.repa_encoder=dinov2", "repa.encoder_args={dino_model: dinov2_vits14_reg, target_seq_len: 4}",
+                  "model.patch_size=16", "repa.alignment_layer=1"]
+#: train_imagenet_flow_matching_repa at a toy size: a 3-stage DC-AE (8x8x32 latents of 32 px), the DiT at depth 2
+#: and width 64, REPA through a 1-deep resampler onto 4 precomputed tokens of 16
+PRECOMPUTED_OVERRIDES = ["vision_tower.block_out_channels=[8, 16, 32]", "vision_tower.block_types=[res, vit, vit]",
+                         "vision_tower.encoder_layers_per_block=[1, 1, 1]",
+                         "vision_tower.decoder_layers_per_block=[1, 1, 1]", "vision_tower.qkv_multiscales=[[], [5], [5]]",
+                         "vision_tower.attention_head_dim=4", "model.depth=2", "model.inner_dim=64",
+                         "model.embedding_dim=64", "model.num_heads=4", "repa.alignment_layer=1", "repa.embedding_dim=16",
+                         "perceiver_resampler.parameters.depth=1", "perceiver_resampler.parameters.dim=16",
+                         "perceiver_resampler.parameters.head_dim=8", "perceiver_resampler.parameters.num_heads=2",
+                         "perceiver_resampler.parameters.num_latents=4", "dataloader.batch_size=8", "trainer.n_epoch=1",
+                         "trainer.val_steps=2", "diffuser.n_steps=2"]
+
+
+def _write_latent_shards(root) -> None:
+    """train (16) and val (8) shards of precomputed latents, labels and REPA features, from a seed."""
+    from diffulab_tpu_torch.data.streaming import ShardedDatasetWriter
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 16), ("val", 8)):
+        with ShardedDatasetWriter(root / split) as writer:
+            for _ in range(n):
+                writer.write({"vision_latents": rng.standard_normal((8, 8, 32)).astype(np.float32),
+                              "label": int(rng.integers(0, 1000)),
+                              "dst_features": rng.standard_normal((4, 16)).astype(np.float32)})
+
+
+def _repa_rows(run: Path) -> list[float]:
+    import json
+
+    rows = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    return [r[k] for r in rows for k in ("train/RepaLoss", "val/RepaLoss") if k in r]
+
+
 @pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"),
                                            ("train_synthetic_edm_repa", "item 13"), ("+repa", "item 13")])
 def test_train_cli_unported_options_raise(override, item, tmp_path):
-    """LoRA (item 16) and the REPA paths of item 13b raise: a DINO encoder in
-    train_synthetic_edm_repa, and a ``repa:`` section naming no encoder
-    (precomputed features). The live FixedViT REPA is ported
-    (tests/test_torch_port_e1_cli.py), and so is ``trainer.distill_from``
-    (tests/test_torch_port_c2_cli.py)."""
-    config, overrides = "train_synthetic_flow_matching", [override]
+    """LoRA (item 16) raises. Item 13b's two cases raised until slice G1 and
+    now run at a toy size, each through the CLI that takes it: a DINO
+    encoder in train_synthetic_edm_repa through ``train_diffusion``, and a
+    ``repa:`` section naming no encoder (precomputed features, which only
+    latent shards carry) through ``train_repa`` on shards the test writes.
+    The live FixedViT REPA is tested in tests/test_torch_port_e1_cli.py, and
+    ``trainer.distill_from`` in tests/test_torch_port_c2_cli.py."""
+    if item == "item 16":
+        with pytest.raises(NotImplementedError, match=item):
+            train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching", override,
+                                  *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+        return
     if override == "+repa":
-        overrides = ["repa.alignment_layer=1"]
-    elif not override.startswith("trainer."):
-        config, overrides = override, ["repa.repa_encoder=dinov2"]
-    with pytest.raises(NotImplementedError, match=item):
-        train_diffusion.main(["--device", "cpu", "--config-name", config,
-                              *overrides, *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+        from diffulab_tpu_torch.examples import train_repa
+
+        _write_latent_shards(tmp_path / "imagenet")
+        (trainer,) = train_repa.main(["--device", "cpu", *PRECOMPUTED_OVERRIDES, f"trainer.save_path={tmp_path}",
+                                      *(f"dataset.{s}.data_path={tmp_path / 'imagenet'}" for s in ("train", "val"))])
+        run, steps = tmp_path / "imagenet_repa_flow_matching", 2
+        from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+
+        assert any(k.startswith("extra_losses.0.resampler.") for k in restore_checkpoint(run / "checkpoints" /
+                                                                                          "denoiser")["params"])
+    else:
+        (trainer,) = train_diffusion.main(["--device", "cpu", "--config-name", override, *DINO_OVERRIDES,
+                                           *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+        run, steps = tmp_path / "synthetic_edm_repa", 4
+    rows = _repa_rows(run)
+    assert trainer.step == steps and len(rows) == 2 * trainer.n_epoch and all(np.isfinite(rows))
 
 
 @pytest.mark.parametrize("flags,item", [(["--prompts", "a cat"], "item 16"),
@@ -309,14 +366,24 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
                                         (["--config-name", "train_synthetic_edm_repa", "repa.repa_encoder=dinov2"],
                                          "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
-    """--prompts and LoRA checkpoints (item 16), ring attention (item 17) and
-    a REPA config with a DINO encoder (item 13b) raise; the live FixedViT
-    REPA configs sample (tests/test_torch_port_e1_cli.py). --guide-ckpt, --cache-*, --inpaint-*,
+    """--prompts and LoRA checkpoints (item 16) and ring attention (item 17)
+    raise. A REPA config with a DINO encoder (item 13b) raised until slice
+    G1; it now trains at a toy size and samples from its checkpoint, the
+    frozen DINOv2 restored with it. The live FixedViT REPA configs sample in
+    tests/test_torch_port_e1_cli.py. --guide-ckpt, --cache-*, --inpaint-*,
     --img2img-image and every sampler are ported and run in
     tests/test_torch_port_c2_cli.py; the Gaussian formalization in
     tests/test_torch_port_d1_cli.py."""
-    with pytest.raises(NotImplementedError, match=item):
-        sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])
+    if item != "item 13":
+        with pytest.raises(NotImplementedError, match=item):
+            sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])
+        return
+    overrides = [*flags[2:], *DINO_OVERRIDES[1:], *TINY_OVERRIDES]
+    train_diffusion.main(["--device", "cpu", *flags[:2], *overrides, f"trainer.save_path={tmp_path}"])
+    result = sample.main(["--device", "cpu", "--ckpt", str(tmp_path / "synthetic_edm_repa" / "checkpoints" / "ema"),
+                          *flags[:2], "--n", "4", "--guidance", "1.5", "--steps", "2", "--out", str(tmp_path / "s.png"),
+                          *overrides])
+    assert result["images"].shape == (4, 32, 32, 3) and np.isfinite(result["images"]).all()
 
 
 def test_reconstruct_cli_without_snapshots_exits(tmp_path):

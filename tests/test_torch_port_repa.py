@@ -22,7 +22,8 @@ losses.
   width, bridged weights and injected t, noise and drop (trap T4): the total
   and every entry of the loss dict at rel 1e-5, and the total's gradients on
   the bundle as above;
-- the paths of ROADMAP item 13b raise ``NotImplementedError``.
+- the refusals the reference makes; the paths item 13b opened (DINO
+  encoders, precomputed features, the resampler) build.
 """
 
 import jax
@@ -349,29 +350,46 @@ def test_slice_compute_loss_matches_jax(config, slice_models):
     _check_bundle_grads(TrainModules(tm, [tl]), ref_grads)
 
 
-# --- what waits for item 13b --------------------------------------------------------------------------------
+# --- the refusals that stay, and the paths that item 13b opened ---------------------------------------------
 
 
 def test_the_13b_paths_raise():
+    """The refusals the reference makes (an unknown encoder, a resampler
+    without parameters, an aligned width it cannot find, no captured
+    features, a layer out of range, a loss with neither features nor an
+    encoder, a dataset path that is not there) still raise; the paths of
+    ROADMAP item 13b, which raised until slice G1, now build: the DINO
+    encoders, precomputed features (``load_dino=False``) and the Perceiver
+    resampler, through ``RepaLoss`` and ``build_extra_losses`` as in the JAX
+    package (their numbers: tests/test_torch_port_repa_encoders.py and
+    tests/test_torch_port_g1_cli.py)."""
     kw = dict(encoder_args=VIT, denoiser_dimension=64, device="cpu")
-    for bad in (dict(repa_encoder="dinov2"), dict(repa_encoder="dinov3"), dict(repa_encoder="fixed_vit", load_dino=False),
-                dict(repa_encoder="fixed_vit", use_resampler=True)):
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            RepaLoss(**{**kw, **bad})
+    dino = dict(dino_model="dinov2_vits14", target_seq_len=4)
+    assert type(RepaLoss(repa_encoder="dinov2", denoiser_dimension=64, encoder_args=dino, device="meta").repa_encoder
+                ).__name__ == "DinoV2"
+    assert RepaLoss(repa_encoder="dinov3", denoiser_dimension=64, device="meta").repa_encoder.embedding_dim == 768
+    precomputed = RepaLoss(repa_encoder="fixed_vit", load_dino=False, embedding_dim=24, alignment_layer=1, **kw)
+    precomputed.set_model(MMDiT(**DIT, device="cpu"))
+    assert precomputed.repa_encoder is None and precomputed.proj_fc3.weight.shape[0] == 24
+    with pytest.raises(ValueError, match="Resampler parameters"):
+        RepaLoss(repa_encoder="fixed_vit", use_resampler=True, **kw)
+    resampled = RepaLoss(repa_encoder="fixed_vit", use_resampler=True, resampler_params=dict(dim=32, depth=1), **kw)
+    assert resampled.resampler is not None and resampled.resampler.latents.shape == (16, 32)
     with pytest.raises(ValueError, match="not supported"):
         RepaLoss(repa_encoder="clip", **kw)
     cfg = {"model": {"inner_dim": 64}, "perceiver_resampler": {"use_resampler": True, "parameters": {}}}
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(TypeError, match="dim"):  # the resampler's dim and depth have no defaults, as in JAX
         build_extra_losses(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        build_extra_losses({"model": {"inner_dim": 64}, "repa": {"embedding_dim": 384}}, device="cpu")
+    (loss,) = build_extra_losses({"model": {"inner_dim": 64}, "repa": {"embedding_dim": 384}}, device="cpu")
+    assert loss.repa_encoder is None and loss.resampler is None and loss.proj_fc3.weight.shape == (384, 1024)
     with pytest.raises(ValueError, match="denoiser_dimension"):
         build_extra_losses({"model": {}, "repa": {"repa_encoder": "fixed_vit"}}, device="cpu")
     assert build_extra_losses({"model": {}}, device="cpu") == []
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        bicubic_resize(torch.zeros(1, 4, 4, 3), 8)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    assert bicubic_resize(torch.zeros(1, 4, 4, 3), 8).shape == (1, 8, 8, 3)
+    with pytest.raises(FileNotFoundError):
         REPA().compute_on_dataset("a", "b")
+    with pytest.raises(ValueError, match="no dst_features"):
+        precomputed({"features": [torch.zeros(1, 16, 64)]}, x0=torch.zeros(1, 8, 8, 3))
     loss = RepaLoss(repa_encoder="fixed_vit", **kw)
     with pytest.raises(RuntimeError, match="no captured features"):
         loss({"x": torch.zeros(1)}, x0=torch.zeros(1, 8, 8, 3))
