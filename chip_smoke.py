@@ -35,7 +35,12 @@ the hard-txt2img SprintDiT and DDT, and ``model=sprint``, ``model=ddt`` and
 slice G1, ``configs/train_imagenet_flow_matching_repa.yaml`` (a DiT-B at
 patch 1 on DC-AE latents with REPA on precomputed DINOv2-L features through
 a Perceiver resampler) through the port's ``precompute``, ``train_repa``
-and ``sample`` CLIs on images written from a seed.
+and ``sample`` CLIs on images written from a seed; and slice H1, the hard
+text-to-image benchmark (``configs/train_hard_txt2img_*.yaml``: the port's
+builder trains the tower and writes the shards, ``train_repa_txt_to_img``
+trains the MMDiT arm, also with the trainable text embedder, and the
+SprintDiT arm, ``evaluate_txt2img`` scores the MMDiT's checkpoints) and
+``evaluate_fid`` on the C1 run.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -224,7 +229,22 @@ Phases, one line each:
      fp32 K1 at the request's B=32, and the hard txt2img pair's bf16 K1/K2
      instances (phase 21's: 264 tokens padded to 384, 256, 72 padded to 128;
      H=6), each beside SDPA on the padded and the unpadded tensors, its plain
-     version and both bounds.
+     version and both bounds;
+ 24. slice H1 from a working directory of its own (the configs' relative
+     ``data/hard_txt2img`` paths unedited): (a) the port's
+     ``build_hard_txt2img`` at 64 px (2048 + 256 scenes, one tower epoch at
+     batch 64), its report and shard bytes; (b) ``train_hard_txt2img_mmdit``
+     as composed through ``train_repa_txt_to_img``, one epoch of 32 steps,
+     6 + 6 bf16 K1/K2 at 384 padded keys a step; (c) the same with
+     ``embedder=trainable trainer.train_embedder=true`` (plus 4 + 4 fp32 at
+     128 a step), the encoder's parameters moved and checkpointed, its
+     K1/K2 timed against SDPA and their bounds; (d)
+     ``train_hard_txt2img_sprint`` one epoch, and ``train_hard_txt2img_ddt``
+     refused with F3's ``TypeError``; (e) ``reconstruct_ema`` and
+     ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05`` (200 samples each,
+     Euler-50, CFG 1.5, 1200 fp32 K1); (f) ``evaluate_fid`` on phase 14's
+     ``ema`` (256 samples, 1000 fp32 K1), the feature ViT's weights on the
+     card bitwise the ``jax_prng`` draw and its features against the CPU.
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -442,6 +462,22 @@ G1_DINO = "{dino_model: dinov2_vitl14_reg, resolution: 256}"
 G1_PRECOMPUTE_BATCH = 64
 G1_SAMPLES, G1_GUIDANCE = 16, 4.0  # one Euler-50 request at CFG 4.0: 2x16 under fused CFG
 G1_GRAD_BATCH = 2
+
+# slice H1 (phase 24): the hard text-to-image benchmark through the port's builder and CLIs, from a working
+# directory of its own so that the configs' relative paths (data/hard_txt2img/...) are used unedited
+H1_CONFIGS = {"mmdit": "train_hard_txt2img_mmdit", "sprint": "train_hard_txt2img_sprint",
+              "ddt": "train_hard_txt2img_ddt"}
+H1_BUILD = {"--n-train": (10_000, 2048), "--n-val": (2_000, 256), "--epochs": (12, 1)}
+H1_CUTS = {"trainer.n_epoch": (12, 1)}
+H1_BATCH, H1_PX = 64, 64
+H1_TOKENS = 264  # 16x16 packed latents at patch 1 and 8 caption tokens, padded to 384 keys
+H1_DEPTH = 6  # 4 dual-stream + 2 single-stream blocks, one joint attention each
+H1_EMB_TOKENS, H1_EMB_DEPTH, H1_EMB_HEADS = 64, 4, 4  # configs/embedder/trainable.yaml: fp32 (no trainer dtype)
+H1_TRAINABLE = ("embedder=trainable", "trainer.train_embedder=true")
+H1_EVAL = {"--n-samples": (2000, 200), "--n-val": (2000, 256)}
+H1_EVAL_BATCH, H1_GUIDANCE = 100, 1.5  # Euler-50 at CFG 1.5: 2x100 under fused CFG
+H1_FID_SAMPLES, H1_FID_BATCH = 256, 128  # evaluate_fid on phase 14's C1 run, CFG 1.5
+H1_FEATURE_TOL = 1e-4  # the frozen ViT's features, card against the port on the CPU: max |diff| / max |cpu|
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -2250,7 +2286,7 @@ def _run_cli(fn, argv, log: Path):
 
 
 def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_epoch: int, label: str,
-                     val_images: bool = True):
+                     val_images: bool = True, before_first_step=None):
     """A training CLI's ``main(argv)`` (``train_diffusion`` or ``reflow``) in
     process, writing its run to ``run``, with every train step timed (the
     card synchronised at both ends) and its launch counts read at both ends;
@@ -2258,7 +2294,8 @@ def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_
     train and validation loss an epoch, and, with ``val_images``, one
     validation grid an epoch. Returns the trainer, the per-step launches (K1,
     K2, K3, and by kernel, dtype and key length), the step times and the
-    run's totals."""
+    run's totals. ``before_first_step`` is called with the first step's
+    arguments before that step runs."""
     import torch
 
     from diffulab_tpu_torch.training import trainer as trainer_mod
@@ -2267,6 +2304,8 @@ def _timed_train_cli(main, argv, log: Path, run: Path, n_epochs: int, steps_per_
     original = trainer_mod.train_step
 
     def timed_step(*args, **kwargs):
+        if before_first_step is not None and not marks:
+            before_first_step(*args, **kwargs)
         torch.cuda.synchronize()
         start, keys = (time.perf_counter(), launch_counts()), launch_keys()
         out = original(*args, **kwargs)
@@ -3150,24 +3189,27 @@ def d2_bounds(b: int, tokens: int, h: int, d: int, backward: bool, padded: bool)
 
 
 def padded_bounds(b: int, tokens: int, s: int, h: int, d: int, backward: bool, padded: bool, elem: int = 4,
-                  peak_flops: float = PEAK_TF32_FLOPS, passes: int = 3) -> dict[str, Any]:
+                  peak_flops: float = PEAK_TF32_FLOPS, passes: int = 3, valid_keys=None) -> dict[str, Any]:
     """The bound of one K1 (or, ``backward``, K2) call on ``tokens`` valid
-    rows and keys padded to ``s``, at ``passes`` products of ``peak_flops``
-    (fp32: 3xTF32; bf16: one pass at the bf16 peak) and 3.35 TB/s, elements
-    of ``elem`` bytes: the valid rows of q and o (K2: q, do and dq), the
-    valid keys of k and v (K2: and of dk and dv, the gradients the route
-    keeps: its pad's backward drops the padded keys'), lse over the valid
-    rows, the mask, and the products over the valid rows and keys;
-    ``padded``: the padded contract, q and o (do, dq), lse, dk and dv over
-    the ``s`` padded rows (the zero rows the kernel writes included) and the
-    products over the padded rows and valid keys."""
+    query rows a sample and keys padded to ``s``, at ``passes`` products of
+    ``peak_flops`` (fp32: 3xTF32; bf16: one pass at the bf16 peak) and 3.35
+    TB/s, elements of ``elem`` bytes. ``valid_keys[i]``: the keys sample i
+    attends where a key mask varies by sample (default ``tokens`` each). The
+    valid rows of q and o (K2: q, do and dq), the valid keys of k and v (K2:
+    and of dk and dv, the gradients the route keeps: its pad's backward
+    drops the padded keys'), lse over the valid rows, the mask, and the
+    products over each sample's valid rows and keys; ``padded``: the padded
+    contract, q and o (do, dq), lse, dk and dv over the ``s`` padded rows
+    (the zero rows the kernel writes included) and the products over the
+    padded rows and valid keys."""
     rows = s if padded else tokens
+    keys = b * tokens if valid_keys is None else int(sum(valid_keys))
     if backward:
-        elems = (3 * b * rows + 2 * b * tokens + 2 * b * rows) * h * d
-        flops = 10 * b * h * rows * tokens * d
+        elems = (3 * b * rows + 2 * keys + 2 * (b * rows if padded else keys)) * h * d
+        flops = 10 * h * d * rows * keys
     else:
-        elems = (2 * b * rows + 2 * b * tokens) * h * d
-        flops = 4 * b * h * rows * tokens * d
+        elems = (2 * b * rows + 2 * keys) * h * d
+        flops = 4 * h * d * rows * keys
     bytes_moved = elems * elem + b * rows * h * 4 + b * s * 4
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, passes * flops / peak_flops
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -4118,92 +4160,120 @@ def _timed_cli(main, argv, log: Path) -> dict[str, Any]:
             "launches": launch_counts()}
 
 
-def g1_kernels() -> dict[str, Any]:
-    """Phase 23g's kernels: the bf16 K1 and K2 at slice G1's training shape
-    (B=128, 64 tokens padded to 128 query rows and keys with the padding
-    mask, H=12, D=64), K1 also at its request's B=32 in fp32 (the sample CLI
-    builds the model in fp32, as the reference's does), and the bf16 K1/K2
-    instances of the hard txt2img pair (phase 21: H=6, D=64; 264 tokens
-    padded to 384 at B=32 in a request and B=64 in training, 256 unpadded
-    (the DDT decoder), 72 padded to 128 (the SprintDiT's deep path in
-    training)); against their plain versions, each timed from CUDA-graph
-    replays beside SDPA on the same padded inputs with the mask and on the
-    unpadded tensors (the backward: SDPA's autograd backward, its kernels
-    summed by torch.profiler), with bounds over the valid rows and keys and
-    over the padded contract (:func:`padded_bounds`)."""
+def g1_kernel_cases() -> list[tuple]:
+    """Phase 23g's cases of :func:`padded_kernels`: the bf16 K1 and K2 at
+    slice G1's training shape (B=128, 64 tokens padded to 128 query rows and
+    keys with the padding mask, H=12, D=64), K1 also at its request's B=32
+    in fp32 (the sample CLI builds the model in fp32, as the reference's
+    does), and the bf16 K1/K2 instances of the hard txt2img pair (phase 21:
+    H=6, D=64; 264 tokens padded to 384 at B=32 in a request and B=64 in
+    training, 256 unpadded (the DDT decoder), 72 padded to 128 (the
+    SprintDiT's deep path in training))."""
+    import torch
+
+    return [("g1_train", G1_BATCH, G1_HEADS, G1_TOKENS, torch.bfloat16, True, None),
+            ("g1_sample", 2 * G1_SAMPLES, G1_HEADS, G1_TOKENS, torch.float32, False, None),
+            ("hard_request_384", 2 * F1_HARD_SAMPLES, 6, 264, torch.bfloat16, False, None),
+            ("hard_request_256", 2 * F1_HARD_SAMPLES, 6, 256, torch.bfloat16, False, None),
+            ("hard_train_384", F1_HARD_BATCH, 6, 264, torch.bfloat16, True, None),
+            ("hard_train_256", F1_HARD_BATCH, 6, 256, torch.bfloat16, True, None),
+            ("hard_train_128", F1_HARD_BATCH, 6, 72, torch.bfloat16, True, None)]
+
+
+def padded_kernels(phase: str, cases, seed: int) -> dict[str, Any]:
+    """The K1 (and, where a case says ``backward``, K2) instances of
+    ``cases`` against their plain versions, at D=64 on inputs drawn from
+    ``seed``. A case is (tag, B, H, tokens, dtype, backward, key_mask):
+    ``tokens`` query rows and keys a sample, padded to 128s as the fused
+    route pads them, with the padding mask, or with ``key_mask`` (bool [B,
+    tokens] on the card, True = attend: the keys each sample attends) padded
+    with False. Each is timed from CUDA-graph replays beside SDPA on the same
+    padded inputs with the mask and on the unpadded tensors (with
+    ``key_mask``); the backward beside SDPA's backward (bf16: its autograd
+    backward, its kernels summed by torch.profiler; fp32: its memory-efficient
+    backward op, :func:`sdpa_fp32_backward`), with bounds over the valid rows
+    and the attended keys and over the padded contract
+    (:func:`padded_bounds`). Returns ``k1_<tag>`` and ``k2_<tag>``."""
     import torch
     import torch.nn.functional as F
 
     from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
 
-    gen = torch.Generator(device="cuda").manual_seed(29)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     d = 64
-    cases = [("g1_train", G1_BATCH, G1_HEADS, G1_TOKENS, torch.bfloat16, True),
-             ("g1_sample", 2 * G1_SAMPLES, G1_HEADS, G1_TOKENS, torch.float32, False),
-             ("hard_request_384", 2 * F1_HARD_SAMPLES, 6, 264, torch.bfloat16, False),
-             ("hard_request_256", 2 * F1_HARD_SAMPLES, 6, 256, torch.bfloat16, False),
-             ("hard_train_384", F1_HARD_BATCH, 6, 264, torch.bfloat16, True),
-             ("hard_train_256", F1_HARD_BATCH, 6, 256, torch.bfloat16, True),
-             ("hard_train_128", F1_HARD_BATCH, 6, 72, torch.bfloat16, True)]
     out = {}
-    for tag, b, h, tokens, dtype, backward in cases:
+    for tag, b, h, tokens, dtype, backward, key_mask in cases:
         s = padded_keys(tokens)
         bf16 = dtype == torch.bfloat16
         kind = "bfloat16" if bf16 else "float32"
         bounds = dict(elem=2, peak_flops=PEAK_BF16_FLOPS, passes=1) if bf16 else {}
+        valid = None if key_mask is None else [int(n) for n in key_mask.sum(dim=1).tolist()]
+        if valid is not None:
+            bounds["valid_keys"] = valid
         q, k, v, do = (torch.randn(b, tokens, h, d, generator=gen, device="cuda").to(dtype) for _ in range(4))
         qp, kp, vp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, k, v, do))  # the fused route's padding
-        mask = (torch.arange(s, device="cuda") < tokens)[None].expand(b, -1).contiguous() if s != tokens else None
+        if key_mask is not None:
+            mask = F.pad(key_mask, (0, s - tokens))
+        else:
+            mask = (torch.arange(s, device="cuda") < tokens)[None].expand(b, -1).contiguous() if s != tokens else None
         attn_mask = None if mask is None else mask[:, None, None, :]
-        shape = f"B={b} Sq=Skv={s}" + (f" padded from {tokens} (the padding mask)" if s != tokens else "") \
+        unpadded_mask = None if key_mask is None else key_mask[:, None, None, :]
+        shape = f"B={b} Sq=Skv={s}" + (f" padded from {tokens}" if s != tokens else "") \
+            + (" (the padding mask)" if s != tokens and key_mask is None else "") \
+            + (f" (a key mask by sample: {min(valid)}-{max(valid)} keys, {sum(valid)} in all)" if valid else "") \
             + f" H={h} D={d} {kind}"
         with torch.no_grad():
             o, lse = fused_mha(qp, kp, vp, mask)
             ro, rlse = fused_mha_reference(qp, kp, vp, mask)
-            err = check_close(f"G1 {tag} K1 o", o, ro, *TOL[kind])
-            check_close(f"G1 {tag} K1 lse", lse, rlse, *LSE_TOL)
+            err = check_close(f"{phase} {tag} K1 o", o, ro, *TOL[kind])
+            check_close(f"{phase} {tag} K1 lse", lse, rlse, *LSE_TOL)
             qpt, kpt, vpt, qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp, q, k, v))
             fwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qp, kp, vp, mask)),
                        plain_ms=cuda_time_ms(lambda: fused_mha_reference(qp, kp, vp, mask), iters=5),
                        library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kpt, vpt,
                                                                                        attn_mask=attn_mask)),
-                       sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                       sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, attn_mask=unpadded_mask)),
                        **padded_bounds(b, tokens, s, h, d, False, False, **bounds),
                        padded=padded_bounds(b, tokens, s, h, d, False, True, **bounds), shape=shape)
             out[f"k1_{tag}"] = fwd
             if backward:
                 refs = fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop)
-                err = check_grads(f"G1 {tag} K2", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs, BWD_TOL[kind])
+                err = check_grads(f"{phase} {tag} K2", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs, BWD_TOL[kind])
                 bwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qp, kp, vp, mask, lse, dop),
                                                              calls=10, replays=5),
                            plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop), iters=3),
                            **padded_bounds(b, tokens, s, h, d, True, False, **bounds),
                            padded=padded_bounds(b, tokens, s, h, d, True, True, **bounds), shape=shape)
                 del refs
-        if backward:
-            timings = {}
+                if not bf16:
+                    bwd.update(library_ms=cuda_graph_ms(sdpa_fp32_backward(qp, kp, vp, dop, mask), calls=10, replays=5),
+                               sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, k, v, do, key_mask), calls=10,
+                                                              replays=5))
+        if backward and bf16:
             for name, (tq, tk, tv, tdo, m) in (("library_ms", (qp, kp, vp, dop, attn_mask)),
-                                               ("sdpa_unpadded_ms", (q, k, v, do, None))):
+                                               ("sdpa_unpadded_ms", (q, k, v, do, unpadded_mask))):
                 with torch.enable_grad():
                     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (tq, tk, tv)]
                     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=m)
                     dot = tdo.transpose(1, 2)
-                    timings[name] = profiled_kernels(
+                    bwd[name] = profiled_kernels(
                         lambda: torch.autograd.grad(sdpa_out, leaves, dot, retain_graph=True))[0]
                     del sdpa_out, leaves
-            out[f"k2_{tag}"] = {**bwd, **timings}
+        if backward:
+            out[f"k2_{tag}"] = bwd
         del q, k, v, do, qp, kp, vp, dop, o, lse, ro, rlse
     torch.cuda.synchronize()
-    print("phase 23 kernels (device ms from CUDA-graph replays; library: SDPA on the same padded inputs with the "
-          "mask, beside SDPA on the unpadded tensors; the backward SDPA's autograd backward, its kernels summed by "
-          "torch.profiler; bounds at 3.35 TB/s and the bf16 peak (fp32: 3xTF32), over the valid rows and keys and "
-          "over the padded contract): "
+    print(f"{phase} kernels (device ms from CUDA-graph replays; library: SDPA on the same padded inputs with the "
+          "mask, beside SDPA on the unpadded tensors; the backward SDPA's backward: bf16 its autograd backward, its "
+          "kernels summed by torch.profiler, fp32 its memory-efficient backward op; bounds at 3.35 TB/s and the bf16 "
+          "peak (fp32: 3xTF32), over the valid rows and attended keys and over the padded contract): "
           + "; ".join(f"{key} ({r['shape']}) max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} SDPA "
                       f"{r['library_ms']:.4f} (unpadded {r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound "
                       f"{r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
                       f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']})" for key, r in out.items())
-          + f"; tol K1 bf16 atol/rtol {TOL['bfloat16'][0]}, fp32 {TOL['float32'][0]}; K2 bf16 {BWD_TOL['bfloat16']} "
-            "* (max|ref| + |ref|)")
+          + f"; tol K1 bf16 atol/rtol {TOL['bfloat16'][0]}, fp32 {TOL['float32'][0]}; K2 bf16 {BWD_TOL['bfloat16']}, "
+            f"fp32 {BWD_TOL['float32']} * (max|ref| + |ref|)")
     return out
 
 
@@ -4308,7 +4378,7 @@ def phase_g1(root: Path) -> dict[str, Any]:
     with the DC-AE decode, exactly 600 K1 at 128 padded keys (fp32: the
     sample CLI builds the model without the trainer's precision, as the
     reference's does), the request's ms; (f) :func:`_g1_twin_checks`; (g)
-    :func:`g1_kernels`."""
+    :func:`padded_kernels` on :func:`g1_kernel_cases`."""
     import numpy as np
     import torch
 
@@ -4389,7 +4459,7 @@ def phase_g1(root: Path) -> dict[str, Any]:
         fail(f"G1 sample: launches {launch_keys()}, expected {want}; images {request['images'].shape}")
 
     twin = _g1_twin_checks(cfg, shards, scale)
-    kernels = g1_kernels()
+    kernels = padded_kernels("phase 23", g1_kernel_cases(), seed=29)
     cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in G1_CUTS.items()]
                      + [f"ImageNet {split} images {old} -> {new} seeded 256x256" for split, (old, new) in
                         G1_IMAGES.items()] + ["pretrained DC-AE f32c32 and DINOv2-L weights -> seeded random"])
@@ -4415,6 +4485,232 @@ def phase_g1(root: Path) -> dict[str, Any]:
           f"{DIT_GRAD_TOL}), losses kernel {twin['losses'][0]} plain {twin['losses'][1]}; phase {time.perf_counter() - t_phase:.1f} s")
     return {"train": tr["launches"], "sample": request["launches"], "step_ms": tr["steady"],
             "generate_ms": request["generate_ms"], "kernels": kernels}
+
+
+def _h1_train(config: str, extra, log: Path, save: Path, project: str, label: str, want_step: dict,
+              before_first_step=None) -> dict[str, Any]:
+    """One ``train_repa_txt_to_img`` run of a hard config for one epoch over
+    the builder's shards, its launches by padded key length held every step
+    to ``want_step`` (``before_first_step``: :func:`_timed_train_cli`'s)."""
+    from diffulab_tpu_torch.examples import train_repa_txt_to_img
+
+    cuts = [f"{key}={new}" for key, (_, new) in H1_CUTS.items()]
+    argv = ["--config-name", config, *cuts, *extra, f"trainer.save_path={save}", f"trainer.project_name={project}"]
+    steps = H1_BUILD["--n-train"][1] // H1_BATCH
+    tr = _timed_train_cli(train_repa_txt_to_img.main, argv, log, save / project, 1, steps, label,
+                          before_first_step=before_first_step)
+    if any(k != want_step for k in tr["step_keys"]):
+        fail(f"{label}: launches a step by (kernel, dtype, padded keys) {[k for k in tr['step_keys'] if k != want_step][:1]}, "
+             f"expected {want_step}")
+    return tr
+
+
+def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
+    """Phase 24: slice H1, the hard text-to-image benchmark's chain
+    (``scripts/r5_*.sh``) through the port, in process, from ``root`` as the
+    working directory (the configs' ``data/hard_txt2img`` paths unedited):
+    (a) ``diffulab_tpu_torch.scripts.build_hard_txt2img`` at 64 px from a
+    seed: the tower trained for one epoch at batch 64, its report (recon
+    MSE, PSNR, the judge on reconstructions), the shards; no K1-K5 (the
+    tower's attention is not Pallas in the reference); (b)
+    ``train_repa_txt_to_img --config-name train_hard_txt2img_mmdit`` as
+    composed (384 wide, 6 heads, 4 dual + 2 single-stream blocks, bf16,
+    batch 64, post-hoc EMA) one epoch of 32 steps: 6 bf16 K1 + 6 bf16 K2 at
+    384 padded keys every step, ms a step, peak memory; (c) the same with
+    ``embedder=trainable trainer.train_embedder=true``: 4 fp32 K1 + 4 fp32
+    K2 at 128 keys (the embedder, built without the trainer's precision) and
+    6 + 6 bf16 at 384 (320 tokens) every step, the encoder's parameters
+    moved from those the first train step found and held in the
+    checkpoint's ``params``, then :func:`padded_kernels` at the embedder's
+    fp32 K1/K2 shape and at (e)'s fp32 K1 request shape, with their key
+    masks; (d) ``train_hard_txt2img_sprint`` one
+    epoch (4 + 4 bf16 at 384 and at 128 a step), and
+    ``train_hard_txt2img_ddt`` refused with the reference's ``TypeError``
+    (fault F3); (e) ``reconstruct_ema`` at sigma_rel 0.05 and
+    ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05``: 200 samples each
+    at batch 100, Euler-50, CFG 1.5, the fp32 model (1200 fp32 K1 at 384),
+    the ``txt2img`` JSON lines, images/s; (f) ``evaluate_fid`` on phase 14's
+    C1 run's ``ema`` with 256 samples at CFG 1.5 (1000 fp32 K1 at 256), the
+    ``fid_synthetic`` line with its floor and ceiling; the frozen ViT's
+    weights on the card bitwise ``jax_prng``'s draw and its features of 16
+    validation images within ``H1_FEATURE_TOL`` of the port's on the CPU."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.data.streaming import ShardedDataset
+    from diffulab_tpu_torch.data.synthetic_txt2img import (
+        SyntheticCompositionalDataset,
+        caption_embedding_table,
+        embed_captions,
+    )
+    from diffulab_tpu_torch.examples import evaluate_fid, evaluate_txt2img, reconstruct_ema, train_repa_txt_to_img
+    from diffulab_tpu_torch.networks.embedders.trainable import byte_tokenize
+    from diffulab_tpu_torch.scripts import build_hard_txt2img
+    from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+    from diffulab_tpu_torch.training.evaluation import frozen_vit_features
+    from diffulab_tpu_torch.weights import state_dict_from_jax
+
+    sys.modules["wandb"] = None
+    t_phase = time.perf_counter()
+    log = root / "h1.log"
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        # (a) the builder
+        build = _timed_cli(build_hard_txt2img.main, [*(x for key, (_, new) in H1_BUILD.items() for x in (key, str(new))),
+                                                     "--batch", str(H1_BATCH), "--image-size", str(H1_PX)], log)
+        data = root / "data" / "hard_txt2img"
+        report = build["out"]["report"]
+        row = ShardedDataset(data / "train")[0]
+        if any(build["launches"].values()) or not math.isfinite(report["mse"]) \
+                or row["vision_latents"].shape != (16, 16, 32) or row["caption_embeddings"].shape != (8, 512):
+            fail(f"H1 build: launches {build['launches']}, report {report}, a row's latents "
+                 f"{row['vision_latents'].shape} embeddings {row['caption_embeddings'].shape}")
+        captions = [str(ShardedDataset(data / "train")[i]["caption"]) for i in range(H1_BATCH)]
+
+        # (b) the MMDiT arm
+        save = root / "runs"
+        bf16 = {(name, "bfloat16", padded_keys(H1_TOKENS)): H1_DEPTH for name in ("fused_mha_fwd", "fused_mha_bwd")}
+        mmdit = _h1_train(H1_CONFIGS["mmdit"], (), log, save, "hard_txt2img_mmdit", "H1 mmdit", bf16)
+        steps = mmdit["trainer"].step
+        val_batches = -(-H1_BUILD["--n-val"][1] // H1_BATCH)
+        cfg = compose_config(train_repa_txt_to_img.CONFIG_DIR, H1_CONFIGS["mmdit"])
+        want_k1 = (steps + val_batches + cfg["trainer"]["val_steps"]) * H1_DEPTH
+        if mmdit["launches"]["fused_mha_fwd_bf16"] != want_k1 or mmdit["launches"]["fused_mha_fwd"] != want_k1 \
+                or mmdit["launches"]["fused_mha_bwd_bf16"] != steps * H1_DEPTH:
+            fail(f"H1 mmdit: run launches {mmdit['launches']}, expected {want_k1} bf16 K1 and {steps * H1_DEPTH} K2")
+
+        # (c) the trainable embedder, trained with the denoiser
+        emb_keys = {(name, "float32", padded_keys(H1_EMB_TOKENS)): H1_EMB_DEPTH
+                    for name in ("fused_mha_fwd", "fused_mha_bwd")}
+        initial = {}  # the embedder's parameters as the first train step finds them
+
+        def keep_initial(diffuser, *args, **kwargs):
+            initial.update({name: value.detach().cpu().clone()
+                            for name, value in diffuser.denoiser.context_embedder.named_parameters()})
+
+        trainable = _h1_train(H1_CONFIGS["mmdit"], H1_TRAINABLE, log, save, "hard_txt2img_mmdit_trainable",
+                              "H1 mmdit trainable embedder", {**bf16, **emb_keys}, before_first_step=keep_initial)
+        entry = restore_checkpoint(save / "hard_txt2img_mmdit_trainable" / "checkpoints" / "denoiser")
+        held = {k.removeprefix("context_embedder."): v for k, v in entry["params"].items()
+                if k.startswith("context_embedder.")}
+        moved = [name for name, value in initial.items() if name in held and not torch.equal(held[name], value)]
+        if not initial or set(held) != set(initial) or len(moved) != len(initial) \
+                or any(k.startswith("context_embedder.") for k in entry["rest"]):
+            fail(f"H1 trainable embedder: {len(held)} of {len(initial)} parameters in the checkpoint's params, "
+                 f"{len(moved)} moved from the first step's")
+
+        # the fp32 K1/K2 at the embedder's shape (the first 64 training captions' byte-token mask), and the fp32
+        # K1 at evaluate_txt2img's request shape (the 100 validation captions' embedding mask, then the null
+        # embedding's, as fused CFG stacks them, each beside 256 image keys)
+        byte_mask = torch.as_tensor(byte_tokenize(captions, H1_EMB_TOKENS)["attn_mask"], device="cuda").bool()
+        n_val_eval = max(H1_EVAL["--n-val"][1], H1_EVAL["--n-samples"][1])
+        eval_captions = SyntheticCompositionalDataset(train=False, n_samples=n_val_eval, image_size=H1_PX,
+                                                      seed=0).captions[:H1_EVAL_BATCH]
+        caption_mask = torch.as_tensor(embed_captions(eval_captions, caption_embedding_table())[1], device="cuda")
+        null_mask = instantiate(compose_config(train_repa_txt_to_img.CONFIG_DIR, H1_CONFIGS["mmdit"])["embedder"],
+                                device="cuda").null_embedding_mask
+        text_mask = torch.cat([caption_mask.bool(), null_mask[None].expand(H1_EVAL_BATCH, -1)])
+        joint_mask = torch.cat([text_mask, torch.ones(2 * H1_EVAL_BATCH, H1_TOKENS - text_mask.shape[1],
+                                                      dtype=torch.bool, device="cuda")], dim=1)
+        h1_kernels = padded_kernels("phase 24", [
+            ("h1_embedder", H1_BATCH, H1_EMB_HEADS, H1_EMB_TOKENS, torch.float32, True, byte_mask),
+            ("h1_eval_384", 2 * H1_EVAL_BATCH, 6, H1_TOKENS, torch.float32, False, joint_mask)], seed=32)
+
+        # (d) the SprintDiT arm; the DDT arm's config fault
+        deep = padded_keys(H1_TOKENS - 256 + 256 // 4)  # 64 of 256 image tokens kept past the encoder
+        sprint_keys = {(name, "bfloat16", n): 4 for name in ("fused_mha_fwd", "fused_mha_bwd")
+                       for n in (padded_keys(H1_TOKENS), deep)}
+        sprint = _h1_train(H1_CONFIGS["sprint"], (), log, save, "hard_txt2img_sprint", "H1 sprint", sprint_keys)
+        try:
+            _run_cli(train_repa_txt_to_img.main, ["--config-name", H1_CONFIGS["ddt"], f"trainer.save_path={save}"], log)
+        except TypeError as e:
+            ddt_error = str(e)
+            if "simple_dit" not in ddt_error:
+                raise
+        else:
+            fail("H1 ddt: train_hard_txt2img_ddt trained; its config's simple_dit (F3) should raise TypeError")
+
+        # (e) post-hoc EMA, then evaluate_txt2img on ema and phema_sr0.05
+        run = save / "hard_txt2img_mmdit"
+        _run_cli(reconstruct_ema.main, ["--run-dir", str(run), "--sigma-rel", "0.05"], log)
+        ckpts = [str(run / "checkpoints" / "ema"), str(run / "checkpoints" / "phema_sr0.05")]
+        evaluation = _timed_cli(evaluate_txt2img.main, [
+            "--config-name", H1_CONFIGS["mmdit"], "--ckpt", *ckpts, "--batch-size", str(H1_EVAL_BATCH),
+            "--guidance", str(H1_GUIDANCE), "--image-size", str(H1_PX),
+            *(x for key, (_, new) in H1_EVAL.items() for x in (key, str(new)))], log)
+        n_eval = H1_EVAL["--n-samples"][1]
+        want = {("fused_mha_fwd", "float32", padded_keys(H1_TOKENS)): len(ckpts) * -(-n_eval // H1_EVAL_BATCH)
+                * STEPS * H1_DEPTH}
+        eval_keys = launch_keys()
+        rows = evaluation["out"]["rows"]
+        if eval_keys != want or len(rows) != 2 or any(r["fake"].shape != (n_eval, H1_PX, H1_PX, 3)
+                                                      or not np.isfinite(r["fake"]).all() for r in rows):
+            fail(f"H1 evaluate_txt2img: launches {eval_keys}, expected {want}; "
+                 f"samples {[r['fake'].shape for r in rows]}")
+
+        # (f) evaluate_fid on the C1 run, and the feature ViT on the card against the CPU
+        c1_cuts = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()]
+        fid = _timed_cli(evaluate_fid.main, [
+            "--config-name", C1_CONFIG, "--ckpt", str(c1_run / "checkpoints" / "ema"), "--n-samples",
+            str(H1_FID_SAMPLES), "--batch-size", str(H1_FID_BATCH), "--guidance", str(H1_GUIDANCE),
+            "--cache-dir", str(root / "fid_cache"), *c1_cuts], log)
+        want_fid = {("fused_mha_fwd", "float32", C1_SEQ): -(-H1_FID_SAMPLES // H1_FID_BATCH) * C1_STEPS * C1_DEPTH}
+        fid_keys = launch_keys()
+        (fid_row,) = fid["out"]["rows"]
+        if fid_keys != want_fid or not all(math.isfinite(fid_row[k]) for k in ("value", "floor", "ceiling")):
+            fail(f"H1 evaluate_fid: launches {fid_keys}, expected {want_fid}; row {fid_row}")
+        encoder = fid["out"]["feature_fn"].encoder
+        drawn = state_dict_from_jax(encoder.jax_params(1234), encoder)
+        card = {name: value.cpu() for name, value in encoder.state_dict().items()}
+        unequal = [name for name in drawn if not torch.equal(card[name], drawn[name])]
+        val = instantiate({**compose_config(train_repa_txt_to_img.CONFIG_DIR, C1_CONFIG, c1_cuts)["dataset"]["val"]})
+        batch = np.stack([val.preprocess_image(img) for img in val.images[:16]])
+        on_card = fid["out"]["feature_fn"](batch)
+        on_cpu = frozen_vit_features(batch.shape[1], device="cpu")(batch)
+        feature_err = float(np.max(np.abs(on_card - on_cpu)) / np.max(np.abs(on_cpu)))
+        if set(drawn) != set(card) or unequal or not feature_err <= H1_FEATURE_TOL:
+            fail(f"H1 feature ViT: {len(unequal)} arrays differ from the jax_prng draw {unequal[:3]}; features card "
+                 f"vs CPU {feature_err:.3e} (tol {H1_FEATURE_TOL})")
+    finally:
+        os.chdir(cwd)
+
+    def train_line(tag: str, tr: dict) -> str:
+        return (f"{tag} {tr['trainer'].step} steps in {tr['train_s']:.1f} s, ms/step start to start median after the "
+                f"first two {tr['steady']:.2f} (min {min(tr['step_ms']):.2f} max {max(tr['step_ms']):.2f}; train_step "
+                f"alone {tr['kernel_ms']:.2f}), samples/s {H1_BATCH / tr['steady'] * 1e3:.1f}, peak mem "
+                f"{tr['peak_gib']:.2f} GiB, train loss {[round(x, 5) for x in tr['losses']]} val loss "
+                f"{[round(x, 5) for x in tr['val_losses']]}, launches a step {tr['step_keys'][0]}, in the run "
+                f"{ {k: v for k, v in tr['launches'].items() if v} }")
+
+    cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in {**H1_BUILD, **H1_CUTS, **H1_EVAL}.items()])
+    seconds = {k: round(v, 1) for k, v in build["out"]["seconds"].items()}
+    print(f"phase 24 H1 the hard txt2img benchmark (cut: {cuts}; widths, batch 64 and the configs as composed): "
+          f"(a) build_hard_txt2img at {H1_PX} px: seconds {seconds} ({build['s']:.1f} in all, peak mem "
+          f"{build['peak_gib']:.2f} GiB), tower recon mse {report['mse']:.5f} psnr {report['psnr']:.2f} dB, "
+          f"judge-on-recons {report['judge']}, shard bytes {build['out']['shard_bytes']}, no K1-K5; "
+          + train_line("(b) train_hard_txt2img_mmdit", mmdit)
+          + f"; (c) " + train_line("embedder=trainable trainer.train_embedder=true", trainable)
+          + f", {len(moved)} encoder parameters moved and held in the checkpoint's params; (d) "
+          + train_line("train_hard_txt2img_sprint", sprint)
+          + f"; train_hard_txt2img_ddt refused: TypeError {ddt_error!r} (F3); (e) evaluate_txt2img "
+          + "; ".join(f"{Path(r['ckpt']).name}: {r['generate_s']:.1f} s to sample and decode {n_eval} "
+                      f"({r['images_per_s']:.2f} images/s)" for r in rows)
+          + f", floor {evaluation['out']['floor']:.3f}, tower ceiling {evaluation['out']['ceiling']:.3f}, judge on "
+          f"recons {evaluation['out']['recon_judge']}, launches {eval_keys}, {evaluation['s']:.1f} s in all; (f) "
+          f"evaluate_fid {C1_CONFIG} ema {H1_FID_SAMPLES} samples CFG {H1_GUIDANCE}: {fid_row['generate_s']:.1f} s "
+          f"({fid_row['images_per_s']:.2f} images/s), launches {fid_keys}, {fid['s']:.1f} s in all; feature ViT on the "
+          f"card bitwise the jax_prng draw ({len(drawn)} arrays), features card vs CPU max rel {feature_err:.3e} (tol "
+          f"{H1_FEATURE_TOL}); phase {time.perf_counter() - t_phase:.1f} s")
+    for r in rows:
+        print(json.dumps({k: v for k, v in r.items() if k not in ("fake", "images_per_s", "generate_s")}))
+    print(json.dumps({k: v for k, v in fid_row.items() if k not in ("images_per_s", "generate_s")}))
+    return {"mmdit": mmdit["launches"], "trainable": trainable["launches"], "sprint": sprint["launches"],
+            "evaluate_txt2img": evaluation["launches"], "evaluate_fid": fid["launches"], "kernels": h1_kernels,
+            "step_ms": {"mmdit": mmdit["steady"], "trainable": trainable["steady"], "sprint": sprint["steady"]}}
 
 
 def main() -> int:
@@ -4501,6 +4797,8 @@ def main() -> int:
         lap("22 F1 CLIs")
         g1 = phase_g1(Path(tmp))
         lap("23 G1")
+        h1 = phase_h1(Path(tmp), c1["run"])
+        lap("24 H1")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -4524,6 +4822,11 @@ def main() -> int:
     f1_bf16 = {f"f1_hard_{kind}_{w}": r[w] for kind, r in f1_hard.items() for w in ("sample", "train")}
     f1_fp32 = {f"f1_{kind}_{w}": f1_cli[kind][w] for kind in F1_CLI for w in ("train", "sample")}
     f1_flash = {f"f1_txt2img_sprint_{w}": counts for w, counts in f1_txt["windows"].items()}
+    # slice H1's windows: the hard arms' bf16 K1/K2 at 384 and 128 keys, the trainable embedder's fp32 K1/K2 at
+    # 128, the fp32 model's K1 in evaluate_txt2img (384) and evaluate_fid (256); fp32 = all less bf16 (D = 64)
+    h1_windows = {f"h1_{k}": h1[k] for k in ("mmdit", "trainable", "sprint", "evaluate_txt2img", "evaluate_fid")}
+    h1_fp32 = {k: {name: w[name] - w[f"{name}_bf16"] for name in ("fused_mha_fwd", "fused_mha_bwd")}
+               for k, w in h1_windows.items()}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -4537,13 +4840,15 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
         + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"])),
+        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"],
+                                                *h1_windows.values())),
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
                              "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
-                             "g1_train_repa": g1["train"]["fused_mha_fwd_bf16"]},
+                             "g1_train_repa": g1["train"]["fused_mha_fwd_bf16"],
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_fwd_bf16"]}},
         "g1_shape": g1["kernels"]["k1_g1_train"],
         "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k1_hard")},
         "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
@@ -4565,11 +4870,15 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"])),
+        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"]))
+        + sum(w["fused_mha_fwd"] for w in h1_fp32.values()),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
-                             "g1_sample": g1["sample"]["fused_mha_fwd"]},
+                             "g1_sample": g1["sample"]["fused_mha_fwd"],
+                             **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]}},
+        "h1_embedder_shape": h1["kernels"]["k1_h1_embedder"],
+        "h1_eval_384_shape": h1["kernels"]["k1_h1_eval_384"],
         "f1_padded64": f1_cli["kernels"]["k1_pad64"],
         "g1_sample_padded64": g1["kernels"]["k1_g1_sample"],
         "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
@@ -4584,11 +4893,13 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"])),
+        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"],
+                                                *h1_windows.values())),
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
                              "txt2img_train": txt_train_launches["fused_mha_bwd"],
                              **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
-                             "g1_train_repa": g1["train"]["fused_mha_bwd_bf16"]},
+                             "g1_train_repa": g1["train"]["fused_mha_bwd_bf16"],
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_bwd_bf16"]}},
         "g1_shape": g1["kernels"]["k2_g1_train"],
         "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k2_hard")},
         "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
@@ -4601,9 +4912,11 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values())),
+        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values(), *h1_fp32.values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()}},
+                             **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
+                             **{k: w["fused_mha_bwd"] for k, w in h1_fp32.items() if w["fused_mha_bwd"]}},
+        "h1_embedder_shape": h1["kernels"]["k2_h1_embedder"],
         "cifar_b32": f1_cli["kernels"]["k2_b32"],
         "f1_padded64": f1_cli["kernels"]["k2_pad64"],
         "c2_max_abs_err": c2["errs"][f"K2 B={C1_BATCH}"],

@@ -8,17 +8,22 @@ static shapes; the port keeps the batch count), and prefetches batches on a
 background thread so host collation overlaps device compute. An error in
 the prefetch thread is raised in the consumer, not taken for the epoch's end.
 
+A ``sampler`` (the multi-aspect-ratio bucket sampler,
+:class:`~diffulab_tpu_torch.data.imagenet.MultiARBatchSampler`) yields the
+index batches in its own order instead, and ``collate_fn`` replaces the
+default stacking (the text batches' :func:`~diffulab_tpu_torch.data.imagenet.collate_fn`);
+``drop_last=False`` keeps the trailing partial batch.
+
 One process: the reference's ``jax.process_count()`` / ``process_index()``
 are 1 and 0 here until multi-process training is ported (ROADMAP queue 1,
-item 17), and its ``sampler`` / ``collate_fn`` / ``drop_last`` options wait
-for a caller. The batch order is the reference's for the same seed and epoch.
+item 17). The batch order is the reference's for the same seed and epoch.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Iterator, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 
@@ -36,11 +41,16 @@ def default_collate(items: Sequence[Any]) -> Any:
 
 
 class DataLoader:
-    def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True, seed: int = 0, prefetch: int = 2):
+    def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                 collate_fn: Callable[[Sequence[Any]], Any] | None = None, sampler: Any | None = None,
+                 prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self.collate_fn = collate_fn or default_collate
+        self.sampler = sampler
         self.prefetch = prefetch
         self._epoch = 0
 
@@ -49,27 +59,37 @@ class DataLoader:
         resumed run calls this with the 0-based trainer epoch so epoch N
         replays epoch N's order instead of restarting the counter at 0.
         ``__iter__`` pre-increments, so the next iteration shuffles with
-        ``seed + epoch + 1`` — exactly what an uninterrupted run used."""
+        ``seed + epoch + 1`` — exactly what an uninterrupted run used.
+        Forwarded to a sampler, which owns the order then."""
         self._epoch = epoch
+        if self.sampler is not None and hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        if self.sampler is not None:
+            return len(self.sampler)
+        full, rem = divmod(len(self.dataset), self.batch_size)
+        return full + (1 if rem and not self.drop_last else 0)
 
     def _batch_indices(self) -> Iterator[Sequence[int]]:
+        if self.sampler is not None:
+            yield from self.sampler
+            return
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(order)
-        for start in range(0, n - n % self.batch_size, self.batch_size):
+        end = n - n % self.batch_size if self.drop_last else n
+        for start in range(0, end, self.batch_size):
             yield order[start : start + self.batch_size]
 
     def _make_batch(self, idx: Sequence[int]) -> Any:
         # datasets exposing get_batch (native fused gather+normalize) skip the
         # per-item collate loop entirely
-        if hasattr(self.dataset, "get_batch"):
+        if self.collate_fn is default_collate and hasattr(self.dataset, "get_batch"):
             return self.dataset.get_batch(idx)
-        return default_collate([self.dataset[int(i)] for i in idx])
+        return self.collate_fn([self.dataset[int(i)] for i in idx])
 
     def __iter__(self) -> Iterator[Any]:
         self._epoch += 1

@@ -265,6 +265,32 @@ def geglu(x: torch.Tensor) -> torch.Tensor:
     return x1 * F.gelu(gate, approximate="tanh")
 
 
+def rope_1d_cos_sin(seq_len: int, dim: int, base: float = 10_000.0,
+                    device: str | torch.device | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [S, dim] for rotate-half 1-D RoPE (nn.py:152)."""
+    theta = 1.0 / (base ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    freqs = torch.outer(torch.arange(seq_len, dtype=torch.float32, device=device), theta)  # [S, dim/2]
+    embs = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(embs), torch.sin(embs)
+
+
+def apply_rope_1d(
+    q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, rotary_dim: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rotate-half RoPE on the first ``rotary_dim`` channels of q/k [B, S, H, D]
+    (nn.py:161); the tables are cast to q/k's dtype before the multiply."""
+    half = rotary_dim // 2
+
+    def rot(x: torch.Tensor) -> torch.Tensor:
+        x_rope, x_pass = x[..., :rotary_dim], x[..., rotary_dim:]
+        neg_half = torch.cat([-x_rope[..., half:], x_rope[..., :half]], dim=-1)
+        c = cos[None, :, None, :].to(x.dtype)
+        s = sin[None, :, None, :].to(x.dtype)
+        return torch.cat([x_rope * c + neg_half * s, x_pass], dim=-1)
+
+    return rot(q), rot(k)
+
+
 def get_cos_sin_ndim_grid(
     pos_id: torch.Tensor, base: float, axes_dim: Sequence[int]
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -20,9 +20,10 @@ bundle, whose names are ``denoiser.*`` and ``extra_losses.<i>.*``.
 :func:`restore_train_modules` and :func:`restore_sampling_model` restore a
 run's entry into a freshly built model for the CLIs: entries named ``ema``
 or ``phema*`` (a post-hoc EMA snapshot or reconstruction) hold
-``{"params"}`` only, the others ``{"params", "rest"}``. Not ported yet: an
-importer of the JAX package's orbax runs (ROADMAP queue 1, item 8: reading
-one needs orbax or tensorstore, which the port does not import).
+``{"params"}`` only, the others ``{"params", "rest"}``. A JAX package run
+(orbax directories) comes into this format through
+``scripts/import_orbax_checkpoint.py``, which runs where orbax does; the
+port itself reads no orbax directory (:func:`is_orbax_dir` tells one apart).
 """
 
 from __future__ import annotations
@@ -66,10 +67,22 @@ def save_checkpoint(path: str | Path, payload: dict[str, Any]) -> None:
     os.replace(tmp, path / STATE_FILE)
 
 
+def is_orbax_dir(path: str | Path) -> bool:
+    """Whether ``path`` is an orbax checkpoint directory (the JAX package's
+    format) rather than one of the port's entries."""
+    path = Path(path)
+    return path.is_dir() and not (path / STATE_FILE).exists() and any(
+        (path / name).exists() for name in ("_METADATA", "_CHECKPOINT_METADATA", "manifest.ocdbt", "_sharding"))
+
+
 def restore_checkpoint(path: str | Path, target: dict[str, Any] | None = None) -> dict[str, Any]:
     """Restore an entry directory. With ``target`` (a matching nested dict of
     tensors), each tensor comes back on its target's device and in its dtype,
-    and a key or shape that does not match raises; without, as saved (CPU)."""
+    and a key or shape that does not match raises; without, as saved (CPU).
+    An orbax directory raises, naming the importer."""
+    if is_orbax_dir(path):
+        raise ValueError(f"{path} is an orbax checkpoint of the JAX package; convert it with "
+                         f"scripts/import_orbax_checkpoint.py (where orbax is installed) and give the port its output")
     state = torch.load(Path(path).absolute() / STATE_FILE, map_location="cpu", weights_only=True)
     if target is None:
         return state
@@ -177,17 +190,18 @@ def split_state(model: torch.nn.Module, trainable: Callable[[str], bool]
 
 
 def restore_train_modules(path: str | Path, denoiser: torch.nn.Module,
-                          extra_losses: Sequence[nn.Module] = ()) -> None:
+                          extra_losses: Sequence[nn.Module] = (), train_embedder: bool = False) -> None:
     """Restore a trainer checkpoint entry (``denoiser``, ``ema`` or a post-hoc
     EMA ``phema*`` directory) into a live model and its extra losses (the
-    run's :func:`train_modules`), with the trainer's default trainable split
-    (:func:`trainable_filter`: the reference's sampling CLIs restore with it
-    too). ``ema`` and ``phema*`` entries hold ``{"params"}`` only and leave
-    the rest of the state as it is; others hold ``{"params", "rest"}`` and
-    restore the whole state. A key or shape that does not match raises."""
+    run's :func:`train_modules`), with the trainable split the run used
+    (:func:`trainable_filter`; the reference's sampling CLIs restore with the
+    default, ``train_embedder=False``; checkpoint.py:138-160). ``ema`` and
+    ``phema*`` entries hold ``{"params"}`` only and leave the rest of the
+    state as it is; others hold ``{"params", "rest"}`` and restore the whole
+    state. A key or shape that does not match raises."""
     path = Path(path)
     modules = train_modules(denoiser, extra_losses)
-    params, rest = split_state(modules, trainable_filter(denoiser))
+    params, rest = split_state(modules, trainable_filter(denoiser, train_embedder=train_embedder))
     if path.name == "ema" or path.name.startswith("phema"):
         restored = restore_checkpoint(path, {"params": params})
         modules.load_state_dict({**rest, **restored["params"]}, strict=True)

@@ -30,9 +30,12 @@ accumulation and clipping rules. Mirrored from the reference:
   and the EMA hold the trainable parameters (a frozen context embedder's are
   left out), and checkpoints store them apart from the rest of the state;
 - text batches (``ImageNetmultiAR`` + ``collate_fn``): a precomputed
-  ``context`` passes through :meth:`BaseTrainer._host_embed` untouched, and
-  the caption strings (``initial_context``) are dropped from the batch the
-  model sees and handed to the tracker with the validation images;
+  ``context`` passes through :meth:`BaseTrainer._host_embed` untouched
+  unless the context embedder tokenizes (the trainable embedder, whose
+  tokens then replace it), and the caption strings (``initial_context``)
+  are dropped from the batch the model sees and handed to the tracker with
+  the validation images; ``train_embedder`` puts the context embedder's
+  parameters in the trainable split, and without it they take no gradient;
 - per-epoch train-loss means (one host sync per epoch), the validation loss
   on the EMA weights where there are any, validation images through
   ``Diffuser.generate``, best-val checkpoints, periodic "latest" sets and
@@ -61,10 +64,9 @@ Also mirrored:
   reaches them as keywords (:363, :408).
 
 Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
-LoRA (``lora_only``, item 16), trainable embedders (``train_embedder``,
-items 9 and 16: the HF and trainable embedders, whose
-``tokenize``/``embed_host`` turn caption strings into conditioning, are not
-ported) and meshes of more than one device (item 17).
+LoRA (``lora_only``, item 16), the HF text embedders (whose ``embed_host``
+turns caption strings into conditioning; item 16) and meshes of more than
+one device (item 17).
 """
 
 from __future__ import annotations
@@ -441,10 +443,11 @@ class BaseTrainer(Trainer):
     @staticmethod
     def _host_embed(batch: dict[str, Any], diffuser: Diffuser) -> dict[str, Any]:
         """Embed raw caption strings on the host (reference trainer.py:417-438):
-        an embedder with ``tokenize`` (trainable) or ``embed_host`` (HF, when the
-        batch has no precomputed ``context``) turns ``initial_context`` into
-        the ``context``; otherwise the batch passes through untouched, as it
-        does for a :class:`PrecomputedEmbedder` (neither method is ported)."""
+        an embedder with ``tokenize`` (the trainable one; its tokens replace a
+        precomputed ``context`` the shards carry) or ``embed_host`` (HF, when
+        the batch has no precomputed ``context``; not ported) turns
+        ``initial_context`` into the ``context``; otherwise the batch passes
+        through untouched, as it does for a :class:`PrecomputedEmbedder`."""
         mi = batch.get("model_inputs", {})
         texts = mi.get("initial_context")
         embedder = getattr(diffuser.denoiser, "context_embedder", None)
@@ -534,8 +537,6 @@ class BaseTrainer(Trainer):
     ) -> None:
         if lora_only:
             raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
-        if train_embedder:
-            raise NotImplementedError("trainable embedders are not ported yet (ROADMAP queue 1, item 9)")
         model = diffuser.denoiser
         extra_losses = diffuser.extra_losses
         # attach the extra losses (REPA's feature-capture registration) before the split
@@ -547,6 +548,10 @@ class BaseTrainer(Trainer):
         modules = train_modules(model, extra_losses)
         trainable = trainable_filter(model, lora=lora_only, train_embedder=train_embedder)
         params = {name: p for name, p in modules.named_parameters() if trainable(name)}
+        # the reference differentiates the trainable split alone (trainer.py:608): a frozen context
+        # embedder's forward builds no graph, so its attention runs no backward
+        for name, p in modules.named_parameters():
+            p.requires_grad_(trainable(name))
         off = sorted({str(p.device) for p in modules.parameters() if p.device != self.device})
         if off:
             raise ValueError(f"the model's parameters are on {off}, the trainer runs on {self.device}; "

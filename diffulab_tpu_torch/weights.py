@@ -11,7 +11,8 @@ the mapping is by leaf name only:
 - ``*/bias`` -> ``bias``;
 - ``*/norm/scale`` (an ``nnx.LayerNorm`` named ``norm``) -> ``norm.weight``;
   other ``*/scale`` (RMSNorm, GroupNorm) stay ``scale``;
-- ``*/embedding/embedding`` -> ``embedding.weight``;
+- ``*/embedding`` (an ``nnx.Embed``: the label table ``embedding/embedding``,
+  the trainable text embedder's ``tok_embed/embedding``) -> ``*.weight``;
 - the bare arrays (the ViTs' ``cls_token``, ``register_tokens``,
   ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``; the Perceiver
   resampler's ``latents``) keep their name and layout.
@@ -62,7 +63,7 @@ def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
         parts[-1] = "weight"
     elif leaf == "scale" and len(parts) > 1 and parts[-2] == "norm":
         parts[-1] = "weight"
-    elif leaf == "embedding" and len(parts) > 1 and parts[-2] == "embedding":
+    elif leaf == "embedding" and len(parts) > 1:
         parts[-1] = "weight"
     elif leaf not in ("bias", "scale") and leaf not in _PLAIN_LEAVES:
         raise ValueError(f"no port mapping for parameter {path}")

@@ -481,10 +481,17 @@ def test_unported_trainer_options_raise(tmp_path, kwargs):
 @pytest.mark.parametrize("kwargs", [dict(lora_only=True), dict(train_embedder=True),
                                     dict(distill_teacher=object())])
 def test_unported_train_options_raise(tmp_path, kwargs):
-    """LoRA (item 16) and trainable embedders (item 9) raise. Guidance
+    """LoRA (item 16) raises. Trainable embedders are ported
+    (tests/test_torch_port_trainable_embedder.py): ``train_embedder`` on a
+    model without a context embedder trains as without it. Guidance
     distillation is ported (tests/test_torch_port_guided.py); a teacher
     without ``distill_guidance > 0`` is refused, as the reference asserts."""
     trainer = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu")
+    if "train_embedder" in kwargs:
+        trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), _loader(1, 0),
+                      log_validation_images=False, **kwargs)
+        assert trainer.step == 1
+        return
     error = ValueError if "distill_teacher" in kwargs else NotImplementedError
     with pytest.raises(error):
         trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(),

@@ -281,8 +281,11 @@ def test_tower_weights_path_and_unported_options(tmp_path):
     _, ref = tower_pair(diffusers_vae_state_dict())
     torch.testing.assert_close(tower.decoder.conv_out.weight, ref.decoder.conv_out.weight, rtol=0, atol=0)
     torch.testing.assert_close(tower.latent_scale, torch.full((1, 1, 1, 16), 1 / np.sqrt(4.0001), dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        Flux2VAE(flax_ckpt=tmp_path, device="cpu")
+    orbax = tmp_path / "orbax_tower"  # a JAX package tower: the port reads it only through the importer
+    orbax.mkdir()
+    (orbax / "_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="orbax.*import_orbax_checkpoint"):
+        Flux2VAE(flax_ckpt=orbax, device="cpu")
 
 
 def test_diagonal_gaussian_sample():
