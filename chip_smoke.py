@@ -40,7 +40,9 @@ text-to-image benchmark (``configs/train_hard_txt2img_*.yaml``: the port's
 builder trains the tower and writes the shards, ``train_repa_txt_to_img``
 trains the MMDiT arm, also with the trainable text embedder, and the
 SprintDiT arm, ``evaluate_txt2img`` scores the MMDiT's checkpoints) and
-``evaluate_fid`` on the C1 run.
+``evaluate_fid`` on the C1 run; and slice I1, GRPO post-training of
+``configs/train_grpo_alignment.yaml`` through the port's ``train_grpo`` CLI
+at full width, and LoRA/DoRA finetuning of the C1 run.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -244,7 +246,23 @@ Phases, one line each:
      ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05`` (200 samples each,
      Euler-50, CFG 1.5, 1200 fp32 K1); (f) ``evaluate_fid`` on phase 14's
      ``ema`` (256 samples, 1000 fp32 K1), the feature ViT's weights on the
-     card bitwise the ``jax_prng`` draw and its features against the CPU.
+     card bitwise the ``jax_prng`` draw and its features against the CPU;
+ 25. slice I1 from a working directory of its own: (a) ``train_grpo
+     --config-name train_grpo_alignment --luma-judge``, the model block as
+     composed (12 dual-stream blocks of 640, 10 heads, patch 1, bf16) and
+     the Flux2 tower at full width with seeded weights, 512x512 (32x32x128
+     latents: 1152 keys with the captions), EM-25 at CFG 4.0, cut to one
+     epoch of 2 batches of 2 prompts and 4 images a prompt over 4 + 2 seeded
+     caption prompts (the dataset and the tower's latent channels overridden:
+     faults F4, F5): 300 bf16 K3 a sampled group, 180 K3 + 180 K4 + 180 K5 a
+     learn step, the first group's ``ratio_dev`` ~0, the best-val checkpoint
+     restored, a learn step in ``profiling.trace``; one learn step's
+     gradients against the plain path; the bf16 K3-K5 at B=4, H=10, S=1152
+     with the caption mask beside SDPA and their bounds; (b) LoRA and DoRA
+     (rank 8) through ``train_diffusion`` on phase 14's run with phase 14's
+     cuts: the wrapped model at step 0 bitwise the base, the optimizer
+     holding the adapters alone, 10 + 10 fp32 K1/K2 a step, ``merge_lora``
+     against the adapted forward, a 16-image ``sample`` request (500 K1).
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -260,6 +278,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -478,6 +497,26 @@ H1_EVAL = {"--n-samples": (2000, 200), "--n-val": (2000, 256)}
 H1_EVAL_BATCH, H1_GUIDANCE = 100, 1.5  # Euler-50 at CFG 1.5: 2x100 under fused CFG
 H1_FID_SAMPLES, H1_FID_BATCH = 256, 128  # evaluate_fid on phase 14's C1 run, CFG 1.5
 H1_FEATURE_TOL = 1e-4  # the frozen ViT's features, card against the port on the CPU: max |diff| / max |cpu|
+
+# phase 25: slice I1, configs/train_grpo_alignment.yaml through the port's train_grpo CLI: its model block as
+# composed (the multimodal MMDiT, 12 dual-stream blocks of 640, 10 heads of 64, patch 1, 128 channels, bf16) on
+# 512x512 images, 32x32x128 Flux2 latents (1024 image + 128 caption tokens), EM-25 at CFG 4.0, trust region 0.3,
+# EMA; the luma judge (no VLM weights on the card). Cut in epochs, prompts a batch, images a prompt and data;
+# two config faults overridden as the repository's own GRPO runs override them (scripts/r4_grpo_campaign.sh:16-22)
+I1_CONFIG = "train_grpo_alignment"
+I1_CUTS = {"trainer.n_epoch": (5, 1), "dataloader.batch_size": (8, 2), "grpo.n_image_per_prompt": (16, 4),
+           "reward.n_image_per_prompt": (16, 4)}
+I1_FAULTS = {"dataset": ("imagenet_repa (ImageNetLatentREPA: no captions, F4)", "ImageNetmultiAR"),
+             "vision_tower.latent_channels": ("16 (64 packed; the model takes 128, F5)", 32)}
+I1_PROMPTS = {"train": (77, 9, 128, 31), "val": (54, 16)}  # caption tokens a prompt: 4 train, 2 validation
+I1_BATCH, I1_IMAGES, I1_STEPS, I1_BLOCKS, I1_HEADS = 2, 4, 25, 12, 10
+I1_SEQ = TEXT_LEN + 32 * 32  # 1152 keys, unpadded on the flash route
+I1_K = round(I1_STEPS * 0.6)  # trajectory indices a learn step (timestep_fraction 0.6)
+# the first group of a batch re-evaluates the log-probs with the parameters that sampled them: |ratio - 1|
+# should be ~0 there (a guess before the first run on the card; any misalignment of the stored trajectory, of
+# the train-mode forward or of the CFG batch shows as a deviation of order eps = 0.1 or more)
+I1_RATIO_TOL = 1e-2
+I1_LORA_RANK, I1_MERGE_TOL = 8, 1e-4  # phase 25b on C1's config; the merged model against the adapted one (rel)
 
 # kernel vs plain: |kernel - plain| <= atol + rtol * |plain|. fp32: K1's
 # products are 3xTF32 on the tensor cores (each operand split into two TF32
@@ -3537,10 +3576,28 @@ def padded_keys(n: int) -> int:
 def f1_deep_kernels():
     """Phase 20's kernels: the bf16 K3, K4 and K5 at the txt2img SprintDiT's
     deep-path shape in training (B=8, 128 text + 1024 kept image tokens =
-    1152, H=12, D=64, the training text mask) against their plain versions,
-    each timed from CUDA-graph replays beside its bound and masked SDPA (the
-    backward: SDPA's bf16 autograd backward, its kernels summed by
-    torch.profiler, dq, dk and dv together, as phase 11 times it)."""
+    1152, H=12, D=64, the training text mask), by :func:`flash_kernel_rows`."""
+    import torch
+
+    b, h = TXT_TRAIN_BATCH, TXT["num_heads"]
+    image = TXT_LATENT[0] * TXT_LATENT[1] // 4  # int(4096 * 0.25) kept
+    lengths = torch.tensor(TRAIN_TEXT_LENGTHS, device="cuda")
+    lengths[list(TRAIN_DROPPED)] = NULL_SEQ_LEN
+    mask = torch.cat([torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None],
+                      torch.ones(b, image, dtype=torch.bool, device="cuda")], dim=1)
+    return flash_kernel_rows("phase 20 kernels bf16 at the txt2img SprintDiT's deep shape in training", "F1 deep",
+                             h, mask, seed=23, shape=f"B={b} S={TEXT_LEN + image} (128 text + {image} kept image "
+                                                         f"tokens) H={h} D=64 bf16, the training text mask")
+
+
+def flash_kernel_rows(line: str, label: str, h: int, mask, seed: int, shape: str) -> dict[str, Any]:
+    """The bf16 K3, K4 and K5 at D=64, H=``h`` and the key mask ``mask``
+    (bool [B, S] on the card, True = attend; S query rows and keys a sample)
+    against their plain versions on inputs drawn from ``seed``, each timed
+    from CUDA-graph replays beside its bound and masked SDPA (the backward:
+    SDPA's bf16 autograd backward, its kernels summed by torch.profiler, dq,
+    dk and dv together, as phase 11 times it); prints one line starting with
+    ``line``. Returns the three rows by kernel name."""
     import torch
     import torch.nn.functional as F
 
@@ -3553,24 +3610,19 @@ def f1_deep_kernels():
         flash_attention_reference,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(23)
-    b, h, d = TXT_TRAIN_BATCH, TXT["num_heads"], TXT["inner_dim"] // TXT["num_heads"]
-    image = TXT_LATENT[0] * TXT_LATENT[1] // 4  # int(4096 * 0.25) kept
-    s, scale = TEXT_LEN + image, d ** -0.5
-    lengths = torch.tensor(TRAIN_TEXT_LENGTHS, device="cuda")
-    lengths[list(TRAIN_DROPPED)] = NULL_SEQ_LEN
-    mask = torch.cat([torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None],
-                      torch.ones(b, image, dtype=torch.bool, device="cuda")], dim=1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    (b, s), d = mask.shape, 64
+    scale = d ** -0.5
     q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16() for _ in range(4))
     out = {}
     with torch.no_grad():
         o, lse = flash_attention(q, k, v, mask)
         ro, rlse = flash_attention_reference(q, k, v, mask)
-        fwd_err = check_close("F1 deep K3 bf16 o", o, ro, *TOL["bfloat16"])
-        check_close("F1 deep K3 bf16 lse", lse, rlse, *LSE_TOL)
+        fwd_err = check_close(f"{label} K3 bf16 o", o, ro, *TOL["bfloat16"])
+        check_close(f"{label} K3 bf16 lse", lse, rlse, *LSE_TOL)
         grads = flash_attention_bwd(q, k, v, mask, o, lse, do)
         refs = flash_attention_bwd_reference(q, k, v, mask, o, lse, do)
-        errs = {name: check_grads(f"F1 deep bf16 {name}", [g], [r], BWD_TOL["bfloat16"])
+        errs = {name: check_grads(f"{label} bf16 {name}", [g], [r], BWD_TOL["bfloat16"])
                 for name, g, r in zip(("dq", "dk", "dv"), grads, refs)}
         del grads, refs
         _, _, di = flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, scale)
@@ -3599,15 +3651,12 @@ def f1_deep_kernels():
     for name in FLASH_KERNELS[1:]:
         out[name].update(plain_ms=bwd_plain, library_ms=sdpa_bwd)
     for name, (bound_ms, bound_by, mb, gflop) in bounds.items():
-        out[name].update(bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop,
-                         shape=f"B={b} S={s} (128 text + {image} kept image tokens) H={h} D={d} bf16, the training "
-                               f"text mask")
+        out[name].update(bound_ms=bound_ms, bound_by=bound_by, mb=mb, gflop=gflop, shape=shape)
     del q, k, v, do, o, lse, ro, rlse, di, qt, kt, vt
     torch.cuda.synchronize()
-    print(f"phase 20 kernels bf16 at the txt2img SprintDiT's deep shape in training (B={b} S={s}: 128 text + "
-          f"{image} kept image tokens, H={h} D={d}, the training text mask; device ms from CUDA-graph replays; "
-          f"library: masked SDPA, its backward SDPA's bf16 autograd backward summed by torch.profiler, dq, dk and "
-          f"dv together; plain: wall ms, the backward K4 and K5 together): "
+    print(f"{line} ({shape}; device ms from CUDA-graph replays; library: masked SDPA, its backward SDPA's bf16 "
+          f"autograd backward summed by torch.profiler, dq, dk and dv together; plain: wall ms, the backward K4 and "
+          f"K5 together): "
           + "; ".join(f"{name} max_abs_err {r['max_abs_err']:.3e} kernel {r['ms']:.4f} library {r['library_ms']:.4f} "
                       f"plain {r['plain_ms']:.2f} bound {r['bound_ms']:.4f} ({r['bound_by']}: {r['mb']:.1f} MB, "
                       f"{r['gflop']:.1f} GFLOP)" for name, r in out.items())
@@ -4713,6 +4762,402 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
             "step_ms": {"mmdit": mmdit["steady"], "trainable": trainable["steady"], "sprint": sprint["steady"]}}
 
 
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block leave every counter as it was (a check's
+    own forwards are not the main path's)."""
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES as FLASH
+    from diffulab_tpu_torch.ops.flash_attention import LAUNCHES_BY_KEYS as FLASH_KEYS
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES as FUSED
+    from diffulab_tpu_torch.ops.fused_mha import LAUNCHES_BY_KEYS as FUSED_KEYS
+
+    saved = [(counts, dict(counts)) for counts in (FUSED, FLASH, FUSED_KEYS, FLASH_KEYS)]
+    try:
+        yield
+    finally:
+        for counts, values in saved:
+            counts.clear()
+            counts.update(values)
+
+
+def trace_breakdown(trace_file: Path) -> dict[str, float]:
+    """Device ms of a Chrome trace's kernels by group: the flash kernels
+    (K3-K5), the GEMMs (cuBLAS's ``nvjet``, ``gemm`` and CUTLASS kernels),
+    the rest; and the copies and fills. Read from the trace file: building
+    ``key_averages()`` of a learn step's session takes longer than the step."""
+    out = {"flash": 0.0, "gemm": 0.0, "other": 0.0, "copies": 0.0}
+    for event in json.loads(trace_file.read_text())["traceEvents"]:
+        cat, name = event.get("cat"), event.get("name", "").lower()
+        if cat == "kernel":
+            group = "flash" if "flash_" in name else "gemm" if any(
+                k in name for k in ("nvjet", "gemm", "xmma", "cutlass")) else "other"
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            group = "copies"
+        else:
+            continue
+        out[group] += event.get("dur", 0) / 1e3
+    return out
+
+
+def write_grpo_data(root: Path) -> None:
+    """``ImageNetmultiAR`` shards under ``root/data/grpo/{train,val}``, written
+    from a seed by the port's ShardedDatasetWriter, one sample a prompt of
+    I1_PROMPTS: 32x32x128 latents, a caption of the hard dataset's caption
+    table, ``caption_embeddings`` [128, 2048] and the prompt's length as its
+    ``caption_mask``; and ``root/data/null_embedding.npy`` [128, 2048], which
+    the config's PrecomputedEmbedder reads."""
+    import numpy as np
+
+    from diffulab_tpu_torch.data.streaming import ShardedDatasetWriter
+    from diffulab_tpu_torch.data.synthetic_txt2img import SyntheticCompositionalDataset
+
+    rng = np.random.default_rng(25)
+    captions = iter(SyntheticCompositionalDataset(n_samples=sum(map(len, I1_PROMPTS.values())), seed=0).captions)
+    for split, lengths in I1_PROMPTS.items():
+        with ShardedDatasetWriter(root / "data" / "grpo" / split, shard_size=8) as writer:
+            for length in lengths:
+                writer.write({"vision_latents": rng.standard_normal((32, 32, 128), dtype=np.float32),
+                              "caption": next(captions),
+                              "caption_embeddings": rng.standard_normal((TEXT_LEN, TEXT_DIM), dtype=np.float32),
+                              "caption_mask": np.arange(TEXT_LEN) < length})
+    np.save(root / "data" / "null_embedding.npy", rng.standard_normal((TEXT_LEN, TEXT_DIM), dtype=np.float32))
+
+
+def _i1_gradients(captured: dict, cfg: dict) -> dict[str, Any]:
+    """One learn step's parameter gradients on the kernel path and on the
+    plain path (the same model with ``attention_impl="xla"``, autograd of
+    the plain forward), on the first learn step's trajectory, advantages and
+    indices, with the trained weights."""
+    import torch
+
+    from diffulab_tpu_torch.config import instantiate
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.training.checkpoint import map_tensors
+
+    diffuser = captured["diffuser"]
+    model = diffuser.denoiser
+    plain = instantiate({**cfg["model"], "attention_impl": "xla"}, context_embedder=model.context_embedder,
+                        dtype=torch.bfloat16)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    sampling = map_tensors(captured["sampling"], lambda t: t.cuda())
+    grads, losses, keys = [], [], []
+    for m in (model, plain):
+        m.train().zero_grad(set_to_none=True)
+        reset_launch_counts()
+        out = diffuser.diffusion.compute_loss_grpo(
+            Diffuser._model_fn(m, train=True), captured["cond"], sampling, captured["advantages"],
+            indices=captured["indices"], eps=0.1, timestep_fraction=0.6, guidance_scale=captured["guidance"],
+            backward=True)
+        torch.cuda.synchronize()
+        keys.append(launch_keys())
+        losses.append({k: float(v) for k, v in out.items()})
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    want = {(name, "bfloat16", I1_SEQ): I1_K * I1_BLOCKS for name in FLASH_KERNELS}
+    worst, worst_name, unused = 0.0, None, []
+    for name, g in grads[0].items():
+        r = grads[1][name]
+        if g is None and r is None:
+            unused.append(name)
+            continue
+        if g is None or r is None or not bool(torch.isfinite(g).all()):
+            fail(f"I1 gradients: {name} missing or non-finite")
+        rel = float((g.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    if keys[0] != want or keys[1] or worst > TXT_GRAD_TOL \
+            or not all(name.startswith(f"layers.{I1_BLOCKS - 1}.") for name in unused):
+        fail(f"I1 gradients: launches kernel path {keys[0]} (expected {want}), plain {keys[1]}; worst "
+             f"||kernel - plain|| / ||plain|| {worst:.3e} at {worst_name} (tol {TXT_GRAD_TOL}); no gradient {unused}")
+    model.zero_grad(set_to_none=True)
+    del plain
+    torch.cuda.empty_cache()
+    return {"worst": worst, "worst_name": worst_name, "unused": len(unused), "losses": losses}
+
+
+def _i1_lora(root: Path, c1: dict, log: Path) -> dict[str, Any]:
+    """Phase 25b: ``train_diffusion`` on C1's config with LoRA and DoRA
+    adapters of rank 8 on phase 14's run (``trainer.lora_from`` its
+    ``denoiser``), phase 14's cuts, one epoch each: at step 0 the wrapped
+    model's output bitwise the base's and the optimizer holding the adapters
+    alone; 10 fp32 K1 + 10 fp32 K2 a step at 256 keys; after training,
+    ``merge_lora`` against the adapted forward; then a 16-image ``sample``
+    request from the LoRA run's ``ema`` onto the base (500 K1)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.examples import train_diffusion
+    from diffulab_tpu_torch.training.checkpoint import restore_train_modules
+    from diffulab_tpu_torch.training.lora import count_lora_params, is_lora_param, merge_lora
+
+    base_ckpt = c1["run"] / "checkpoints" / "denoiser"
+    c1_cuts = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()]
+    cfg = compose_config(train_diffusion.CONFIG_DIR, C1_CONFIG, c1_cuts)
+    steps = C1_CUTS["dataset.train.n_samples"][1] // C1_BATCH
+    want_step = {(name, "float32", C1_SEQ): C1_DEPTH for name in ("fused_mha_fwd", "fused_mha_bwd")}
+    out = {}
+    for variant in ("lora", "dora"):
+        lora_cfg = [f"trainer.lora_rank={I1_LORA_RANK}", f"trainer.lora_from={base_ckpt}",
+                    f"trainer.lora_variant={variant}"]
+        checks: dict[str, Any] = {}
+
+        def first_step(diffuser, optimizer, ema, batch, t, *args, **kwargs):
+            model = diffuser.denoiser
+            in_opt = {id(p) for group in optimizer.optimizer.param_groups for p in group["params"]}
+            adapters = {id(p) for n, p in model.named_parameters() if is_lora_param(n)}
+            checks.update(model=model, adapters=len(adapters), optimizer_holds_adapters=bool(in_opt) and in_opt == adapters)
+            mi = batch["model_inputs"]
+            inputs = dict(x=mi["x"][:16], timesteps=t[:16], cond={"y": mi["y"][:16]},
+                          drop=torch.zeros(16, dtype=torch.bool, device="cuda"), train=False)
+            with uncounted(), torch.no_grad():
+                base = instantiate(cfg["model"], device="cuda")
+                restore_train_modules(base_ckpt, base)
+                checks["identity"] = torch.equal(model(**inputs)["x"], base(**inputs)["x"])
+                checks["inputs"] = inputs
+            del base
+
+        project = f"i1_c1_{variant}"
+        tr = _timed_train_cli(train_diffusion.main, ["--config-name", C1_CONFIG, *c1_cuts, *lora_cfg,
+                                                     f"trainer.save_path={root}", f"trainer.project_name={project}"],
+                              log, root / project, 1, steps, f"I1 {variant}", before_first_step=first_step)
+        if not checks.get("identity") or not checks.get("optimizer_holds_adapters") \
+                or any(k != want_step for k in tr["step_keys"]):
+            fail(f"I1 {variant}: step 0 output bitwise the base's {checks.get('identity')}, the optimizer holding the "
+                 f"{checks.get('adapters')} adapters alone {checks.get('optimizer_holds_adapters')}, launches a step "
+                 f"{tr['step_keys'][:1]} (expected {want_step})")
+        model = checks["model"]
+        with uncounted(), torch.no_grad():
+            model.eval()
+            adapted = model(**checks["inputs"])["x"]
+            merged_model = copy.deepcopy(model)
+            n_merged = merge_lora(merged_model)
+            merged = merged_model(**checks["inputs"])["x"]
+        merge_rel = float((merged - adapted).abs().max() / adapted.abs().max())
+        if n_merged * (3 if variant == "dora" else 2) != checks["adapters"] or count_lora_params(merged_model) \
+                or not merge_rel <= I1_MERGE_TOL:
+            fail(f"I1 {variant}: merge_lora folded {n_merged} adapters, merged vs adapted rel {merge_rel:.3e} "
+                 f"(tol {I1_MERGE_TOL})")
+        del merged_model
+        result = _sample_request(["--config-name", C1_CONFIG, "--ckpt", str(root / project / "checkpoints" / "ema"),
+                                  "--n", str(C1_SAMPLES), "--guidance", str(C1_GUIDANCE), "--labels",
+                                  ",".join(str(i) for i in range(10)), "--out", str(root / f"{project}.png"), *c1_cuts,
+                                  *lora_cfg], log)
+        if result["launches"]["fused_mha_fwd"] != C1_STEPS * C1_DEPTH or result["images"].shape != (
+                C1_SAMPLES, 32, 32, 3) or not np.isfinite(result["images"]).all():
+            fail(f"I1 {variant} sample: launches {result['launches']}, images {result['images'].shape}")
+        out[variant] = dict(tr=tr, adapters=checks["adapters"], merge_rel=merge_rel, n_merged=n_merged,
+                            sample=result)
+        del model, checks
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_i1(root: Path, c1: dict) -> dict[str, Any]:
+    """Phase 25: slice I1. (a) ``train_grpo --config-name train_grpo_alignment
+    --luma-judge`` in process from a working directory of its own (the
+    config's ``data/null_embedding.npy`` unedited), the model block as
+    composed at full width in bf16, the Flux2 tower at full width with its
+    seeded init, cut by I1_CUTS, the faults of I1_FAULTS overridden, on
+    :func:`write_grpo_data`'s 4 train and 2 validation prompts: per sampled
+    group 300 bf16 K3 at 1152 keys (12 blocks x 25 EM steps under fused
+    CFG), per learn step 180 K3, 180 K4 and 180 K5 (12 x 15 trajectory
+    indices), the first group of each train batch at ``ratio_dev`` within
+    I1_RATIO_TOL, every loss finite, the best-val checkpoint restoring to the
+    trained weights; the sampled group, learn step, decode and batch timed
+    (the card synchronised), the learn steps by ``profiling.StepTimer``, the
+    last train learn step inside ``profiling.trace`` (its Chrome trace
+    written); then one learn step's gradients on the kernel path against the
+    plain path (:func:`_i1_gradients`) and the bf16 K3/K4/K5 at GRPO's shape
+    (:func:`flash_kernel_rows`: B=4 under CFG, H=10, S=1152, the train
+    prompts' caption mask and the null embedding's); (b) :func:`_i1_lora`.
+    Each count window set to 0 just before and read just after."""
+    import os
+
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config
+    from diffulab_tpu_torch.examples import train_grpo
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiTBlock
+    from diffulab_tpu_torch.networks.vision_towers.flux2 import Flux2VAE
+    from diffulab_tpu_torch.training import profiling
+    from diffulab_tpu_torch.training.checkpoint import to_cpu
+    from diffulab_tpu_torch.training.grpo_trainer import GRPOTrainer
+
+    sys.modules["wandb"] = None
+    t_phase = time.perf_counter()
+    work = root / "i1"
+    work.mkdir()
+    log = root / "i1.log"
+    overrides = [f"{key}={new}" for key, (_, new) in I1_CUTS.items()] + [
+        f"dataset.{split}.{key}={value}" for split in ("train", "val") for key, value in (
+            ("_target_", "diffulab_tpu.data.imagenet.ImageNetmultiAR"), ("data_path", "data/grpo"),
+            ("cache_dir", "cache"))] + [f"vision_tower.latent_channels={I1_FAULTS['vision_tower.latent_channels'][1]}"]
+    cfg = compose_config(train_grpo.CONFIG_DIR, I1_CONFIG, overrides)
+    n_train_learn = len(I1_PROMPTS["train"]) // I1_BATCH * I1_IMAGES
+    samples, learns, decodes, batches, captured = [], [], [], [], {}
+    timer = profiling.StepTimer(warmup=1)
+    trace_dir = root / "i1_trace"
+    originals = (GRPOTrainer.sample_group, GRPOTrainer.learn_step, GRPOTrainer._run_batch, Flux2VAE.decode)
+
+    def sample_group(*args, **kwargs):
+        torch.cuda.synchronize()
+        keys, t0 = launch_keys(), time.perf_counter()
+        out = originals[0](*args, **kwargs)
+        torch.cuda.synchronize()
+        samples.append(((time.perf_counter() - t0) * 1e3, key_diff(launch_keys(), keys)))
+        return out
+
+    def learn_step(self, *args):
+        if not captured:
+            captured.update(diffuser=args[0], cond=args[5], sampling=to_cpu(args[6]), advantages=args[7].clone(),
+                            indices=list(args[8]), guidance=args[10])
+        traced = len(learns) == n_train_learn - 1
+        torch.cuda.synchronize()
+        keys, t0 = launch_keys(), time.perf_counter()
+        if traced:
+            with profiling.trace(trace_dir):
+                losses = originals[1](self, *args)
+        else:
+            with timer.step():
+                losses = originals[1](self, *args)
+        torch.cuda.synchronize()
+        learns.append(((time.perf_counter() - t0) * 1e3, key_diff(launch_keys(), keys),
+                       {k: float(v) for k, v in losses.items()}, traced))
+        return losses
+
+    def run_batch(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = originals[2](self, *args, **kwargs)
+        torch.cuda.synchronize()
+        batches.append(((time.perf_counter() - t0) * 1e3, kwargs["train"]))
+        return step
+
+    def decode(self, z):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals[3](self, z)
+        torch.cuda.synchronize()
+        decodes.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        write_grpo_data(work)
+        GRPOTrainer.sample_group, GRPOTrainer.learn_step = staticmethod(sample_group), learn_step
+        GRPOTrainer._run_batch, Flux2VAE.decode = run_batch, decode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (trainer,) = _run_cli(train_grpo.main, ["--config-name", I1_CONFIG, "--luma-judge", *overrides,
+                                                "trainer.save_path=runs"], log)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, run_keys = launch_counts(), launch_keys()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        GRPOTrainer.sample_group = staticmethod(originals[0])
+        GRPOTrainer.learn_step, GRPOTrainer._run_batch, Flux2VAE.decode = originals[1:]
+        os.chdir(cwd)
+    run = work / "runs" / "grpo_alignment"
+    model = captured["diffuser"].denoiser
+    blocks = len(model.layers)
+    sample_keys = {("flash_attn_fwd", "bfloat16", I1_SEQ): I1_STEPS * I1_BLOCKS}
+    learn_keys = {(name, "bfloat16", I1_SEQ): I1_K * I1_BLOCKS for name in FLASH_KERNELS}
+    n_val = len(I1_PROMPTS["val"]) // I1_BATCH
+    n_groups = (len(I1_PROMPTS["train"]) // I1_BATCH + n_val) * I1_IMAGES
+    want_k3 = (n_groups * I1_STEPS + (n_train_learn + n_val * I1_IMAGES) * I1_K + I1_STEPS) * I1_BLOCKS
+    want = {"flash_attn_fwd": want_k3, "flash_attn_bwd_dkv": n_train_learn * I1_K * I1_BLOCKS,
+            "flash_attn_bwd_dq": n_train_learn * I1_K * I1_BLOCKS}
+    if blocks != I1_BLOCKS or not all(isinstance(m, MMDiTBlock) for m in model.layers):
+        fail(f"I1: the model has {blocks} blocks, expected {I1_BLOCKS} dual-stream blocks")
+    if len(samples) != n_groups or any(k != sample_keys for _, k in samples) or len(learns) != n_train_learn \
+            or any(k != learn_keys for _, k, _, _ in learns) or {k: launches[k] for k in want} != want \
+            or any(launches[k] for k in ("fused_mha_fwd", "fused_mha_bwd", *(f"{name}_f32" for name in FLASH_KERNELS))) \
+            or any(n for (name, _, _), n in run_keys.items() if name.startswith("fused")):
+        fail(f"I1 GRPO: {len(samples)} sampled groups, launches {[k for _, k in samples][:1]} (expected "
+             f"{sample_keys}); {len(learns)} learn steps, launches {[k for _, k, _, _ in learns][:1]} (expected "
+             f"{learn_keys}); run {launches} (expected {want} and no K1/K2)")
+    first = [learns[i][2]["ratio_dev"] for i in range(0, n_train_learn, I1_IMAGES)]
+    metrics = {k: v for line in (run / "metrics.jsonl").read_text().splitlines()
+               for k, v in json.loads(line).items()}
+    if trainer.step != n_train_learn or not all(r <= I1_RATIO_TOL for r in first) \
+            or not all(math.isfinite(m["loss"]) for _, _, m, _ in learns) or not math.isfinite(metrics["val/loss"]):
+        fail(f"I1 GRPO: step counter {trainer.step}, first-group ratio_dev {first} (tol {I1_RATIO_TOL}), losses "
+             f"{[m['loss'] for _, _, m, _ in learns]}, val/loss {metrics.get('val/loss')}")
+    check_restores(run, model, "I1 GRPO")
+    n_steps = trainer.step
+    trace_file = trace_dir / profiling.TRACE_FILE
+    if not trace_file.is_file() or trace_file.stat().st_size == 0:
+        fail(f"I1 profiling: no Chrome trace at {trace_file}")
+    breakdown = trace_breakdown(trace_file)
+    grads = _i1_gradients(captured, cfg)
+    del captured, model, trainer
+    torch.cuda.empty_cache()
+
+    lengths = torch.tensor(I1_PROMPTS["train"][:I1_BATCH], device="cuda")
+    text = torch.cat([torch.arange(TEXT_LEN, device="cuda")[None, :] < lengths[:, None],
+                      (torch.arange(TEXT_LEN, device="cuda") < NULL_SEQ_LEN)[None].expand(I1_BATCH, -1)])
+    mask = torch.cat([text, torch.ones(2 * I1_BATCH, I1_SEQ - TEXT_LEN, dtype=torch.bool, device="cuda")], dim=1)
+    kernels = flash_kernel_rows("phase 25 kernels bf16 at GRPO's shape", "I1", I1_HEADS, mask, seed=25,
+                                shape=f"B={2 * I1_BATCH} (2 prompts under fused CFG) S={I1_SEQ} (128 caption + 1024 "
+                                      f"image tokens) H={I1_HEADS} D=64 bf16, the prompts' caption mask and the null "
+                                      "embedding's")
+    lora = _i1_lora(root, c1, log)
+
+    sampled = [ms for ms, _ in samples]
+    per_step = {key: [m[key] for _, _, m, _ in learns] for key in ("loss", "ratio_dev", "grad_norm", "tr_reject")}
+    first_s = ", ".join(f"{r:.3e}" for r in first)
+    ratio_s = ", ".join(f"{r:.2e}" for r in per_step["ratio_dev"])
+    grad_s = ", ".join(f"{g:.3e}" for g in per_step["grad_norm"])
+    steps = timer.summary
+    traced_ms = next(ms for ms, _, _, traced in learns if traced)
+    cuts = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in I1_CUTS.items())
+    faults = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in I1_FAULTS.items())
+    print(f"phase 25 I1 GRPO {I1_CONFIG} through train_grpo --luma-judge (the model block as composed: {blocks} "
+          f"dual-stream blocks of 640, {I1_HEADS} heads of 64, patch 1, 128 channels, bf16; the Flux2 tower at full "
+          f"width, seeded init; 512x512, EM-{I1_STEPS} CFG 4.0, timestep_fraction 0.6, eps 0.1, trust region 0.3, EMA; "
+          f"cut: {cuts}; data {len(I1_PROMPTS['train'])} train + {len(I1_PROMPTS['val'])} validation prompts; config "
+          f"faults overridden: {faults}): run {run_s:.1f} s, {n_steps} learn steps; ms a sampled group "
+          f"(P={I1_BATCH}, model batch {2 * I1_BATCH} x {I1_SEQ} tokens) median {statistics.median(sampled):.1f} (min "
+          f"{min(sampled):.1f} max {max(sampled):.1f}, {len(sampled)} groups, the decode included); ms a learn step "
+          f"({I1_K} indices, one backward each) StepTimer p50 {steps['p50_s'] * 1e3:.1f} mean {steps['mean_s'] * 1e3:.1f} "
+          f"over {steps['steps']} (the first excluded), traced step {traced_ms:.1f}; decode ms median "
+          f"{statistics.median(decodes):.1f} ({len(decodes)} decodes of {I1_BATCH} or fewer 512x512 images); ms a batch "
+          + ", ".join(f"{'train' if train else 'val'} {ms:.0f}" for ms, train in batches)
+          + f"; peak mem {peak_gib:.2f} GiB; launches a sampled group {sample_keys}, a learn step {learn_keys}, in the run "
+          f"{ {k: launches[k] for k in want} } and no K1/K2; first-group ratio_dev [{first_s}] (tol "
+          f"{I1_RATIO_TOL}); losses {[round(x, 5) for x in per_step['loss']]}, ratio_dev [{ratio_s}], grad_norm "
+          f"[{grad_s}], tr_reject {per_step['tr_reject']}; "
+          f"val/loss {metrics['val/loss']:.5f}, val/judge_score {metrics.get('val/judge_score', float('nan')):.4f}; "
+          f"best-val checkpoint restores; gradients of the first learn step, kernel path vs plain path, worst "
+          f"||kernel - plain|| / ||plain|| {grads['worst']:.3e} at {grads['worst_name']} (tol {TXT_GRAD_TOL}), "
+          f"{grads['unused']} parameters of the last block's text stream without a gradient on both, loss kernel "
+          f"{grads['losses'][0]['loss']:.6f} plain {grads['losses'][1]['loss']:.6f}; profiling.trace wrote "
+          f"{trace_file.stat().st_size} bytes, the traced step's device time by torch.profiler "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in breakdown.items())
+          + f" ({sum(breakdown.values()):.1f} busy, {sum(breakdown.values()) / steps['p50_s'] / 1e3:.1%} of the "
+          f"untraced p50 step)")
+    print(f"phase 25b LoRA {C1_CONFIG} (phase 14's cuts, rank {I1_LORA_RANK}, trainer.lora_from phase 14's denoiser): "
+          + "; ".join(f"{variant}: {r['adapters']} adapter tensors, step 0 output bitwise the base's, the optimizer "
+                      f"holding the adapters alone, {r['tr']['trainer'].step} steps ms/step median "
+                      f"{r['tr']['steady']:.2f} (C1's {c1['step_ms']:.2f}), peak mem {r['tr']['peak_gib']:.2f} GiB, "
+                      f"train loss {[round(x, 5) for x in r['tr']['losses']]}, {C1_DEPTH} fp32 K1 + {C1_DEPTH} fp32 K2 "
+                      f"a step; merge_lora folded {r['n_merged']}, merged vs adapted max rel {r['merge_rel']:.2e} (tol "
+                      f"{I1_MERGE_TOL}); sample {C1_SAMPLES} images from the run's ema onto the base "
+                      f"{r['sample']['generate_ms']:.1f} ms, {r['sample']['launches']['fused_mha_fwd']} K1"
+                      for variant, r in lora.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+    lora_windows = {f"i1_{variant}_{w}": (r["tr"]["launches"] if w == "train" else r["sample"]["launches"])
+                    for variant, r in lora.items() for w in ("train", "sample")}
+    return {"grpo": {k: launches[k] for k in want}, "kernels": kernels, "lora": lora_windows,
+            "sampled_ms": statistics.median(sampled), "learn_ms": steps["p50_s"] * 1e3, "peak_gib": peak_gib}
+
+
 def main() -> int:
     try:
         import torch
@@ -4799,6 +5244,8 @@ def main() -> int:
         lap("23 G1")
         h1 = phase_h1(Path(tmp), c1["run"])
         lap("24 H1")
+        i1 = phase_i1(Path(tmp), c1)
+        lap("25 I1")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -4871,12 +5318,13 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
         + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"]))
-        + sum(w["fused_mha_fwd"] for w in h1_fp32.values()),
+        + sum(w["fused_mha_fwd"] for w in (*h1_fp32.values(), *i1["lora"].values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
                              "g1_sample": g1["sample"]["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]}},
+                             **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]},
+                             **{k: w["fused_mha_fwd"] for k, w in i1["lora"].items()}},
         "h1_embedder_shape": h1["kernels"]["k1_h1_embedder"],
         "h1_eval_384_shape": h1["kernels"]["k1_h1_eval_384"],
         "f1_padded64": f1_cli["kernels"]["k1_pad64"],
@@ -4912,10 +5360,12 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values(), *h1_fp32.values())),
+        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values(), *h1_fp32.values(),
+                                           *i1["lora"].values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
                              **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
-                             **{k: w["fused_mha_bwd"] for k, w in h1_fp32.items() if w["fused_mha_bwd"]}},
+                             **{k: w["fused_mha_bwd"] for k, w in h1_fp32.items() if w["fused_mha_bwd"]},
+                             **{k: w["fused_mha_bwd"] for k, w in i1["lora"].items() if w["fused_mha_bwd"]}},
         "h1_embedder_shape": h1["kernels"]["k2_h1_embedder"],
         "cifar_b32": f1_cli["kernels"]["k2_b32"],
         "f1_padded64": f1_cli["kernels"]["k2_pad64"],
@@ -4953,13 +5403,16 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "diffulab_tpu/ops/flash_attention.py:81",
         "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"]
-        + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in (*txt32_windows.values(), *f1_flash.values())),
+        + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in (*txt32_windows.values(), *f1_flash.values()))
+        + i1["grpo"]["flash_attn_fwd"],
         "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
                              "txt2img_train": txt_train_launches["flash_attn_fwd"],
                              **{k: w["flash_attn_fwd"] - w["flash_attn_fwd_f32"]
-                                for k, w in {**txt32_windows, **f1_flash}.items()}},
+                                for k, w in {**txt32_windows, **f1_flash}.items()},
+                             "i1_grpo": i1["grpo"]["flash_attn_fwd"]},
         **k3,
         "f1_deep_shape": f1_txt["kernels"]["flash_attn_fwd"],
+        "i1_grpo_shape": i1["kernels"]["flash_attn_fwd"],
         "vs_fused_ms": {key: {"fused_mha_fwd": k1, "flash_attn_fwd": k3_ms, "sdpa": sdpa_ms}
                         for key, (k1, k3_ms, sdpa_ms) in crossover.items()},
     }] + [{
@@ -4968,12 +5421,14 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/flash_attn_bwd.cu",
         "replaces": replaces,
         "launches": txt_train_launches[name] + txt32["train"][name] - txt32["train"][f"{name}_f32"]
-        + f1_txt["windows"]["train"][name],
+        + f1_txt["windows"]["train"][name] + i1["grpo"][name],
         "launches_by_path": {"txt2img_train": txt_train_launches[name],
                              "txt2img_fp32_attention_train": txt32["train"][name] - txt32["train"][f"{name}_f32"],
-                             "f1_txt2img_sprint_train": f1_txt["windows"]["train"][name]},
+                             "f1_txt2img_sprint_train": f1_txt["windows"]["train"][name],
+                             "i1_grpo": i1["grpo"][name]},
         **k45[name],
         "f1_deep_shape": f1_txt["kernels"][name],
+        "i1_grpo_shape": i1["kernels"][name],
         "library_computes": "dq, dk and dv together (SDPA masked backward)",
         "vs_fused_bwd_ms": {key: {"fused_mha_bwd": k2, "flash_attn_bwd": k45_ms}
                             for key, (k2, k45_ms) in bwd_crossover.items()},

@@ -29,7 +29,10 @@ main path end to end from its config — :mod:`diffulab_tpu_torch.config`
 (the JAX package's YAML tree, ``_target_`` remapped to this package), the
 in-memory datasets and the threaded ``data.loader.DataLoader`` with the
 native uint8 batch path, post-hoc EMA (``training.posthoc_ema``) and the
-``examples.{train_diffusion,reconstruct_ema,sample}`` CLIs.
+``examples.{train_diffusion,reconstruct_ema,sample}`` CLIs; and later
+slices, one a PR (ROADMAP.md), up to I1, GRPO post-training
+(``training.grpo_trainer``, ``examples.train_grpo``) and LoRA/DoRA
+finetuning (``training.lora``).
 Attention runs in the fused multi-head kernels, forward
 (``csrc/fused_mha_fwd.cu``) and backward (``csrc/fused_mha_bwd.cu``), up to
 512 tokens, and in the flash-attention kernels, forward

@@ -13,9 +13,8 @@ loss the trainer differentiates, with the ``extra_losses`` (REPA) beside it,
 each under its own name; with extra losses the denoiser's forward captures
 the features they read.
 
-Formalizations: ``rectified_flow``, ``edm`` and ``gaussian_diffusion``.
-Not ported yet (it raises ``NotImplementedError``): the GRPO loss
-(ROADMAP queue 1, item 16).
+Formalizations: ``rectified_flow``, ``edm`` and ``gaussian_diffusion``;
+``compute_loss(grpo=True)`` is the GRPO objective of the flow one.
 """
 
 from __future__ import annotations
@@ -97,11 +96,17 @@ class Diffuser:
         train: bool = True,
         grpo: bool = False,
         generator: torch.Generator | None = None,
+        grpo_args: dict[str, Any] | None = None,
     ) -> dict[str, torch.Tensor]:
         """The training loss (diffuser.py:117) with the given t, noise and drop
-        mask; ``generator`` goes to the denoiser (see :meth:`model_fn`)."""
+        mask; ``generator`` goes to the denoiser (see :meth:`model_fn`). With
+        ``grpo=True`` it is :meth:`Flow.compute_loss_grpo` with ``grpo_args``
+        (``x0``, ``timesteps`` and ``noise`` unused; diffuser.py:128-134)."""
         if grpo:
-            raise NotImplementedError("the GRPO loss is not ported yet (ROADMAP queue 1, item 16)")
+            if not isinstance(self.diffusion, Flow):
+                raise ValueError("GRPO loss is only available for Flow-based models")
+            return self.diffusion.compute_loss_grpo(self.model_fn(train=train, generator=generator), cond,
+                                                    **(grpo_args or {}))
         return self.diffusion.compute_loss(
             self.model_fn(train=train, capture_features=bool(self.extra_losses), generator=generator), x0, cond,
             timesteps, noise,

@@ -20,8 +20,8 @@ steps, inpaint re-noising) goes through one ``draw_noise(kind, step, shape,
 dtype)`` callable, by default standard normals from the caller's generator;
 the parity tests pass the reference's draws through it (trap T4).
 
-Not ported yet (it raises ``NotImplementedError``): the GRPO loss (ROADMAP
-queue 1, item 16).
+The GRPO objective (:meth:`Flow.compute_loss_grpo`) re-evaluates stored
+Euler-Maruyama trajectories with gradients.
 """
 
 from __future__ import annotations
@@ -250,6 +250,78 @@ class Flow:
         for extra_loss in extra_losses:
             loss_dict[extra_loss.name] = extra_loss(model_output=prediction, **{"x0": x0, **(extra_args or {})})
         return loss_dict
+
+    # --- GRPO loss ----------------------------------------------------------
+    def compute_loss_grpo(
+        self,
+        model_fn: ModelFn,
+        cond: dict[str, Any],
+        sampling: dict[str, torch.Tensor],
+        advantages: torch.Tensor,
+        generator: torch.Generator | None = None,
+        kl_beta: float = 0.0,
+        eps: float = 1e-4,
+        timestep_fraction: float = 0.6,
+        guidance_scale: float = 4.0,
+        indices: Sequence[int] | None = None,
+        backward: bool = False,
+    ) -> dict[str, torch.Tensor]:
+        """Clipped-ratio GRPO objective over stored Euler-Maruyama trajectories
+        (flow.py:406-469; reference flow.py:317-380, arXiv:2508.20751).
+
+        ``sampling`` holds ``xt`` [B, steps+1, ...], ``logprob`` and ``xt_mean``
+        [B, steps, ...] from :meth:`denoise` with intermediates; ``advantages``
+        is [B]. ``k = round(steps * timestep_fraction)`` trajectory indices are
+        drawn without replacement from ``generator`` (a permutation's first k;
+        the reference's ``jax.random.choice`` stream is not reproduced), or
+        given as ``indices``. For each index the step is re-run with the stored
+        ``x_prev`` forced and fused CFG; the loss is the mean over the indices
+        of the clipped policy term plus ``kl_beta`` times the mean-difference
+        KL over ``2·std²``. ``clip_frac`` (the share of ratios outside
+        ``[1 - eps, 1 + eps]``) and ``ratio_dev`` (mean ``|ratio - 1|``) are
+        detached means over the indices.
+
+        The reference differentiates all k evaluations at once. The loss is a
+        sum of per-index terms, so with ``backward=True`` the port calls
+        ``backward()`` on each index's term divided by k as soon as it is
+        formed: the parameters' ``.grad`` accumulate the same gradient while
+        only one evaluation's activations are held, and the returned loss is
+        detached. With ``backward=False`` the loss keeps the graph of all k."""
+        if not isinstance(self.sampler, EulerMaruyama):
+            raise ValueError("GRPO only works with the Euler-Maruyama sampler")
+        k = round(self.steps * timestep_fraction)
+        if indices is None:
+            device = generator.device if generator is not None else None
+            indices = torch.randperm(self.steps, generator=generator, device=device)[:k].tolist()
+        indices = [int(i) for i in indices]
+        if len(indices) != k or len(set(indices)) != k:
+            raise ValueError(f"GRPO needs {k} distinct trajectory indices, got {indices}")
+        ts = self.timesteps
+        adv = batch_broadcast(advantages.float(), sampling["logprob"].ndim - 1)
+        total = torch.zeros((), dtype=torch.float32, device=advantages.device)
+        clip_frac = torch.zeros((), dtype=torch.float32, device=advantages.device)
+        ratio_dev = torch.zeros((), dtype=torch.float32, device=advantages.device)
+        for idx in indices:
+            step = self.one_step_denoise(
+                model_fn, sampling["xt"][:, idx], cond, t_prev=float(ts[idx + 1]), t_curr=float(ts[idx]),
+                guidance_scale=guidance_scale, use_cfg=True, sampler_args={"x_prev": sampling["xt"][:, idx + 1]},
+            )
+            prob_ratios = torch.exp(step["logprob"] - sampling["logprob"][:, idx])
+            unclipped = adv * prob_ratios
+            clipped = adv * torch.clamp(prob_ratios, 1.0 - eps, 1.0 + eps)
+            policy_loss = -torch.minimum(unclipped, clipped).mean()
+            diff = (step["x_prev_mean"] - sampling["xt_mean"][:, idx]) ** 2
+            kl_loss = (flatten_nonbatch_mean(diff) / (2.0 * step["x_prev_std"].reshape(()) ** 2)).mean()
+            term = policy_loss + kl_beta * kl_loss
+            if backward:
+                (term / k).backward()
+                term = term.detach()
+            total = total + term
+            with torch.no_grad():
+                deviation = torch.abs(prob_ratios - 1.0)
+                clip_frac += (deviation > eps).float().mean()
+                ratio_dev += deviation.mean()
+        return {"loss": total / k, "clip_frac": clip_frac / k, "ratio_dev": ratio_dev / k}
 
     # --- one reverse step ---------------------------------------------------
     def get_v(

@@ -20,8 +20,9 @@ reference's key; the port's composed configs equal the JAX package's, so
 the key is the same. ``--guidance`` takes comma-separated scales;
 ``--guide-ckpt`` is autoguidance; ``--cache-interval/--cache-span`` turn on
 block caching. Each (checkpoint, scale) prints the one JSON line
-``fid_synthetic``. A LoRA run's checkpoint (``trainer.lora_rank``) raises
-``NotImplementedError`` (ROADMAP queue 1, item 16).
+``fid_synthetic``. A LoRA run (``trainer.lora_rank``) is evaluated as the
+reference does it: the base from ``trainer.lora_from``, the model wrapped,
+then each checkpoint's adapters.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 from diffulab_tpu_torch.config import compose_config, instantiate
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.training.checkpoint import restore_sampling_model, restore_train_modules
+from diffulab_tpu_torch.training.lora import apply_lora
 from diffulab_tpu_torch.training.evaluation import (
     FEATURE_SPACE_VERSION,
     compute_fid,
@@ -96,8 +98,6 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     full_fp32_products()
     device = resolve_device(args.device)
     cfg = compose_config(args.config_dir, args.config_name, args.overrides)
-    if cfg["trainer"].get("lora_rank"):
-        raise NotImplementedError("LoRA checkpoints (trainer.lora_rank) are not ported yet (ROADMAP queue 1, item 16)")
 
     val_ds = instantiate(cfg["dataset"]["val"])
     train_ds = instantiate(cfg["dataset"]["train"])
@@ -121,6 +121,21 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             raise SystemExit("--cache-interval needs --cache-span LO HI")
         diffuser.set_block_cache(args.cache_interval, tuple(args.cache_span))
         print(f"block cache: interval={args.cache_interval} span={args.cache_span}")
+    # a LoRA run's entries hold the adapters in params and its base in rest; wrap the model as the training
+    # CLI did before restoring them. Its ema / phema entries hold the adapters alone: the base comes from
+    # trainer.lora_from, else the FID would be of random base weights
+    lora_rank = cfg["trainer"].get("lora_rank")
+    if lora_rank:
+        base_ckpt = cfg["trainer"].get("lora_from")
+        if base_ckpt:
+            restore_train_modules(base_ckpt, denoiser)
+            print(f"restored LoRA base weights from {base_ckpt}")
+        elif any(Path(c).name == "ema" or Path(c).name.startswith("phema") for c in args.ckpt):
+            raise SystemExit("--ckpt points at a LoRA run's params-only dir (ema / phema_sr*), which stores only "
+                             "adapter params; set trainer.lora_from so the base weights can be restored (evaluating "
+                             "without them would score a random model).")
+        apply_lora(denoiser, int(lora_rank), generator=torch.Generator().manual_seed(args.seed + 1),
+                   variant=cfg["trainer"].get("lora_variant", "lora"))
 
     guide_denoiser = None
     if args.guide_ckpt:
@@ -128,7 +143,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             raise SystemExit("--guide-ckpt requires --guidance > 0")
         guide_denoiser = instantiate(cfg["model"], device=device)
         restore_sampling_model(args.guide_ckpt, guide_denoiser, build_extra_losses(cfg, seed=args.seed, device=device),
-                               cfg["trainer"])
+                               cfg["trainer"], seed=args.seed + 100)
         guide_denoiser.eval()
         print(f"autoguidance: negative branch from {args.guide_ckpt}")
 
@@ -157,7 +172,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
 
     rows = []
     for ckpt in args.ckpt:
-        restore_train_modules(ckpt, denoiser, diffuser.extra_losses)
+        restore_train_modules(ckpt, denoiser, diffuser.extra_losses, lora=bool(lora_rank))
         denoiser.eval()
         print(f"restored checkpoint from {ckpt}")
         for guidance in args.guidance:

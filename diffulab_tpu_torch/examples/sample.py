@@ -23,8 +23,10 @@ among them). A config with a ``vision_tower`` samples latents of
 where it has one, else 32 as in the reference) and decodes them. A model that takes channel-concatenated context (more input
 than output channels, ``train_synthetic_colorize``) is conditioned on the
 ``x_context`` of the first ``--n`` images of the config's validation set, as
-the trainer's validation images are. ``--prompts`` (HF text embedders,
-ROADMAP queue 1 item 16) raises ``NotImplementedError``.
+the trainer's validation images are. A LoRA run's checkpoint
+(``trainer.lora_rank``) restores onto the base of ``trainer.lora_from``.
+``--prompts`` (HF text embedders, ROADMAP queue 1 item 16) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -139,7 +141,8 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             raise SystemExit("--cache-interval needs --cache-span LO HI")
         diffuser.set_block_cache(args.cache_interval, tuple(args.cache_span))
 
-    restore_sampling_model(args.ckpt, denoiser, diffuser.extra_losses, cfg["trainer"])
+    # a LoRA run is restored in the training CLI's order: base, wrap, adapters
+    restore_sampling_model(args.ckpt, denoiser, diffuser.extra_losses, cfg["trainer"], seed=args.seed)
     denoiser.eval()
     print(f"restored {args.ckpt}")
 
@@ -149,7 +152,7 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
             raise SystemExit("--guide-ckpt requires --guidance > 0")
         guide_denoiser = instantiate(cfg["model"], device=device, **model_kwargs)
         restore_sampling_model(args.guide_ckpt, guide_denoiser, build_extra_losses(cfg, seed=args.seed, device=device),
-                               cfg["trainer"])
+                               cfg["trainer"], seed=args.seed + 100)
         guide_denoiser.eval()
         print(f"autoguidance: negative branch from {args.guide_ckpt}")
 

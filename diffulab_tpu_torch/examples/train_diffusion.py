@@ -22,8 +22,9 @@ turns on non-leaky augmentation (a model with ``augment_dim > 0``). A
 :func:`~diffulab_tpu_torch.training.losses.build_extra_losses`); REPA on
 precomputed features trains through
 :mod:`~diffulab_tpu_torch.examples.train_repa`, whose latent shards carry
-them. ``trainer.lora_rank`` (ROADMAP queue 1, item 16) raises
-``NotImplementedError``.
+them. ``trainer.lora_rank`` finetunes LoRA adapters (``trainer.lora_variant``
+``lora`` or ``dora``, :mod:`~diffulab_tpu_torch.training.lora`) on the base
+weights restored from ``trainer.lora_from``, and trains the adapters alone.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.training.checkpoint import restore_train_modules
+from diffulab_tpu_torch.training.lora import apply_lora, count_lora_params
 from diffulab_tpu_torch.training.losses import build_extra_losses
 from diffulab_tpu_torch.training.trainer import BaseTrainer
 from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
@@ -51,10 +53,12 @@ def count_parameters(model: torch.nn.Module) -> int:
 
 
 def check_ported(cfg: dict) -> None:
-    """Raise on the config options whose modules are not ported yet."""
-    trainer_cfg = cfg["trainer"]
-    if trainer_cfg.get("lora_rank"):
-        raise NotImplementedError("LoRA finetuning (trainer.lora_rank) is not ported yet (ROADMAP queue 1, item 16)")
+    """The REPA CLIs train every parameter of the model: ``trainer.lora_rank``
+    there raises (the reference's REPA CLIs ignore it and train the whole
+    model); LoRA runs train through this CLI."""
+    if cfg["trainer"].get("lora_rank"):
+        raise ValueError("trainer.lora_rank: LoRA finetuning runs through train_diffusion; this CLI trains the whole "
+                         "model")
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -78,7 +82,6 @@ def main(argv: list[str] | None = None) -> list[BaseTrainer]:
 
 def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
     print(yaml.safe_dump(cfg, sort_keys=False))
-    check_ported(cfg)
 
     train_dataset = instantiate(cfg["dataset"]["train"])
     val_dataset = instantiate(cfg["dataset"]["val"])
@@ -100,6 +103,20 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
 
     torch.manual_seed(seed)  # the port's counterpart of the reference's rngs=nnx.Rngs(seed)
     denoiser = instantiate(cfg["model"], device=device, **model_dtype_kwargs(cfg["trainer"]))
+
+    # LoRA finetuning: restore the base BEFORE wrapping (the wrapped parameter tree differs), then
+    # train the adapters alone
+    lora_rank = cfg["trainer"].get("lora_rank")
+    if lora_rank:
+        base_ckpt = cfg["trainer"].get("lora_from")
+        if base_ckpt:
+            restore_train_modules(base_ckpt, denoiser)
+            print(f"restored LoRA base weights from {base_ckpt}")
+        variant = cfg["trainer"].get("lora_variant", "lora")
+        n_adapters = apply_lora(denoiser, int(lora_rank), generator=torch.Generator().manual_seed(seed + 1),
+                                variant=variant)
+        print(f"{variant.upper()}: wrapped {n_adapters} projections at rank {lora_rank} "
+              f"({count_lora_params(denoiser):,} adapter params)")
 
     # guidance distillation: the teacher is a frozen copy restored from a trained
     # checkpoint; the student warm-starts from the same weights unless a denoiser_ckpt is given
@@ -176,6 +193,7 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
         epoch_start=trainer_cfg.get("epoch_start", 0),
         auto_resume=trainer_cfg.get("auto_resume", False),
         seed=seed,
+        lora_only=bool(trainer_cfg.get("lora_rank")),
         distill_teacher=distill_teacher,
     )
     return trainer

@@ -1,2 +1,3 @@
 """Training side of the port (port of diffulab_tpu/training/): the trainer,
-optimizer factories, EMA, checkpoints in torch format, meters and tracking."""
+the GRPO trainer, LoRA/DoRA adapters, optimizer factories, EMA, checkpoints
+in torch format, meters, tracking and profiling."""

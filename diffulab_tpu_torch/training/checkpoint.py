@@ -162,13 +162,17 @@ def trainable_filter(denoiser: torch.nn.Module, *, lora: bool = False,
                      train_embedder: bool = False) -> Callable[[str], bool]:
     """The trainer's trainable-parameter filter (reference checkpoint.py:113-134):
     a predicate on ``named_parameters()`` names (of the denoiser or of its
-    :class:`TrainModules`), true for every parameter except those of a live
-    REPA ``repa_encoder`` (a frozen alignment target) and of a frozen
-    ``context_embedder`` (excluded unless ``train_embedder``). It sets what
-    the optimizer and the EMA hold and the checkpoint layout
-    (:func:`split_state`). LoRA (item 16) is not ported and raises."""
+    :class:`TrainModules`). With ``lora`` it is true for the adapters alone
+    (``lora_a``, ``lora_b`` and DoRA's ``magnitude``,
+    :mod:`.lora`; the reference's ``nnx.LoRAParam``); otherwise for every
+    parameter except those of a live REPA ``repa_encoder`` (a frozen
+    alignment target) and of a frozen ``context_embedder`` (excluded unless
+    ``train_embedder``). It sets what the optimizer and the EMA hold and the
+    checkpoint layout (:func:`split_state`)."""
     if lora:
-        raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
+        from diffulab_tpu_torch.training.lora import is_lora_param
+
+        return is_lora_param
     frozen = ["repa_encoder"]
     if not train_embedder and getattr(denoiser, "context_embedder", None) is not None:
         frozen.append("context_embedder")
@@ -190,7 +194,8 @@ def split_state(model: torch.nn.Module, trainable: Callable[[str], bool]
 
 
 def restore_train_modules(path: str | Path, denoiser: torch.nn.Module,
-                          extra_losses: Sequence[nn.Module] = (), train_embedder: bool = False) -> None:
+                          extra_losses: Sequence[nn.Module] = (), train_embedder: bool = False,
+                          lora: bool = False) -> None:
     """Restore a trainer checkpoint entry (``denoiser``, ``ema`` or a post-hoc
     EMA ``phema*`` directory) into a live model and its extra losses (the
     run's :func:`train_modules`), with the trainable split the run used
@@ -198,10 +203,11 @@ def restore_train_modules(path: str | Path, denoiser: torch.nn.Module,
     default, ``train_embedder=False``; checkpoint.py:138-160). ``ema`` and
     ``phema*`` entries hold ``{"params"}`` only and leave the rest of the
     state as it is; others hold ``{"params", "rest"}`` and restore the whole
-    state. A key or shape that does not match raises."""
+    state. ``lora``: the split of a LoRA run (adapters in ``params``, the
+    wrapped base in ``rest``). A key or shape that does not match raises."""
     path = Path(path)
     modules = train_modules(denoiser, extra_losses)
-    params, rest = split_state(modules, trainable_filter(denoiser, train_embedder=train_embedder))
+    params, rest = split_state(modules, trainable_filter(denoiser, lora=lora, train_embedder=train_embedder))
     if path.name == "ema" or path.name.startswith("phema"):
         restored = restore_checkpoint(path, {"params": params})
         modules.load_state_dict({**rest, **restored["params"]}, strict=True)
@@ -211,12 +217,27 @@ def restore_train_modules(path: str | Path, denoiser: torch.nn.Module,
 
 
 def restore_sampling_model(ckpt_path: str | Path, denoiser: torch.nn.Module, extra_losses: list,
-                           trainer_cfg: dict) -> None:
+                           trainer_cfg: dict, *, seed: int = 0) -> None:
     """Restore a run checkpoint into a freshly built denoiser (and the run's
     extra losses, which a REPA run's checkpoint holds beside it) for the
-    sampling CLI (reference checkpoint.py:188-225). A LoRA run
-    (``trainer.lora_rank``) would restore its base, wrap the model and then
-    the adapters; LoRA is not ported yet and raises."""
-    if trainer_cfg.get("lora_rank"):
-        raise NotImplementedError("LoRA checkpoints (trainer.lora_rank) are not ported yet (ROADMAP queue 1, item 16)")
-    restore_train_modules(ckpt_path, denoiser, extra_losses)
+    sampling CLIs (reference checkpoint.py:187-225). A LoRA run
+    (``trainer.lora_rank``) takes the training CLI's order: the base from
+    ``trainer.lora_from``, then :func:`~.lora.apply_lora` (``lora_variant``,
+    adapters drawn from a generator seeded ``seed + 1``), then the run's entry
+    with the adapters in ``params``. Without ``lora_from`` a params-only
+    entry (``ema``, ``phema*``) of a LoRA run raises: it holds no base."""
+    lora_rank = trainer_cfg.get("lora_rank")
+    if lora_rank:
+        from diffulab_tpu_torch.training.lora import apply_lora
+
+        base_ckpt = trainer_cfg.get("lora_from")
+        if base_ckpt:
+            restore_train_modules(base_ckpt, denoiser)
+        elif Path(ckpt_path).name == "ema" or Path(ckpt_path).name.startswith("phema"):
+            raise SystemExit(
+                f"{ckpt_path} points at a LoRA run's params-only dir (ema / phema_sr*), which stores only adapter "
+                "params; set trainer.lora_from so the base weights can be restored (evaluating without them would "
+                "score a random model).")
+        apply_lora(denoiser, int(lora_rank), generator=torch.Generator().manual_seed(seed + 1),
+                   variant=trainer_cfg.get("lora_variant", "lora"))
+    restore_train_modules(ckpt_path, denoiser, extra_losses, lora=bool(lora_rank))

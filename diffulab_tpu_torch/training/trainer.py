@@ -63,10 +63,14 @@ Also mirrored:
   checkpoint's ``rest``; a batch's ``extra`` (precomputed ``dst_features``)
   reaches them as keywords (:363, :408).
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1):
-LoRA (``lora_only``, item 16), the HF text embedders (whose ``embed_host``
-turns caption strings into conditioning; item 16) and meshes of more than
-one device (item 17).
+- LoRA (``lora_only``, trainer.py:528, :607): the trainable split holds the
+  adapters alone (:func:`.checkpoint.trainable_filter` with ``lora=True``),
+  so the optimizer and the EMA hold them and the base weights ride in the
+  checkpoint's ``rest``.
+
+Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1): the HF
+text embedders (whose ``embed_host`` turns caption strings into
+conditioning) and meshes of more than one device (item 17).
 """
 
 from __future__ import annotations
@@ -131,7 +135,10 @@ class MultiStepOptimizer:
     ``every_k``-th call divides the summed gradients by k (``backward()``
     sums, MultiSteps averages), clips them by global norm with optax's rule
     when ``grad_clip_norm`` is set, steps the optimizer and the scheduler
-    and zeroes the gradients; the calls in between only accumulate.
+    and zeroes the gradients; the calls in between only accumulate. A
+    parameter the loss did not reach (the last dual-stream block's text
+    stream) gets a zero gradient before the update, as optax gives every
+    leaf one: AdamW then decays it and ages its moments.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1,
@@ -152,7 +159,10 @@ class MultiStepOptimizer:
         self.mini_step += 1
         if self.mini_step < self.every_k:
             return False
-        grads = [p.grad for p in self._params() if p.grad is not None]
+        for p in self._params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self._params()]
         if self.every_k > 1:
             torch._foreach_div_(grads, float(self.every_k))
         if self.grad_clip_norm:
@@ -391,6 +401,26 @@ class Trainer:
         if self._async_ckptr is not None:
             self._async_ckptr.wait()
 
+    def _prepare_batch(self, batch: dict[str, Any]) -> dict[str, Any]:
+        """Every array leaf to a tensor on the trainer's device; host-only
+        leaves (caption strings) dropped, as the reference drops them."""
+
+        def clean(node):
+            if isinstance(node, dict):
+                out = {}
+                for k, v in node.items():
+                    v = clean(v)
+                    if v is not None:
+                        out[k] = v
+                return out
+            if isinstance(node, torch.Tensor):
+                return node.to(self.device, non_blocking=True)
+            if isinstance(node, (np.ndarray, np.generic, int, float)):
+                return torch.as_tensor(np.asarray(node)).to(self.device)
+            return None
+
+        return clean(batch)
+
     def _init_phema(self, params: dict[str, torch.Tensor], phema_base: Path, resume_step: int) -> PowerEMA:
         """Fresh power-EMA tracks (fp32 copies of the trainable parameters),
         or, when resuming, the stored fp16 snapshots at (or before) the resume
@@ -461,26 +491,6 @@ class BaseTrainer(Trainer):
             return batch
         return {**batch, "model_inputs": {**mi, "context": dict(out)}}
 
-    def _prepare_batch(self, batch: dict[str, Any]) -> dict[str, Any]:
-        """Every array leaf to a tensor on the trainer's device; host-only
-        leaves (caption strings) dropped, as the reference drops them."""
-
-        def clean(node):
-            if isinstance(node, dict):
-                out = {}
-                for k, v in node.items():
-                    v = clean(v)
-                    if v is not None:
-                        out[k] = v
-                return out
-            if isinstance(node, torch.Tensor):
-                return node.to(self.device, non_blocking=True)
-            if isinstance(node, (np.ndarray, np.generic, int, float)):
-                return torch.as_tensor(np.asarray(node)).to(self.device)
-            return None
-
-        return clean(batch)
-
     def log_images(
         self,
         diffuser: Diffuser,
@@ -535,8 +545,6 @@ class BaseTrainer(Trainer):
         auto_resume: bool = False,
         distill_teacher: Any = None,
     ) -> None:
-        if lora_only:
-            raise NotImplementedError("LoRA training is not ported yet (ROADMAP queue 1, item 16)")
         model = diffuser.denoiser
         extra_losses = diffuser.extra_losses
         # attach the extra losses (REPA's feature-capture registration) before the split
@@ -548,6 +556,9 @@ class BaseTrainer(Trainer):
         modules = train_modules(model, extra_losses)
         trainable = trainable_filter(model, lora=lora_only, train_embedder=train_embedder)
         params = {name: p for name, p in modules.named_parameters() if trainable(name)}
+        if lora_only and not params:
+            raise ValueError("lora_only trains the adapters alone, and the model has none: wrap it with "
+                             "training.lora.apply_lora first")
         # the reference differentiates the trainable split alone (trainer.py:608): a frozen context
         # embedder's forward builds no graph, so its attention runs no backward
         for name, p in modules.named_parameters():

@@ -15,7 +15,11 @@ the mapping is by leaf name only:
   the trainable text embedder's ``tok_embed/embedding``) -> ``*.weight``;
 - the bare arrays (the ViTs' ``cls_token``, ``register_tokens``,
   ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``; the Perceiver
-  resampler's ``latents``) keep their name and layout.
+  resampler's ``latents``; the LoRA and DoRA adapters' ``lora_a`` ``[in, r]``,
+  ``lora_b`` ``[r, out]`` and ``magnitude``) keep their name and layout; a
+  wrapped Linear's ``*/base_module/kernel`` (LoRA) or ``*/base/kernel``
+  (DoRA) is a kernel like any other (:mod:`.training.lora` keeps those
+  paths).
 
 The DINOv3 ViT, the Perceiver resampler and DC-AE map by these rules too:
 their LayerNorms named ``norm1``, ``norm_x``... and DC-AE's
@@ -46,8 +50,9 @@ import torch
 
 
 #: parameters held as a bare array, the same layout on both sides (the ViTs' tokens and LayerScale,
-#: SprintDiT's mask token, the Perceiver resampler's latents)
-_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token", "latents"})
+#: SprintDiT's mask token, the Perceiver resampler's latents, the LoRA/DoRA adapters)
+_PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token", "latents",
+                           "lora_a", "lora_b", "magnitude"})
 
 
 def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:

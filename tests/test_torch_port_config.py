@@ -35,6 +35,8 @@ from diffulab_tpu_torch.config import compose_config, instantiate, sweep
 from diffulab_tpu_torch.config.instantiate import locate, model_dtype_kwargs, port_path
 from diffulab_tpu_torch.examples import reconstruct_ema, sample, train_diffusion
 from diffulab_tpu_torch.training import posthoc_ema
+from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+from diffulab_tpu_torch.training.lora import is_lora_param
 from diffulab_tpu_torch.weights import state_dict_from_jax
 
 REPO = Path(__file__).resolve().parent.parent
@@ -156,8 +158,9 @@ def test_ported_targets_resolve(target):
 def test_unported_and_jax_side_targets_raise():
     with pytest.raises(NotImplementedError, match="hf_text.QwenTextEmbedder"):
         locate("diffulab_tpu.networks.embedders.hf_text.QwenTextEmbedder")
-    with pytest.raises(NotImplementedError, match="PrefGRPORewardModel"):
-        locate("diffulab_tpu.networks.rewards.grpo.PrefGRPORewardModel")
+    # the GRPO reward model is ported: the reward config's target resolves to the port's class
+    reward = locate("diffulab_tpu.networks.rewards.grpo.PrefGRPORewardModel")
+    assert reward.__module__ == "diffulab_tpu_torch.networks.rewards.grpo"
     with pytest.raises(NotImplementedError, match="optax.cosine_decay_schedule"):
         instantiate({"_target_": "optax.cosine_decay_schedule", "init_value": 1.0, "decay_steps": 10})
     with pytest.raises(ImportError, match="cannot locate"):
@@ -329,17 +332,21 @@ def _repa_rows(run: Path) -> list[float]:
 @pytest.mark.parametrize("override,item", [("trainer.lora_rank=4", "item 16"),
                                            ("train_synthetic_edm_repa", "item 13"), ("+repa", "item 13")])
 def test_train_cli_unported_options_raise(override, item, tmp_path):
-    """LoRA (item 16) raises. Item 13b's two cases raised until slice G1 and
-    now run at a toy size, each through the CLI that takes it: a DINO
+    """LoRA (item 16) and item 13b's two cases raised until slices I1 and G1
+    and now run at a toy size, each through the CLI that takes it: LoRA
+    through ``train_diffusion`` on a fresh base (the adapters alone in the
+    checkpoint's ``params``, LoRA from a trained base in
+    tests/test_torch_port_{lora,i1_cli}.py), a DINO
     encoder in train_synthetic_edm_repa through ``train_diffusion``, and a
     ``repa:`` section naming no encoder (precomputed features, which only
     latent shards carry) through ``train_repa`` on shards the test writes.
     The live FixedViT REPA is tested in tests/test_torch_port_e1_cli.py, and
     ``trainer.distill_from`` in tests/test_torch_port_c2_cli.py."""
     if item == "item 16":
-        with pytest.raises(NotImplementedError, match=item):
-            train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching", override,
-                                  *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+        (trainer,) = train_diffusion.main(["--device", "cpu", "--config-name", "train_synthetic_flow_matching", override,
+                                           *TINY_OVERRIDES, f"trainer.save_path={tmp_path}"])
+        entry = restore_checkpoint(tmp_path / "synthetic_flow_matching" / "checkpoints" / "denoiser")
+        assert trainer.step > 0 and entry["params"] and all(is_lora_param(n) for n in entry["params"])
         return
     if override == "+repa":
         from diffulab_tpu_torch.examples import train_repa
@@ -348,7 +355,6 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
         (trainer,) = train_repa.main(["--device", "cpu", *PRECOMPUTED_OVERRIDES, f"trainer.save_path={tmp_path}",
                                       *(f"dataset.{s}.data_path={tmp_path / 'imagenet'}" for s in ("train", "val"))])
         run, steps = tmp_path / "imagenet_repa_flow_matching", 2
-        from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
 
         assert any(k.startswith("extra_losses.0.resampler.") for k in restore_checkpoint(run / "checkpoints" /
                                                                                           "denoiser")["params"])
@@ -366,14 +372,26 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
                                         (["--config-name", "train_synthetic_edm_repa", "repa.repa_encoder=dinov2"],
                                          "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
-    """--prompts and LoRA checkpoints (item 16) and ring attention (item 17)
-    raise. A REPA config with a DINO encoder (item 13b) raised until slice
+    """--prompts (item 16) and ring attention (item 17) raise. LoRA
+    checkpoints (item 16) restore since slice I1: a LoRA run's ``denoiser``
+    entry holds its base and samples; its ``ema`` holds the adapters alone
+    and is refused without ``trainer.lora_from``. A REPA config with a DINO encoder (item 13b) raised until slice
     G1; it now trains at a toy size and samples from its checkpoint, the
     frozen DINOv2 restored with it. The live FixedViT REPA configs sample in
     tests/test_torch_port_e1_cli.py. --guide-ckpt, --cache-*, --inpaint-*,
     --img2img-image and every sampler are ported and run in
     tests/test_torch_port_c2_cli.py; the Gaussian formalization in
     tests/test_torch_port_d1_cli.py."""
+    if flags == ["trainer.lora_rank=4"]:
+        config = ["--config-name", "train_synthetic_flow_matching", *flags, *TINY_OVERRIDES]
+        train_diffusion.main(["--device", "cpu", *config, f"trainer.save_path={tmp_path}"])
+        ckpt = tmp_path / "synthetic_flow_matching" / "checkpoints"
+        result = sample.main(["--device", "cpu", "--ckpt", str(ckpt / "denoiser"), "--n", "4", "--steps", "2",
+                              "--out", str(tmp_path / "s.png"), *config])
+        assert np.isfinite(result["images"]).all()
+        with pytest.raises(SystemExit, match="lora_from"):
+            sample.main(["--device", "cpu", "--ckpt", str(ckpt / "ema"), *config])
+        return
     if item != "item 13":
         with pytest.raises(NotImplementedError, match=item):
             sample.main(["--device", "cpu", "--ckpt", str(tmp_path), *flags, *TINY_OVERRIDES])

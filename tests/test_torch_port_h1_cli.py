@@ -22,7 +22,8 @@ synthetic config.
   checkpoints and two comma-separated guidance scales give four
   ``fid_synthetic`` lines with the floor and the ceiling; a second call
   reads the real-feature cache, whose key is the reference's expression on
-  the JAX package's composed config; the LoRA branch raises naming item 16.
+  the JAX package's composed config; the LoRA branch refuses a LoRA run's
+  params-only entries without ``trainer.lora_from``.
 """
 
 import hashlib
@@ -187,5 +188,6 @@ def test_evaluate_fid_scores_a_run_and_caches_its_real_features(tmp_path, monkey
     second = evaluate_fid.main(argv[:argv.index("--guidance")] + ["--cache-dir", str(tmp_path / "fid_cache"),
                                                                    *C1_TOY])
     assert second["cached"] and (second["floor"], second["ceiling"]) == (first["floor"], first["ceiling"])
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # the LoRA branch: a LoRA run's ema holds the adapters alone, so without trainer.lora_from it is refused
+    with pytest.raises(SystemExit, match="lora_from"):
         evaluate_fid.main(argv + ["trainer.lora_rank=4"])

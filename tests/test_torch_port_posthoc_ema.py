@@ -293,5 +293,9 @@ def test_restore_train_modules_params_only_and_full(tmp_path):
     with pytest.raises(ValueError):  # a params-only entry does not restore as a full one
         save_checkpoint(tmp_path / "best", {"params": params})
         restore_train_modules(tmp_path / "best", dst)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        restore_sampling_model(tmp_path / "denoiser", dst, [], {"lora_rank": 4})
+    # a LoRA run restores base, wrap, adapters: a plain run's entry has no adapters to restore, and a
+    # params-only entry without trainer.lora_from has no base
+    with pytest.raises(ValueError, match="keys differ"):
+        restore_sampling_model(tmp_path / "denoiser", MMDiT(**TINY, device="cpu"), [], {"lora_rank": 4})
+    with pytest.raises(SystemExit, match="lora_from"):
+        restore_sampling_model(tmp_path / "phema_sr0.05", MMDiT(**TINY, device="cpu"), [], {"lora_rank": 4})

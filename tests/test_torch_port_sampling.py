@@ -154,15 +154,25 @@ def test_generate_needs_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_sampling_features_raise():
-    """What still raises: the GRPO loss (item 16). The samplers, EDM, the
-    Gaussian formalization, block caching and the generate options are ported
-    (tests/test_torch_port_{samplers,edm,gaussian,caching,guided}.py): each
-    builds here and runs one request."""
+    """Nothing of the sampling path raises any more. The GRPO loss is ported
+    (tests/test_torch_port_grpo.py): it re-evaluates an Euler-Maruyama
+    request's intermediates, here with the sampling weights (every ratio 1),
+    and refuses a formalization other than the flow one. The samplers, EDM,
+    the Gaussian formalization, block caching and the generate options are
+    ported (tests/test_torch_port_{samplers,edm,gaussian,caching,guided}.py):
+    each builds here and runs one request."""
     model = MMDiT(**TINY, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Diffuser(model, "euler_maruyama", n_steps=2).compute_loss(None, {}, None, None, grpo=True)
     cond = {"y": torch.tensor([0])}
     gen = torch.Generator().manual_seed(0)
+    em = Diffuser(model, "euler_maruyama", n_steps=2)
+    sampling = em.generate(cond, data_shape=(1, *LATENT), generator=gen, guidance_scale=2.0, device="cpu",
+                           return_intermediates=True)
+    with torch.no_grad():
+        losses = em.compute_loss(None, cond, None, None, grpo=True, train=False, grpo_args=dict(
+            sampling=sampling, advantages=torch.ones(1), indices=[1], guidance_scale=2.0, timestep_fraction=0.5))
+    assert float(losses["ratio_dev"]) < 1e-4 and float(losses["clip_frac"]) == 0 and bool(torch.isfinite(losses["loss"]))
+    with pytest.raises(ValueError, match="Flow"):
+        Diffuser(model, "heun", model_type="edm", n_steps=2).compute_loss(None, cond, None, None, grpo=True)
     for sampler, model_type in (("heun", "rectified_flow"), ("heun", "edm"), ("ddim", "gaussian_diffusion")):
         diffuser = Diffuser(model, sampler, model_type=model_type, n_steps=1000 if sampler == "ddim" else 2)
         diffuser.set_steps(2)  # a Gaussian schedule respaces its 1000 training steps

@@ -40,6 +40,7 @@ from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
 from diffulab_tpu_torch.networks.nn import make_drop_mask
 from diffulab_tpu_torch.training import ema as tema
 from diffulab_tpu_torch.training import optim as toptim
+from diffulab_tpu_torch.training.lora import apply_lora, is_lora_param
 from diffulab_tpu_torch.training.checkpoint import (
     AsyncCheckpointer,
     restore_checkpoint,
@@ -481,19 +482,31 @@ def test_unported_trainer_options_raise(tmp_path, kwargs):
 @pytest.mark.parametrize("kwargs", [dict(lora_only=True), dict(train_embedder=True),
                                     dict(distill_teacher=object())])
 def test_unported_train_options_raise(tmp_path, kwargs):
-    """LoRA (item 16) raises. Trainable embedders are ported
+    """LoRA is ported (tests/test_torch_port_lora.py): ``lora_only`` on a
+    model without adapters is refused, and on a wrapped one trains the
+    adapters alone. Trainable embedders are ported
     (tests/test_torch_port_trainable_embedder.py): ``train_embedder`` on a
     model without a context embedder trains as without it. Guidance
     distillation is ported (tests/test_torch_port_guided.py); a teacher
     without ``distill_guidance > 0`` is refused, as the reference asserts."""
     trainer = BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu")
+    if "lora_only" in kwargs:
+        with pytest.raises(ValueError, match="apply_lora"):
+            trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), _loader(1, 0),
+                          **kwargs)
+        model = MMDiT(**TINY, device="cpu")
+        apply_lora(model, 2)
+        base = {n: p.detach().clone() for n, p in model.named_parameters() if not is_lora_param(n)}
+        trainer.train(Diffuser(model, "euler", n_steps=4), toptim.adamw(lr=1e-2), _loader(1, 0),
+                      log_validation_images=False, **kwargs)
+        assert trainer.step == 1 and all(torch.equal(p, base[n]) for n, p in model.named_parameters() if n in base)
+        return
     if "train_embedder" in kwargs:
         trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(), _loader(1, 0),
                       log_validation_images=False, **kwargs)
         assert trainer.step == 1
         return
-    error = ValueError if "distill_teacher" in kwargs else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         trainer.train(Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4), toptim.adamw(),
                       _loader(1, 0), **kwargs)
 
@@ -534,14 +547,15 @@ def test_unported_batches_raise(tmp_path, key):
 
 
 def test_unported_loss_paths_raise():
-    """The GRPO loss (item 16) raises; extra losses (item 13) are ported: each
-    joins the loss dict under its name, called on the model's output with x0
-    (REPA itself: tests/test_torch_port_repa.py)."""
+    """The GRPO loss is ported (tests/test_torch_port_grpo.py): it refuses a
+    sampler other than Euler-Maruyama, whose log-probs it needs; extra losses
+    (item 13) are ported: each joins the loss dict under its name, called on
+    the model's output with x0 (REPA itself: tests/test_torch_port_repa.py)."""
     diffuser = Diffuser(MMDiT(**TINY, device="cpu"), "euler", n_steps=4, extra_losses=[])
     assert diffuser.extra_losses == []
     x0, t = torch.zeros(1, *LATENT), torch.full((1,), 0.5)
-    with pytest.raises(NotImplementedError, match="item 16"):  # distill_fn is ported; the GRPO loss is not
-        diffuser.compute_loss(x0, {}, t, x0, grpo=True)
+    with pytest.raises(ValueError, match="Euler-Maruyama"):  # an Euler trajectory has no log-probs
+        diffuser.compute_loss(x0, {}, t, x0, grpo=True, grpo_args=dict(sampling={}, advantages=t, indices=[0, 1]))
 
     class Probe:
         name = "probe"

@@ -61,6 +61,7 @@ from diffulab_tpu_torch.ops.attention import use_fused
 from diffulab_tpu_torch.training import ema as tema
 from diffulab_tpu_torch.training import optim as toptim
 from diffulab_tpu_torch.training.checkpoint import restore_checkpoint, split_state, trainable_filter
+from diffulab_tpu_torch.training.lora import apply_lora
 from diffulab_tpu_torch.training.trainer import EMA, BaseTrainer, MultiStepOptimizer, train_step
 from diffulab_tpu_torch.weights import state_dict_from_jax
 
@@ -231,8 +232,13 @@ def test_trainable_filter_leaves_out_the_context_embedder():
     pre = MMDiT(**TINY_MM, context_embedder=PrecomputedEmbedder(null_embedding=null_embedding(), device="cpu"),
                 device="cpu")
     assert all(trainable_filter(pre)(n) for n, _ in pre.named_parameters())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trainable_filter(model, lora=True)
+    # a LoRA run trains the adapters alone: none here until apply_lora wraps the projections
+    assert not any(trainable_filter(model, lora=True)(n) for n in names)
+    wrapped = MMDiT(**TINY_MM, context_embedder=PrecomputedEmbedder(null_embedding=null_embedding(), device="cpu"),
+                    device="cpu")
+    apply_lora(wrapped, 2)
+    lora_names = {n for n, _ in wrapped.named_parameters() if trainable_filter(wrapped, lora=True)(n)}
+    assert lora_names and all(n.rsplit(".", 1)[-1] in ("lora_a", "lora_b") for n in lora_names)
     model.repa_encoder = torch.nn.Linear(2, 2)  # a live REPA encoder is a frozen target (checkpoint.py:114-131)
     trainable = trainable_filter(model)
     assert not trainable("repa_encoder.weight") and not trainable("extra_losses.0.repa_encoder._encoder.pos_embed")
