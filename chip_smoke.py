@@ -42,7 +42,11 @@ trains the MMDiT arm, also with the trainable text embedder, and the
 SprintDiT arm, ``evaluate_txt2img`` scores the MMDiT's checkpoints) and
 ``evaluate_fid`` on the C1 run; and slice I1, GRPO post-training of
 ``configs/train_grpo_alignment.yaml`` through the port's ``train_grpo`` CLI
-at full width, and LoRA/DoRA finetuning of the C1 run.
+at full width, and LoRA/DoRA finetuning of the C1 run; and slice J1,
+serving from an artifact that ``deploy/export.py`` exports (DiT-B/2, and the
+C1 run through the ``export_sampler`` and ``serve`` CLIs), the kernels as
+``torch.library`` ops, and ``--prompts`` through the HF text embedder of
+``configs/embedder/qwen.yaml``.
 
 Phases, one line each:
   1. build every CUDA kernel from the sources in the checkout (one nvcc per
@@ -263,6 +267,23 @@ Phases, one line each:
      cuts: the wrapped model at step 0 bitwise the base, the optimizer
      holding the adapters alone, 10 + 10 fp32 K1/K2 a step, ``merge_lora``
      against the adapted forward, a 16-image ``sample`` request (500 K1).
+ 26. slice J1: (a) phase 4's DiT-B/2 request (batch 16, Euler-50, CFG 4.0,
+     bf16) exported by ``deploy.export_generate`` (export and load seconds,
+     the artifact's bytes) and served by ``DeployedSampler``, three seeds
+     each against the live ``generate`` with the same labels, interleaved:
+     the images equal, 600 K1 and no other kernel a request, ms of each;
+     (b) phase 14's ``ema`` through ``export_sampler --smoke`` and
+     ``serve``'s handler on 127.0.0.1: a request of 5 labels (padded to the
+     batch and trimmed) equal to ``DeployedSampler``'s rows, ``/healthz``,
+     a 400 on a malformed request, 500 fp32 K1 in the smoke batch and in
+     the served request; (c) each of the five kernels' ops once on CUDA
+     tensors against its direct wrapper: its counter up by one, bitwise;
+ 27. ``--prompts``: ``configs/embedder/qwen.yaml``'s ``QwenTextEmbedder``
+     (a stub encoder; no ``transformers`` on the card) with
+     ``train_imagenet_repa_txt_to_img``'s DDT at full width on 32x32x128
+     latents: one CFG call's null half bitwise the explicit null
+     embeddings', a 4-prompt Euler-50 request bitwise its explicit-null
+     twin, its launches 50 times one call's (bf16 K3 at 1088 and 1024 keys).
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -526,6 +547,21 @@ I1_LORA_RANK, I1_MERGE_TOL = 8, 1e-4  # phase 25b on C1's config; the merged mod
 # 3xTF32 too, in log2 units (ex2.approx). bf16: p is rounded to bf16 before PV in
 # both, but exp/sum rounding can flip a rounding of p or of o by one bf16
 # step (2^-8 relative).
+# phase 26: slice J1, serving from an exported artifact. (a) phase 4's DiT-B/2 request exported with
+# deploy/export.py and served by DeployedSampler, J1_REQUESTS seeds each against the live generate (the same
+# noise from one generator, the loop traced as it runs: expected 0); (b) phase 14's C1 run through the
+# export_sampler and serve CLIs, J1_SERVE_ROWS labels in the served request (fewer than its batch of 16)
+J1_REQUESTS = 3
+J1_DEPLOY_TOL = 0.0
+J1_SERVE_ROWS = 5
+# phase 27: --prompts on the card: configs/train_imagenet_repa_txt_to_img.yaml's DDT at full width with
+# configs/embedder/qwen.yaml's QwenTextEmbedder and a stub encode_fn (no transformers and no Qwen3-VL-2B weights
+# on the card), 4 prompts of J1_TEXT_LEN tokens at 2048 wide, on 32x32x128 latents (512 px: 1024 image tokens)
+J1_TXT_CONFIG = "train_imagenet_repa_txt_to_img"
+J1_PROMPTS = ("a red cube on a wooden table", "two dogs", "a city at night in the rain", "snow")
+J1_TEXT_LEN, J1_TEXT_LENGTHS = 64, (64, 41, 17, 5)
+J1_LATENT = (32, 32, 128)
+
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = (1e-4, 1e-5)
 # K2, and K4/K5, against their plain versions, per gradient:
@@ -5158,6 +5194,316 @@ def phase_i1(root: Path, c1: dict) -> dict[str, Any]:
             "sampled_ms": statistics.median(sampled), "learn_ms": steps["p50_s"] * 1e3, "peak_gib": peak_gib}
 
 
+def _dit_b2_sampler():
+    """Phases 2-4's DiT-B/2 (the seed-0 weights of :func:`build_models`) and
+    phase 4's diffuser (Euler-50, rectified flow)."""
+    import torch
+
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+
+    model = MMDiT(**DIT_B2, dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
+    randomize_(model, seed=0)
+    return Diffuser(model.eval(), "euler", model_type="rectified_flow", n_steps=STEPS,
+                    extra_args={"logits_normal": True})
+
+
+def phase_j1_deploy(root: Path) -> dict[str, Any]:
+    """Phase 26a: phase 4's request (DiT-B/2, batch 16, Euler-50, CFG 4.0,
+    bf16) exported with ``deploy.export_generate`` and loaded back by
+    ``DeployedSampler`` on the card. Each of J1_REQUESTS seeds runs the
+    artifact, then the live ``generate`` from ``torch.Generator("cuda")`` with
+    that seed and the same labels: the images equal (J1_DEPLOY_TOL), the
+    artifact's request exactly 600 K1 and no other kernel (the counts set to
+    0 just before it and read just after); export and load seconds, the
+    artifact's bytes, and each path's ms a request, the minimum over the
+    interleaved calls (the card synchronised, the images copied to the host
+    on both)."""
+    import numpy as np
+    import torch
+
+    from diffulab_tpu_torch.deploy import DeployedSampler, TensorSpec, export_generate
+
+    diffuser = _dit_b2_sampler()
+    art = root / "dit_b2_artifact"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_generate(diffuser, {"y": TensorSpec((), torch.int64)}, SAMPLE_BATCH, LATENT, art, guidance_scale=CFG,
+                    clamp_x=False, dtype=torch.bfloat16)
+    export_s = time.perf_counter() - t0
+    art_bytes = {p.name: p.stat().st_size for p in art.iterdir()}
+    t0 = time.perf_counter()
+    sampler = DeployedSampler(art)
+    load_s = time.perf_counter() - t0
+    y = torch.randint(0, 1000, (SAMPLE_BATCH,), generator=torch.Generator(device="cuda").manual_seed(99),
+                      device="cuda")
+    per_request = STEPS * DIT_B2["depth"]
+    art_ms, live_ms, diffs, windows = [], [], [], []
+    for r in range(J1_REQUESTS):
+        seed = 100 + r
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(seed=seed, y=y.cpu().numpy())
+        art_ms.append((time.perf_counter() - t0) * 1e3)
+        windows.append(launch_counts())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = diffuser.generate({"y": y}, data_shape=(SAMPLE_BATCH, *LATENT),
+                                generator=torch.Generator(device="cuda").manual_seed(seed), guidance_scale=CFG,
+                                dtype=torch.bfloat16, device="cuda")["x"].float().cpu().numpy()
+        live_ms.append((time.perf_counter() - t0) * 1e3)
+        if out.shape != (SAMPLE_BATCH, *LATENT) or not np.isfinite(out).all():
+            fail(f"DiT-B/2 artifact request {r}: output {out.shape}, finite {np.isfinite(out).all()}")
+        diffs.append(float(np.abs(out - ref).max()))
+    for w in windows:
+        others = {k: n for k, n in w.items() if n and not k.startswith("fused_mha_fwd")}
+        if w["fused_mha_fwd"] != per_request or w["fused_mha_fwd_bf16"] != per_request or others:
+            fail(f"DiT-B/2 artifact request: launches {w}, expected {per_request} bf16 K1 and no other kernel")
+    if max(diffs) > J1_DEPLOY_TOL:
+        fail(f"DiT-B/2 artifact against the live generate: max |diff| {diffs} (tol {J1_DEPLOY_TOL})")
+    print(f"phase 26a DiT-B/2 artifact (batch {SAMPLE_BATCH} {LATENT} Euler-{STEPS} CFG {CFG} bf16): export "
+          f"{export_s:.2f} s, {sum(art_bytes.values())} bytes {art_bytes}, load {load_s:.2f} s; {J1_REQUESTS} "
+          f"requests interleaved, artifact ms {[round(m, 2) for m in art_ms]} (min {min(art_ms):.2f}) vs live "
+          f"generate ms {[round(m, 2) for m in live_ms]} (min {min(live_ms):.2f}); images vs live, same seed and "
+          f"labels: max |diff| {diffs} (tol {J1_DEPLOY_TOL}); {per_request} bf16 K1 a request, no other kernel")
+    return {"launches": windows[0], "export_s": export_s, "bytes": sum(art_bytes.values()), "load_s": load_s,
+            "artifact_ms": min(art_ms), "live_ms": min(live_ms), "max_abs_diff": max(diffs)}
+
+
+def phase_j1_serve(root: Path, c1_run: Path) -> dict[str, Any]:
+    """Phase 26b: phase 14's C1 run (its ``ema`` entry) through the port's
+    ``export_sampler --smoke`` (a batch of C1_SAMPLES at CFG C1_GUIDANCE,
+    Euler-C1_STEPS, fp32), then ``serve.make_handler`` on 127.0.0.1, port 0,
+    in a thread after one warm call: a ``POST /generate`` of J1_SERVE_ROWS
+    labels (padded to the batch with the last one, trimmed on the way out;
+    its decoded uint8 images equal to ``DeployedSampler``'s first rows for
+    that seed and the padded labels), a ``GET /healthz`` (the manifest) and
+    a malformed request (a 400). The counts set to 0 just before the smoke
+    batch and before the served request, read just after: 500 fp32 K1 each."""
+    import base64
+    import threading
+    from http.server import HTTPServer
+    from urllib import error, request
+
+    import numpy as np
+
+    from diffulab_tpu_torch.deploy import DeployedSampler
+    from diffulab_tpu_torch.examples import export_sampler, serve
+
+    log = root / "j1.log"
+    overrides = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()]
+    art = root / "c1_artifact"
+    per_request = C1_STEPS * C1_DEPTH
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = _run_cli(export_sampler.main, ["--config-name", C1_CONFIG, "--ckpt", str(c1_run / "checkpoints" / "ema"),
+                                            "--out", str(art), "--batch-size", str(C1_SAMPLES), "--guidance",
+                                            str(C1_GUIDANCE), "--smoke", *overrides], log)
+    cli_s = time.perf_counter() - t0
+    smoke = launch_counts()
+    if smoke["fused_mha_fwd"] != per_request or smoke["fused_mha_fwd_bf16"] or smoke["flash_attn_fwd"]:
+        fail(f"C1 export_sampler --smoke: launches {smoke}, expected {per_request} fp32 K1 and no K3")
+    if result["smoke"].shape != (C1_SAMPLES, 32, 32, 3) or not np.isfinite(result["smoke"]).all():
+        fail(f"C1 export_sampler --smoke: batch {result['smoke'].shape}")
+    sampler = DeployedSampler(art)
+    serve.warm(sampler)
+    server = HTTPServer(("127.0.0.1", 0), serve.make_handler(sampler))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def call(path, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        try:
+            with request.urlopen(request.Request(url + path, data=data), timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    labels = list(range(J1_SERVE_ROWS))
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        thread.start()
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            status, body = call("/generate", {"seed": 7, "y": labels})
+            served_ms = (time.perf_counter() - t0) * 1e3
+            served = launch_counts()
+            health_status, health = call("/healthz")
+            bad_status, bad = call("/generate", {"seed": 7, "y": [[1, 2]]})
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+    if status != 200 or body["shape"] != [J1_SERVE_ROWS, 32, 32, 3]:
+        fail(f"C1 serve: POST /generate {status} {body.get('error', body.get('shape'))}")
+    images = np.frombuffer(base64.b64decode(body["images"]), np.uint8).reshape(body["shape"])
+    padded = np.array(labels + [labels[-1]] * (C1_SAMPLES - J1_SERVE_ROWS))
+    direct = sampler(seed=7, y=padded)[:J1_SERVE_ROWS]
+    if not np.array_equal(images, ((np.clip(direct, -1, 1) + 1) * 127.5).astype(np.uint8)):
+        fail("C1 serve: the served images differ from DeployedSampler's first rows for that seed")
+    if health_status != 200 or health["manifest"] != sampler.manifest or bad_status != 400 or not bad.get("error"):
+        fail(f"C1 serve: /healthz {health_status}, malformed request {bad_status} {bad}")
+    if served["fused_mha_fwd"] != per_request or served["fused_mha_fwd_bf16"] or served["flash_attn_fwd"]:
+        fail(f"C1 serve: launches of the served request {served}, expected {per_request} fp32 K1 and no K3")
+    print(f"phase 26b C1 CLIs: export_sampler --smoke on {C1_CONFIG}'s ema (batch {C1_SAMPLES}, CFG {C1_GUIDANCE}, "
+          f"Euler-{C1_STEPS}, fp32) in {cli_s:.2f} s, {result['bytes']} bytes, {per_request} fp32 K1 in the smoke "
+          f"batch; serve: POST /generate of {J1_SERVE_ROWS} labels {served_ms:.1f} ms, {body['shape']} uint8 images "
+          f"equal to DeployedSampler's first rows, {per_request} fp32 K1; GET /healthz the manifest; a malformed "
+          f"request {bad_status} ({bad['error']!r})")
+    return {"smoke": smoke, "served": served, "served_ms": served_ms}
+
+
+def phase_j1_ops():
+    """Phase 26c: each kernel's custom op (``torch.ops.diffulab_tpu_torch``)
+    once on CUDA tensors, against its direct wrapper (the op's CUDA
+    implementation) on the same inputs: the kernel's counter up by exactly
+    one and no other kernel's, the outputs bit for bit. K1/K2 at phase 2's
+    sampling shape cut to B=2 (S=256, H=12, D=64, bf16); K3/K4/K5 at phase
+    8's txt2img shape cut to B=2 (S=4224, the fused-CFG text mask)."""
+    import torch
+
+    from diffulab_tpu_torch.ops import flash_attention as fa
+    from diffulab_tpu_torch.ops import fused_mha as fm
+
+    ops = torch.ops.diffulab_tpu_torch
+    gen = torch.Generator(device="cuda").manual_seed(26)
+
+    def draw(s):
+        return torch.randn(2, s, 12, 64, generator=gen, device="cuda").bfloat16()
+
+    scale = 64 ** -0.5
+    q, k, v, do = (draw(256) for _ in range(4))
+    o, lse = fm.fused_mha_fwd_cuda(q, k, v, None, scale)
+    cases = [("fused_mha_fwd", lambda: ops.fused_mha_fwd(q, k, v, None, scale), (o, lse)),
+             ("fused_mha_bwd", lambda: ops.fused_mha_bwd(q, k, v, None, lse, do, scale),
+              fm.fused_mha_bwd_cuda(q, k, v, None, lse, do, scale))]
+    tq, tk, tv, tdo = (draw(TXT_SEQ) for _ in range(4))
+    mask = txt2img_mask(1, TEXT_LENGTHS[:1])
+    to, tlse = fa.flash_attention_fwd_cuda(tq, tk, tv, mask, scale)
+    dk, dv, di = fa.flash_attention_bwd_dkv(tq, tk, tv, mask, to, tlse, tdo, scale)
+    cases += [("flash_attn_fwd", lambda: ops.flash_attn_fwd(tq, tk, tv, mask, scale), (to, tlse)),
+              ("flash_attn_bwd_dkv", lambda: ops.flash_attn_bwd_dkv(tq, tk, tv, mask, to, tlse, tdo, scale),
+               (dk, dv, di)),
+              ("flash_attn_bwd_dq", lambda: ops.flash_attn_bwd_dq(tq, tk, tv, mask, tlse, di, tdo, scale),
+               fa.flash_attention_bwd_dq(tq, tk, tv, mask, tlse, di, tdo, scale))]
+    kernels = ("fused_mha_fwd", "fused_mha_bwd", *FLASH_KERNELS)
+    for name, call, direct in cases:
+        before = launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        rose = {kname: launch_counts()[kname] - before[kname] for kname in kernels}
+        out, direct = (t if isinstance(t, tuple) else (t,) for t in (out, direct))
+        if rose != {kname: int(kname == name) for kname in kernels}:
+            fail(f"op {name}: counters rose {rose}, expected its own by one")
+        if len(out) != len(direct) or not all(torch.equal(a, b) for a, b in zip(out, direct)):
+            fail(f"op {name}: outputs differ from the direct wrapper's")
+    print(f"phase 26c ops: {', '.join(f'torch.ops.diffulab_tpu_torch.{n}' for n, _, _ in cases)} each once on CUDA "
+          f"tensors (K1/K2 B=2 S=256 H=12 D=64 bf16; K3-K5 B=2 S={TXT_SEQ} with the text mask): its counter up by "
+          f"one, no other, outputs bitwise the direct wrapper's")
+
+
+def _j1_stub_encode(texts):
+    """A deterministic stand-in for Qwen3-VL-2B's encode (no transformers and
+    no weights on the card): [B, J1_TEXT_LEN, 2048] normals seeded by the
+    text's bytes, a padding mask of the prompt's valid tokens (1 for "")."""
+    import numpy as np
+
+    emb = np.stack([np.random.default_rng(sum(t.encode()) + 7).standard_normal((J1_TEXT_LEN, TEXT_DIM))
+                    for t in texts]).astype(np.float32)
+    lengths = [J1_TEXT_LENGTHS[J1_PROMPTS.index(t)] if t in J1_PROMPTS else 1 for t in texts]
+    mask = np.arange(J1_TEXT_LEN)[None, :] < np.asarray(lengths)[:, None]
+    return {"embeddings": emb, "attn_mask": mask}
+
+
+def phase_j1_prompts() -> dict[str, Any]:
+    """Phase 27: ``--prompts`` on the card. ``configs/embedder/qwen.yaml``'s
+    ``QwenTextEmbedder`` through the port's ``instantiate`` with
+    :func:`_j1_stub_encode`; the DDT of ``configs/train_imagenet_repa_txt_to_img.yaml``
+    as composed (640 wide, 10 heads of 64, 8 + 4 blocks, 128 latent
+    channels, bf16 by its precision_type) with seeded random weights; the 4
+    prompts embedded on the host (the "" null cached), then (a) one fused-CFG
+    model call whose null half is held bitwise against the same call with the
+    null embedding and mask passed explicitly in those rows (no drop), (b) a
+    request on J1_LATENT (Euler-50, the config's shift, CFG 4.0) held
+    bitwise against the same request built from the explicit nulls, each
+    request's launches by kernel and key length 50 times one call's (the
+    counts set to 0 just before and read just after)."""
+    import torch
+
+    from diffulab_tpu_torch.config import compose_config, instantiate, load_yaml
+    from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
+    from diffulab_tpu_torch.diffuse import Diffuser
+
+    configs = ROOT / "configs"
+    embedder = instantiate(load_yaml(configs / "embedder" / "qwen.yaml"), device="cuda", encode_fn=_j1_stub_encode)
+    cfg = compose_config(configs, J1_TXT_CONFIG, [])
+    model = instantiate(cfg["model"], context_embedder=embedder, device="cuda", **model_dtype_kwargs(cfg["trainer"]))
+    randomize_(model, seed=27)
+    model.eval()
+    context = {k: torch.as_tensor(v, device="cuda") for k, v in embedder.embed_host(list(J1_PROMPTS)).items()}
+    null = _j1_stub_encode([""])
+    null_emb, null_mask = (torch.as_tensor(null[k][0], device="cuda") for k in ("embeddings", "attn_mask"))
+    b = len(J1_PROMPTS)
+
+    def explicit(x, timesteps, cond, drop):
+        ctx = cond["context"]
+        emb = torch.cat([ctx["embeddings"][:b], null_emb.expand(b, -1, -1)])
+        mask = torch.cat([ctx["attn_mask"][:b], null_mask.expand(b, -1)])
+        return model(x=x, timesteps=timesteps, cond={"context": {"embeddings": emb, "attn_mask": mask}},
+                     drop=torch.zeros_like(drop), train=False)
+
+    def swapped(x, timesteps, cond, drop):
+        return model(x=x, timesteps=timesteps, cond=cond, drop=drop, train=False)
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn(2 * b, *J1_LATENT, generator=gen, device="cuda")
+    t = torch.full((2 * b,), 0.7, device="cuda")
+    cond2 = {"context": {k: torch.cat([v, v]) for k, v in context.items()}}
+    drop = torch.arange(2 * b, device="cuda") >= b
+    with torch.no_grad():
+        keys0 = launch_keys()
+        out = swapped(x, t, cond2, drop)["x"]
+        call_keys = key_diff(launch_keys(), keys0)
+        ref = explicit(x, t, cond2, drop)["x"]
+    if not torch.equal(out[b:], ref[b:]) or not torch.equal(out, ref):
+        fail(f"--prompts: the CFG null half differs from the explicit null embeddings' "
+             f"(max |diff| {float((out.float() - ref.float()).abs().max())})")
+    n_steps = cfg["diffuser"]["n_steps"]
+    diffuser = Diffuser(model, cfg["diffuser"]["sampling_method"], model_type=cfg["diffuser"]["model_type"],
+                        n_steps=n_steps, extra_args=cfg["diffuser"]["extra_args"])
+    requests = (lambda g: diffuser.generate({"context": context}, data_shape=(b, *J1_LATENT), generator=g,
+                                            guidance_scale=CFG, device="cuda")["x"],
+                lambda g: diffuser.diffusion.denoise(explicit, {"context": context}, g, data_shape=(b, *J1_LATENT),
+                                                     guidance_scale=CFG, use_cfg=True,
+                                                     device=torch.device("cuda"))["x"])
+    windows, outs, ms = [], [], []
+    for request in requests:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs.append(request(torch.Generator(device="cuda").manual_seed(28)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        windows.append(launch_keys())
+    if not torch.equal(outs[0], outs[1]) or not bool(torch.isfinite(outs[0]).all()):
+        fail("--prompts: the request differs from the one built from the explicit null embeddings")
+    want = {key: n_steps * n for key, n in call_keys.items()}
+    if any(dict(w) != want for w in windows):
+        fail(f"--prompts: launches by (kernel, dtype, Skv) {windows}, expected {want}")
+    counts = {name: sum(n for (kname, _, _), n in windows[0].items() if kname == name)
+              for name in ("fused_mha_fwd", "flash_attn_fwd")}
+    print(f"phase 27 --prompts: {J1_TXT_CONFIG}'s DDT ({cfg['model']['inner_dim']} wide, "
+          f"{cfg['model']['num_heads']} heads, {cfg['model']['encoder_depth']} + {cfg['model']['decoder_depth']} "
+          f"blocks, bf16) with configs/embedder/qwen.yaml's QwenTextEmbedder (a stub encode_fn, [B, {J1_TEXT_LEN}, "
+          f"{TEXT_DIM}], valid {list(J1_TEXT_LENGTHS)}): one CFG call's null half bitwise the explicit null "
+          f"embeddings'; a {b}-prompt request on {J1_LATENT} Euler-{n_steps} (shift "
+          f"{cfg['diffuser']['extra_args'].get('shift')}) CFG {CFG} in {ms[0]:.1f} ms, bitwise the explicit-null "
+          f"request ({ms[1]:.1f} ms); launches a request {dict(windows[0])}, {n_steps} x one call's")
+    return {"launches": counts, "keys": dict(windows[0]), "request_ms": ms[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -5246,6 +5592,12 @@ def main() -> int:
         lap("24 H1")
         i1 = phase_i1(Path(tmp), c1)
         lap("25 I1")
+        j1_deploy = phase_j1_deploy(Path(tmp))
+        j1_serve = phase_j1_serve(Path(tmp), c1["run"])
+        phase_j1_ops()
+        lap("26 J1 serving")
+        j1_prompts = phase_j1_prompts()
+        lap("27 J1 --prompts")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -5288,14 +5640,20 @@ def main() -> int:
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
         + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
         + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"],
-                                                *h1_windows.values())),
+                                                *h1_windows.values()))
+        + j1_deploy["launches"]["fused_mha_fwd"] + j1_prompts["launches"]["fused_mha_fwd"],
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
                              "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
                              "g1_train_repa": g1["train"]["fused_mha_fwd_bf16"],
-                             **{k: w["fused_mha_fwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_fwd_bf16"]}},
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_fwd_bf16"]},
+                             "j1_deploy_dit_b2": j1_deploy["launches"]["fused_mha_fwd"],
+                             **({"j1_prompts": j1_prompts["launches"]["fused_mha_fwd"]}
+                                if j1_prompts["launches"]["fused_mha_fwd"] else {})},
+        "j1_deploy": {key: j1_deploy[key] for key in ("export_s", "bytes", "load_s", "artifact_ms", "live_ms",
+                                                      "max_abs_diff")},
         "g1_shape": g1["kernels"]["k1_g1_train"],
         "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k1_hard")},
         "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
@@ -5318,13 +5676,16 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
         + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"]))
-        + sum(w["fused_mha_fwd"] for w in (*h1_fp32.values(), *i1["lora"].values())),
+        + sum(w["fused_mha_fwd"] for w in (*h1_fp32.values(), *i1["lora"].values()))
+        + j1_serve["smoke"]["fused_mha_fwd"] + j1_serve["served"]["fused_mha_fwd"],
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
                              "g1_sample": g1["sample"]["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]},
-                             **{k: w["fused_mha_fwd"] for k, w in i1["lora"].items()}},
+                             **{k: w["fused_mha_fwd"] for k, w in i1["lora"].items()},
+                             "j1_c1_export_smoke": j1_serve["smoke"]["fused_mha_fwd"],
+                             "j1_c1_served": j1_serve["served"]["fused_mha_fwd"]},
         "h1_embedder_shape": h1["kernels"]["k1_h1_embedder"],
         "h1_eval_384_shape": h1["kernels"]["k1_h1_eval_384"],
         "f1_padded64": f1_cli["kernels"]["k1_pad64"],
@@ -5404,12 +5765,13 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/flash_attention.py:81",
         "launches": txt_totals["flash_attn_fwd"] + txt_train_launches["flash_attn_fwd"]
         + sum(w["flash_attn_fwd"] - w["flash_attn_fwd_f32"] for w in (*txt32_windows.values(), *f1_flash.values()))
-        + i1["grpo"]["flash_attn_fwd"],
+        + i1["grpo"]["flash_attn_fwd"] + j1_prompts["launches"]["flash_attn_fwd"],
         "launches_by_path": {"txt2img_generate": txt_totals["flash_attn_fwd"],
                              "txt2img_train": txt_train_launches["flash_attn_fwd"],
                              **{k: w["flash_attn_fwd"] - w["flash_attn_fwd_f32"]
                                 for k, w in {**txt32_windows, **f1_flash}.items()},
-                             "i1_grpo": i1["grpo"]["flash_attn_fwd"]},
+                             "i1_grpo": i1["grpo"]["flash_attn_fwd"],
+                             "j1_prompts": j1_prompts["launches"]["flash_attn_fwd"]},
         **k3,
         "f1_deep_shape": f1_txt["kernels"]["flash_attn_fwd"],
         "i1_grpo_shape": i1["kernels"]["flash_attn_fwd"],

@@ -32,7 +32,9 @@ native uint8 batch path, post-hoc EMA (``training.posthoc_ema``) and the
 ``examples.{train_diffusion,reconstruct_ema,sample}`` CLIs; and later
 slices, one a PR (ROADMAP.md), up to I1, GRPO post-training
 (``training.grpo_trainer``, ``examples.train_grpo``) and LoRA/DoRA
-finetuning (``training.lora``).
+finetuning (``training.lora``), and J1, serving from an exported artifact
+(``deploy``, ``examples.{export_sampler,serve}``) and the HF text embedders
+(``networks.embedders.hf_text``).
 Attention runs in the fused multi-head kernels, forward
 (``csrc/fused_mha_fwd.cu``) and backward (``csrc/fused_mha_bwd.cu``), up to
 512 tokens, and in the flash-attention kernels, forward

@@ -25,8 +25,10 @@ than output channels, ``train_synthetic_colorize``) is conditioned on the
 ``x_context`` of the first ``--n`` images of the config's validation set, as
 the trainer's validation images are. A LoRA run's checkpoint
 (``trainer.lora_rank``) restores onto the base of ``trainer.lora_from``.
-``--prompts`` (HF text embedders, ROADMAP queue 1 item 16) raises
-``NotImplementedError``.
+``--prompts 'a|b|...'`` conditions a text-to-image config on those prompts,
+tiled to ``--n``: its HF text embedder (``configs/embedder/qwen.yaml``,
+``networks/embedders/hf_text.py``) embeds them on the host, caching the ""
+null embedding that the CFG half swaps in.
 """
 
 from __future__ import annotations
@@ -47,11 +49,6 @@ from diffulab_tpu_torch.training.losses import build_extra_losses
 from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
-
-
-def _check_ported(args: argparse.Namespace) -> None:
-    if args.prompts:
-        raise NotImplementedError("--prompts (HF text embedders) is not ported yet (ROADMAP queue 1, item 16)")
 
 
 def _load_image(path: str, px: int, channels: int) -> np.ndarray:
@@ -83,7 +80,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="comma-separated class labels, tiled to --n (default: random)")
     parser.add_argument("--image-size", type=int, default=None,
                         help="pixel H=W (default: dataset image_size)")
-    parser.add_argument("--prompts", default=None, help="'|'-separated text prompts (not ported)")
+    parser.add_argument("--prompts", default=None, help="'|'-separated text prompts (HF text-embedder configs)")
     parser.add_argument("--out", default="samples.png")
     parser.add_argument("--inpaint-image", default=None, help="PNG whose content is kept outside --inpaint-box")
     parser.add_argument("--inpaint-box", default=None, help="'y0:y1,x0:x1' pixel region to REGENERATE")
@@ -111,7 +108,6 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
     full_fp32_products()
     device = resolve_device(args.device)
     cfg = compose_config(args.config_dir, args.config_name, args.overrides)
-    _check_ported(args)
     ds_cfg = cfg["dataset"]["val"]
 
     torch.manual_seed(args.seed)  # the random init the checkpoint overwrites
@@ -162,7 +158,18 @@ def main(argv: list[str] | None = None) -> dict[str, Any]:
         # the denoiser runs on the latent grid; generate() decodes to pixels
         size //= vision_tower.compression_factor
 
-    cond: dict[str, torch.Tensor] = {}
+    cond: dict[str, Any] = {}
+    if args.prompts:
+        embedder = getattr(denoiser, "context_embedder", None)
+        if not hasattr(embedder, "embed_host"):
+            raise SystemExit("--prompts requires an HF text embedder (an embedder group with embed_host); "
+                             "precomputed-embedding configs sample through a dataset that carries the cached "
+                             "caption embeddings.")
+        texts = args.prompts.split("|")
+        texts = (texts * ((args.n + len(texts) - 1) // len(texts)))[:args.n]
+        # embed_host caches the CFG null embedding on its first call
+        cond["context"] = {k: torch.as_tensor(v, device=device) for k, v in embedder.embed_host(texts).items()}
+        print(f"prompts: {texts}")
     out_channels = cfg["model"].get("output_channels", cfg["model"].get("out_channels")) or channels
     if out_channels < channels:  # the rest are x_context channels, concatenated by the denoiser
         context = instantiate(ds_cfg).get_batch(range(args.n))["model_inputs"].get("x_context")

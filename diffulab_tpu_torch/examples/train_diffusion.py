@@ -52,15 +52,6 @@ def count_parameters(model: torch.nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def check_ported(cfg: dict) -> None:
-    """The REPA CLIs train every parameter of the model: ``trainer.lora_rank``
-    there raises (the reference's REPA CLIs ignore it and train the whole
-    model); LoRA runs train through this CLI."""
-    if cfg["trainer"].get("lora_rank"):
-        raise ValueError("trainer.lora_rank: LoRA finetuning runs through train_diffusion; this CLI trains the whole "
-                         "model")
-
-
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config-name", default="train_mnist_flow_matching")

@@ -15,7 +15,9 @@ denoiser trains on the latents scaled by the vision tower's
 precomputed features, through the Perceiver resampler where the config has
 one), aligns its tokens to the batch's ``dst_features``; validation images
 are decoded by the tower. Everything is built on ``--device`` (default
-``cuda``) under a torch RNG seeded with ``--seed``.
+``cuda``) under a torch RNG seeded with ``--seed``. The whole model trains:
+``trainer.lora_rank`` is not read here, as the reference's CLI does not read
+it (LoRA finetuning runs through ``train_diffusion``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from diffulab_tpu_torch.config import instantiate, sweep
 from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
-from diffulab_tpu_torch.examples.train_diffusion import check_ported, count_parameters
+from diffulab_tpu_torch.examples.train_diffusion import count_parameters
 from diffulab_tpu_torch.training.losses import build_extra_losses
 from diffulab_tpu_torch.training.trainer import BaseTrainer
 from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
@@ -59,7 +61,6 @@ def main(argv: list[str] | None = None) -> list[BaseTrainer]:
 
 def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
     print(yaml.safe_dump(cfg, sort_keys=False))
-    check_ported(cfg)
     train_dataset = instantiate(cfg["dataset"]["train"])
     val_dataset = instantiate(cfg["dataset"]["val"])
 

@@ -22,6 +22,8 @@ from the config's ``embedder`` group without the trainer's precision, as
 the reference's is; ``trainer.train_embedder`` trains it with the denoiser.
 Everything is built on ``--device`` (default ``cuda``) under a torch RNG
 seeded with ``--seed``; ``--sweep`` runs one training per combination.
+The whole model trains: ``trainer.lora_rank`` is not read here, as the
+reference's CLI does not read it.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.imagenet import MultiARBatchSampler, collate_fn
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
-from diffulab_tpu_torch.examples.train_diffusion import check_ported, count_parameters
+from diffulab_tpu_torch.examples.train_diffusion import count_parameters
 from diffulab_tpu_torch.examples.train_repa import _host
 from diffulab_tpu_torch.training.losses import build_extra_losses
 from diffulab_tpu_torch.training.trainer import BaseTrainer
@@ -67,7 +69,6 @@ def main(argv: list[str] | None = None) -> list[BaseTrainer]:
 
 def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
     print(yaml.safe_dump(cfg, sort_keys=False))
-    check_ported(cfg)
     train_dataset = instantiate(cfg["dataset"]["train"])
     val_dataset = instantiate(cfg["dataset"]["val"])
 

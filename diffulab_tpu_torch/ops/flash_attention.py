@@ -73,8 +73,10 @@ from zero and are added in fp32.
 
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`
 are the plain PyTorch versions, the same arithmetic over the same key tiles.
-The wrappers use them only for tensors on the CPU; a CUDA tensor launches the
-kernels or raises. :class:`FlashAttention` ties forward and backward into
+Every call goes through the custom ops ``torch.ops.diffulab_tpu_torch.
+flash_attn_fwd``, ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq``: on CPU
+tensors they run the plain versions, on CUDA tensors they launch the kernels
+or raise. :class:`FlashAttention` ties forward and backward into
 autograd, as the reference's ``jax.custom_vjp`` does: on the CPU it runs the
 plain forward and the plain backward (not autograd of the plain forward).
 """
@@ -94,6 +96,7 @@ from diffulab_tpu_torch.ops.fused_mha import (
     _int_mask,
     _kernel_ready,
     _raise_on,
+    _register,
     matmul_3xtf32,
 )
 
@@ -234,11 +237,15 @@ def flash_attention_bwd_from_di(
     do: torch.Tensor,
     sm_scale: float,
     block_k: int = BWD_BLOCK_K,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    want_dq: bool = True,
+    want_dkv: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor | None, torch.Tensor | None]:
     """The plain K4 and K5 from a given ``di`` fp32 ``[B, H, Sq]`` (and lse
     ``[B, H, Sq]``) instead of o: the backward that the Hopper K2 runs with
     its own ``di = rowsum(p·dp)``
-    (:func:`~diffulab_tpu_torch.ops.fused_mha.fused_mha_bwd_di`)."""
+    (:func:`~diffulab_tpu_torch.ops.fused_mha.fused_mha_bwd_di`). With
+    ``want_dq`` or ``want_dkv`` false, that half (K5's dq, or K4's dk and
+    dv) is not formed and comes back None; the other is the same."""
     qf, dof = q.float(), do.float()
     dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
     dks, dvs = [], []
@@ -249,13 +256,19 @@ def flash_attention_bwd_from_di(
             s = torch.where(kv_mask[:, None, None, n0:n0 + block_k].bool(), s, DEFAULT_MASK_VALUE)
         p = torch.exp(s - lse[..., None])  # 0 on a row with lse = +inf
         # K4: p rounds to do's dtype before dv = pᵀ·do, ds to q's before dk = dsᵀ·q
-        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof))
+        if want_dkv:
+            dvs.append(torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof))
         dp = torch.einsum("bqhd,bkhd->bhqk", dof, vt)
         ds = p * (dp - di[..., None]) * sm_scale
-        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf))
+        if want_dkv:
+            dks.append(torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf))
         # K5: ds rounds to k's dtype before dq += ds·k
-        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kt)
-    return dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype)
+        if want_dq:
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kt)
+    if not want_dkv:
+        return dq.to(q.dtype), None, None
+    dk, dv = torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype)
+    return (dq.to(q.dtype) if want_dq else None), dk, dv
 
 
 def _scale_log2(sm_scale: float) -> torch.Tensor:
@@ -356,10 +369,10 @@ def flash_attention_bwd_dq_tf32x3_emulation(q, k, v, kv_mask, lse, di, do, sm_sc
     return dq.permute(0, 2, 1, 3).contiguous()
 
 
-def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3 on CUDA tensors, its plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask, sm_scale)
+def flash_attention_fwd_cuda(q, k, v, kv_mask, sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors: launches the kernel or raises. The CUDA
+    implementation of the ``flash_attn_fwd`` op, which every caller goes
+    through (:func:`flash_attention`)."""
     _check_cuda_inputs(q, k, v, kv_mask, route="flash", name="flash_attention")
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -396,9 +409,10 @@ def _check_bwd_inputs(q, k, v, kv_mask, lse, *like_q) -> None:
 
 def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
     """K4 on CUDA tensors (the pre-pass, then dk/dv): returns (dk, dv, di
-    fp32 [B, H, Sq]). The contract of :func:`flash_attention_bwd`. di is a view
-    of the pre-pass's workspace ``[2, B, H, Sq padded to BWD_ROW_ALIGN]``
-    (lse·log2 e, then di), whose rows K4 reads whole."""
+    fp32 [B, H, Sq]), or raises. The contract of :func:`flash_attention_bwd`.
+    di is a view of the pre-pass's workspace ``[2, B, H, Sq padded to
+    BWD_ROW_ALIGN]`` (lse·log2 e, then di), whose rows K4 reads whole. The
+    CUDA implementation of the ``flash_attn_bwd_dkv`` op."""
     _check_bwd_inputs(q, k, v, kv_mask, lse, o, do)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -427,7 +441,8 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale):
 
 
 def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
-    """K5 on CUDA tensors, from the di of :func:`flash_attention_bwd_dkv`: returns dq."""
+    """K5 on CUDA tensors, from the di of :func:`flash_attention_bwd_dkv`:
+    returns dq, or raises. The CUDA implementation of the ``flash_attn_bwd_dq`` op."""
     _check_bwd_inputs(q, k, v, kv_mask, lse, do)
     if di.shape != lse.shape or di.dtype != torch.float32 or di.device != q.device:
         raise ValueError(f"di must be fp32 {tuple(lse.shape)} on {q.device}, got {tuple(di.shape)} {di.dtype}")
@@ -455,6 +470,51 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale):
     return dq
 
 
+def _bwd_dkv_reference(q, k, v, kv_mask, o, lse, do, sm_scale):
+    """The plain K4 with its pre-pass: (dk, dv, di), di = rowsum(o·do) fp32 [B, H, Sq]."""
+    di = (o.float() * do.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+    _, dk, dv = flash_attention_bwd_from_di(q, k, v, kv_mask, lse, di, do, sm_scale, want_dq=False)
+    return dk, dv, di
+
+
+def _bwd_dq_reference(q, k, v, kv_mask, lse, di, do, sm_scale):
+    """The plain K5 from the pre-pass's di: dq."""
+    return flash_attention_bwd_from_di(q, k, v, kv_mask, lse, di, do, sm_scale, want_dkv=False)[0]
+
+
+def _flash_attn_fwd_fake(q, k, v, kv_mask, sm_scale):
+    b, sq, h, d = q.shape
+    return q.new_empty((b, sq, h, d)), q.new_empty((b, h, sq), dtype=torch.float32)
+
+
+def _flash_attn_bwd_dkv_fake(q, k, v, kv_mask, o, lse, do, sm_scale):
+    return k.new_empty(k.shape), v.new_empty(v.shape), lse.new_empty(lse.shape)
+
+
+def _flash_attn_bwd_dq_fake(q, k, v, kv_mask, lse, di, do, sm_scale):
+    return q.new_empty(q.shape)
+
+
+# K3, K4 and K5 as torch.library custom ops (see ``ops/fused_mha.py``): every
+# call goes through them; the plain version on CPU tensors, the kernel or a
+# raise on CUDA tensors, the fake implementation for tracing
+#: K3: (q, k, v, kv_mask, sm_scale) -> (o, lse [B, H, Sq]), as :func:`flash_attention_reference`
+flash_attn_fwd_op = _register(
+    "flash_attn_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, float sm_scale) -> (Tensor, Tensor)",
+    flash_attention_reference, flash_attention_fwd_cuda, _flash_attn_fwd_fake)
+#: K4 with its pre-pass: (q, k, v, kv_mask, o, lse, do, sm_scale) -> (dk, dv, di)
+flash_attn_bwd_dkv_op = _register(
+    "flash_attn_bwd_dkv",
+    "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, Tensor o, Tensor lse, Tensor do, float sm_scale) "
+    "-> (Tensor, Tensor, Tensor)",
+    _bwd_dkv_reference, flash_attention_bwd_dkv, _flash_attn_bwd_dkv_fake)
+#: K5: (q, k, v, kv_mask, lse, di, do, sm_scale) -> dq
+flash_attn_bwd_dq_op = _register(
+    "flash_attn_bwd_dq",
+    "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, Tensor lse, Tensor di, Tensor do, float sm_scale) -> Tensor",
+    _bwd_dq_reference, flash_attention_bwd_dq, _flash_attn_bwd_dq_fake)
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -467,17 +527,18 @@ def flash_attention_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash attention backward from the forward's o and lse: (dq, dk, dv).
 
-    Shapes as :func:`flash_attention_bwd_reference`. On CUDA tensors it
+    Shapes as :func:`flash_attention_bwd_reference`. Through the
+    ``flash_attn_bwd_dkv`` and ``flash_attn_bwd_dq`` ops: on CUDA tensors it
     launches K4 then K5 (the shape contract of :func:`flash_attention`; o and
-    do in q's dtype); on CPU tensors it runs
-    :func:`flash_attention_bwd_reference`.
+    do in q's dtype); on CPU tensors it runs their plain versions, the
+    arithmetic of :func:`flash_attention_bwd_reference`.
     """
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, sm_scale)
-    dk, dv, di = flash_attention_bwd_dkv(q, k, v, kv_mask, o, lse, do, sm_scale)
-    return flash_attention_bwd_dq(q, k, v, kv_mask, lse, di, do, sm_scale), dk, dv
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_bwd runs on CUDA or CPU tensors, got {q.device}")
+    dk, dv, di = flash_attn_bwd_dkv_op(q, k, v, kv_mask, o, lse, do, sm_scale)
+    return flash_attn_bwd_dq_op(q, k, v, kv_mask, lse, di, do, sm_scale), dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
@@ -488,7 +549,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, sm_scale):
-        o, lse = _forward(q, k, v, kv_mask, sm_scale)
+        o, lse = flash_attn_fwd_op(q, k, v, kv_mask, sm_scale)
         ctx.save_for_backward(q, k, v, kv_mask, o, lse)
         ctx.sm_scale = sm_scale
         ctx.mark_non_differentiable(lse)
@@ -524,4 +585,4 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, kv_mask, sm_scale)
-    return _forward(q, k, v, kv_mask, sm_scale)
+    return flash_attn_fwd_op(q, k, v, kv_mask, sm_scale)

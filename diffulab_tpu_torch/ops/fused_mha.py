@@ -71,8 +71,11 @@ so the pair runs 7 products of [Sq x Skv x D] (the bound counts 5), else 9;
 :func:`fused_mha_bwd_tf32x3_emulation` emulates both forms.
 
 :func:`fused_mha_reference` and :func:`fused_mha_bwd_reference` are the
-plain PyTorch versions with the same op order. The wrappers use them only
-for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+plain PyTorch versions with the same op order. Every call goes through
+the ``torch.library`` custom ops ``torch.ops.diffulab_tpu_torch.fused_mha_fwd``
+and ``fused_mha_bwd``: on CPU tensors they run the plain versions, on CUDA
+tensors they launch the kernel or raise, and their fake implementations let
+``torch.export`` keep a launch as one node (``deploy/export.py``).
 :class:`FusedMHA` ties the two into autograd, as the reference's
 ``jax.custom_vjp`` does.
 """
@@ -488,10 +491,10 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({_build.error_string(err)})")
 
 
-def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 on a CUDA tensor, its plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return fused_mha_reference(q, k, v, kv_mask, sm_scale)
+def fused_mha_fwd_cuda(q, k, v, kv_mask, sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 on CUDA tensors: launches the kernel or raises. The CUDA
+    implementation of the ``fused_mha_fwd`` op, which every caller goes
+    through (:func:`fused_mha`)."""
     _check_cuda_inputs(q, k, v, kv_mask)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -517,25 +520,10 @@ def _forward(q, k, v, kv_mask, sm_scale) -> tuple[torch.Tensor, torch.Tensor]:
     return o, lse
 
 
-def fused_mha_bwd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kv_mask: torch.Tensor | None,
-    lse: torch.Tensor,
-    do: torch.Tensor,
-    sm_scale: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused attention backward from the forward's lse: (dq, dk, dv).
-
-    Shapes as :func:`fused_mha_bwd_reference`. On CUDA tensors it launches
-    the kernel (the shape contract of :func:`fused_mha`; ``do`` in q's
-    dtype); on CPU tensors it runs :func:`fused_mha_bwd_reference`.
-    """
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return fused_mha_bwd_reference(q, k, v, kv_mask, lse, do, sm_scale)
+def fused_mha_bwd_cuda(q, k, v, kv_mask, lse, do, sm_scale: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors: launches the kernel or raises (the contract of
+    :func:`fused_mha_bwd`). The CUDA implementation of the ``fused_mha_bwd``
+    op."""
     _check_cuda_inputs(q, k, v, kv_mask)
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -567,6 +555,71 @@ def fused_mha_bwd(
     return dq, dk, dv
 
 
+# --- K1 and K2 as torch.library custom ops -------------------------------------------
+#
+# Every call of the kernels goes through these ops, so that ``torch.export``
+# keeps each launch as one node of its graph (``deploy/export.py``). An op on
+# CPU tensors runs the plain version; on CUDA tensors it launches the kernel
+# or raises (no CUDA implementation falls back to the plain version); the
+# fake implementation states the outputs' shapes and dtypes for tracing.
+
+#: the namespace of the port's custom ops: ``torch.ops.diffulab_tpu_torch.<kernel>``
+OPS_NAMESPACE = "diffulab_tpu_torch"
+
+
+def _register(name: str, schema: str, cpu, cuda, fake):
+    """The custom op ``OPS_NAMESPACE::name``: ``cpu`` its plain version,
+    ``cuda`` its kernel's launch, ``fake`` its output shapes."""
+    op = torch.library.custom_op(f"{OPS_NAMESPACE}::{name}", cpu, mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda")(cuda)
+    op.register_fake(fake)
+    return op
+
+
+def _fused_mha_fwd_fake(q, k, v, kv_mask, sm_scale):
+    b, sq, h, d = q.shape
+    return q.new_empty((b, sq, h, d)), q.new_empty((b, sq, h), dtype=torch.float32)
+
+
+def _fused_mha_bwd_fake(q, k, v, kv_mask, lse, do, sm_scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+#: K1: (q, k, v, kv_mask, sm_scale) -> (o, lse), as :func:`fused_mha_reference`
+fused_mha_fwd_op = _register(
+    "fused_mha_fwd", "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, float sm_scale) -> (Tensor, Tensor)",
+    fused_mha_reference, fused_mha_fwd_cuda, _fused_mha_fwd_fake)
+#: K2: (q, k, v, kv_mask, lse, do, sm_scale) -> (dq, dk, dv), as :func:`fused_mha_bwd_reference`
+fused_mha_bwd_op = _register(
+    "fused_mha_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, Tensor lse, Tensor do, float sm_scale) -> (Tensor, Tensor, Tensor)",
+    fused_mha_bwd_reference, fused_mha_bwd_cuda, _fused_mha_bwd_fake)
+
+
+def fused_mha_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused attention backward from the forward's lse: (dq, dk, dv).
+
+    Shapes as :func:`fused_mha_bwd_reference`. Through the ``fused_mha_bwd``
+    op: on CUDA tensors it launches the kernel (the shape contract of
+    :func:`fused_mha`; ``do`` in q's dtype); on CPU tensors it runs
+    :func:`fused_mha_bwd_reference`.
+    """
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_mha_bwd runs on CUDA or CPU tensors, got {q.device}")
+    return fused_mha_bwd_op(q, k, v, kv_mask, lse, do, sm_scale)
+
+
 class FusedMHA(torch.autograd.Function):
     """Autograd of the fused attention (the reference's ``fused_mha``
     custom_vjp, fused_mha.py:218-254): the forward is K1 and saves q, k, v,
@@ -575,7 +628,7 @@ class FusedMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, sm_scale):
-        o, lse = _forward(q, k, v, kv_mask, sm_scale)
+        o, lse = fused_mha_fwd_op(q, k, v, kv_mask, sm_scale)
         ctx.save_for_backward(q, k, v, kv_mask, lse)
         ctx.sm_scale = sm_scale
         ctx.mark_non_differentiable(lse)
@@ -612,4 +665,4 @@ def fused_mha(
         raise ValueError(f"fused_mha runs on CUDA or CPU tensors, got {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FusedMHA.apply(q, k, v, kv_mask, sm_scale)
-    return _forward(q, k, v, kv_mask, sm_scale)
+    return fused_mha_fwd_op(q, k, v, kv_mask, sm_scale)

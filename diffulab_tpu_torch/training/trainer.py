@@ -68,9 +68,9 @@ Also mirrored:
   so the optimizer and the EMA hold them and the base weights ride in the
   checkpoint's ``rest``.
 
-Not ported yet (they raise ``NotImplementedError``, ROADMAP queue 1): the HF
-text embedders (whose ``embed_host`` turns caption strings into
-conditioning) and meshes of more than one device (item 17).
+Not ported yet (it raises ``NotImplementedError``, ROADMAP queue 1): meshes
+of more than one device (item 17). The HF text embedders' ``embed_host``
+turns caption strings into conditioning on the host (:meth:`BaseTrainer._host_embed`).
 """
 
 from __future__ import annotations
@@ -474,8 +474,9 @@ class BaseTrainer(Trainer):
     def _host_embed(batch: dict[str, Any], diffuser: Diffuser) -> dict[str, Any]:
         """Embed raw caption strings on the host (reference trainer.py:417-438):
         an embedder with ``tokenize`` (the trainable one; its tokens replace a
-        precomputed ``context`` the shards carry) or ``embed_host`` (HF, when
-        the batch has no precomputed ``context``; not ported) turns
+        precomputed ``context`` the shards carry) or ``embed_host`` (the HF
+        embedders of ``networks/embedders/hf_text.py``, when the batch has no
+        precomputed ``context``) turns
         ``initial_context`` into the ``context``; otherwise the batch passes
         through untouched, as it does for a :class:`PrecomputedEmbedder`."""
         mi = batch.get("model_inputs", {})

@@ -156,8 +156,9 @@ def test_ported_targets_resolve(target):
 
 
 def test_unported_and_jax_side_targets_raise():
-    with pytest.raises(NotImplementedError, match="hf_text.QwenTextEmbedder"):
-        locate("diffulab_tpu.networks.embedders.hf_text.QwenTextEmbedder")
+    # the HF text embedders are ported (slice J1): configs/embedder/qwen.yaml's target resolves to the port's class
+    qwen = locate("diffulab_tpu.networks.embedders.hf_text.QwenTextEmbedder")
+    assert qwen.__module__ == "diffulab_tpu_torch.networks.embedders.hf_text"
     # the GRPO reward model is ported: the reward config's target resolves to the port's class
     reward = locate("diffulab_tpu.networks.rewards.grpo.PrefGRPORewardModel")
     assert reward.__module__ == "diffulab_tpu_torch.networks.rewards.grpo"
@@ -372,7 +373,10 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
                                         (["--config-name", "train_synthetic_edm_repa", "repa.repa_encoder=dinov2"],
                                          "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
-    """--prompts (item 16) and ring attention (item 17) raise. LoRA
+    """Ring attention (item 17) raises. --prompts (item 16) is ported since
+    slice J1 (tests/test_torch_port_hf_text.py samples a text-to-image config
+    through it); on a class-conditional config, which has no HF text
+    embedder, it stops with the reference's message. LoRA
     checkpoints (item 16) restore since slice I1: a LoRA run's ``denoiser``
     entry holds its base and samples; its ``ema`` holds the adapters alone
     and is refused without ``trainer.lora_from``. A REPA config with a DINO encoder (item 13b) raised until slice
@@ -391,6 +395,13 @@ def test_sample_cli_unported_options_raise(flags, item, tmp_path):
         assert np.isfinite(result["images"]).all()
         with pytest.raises(SystemExit, match="lora_from"):
             sample.main(["--device", "cpu", "--ckpt", str(ckpt / "ema"), *config])
+        return
+    if flags[0] == "--prompts":
+        config = ["--config-name", "train_synthetic_flow_matching", *TINY_OVERRIDES]
+        train_diffusion.main(["--device", "cpu", *config, f"trainer.save_path={tmp_path}"])
+        ckpt = tmp_path / "synthetic_flow_matching" / "checkpoints" / "ema"
+        with pytest.raises(SystemExit, match="HF text embedder"):
+            sample.main(["--device", "cpu", "--ckpt", str(ckpt), "--n", "2", *flags, *config])
         return
     if item != "item 13":
         with pytest.raises(NotImplementedError, match=item):

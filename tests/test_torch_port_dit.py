@@ -213,6 +213,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     config, examples = REPO / "diffulab_tpu_torch" / "config", REPO / "diffulab_tpu_torch" / "examples"
     assert {config / f"{m}.py" for m in ("compose", "instantiate", "sweep")} <= set(files)
     assert {examples / f"{m}.py" for m in ("train_diffusion", "reconstruct_ema", "sample")} <= set(files)
+    # the serving path (slice J1): the export module, its CLIs and the HF text embedders
+    deploy = REPO / "diffulab_tpu_torch" / "deploy"
+    assert {deploy / "__init__.py", deploy / "export.py", examples / "export_sampler.py", examples / "serve.py",
+            networks / "embedders" / "hf_text.py"} <= set(files)
     # the flash backward's CUDA source is bound by the module the scan reads
     assert (REPO / "diffulab_tpu_torch" / "csrc" / "flash_attn_bwd.cu").is_file()
     assert "flash_attn_bwd_dkv" in (REPO / "diffulab_tpu_torch" / "ops" / "flash_attention.py").read_text()
@@ -227,3 +231,4 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert "diffulab_tpu_torch.networks.vision_towers.vae" in _imported_roots(networks / "vision_towers" / "flux2.py")
     assert "diffulab_tpu_torch.data.streaming" in _imported_roots(data / "imagenet.py")
     assert "diffulab_tpu_torch.training.trainer" in _imported_roots(examples / "train_diffusion.py")
+    assert "diffulab_tpu_torch.ops" in _imported_roots(deploy / "export.py")

@@ -148,25 +148,29 @@ def test_entry_point_grads_match_jax_vjp_of_flash_path(shape, dtype):
 
 
 def test_cpu_backward_runs_the_plain_backward_not_autograd_of_the_forward(monkeypatch):
+    """On the CPU the backward runs the plain K4 (dk, dv) and the plain K5 (dq)
+    through their ops, each once, from the forward's lse and the di of its
+    saved o; the gradients are the plain backward's bit for bit."""
     calls = []
-    plain = tflash.flash_attention_bwd_reference
+    plain = tflash.flash_attention_bwd_from_di
 
     def spy(*args, **kwargs):
-        calls.append(args)
+        calls.append((args, kwargs))
         return plain(*args, **kwargs)
 
-    monkeypatch.setattr(tflash, "flash_attention_bwd_reference", spy)
+    monkeypatch.setattr(tflash, "flash_attention_bwd_from_di", spy)
     q, k, v, do = (torch.from_numpy(a) for a in _arrays(30, b=1, sq=70, skv=90))
     mask = torch.from_numpy(_lengths_mask(90, (61,)))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o, lse = FlashAttention.apply(*leaves, mask, 64 ** -0.5)
     assert not lse.requires_grad
     grads = torch.autograd.grad(o, leaves, do)
-    assert len(calls) == 1
-    saved_o, saved_lse = calls[0][4], calls[0][5]
-    torch.testing.assert_close(saved_o, o.detach(), rtol=0, atol=0)  # the forward's o, as _flash_fwd_rule saves it
-    torch.testing.assert_close(saved_lse, lse, rtol=0, atol=0)
-    for g, r in zip(grads, plain(q, k, v, mask, o.detach(), lse, do, 64 ** -0.5)):
+    assert [kwargs for _, kwargs in calls] == [{"want_dq": False}, {"want_dkv": False}]
+    di = (o.detach().float() * do.float()).sum(dim=-1).permute(0, 2, 1)  # from the forward's o, as _flash_fwd_rule saves it
+    for args, _ in calls:
+        torch.testing.assert_close(args[4], lse, rtol=0, atol=0)
+        torch.testing.assert_close(args[5], di, rtol=0, atol=0)
+    for g, r in zip(grads, tflash.flash_attention_bwd_reference(q, k, v, mask, o.detach(), lse, do, 64 ** -0.5)):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
     # without grad the forward alone runs and nothing is saved
     with torch.no_grad():

@@ -18,7 +18,8 @@ DINOv2 features through a Perceiver resampler) and its CLIs
   ``dinov2_vitl14_reg`` (24 blocks of 1024).
 - ``precompute latents`` (a tiny DC-AE config) and ``precompute features``
   (a tiny DINOv3 from an HF checkpoint directory the test writes) against
-  the JAX package's shards; ``precompute captions`` raises, naming item 16.
+  the JAX package's shards; ``precompute captions`` (a tiny Qwen3-VL
+  checkpoint the test writes) against the JAX embedder's ``compute_on_dataset``.
 - ``precompute`` -> ``train_repa`` -> ``sample`` at toy size: a tiny DC-AE
   (32x32 images to 8x8x32 latents, 64 tokens as the config's), random
   ViT-S/14 features at 4 tokens, the DiT at depth 2 and width 64.
@@ -206,12 +207,28 @@ def test_precompute_cli_matches_jax(mode, tmp_path, monkeypatch):
     """latents: the CLI's tiny DC-AE (its seeded weights carried to the JAX
     tower through the diffusers checkpoint format) against the JAX
     package's ``compute_on_dataset``; features: the port's CLI against the
-    JAX package's on one DINOv3 checkpoint directory."""
+    JAX package's on one DINOv3 checkpoint directory; captions: the CLI with
+    an embedder group naming a tiny Qwen3-VL checkpoint against the JAX
+    package's ``QwenTextEmbedder.compute_on_dataset`` on that checkpoint."""
     src = tmp_path / "src"
     _write_images(src, 5, 1)
     if mode == "captions":
-        with pytest.raises(NotImplementedError, match="item 16"):
-            precompute.main(["captions", "--src", str(src), "--dst", str(tmp_path / "out"), "--device", "cpu"])
+        from test_torch_port_hf_text import _caption_shards, _qwen_config, _qwen_dir
+
+        from diffulab_tpu.networks.embedders.hf_text import QwenTextEmbedder as JaxQwen
+
+        _caption_shards(src := tmp_path / "captions")
+        group = _qwen_config(tmp_path, _qwen_dir(tmp_path / "qwen"))
+        precompute.main(["captions", "--embedder", str(group).removesuffix(".yaml"), "--src", str(src), "--dst",
+                         str(tmp_path / "port"), "--batch-size", "2", "--device", "cpu"])
+        JaxQwen(**{k: v for k, v in json.loads(group.read_text()).items() if k != "_target_"}).compute_on_dataset(
+            str(src), str(tmp_path / "jax"), batch_size=2)
+        ours, ref = ShardedDataset(tmp_path / "port"), JaxShardedDataset(tmp_path / "jax")
+        assert len(ours) == len(ref) == 5 and sorted(ours.columns) == sorted(ref.columns)
+        for i in range(5):
+            assert ours[i]["caption_embeddings"].shape[-1] == 32 and ours[i]["caption_mask"].dtype == np.bool_
+            for col in ours.columns:
+                np.testing.assert_array_equal(ours[i][col], ref[i][col])
         return
     if mode == "latents":
         monkeypatch.setattr(precompute, "CONFIG_DIR", _tiny_tower_dir(tmp_path))
