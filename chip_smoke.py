@@ -219,13 +219,13 @@ Phases, one line each:
      their plain versions, beside fp32 SDPA on the same and on the unpadded
      tensors, and their bounds;
  23. slice G1, ``configs/train_imagenet_flow_matching_repa.yaml`` at its
-     widths: (a) 1024 + 128 seeded 256x256 images with labels written by the
+     widths: (a) 512 + 128 seeded 256x256 images with labels written by the
      port's ShardedDatasetWriter, the validation split also as MDS shards,
      read back the same; (b) ``precompute latents`` with the full DC-AE
      f32c32 tower (seeded random weights), 8x8x32 latents, images/s, peak
      memory, one batch decoded back to finite pixels; (c) ``precompute
      features`` with dinov2_vitl14_reg at 224 px (256 tokens of 1024),
-     images/s; (d) ``train_repa`` one epoch of 8 steps at batch 128, bf16, 12
+     images/s; (d) ``train_repa`` one epoch of 4 steps at batch 128, bf16, 12
      bf16 K1 + 12 bf16 K2 at 128 padded keys every step (64 tokens), the REPA
      term non-zero, ms per step, peak memory; (e) ``sample`` of 16 images
      Euler-50 at CFG 4.0 with the DC-AE decode, 600 K1 at 128 padded keys;
@@ -247,18 +247,19 @@ Phases, one line each:
      K1/K2 timed against SDPA and their bounds; (d)
      ``train_hard_txt2img_sprint`` one epoch, and ``train_hard_txt2img_ddt``
      refused with F3's ``TypeError``; (e) ``reconstruct_ema`` and
-     ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05`` (200 samples each,
-     Euler-50, CFG 1.5, 1200 fp32 K1); (f) ``evaluate_fid`` on phase 14's
-     ``ema`` (256 samples, 1000 fp32 K1), the feature ViT's weights on the
+     ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05`` (100 samples each,
+     Euler-50, CFG 1.5, 600 fp32 K1); (f) ``evaluate_fid`` on phase 14's
+     ``ema`` (128 samples, 500 fp32 K1), the feature ViT's weights on the
      card bitwise the ``jax_prng`` draw and its features against the CPU;
  25. slice I1 from a working directory of its own: (a) ``train_grpo
      --config-name train_grpo_alignment --luma-judge``, the model block as
-     composed (12 dual-stream blocks of 640, 10 heads, patch 1, bf16) and
+     composed (dual-stream blocks of 640, 10 heads, patch 1, bf16; depth cut
+     12 -> 6) and
      the Flux2 tower at full width with seeded weights, 512x512 (32x32x128
      latents: 1152 keys with the captions), EM-25 at CFG 4.0, cut to one
      epoch of 2 batches of 2 prompts and 4 images a prompt over 4 + 2 seeded
      caption prompts (the dataset and the tower's latent channels overridden:
-     faults F4, F5): 300 bf16 K3 a sampled group, 180 K3 + 180 K4 + 180 K5 a
+     faults F4, F5): 150 bf16 K3 a sampled group, 90 K3 + 90 K4 + 90 K5 a
      learn step, the first group's ``ratio_dev`` ~0, the best-val checkpoint
      restored, a learn step in ``profiling.trace``; one learn step's
      gradients against the plain path; the bf16 K3-K5 at B=4, H=10, S=1152
@@ -269,7 +270,7 @@ Phases, one line each:
      against the adapted forward, a 16-image ``sample`` request (500 K1).
  26. slice J1: (a) phase 4's DiT-B/2 request (batch 16, Euler-50, CFG 4.0,
      bf16) exported by ``deploy.export_generate`` (export and load seconds,
-     the artifact's bytes) and served by ``DeployedSampler``, three seeds
+     the artifact's bytes) and served by ``DeployedSampler``, two seeds
      each against the live ``generate`` with the same labels, interleaved:
      the images equal, 600 K1 and no other kernel a request, ms of each;
      (b) phase 14's ``ema`` through ``export_sampler --smoke`` and
@@ -284,6 +285,21 @@ Phases, one line each:
      latents: one CFG call's null half bitwise the explicit null
      embeddings', a 4-prompt Euler-50 request bitwise its explicit-null
      twin, its launches 50 times one call's (bf16 K3 at 1088 and 1024 keys).
+ 28. slice P1, the parallel configs on one card: (a) ``train_cifar10_moe``
+     through ``train_diffusion`` at ``configs/model/dit_moe.yaml``'s full
+     width (512 wide, 8 heads of 64, depth 10, 8 experts of hidden 2048,
+     capacity factor 2.0, patch 2 on 32x32x3, fp32) with
+     ``trainer.mesh.expert=1``, the config's single-chip form (the router
+     dense), on phase 22's CIFAR cut: 10 + 10 fp32 K1/K2 at 256 a micro-step,
+     a 16-image request from the EMA checkpoint (1000 K1), one MoE DiT block
+     on the card against the same block on the CPU (the tokens routed
+     differently counted), ms a step, peak memory and the MoE MLPs' share of
+     the step; (b) ``train_cifar10_ring_attention`` at ``sp=1`` (the ring
+     body of one block: no K1/K2) and ``train_cifar10_pipeline`` at
+     ``pipe=1`` (the blocks in sequence: 10 + 10 a micro-step), one update
+     each at full width, and the ring DiT's forward against the K1 route's;
+     (c) a ``torchrun --nproc-per-node 1`` launch of one
+     ``train_cifar10_flow_matching`` update over NCCL.
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -410,12 +426,13 @@ D1_SAMPLES, D1_GUIDANCE, D1_STEPS = 16, 1.5, 50  # a DDIM-50 request, 2x16 under
 BF16_COUNTERS = ("fused_mha_fwd_bf16", "fused_mha_bwd_bf16")  # the bf16 instances' own counts (slice E1)
 
 # phase 18: slice E1, the hard synthetic dataset and live-encoder REPA: six download-free configs
-# through the CLIs at their full width and depth, each cut to one epoch and in data (10000 -> 1024
-# train, 2000 -> 256 validation samples: 8 steps of 128 an epoch, 2 validation batches). The hard
+# through the CLIs at their full width and depth, each cut to one epoch and in data (10000 -> 512
+# train, 2000 -> 256 validation samples: 4 steps of 128 an epoch, 2 validation batches). The hard
 # configs are bf16 DiTs with patch 4 on 64x64 (256 tokens, 8 heads of 64); colorize and the DiT REPA
 # configs are C1's fp32 DiT; ddpm_repa is D1's UNet; the REPA encoder is the seed-4321 FixedViT.
-E1_DATA = {"dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256)}
-E1_BATCH, E1_STEPS_PER_EPOCH, E1_SEQ = 128, 1024 // 128, 256
+E1_DATA = {"dataset.train.n_samples": (10000, 512), "dataset.val.n_samples": (2000, 256)}
+E1_BATCH, E1_SEQ = 128, 256
+E1_STEPS_PER_EPOCH = E1_DATA["dataset.train.n_samples"][1] // E1_BATCH
 E1_SAMPLES, E1_GUIDANCE = 16, 1.5
 # per config: K1, K2 and K3 launches a train step, K1 a sample request and the request's flags
 # (the DiTs: 10 blocks; Euler-50 with CFG as one 2x call, EDM's Heun-18 35 evals; the UNet: 11
@@ -494,7 +511,7 @@ F1_SAMPLES, F1_GUIDANCE = 16, 1.5
 # images (1,281,167 train, 50,000 val) -> seeded 256x256 RGB images with labels in 0-999, its 150 epochs -> 1, the
 # pretrained DC-AE and DINOv2-L weights -> seeded random weights (their download is not available)
 G1_CONFIG = "train_imagenet_flow_matching_repa"
-G1_IMAGES = {"train": (1_281_167, 1024), "val": (50_000, 128)}
+G1_IMAGES = {"train": (1_281_167, 512), "val": (50_000, 128)}
 G1_CUTS = {"trainer.n_epoch": (150, 1)}
 G1_PX, G1_BATCH, G1_DEPTH, G1_HEADS = 256, 128, 12, 12
 G1_TOKENS = 64  # 8x8 latents at patch 1, padded to 128 keys by the fused route
@@ -514,23 +531,24 @@ H1_TOKENS = 264  # 16x16 packed latents at patch 1 and 8 caption tokens, padded 
 H1_DEPTH = 6  # 4 dual-stream + 2 single-stream blocks, one joint attention each
 H1_EMB_TOKENS, H1_EMB_DEPTH, H1_EMB_HEADS = 64, 4, 4  # configs/embedder/trainable.yaml: fp32 (no trainer dtype)
 H1_TRAINABLE = ("embedder=trainable", "trainer.train_embedder=true")
-H1_EVAL = {"--n-samples": (2000, 200), "--n-val": (2000, 256)}
+H1_EVAL = {"--n-samples": (2000, 100), "--n-val": (2000, 256)}
 H1_EVAL_BATCH, H1_GUIDANCE = 100, 1.5  # Euler-50 at CFG 1.5: 2x100 under fused CFG
-H1_FID_SAMPLES, H1_FID_BATCH = 256, 128  # evaluate_fid on phase 14's C1 run, CFG 1.5
+H1_FID_SAMPLES, H1_FID_BATCH = 128, 128  # evaluate_fid on phase 14's C1 run, CFG 1.5
 H1_FEATURE_TOL = 1e-4  # the frozen ViT's features, card against the port on the CPU: max |diff| / max |cpu|
 
 # phase 25: slice I1, configs/train_grpo_alignment.yaml through the port's train_grpo CLI: its model block as
-# composed (the multimodal MMDiT, 12 dual-stream blocks of 640, 10 heads of 64, patch 1, 128 channels, bf16) on
+# composed (the multimodal MMDiT, dual-stream blocks of 640, 10 heads of 64, patch 1, 128 channels, bf16; its
+# depth cut 12 -> 6 to keep the whole script in its time) on
 # 512x512 images, 32x32x128 Flux2 latents (1024 image + 128 caption tokens), EM-25 at CFG 4.0, trust region 0.3,
 # EMA; the luma judge (no VLM weights on the card). Cut in epochs, prompts a batch, images a prompt and data;
 # two config faults overridden as the repository's own GRPO runs override them (scripts/r4_grpo_campaign.sh:16-22)
 I1_CONFIG = "train_grpo_alignment"
 I1_CUTS = {"trainer.n_epoch": (5, 1), "dataloader.batch_size": (8, 2), "grpo.n_image_per_prompt": (16, 4),
-           "reward.n_image_per_prompt": (16, 4)}
+           "reward.n_image_per_prompt": (16, 4), "model.depth": (12, 6)}
 I1_FAULTS = {"dataset": ("imagenet_repa (ImageNetLatentREPA: no captions, F4)", "ImageNetmultiAR"),
              "vision_tower.latent_channels": ("16 (64 packed; the model takes 128, F5)", 32)}
 I1_PROMPTS = {"train": (77, 9, 128, 31), "val": (54, 16)}  # caption tokens a prompt: 4 train, 2 validation
-I1_BATCH, I1_IMAGES, I1_STEPS, I1_BLOCKS, I1_HEADS = 2, 4, 25, 12, 10
+I1_BATCH, I1_IMAGES, I1_STEPS, I1_BLOCKS, I1_HEADS = 2, 4, 25, I1_CUTS["model.depth"][1], 10
 I1_SEQ = TEXT_LEN + 32 * 32  # 1152 keys, unpadded on the flash route
 I1_K = round(I1_STEPS * 0.6)  # trajectory indices a learn step (timestep_fraction 0.6)
 # the first group of a batch re-evaluates the log-probs with the parameters that sampled them: |ratio - 1|
@@ -551,7 +569,7 @@ I1_LORA_RANK, I1_MERGE_TOL = 8, 1e-4  # phase 25b on C1's config; the merged mod
 # deploy/export.py and served by DeployedSampler, J1_REQUESTS seeds each against the live generate (the same
 # noise from one generator, the loop traced as it runs: expected 0); (b) phase 14's C1 run through the
 # export_sampler and serve CLIs, J1_SERVE_ROWS labels in the served request (fewer than its batch of 16)
-J1_REQUESTS = 3
+J1_REQUESTS = 2
 J1_DEPLOY_TOL = 0.0
 J1_SERVE_ROWS = 5
 # phase 27: --prompts on the card: configs/train_imagenet_repa_txt_to_img.yaml's DDT at full width with
@@ -4014,17 +4032,19 @@ def phase_f1_hard():
     return results
 
 
-def write_cifar10(root: Path, seed: int = 0) -> None:
-    """CIFAR-10 python pickles of F1_CIFAR_IMAGES' cut sizes from a seed
-    (uint8 rows of 3072 in CHW order, integer labels): data_batch_1-4
-    share the training images, data_batch_5 holds the validation ones."""
+def write_cifar10(root: Path, seed: int = 0, images: dict[str, tuple[int, int]] | None = None) -> None:
+    """CIFAR-10 python pickles of ``images``' cut sizes (default
+    F1_CIFAR_IMAGES') from a seed (uint8 rows of 3072 in CHW order, integer
+    labels): data_batch_1-4 share the training images, data_batch_5 holds
+    the validation ones."""
     import pickle
 
     import numpy as np
 
+    images = images or F1_CIFAR_IMAGES
     rng = np.random.default_rng(seed)
     root.mkdir(parents=True, exist_ok=True)
-    sizes = [F1_CIFAR_IMAGES["train"][1] // 4] * 4 + [F1_CIFAR_IMAGES["val"][1]]
+    sizes = [images["train"][1] // 4] * 4 + [images["val"][1]]
     for i, n in enumerate(sizes, start=1):
         with open(root / f"data_batch_{i}", "wb") as f:
             pickle.dump({"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
@@ -4454,7 +4474,7 @@ def phase_g1(root: Path) -> dict[str, Any]:
     decoded back to finite [16, 256, 256, 3] pixels; (c) ``precompute
     features`` with dinov2_vitl14_reg at resolution 256 ([256, 1024] a row),
     images/s; neither launches K1-K5 (the towers' attention is not Pallas in
-    the reference); (d) ``train_repa`` for one epoch of 8 steps at batch 128
+    the reference); (d) ``train_repa`` for one epoch of 4 steps at batch 128
     over (b)-(c)'s shards: 12 bf16 K1 + 12 bf16 K2 at 128 padded keys every
     step, 12 K1 a validation forward and 600 for the validation images
     (Euler-50 at CFG 4.0, 8 images), the loss finite and the REPA term
@@ -4612,10 +4632,10 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
     epoch (4 + 4 bf16 at 384 and at 128 a step), and
     ``train_hard_txt2img_ddt`` refused with the reference's ``TypeError``
     (fault F3); (e) ``reconstruct_ema`` at sigma_rel 0.05 and
-    ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05``: 200 samples each
-    at batch 100, Euler-50, CFG 1.5, the fp32 model (1200 fp32 K1 at 384),
+    ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05``: 100 samples each
+    at batch 100, Euler-50, CFG 1.5, the fp32 model (600 fp32 K1 at 384),
     the ``txt2img`` JSON lines, images/s; (f) ``evaluate_fid`` on phase 14's
-    C1 run's ``ema`` with 256 samples at CFG 1.5 (1000 fp32 K1 at 256), the
+    C1 run's ``ema`` with 128 samples at CFG 1.5 (500 fp32 K1 at 256), the
     ``fid_synthetic`` line with its floor and ceiling; the frozen ViT's
     weights on the card bitwise ``jax_prng``'s draw and its features of 16
     validation images within ``H1_FEATURE_TOL`` of the port's on the CPU."""
@@ -5504,6 +5524,269 @@ def phase_j1_prompts() -> dict[str, Any]:
     return {"launches": counts, "keys": dict(windows[0]), "request_ms": ms[0]}
 
 
+# phase 28: slice P1. (a) configs/train_cifar10_moe.yaml as composed (configs/model/dit_moe.yaml: 512 wide, 8
+# heads of 64, depth 10, 8 experts of hidden 4 x 512, capacity factor 2.0, patch 2 on 32x32x3; fp32, batch 32,
+# accumulation 2), cut as phase 22's CIFAR run (100 -> 1 epoch, 1024 + 256 images written from a seed) and to its
+# single-chip mesh (trainer.mesh.expert 2 -> 1: "on a single chip the router runs dense"); (b) the ring and
+# pipeline configs at their size-1 axes, one update (64 + 32 images, val_steps 50 -> 2); (c) one update of
+# train_cifar10_flow_matching under torchrun on one card
+P1_MOE_CONFIG = "train_cifar10_moe"
+P1_MOE_CUTS = {"trainer.mesh.expert": (2, 1), **F1_CIFAR_CUTS}
+P1_ONE_UPDATE = {"trainer.n_epoch": (100, 1), "trainer.val_steps": (50, 2)}
+P1_ONE_IMAGES = {"train": (50000, 64), "val": (10000, 32)}
+P1_AXES = {"train_cifar10_ring_attention": {"trainer.mesh.sp": (2, 1)},
+           "train_cifar10_pipeline": {"trainer.mesh.pipe": (2, 1)}}
+P1_BLOCK_RTOL = 1e-4  # one block on the card (K1's 3xTF32 attention) against the CPU's fp32, of max |ref|
+
+
+def _p1_cifar(root: Path, images: dict[str, tuple[int, int]]) -> Path:
+    """CIFAR-10 pickles of ``images``' sizes under ``root`` (phase 22's, when it ran before)."""
+    if not (root / "data_batch_5").exists():
+        write_cifar10(root, images=images)
+    return root
+
+
+def _p1_block_check(run: Path, cfg: dict) -> dict[str, Any]:
+    """One MoE DiT block of the run's EMA model on the card against the same
+    block on the CPU on the same input (the block's input captured from a
+    card forward of 16 validation-shaped images): the tokens the two routers
+    send to another expert or drop otherwise, counted, and the block's output
+    over the tokens routed alike, as a fraction of max |ref|."""
+    import copy
+
+    import torch
+
+    from diffulab_tpu_torch.config import instantiate
+    from diffulab_tpu_torch.parallel.moe import _route
+    from diffulab_tpu_torch.training.checkpoint import restore_train_modules
+
+    model = instantiate(cfg["model"], device="cuda")
+    restore_train_modules(run / "checkpoints" / "ema", model)
+    model.eval()
+    block = model.layers[0]
+    seen: dict[str, Any] = {}
+    def keep_args(module, args):
+        seen.setdefault("args", args)
+
+    hooks = [block.register_forward_pre_hook(keep_args),
+             block.mlp_input.register_forward_pre_hook(lambda m, args: seen.setdefault("moe", []).append(args[0]))]
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    x = torch.randn(16, 32, 32, 3, generator=gen, device="cuda")
+    t = torch.rand(16, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (16,), generator=gen, device="cuda")
+    with torch.no_grad():
+        model(x, t, {"y": y})
+        for h in hooks:
+            h.remove()
+        out = block(*seen["args"])
+        cpu_block = copy.deepcopy(block).cpu()
+        args_cpu = tuple(a.cpu() if torch.is_tensor(a) else a if a is None else tuple(b.cpu() for b in a)
+                         for a in seen["args"])
+        moe_in = []
+        hook = cpu_block.mlp_input.register_forward_pre_hook(lambda m, args: moe_in.append(args[0]))
+        ref = cpu_block(*args_cpu)
+        hook.remove()
+        routes = []
+        for mlp, xin in ((block.mlp_input, seen["moe"][0]), (cpu_block.mlp_input, moe_in[0])):
+            xt = xin.reshape(-1, xin.shape[-1]).float()
+            cap = max(1, int(mlp.capacity_factor * xt.shape[0] / mlp.experts.n_experts))
+            expert, pos, keep, _, _ = _route(xt @ mlp.experts.w_gate.float(), cap)
+            routes.append((expert.cpu(), keep.cpu()))
+    same = (routes[0][0] == routes[1][0]) & (routes[0][1] == routes[1][1])
+    same_tokens = same.reshape(out.shape[0], out.shape[1])
+    diff = (out.cpu() - ref).abs()[same_tokens]
+    err = float(diff.max() / ref.abs().max())
+    if err > P1_BLOCK_RTOL or not torch.isfinite(out).all():
+        fail(f"P1 MoE block card vs CPU: {err:.3e} of max |ref| over the tokens routed alike (tol {P1_BLOCK_RTOL})")
+    return {"tokens": int(same.numel()), "routed_differently": int((~same).sum()), "rel_err": err,
+            "dropped": int((~routes[0][1]).sum())}
+
+
+def _p1_moe_share(model_cfg: dict, batch: int) -> dict[str, float]:
+    """The MoE MLP of one block, forward and backward, at a training
+    micro-batch's token count (B x 256 tokens of width 512, seeded), device
+    ms from CUDA events; times the depth it is the MoE MLPs' time a step."""
+    import torch
+
+    from diffulab_tpu_torch.config import instantiate
+
+    model = instantiate(model_cfg, device="cuda")
+    mlp = model.layers[0].mlp_input
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    x = torch.randn(batch, 256, model_cfg["inner_dim"], generator=gen, device="cuda", requires_grad=True)
+    g = torch.randn(batch, 256, model_cfg["inner_dim"], generator=gen, device="cuda")
+
+    def fwd_bwd():
+        mlp(x).backward(g)
+
+    ms = cuda_time_ms(fwd_bwd, iters=10)
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: mlp(x), iters=10)
+    del model, x, g
+    torch.cuda.empty_cache()
+    return {"moe_fwd_bwd_ms": ms, "moe_fwd_ms": fwd, "depth": model_cfg["depth"]}
+
+
+def _p1_ring_vs_k1(cfg: dict) -> float:
+    """The ring config's DiT at full width, seeded weights, 8 images: the
+    forward with a one-device mesh set (the ring body, a torch product)
+    against the same model without one (the K1 route); max |diff| over max |ref|."""
+    import torch
+
+    from diffulab_tpu_torch.config import instantiate
+    from diffulab_tpu_torch.parallel.mesh import make_mesh
+
+    torch.manual_seed(28)
+    model = instantiate(cfg["model"], device="cuda")
+    randomize_(model, 28)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.randn(8, 32, 32, 3, generator=gen, device="cuda")
+    t = torch.rand(8, generator=gen, device="cuda")
+    y = torch.randint(0, 10, (8,), generator=gen, device="cuda")
+    with torch.no_grad():
+        reset_launch_counts()
+        k1 = model(x, t, {"y": y})["x"]
+        k1_launches = launch_counts()["fused_mha_fwd"]
+        model.set_parallel_mesh(make_mesh({}))
+        reset_launch_counts()
+        ring = model(x, t, {"y": y})["x"]
+        ring_launches = launch_counts()["fused_mha_fwd"]
+    err = float((ring - k1).abs().max() / k1.abs().max())
+    if err > P1_BLOCK_RTOL or k1_launches != cfg["model"]["depth"] or ring_launches != 0:
+        fail(f"P1 ring body vs K1: {err:.3e} (tol {P1_BLOCK_RTOL}); K1 launches {k1_launches} / {ring_launches}")
+    return err
+
+
+def phase_p1(root: Path) -> dict[str, Any]:
+    """Phase 28: slice P1 on the card (module docstring)."""
+    import os
+
+    from diffulab_tpu_torch.config import compose_config
+    from diffulab_tpu_torch.examples import train_diffusion
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    sys.modules["wandb"] = None
+    log = root / "p1.log"
+    labels = ",".join(str(i) for i in range(10))
+    out: dict[str, Any] = {}
+
+    # (a) the MoE DiT at full width
+    data = _p1_cifar(root / "cifar-10-batches-py", F1_CIFAR_IMAGES)
+    cuts = {**P1_MOE_CUTS, **{f"dataset.{split}.data_path": ("data/cifar-10-batches-py", data)
+                              for split in ("train", "val")}}
+    overrides = [f"{key}={new}" for key, (_, new) in cuts.items()]
+    cfg = compose_config(CONFIG_DIR, P1_MOE_CONFIG, overrides)
+    model, tokens = cfg["model"], (32 // cfg["model"]["patch_size"]) ** 2
+    save = root / "p1_moe"
+    run = save / cfg["trainer"]["project_name"]
+    steps = F1_CIFAR_IMAGES["train"][1] // cfg["dataloader"]["batch_size"]
+    tr = _timed_train_cli(train_diffusion.main, ["--config-name", P1_MOE_CONFIG, *overrides,
+                                                 f"trainer.save_path={save}"], log, run, 1, steps, "P1 moe")
+    depth = model["depth"]
+    want = {(name, "float32", tokens): depth for name in ("fused_mha_fwd", "fused_mha_bwd")}
+    if tr["per_step"] != [(depth, depth, 0)] * steps or any(k != want for k in tr["step_keys"]):
+        fail(f"P1 moe train: launches per step {sorted(set(tr['per_step']))}, expected {depth} fp32 K1 + K2 at "
+             f"{tokens} ({want})")
+    n_steps = cfg["diffuser"]["n_steps"]
+    sample = _sample_request(["--config-name", P1_MOE_CONFIG, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
+                              str(F1_SAMPLES), "--guidance", str(F1_GUIDANCE), "--labels", labels, "--out",
+                              str(root / "p1_moe.png"), *overrides], log)
+    if launch_keys() != {("fused_mha_fwd", "float32", tokens): n_steps * depth} \
+            or sample["images"].shape != (F1_SAMPLES, 32, 32, 3):
+        fail(f"P1 moe sample: launches {launch_keys()}, expected {n_steps * depth} fp32 K1; "
+             f"images {sample['images'].shape}")
+    block = _p1_block_check(run, cfg)
+    share = _p1_moe_share(model, cfg["dataloader"]["batch_size"])
+    share["share"] = share["moe_fwd_bwd_ms"] * depth / tr["kernel_ms"]
+    cut_text = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in P1_MOE_CUTS.items())
+    print(f"phase 28a P1 {P1_MOE_CONFIG} (cut: {cut_text}, images {F1_CIFAR_IMAGES} written from a seed; else "
+          f"the config's: {model['inner_dim']} wide, {model['num_heads']} heads, depth {depth}, "
+          f"{model['n_experts']} experts of hidden {model['mlp_ratio'] * model['inner_dim']}, capacity factor "
+          f"{model['capacity_factor']}, batch {cfg['dataloader']['batch_size']}, accumulation "
+          f"{cfg['trainer']['gradient_accumulation_step']}, fp32): {tr['trainer'].step} steps in "
+          f"{tr['train_s']:.1f} s, ms/step start to start median after the first two {tr['steady']:.2f} (min "
+          f"{min(tr['step_ms']):.2f} max {max(tr['step_ms']):.2f}; train_step alone {tr['kernel_ms']:.2f}), "
+          f"samples/s {cfg['dataloader']['batch_size'] / tr['steady'] * 1e3:.1f}, peak mem {tr['peak_gib']:.2f} GiB; "
+          f"MoE MLP of one block fwd+bwd {share['moe_fwd_bwd_ms']:.3f} ms (fwd {share['moe_fwd_ms']:.3f}), x{depth} "
+          f"= {share['share'] * 100:.1f}% of train_step (isolated, CUDA events); train loss "
+          f"{[round(x, 5) for x in tr['losses']]}, val loss {[round(x, 5) for x in tr['val_losses']]}; fp32 K1 + K2 "
+          f"a step {depth} + {depth} at {tokens}, in the run {tr['launches']}; sample {F1_SAMPLES} images "
+          f"Euler-{n_steps} CFG {F1_GUIDANCE}: generate {sample['generate_ms']:.1f} ms, {n_steps * depth} fp32 K1; "
+          f"block 0 card vs CPU: {block['routed_differently']} of {block['tokens']} tokens routed differently, "
+          f"{block['dropped']} dropped by capacity, rel err {block['rel_err']:.3e} over the rest (tol "
+          f"{P1_BLOCK_RTOL})")
+    out["moe"] = {"train": tr["launches"], "sample": sample["launches"], "step_ms": tr["steady"],
+                  "kernel_ms": tr["kernel_ms"], "peak_gib": tr["peak_gib"], "share": share, "block": block}
+
+    # (b) the ring and pipeline configs at their size-1 axes, one update each
+    small = _p1_cifar(root / "cifar_p1_one_update", P1_ONE_IMAGES)
+    for config, axis in P1_AXES.items():
+        cuts = {**axis, **P1_ONE_UPDATE, **{f"dataset.{split}.data_path": ("data/cifar-10-batches-py", small)
+                                            for split in ("train", "val")}}
+        overrides = [f"{key}={new}" for key, (_, new) in cuts.items()]
+        cfg = compose_config(CONFIG_DIR, config, overrides)
+        save = root / f"p1_{config}"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (trainer,) = _run_cli(train_diffusion.main, ["--config-name", config, *overrides,
+                                                     f"trainer.save_path={save}"], log)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        rows = [json.loads(line) for line in (save / cfg["trainer"]["project_name"] / "metrics.jsonl")
+                .read_text().splitlines()]
+        losses = [r[k] for r in rows for k in ("train/loss", "val/loss") if k in r]
+        micro = P1_ONE_IMAGES["train"][1] // cfg["dataloader"]["batch_size"]
+        # the ring body is a torch product: no K1/K2; the pipeline at pipe=1 runs its blocks in sequence
+        per_step = 0 if config.endswith("ring_attention") else cfg["model"]["depth"]
+        if trainer.step != micro or len(losses) != 2 or not all(math.isfinite(v) for v in losses) \
+                or launches["fused_mha_bwd"] != per_step * micro:
+            fail(f"P1 {config}: {trainer.step} steps, losses {losses}, launches {launches}")
+        cut_text = ", ".join(f"{key} {old} -> {new}" for key, (old, new) in cuts.items() if "data_path" not in key)
+        print(f"phase 28b P1 {config} (cut: {cut_text}, images {P1_ONE_IMAGES}; full width): {trainer.step} "
+              f"micro-steps (one update) in {seconds:.1f} s with validation, losses {[round(v, 5) for v in losses]}, "
+              f"fp32 K1 + K2 in the run {launches['fused_mha_fwd']} + {launches['fused_mha_bwd']} "
+              f"({per_step} + {per_step} a micro-step)")
+        out[config] = launches
+    out["ring_vs_k1"] = _p1_ring_vs_k1(compose_config(CONFIG_DIR, "train_cifar10_ring_attention", []))
+    print(f"phase 28b ring body (one block, sp=1) vs the K1 route, full-width DiT, 8 images: rel err "
+          f"{out['ring_vs_k1']:.3e} (tol {P1_BLOCK_RTOL})")
+
+    # (c) a world of one under torchrun, over NCCL
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("import sys; sys.modules['wandb'] = None; import torch.distributed as dist; "
+            "from diffulab_tpu_torch.examples import train_diffusion; (t,) = train_diffusion.main(); "
+            "print('P1C', dist.get_backend(), dist.get_world_size(), t.step, tuple(t.mesh.values()))")
+    save = root / "p1_torchrun"
+    cuts = {**P1_ONE_UPDATE, **{f"dataset.{split}.data_path": ("data/cifar-10-batches-py", small)
+                                for split in ("train", "val")}}
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1", "--master-addr", "127.0.0.1",
+           "--master-port", str(port), "--no-python", sys.executable, "-c", code, "--config-name",
+           "train_cifar10_flow_matching", *(f"{k}={new}" for k, (_, new) in cuts.items()),
+           f"trainer.save_path={save}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)})
+    seconds = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("P1C ")), "")
+    rows = [json.loads(ln) for ln in (save / "cifar10_flow_matching" / "metrics.jsonl").read_text().splitlines()] \
+        if (save / "cifar10_flow_matching" / "metrics.jsonl").exists() else []
+    losses = [r[k] for r in rows for k in ("train/loss", "val/loss") if k in r]
+    if proc.returncode != 0 or not line.startswith("P1C nccl 1 2") or len(losses) != 2 \
+            or not all(math.isfinite(v) for v in losses):
+        fail(f"P1 torchrun world of one: rc {proc.returncode}, {line!r}, losses {losses}\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    print(f"phase 28c P1 torchrun --nproc-per-node 1 train_cifar10_flow_matching (cut: "
+          f"{', '.join(f'{k} {o} -> {n}' for k, (o, n) in P1_ONE_UPDATE.items())}, images {P1_ONE_IMAGES}): "
+          f"{line.removeprefix('P1C ')} (backend, world, micro-steps, mesh), losses {[round(v, 5) for v in losses]}, "
+          f"{seconds:.1f} s of command")
+    out["torchrun_s"] = seconds
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5598,6 +5881,8 @@ def main() -> int:
         lap("26 J1 serving")
         j1_prompts = phase_j1_prompts()
         lap("27 J1 --prompts")
+        p1 = phase_p1(Path(tmp))
+        lap("28 P1 parallel configs")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -5626,6 +5911,9 @@ def main() -> int:
     h1_windows = {f"h1_{k}": h1[k] for k in ("mmdit", "trainable", "sprint", "evaluate_txt2img", "evaluate_fid")}
     h1_fp32 = {k: {name: w[name] - w[f"{name}_bf16"] for name in ("fused_mha_fwd", "fused_mha_bwd")}
                for k, w in h1_windows.items()}
+    # slice P1's windows: the MoE DiT's train run and request, the ring and pipeline runs (fp32 K1/K2 at 256)
+    p1_windows = {"p1_moe_train": p1["moe"]["train"], "p1_moe_sample": p1["moe"]["sample"],
+                  **{f"p1_{c.removeprefix('train_cifar10_')}": p1[c] for c in P1_AXES}}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -5677,7 +5965,8 @@ def main() -> int:
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
         + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"]))
         + sum(w["fused_mha_fwd"] for w in (*h1_fp32.values(), *i1["lora"].values()))
-        + j1_serve["smoke"]["fused_mha_fwd"] + j1_serve["served"]["fused_mha_fwd"],
+        + j1_serve["smoke"]["fused_mha_fwd"] + j1_serve["served"]["fused_mha_fwd"]
+        + sum(w["fused_mha_fwd"] for w in p1_windows.values()),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
@@ -5685,7 +5974,8 @@ def main() -> int:
                              **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]},
                              **{k: w["fused_mha_fwd"] for k, w in i1["lora"].items()},
                              "j1_c1_export_smoke": j1_serve["smoke"]["fused_mha_fwd"],
-                             "j1_c1_served": j1_serve["served"]["fused_mha_fwd"]},
+                             "j1_c1_served": j1_serve["served"]["fused_mha_fwd"],
+                             **{k: w["fused_mha_fwd"] for k, w in p1_windows.items()}},
         "h1_embedder_shape": h1["kernels"]["k1_h1_embedder"],
         "h1_eval_384_shape": h1["kernels"]["k1_h1_eval_384"],
         "f1_padded64": f1_cli["kernels"]["k1_pad64"],
@@ -5722,11 +6012,12 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"]
         + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values(), *h1_fp32.values(),
-                                           *i1["lora"].values())),
+                                           *i1["lora"].values(), *p1_windows.values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
                              **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
                              **{k: w["fused_mha_bwd"] for k, w in h1_fp32.items() if w["fused_mha_bwd"]},
-                             **{k: w["fused_mha_bwd"] for k, w in i1["lora"].items() if w["fused_mha_bwd"]}},
+                             **{k: w["fused_mha_bwd"] for k, w in i1["lora"].items() if w["fused_mha_bwd"]},
+                             **{k: w["fused_mha_bwd"] for k, w in p1_windows.items() if w["fused_mha_bwd"]}},
         "h1_embedder_shape": h1["kernels"]["k2_h1_embedder"],
         "cifar_b32": f1_cli["kernels"]["k2_b32"],
         "f1_padded64": f1_cli["kernels"]["k2_pad64"],

@@ -14,9 +14,15 @@ index batches in its own order instead, and ``collate_fn`` replaces the
 default stacking (the text batches' :func:`~diffulab_tpu_torch.data.imagenet.collate_fn`);
 ``drop_last=False`` keeps the trailing partial batch.
 
-One process: the reference's ``jax.process_count()`` / ``process_index()``
-are 1 and 0 here until multi-process training is ported (ROADMAP queue 1,
-item 17). The batch order is the reference's for the same seed and epoch.
+Several processes (loader.py:43-61): ``batch_size`` is GLOBAL; every
+process draws the same shuffled order and loads its own contiguous slice of
+every global batch. The slice index is the process's coordinate on the
+mesh's ``(data, fsdp)`` axes, the axes the batch shards over, not its global
+rank (``process_index`` / ``process_count``, 0 and 1 unless given; the
+trainers, which own the mesh, set them through :meth:`DataLoader.set_process_slice`
+from :func:`~diffulab_tpu_torch.parallel.mesh.batch_shard`). A trailing partial batch is trimmed to the largest
+length the processes divide, and one smaller than their count is dropped.
+The batch order is the reference's for the same seed and epoch.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ def default_collate(items: Sequence[Any]) -> Any:
 class DataLoader:
     def __init__(self, dataset: Any, batch_size: int, shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                  collate_fn: Callable[[Sequence[Any]], Any] | None = None, sampler: Any | None = None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_index: int | None = None, process_count: int | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -53,6 +59,8 @@ class DataLoader:
         self.sampler = sampler
         self.prefetch = prefetch
         self._epoch = 0
+        self.process_index = 0 if process_index is None else process_index
+        self.process_count = 1 if process_count is None else process_count
 
     def set_epoch(self, epoch: int) -> None:
         """Pin the shuffle epoch (torch DistributedSampler convention): a
@@ -65,15 +73,48 @@ class DataLoader:
         if self.sampler is not None and hasattr(self.sampler, "set_epoch"):
             self.sampler.set_epoch(epoch)
 
+    def set_process_slice(self, index: int, count: int) -> None:
+        """Load the ``index``-th of ``count`` contiguous slices of every global batch."""
+        self.process_index, self.process_count = index, count
+
     def __len__(self) -> int:
+        # mirrors _batch_indices: with several processes, a batch smaller than their count is dropped
+        pc = self.process_count
         if self.sampler is not None:
-            return len(self.sampler)
+            if pc == 1:
+                return len(self.sampler)
+            # counting iterates the sampler, which advances its shuffle epoch: put it back
+            saved_epoch = getattr(self.sampler, "_epoch", None)
+            try:
+                return sum(1 for batch in self.sampler if len(batch) // pc > 0)
+            finally:
+                if saved_epoch is not None:
+                    self.sampler._epoch = saved_epoch
         full, rem = divmod(len(self.dataset), self.batch_size)
-        return full + (1 if rem and not self.drop_last else 0)
+        if self.drop_last or rem == 0:
+            return full
+        return full + (1 if rem >= pc else 0)
+
+    def _local_slice(self, batch: Sequence[int]) -> Sequence[int] | None:
+        """This process's rows of a global batch (loader.py:118-132): a
+        trailing partial batch is trimmed to the largest length the
+        processes divide (every process must see the same number of batches
+        of one shape), one smaller than their count dropped (None)."""
+        pc = self.process_count
+        if pc == 1:
+            return batch
+        local = len(batch) // pc
+        if local == 0:
+            return None
+        pi = self.process_index
+        return batch[pi * local: (pi + 1) * local]
 
     def _batch_indices(self) -> Iterator[Sequence[int]]:
         if self.sampler is not None:
-            yield from self.sampler
+            for batch in self.sampler:
+                local = self._local_slice(batch)
+                if local is not None:
+                    yield local
             return
         n = len(self.dataset)
         order = np.arange(n)
@@ -82,7 +123,9 @@ class DataLoader:
             rng.shuffle(order)
         end = n - n % self.batch_size if self.drop_last else n
         for start in range(0, end, self.batch_size):
-            yield order[start : start + self.batch_size]
+            local = self._local_slice(order[start: start + self.batch_size])
+            if local is not None:
+                yield local
 
     def _make_batch(self, idx: Sequence[int]) -> Any:
         # datasets exposing get_batch (native fused gather+normalize) skip the

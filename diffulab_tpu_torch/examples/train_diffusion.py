@@ -7,6 +7,9 @@ Usage (from the repository root):
     # on the CPU, at a toy size
     python -m diffulab_tpu_torch.examples.train_diffusion --device cpu \\
         --config-name train_synthetic_flow_matching model.depth=2 ...
+    # N processes, one card each (gloo on the CPU with --device cpu), on the config's trainer.mesh
+    torchrun --nproc-per-node N -m diffulab_tpu_torch.examples.train_diffusion \\
+        --config-name train_cifar10_moe
 
 The config tree is the JAX package's ``configs/``, unedited; its
 ``_target_`` paths are remapped to the port
@@ -25,6 +28,10 @@ precomputed features trains through
 them. ``trainer.lora_rank`` finetunes LoRA adapters (``trainer.lora_variant``
 ``lora`` or ``dora``, :mod:`~diffulab_tpu_torch.training.lora`) on the base
 weights restored from ``trainer.lora_from``, and trains the adapters alone.
+Under ``torchrun`` the process group starts from its environment
+(:func:`~diffulab_tpu_torch.parallel.mesh.initialize_distributed`), each
+process on its own card, and the trainer builds ``trainer.mesh`` over them;
+``dataloader.batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from diffulab_tpu_torch.config import instantiate, sweep
 from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
 from diffulab_tpu_torch.data.loader import DataLoader
 from diffulab_tpu_torch.diffuse import Diffuser
+from diffulab_tpu_torch.parallel.mesh import initialize_distributed, is_main_process
 from diffulab_tpu_torch.training.checkpoint import restore_train_modules
 from diffulab_tpu_torch.training.lora import apply_lora, count_lora_params
 from diffulab_tpu_torch.training.losses import build_extra_losses
@@ -67,12 +75,13 @@ def main(argv: list[str] | None = None) -> list[BaseTrainer]:
     """Train once per sweep combination; returns the trainers."""
     args = parse_args(argv)
     full_fp32_products()
-    device = resolve_device(args.device)
+    device = resolve_device(initialize_distributed(args.device))
     return sweep.dispatch(args, lambda cfg, seed: run_one(cfg, seed, device))
 
 
 def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
-    print(yaml.safe_dump(cfg, sort_keys=False))
+    if is_main_process():
+        print(yaml.safe_dump(cfg, sort_keys=False))
 
     train_dataset = instantiate(cfg["dataset"]["train"])
     val_dataset = instantiate(cfg["dataset"]["val"])
@@ -120,7 +129,8 @@ def run_one(cfg: dict, seed: int, device: torch.device) -> BaseTrainer:
         if not cfg["trainer"].get("denoiser_ckpt"):
             restore_train_modules(distill_from, denoiser)
             print("student warm-started from the teacher weights")
-    print(f"Number of trainable parameters: {count_parameters(denoiser):,}")
+    if is_main_process():
+        print(f"Number of trainable parameters: {count_parameters(denoiser):,}")
 
     # a repa: section builds RepaLoss with its live frozen encoder; the formalizations hand it x0
     diffuser = Diffuser(

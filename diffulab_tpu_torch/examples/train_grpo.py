@@ -39,6 +39,7 @@ from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.examples.train_repa import _host
 from diffulab_tpu_torch.networks.rewards.grpo import LumaJudge
 from diffulab_tpu_torch.training.grpo_trainer import GRPOTrainer
+from diffulab_tpu_torch.parallel.mesh import initialize_distributed
 from diffulab_tpu_torch.utils import full_fp32_products, resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs"
@@ -77,6 +78,9 @@ class PromptLoader:
     def __iter__(self) -> Iterator[dict[str, Any]]:
         return _prompt_batches(self.loader)
 
+    def set_process_slice(self, index: int, count: int) -> None:
+        self.loader.set_process_slice(index, count)
+
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
@@ -98,7 +102,7 @@ def main(argv: list[str] | None = None) -> list[GRPOTrainer]:
     """Train once per sweep combination; returns the trainers."""
     args = parse_args(argv)
     full_fp32_products()
-    device = resolve_device(args.device)
+    device = resolve_device(initialize_distributed(args.device))
     return sweep.dispatch(args, lambda cfg, seed: run_one(cfg, seed, device, args))
 
 

@@ -38,8 +38,15 @@ the ``use_checkpoint`` path too, where gradients reach them through the
 recomputed blocks. Capture and block caching do not compose (a training and
 a sampling feature; the reference asserts it).
 
-Not ported yet (they raise ``NotImplementedError``): MoE MLPs, ring
-attention and GPipe pipelining.
+The parallel paths (mmdit.py:105-128, 143-158, 794-860) follow the mesh
+that :meth:`MMDiT.set_parallel_mesh` injects (the trainers do):
+``mlp_type="moe"`` builds DiT blocks with :class:`MoEMlp` (switch-routed
+experts, expert-parallel over the ``expert`` axis, dense without one);
+``attention_impl="ring"`` runs ring attention over ``sp`` once a mesh is
+set, even of one block, and the attention kernels without one;
+``pipeline_microbatches`` runs the DiT block stack as GPipe stages over
+``pipe`` when that axis is larger than 1, without feature capture,
+``use_checkpoint`` or a block cache, and in sequence otherwise.
 """
 
 from __future__ import annotations
@@ -66,6 +73,9 @@ from diffulab_tpu_torch.networks.nn import (
     timestep_embedding,
 )
 from diffulab_tpu_torch.ops import dot_product_attention
+from diffulab_tpu_torch.ops.ring_attention import sequence_parallel_attention
+from diffulab_tpu_torch.parallel.mesh import axis_group, mesh_shape
+from diffulab_tpu_torch.parallel.moe import ExpertMlp, expert_parallel_mlp, moe_mlp_local
 from diffulab_tpu_torch.utils import resolve_device, resolve_dtype
 
 
@@ -88,6 +98,10 @@ class LayerNormFP32(nn.Module):
 class SwiGLUMlp(nn.Module):
     """Packed SwiGLU MLP, no bias (mmdit.py:91)."""
 
+    #: tensor parallelism (parallel/sharding.py; the reference's "hidden" axis, :97-99): the packed
+    #: [x; gate] input column-parallel by channel pair, the output row-parallel
+    tp_plan = {"fc_in": ("column", 2), "fc_out": ("row", 1)}
+
     def __init__(self, dim: int, mlp_ratio: int, *, dtype=None, device=None, param_dtype=torch.float32):
         super().__init__()
         kw = dict(bias=False, dtype=dtype, device=device, param_dtype=param_dtype)
@@ -98,9 +112,46 @@ class SwiGLUMlp(nn.Module):
         return self.fc_out(packed_swiglu(self.fc_in(x)))
 
 
+class MoEMlp(nn.Module):
+    """Switch-routed mixture-of-experts MLP (mmdit.py:105): expert-parallel
+    over the mesh's ``expert`` axis once a mesh with that axis larger than 1
+    is set, dense otherwise. The router's load-balance loss of the last call
+    is kept in ``load_balance_loss`` (the reference sows it as
+    ``moe_load_balance``; nothing adds it to the loss)."""
+
+    def __init__(self, dim: int, mlp_ratio: int, n_experts: int, capacity_factor: float, *, dtype=None,
+                 device=None, param_dtype=torch.float32):
+        super().__init__()
+        self.experts = ExpertMlp(n_experts, dim, mlp_ratio * dim, dtype=dtype, device=device, param_dtype=param_dtype)
+        self.capacity_factor = capacity_factor
+        self.mesh = None
+        self.load_balance_loss: torch.Tensor | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if mesh_shape(self.mesh)["expert"] > 1:
+            y, aux = expert_parallel_mlp(self.experts, x, group=axis_group(self.mesh, "expert"),
+                                         capacity_factor=self.capacity_factor)
+        else:
+            y, aux = moe_mlp_local(self.experts, x, self.capacity_factor)
+        self.load_balance_loss = aux["load_balance_loss"]
+        return y
+
+
+def _attend(module: nn.Module, q, k, v, attn_mask):
+    """Ring attention over the mesh's ``sp`` axis for ``attention_impl="ring"``
+    with a mesh set (mmdit.py:143-158), else the attention kernels."""
+    if module.attention_impl == "ring" and module.mesh is not None:
+        return sequence_parallel_attention(module.mesh, "sp")(q, k, v, kv_mask=attn_mask, scale=module.scale)
+    impl = "auto" if module.attention_impl == "ring" else module.attention_impl
+    return dot_product_attention(q, k, v, kv_mask=attn_mask, scale=module.scale, impl=impl)
+
+
 class DiTAttention(nn.Module):
     """Self-attention with QKNorm (over the full inner dim, before the head
     split) and N-D planar RoPE (mmdit.py:132)."""
+
+    #: tensor parallelism by head (parallel/sharding.py, T27): the fused qkv column-parallel in 3 parts
+    tp_plan = {"qkv": ("column", 3), "proj_out": ("row", 1)}
 
     def __init__(self, inner_dim: int, num_heads: int, rope_axes_dim: Sequence[int], *,
                  dtype=None, device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
@@ -110,6 +161,7 @@ class DiTAttention(nn.Module):
         self.scale = self.head_dim ** -0.5
         self.rotary_dim = int(sum(rope_axes_dim))
         self.attention_impl = attention_impl
+        self.mesh = None  # set by MMDiT.set_parallel_mesh, for "ring"
         self.kernel_dtype = dtype
         kw = dict(bias=False, dtype=dtype, device=device, param_dtype=param_dtype)
         self.qkv = Linear(inner_dim, 3 * inner_dim, **kw)
@@ -127,8 +179,7 @@ class DiTAttention(nn.Module):
         q, k = apply_rope_ndim_planar(q, k, cos, sin, self.rotary_dim)
         if self.kernel_dtype is not None:
             q, k, v = (t.to(self.kernel_dtype) for t in (q, k, v))
-        out = dot_product_attention(q, k, v, kv_mask=attn_mask, scale=self.scale,
-                                    impl=self.attention_impl)
+        out = _attend(self, q, k, v, attn_mask)
         return self.proj_out(out.reshape(b, s, -1))
 
 
@@ -139,7 +190,8 @@ class DiTBlock(nn.Module):
     def __init__(self, inner_dim: int, embedding_dim: int, num_heads: int, mlp_ratio: int,
                  rope_axes_dim: Sequence[int], *, dtype=None, stable_conditioning: bool = True,
                  device=None, param_dtype=torch.float32, attention_impl: str = "auto",
-                 attention_dtype=None, mlp_dtype=None):
+                 attention_dtype=None, mlp_dtype=None, mlp_type: str = "swiglu", n_experts: int = 8,
+                 capacity_factor: float = 2.0):
         super().__init__()
         kw = dict(device=device, param_dtype=param_dtype)
         # per-component precision overrides, defaulting to the block's compute dtype (mmdit.py:253)
@@ -151,7 +203,12 @@ class DiTBlock(nn.Module):
         self.attention = DiTAttention(inner_dim, num_heads, rope_axes_dim, dtype=attention_dtype,
                                       attention_impl=attention_impl, **kw)
         self.norm_2 = LayerNormFP32(inner_dim, **kw)
-        self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
+        if mlp_type == "moe":
+            self.mlp_input = MoEMlp(inner_dim, mlp_ratio, n_experts, capacity_factor, dtype=mlp_dtype, **kw)
+        elif mlp_type == "swiglu":
+            self.mlp_input = SwiGLUMlp(inner_dim, mlp_ratio, dtype=mlp_dtype, **kw)
+        else:
+            raise ValueError(f"unknown mlp_type {mlp_type!r}")
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, cos_sin_rope, attn_mask=None) -> torch.Tensor:
         mod = self.modulation(y)
@@ -168,6 +225,10 @@ class MMDiTAttention(nn.Module):
     projections per stream; q/k/v concatenated ``[context; input]`` along the
     sequence, RoPE'd with the 3-axis grid, attended jointly, split back."""
 
+    #: tensor parallelism by head (parallel/sharding.py; mmdit.py:199-204)
+    tp_plan = {"qkv_input": ("column", 3), "qkv_context": ("column", 3), "input_proj_out": ("row", 1),
+               "context_proj_out": ("row", 1)}
+
     def __init__(self, inner_dim: int, num_heads: int, rope_axes_dim: Sequence[int], *,
                  dtype=None, device=None, param_dtype=torch.float32, attention_impl: str = "auto"):
         super().__init__()
@@ -176,6 +237,7 @@ class MMDiTAttention(nn.Module):
         self.scale = self.head_dim ** -0.5
         self.rotary_dim = int(sum(rope_axes_dim))
         self.attention_impl = attention_impl
+        self.mesh = None  # set by MMDiT.set_parallel_mesh, for "ring"
         self.kernel_dtype = dtype
         kw = dict(bias=False, dtype=dtype, device=device, param_dtype=param_dtype)
         self.qkv_input = Linear(inner_dim, 3 * inner_dim, **kw)
@@ -207,7 +269,7 @@ class MMDiTAttention(nn.Module):
         kv_mask = None
         if attn_mask is not None:
             kv_mask = torch.cat([attn_mask.bool(), torch.ones((b, s_img), dtype=torch.bool, device=x.device)], dim=1)
-        out = dot_product_attention(q, k, v, kv_mask=kv_mask, scale=self.scale, impl=self.attention_impl)
+        out = _attend(self, q, k, v, kv_mask)
         out = out.reshape(b, s_ctx + s_img, -1)
         return self.input_proj_out(out[:, s_ctx:]), self.context_proj_out(out[:, :s_ctx])
 
@@ -442,6 +504,8 @@ class MMDiT(PatchGridMixin, Denoiser):
         use_checkpoint: bool = False,
         attention_impl: str = "auto",
         mlp_type: str = "swiglu",
+        n_experts: int = 8,
+        capacity_factor: float = 2.0,
         pipeline_microbatches: int | None = None,
         augment_dim: int = 0,
         stable_conditioning: bool = True,
@@ -459,12 +523,9 @@ class MMDiT(PatchGridMixin, Denoiser):
             raise ValueError("n_classes and context_embedder cannot both be specified")
         if not simple_dit and context_embedder is None:
             raise ValueError("the multimodal MMDiT (simple_dit=False) needs a context embedder")
-        if mlp_type != "swiglu":
-            raise NotImplementedError(f"mlp_type={mlp_type!r} (MoE) is not ported yet (ROADMAP queue 1, item 17)")
-        if attention_impl == "ring":
-            raise NotImplementedError("ring attention is not ported yet (ROADMAP queue 1, item 17)")
-        if pipeline_microbatches is not None:
-            raise NotImplementedError("pipeline parallelism is not ported yet (ROADMAP queue 1, item 17)")
+        if pipeline_microbatches is not None and not simple_dit:
+            raise ValueError("pipeline_microbatches requires simple_dit=True (the dual/single-stream MMDiT stack "
+                             "is heterogeneous and runs sequentially)")
         device = resolve_device(device)
         dtype = resolve_dtype(dtype)
         # per-component precision overrides of the dual-stream / DiT blocks ("float32" accepted from YAML)
@@ -482,6 +543,9 @@ class MMDiT(PatchGridMixin, Denoiser):
         self.inner_dim = inner_dim
         self.use_checkpoint = use_checkpoint
         self.attention_impl = attention_impl
+        #: GPipe microbatches of the DiT block stack over the mesh's "pipe" axis (None: in sequence)
+        self.pipeline_microbatches = pipeline_microbatches
+        self.mesh = None  # set by set_parallel_mesh
         #: 0-based block indices whose output a capturing forward returns (REPA)
         self.feature_layers = tuple(feature_layers)
         cond_dtype = stable_dtype(dtype, stable_conditioning)
@@ -528,14 +592,31 @@ class MMDiT(PatchGridMixin, Denoiser):
         self.conv_proj = PatchEmbed(self.input_channels, inner_dim, patch_size, dtype=cond_dtype, **kw)
         block_kw = dict(dtype=dtype, stable_conditioning=stable_conditioning, attention_impl=attention_impl, **kw)
         block_cls = DiTBlock if simple_dit else MMDiTBlock
-        # the overrides reach the DiT / dual-stream blocks only, as in the reference (mmdit.py:566-575)
+        # the overrides reach the DiT / dual-stream blocks only, as in the reference (mmdit.py:566-575);
+        # the MLP type the DiT blocks alone (the reference's MMDiTBlock takes and ignores it)
+        moe_kw = dict(mlp_type=mlp_type, n_experts=n_experts, capacity_factor=capacity_factor) if simple_dit else {}
         self.layers = nn.ModuleList(
             [block_cls(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim,
-                       attention_dtype=attention_dtype, mlp_dtype=mlp_dtype, **block_kw)
+                       attention_dtype=attention_dtype, mlp_dtype=mlp_dtype, **moe_kw, **block_kw)
              for _ in range(depth - n_single_stream_blocks)]
             + [MMDiTSingleStreamBlock(inner_dim, embedding_dim, num_heads, mlp_ratio, self.rope_axes_dim, **block_kw)
                for _ in range(n_single_stream_blocks)]
         )
+
+    def set_parallel_mesh(self, mesh) -> None:
+        """Give the blocks that shard at call time the mesh (mmdit.py:584):
+        ring attention (``sp``), MoE MLPs (``expert``) and the pipelined
+        block stack (``pipe``). The trainers call it; a mesh of one device
+        is harmless."""
+        self.mesh = mesh
+        for block in self.layers:
+            attn = getattr(block, "attention", None)
+            if attn is not None and hasattr(attn, "mesh"):
+                attn.mesh = mesh
+            for attr in ("mlp_input", "mlp_context", "mlp"):
+                mlp = getattr(block, attr, None)
+                if isinstance(mlp, MoEMlp):
+                    mlp.mesh = mesh
 
     # --- sampling-time block caching (Delta-DiT-style) -----------------------
     def set_block_cache_span(self, span: tuple[int, int] | None) -> None:
@@ -616,7 +697,11 @@ class MMDiT(PatchGridMixin, Denoiser):
         pos_ids = self._image_pos_ids(x.shape[0], grid_size, 2, x.device)
         cos_sin = get_cos_sin_ndim_grid(pos_ids, self.rope_base, self.rope_axes_dim)
         new_cache, features = None, []
-        if self._use_cache(block_cache, cache_refresh, capture_features):
+        use_cache = self._use_cache(block_cache, cache_refresh, capture_features)
+        pipe_n = mesh_shape(self.mesh)["pipe"]
+        if self.pipeline_microbatches and pipe_n > 1 and not (capture_features or self.use_checkpoint or use_cache):
+            x = self._pipelined_blocks(x, emb, cos_sin)
+        elif use_cache:
             def run(i, s):
                 return (self._run_block(self.layers[i], s[0], emb, cos_sin, None),)
 
@@ -627,6 +712,26 @@ class MMDiT(PatchGridMixin, Denoiser):
                 if capture_features and i in self.feature_layers:
                     features.append(x)
         return self.last_layer(x, emb), new_cache, features
+
+    def _pipelined_blocks(self, x, emb, cos_sin):
+        """The DiT block stack through the GPipe engine over the mesh's
+        ``pipe`` axis (mmdit.py:821-860): the blocks' parameters stacked by
+        layer, each stage applying ``layers[0]`` with a layer's slice swapped
+        in; the conditioning and the RoPE tables ride the resident stream."""
+        from torch.func import functional_call
+
+        from diffulab_tpu_torch.parallel.pipeline import pipeline_apply, stack_block_params
+
+        template = self.layers[0]
+
+        def stage(layer_params, state):
+            out = functional_call(template, layer_params, (state["x"], state["y"], (state["cos"], state["sin"])))
+            return {**state, "x": out}
+
+        cos, sin = cos_sin
+        return pipeline_apply(stage, stack_block_params(self.layers), {"x": x}, mesh=self.mesh, axis="pipe",
+                              n_microbatches=self.pipeline_microbatches,
+                              stream={"y": emb, "cos": cos, "sin": sin})["x"]
 
     def _mmdit_forward(self, x, grid_size, timesteps, context_raw, drop, capture_features, aug=None,
                        block_cache=None, cache_refresh=None):

@@ -11,7 +11,7 @@ compute ``dtype`` (None = promote the input with the fp32 parameters, as
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +37,10 @@ class Linear(nn.Module):
     ``preferred_element_type``). The weight is stored ``[out, in]`` as torch
     does; :mod:`diffulab_tpu_torch.weights` transposes JAX kernels."""
 
+    #: tensor parallelism (:func:`diffulab_tpu_torch.parallel.sharding.shard_model`): None, or
+    #: ("column" | "row", process group) with the weight this rank's shard
+    tp: tuple[str, Any] | None = None
+
     def __init__(self, din: int, dout: int, bias: bool = True, *, dtype=None,
                  zero_init: bool = False, device=None, param_dtype=torch.float32, out_dtype=None):
         super().__init__()
@@ -51,12 +55,28 @@ class Linear(nn.Module):
             nn.init.xavier_uniform_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self._tensor_parallel(x)
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         if self.out_dtype is not None:
             out = F.linear(x.to(dt).to(self.out_dtype), self.weight.to(dt).to(self.out_dtype))
             return out if bias is None else out + bias.to(self.out_dtype)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+    def _tensor_parallel(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a column-parallel product (the input enters the
+        group: its gradient is all-reduced) or of a row-parallel one (the
+        output is all-reduced), on the local shard of the weight."""
+        from diffulab_tpu_torch.parallel import _comm
+
+        kind, group = self.tp
+        w = self.weight.to_local() if hasattr(self.weight, "to_local") else self.weight
+        if kind == "column":
+            x = _comm.copy_to(x, group)
+        dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        out = F.linear(x.to(dt), w.to(dt))
+        return out if kind == "column" else _comm.reduce_from(out, group)
 
 
 class Conv2d(nn.Module):
@@ -336,14 +356,26 @@ class RMSNorm(nn.Module):
     """RMSNorm with fp32 statistics (nn.py:304); ``x * rrms`` is rounded to
     the input dtype before the scale, as in the reference."""
 
+    #: under tensor parallelism (:func:`diffulab_tpu_torch.parallel.sharding.shard_model`) x holds this
+    #: rank's channels of the width, and the mean of squares is taken over this group
+    tp_group: Any = None
+
     def __init__(self, dim: int, *, device=None, param_dtype=torch.float32):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        rrms = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + 1e-6)
-        return (xf * rrms).to(x.dtype) * self.scale.to(x.dtype)
+        scale = self.scale
+        if self.tp_group is None:
+            rrms = torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + 1e-6)
+        else:
+            from diffulab_tpu_torch.parallel import _comm
+
+            ss = _comm.all_reduce_varying(xf.pow(2).sum(dim=-1, keepdim=True), self.tp_group)
+            rrms = torch.rsqrt(ss / scale.shape[0] + 1e-6)
+            scale = _comm.split(scale, self.tp_group, 0)
+        return (xf * rrms).to(x.dtype) * scale.to(x.dtype)
 
 
 class QKNorm(nn.Module):

@@ -20,6 +20,9 @@ reference's ``[B, S, H, D]`` layout. Dispatch:
   device. It keeps K1's fully-masked-row rule (o = 0), not the mean(V) of
   the reference's ``jax.nn.dot_product_attention`` path.
 
+The inputs are local tensors: a DTensor (a tensor-parallel or FSDP
+shard's wrapper) raises ``TypeError`` before any kernel sees it.
+
 The fused route pads sequences to :data:`MIN_BLOCK` multiples with a
 synthesized key mask and slices off padded query rows, as the reference's
 ``_fused_path``; it is differentiable (backward K2). At the head dims of
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from diffulab_tpu_torch.ops.flash_attention import flash_attention
 from diffulab_tpu_torch.ops.fused_mha import (
@@ -86,6 +90,9 @@ def dot_product_attention(
     [B,Skv] (True = attend). Returns [B, Sq, H, D] in q's dtype."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if any(isinstance(t, DTensor) for t in (q, k, v, kv_mask)):
+        raise TypeError("the attention kernels take local tensors: a sharded model's layers hand them their "
+                        "shards (parallel/sharding.py), never a DTensor")
     if impl == "xla":
         return _fused_path(q, k, v, kv_mask, scale, plain=True)
     if impl == "auto":

@@ -43,7 +43,16 @@ reference's draws instead (trap T4).
 Checkpoints, metrics, validation on the EMA weights and the best-validation
 save work as in :class:`~diffulab_tpu_torch.training.trainer.BaseTrainer`;
 a failed validation image grid raises (the reference logs it and goes on).
-A mesh of more than one device raises (ROADMAP queue 1, item 17).
+
+``trainer.mesh`` (grpo_trainer.py:200-208, 337-360): the parameters are
+sharded as BaseTrainer shards them, and the prompt batch over ``(data,
+fsdp)``: each process samples, rewards and learns on its own rows (its
+loader's slice), with its rows of the batch's draws made for the global
+batch (``x_init`` and each step's SDE noise, T28); each learn step's
+gradients are averaged over the processes before its norm and update, and
+``ratio_dev`` (the trust region's test) and the logged means are the global
+batch's. A ``mini_batch_size`` smaller than the process's prompts raises
+under a sharded batch (the reference's chunks run over the global batch).
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ import torch
 from diffulab_tpu_torch.diffuse.diffuser import Diffuser
 from diffulab_tpu_torch.diffuse.flow import Flow, NoiseFn, generator_noise
 from diffulab_tpu_torch.networks.rewards.common import RewardModel
+from diffulab_tpu_torch.parallel.mesh import batch_shard
+from diffulab_tpu_torch.parallel.sharding import full_tensor, full_tensors, shard_like, shard_model, sync_grads
 from diffulab_tpu_torch.training.checkpoint import (
     map_tensors,
     restore_checkpoint,
@@ -67,8 +78,17 @@ from diffulab_tpu_torch.training.checkpoint import (
 )
 from diffulab_tpu_torch.training.ema import init_ema
 from diffulab_tpu_torch.training.meters import AverageMeter
-from diffulab_tpu_torch.training.optim import OptimizerFactory
-from diffulab_tpu_torch.training.trainer import EMA, MultiStepOptimizer, Trainer, _fold_seed, _swapped_params
+from diffulab_tpu_torch.training.optim import OptimizerFactory, global_norm
+from diffulab_tpu_torch.training.trainer import (
+    EMA,
+    MultiStepOptimizer,
+    Trainer,
+    _fold_seed,
+    _full_split,
+    _opt_state_map,
+    _restore_placed,
+    _swapped_params,
+)
 
 logger = pylog.getLogger(__name__)
 
@@ -183,9 +203,11 @@ class GRPOTrainer(Trainer):
         losses = diffuser.diffusion.compute_loss_grpo(
             diffuser.model_fn(train=True), cond, sampling, advantages, indices=indices, backward=True,
             **self._grpo_args(guidance_scale))
+        if self._batch_group is not None:  # the global batch's gradient and statistics
+            sync_grads(tensors, self.mesh)
+            losses = self._batch_mean(losses)
         grads = [p.grad for p in tensors if p.grad is not None]
-        losses["grad_norm"] = (torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)) if grads
-                               else torch.zeros((), device=advantages.device))
+        losses["grad_norm"] = global_norm(grads) if grads else torch.zeros((), device=advantages.device)
         reject = self.trust_region is not None and float(losses["ratio_dev"]) > self.trust_region
         with torch.no_grad():
             if reject:
@@ -222,14 +244,19 @@ class GRPOTrainer(Trainer):
         model_inputs = self._prepare_batch({"model_inputs": batch["model_inputs"]})["model_inputs"]
         cond = {k: v for k, v in model_inputs.items() if k != "x"}
         p = len(captions)
+        _, n_shards = batch_shard(self.mesh)
         x_init = model_inputs.get("x")
         if x_init is None:
-            x_init = draws.x_init(self._grpo_shape)
+            # drawn for the global batch, this process's rows kept (T28)
+            x_init = self._local_rows(draws.x_init((p * n_shards, *self._grpo_shape[1:])))
         if x_init.shape[0] != p:
             raise ValueError(f"x_init {tuple(x_init.shape)} for {p} prompts")
         mini = self.mini_batch_size or p
         if p % mini != 0:
             mini = p
+        if n_shards > 1 and mini != p:
+            raise NotImplementedError("mini_batch_size chunks the global prompt batch; it is sharded over "
+                                      "(data, fsdp) here")
         diffusion = diffuser.diffusion
         k = round(diffusion.steps * self.timestep_fraction)
         prefix = "train" if train else "val"
@@ -243,7 +270,7 @@ class GRPOTrainer(Trainer):
                 for c0 in range(0, p, mini):
                     out, decoded = self.sample_group(diffuser, x_init[c0:c0 + mini],
                                                      map_tensors(cond, lambda t: t[c0:c0 + mini]), guidance_scale,
-                                                     draws.sample_noise(g, c0))
+                                                     self._local_noise(draws.sample_noise(g, c0)))
                     chunks.append(to_cpu(out) if self.offload_trajectories else out)
                     dec_chunks.append(decoded.float().cpu().numpy())
                 samplings.append({key: torch.cat([c[key] for c in chunks]) for key in chunks[0]})
@@ -268,17 +295,28 @@ class GRPOTrainer(Trainer):
                                              indices, step, guidance_scale)
                 else:
                     with torch.no_grad():
-                        losses = diffusion.compute_loss_grpo(diffuser.model_fn(train=False), cond, sampling, adv_g,
-                                                             indices=indices, **self._grpo_args(guidance_scale))
+                        losses = self._batch_mean(diffusion.compute_loss_grpo(
+                            diffuser.model_fn(train=False), cond, sampling, adv_g, indices=indices,
+                            **self._grpo_args(guidance_scale)))
                 for key, loss in losses.items():
                     tracker.update(float(loss), key=f"{prefix}/{key}")
-        tracker.update(float(advantages.mean()), key=f"{prefix}/advantage_mean")
+        means = {"advantage_mean": float(advantages.mean())}
         # absolute reward curves (z-scored advantages are 0-mean by design)
         raw_metrics = getattr(reward_model, "raw_metrics", None)
         if raw_metrics is not None:
-            for key, value in raw_metrics(images, list(captions)).items():
-                tracker.update(float(value), key=f"{prefix}/{key}")
+            means.update({key: float(value) for key, value in raw_metrics(images, list(captions)).items()})
+        means = self._batch_mean({k: torch.tensor(v, device=self.device) for k, v in means.items()})
+        for key, value in means.items():
+            tracker.update(float(value), key=f"{prefix}/{key}")
         return step
+
+    def _local_noise(self, draw: NoiseFn) -> NoiseFn:
+        """``draw`` made for the global batch, this process's rows kept (T28)."""
+        _, n_shards = batch_shard(self.mesh)
+        if n_shards == 1:
+            return draw
+        return lambda kind, step, shape, dtype: self._local_rows(draw(kind, step, (shape[0] * n_shards,
+                                                                                   *shape[1:]), dtype))
 
     def log_images(self, diffuser: Diffuser, val_batch: dict[str, Any], ema: EMA | None, epoch: int,
                    guidance_scale: float, seed: int) -> None:
@@ -322,6 +360,7 @@ class GRPOTrainer(Trainer):
         for validation batch i, the reference's. ``val_steps`` is unused, as
         in the reference."""
         del val_steps
+        self._slice_loaders(train_dataloader, val_dataloader)
         model = diffuser.denoiser
         if getattr(model, "context_embedder", None) is None:
             raise ValueError("Alignment training requires a context embedder in the denoiser model.")
@@ -333,7 +372,6 @@ class GRPOTrainer(Trainer):
         # live REPA encoder out of the optimizer
         modules = train_modules(model, diffuser.extra_losses)
         trainable = trainable_filter(model, train_embedder=False)
-        params = {name: p for name, p in modules.named_parameters() if trainable(name)}
         for name, p in modules.named_parameters():
             p.requires_grad_(trainable(name))
         off = sorted({str(p.device) for p in modules.parameters() if p.device != self.device})
@@ -344,15 +382,22 @@ class GRPOTrainer(Trainer):
             live_params, live_rest = split_state(modules, trainable)
             restored = restore_checkpoint(denoiser_ckpt, {"params": live_params, "rest": live_rest})
             modules.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
+        if hasattr(model, "set_parallel_mesh"):
+            model.set_parallel_mesh(self.mesh)
+        shard_model(modules, self.mesh)
+        params = {name: p for name, p in modules.named_parameters() if trainable(name)}
+        names = list(params)
+        # the learn step averages each step's gradients itself (before its norm and the trust region)
         opt = MultiStepOptimizer(optimizer(list(params.values())), self.gradient_accumulation_step,
                                  getattr(optimizer, "grad_clip_norm", None))
         if optimizer_ckpt:
-            opt.load_state_dict(restore_checkpoint(optimizer_ckpt)["opt_state"])
+            opt.load_state_dict(_opt_state_map(restore_checkpoint(optimizer_ckpt)["opt_state"], names,
+                                               lambda n, v: shard_like(modules, n, params[n], v)))
         ema = None
         if self.use_ema:
             ema = EMA(self.ema_config, init_ema(params))
             if ema_ckpt:
-                ema.params = restore_checkpoint(ema_ckpt, {"params": ema.params})["params"]
+                ema.params = _restore_placed(ema_ckpt, ema.params, modules)
 
         # the sampling shape needs the prompt batch size: peek at the first batch
         first_batch = next(iter(train_dataloader))
@@ -402,8 +447,9 @@ class GRPOTrainer(Trainer):
                     self.log_images(diffuser, next(iter(val_dataloader)), ema, epoch, guidance_scale, seed)
                 if total_loss < best_val_loss:
                     best_val_loss = total_loss
-                    self.save_model(*split_state(modules, trainable), opt.state_dict(),
-                                    None if ema is None else ema.params, step)
+                    self.save_model(*_full_split(modules, trainable),
+                                    _opt_state_map(opt.state_dict(), names, lambda n, v: full_tensor(modules, n, v)),
+                                    None if ema is None else full_tensors(modules, ema.params), step)
                 tracker.reset()
 
         self.step = step

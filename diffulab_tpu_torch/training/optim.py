@@ -17,7 +17,10 @@ Each optax rule has its torch counterpart with the same update:
   decay added to the gradient before it) are ``torch.optim.Adam`` and
   ``torch.optim.SGD``.
 - ``grad_clip_norm`` is not part of the torch optimizer: the trainer applies
-  it with optax's rule, :func:`clip_by_global_norm` (trap T11).
+  it with optax's rule, :func:`clip_by_global_norm` (trap T11), whose norm is
+  that of the whole gradient when it is sharded (FSDP2 or tensor-parallel
+  DTensors): each shard's sum of squares is summed over the mesh dims it is
+  sharded on.
 """
 
 from __future__ import annotations
@@ -90,13 +93,35 @@ def sgd(
 
 
 @torch.no_grad()
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """‖g‖ over every tensor of ``grads``, whole where they are sharded: a
+    DTensor's shards' sums of squares are summed over the mesh dims it is
+    sharded on (collective then: every rank calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    def sq_sum(g: torch.Tensor) -> torch.Tensor:
+        if not isinstance(g, DTensor):
+            return torch.sum(g.float() ** 2)
+        local = torch.sum(g.to_local().float() ** 2)
+        for dim, placement in enumerate(g.placements):
+            if placement.is_shard():
+                torch.distributed.all_reduce(local, group=g.device_mesh.get_group(dim))
+        return local
+
+    return torch.sqrt(sum(sq_sum(g) for g in grads))
+
+
+@torch.no_grad()
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale ``grads`` in place by ``max_norm / ‖g‖`` when ``‖g‖ >= max_norm``
     (``optax.clip_by_global_norm``, which adds no epsilon, unlike
     ``torch.nn.utils.clip_grad_norm_``). Returns the global norm, on the
     gradients' device: nothing here waits for the card."""
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    from torch.distributed.tensor import DTensor
+
+    norm = global_norm(grads)
     for g in grads:
+        g = g.to_local() if isinstance(g, DTensor) else g
         # optax: (t / g_norm) * max_norm, skipped below the threshold
         g.copy_(torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm))
     return norm

@@ -83,11 +83,13 @@ def power_ema_update(ema: dict[str, torch.Tensor], params: dict[str, torch.Tenso
     """One power-function EMA update in place at raw train-step ``step``
     (step 1 copies the online params since ``beta_1 = 0``). ``ema`` holds
     fp32 tensors by parameter name; the update accumulates in fp32 whatever
-    the parameters' dtype: ``e * beta + p * (1 - beta)``."""
+    the parameters' dtype: ``e * beta + p * (1 - beta)``. Sharded tracks
+    (DTensors, placed as their parameters) update shard by shard."""
     beta = power_ema_beta(step, gamma)
     names = list(ema)
-    tracks = [ema[n] for n in names]
-    online = [params[n].detach().float() for n in names]
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+    tracks = [local(ema[n]) for n in names]
+    online = [local(params[n].detach()).float() for n in names]
     torch._foreach_mul_(tracks, float(beta))
     torch._foreach_add_(tracks, torch._foreach_mul(online, float(np.float32(1.0) - beta)))
 

@@ -1,15 +1,29 @@
-"""Supervised trainer on one card (port of diffulab_tpu/training/trainer.py).
+"""Supervised trainer (port of diffulab_tpu/training/trainer.py).
 
 The reference runs one jitted, sharded train step over a device mesh; here
-one eager step runs on one card: the loss through the model (on the card the
-attention runs K1 forward and K2 backward up to 512 tokens, K3 forward and
-K4/K5 backward beyond), ``.backward()``, and the optimizer with optax's
-accumulation and clipping rules. Mirrored from the reference:
+each process runs one eager step on its card: the loss through the model (on
+the card the attention runs K1 forward and K2 backward up to 512 tokens, K3
+forward and K4/K5 backward beyond), ``.backward()``, and the optimizer with
+optax's accumulation and clipping rules. ``trainer.mesh`` builds the
+six-axis mesh over the processes (:mod:`..parallel.mesh`; one process holds
+the dict of its axis sizes, all 1): each process loads its rows of every
+global batch (``train`` gives each :class:`~diffulab_tpu_torch.data.loader.DataLoader`
+its slice), the model gets the
+mesh (``set_parallel_mesh``: ring attention, MoE, pipelining) and its
+``tensor``/``fsdp`` sharding (:func:`..parallel.sharding.shard_model`), and
+the gradients FSDP2 does not average are averaged over ``(data, fsdp)``
+before each update (:func:`..parallel.sharding.sync_grads`). Only the
+tracker and the checkpoint writes are rank 0's; generation runs on every
+rank (trainer.py:747-751: gating it would deadlock the collectives), and
+checkpoints are whole (:func:`..parallel.sharding.full_state_dict`).
+Mirrored from the reference:
 
 - per step, t, the noise and the CFG drop mask are drawn from one
   ``torch.Generator`` on the card, seeded from (seed, step) so that a resumed
   run draws what the uninterrupted one would (the reference folds the step
-  into its key); a denoiser with ``draws_in_training`` (SprintDiT) gets a
+  into its key), for the whole global batch, of which each process keeps its
+  own rows (trap T28: the reference draws for the global batch from one
+  key); a denoiser with ``draws_in_training`` (SprintDiT) gets a
   second one for its forward, seeded from that step seed (the reference's
   call-time ``rngs``, the fourth split of the step key);
 - gradient accumulation with ``optax.MultiSteps`` semantics
@@ -68,9 +82,10 @@ Also mirrored:
   so the optimizer and the EMA hold them and the base weights ride in the
   checkpoint's ``rest``.
 
-Not ported yet (it raises ``NotImplementedError``, ROADMAP queue 1): meshes
-of more than one device (item 17). The HF text embedders' ``embed_host``
-turns caption strings into conditioning on the host (:meth:`BaseTrainer._host_embed`).
+The HF text embedders' ``embed_host`` turns caption strings into
+conditioning on the host (:meth:`BaseTrainer._host_embed`). Augmentation and
+a denoiser's own draws (SprintDiT) are drawn per process and raise under a
+batch sharded over more than one process.
 """
 
 from __future__ import annotations
@@ -85,10 +100,21 @@ from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffulab_tpu_torch.diffuse.augment import AugmentPipe
 from diffulab_tpu_torch.diffuse.diffuser import Diffuser
 from diffulab_tpu_torch.networks.nn import make_drop_mask
+from diffulab_tpu_torch.parallel.mesh import axis_group, batch_shard, is_main_process, make_mesh
+from diffulab_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    full_tensor,
+    full_tensors,
+    is_dtensor,
+    shard_like,
+    shard_model,
+    sync_grads,
+)
 from diffulab_tpu_torch.training.checkpoint import (
     STATE_FILE,
     AsyncCheckpointer,
@@ -143,11 +169,14 @@ class MultiStepOptimizer:
 
     def __init__(self, optimizer: torch.optim.Optimizer, every_k: int = 1,
                  grad_clip_norm: float | None = None,
-                 scheduler: torch.optim.lr_scheduler.LRScheduler | None = None):
+                 scheduler: torch.optim.lr_scheduler.LRScheduler | None = None,
+                 grad_sync: Callable[[list[torch.nn.Parameter]], None] | None = None):
         self.optimizer = optimizer
         self.every_k = int(every_k)
         self.grad_clip_norm = grad_clip_norm
         self.scheduler = scheduler
+        #: averages the summed micro-gradients over the data-parallel ranks before each update
+        self.grad_sync = grad_sync
         self.mini_step = 0
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -162,6 +191,8 @@ class MultiStepOptimizer:
         for p in self._params():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.grad_sync is not None:
+            self.grad_sync(self._params())
         grads = [p.grad for p in self._params()]
         if self.every_k > 1:
             torch._foreach_div_(grads, float(self.every_k))
@@ -193,6 +224,34 @@ class MultiStepOptimizer:
         params = self._params()
         for i, grad in state.get("acc_grads", {}).items():
             params[int(i)].grad = grad.to(device=params[int(i)].device, dtype=params[int(i)].dtype)
+
+
+def _opt_state_map(state: dict[str, Any], names: list[str], fn) -> dict[str, Any]:
+    """``fn(parameter name, tensor)`` over a :class:`MultiStepOptimizer` state's
+    per-parameter tensors (the moments, the accumulated gradients; not the
+    step counts)."""
+    inner = dict(state["optimizer"])
+    inner["state"] = {i: {k: fn(names[int(i)], v) if isinstance(v, torch.Tensor) and v.dim() > 0 else v
+                          for k, v in entries.items()} for i, entries in inner["state"].items()}
+    acc = {i: fn(names[int(i)], g) for i, g in state.get("acc_grads", {}).items()}
+    return {**state, "optimizer": inner, "acc_grads": acc}
+
+
+def _full_split(modules: torch.nn.Module, trainable: Callable[[str], bool]):
+    """:func:`.checkpoint.split_state` with every sharded tensor gathered
+    whole (collective: every rank calls it)."""
+    names = {name for name, _ in modules.named_parameters() if trainable(name)}
+    state = full_state_dict(modules)
+    return {k: v for k, v in state.items() if k in names}, {k: v for k, v in state.items() if k not in names}
+
+
+def _restore_placed(path, like: dict[str, torch.Tensor], modules: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A ``{"params"}`` entry restored in the placement of ``like`` (its
+    sharded tensors put back in their shards)."""
+    if not any(is_dtensor(v) for v in like.values()):
+        return restore_checkpoint(path, {"params": like})["params"]
+    whole = restore_checkpoint(path, {"params": {k: torch.empty(v.shape, dtype=v.dtype) for k, v in like.items()}})
+    return {k: shard_like(modules, k, like[k], v) for k, v in whole["params"].items()}
 
 
 @dataclasses.dataclass
@@ -301,12 +360,9 @@ class Trainer:
         device: str | torch.device | None = None,
     ):
         del compile  # config parity: the port runs eagerly
-        if mesh is not None:
-            sizes = mesh if isinstance(mesh, dict) else dataclasses.asdict(mesh)
-            if any(int(n) not in (1, -1) for n in sizes.values()):
-                raise NotImplementedError(
-                    f"a mesh of more than one device ({sizes}) is not ported yet (ROADMAP queue 1, item 17)"
-                )
+        #: the six-axis mesh over the processes, a dict of sizes in a world of one (trainer.py:147-149); the
+        #: reference's errors on a bad shape
+        self.mesh = make_mesh(mesh)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -334,13 +390,41 @@ class Trainer:
             save_path = Path.home() / "experiments" / datetime.now().strftime("%Y%m%d_%H%M%S")
         self.save_path = Path(save_path) / project_name
         self.tracker = Tracker(self.save_path, project_name=project_name, run_config=run_config,
-                               init_kwargs=init_kwargs)
+                               init_kwargs=init_kwargs, enabled=is_main_process())
         self._async_ckptr = AsyncCheckpointer() if async_checkpointing else None
         #: the raw micro-step counter, after train()
         self.step = 0
+        #: the (data, fsdp) group the batch shards over (None: one process holds the whole batch)
+        self._batch_group = axis_group(self.mesh, ("data", "fsdp"))
+
+    def _batch_mean(self, values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Per-process losses (means, or sums over steps) averaged over
+        ``(data, fsdp)`` in one all-reduce, the global batch's (every rank
+        calls it); one process's pass through."""
+        if self._batch_group is None or not values:
+            return values
+        keys = sorted(values)
+        flat = torch.stack([values[k].detach().float() for k in keys])
+        dist.all_reduce(flat, group=self._batch_group)
+        flat /= dist.get_world_size(self._batch_group)
+        return dict(zip(keys, flat))
+
+    def _slice_loaders(self, *loaders: Any) -> None:
+        """Give each loader that slices global batches this rank's ``(data, fsdp)`` slice of the mesh."""
+        for loader in loaders:
+            if hasattr(loader, "set_process_slice"):
+                loader.set_process_slice(*batch_shard(self.mesh))
+
+    def _local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a draw made for the global batch (T28)."""
+        index, count = batch_shard(self.mesh)
+        return x if count == 1 else x.chunk(count)[index]
 
     # ------------------------------------------------------------------ #
     def _write(self, entries: dict[Path, dict[str, Any]]) -> None:
+        """Write checkpoint entries from rank 0 (every rank gathers their whole tensors first)."""
+        if not is_main_process():
+            return
         if self._async_ckptr is not None:
             self._async_ckptr.save(entries)
         else:
@@ -369,7 +453,7 @@ class Trainer:
         root = self.save_path / "checkpoints_latest"
         self.wait_for_checkpoints()
         keep = f"ep{epoch:06d}"
-        if root.exists():
+        if root.exists() and is_main_process():
             for old in root.iterdir():
                 if old.name != keep:
                     shutil.rmtree(old, ignore_errors=True)
@@ -442,7 +526,7 @@ class Trainer:
                         f"{snap_step} != resume step {resume_step}; the gap's steps "
                         "are missing from this track's average"
                     )
-                track = restore_checkpoint(path, {"params": track})["params"]
+                track = _restore_placed(path, track, getattr(self, "_train_modules", None))
             tracks.append(track)
         return PowerEMA(self.posthoc_ema_gammas, tuple(tracks))
 
@@ -546,6 +630,7 @@ class BaseTrainer(Trainer):
         auto_resume: bool = False,
         distill_teacher: Any = None,
     ) -> None:
+        self._slice_loaders(train_dataloader, val_dataloader)
         model = diffuser.denoiser
         extra_losses = diffuser.extra_losses
         # attach the extra losses (REPA's feature-capture registration) before the split
@@ -555,6 +640,7 @@ class BaseTrainer(Trainer):
         # the trainable split (checkpoint.py::trainable_filter) of the denoiser and its extra
         # losses sets what the optimizer and the EMA hold, and the checkpoint layout
         modules = train_modules(model, extra_losses)
+        self._train_modules = modules
         trainable = trainable_filter(model, lora=lora_only, train_embedder=train_embedder)
         params = {name: p for name, p in modules.named_parameters() if trainable(name)}
         if lora_only and not params:
@@ -610,6 +696,13 @@ class BaseTrainer(Trainer):
             live_params, live_rest = split_state(modules, trainable)
             restored = restore_checkpoint(denoiser_ckpt, {"params": live_params, "rest": live_rest})
             modules.load_state_dict({**restored["params"], **restored["rest"]}, strict=True)
+        # the mesh reaches the blocks that shard at call time, then the annotated linears are sharded
+        # (trainer.py:572-575, 616-625); the optimizer and the EMA hold the sharded parameters
+        if hasattr(model, "set_parallel_mesh"):
+            model.set_parallel_mesh(self.mesh)
+        shard_model(modules, self.mesh)
+        params = {name: p for name, p in modules.named_parameters() if trainable(name)}
+        names = list(params)
         torch_opt = optimizer(list(params.values()))
         lr_scheduler = None
         if scheduler is not None:
@@ -625,16 +718,18 @@ class BaseTrainer(Trainer):
                 updates_per_epoch = max(steps_per_epoch // self.gradient_accumulation_step, 1)
                 idx = lambda c: c // updates_per_epoch  # noqa: E731
             lr_scheduler = torch.optim.lr_scheduler.LambdaLR(torch_opt, lambda c: float(scheduler(idx(c))))
+        grad_sync = None if self._batch_group is None else (lambda ps: sync_grads(ps, self.mesh))
         opt = MultiStepOptimizer(torch_opt, self.gradient_accumulation_step,
-                                 getattr(optimizer, "grad_clip_norm", None), lr_scheduler)
+                                 getattr(optimizer, "grad_clip_norm", None), lr_scheduler, grad_sync)
         if optimizer_ckpt:
-            opt.load_state_dict(restore_checkpoint(optimizer_ckpt)["opt_state"])
+            opt.load_state_dict(_opt_state_map(restore_checkpoint(optimizer_ckpt)["opt_state"], names,
+                                               lambda n, v: shard_like(modules, n, params[n], v)))
 
         ema = None
         if self.use_ema:
             ema = EMA(self.ema_config, init_ema(params))
             if ema_ckpt:
-                ema.params = restore_checkpoint(ema_ckpt, {"params": ema.params})["params"]
+                ema.params = _restore_placed(ema_ckpt, ema.params, modules)
 
         if epoch_start and steps_per_epoch is None:
             # resume continues the raw step counter: it drives the EMA ramp and the draws
@@ -648,6 +743,16 @@ class BaseTrainer(Trainer):
         phema_base = self.save_path / "checkpoints" / "phema"
         if self.posthoc_ema:
             phema = self._init_phema(params, phema_base, step)
+
+        _, n_shards = batch_shard(self.mesh)
+        if n_shards > 1 and (augment_pipe is not None or getattr(model, "draws_in_training", False)):
+            raise NotImplementedError("augmentation and a denoiser's own training draws are per process; the "
+                                      "batch is sharded over (data, fsdp) here")
+
+        def full_payload():
+            ema_full = None if ema is None else full_tensors(modules, ema.params)
+            opt_full = _opt_state_map(opt.state_dict(), names, lambda n, v: full_tensor(modules, n, v))
+            return (*_full_split(modules, trainable), opt_full, ema_full)
 
         best_val_loss = resume_best_val
         tracker_meter = AverageMeter()
@@ -680,13 +785,15 @@ class BaseTrainer(Trainer):
                             "Disable augmentation for straightening runs.")
                     x0, labels = augment_pipe(x0, generator)
                     batch = {**batch, "model_inputs": {**mi, "x": x0, "augment_labels": labels}}
-                t = diffusion.draw_timesteps(generator, bsz)
+                # drawn for the global batch, this process's rows kept (T28)
+                t = self._local_rows(diffusion.draw_timesteps(generator, bsz * n_shards))
                 noise = None
                 if "coupled_noise" not in mi:
-                    noise = torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype)
+                    noise = self._local_rows(torch.randn((bsz * n_shards, *x0.shape[1:]), generator=generator,
+                                                         device=self.device, dtype=x0.dtype))
                 drop = None
                 if p_classifier_free_guidance > 0:
-                    drop = make_drop_mask(generator, p_classifier_free_guidance, bsz)
+                    drop = self._local_rows(make_drop_mask(generator, p_classifier_free_guidance, bsz * n_shards))
                 extra: dict[str, Any] = {"distill": distill} if distill else {}
                 if model_generator is not None:
                     extra["generator"] = model_generator.manual_seed(_fold_seed(_fold_seed(seed, step), _MODEL_DRAW))
@@ -696,10 +803,11 @@ class BaseTrainer(Trainer):
                     prev = loss_sums.get(key)
                     loss_sums[key] = loss if prev is None else prev + loss
                 if self.log_every_n_steps and step % self.log_every_n_steps == 0:
-                    self.tracker.log({f"train_step/{k}": float(v) for k, v in losses.items()}, step=step)
+                    self.tracker.log({f"train_step/{k}": float(v) for k, v in self._batch_mean(losses).items()},
+                                     step=step)
             self.step = step
 
-            for key, total in loss_sums.items():
+            for key, total in self._batch_mean(loss_sums).items():
                 tracker_meter.update(float(total) / max(n_steps_epoch, 1), key=f"train/{key}")
             for key, value in tracker_meter.avg.items():
                 if key.startswith("train/"):
@@ -709,7 +817,8 @@ class BaseTrainer(Trainer):
             # post-hoc EMA snapshots go out EVERY epoch (the reconstruction
             # basis must cover the whole trajectory, unlike best-val checkpoints)
             if phema is not None:
-                self._write({snapshot_dir(phema_base, step, gamma): {"params": cast_tree_f16(track)}
+                self._write({snapshot_dir(phema_base, step, gamma): {"params": cast_tree_f16(full_tensors(modules,
+                                                                                                       track))}
                              for gamma, track in zip(phema.gammas, phema.tracks)})
 
             # --- validation, on the EMA weights where there are any ------------
@@ -722,9 +831,11 @@ class BaseTrainer(Trainer):
                         val_batch = self._prepare_batch(self._host_embed(val_batch, diffuser))
                         generator.manual_seed(_fold_seed(seed, _VAL_SEED_OFFSET + vi))
                         x0, cond, coupled = split_batch(val_batch)
-                        t = diffusion.draw_timesteps(generator, x0.shape[0])
-                        noise = (coupled.to(x0.dtype) if coupled is not None else
-                                 torch.randn(x0.shape, generator=generator, device=self.device, dtype=x0.dtype))
+                        gbsz = x0.shape[0] * n_shards
+                        t = self._local_rows(diffusion.draw_timesteps(generator, gbsz))
+                        noise = (coupled.to(x0.dtype) if coupled is not None else self._local_rows(
+                            torch.randn((gbsz, *x0.shape[1:]), generator=generator, device=self.device,
+                                        dtype=x0.dtype)))
                         val_losses = diffusion.compute_loss(
                             diffuser.model_fn(train=False, capture_features=capture), x0, cond, t, noise,
                             extra_losses=extra_losses, extra_args=val_batch.get("extra") or {}, **(distill or {}))
@@ -732,7 +843,7 @@ class BaseTrainer(Trainer):
                         for key, val_loss in val_losses.items():
                             prev = val_sums.get(key)
                             val_sums[key] = val_loss if prev is None else prev + val_loss
-                    for key, total in val_sums.items():
+                    for key, total in self._batch_mean(val_sums).items():
                         tracker_meter.update(float(total) / max(n_val, 1), key=f"val/{key}")
 
                     total_loss = 0.0
@@ -754,13 +865,11 @@ class BaseTrainer(Trainer):
 
                 if total_loss < best_val_loss:
                     best_val_loss = total_loss
-                    self.save_model(*split_state(modules, trainable), opt.state_dict(),
-                                    None if ema is None else ema.params, step)
+                    self.save_model(*full_payload(), step)
                 tracker_meter.reset()
 
             if self.save_every_n_epochs and (epoch + 1) % self.save_every_n_epochs == 0:
-                self.save_latest(*split_state(modules, trainable), opt.state_dict(),
-                                 None if ema is None else ema.params, step, epoch + 1, best_val_loss=best_val_loss)
+                self.save_latest(*full_payload(), step, epoch + 1, best_val_loss=best_val_loss)
 
         self.step = step
         self.wait_for_checkpoints()

@@ -16,7 +16,9 @@ the mapping is by leaf name only:
 - the bare arrays (the ViTs' ``cls_token``, ``register_tokens``,
   ``pos_embed``, ``ls1``, ``ls2``; SprintDiT's ``mask_token``; the Perceiver
   resampler's ``latents``; the LoRA and DoRA adapters' ``lora_a`` ``[in, r]``,
-  ``lora_b`` ``[r, out]`` and ``magnitude``) keep their name and layout; a
+  ``lora_b`` ``[r, out]`` and ``magnitude``; the MoE experts' stacked
+  ``w_in`` ``[E, d, h]``, ``w_out`` ``[E, h, d]`` and router ``w_gate``
+  ``[d, E]``) keep their name and layout; a
   wrapped Linear's ``*/base_module/kernel`` (LoRA) or ``*/base/kernel``
   (DoRA) is a kernel like any other (:mod:`.training.lora` keeps those
   paths).
@@ -52,7 +54,7 @@ import torch
 #: parameters held as a bare array, the same layout on both sides (the ViTs' tokens and LayerScale,
 #: SprintDiT's mask token, the Perceiver resampler's latents, the LoRA/DoRA adapters)
 _PLAIN_LEAVES = frozenset({"cls_token", "register_tokens", "pos_embed", "ls1", "ls2", "mask_token", "latents",
-                           "lora_a", "lora_b", "magnitude"})
+                           "lora_a", "lora_b", "magnitude", "w_in", "w_out", "w_gate"})
 
 
 def _torch_key(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:

@@ -373,7 +373,10 @@ def test_train_cli_unported_options_raise(override, item, tmp_path):
                                         (["--config-name", "train_synthetic_edm_repa", "repa.repa_encoder=dinov2"],
                                          "item 13")])
 def test_sample_cli_unported_options_raise(flags, item, tmp_path):
-    """Ring attention (item 17) raises. --prompts (item 16) is ported since
+    """Ring attention (item 17) is ported since slice P1: the sample CLI
+    builds no mesh, so ``attention_impl=ring`` takes the attention kernels'
+    route, as the reference's does without one (mmdit.py:158), and samples
+    what the default attention samples. --prompts (item 16) is ported since
     slice J1 (tests/test_torch_port_hf_text.py samples a text-to-image config
     through it); on a class-conditional config, which has no HF text
     embedder, it stops with the reference's message. LoRA
@@ -386,6 +389,15 @@ def test_sample_cli_unported_options_raise(flags, item, tmp_path):
     --img2img-image and every sampler are ported and run in
     tests/test_torch_port_c2_cli.py; the Gaussian formalization in
     tests/test_torch_port_d1_cli.py."""
+    if item == "item 17":
+        config = ["--config-name", "train_synthetic_flow_matching", *TINY_OVERRIDES]
+        train_diffusion.main(["--device", "cpu", *config, f"trainer.save_path={tmp_path}"])
+        ckpt = tmp_path / "synthetic_flow_matching" / "checkpoints" / "ema"
+        request = ["--device", "cpu", "--ckpt", str(ckpt), "--n", "4", "--steps", "2", "--out", str(tmp_path / "s.png")]
+        ring = sample.main([*request, *config, *flags])
+        plain = sample.main([*request, *config])
+        assert np.isfinite(ring["images"]).all() and np.array_equal(ring["images"], plain["images"])
+        return
     if flags == ["trainer.lora_rank=4"]:
         config = ["--config-name", "train_synthetic_flow_matching", *flags, *TINY_OVERRIDES]
         train_diffusion.main(["--device", "cpu", *config, f"trainer.save_path={tmp_path}"])

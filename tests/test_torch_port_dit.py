@@ -83,30 +83,60 @@ def test_model_needs_a_device_without_cuda(monkeypatch):
         MMDiT(**TINY)
 
 
+def _jax_tree(**kwargs) -> dict[str, tuple[int, ...]]:
+    """The JAX MMDiT's parameters of these options, bridged to port names, by shape (built abstractly)."""
+    from diffulab_tpu.networks.denoisers.mmdit import MMDiT as JaxMMDiT
+
+    jm = nnx.eval_shape(lambda: JaxMMDiT(**kwargs, rngs=nnx.Rngs(0)))
+    shapes = {"/".join(str(p) for p in path): np.zeros(np.shape(v.get_value()), np.float32)
+              for path, v in nnx.state(jm, nnx.Param).flat_state()}
+    return {k: tuple(v.shape) for k, v in state_dict_from_jax(shapes).items()}
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(simple_dit=False), dict(mlp_type="moe"), dict(attention_impl="ring"),
     dict(pipeline_microbatches=2),
 ])
 def test_unported_options_raise(kwargs):
+    """Every option builds since slice P1, with the JAX model's parameter
+    tree: the multimodal MMDiT (it needs a context embedder instead of class
+    labels, and with one it builds; ``mlp_type="moe"`` reaches the DiT
+    blocks alone, as the reference's MMDiTBlock takes and ignores it), MoE
+    (stacked expert weights and a router in every block), ring attention and
+    pipelining (no parameters of their own)."""
     if kwargs.get("simple_dit") is False:
-        # the multimodal MMDiT is ported: it needs a context embedder instead
-        # of class labels, and with one it builds; MoE still raises on it
+        from diffulab_tpu.networks.embedders.precomputed import PrecomputedEmbedder as JaxEmbedder
+
         with pytest.raises(ValueError, match="context embedder"):
             MMDiT(**{**TINY, **kwargs}, device="cpu")
-        embedder = PrecomputedEmbedder(null_embedding=np.zeros((8, 32), np.float32), device="cpu")
-        mm = dict(TINY, simple_dit=False, n_classes=None, context_embedder=embedder)
-        assert len(MMDiT(**mm, n_single_stream_blocks=1, device="cpu").layers) == TINY["depth"]
-        kwargs = dict(mm, mlp_type="moe")
-    with pytest.raises(NotImplementedError):
-        MMDiT(**{**TINY, **kwargs}, device="cpu")
+        null = np.zeros((8, 32), np.float32)
+        mm = dict(TINY, simple_dit=False, n_classes=None, mlp_type="moe", n_single_stream_blocks=1)
+        model = MMDiT(**mm, context_embedder=PrecomputedEmbedder(null_embedding=null, device="cpu"), device="cpu")
+        assert len(model.layers) == TINY["depth"]
+        ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        assert ours == _jax_tree(**mm, context_embedder=JaxEmbedder(null_embedding=null))
+        return
+    model = MMDiT(**{**TINY, **kwargs}, device="cpu")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == _jax_tree(**TINY, **kwargs)
 
 
 def test_moe_refusal_names_its_queue_item():
-    """MoE (the JAX package's parallel/moe.py) waits in ROADMAP queue 1, item
-    17, with the other multi-device options, and its refusal says so."""
-    message = r"mlp_type='moe' \(MoE\) is not ported yet \(ROADMAP queue 1, item 17\)"
-    with pytest.raises(NotImplementedError, match=message):
-        MMDiT(**TINY, mlp_type="moe", device="cpu")
+    """MoE (the JAX package's parallel/moe.py) is ported (slice P1): the DiT
+    with ``mlp_type="moe"`` builds a ``MoEMlp`` in every block, the
+    reference's stacked ``w_in`` [E, d, h], ``w_out`` [E, h, d] and router
+    ``w_gate`` [d, E], and its dense forward runs."""
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MoEMlp
+
+    model = MMDiT(**TINY, mlp_type="moe", n_experts=4, device="cpu")
+    d = TINY["inner_dim"]
+    for block in model.layers:
+        assert isinstance(block.mlp_input, MoEMlp)
+        experts = block.mlp_input.experts
+        assert (experts.w_in.shape, experts.w_out.shape, experts.w_gate.shape) == ((4, d, 4 * d), (4, 4 * d, d),
+                                                                                   (d, 4))
+    x, t, y = torch.zeros(2, *LATENT), torch.zeros(2), torch.zeros(2, dtype=torch.long)
+    with torch.no_grad():
+        assert torch.isfinite(model(x, t, {"y": y})["x"]).all()
 
 
 def test_unported_call_paths_raise():

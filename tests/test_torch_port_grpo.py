@@ -453,5 +453,6 @@ def test_grpo_trainer_refusals(tmp_path):
     with pytest.raises(ValueError, match="rectified_flow"):
         trainer.train(Diffuser(model, "ddim", model_type="gaussian_diffusion", n_steps=STEPS), rm, toptim.adamw(),
                       _batch(45, "port"))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # one process: the reference's MeshConfig.resolve error (the data=2 batch runs in test_torch_port_parallel.py)
+    with pytest.raises(AssertionError, match=r"mesh 2x1x1x1x1x1 != device count 1"):
         GRPOTrainer(n_epoch=1, save_path=tmp_path, device="cpu", mesh={"data": 2})

@@ -355,6 +355,7 @@ FULL = {
     "train_hard_txt2img_sprint": ("train_hard_txt2img_sprint", []),
     "train_hard_txt2img_ddt": ("train_hard_txt2img_ddt", []),
     "train_imagenet_repa_txt_to_img_sprint": ("train_imagenet_repa_txt_to_img_sprint", []),
+    "train_cifar10_moe": ("train_cifar10_moe", []),
 }
 
 
@@ -363,12 +364,16 @@ def test_full_width_models_have_the_jax_parameter_tree(name):
     """Each config's model block, built abstractly in JAX and on the meta
     device in the port: the same parameters, bridged, of the same shapes.
     The hard DDT config carries ``simple_dit: false`` from its MMDiT
-    sibling, which neither DDT takes: dropped here (phase 21 builds it so)."""
+    sibling, which neither DDT takes: dropped here (phase 21 builds it so).
+    ``train_cifar10_moe`` is the MoE DiT of ``model=dit_moe`` (slice P1)."""
+    from diffulab_tpu.networks.denoisers.mmdit import MMDiT as JaxMMDiT
+    from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
+
     config, overrides = FULL[name]
     cfg = compose_config(CONFIG_DIR, config, overrides)["model"]
     kwargs = {k: v for k, v in cfg.items() if k != "_target_" and not (k == "simple_dit" and "ddt" in cfg["_target_"])}
     simple = kwargs.get("simple_dit", kwargs.get("simple_ddt"))
-    jax_cls = JaxSprint if "sprint" in cfg["_target_"] else JaxDDT
+    jax_cls = {"sprint": JaxSprint, "ddt": JaxDDT, "mmdit": JaxMMDiT}[cfg["_target_"].split(".")[-2]]
     jkw, tkw = {}, {}
     if not simple:
         null = np.zeros((8, 512), np.float32)
@@ -378,6 +383,6 @@ def test_full_width_models_have_the_jax_parameter_tree(name):
     shapes = {"/".join(str(p) for p in path): np.zeros(np.shape(v.get_value()), np.float32)
               for path, v in nnx.state(jm, nnx.Param).flat_state()}
     tm = instantiate({**kwargs, "_target_": cfg["_target_"]}, device="meta", **tkw)
-    assert type(tm) is (SprintDiT if jax_cls is JaxSprint else DDT)
+    assert type(tm) is {JaxSprint: SprintDiT, JaxDDT: DDT, JaxMMDiT: MMDiT}[jax_cls]
     bridged = {k: tuple(v.shape) for k, v in state_dict_from_jax(shapes, tm).items()}
     assert bridged == {k: tuple(v.shape) for k, v in tm.state_dict().items()}

@@ -471,10 +471,18 @@ def test_trainer_with_accumulation_and_per_epoch_schedule(tmp_path):
 @pytest.mark.parametrize("kwargs", [dict(mesh={"fsdp": 2}), dict(mesh={"tensor": 4}, augment_p=0.1),
                                     dict(mesh={"data": 2}), dict(mesh={"data": -1, "tensor": 2})])
 def test_unported_trainer_options_raise(tmp_path, kwargs):
-    """Meshes of more than one device (ROADMAP item 17) raise; augmentation
-    is ported (tests/test_torch_port_guided.py) and builds on its own."""
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """Meshes run since slice P1 (tests/test_torch_port_parallel.py builds
+    them over 2 and 4 processes); in one process a mesh larger than the
+    world raises the error of the reference's ``MeshConfig.resolve``
+    (mesh.py:44-52), word for word. Augmentation is ported
+    (tests/test_torch_port_guided.py) and builds on its own."""
+    from diffulab_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+
+    with pytest.raises(AssertionError) as ref:
+        JaxMeshConfig(**kwargs["mesh"]).resolve(1)
+    with pytest.raises(AssertionError) as ours:
         BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu", **kwargs)
+    assert str(ours.value) == str(ref.value)
     if "augment_p" in kwargs:
         assert BaseTrainer(n_epoch=1, save_path=tmp_path, device="cpu", augment_p=0.1).augment_p == 0.1
 
