@@ -299,7 +299,22 @@ Phases, one line each:
      ``pipe=1`` (the blocks in sequence: 10 + 10 a micro-step), one update
      each at full width, and the ring DiT's forward against the K1 route's;
      (c) a ``torchrun --nproc-per-node 1`` launch of one
-     ``train_cifar10_flow_matching`` update over NCCL.
+     ``train_cifar10_flow_matching`` update over NCCL;
+ 29. slice D3, the UNets in bf16 (``trainer.precision_type=bf16``): (a) the
+     bf16 K1/K2 instances at head dims 192, 256, 384 and 512, built around the
+     valid rows, against their plain versions on bf16 draws at D1's and D2's
+     shapes (B=128, K1 also at B=32; the unpadded query rows, keys padded to
+     128), the 16-key hole beside a fully masked row, a ragged Sq, and 512
+     keys at D=192 (K1's second pass forming the scores anew); K1's o held
+     bitwise to its plain version on most of its elements (the rounding
+     order); each timed beside bf16 SDPA on the same, padded and unpadded
+     inputs, with both bounds; (b) the full-width UNets of
+     ``train_synthetic_ddpm`` and ``train_mnist_ddpm`` in bf16, a forward and
+     the gradients of one loss against ``impl="xla"``; (c) both configs
+     through ``train_diffusion`` with the override, a few steps each (11 bf16
+     K1 + 11 bf16 K2 a step, 5 : 6 between the head dims, no fp32 fused
+     launch, no K3), and a 50-step sample request each with
+     ``model.dtype=bfloat16`` (550 bf16 K1).
 Phases 8 and 11 also hold the flash kernels' fp32 instances (K3's, K4's and
 K5's 3xTF32 designs) to their plain versions at the slice shapes and the edge
 cases, each timed beside fp32 SDPA, and their tiles to the emulations'
@@ -415,7 +430,11 @@ C2_REFLOW_PAIRS, C2_REFLOW_VAL = 512, 128
 # (12 -> 1 epoch, 2 until phase 18; 10000 -> 1024 train and 2000 -> 256 validation samples),
 # with post-hoc EMA
 D1_CONFIG = "train_synthetic_ddpm"
-D1_CUTS = {"trainer.n_epoch": (12, 1), "dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256)}
+# the disk: the optimizer's entry (two fp32 moments a parameter) is not written; no request reads it, and the
+# machine's disk takes 45 GiB of writes a call (what is deleted counts)
+NO_OPT_CKPT = {"trainer.save_optimizer": (True, "false")}
+D1_CUTS = {"trainer.n_epoch": (12, 1), "dataset.train.n_samples": (10000, 1024), "dataset.val.n_samples": (2000, 256),
+           **NO_OPT_CKPT}
 D1_ON = ("trainer.posthoc_ema=true",)  # the config leaves post-hoc EMA off; the reconstruct step needs it
 D1_BATCH, D1_HEADS, D1_PADDED = 128, 2, 128
 # (head dim, tokens, attention calls a forward): 8x8 tokens at ds 4 (2 encoder + 3 decoder
@@ -457,17 +476,49 @@ E1_LOSS_RTOL = 1e-3
 # (60000 -> 1024 train, 10000 -> 256 validation)
 D2_CONFIGS = {"train_mnist_ddpm": ("mnist_ddpm", "DDPM ancestral"),
               "train_mnist_flow_matching": ("mnist_flow_matching", "Euler")}
-D2_CUTS = {"trainer.n_epoch": (50, 1)}
+D2_CUTS = {"trainer.n_epoch": (50, 1), **NO_OPT_CKPT}
 D2_IMAGES = {"train": (60000, 1024), "t10k": (10000, 256)}
 D2_BATCH, D2_HEADS, D2_PADDED = 128, 2, 128
 # (head dim, tokens, attention calls a forward): 8x8 tokens at ds 4 (2 encoder + 3 decoder
 # blocks), 4x4 at ds 8 (2 + 3) and in the middle block; keys padded to 128, queries not
 D2_ATTN = ((256, 64, 5), (512, 16, 6))
 D2_CALLS = sum(n for _, _, n in D2_ATTN)  # 11 K1 a forward, 11 K2 a backward
-# the counters of every fp32-only instance: D1's and D2's head dims
-F32_ONLY_COUNTERS = tuple(f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d, _, _ in (*D1_ATTN, *D2_ATTN))
+# the counters of every instance built around the valid rows, fp32 and bf16: D1's and D2's head dims
+VALID_ROWS_COUNTERS = tuple(f"fused_mha_{kind}_{dt}_d{d}" for kind in ("fwd", "bwd") for dt in ("f32", "bf16")
+                            for d, _, _ in (*D1_ATTN, *D2_ATTN))
 D2_SAMPLES, D2_STEPS = 16, 50  # a request of 16 images, 50 steps, no CFG (classifier_free: false)
 D2_PARAMS = 276_690_433
+# phase 29: slice D3, the bf16 K1/K2 instances at the UNets' head dims (192, 256, 384, 512), built around the
+# valid rows, and the ADM UNet in bf16 under the user's override trainer.precision_type=bf16 (compute in bf16,
+# fp32 master parameters): (a) each instance against its plain version on bf16 draws at D1's and D2's shapes,
+# the edge cases, and D3_LONG (more live key tiles than K1 keeps in registers: its second pass forms the scores
+# anew); (b) the full-width UNets of train_synthetic_ddpm and train_mnist_ddpm built as train_diffusion builds
+# them under the override, kernel path against impl="xla"; (c) both configs through train_diffusion with the
+# override, cut to D3_STEPS micro-steps, and a sample request each from the EMA checkpoint with
+# model.dtype=bfloat16 (the sample CLI builds the model from the config, without the trainer's precision, as
+# the reference's does)
+D3_OVERRIDE = "trainer.precision_type=bf16"
+D3_SAMPLE_OVERRIDE = "model.dtype=bfloat16"
+# K1's o bitwise its plain version's on at least this share of the elements (tests/test_torch_port_d3_tiles.py
+# measures 0.9986-1.0 for its emulation on the CPU, about 0.5 for an online softmax's rounding order)
+D3_BITWISE_MIN = 0.9
+D3_LONG = (192, 64, 512, 400)  # head dim, query rows, padded keys, attended keys: 25 live 16-key tiles
+# the bf16 UNet on the kernel path against impl="xla", the same weights and inputs: the forward's max|diff| /
+# max|plain| (K1 rounds o and p to bf16 as its plain version does, the sums in another order flip a rounding now
+# and then, and the model's bf16 layers carry it); each parameter's ||kernel - plain|| / ||plain|| (a norm below
+# a hundredth of the model's largest, a gradient of rounding noise, is held against that floor)
+D3_FWD_TOL, D3_GRAD_TOL = 5e-2, 5e-2
+D3_STEPS = 4  # micro-steps of each config's cut run: D1 512 images at batch 128; MNIST 512 at batch 128, accumulation 2
+# validation images of the cut runs at 10 steps (the configs' val_steps 50): the request takes the 50
+D3_VAL_STEPS = {"trainer.val_steps": (50, 10)}
+D3_CONFIGS = {D1_CONFIG: dict(project="synthetic_ddpm", attn=D1_ATTN, channels=3, samples=D1_SAMPLES,
+                              request=("--guidance", str(D1_GUIDANCE)), cfg=2,
+                              cuts={"trainer.n_epoch": (12, 1), "dataset.train.n_samples": (10000, 512),
+                                    "dataset.val.n_samples": (2000, 128), **D3_VAL_STEPS, **NO_OPT_CKPT}),
+              "train_mnist_ddpm": dict(project="mnist_ddpm", attn=D2_ATTN, channels=1, samples=D2_SAMPLES,
+                                       request=(), cfg=1,
+                                       cuts={"trainer.n_epoch": (50, 1), **D3_VAL_STEPS, **NO_OPT_CKPT},
+                                       images={"train": (60000, 512), "t10k": (10000, 128)})}
 
 # phase 20: slice F1, the txt2img SprintDiT: the model block of configs/train_imagenet_repa_txt_to_img_sprint.yaml
 # as composed (768 wide, 12 heads of 64, patch 1, 128 channels; encoder 2 MMDiT blocks; deep_layers_depth 8 with
@@ -1849,7 +1900,7 @@ def phase_gradients(model, plain):
         losses.append(float(loss.detach()))
         if diffuser.denoiser is model and launched != {"fused_mha_fwd": DIT_B2["depth"], "fused_mha_bwd": DIT_B2["depth"],
                                                         **dict.fromkeys(BF16_COUNTERS, DIT_B2["depth"]),
-                                                        **dict.fromkeys(F32_ONLY_COUNTERS, 0)}:
+                                                        **dict.fromkeys(VALID_ROWS_COUNTERS, 0)}:
             fail(f"DiT-B/2 gradients: kernel path launched {launched}, expected {DIT_B2['depth']} of each")
     worst, worst_name = 0.0, None
     for name, g in grads[0].items():
@@ -2002,7 +2053,7 @@ def phase_txt2img_gradients(model, plain):
     depth = TXT["depth"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
     if launched[0] != expected or any(launched[1].values()):
         fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
     worst, worst_name = 0.0, None
@@ -2131,7 +2182,7 @@ def phase_txt2img_train(model, tower):
     loader, launches = tr["loader"], tr["launches"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
         step = {key: c1[key] - c0[key] for key in c1}
@@ -3260,17 +3311,18 @@ def phase_e1_repa(root: Path):
 C1_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
-def d2_mask(kind: str, b: int, tokens: int):
+def d2_mask(kind: str, b: int, tokens: int, tile: int = 8):
     """[b, 128] key mask: the UNet's padding mask (its first ``tokens`` keys);
-    or ``"hole"``: batch row 0 with keys 8-15 masked and as many valid keys
-    after them (an empty 8-key tile between live ones), row 1 fully masked,
+    or ``"hole"``: batch row 0 with keys ``tile`` to ``2 tile - 1`` masked and
+    as many valid keys after them (an empty key tile between live ones: 8
+    keys for the fp32 instances, 16 for the bf16 ones), row 1 fully masked,
     the others padded."""
     import torch
 
     keys = torch.arange(D2_PADDED, device="cuda")
     mask = (keys < tokens)[None].expand(b, -1).clone()
     if kind == "hole":
-        mask[0] = (keys < 8) | ((keys >= 16) & (keys < tokens + 8))
+        mask[0] = (keys < tile) | ((keys >= 2 * tile) & (keys < tokens + tile))
         mask[1] = False
     return mask
 
@@ -3309,18 +3361,32 @@ def padded_bounds(b: int, tokens: int, s: int, h: int, d: int, backward: bool, p
                 mb=bytes_moved / 1e6, gflop=flops / 1e9)
 
 
-def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: int | None = None):
-    """The fp32 K1 and K2 instances built around the valid rows at the head
-    dims and token counts of ``attn`` against their plain versions, as the
-    fused route hands them over: the unpadded query rows, k, v and the
-    padding mask at 128 keys. First two edge cases each (an empty key tile
-    between live ones beside a fully masked row: o = 0, lse = +inf and zero
-    gradients there; a ragged Sq). Then each kernel timed from CUDA-graph
-    replays at batch ``b`` (K1 also at ``sample_batch``) beside fp32 SDPA on
-    the same inputs (the yardstick), on the padded q, k, v with the mask, and
-    on the unpadded q, k, v; SDPA's backward as its memory-efficient backward
-    op (:func:`sdpa_fp32_backward`); the plain version's time; two bounds
-    (:func:`d2_bounds`). Returns (results by ``{fwd,bwd}_d{D}`` and, at
+def bitwise_share(o, ref) -> float:
+    """The share of the elements of ``o`` equal to ``ref``'s bit for bit: a
+    bf16 K1 that rounds the normalised p as its plain version does leaves
+    nearly all of o bitwise the same (a sum in another order flips a rounding
+    now and then); one that rounded exp(s - m) and divided by l after PV, as
+    an online softmax does, about half (tests/test_torch_port_d3_tiles.py)."""
+    return float((o == ref).float().mean())
+
+
+def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: int | None = None,
+                       dtype: str = "float32"):
+    """The K1 and K2 instances built around the valid rows (``dtype``: fp32,
+    or bf16) at the head dims and token counts of ``attn`` against their
+    plain versions, as the fused route hands them over: the unpadded query
+    rows, k, v and the padding mask at 128 keys. First two edge cases each
+    (an empty key tile between live ones beside a fully masked row: o = 0,
+    lse = +inf and zero gradients there; a ragged Sq). Then each kernel timed
+    from CUDA-graph replays at batch ``b`` (K1 also at ``sample_batch``)
+    beside SDPA in ``dtype`` on the same inputs (the yardstick), on the
+    padded q, k, v with the mask, and on the unpadded q, k, v; SDPA's
+    backward as its memory-efficient backward op
+    (:func:`sdpa_fp32_backward`, which takes either dtype); the plain
+    version's time; two bounds (:func:`padded_bounds`: fp32 at 3xTF32, bf16
+    at the bf16 peak). In bf16, K1's o is also held to its plain version bit
+    for bit on at least ``D3_BITWISE_MIN`` of its elements
+    (:func:`bitwise_share`). Returns (results by ``{fwd,bwd}_d{D}`` and, at
     ``sample_batch``, ``fwd_d{D}_b{B}``; the edge cases' errors)."""
     import torch
     import torch.nn.functional as F
@@ -3334,22 +3400,32 @@ def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: 
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     s = D2_PADDED
+    bf16 = dtype == "bfloat16"
+    tile = 16 if bf16 else 8  # the instances' key tile: an empty one between live ones in the hole case
+    bound_kw = dict(elem=2, peak_flops=PEAK_BF16_FLOPS, passes=1) if bf16 else {}
+    name = "bf16" if bf16 else "fp32"
     results, edges = {}, {}
     for d, tokens, _ in attn:
         def rand(bb, n):
-            return torch.randn(bb, n, h, d, generator=gen, device="cuda", dtype=torch.float32)
+            return torch.randn(bb, n, h, d, generator=gen, device="cuda", dtype=getattr(torch, dtype))
 
-        for label, sq, mask in (("hole", tokens, d2_mask("hole", b, tokens)),
+        def bounds(bb, backward, padded):
+            return padded_bounds(bb, tokens, s, h, d, backward, padded, **bound_kw)
+
+        for label, sq, mask in (("hole", tokens, d2_mask("hole", b, tokens, tile)),
                                 ("ragged", tokens // 2 + 5, d2_mask("padded", b, tokens))):
             q, k, v, do = rand(b, sq), rand(b, s), rand(b, s), rand(b, sq)
             with torch.no_grad():
                 o, lse = fused_mha(q, k, v, mask)
                 ro, rlse = fused_mha_reference(q, k, v, mask)
-                err = check_close(f"{tag} K1 fp32 D={d} {label} o", o, ro, *TOL["float32"])
-                check_close(f"{tag} K1 fp32 D={d} {label} lse", lse, rlse, *LSE_TOL)
+                err = check_close(f"{tag} K1 {name} D={d} {label} o", o, ro, *TOL[dtype])
+                check_close(f"{tag} K1 {name} D={d} {label} lse", lse, rlse, *LSE_TOL)
+                if bf16 and bitwise_share(o, ro) < D3_BITWISE_MIN:
+                    fail(f"{tag} K1 bf16 D={d} {label}: o bitwise the plain version's on {bitwise_share(o, ro):.4f} "
+                         f"of its elements, below {D3_BITWISE_MIN}")
                 grads = fused_mha_bwd(q, k, v, mask, lse, do)
-                bwd_err = check_grads(f"{tag} K2 fp32 D={d} {label}", grads,
-                                      fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL["float32"])
+                bwd_err = check_grads(f"{tag} K2 {name} D={d} {label}", grads,
+                                      fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL[dtype])
             if label == "hole" and (bool(o[1].any()) or not bool((lse[1] == math.inf).all())
                                     or any(bool(g[1].any()) for g in grads)):
                 fail(f"{tag} D={d}: the fully masked row's o {float(o[1].abs().max())}, lse {lse[1].min().item()}, "
@@ -3368,23 +3444,27 @@ def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: 
             with torch.no_grad():
                 o, lse = fused_mha(q, k, v, mask)
                 ro, rlse = fused_mha_reference(q, k, v, mask)
-                err = check_close(f"{tag} K1 fp32 D={d} B={bb} o", o, ro, *TOL["float32"])
-                check_close(f"{tag} K1 fp32 D={d} B={bb} lse", lse, rlse, *LSE_TOL)
+                err = check_close(f"{tag} K1 {name} D={d} B={bb} o", o, ro, *TOL[dtype])
+                check_close(f"{tag} K1 {name} D={d} B={bb} lse", lse, rlse, *LSE_TOL)
+                share = bitwise_share(o, ro)
+                if bf16 and share < D3_BITWISE_MIN:
+                    fail(f"{tag} K1 bf16 D={d} B={bb}: o bitwise the plain version's on {share:.4f} of its "
+                         f"elements, below {D3_BITWISE_MIN}")
                 sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask).transpose(1, 2)
                                   - ro).abs().max())
                 results[f"fwd_{key}"] = dict(
-                    max_abs_err=err, sdpa_err=sdpa_err, ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
+                    max_abs_err=err, sdpa_err=sdpa_err, bitwise_share=share,
+                    ms=cuda_graph_ms(lambda: fused_mha(q, k, v, mask)),
                     plain_ms=cuda_time_ms(lambda: fused_mha_reference(q, k, v, mask), iters=5),
                     library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=attn_mask)),
                     sdpa_padded_ms=cuda_graph_ms(
                         lambda: F.scaled_dot_product_attention(qpt, kt, vt, attn_mask=attn_mask)),
                     sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, *kvt)),
-                    **d2_bounds(bb, tokens, h, d, False, False),
-                    padded=d2_bounds(bb, tokens, h, d, False, True))
+                    **bounds(bb, False, False), padded=bounds(bb, False, True))
                 if bb == b:
                     refs = fused_mha_bwd_reference(q, k, v, mask, lse, do)
-                    err = check_grads(f"{tag} K2 fp32 D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs,
-                                      BWD_TOL["float32"])
+                    err = check_grads(f"{tag} K2 {name} D={d}", fused_mha_bwd(q, k, v, mask, lse, do), refs,
+                                      BWD_TOL[dtype])
                     sdpa_bwd = sdpa_fp32_backward(q, k, v, do, mask)
                     op_grads = [g.transpose(1, 2) for g in sdpa_bwd()]
                     sdpa_err = max(float((g - r).abs().max()) for g, r in zip(op_grads, refs))
@@ -3392,8 +3472,8 @@ def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: 
                         leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
                         out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
                         sdpa_grads = torch.autograd.grad(out, leaves, do.transpose(1, 2))
-                        check_grads(f"{tag} SDPA fp32 backward op D={d} vs its autograd", op_grads,
-                                    [g.transpose(1, 2) for g in sdpa_grads], BWD_TOL["float32"])
+                        check_grads(f"{tag} SDPA {name} backward op D={d} vs its autograd", op_grads,
+                                    [g.transpose(1, 2) for g in sdpa_grads], BWD_TOL[dtype])
                         del out, sdpa_grads, op_grads
                     results[f"bwd_{key}"] = dict(
                         max_abs_err=err, sdpa_err=sdpa_err,
@@ -3402,8 +3482,7 @@ def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: 
                         library_ms=cuda_graph_ms(sdpa_bwd, calls=10, replays=5),
                         sdpa_padded_ms=cuda_graph_ms(sdpa_fp32_backward(qp, k, v, dop, mask), calls=10, replays=5),
                         sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, *kv, do), calls=10, replays=5),
-                        **d2_bounds(bb, tokens, h, d, True, False),
-                        padded=d2_bounds(bb, tokens, h, d, True, True))
+                        **bounds(bb, True, False), padded=bounds(bb, True, True))
                     del refs, sdpa_bwd
             del q, k, v, do, qp, dop, kv, o, lse, ro, rlse
     torch.cuda.synchronize()
@@ -3418,18 +3497,21 @@ VALID_ROWS_TIMING = (f"device ms from CUDA-graph replays; SDPA fp32 on the same 
                      f"{D2_PADDED} rows")
 
 
-def valid_rows_line(results, edges) -> str:
+def valid_rows_line(results, edges, dtype: str = "float32") -> str:
     """The edge cases and timings of :func:`valid_rows_kernels` as text."""
+    name = "bf16" if dtype == "bfloat16" else "fp32"
     return ("edge cases (max_abs_err K1 o, K2) "
             + ", ".join(f"{key} {e1:.3e} {e2:.3e}" for key, (e1, e2) in edges.items()) + "; "
-            + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) kernel {r['ms']:.4f} "
-                        f"SDPA fp32 {r['library_ms']:.4f} (padded {r['sdpa_padded_ms']:.4f}, unpadded "
+            + "; ".join(f"{key} max_abs_err {r['max_abs_err']:.3e} (SDPA's {r['sdpa_err']:.3e}) "
+                        + (f"o bitwise share {r['bitwise_share']:.4f} " if dtype == "bfloat16" and "bitwise_share" in r
+                           else "")
+                        + f"kernel {r['ms']:.4f} "
+                        f"SDPA {name} {r['library_ms']:.4f} (padded {r['sdpa_padded_ms']:.4f}, unpadded "
                         f"{r['sdpa_unpadded_ms']:.4f}) plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} "
                         f"({r['bound_by']}: {r['mb']:.1f} MB, {r['gflop']:.2f} GFLOP), padded "
                         f"{r['padded']['bound_ms']:.4f} ({r['padded']['bound_by']}: {r['padded']['mb']:.1f} MB)"
                         for key, r in results.items())
-            + f"; tol K1 atol {TOL['float32'][0]} rtol {TOL['float32'][1]}, K2 {BWD_TOL['float32']} * "
-              "(max|ref| + |ref|)")
+            + f"; tol K1 atol {TOL[dtype][0]} rtol {TOL[dtype][1]}, K2 {BWD_TOL[dtype]} * (max|ref| + |ref|)")
 
 
 def phase_d2_kernels():
@@ -3539,16 +3621,16 @@ def phase_d2_model():
           "at D=512)")
 
 
-def write_mnist(root: Path, seed: int = 0) -> None:
-    """MNIST idx files of D2_IMAGES' cut sizes from a seed (valid idx
-    headers, uniform uint8 pixels and labels): no download."""
+def write_mnist(root: Path, seed: int = 0, images: dict[str, tuple[int, int]] | None = None) -> None:
+    """MNIST idx files of D2_IMAGES' cut sizes (or ``images``') from a seed
+    (valid idx headers, uniform uint8 pixels and labels): no download."""
     import struct
 
     import numpy as np
 
     rng = np.random.default_rng(seed)
     root.mkdir(parents=True, exist_ok=True)
-    for prefix, (_, n) in D2_IMAGES.items():
+    for prefix, (_, n) in (images or D2_IMAGES).items():
         with open(root / f"{prefix}-images-idx3-ubyte", "wb") as f:
             f.write(struct.pack(">IIII", 2051, n, 28, 28))
             f.write(rng.integers(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
@@ -3858,7 +3940,7 @@ def phase_f1_txt2img_sprint():
     tr = txt2img_train_run(model, tower, "chip_smoke_txt2img_sprint", "txt2img SprintDiT train")
     loader = tr["loader"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, **dict.fromkeys(FLASH_KERNELS, blocks),
-                **{f"{name}_f32": 0 for name in FLASH_KERNELS}, **dict.fromkeys((*BF16_COUNTERS, *F32_ONLY_COUNTERS), 0)}
+                **{f"{name}_f32": 0 for name in FLASH_KERNELS}, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     step_keys = {}
     for batch, (t0, c0), (t1, c1), k0, k1 in zip(loader.batches, loader.marks[:-1], loader.marks[1:],
@@ -5787,6 +5869,245 @@ def phase_p1(root: Path) -> dict[str, Any]:
     return out
 
 
+def phase_d3_kernels():
+    """Phase 29a: the bf16 K1 and K2 instances built around the valid rows
+    against their plain versions on bf16 draws, as the fused route hands them
+    over: first the libraries' bf16 tile rules against the ones the emulation
+    in ``ops/fused_mha.py`` mirrors; then at D1's shapes (D = 192 at 64
+    tokens, 384 at 16; K1 also at the CFG request's B=32) and D2's (256, 512),
+    keys padded to 128, B=128, H=2, with the edge cases, timings and bounds of
+    :func:`valid_rows_kernels` in bf16 (SDPA bf16 as the yardstick); then
+    :data:`D3_LONG`, 512 keys at D = 192 of which 400 are attended, where K1
+    runs its second pass on scores formed anew."""
+    import torch
+
+    from diffulab_tpu_torch.ops import _build
+    from diffulab_tpu_torch.ops.fused_mha import (
+        BF16_KEPT_TILES,
+        FUSED_HEAD_DIMS,
+        bf16_keys,
+        f32_groups,
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
+    tiles = {d: (*(fwd_lib.fused_mha_fwd_bf16_tiles(d, w) for w in (0, 1, 2)),
+                 *(bwd_lib.fused_mha_bwd_bf16_tiles(d, w) for w in (0, 1))) for d in FUSED_HEAD_DIMS}
+    mirrored = {d: (bf16_keys(d), f32_groups(d), BF16_KEPT_TILES, bf16_keys(d), f32_groups(d)) if bf16_keys(d)
+                else (0,) * 5 for d in FUSED_HEAD_DIMS}
+    if tiles != mirrored:
+        fail(f"D3 bf16 tile rules: the libraries' (K1 keys, groups, kept tiles, K2 keys, groups) {tiles} differ "
+             f"from ops/fused_mha.py's {mirrored}")
+    results, edges = valid_rows_kernels("D3 D1", D1_ATTN, D1_BATCH, D1_HEADS, 291, sample_batch=2 * D1_SAMPLES,
+                                        dtype="bfloat16")
+    d2_results, d2_edges = valid_rows_kernels("D3 D2", D2_ATTN, D2_BATCH, D2_HEADS, 292, dtype="bfloat16")
+    results.update(d2_results)
+    edges.update(d2_edges)
+
+    d, sq, skv, attended = D3_LONG
+    gen = torch.Generator(device="cuda").manual_seed(293)
+    q, do = (torch.randn(D1_BATCH, sq, D1_HEADS, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(D1_BATCH, skv, D1_HEADS, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    mask = (torch.arange(skv, device="cuda") < attended)[None].expand(D1_BATCH, -1).contiguous()
+    with torch.no_grad():
+        o, lse = fused_mha(q, k, v, mask)
+        ro, rlse = fused_mha_reference(q, k, v, mask)
+        err = check_close(f"D3 K1 bf16 D={d} Skv={skv} o", o, ro, *TOL["bfloat16"])
+        check_close(f"D3 K1 bf16 D={d} Skv={skv} lse", lse, rlse, *LSE_TOL)
+        share = bitwise_share(o, ro)
+        if share < D3_BITWISE_MIN:
+            fail(f"D3 K1 bf16 D={d} Skv={skv}: o bitwise the plain version's on {share:.4f} of its elements")
+        bwd_err = check_grads(f"D3 K2 bf16 D={d} Skv={skv}", fused_mha_bwd(q, k, v, mask, lse, do),
+                              fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL["bfloat16"])
+    edges[f"d{d}_two_pass_skv{skv}_attended{attended}"] = (err, bwd_err)
+    del q, k, v, do, o, lse, ro, rlse
+    torch.cuda.synchronize()
+    print(f"phase 29 kernels bf16 at the UNets' attention shapes (B={D1_BATCH}, K1 also at the D1 CFG request's "
+          f"B={2 * D1_SAMPLES}, H={D1_HEADS}, the unpadded query rows, keys padded to {D2_PADDED} with the padding "
+          f"mask; the 16-key hole; {skv} keys at D={d} with {attended} attended: {attended // 16} live tiles, K1's "
+          f"second pass forming the scores anew; tile rules (K1 keys, groups, kept tiles, K2 keys, groups) "
+          f"{ {d: t for d, t in tiles.items() if t[0]} }, as the emulation's; K1's o bitwise the plain version's on "
+          f"at least {D3_BITWISE_MIN} of its elements; device ms from CUDA-graph replays; SDPA bf16 on the same "
+          f"inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, its backward as its "
+          f"memory-efficient backward op (held to SDPA's autograd); bounds at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"and {PEAK_BYTES_PER_S / 1e12} TB/s, bf16, over the valid rows and keys, and over the padded "
+          f"contract's {D2_PADDED} rows): " + valid_rows_line(results, edges, "bfloat16"))
+    return results
+
+
+def _d3_bf16_unet(config: str, seed: int):
+    """The config's UNet at full width built as train_diffusion builds it
+    under trainer.precision_type=bf16 (``model_dtype_kwargs``: compute in
+    bf16, fp32 master parameters), seeded noise in every parameter, on the
+    card."""
+    from diffulab_tpu_torch.config import compose_config, instantiate
+    from diffulab_tpu_torch.config.instantiate import model_dtype_kwargs
+    from diffulab_tpu_torch.examples.train_diffusion import CONFIG_DIR
+
+    cfg = compose_config(CONFIG_DIR, config, [D3_OVERRIDE])
+    model = instantiate(cfg["model"], device="cuda", **model_dtype_kwargs(cfg["trainer"]))
+    randomize_(model, seed)
+    return model
+
+
+def _d3_instances(launches: dict, attn, label: str, forward_only: bool = False) -> None:
+    """Every K1 (and K2) launch of a run a bf16 instance at the config's two
+    head dims (5 a model call at the smaller, 6 at the larger), by their own
+    counters; no fp32 fused launch and no flash launch."""
+    for kind in ("fwd",) if forward_only else ("fwd", "bwd"):
+        by_dim = [launches[f"fused_mha_{kind}_bf16_d{d}"] for d, _, _ in attn]
+        if sum(by_dim) != launches[f"fused_mha_{kind}"] or by_dim[0] * 6 != by_dim[1] * 5 or not by_dim[0] \
+                or launches[f"fused_mha_{kind}_bf16"] != launches[f"fused_mha_{kind}"]:
+            fail(f"D3 {label}: {kind} launches {launches}: every one a bf16 instance at D={attn[0][0]} (5 a model "
+                 f"call) or D={attn[1][0]} (6)")
+    if any(launches[f"fused_mha_{kind}_f32_d{d}"] for kind in ("fwd", "bwd") for d, _, _ in (*D1_ATTN, *D2_ATTN)) \
+            or any(launches[key] for key in FLASH_KERNELS) or (forward_only and launches["fused_mha_bwd"]):
+        fail(f"D3 {label}: fp32, flash or backward launches {launches}")
+
+
+def phase_d3_model():
+    """Phase 29b: the full-width UNets of train_synthetic_ddpm (155.7M
+    parameters) and train_mnist_ddpm (276.7M) in bf16: one forward at the
+    sample batch under CFG (D1: 32) or without (MNIST: 16) and the parameter
+    gradients of one epsilon loss at batch 16, each on the kernel path
+    against the same model with the plain attention (``impl="xla"``), the
+    launch counts set to 0 just before and read just after: 11 bf16 K1 a
+    forward, 11 bf16 K2 a backward, by the per-dim counters."""
+    import functools
+
+    import torch
+
+    import diffulab_tpu_torch.networks.denoisers.unet as unet_mod
+    from diffulab_tpu_torch.diffuse import Diffuser
+    from diffulab_tpu_torch.ops import dot_product_attention
+
+    lines = []
+    for i, (config, spec) in enumerate(D3_CONFIGS.items()):
+        model = _d3_bf16_unet(config, 294 + i)
+        gen = torch.Generator(device="cuda").manual_seed(296 + i)
+
+        def both_paths(fn):
+            reset_launch_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            launched = launch_counts()
+            unet_mod.dot_product_attention = functools.partial(dot_product_attention, impl="xla")
+            try:
+                ref = fn()
+            finally:
+                unet_mod.dot_product_attention = dot_product_attention
+            return out, ref, launched
+
+        b, c = spec["cfg"] * spec["samples"], spec["channels"]
+        x = torch.randn(b, 32, 32, c, generator=gen, device="cuda")
+        t = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+        y = torch.randint(0, 10, (b,), generator=gen, device="cuda")
+        drop = torch.arange(b, device="cuda") >= spec["samples"]
+        with torch.no_grad():
+            out, ref, fwd = both_paths(lambda: model(x, t, {"y": y}, drop)["x"])
+        rel = float((out.float() - ref.float()).abs().max() / ref.float().abs().max())
+        if out.dtype != torch.bfloat16 or not bool(torch.isfinite(out).all()) or rel > D3_FWD_TOL:
+            fail(f"D3 {config} bf16 UNet forward: {out.dtype}, rel err {rel:.3e} (tol {D3_FWD_TOL})")
+        _d3_instances(fwd, spec["attn"], f"{config} forward", forward_only=True)
+
+        gb = 16
+        diffuser = Diffuser(model, "ddim", model_type="gaussian_diffusion")
+        x0, noise = (torch.randn(gb, 32, 32, c, generator=gen, device="cuda") for _ in range(2))
+        t, y = torch.randint(0, 1000, (gb,), generator=gen, device="cuda"), y[:gb]
+        drop = torch.arange(gb, device="cuda") % 5 == 0
+
+        def grads():
+            model.zero_grad(set_to_none=True)
+            diffuser.compute_loss(x0, {"y": y}, t, noise, drop=drop)["loss"].backward()
+            return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+        ours, plain, bwd = both_paths(grads)
+        if any(g.dtype != torch.float32 for g in ours.values()):
+            fail(f"D3 {config}: gradients not fp32 on the fp32 masters")
+        floor = 1e-2 * max(float(g.norm()) for g in plain.values())
+        errs = {n: float((ours[n] - plain[n]).norm()) / max(float(plain[n].norm()), floor) for n in plain}
+        worst = max(errs, key=errs.get)
+        if errs[worst] > D3_GRAD_TOL:
+            fail(f"D3 {config} bf16 UNet gradients: {worst} rel err {errs[worst]:.3e} (tol {D3_GRAD_TOL})")
+        _d3_instances(bwd, spec["attn"], f"{config} gradients")
+        (d_small, _, _), (d_large, _, _) = spec["attn"]
+        lines.append(f"{config} ({sum(p.numel() for p in model.parameters())} parameters, fp32 masters, bf16 "
+                     f"compute) forward B={b}: max rel err {rel:.3e}, launches {fwd[f'fused_mha_fwd_bf16_d{d_small}']} "
+                     f"bf16 K1 D={d_small} + {fwd[f'fused_mha_fwd_bf16_d{d_large}']} D={d_large}; epsilon-loss "
+                     f"gradients B={gb}: worst ||kernel - plain|| / ||plain|| {errs[worst]:.3e} ({worst}), "
+                     f"{bwd['fused_mha_bwd_bf16']} bf16 K2 ({bwd[f'fused_mha_bwd_bf16_d{d_small}']} at D={d_small}, "
+                     f"{bwd[f'fused_mha_bwd_bf16_d{d_large}']} at D={d_large})")
+        model.zero_grad(set_to_none=True)
+        del model, diffuser, ours, plain
+        torch.cuda.empty_cache()
+    print(f"phase 29 D3 bf16 UNets, kernel path vs plain attention (tol forward {D3_FWD_TOL}, gradients "
+          f"{D3_GRAD_TOL}, each against max(||plain||, a hundredth of the largest)): " + "; ".join(lines))
+
+
+def phase_d3_cli(root: Path):
+    """Phase 29c: train_synthetic_ddpm and train_mnist_ddpm through the
+    port's train_diffusion with trainer.precision_type=bf16 (the MNIST
+    config on idx files written from a seed), cut to :data:`D3_STEPS`
+    micro-steps and one epoch, then one sample request each from the EMA
+    checkpoint (DDIM-50 at CFG 1.5 for D1, DDPM-50 for MNIST) with
+    model.dtype=bfloat16. The counts are set to 0 just before the training
+    and read at each train step (11 bf16 K1 + 11 bf16 K2, 5 : 6 between the
+    two head dims, no fp32 fused launch, no K3), and set to 0 again just
+    before the request (550 bf16 K1, 50 model calls of 11)."""
+    import torch
+
+    from diffulab_tpu_torch.examples import train_diffusion
+    from diffulab_tpu_torch.training.checkpoint import restore_checkpoint
+
+    sys.modules["wandb"] = None
+    log = root / "d3.log"
+    data = root / "mnist_d3"
+    lines, results = [], {}
+    for config, spec in D3_CONFIGS.items():
+        overrides = [f"{key}={new}" for key, (_, new) in spec["cuts"].items()] + [f"trainer.save_path={root / 'd3'}"]
+        if "images" in spec:
+            write_mnist(data, images=spec["images"])
+            overrides += [f"dataset.train.data_path={data}", f"dataset.val.data_path={data}"]
+        run = root / "d3" / spec["project"]
+        tr = _timed_train_cli(train_diffusion.main, ["--config-name", config, *overrides, D3_OVERRIDE], log, run, 1,
+                              D3_STEPS, f"D3 {config}")
+        calls = sum(n for _, _, n in spec["attn"])
+        if tr["per_step"] != [(calls, calls, 0)] * tr["trainer"].step:
+            fail(f"D3 {config} train: kernel launches per step (K1, K2, K3) {sorted(set(tr['per_step']))}, "
+                 f"expected ({calls}, {calls}, 0) each")
+        _d3_instances(tr["launches"], spec["attn"], f"{config} train")
+        params = restore_checkpoint(run / "checkpoints" / "denoiser")["params"]
+        if any(p.dtype != torch.float32 for p in params.values()):
+            fail(f"D3 {config}: the checkpoint's parameters are not fp32 masters")
+        result = _sample_request(["--config-name", config, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
+                                  str(spec["samples"]), *spec["request"], "--labels", ",".join(map(str, range(10))),
+                                  "--steps", "50", "--out", str(root / f"d3_{spec['project']}.png"), *overrides,
+                                  D3_SAMPLE_OVERRIDE], log)
+        launches = result["launches"]
+        if launches["fused_mha_fwd"] != 50 * calls:
+            fail(f"D3 {config} sample: launches {launches}, expected {50 * calls} bf16 K1")
+        _d3_instances(launches, spec["attn"], f"{config} sample", forward_only=True)
+        if result["images"].shape != (spec["samples"], 32, 32, spec["channels"]):
+            fail(f"D3 {config} sample: images {result['images'].shape}")
+        cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in spec["cuts"].items()]
+                         + [f"{prefix} images {old} -> {new}" for prefix, (old, new) in spec.get("images", {}).items()])
+        lines.append(f"{config} (cut: {cuts}; {D3_OVERRIDE}): {tr['trainer'].step} micro-steps, ms/step median "
+                     f"after the first two {tr['steady']:.2f} (train_step alone {tr['kernel_ms']:.2f}), peak mem "
+                     f"{tr['peak_gib']:.2f} GiB, train losses {[round(x, 5) for x in tr['losses']]}, val losses "
+                     f"{[round(x, 5) for x in tr['val_losses']]}; per step {calls} bf16 K1 + {calls} bf16 K2, 0 K3, "
+                     f"in the run { {k: v for k, v in tr['launches'].items() if v} }; request of {spec['samples']} "
+                     f"images, 50 steps, {D3_SAMPLE_OVERRIDE}: generate {result['generate_ms']:.1f} ms, launches "
+                     f"{ {k: v for k, v in launches.items() if v} }")
+        results[config] = {"train": tr["launches"], "sample": launches}
+    print("phase 29 CLIs bf16: " + "; ".join(lines))
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -5883,6 +6204,12 @@ def main() -> int:
         lap("27 J1 --prompts")
         p1 = phase_p1(Path(tmp))
         lap("28 P1 parallel configs")
+        d3_kernels = phase_d3_kernels()
+        lap("29a D3 kernels")
+        phase_d3_model()
+        lap("29b D3 bf16 UNets")
+        d3 = phase_d3_cli(Path(tmp))
+        lap("29c D3 CLIs")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -5914,6 +6241,8 @@ def main() -> int:
     # slice P1's windows: the MoE DiT's train run and request, the ring and pipeline runs (fp32 K1/K2 at 256)
     p1_windows = {"p1_moe_train": p1["moe"]["train"], "p1_moe_sample": p1["moe"]["sample"],
                   **{f"p1_{c.removeprefix('train_cifar10_')}": p1[c] for c in P1_AXES}}
+    # slice D3's windows: the bf16 UNets' train runs and requests (bf16 K1/K2 at 192/384 and 256/512)
+    d3_windows = {f"d3_{D3_CONFIGS[c]['project']}_{w}": r[w] for c, r in d3.items() for w in ("train", "sample")}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -6050,6 +6379,28 @@ def main() -> int:
         ("D1", D1_ATTN, D1_BATCH, d1_kernels, {"d1_train": d1["train"], "d1_sample": d1["sample"], **e1_unet}),
         ("D2", D2_ATTN, D2_BATCH, d2_kernels, d2_windows))
       for kind in ("fwd", "bwd") for d, tokens, _ in attn] + [{
+        "name": f"fused_mha_{kind} (bf16 instance D={d}, slice D3)",
+        "route": "cuda",
+        "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
+        "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
+        "launches": sum(w[f"fused_mha_{kind}_bf16_d{d}"] for w in d3_windows.values()),
+        "launches_by_path": {k: w[f"fused_mha_{kind}_bf16_d{d}"] for k, w in d3_windows.items()
+                             if w[f"fused_mha_{kind}_bf16_d{d}"]},
+        **{key: d3_kernels[f"{kind}_d{d}"][key] for key in C1_KEYS},
+        "bound_padded_ms": d3_kernels[f"{kind}_d{d}"]["padded"]["bound_ms"],
+        "sdpa_padded_ms": d3_kernels[f"{kind}_d{d}"]["sdpa_padded_ms"],
+        "sdpa_unpadded_ms": d3_kernels[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
+        **({"o_bitwise_share": d3_kernels[f"fwd_d{d}"]["bitwise_share"]} if kind == "fwd" else {}),
+        "shape": f"B={D1_BATCH} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
+                 f"mask) H=2 D={d} bf16",
+        **({"sample_shape_b32": {key: d3_kernels[f"fwd_d{d}_b{2 * D1_SAMPLES}"][key] for key in C1_KEYS}}
+           if f"{kind}_d{d}_b{2 * D1_SAMPLES}" in d3_kernels else {}),
+        "timing": "ms and library_ms (bf16 SDPA on the same inputs): device time per call from CUDA-graph replays"
+                  + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
+                  + "; bound_ms at 989 TFLOP/s and 3.35 TB/s over the valid rows and keys; bound_padded_ms with q, o "
+                    "and lse (K2: q, do, dq, lse, dk and dv) padded to 128 rows; sdpa_padded_ms and sdpa_unpadded_ms: "
+                    "SDPA on the padded q/k/v with the mask and on the unpadded q/k/v",
+    } for attn in (D1_ATTN, D2_ATTN) for kind in ("fwd", "bwd") for d, tokens, _ in attn] + [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -72,6 +72,8 @@
 // CTAs cover the unpadded query rows alone and skip every key tile whose mask
 // is all 0, a dk/dv CTA whose keys are all masked writes zeros, and the dk/dv
 // query loop walks the valid query rows; column groups of vr_cols columns.
+// In bf16 at those dims, mha_bwd_{dq,dkv}_bf16_valid<D>: the same split on
+// mma.sync m16n8k16 over tiles of 16 keys or queries (bf16_valid.cuh).
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
@@ -81,6 +83,7 @@
 
 #include "attn_bwd_hopper.cuh"  // K4/K5's Hopper kernels; hopper.cuh: MASK_VALUE, bf16, pack_bf16, quad_sum
 #include "tf32x3.cuh"            // the fp32 kernels' 3xTF32 mma.sync fragments
+#include "bf16_valid.cuh"        // mma_bf16, ldsm_x4_trans; the bf16 kernels' fragments at D = 192-512
 
 namespace {
 
@@ -88,23 +91,6 @@ constexpr int BLOCK = 64;     // rows per CTA, and rows per staged tile (bf16 at
 constexpr int WARPS = 4;      // bf16 kernels at D = 16, 32: 16 rows per warp
 constexpr int CHUNK = 32;     // score columns held in registers at a time
 constexpr int PAD = 8;        // bf16 elements of padding per shared-memory row
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8x8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7 give
-// the row addresses of matrix i, whose fragment lands in r[i]
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const bf16* ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 template <int D>
 using Tile = bf16 (*)[D + PAD];
@@ -148,33 +134,7 @@ __device__ __forceinline__ void rows_dot_tile(float c[CHUNK / 8][4], const uint3
       uint32_t b[2];
       b[0] = *reinterpret_cast<const uint32_t*>(&ts[c0 + nt * 8 + g][kk * 16 + 2 * t4]);
       b[1] = *reinterpret_cast<const uint32_t*>(&ts[c0 + nt * 8 + g][kk * 16 + 2 * t4 + 8]);
-      mma_16816(c[nt], af[kk], b);
-    }
-  }
-}
-
-// acc[16 rows x D] += round_bf16(x[16 rows x CHUNK]) . T[c0 .. c0 + CHUNK)[0 .. D):
-// x in the C layout of rows_dot_tile becomes the A operand in registers; T's
-// rows are the reduction axis, read with ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void chunk_times_tile(float acc[D / 8][4], const float x[CHUNK / 8][4],
-                                                 Tile<D> ts, int c0, int lane) {
-  const int mat = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < CHUNK / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const int k0 = c0 + kk * 16;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; dn += 2) {
-      // matrices: (rows k0.., cols dn*8..), (k0+8.., dn*8..), (k0.., dn*8+8..), (k0+8.., dn*8+8..)
-      uint32_t b[4];
-      ldsm_x4_trans(b, &ts[k0 + (mat & 1) * 8 + r][dn * 8 + (mat >> 1) * 8]);
-      mma_16816(acc[dn], a, b);
-      mma_16816(acc[dn + 1], a, b + 2);
+      mma_bf16(c[nt], af[kk], b);
     }
   }
 }
@@ -273,7 +233,7 @@ mha_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
       for (int nt = 0; nt < CHUNK / 8; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j) dp[nt][j] = p[nt][j] * (dp[nt][j] - di[j >> 1]) * sm_scale;
-      chunk_times_tile<D>(acc, dp, ks, c0, lane);
+      scores_times_tile_bf16<D, CHUNK, D + PAD>(acc, dp, &ks[c0][0], lane);
     }
   }
 
@@ -341,14 +301,14 @@ mha_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k, const b
           const float x = keep[j >> 1] ? p[nt][j] * sm_scale : MASK_VALUE;
           p[nt][j] = expf(x - lse_s[c0 + nt * 8 + 2 * t4 + (j & 1)]);
         }
-      chunk_times_tile<D>(dv_acc, p, dos, c0, lane);  // dv += round(p)^T . do
+      scores_times_tile_bf16<D, CHUNK, D + PAD>(dv_acc, p, &dos[c0][0], lane);  // dv += round(p)^T . do
       rows_dot_tile<D>(dp, vf, dos, c0, g, t4);       // dp^T = v . do^T
 #pragma unroll
       for (int nt = 0; nt < CHUNK / 8; ++nt)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           dp[nt][j] = p[nt][j] * (dp[nt][j] - di_s[c0 + nt * 8 + 2 * t4 + (j & 1)]) * sm_scale;
-      chunk_times_tile<D>(dk_acc, dp, qs, c0, lane);  // dk += round(ds)^T . q
+      scores_times_tile_bf16<D, CHUNK, D + PAD>(dk_acc, dp, &qs[c0][0], lane);  // dk += round(ds)^T . q
     }
   }
 
@@ -1006,6 +966,264 @@ __host__ __device__ constexpr size_t vr_dkv_smem_bytes() {
                           2 * vr_groups<D>() * vr_rows<D>() * VR_TILE);
 }
 
+// --- bf16 at D = 192-512: the same split around the valid rows (bf16_valid.cuh) -----
+//
+// The bf16 instance of K2 (diffulab_tpu/ops/fused_mha.py:87), for a bf16 UNet
+// (trainer.precision_type=bf16). At B=128, H=2 a call must read q, do, k and v
+// and write dq, dk and dv over the valid rows and keys, 44.0 / 58.7 / 22.0 /
+// 29.4 MB at D = 192 / 256 / 384 / 512 (0.013 / 0.018 / 0.0066 / 0.0088 ms at
+// 3.35 TB/s), against 2.01 / 2.68 / 0.25 / 0.34 GFLOP (0.003 ms or less at 989
+// TFLOP/s): bound by bytes. The CTAs, warps and column groups are the fp32
+// valid-rows kernels'; the products are mma.sync m16n8k16 on bf16 tiles of
+// VR_BF16_TILE = 16 keys (dq) or queries (dk/dv); K2's roundings: p to bf16
+// before dv = p^T.dO, ds to bf16 before dq = ds.K and dk = ds^T.Q, di from
+// the fp32 p and dp.
+
+// dq for vr_rows queries of a (batch, head): pass 1 over the live key tiles
+// forms s, p = exp(s - lse) and dp = dO.V^T and sums di = rowsum(p * dp);
+// pass 2 forms them again, ds = p * (dp - di) * scale and dq += round(ds).K.
+// The CTA writes lse and di for the dk/dv kernel.
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                      float* __restrict__ ws_lse, float* __restrict__ ws_di, bf16* __restrict__ dq, int Sq, int Skv,
+                      int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                      long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = VR_BF16_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ldb<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [ROWS][LD]
+  bf16* dos = qs + ROWS * LD;                                // [ROWS][LD]
+  bf16* ks = dos + ROWS * LD;                                // [2][KT][LD]
+  bf16* vs = ks + 2 * KT * LD;                               // [2][KT][LD]
+  float* part = reinterpret_cast<float*>(vs + 2 * KT * LD);  // [2][GROUPS][ROWS][KT]: partial s, then dp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dq columns: col0 + [0, DO)
+  const int row = m0 + r0 + g;                        // this thread's rows: row, row + 8
+  const bool active = m0 + r0 < Sq;                   // the warp has a valid row
+  const bf16* kb = k + b * k_sb + h * D;
+  const bf16* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
+                          row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
+
+  auto stage = [&](int tile, int slot) {
+    stage_bf16_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT, Skv);
+    stage_bf16_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT, Skv);
+  };
+  // the load sequence: the live tiles for pass 1, then again for pass 2
+  int pass = 0, cur = next_live<KT>(mb, 0, n_tiles);
+  if (cur < n_tiles) {
+    stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+    stage_bf16_rows<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
+    stage(cur, 0);
+    cp_async_commit();
+  }
+
+  float di[2] = {0.f, 0.f}, acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int i = 0; cur < n_tiles; ++i) {
+    const int slot = i & 1;
+    int next_pass = pass, nxt = next_live<KT>(mb, cur + 1, n_tiles);
+    if (nxt == n_tiles && pass == 0) {
+      next_pass = 1;
+      nxt = next_live<KT>(mb, 0, n_tiles);
+    }
+    if (nxt < n_tiles) {
+      stage(nxt, slot ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float p[KT / 8][4], dp[KT / 8][4];
+    if (active) {  // this group's columns of D
+      rows_dot_bf16<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+      rows_dot_bf16<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
+      put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
+      put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
+    }
+    __syncthreads();
+    if (active) {
+      sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
+      sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
+      probs_f32<KT>(p, sm_scale, mb, cur * KT, lse_r, t4);
+      if (pass == 0) {
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;
+        scores_times_tile_bf16<DO, KT, LD>(acc, p, ks + slot * KT * LD + col0, lane);  // dq += round(ds).K
+      }
+    }
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+    if (pass == 0 && next_pass == 1) {  // di over the whole key row, before pass 2
+      di[0] = quad_sum(di[0]);
+      di[1] = quad_sum(di[1]);
+    }
+    pass = next_pass;
+    cur = nxt;
+  }
+
+  // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
+  if (!active) return;
+  const long long o_ss = (long long)H * D;
+  store_bf16_rows<DO>(dq + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    const long long w = ((long long)b * H + h) * Sq + row;
+    if (row < Sq) {
+      ws_lse[w] = lse_r[0];
+      ws_di[w] = di[0];
+    }
+    if (row + 8 < Sq) {
+      ws_lse[w + 8] = lse_r[1];
+      ws_di[w + 8] = di[1];
+    }
+  }
+}
+
+// dk and dv for vr_rows keys of a (batch, head): a CTA whose keys are all
+// masked writes zeros; otherwise its K and V rows stay in shared memory and the
+// valid query rows stream in tiles of VR_BF16_TILE queries with their lse and
+// di (rows past Sq zero-filled, lse +inf: p = 0). p^T = exp(K.Q^T * scale -
+// lse), dv += round(p^T).dO, dp^T = V.dO^T, ds^T = p^T * (dp^T - di) * scale,
+// dk += round(ds^T).Q.
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout, const int* __restrict__ mask,
+                       const float* __restrict__ ws_lse, const float* __restrict__ ws_di, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
+                       long long k_ss, long long v_sb, long long v_ss, long long do_sb, long long do_ss,
+                       float sm_scale) {
+  constexpr int QT = VR_BF16_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ldb<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                // [ROWS][LD]
+  bf16* vs = ks + ROWS * LD;                                   // [ROWS][LD]
+  bf16* qs = vs + ROWS * LD;                                   // [2][QT][LD]
+  bf16* dos = qs + 2 * QT * LD;                                // [2][QT][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * QT * LD);  // [2][QT]
+  float* di_s = lse_s + 2 * QT;                                // [2][QT]
+  float* part = di_s + 2 * QT;                                 // [2][GROUPS][ROWS][QT]: partial s^T, then dp^T
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dk and dv columns: col0 + [0, DO)
+  const int row = n0 + r0 + g;                        // this thread's keys: row, row + 8
+  const long long o_ss = (long long)H * D;
+  bf16* dkb = dk + (long long)b * Skv * o_ss + h * D;
+  bf16* dvb = dv + (long long)b * Skv * o_ss + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+
+  bool live = mb == nullptr;
+  for (int t = 0; !live && t < ROWS / VR_TILE; ++t) live = tile_live(mb + n0, t);
+  if (!live) {  // every key masked: dk = dv = 0
+    for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
+      const long long at = (long long)(n0 + i / (D / 8)) * o_ss + (i % (D / 8)) * 8;
+      *reinterpret_cast<int4*>(dkb + at) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(dvb + at) = make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const bf16* qb = q + b * q_sb + h * D;
+  const bf16* dob = dout + b * do_sb + h * D;
+  const float* wl = ws_lse + ((long long)b * H + h) * Sq;
+  const float* wd = ws_di + ((long long)b * H + h) * Sq;
+  const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
+  const int n_tiles = (Sq + QT - 1) / QT;
+
+  auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
+    const int slot = t & 1;
+    stage_bf16_rows<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT, Sq);
+    stage_bf16_rows<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT, Sq);
+    const int i = threadIdx.x, r = t * QT + i % QT;
+    if (i < QT)
+      lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
+    else if (i < 2 * QT)
+      di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+  };
+
+  stage_bf16_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
+  stage_bf16_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
+  stage(0);
+  cp_async_commit();
+
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      stage(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int slot = t & 1;
+    const bf16* qt = qs + slot * QT * LD;
+    const bf16* dot = dos + slot * QT * LD;
+    const float* lt = lse_s + slot * QT;
+    const float* dt = di_s + slot * QT;
+
+    // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
+    float p[QT / 8][4], dp[QT / 8][4];
+    rows_dot_bf16<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
+    rows_dot_bf16<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
+    put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
+    put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
+    __syncthreads();
+    sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
+    sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+        p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
+      }
+    scores_times_tile_bf16<DO, QT, LD>(dv_acc, p, dot + col0, lane);  // dv += round(p^T).dO
+#pragma unroll
+    for (int nt = 0; nt < QT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+    scores_times_tile_bf16<DO, QT, LD>(dk_acc, dp, qt + col0, lane);  // dk += round(ds^T).Q
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+  }
+
+  // dk, dv [B, Skv, H, D] contiguous
+  store_bf16_rows<DO>(dkb + col0, o_ss, row, dk_acc, t4, Skv);
+  store_bf16_rows<DO>(dvb + col0, o_ss, row, dv_acc, t4, Skv);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_bf16_dq_smem_bytes() {
+  return 2 * ldb<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_BF16_TILE) +
+         sizeof(float) * 2 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE;
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_bf16_dkv_smem_bytes() {
+  return 2 * ldb<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_BF16_TILE) +
+         sizeof(float) * (2 * 2 * VR_BF16_TILE + 2 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE);
+}
+
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
 
 // dq, and the workspace's lse2 and di: K5's kernel with the di pass, from K1's lse [B, Sq, H]
@@ -1104,6 +1322,36 @@ cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the bf16 dq kernel, then the dk/dv kernel, at D = 192-512; a.ws holds
+// lse, then di, rows (b, h) Sq apart
+template <int D>
+cudaError_t launch_bf16_valid(const Args& a, cudaStream_t stream) {
+  static bool configured[2][MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dq_bf16_valid<D>, configured[0], device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dkv_bf16_valid<D>, configured[1], device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_bf16_dq_smem_bytes<D>() <= SMEM_LIMIT && vr_bf16_dkv_smem_bytes<D>() <= SMEM_LIMIT,
+                "the bf16 K2's tiles exceed shared memory");
+  float* ws_lse = a.ws;
+  float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
+  constexpr int ROWS = vr_rows<D>();
+  mha_bwd_dq_bf16_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(),
+                             vr_bf16_dq_smem_bytes<D>(), stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mha_bwd_dkv_bf16_valid<D><<<dim3(a.Skv / ROWS, a.H, a.B), vr_threads<D>(), vr_bf16_dkv_smem_bytes<D>(),
+                              stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.mask, ws_lse, ws_di, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
@@ -1135,12 +1383,12 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 
 // q/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
 // stride D over heads and the given batch/row strides (in elements; 16-byte
-// aligned rows); Sq, Skv multiples of 64 (fp32 at D = 192-512: any Sq,
-// the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
-// 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
+// aligned rows); Sq, Skv multiples of 64 (at D = 192-512: any Sq, the
+// unpadded query rows); D in {16, 32, 64, 128, 192, 256, 384, 512}; dtype 0 =
+// fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
 // contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
 // H * Sq (bf16 at D = 64, 128: lse * log2 e, then di, rows (b, h) Sq apart;
-// fp32: lse, then di, rows (b, h) Sq apart; bf16 at D = 16, 32: di [B, Sq,
+// fp32, and bf16 at D = 192-512: lse, then di, rows (b, h) Sq apart; bf16 at D = 16, 32: di [B, Sq,
 // H] in its first B * Sq * H). fp32 keeps p and dp in shared memory between
 // the dq kernel's passes where f32_keeps. dq/dk/dv: contiguous, in the input
 // dtype. Launches on `stream` of the current device.
@@ -1150,8 +1398,8 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
                              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long do_sb, long long do_ss, float sm_scale,
                              int dtype, void* stream) {
-  // the fp32 instances at D = 192-512 take the unpadded query rows
-  const bool any_rows = dtype == 0 && valid_rows_instance(D);
+  // the instances at D = 192-512 take the unpadded query rows
+  const bool any_rows = valid_rows_instance(D);
   if (Sq < 1 || Skv < 1 || (!any_rows && Sq % BLOCK != 0) || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
@@ -1164,10 +1412,10 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
     case 32: err = launch<32>(dtype, a, s); break;
     case 64: err = launch<64>(dtype, a, s); break;
     case 128: err = launch<128>(dtype, a, s); break;
-    case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : cudaErrorInvalidValue; break;  // fp32 alone
-    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : cudaErrorInvalidValue; break;
-    case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : cudaErrorInvalidValue; break;
-    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : cudaErrorInvalidValue; break;
+    case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : launch_bf16_valid<192>(a, s); break;
+    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : launch_bf16_valid<256>(a, s); break;
+    case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : launch_bf16_valid<384>(a, s); break;
+    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : launch_bf16_valid<512>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -1200,6 +1448,20 @@ extern "C" int fused_mha_bwd_f32_groups(int D) {
     case 256: return vr_groups<256>();
     case 384: return vr_groups<384>();
     case 512: return vr_groups<512>();
+    default: return 0;
+  }
+}
+
+// the bf16 K2 at the valid-rows head dims, by the rules its launch follows:
+// keys (dq kernel) or queries (dk/dv kernel) of a ring slot (what = 0), column
+// groups of warps (what = 1); 0 for another D. ops/fused_mha.py (bf16_keys,
+// f32_groups) mirrors them.
+extern "C" int fused_mha_bwd_bf16_tiles(int D, int what) {
+  switch (D) {
+    case 192: return what == 0 ? VR_BF16_TILE : vr_groups<192>();
+    case 256: return what == 0 ? VR_BF16_TILE : vr_groups<256>();
+    case 384: return what == 0 ? VR_BF16_TILE : vr_groups<384>();
+    case 512: return what == 0 ? VR_BF16_TILE : vr_groups<512>();
     default: return 0;
   }
 }

@@ -51,7 +51,9 @@
 // at the end. That differs from the reference's "normalise p before PV" in
 // rounding only: fp32 p is never rounded to a narrower type. Two products of
 // [S x S x D], not the three of a two-pass softmax. At the UNets' head dims
-// 192-512, mha_fwd_tf32x3_valid<D> is built around the valid rows.
+// 192-512, mha_fwd_tf32x3_valid<D> (fp32) and mha_fwd_bf16_valid<D> (bf16,
+// mma.sync m16n8k16 in two passes over the live key tiles) are built around
+// the valid rows.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
 // cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
@@ -63,6 +65,7 @@
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma and the tensor-map encoder
 #include "tf32x3.cuh"  // the fp32 instance's 3xTF32 mma.sync fragments
+#include "bf16_valid.cuh"  // the bf16 instances' mma.sync fragments at D = 192-512
 
 namespace {
 
@@ -774,6 +777,171 @@ __host__ __device__ constexpr int vr_fwd_smem_bytes() {
   return 4 * (ld<D>() * (vr_rows<D>() + 2 * 2 * VR_TILE) + vr_groups<D>() * vr_rows<D>() * VR_TILE);
 }
 
+// The bf16 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the same head
+// dims and around the same valid rows (bf16_valid.cuh): a bf16 UNet
+// (trainer.precision_type=bf16) attends here. At B=128, H=2 a call must read
+// q, k and v and write o over the valid rows and keys, 25.2 / 33.6 / 12.6 /
+// 16.8 MB at D = 192 / 256 / 384 / 512 (0.0075 / 0.0100 / 0.0038 / 0.0050 ms
+// at 3.35 TB/s), against 0.81 / 1.07 / 0.10 / 0.13 GFLOP (0.001 ms at 989
+// TFLOP/s): bound by bytes. The CTAs, warps and column groups are the fp32
+// instance's (vr_rows, vr_cols, vr_groups); the products are mma.sync
+// m16n8k16 on bf16 tiles, over key tiles of VR_BF16_TILE = 16 keys, and only
+// the live ones are loaded or multiplied. The rounding is K1's: p = exp(s -
+// m) / l with m and l over the whole row, rounded to bf16 BEFORE p.v (an
+// online softmax would round another p). So two passes over the live tiles:
+// pass 1 brings K alone and forms m and l; pass 2 brings V, forms p and o +=
+// p.v. Up to VR_BF16_KEEP live tiles (64 keys: the UNets' 64 and 16 tokens)
+// each warp keeps its rows' pass-1 scores in registers and pass 2 loads no K;
+// above that (FUSED_MAX_SEQ allows 512 keys) pass 2 brings K again and forms
+// the scores anew, bit for bit the same. A batch row with no live tile writes
+// o = 0, lse = +inf without loading Q. 42-87 KB of shared memory.
+template <int D>
+__global__ void __launch_bounds__(vr_threads<D>())
+mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   const int* __restrict__ mask, bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
+                   long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                   float sm_scale) {
+  constexpr int KT = VR_BF16_TILE, KEEP = VR_BF16_KEEP, DO = vr_cols<D>(), ROWS = vr_rows<D>();
+  constexpr int THREADS = vr_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [ROWS][LD]
+  bf16* ks = qs + ROWS * LD;                          // [2][KT][LD]
+  bf16* vs = ks + 2 * KT * LD;                        // [2][KT][LD]
+  float* part = reinterpret_cast<float*>(vs + 2 * KT * LD);  // [GROUPS][ROWS][KT]: the groups' partial scores
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's output columns: col0 + [0, DO)
+  const bool active = m0 + r0 < Sq;                   // the warp has a valid row
+  const bf16* kb = k + b * k_sb + h * D;
+  const bf16* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  int n_live = 0;
+  for (int t = next_live<KT>(mb, 0, n_tiles); t < n_tiles; t = next_live<KT>(mb, t + 1, n_tiles)) ++n_live;
+  const bool kept = n_live <= KEEP;  // the same for every thread: the scores stay in registers
+
+  // the load sequence: pass 0 the live tiles' K; pass 1 their V, and K again unless kept
+  auto stage = [&](int tile, int slot, int pass) {
+    if (pass == 0 || !kept) stage_bf16_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT, Skv);
+    if (pass == 1) stage_bf16_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT, Skv);
+  };
+  int pass = 0, cur = next_live<KT>(mb, 0, n_tiles);
+  if (cur < n_tiles) {
+    stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+    stage(cur, 0, 0);
+    cp_async_commit();
+  }
+
+  float acc[DO / 8][4], kept_s[KEEP][KT / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad after pass 0
+
+  for (int i = 0, j = 0; cur < n_tiles; ++i) {  // j: the live tile's place in its pass
+    const int slot = i & 1;
+    int next_pass = pass, nxt = next_live<KT>(mb, cur + 1, n_tiles);
+    if (nxt == n_tiles && pass == 0) {
+      next_pass = 1;
+      nxt = next_live<KT>(mb, 0, n_tiles);
+    }
+    if (nxt < n_tiles) {
+      stage(nxt, slot ^ 1, next_pass);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[KT / 8][4];
+    if (pass == 0 || !kept) {  // the whole row's scores of this tile, over every group's columns of D
+      if (active) {
+        rows_dot_bf16<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+        put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+      }
+      __syncthreads();
+      if (active) {
+        sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);
+        scale_and_mask_c<KT>(s, sm_scale, mb, cur * KT, t4);
+      }
+    }
+    if (active) {
+      if (pass == 0) {  // the row max and sum; the scores kept where they fit
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          l[r] *= expf(m[r] - m_new);  // 0 on the first live tile (m = -inf)
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) l[e >> 1] += expf(s[nt][e] - m[e >> 1]);
+#pragma unroll
+        for (int jj = 0; jj < KEEP; ++jj)
+          if (kept && jj == j)
+#pragma unroll
+            for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) kept_s[jj][nt][e] = s[nt][e];
+      } else {  // p = exp(s - m) / l, rounded to bf16 in the product: o += p.v
+        if (kept) {
+#pragma unroll
+          for (int jj = 0; jj < KEEP; ++jj)
+            if (jj == j)
+#pragma unroll
+              for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[nt][e] = kept_s[jj][nt][e];
+        }
+#pragma unroll
+        for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
+        scores_times_tile_bf16<DO, KT, LD>(acc, s, vs + slot * KT * LD + col0, lane);
+      }
+    }
+    __syncthreads();  // the slot and the partial tiles are written again next iteration
+    if (pass == 0 && next_pass == 1) {  // l over the whole row, before pass 1
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+      j = 0;
+    } else {
+      ++j;
+    }
+    pass = next_pass;
+    cur = nxt;
+  }
+
+  // a row without an attended key (m still -inf, or MASK_VALUE) gives o = 0, lse = +inf
+  if (!active) return;
+  bool dead[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dead[r] = mb != nullptr && m[r] <= MASK_VALUE;
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = dead[e >> 1] ? 0.f : acc[dn][e];
+  const long long o_ss = (long long)H * D;
+  const int row = m0 + r0 + g;
+  store_bf16_rows<DO>(o + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    if (row < Sq) lse[((long long)b * Sq + row) * H + h] = dead[0] ? INFINITY : m[0] + logf(l[0]);
+    if (row + 8 < Sq) lse[((long long)b * Sq + row + 8) * H + h] = dead[1] ? INFINITY : m[1] + logf(l[1]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int vr_bf16_fwd_smem_bytes() {
+  return 2 * ldb<D>() * (vr_rows<D>() + 2 * 2 * VR_BF16_TILE) + 4 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE;
+}
+
 // ---- host side
 
 template <int D, int CHUNK>
@@ -867,10 +1035,33 @@ cudaError_t launch_f32_valid(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_bf16_valid(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+                              int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
+                              long long k_ss, long long v_sb, long long v_ss, float sm_scale, int device,
+                              cudaStream_t stream) {
+  auto kernel = mha_fwd_bf16_valid<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_bf16_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the bf16 K1's tiles exceed shared memory");
+  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), vr_bf16_fwd_smem_bytes<D>(),
+           stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+                     static_cast<bf16*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+  return cudaGetLastError();
+}
+
 cudaError_t run(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
                 int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                 long long v_ss, float sm_scale, int dtype, int resident, int chunk, int buffers, int device,
                 cudaStream_t stream) {
+#define K1_VALID(DD)                                                                                            \
+  if (D == DD)                                                                                                  \
+    return (dtype == 1 ? launch_bf16_valid<DD> : launch_f32_valid<DD>)(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, \
+                                                                       q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale,   \
+                                                                       device, stream);
+  K1_VALID(192) K1_VALID(256) K1_VALID(384) K1_VALID(512)
+#undef K1_VALID
   if (dtype == 1) {
     if (smem_bytes(D, resident != 0, Skv, buffers) > SMEM_LIMIT) return cudaErrorInvalidValue;
     CUtensorMap maps[4];  // q, k, v, o
@@ -884,10 +1075,6 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
   if (D == DD) return launch_f32<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
   K1_F32(16) K1_F32(32) K1_F32(64) K1_F32(128)
 #undef K1_F32
-#define K1_F32_VALID(DD) \
-  if (D == DD) return launch_f32_valid<DD>(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale, device, stream);
-  K1_F32_VALID(192) K1_F32_VALID(256) K1_F32_VALID(384) K1_F32_VALID(512)
-#undef K1_F32_VALID
   return cudaErrorInvalidValue;
 }
 
@@ -895,24 +1082,24 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
 
 // q/k/v: [B, S, H, D] with unit stride over D, stride D over heads and the given
 // batch/row strides (in elements, multiples of 16 bytes); Sq, Skv multiples of
-// 64 (fp32 at D = 192-512: any Sq, the unpadded query rows); D in {16, 32, 64, 128}, and for fp32 also 192,
-// 256, 384 and 512; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
+// 64 (at D = 192-512: any Sq, the unpadded query rows); D in {16, 32, 64, 128,
+// 192, 256, 384, 512}; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
 // (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
-// lse: contiguous fp32 [B, Sq, H]. bf16 instance: resident (a head's K and V
-// in shared memory; `buffers` 1 or 2, 2 prefetching the next item) with
-// `chunk` keys a score product (Skv a multiple of it), or streamed (chunk 64,
-// buffers 2: the ring). Launches on `stream` of `device`, which is made
-// current for the call.
+// lse: contiguous fp32 [B, Sq, H]. bf16 instance at D <= 128: resident (a
+// head's K and V in shared memory; `buffers` 1 or 2, 2 prefetching the next
+// item) with `chunk` keys a score product (Skv a multiple of it), or streamed
+// (chunk 64, buffers 2: the ring); at D = 192-512 the three are not read.
+// Launches on `stream` of `device`, which is made current for the call.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
                              long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int resident,
                              int chunk, int buffers, int device, void* stream) {
-  // the fp32 instances at D = 192-512 take the unpadded query rows
-  const bool any_rows = dtype == 0 && valid_rows_instance(D);
+  // the instances at D = 192-512 take the unpadded query rows, and the bf16 one no instance choice
+  const bool any_rows = valid_rows_instance(D);
   if (Sq < 1 || (!any_rows && Sq % BLOCK_M != 0) || Skv < 1 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) ||
       device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1 && (buffers < 1 || buffers > 2 || chunk < 64 || Skv % chunk != 0 ||
+  if (dtype == 1 && !any_rows && (buffers < 1 || buffers > 2 || chunk < 64 || Skv % chunk != 0 ||
                      (!resident && (chunk != STREAM_CHUNK || buffers != 2))))
     return static_cast<int>(cudaErrorInvalidValue);
   int previous = device;
@@ -937,6 +1124,19 @@ extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
   if (D == DD) return what == 0 ? VR_TILE : vr_groups<DD>();
   K1_TILES_VALID(192) K1_TILES_VALID(256) K1_TILES_VALID(384) K1_TILES_VALID(512)
 #undef K1_TILES_VALID
+  return 0;
+}
+
+// the bf16 K1 at the valid-rows head dims, by the rules its launch follows:
+// keys of a ring slot (what = 0), column groups of warps (what = 1), live key
+// tiles whose scores stay in registers between the passes (what = 2); 0 for
+// another D. ops/fused_mha.py (bf16_keys, f32_groups, BF16_KEPT_TILES)
+// mirrors them.
+extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
+#define K1_TILES_BF16(DD) \
+  if (D == DD) return what == 0 ? VR_BF16_TILE : what == 1 ? vr_groups<DD>() : VR_BF16_KEEP;
+  K1_TILES_BF16(192) K1_TILES_BF16(256) K1_TILES_BF16(384) K1_TILES_BF16(512)
+#undef K1_TILES_BF16
   return 0;
 }
 

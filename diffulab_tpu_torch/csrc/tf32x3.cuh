@@ -173,17 +173,23 @@ __host__ __device__ constexpr int vr_threads() {
   return 32 * (vr_rows<D>() / 16) * vr_groups<D>();
 }
 
-// whether key tile t (VR_TILE keys) of a mask row has an attended key
+// whether key tile t (KT keys: VR_TILE, or VR_BF16_TILE in the bf16 instances) of a mask row has an attended key
+template <int KT = VR_TILE>
 __device__ __forceinline__ bool tile_live(const int* mrow, int t) {
-  const int4 a = *reinterpret_cast<const int4*>(mrow + t * VR_TILE);
-  const int4 b = *reinterpret_cast<const int4*>(mrow + t * VR_TILE + 4);
-  return (a.x | a.y | a.z | a.w | b.x | b.y | b.z | b.w) != 0;
+  int any = 0;
+#pragma unroll
+  for (int i = 0; i < KT; i += 4) {
+    const int4 a = *reinterpret_cast<const int4*>(mrow + t * KT + i);
+    any |= a.x | a.y | a.z | a.w;
+  }
+  return any != 0;
 }
 
 // the first live key tile at or after t, n_tiles if none; every tile is live without a mask
+template <int KT = VR_TILE>
 __device__ __forceinline__ int next_live(const int* mrow, int t, int n_tiles) {
   if (mrow == nullptr) return t;
-  while (t < n_tiles && !tile_live(mrow, t)) ++t;
+  while (t < n_tiles && !tile_live<KT>(mrow, t)) ++t;
   return t;
 }
 

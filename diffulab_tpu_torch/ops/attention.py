@@ -6,12 +6,12 @@ reference's ``[B, S, H, D]`` layout. Dispatch:
 - ``impl="auto"``: the fused whole-softmax kernel K1 for padded sequences
   of at most :data:`FUSED_MAX_SEQ` tokens, the KV-tiled flash kernel K3
   above (on CPU tensors, their plain versions), for head dims in
-  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`; at the UNet's
-  head dims :data:`~diffulab_tpu_torch.ops.fused_mha.F32_ONLY_HEAD_DIMS`, K1
-  in fp32 alone. Any other head dim, a bf16 tensor at those, or those past
-  the fused kernel's length raise ``NotImplementedError``
-  (:func:`~diffulab_tpu_torch.ops.fused_mha.check_head_dim`; the last two
-  name ROADMAP queue 2a). The reference keeps K1 while its VMEM
+  :data:`~diffulab_tpu_torch.ops.fused_mha.KERNEL_HEAD_DIMS`; at the UNets'
+  head dims :data:`~diffulab_tpu_torch.ops.fused_mha.VALID_ROWS_HEAD_DIMS`,
+  K1 alone, in bf16 and fp32. Any other head dim, or those past the fused
+  kernel's length, raise ``NotImplementedError``
+  (:func:`~diffulab_tpu_torch.ops.fused_mha.check_head_dim`; the latter
+  names ROADMAP queue 2a). The reference keeps K1 while its VMEM
   budget holds, then XLA SDPA, then flash from ``FLASH_MIN_SEQ``; the port
   never calls SDPA, so K3 takes the whole range beyond K1's.
 - ``impl="fused"`` / ``"flash"``: that kernel at any length.
@@ -97,7 +97,7 @@ def dot_product_attention(
         return _fused_path(q, k, v, kv_mask, scale, plain=True)
     if impl == "auto":
         impl = "fused" if use_fused(q.shape, k.shape[1]) else "flash"
-        check_head_dim(q.shape[-1], q.dtype, impl)
+        check_head_dim(q.shape[-1], impl)
     if impl == "flash":
         return flash_attention(q, k, v, kv_mask, scale)[0]
     return _fused_path(q, k, v, kv_mask, scale)

@@ -35,15 +35,18 @@ cores as 3xTF32 (each operand split into two TF32 halves, three ``mma.sync``
 products, about 2^-21 relative each; :func:`matmul_3xtf32` emulates them),
 one CTA per 64 queries in one pass over 32-key tiles with an online softmax
 and o divided by l at the end (:func:`fused_mha_tf32x3_emulation`). The
-UNets' head dims 192, 256, 384 and 512 have fp32 instances alone
-(:data:`F32_ONLY_HEAD_DIMS`), built around the valid rows
-(:data:`VALID_ROWS_HEAD_DIMS`; 64 tokens at D = 192 and 256, 16 at 384 and
-512, padded to 128 keys): they take the unpadded query rows
-(``ops/attention.py`` pads only k, v and the mask for them), neither load
-nor multiply a key tile whose mask is all 0, and split each row's output and
-the score products' reduction over D between column groups of warps
-(:func:`f32_groups`); K2's dk/dv kernel writes zeros for a CTA whose keys
-are all masked.
+UNets' head dims 192, 256, 384 and 512 (:data:`VALID_ROWS_HEAD_DIMS`; 64
+tokens at D = 192 and 256, 16 at 384 and 512, padded to 128 keys) have
+instances of their own in both dtypes, built around the valid rows: they
+take the unpadded query rows (``ops/attention.py`` pads only k, v and the
+mask for them), neither load nor multiply a key tile whose mask is all 0,
+and split each row's output and the score products' reduction over D
+between column groups of warps (:func:`f32_groups`); K2's dk/dv kernel
+writes zeros for a CTA whose keys are all masked. In fp32 their products
+are 3xTF32 over tiles of 8 keys; in bf16 they are ``mma.sync`` m16n8k16
+over tiles of 16 keys (:func:`bf16_keys`), and K1 keeps its rounding order
+in two passes over the live tiles, m and l first, then ``p = exp(s - m) /
+l`` rounded to bf16 before PV (:func:`fused_mha_bf16_valid_emulation`).
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -97,17 +100,16 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 MIN_BLOCK = 128
 #: query rows of a tile and keys of a TMA box: Sq and Skv must be multiples
 KERNEL_BLOCK = 64
-#: head dims the kernels are instantiated for, bf16 and fp32
+#: head dims of every kernel, K1-K5, bf16 and fp32
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-#: head dims with an fp32 instance alone (the UNet's: ``train_synthetic_ddpm.yaml``
-#: at 192 and 384, the MNIST configs at 256 and 512); their bf16 instances are
-#: ROADMAP queue 2a
-F32_ONLY_HEAD_DIMS = (192, 256, 384, 512)
-#: fp32 instances built around the valid rows: they take the unpadded query
-#: rows (any Sq) and skip the key tiles whose mask is all 0
+#: the UNets' head dims (``train_synthetic_ddpm.yaml`` at 192 and 384, the MNIST
+#: configs at 256 and 512): K1/K2 instances in bf16 and fp32 built around the
+#: valid rows, which take the unpadded query rows (any Sq) and skip the key
+#: tiles whose mask is all 0; the flash kernels' instances there are ROADMAP
+#: queue 2a
 VALID_ROWS_HEAD_DIMS = (192, 256, 384, 512)
 #: every head dim of the fused kernels K1/K2
-FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + F32_ONLY_HEAD_DIMS
+FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + VALID_ROWS_HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may use on an H100 (bytes)
 SMEM_LIMIT = 232448
@@ -175,34 +177,54 @@ def f32_keys(d: int) -> int:
 
 def f32_groups(d: int) -> int:
     """Column groups of warps that split the score products' D-reduction in
-    the fp32 kernels (K1, and K2's dq and dk/dv kernels) at head dim ``d``:
-    at :data:`VALID_ROWS_HEAD_DIMS` groups of 96 columns at D = 192, 64 at
-    384 and 128 at 256 and 512 (``vr_cols``, ``vr_groups`` in
-    ``csrc/tf32x3.cuh``), 2, 2, 6 and 4 groups at D = 192, 256, 384 and 512,
-    each group's partial tile summed with the others' in group order; else 1."""
+    the kernels built around the valid rows (K1, and K2's dq and dk/dv
+    kernels, fp32 and bf16) at head dim ``d``: at :data:`VALID_ROWS_HEAD_DIMS`
+    groups of 96 columns at D = 192, 64 at 384 and 128 at 256 and 512
+    (``vr_cols``, ``vr_groups`` in ``csrc/tf32x3.cuh``), 2, 2, 6 and 4 groups
+    at D = 192, 256, 384 and 512, each group's partial tile summed with the
+    others' in group order; else 1 (the fp32 kernels at D <= 128)."""
     return d // {192: 96, 384: 64}.get(d, 128) if d in VALID_ROWS_HEAD_DIMS else 1
 
 
-def check_head_dim(d: int, dtype: torch.dtype, route: str = "fused") -> None:
+#: live key tiles whose scores the bf16 K1 at :data:`VALID_ROWS_HEAD_DIMS`
+#: keeps in registers between its two passes (``VR_BF16_KEEP``): up to 64 live
+#: keys its second pass loads V alone, above that K again
+BF16_KEPT_TILES = 4
+
+
+def bf16_keys(d: int) -> int:
+    """Keys (K1, K2's dq kernel) or queries (K2's dk/dv kernel) of a ring
+    slot of the bf16 instances at head dim ``d`` where they are built around
+    the valid rows (:data:`VALID_ROWS_HEAD_DIMS`): 16, one ``mma.sync``
+    m16n8k16 reduction (``VR_BF16_TILE`` in ``csrc/bf16_valid.cuh``); 0
+    elsewhere. This, :func:`f32_groups` and :data:`BF16_KEPT_TILES` mirror
+    the built libraries' ``fused_mha_fwd_bf16_tiles`` and
+    ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on the
+    card."""
+    return 16 if d in VALID_ROWS_HEAD_DIMS else 0
+
+
+def check_head_dim(d: int, route: str = "fused") -> None:
     """Raise ``NotImplementedError`` unless the ``route``'s kernels ("fused":
-    K1/K2, "flash": K3-K5) have an instance for head dim ``d`` in ``dtype``,
-    naming ROADMAP queue 2a where the instance is queued: a bf16 tensor at an
-    fp32-only dim, or the flash route at one."""
-    if d in F32_ONLY_HEAD_DIMS and (route == "flash" or dtype != torch.float32):
-        kernels = "flash kernels' instances" if route == "flash" else f"fused kernels' {dtype} instances"
-        raise NotImplementedError(f"head dim {d}: the {kernels} at head dims {F32_ONLY_HEAD_DIMS} are not ported yet "
-                                  "(ROADMAP queue 2a)")
+    K1/K2, "flash": K3-K5) have an instance for head dim ``d`` (in both
+    dtypes), naming ROADMAP queue 2a for the flash route at
+    :data:`VALID_ROWS_HEAD_DIMS`, where its instances are queued."""
+    if route == "flash" and d in VALID_ROWS_HEAD_DIMS:
+        raise NotImplementedError(f"head dim {d}: the flash kernels' instances at head dims {VALID_ROWS_HEAD_DIMS} "
+                                  "are not ported yet (ROADMAP queue 2a)")
     if d not in (FUSED_HEAD_DIMS if route == "fused" else KERNEL_HEAD_DIMS):
         raise NotImplementedError(f"head dim {d}: the attention kernels are instantiated for {KERNEL_HEAD_DIMS} "
-                                  f"(and in fp32 for {F32_ONLY_HEAD_DIMS} on the fused route)")
+                                  f"(and for {VALID_ROWS_HEAD_DIMS} on the fused route)")
 
 
 #: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`;
 #: a ``_bf16`` key counts the launches of the bf16 instances alone, a
-#: ``_f32_d<D>`` key those of the fp32 instance at an fp32-only head dim, and
-#: the kernel's key counts them too (read by chip_smoke.py)
+#: ``_{f32,bf16}_d<D>`` key those of the instance of that dtype at a head dim
+#: of :data:`VALID_ROWS_HEAD_DIMS`, and the kernel's key counts them too (read
+#: by chip_smoke.py)
 LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_fwd_bf16": 0, "fused_mha_bwd_bf16": 0,
-            **{f"fused_mha_{kind}_f32_d{d}": 0 for kind in ("fwd", "bwd") for d in F32_ONLY_HEAD_DIMS}}
+            **{f"fused_mha_{kind}_{dt}_d{d}": 0 for kind in ("fwd", "bwd") for dt in ("f32", "bf16")
+               for d in VALID_ROWS_HEAD_DIMS}}
 
 
 #: the same launches by ``(kernel, dtype name, Skv)``: the padded key length a
@@ -215,8 +237,8 @@ def _count(name: str, d: int, dtype: torch.dtype, skv: int) -> None:
     LAUNCHES_BY_KEYS[name, str(dtype).removeprefix("torch."), skv] += 1
     if dtype == torch.bfloat16:
         LAUNCHES[f"{name}_bf16"] += 1
-    if d in F32_ONLY_HEAD_DIMS:
-        LAUNCHES[f"{name}_f32_d{d}"] += 1
+    if d in VALID_ROWS_HEAD_DIMS:
+        LAUNCHES[f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}"] += 1
 
 
 def _masked_scores(s, kv_mask, sm_scale) -> torch.Tensor:
@@ -439,6 +461,99 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     return (*back, di[..., 0])
 
 
+# --- the bf16 kernels' arithmetic at VALID_ROWS_HEAD_DIMS, emulated ---------------------
+
+
+def _grouped_scores(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
+    """fp32 ``a @ b`` with the reduction split into ``groups`` equal chunks,
+    each chunk's product formed alone and the partials added in order: the
+    score products of the kernels' column groups. Products of bf16 values
+    are exact in fp32; the tensor cores sum them in another order."""
+    n = a.shape[-1] // groups
+    out = torch.zeros(())
+    for c in range(groups):
+        out = out + a[..., c * n:(c + 1) * n] @ b[..., c * n:(c + 1) * n, :]
+    return out
+
+
+def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to ``dtype`` (to nearest even) and back to fp32: an operand
+    of the kernels' bf16 products."""
+    return x.to(dtype).float()
+
+
+def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 K1's tile math at :data:`VALID_ROWS_HEAD_DIMS` on CPU
+    tensors (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_valid``): scores over
+    tiles of :func:`bf16_keys` keys, each the sum of the column groups'
+    partial products (:func:`f32_groups`) in group order; pass 1 an online
+    row max m and sum l over the tiles; pass 2 the scores again, ``p = exp(s
+    - m) / l`` rounded to q's dtype BEFORE ``o += p·v`` (fp32), o rounded at
+    the end. The kernel skips a key tile whose mask is all 0; that changes
+    no value (its p is exactly 0, and the max it leaves before the first
+    live tile is dropped by ``exp(MASK_VALUE - m) = 0``), so the emulation
+    walks every tile. Returns (o [B,Sq,H,D] in q's dtype, lse [B,Sq,H])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+    b, h, sq, d = qh.shape
+    kt, groups = bf16_keys(d), f32_groups(d)
+    tiles = range(0, kh.shape[2], kt)
+
+    def scores(n0):
+        tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
+        return _masked_scores(_grouped_scores(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), groups), tile_mask,
+                              sm_scale)
+
+    m = torch.full((b, h, sq, 1), -torch.inf)
+    l = torch.zeros(b, h, sq, 1)
+    for n0 in tiles:
+        s = scores(n0)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(dim=-1, keepdim=True)
+        m = m_new
+    o = torch.zeros(b, h, sq, d)
+    for n0 in tiles:
+        o = o + _round(torch.exp(scores(n0) - m) / l, q.dtype) @ vh[:, :, n0:n0 + kt]
+    lse = m + torch.log(l)
+    if kv_mask is not None:
+        dead = m <= DEFAULT_MASK_VALUE
+        o = torch.where(dead, 0.0, o)
+        lse = torch.where(dead, torch.inf, lse)
+    return o.to(q.dtype).permute(0, 2, 1, 3).contiguous(), lse[..., 0].permute(0, 2, 1).contiguous()
+
+
+def fused_mha_bwd_bf16_valid_emulation(q, k, v, kv_mask, lse, do, sm_scale=None):
+    """The bf16 K2's split at :data:`VALID_ROWS_HEAD_DIMS` on CPU tensors
+    (``csrc/fused_mha_bwd.cu::mha_bwd_{dq,dkv}_bf16_valid``), score products
+    split over the column groups (:func:`f32_groups`): the dq kernel's pass
+    over the keys (``p = exp(s - lse)``, ``dp = do·vᵀ``, ``di = rowsum(p·dp)``
+    from the fp32 p), then ``ds = p·(dp - di)·scale`` rounded to the input
+    dtype and ``dq = ds·k``; the dk/dv kernel's ``pᵀ = exp(k·qᵀ·scale -
+    lse)``, ``dv = round(pᵀ)·do``, ``dpᵀ = v·doᵀ``, ``dsᵀ`` and ``dk =
+    round(dsᵀ)·q``. The key tiles the kernels skip add exact zeros here.
+    Returns (dq, dk, dv in the input dtype, di [B,H,Sq])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    dtype, groups = q.dtype, f32_groups(q.shape[-1])
+    qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
+    lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
+    p = torch.exp(_masked_scores(_grouped_scores(qh, kh.transpose(-1, -2), groups), kv_mask, sm_scale) - lse_r)
+    dp = _grouped_scores(doh, vh.transpose(-1, -2), groups)
+    di = (p * dp).sum(dim=-1, keepdim=True)
+    dq = _round(p * (dp - di) * sm_scale, dtype) @ kh
+    # the dk/dv kernel: rows are keys, masked by key; lse and di by query column
+    st = _grouped_scores(kh, qh.transpose(-1, -2), groups) * sm_scale
+    if kv_mask is not None:
+        st = torch.where(kv_mask[:, None, :, None].bool(), st, DEFAULT_MASK_VALUE)
+    pt = torch.exp(st - lse_r.transpose(-1, -2))
+    dv = _round(pt, dtype) @ doh
+    dst = pt * (_grouped_scores(vh, doh.transpose(-1, -2), groups) - di.transpose(-1, -2)) * sm_scale
+    dk = _round(dst, dtype) @ qh
+    back = (t.to(dtype).permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
+    return (*back, di[..., 0])
+
+
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     """The kernels read each row with 16-byte loads or TMA boxes: heads
     contiguous (strides ``(.., .., D, 1)``), rows and the base 16-byte
@@ -455,7 +570,7 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fused_mha") -> None:
     """Raise unless q/k/v/kv_mask meet the ``route``'s kernels' device, shape
     and dtype contract: Sq and Skv nonzero multiples of :data:`KERNEL_BLOCK`
-    (of 1 on the flash route; Sq any nonzero length for the fp32 instances at
+    (of 1 on the flash route; Sq any nonzero length for the instances at
     :data:`VALID_ROWS_HEAD_DIMS`), the head dim one :func:`check_head_dim`
     takes."""
     device = q.device
@@ -469,7 +584,7 @@ def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fuse
     dtype = q.dtype
     if dtype not in _DTYPE_CODES or k.dtype != dtype or v.dtype != dtype:
         raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {dtype}/{k.dtype}/{v.dtype}")
-    check_head_dim(d, dtype, route)
+    check_head_dim(d, route)
     block = 1 if route == "flash" else KERNEL_BLOCK
     q_block = 1 if route == "fused" and d in VALID_ROWS_HEAD_DIMS else block
     if sq < 1 or skv < 1 or sq % q_block or skv % block:
@@ -503,8 +618,8 @@ def fused_mha_fwd_cuda(q, k, v, kv_mask, sm_scale: float) -> tuple[torch.Tensor,
     mask = _int_mask(kv_mask, device)  # held until the launch: o must not take its memory
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=device)
-    # the bf16 kernel's instance; the fp32 kernel takes its tiles from the head dim alone
-    inst = forward_instance(skv, d) if q.dtype == torch.bfloat16 else None
+    # the bf16 kernel's instance at D <= 128; the others take their tiles from the head dim alone
+    inst = forward_instance(skv, d) if q.dtype == torch.bfloat16 and d in KERNEL_HEAD_DIMS else None
     q_sb, q_ss = q.stride()[:2]
     k_sb, k_ss = k.stride()[:2]
     v_sb, v_ss = v.stride()[:2]
@@ -652,9 +767,8 @@ def fused_mha(
     Returns (o, lse); o is differentiable in q, k and v.
 
     On CUDA tensors it launches the kernels (Sq and Skv multiples of 64,
-    head dim in :data:`KERNEL_HEAD_DIMS` in bf16 or fp32, or in
-    :data:`F32_ONLY_HEAD_DIMS` in fp32, where at :data:`VALID_ROWS_HEAD_DIMS`
-    Sq may be any length — pad through
+    head dim in :data:`FUSED_HEAD_DIMS` in bf16 or fp32, where at
+    :data:`VALID_ROWS_HEAD_DIMS` Sq may be any length — pad through
     :func:`diffulab_tpu_torch.ops.attention.dot_product_attention`); on CPU
     tensors it runs the plain versions. Without grad (sampling) it is the
     forward alone and saves nothing.

@@ -34,9 +34,9 @@ from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.attention import use_fused
 from diffulab_tpu_torch.ops.fused_mha import (
-    F32_ONLY_HEAD_DIMS,
     LAUNCHES,
     MIN_BLOCK,
+    VALID_ROWS_HEAD_DIMS,
     check_head_dim,
     f32_keys,
     fused_mha,
@@ -180,22 +180,27 @@ def test_auto_runs_the_fused_route_at_the_unet_head_dims_in_fp32():
     _close(ours.numpy(), np.asarray(jref)[:, :16], *O_TOL, "auto vs JAX")
 
 
-@pytest.mark.parametrize("d", F32_ONLY_HEAD_DIMS)
+@pytest.mark.parametrize("d", VALID_ROWS_HEAD_DIMS)
 def test_bf16_at_the_fp32_only_head_dims_raises_naming_queue_2a(d):
-    q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+    # once fp32-only: the fused route now takes bf16 at these dims (K1's plain version on the CPU, the bf16
+    # instance on the card); only the flash route, past the fused kernel's 512 tokens, raises naming queue 2a
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 16, 2, d)).astype(np.float32)).bfloat16() for _ in range(3))
+    out = dot_product_attention(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out, dot_product_attention(q, k, v, impl="xla"), rtol=0, atol=0)
+    check_head_dim(d)
     with pytest.raises(NotImplementedError, match="queue 2a"):
-        dot_product_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="queue 2a"):
-        check_head_dim(d, torch.bfloat16)
-    check_head_dim(d, torch.float32)
+        check_head_dim(d, "flash")
     # past the fused kernel's 512 tokens the flash kernels would take it: not instantiated above D = 128
-    long = torch.zeros(1, 600, 2, d)
+    long = torch.zeros(1, 600, 2, d, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="queue 2a"):
         dot_product_attention(long, long, long)
 
 
 def test_the_fp32_only_instances_have_launch_counters_of_their_own():
-    assert {f"fused_mha_{kind}_f32_d{d}" for kind in ("fwd", "bwd") for d in F32_ONLY_HEAD_DIMS} <= set(LAUNCHES)
+    assert {f"fused_mha_{kind}_{dt}_d{d}" for kind in ("fwd", "bwd") for dt in ("f32", "bf16")
+            for d in VALID_ROWS_HEAD_DIMS} <= set(LAUNCHES)
     # on the CPU the wrappers run the plain versions and count nothing
     before = dict(LAUNCHES)
     q = torch.zeros(1, 64, 1, 192)

@@ -43,6 +43,7 @@ from diffulab_tpu_torch.config.instantiate import instantiate, locate
 from diffulab_tpu_torch.diffuse import Diffuser
 from diffulab_tpu_torch.examples import sample, train_diffusion
 from diffulab_tpu_torch.networks.denoisers.unet import AttentionBlock, UNetModel
+from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.fused_mha import check_head_dim
 from diffulab_tpu_torch.weights import state_dict_from_jax
 
@@ -101,11 +102,16 @@ def test_mnist_config_composes_like_jax_and_resolves(kind):
 
 @pytest.mark.parametrize("d", [256, 512])
 def test_check_head_dim_takes_fp32_and_names_queue_2a_for_bf16(d):
-    check_head_dim(d, torch.float32)
+    # the fused route takes both dtypes at the MNIST UNet's dims; the flash route (past the fused kernel's 512
+    # tokens) names queue 2a, for a bf16 tensor as for an fp32 one
+    check_head_dim(d)
     with pytest.raises(NotImplementedError, match="queue 2a"):
-        check_head_dim(d, torch.bfloat16)
+        check_head_dim(d, "flash")
+    q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+    assert dot_product_attention(q, q, q).dtype == torch.bfloat16
+    long = torch.zeros(1, 520, 2, d, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="queue 2a"):
-        check_head_dim(d, torch.float32, "flash")
+        dot_product_attention(long, long, long)
 
 
 def _toy(kind):

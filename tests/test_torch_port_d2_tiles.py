@@ -38,7 +38,6 @@ import diffulab_tpu_torch.ops.attention as attention
 from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.fused_mha import (
-    F32_ONLY_HEAD_DIMS,
     MIN_BLOCK,
     VALID_ROWS_HEAD_DIMS,
     f32_groups,
@@ -164,8 +163,8 @@ def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
 
 
 def test_the_tile_rules_at_the_mnist_head_dims():
-    # every fp32-only head dim (the D1 UNet's 192 and 384 too) is built around the valid rows
-    assert VALID_ROWS_HEAD_DIMS == F32_ONLY_HEAD_DIMS == (192, 256, 384, 512)
+    # every UNet head dim (the D1 UNet's 192 and 384 too) is built around the valid rows
+    assert VALID_ROWS_HEAD_DIMS == (192, 256, 384, 512)
     assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (8, 2), (8, 6), (8, 4)]
     # the padded instances keep their tiles
     assert [(f32_keys(d), f32_groups(d)) for d in (64, 128)] == [(32, 1), (32, 1)]
