@@ -520,6 +520,18 @@ D3_CONFIGS = {D1_CONFIG: dict(project="synthetic_ddpm", attn=D1_ATTN, channels=3
                                        cuts={"trainer.n_epoch": (50, 1), **D3_VAL_STEPS, **NO_OPT_CKPT},
                                        images={"train": (60000, 512), "t10k": (10000, 128)})}
 
+# phase 30: the instances of K1 and K2 built around the valid rows at head dim 64, which take the DiTs' short
+# sequences that the fused route pads (64 or 72 tokens to 128 keys, 264 to 384), in fp32 and bf16, each against
+# its plain version on its hard cases, drawn in the kernel's dtype: (tag, query rows, keys, mask) with the
+# padding mask of the first Sq keys, "hole" (batch row 0 with keys 16-31 masked and as many valid keys after them,
+# an all-0 16-key tile between live ones; row 1 fully masked; the others padded) or none
+D64_CASES = (("ragged_sq37", 37, 128, "padded"), ("hole_and_dead_row_sq64", 64, 128, "hole"),
+             ("sq72", 72, 128, "padded"), ("keys264_of_384", 264, 384, "hole"), ("unmasked_sq37", 37, 128, None))
+D64_BATCH, D64_HEADS = 8, 6
+#: the counters of the instances built around the valid rows at head dim 64 (each with a ``_bf16`` twin)
+D64_COUNTERS = ("fused_mha_fwd_valid_d64", "fused_mha_bwd_valid_d64")
+D64_ALL_COUNTERS = (*D64_COUNTERS, *(f"{c}_bf16" for c in D64_COUNTERS))
+
 # phase 20: slice F1, the txt2img SprintDiT: the model block of configs/train_imagenet_repa_txt_to_img_sprint.yaml
 # as composed (768 wide, 12 heads of 64, patch 1, 128 channels; encoder 2 MMDiT blocks; deep_layers_depth 8 with
 # n_single_stream_blocks 8, so 0 dual + 8 single-stream deep blocks; decoder 2; drop 0.75, rope base 2000, axes
@@ -1900,7 +1912,7 @@ def phase_gradients(model, plain):
         losses.append(float(loss.detach()))
         if diffuser.denoiser is model and launched != {"fused_mha_fwd": DIT_B2["depth"], "fused_mha_bwd": DIT_B2["depth"],
                                                         **dict.fromkeys(BF16_COUNTERS, DIT_B2["depth"]),
-                                                        **dict.fromkeys(VALID_ROWS_COUNTERS, 0)}:
+                                                        **dict.fromkeys((*VALID_ROWS_COUNTERS, *D64_ALL_COUNTERS), 0)}:
             fail(f"DiT-B/2 gradients: kernel path launched {launched}, expected {DIT_B2['depth']} of each")
     worst, worst_name = 0.0, None
     for name, g in grads[0].items():
@@ -2053,7 +2065,8 @@ def phase_txt2img_gradients(model, plain):
     depth = TXT["depth"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0,
+                **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS, *D64_ALL_COUNTERS), 0)}
     if launched[0] != expected or any(launched[1].values()):
         fail(f"txt2img gradients: launches kernel path {launched[0]}, expected {expected}; plain path {launched[1]}")
     worst, worst_name = 0.0, None
@@ -2182,7 +2195,8 @@ def phase_txt2img_train(model, tower):
     loader, launches = tr["loader"], tr["launches"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "flash_attn_fwd": depth, "flash_attn_bwd_dkv": depth,
                 "flash_attn_bwd_dq": depth, "flash_attn_fwd_f32": 0, "flash_attn_bwd_dkv_f32": 0,
-                "flash_attn_bwd_dq_f32": 0, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
+                "flash_attn_bwd_dq_f32": 0,
+                **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS, *D64_ALL_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     for batch, (t0, c0), (t1, c1) in zip(loader.batches, loader.marks[:-1], loader.marks[1:]):
         step = {key: c1[key] - c0[key] for key in c1}
@@ -2609,7 +2623,7 @@ def phase_dit_arms():
         return diffuser.generate({"y": labels}, data_shape=(SAMPLE_BATCH, *LATENT), generator=noise,
                                  guidance_scale=CFG, dtype=torch.bfloat16, **kw)
 
-    arms, totals = {}, {"fused_mha_fwd": 0, "flash_attn_fwd_f32": 0}
+    arms, totals = {}, {"fused_mha_fwd": 0, "fused_mha_fwd_valid_d64": 0, "flash_attn_fwd_f32": 0}
     for name, sampler, steps, cache, expected in (
             ("dpmpp_2m", "dpmpp_2m", C2_DPM_STEPS, None, C2_DPM_STEPS * depth),
             ("euler_cached", "euler", STEPS, C2_DIT_CACHE, C2_DIT_CACHED_K1)):
@@ -3940,7 +3954,8 @@ def phase_f1_txt2img_sprint():
     tr = txt2img_train_run(model, tower, "chip_smoke_txt2img_sprint", "txt2img SprintDiT train")
     loader = tr["loader"]
     expected = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, **dict.fromkeys(FLASH_KERNELS, blocks),
-                **{f"{name}_f32": 0 for name in FLASH_KERNELS}, **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS), 0)}
+                **{f"{name}_f32": 0 for name in FLASH_KERNELS},
+                **dict.fromkeys((*BF16_COUNTERS, *VALID_ROWS_COUNTERS, *D64_ALL_COUNTERS), 0)}
     per_bucket: dict[tuple[int, int], list[float]] = {}
     step_keys = {}
     for batch, (t0, c0), (t1, c1), k0, k1 in zip(loader.batches, loader.marks[:-1], loader.marks[1:],
@@ -4136,9 +4151,10 @@ def write_cifar10(root: Path, seed: int = 0, images: dict[str, tuple[int, int]] 
 def f1_cli_kernels():
     """Phase 22's kernels: the fp32 K2 at the CIFAR config's micro-batch
     (B=32, S=256, H=8, D=64), and the fp32 K1 and K2 at the SprintDiT CLI
-    run's deep shape as the fused route hands it over (B=128, 64 kept tokens
-    padded to 128 query rows and keys, the padding mask, H=8, D=64), against
-    their plain versions; each timed from CUDA-graph replays beside fp32
+    run's deep shape as the fused route hands it over (B=128, 64 kept tokens:
+    the unpadded query rows to the instances built around the valid rows, k,
+    v and the padding mask at 128 keys, H=8, D=64), against their plain
+    versions; each timed from CUDA-graph replays beside fp32
     SDPA (the backward: its memory-efficient backward op) on the same
     inputs and, for the padded shape, on the unpadded 64-token tensors too;
     bounds at 3xTF32 (:func:`d2_bounds`: over the valid rows and keys, and
@@ -4146,7 +4162,13 @@ def f1_cli_kernels():
     import torch
     import torch.nn.functional as F
 
-    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+    from diffulab_tpu_torch.ops.fused_mha import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+        route_takes_valid_rows,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(28)
     h, d = C1_HEADS, 64
@@ -4177,30 +4199,37 @@ def f1_cli_kernels():
         b, tokens, s = C1_BATCH, C1_SEQ // 4, D2_PADDED
         q, k, v, do = rand(b, tokens), rand(b, tokens), rand(b, tokens), rand(b, tokens)
         qp, kp, vp, dop = (F.pad(t, (0, 0, 0, 0, 0, s - tokens)) for t in (q, k, v, do))  # the fused route's padding
+        # the query rows the route hands over: the unpadded ones where the instances built around them run
+        short = route_takes_valid_rows(tokens, d, q.dtype)
+        qr, dor = (q, do) if short else (qp, dop)
         mask = d2_mask("padded", b, tokens)
-        o, lse = fused_mha(qp, kp, vp, mask)
-        ro, rlse = fused_mha_reference(qp, kp, vp, mask)
+        before = launch_counts()["fused_mha_fwd_valid_d64"]
+        o, lse = fused_mha(qr, kp, vp, mask)
+        if launch_counts()["fused_mha_fwd_valid_d64"] != before + int(short):
+            fail("F1 K1 fp32 64 padded to 128: the instance built around the valid rows did not run")
+        ro, rlse = fused_mha_reference(qr, kp, vp, mask)
         err = check_close("F1 K1 fp32 64 padded to 128 o", o, ro, *TOL["float32"])
         check_close("F1 K1 fp32 64 padded to 128 lse", lse, rlse, *LSE_TOL)
         qpt, kpt, vpt, qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp, q, k, v))
         attn_mask = mask[:, None, None, :]
-        shape = f"B={b} Sq=Skv={s} padded from {tokens} (the padding mask) H={h} D={d} fp32 (the SprintDiT deep path)"
+        shape = (f"B={b} Sq={qr.shape[1]} Skv={s} padded from {tokens} (the padding mask) H={h} D={d} fp32 (the "
+                 f"SprintDiT deep path)")
         out["k1_pad64"] = dict(
-            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qp, kp, vp, mask)),
-            plain_ms=cuda_time_ms(lambda: fused_mha_reference(qp, kp, vp, mask), iters=5),
+            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qr, kp, vp, mask)),
+            plain_ms=cuda_time_ms(lambda: fused_mha_reference(qr, kp, vp, mask), iters=5),
             library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kpt, vpt, attn_mask=attn_mask)),
             sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             **d2_bounds(b, tokens, h, d, False, False), padded=d2_bounds(b, tokens, h, d, False, True), shape=shape)
-        refs = fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop)
-        err = check_grads("F1 K2 fp32 64 padded to 128", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs,
+        refs = fused_mha_bwd_reference(qr, kp, vp, mask, lse, dor)
+        err = check_grads("F1 K2 fp32 64 padded to 128", fused_mha_bwd(qr, kp, vp, mask, lse, dor), refs,
                           BWD_TOL["float32"])
         out["k2_pad64"] = dict(
-            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qp, kp, vp, mask, lse, dop), calls=10, replays=5),
-            plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop), iters=3),
+            max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qr, kp, vp, mask, lse, dor), calls=10, replays=5),
+            plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qr, kp, vp, mask, lse, dor), iters=3),
             library_ms=cuda_graph_ms(sdpa_fp32_backward(qp, kp, vp, dop, mask), calls=10, replays=5),
             sdpa_unpadded_ms=cuda_graph_ms(sdpa_fp32_backward(q, k, v, do), calls=10, replays=5),
             **d2_bounds(b, tokens, h, d, True, False), padded=d2_bounds(b, tokens, h, d, True, True), shape=shape)
-        del q, k, v, do, qp, kp, vp, dop, o, lse, ro, rlse, refs
+        del q, k, v, do, qp, kp, vp, dop, qr, dor, o, lse, ro, rlse, refs
     torch.cuda.synchronize()
     print("phase 22 kernels fp32 (device ms from CUDA-graph replays; library: fp32 SDPA on the same inputs, the "
           "backward its memory-efficient backward op; bounds at 3xTF32 and 3.35 TB/s, over the valid rows and keys "
@@ -4380,11 +4409,20 @@ def padded_kernels(phase: str, cases, seed: int) -> dict[str, Any]:
     backward, its kernels summed by torch.profiler; fp32: its memory-efficient
     backward op, :func:`sdpa_fp32_backward`), with bounds over the valid rows
     and the attended keys and over the padded contract
-    (:func:`padded_bounds`). Returns ``k1_<tag>`` and ``k2_<tag>``."""
+    (:func:`padded_bounds`). The kernels take the query rows the route hands
+    over: the unpadded ones where the instances built around the valid rows
+    run (``route_takes_valid_rows``), which the launch counts must show. Returns
+    ``k1_<tag>`` and ``k2_<tag>``."""
     import torch
     import torch.nn.functional as F
 
-    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd, fused_mha_bwd_reference, fused_mha_reference
+    from diffulab_tpu_torch.ops.fused_mha import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+        route_takes_valid_rows,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     d = 64
@@ -4405,18 +4443,25 @@ def padded_kernels(phase: str, cases, seed: int) -> dict[str, Any]:
             mask = (torch.arange(s, device="cuda") < tokens)[None].expand(b, -1).contiguous() if s != tokens else None
         attn_mask = None if mask is None else mask[:, None, None, :]
         unpadded_mask = None if key_mask is None else key_mask[:, None, None, :]
-        shape = f"B={b} Sq=Skv={s}" + (f" padded from {tokens}" if s != tokens else "") \
+        short = route_takes_valid_rows(tokens, d, dtype)
+        qr, dor = (q, do) if short else (qp, dop)  # the query rows the route hands over
+        shape = f"B={b} Sq={qr.shape[1]} Skv={s}" + (f" padded from {tokens}" if s != tokens else "") \
             + (" (the padding mask)" if s != tokens and key_mask is None else "") \
             + (f" (a key mask by sample: {min(valid)}-{max(valid)} keys, {sum(valid)} in all)" if valid else "") \
             + f" H={h} D={d} {kind}"
         with torch.no_grad():
-            o, lse = fused_mha(qp, kp, vp, mask)
-            ro, rlse = fused_mha_reference(qp, kp, vp, mask)
+            before = launch_counts()
+            o, lse = fused_mha(qr, kp, vp, mask)
+            ran = {key: n - before[key] for key, n in launch_counts().items() if n != before[key]}
+            if ran.get("fused_mha_fwd_valid_d64", 0) != int(short):
+                fail(f"{phase} {tag} K1: launches {ran}, the instance built around the valid rows expected "
+                     f"{int(short)} time(s)")
+            ro, rlse = fused_mha_reference(qr, kp, vp, mask)
             err = check_close(f"{phase} {tag} K1 o", o, ro, *TOL[kind])
             check_close(f"{phase} {tag} K1 lse", lse, rlse, *LSE_TOL)
             qpt, kpt, vpt, qt, kt, vt = (t.transpose(1, 2) for t in (qp, kp, vp, q, k, v))
-            fwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qp, kp, vp, mask)),
-                       plain_ms=cuda_time_ms(lambda: fused_mha_reference(qp, kp, vp, mask), iters=5),
+            fwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha(qr, kp, vp, mask)),
+                       plain_ms=cuda_time_ms(lambda: fused_mha_reference(qr, kp, vp, mask), iters=5),
                        library_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(qpt, kpt, vpt,
                                                                                        attn_mask=attn_mask)),
                        sdpa_unpadded_ms=cuda_graph_ms(lambda: F.scaled_dot_product_attention(
@@ -4425,11 +4470,14 @@ def padded_kernels(phase: str, cases, seed: int) -> dict[str, Any]:
                        padded=padded_bounds(b, tokens, s, h, d, False, True, **bounds), shape=shape)
             out[f"k1_{tag}"] = fwd
             if backward:
-                refs = fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop)
-                err = check_grads(f"{phase} {tag} K2", fused_mha_bwd(qp, kp, vp, mask, lse, dop), refs, BWD_TOL[kind])
-                bwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qp, kp, vp, mask, lse, dop),
+                refs = fused_mha_bwd_reference(qr, kp, vp, mask, lse, dor)
+                before = launch_counts()["fused_mha_bwd_valid_d64"]
+                err = check_grads(f"{phase} {tag} K2", fused_mha_bwd(qr, kp, vp, mask, lse, dor), refs, BWD_TOL[kind])
+                if launch_counts()["fused_mha_bwd_valid_d64"] - before != int(short):
+                    fail(f"{phase} {tag} K2: the instance built around the valid rows expected {int(short)} time(s)")
+                bwd = dict(max_abs_err=err, ms=cuda_graph_ms(lambda: fused_mha_bwd(qr, kp, vp, mask, lse, dor),
                                                              calls=10, replays=5),
-                           plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qp, kp, vp, mask, lse, dop), iters=3),
+                           plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(qr, kp, vp, mask, lse, dor), iters=3),
                            **padded_bounds(b, tokens, s, h, d, True, False, **bounds),
                            padded=padded_bounds(b, tokens, s, h, d, True, True, **bounds), shape=shape)
                 del refs
@@ -4449,7 +4497,7 @@ def padded_kernels(phase: str, cases, seed: int) -> dict[str, Any]:
                     del sdpa_out, leaves
         if backward:
             out[f"k2_{tag}"] = bwd
-        del q, k, v, do, qp, kp, vp, dop, o, lse, ro, rlse
+        del q, k, v, do, qp, kp, vp, dop, qr, dor, o, lse, ro, rlse
     torch.cuda.synchronize()
     print(f"{phase} kernels (device ms from CUDA-graph replays; library: SDPA on the same padded inputs with the "
           "mask, beside SDPA on the unpadded tensors; the backward SDPA's backward: bf16 its autograd backward, its "
@@ -5940,6 +5988,109 @@ def phase_d3_kernels():
     return results
 
 
+def phase_d64_valid_kernels() -> dict[str, Any]:
+    """Phase 30: the instances of K1 and K2 built around the valid rows at
+    head dim 64, fp32 and bf16 (K2: its dq kernel, then its dk/dv kernel),
+    against their plain versions on :data:`D64_CASES`, drawn in the kernel's
+    dtype, at B = D64_BATCH, H = D64_HEADS: a ragged Sq, an all-0 16-key tile
+    between live ones beside a fully masked batch row (o = 0, lse = +inf and
+    zero gradients there), 72 rows, 264 valid keys of 384, no mask. First the
+    libraries' tile rules for them against ``ops/fused_mha.py``'s mirrors.
+    Every call must launch the new instance (its counter one up); bf16 K1's o
+    bitwise its plain version's on at least ``D3_BITWISE_MIN`` of its
+    elements (p normalised, then rounded, before PV). Returns the largest
+    errors by dtype and kernel."""
+    import torch
+
+    from diffulab_tpu_torch.ops import _build
+    from diffulab_tpu_torch.ops.fused_mha import (
+        bf16_kept_tiles,
+        bf16_keys,
+        f32_groups,
+        f32_keys,
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    d = 64
+    fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
+    tiles = {dt: (*(fwd_lib.fused_mha_fwd_valid_tiles(d, code, w) for w in (0, 1, 2, 3)),
+                  *(bwd_lib.fused_mha_bwd_valid_tiles(d, code, w) for w in (0, 1, 3)))
+             for dt, code in (("fp32", 0), ("bf16", 1))}
+    mirrored = {"fp32": (f32_keys(d, True), f32_groups(d), 0), "bf16": (bf16_keys(d, True), f32_groups(d),
+                                                                        bf16_kept_tiles(d))}
+    for dt, want in mirrored.items():
+        got = tiles[dt]
+        if got[:3] != want or got[4:6] != want[:2]:
+            fail(f"D=64 valid-rows {dt} tile rules: the libraries' (K1 keys, groups, kept tiles, rows; K2 keys, "
+                 f"groups, rows) {got} differ from ops/fused_mha.py's {want}")
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    errs: dict[str, Any] = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for tag, sq, skv, kind in D64_CASES:
+            q, do = (torch.randn(D64_BATCH, sq, D64_HEADS, d, generator=gen, device="cuda", dtype=dt)
+                     for _ in range(2))
+            k, v = (torch.randn(D64_BATCH, skv, D64_HEADS, d, generator=gen, device="cuda", dtype=dt)
+                    for _ in range(2))
+            keys = torch.arange(skv, device="cuda")
+            mask = None
+            if kind is not None:
+                mask = (keys < sq)[None].expand(D64_BATCH, -1).clone()
+                if kind == "hole":
+                    mask[0] = (keys < 16) | ((keys >= 32) & (keys < sq + 16))
+                    mask[1] = False
+            label = f"D=64 {dtype} {tag}"
+            with torch.no_grad():
+                before = launch_counts()
+                o, lse = fused_mha(q, k, v, mask)
+                grads = fused_mha_bwd(q, k, v, mask, lse, do)
+                after = launch_counts()
+                if any(after[c] - before[c] != 1 for c in D64_COUNTERS):
+                    fail(f"{label}: launches {({c: after[c] - before[c] for c in D64_COUNTERS})}, one each expected")
+                ro, rlse = fused_mha_reference(q, k, v, mask)
+                e1 = check_close(f"{label} K1 o", o, ro, *TOL[dtype])
+                check_close(f"{label} K1 lse", lse, rlse, *LSE_TOL)
+                if dtype == "bfloat16" and bitwise_share(o, ro) < D3_BITWISE_MIN:
+                    fail(f"{label} K1: o bitwise the plain version's on {bitwise_share(o, ro):.4f} of its elements, "
+                         f"below {D3_BITWISE_MIN}")
+                e2 = check_grads(f"{label} K2", grads, fused_mha_bwd_reference(q, k, v, mask, lse, do),
+                                 BWD_TOL[dtype])
+            if kind == "hole" and (bool(o[1].any()) or not bool((lse[1] == math.inf).all())
+                                   or any(bool(g[1].any()) for g in grads)):
+                fail(f"{label}: the fully masked row's o, lse and gradients are not 0, +inf and 0")
+            if mask is not None and any(bool(g[~mask].any()) for g in grads[1:]):
+                fail(f"{label}: a masked key's dk or dv is not 0")
+            errs[f"{dtype}_{tag}"] = (e1, e2)
+            del q, k, v, do, o, lse, grads, ro, rlse
+    torch.cuda.synchronize()
+    print(f"phase 30 kernels: the instances of K1 and K2 built around the valid rows at D=64 (B={D64_BATCH}, "
+          f"H={D64_HEADS}), each against its plain version on draws in its dtype; tile rules (K1 keys, groups, kept "
+          f"tiles, rows; K2 keys, groups, rows) {tiles}; max_abs_err (K1 o, K2) "
+          + ", ".join(f"{key} {a:.3e} {b:.3e}" for key, (a, b) in errs.items())
+          + f"; tol K1 fp32 {TOL['float32'][0]}, bf16 {TOL['bfloat16'][0]}; K2 fp32 {BWD_TOL['float32']}, bf16 "
+            f"{BWD_TOL['bfloat16']} * (max|ref| + |ref|); bf16 o bitwise share >= {D3_BITWISE_MIN}")
+    return {"tiles": tiles, "max_abs_err": errs}
+
+
+def check_d64_valid(label: str, launches: dict[str, int], share: str) -> None:
+    """Phases 4-29's windows: the launches of the instances built around the
+    valid rows at head dim 64 (``D64_COUNTERS``) against what the window's
+    shapes say: ``"all"`` (every K1 and K2 launch a padded short sequence at
+    D = 64), ``"some"`` (at least one, not all), ``"none"``."""
+    counts = {name: (launches.get(f"{name}_valid_d64", 0), launches.get(name, 0))
+              for name in ("fused_mha_fwd", "fused_mha_bwd")}
+    rule = {"all": lambda got, total: got == total, "some": lambda got, total: 0 < got < total,
+            "none": lambda got, total: got == 0}[share]
+    if any(not rule(got, total) for got, total in counts.values() if total) \
+            or any(got for got, total in counts.values() if not total) \
+            or (share != "none" and not any(total for _, total in counts.values())):
+        fail(f"{label}: (launches of the instances built around the valid rows at D=64, all launches) by kernel "
+             f"{counts}, expected {share}")
+
+
 def _d3_bf16_unet(config: str, seed: int):
     """The config's UNet at full width built as train_diffusion builds it
     under trainer.precision_type=bf16 (``model_dtype_kwargs``: compute in
@@ -6210,6 +6361,8 @@ def main() -> int:
         lap("29b D3 bf16 UNets")
         d3 = phase_d3_cli(Path(tmp))
         lap("29c D3 CLIs")
+        d64_kernels = phase_d64_valid_kernels()
+        lap("30 D=64 valid-rows kernels")
     e1_windows = {"e1_hard_flow_train": e1_hard["hard_flow"]["launches"],
                   "e1_hard_distill_train": e1_hard["hard_distill"]["launches"],
                   "e1_hard_sample": e1_hard["sample"]["launches"],
@@ -6238,11 +6391,44 @@ def main() -> int:
     h1_windows = {f"h1_{k}": h1[k] for k in ("mmdit", "trainable", "sprint", "evaluate_txt2img", "evaluate_fid")}
     h1_fp32 = {k: {name: w[name] - w[f"{name}_bf16"] for name in ("fused_mha_fwd", "fused_mha_bwd")}
                for k, w in h1_windows.items()}
+    # the padded instances at D = 64 alone: the windows of phases 21-24 less the launches of the instances built
+    # around the valid rows (by dtype)
+    def padded_bf16(w: dict) -> dict:
+        return {**w, **{f"{n}_bf16": w[f"{n}_bf16"] - w[f"{n}_valid_d64_bf16"]
+                        for n in ("fused_mha_fwd", "fused_mha_bwd")}}
+
+    f1_bf16_padded = {k: padded_bf16(w) for k, w in f1_bf16.items()}
+    g1_train_padded = padded_bf16(g1["train"])
+    h1_bf16_padded = {k: padded_bf16(w) for k, w in h1_windows.items()}
+    f1_fp32_padded = {k: {n: w[n] - (w[f"{n}_valid_d64"] - w[f"{n}_valid_d64_bf16"])
+                          for n in ("fused_mha_fwd", "fused_mha_bwd")} for k, w in f1_fp32.items()}
+    g1_sample_padded = {n: g1["sample"][n] - g1["sample"][f"{n}_valid_d64"] for n in ("fused_mha_fwd",)}
+    h1_fp32 = {k: {name: w[name] - w[f"{name}_bf16"] - (w[f"{name}_valid_d64"] - w[f"{name}_valid_d64_bf16"])
+                   for name in ("fused_mha_fwd", "fused_mha_bwd")} for k, w in h1_windows.items()}
     # slice P1's windows: the MoE DiT's train run and request, the ring and pipeline runs (fp32 K1/K2 at 256)
     p1_windows = {"p1_moe_train": p1["moe"]["train"], "p1_moe_sample": p1["moe"]["sample"],
                   **{f"p1_{c.removeprefix('train_cifar10_')}": p1[c] for c in P1_AXES}}
     # slice D3's windows: the bf16 UNets' train runs and requests (bf16 K1/K2 at 192/384 and 256/512)
     d3_windows = {f"d3_{D3_CONFIGS[c]['project']}_{w}": r[w] for c, r in d3.items() for w in ("train", "sample")}
+    # the instances built around the valid rows at D = 64 (ops/fused_mha.py::route_takes_valid_rows): none at
+    # DiT-B/2's 256 tokens (phases 4, 7, 15, 26a); at the padded short sequences of phases 22-24 in fp32 (the
+    # SprintDiT CLI's deep path of 64 tokens, G1's request, the embedder's 64, evaluate_txt2img's 264) and in bf16
+    # up to 64 rows (G1's train step), every launch there or some of the window's; none at the bf16 hard pair's
+    # 72 and 264 tokens (phases 21, 24), where the padded instances are the faster
+    d64_share = {"generate": (gen_counts, "none"), "train": (train_launches, "none"),
+                 "dit_sampling_arms": (arms["launches"], "none"), "j1_deploy_dit_b2": (j1_deploy["launches"], "none"),
+                 **{k: (w, "none") for k, w in f1_bf16.items()},
+                 **{k: (w, "some" if k == "f1_sprint_train" else "none") for k, w in f1_fp32.items()},
+                 "g1_train_repa": (g1["train"], "all"), "g1_sample": (g1["sample"], "all"),
+                 **{k: (w, {"h1_trainable": "some", "h1_evaluate_txt2img": "all"}.get(k, "none"))
+                    for k, w in h1_windows.items()}}
+    for label, (launches, share) in d64_share.items():
+        check_d64_valid(label, launches, share)
+    d64_windows = {k: w for k, (w, share) in d64_share.items() if share != "none"}
+
+    def d64(w: dict, name: str, bf16: bool) -> int:
+        """A window's launches of kernel ``name``'s instance built around the valid rows at D = 64 in a dtype."""
+        return w[f"{name}_valid_d64_bf16"] if bf16 else w[f"{name}_valid_d64"] - w[f"{name}_valid_d64_bf16"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -6256,22 +6442,22 @@ def main() -> int:
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": gen_launches + train_launches["fused_mha_fwd"] + txt_totals["fused_mha_fwd"]
         + txt_train_launches["fused_mha_fwd"] + arms["launches"]["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"],
-                                                *h1_windows.values()))
+        + sum(w["fused_mha_fwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16_padded.values(), g1_train_padded,
+                                                *h1_bf16_padded.values()))
         + j1_deploy["launches"]["fused_mha_fwd"] + j1_prompts["launches"]["fused_mha_fwd"],
         "launches_by_path": {"generate": gen_launches, "train": train_launches["fused_mha_fwd"],
                              "txt2img_generate": txt_totals["fused_mha_fwd"],
                              "txt2img_train": txt_train_launches["fused_mha_fwd"],
                              "dit_sampling_arms": arms["launches"]["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
-                             "g1_train_repa": g1["train"]["fused_mha_fwd_bf16"],
-                             **{k: w["fused_mha_fwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_fwd_bf16"]},
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in {**e1_bf16, **f1_bf16_padded}.items()},
+                             "g1_train_repa": g1_train_padded["fused_mha_fwd_bf16"],
+                             **{k: w["fused_mha_fwd_bf16"] for k, w in h1_bf16_padded.items()
+                                if w["fused_mha_fwd_bf16"]},
                              "j1_deploy_dit_b2": j1_deploy["launches"]["fused_mha_fwd"],
                              **({"j1_prompts": j1_prompts["launches"]["fused_mha_fwd"]}
                                 if j1_prompts["launches"]["fused_mha_fwd"] else {})},
         "j1_deploy": {key: j1_deploy[key] for key in ("export_s", "bytes", "load_s", "artifact_ms", "live_ms",
                                                       "max_abs_diff")},
-        "g1_shape": g1["kernels"]["k1_g1_train"],
         "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k1_hard")},
         "e1_shape": {**e1_fwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "device time per call from CUDA-graph replays"},
@@ -6292,23 +6478,19 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_fwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:50",
         "launches": c1["train"]["fused_mha_fwd"] + c1["sample"]["fused_mha_fwd"] + c2["fused_mha_fwd"]
-        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32.values(), g1["sample"]))
+        + sum(w["fused_mha_fwd"] for w in (*e1_d64.values(), *f1_fp32_padded.values(), g1_sample_padded))
         + sum(w["fused_mha_fwd"] for w in (*h1_fp32.values(), *i1["lora"].values()))
         + j1_serve["smoke"]["fused_mha_fwd"] + j1_serve["served"]["fused_mha_fwd"]
         + sum(w["fused_mha_fwd"] for w in p1_windows.values()),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_fwd"], "c1_sample": c1["sample"]["fused_mha_fwd"],
                              "c2": c2["fused_mha_fwd"],
-                             **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
-                             "g1_sample": g1["sample"]["fused_mha_fwd"],
+                             **{k: w["fused_mha_fwd"] for k, w in {**e1_d64, **f1_fp32_padded}.items()},
+                             "g1_sample": g1_sample_padded["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in h1_fp32.items() if w["fused_mha_fwd"]},
                              **{k: w["fused_mha_fwd"] for k, w in i1["lora"].items()},
                              "j1_c1_export_smoke": j1_serve["smoke"]["fused_mha_fwd"],
                              "j1_c1_served": j1_serve["served"]["fused_mha_fwd"],
                              **{k: w["fused_mha_fwd"] for k, w in p1_windows.items()}},
-        "h1_embedder_shape": h1["kernels"]["k1_h1_embedder"],
-        "h1_eval_384_shape": h1["kernels"]["k1_h1_eval_384"],
-        "f1_padded64": f1_cli["kernels"]["k1_pad64"],
-        "g1_sample_padded64": g1["kernels"]["k1_g1_sample"],
         "c2_max_abs_err": {key: value for key, value in c2["errs"].items() if key.startswith("K1")},
         **{key: c1_kernels[f"fwd_b{C1_BATCH}"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -6321,14 +6503,14 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": train_launches["fused_mha_bwd"] + txt_train_launches["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16.values(), g1["train"],
-                                                *h1_windows.values())),
+        + sum(w["fused_mha_bwd_bf16"] for w in (*e1_bf16.values(), *f1_bf16_padded.values(), g1_train_padded,
+                                                *h1_bf16_padded.values())),
         "launches_by_path": {"train": train_launches["fused_mha_bwd"],
                              "txt2img_train": txt_train_launches["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16}.items()},
-                             "g1_train_repa": g1["train"]["fused_mha_bwd_bf16"],
-                             **{k: w["fused_mha_bwd_bf16"] for k, w in h1_windows.items() if w["fused_mha_bwd_bf16"]}},
-        "g1_shape": g1["kernels"]["k2_g1_train"],
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in {**e1_bf16, **f1_bf16_padded}.items()},
+                             "g1_train_repa": g1_train_padded["fused_mha_bwd_bf16"],
+                             **{k: w["fused_mha_bwd_bf16"] for k, w in h1_bf16_padded.items()
+                                if w["fused_mha_bwd_bf16"]}},
         "hard_pair_shapes": {k: v for k, v in g1["kernels"].items() if k.startswith("k2_hard")},
         "e1_shape": {**e1_bwd, "shape": f"B={E1_BATCH} S={E1_SEQ} H={C1_HEADS} D=64 bf16 (the hard configs' DiT)",
                      "timing": "ms: device time per call from CUDA-graph replays; library_ms: device time per call "
@@ -6340,16 +6522,14 @@ def main() -> int:
         "source": "diffulab_tpu_torch/csrc/fused_mha_bwd.cu",
         "replaces": "diffulab_tpu/ops/fused_mha.py:87",
         "launches": c1["train"]["fused_mha_bwd"] + c2["fused_mha_bwd"]
-        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32.values(), *h1_fp32.values(),
+        + sum(w["fused_mha_bwd"] for w in (*e1_d64.values(), *f1_fp32_padded.values(), *h1_fp32.values(),
                                            *i1["lora"].values(), *p1_windows.values())),
         "launches_by_path": {"c1_train": c1["train"]["fused_mha_bwd"], "c2": c2["fused_mha_bwd"],
-                             **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32}.items()},
+                             **{k: w["fused_mha_bwd"] for k, w in {**e1_d64, **f1_fp32_padded}.items()},
                              **{k: w["fused_mha_bwd"] for k, w in h1_fp32.items() if w["fused_mha_bwd"]},
                              **{k: w["fused_mha_bwd"] for k, w in i1["lora"].items() if w["fused_mha_bwd"]},
                              **{k: w["fused_mha_bwd"] for k, w in p1_windows.items() if w["fused_mha_bwd"]}},
-        "h1_embedder_shape": h1["kernels"]["k2_h1_embedder"],
         "cifar_b32": f1_cli["kernels"]["k2_b32"],
-        "f1_padded64": f1_cli["kernels"]["k2_pad64"],
         "c2_max_abs_err": c2["errs"][f"K2 B={C1_BATCH}"],
         **{key: c1_kernels["bwd_b128"][key] for key in C1_KEYS},
         "shape": f"B={C1_BATCH} S={C1_SEQ} H={C1_HEADS} D=64 fp32",
@@ -6401,6 +6581,32 @@ def main() -> int:
                     "and lse (K2: q, do, dq, lse, dk and dv) padded to 128 rows; sdpa_padded_ms and sdpa_unpadded_ms: "
                     "SDPA on the padded q/k/v with the mask and on the unpadded q/k/v",
     } for attn in (D1_ATTN, D2_ATTN) for kind in ("fwd", "bwd") for d, tokens, _ in attn] + [{
+        "name": f"fused_mha_{kind} (instance built around the valid rows D=64, {dt})",
+        "route": "cuda",
+        "source": f"diffulab_tpu_torch/csrc/fused_mha_{kind}.cu",
+        "replaces": f"diffulab_tpu/ops/fused_mha.py:{50 if kind == 'fwd' else 87}",
+        "launches": sum(d64(w, f"fused_mha_{kind}", dt == "bf16") for w in d64_windows.values()),
+        "launches_by_path": {k: d64(w, f"fused_mha_{kind}", dt == "bf16") for k, w in d64_windows.items()
+                             if d64(w, f"fused_mha_{kind}", dt == "bf16")},
+        **{key: main_numbers[key] for key in C1_KEYS},
+        "bound_padded_ms": main_numbers["padded"]["bound_ms"],
+        "sdpa_unpadded_ms": main_numbers["sdpa_unpadded_ms"],
+        "shape": main_numbers["shape"],
+        "other_shapes": others,
+        "phase30_max_abs_err": {k: v[0 if kind == "fwd" else 1] for k, v in d64_kernels["max_abs_err"].items()
+                                if k.startswith("float32" if dt == "fp32" else "bfloat16")},
+        "tiles": d64_kernels["tiles"][dt],
+        "timing": "ms and library_ms (SDPA on the padded inputs with the mask; sdpa_unpadded_ms on the unpadded "
+                  "tensors): device time per call from CUDA-graph replays (bf16 K2's SDPA: its autograd backward's "
+                  "kernels summed by torch.profiler); bound_ms over the valid rows and attended keys, bound_padded_ms "
+                  "over the padded contract's rows",
+    } for kind, dt, main_numbers, others in (
+        ("fwd", "fp32", f1_cli["kernels"]["k1_pad64"],
+         {"g1_sample": g1["kernels"]["k1_g1_sample"], "h1_embedder": h1["kernels"]["k1_h1_embedder"],
+          "h1_eval_384": h1["kernels"]["k1_h1_eval_384"]}),
+        ("fwd", "bf16", g1["kernels"]["k1_g1_train"], {}),
+        ("bwd", "fp32", f1_cli["kernels"]["k2_pad64"], {"h1_embedder": h1["kernels"]["k2_h1_embedder"]}),
+        ("bwd", "bf16", g1["kernels"]["k2_g1_train"], {}))] + [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "diffulab_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -1,14 +1,16 @@
 // bf16 attention products with mma.sync m16n8k16, for the bf16 instances of
 // K1 (fused_mha_fwd.cu) and K2 (fused_mha_bwd.cu) at the UNets' head dims
-// 192-512 (mma_bf16, ldsm_x4_trans and scores_times_tile_bf16 also serve
-// K2's bf16 kernels at D = 16 and 32), built around the valid rows as the fp32 instances are
+// 192-512 and at D = 64 on padded short sequences (mma_bf16, ldsm_x4_trans
+// and scores_times_tile_bf16 also serve K2's bf16 kernels at D = 16 and 32),
+// built around the valid rows as the fp32 instances are
 // (tf32x3.cuh: valid_rows_instance, vr_rows, vr_cols, vr_groups, put_c,
 // sum_c): the unpadded query rows, only the key tiles whose mask holds an
 // attended key, column groups of warps that split each row's output and the
 // score products' reduction over D.
 //
 // m16n8k16 reduces over 16: a ring slot holds VR_BF16_TILE = 16 keys (K1,
-// K2's dq kernel) or queries (the dk/dv kernel), and a key tile is live when
+// K2's dq kernel) or queries (the dk/dv kernel; 64 at D = 64,
+// vr_bf16_tile), and a key tile is live when
 // any of its 16 mask entries is set; a masked key inside a live tile gets
 // MASK_VALUE, so its p is exactly 0. Operands are bf16 in shared memory, rows
 // of D + 8 elements: the row stride is 4 words mod 32 banks at every one of
@@ -26,7 +28,8 @@
 //
 // Sums: a score tile is formed from zero over its group's columns (at most
 // 128 / 16 = 8 k-steps) and the groups' partials are added in fp32 in group
-// order. o, dq, dk and dv carry one accumulator over the live keys (or valid
+// order (at D = 64, one group: the tile stays in its warp's registers). o,
+// dq, dk and dv carry one accumulator over the live keys (or valid
 // queries): at most 512 / 16 = 32 k-steps, whose truncation toward zero in
 // the tensor cores leaves at most 32 fp32 ulps (2^-18 relative), far below
 // the half bf16 step (2^-9) at which the result is rounded.
@@ -41,6 +44,42 @@ constexpr int VR_BF16_TILE = 16;  // keys or queries of a ring slot: one m16n8k1
 // live key tiles (64 keys) whose scores K1 keeps in registers between its
 // passes (32 fp32 values a thread); above that it forms them again
 constexpr int VR_BF16_KEEP = 4;
+
+// the ring slot at head dim D: VR_BF16_TILE at 192-512; 64 keys (or
+// queries) at D = 64, where a slot's products over D are short (8 mma.sync
+// a warp for 16 keys) and each slot's load latency and barriers show: K1 at
+// G1's shape (B=128, 64 of 128 keys, H=12) took 0.0386 ms with 32-key slots
+// against 0.0341, though K2 0.0976 against 0.1022 (scripts/
+// d64_valid_variants.py, bf16_tile32; NVIDIA H100 80GB HBM3, 700 W). A slot
+// is live when any of its keys is attended.
+template <int D>
+__host__ __device__ constexpr int vr_bf16_tile() {
+  return D == 64 ? 64 : VR_BF16_TILE;
+}
+
+// live slots kept between K1's passes at head dim D: VR_BF16_KEEP at
+// 192-512; 1 at D = 64 (a 64-token row, 32 values a thread): keeping two
+// took K1 to 226 registers against 158 and G1's K1 from 0.0341 ms to 0.0410
+// (scripts/d64_valid_variants.py, bf16_keep2; NVIDIA H100 80GB HBM3, 700 W)
+template <int D>
+__host__ __device__ constexpr int vr_bf16_keep() {
+  return D == 64 ? 1 : VR_BF16_KEEP;
+}
+
+// exp(x) in the bf16 instances at head dim D: expf at 192-512; __expf (one
+// ex2.approx, about 2 ulp) at D = 64, where the exponentials bound K1: with
+// expf and p divided by l the bf16 K1 at B=128, 64 of 128 keys, H=12 took
+// 0.0390 ms, with __expf and p times 1 / l 0.0341, and at the hard pair's 72
+// tokens 0.0401 against 0.0258 (scripts/d64_valid_variants.py, precise_exp;
+// NVIDIA H100 80GB HBM3, 700 W). p is rounded to bf16 all the same: a
+// rounding flips where the two exps differ across a bf16 step.
+template <int D>
+__device__ __forceinline__ float bf16_exp(float x) {
+  if constexpr (D == 64)
+    return __expf(x);
+  else
+    return expf(x);
+}
 
 template <int D>
 __host__ __device__ constexpr int ldb() {

@@ -73,7 +73,10 @@
 // is all 0, a dk/dv CTA whose keys are all masked writes zeros, and the dk/dv
 // query loop walks the valid query rows; column groups of vr_cols columns.
 // In bf16 at those dims, mha_bwd_{dq,dkv}_bf16_valid<D>: the same split on
-// mma.sync m16n8k16 over tiles of 16 keys or queries (bf16_valid.cuh).
+// mma.sync m16n8k16 over tiles of 16 keys or queries (bf16_valid.cuh). At D =
+// 64 both dtypes' valid-rows kernels take the padded short sequences (the
+// unpadded rows of 64, 72 or 264 tokens); the caller picks them by shape
+// (valid_rows = 1), and the padded instances keep the rest.
 //
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
@@ -363,8 +366,9 @@ __host__ __device__ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (ld<D>() * (2 * F32_ROWS + 2 * 2 * dkv_queries<D>()) + 2 * 2 * dkv_queries<D>());
 }
 
-// s -> p = exp(s * scale - lse) for query rows (g, g + 8) against keys key0 + [0, N)
-template <int N>
+// s -> p = exp(s * scale - lse) for query rows (g, g + 8) against keys key0 +
+// [0, N); FAST: __expf (the bf16 instances at D = 64, bf16_exp)
+template <int N, bool FAST = false>
 __device__ __forceinline__ void probs_f32(float (&s)[N / 8][4], float sm_scale, const int* mrow, int key0,
                                           const float (&lse_r)[2], int t4) {
 #pragma unroll
@@ -374,7 +378,7 @@ __device__ __forceinline__ void probs_f32(float (&s)[N / 8][4], float sm_scale, 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float x = ((j & 1) ? keep.y : keep.x) ? s[nt][j] * sm_scale : MASK_VALUE;
-      s[nt][j] = expf(x - lse_r[j >> 1]);
+      s[nt][j] = FAST ? __expf(x - lse_r[j >> 1]) : expf(x - lse_r[j >> 1]);
     }
   }
 }
@@ -701,7 +705,7 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
   store_c_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, row, dv_acc, t4);
 }
 
-// --- fp32 at D = 192-512: built around the valid rows (tf32x3.cuh) ------------
+// --- fp32 at D = 64 and 192-512: built around the valid rows (tf32x3.cuh) ----
 //
 // The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the UNets'
 // head dims: 64 tokens at D = 192 and 256, 16 at D = 384 and 512, keys padded
@@ -716,14 +720,28 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
 // guarded); a warp for each 16 rows in each column group of vr_cols output
 // columns, the groups splitting the score products' reduction over D and
 // adding their partial tiles in group order; no atomics.
+//
+// At D = 64 the same kernels serve the DiTs' padded short sequences (64 or 72
+// tokens padded to 128 keys, 264 to 384), where the padded instances ran 128
+// query rows, half or more of them padding, over every key tile: at slice
+// F1's deep path (B=128, 64 tokens, H=8) a call must move 117 MB over the
+// valid rows and keys, 0.035 ms at 3.35 TB/s, against 2.7 GFLOP (0.016 ms at
+// 3xTF32): bound by bytes. One group holds the whole head, so no partial
+// tile leaves a warp's registers; key (or query) tiles of 64 (vr_tile,
+// vr_bf16_tile); and
+// in the dk/dv kernel a warp whose 16 keys are all masked (72 tokens: keys
+// 80-127 of the second CTA) forms no product and writes zeros.
 
 // dq for vr_rows queries of a (batch, head): K and V stream in tiles of
-// VR_TILE keys through a two-slot cp.async ring, and only the tiles whose mask
-// has an attended key: a tile whose mask is all 0 has p = 0 exactly, so it adds
+// vr_tile keys through a ring of VR_SLOTS cp.async slots, and only the tiles
+// whose mask has an attended key (the CTA's list of them, find_live_tiles):
+// a tile whose mask is all 0 has p = 0 exactly, so it adds
 // nothing to di or dq, and is neither loaded nor multiplied. Pass 1 forms s, p
 // and dp and di = rowsum(p * dp); pass 2 forms s and dp again, ds and dq =
-// ds.K (5 products of [rows x live keys x D]). The CTA writes lse and di for
-// the dk/dv kernel.
+// ds.K (5 products of [rows x live keys x D]), or, where the live tiles fit
+// (vr_dq_keep: a 64-token row at D = 64), takes p and dp from the registers
+// pass 1 left them in and K from its slot (3 products). The CTA writes lse
+// and di for the dk/dv kernel.
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -731,14 +749,17 @@ mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ ws_lse, float* __restrict__ ws_di, float* __restrict__ dq, int Sq,
                         int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
                         long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  constexpr int KT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
-  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
+  constexpr int KT = vr_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT, NS = VR_SLOTS;
+  constexpr int KEEP = vr_dq_keep<D>();
+  static_assert(KEEP <= NS, "the kept tiles' K stays in the ring's slots");
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [ROWS][LD]
-  float* dos = qs + ROWS * LD;     // [ROWS][LD]
-  float* ks = dos + ROWS * LD;     // [2][KT][LD]
-  float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
-  float* part = vs + 2 * KT * LD;  // [2][GROUPS][ROWS][KT]: the groups' partial s, then dp
+  float* qs = smem;                 // [ROWS][LD]
+  float* dos = qs + ROWS * LD;      // [ROWS][LD]
+  float* ks = dos + ROWS * LD;      // [NS][KT][LD]
+  float* vs = ks + NS * KT * LD;    // [NS][KT][LD]
+  float* part = vs + NS * KT * LD;  // [2][GROUPS][ROWS][KT]: the groups' partial s, then dp (GROUPS > 1)
+  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? 2 * PART : 0));  // [Skv / KT + 1]: live tiles, count
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -752,54 +773,89 @@ mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k
   const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
                           row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
 
-  auto stage = [&](int tile, int slot) {
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_items = 2 * n_live;
+  // where the row's live tiles fit (vr_dq_keep), pass 1 keeps p and dp in registers and leaves each tile's K
+  // in its slot: pass 2 loads nothing and forms no s or dp
+  const bool kept = n_live <= KEEP;
+  // the load sequence, item i: the live tiles for pass 1 (i < n_live), then again for pass 2 unless kept; NS -
+  // 1 items loading while one is computed
+  auto stage = [&](int item) {
+    const int pass = item >= n_live;
+    if (pass == 1 && kept) return;
+    const int tile = live[item - pass * n_live], slot = item % NS;
     stage_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT);
     stage_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT);
   };
-  // the load sequence: the live tiles for pass 1, then again for pass 2
-  int pass = 0, cur = next_live(mb, 0, n_tiles);
-  if (cur < n_tiles) {
+  if (n_live > 0) {
     stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
     stage_rows_upto<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
-    stage(cur, 0);
+  }
+
+  for (int item = 0; item < NS - 1; ++item) {  // a group each, empty or not, so that the waits below count right
+    if (item < n_items) stage(item);
     cp_async_commit();
   }
 
   float di[2] = {0.f, 0.f}, acc[DO / 8][4];
+  float kept_p[KEEP > 0 ? KEEP : 1][KT / 8][4], kept_dp[KEEP > 0 ? KEEP : 1][KT / 8][4];
 #pragma unroll
   for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  for (int i = 0; cur < n_tiles; ++i) {
-    const int slot = i & 1;
-    int next_pass = pass, nxt = next_live(mb, cur + 1, n_tiles);
-    if (nxt == n_tiles && pass == 0) {
-      next_pass = 1;
-      nxt = next_live(mb, 0, n_tiles);
-    }
-    if (nxt < n_tiles) {
-      stage(nxt, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int i = 0; i < n_items; ++i) {
+    if (i + NS - 1 < n_items) stage(i + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // item i has landed
     __syncthreads();
+    // j: the live tile's place in its pass; kept, pass 2 reads pass 1's slot
+    const int pass = i >= n_live, j = i - pass * n_live, slot = (kept ? j : i) % NS, cur = live[j];
+    const bool formed = pass == 0 || !kept;  // s and dp formed here, else taken from the registers
     float p[KT / 8][4], dp[KT / 8][4];
-    if (active) {  // this group's columns of D
+    if (active && formed) {  // this group's columns of D
       rows_dot<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
       rows_dot<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
-      put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
-      put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
     }
-    __syncthreads();
+    if constexpr (GROUPS > 1) {
+      if (active) {
+        put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
+        put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
+      }
+      __syncthreads();
+      if (active) {
+        sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
+        sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
+      }
+    }
     if (active) {
-      sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
-      sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
-      probs_f32<KT>(p, sm_scale, mb, cur * KT, lse_r, t4);
+      if (formed) {
+        probs_f32<KT>(p, sm_scale, mb, cur * KT, lse_r, t4);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < KEEP; ++jj)
+          if (jj == j)
+#pragma unroll
+            for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                p[nt][e] = kept_p[jj][nt][e];
+                dp[nt][e] = kept_dp[jj][nt][e];
+              }
+      }
       if (pass == 0) {
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+#pragma unroll
+        for (int jj = 0; jj < KEEP; ++jj)
+          if (kept && jj == j)
+#pragma unroll
+            for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                kept_p[jj][nt][e] = p[nt][e];
+                kept_dp[jj][nt][e] = dp[nt][e];
+              }
       } else {
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
@@ -808,13 +864,11 @@ mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k
         scores_times_tile<DO, KT, LD>(acc, p, ks + slot * KT * LD + col0, g, t4);
       }
     }
-    __syncthreads();  // the slot and the partial tiles are written again next iteration
-    if (pass == 0 && next_pass == 1) {  // di over the whole key row, before pass 2
+    __syncthreads();  // the slot and the partial tiles are written again
+    if (i == n_live - 1) {  // di over the whole key row, before pass 2
       di[0] = quad_sum(di[0]);
       di[1] = quad_sum(di[1]);
     }
-    pass = next_pass;
-    cur = nxt;
   }
 
   // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
@@ -837,11 +891,11 @@ mha_bwd_dq_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k
 // dk and dv for vr_rows keys of a (batch, head). A CTA whose keys are all
 // masked writes zeros and forms no product: their p is exactly 0 for every
 // query. Otherwise its K and V rows stay in shared memory and the valid query
-// rows (Sq, unpadded) stream in tiles of VR_TILE queries, with their lse and
-// di, through a two-slot ring; rows past Sq are zero-filled with lse = +inf,
-// so that their p is 0. p^T = exp(K.Q^T * scale - lse), dv += p^T.dO, dp^T =
-// V.dO^T, ds^T = p^T * (dp^T - di) * scale, dk += ds^T.Q: 4 products of [keys
-// x Sq x D].
+// rows (Sq, unpadded) stream in tiles of vr_tile queries, with their lse and
+// di, through a ring of VR_SLOTS slots; rows past Sq are zero-filled with lse
+// = +inf, so that their p is 0. p^T = exp(K.Q^T * scale - lse), dv +=
+// p^T.dO, dp^T = V.dO^T, ds^T = p^T * (dp^T - di) * scale, dk += ds^T.Q: 4
+// products of [keys x Sq x D].
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -850,16 +904,16 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
                          long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
                          long long do_ss, float sm_scale) {
-  constexpr int QT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
-  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
+  constexpr int QT = vr_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT, NS = VR_SLOTS;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                  // [ROWS][LD]
-  float* vs = ks + ROWS * LD;        // [ROWS][LD]
-  float* qs = vs + ROWS * LD;        // [2][QT][LD]
-  float* dos = qs + 2 * QT * LD;     // [2][QT][LD]
-  float* lse_s = dos + 2 * QT * LD;  // [2][QT]
-  float* di_s = lse_s + 2 * QT;      // [2][QT]
-  float* part = di_s + 2 * QT;       // [2][GROUPS][ROWS][QT]: the groups' partial s^T, then dp^T
+  float* ks = smem;                   // [ROWS][LD]
+  float* vs = ks + ROWS * LD;         // [ROWS][LD]
+  float* qs = vs + ROWS * LD;         // [NS][QT][LD]
+  float* dos = qs + NS * QT * LD;     // [NS][QT][LD]
+  float* lse_s = dos + NS * QT * LD;  // [NS][QT]
+  float* di_s = lse_s + NS * QT;      // [NS][QT]
+  float* part = di_s + NS * QT;       // [2][GROUPS][ROWS][QT]: the groups' partial s^T, then dp^T (GROUPS > 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -871,7 +925,7 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
 
   bool live = mb == nullptr;
-  for (int t = 0; !live && t < ROWS / VR_TILE; ++t) live = tile_live(mb + n0, t);
+  for (int t = 0; !live && t < ROWS / 16; ++t) live = tile_live<16>(mb + n0, t);
   if (!live) {  // every key masked: dk = dv = 0
     for (int i = threadIdx.x; i < ROWS * (D / 4); i += THREADS) {
       const long long at = (long long)(n0 + i / (D / 4)) * o_ss + (i % (D / 4)) * 4;
@@ -886,23 +940,29 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
   const float* wl = ws_lse + ((long long)b * H + h) * Sq;
   const float* wd = ws_di + ((long long)b * H + h) * Sq;
   const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
+  // one group: a warp whose 16 keys are all masked forms no product and writes zeros
+  const bool warp_live = GROUPS > 1 || mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
   const int n_tiles = (Sq + QT - 1) / QT;
 
   auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
-    const int slot = t & 1;
+    const int slot = t % NS;
     stage_rows_upto<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT, Sq);
     stage_rows_upto<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT, Sq);
-    const int i = threadIdx.x, r = t * QT + i % QT;
-    if (i < QT)
-      lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
-    else if (i < 2 * QT)
-      di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+    for (int i = threadIdx.x; i < 2 * QT; i += THREADS) {
+      const int r = t * QT + i % QT;
+      if (i < QT)
+        lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
+      else
+        di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+    }
   };
 
   stage_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0);
   stage_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0);
-  stage(0);
-  cp_async_commit();
+  for (int t = 0; t < NS - 1; ++t) {  // a group each, empty or not, so that the waits below count right
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
 
   float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
 #pragma unroll
@@ -911,15 +971,11 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
     for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      stage(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (t + NS - 1 < n_tiles) stage(t + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // query tile t has landed
     __syncthreads();
-    const int slot = t & 1;
+    const int slot = t % NS;
     const float* qt = qs + slot * QT * LD;
     const float* dot = dos + slot * QT * LD;
     const float* lt = lse_s + slot * QT;
@@ -927,26 +983,32 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
 
     // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
     float p[QT / 8][4], dp[QT / 8][4];
-    rows_dot<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
-    rows_dot<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
-    put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
-    put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
-    __syncthreads();
-    sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
-    sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+    if (warp_live) {
+      rows_dot<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
+      rows_dot<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
+    }
+    if constexpr (GROUPS > 1) {
+      put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
+      put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
+      __syncthreads();
+      sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
+      sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+    }
+    if (warp_live) {
 #pragma unroll
-    for (int nt = 0; nt < QT / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
-        p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
-      }
-    scores_times_tile<DO, QT, LD>(dv_acc, p, dot + col0, g, t4);  // dv += p^T.dO
+        for (int e = 0; e < 4; ++e) {
+          const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+          p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
+        }
+      scores_times_tile<DO, QT, LD>(dv_acc, p, dot + col0, g, t4);  // dv += p^T.dO
 #pragma unroll
-    for (int nt = 0; nt < QT / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
-    scores_times_tile<DO, QT, LD>(dk_acc, dp, qt + col0, g, t4);  // dk += ds^T.Q
+        for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+      scores_times_tile<DO, QT, LD>(dk_acc, dp, qt + col0, g, t4);  // dk += ds^T.Q
+    }
     __syncthreads();  // the slot and the partial tiles are written again next iteration
   }
 
@@ -955,18 +1017,30 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
   store_c_rows<DO>(dvb + col0, o_ss, row, dv_acc, t4);
 }
 
+// the partial score tiles of the column groups, two (s, then dp): none with one group
+template <int D>
+__host__ __device__ constexpr size_t vr_part_floats(int tile) {
+  return vr_groups<D>() > 1 ? 2 * vr_groups<D>() * vr_rows<D>() * tile : 0;
+}
+
 template <int D>
 __host__ __device__ constexpr size_t vr_dq_smem_bytes() {
-  return sizeof(float) * (ld<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_TILE) + 2 * vr_groups<D>() * vr_rows<D>() * VR_TILE);
+  return sizeof(float) *
+         (ld<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_tile<D>()) + vr_part_floats<D>(vr_tile<D>()));
 }
 
 template <int D>
 __host__ __device__ constexpr size_t vr_dkv_smem_bytes() {
-  return sizeof(float) * (ld<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_TILE) + 2 * 2 * VR_TILE +
-                          2 * vr_groups<D>() * vr_rows<D>() * VR_TILE);
+  return sizeof(float) * (ld<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_tile<D>()) +
+                          VR_SLOTS * 2 * vr_tile<D>() + vr_part_floats<D>(vr_tile<D>()));
 }
 
-// --- bf16 at D = 192-512: the same split around the valid rows (bf16_valid.cuh) -----
+// the ints after the dq kernel's tiles: the live key tiles of kt keys and their count
+inline size_t vr_live_bytes(int skv, int kt) {
+  return sizeof(int) * (skv / kt + 1);
+}
+
+// --- bf16 at D = 64 and 192-512: the same split around the valid rows (bf16_valid.cuh)
 //
 // The bf16 instance of K2 (diffulab_tpu/ops/fused_mha.py:87), for a bf16 UNet
 // (trainer.precision_type=bf16). At B=128, H=2 a call must read q, do, k and v
@@ -990,14 +1064,16 @@ mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, co
                       float* __restrict__ ws_lse, float* __restrict__ ws_di, bf16* __restrict__ dq, int Sq, int Skv,
                       int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                       long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
-  constexpr int KT = VR_BF16_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ldb<D>();
+  constexpr int KT = vr_bf16_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>();
+  constexpr int LD = ldb<D>(), NS = VR_SLOTS;
   constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [ROWS][LD]
   bf16* dos = qs + ROWS * LD;                                // [ROWS][LD]
-  bf16* ks = dos + ROWS * LD;                                // [2][KT][LD]
-  bf16* vs = ks + 2 * KT * LD;                               // [2][KT][LD]
-  float* part = reinterpret_cast<float*>(vs + 2 * KT * LD);  // [2][GROUPS][ROWS][KT]: partial s, then dp
+  bf16* ks = dos + ROWS * LD;                                // [NS][KT][LD]
+  bf16* vs = ks + NS * KT * LD;                              // [NS][KT][LD]
+  float* part = reinterpret_cast<float*>(vs + NS * KT * LD);  // [2][GROUPS][ROWS][KT]: partial s, then dp (GROUPS > 1)
+  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? 2 * PART : 0));  // [Skv / KT + 1]: live tiles, count
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -1011,49 +1087,54 @@ mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, co
   const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
                           row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
 
-  auto stage = [&](int tile, int slot) {
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_items = 2 * n_live;
+  // the load sequence, item i: the live tiles for pass 1 (i < n_live), then again for pass 2 (p and dp formed
+  // twice: keeping them, as the fp32 kernel does, doubles this kernel's registers); NS - 1 items loading while
+  // one is computed
+  auto stage = [&](int item) {
+    const int tile = live[item % n_live], slot = item % NS;
     stage_bf16_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT, Skv);
     stage_bf16_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT, Skv);
   };
-  // the load sequence: the live tiles for pass 1, then again for pass 2
-  int pass = 0, cur = next_live<KT>(mb, 0, n_tiles);
-  if (cur < n_tiles) {
+  if (n_live > 0) {
     stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
     stage_bf16_rows<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
-    stage(cur, 0);
+  }
+
+  for (int item = 0; item < NS - 1; ++item) {  // a group each, empty or not, so that the waits below count right
+    if (item < n_items) stage(item);
     cp_async_commit();
   }
 
   float di[2] = {0.f, 0.f}, acc[DO / 8][4];
 #pragma unroll
   for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  for (int i = 0; cur < n_tiles; ++i) {
-    const int slot = i & 1;
-    int next_pass = pass, nxt = next_live<KT>(mb, cur + 1, n_tiles);
-    if (nxt == n_tiles && pass == 0) {
-      next_pass = 1;
-      nxt = next_live<KT>(mb, 0, n_tiles);
-    }
-    if (nxt < n_tiles) {
-      stage(nxt, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int i = 0; i < n_items; ++i) {
+    if (i + NS - 1 < n_items) stage(i + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // item i has landed
     __syncthreads();
+    const int pass = i >= n_live, slot = i % NS, cur = live[i - pass * n_live];
     float p[KT / 8][4], dp[KT / 8][4];
     if (active) {  // this group's columns of D
       rows_dot_bf16<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
       rows_dot_bf16<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
-      put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
-      put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
     }
-    __syncthreads();
+    if constexpr (GROUPS > 1) {
+      if (active) {
+        put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
+        put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
+      }
+      __syncthreads();
+      if (active) {
+        sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
+        sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
+      }
+    }
     if (active) {
-      sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
-      sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
-      probs_f32<KT>(p, sm_scale, mb, cur * KT, lse_r, t4);
+      probs_f32<KT, D == 64>(p, sm_scale, mb, cur * KT, lse_r, t4);
       if (pass == 0) {
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
@@ -1067,13 +1148,11 @@ mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, co
         scores_times_tile_bf16<DO, KT, LD>(acc, p, ks + slot * KT * LD + col0, lane);  // dq += round(ds).K
       }
     }
-    __syncthreads();  // the slot and the partial tiles are written again next iteration
-    if (pass == 0 && next_pass == 1) {  // di over the whole key row, before pass 2
+    __syncthreads();  // the slot and the partial tiles are written again
+    if (i == n_live - 1) {  // di over the whole key row, before pass 2
       di[0] = quad_sum(di[0]);
       di[1] = quad_sum(di[1]);
     }
-    pass = next_pass;
-    cur = nxt;
   }
 
   // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
@@ -1107,16 +1186,17 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
                        bf16* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
                        long long k_ss, long long v_sb, long long v_ss, long long do_sb, long long do_ss,
                        float sm_scale) {
-  constexpr int QT = VR_BF16_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ldb<D>();
+  constexpr int QT = vr_bf16_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>();
+  constexpr int LD = ldb<D>(), NS = VR_SLOTS;
   constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                // [ROWS][LD]
-  bf16* vs = ks + ROWS * LD;                                   // [ROWS][LD]
-  bf16* qs = vs + ROWS * LD;                                   // [2][QT][LD]
-  bf16* dos = qs + 2 * QT * LD;                                // [2][QT][LD]
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * QT * LD);  // [2][QT]
-  float* di_s = lse_s + 2 * QT;                                // [2][QT]
-  float* part = di_s + 2 * QT;                                 // [2][GROUPS][ROWS][QT]: partial s^T, then dp^T
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);                 // [ROWS][LD]
+  bf16* vs = ks + ROWS * LD;                                    // [ROWS][LD]
+  bf16* qs = vs + ROWS * LD;                                    // [NS][QT][LD]
+  bf16* dos = qs + NS * QT * LD;                                // [NS][QT][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + NS * QT * LD);  // [NS][QT]
+  float* di_s = lse_s + NS * QT;                                // [NS][QT]
+  float* part = di_s + NS * QT;  // [2][GROUPS][ROWS][QT]: partial s^T, then dp^T (GROUPS > 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -1128,7 +1208,7 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
 
   bool live = mb == nullptr;
-  for (int t = 0; !live && t < ROWS / VR_TILE; ++t) live = tile_live(mb + n0, t);
+  for (int t = 0; !live && t < ROWS / 16; ++t) live = tile_live<16>(mb + n0, t);
   if (!live) {  // every key masked: dk = dv = 0
     for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
       const long long at = (long long)(n0 + i / (D / 8)) * o_ss + (i % (D / 8)) * 8;
@@ -1143,23 +1223,29 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
   const float* wl = ws_lse + ((long long)b * H + h) * Sq;
   const float* wd = ws_di + ((long long)b * H + h) * Sq;
   const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
+  // one group: a warp whose 16 keys are all masked forms no product and writes zeros
+  const bool warp_live = GROUPS > 1 || mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
   const int n_tiles = (Sq + QT - 1) / QT;
 
   auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
-    const int slot = t & 1;
+    const int slot = t % NS;
     stage_bf16_rows<D, QT, THREADS>(qs + slot * QT * LD, qb, q_ss, t * QT, Sq);
     stage_bf16_rows<D, QT, THREADS>(dos + slot * QT * LD, dob, do_ss, t * QT, Sq);
-    const int i = threadIdx.x, r = t * QT + i % QT;
-    if (i < QT)
-      lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
-    else if (i < 2 * QT)
-      di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+    for (int i = threadIdx.x; i < 2 * QT; i += THREADS) {
+      const int r = t * QT + i % QT;
+      if (i < QT)
+        lse_s[slot * QT + i] = r < Sq ? wl[r] : INFINITY;
+      else
+        di_s[slot * QT + i - QT] = r < Sq ? wd[r] : 0.f;
+    }
   };
 
   stage_bf16_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
   stage_bf16_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
-  stage(0);
-  cp_async_commit();
+  for (int t = 0; t < NS - 1; ++t) {  // a group each, empty or not, so that the waits below count right
+    if (t < n_tiles) stage(t);
+    cp_async_commit();
+  }
 
   float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
 #pragma unroll
@@ -1168,15 +1254,11 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
     for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      stage(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    if (t + NS - 1 < n_tiles) stage(t + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // query tile t has landed
     __syncthreads();
-    const int slot = t & 1;
+    const int slot = t % NS;
     const bf16* qt = qs + slot * QT * LD;
     const bf16* dot = dos + slot * QT * LD;
     const float* lt = lse_s + slot * QT;
@@ -1184,26 +1266,32 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
 
     // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
     float p[QT / 8][4], dp[QT / 8][4];
-    rows_dot_bf16<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
-    rows_dot_bf16<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
-    put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
-    put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
-    __syncthreads();
-    sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
-    sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+    if (warp_live) {
+      rows_dot_bf16<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
+      rows_dot_bf16<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
+    }
+    if constexpr (GROUPS > 1) {
+      put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
+      put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
+      __syncthreads();
+      sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
+      sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
+    }
+    if (warp_live) {
 #pragma unroll
-    for (int nt = 0; nt < QT / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
-        p[nt][e] = expf(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
-      }
-    scores_times_tile_bf16<DO, QT, LD>(dv_acc, p, dot + col0, lane);  // dv += round(p^T).dO
+        for (int e = 0; e < 4; ++e) {
+          const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+          p[nt][e] = bf16_exp<D>(x - lt[nt * 8 + 2 * t4 + (e & 1)]);
+        }
+      scores_times_tile_bf16<DO, QT, LD>(dv_acc, p, dot + col0, lane);  // dv += round(p^T).dO
 #pragma unroll
-    for (int nt = 0; nt < QT / 8; ++nt)
+      for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
-    scores_times_tile_bf16<DO, QT, LD>(dk_acc, dp, qt + col0, lane);  // dk += round(ds^T).Q
+        for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - dt[nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+      scores_times_tile_bf16<DO, QT, LD>(dk_acc, dp, qt + col0, lane);  // dk += round(ds^T).Q
+    }
     __syncthreads();  // the slot and the partial tiles are written again next iteration
   }
 
@@ -1214,14 +1302,14 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
 
 template <int D>
 __host__ __device__ constexpr size_t vr_bf16_dq_smem_bytes() {
-  return 2 * ldb<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_BF16_TILE) +
-         sizeof(float) * 2 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE;
+  return 2 * ldb<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
+         sizeof(float) * vr_part_floats<D>(vr_bf16_tile<D>());
 }
 
 template <int D>
 __host__ __device__ constexpr size_t vr_bf16_dkv_smem_bytes() {
-  return 2 * ldb<D>() * (2 * vr_rows<D>() + 2 * 2 * VR_BF16_TILE) +
-         sizeof(float) * (2 * 2 * VR_BF16_TILE + 2 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE);
+  return 2 * ldb<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
+         sizeof(float) * (VR_SLOTS * 2 * vr_bf16_tile<D>() + vr_part_floats<D>(vr_bf16_tile<D>()));
 }
 
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
@@ -1293,8 +1381,8 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the fp32 dq kernel, then the dk/dv kernel, at D = 192-512; a.ws holds
-// lse, then di, rows (b, h) Sq apart
+// the fp32 dq kernel, then the dk/dv kernel, built around the valid rows (D
+// = 64, 192-512); a.ws holds lse, then di, rows (b, h) Sq apart
 template <int D>
 cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   static bool configured[2][MAX_DEVICES] = {};
@@ -1308,8 +1396,9 @@ cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   float* ws_lse = a.ws;
   float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
   constexpr int ROWS = vr_rows<D>();
-  mha_bwd_dq_tf32x3_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(), vr_dq_smem_bytes<D>(),
-                               stream>>>(
+  const size_t dq_smem = vr_dq_smem_bytes<D>() + vr_live_bytes(a.Skv, vr_tile<D>());
+  if (dq_smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  mha_bwd_dq_tf32x3_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(), dq_smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const float*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<float*>(a.dq), a.Sq, a.Skv, a.H,
       a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
@@ -1322,8 +1411,8 @@ cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the bf16 dq kernel, then the dk/dv kernel, at D = 192-512; a.ws holds
-// lse, then di, rows (b, h) Sq apart
+// the bf16 dq kernel, then the dk/dv kernel, built around the valid rows (D
+// = 64, 192-512); a.ws holds lse, then di, rows (b, h) Sq apart
 template <int D>
 cudaError_t launch_bf16_valid(const Args& a, cudaStream_t stream) {
   static bool configured[2][MAX_DEVICES] = {};
@@ -1337,8 +1426,9 @@ cudaError_t launch_bf16_valid(const Args& a, cudaStream_t stream) {
   float* ws_lse = a.ws;
   float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
   constexpr int ROWS = vr_rows<D>();
-  mha_bwd_dq_bf16_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(),
-                             vr_bf16_dq_smem_bytes<D>(), stream>>>(
+  const size_t dq_smem = vr_bf16_dq_smem_bytes<D>() + vr_live_bytes(a.Skv, vr_bf16_tile<D>());
+  if (dq_smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  mha_bwd_dq_bf16_valid<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_threads<D>(), dq_smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const bf16*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
       a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
@@ -1383,24 +1473,30 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
 
 // q/do: [B, Sq, H, D], k/v: [B, Skv, H, D], each with unit stride over D,
 // stride D over heads and the given batch/row strides (in elements; 16-byte
-// aligned rows); Sq, Skv multiples of 64 (at D = 192-512: any Sq, the
-// unpadded query rows); D in {16, 32, 64, 128, 192, 256, 384, 512}; dtype 0 =
-// fp32, 1 = bf16; mask: int32 [B, Skv] (nonzero = attend) or null; lse:
-// contiguous fp32 [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B *
-// H * Sq (bf16 at D = 64, 128: lse * log2 e, then di, rows (b, h) Sq apart;
-// fp32, and bf16 at D = 192-512: lse, then di, rows (b, h) Sq apart; bf16 at D = 16, 32: di [B, Sq,
-// H] in its first B * Sq * H). fp32 keeps p and dp in shared memory between
-// the dq kernel's passes where f32_keeps. dq/dk/dv: contiguous, in the input
-// dtype. Launches on `stream` of the current device.
+// aligned rows); Skv a multiple of 64; D in {16, 32, 64, 128, 192, 256, 384,
+// 512}; dtype 0 = fp32, 1 = bf16; valid_rows 1: the instances built around
+// the valid rows (any Sq, the unpadded query rows; the only ones at D =
+// 192-512, beside the padded ones at D = 64: the caller picks them by shape,
+// ops/fused_mha.py::takes_valid_rows), 0: the padded ones (Sq a multiple of
+// 64); mask: int32 [B, Skv] (nonzero = attend) or null; lse: contiguous fp32
+// [B, Sq, H] from the forward; ws: fp32 workspace of 2 * B * H * Sq (the
+// padded bf16 instances at D = 64, 128: lse * log2 e, then di, rows (b, h)
+// Sq apart; fp32, and the valid-rows bf16 ones: lse, then di, rows (b, h) Sq
+// apart; bf16 at D = 16, 32: di [B, Sq, H] in its first B * Sq * H). fp32
+// keeps p and dp in shared memory between the padded dq kernel's passes where
+// f32_keeps. dq/dk/dv: contiguous, in the input dtype. Launches on `stream`
+// of the current device.
 extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* mask, const void* lse, void* ws, void* dq, void* dk,
                              void* dv, int B, int Sq, int Skv, int H, int D, long long q_sb,
                              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                              long long v_ss, long long do_sb, long long do_ss, float sm_scale,
-                             int dtype, void* stream) {
-  // the instances at D = 192-512 take the unpadded query rows
-  const bool any_rows = valid_rows_instance(D);
-  if (Sq < 1 || Skv < 1 || (!any_rows && Sq % BLOCK != 0) || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1))
+                             int dtype, int valid_rows, void* stream) {
+  // the valid-rows instances take the unpadded query rows
+  const bool any_rows = valid_rows != 0;
+  if (Sq < 1 || Skv < 1 || (!any_rows && Sq % BLOCK != 0) || Skv % BLOCK != 0 || (dtype != 0 && dtype != 1) ||
+      (valid_rows != 0 && valid_rows != 1) || (any_rows && !has_valid_rows_instance(D)) ||
+      (!any_rows && valid_rows_instance(D)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, nullptr, dout, static_cast<const int*>(mask), static_cast<const float*>(lse),
                static_cast<float*>(ws), nullptr, dq, dk, dv, B, Sq, Skv, H, Sq,
@@ -1410,7 +1506,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
   switch (D) {
     case 16: err = launch<16>(dtype, a, s); break;
     case 32: err = launch<32>(dtype, a, s); break;
-    case 64: err = launch<64>(dtype, a, s); break;
+    case 64:
+      err = !any_rows ? launch<64>(dtype, a, s) : dtype == 0 ? launch_f32_valid<64>(a, s) : launch_bf16_valid<64>(a, s);
+      break;
     case 128: err = launch<128>(dtype, a, s); break;
     case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : launch_bf16_valid<192>(a, s); break;
     case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : launch_bf16_valid<256>(a, s); break;
@@ -1424,7 +1522,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
 // [Sq x Skv x D] products the fp32 backward runs at head dim D and Skv keys,
 // by the rule its launch follows: the dq kernel's s and dp, then dq (and s and
 // dp again unless f32_keeps), and the dk/dv kernel's s, dv, dp and dk; 0 for
-// another D
+// another D. At D <= 128 the padded instances' (the valid-rows instance at D
+// = 64 runs 5 + 4 over the live key tiles, as at 192-512, or 3 + 4 where its
+// dq kernel keeps p and dp, vr_dq_keep)
 extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
   switch (D) {
     case 16: return (f32_keeps<16>(Skv) ? 3 : 5) + 4;
@@ -1464,6 +1564,23 @@ extern "C" int fused_mha_bwd_bf16_tiles(int D, int what) {
     case 512: return what == 0 ? VR_BF16_TILE : vr_groups<512>();
     default: return 0;
   }
+}
+
+// the instances of K2 built around the valid rows at head dim D in dtype (0
+// fp32, 1 bf16), by the rules their launch follows: keys (dq kernel) or
+// queries (dk/dv kernel) of a ring slot (what = 0), column groups of warps
+// (what = 1), rows a CTA (what = 3); 0 where D has no such instance (and for
+// what = 2, which the forward's export uses for its kept tiles).
+// ops/fused_mha.py (f32_keys and bf16_keys with valid_rows, f32_groups)
+// mirrors them.
+extern "C" int fused_mha_bwd_valid_tiles(int D, int dtype, int what) {
+#define K2_TILES_ANY(DD)                                                                                \
+  if (D == DD)                                                                                          \
+    return what == 0 ? (dtype == 1 ? vr_bf16_tile<DD>() : vr_tile<DD>()) : what == 1 ? vr_groups<DD>()  \
+         : what == 2 ? 0 : vr_rows<DD>();
+  K2_TILES_ANY(64) K2_TILES_ANY(192) K2_TILES_ANY(256) K2_TILES_ANY(384) K2_TILES_ANY(512)
+#undef K2_TILES_ANY
+  return 0;
 }
 
 extern "C" const char* dl_cuda_error_string(int err) {

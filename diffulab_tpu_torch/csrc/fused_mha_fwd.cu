@@ -53,7 +53,9 @@
 // [S x S x D], not the three of a two-pass softmax. At the UNets' head dims
 // 192-512, mha_fwd_tf32x3_valid<D> (fp32) and mha_fwd_bf16_valid<D> (bf16,
 // mma.sync m16n8k16 in two passes over the live key tiles) are built around
-// the valid rows.
+// the valid rows; at D = 64 the same instances take the padded short
+// sequences (64, 72 or 264 tokens), which the caller picks by shape
+// (valid_rows = 1), and the padded ones keep the rest.
 //
 // Plain C interface (bound with ctypes): fused_mha_fwd returns
 // cudaGetLastError() after the launch. ops/fused_mha.py::forward_instance
@@ -65,7 +67,7 @@
 
 #include "hopper.cuh"  // mbarriers, TMA, wgmma and the tensor-map encoder
 #include "tf32x3.cuh"  // the fp32 instance's 3xTF32 mma.sync fragments
-#include "bf16_valid.cuh"  // the bf16 instances' mma.sync fragments at D = 192-512
+#include "bf16_valid.cuh"  // the bf16 valid-rows instances' mma.sync fragments (D = 64, 192-512)
 
 namespace {
 
@@ -654,19 +656,33 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
 // online max it leaves (MASK_VALUE) is dropped by alpha = exp(MASK_VALUE - m)
 // = 0. A batch row with no live tile writes o = 0, lse = +inf without loading
 // Q. 52-104 KB of shared memory: 2 CTAs an SM, 4 at D = 192.
+//
+// At D = 64 the same instance serves the DiTs' short sequences that the fused
+// route pads (64 or 72 tokens to 128 keys, 264 to 384), where the padded
+// instance ran 128 query rows of which half or more were padding and every
+// key tile, masked or not (PERF.md §6): at slice F1's deep path (B=128, 64
+// tokens, H=8) a call must move 67 MB over the valid rows and keys, 0.020 ms
+// at 3.35 TB/s, against 1.07 GFLOP (0.0065 ms at 3xTF32): bound by bytes.
+// One group of warps holds the whole head, so a warp's scores never leave its
+// registers and its rows' split Q fragments stay there for every key tile;
+// 64 rows a CTA, key tiles of vr_tile = 32 keys, the CTA's live key tiles
+// listed once (find_live_tiles); 52 KB of shared memory.
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                      const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
                      int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                      long long v_ss, float sm_scale) {
-  constexpr int KT = VR_TILE, DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
-  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
+  constexpr int KT = vr_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>(), LD = ld<D>();
+  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), NS = VR_SLOTS;
+  // one group (D = 64): no partial tiles, and Q's split fragments stay in registers for every key tile
+  constexpr bool QREG = GROUPS == 1;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [ROWS][LD]
-  float* ks = qs + ROWS * LD;      // [2][KT][LD]
-  float* vs = ks + 2 * KT * LD;    // [2][KT][LD]
-  float* part = vs + 2 * KT * LD;  // [GROUPS][ROWS][KT]: the groups' partial scores
+  float* qs = smem;                 // [ROWS][LD]
+  float* ks = qs + ROWS * LD;       // [NS][KT][LD]
+  float* vs = ks + NS * KT * LD;    // [NS][KT][LD]
+  float* part = vs + NS * KT * LD;  // [GROUPS][ROWS][KT]: the groups' partial scores (GROUPS > 1)
+  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? GROUPS * ROWS * KT : 0));  // [Skv / KT + 1]: live tiles
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -677,14 +693,18 @@ mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, c
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
   const int n_tiles = Skv / KT;
 
-  auto stage = [&](int tile, int slot) {
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles];
+  // the load sequence: the live tiles in order, NS - 1 of them loading while one is computed
+  auto stage = [&](int j) {
+    const int tile = live[j], slot = j % NS;
     stage_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT);
     stage_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT);
   };
-  int cur = next_live(mb, 0, n_tiles);
-  if (cur < n_tiles) {
-    stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
-    stage(cur, 0);
+  if (n_live > 0) stage_rows_upto<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+  for (int j = 0; j < NS - 1; ++j) {  // a group each, empty or not, so that the waits below count right
+    if (j < n_live) stage(j);
     cp_async_commit();
   }
 
@@ -692,25 +712,31 @@ mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, c
 #pragma unroll
   for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad at the end
+  uint32_t qh[QREG ? D / 8 : 1][4], ql[QREG ? D / 8 : 1][4];
 
-  for (int i = 0; cur < n_tiles; ++i) {
-    const int slot = i & 1, nxt = next_live(mb, cur + 1, n_tiles);
-    if (nxt < n_tiles) {
-      stage(nxt, slot ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int i = 0; i < n_live; ++i) {
+    if (i + NS - 1 < n_live) stage(i + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // live tile i has landed
     __syncthreads();
+    const int slot = i % NS, cur = live[i];
     float s[KT / 8][4];
-    if (active) {  // this group's columns of D
-      rows_dot<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
-      put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+    if constexpr (QREG) {
+      if (active) {
+        if (i == 0)
+#pragma unroll
+          for (int kk = 0; kk < D / 8; ++kk) frag_a<D>(qh[kk], ql[kk], qs, r0, kk, g, t4);
+        rows_dot<D, KT>(s, qh, ql, ks + slot * KT * LD, g, t4);
+      }
+    } else {
+      if (active) {  // this group's columns of D
+        rows_dot<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+        put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+      }
+      __syncthreads();
+      if (active) sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);  // the whole of D, in group order
     }
-    __syncthreads();
     if (active) {
-      sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);  // the whole of D, in group order
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int nt = 0; nt < KT / 8; ++nt) {
@@ -747,8 +773,7 @@ mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, c
         }
       scores_times_tile<DO, KT, LD>(acc, s, vs + slot * KT * LD + col0, g, t4);
     }
-    __syncthreads();  // the slot and the partial tiles are written again next iteration
-    cur = nxt;
+    __syncthreads();  // the slot and the partial tiles are written again
   }
 
   // o = acc / l; a row without an attended key (m still -inf or MASK_VALUE) gives o = 0, lse = +inf
@@ -772,9 +797,20 @@ mha_fwd_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ k, c
   }
 }
 
+// the partial score tiles of the column groups; none with one group
+template <int D>
+__host__ __device__ constexpr int vr_part_floats(int tile) {
+  return vr_groups<D>() > 1 ? vr_groups<D>() * vr_rows<D>() * tile : 0;
+}
+
 template <int D>
 __host__ __device__ constexpr int vr_fwd_smem_bytes() {
-  return 4 * (ld<D>() * (vr_rows<D>() + 2 * 2 * VR_TILE) + vr_groups<D>() * vr_rows<D>() * VR_TILE);
+  return 4 * (ld<D>() * (vr_rows<D>() + VR_SLOTS * 2 * vr_tile<D>()) + vr_part_floats<D>(vr_tile<D>()));
+}
+
+// the ints after the tiles: the live key tiles of kt keys and their count
+inline int vr_live_bytes(int skv, int kt) {
+  return 4 * (skv / kt + 1);
 }
 
 // The bf16 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the same head
@@ -794,20 +830,27 @@ __host__ __device__ constexpr int vr_fwd_smem_bytes() {
 // each warp keeps its rows' pass-1 scores in registers and pass 2 loads no K;
 // above that (FUSED_MAX_SEQ allows 512 keys) pass 2 brings K again and forms
 // the scores anew, bit for bit the same. A batch row with no live tile writes
-// o = 0, lse = +inf without loading Q. 42-87 KB of shared memory.
+// o = 0, lse = +inf without loading Q. 42-87 KB of shared memory. At D = 64
+// (the DiTs' padded short sequences, as the fp32 instance's note says) one
+// group holds the head, the scores stay in each warp's registers, key tiles
+// hold vr_bf16_tile = 64 keys, one live tile (a 64-token row) is kept
+// between the passes (vr_bf16_keep), and p is exponentiated by __expf and
+// multiplied by 1 / l (bf16_exp); 46 KB of shared memory.
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                    const int* __restrict__ mask, bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
                    long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                    float sm_scale) {
-  constexpr int KT = VR_BF16_TILE, KEEP = VR_BF16_KEEP, DO = vr_cols<D>(), ROWS = vr_rows<D>();
+  constexpr int KT = vr_bf16_tile<D>(), KEEP = vr_bf16_keep<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>();
   constexpr int THREADS = vr_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
+  constexpr int NS = VR_SLOTS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [ROWS][LD]
-  bf16* ks = qs + ROWS * LD;                          // [2][KT][LD]
-  bf16* vs = ks + 2 * KT * LD;                        // [2][KT][LD]
-  float* part = reinterpret_cast<float*>(vs + 2 * KT * LD);  // [GROUPS][ROWS][KT]: the groups' partial scores
+  bf16* ks = qs + ROWS * LD;                          // [NS][KT][LD]
+  bf16* vs = ks + NS * KT * LD;                       // [NS][KT][LD]
+  float* part = reinterpret_cast<float*>(vs + NS * KT * LD);  // [GROUPS][ROWS][KT]: partial scores (GROUPS > 1)
+  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? GROUPS * ROWS * KT : 0));  // [Skv / KT + 1]: live tiles
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -817,19 +860,21 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
   const bf16* vb = v + b * v_sb + h * D;
   const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
   const int n_tiles = Skv / KT;
-  int n_live = 0;
-  for (int t = next_live<KT>(mb, 0, n_tiles); t < n_tiles; t = next_live<KT>(mb, t + 1, n_tiles)) ++n_live;
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_items = 2 * n_live;
   const bool kept = n_live <= KEEP;  // the same for every thread: the scores stay in registers
 
-  // the load sequence: pass 0 the live tiles' K; pass 1 their V, and K again unless kept
-  auto stage = [&](int tile, int slot, int pass) {
+  // the load sequence, item i: pass 0 (i < n_live) the live tiles' K; pass 1 their V, and K again unless kept;
+  // NS - 1 items loading while one is computed
+  auto stage = [&](int item) {
+    const int pass = item >= n_live, tile = live[item - pass * n_live], slot = item % NS;
     if (pass == 0 || !kept) stage_bf16_rows<D, KT, THREADS>(ks + slot * KT * LD, kb, k_ss, tile * KT, Skv);
     if (pass == 1) stage_bf16_rows<D, KT, THREADS>(vs + slot * KT * LD, vb, v_ss, tile * KT, Skv);
   };
-  int pass = 0, cur = next_live<KT>(mb, 0, n_tiles);
-  if (cur < n_tiles) {
-    stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
-    stage(cur, 0, 0);
+  if (n_live > 0) stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+  for (int item = 0; item < NS - 1; ++item) {  // a group each, empty or not, so that the waits below count right
+    if (item < n_items) stage(item);
     cp_async_commit();
   }
 
@@ -837,33 +882,24 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 #pragma unroll
   for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad after pass 0
+  float inv_l[2] = {0.f, 0.f};
 
-  for (int i = 0, j = 0; cur < n_tiles; ++i) {  // j: the live tile's place in its pass
-    const int slot = i & 1;
-    int next_pass = pass, nxt = next_live<KT>(mb, cur + 1, n_tiles);
-    if (nxt == n_tiles && pass == 0) {
-      next_pass = 1;
-      nxt = next_live<KT>(mb, 0, n_tiles);
-    }
-    if (nxt < n_tiles) {
-      stage(nxt, slot ^ 1, next_pass);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+  for (int i = 0; i < n_items; ++i) {
+    if (i + NS - 1 < n_items) stage(i + NS - 1);
+    cp_async_commit();
+    cp_async_wait<NS - 1>();  // item i has landed
     __syncthreads();
+    // j: the live tile's place in its pass
+    const int pass = i >= n_live, j = i - pass * n_live, slot = i % NS, cur = live[j];
     float s[KT / 8][4];
     if (pass == 0 || !kept) {  // the whole row's scores of this tile, over every group's columns of D
-      if (active) {
-        rows_dot_bf16<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
-        put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+      if (active) rows_dot_bf16<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
+      if constexpr (GROUPS > 1) {
+        if (active) put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
+        __syncthreads();
+        if (active) sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);
       }
-      __syncthreads();
-      if (active) {
-        sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);
-        scale_and_mask_c<KT>(s, sm_scale, mb, cur * KT, t4);
-      }
+      if (active) scale_and_mask_c<KT>(s, sm_scale, mb, cur * KT, t4);
     }
     if (active) {
       if (pass == 0) {  // the row max and sum; the scores kept where they fit
@@ -876,13 +912,13 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float m_new = fmaxf(m[r], quad_max(mx[r]));
-          l[r] *= expf(m[r] - m_new);  // 0 on the first live tile (m = -inf)
+          l[r] *= bf16_exp<D>(m[r] - m_new);  // 0 on the first live tile (m = -inf)
           m[r] = m_new;
         }
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) l[e >> 1] += expf(s[nt][e] - m[e >> 1]);
+          for (int e = 0; e < 4; ++e) l[e >> 1] += bf16_exp<D>(s[nt][e] - m[e >> 1]);
 #pragma unroll
         for (int jj = 0; jj < KEEP; ++jj)
           if (kept && jj == j)
@@ -903,20 +939,22 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 #pragma unroll
         for (int nt = 0; nt < KT / 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (D == 64)  // p times 1 / l, the reciprocal once a row (bf16_exp)
+              s[nt][e] = bf16_exp<D>(s[nt][e] - m[e >> 1]) * inv_l[e >> 1];
+            else
+              s[nt][e] = expf(s[nt][e] - m[e >> 1]) / l[e >> 1];
+          }
         scores_times_tile_bf16<DO, KT, LD>(acc, s, vs + slot * KT * LD + col0, lane);
       }
     }
-    __syncthreads();  // the slot and the partial tiles are written again next iteration
-    if (pass == 0 && next_pass == 1) {  // l over the whole row, before pass 1
+    __syncthreads();  // the slot and the partial tiles are written again
+    if (i == n_live - 1) {  // l over the whole row, before pass 1
       l[0] = quad_sum(l[0]);
       l[1] = quad_sum(l[1]);
-      j = 0;
-    } else {
-      ++j;
+      inv_l[0] = 1.f / l[0];
+      inv_l[1] = 1.f / l[1];
     }
-    pass = next_pass;
-    cur = nxt;
   }
 
   // a row without an attended key (m still -inf, or MASK_VALUE) gives o = 0, lse = +inf
@@ -939,7 +977,8 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 
 template <int D>
 __host__ __device__ constexpr int vr_bf16_fwd_smem_bytes() {
-  return 2 * ldb<D>() * (vr_rows<D>() + 2 * 2 * VR_BF16_TILE) + 4 * vr_groups<D>() * vr_rows<D>() * VR_BF16_TILE;
+  return 2 * ldb<D>() * (vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
+         4 * vr_part_floats<D>(vr_bf16_tile<D>());
 }
 
 // ---- host side
@@ -1029,7 +1068,9 @@ cudaError_t launch_f32_valid(const void* q, const void* k, const void* v, const 
   const cudaError_t err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
   static_assert(vr_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K1's tiles exceed shared memory");
-  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), vr_fwd_smem_bytes<D>(), stream>>>(
+  const int smem = vr_fwd_smem_bytes<D>() + vr_live_bytes(Skv, vr_tile<D>());
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
       static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
   return cudaGetLastError();
@@ -1045,7 +1086,9 @@ cudaError_t launch_bf16_valid(const void* q, const void* k, const void* v, const
   const cudaError_t err = allow_smem(kernel, configured, device);
   if (err != cudaSuccess) return err;
   static_assert(vr_bf16_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the bf16 K1's tiles exceed shared memory");
-  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), vr_bf16_fwd_smem_bytes<D>(),
+  const int smem = vr_bf16_fwd_smem_bytes<D>() + vr_live_bytes(Skv, vr_bf16_tile<D>());
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  kernel<<<dim3((Sq + vr_rows<D>() - 1) / vr_rows<D>(), H, B), vr_threads<D>(), smem,
            stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
                      static_cast<bf16*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
   return cudaGetLastError();
@@ -1053,14 +1096,14 @@ cudaError_t launch_bf16_valid(const void* q, const void* k, const void* v, const
 
 cudaError_t run(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse, int B, int Sq,
                 int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-                long long v_ss, float sm_scale, int dtype, int resident, int chunk, int buffers, int device,
-                cudaStream_t stream) {
+                long long v_ss, float sm_scale, int dtype, int valid_rows, int resident, int chunk, int buffers,
+                int device, cudaStream_t stream) {
 #define K1_VALID(DD)                                                                                            \
-  if (D == DD)                                                                                                  \
+  if (D == DD && valid_rows)                                                                                    \
     return (dtype == 1 ? launch_bf16_valid<DD> : launch_f32_valid<DD>)(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, \
                                                                        q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale,   \
                                                                        device, stream);
-  K1_VALID(192) K1_VALID(256) K1_VALID(384) K1_VALID(512)
+  K1_VALID(64) K1_VALID(192) K1_VALID(256) K1_VALID(384) K1_VALID(512)
 #undef K1_VALID
   if (dtype == 1) {
     if (smem_bytes(D, resident != 0, Skv, buffers) > SMEM_LIMIT) return cudaErrorInvalidValue;
@@ -1081,23 +1124,27 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
 }  // namespace
 
 // q/k/v: [B, S, H, D] with unit stride over D, stride D over heads and the given
-// batch/row strides (in elements, multiples of 16 bytes); Sq, Skv multiples of
-// 64 (at D = 192-512: any Sq, the unpadded query rows); D in {16, 32, 64, 128,
-// 192, 256, 384, 512}; dtype 0 = fp32, 1 = bf16; mask: int32 [B, Skv]
-// (nonzero = attend) or null. o: contiguous [B, Sq, H, D] in the input dtype;
-// lse: contiguous fp32 [B, Sq, H]. bf16 instance at D <= 128: resident (a
+// batch/row strides (in elements, multiples of 16 bytes); Skv a multiple of
+// 64; D in {16, 32, 64, 128, 192, 256, 384, 512}; dtype 0 = fp32, 1 = bf16;
+// mask: int32 [B, Skv] (nonzero = attend) or null. valid_rows 1: the
+// instance built around the valid rows (any Sq, the unpadded query rows; the
+// only one at D = 192-512, beside the padded ones at D = 64: the caller
+// picks it by shape, ops/fused_mha.py::takes_valid_rows), 0: a padded
+// instance (Sq a multiple of 64). o: contiguous [B, Sq, H, D] in the input
+// dtype; lse: contiguous fp32 [B, Sq, H]. bf16 padded instance: resident (a
 // head's K and V in shared memory; `buffers` 1 or 2, 2 prefetching the next
 // item) with `chunk` keys a score product (Skv a multiple of it), or streamed
-// (chunk 64, buffers 2: the ring); at D = 192-512 the three are not read.
+// (chunk 64, buffers 2: the ring); with valid_rows the three are not read.
 // Launches on `stream` of `device`, which is made current for the call.
 extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
                              int B, int Sq, int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb,
-                             long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int resident,
-                             int chunk, int buffers, int device, void* stream) {
-  // the instances at D = 192-512 take the unpadded query rows, and the bf16 one no instance choice
-  const bool any_rows = valid_rows_instance(D);
+                             long long k_ss, long long v_sb, long long v_ss, float sm_scale, int dtype, int valid_rows,
+                             int resident, int chunk, int buffers, int device, void* stream) {
+  // the valid-rows instances take the unpadded query rows, and the bf16 one no instance choice
+  const bool any_rows = valid_rows != 0;
   if (Sq < 1 || (!any_rows && Sq % BLOCK_M != 0) || Skv < 1 || Skv % TMA_ROWS != 0 || (dtype != 0 && dtype != 1) ||
-      device < 0 || device >= MAX_DEVICES)
+      (valid_rows != 0 && valid_rows != 1) || (any_rows && !has_valid_rows_instance(D)) ||
+      (!any_rows && valid_rows_instance(D)) || device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && !any_rows && (buffers < 1 || buffers > 2 || chunk < 64 || Skv % chunk != 0 ||
                      (!resident && (chunk != STREAM_CHUNK || buffers != 2))))
@@ -1107,7 +1154,8 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
   if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = run(q, k, v, static_cast<const int*>(mask), o, static_cast<float*>(lse), B, Sq, Skv, H, D, q_sb, q_ss, k_sb,
-            k_ss, v_sb, v_ss, sm_scale, dtype, resident, chunk, buffers, device, static_cast<cudaStream_t>(stream));
+            k_ss, v_sb, v_ss, sm_scale, dtype, valid_rows, resident, chunk, buffers, device,
+            static_cast<cudaStream_t>(stream));
   if (previous != device) cudaSetDevice(previous);
   return static_cast<int>(err);
 }
@@ -1137,6 +1185,22 @@ extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
   if (D == DD) return what == 0 ? VR_BF16_TILE : what == 1 ? vr_groups<DD>() : VR_BF16_KEEP;
   K1_TILES_BF16(192) K1_TILES_BF16(256) K1_TILES_BF16(384) K1_TILES_BF16(512)
 #undef K1_TILES_BF16
+  return 0;
+}
+
+// the instance of K1 built around the valid rows at head dim D in dtype (0
+// fp32, 1 bf16), by the rules its launch follows: keys of a ring slot (what =
+// 0), column groups of warps (what = 1), live key tiles whose scores stay in
+// registers between the passes (what = 2; bf16 alone), query rows a CTA (what
+// = 3); 0 where D has no such instance. ops/fused_mha.py (f32_keys and
+// bf16_keys with valid_rows, f32_groups, bf16_kept_tiles) mirrors them.
+extern "C" int fused_mha_fwd_valid_tiles(int D, int dtype, int what) {
+#define K1_TILES_ANY(DD)                                                                           \
+  if (D == DD)                                                                                     \
+    return what == 0 ? (dtype == 1 ? vr_bf16_tile<DD>() : vr_tile<DD>()) : what == 1 ? vr_groups<DD>() \
+         : what == 2 ? (dtype == 1 ? vr_bf16_keep<DD>() : 0) : vr_rows<DD>();
+  K1_TILES_ANY(64) K1_TILES_ANY(192) K1_TILES_ANY(256) K1_TILES_ANY(384) K1_TILES_ANY(512)
+#undef K1_TILES_ANY
   return 0;
 }
 

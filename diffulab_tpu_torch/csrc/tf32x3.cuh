@@ -119,25 +119,52 @@ __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, lo
   }
 }
 
-// ---- the instances built around the valid rows (head dims 192-512)
+// ---- the instances built around the valid rows (head dims 64 and 192-512)
 //
 // The ADM UNets attend over 64 tokens at D = 192 and 256 and over 16 at D =
-// 384 and 512, padded to 128 keys. These instances take the unpadded query
-// rows (ragged ends guarded), skip every key tile whose mask is all 0 (found
-// from the mask by each thread, so that no barrier is needed), and split the
-// head into column groups of warps of vr_cols output columns, which also
-// split the score products' reduction over D: the partial tiles are added in
-// group order in shared memory (put_c, sum_c).
+// 384 and 512, padded to 128 keys; at D = 64 the DiTs' short sequences (64,
+// 72 or 264 tokens) are padded to 128 or 384 keys. These instances take the
+// unpadded query rows (ragged ends guarded), skip every key tile whose mask
+// is all 0 (the CTA's first warp lists the live ones, find_live_tiles), and
+// split the head into column groups of warps of vr_cols output
+// columns, which also split the score products' reduction over D: the
+// partial tiles are added in group order in shared memory (put_c, sum_c).
+// At D = 64 one group holds the whole head: no partial tiles, each warp's
+// scores stay in its registers.
 
-// the head dims built so, the one place that names them: both entry points'
-// Sq rule and the bwd library's group rule read it, the fwd library exports it
+// the head dims where these are the only instances, the one place that names
+// them: both entry points' rules read it, the fwd library exports it
 // (fused_mha_fwd_f32_tiles(D, 2)), and chip_smoke.py holds
 // ops/fused_mha.py's VALID_ROWS_HEAD_DIMS to that export
 __host__ __device__ constexpr bool valid_rows_instance(int D) {
   return D == 192 || D == 256 || D == 384 || D == 512;
 }
 
-constexpr int VR_TILE = 8;  // keys (K1, K2's dq kernel) or queries (the dk/dv kernel) of a ring slot
+// the head dims with an instance built around the valid rows: those, and 64,
+// where it stands beside the padded instances and the caller picks it by
+// shape (ops/fused_mha.py::takes_valid_rows)
+__host__ __device__ constexpr bool has_valid_rows_instance(int D) {
+  return D == 64 || valid_rows_instance(D);
+}
+
+constexpr int VR_TILE = 8;  // keys (K1, K2's dq kernel) or queries (the dk/dv kernel) of a ring slot, fp32
+
+// the fp32 ring slot at head dim D: VR_TILE at 192-512, 32 at 64, where a
+// slot's 3xTF32 products over D are short and a slot of few keys leaves
+// each slot's load latency and barriers exposed (bf16_valid.cuh,
+// vr_bf16_tile); a slot of K and V takes 17 KB
+template <int D>
+__host__ __device__ constexpr int vr_tile() {
+  return D == 64 ? 32 : VR_TILE;
+}
+
+// slots of the instances' rings, VR_SLOTS - 1 of them loading while one is
+// computed. At D = 64 three slots moved the fp32 instances by 3% or less
+// either way (the fp32 K2 at G1's request, B=32, 64 of 128 keys, H=12:
+// 0.0651 ms against 0.0638) and took the bf16 K2 at G1's training shape from
+// 0.1022 ms to 0.0965, at 35 KB more shared memory a CTA
+// (scripts/d64_valid_variants.py, slots3; NVIDIA H100 80GB HBM3, 700 W)
+constexpr int VR_SLOTS = 2;
 
 // This rule and vr_cols at D = 192 and 384 were picked by timing chip_smoke.py
 // phase 17a with them varied (B=128 and 32, H=2; NVIDIA H100 80GB HBM3, 700
@@ -147,7 +174,11 @@ constexpr int VR_TILE = 8;  // keys (K1, K2's dq kernel) or queries (the dk/dv k
 // D = 256 and 16 at D = 384 and 512, so that one CTA holds a head's valid
 // rows at the UNets' token counts (64 and 16); 32 at D = 192, where two CTAs
 // for a head's 64 rows took K2 0.1780 ms against 0.1966-0.1988 with one, and
-// K1 at B=32 0.0226 against 0.0263. Any Sq runs, its last tile ragged.
+// K1 at B=32 0.0226 against 0.0263. 64 at D = 64: a 64-token row in one
+// CTA of four warps, which share each live key tile it loads; 32 rows a CTA
+// took the fp32 K1 / K2 at slice F1's deep path (B=128, 64 of 128 keys, H=8)
+// 0.0512 / 0.1439 ms against 0.0462 / 0.1338 (scripts/d64_valid_variants.py,
+// rows32; NVIDIA H100 80GB HBM3, 700 W). Any Sq runs, its last tile ragged.
 template <int D>
 __host__ __device__ constexpr int vr_rows() {
   return D == 192 ? 32 : D <= 256 ? 64 : 16;
@@ -156,10 +187,11 @@ __host__ __device__ constexpr int vr_rows() {
 // output columns of a column group of warps: 96 at D = 192 (2 groups, 48
 // accumulators a thread in K1, 96 in the dk/dv kernel; 64-column groups took
 // K1 0.0573 ms against 0.0420), 64 at D = 384 (6 groups: K1 0.0173 ms, 0.0194
-// with 128 columns), else 128 (2 and 4 groups at D = 256 and 512)
+// with 128 columns), the whole head at D = 64 (32 accumulators a thread in
+// K1), else 128 (2 and 4 groups at D = 256 and 512)
 template <int D>
 __host__ __device__ constexpr int vr_cols() {
-  return D == 192 ? 96 : D == 384 ? 64 : 128;
+  return D == 192 ? 96 : D == 384 ? 64 : D == 64 ? 64 : 128;
 }
 
 template <int D>
@@ -173,7 +205,7 @@ __host__ __device__ constexpr int vr_threads() {
   return 32 * (vr_rows<D>() / 16) * vr_groups<D>();
 }
 
-// whether key tile t (KT keys: VR_TILE, or VR_BF16_TILE in the bf16 instances) of a mask row has an attended key
+// whether key tile t (KT keys: vr_tile, or vr_bf16_tile in the bf16 instances) of a mask row has an attended key
 template <int KT = VR_TILE>
 __device__ __forceinline__ bool tile_live(const int* mrow, int t) {
   int any = 0;
@@ -185,12 +217,37 @@ __device__ __forceinline__ bool tile_live(const int* mrow, int t) {
   return any != 0;
 }
 
-// the first live key tile at or after t, n_tiles if none; every tile is live without a mask
-template <int KT = VR_TILE>
-__device__ __forceinline__ int next_live(const int* mrow, int t, int n_tiles) {
-  if (mrow == nullptr) return t;
-  while (t < n_tiles && !tile_live<KT>(mrow, t)) ++t;
-  return t;
+// live key tiles whose p and dp the fp32 K2's dq kernel keeps in registers
+// between its passes at head dim D, their K left in the ring's slots (so at
+// most VR_SLOTS): at D = 64 two tiles of 32 keys (64 values a thread), a
+// 64-token row, whose pass 2 then loads nothing and forms no s or dp; none
+// elsewhere. It took the fp32 K2 at slice F1's deep path (B=128, 64 of 128
+// keys, H=8) from 0.1488 ms to 0.1338, the embedder's from 0.0480 to 0.0413
+// (scripts/d64_valid_variants.py, dq_nokeep; NVIDIA H100 80GB HBM3, 700 W).
+// The bf16 dq kernel keeps none: a 64-key tile's p and dp, 64 values a
+// thread, would cost it a CTA an SM.
+template <int D>
+__host__ __device__ constexpr int vr_dq_keep() {
+  return D == 64 ? 2 : 0;
+}
+
+// the live key tiles (KT keys) of the mask row `mrow`, in order, into
+// list[0, n) and their count n into list[n_tiles], by the CTA's first warp
+// (one ballot a 32 tiles); every tile without a mask. The caller
+// synchronises before reading the list.
+template <int KT>
+__device__ __forceinline__ void find_live_tiles(int* list, const int* mrow, int n_tiles) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int base = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+    const int t = t0 + lane;
+    const bool live = t < n_tiles && (mrow == nullptr || tile_live<KT>(mrow, t));
+    const unsigned bits = __ballot_sync(0xffffffffu, live);
+    if (live) list[base + __popc(bits & ((1u << lane) - 1u))] = t;
+    base += __popc(bits);
+  }
+  if (lane == 0) list[n_tiles] = base;
 }
 
 // ---- fragments from a [rows][D + 4] tile, split at the load

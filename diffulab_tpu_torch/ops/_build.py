@@ -35,14 +35,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNELS = {
     "fused_mha_fwd": (
         "csrc/fused_mha_fwd.cu",
-        {"fused_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 5 + [_P],
-         "fused_mha_fwd_f32_tiles": [_I, _I], "fused_mha_fwd_bf16_tiles": [_I, _I]},
+        {"fused_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 6 + [_P],
+         "fused_mha_fwd_f32_tiles": [_I, _I], "fused_mha_fwd_bf16_tiles": [_I, _I],
+         "fused_mha_fwd_valid_tiles": [_I, _I, _I]},
     ),
     "fused_mha_bwd": (
         "csrc/fused_mha_bwd.cu",
-        {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _P],
+        {"fused_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 8 + [ctypes.c_float, _I, _I, _P],
          "fused_mha_bwd_f32_products": [_I, _I], "fused_mha_bwd_f32_groups": [_I],
-         "fused_mha_bwd_bf16_tiles": [_I, _I]},
+         "fused_mha_bwd_bf16_tiles": [_I, _I], "fused_mha_bwd_valid_tiles": [_I, _I, _I]},
     ),
     "flash_attn_fwd": (
         "csrc/flash_attn_fwd.cu",

@@ -25,11 +25,16 @@ shard's wrapper) raises ``TypeError`` before any kernel sees it.
 
 The fused route pads sequences to :data:`MIN_BLOCK` multiples with a
 synthesized key mask and slices off padded query rows, as the reference's
-``_fused_path``; it is differentiable (backward K2). At the head dims of
-:data:`~diffulab_tpu_torch.ops.fused_mha.VALID_ROWS_HEAD_DIMS` it pads k, v
-and the mask alone: their instances take the unpadded query rows, so that
-no padded row is read, multiplied or stored (the rows are independent, so
-o is the same). The flash route pads
+``_fused_path``; it is differentiable (backward K2). Where K1/K2 run their
+instances built around the valid rows
+(:func:`~diffulab_tpu_torch.ops.fused_mha.route_takes_valid_rows`: at the
+head dims of :data:`~diffulab_tpu_torch.ops.fused_mha.VALID_ROWS_HEAD_DIMS`,
+and at head dim 64 where Sq is not a multiple of :data:`MIN_BLOCK` and is at
+most :data:`~diffulab_tpu_torch.ops.fused_mha.SHORT_ROWS_MAX_SQ` rows in the
+dtype, the crossover measured on the card) it pads k, v and the mask alone: those
+instances take the unpadded query rows, so that no padded row is read,
+multiplied or stored (the rows are independent, so o is the same), and
+skip the key tiles the padding masks. The flash route pads
 nothing: K3 masks the ragged ends itself, which is what the reference's
 padding mask does; it is differentiable too (backward K4 then K5, through
 :class:`~diffulab_tpu_torch.ops.flash_attention.FlashAttention`).
@@ -45,10 +50,10 @@ from diffulab_tpu_torch.ops.flash_attention import flash_attention
 from diffulab_tpu_torch.ops.fused_mha import (
     FUSED_HEAD_DIMS,
     MIN_BLOCK,
-    VALID_ROWS_HEAD_DIMS,
     check_head_dim,
     fused_mha,
     fused_mha_reference,
+    route_takes_valid_rows,
 )
 
 #: longest padded sequence the fused kernel takes under ``auto``; the flash
@@ -106,7 +111,7 @@ def dot_product_attention(
 def _fused_path(q, k, v, kv_mask, scale, plain: bool = False):
     b, sq, _, d = q.shape
     skv = k.shape[1]
-    sq_p = sq if d in VALID_ROWS_HEAD_DIMS else _round_up(sq, MIN_BLOCK)
+    sq_p = sq if route_takes_valid_rows(sq, d, q.dtype) else _round_up(sq, MIN_BLOCK)
     skv_p = _round_up(skv, MIN_BLOCK)
 
     if kv_mask is None and skv_p != skv:

@@ -47,6 +47,18 @@ are 3xTF32 over tiles of 8 keys; in bf16 they are ``mma.sync`` m16n8k16
 over tiles of 16 keys (:func:`bf16_keys`), and K1 keeps its rounding order
 in two passes over the live tiles, m and l first, then ``p = exp(s - m) /
 l`` rounded to bf16 before PV (:func:`fused_mha_bf16_valid_emulation`).
+At head dim 64 (:data:`SHORT_ROWS_HEAD_DIM`) the same instances stand
+beside the padded ones for the DiTs' short sequences that the fused route
+pads (64 or 72 tokens to 128 keys, 264 to 384): the kernels' wrappers take
+them wherever Sq is not a multiple of 128 (:func:`takes_valid_rows`), and
+the route hands them the unpadded rows where they are the faster
+(:func:`route_takes_valid_rows`: in fp32 at every such Sq up to the fused
+route's 512, in bf16 up to 64 rows, so G1's 64-token DiT; the padded bf16
+instances keep the hard pair's 72 and 264). There one column group holds
+the head, the CTA lists its live key tiles once in shared memory, the
+tiles are 32 (fp32) or 64 keys (bf16), the bf16 ones
+exponentiate with ``__expf``, and the fp32 dq kernel keeps a 64-token row's
+p and dp in registers between its passes.
 
 **Backward (K2)** replaces ``_mha_bwd_kernel`` (launched by
 ``_mha_backward``): from the saved q, k, v, mask and lse (o is not saved) it
@@ -110,6 +122,10 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 VALID_ROWS_HEAD_DIMS = (192, 256, 384, 512)
 #: every head dim of the fused kernels K1/K2
 FUSED_HEAD_DIMS = KERNEL_HEAD_DIMS + VALID_ROWS_HEAD_DIMS
+#: the head dim whose instances built around the valid rows stand beside the
+#: padded ones: the DiTs' short sequences that the fused route pads (64 or 72
+#: tokens to 128 keys, 264 to 384) take them (:func:`takes_valid_rows`)
+SHORT_ROWS_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: dynamic shared memory one block may use on an H100 (bytes)
 SMEM_LIMIT = 232448
@@ -164,14 +180,19 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
 F32_KEYS = 32
 
 
-def f32_keys(d: int) -> int:
+def f32_keys(d: int, valid_rows: bool = False) -> int:
     """Keys of a ring slot of the fp32 K1 at head dim ``d``, the tile of its
     online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), and 8 at
     :data:`VALID_ROWS_HEAD_DIMS` (``VR_TILE``), where K2's dq kernel takes
-    key tiles and its dk/dv kernel query tiles of the same size. This and
+    key tiles and its dk/dv kernel query tiles of the same size; with
+    ``valid_rows``, the instance built around the valid rows at
+    :data:`SHORT_ROWS_HEAD_DIM`: 32 (``vr_tile`` in the source). This and
     :func:`f32_groups` mirror the built libraries'
-    ``fused_mha_fwd_f32_tiles`` and ``fused_mha_bwd_f32_groups``, which
-    chip_smoke.py holds them to on the card."""
+    ``fused_mha_fwd_f32_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles`` and
+    ``fused_mha_bwd_f32_groups``, which chip_smoke.py holds them to on the
+    card."""
+    if valid_rows and d == SHORT_ROWS_HEAD_DIM:
+        return 32
     return 8 if d in VALID_ROWS_HEAD_DIMS else F32_KEYS
 
 
@@ -192,16 +213,62 @@ def f32_groups(d: int) -> int:
 BF16_KEPT_TILES = 4
 
 
-def bf16_keys(d: int) -> int:
+def bf16_keys(d: int, valid_rows: bool = False) -> int:
     """Keys (K1, K2's dq kernel) or queries (K2's dk/dv kernel) of a ring
     slot of the bf16 instances at head dim ``d`` where they are built around
-    the valid rows (:data:`VALID_ROWS_HEAD_DIMS`): 16, one ``mma.sync``
-    m16n8k16 reduction (``VR_BF16_TILE`` in ``csrc/bf16_valid.cuh``); 0
-    elsewhere. This, :func:`f32_groups` and :data:`BF16_KEPT_TILES` mirror
-    the built libraries' ``fused_mha_fwd_bf16_tiles`` and
-    ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on the
-    card."""
+    the valid rows: 16, one ``mma.sync`` m16n8k16 reduction, at
+    :data:`VALID_ROWS_HEAD_DIMS` (``VR_BF16_TILE`` in
+    ``csrc/bf16_valid.cuh``), and with ``valid_rows`` 64 at
+    :data:`SHORT_ROWS_HEAD_DIM` (``vr_bf16_tile``); 0 elsewhere. This,
+    :func:`f32_groups` and :func:`bf16_kept_tiles` mirror the built
+    libraries' ``fused_mha_fwd_bf16_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles``
+    and ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on
+    the card."""
+    if valid_rows and d == SHORT_ROWS_HEAD_DIM:
+        return 64
     return 16 if d in VALID_ROWS_HEAD_DIMS else 0
+
+
+def bf16_kept_tiles(d: int) -> int:
+    """Live key tiles whose scores the bf16 K1 built around the valid rows
+    keeps in registers between its two passes at head dim ``d``
+    (``vr_bf16_keep``): :data:`BF16_KEPT_TILES` at :data:`VALID_ROWS_HEAD_DIMS`,
+    1 of 64 keys at :data:`SHORT_ROWS_HEAD_DIM` (a 64-token row)."""
+    return 1 if d == SHORT_ROWS_HEAD_DIM else BF16_KEPT_TILES
+
+
+def takes_valid_rows(sq: int, d: int) -> bool:
+    """Whether K1 and K2 on ``sq`` query rows at head dim ``d`` run their
+    instances built around the valid rows (the unpadded query rows, any Sq;
+    the key tiles whose mask is all 0 skipped): always at
+    :data:`VALID_ROWS_HEAD_DIMS`, where they are the only ones; at
+    :data:`SHORT_ROWS_HEAD_DIM` where ``sq`` is not a whole number of
+    :data:`MIN_BLOCK` rows (64, 72 or 264 tokens), in both dtypes, so that
+    the fused route pads k, v and the mask alone there; else the padded
+    instances. A rule of the shape alone: the route reads it on the unpadded
+    ``sq``, the kernels' wrappers on the rows they are handed, and a padded
+    ``sq`` is a whole number of blocks, so the two agree."""
+    return d in VALID_ROWS_HEAD_DIMS or (d == SHORT_ROWS_HEAD_DIM and sq % MIN_BLOCK != 0)
+
+
+#: the most query rows at :data:`SHORT_ROWS_HEAD_DIM` that the fused route hands
+#: the instances built around the valid rows unpadded, by dtype; above it the
+#: route pads them to :data:`MIN_BLOCK` rows and the padded instances run,
+#: which are the faster there (the crossover measured by
+#: ``scripts/d64_valid_variants.py`` and ``scripts/ab_fused_mha_{fwd,bwd}.py
+#: --short``, PERF.md §6)
+SHORT_ROWS_MAX_SQ = {torch.float32: 512, torch.bfloat16: 64}
+
+
+def route_takes_valid_rows(sq: int, d: int, dtype: torch.dtype) -> bool:
+    """Whether the fused route (``ops/attention.py``) hands K1 and K2 the
+    unpadded ``sq`` query rows: where :func:`takes_valid_rows`, except at
+    :data:`SHORT_ROWS_HEAD_DIM` above :data:`SHORT_ROWS_MAX_SQ` rows in
+    ``dtype``, where it pads them so that the padded instances run. By the
+    shape and the dtype alone."""
+    if d == SHORT_ROWS_HEAD_DIM:
+        return takes_valid_rows(sq, d) and sq <= SHORT_ROWS_MAX_SQ.get(dtype, 0)
+    return takes_valid_rows(sq, d)
 
 
 def check_head_dim(d: int, route: str = "fused") -> None:
@@ -220,11 +287,15 @@ def check_head_dim(d: int, route: str = "fused") -> None:
 #: launches of the CUDA kernels by :func:`fused_mha` and :func:`fused_mha_bwd`;
 #: a ``_bf16`` key counts the launches of the bf16 instances alone, a
 #: ``_{f32,bf16}_d<D>`` key those of the instance of that dtype at a head dim
-#: of :data:`VALID_ROWS_HEAD_DIMS`, and the kernel's key counts them too (read
-#: by chip_smoke.py)
+#: of :data:`VALID_ROWS_HEAD_DIMS`, ``_valid_d64`` those of the instances
+#: built around the valid rows at :data:`SHORT_ROWS_HEAD_DIM` (and
+#: ``_valid_d64_bf16`` of the bf16 one alone), and the kernel's key counts
+#: them too (read by chip_smoke.py)
 LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_fwd_bf16": 0, "fused_mha_bwd_bf16": 0,
             **{f"fused_mha_{kind}_{dt}_d{d}": 0 for kind in ("fwd", "bwd") for dt in ("f32", "bf16")
-               for d in VALID_ROWS_HEAD_DIMS}}
+               for d in VALID_ROWS_HEAD_DIMS},
+            **{f"fused_mha_{kind}_valid_d{SHORT_ROWS_HEAD_DIM}{dt}": 0 for kind in ("fwd", "bwd")
+               for dt in ("", "_bf16")}}
 
 
 #: the same launches by ``(kernel, dtype name, Skv)``: the padded key length a
@@ -232,13 +303,18 @@ LAUNCHES = {"fused_mha_fwd": 0, "fused_mha_bwd": 0, "fused_mha_fwd_bf16": 0, "fu
 LAUNCHES_BY_KEYS: collections.Counter = collections.Counter()
 
 
-def _count(name: str, d: int, dtype: torch.dtype, skv: int) -> None:
+def _count(name: str, d: int, dtype: torch.dtype, skv: int, valid_rows: bool) -> None:
     LAUNCHES[name] += 1
     LAUNCHES_BY_KEYS[name, str(dtype).removeprefix("torch."), skv] += 1
-    if dtype == torch.bfloat16:
+    bf16 = dtype == torch.bfloat16
+    if bf16:
         LAUNCHES[f"{name}_bf16"] += 1
     if d in VALID_ROWS_HEAD_DIMS:
-        LAUNCHES[f"{name}_{'bf16' if dtype == torch.bfloat16 else 'f32'}_d{d}"] += 1
+        LAUNCHES[f"{name}_{'bf16' if bf16 else 'f32'}_d{d}"] += 1
+    elif valid_rows:
+        LAUNCHES[f"{name}_valid_d{d}"] += 1
+        if bf16:
+            LAUNCHES[f"{name}_valid_d{d}_bf16"] += 1
 
 
 def _masked_scores(s, kv_mask, sm_scale) -> torch.Tensor:
@@ -383,12 +459,13 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     products, one pass over tiles of :func:`f32_keys` keys with an online row
     max and sum (the running o rescaled), and o divided by l at the end (not
     p before PV: fp32 p is never rounded to a narrower type, so the two
-    orders differ in rounding only). At :data:`VALID_ROWS_HEAD_DIMS` the
-    scores are the sum of the column groups' products (:func:`f32_groups`),
-    and the kernels skip a key tile whose mask is all 0; that changes no
-    value (a masked p is exactly 0, and alpha = 0 drops what a masked tile
-    leaves before the first live one), so the emulation walks every tile.
-    Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    orders differ in rounding only). The instance is the one the kernels'
+    wrapper picks for the shape (:func:`takes_valid_rows`). Those built
+    around the valid rows skip a key tile whose mask is all 0; that changes
+    no value (a masked p is exactly 0, and alpha = 0 drops what a masked tile
+    leaves before the first live one), so the emulation walks every tile. At
+    :data:`VALID_ROWS_HEAD_DIMS` the scores are the sum of the column groups'
+    products (:func:`f32_groups`). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
@@ -396,7 +473,7 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     m = torch.full((b, h, sq, 1), -torch.inf)
     l = torch.zeros(b, h, sq, 1)
     acc = torch.zeros(b, h, sq, d)
-    kt = f32_keys(d)
+    kt = f32_keys(d, takes_valid_rows(sq, d))
     for n0 in range(0, kh.shape[2], kt):
         tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
         s = _masked_scores(matmul_3xtf32_grouped(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), f32_groups(d)),
@@ -421,10 +498,12 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     :func:`matmul_3xtf32`: the dq kernel's pass over the keys (``p = exp(s -
     lse)``, ``dp = do·vᵀ``, ``di = rowsum(p·dp)``), its dq = ds·k, then the
     dk/dv kernel's pᵀ = exp(k·qᵀ - lse), dv = pᵀ·do, dpᵀ = v·doᵀ, dsᵀ and dk
-    = dsᵀ·q. ``kept``: the dq kernel that keeps p and dp between its passes,
-    two warps a row each summing di and dq over one half of every 64-key
-    step, half 0's sum plus half 1's; else the one that forms s and dp again
-    for dq (the only one above D = 64). At :data:`VALID_ROWS_HEAD_DIMS` the
+    = dsᵀ·q. ``kept``: the padded dq kernel that keeps p and dp between its
+    passes, two warps a row each summing di and dq over one half of every
+    64-key step, half 0's sum plus half 1's; else one warp a row sums them
+    key tile after key tile (the instances above D = 64, and those built
+    around the valid rows at :data:`SHORT_ROWS_HEAD_DIM`, whose fp32 dq kernel
+    keeps a 64-token row's p and dp too). At :data:`VALID_ROWS_HEAD_DIMS` the
     score products are split over column groups (:func:`f32_groups`), and
     the key tiles the kernels skip add exact zeros here. Returns (dq, dk, dv,
     di [B,H,Sq])."""
@@ -483,8 +562,9 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 K1's tile math at :data:`VALID_ROWS_HEAD_DIMS` on CPU
-    tensors (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_valid``): scores over
+    """The bf16 K1's tile math at :data:`VALID_ROWS_HEAD_DIMS` and
+    :data:`SHORT_ROWS_HEAD_DIM` on CPU tensors, where it is built around the
+    valid rows (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_valid``): scores over
     tiles of :func:`bf16_keys` keys, each the sum of the column groups'
     partial products (:func:`f32_groups`) in group order; pass 1 an online
     row max m and sum l over the tiles; pass 2 the scores again, ``p = exp(s
@@ -492,12 +572,16 @@ def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tupl
     the end. The kernel skips a key tile whose mask is all 0; that changes
     no value (its p is exactly 0, and the max it leaves before the first
     live tile is dropped by ``exp(MASK_VALUE - m) = 0``), so the emulation
-    walks every tile. Returns (o [B,Sq,H,D] in q's dtype, lse [B,Sq,H])."""
+    walks every tile. At :data:`SHORT_ROWS_HEAD_DIM` the kernel's exp is
+    ``__expf`` (ex2.approx, about 2 ulp) and p is s's exp times 1 / l
+    (``bf16_exp``): the emulation's exact exp and division round p the same
+    but where a bf16 step falls between the two. Returns (o [B,Sq,H,D] in
+    q's dtype, lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
     b, h, sq, d = qh.shape
-    kt, groups = bf16_keys(d), f32_groups(d)
+    kt, groups = bf16_keys(d, valid_rows=True), f32_groups(d)
     tiles = range(0, kh.shape[2], kt)
 
     def scores(n0):
@@ -524,7 +608,8 @@ def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tupl
 
 
 def fused_mha_bwd_bf16_valid_emulation(q, k, v, kv_mask, lse, do, sm_scale=None):
-    """The bf16 K2's split at :data:`VALID_ROWS_HEAD_DIMS` on CPU tensors
+    """The bf16 K2's split at :data:`VALID_ROWS_HEAD_DIMS` and
+    :data:`SHORT_ROWS_HEAD_DIM` on CPU tensors, built around the valid rows
     (``csrc/fused_mha_bwd.cu::mha_bwd_{dq,dkv}_bf16_valid``), score products
     split over the column groups (:func:`f32_groups`): the dq kernel's pass
     over the keys (``p = exp(s - lse)``, ``dp = do·vᵀ``, ``di = rowsum(p·dp)``
@@ -570,9 +655,9 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fused_mha") -> None:
     """Raise unless q/k/v/kv_mask meet the ``route``'s kernels' device, shape
     and dtype contract: Sq and Skv nonzero multiples of :data:`KERNEL_BLOCK`
-    (of 1 on the flash route; Sq any nonzero length for the instances at
-    :data:`VALID_ROWS_HEAD_DIMS`), the head dim one :func:`check_head_dim`
-    takes."""
+    (of 1 on the flash route; Sq any nonzero length for the instances built
+    around the valid rows, :func:`takes_valid_rows`), the head dim one
+    :func:`check_head_dim` takes."""
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {device}")
@@ -586,7 +671,7 @@ def _check_cuda_inputs(q, k, v, kv_mask, route: str = "fused", name: str = "fuse
         raise ValueError(f"{name} takes bf16 or fp32 q/k/v of one dtype, got {dtype}/{k.dtype}/{v.dtype}")
     check_head_dim(d, route)
     block = 1 if route == "flash" else KERNEL_BLOCK
-    q_block = 1 if route == "fused" and d in VALID_ROWS_HEAD_DIMS else block
+    q_block = 1 if route == "fused" and takes_valid_rows(sq, d) else block
     if sq < 1 or skv < 1 or sq % q_block or skv % block:
         raise ValueError(f"Sq={sq} must be a nonzero multiple of {q_block}, Skv={skv} of {block}")
     if k.device != device or v.device != device:
@@ -618,8 +703,9 @@ def fused_mha_fwd_cuda(q, k, v, kv_mask, sm_scale: float) -> tuple[torch.Tensor,
     mask = _int_mask(kv_mask, device)  # held until the launch: o must not take its memory
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=device)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=device)
-    # the bf16 kernel's instance at D <= 128; the others take their tiles from the head dim alone
-    inst = forward_instance(skv, d) if q.dtype == torch.bfloat16 and d in KERNEL_HEAD_DIMS else None
+    valid = takes_valid_rows(sq, d)
+    # the padded bf16 kernel's instance; the others take their tiles from the head dim alone
+    inst = forward_instance(skv, d) if q.dtype == torch.bfloat16 and not valid else None
     q_sb, q_ss = q.stride()[:2]
     k_sb, k_ss = k.stride()[:2]
     v_sb, v_ss = v.stride()[:2]
@@ -627,11 +713,12 @@ def fused_mha_fwd_cuda(q, k, v, kv_mask, sm_scale: float) -> tuple[torch.Tensor,
     err = _build.load("fused_mha_fwd").fused_mha_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
         o.data_ptr(), lse.data_ptr(), b, sq, skv, h, d, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-        sm_scale, _DTYPE_CODES[q.dtype], *((inst.resident, inst.chunk, inst.buffers) if inst else (0, 0, 0)),
+        sm_scale, _DTYPE_CODES[q.dtype], int(valid),
+        *((inst.resident, inst.chunk, inst.buffers) if inst else (0, 0, 0)),
         device.index, torch.cuda.current_stream(device).cuda_stream,
     )
     _raise_on(err, "fused_mha_fwd")
-    _count("fused_mha_fwd", d, q.dtype, skv)
+    _count("fused_mha_fwd", d, q.dtype, skv, valid)
     return o, lse
 
 
@@ -653,6 +740,7 @@ def fused_mha_bwd_cuda(q, k, v, kv_mask, lse, do, sm_scale: float) -> tuple[torc
     dk = torch.empty((b, skv, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, skv, h, d), dtype=v.dtype, device=q.device)
     ws = torch.empty((2, b, h, sq), dtype=torch.float32, device=q.device)  # lse (·log2 e in bf16) and di, or di
+    valid = takes_valid_rows(sq, d)
     lib = _build.load("fused_mha_bwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
@@ -663,10 +751,10 @@ def fused_mha_bwd_cuda(q, k, v, kv_mask, lse, do, sm_scale: float) -> tuple[torc
             b, sq, skv, h, d,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             do.stride(0), do.stride(1),
-            ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], stream,
+            ctypes.c_float(sm_scale), _DTYPE_CODES[q.dtype], int(valid), stream,
         )
     _raise_on(err, "fused_mha_bwd")
-    _count("fused_mha_bwd", d, q.dtype, skv)
+    _count("fused_mha_bwd", d, q.dtype, skv, valid)
     return dq, dk, dv
 
 
@@ -767,8 +855,10 @@ def fused_mha(
     Returns (o, lse); o is differentiable in q, k and v.
 
     On CUDA tensors it launches the kernels (Sq and Skv multiples of 64,
-    head dim in :data:`FUSED_HEAD_DIMS` in bf16 or fp32, where at
-    :data:`VALID_ROWS_HEAD_DIMS` Sq may be any length — pad through
+    head dim in :data:`FUSED_HEAD_DIMS` in bf16 or fp32, where the instances
+    built around the valid rows take any Sq: at :data:`VALID_ROWS_HEAD_DIMS`,
+    and at :data:`SHORT_ROWS_HEAD_DIM` where Sq is not a multiple of
+    :data:`MIN_BLOCK`, :func:`takes_valid_rows` — pad through
     :func:`diffulab_tpu_torch.ops.attention.dot_product_attention`); on CPU
     tensors it runs the plain versions. Without grad (sampling) it is the
     forward alone and saves nothing.

@@ -225,20 +225,25 @@ def measure_fp32(root: Path) -> dict:
 
 
 def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[list[str]]]],
-            fp32_measure=None) -> int:
+            fp32_measure=None, modes: dict | None = None) -> int:
     """The command line the A/B scripts share: ``--root DIR`` prints one JSON
     line of ``measure(DIR)`` (``fp32_measure(DIR)`` with ``--fp32``, where the
-    script has one); ``--ab PARENT`` runs ``--root PARENT``, this checkout
+    script has one; ``fn(DIR)`` with ``--<flag>`` for each of ``modes``, flag
+    -> (help, fn)); ``--ab PARENT`` runs ``--root PARENT``, this checkout
     twice and PARENT again, each in its own process, prints the four lines and
     their medians, and then, for each flag of ``profiles`` given (flag ->
     (help, profile commands)), the profile commands in PARENT and in this
     checkout."""
+    modes = dict(modes or {})
+    if fp32_measure is not None:
+        modes = {"fp32": ("time the fp32 instances (the docstring's shapes)", fp32_measure), **modes}
     parser = argparse.ArgumentParser(description=doc.splitlines()[0])
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--root", type=Path, help="time the package under this directory")
     group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
-    if fp32_measure is not None:
-        parser.add_argument("--fp32", action="store_true", help="time the fp32 instances (the docstring's shapes)")
+    mode_group = parser.add_mutually_exclusive_group()
+    for flag, (help_text, _) in modes.items():
+        mode_group.add_argument(f"--{flag}", action="store_true", help=help_text)
     for flag, (help_text, _) in profiles.items():
         parser.add_argument(f"--{flag}", action="store_true", help=help_text)
     args = parser.parse_args()
@@ -247,13 +252,13 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
     if not torch.cuda.is_available():
         print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 2
-    fp32 = getattr(args, "fp32", False)
+    mode = next((flag for flag in modes if getattr(args, flag)), None)
     if args.root is not None:
-        print(json.dumps((fp32_measure if fp32 else measure)(args.root)))
+        print(json.dumps((modes[mode][1] if mode else measure)(args.root)))
         return 0
     runs = []
     for root in (args.ab, ROOT, ROOT, args.ab):
-        done = subprocess.run([sys.executable, script, "--root", str(root), *(["--fp32"] if fp32 else [])],
+        done = subprocess.run([sys.executable, script, "--root", str(root), *([f"--{mode}"] if mode else [])],
                               capture_output=True, text=True)
         if done.returncode != 0:
             print(done.stdout, done.stderr, file=sys.stderr)

@@ -19,6 +19,16 @@ fp32 backward (its memory-efficient backward op,
 CUDA-graph replays; beside them K2's two kernels and the SDPA autograd
 backward's kernels summed by ``torch.profiler``.
 
+With ``--short``, K2 at the padded short sequences at head dim 64 of
+``ab_fused_mha_fwd.SHORT_CASES``, each on the tensors the tree's own fused
+route hands the kernel, from that tree's K1's lse: ``<case>`` its device
+time from CUDA-graph replays, ``<case>_padded`` the padded instance on the
+padded q and do, ``<case>_valid`` (where the tree has them) the instances
+built around the valid rows on the unpadded ones, and
+``<case>_sdpa_unpadded`` SDPA's backward on the unpadded tensors (fp32: its
+memory-efficient backward op from CUDA-graph replays, as with ``--fp32``;
+bf16: its autograd backward's kernels summed by ``torch.profiler``).
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -124,12 +134,56 @@ def measure_fp32(root: Path) -> dict:
     return out
 
 
+def measure_short(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke  # this checkout's, before the measured tree's package is on the path
+
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+    from ab_fused_mha_fwd import SHORT_CASES, padded_q, route_tensors, short_inputs
+
+    from diffulab_tpu_torch.ops import fused_mha as fm
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    for case in SHORT_CASES:
+        q, k, v, do, mask = short_inputs(case, gen)
+        with torch.no_grad():
+            qr, kp, vp, maskp = route_tensors(q, k, v, mask)
+            dor = do if qr.shape[1] == q.shape[1] else padded_q(do, qr.shape[1])
+            _, lse = fm.fused_mha(qr, kp, vp, maskp)
+            out[case] = graph_ms(lambda: fm.fused_mha_bwd(qr, kp, vp, maskp, lse, dor), calls=10)
+            qp, dop = padded_q(q, kp.shape[1]), padded_q(do, kp.shape[1])
+            _, lse_p = fm.fused_mha(qp, kp, vp, maskp)
+            out[f"{case}_padded"] = graph_ms(lambda: fm.fused_mha_bwd(qp, kp, vp, maskp, lse_p, dop), calls=10)
+            if hasattr(fm, "takes_valid_rows"):
+                _, lse_v = fm.fused_mha(q, kp, vp, maskp)
+                out[f"{case}_valid"] = graph_ms(lambda: fm.fused_mha_bwd(q, kp, vp, maskp, lse_v, do), calls=10)
+            if q.dtype == torch.float32:
+                out[f"{case}_sdpa_unpadded"] = graph_ms(chip_smoke.sdpa_fp32_backward(q, k, v, do, mask), calls=10)
+        if q.dtype != torch.float32:
+            with torch.enable_grad():
+                leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+                sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=None if mask is None
+                                                      else mask[:, None, None, :])
+                dot = do.transpose(1, 2)
+                out[f"{case}_sdpa_unpadded"] = kernel_device_ms(
+                    lambda: torch.autograd.grad(sdpa, leaves, dot, retain_graph=True), {"all": ("",)})["all"]
+                del sdpa, leaves
+    return out
+
+
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the DiT-B/2 train profile of both trees",
                               [["scripts/profile_torch_train.py"]]),
                     "c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
-                   fp32_measure=measure_fp32)
+                   fp32_measure=measure_fp32,
+                   modes={"short": ("time K2 at the padded short sequences at D = 64 (SHORT_CASES)",
+                                    measure_short)})
 
 
 if __name__ == "__main__":

@@ -12,6 +12,17 @@ With ``--fp32``, the fp32 instance at slice C1's shapes instead (B=128, the
 train step's, and B=32, the sample request's; S=256, H=8, D=64, fp32): K1's
 and fp32 SDPA's device times from CUDA-graph replays.
 
+With ``--short``, K1 at the padded short sequences of the DiTs at head dim
+64 (:data:`SHORT_CASES`: slice F1's deep path, G1's train step and request,
+the hard pair's 264 and 72 tokens, the trainable embedder's 64 byte tokens
+under a caption mask), each on the tensors the tree's own fused route hands
+the kernel (``ops/attention.py::_fused_path``, recorded through the tree's
+``fused_mha``): ``<case>`` its device time from CUDA-graph replays;
+``<case>_padded`` the padded instance on the padded q; where the tree has
+them, ``<case>_valid`` the instance built around the valid rows on the
+unpadded q; ``<case>_sdpa_unpadded`` SDPA on the unpadded tensors (with the
+case's key mask), the yardstick.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -133,13 +144,98 @@ def measure_fp32(root: Path) -> dict:
     return out
 
 
+#: the padded short sequences at head dim 64: tag -> (B, tokens, H, dtype, key mask): None for the route's
+#: padding mask, "caption" for a byte-token mask of seeded lengths 8 to the tokens (the trainable embedder's),
+#: "joint8" for 8 caption keys of seeded lengths 1-8 before the image keys (evaluate_txt2img's request under CFG)
+SHORT_CASES = {
+    "f1_sprint_deep_fp32_B128": (128, 64, 8, "float32", None),
+    "h1_embedder_fp32_B64": (64, 64, 4, "float32", "caption"),
+    "g1_request_fp32_B32": (32, 64, 12, "float32", None),
+    "g1_train_bf16_B128": (128, 64, 12, "bfloat16", None),
+    "hard_train_264_bf16_B64": (64, 264, 6, "bfloat16", None),
+    "hard_request_264_bf16_B32": (32, 264, 6, "bfloat16", None),
+    "hard_train_72_bf16_B64": (64, 72, 6, "bfloat16", None),
+    "h1_eval_264_fp32_B200": (200, 264, 6, "float32", "joint8"),
+}
+
+
+def short_inputs(case: str, gen):
+    """q, k, v, do [B, tokens, H, 64] in the case's dtype and its key mask over the tokens (or None)."""
+    import torch
+
+    b, tokens, h, dtype, kind = SHORT_CASES[case]
+    q, k, v, do = (torch.randn(b, tokens, h, 64, generator=gen, device="cuda").to(getattr(torch, dtype))
+                   for _ in range(4))
+    mask = None
+    keys = torch.arange(tokens, device="cuda")[None]
+    if kind == "caption":
+        mask = keys < torch.randint(8, tokens + 1, (b, 1), generator=gen, device="cuda")
+    elif kind == "joint8":
+        mask = (keys < torch.randint(1, 9, (b, 1), generator=gen, device="cuda")) | (keys >= 8)
+    return q, k, v, do, mask
+
+
+def route_tensors(q, k, v, mask):
+    """(q, k, v, mask) as the loaded tree's fused route hands them to ``fused_mha``."""
+    import diffulab_tpu_torch.ops.attention as attention
+
+    seen = []
+    real = attention.fused_mha
+
+    def record(*args):
+        seen.append(args[:4])
+        return real(*args)
+
+    attention.fused_mha = record
+    try:
+        attention.dot_product_attention(q, k, v, mask, impl="fused")
+    finally:
+        attention.fused_mha = real
+    return seen[0]
+
+
+def padded_q(t, rows: int):
+    import torch.nn.functional as F
+
+    return F.pad(t, (0, 0, 0, 0, 0, rows - t.shape[1]))
+
+
+def measure_short(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops import fused_mha as fm
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for case in SHORT_CASES:
+            q, k, v, _, mask = short_inputs(case, gen)
+            qr, kp, vp, maskp = route_tensors(q, k, v, mask)
+            out[case] = graph_ms(lambda: fm.fused_mha(qr, kp, vp, maskp))
+            qp = padded_q(q, kp.shape[1])
+            out[f"{case}_padded"] = graph_ms(lambda: fm.fused_mha(qp, kp, vp, maskp))
+            if hasattr(fm, "takes_valid_rows"):
+                out[f"{case}_valid"] = graph_ms(lambda: fm.fused_mha(q, kp, vp, maskp))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            attn_mask = None if mask is None else mask[:, None, None, :]
+            out[f"{case}_sdpa_unpadded"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                                           attn_mask=attn_mask))
+    return out
+
+
 def main() -> int:
     from ab_flash_attn_bwd import ab_main
     from ab_fused_mha_bwd import C1_PROFILES
 
     return ab_main(__doc__, __file__, measure,
                    {"c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
-                   fp32_measure=measure_fp32)
+                   fp32_measure=measure_fp32,
+                   modes={"short": ("time K1 at the padded short sequences at D = 64 (SHORT_CASES)",
+                                    measure_short)})
 
 
 if __name__ == "__main__":

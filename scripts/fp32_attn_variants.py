@@ -131,7 +131,7 @@ def main() -> int:
         b = q.shape[0]
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), b, s, s, h, d,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-                 ctypes.c_float(d ** -0.5), 0, 0, 0, 0, torch.cuda.current_device(),
+                 ctypes.c_float(d ** -0.5), 0, 0, 0, 0, 0, torch.cuda.current_device(),
                  torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
@@ -140,7 +140,7 @@ def main() -> int:
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), None, lse.data_ptr(), ws.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.shape[0], s, s, h, d, q.stride(0), q.stride(1),
                  k.stride(0), k.stride(1), v.stride(0), v.stride(1), do.stride(0), do.stride(1),
-                 ctypes.c_float(d ** -0.5), 0, torch.cuda.current_stream().cuda_stream)
+                 ctypes.c_float(d ** -0.5), 0, 0, torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
     rows = {name: {} for name in names}

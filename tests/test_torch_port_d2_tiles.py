@@ -47,6 +47,7 @@ from diffulab_tpu_torch.ops.fused_mha import (
     fused_mha_bwd_tf32x3_emulation,
     fused_mha_reference,
     fused_mha_tf32x3_emulation,
+    takes_valid_rows,
 )
 from diffulab_tpu_torch.weights import state_dict_from_jax
 
@@ -183,19 +184,22 @@ def _recording(monkeypatch):
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_the_padded_contract_of_the_other_head_dims_is_unchanged(monkeypatch, d):
-    """q, k, v and the synthesized key mask padded to 128 rows with zeros, o
-    sliced back: the kernels' inputs are bitwise what they were."""
+    """k, v and the synthesized key mask padded to 128 rows with zeros, o
+    sliced back: the kernels' inputs are bitwise what they were. q is padded
+    too at D = 128; at D = 64 its 50 rows, not a whole 128-row block, go to
+    the instances built around the valid rows unpadded (takes_valid_rows)."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 50, 2, d)).astype(np.float32)) for _ in range(3))
     calls = _recording(monkeypatch)
     out = dot_product_attention(q, k, v)
     ((rq, rk, rv, rmask),) = calls
     pad = torch.zeros(2, MIN_BLOCK - 50, 2, d)
-    for recorded, t in ((rq, q), (rk, k), (rv, v)):
+    assert takes_valid_rows(50, d) == (d == 64)
+    assert torch.equal(rq, q if d == 64 else torch.cat([q, pad], dim=1))
+    for recorded, t in ((rk, k), (rv, v)):
         assert torch.equal(recorded, torch.cat([t, pad], dim=1))
     assert torch.equal(rmask, torch.arange(MIN_BLOCK)[None].expand(2, -1) < 50)
-    padded = fused_mha(*(torch.cat([t, pad], dim=1) for t in (q, k, v)), rmask)[0]
-    assert torch.equal(out, padded[:, :50])
+    assert torch.equal(out, fused_mha(rq, rk, rv, rmask)[0][:, :50])
 
 
 @pytest.mark.parametrize("d", VALID_ROWS_HEAD_DIMS)
