@@ -166,13 +166,13 @@ Phases, one line each:
      ``train_synthetic_hard_flow`` (bf16: 10 bf16 K1 + 10 bf16 K2 a step by
      the instances' own counters), ``reconstruct_ema``,
      ``train_synthetic_hard_distill`` from its ``phema_sr0.05`` (20 + 10 a
-     step) and a 16-image Euler-50 request at CFG 1.5 from the student (500
+     step) and a 16-image Euler-10 request at CFG 1.5 from the student (100
      K1, fp32 as the sample CLI builds the model), with the samples' caption
      consistency; (b) ``train_synthetic_colorize`` and a request on the
      validation luma; (c) ``train_synthetic_{flow,edm,ddpm}_repa`` (the
      seed-4321 FixedViT as the frozen target; 10 + 10 or, for the UNet, 11 +
-     11 a step at D=192/384), a request from each restored checkpoint (500,
-     350, 550 K1), one REPA loss dict recomputed on the host with the same
+     11 a step at D=192/384), a request from each restored checkpoint (100,
+     350, 110 K1: Euler-10, Heun-18, DDIM-10), one REPA loss dict recomputed on the host with the same
      weights, rows and draws (rtol 1e-3), and the card's FixedViT against
      jax_prng's draw, bit for bit;
  19. slice D2, the MNIST UNet: (a) the fp32 K1 and K2 instances at head dims
@@ -238,9 +238,9 @@ Phases, one line each:
      version and both bounds;
  24. slice H1 from a working directory of its own (the configs' relative
      ``data/hard_txt2img`` paths unedited): (a) the port's
-     ``build_hard_txt2img`` at 64 px (2048 + 256 scenes, one tower epoch at
+     ``build_hard_txt2img`` at 64 px (1024 + 128 scenes, one tower epoch at
      batch 64), its report and shard bytes; (b) ``train_hard_txt2img_mmdit``
-     as composed through ``train_repa_txt_to_img``, one epoch of 32 steps,
+     as composed through ``train_repa_txt_to_img``, one epoch of 16 steps,
      6 + 6 bf16 K1/K2 at 384 padded keys a step; (c) the same with
      ``embedder=trainable trainer.train_embedder=true`` (plus 4 + 4 fp32 at
      128 a step), the encoder's parameters moved and checkpointed, its
@@ -248,18 +248,18 @@ Phases, one line each:
      ``train_hard_txt2img_sprint`` one epoch, and ``train_hard_txt2img_ddt``
      refused with F3's ``TypeError``; (e) ``reconstruct_ema`` and
      ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05`` (100 samples each,
-     Euler-50, CFG 1.5, 600 fp32 K1); (f) ``evaluate_fid`` on phase 14's
-     ``ema`` (128 samples, 500 fp32 K1), the feature ViT's weights on the
+     Euler-25, CFG 1.5, 300 fp32 K1); (f) ``evaluate_fid`` on phase 14's
+     ``ema`` (128 samples, Euler-25, 250 fp32 K1), the feature ViT's weights on the
      card bitwise the ``jax_prng`` draw and its features against the CPU;
  25. slice I1 from a working directory of its own: (a) ``train_grpo
      --config-name train_grpo_alignment --luma-judge``, the model block as
      composed (dual-stream blocks of 640, 10 heads, patch 1, bf16; depth cut
      12 -> 6) and
      the Flux2 tower at full width with seeded weights, 512x512 (32x32x128
-     latents: 1152 keys with the captions), EM-25 at CFG 4.0, cut to one
-     epoch of 2 batches of 2 prompts and 4 images a prompt over 4 + 2 seeded
-     caption prompts (the dataset and the tower's latent channels overridden:
-     faults F4, F5): 150 bf16 K3 a sampled group, 90 K3 + 90 K4 + 90 K5 a
+     latents: 1152 keys with the captions), EM at CFG 4.0 cut to 10 steps, cut
+     to one epoch of 2 batches of 2 prompts and 4 images a prompt over 4 + 2
+     seeded caption prompts (the dataset and the tower's latent channels
+     overridden: faults F4, F5): 60 bf16 K3 a sampled group, 36 K3 + 36 K4 + 36 K5 a
      learn step, the first group's ``ratio_dev`` ~0, the best-val checkpoint
      restored, a learn step in ``profiling.trace``; one learn step's
      gradients against the plain path; the bf16 K3-K5 at B=4, H=10, S=1152
@@ -268,16 +268,17 @@ Phases, one line each:
      cuts: the wrapped model at step 0 bitwise the base, the optimizer
      holding the adapters alone, 10 + 10 fp32 K1/K2 a step, ``merge_lora``
      against the adapted forward, a 16-image ``sample`` request (500 K1).
- 26. slice J1: (a) phase 4's DiT-B/2 request (batch 16, Euler-50, CFG 4.0,
-     bf16) exported by ``deploy.export_generate`` (export and load seconds,
-     the artifact's bytes) and served by ``DeployedSampler``, two seeds
-     each against the live ``generate`` with the same labels, interleaved:
-     the images equal, 600 K1 and no other kernel a request, ms of each;
+ 26. slice J1: (a) phase 4's DiT-B/2 request (batch 16, CFG 4.0, bf16; the
+     loop cut to Euler-10) exported by ``deploy.export_generate`` (export
+     and load seconds, the artifact's bytes) and served by
+     ``DeployedSampler``, two seeds each against the live ``generate`` with
+     the same labels, interleaved: the images equal, 120 K1 and no other
+     kernel a request, ms of each;
      (b) phase 14's ``ema`` through ``export_sampler --smoke`` and
      ``serve``'s handler on 127.0.0.1: a request of 5 labels (padded to the
      batch and trimmed) equal to ``DeployedSampler``'s rows, ``/healthz``,
-     a 400 on a malformed request, 500 fp32 K1 in the smoke batch and in
-     the served request; (c) each of the five kernels' ops once on CUDA
+     a 400 on a malformed request, 100 fp32 K1 (Euler-10) in the smoke batch
+     and in the served request; (c) each of the five kernels' ops once on CUDA
      tensors against its direct wrapper: its counter up by one, bitwise;
  27. ``--prompts``: ``configs/embedder/qwen.yaml``'s ``QwenTextEmbedder``
      (a stub encoder; no ``transformers`` on the card) with
@@ -291,7 +292,8 @@ Phases, one line each:
      capacity factor 2.0, patch 2 on 32x32x3, fp32) with
      ``trainer.mesh.expert=1``, the config's single-chip form (the router
      dense), on phase 22's CIFAR cut: 10 + 10 fp32 K1/K2 at 256 a micro-step,
-     a 16-image request from the EMA checkpoint (1000 K1), one MoE DiT block
+     a 16-image request from the EMA checkpoint (Euler-20, the config's 100
+     cut: 200 K1), one MoE DiT block
      on the card against the same block on the CPU (the tokens routed
      differently counted), ms a step, peak memory and the MoE MLPs' share of
      the step; (b) ``train_cifar10_ring_attention`` at ``sp=1`` (the ring
@@ -453,17 +455,21 @@ E1_DATA = {"dataset.train.n_samples": (10000, 512), "dataset.val.n_samples": (20
 E1_BATCH, E1_SEQ = 128, 256
 E1_STEPS_PER_EPOCH = E1_DATA["dataset.train.n_samples"][1] // E1_BATCH
 E1_SAMPLES, E1_GUIDANCE = 16, 1.5
+E1_REQUEST_STEPS = 10  # the Euler / DDIM requests' steps (the configs' 50): a depth cut of the phase
 # per config: K1, K2 and K3 launches a train step, K1 a sample request and the request's flags
-# (the DiTs: 10 blocks; Euler-50 with CFG as one 2x call, EDM's Heun-18 35 evals; the UNet: 11
-# attention calls, DDIM-50); the distillation step adds the teacher's guided forward (one 2x call)
+# (the DiTs: 10 blocks; Euler with CFG as one 2x call, EDM's Heun-18 35 evals; the UNet: 11
+# attention calls, DDIM); the distillation step adds the teacher's guided forward (one 2x call)
+_E1_STEPS = ("--steps", str(E1_REQUEST_STEPS))
 E1_RUNS = {
     "train_synthetic_hard_flow": ((C1_DEPTH, C1_DEPTH, 0), None, ()),
-    "train_synthetic_hard_distill": ((2 * C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ("--guidance", str(E1_GUIDANCE))),
-    "train_synthetic_colorize": ((C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ()),
-    "train_synthetic_flow_repa": ((C1_DEPTH, C1_DEPTH, 0), 50 * C1_DEPTH, ("--guidance", str(E1_GUIDANCE))),
+    "train_synthetic_hard_distill": ((2 * C1_DEPTH, C1_DEPTH, 0), E1_REQUEST_STEPS * C1_DEPTH,
+                                     ("--guidance", str(E1_GUIDANCE), *_E1_STEPS)),
+    "train_synthetic_colorize": ((C1_DEPTH, C1_DEPTH, 0), E1_REQUEST_STEPS * C1_DEPTH, _E1_STEPS),
+    "train_synthetic_flow_repa": ((C1_DEPTH, C1_DEPTH, 0), E1_REQUEST_STEPS * C1_DEPTH,
+                                  ("--guidance", str(E1_GUIDANCE), *_E1_STEPS)),
     "train_synthetic_edm_repa": ((C1_DEPTH, C1_DEPTH, 0), None, ("--guidance", str(E1_GUIDANCE))),
-    "train_synthetic_ddpm_repa": ((D1_CALLS, D1_CALLS, 0), 50 * D1_CALLS, ("--guidance", str(E1_GUIDANCE),
-                                                                          "--steps", "50")),
+    "train_synthetic_ddpm_repa": ((D1_CALLS, D1_CALLS, 0), E1_REQUEST_STEPS * D1_CALLS,
+                                  ("--guidance", str(E1_GUIDANCE), *_E1_STEPS)),
 }
 E1_CPU_BATCH = 4  # the rows of a batch whose REPA loss dict is recomputed on the host
 E1_LOSS_RTOL = 1e-3
@@ -503,6 +509,15 @@ D3_SAMPLE_OVERRIDE = "model.dtype=bfloat16"
 # measures 0.9986-1.0 for its emulation on the CPU, about 0.5 for an online softmax's rounding order)
 D3_BITWISE_MIN = 0.9
 D3_LONG = (192, 64, 512, 400)  # head dim, query rows, padded keys, attended keys: 25 live 16-key tiles
+# the staged instances' slot edges (bf16_keys: 64 keys at D = 192 and 256, 16 at 384 and 512), each against the
+# plain versions: (tag, head dim, query rows, the attended keys' ranges [lo, hi) of 128): one live key past a full
+# slot (two slots, the second of one live key), live keys straddling two slots, one live key in each of two tiles
+# or slots, one query row, and more query rows than a CTA's (K2 as two kernels, dq then dk/dv)
+D3_EDGES = (("kept_plus_one", 192, 64, ((0, 65),)), ("straddle", 192, 64, ((40, 120),)),
+            ("one_key_tiles", 192, 64, ((37, 38), (100, 101))), ("sq1", 192, 1, ((0, 64),)),
+            ("sq1", 256, 1, ((0, 64),)), ("kept_plus_one", 384, 16, ((0, 17),)), ("straddle", 384, 16, ((8, 24),)),
+            ("one_key_slots", 512, 16, ((5, 6), (100, 101))), ("split", 192, 100, ((0, 100),)),
+            ("split", 384, 40, ((0, 40),)))
 # the bf16 UNet on the kernel path against impl="xla", the same weights and inputs: the forward's max|diff| /
 # max|plain| (K1 rounds o and p to bf16 as its plain version does, the sums in another order flip a rounding now
 # and then, and the model's bf16 layers carry it); each parameter's ||kernel - plain|| / ||plain|| (a norm below
@@ -587,7 +602,7 @@ G1_GRAD_BATCH = 2
 # directory of its own so that the configs' relative paths (data/hard_txt2img/...) are used unedited
 H1_CONFIGS = {"mmdit": "train_hard_txt2img_mmdit", "sprint": "train_hard_txt2img_sprint",
               "ddt": "train_hard_txt2img_ddt"}
-H1_BUILD = {"--n-train": (10_000, 2048), "--n-val": (2_000, 256), "--epochs": (12, 1)}
+H1_BUILD = {"--n-train": (10_000, 1024), "--n-val": (2_000, 128), "--epochs": (12, 1)}
 H1_CUTS = {"trainer.n_epoch": (12, 1)}
 H1_BATCH, H1_PX = 64, 64
 H1_TOKENS = 264  # 16x16 packed latents at patch 1 and 8 caption tokens, padded to 384 keys
@@ -595,23 +610,25 @@ H1_DEPTH = 6  # 4 dual-stream + 2 single-stream blocks, one joint attention each
 H1_EMB_TOKENS, H1_EMB_DEPTH, H1_EMB_HEADS = 64, 4, 4  # configs/embedder/trainable.yaml: fp32 (no trainer dtype)
 H1_TRAINABLE = ("embedder=trainable", "trainer.train_embedder=true")
 H1_EVAL = {"--n-samples": (2000, 100), "--n-val": (2000, 256)}
-H1_EVAL_BATCH, H1_GUIDANCE = 100, 1.5  # Euler-50 at CFG 1.5: 2x100 under fused CFG
+H1_EVAL_BATCH, H1_GUIDANCE = 100, 1.5  # CFG 1.5: 2x100 under fused CFG
+H1_EVAL_STEPS = 25  # Euler steps of evaluate_txt2img and evaluate_fid (the configs' 50): a depth cut of the phase
 H1_FID_SAMPLES, H1_FID_BATCH = 128, 128  # evaluate_fid on phase 14's C1 run, CFG 1.5
 H1_FEATURE_TOL = 1e-4  # the frozen ViT's features, card against the port on the CPU: max |diff| / max |cpu|
 
 # phase 25: slice I1, configs/train_grpo_alignment.yaml through the port's train_grpo CLI: its model block as
 # composed (the multimodal MMDiT, dual-stream blocks of 640, 10 heads of 64, patch 1, 128 channels, bf16; its
 # depth cut 12 -> 6 to keep the whole script in its time) on
-# 512x512 images, 32x32x128 Flux2 latents (1024 image + 128 caption tokens), EM-25 at CFG 4.0, trust region 0.3,
-# EMA; the luma judge (no VLM weights on the card). Cut in epochs, prompts a batch, images a prompt and data;
+# 512x512 images, 32x32x128 Flux2 latents (1024 image + 128 caption tokens), EM at CFG 4.0, trust region 0.3,
+# EMA; the luma judge (no VLM weights on the card). Cut in epochs, prompts a batch, images a prompt, EM steps
+# (25 -> 10: 6 trajectory indices a learn step) and data;
 # two config faults overridden as the repository's own GRPO runs override them (scripts/r4_grpo_campaign.sh:16-22)
 I1_CONFIG = "train_grpo_alignment"
 I1_CUTS = {"trainer.n_epoch": (5, 1), "dataloader.batch_size": (8, 2), "grpo.n_image_per_prompt": (16, 4),
-           "reward.n_image_per_prompt": (16, 4), "model.depth": (12, 6)}
+           "reward.n_image_per_prompt": (16, 4), "model.depth": (12, 6), "diffuser.n_steps": (25, 10)}
 I1_FAULTS = {"dataset": ("imagenet_repa (ImageNetLatentREPA: no captions, F4)", "ImageNetmultiAR"),
              "vision_tower.latent_channels": ("16 (64 packed; the model takes 128, F5)", 32)}
 I1_PROMPTS = {"train": (77, 9, 128, 31), "val": (54, 16)}  # caption tokens a prompt: 4 train, 2 validation
-I1_BATCH, I1_IMAGES, I1_STEPS, I1_BLOCKS, I1_HEADS = 2, 4, 25, I1_CUTS["model.depth"][1], 10
+I1_BATCH, I1_IMAGES, I1_STEPS, I1_BLOCKS, I1_HEADS = 2, 4, I1_CUTS["diffuser.n_steps"][1], I1_CUTS["model.depth"][1], 10
 I1_SEQ = TEXT_LEN + 32 * 32  # 1152 keys, unpadded on the flash route
 I1_K = round(I1_STEPS * 0.6)  # trajectory indices a learn step (timestep_fraction 0.6)
 # the first group of a batch re-evaluates the log-probs with the parameters that sampled them: |ratio - 1|
@@ -631,8 +648,11 @@ I1_LORA_RANK, I1_MERGE_TOL = 8, 1e-4  # phase 25b on C1's config; the merged mod
 # phase 26: slice J1, serving from an exported artifact. (a) phase 4's DiT-B/2 request exported with
 # deploy/export.py and served by DeployedSampler, J1_REQUESTS seeds each against the live generate (the same
 # noise from one generator, the loop traced as it runs: expected 0); (b) phase 14's C1 run through the
-# export_sampler and serve CLIs, J1_SERVE_ROWS labels in the served request (fewer than its batch of 16)
+# export_sampler and serve CLIs, J1_SERVE_ROWS labels in the served request (fewer than its batch of 16). Both
+# loops are exported at J1_STEPS Euler steps (phase 4's and C1's requests take 50): torch.export traces the loop
+# step by step, so the depth cut keeps each path and check and takes most of the phase's time off
 J1_REQUESTS = 2
+J1_STEPS = 10
 J1_DEPLOY_TOL = 0.0
 J1_SERVE_ROWS = 5
 # phase 27: --prompts on the card: configs/train_imagenet_repa_txt_to_img.yaml's DDT at full width with
@@ -3163,8 +3183,8 @@ def _e1_line(tr) -> str:
 def phase_e1_hard(root: Path):
     """Phase 18a: train_synthetic_hard_flow (bf16) through train_diffusion,
     reconstruct_ema to phema_sr0.05, train_synthetic_hard_distill from that
-    snapshot, then its post-hoc EMA reconstruction and a 16-image Euler-50
-    request at CFG 1.5 from the distilled student, the labels and captions of
+    snapshot, then its post-hoc EMA reconstruction and a 16-image
+    Euler-E1_REQUEST_STEPS request at CFG 1.5 from the distilled student, the labels and captions of
     the first 16 validation scenes; the samples' caption consistency
     (reported, not a gate). Every K1/K2 launch of the train runs (their
     validation images included) a bf16 instance; the request's fp32: the
@@ -3209,7 +3229,8 @@ def phase_e1_hard(root: Path):
           f"request {50 * C1_DEPTH} bf16 K1); hard_distill from its "
           f"phema_sr0.05 {_e1_line(distill)}, {2 * C1_DEPTH} bf16 K1 (the teacher's guided forward one 2x call) + "
           f"{C1_DEPTH} bf16 K2 a step, in the run {distill['launches']}; the student's phema_sr0.05: {E1_SAMPLES} "
-          f"images Euler-50 CFG {E1_GUIDANCE} (fp32, as the reference's sample CLI builds the model) generate "
+          f"images Euler-{E1_REQUEST_STEPS} CFG {E1_GUIDANCE} (fp32, as the reference's sample CLI builds the model) "
+          f"generate "
           f"{result['generate_ms']:.1f} ms, {result['launches']['fused_mha_fwd']} fp32 K1; caption "
           f"consistency against the first {E1_SAMPLES} validation captions (their labels asked; reported only) "
           f"{ {k: round(v, 3) for k, v in consistency.items()} }")
@@ -3218,8 +3239,8 @@ def phase_e1_hard(root: Path):
 
 def phase_e1_colorize(root: Path):
     """Phase 18b: train_synthetic_colorize (fp32, the luma as x_context)
-    through train_diffusion, one epoch, and a 16-image Euler-50 request
-    conditioned on the validation images' luma."""
+    through train_diffusion, one epoch, and a 16-image Euler-E1_REQUEST_STEPS
+    request conditioned on the validation images' luma."""
     sys.modules["wandb"] = None
     log = root / "e1_colorize.log"
     config = "train_synthetic_colorize"
@@ -3229,7 +3250,8 @@ def phase_e1_colorize(root: Path):
     if result["images"].shape != (E1_SAMPLES, 32, 32, 3):
         fail(f"{config} sample: images {result['images'].shape}")
     print(f"phase 18b colorize (fp32, the C1 DiT on RGB + luma, gradient accumulation 2) {_e1_line(tr)}, "
-          f"{C1_DEPTH} fp32 K1 + {C1_DEPTH} fp32 K2 a step; {E1_SAMPLES} images Euler-50 on the validation luma "
+          f"{C1_DEPTH} fp32 K1 + {C1_DEPTH} fp32 K2 a step; {E1_SAMPLES} images Euler-{E1_REQUEST_STEPS} on the "
+          f"validation luma "
           f"generate {result['generate_ms']:.1f} ms, {result['launches']['fused_mha_fwd']} K1")
     return {"train": tr, "sample": result}
 
@@ -4750,7 +4772,7 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
     tower's attention is not Pallas in the reference); (b)
     ``train_repa_txt_to_img --config-name train_hard_txt2img_mmdit`` as
     composed (384 wide, 6 heads, 4 dual + 2 single-stream blocks, bf16,
-    batch 64, post-hoc EMA) one epoch of 32 steps: 6 bf16 K1 + 6 bf16 K2 at
+    batch 64, post-hoc EMA) one epoch of 16 steps: 6 bf16 K1 + 6 bf16 K2 at
     384 padded keys every step, ms a step, peak memory; (c) the same with
     ``embedder=trainable trainer.train_embedder=true``: 4 fp32 K1 + 4 fp32
     K2 at 128 keys (the embedder, built without the trainer's precision) and
@@ -4763,9 +4785,11 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
     ``train_hard_txt2img_ddt`` refused with the reference's ``TypeError``
     (fault F3); (e) ``reconstruct_ema`` at sigma_rel 0.05 and
     ``evaluate_txt2img`` on ``ema`` and ``phema_sr0.05``: 100 samples each
-    at batch 100, Euler-50, CFG 1.5, the fp32 model (600 fp32 K1 at 384),
+    at batch 100, Euler at H1_EVAL_STEPS, CFG 1.5, the fp32 model (6 fp32 K1
+    at 384 a step),
     the ``txt2img`` JSON lines, images/s; (f) ``evaluate_fid`` on phase 14's
-    C1 run's ``ema`` with 128 samples at CFG 1.5 (500 fp32 K1 at 256), the
+    C1 run's ``ema`` with 128 samples at CFG 1.5, Euler at H1_EVAL_STEPS (10
+    fp32 K1 at 256 a step), the
     ``fid_synthetic`` line with its floor and ceiling; the frozen ViT's
     weights on the card bitwise ``jax_prng``'s draw and its features of 16
     validation images within ``H1_FEATURE_TOL`` of the port's on the CPU."""
@@ -4875,11 +4899,11 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
         ckpts = [str(run / "checkpoints" / "ema"), str(run / "checkpoints" / "phema_sr0.05")]
         evaluation = _timed_cli(evaluate_txt2img.main, [
             "--config-name", H1_CONFIGS["mmdit"], "--ckpt", *ckpts, "--batch-size", str(H1_EVAL_BATCH),
-            "--guidance", str(H1_GUIDANCE), "--image-size", str(H1_PX),
+            "--guidance", str(H1_GUIDANCE), "--image-size", str(H1_PX), "--steps", str(H1_EVAL_STEPS),
             *(x for key, (_, new) in H1_EVAL.items() for x in (key, str(new)))], log)
         n_eval = H1_EVAL["--n-samples"][1]
         want = {("fused_mha_fwd", "float32", padded_keys(H1_TOKENS)): len(ckpts) * -(-n_eval // H1_EVAL_BATCH)
-                * STEPS * H1_DEPTH}
+                * H1_EVAL_STEPS * H1_DEPTH}
         eval_keys = launch_keys()
         rows = evaluation["out"]["rows"]
         if eval_keys != want or len(rows) != 2 or any(r["fake"].shape != (n_eval, H1_PX, H1_PX, 3)
@@ -4892,8 +4916,9 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
         fid = _timed_cli(evaluate_fid.main, [
             "--config-name", C1_CONFIG, "--ckpt", str(c1_run / "checkpoints" / "ema"), "--n-samples",
             str(H1_FID_SAMPLES), "--batch-size", str(H1_FID_BATCH), "--guidance", str(H1_GUIDANCE),
-            "--cache-dir", str(root / "fid_cache"), *c1_cuts], log)
-        want_fid = {("fused_mha_fwd", "float32", C1_SEQ): -(-H1_FID_SAMPLES // H1_FID_BATCH) * C1_STEPS * C1_DEPTH}
+            "--steps", str(H1_EVAL_STEPS), "--cache-dir", str(root / "fid_cache"), *c1_cuts], log)
+        want_fid = {("fused_mha_fwd", "float32", C1_SEQ): -(-H1_FID_SAMPLES // H1_FID_BATCH) * H1_EVAL_STEPS
+                    * C1_DEPTH}
         fid_keys = launch_keys()
         (fid_row,) = fid["out"]["rows"]
         if fid_keys != want_fid or not all(math.isfinite(fid_row[k]) for k in ("value", "floor", "ceiling")):
@@ -4921,7 +4946,8 @@ def phase_h1(root: Path, c1_run: Path) -> dict[str, Any]:
                 f"{[round(x, 5) for x in tr['val_losses']]}, launches a step {tr['step_keys'][0]}, in the run "
                 f"{ {k: v for k, v in tr['launches'].items() if v} }")
 
-    cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in {**H1_BUILD, **H1_CUTS, **H1_EVAL}.items()])
+    cuts = ", ".join([f"{key} {old} -> {new}" for key, (old, new) in
+                      {**H1_BUILD, **H1_CUTS, **H1_EVAL, "--steps": (50, H1_EVAL_STEPS)}.items()])
     seconds = {k: round(v, 1) for k, v in build["out"]["seconds"].items()}
     print(f"phase 24 H1 the hard txt2img benchmark (cut: {cuts}; widths, batch 64 and the configs as composed): "
           f"(a) build_hard_txt2img at {H1_PX} px: seconds {seconds} ({build['s']:.1f} in all, peak mem "
@@ -5344,9 +5370,9 @@ def phase_i1(root: Path, c1: dict) -> dict[str, Any]:
             "sampled_ms": statistics.median(sampled), "learn_ms": steps["p50_s"] * 1e3, "peak_gib": peak_gib}
 
 
-def _dit_b2_sampler():
+def _dit_b2_sampler(n_steps: int = STEPS):
     """Phases 2-4's DiT-B/2 (the seed-0 weights of :func:`build_models`) and
-    phase 4's diffuser (Euler-50, rectified flow)."""
+    phase 4's diffuser (rectified flow; Euler-50 unless ``n_steps``)."""
     import torch
 
     from diffulab_tpu_torch.diffuse import Diffuser
@@ -5354,17 +5380,17 @@ def _dit_b2_sampler():
 
     model = MMDiT(**DIT_B2, dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
     randomize_(model, seed=0)
-    return Diffuser(model.eval(), "euler", model_type="rectified_flow", n_steps=STEPS,
+    return Diffuser(model.eval(), "euler", model_type="rectified_flow", n_steps=n_steps,
                     extra_args={"logits_normal": True})
 
 
 def phase_j1_deploy(root: Path) -> dict[str, Any]:
-    """Phase 26a: phase 4's request (DiT-B/2, batch 16, Euler-50, CFG 4.0,
-    bf16) exported with ``deploy.export_generate`` and loaded back by
+    """Phase 26a: phase 4's request (DiT-B/2, batch 16, CFG 4.0, bf16; Euler
+    at J1_STEPS) exported with ``deploy.export_generate`` and loaded back by
     ``DeployedSampler`` on the card. Each of J1_REQUESTS seeds runs the
     artifact, then the live ``generate`` from ``torch.Generator("cuda")`` with
     that seed and the same labels: the images equal (J1_DEPLOY_TOL), the
-    artifact's request exactly 600 K1 and no other kernel (the counts set to
+    artifact's request exactly J1_STEPS x 12 K1 and no other kernel (the counts set to
     0 just before it and read just after); export and load seconds, the
     artifact's bytes, and each path's ms a request, the minimum over the
     interleaved calls (the card synchronised, the images copied to the host
@@ -5374,7 +5400,7 @@ def phase_j1_deploy(root: Path) -> dict[str, Any]:
 
     from diffulab_tpu_torch.deploy import DeployedSampler, TensorSpec, export_generate
 
-    diffuser = _dit_b2_sampler()
+    diffuser = _dit_b2_sampler(J1_STEPS)
     art = root / "dit_b2_artifact"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5387,7 +5413,7 @@ def phase_j1_deploy(root: Path) -> dict[str, Any]:
     load_s = time.perf_counter() - t0
     y = torch.randint(0, 1000, (SAMPLE_BATCH,), generator=torch.Generator(device="cuda").manual_seed(99),
                       device="cuda")
-    per_request = STEPS * DIT_B2["depth"]
+    per_request = J1_STEPS * DIT_B2["depth"]
     art_ms, live_ms, diffs, windows = [], [], [], []
     for r in range(J1_REQUESTS):
         seed = 100 + r
@@ -5412,7 +5438,7 @@ def phase_j1_deploy(root: Path) -> dict[str, Any]:
             fail(f"DiT-B/2 artifact request: launches {w}, expected {per_request} bf16 K1 and no other kernel")
     if max(diffs) > J1_DEPLOY_TOL:
         fail(f"DiT-B/2 artifact against the live generate: max |diff| {diffs} (tol {J1_DEPLOY_TOL})")
-    print(f"phase 26a DiT-B/2 artifact (batch {SAMPLE_BATCH} {LATENT} Euler-{STEPS} CFG {CFG} bf16): export "
+    print(f"phase 26a DiT-B/2 artifact (batch {SAMPLE_BATCH} {LATENT} Euler-{J1_STEPS} CFG {CFG} bf16): export "
           f"{export_s:.2f} s, {sum(art_bytes.values())} bytes {art_bytes}, load {load_s:.2f} s; {J1_REQUESTS} "
           f"requests interleaved, artifact ms {[round(m, 2) for m in art_ms]} (min {min(art_ms):.2f}) vs live "
           f"generate ms {[round(m, 2) for m in live_ms]} (min {min(live_ms):.2f}); images vs live, same seed and "
@@ -5424,13 +5450,14 @@ def phase_j1_deploy(root: Path) -> dict[str, Any]:
 def phase_j1_serve(root: Path, c1_run: Path) -> dict[str, Any]:
     """Phase 26b: phase 14's C1 run (its ``ema`` entry) through the port's
     ``export_sampler --smoke`` (a batch of C1_SAMPLES at CFG C1_GUIDANCE,
-    Euler-C1_STEPS, fp32), then ``serve.make_handler`` on 127.0.0.1, port 0,
+    Euler at J1_STEPS, fp32), then ``serve.make_handler`` on 127.0.0.1, port 0,
     in a thread after one warm call: a ``POST /generate`` of J1_SERVE_ROWS
     labels (padded to the batch with the last one, trimmed on the way out;
     its decoded uint8 images equal to ``DeployedSampler``'s first rows for
     that seed and the padded labels), a ``GET /healthz`` (the manifest) and
     a malformed request (a 400). The counts set to 0 just before the smoke
-    batch and before the served request, read just after: 500 fp32 K1 each."""
+    batch and before the served request, read just after: J1_STEPS x C1_DEPTH
+    fp32 K1 each."""
     import base64
     import threading
     from http.server import HTTPServer
@@ -5444,12 +5471,12 @@ def phase_j1_serve(root: Path, c1_run: Path) -> dict[str, Any]:
     log = root / "j1.log"
     overrides = [f"{key}={new}" for key, (_, new) in C1_CUTS.items()]
     art = root / "c1_artifact"
-    per_request = C1_STEPS * C1_DEPTH
+    per_request = J1_STEPS * C1_DEPTH
     reset_launch_counts()
     t0 = time.perf_counter()
     result = _run_cli(export_sampler.main, ["--config-name", C1_CONFIG, "--ckpt", str(c1_run / "checkpoints" / "ema"),
                                             "--out", str(art), "--batch-size", str(C1_SAMPLES), "--guidance",
-                                            str(C1_GUIDANCE), "--smoke", *overrides], log)
+                                            str(C1_GUIDANCE), "--steps", str(J1_STEPS), "--smoke", *overrides], log)
     cli_s = time.perf_counter() - t0
     smoke = launch_counts()
     if smoke["fused_mha_fwd"] != per_request or smoke["fused_mha_fwd_bf16"] or smoke["flash_attn_fwd"]:
@@ -5497,7 +5524,7 @@ def phase_j1_serve(root: Path, c1_run: Path) -> dict[str, Any]:
     if served["fused_mha_fwd"] != per_request or served["fused_mha_fwd_bf16"] or served["flash_attn_fwd"]:
         fail(f"C1 serve: launches of the served request {served}, expected {per_request} fp32 K1 and no K3")
     print(f"phase 26b C1 CLIs: export_sampler --smoke on {C1_CONFIG}'s ema (batch {C1_SAMPLES}, CFG {C1_GUIDANCE}, "
-          f"Euler-{C1_STEPS}, fp32) in {cli_s:.2f} s, {result['bytes']} bytes, {per_request} fp32 K1 in the smoke "
+          f"Euler-{J1_STEPS}, fp32) in {cli_s:.2f} s, {result['bytes']} bytes, {per_request} fp32 K1 in the smoke "
           f"batch; serve: POST /generate of {J1_SERVE_ROWS} labels {served_ms:.1f} ms, {body['shape']} uint8 images "
           f"equal to DeployedSampler's first rows, {per_request} fp32 K1; GET /healthz the manifest; a malformed "
           f"request {bad_status} ({bad['error']!r})")
@@ -5662,6 +5689,7 @@ def phase_j1_prompts() -> dict[str, Any]:
 # train_cifar10_flow_matching under torchrun on one card
 P1_MOE_CONFIG = "train_cifar10_moe"
 P1_MOE_CUTS = {"trainer.mesh.expert": (2, 1), **F1_CIFAR_CUTS}
+P1_SAMPLE_STEPS = 20  # the MoE request's Euler steps (the config's 100): a depth cut of the phase
 P1_ONE_UPDATE = {"trainer.n_epoch": (100, 1), "trainer.val_steps": (50, 2)}
 P1_ONE_IMAGES = {"train": (50000, 64), "val": (10000, 32)}
 P1_AXES = {"train_cifar10_ring_attention": {"trainer.mesh.sp": (2, 1)},
@@ -5817,10 +5845,10 @@ def phase_p1(root: Path) -> dict[str, Any]:
     if tr["per_step"] != [(depth, depth, 0)] * steps or any(k != want for k in tr["step_keys"]):
         fail(f"P1 moe train: launches per step {sorted(set(tr['per_step']))}, expected {depth} fp32 K1 + K2 at "
              f"{tokens} ({want})")
-    n_steps = cfg["diffuser"]["n_steps"]
+    n_steps = P1_SAMPLE_STEPS
     sample = _sample_request(["--config-name", P1_MOE_CONFIG, "--ckpt", str(run / "checkpoints" / "ema"), "--n",
-                              str(F1_SAMPLES), "--guidance", str(F1_GUIDANCE), "--labels", labels, "--out",
-                              str(root / "p1_moe.png"), *overrides], log)
+                              str(F1_SAMPLES), "--guidance", str(F1_GUIDANCE), "--labels", labels, "--steps",
+                              str(n_steps), "--out", str(root / "p1_moe.png"), *overrides], log)
     if launch_keys() != {("fused_mha_fwd", "float32", tokens): n_steps * depth} \
             or sample["images"].shape != (F1_SAMPLES, 32, 32, 3):
         fail(f"P1 moe sample: launches {launch_keys()}, expected {n_steps * depth} fp32 K1; "
@@ -5924,17 +5952,22 @@ def phase_d3_kernels():
     in ``ops/fused_mha.py`` mirrors; then at D1's shapes (D = 192 at 64
     tokens, 384 at 16; K1 also at the CFG request's B=32) and D2's (256, 512),
     keys padded to 128, B=128, H=2, with the edge cases, timings and bounds of
-    :func:`valid_rows_kernels` in bf16 (SDPA bf16 as the yardstick); then
-    :data:`D3_LONG`, 512 keys at D = 192 of which 400 are attended, where K1
-    runs its second pass on scores formed anew."""
+    :func:`valid_rows_kernels` in bf16 (SDPA bf16 as the yardstick); then the
+    staged slots' edges (:data:`D3_EDGES`) and :data:`D3_LONG`, 512 keys at D
+    = 192 of which 400 are attended, where K1 runs its second pass on scores
+    formed anew."""
     import torch
 
     from diffulab_tpu_torch.ops import _build
     from diffulab_tpu_torch.ops.fused_mha import (
         BF16_KEPT_TILES,
+        BF16_LIVE_KEYS,
         FUSED_HEAD_DIMS,
+        VALID_ROWS_HEAD_DIMS,
+        bf16_groups,
         bf16_keys,
-        f32_groups,
+        bf16_rows,
+        bf16_score_groups,
         fused_mha,
         fused_mha_bwd,
         fused_mha_bwd_reference,
@@ -5942,49 +5975,63 @@ def phase_d3_kernels():
     )
 
     fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
-    tiles = {d: (*(fwd_lib.fused_mha_fwd_bf16_tiles(d, w) for w in (0, 1, 2)),
-                 *(bwd_lib.fused_mha_bwd_bf16_tiles(d, w) for w in (0, 1))) for d in FUSED_HEAD_DIMS}
-    mirrored = {d: (bf16_keys(d), f32_groups(d), BF16_KEPT_TILES, bf16_keys(d), f32_groups(d)) if bf16_keys(d)
-                else (0,) * 5 for d in FUSED_HEAD_DIMS}
+    tiles = {d: (*(fwd_lib.fused_mha_fwd_bf16_tiles(d, w) for w in (0, 1, 2, 3, 4)),
+                 *(bwd_lib.fused_mha_bwd_bf16_tiles(d, w) for w in (0, 1)),
+                 *((fwd_lib.fused_mha_fwd_valid_tiles(d, 1, 3), bwd_lib.fused_mha_bwd_valid_tiles(d, 1, 3))
+                   if d in VALID_ROWS_HEAD_DIMS else ())) for d in FUSED_HEAD_DIMS}
+    mirrored = {d: (bf16_keys(d), bf16_groups(d), BF16_KEPT_TILES, BF16_LIVE_KEYS, bf16_score_groups(d),
+                    bf16_keys(d), bf16_groups(d, backward=True), bf16_rows(d), bf16_rows(d))
+                if d in VALID_ROWS_HEAD_DIMS else (0,) * 7 for d in FUSED_HEAD_DIMS}
     if tiles != mirrored:
-        fail(f"D3 bf16 tile rules: the libraries' (K1 keys, groups, kept tiles, K2 keys, groups) {tiles} differ "
-             f"from ops/fused_mha.py's {mirrored}")
+        fail(f"D3 bf16 tile rules: the libraries' (K1 slot keys, groups, kept slots, live-tile keys, score groups, K2 "
+             f"slot keys, groups, K1 rows, K2 rows) {tiles} differ from ops/fused_mha.py's {mirrored}")
     results, edges = valid_rows_kernels("D3 D1", D1_ATTN, D1_BATCH, D1_HEADS, 291, sample_batch=2 * D1_SAMPLES,
                                         dtype="bfloat16")
     d2_results, d2_edges = valid_rows_kernels("D3 D2", D2_ATTN, D2_BATCH, D2_HEADS, 292, dtype="bfloat16")
     results.update(d2_results)
     edges.update(d2_edges)
 
-    d, sq, skv, attended = D3_LONG
     gen = torch.Generator(device="cuda").manual_seed(293)
-    q, do = (torch.randn(D1_BATCH, sq, D1_HEADS, d, generator=gen, device="cuda", dtype=torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn(D1_BATCH, skv, D1_HEADS, d, generator=gen, device="cuda", dtype=torch.bfloat16)
-            for _ in range(2))
-    mask = (torch.arange(skv, device="cuda") < attended)[None].expand(D1_BATCH, -1).contiguous()
-    with torch.no_grad():
-        o, lse = fused_mha(q, k, v, mask)
-        ro, rlse = fused_mha_reference(q, k, v, mask)
-        err = check_close(f"D3 K1 bf16 D={d} Skv={skv} o", o, ro, *TOL["bfloat16"])
-        check_close(f"D3 K1 bf16 D={d} Skv={skv} lse", lse, rlse, *LSE_TOL)
-        share = bitwise_share(o, ro)
-        if share < D3_BITWISE_MIN:
-            fail(f"D3 K1 bf16 D={d} Skv={skv}: o bitwise the plain version's on {share:.4f} of its elements")
-        bwd_err = check_grads(f"D3 K2 bf16 D={d} Skv={skv}", fused_mha_bwd(q, k, v, mask, lse, do),
-                              fused_mha_bwd_reference(q, k, v, mask, lse, do), BWD_TOL["bfloat16"])
-    edges[f"d{d}_two_pass_skv{skv}_attended{attended}"] = (err, bwd_err)
-    del q, k, v, do, o, lse, ro, rlse
+    d, sq, skv, attended = D3_LONG
+    cases = [(f"d{d}_two_pass_skv{skv}_attended{attended}", d, sq, skv, ((0, attended),))]
+    cases += [(f"d{dd}_{tag}_sq{rows}_keys{'+'.join(f'{lo}-{hi}' for lo, hi in ranges)}", dd, rows, D2_PADDED,
+               ranges) for tag, dd, rows, ranges in D3_EDGES]
+    for label, dd, rows, keys, ranges in cases:
+        q, do = (torch.randn(D1_BATCH, rows, D1_HEADS, dd, generator=gen, device="cuda", dtype=torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(D1_BATCH, keys, D1_HEADS, dd, generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        at = torch.arange(keys, device="cuda")
+        mask = torch.stack([(at >= lo) & (at < hi) for lo, hi in ranges]).any(0)[None].expand(D1_BATCH, -1)
+        mask = mask.contiguous()
+        with torch.no_grad():
+            o, lse = fused_mha(q, k, v, mask)
+            ro, rlse = fused_mha_reference(q, k, v, mask)
+            err = check_close(f"D3 K1 bf16 {label} o", o, ro, *TOL["bfloat16"])
+            check_close(f"D3 K1 bf16 {label} lse", lse, rlse, *LSE_TOL)
+            share = bitwise_share(o, ro)
+            if share < D3_BITWISE_MIN:
+                fail(f"D3 K1 bf16 {label}: o bitwise the plain version's on {share:.4f} of its elements")
+            grads = fused_mha_bwd(q, k, v, mask, lse, do)
+            bwd_err = check_grads(f"D3 K2 bf16 {label}", grads, fused_mha_bwd_reference(q, k, v, mask, lse, do),
+                                  BWD_TOL["bfloat16"])
+        if any(bool(g[~mask].any()) for g in grads[1:]):
+            fail(f"D3 K2 bf16 {label}: a masked key's dk or dv is not 0")
+        edges[label] = (err, bwd_err)
+        del q, k, v, do, o, lse, ro, rlse, grads
     torch.cuda.synchronize()
     print(f"phase 29 kernels bf16 at the UNets' attention shapes (B={D1_BATCH}, K1 also at the D1 CFG request's "
           f"B={2 * D1_SAMPLES}, H={D1_HEADS}, the unpadded query rows, keys padded to {D2_PADDED} with the padding "
-          f"mask; the 16-key hole; {skv} keys at D={d} with {attended} attended: {attended // 16} live tiles, K1's "
-          f"second pass forming the scores anew; tile rules (K1 keys, groups, kept tiles, K2 keys, groups) "
-          f"{ {d: t for d, t in tiles.items() if t[0]} }, as the emulation's; K1's o bitwise the plain version's on "
-          f"at least {D3_BITWISE_MIN} of its elements; device ms from CUDA-graph replays; SDPA bf16 on the same "
-          f"inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, its backward as its "
-          f"memory-efficient backward op (held to SDPA's autograd); bounds at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
-          f"and {PEAK_BYTES_PER_S / 1e12} TB/s, bf16, over the valid rows and keys, and over the padded "
-          f"contract's {D2_PADDED} rows): " + valid_rows_line(results, edges, "bfloat16"))
+          f"mask; the 16-key hole; {skv} keys at D={d} with {attended} attended: {attended // 16} live tiles in "
+          f"{-(-attended // 16 // (bf16_keys(d) // 16))} slots, K1's second pass forming the scores anew; the slots' "
+          f"edges {[c[0] for c in cases[1:]]}; tile rules (K1 slot keys, groups, kept slots, live-tile keys, score "
+          f"groups, K2 slot keys, groups, K1 rows, K2 rows) { {d: t for d, t in tiles.items() if t[0]} }, as the "
+          f"emulation's; K1's "
+          f"o bitwise the plain version's on at least {D3_BITWISE_MIN} of its elements; device ms from CUDA-graph "
+          f"replays; SDPA bf16 on the same inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, "
+          f"its backward as its memory-efficient backward op (held to SDPA's autograd); bounds at "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s and {PEAK_BYTES_PER_S / 1e12} TB/s, bf16, over the valid rows and "
+          f"keys, and over the padded contract's {D2_PADDED} rows): " + valid_rows_line(results, edges, "bfloat16"))
     return results
 
 

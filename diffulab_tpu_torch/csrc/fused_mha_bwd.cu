@@ -940,8 +940,8 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
   const float* wl = ws_lse + ((long long)b * H + h) * Sq;
   const float* wd = ws_di + ((long long)b * H + h) * Sq;
   const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
-  // one group: a warp whose 16 keys are all masked forms no product and writes zeros
-  const bool warp_live = GROUPS > 1 || mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
+  // a warp whose 16 keys are all masked forms no product and writes zeros
+  const bool warp_live = mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
   const int n_tiles = (Sq + QT - 1) / QT;
 
   auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
@@ -1040,18 +1040,15 @@ inline size_t vr_live_bytes(int skv, int kt) {
   return sizeof(int) * (skv / kt + 1);
 }
 
-// --- bf16 at D = 64 and 192-512: the same split around the valid rows (bf16_valid.cuh)
+// --- bf16 at D = 64: the same split around the valid rows (bf16_valid.cuh)
 //
-// The bf16 instance of K2 (diffulab_tpu/ops/fused_mha.py:87), for a bf16 UNet
-// (trainer.precision_type=bf16). At B=128, H=2 a call must read q, do, k and v
-// and write dq, dk and dv over the valid rows and keys, 44.0 / 58.7 / 22.0 /
-// 29.4 MB at D = 192 / 256 / 384 / 512 (0.013 / 0.018 / 0.0066 / 0.0088 ms at
-// 3.35 TB/s), against 2.01 / 2.68 / 0.25 / 0.34 GFLOP (0.003 ms or less at 989
-// TFLOP/s): bound by bytes. The CTAs, warps and column groups are the fp32
-// valid-rows kernels'; the products are mma.sync m16n8k16 on bf16 tiles of
-// VR_BF16_TILE = 16 keys (dq) or queries (dk/dv); K2's roundings: p to bf16
-// before dv = p^T.dO, ds to bf16 before dq = ds.K and dk = ds^T.Q, di from
-// the fp32 p and dp.
+// The bf16 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) for the DiTs'
+// padded short sequences at head dim 64 (a 64-token row, keys padded to 128).
+// The CTAs and warps are the fp32 valid-rows kernels' at D = 64 (one column
+// group); the products are mma.sync m16n8k16 on bf16 tiles of vr_bf16_tile =
+// 64 keys (dq) or queries (dk/dv); K2's roundings: p to bf16 before dv =
+// p^T.dO, ds to bf16 before dq = ds.K and dk = ds^T.Q, di from the fp32 p and
+// dp. The UNets' head dims 192-512 run the staged kernels below.
 
 // dq for vr_rows queries of a (batch, head): pass 1 over the live key tiles
 // forms s, p = exp(s - lse) and dp = dO.V^T and sums di = rowsum(p * dp);
@@ -1066,14 +1063,14 @@ mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, co
                       long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
   constexpr int KT = vr_bf16_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>();
   constexpr int LD = ldb<D>(), NS = VR_SLOTS;
-  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * KT;
+  constexpr int ROW_WARPS = ROWS / 16;
+  static_assert(vr_groups<D>() == 1, "one column group: each warp's s and dp over the whole of D");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [ROWS][LD]
   bf16* dos = qs + ROWS * LD;                                // [ROWS][LD]
   bf16* ks = dos + ROWS * LD;                                // [NS][KT][LD]
   bf16* vs = ks + NS * KT * LD;                              // [NS][KT][LD]
-  float* part = reinterpret_cast<float*>(vs + NS * KT * LD);  // [2][GROUPS][ROWS][KT]: partial s, then dp (GROUPS > 1)
-  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? 2 * PART : 0));  // [Skv / KT + 1]: live tiles, count
+  int* live = reinterpret_cast<int*>(vs + NS * KT * LD);     // [Skv / KT + 1]: live tiles, count
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -1118,22 +1115,9 @@ mha_bwd_dq_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, co
     __syncthreads();
     const int pass = i >= n_live, slot = i % NS, cur = live[i - pass * n_live];
     float p[KT / 8][4], dp[KT / 8][4];
-    if (active) {  // this group's columns of D
+    if (active) {
       rows_dot_bf16<DO, KT, LD>(p, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
       rows_dot_bf16<DO, KT, LD>(dp, dos + col0, r0, vs + slot * KT * LD + col0, g, t4);
-    }
-    if constexpr (GROUPS > 1) {
-      if (active) {
-        put_c<KT>(part + grp * ROWS * KT, p, r0, g, t4);
-        put_c<KT>(part + PART + grp * ROWS * KT, dp, r0, g, t4);
-      }
-      __syncthreads();
-      if (active) {
-        sum_c<KT, GROUPS>(p, part, ROWS * KT, r0, g, t4);
-        sum_c<KT, GROUPS>(dp, part + PART, ROWS * KT, r0, g, t4);
-      }
-    }
-    if (active) {
       probs_f32<KT, D == 64>(p, sm_scale, mb, cur * KT, lse_r, t4);
       if (pass == 0) {
 #pragma unroll
@@ -1188,7 +1172,8 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
                        float sm_scale) {
   constexpr int QT = vr_bf16_tile<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>(), THREADS = vr_threads<D>();
   constexpr int LD = ldb<D>(), NS = VR_SLOTS;
-  constexpr int ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>(), PART = GROUPS * ROWS * QT;
+  constexpr int ROW_WARPS = ROWS / 16;
+  static_assert(vr_groups<D>() == 1, "one column group: each warp's s^T and dp^T over the whole of D");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);                 // [ROWS][LD]
   bf16* vs = ks + ROWS * LD;                                    // [ROWS][LD]
@@ -1196,7 +1181,6 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
   bf16* dos = qs + NS * QT * LD;                                // [NS][QT][LD]
   float* lse_s = reinterpret_cast<float*>(dos + NS * QT * LD);  // [NS][QT]
   float* di_s = lse_s + NS * QT;                                // [NS][QT]
-  float* part = di_s + NS * QT;  // [2][GROUPS][ROWS][QT]: partial s^T, then dp^T (GROUPS > 1)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -1223,8 +1207,8 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
   const float* wl = ws_lse + ((long long)b * H + h) * Sq;
   const float* wd = ws_di + ((long long)b * H + h) * Sq;
   const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
-  // one group: a warp whose 16 keys are all masked forms no product and writes zeros
-  const bool warp_live = GROUPS > 1 || mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
+  // a warp whose 16 keys are all masked forms no product and writes zeros
+  const bool warp_live = mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
   const int n_tiles = (Sq + QT - 1) / QT;
 
   auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf
@@ -1269,15 +1253,6 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
     if (warp_live) {
       rows_dot_bf16<DO, QT, LD>(p, ks + col0, r0, qt + col0, g, t4);
       rows_dot_bf16<DO, QT, LD>(dp, vs + col0, r0, dot + col0, g, t4);
-    }
-    if constexpr (GROUPS > 1) {
-      put_c<QT>(part + grp * ROWS * QT, p, r0, g, t4);
-      put_c<QT>(part + PART + grp * ROWS * QT, dp, r0, g, t4);
-      __syncthreads();
-      sum_c<QT, GROUPS>(p, part, ROWS * QT, r0, g, t4);
-      sum_c<QT, GROUPS>(dp, part + PART, ROWS * QT, r0, g, t4);
-    }
-    if (warp_live) {
 #pragma unroll
       for (int nt = 0; nt < QT / 8; ++nt)
 #pragma unroll
@@ -1302,14 +1277,422 @@ mha_bwd_dkv_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, c
 
 template <int D>
 __host__ __device__ constexpr size_t vr_bf16_dq_smem_bytes() {
-  return 2 * ldb<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
-         sizeof(float) * vr_part_floats<D>(vr_bf16_tile<D>());
+  return 2 * ldb<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>());
 }
 
 template <int D>
 __host__ __device__ constexpr size_t vr_bf16_dkv_smem_bytes() {
   return 2 * ldb<D>() * (2 * vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
-         sizeof(float) * (VR_SLOTS * 2 * vr_bf16_tile<D>() + vr_part_floats<D>(vr_bf16_tile<D>()));
+         sizeof(float) * VR_SLOTS * 2 * vr_bf16_tile<D>();
+}
+
+// --- bf16 at the UNets' head dims 192-512: staged (bf16_valid.cuh)
+//
+// The same split and roundings as above, for a bf16 UNet's backward: dq over
+// a head's vr_bf16_rows valid query rows and its live keys, gathered a slot
+// of vr_bf16_slot keys at a time from the live 16-key tiles, then dk and dv
+// over vr_bf16_rows keys and the valid queries, a slot of vr_bf16_slot at a
+// time. At B=128, H=2 the pair must read q, do, k and v and write dq, dk and
+// dv over the valid rows and keys, 44.2 / 58.9 / 22.1 / 29.4 MB at D = 192 /
+// 256 / 384 / 512 (0.0132 / 0.0176 / 0.0066 / 0.0088 ms at 3.35 TB/s): bound
+// by bytes and, at one short wave of CTAs, by its loads' latency. So each
+// kernel stages what a step reads in one request (the UNets' shapes are one
+// step a CTA: one wait), each warp forms its rows' s and dp over the whole of
+// D and the column groups split only the output columns (no partial score
+// crosses warps), exponentials by __expf.
+
+// dq for vr_bf16_rows queries of a (batch, head). Where the live keys are one
+// slot (the UNets'), one step: s, p = exp(s - lse), dp = dO.V^T, di =
+// rowsum(p * dp) over the whole key row, ds = p * (dp - di) * scale and dq =
+// round(ds).K, p and dp in registers throughout (3 products). A longer row
+// runs pass 1 (di) over its slots, then pass 2 with s and dp formed anew. The
+// CTA writes lse and di for the dk/dv kernel.
+template <int D>
+__global__ void __launch_bounds__(vr_bf16_threads<D, true>())
+mha_bwd_dq_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                       float* __restrict__ ws_lse, float* __restrict__ ws_di, bf16* __restrict__ dq, int Sq,
+                       int Skv, int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = VR_BF16_TILE, SLOT = vr_bf16_slot<D>(), CT = SLOT / KT, DO = vr_bf16_cols<D, true>();
+  constexpr int ROWS = vr_bf16_rows<D>(), THREADS = vr_bf16_threads<D, true>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* dos = qs + ROWS * LD;                    // [ROWS][LD]
+  bf16* ks = dos + ROWS * LD;                    // [SLOT][LD]
+  bf16* vs = ks + SLOT * LD;                     // [SLOT][LD]
+  int* live = reinterpret_cast<int*>(vs + SLOT * LD);  // [Skv / KT + 1]: live tiles, count
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dq columns: col0 + [0, DO)
+  const int row = m0 + r0 + g;                        // this thread's rows: row, row + 8
+  const bool active = m0 + r0 < Sq;                   // the warp has a valid row
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
+                          row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_slots = (n_live + CT - 1) / CT;
+  const bool kept = n_slots == 1;  // the same for every thread: p and dp stay in registers
+  const int n_steps = kept ? 1 : 2 * n_slots;
+
+  float di[2] = {0.f, 0.f}, acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int i = 0; i < n_steps; ++i) {
+    const int c = i % n_slots, n = min(CT, n_live - c * CT);
+    if (i == 0) {
+      stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);
+      stage_bf16_rows<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, m0, Sq);
+    }
+    stage_bf16_tiles<D, KT, THREADS>(ks, k + b * k_sb + h * D, k_ss, live + c * CT, n);
+    stage_bf16_tiles<D, KT, THREADS>(vs, v + b * v_sb + h * D, v_ss, live + c * CT, n);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      float p[SLOT / 8][4], dp[SLOT / 8][4];
+      rows_dot_bf16_ldsm<D, SLOT, LD>(p, qs, r0, ks, lane, n * KT);
+      rows_dot_bf16_ldsm<D, SLOT, LD>(dp, dos, r0, vs, lane, n * KT);
+      scale_and_mask_slot<SLOT, KT>(p, sm_scale, mb, live + c * CT, n, t4);
+#pragma unroll
+      for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[nt][e] = __expf(p[nt][e] - lse_r[e >> 1]);
+      if (i < n_slots) {  // the di pass (the one step where kept)
+#pragma unroll
+        for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+        if (i == n_slots - 1) {  // di over the whole key row
+          di[0] = quad_sum(di[0]);
+          di[1] = quad_sum(di[1]);
+        }
+      }
+      if (kept || i >= n_slots) {
+#pragma unroll
+        for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;
+        scores_times_tile_bf16<DO, SLOT, LD>(acc, p, ks + col0, lane, n * KT);  // dq += round(ds).K
+      }
+    }
+    __syncthreads();  // the slot is written again
+  }
+
+  // dq [B, Sq, H, D] contiguous; lse and di [B * H][Sq]
+  if (!active) return;
+  const long long o_ss = (long long)H * D;
+  store_bf16_rows<DO>(dq + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    const long long w = ((long long)b * H + h) * Sq + row;
+    if (row < Sq) {
+      ws_lse[w] = lse_r[0];
+      ws_di[w] = di[0];
+    }
+    if (row + 8 < Sq) {
+      ws_lse[w + 8] = lse_r[1];
+      ws_di[w + 8] = di[1];
+    }
+  }
+}
+
+// dk and dv for vr_bf16_rows keys of a (batch, head): a CTA whose keys are all
+// masked writes zeros; otherwise its K and V rows stay in shared memory and the
+// valid query rows come a slot of vr_bf16_slot at a time with their lse and di
+// (rows past Sq zero-filled, lse +inf: p = 0), each slot worked in steps of
+// vr_bf16_sub queries: p^T = exp(K.Q^T * scale - lse), dv += round(p^T).dO,
+// dp^T = V.dO^T, ds^T = p^T * (dp^T - di) * scale, dk += round(ds^T).Q. A warp
+// whose 16 keys are all masked forms nothing and writes zeros.
+template <int D>
+__global__ void __launch_bounds__(vr_bf16_threads<D, true>())
+mha_bwd_dkv_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout, const int* __restrict__ mask,
+                        const float* __restrict__ ws_lse, const float* __restrict__ ws_di, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
+                        long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
+                        long long do_ss, float sm_scale) {
+  constexpr int QS = vr_bf16_slot<D>(), SUB = vr_bf16_sub<D>(), DO = vr_bf16_cols<D, true>(), ROWS = vr_bf16_rows<D>();
+  constexpr int THREADS = vr_bf16_threads<D, true>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
+  bf16* vs = ks + ROWS * LD;                             // [ROWS][LD]
+  bf16* qs = vs + ROWS * LD;                             // [QS][LD]
+  bf16* dos = qs + QS * LD;                              // [QS][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + QS * LD);  // [QS]
+  float* di_s = lse_s + QS;                              // [QS]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's dk and dv columns: col0 + [0, DO)
+  const int row = n0 + r0 + g;                        // this thread's keys: row, row + 8
+  const long long o_ss = (long long)H * D;
+  bf16* dkb = dk + (long long)b * Skv * o_ss + h * D;
+  bf16* dvb = dv + (long long)b * Skv * o_ss + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+
+  bool any = mb == nullptr;
+  for (int t = 0; !any && t < ROWS / 16; ++t) any = tile_live<16>(mb + n0, t);
+  if (!any) {  // every key masked: dk = dv = 0
+    for (int i = threadIdx.x; i < ROWS * (D / 8); i += THREADS) {
+      const long long at = (long long)(n0 + i / (D / 8)) * o_ss + (i % (D / 8)) * 8;
+      *reinterpret_cast<int4*>(dkb + at) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(dvb + at) = make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const float* wl = ws_lse + ((long long)b * H + h) * Sq;
+  const float* wd = ws_di + ((long long)b * H + h) * Sq;
+  const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
+  const bool warp_live = mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
+  const int n_steps = (Sq + QS - 1) / QS;
+
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[dn][e] = dv_acc[dn][e] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    if (t == 0) {
+      stage_bf16_rows<D, ROWS, THREADS>(ks, k + b * k_sb + h * D, k_ss, n0, Skv);
+      stage_bf16_rows<D, ROWS, THREADS>(vs, v + b * v_sb + h * D, v_ss, n0, Skv);
+    }
+    stage_bf16_rows<D, QS, THREADS>(qs, q + b * q_sb + h * D, q_ss, t * QS, Sq);
+    stage_bf16_rows<D, QS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, t * QS, Sq);
+    for (int i = threadIdx.x; i < QS; i += THREADS) {
+      const int r = t * QS + i;
+      lse_s[i] = r < Sq ? wl[r] : INFINITY;
+      di_s[i] = r < Sq ? wd[r] : 0.f;
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp_live) {
+#pragma unroll 1
+      for (int q0 = 0; q0 < QS && t * QS + q0 < Sq; q0 += SUB) {
+        const bf16* qt = qs + q0 * LD;
+        const bf16* dot = dos + q0 * LD;
+        // p^T [key, query] = exp(k.q^T * scale - lse[query]), masked by key; dp^T = v.dO^T
+        float p[SUB / 8][4], dp[SUB / 8][4];
+        rows_dot_bf16_ldsm<D, SUB, LD>(p, ks, r0, qt, lane);
+        rows_dot_bf16_ldsm<D, SUB, LD>(dp, vs, r0, dot, lane);
+#pragma unroll
+        for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float x = keep[e >> 1] ? p[nt][e] * sm_scale : MASK_VALUE;
+            p[nt][e] = __expf(x - lse_s[q0 + nt * 8 + 2 * t4 + (e & 1)]);
+          }
+        scores_times_tile_bf16<DO, SUB, LD>(dv_acc, p, dot + col0, lane);  // dv += round(p^T).dO
+#pragma unroll
+        for (int nt = 0; nt < SUB / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[nt][e] = p[nt][e] * (dp[nt][e] - di_s[q0 + nt * 8 + 2 * t4 + (e & 1)]) * sm_scale;
+        scores_times_tile_bf16<DO, SUB, LD>(dk_acc, dp, qt + col0, lane);  // dk += round(ds^T).Q
+      }
+    }
+    __syncthreads();  // the slot is written again next step
+  }
+
+  // dk, dv [B, Skv, H, D] contiguous
+  store_bf16_rows<DO>(dkb + col0, o_ss, row, dk_acc, t4, Skv);
+  store_bf16_rows<DO>(dvb + col0, o_ss, row, dv_acc, t4, Skv);
+}
+
+// dq, dk and dv of a (batch, head) whose valid query rows are one CTA's
+// (Sq <= vr_bf16_rows: the UNets'), in one kernel, as the TPU kernel forms
+// them (one program a batch and head): Q and dO come once, with the K and V
+// of the row's first slot, while the mask row is read (a padded row's
+// attended keys come first; else the live keys are requested anew), then
+// the live keys a slot at a time, K beside V. A warp forms
+// its rows' s and dp over the whole of D; p = exp(s - lse) and di = rowsum(p *
+// dp) from the fp32 p (over the whole row: where the live keys are more than
+// a slot, a first pass over the slots sums di); ds = p * (dp - di) * scale; dq
+// += round(ds).K from the warp's registers; round(p) and round(ds) go to
+// shared memory in V's place, where the warps take the slot's keys: dv =
+// round(p)^T.dO and dk = round(ds)^T.Q over every valid query, complete for
+// those keys. The keys of the tiles without an attended key get dk = dv = 0.
+// No workspace and no second launch: Q, dO, K and V are read once. At B=128,
+// H=2 it took 0.0468 / 0.0595 / 0.0354 / 0.0434 ms at D = 192 / 256 / 384 /
+// 512 against the two kernels' 0.0725 / 0.0919 / 0.0451 / 0.0556, and
+// 0.0473 / 0.0606 / 0.0386 / 0.0476 with K and V requested once the mask row
+// is read (scripts/d3_valid_variants.py, split, no_spec; NVIDIA H100 80GB
+// HBM3, 700 W).
+template <int D>
+__global__ void __launch_bounds__(vr_bf16_threads<D, true>())
+mha_bwd_fused_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                   const bf16* __restrict__ dout, const int* __restrict__ mask, const float* __restrict__ lse,
+                   bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int H,
+                   long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+                   long long do_sb, long long do_ss, float sm_scale) {
+  constexpr int KT = VR_BF16_TILE, SLOT = vr_bf16_slot<D>(), CT = SLOT / KT, DO = vr_bf16_cols<D, true>();
+  constexpr int ROWS = vr_bf16_rows<D>(), THREADS = vr_bf16_threads<D, true>(), LD = ldb<D>();
+  constexpr int ROW_WARPS = ROWS / 16, LDP = SLOT + 8;
+  static_assert(2 * ROWS * LDP <= SLOT * LD, "p and ds fit in V's place");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* dos = qs + ROWS * LD;                    // [ROWS][LD]
+  bf16* ks = dos + ROWS * LD;                    // [SLOT][LD]
+  bf16* vs = ks + SLOT * LD;                     // [SLOT][LD]; then p and ds, [ROWS][LDP] each
+  bf16* ps = vs;
+  bf16* dss = vs + ROWS * LDP;
+  int* live = reinterpret_cast<int*>(vs + SLOT * LD);  // [Skv / KT + 1]: live tiles, count
+  int* dead = live + Skv / KT + 1;                      // [Skv / KT]: 1 for a tile without an attended key
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's output columns: col0 + [0, DO)
+  const int row = r0 + g;                             // this thread's query rows, and slot keys: row, row + 8
+  const bool active = r0 < Sq;                        // the warp has a valid query row
+  const long long o_ss = (long long)H * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
+                          row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
+  // Q, dO, and K and V of the row's first SLOT keys (a padded row's first slot) land while the mask is read
+  stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, 0, Sq);
+  stage_bf16_rows<D, ROWS, THREADS>(dos, dout + b * do_sb + h * D, do_ss, 0, Sq);
+  stage_bf16_rows<D, SLOT, THREADS>(ks, k + b * k_sb + h * D, k_ss, 0, Skv);
+  stage_bf16_rows<D, SLOT, THREADS>(vs, v + b * v_sb + h * D, v_ss, 0, Skv);
+  cp_async_commit();
+  find_live_tiles<KT>(live, mb, n_tiles);
+  for (int t = threadIdx.x; t < n_tiles; t += THREADS) dead[t] = mb != nullptr && !tile_live<KT>(mb, t);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_slots = (n_live + CT - 1) / CT;
+  const bool kept = n_slots == 1;  // the same for every thread: one step a slot, p and dp in registers
+  int resident = live_prefix<CT>(live, n_live) ? 0 : -1;  // the slot K and V hold
+
+  bf16* dkb = dk + (long long)b * Skv * o_ss + h * D;
+  bf16* dvb = dv + (long long)b * Skv * o_ss + h * D;
+  for (int i = threadIdx.x; i < n_tiles * KT * (D / 8); i += THREADS) {  // dk = dv = 0 on the dead tiles' keys
+    const int key = i / (D / 8);
+    if (dead[key / KT]) {
+      const long long at = (long long)key * o_ss + (i % (D / 8)) * 8;
+      *reinterpret_cast<int4*>(dkb + at) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(dvb + at) = make_int4(0, 0, 0, 0);
+    }
+  }
+
+  // s and dp of slot c for this warp's rows: p = exp(s - lse) in p, dp in dp
+  auto scores = [&](float (&p)[SLOT / 8][4], float (&dp)[SLOT / 8][4], int c, int n) {
+    rows_dot_bf16_ldsm<D, SLOT, LD>(p, qs, r0, ks, lane, n * KT);
+    rows_dot_bf16_ldsm<D, SLOT, LD>(dp, dos, r0, vs, lane, n * KT);
+    scale_and_mask_slot<SLOT, KT>(p, sm_scale, mb, live + c * CT, n, t4);
+#pragma unroll
+    for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[nt][e] = __expf(p[nt][e] - lse_r[e >> 1]);
+  };
+  auto stage_slot = [&](int c, int n) {
+    if (resident != c) {
+      if (resident == -1) {  // the early loads land before K and V are requested anew
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      stage_bf16_tiles<D, KT, THREADS>(ks, k + b * k_sb + h * D, k_ss, live + c * CT, n);
+      stage_bf16_tiles<D, KT, THREADS>(vs, v + b * v_sb + h * D, v_ss, live + c * CT, n);
+      cp_async_commit();
+      resident = c;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+
+  float di[2] = {0.f, 0.f}, dq_acc[DO / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) dq_acc[dn][0] = dq_acc[dn][1] = dq_acc[dn][2] = dq_acc[dn][3] = 0.f;
+  for (int c = 0; !kept && c < n_slots; ++c) {  // the di pass over a row of more than a slot
+    const int n = min(CT, n_live - c * CT);
+    stage_slot(c, n);
+    if (active) {
+      float p[SLOT / 8][4], dp[SLOT / 8][4];
+      scores(p, dp, c, n);
+#pragma unroll
+      for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+    }
+    __syncthreads();  // the slot is written again
+  }
+  if (!kept) {
+    di[0] = quad_sum(di[0]);
+    di[1] = quad_sum(di[1]);
+  }
+
+  for (int c = 0; c < n_slots; ++c) {
+    const int n = min(CT, n_live - c * CT);
+    stage_slot(c, n);
+    float p[SLOT / 8][4], dp[SLOT / 8][4];
+    if (active) {
+      scores(p, dp, c, n);
+      if (kept) {  // di over the whole key row: this slot
+#pragma unroll
+        for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) di[e >> 1] += p[nt][e] * dp[nt][e];
+        di[0] = quad_sum(di[0]);
+        di[1] = quad_sum(di[1]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[nt][e] = p[nt][e] * (dp[nt][e] - di[e >> 1]) * sm_scale;  // ds
+    }
+    __syncthreads();  // V is read: p and ds take its place
+    if (grp == 0) {  // round(p) and round(ds) of the warp's rows; zeros for rows without a valid query
+      if (active) {
+        put_bf16_c<SLOT, LDP>(ps, p, r0, g, t4);
+        put_bf16_c<SLOT, LDP>(dss, dp, r0, g, t4);
+      } else {
+        for (int i = lane; i < 16 * SLOT / 8; i += 32) {
+          const int at = (r0 + i / (SLOT / 8)) * LDP + (i % (SLOT / 8)) * 8;
+          *reinterpret_cast<int4*>(ps + at) = make_int4(0, 0, 0, 0);
+          *reinterpret_cast<int4*>(dss + at) = make_int4(0, 0, 0, 0);
+        }
+      }
+    }
+    if (active) {  // dq += round(ds).K
+      uint32_t dsa[SLOT / 16][4];
+      pack_a_bf16<SLOT>(dsa, dp);
+      frags_times_tile_bf16<DO, SLOT, LD>(dq_acc, dsa, ks + col0, lane, n * KT);
+    }
+    __syncthreads();  // p and ds are whole
+    for (int k0 = r0; k0 < n * KT; k0 += ROWS) {  // the slot's keys k0 + [0, 16): one live tile, every query
+      const int key = live[c * CT + k0 / KT] * KT;
+      float acc[DO / 8][4];
+#pragma unroll
+      for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+      tile_t_times_tile_bf16<DO, ROWS, LDP, LD>(acc, ps, k0, dos + col0, lane);  // dv = round(p)^T.dO
+      store_bf16_rows<DO>(dvb + col0, o_ss, key + g, acc, t4, Skv);
+#pragma unroll
+      for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+      tile_t_times_tile_bf16<DO, ROWS, LDP, LD>(acc, dss, k0, qs + col0, lane);  // dk = round(ds)^T.Q
+      store_bf16_rows<DO>(dkb + col0, o_ss, key + g, acc, t4, Skv);
+    }
+    __syncthreads();  // K, V, p and ds are written again
+  }
+  cp_async_wait<0>();  // Q's and dO's group, where no slot waited for it
+  if (active) store_bf16_rows<DO>(dq + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, dq_acc, t4, Sq);
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_bf16_fused_smem_bytes() {
+  return 2 * ldb<D>() * (2 * vr_bf16_rows<D>() + 2 * vr_bf16_slot<D>());
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_bf16_staged_dq_smem_bytes() {
+  return 2 * ldb<D>() * (2 * vr_bf16_rows<D>() + 2 * vr_bf16_slot<D>());
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_bf16_staged_dkv_smem_bytes() {
+  return 2 * ldb<D>() * (2 * vr_bf16_rows<D>() + 2 * vr_bf16_slot<D>()) + sizeof(float) * 2 * vr_bf16_slot<D>();
 }
 
 // --- bf16 at D = 64 and 128: the Hopper kernels of attn_bwd_hopper.cuh ---------
@@ -1442,6 +1825,53 @@ cudaError_t launch_bf16_valid(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the staged bf16 K2 at D = 192-512: where the valid query rows are one
+// CTA's, the fused kernel; else the dq kernel, then the dk/dv kernel, a.ws
+// holding lse, then di, rows (b, h) Sq apart
+template <int D>
+cudaError_t launch_bf16_staged(const Args& a, cudaStream_t stream) {
+  static bool configured[2][MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dq_bf16_staged<D>, configured[0], device);
+  if (err == cudaSuccess) err = allow_smem(mha_bwd_dkv_bf16_staged<D>, configured[1], device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_bf16_staged_dq_smem_bytes<D>() <= SMEM_LIMIT && vr_bf16_staged_dkv_smem_bytes<D>() <= SMEM_LIMIT,
+                "the bf16 K2's tiles exceed shared memory");
+  constexpr int ROWS = vr_bf16_rows<D>();
+  if (a.Sq <= ROWS) {  // one kernel a (batch, head)
+    static bool fused_configured[MAX_DEVICES] = {};
+    static_assert(vr_bf16_fused_smem_bytes<D>() <= SMEM_LIMIT, "the bf16 K2's tiles exceed shared memory");
+    err = allow_smem(mha_bwd_fused_bf16_staged<D>, fused_configured, device);
+    if (err != cudaSuccess) return err;
+    const size_t smem = vr_bf16_fused_smem_bytes<D>() + vr_live_bytes(a.Skv, VR_BF16_TILE) +
+                        sizeof(int) * (a.Skv / VR_BF16_TILE);
+    if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+    mha_bwd_fused_bf16_staged<D><<<dim3(1, a.H, a.B), vr_bf16_threads<D, true>(), smem, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const bf16*>(a.dout), a.mask, a.lse, static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb,
+        a.do_ss, a.sm_scale);
+    return cudaGetLastError();
+  }
+  float* ws_lse = a.ws;
+  float* ws_di = a.ws + (long long)a.B * a.H * a.Sq;
+  const size_t dq_smem = vr_bf16_staged_dq_smem_bytes<D>() + vr_live_bytes(a.Skv, VR_BF16_TILE);
+  if (dq_smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  mha_bwd_dq_bf16_staged<D><<<dim3((a.Sq + ROWS - 1) / ROWS, a.H, a.B), vr_bf16_threads<D, true>(), dq_smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.mask, a.lse, ws_lse, ws_di, static_cast<bf16*>(a.dq), a.Sq, a.Skv, a.H,
+      a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mha_bwd_dkv_bf16_staged<D><<<dim3(a.Skv / ROWS, a.H, a.B), vr_bf16_threads<D, true>(),
+                               vr_bf16_staged_dkv_smem_bytes<D>(), stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const bf16*>(a.dout), a.mask, ws_lse, ws_di, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t stream) {
   if (dtype == 1) {
@@ -1510,10 +1940,10 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
       err = !any_rows ? launch<64>(dtype, a, s) : dtype == 0 ? launch_f32_valid<64>(a, s) : launch_bf16_valid<64>(a, s);
       break;
     case 128: err = launch<128>(dtype, a, s); break;
-    case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : launch_bf16_valid<192>(a, s); break;
-    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : launch_bf16_valid<256>(a, s); break;
-    case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : launch_bf16_valid<384>(a, s); break;
-    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : launch_bf16_valid<512>(a, s); break;
+    case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : launch_bf16_staged<192>(a, s); break;
+    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : launch_bf16_staged<256>(a, s); break;
+    case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : launch_bf16_staged<384>(a, s); break;
+    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : launch_bf16_staged<512>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -1552,33 +1982,37 @@ extern "C" int fused_mha_bwd_f32_groups(int D) {
   }
 }
 
-// the bf16 K2 at the valid-rows head dims, by the rules its launch follows:
-// keys (dq kernel) or queries (dk/dv kernel) of a ring slot (what = 0), column
-// groups of warps (what = 1); 0 for another D. ops/fused_mha.py (bf16_keys,
-// f32_groups) mirrors them.
+// the staged bf16 K2 at the valid-rows head dims, by the rules its launch
+// follows: keys (dq kernel) or queries (dk/dv kernel) of a staged slot (what =
+// 0), column groups of warps (what = 1); 0 for another D. ops/fused_mha.py
+// (bf16_keys, bf16_groups) mirrors them.
 extern "C" int fused_mha_bwd_bf16_tiles(int D, int what) {
   switch (D) {
-    case 192: return what == 0 ? VR_BF16_TILE : vr_groups<192>();
-    case 256: return what == 0 ? VR_BF16_TILE : vr_groups<256>();
-    case 384: return what == 0 ? VR_BF16_TILE : vr_groups<384>();
-    case 512: return what == 0 ? VR_BF16_TILE : vr_groups<512>();
+    case 192: return what == 0 ? vr_bf16_slot<192>() : vr_bf16_groups<192, true>();
+    case 256: return what == 0 ? vr_bf16_slot<256>() : vr_bf16_groups<256, true>();
+    case 384: return what == 0 ? vr_bf16_slot<384>() : vr_bf16_groups<384, true>();
+    case 512: return what == 0 ? vr_bf16_slot<512>() : vr_bf16_groups<512, true>();
     default: return 0;
   }
 }
 
 // the instances of K2 built around the valid rows at head dim D in dtype (0
 // fp32, 1 bf16), by the rules their launch follows: keys (dq kernel) or
-// queries (dk/dv kernel) of a ring slot (what = 0), column groups of warps
-// (what = 1), rows a CTA (what = 3); 0 where D has no such instance (and for
-// what = 2, which the forward's export uses for its kept tiles).
-// ops/fused_mha.py (f32_keys and bf16_keys with valid_rows, f32_groups)
-// mirrors them.
+// queries (dk/dv kernel) of a ring (or staged) slot (what = 0), column groups
+// of warps (what = 1), rows a CTA (what = 3); 0 where D has no such instance
+// (and for what = 2, which the forward's export uses for its kept slots).
+// ops/fused_mha.py (f32_keys and bf16_keys with valid_rows, f32_groups,
+// bf16_groups, bf16_rows) mirrors them.
 extern "C" int fused_mha_bwd_valid_tiles(int D, int dtype, int what) {
-#define K2_TILES_ANY(DD)                                                                                \
-  if (D == DD)                                                                                          \
-    return what == 0 ? (dtype == 1 ? vr_bf16_tile<DD>() : vr_tile<DD>()) : what == 1 ? vr_groups<DD>()  \
-         : what == 2 ? 0 : vr_rows<DD>();
-  K2_TILES_ANY(64) K2_TILES_ANY(192) K2_TILES_ANY(256) K2_TILES_ANY(384) K2_TILES_ANY(512)
+  if (D == 64)
+    return what == 0 ? (dtype == 1 ? vr_bf16_tile<64>() : vr_tile<64>()) : what == 1 ? vr_groups<64>()
+         : what == 2 ? 0 : vr_rows<64>();
+#define K2_TILES_ANY(DD)                                                                                        \
+  if (D == DD)                                                                                                  \
+    return what == 2 ? 0                                                                                        \
+         : dtype == 1 ? (what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD, true>() : vr_bf16_rows<DD>()) \
+                      : (what == 0 ? vr_tile<DD>() : what == 1 ? vr_groups<DD>() : vr_rows<DD>());
+  K2_TILES_ANY(192) K2_TILES_ANY(256) K2_TILES_ANY(384) K2_TILES_ANY(512)
 #undef K2_TILES_ANY
   return 0;
 }

@@ -813,29 +813,21 @@ inline int vr_live_bytes(int skv, int kt) {
   return 4 * (skv / kt + 1);
 }
 
-// The bf16 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the same head
-// dims and around the same valid rows (bf16_valid.cuh): a bf16 UNet
-// (trainer.precision_type=bf16) attends here. At B=128, H=2 a call must read
-// q, k and v and write o over the valid rows and keys, 25.2 / 33.6 / 12.6 /
-// 16.8 MB at D = 192 / 256 / 384 / 512 (0.0075 / 0.0100 / 0.0038 / 0.0050 ms
-// at 3.35 TB/s), against 0.81 / 1.07 / 0.10 / 0.13 GFLOP (0.001 ms at 989
-// TFLOP/s): bound by bytes. The CTAs, warps and column groups are the fp32
-// instance's (vr_rows, vr_cols, vr_groups); the products are mma.sync
-// m16n8k16 on bf16 tiles, over key tiles of VR_BF16_TILE = 16 keys, and only
-// the live ones are loaded or multiplied. The rounding is K1's: p = exp(s -
-// m) / l with m and l over the whole row, rounded to bf16 BEFORE p.v (an
-// online softmax would round another p). So two passes over the live tiles:
-// pass 1 brings K alone and forms m and l; pass 2 brings V, forms p and o +=
-// p.v. Up to VR_BF16_KEEP live tiles (64 keys: the UNets' 64 and 16 tokens)
-// each warp keeps its rows' pass-1 scores in registers and pass 2 loads no K;
-// above that (FUSED_MAX_SEQ allows 512 keys) pass 2 brings K again and forms
-// the scores anew, bit for bit the same. A batch row with no live tile writes
-// o = 0, lse = +inf without loading Q. 42-87 KB of shared memory. At D = 64
-// (the DiTs' padded short sequences, as the fp32 instance's note says) one
-// group holds the head, the scores stay in each warp's registers, key tiles
-// hold vr_bf16_tile = 64 keys, one live tile (a 64-token row) is kept
-// between the passes (vr_bf16_keep), and p is exponentiated by __expf and
-// multiplied by 1 / l (bf16_exp); 46 KB of shared memory.
+// The bf16 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) around the same
+// valid rows at head dim 64, for the DiTs' padded short sequences (as the
+// fp32 instance's note says): one column group holds the head, and the scores
+// stay in each warp's registers; the products are mma.sync m16n8k16 on bf16
+// tiles (bf16_valid.cuh) over key tiles of vr_bf16_tile = 64 keys, only the
+// live ones loaded or multiplied. The rounding is K1's: p = exp(s - m) / l
+// with m and l over the whole row, rounded to bf16 BEFORE p.v (an online
+// softmax would round another p). So two passes over the live tiles: pass 1
+// brings K alone and forms m and l; pass 2 brings V, forms p and o += p.v.
+// One live tile (a 64-token row) keeps its scores in registers between the
+// passes (vr_bf16_keep) and pass 2 loads no K; above that pass 2 brings K
+// again and forms the scores anew, bit for bit the same. p is exponentiated
+// by __expf and multiplied by 1 / l (bf16_exp). A batch row with no live
+// tile writes o = 0, lse = +inf without loading Q. 46 KB of shared memory.
+// The UNets' head dims 192-512 run the staged instance below.
 template <int D>
 __global__ void __launch_bounds__(vr_threads<D>())
 mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -843,14 +835,14 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
                    long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                    float sm_scale) {
   constexpr int KT = vr_bf16_tile<D>(), KEEP = vr_bf16_keep<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>();
-  constexpr int THREADS = vr_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16, GROUPS = vr_groups<D>();
+  constexpr int THREADS = vr_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16;
   constexpr int NS = VR_SLOTS;
+  static_assert(vr_groups<D>() == 1, "one column group: each warp's scores over the whole of D");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);       // [ROWS][LD]
   bf16* ks = qs + ROWS * LD;                          // [NS][KT][LD]
   bf16* vs = ks + NS * KT * LD;                       // [NS][KT][LD]
-  float* part = reinterpret_cast<float*>(vs + NS * KT * LD);  // [GROUPS][ROWS][KT]: partial scores (GROUPS > 1)
-  int* live = reinterpret_cast<int*>(part + (GROUPS > 1 ? GROUPS * ROWS * KT : 0));  // [Skv / KT + 1]: live tiles
+  int* live = reinterpret_cast<int*>(vs + NS * KT * LD);  // [Skv / KT + 1]: live tiles
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -892,13 +884,8 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     // j: the live tile's place in its pass
     const int pass = i >= n_live, j = i - pass * n_live, slot = i % NS, cur = live[j];
     float s[KT / 8][4];
-    if (pass == 0 || !kept) {  // the whole row's scores of this tile, over every group's columns of D
+    if (pass == 0 || !kept) {  // the whole row's scores of this tile
       if (active) rows_dot_bf16<DO, KT, LD>(s, qs + col0, r0, ks + slot * KT * LD + col0, g, t4);
-      if constexpr (GROUPS > 1) {
-        if (active) put_c<KT>(part + grp * ROWS * KT, s, r0, g, t4);
-        __syncthreads();
-        if (active) sum_c<KT, GROUPS>(s, part, ROWS * KT, r0, g, t4);
-      }
       if (active) scale_and_mask_c<KT>(s, sm_scale, mb, cur * KT, t4);
     }
     if (active) {
@@ -977,8 +964,182 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
 
 template <int D>
 __host__ __device__ constexpr int vr_bf16_fwd_smem_bytes() {
-  return 2 * ldb<D>() * (vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>()) +
-         4 * vr_part_floats<D>(vr_bf16_tile<D>());
+  return 2 * ldb<D>() * (vr_rows<D>() + VR_SLOTS * 2 * vr_bf16_tile<D>());
+}
+
+// The bf16 instance of K1 at the UNets' head dims 192, 256, 384 and 512,
+// staged (bf16_valid.cuh): a CTA takes a head's vr_bf16_rows unpadded query
+// rows (64 at D = 192 and 256, so one CTA loads a head's K and V once; 16 at
+// 384 and 512) and walks the live keys a slot of vr_bf16_slot keys at a time
+// (64 or 16: the UNets' whole live row), each slot gathered from the mask
+// row's live 16-key tiles. At B=128, H=2 a call must read q, k and v and write
+// o over the valid rows and keys, 25.3 / 33.7 / 12.7 / 16.9 MB at D = 192 /
+// 256 / 384 / 512 (0.0076 / 0.0101 / 0.0038 / 0.0050 ms at 3.35 TB/s),
+// against 0.81 / 1.07 / 0.10 / 0.13 GFLOP: bound by bytes, and by the
+// latency of its loads at one short wave of CTAs. So Q is requested while
+// the mask row is read, K and V once it is: where the live row is one slot
+// (the UNets'), the scores and p are formed while V lands, and the kernel
+// waits twice. Each warp forms its 16 rows' scores over the whole of D (the
+// column groups repeat them, a few hundred cycles of mma.sync) and the
+// groups split only P.V's output columns, so no partial scores cross warps;
+// at D = 512 the groups add their partials once a slot instead
+// (vr_bf16_exchange). K1's rounding stays the reference's: m and l over the
+// whole row, then p = exp(s - m) * (1 / l) rounded to bf16 before P.V, the
+// exponentials by __expf (ex2.approx, about 2 ulp), as at D = 64 (expf and a
+// division by l took it from 0.0176 ms to 0.0196 at D = 192, B=128, H=2:
+// scripts/d3_valid_variants.py, precise_exp; NVIDIA H100 80GB HBM3, 700 W).
+// A one-slot row's p stays in registers, packed to bf16; a longer row
+// (FUSED_MAX_SEQ allows 512 keys) runs pass 0 (m and l) over its slots' K,
+// then pass 1 over K and V again, the scores formed anew bit for bit,
+// through VR_BF16_BUFFERS slot buffers, the next one loading while one is
+// computed. A batch row with no live tile writes o = 0, lse = +inf.
+template <int D>
+__global__ void __launch_bounds__(vr_bf16_threads<D>())
+mha_fwd_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const int* __restrict__ mask, bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
+                    int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                    long long v_ss, float sm_scale) {
+  constexpr int KT = VR_BF16_TILE, SLOT = vr_bf16_slot<D>(), CT = SLOT / KT, DO = vr_bf16_cols<D>();
+  constexpr int ROWS = vr_bf16_rows<D>(), THREADS = vr_bf16_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16;
+  constexpr int NB = VR_BF16_BUFFERS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
+  bf16* buf = qs + ROWS * LD;                            // [NB][SLOT][LD]: a slot's K or V
+  constexpr int SG = vr_bf16_score_groups<D>();
+  float* part = reinterpret_cast<float*>(buf + NB * SLOT * LD);  // [SG][ROWS][SLOT]: partial scores (SG > 1)
+  int* live = reinterpret_cast<int*>(part + (SG > 1 ? SG * ROWS * SLOT : 0));  // [Skv / KT + 1]: live tiles, count
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
+  const int grp = warp / ROW_WARPS, col0 = grp * DO;  // this warp's output columns: col0 + [0, DO)
+  const bool active = m0 + r0 < Sq;                   // the warp has a valid row
+  const bf16* kb = k + b * k_sb + h * D;
+  const bf16* vb = v + b * v_sb + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+  stage_bf16_rows<D, ROWS, THREADS>(qs, q + b * q_sb + h * D, q_ss, m0, Sq);  // Q lands while the mask is read
+  cp_async_commit();
+  find_live_tiles<KT>(live, mb, n_tiles);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_slots = (n_live + CT - 1) / CT;
+  const bool kept = n_slots == 1;  // the same for every thread: p stays in registers
+  // the load sequence: pass 0 the slots' K (items 0 .. n_slots - 1); pass 1 their V where kept, else each
+  // slot's K, then its V; item i in buffer i % NB
+  const int n_items = kept ? 2 : 3 * n_slots;
+  int issued = 0;
+  auto issue_upto = [&](int last) {  // every item up to `last` requested, one cp.async group each
+    for (; issued <= last && issued < n_items; ++issued) {
+      const int j = issued - n_slots, slot = issued < n_slots ? issued : kept ? 0 : j >> 1;
+      const bool is_v = issued >= n_slots && (kept || (j & 1));
+      const int n = min(CT, n_live - slot * CT);
+      stage_bf16_tiles<D, KT, THREADS>(buf + (issued % NB) * SLOT * LD, is_v ? vb : kb, is_v ? v_ss : k_ss,
+                                       live + slot * CT, n);
+      cp_async_commit();
+    }
+  };
+  // item `last` has landed and the items [first, last] are read here: request up to NB items from `first`
+  auto await_items = [&](int first, int last) {
+    issue_upto(first + NB - 1);
+    cp_async_wait_upto<NB - 1>(issued - last - 1);
+    __syncthreads();
+  };
+
+  float acc[DO / 8][4], s[SLOT / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad after pass 0
+  // SG > 1: s = the raw scores of a slot (K in kbuf), this group's columns' product and the groups' partials
+  // added in group order (every thread of the CTA calls it); else each warp forms them over the whole of D
+  auto exchange_scores = [&](const bf16* kbuf, int n) {
+    if (active) {
+      rows_dot_bf16_ldsm<DO, SLOT, LD>(s, qs + col0, r0, kbuf + col0, lane, n * KT);
+      put_c<SLOT>(part + grp * ROWS * SLOT, s, r0, lane >> 2, t4);
+    }
+    __syncthreads();
+    if (active) sum_c<SLOT, SG>(s, part, ROWS * SLOT, r0, lane >> 2, t4);
+  };
+
+  for (int c = 0; c < n_slots; ++c) {  // pass 0: the row max and sum over the whole row
+    await_items(c, c);
+    const int n = min(CT, n_live - c * CT);
+    if constexpr (SG > 1) exchange_scores(buf + (c % NB) * SLOT * LD, n);
+    if (active) {
+      if constexpr (SG == 1) rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (c % NB) * SLOT * LD, lane, n * KT);
+      scale_and_mask_slot<SLOT, KT>(s, sm_scale, mb, live + c * CT, n, t4);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < SLOT / 8; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        l[r] *= __expf(m[r] - m_new);  // 0 on the first slot (m = -inf)
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += __expf(s[nt][e] - m[e >> 1]);
+    }
+    __syncthreads();  // the buffer is written again
+  }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  // p = exp(s - m) * (1 / l), rounded to bf16: the A operand of o += p.v
+  uint32_t pa[SLOT / 16][4];
+  auto probs = [&]() {
+#pragma unroll
+    for (int nt = 0; nt < SLOT / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = __expf(s[nt][e] - m[e >> 1]) * inv_l[e >> 1];
+    pack_a_bf16<SLOT>(pa, s);
+  };
+  if (kept && active) probs();  // while V lands
+
+  for (int c = 0; c < n_slots; ++c) {  // pass 1: o += p.v
+    const int kb_item = kept ? 0 : n_slots + 2 * c, vb_item = kept ? 1 : kb_item + 1;
+    await_items(kept ? vb_item : kb_item, vb_item);
+    const int n = min(CT, n_live - c * CT);
+    if constexpr (SG > 1)
+      if (!kept) exchange_scores(buf + (kb_item % NB) * SLOT * LD, n);
+    if (active) {
+      if (!kept) {
+        if constexpr (SG == 1)
+          rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (kb_item % NB) * SLOT * LD, lane, n * KT);
+        scale_and_mask_slot<SLOT, KT>(s, sm_scale, mb, live + c * CT, n, t4);
+        probs();
+      }
+      frags_times_tile_bf16<DO, SLOT, LD>(acc, pa, buf + (vb_item % NB) * SLOT * LD + col0, lane, n * KT);
+    }
+    __syncthreads();  // the buffers are written again
+  }
+  cp_async_wait<0>();  // Q's group, where no slot waited for it
+
+  // a row without an attended key (m still -inf, or MASK_VALUE) gives o = 0, lse = +inf
+  if (!active) return;
+  bool dead[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dead[r] = mb != nullptr && m[r] <= MASK_VALUE;
+#pragma unroll
+  for (int dn = 0; dn < DO / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = dead[e >> 1] ? 0.f : acc[dn][e];
+  const long long o_ss = (long long)H * D;
+  const int row = m0 + r0 + (lane >> 2);
+  store_bf16_rows<DO>(o + (long long)b * Sq * o_ss + h * D + col0, o_ss, row, acc, t4, Sq);
+  if (grp == 0 && t4 == 0) {
+    if (row < Sq) lse[((long long)b * Sq + row) * H + h] = dead[0] ? INFINITY : m[0] + logf(l[0]);
+    if (row + 8 < Sq) lse[((long long)b * Sq + row + 8) * H + h] = dead[1] ? INFINITY : m[1] + logf(l[1]);
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr int vr_bf16_staged_fwd_smem_bytes() {
+  return 2 * ldb<D>() * (vr_bf16_rows<D>() + VR_BF16_BUFFERS * vr_bf16_slot<D>()) +
+         (vr_bf16_score_groups<D>() > 1 ? 4 * vr_bf16_score_groups<D>() * vr_bf16_rows<D>() * vr_bf16_slot<D>() : 0);
 }
 
 // ---- host side
@@ -1077,6 +1238,24 @@ cudaError_t launch_f32_valid(const void* q, const void* k, const void* v, const 
 }
 
 template <int D>
+cudaError_t launch_bf16_staged(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
+                               int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
+                               long long k_ss, long long v_sb, long long v_ss, float sm_scale, int device,
+                               cudaStream_t stream) {
+  auto kernel = mha_fwd_bf16_staged<D>;
+  static bool configured[MAX_DEVICES] = {};
+  const cudaError_t err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_bf16_staged_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the bf16 K1's tiles exceed shared memory");
+  const int smem = vr_bf16_staged_fwd_smem_bytes<D>() + vr_live_bytes(Skv, VR_BF16_TILE);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  kernel<<<dim3((Sq + vr_bf16_rows<D>() - 1) / vr_bf16_rows<D>(), H, B), vr_bf16_threads<D>(), smem,
+           stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), mask,
+                     static_cast<bf16*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bf16_valid(const void* q, const void* k, const void* v, const int* mask, void* o, float* lse,
                               int B, int Sq, int Skv, int H, long long q_sb, long long q_ss, long long k_sb,
                               long long k_ss, long long v_sb, long long v_ss, float sm_scale, int device,
@@ -1098,12 +1277,12 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
                 int Skv, int H, int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                 long long v_ss, float sm_scale, int dtype, int valid_rows, int resident, int chunk, int buffers,
                 int device, cudaStream_t stream) {
-#define K1_VALID(DD)                                                                                            \
-  if (D == DD && valid_rows)                                                                                    \
-    return (dtype == 1 ? launch_bf16_valid<DD> : launch_f32_valid<DD>)(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, \
-                                                                       q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale,   \
-                                                                       device, stream);
-  K1_VALID(64) K1_VALID(192) K1_VALID(256) K1_VALID(384) K1_VALID(512)
+#define K1_VALID(DD, BF16)                                                                                  \
+  if (D == DD && valid_rows)                                                                                \
+    return (dtype == 1 ? BF16<DD> : launch_f32_valid<DD>)(q, k, v, mask, o, lse, B, Sq, Skv, H, q_sb, q_ss, k_sb, \
+                                                         k_ss, v_sb, v_ss, sm_scale, device, stream);
+  K1_VALID(64, launch_bf16_valid) K1_VALID(192, launch_bf16_staged) K1_VALID(256, launch_bf16_staged)
+  K1_VALID(384, launch_bf16_staged) K1_VALID(512, launch_bf16_staged)
 #undef K1_VALID
   if (dtype == 1) {
     if (smem_bytes(D, resident != 0, Skv, buffers) > SMEM_LIMIT) return cudaErrorInvalidValue;
@@ -1175,31 +1354,40 @@ extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
   return 0;
 }
 
-// the bf16 K1 at the valid-rows head dims, by the rules its launch follows:
-// keys of a ring slot (what = 0), column groups of warps (what = 1), live key
-// tiles whose scores stay in registers between the passes (what = 2); 0 for
-// another D. ops/fused_mha.py (bf16_keys, f32_groups, BF16_KEPT_TILES)
-// mirrors them.
+// the staged bf16 K1 at the valid-rows head dims, by the rules its launch
+// follows: keys of a staged slot (what = 0), column groups of warps (what =
+// 1), slots whose scores stay in registers between the passes (what = 2),
+// keys of the mask's liveness tiles that a slot gathers (what = 3), groups
+// whose partial scores are added (what = 4); 0 for another D.
+// ops/fused_mha.py (bf16_keys, bf16_groups, BF16_KEPT_TILES, BF16_LIVE_KEYS,
+// bf16_score_groups) mirrors them.
 extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
-#define K1_TILES_BF16(DD) \
-  if (D == DD) return what == 0 ? VR_BF16_TILE : what == 1 ? vr_groups<DD>() : VR_BF16_KEEP;
+#define K1_TILES_BF16(DD)                                                                                      \
+  if (D == DD)                                                                                                 \
+    return what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : what == 2 ? 1 : what == 3 ? VR_BF16_TILE \
+         : vr_bf16_score_groups<DD>();
   K1_TILES_BF16(192) K1_TILES_BF16(256) K1_TILES_BF16(384) K1_TILES_BF16(512)
 #undef K1_TILES_BF16
   return 0;
 }
 
 // the instance of K1 built around the valid rows at head dim D in dtype (0
-// fp32, 1 bf16), by the rules its launch follows: keys of a ring slot (what =
-// 0), column groups of warps (what = 1), live key tiles whose scores stay in
-// registers between the passes (what = 2; bf16 alone), query rows a CTA (what
-// = 3); 0 where D has no such instance. ops/fused_mha.py (f32_keys and
-// bf16_keys with valid_rows, f32_groups, bf16_kept_tiles) mirrors them.
+// fp32, 1 bf16), by the rules its launch follows: keys of a ring (or staged)
+// slot (what = 0), column groups of warps (what = 1), slots whose scores stay
+// in registers between the passes (what = 2; bf16 alone), query rows a CTA
+// (what = 3); 0 where D has no such instance. ops/fused_mha.py (f32_keys and
+// bf16_keys with valid_rows, f32_groups, bf16_groups, bf16_kept_tiles,
+// bf16_rows) mirrors them.
 extern "C" int fused_mha_fwd_valid_tiles(int D, int dtype, int what) {
-#define K1_TILES_ANY(DD)                                                                           \
-  if (D == DD)                                                                                     \
-    return what == 0 ? (dtype == 1 ? vr_bf16_tile<DD>() : vr_tile<DD>()) : what == 1 ? vr_groups<DD>() \
-         : what == 2 ? (dtype == 1 ? vr_bf16_keep<DD>() : 0) : vr_rows<DD>();
-  K1_TILES_ANY(64) K1_TILES_ANY(192) K1_TILES_ANY(256) K1_TILES_ANY(384) K1_TILES_ANY(512)
+  if (D == 64)
+    return what == 0 ? (dtype == 1 ? vr_bf16_tile<64>() : vr_tile<64>()) : what == 1 ? vr_groups<64>()
+         : what == 2 ? (dtype == 1 ? vr_bf16_keep<64>() : 0) : vr_rows<64>();
+#define K1_TILES_ANY(DD)                                                                                   \
+  if (D == DD)                                                                                             \
+    return dtype == 1 ? (what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : what == 2 ? 1 \
+                         : vr_bf16_rows<DD>())                                                             \
+                      : (what == 0 ? vr_tile<DD>() : what == 1 ? vr_groups<DD>() : what == 2 ? 0 : vr_rows<DD>());
+  K1_TILES_ANY(192) K1_TILES_ANY(256) K1_TILES_ANY(384) K1_TILES_ANY(512)
 #undef K1_TILES_ANY
   return 0;
 }

@@ -40,13 +40,20 @@ tokens at D = 192 and 256, 16 at 384 and 512, padded to 128 keys) have
 instances of their own in both dtypes, built around the valid rows: they
 take the unpadded query rows (``ops/attention.py`` pads only k, v and the
 mask for them), neither load nor multiply a key tile whose mask is all 0,
-and split each row's output and the score products' reduction over D
-between column groups of warps (:func:`f32_groups`); K2's dk/dv kernel
-writes zeros for a CTA whose keys are all masked. In fp32 their products
-are 3xTF32 over tiles of 8 keys; in bf16 they are ``mma.sync`` m16n8k16
-over tiles of 16 keys (:func:`bf16_keys`), and K1 keeps its rounding order
-in two passes over the live tiles, m and l first, then ``p = exp(s - m) /
-l`` rounded to bf16 before PV (:func:`fused_mha_bf16_valid_emulation`).
+and split each row's output between column groups of warps; K2's dk/dv
+kernel writes zeros for a CTA whose keys are all masked. In fp32 the groups
+split the score products' reduction over D too (:func:`f32_groups`), and
+the products are 3xTF32 over tiles of 8 keys. In bf16 the instances are
+staged: a slot of :func:`bf16_keys` keys (64 at D = 192 and 256, 16 at 384
+and 512: the UNets' whole live row) gathered from the mask's live 16-key
+tiles is requested at once, K beside V, each warp forms its rows' scores
+over the whole of D by ``mma.sync`` m16n8k16 and the groups
+(:func:`bf16_groups`) split only the output columns (K1 at D = 512 adds
+its groups' partial scores once a slot, :func:`bf16_score_groups`); K1
+keeps its rounding order in two passes over the slots, m and l first, then
+``p = exp(s - m)·(1 / l)`` rounded to bf16 before PV, a one-slot row's p
+kept in registers (:func:`fused_mha_bf16_valid_emulation`); K2 runs as one
+kernel a batch and head where the head's valid query rows fit one CTA.
 At head dim 64 (:data:`SHORT_ROWS_HEAD_DIM`) the same instances stand
 beside the padded ones for the DiTs' short sequences that the fused route
 pads (64 or 72 tokens to 128 keys, 264 to 384): the kernels' wrappers take
@@ -207,34 +214,73 @@ def f32_groups(d: int) -> int:
     return d // {192: 96, 384: 64}.get(d, 128) if d in VALID_ROWS_HEAD_DIMS else 1
 
 
-#: live key tiles whose scores the bf16 K1 at :data:`VALID_ROWS_HEAD_DIMS`
-#: keeps in registers between its two passes (``VR_BF16_KEEP``): up to 64 live
-#: keys its second pass loads V alone, above that K again
-BF16_KEPT_TILES = 4
+#: slots whose scores the bf16 K1 built around the valid rows keeps in
+#: registers between its two passes (``vr_bf16_keep``, and 1 in the staged
+#: instances at :data:`VALID_ROWS_HEAD_DIMS`): a live row of one slot (64 keys,
+#: 16 at D = 384 and 512: the UNets' 64 and 16 tokens) loads K once, above that
+#: K again
+BF16_KEPT_TILES = 1
+
+#: keys of the mask's liveness tiles at :data:`VALID_ROWS_HEAD_DIMS`
+#: (``VR_BF16_TILE``): a tile with an attended key is live, and a staged slot
+#: gathers the live ones (:func:`bf16_keys` keys a slot)
+BF16_LIVE_KEYS = 16
 
 
 def bf16_keys(d: int, valid_rows: bool = False) -> int:
-    """Keys (K1, K2's dq kernel) or queries (K2's dk/dv kernel) of a ring
-    slot of the bf16 instances at head dim ``d`` where they are built around
-    the valid rows: 16, one ``mma.sync`` m16n8k16 reduction, at
-    :data:`VALID_ROWS_HEAD_DIMS` (``VR_BF16_TILE`` in
-    ``csrc/bf16_valid.cuh``), and with ``valid_rows`` 64 at
-    :data:`SHORT_ROWS_HEAD_DIM` (``vr_bf16_tile``); 0 elsewhere. This,
-    :func:`f32_groups` and :func:`bf16_kept_tiles` mirror the built
-    libraries' ``fused_mha_fwd_bf16_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles``
-    and ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on
-    the card."""
+    """Keys (K1, K2's dq kernel) or queries (K2's dk/dv kernel) of a slot of
+    the bf16 instances at head dim ``d`` where they are built around the
+    valid rows: at :data:`VALID_ROWS_HEAD_DIMS` the staged instances' slot
+    (``vr_bf16_slot`` in ``csrc/bf16_valid.cuh``), 64 at D = 192 and 256, 16
+    at 384 and 512, gathered from live tiles of :data:`BF16_LIVE_KEYS` keys;
+    with ``valid_rows`` 64 at :data:`SHORT_ROWS_HEAD_DIM`, where a slot is one
+    tile (``vr_bf16_tile``); 0 elsewhere. This, :func:`bf16_groups`,
+    :func:`bf16_rows` and :func:`bf16_kept_tiles` mirror the built libraries'
+    ``fused_mha_fwd_bf16_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles`` and
+    ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on the
+    card."""
     if valid_rows and d == SHORT_ROWS_HEAD_DIM:
         return 64
-    return 16 if d in VALID_ROWS_HEAD_DIMS else 0
+    return {192: 64, 256: 64, 384: 16, 512: 16}.get(d, 0)
+
+
+def bf16_groups(d: int, backward: bool = False) -> int:
+    """Column groups of warps of the bf16 instances built around the valid
+    rows at head dim ``d``, K1's or (``backward``) K2's: at
+    :data:`VALID_ROWS_HEAD_DIMS` the staged instances' (``vr_bf16_groups``:
+    K1 one group at D = 192 and 256, groups of 128 columns at 384 and 512;
+    K2 96, 128, 64 and 128 columns), which split only the output columns,
+    each warp forming its rows' scores over the whole of D; 1 at
+    :data:`SHORT_ROWS_HEAD_DIM`."""
+    if d not in VALID_ROWS_HEAD_DIMS:
+        return 1
+    if backward:
+        return d // {192: 96, 384: 64}.get(d, 128)
+    return 1 if d <= 256 else d // 128
+
+
+def bf16_score_groups(d: int) -> int:
+    """The column groups whose partial scores the staged bf16 K1 adds (in
+    group order) at head dim ``d`` (``vr_bf16_score_groups``): at D = 512
+    each group forms the scores over its 128 columns of D and the four
+    partials are summed once a slot; 1 elsewhere, where each warp forms them
+    over the whole of D."""
+    return bf16_groups(d) if d == 512 else 1
+
+
+def bf16_rows(d: int) -> int:
+    """Query rows (keys in K2's dk/dv kernel) a CTA of the bf16 instances
+    built around the valid rows at head dim ``d`` (``vr_bf16_rows``, and
+    ``vr_rows`` at :data:`SHORT_ROWS_HEAD_DIM`): a head's 64 valid rows at D =
+    64, 192 and 256, its 16 at 384 and 512."""
+    return 16 if d in (384, 512) else 64
 
 
 def bf16_kept_tiles(d: int) -> int:
-    """Live key tiles whose scores the bf16 K1 built around the valid rows
-    keeps in registers between its two passes at head dim ``d``
-    (``vr_bf16_keep``): :data:`BF16_KEPT_TILES` at :data:`VALID_ROWS_HEAD_DIMS`,
-    1 of 64 keys at :data:`SHORT_ROWS_HEAD_DIM` (a 64-token row)."""
-    return 1 if d == SHORT_ROWS_HEAD_DIM else BF16_KEPT_TILES
+    """Slots whose scores the bf16 K1 built around the valid rows keeps in
+    registers between its two passes at head dim ``d``:
+    :data:`BF16_KEPT_TILES`, a live row of :func:`bf16_keys` keys at most."""
+    return BF16_KEPT_TILES
 
 
 def takes_valid_rows(sq: int, d: int) -> bool:
@@ -540,14 +586,15 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     return (*back, di[..., 0])
 
 
-# --- the bf16 kernels' arithmetic at VALID_ROWS_HEAD_DIMS, emulated ---------------------
+# --- the bf16 kernels' arithmetic built around the valid rows, emulated ---------------------
 
 
 def _grouped_scores(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
     """fp32 ``a @ b`` with the reduction split into ``groups`` equal chunks,
     each chunk's product formed alone and the partials added in order: the
-    score products of the kernels' column groups. Products of bf16 values
-    are exact in fp32; the tensor cores sum them in another order."""
+    score products of column groups that add their partials. Products of
+    bf16 values are exact in fp32; the tensor cores sum them in another
+    order."""
     n = a.shape[-1] // groups
     out = torch.zeros(())
     for c in range(groups):
@@ -561,79 +608,94 @@ def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
+def bf16_slots(mask_row: torch.Tensor | None, skv: int, d: int) -> list[torch.Tensor]:
+    """The key indices of the slots that the bf16 instances built around the
+    valid rows walk for one batch row at head dim ``d``: the live tiles (a
+    tile of :data:`BF16_LIVE_KEYS` keys at :data:`VALID_ROWS_HEAD_DIMS`, of
+    64 at :data:`SHORT_ROWS_HEAD_DIM`, with an attended key; every tile
+    without a mask) in order, :func:`bf16_keys` keys a slot."""
+    slot = bf16_keys(d, valid_rows=True)
+    tile = BF16_LIVE_KEYS if d in VALID_ROWS_HEAD_DIMS else slot
+    tiles = torch.arange(skv).reshape(-1, tile)
+    if mask_row is not None:
+        tiles = tiles[mask_row.bool().reshape(-1, tile).any(dim=1)]
+    keys = tiles.reshape(-1)
+    return [keys[i:i + slot] for i in range(0, keys.numel(), slot)]
+
+
 def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The bf16 K1's tile math at :data:`VALID_ROWS_HEAD_DIMS` and
     :data:`SHORT_ROWS_HEAD_DIM` on CPU tensors, where it is built around the
-    valid rows (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_valid``): scores over
-    tiles of :func:`bf16_keys` keys, each the sum of the column groups'
-    partial products (:func:`f32_groups`) in group order; pass 1 an online
-    row max m and sum l over the tiles; pass 2 the scores again, ``p = exp(s
-    - m) / l`` rounded to q's dtype BEFORE ``o += p·v`` (fp32), o rounded at
-    the end. The kernel skips a key tile whose mask is all 0; that changes
-    no value (its p is exactly 0, and the max it leaves before the first
-    live tile is dropped by ``exp(MASK_VALUE - m) = 0``), so the emulation
-    walks every tile. At :data:`SHORT_ROWS_HEAD_DIM` the kernel's exp is
-    ``__expf`` (ex2.approx, about 2 ulp) and p is s's exp times 1 / l
-    (``bf16_exp``): the emulation's exact exp and division round p the same
-    but where a bf16 step falls between the two. Returns (o [B,Sq,H,D] in
+    valid rows (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_staged`` and
+    ``mha_fwd_bf16_valid<64>``): for each batch row the slots of
+    :func:`bf16_slots`, each slot's scores one product over the whole of D,
+    or the sum of :func:`bf16_score_groups` column groups' partial products
+    in group order; pass 1 an online row
+    max m and sum l slot by slot; pass 2 ``p = exp(s - m)·(1 / l)`` rounded to
+    q's dtype BEFORE ``o += p·v`` (fp32), o rounded at the end. The kernels'
+    exp is ``__expf`` (ex2.approx, about 2 ulp): the emulation's exact exp
+    rounds p the same but where a bf16 step falls between the two. A batch
+    row without a live tile gives o = 0, lse = +inf. Returns (o [B,Sq,H,D] in
     q's dtype, lse [B,Sq,H])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
     b, h, sq, d = qh.shape
-    kt, groups = bf16_keys(d, valid_rows=True), f32_groups(d)
-    tiles = range(0, kh.shape[2], kt)
-
-    def scores(n0):
-        tile_mask = None if kv_mask is None else kv_mask[:, n0:n0 + kt]
-        return _masked_scores(_grouped_scores(qh, kh[:, :, n0:n0 + kt].transpose(-1, -2), groups), tile_mask,
-                              sm_scale)
-
-    m = torch.full((b, h, sq, 1), -torch.inf)
-    l = torch.zeros(b, h, sq, 1)
-    for n0 in tiles:
-        s = scores(n0)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(dim=-1, keepdim=True)
-        m = m_new
     o = torch.zeros(b, h, sq, d)
-    for n0 in tiles:
-        o = o + _round(torch.exp(scores(n0) - m) / l, q.dtype) @ vh[:, :, n0:n0 + kt]
-    lse = m + torch.log(l)
-    if kv_mask is not None:
-        dead = m <= DEFAULT_MASK_VALUE
-        o = torch.where(dead, 0.0, o)
-        lse = torch.where(dead, torch.inf, lse)
+    lse = torch.full((b, h, sq, 1), torch.inf)
+    for bi in range(b):
+        row = None if kv_mask is None else kv_mask[bi]
+        slots = bf16_slots(row, kh.shape[2], d)
+
+        def scores(keys):
+            s = _grouped_scores(qh[bi], kh[bi][:, keys].transpose(-1, -2), bf16_score_groups(d)) * sm_scale
+            return s if row is None else torch.where(row[keys].bool(), s, DEFAULT_MASK_VALUE)
+
+        m = torch.full((h, sq, 1), -torch.inf)
+        l = torch.zeros(h, sq, 1)
+        for keys in slots:
+            s = scores(keys)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(dim=-1, keepdim=True)
+            m = m_new
+        for keys in slots:
+            o[bi] += _round(torch.exp(scores(keys) - m) * (1 / l), q.dtype) @ vh[bi][:, keys]
+        lse[bi] = m + torch.log(l)
+        if row is not None:  # a row without an attended key
+            dead = m <= DEFAULT_MASK_VALUE
+            o[bi] = torch.where(dead, 0.0, o[bi])
+            lse[bi] = torch.where(dead, torch.inf, lse[bi])
     return o.to(q.dtype).permute(0, 2, 1, 3).contiguous(), lse[..., 0].permute(0, 2, 1).contiguous()
 
 
 def fused_mha_bwd_bf16_valid_emulation(q, k, v, kv_mask, lse, do, sm_scale=None):
     """The bf16 K2's split at :data:`VALID_ROWS_HEAD_DIMS` and
     :data:`SHORT_ROWS_HEAD_DIM` on CPU tensors, built around the valid rows
-    (``csrc/fused_mha_bwd.cu::mha_bwd_{dq,dkv}_bf16_valid``), score products
-    split over the column groups (:func:`f32_groups`): the dq kernel's pass
-    over the keys (``p = exp(s - lse)``, ``dp = do·vᵀ``, ``di = rowsum(p·dp)``
-    from the fp32 p), then ``ds = p·(dp - di)·scale`` rounded to the input
-    dtype and ``dq = ds·k``; the dk/dv kernel's ``pᵀ = exp(k·qᵀ·scale -
-    lse)``, ``dv = round(pᵀ)·do``, ``dpᵀ = v·doᵀ``, ``dsᵀ`` and ``dk =
-    round(dsᵀ)·q``. The key tiles the kernels skip add exact zeros here.
-    Returns (dq, dk, dv in the input dtype, di [B,H,Sq])."""
+    (``csrc/fused_mha_bwd.cu::mha_bwd_{dq,dkv}_bf16_staged`` and
+    ``mha_bwd_{dq,dkv}_bf16_valid<64>``), each score product one over the
+    whole of D: the dq kernel's pass over the keys (``p = exp(s - lse)``,
+    ``dp = do·vᵀ``, ``di = rowsum(p·dp)`` from the fp32 p), then ``ds =
+    p·(dp - di)·scale`` rounded to the input dtype and ``dq = ds·k``; the
+    dk/dv kernel's ``pᵀ = exp(k·qᵀ·scale - lse)``, ``dv = round(pᵀ)·do``,
+    ``dpᵀ = v·doᵀ``, ``dsᵀ`` and ``dk = round(dsᵀ)·q``. The kernels' exp is
+    ``__expf``; the key tiles they skip add exact zeros here. Returns (dq,
+    dk, dv in the input dtype, di [B,H,Sq])."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    dtype, groups = q.dtype, f32_groups(q.shape[-1])
+    dtype = q.dtype
     qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
     lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
-    p = torch.exp(_masked_scores(_grouped_scores(qh, kh.transpose(-1, -2), groups), kv_mask, sm_scale) - lse_r)
-    dp = _grouped_scores(doh, vh.transpose(-1, -2), groups)
+    p = torch.exp(_masked_scores(qh @ kh.transpose(-1, -2), kv_mask, sm_scale) - lse_r)
+    dp = doh @ vh.transpose(-1, -2)
     di = (p * dp).sum(dim=-1, keepdim=True)
     dq = _round(p * (dp - di) * sm_scale, dtype) @ kh
     # the dk/dv kernel: rows are keys, masked by key; lse and di by query column
-    st = _grouped_scores(kh, qh.transpose(-1, -2), groups) * sm_scale
+    st = kh @ qh.transpose(-1, -2) * sm_scale
     if kv_mask is not None:
         st = torch.where(kv_mask[:, None, :, None].bool(), st, DEFAULT_MASK_VALUE)
     pt = torch.exp(st - lse_r.transpose(-1, -2))
     dv = _round(pt, dtype) @ doh
-    dst = pt * (_grouped_scores(vh, doh.transpose(-1, -2), groups) - di.transpose(-1, -2)) * sm_scale
+    dst = pt * (vh @ doh.transpose(-1, -2) - di.transpose(-1, -2)) * sm_scale
     dk = _round(dst, dtype) @ qh
     back = (t.to(dtype).permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
     return (*back, di[..., 0])

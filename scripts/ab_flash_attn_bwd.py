@@ -273,8 +273,9 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
             continue
         parent = statistics.median([runs[0][key], runs[3][key]])
         change = statistics.median([runs[1][key], runs[2][key]])
+        ratio = f"x{parent / change:.2f}" if change else "the change has none"
         print(f"{key}: parent {runs[0][key]:.4f} / {runs[3][key]:.4f}, change {runs[1][key]:.4f} / "
-              f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, x{parent / change:.2f})")
+              f"{runs[2][key]:.4f} (medians {parent:.4f} -> {change:.4f}, {ratio})")
     for flag, (_, commands) in profiles.items():
         if not getattr(args, flag):
             continue

@@ -29,6 +29,15 @@ built around the valid rows on the unpadded ones, and
 memory-efficient backward op from CUDA-graph replays, as with ``--fp32``;
 bf16: its autograd backward's kernels summed by ``torch.profiler``).
 
+With ``--unet``, the bf16 K2 at the UNets' attention shapes at B=128
+(``ab_fused_mha_fwd.UNET_CASES`` but the request's), on the tensors the
+fused route hands it, from that tree's K1's lse: ``<case>`` its device time
+from CUDA-graph replays, ``<case>_dq``, ``<case>_dkv`` and ``<case>_fused``
+its kernels' from ``torch.profiler`` (the dq and dk/dv kernels, or the one
+that forms all three), and ``<case>_sdpa_unpadded`` SDPA's bf16 backward on
+the unpadded tensors (its memory-efficient backward op from CUDA-graph
+replays, ``chip_smoke.sdpa_fp32_backward`` of this checkout).
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -52,8 +61,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 from ab_flash_attn_bwd import ab_main, kernel_device_ms  # noqa: E402
 from ab_fused_mha_fwd import graph_ms, wall_ms  # noqa: E402
 
-#: K2's two kernels by a piece of their names (both trees' kernels, bf16 and fp32)
-K2_PARTS = {"K2_dq": ("mha_bwd_dq",), "K2_dkv": ("mha_bwd_dkv",)}
+#: K2's kernels by a piece of their names (both trees' kernels, bf16 and fp32): the dq kernel, then the dk/dv
+#: kernel, or the one kernel that forms all three (the staged bf16 K2 where a head's rows are one CTA's)
+K2_PARTS = {"K2_dq": ("mha_bwd_dq",), "K2_dkv": ("mha_bwd_dkv",), "K2_fused": ("mha_bwd_fused",)}
 #: slice C1's attention shape: the config's batch, 256 tokens, 8 heads of 64
 C1_SHAPE = (128, 256, 8, 64)
 #: slice C1's train step and sample request profiles
@@ -176,6 +186,33 @@ def measure_short(root: Path) -> dict:
     return out
 
 
+def measure_unet(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke  # this checkout's, before the measured tree's package is on the path
+
+    sys.path.insert(0, str(root))
+    import torch
+    from ab_fused_mha_fwd import UNET_CASES, unet_inputs
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for case, (b, tokens, _, _) in UNET_CASES.items():
+            if b != 128:
+                continue
+            q, k, v, do, mask = unet_inputs(case, gen)
+            _, lse = fused_mha(q, k, v, mask)
+            out[case] = graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10)
+            for part, ms in kernel_device_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), K2_PARTS).items():
+                out[f"{case}_{part.removeprefix('K2_')}"] = ms
+            kv = [t[:, :tokens].contiguous() for t in (k, v)]
+            out[f"{case}_sdpa_unpadded"] = graph_ms(chip_smoke.sdpa_fp32_backward(q, *kv, do), calls=10)
+    return out
+
+
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the DiT-B/2 train profile of both trees",
@@ -183,7 +220,9 @@ def main() -> int:
                     "c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
                    fp32_measure=measure_fp32,
                    modes={"short": ("time K2 at the padded short sequences at D = 64 (SHORT_CASES)",
-                                    measure_short)})
+                                    measure_short),
+                          "unet": ("time the bf16 K2 at the UNets' attention shapes (UNET_CASES at B=128)",
+                                   measure_unet)})
 
 
 if __name__ == "__main__":

@@ -23,6 +23,13 @@ them, ``<case>_valid`` the instance built around the valid rows on the
 unpadded q; ``<case>_sdpa_unpadded`` SDPA on the unpadded tensors (with the
 case's key mask), the yardstick.
 
+With ``--unet``, the bf16 K1 at the UNets' attention shapes (:data:`UNET_CASES`:
+D1's head dims 192 at 64 tokens and 384 at 16, D2's 256 and 512, B=128, H=2,
+and D1's CFG request at B=32), on the tensors the fused route hands the
+kernel there (the unpadded q, k and v padded to 128 keys with the padding
+mask): ``<case>`` its device time from CUDA-graph replays and
+``<case>_sdpa_unpadded`` bf16 SDPA's on the unpadded tensors, the yardstick.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -227,6 +234,47 @@ def measure_short(root: Path) -> dict:
     return out
 
 
+#: the bf16 UNets' attention shapes: tag -> (B, tokens, H, D), keys padded to 128 with the padding mask
+UNET_CASES = {
+    "d1_192_B128": (128, 64, 2, 192),
+    "d1_384_B128": (128, 16, 2, 384),
+    "d2_256_B128": (128, 64, 2, 256),
+    "d2_512_B128": (128, 16, 2, 512),
+    "d1_request_192_B32": (32, 64, 2, 192),
+    "d1_request_384_B32": (32, 16, 2, 384),
+}
+
+
+def unet_inputs(case: str, gen):
+    """bf16 q, do [B, tokens, H, D], k, v [B, 128, H, D] and the padding mask [B, 128]."""
+    import torch
+
+    b, tokens, h, d = UNET_CASES[case]
+    q, do = (torch.randn(b, tokens, h, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, 128, h, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    mask = (torch.arange(128, device="cuda") < tokens)[None].expand(b, -1).contiguous()
+    return q, k, v, do, mask
+
+
+def measure_unet(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for case, (_, tokens, _, _) in UNET_CASES.items():
+            q, k, v, _, mask = unet_inputs(case, gen)
+            out[case] = graph_ms(lambda: fused_mha(q, k, v, mask))
+            qt, kt, vt = (t[:, :tokens].transpose(1, 2) for t in (q, k, v))
+            out[f"{case}_sdpa_unpadded"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    return out
+
+
 def main() -> int:
     from ab_flash_attn_bwd import ab_main
     from ab_fused_mha_bwd import C1_PROFILES
@@ -235,7 +283,8 @@ def main() -> int:
                    {"c1": ("with --ab: slice C1's train and sample profiles of both trees", C1_PROFILES)},
                    fp32_measure=measure_fp32,
                    modes={"short": ("time K1 at the padded short sequences at D = 64 (SHORT_CASES)",
-                                    measure_short)})
+                                    measure_short),
+                          "unet": ("time the bf16 K1 at the UNets' attention shapes (UNET_CASES)", measure_unet)})
 
 
 if __name__ == "__main__":

@@ -5,19 +5,25 @@ arithmetic and tiles, against the JAX kernels run in interpret mode in bf16.
 
 The bf16 instances are built around the valid rows as the fp32 ones are
 (``VALID_ROWS_HEAD_DIMS``): the unpadded q, do and lse rows, k, v and the key
-mask padded; column groups of warps split the score products' reduction over
-D (``f32_groups``), each partial a product of bf16 values, exact in fp32.
-Their products are ``mma.sync`` m16n8k16 over tiles of 16 keys
-(``bf16_keys``). K1 keeps the reference's rounding: m and l over the whole
-row in a first pass, then ``p = exp(s - m) / l`` rounded to bf16 before PV
-(an online softmax would round another p); K2 rounds p before dv and ds
-before dq and dk, and forms di from the fp32 p. The JAX kernels take the
-reference's padded q (its ``_fused_path``): the rows are independent, so the
-valid rows are compared. Masks: the UNet's padding mask, an empty 16-key
-tile between live ones beside a fully masked batch row (o = 0, lse = +inf and
-zero gradients there), no mask, a ragged Sq, and 512 keys at D = 192 with
-400 of them attended: 25 live tiles, more than the 4 whose scores K1 keeps
-in registers, so its second pass forms them anew.
+mask padded. They are staged: a slot of ``bf16_keys`` keys (64 at D = 192 and
+256, 16 at 384 and 512: the UNets' whole live row) gathered from the mask
+row's live tiles of ``BF16_LIVE_KEYS`` keys (``bf16_slots``); each warp forms
+its rows' scores over the whole of D, the column groups (``bf16_groups``)
+splitting only the output columns, so a score is one product of bf16 values
+summed in fp32 (K1 at D = 512: the sum of its four groups' partial products,
+``bf16_score_groups``). K1 keeps the reference's rounding: m and l over the whole row
+in a first pass over the slots, then ``p = exp(s - m)·(1 / l)`` rounded to
+bf16 before PV (an online softmax would round another p); K2 rounds p before
+dv and ds before dq and dk, and forms di from the fp32 p. The JAX kernels
+take the reference's padded q (its ``_fused_path``): the rows are
+independent, so the valid rows are compared. Masks: the UNet's padding mask,
+an empty 16-key tile between live ones beside a fully masked batch row (o =
+0, lse = +inf and zero gradients there), no mask, a ragged Sq, 512 keys at D
+= 192 with 400 of them attended (25 live tiles in 7 slots, so K1's second
+pass forms the scores anew), and the slots' edges: one live key past a full
+slot (a second slot of one live key), live keys straddling two slots, one
+live key in each of two tiles or slots, one query row, more query rows than
+a CTA's (where K2 runs as two kernels; else one a batch and head).
 
 Tolerances (``chip_smoke.py``'s for bf16): o within atol 1e-2 + rtol 1e-2
 (the two sides round p and o to bf16 at the same places, and an exp or sum
@@ -34,11 +40,15 @@ import torch
 from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops.fused_mha import (
     BF16_KEPT_TILES,
+    BF16_LIVE_KEYS,
     KERNEL_HEAD_DIMS,
     MIN_BLOCK,
     VALID_ROWS_HEAD_DIMS,
+    bf16_groups,
     bf16_keys,
-    f32_groups,
+    bf16_rows,
+    bf16_score_groups,
+    bf16_slots,
     fused_mha_bf16_valid_emulation,
     fused_mha_bwd_bf16_valid_emulation,
     fused_mha_bwd_reference,
@@ -61,6 +71,18 @@ CASES = {
     "d384_ragged": (11, 384, "padded", 128),
     "d512_ds8_padded": (16, 512, "padded", 128),
     "d512_hole_and_dead_row": (16, 512, "hole", 128),
+    # the staged slots' edges: the attended keys [lo, hi) of 128
+    "d192_kept_plus_one": (64, 192, ((0, 65),), 128),
+    "d192_straddle": (64, 192, ((40, 120),), 128),
+    "d192_one_key_tiles": (64, 192, ((37, 38), (100, 101)), 128),
+    "d192_sq1": (1, 192, ((0, 64),), 128),
+    "d256_sq1": (1, 256, ((0, 64),), 128),
+    "d384_kept_plus_one": (16, 384, ((0, 17),), 128),
+    "d384_straddle": (16, 384, ((8, 24),), 128),
+    "d512_one_key_slots": (16, 512, ((5, 6), (100, 101)), 128),
+    # more query rows than a CTA's: K2 as two kernels, dq then dk/dv
+    "d192_split_sq100": (100, 192, ((0, 100),), 128),
+    "d384_split_sq40": (40, 384, ((0, 40),), 128),
 }
 
 
@@ -73,13 +95,15 @@ def _one_thread():
 
 
 def _mask(kind, sq, b, skv):
-    """The padding mask (the first sq keys; 400 of 512 for ``long``), or:
-    batch row 0 with keys 16-31 masked and as many valid keys after them (an
-    empty 16-key tile between live ones), every other batch row fully
-    masked."""
+    """The padding mask (the first sq keys; 400 of 512 for ``long``; the keys
+    of the ranges [lo, hi) of a tuple), or: batch row 0 with keys 16-31 masked and as many
+    valid keys after them (an empty 16-key tile between live ones), every
+    other batch row fully masked."""
     keys = np.arange(skv)
     if kind is None:
         return None
+    if isinstance(kind, tuple):
+        return np.repeat(np.any([(keys >= lo) & (keys < hi) for lo, hi in kind], axis=0)[None], b, axis=0)
     mask = np.repeat((keys < (400 if kind == "long" else sq))[None], b, axis=0)
     if kind == "hole":
         mask[0] = (keys < 16) | ((keys >= 32) & (keys < sq + 16))
@@ -177,8 +201,21 @@ def test_bf16_k2_split_at_the_unet_head_dims_matches_the_jax_kernel(case):
 
 
 def test_bf16_tile_rules():
-    # one m16n8k16 reduction of 16 keys a tile at the valid-rows dims, the fp32 instances' column groups,
-    # 4 live tiles (64 keys, the UNets' 64 and 16 tokens) kept in registers between K1's passes
-    assert [(bf16_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(16, 2), (16, 2), (16, 6), (16, 4)]
+    # the staged slot: the UNets' whole live row (64 keys at D = 192 and 256, 16 at 384 and 512) in one slot
+    # gathered from 16-key liveness tiles, kept in registers between K1's passes; column groups that split only
+    # the output columns; a head's valid rows a CTA
+    assert [(bf16_keys(d), bf16_groups(d), bf16_groups(d, backward=True), bf16_rows(d))
+            for d in VALID_ROWS_HEAD_DIMS] == [(64, 1, 2, 64), (64, 1, 2, 64), (16, 3, 6, 16), (16, 4, 4, 16)]
     assert [bf16_keys(d) for d in KERNEL_HEAD_DIMS] == [0, 0, 0, 0]
-    assert BF16_KEPT_TILES * 16 == 64
+    assert (BF16_KEPT_TILES, BF16_LIVE_KEYS) == (1, 16)
+    # K1 adds its column groups' partial scores at D = 512 alone
+    assert [bf16_score_groups(d) for d in VALID_ROWS_HEAD_DIMS] == [1, 1, 1, 4]
+    # the slots of a row: its live 16-key tiles in order, a slot's worth at a time
+    row = torch.zeros(128, dtype=torch.bool)
+    row[[3, 40, 41, 99]] = True
+    assert [t.tolist() for t in bf16_slots(row, 128, 384)] == [list(range(16)), list(range(32, 48)),
+                                                                list(range(96, 112))]
+    assert [t.tolist() for t in bf16_slots(row, 128, 192)] == [list(range(16)) + list(range(32, 48))
+                                                               + list(range(96, 112))]
+    assert [t.numel() for t in bf16_slots(None, 512, 256)] == [64] * 8
+    assert [t.tolist() for t in bf16_slots(row, 128, 64)] == [list(range(64)), list(range(64, 128))]
