@@ -5960,14 +5960,12 @@ def phase_d3_kernels():
 
     from diffulab_tpu_torch.ops import _build
     from diffulab_tpu_torch.ops.fused_mha import (
-        BF16_KEPT_TILES,
         BF16_LIVE_KEYS,
         FUSED_HEAD_DIMS,
         VALID_ROWS_HEAD_DIMS,
         bf16_groups,
         bf16_keys,
         bf16_rows,
-        bf16_score_groups,
         fused_mha,
         fused_mha_bwd,
         fused_mha_bwd_reference,
@@ -5975,16 +5973,16 @@ def phase_d3_kernels():
     )
 
     fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
-    tiles = {d: (*(fwd_lib.fused_mha_fwd_bf16_tiles(d, w) for w in (0, 1, 2, 3, 4)),
+    tiles = {d: (*(fwd_lib.fused_mha_fwd_bf16_tiles(d, w) for w in (0, 1, 2)),
                  *(bwd_lib.fused_mha_bwd_bf16_tiles(d, w) for w in (0, 1)),
                  *((fwd_lib.fused_mha_fwd_valid_tiles(d, 1, 3), bwd_lib.fused_mha_bwd_valid_tiles(d, 1, 3))
                    if d in VALID_ROWS_HEAD_DIMS else ())) for d in FUSED_HEAD_DIMS}
-    mirrored = {d: (bf16_keys(d), bf16_groups(d), BF16_KEPT_TILES, BF16_LIVE_KEYS, bf16_score_groups(d),
-                    bf16_keys(d), bf16_groups(d, backward=True), bf16_rows(d), bf16_rows(d))
-                if d in VALID_ROWS_HEAD_DIMS else (0,) * 7 for d in FUSED_HEAD_DIMS}
+    mirrored = {d: (bf16_keys(d), bf16_groups(d), BF16_LIVE_KEYS, bf16_keys(d), bf16_groups(d, backward=True),
+                    bf16_rows(d), bf16_rows(d))
+                if d in VALID_ROWS_HEAD_DIMS else (0,) * 5 for d in FUSED_HEAD_DIMS}
     if tiles != mirrored:
-        fail(f"D3 bf16 tile rules: the libraries' (K1 slot keys, groups, kept slots, live-tile keys, score groups, K2 "
-             f"slot keys, groups, K1 rows, K2 rows) {tiles} differ from ops/fused_mha.py's {mirrored}")
+        fail(f"D3 bf16 tile rules: the libraries' (K1 slot keys, groups, live-tile keys, K2 slot keys, groups, K1 "
+             f"rows, K2 rows) {tiles} differ from ops/fused_mha.py's {mirrored}")
     results, edges = valid_rows_kernels("D3 D1", D1_ATTN, D1_BATCH, D1_HEADS, 291, sample_batch=2 * D1_SAMPLES,
                                         dtype="bfloat16")
     d2_results, d2_edges = valid_rows_kernels("D3 D2", D2_ATTN, D2_BATCH, D2_HEADS, 292, dtype="bfloat16")
@@ -6024,8 +6022,8 @@ def phase_d3_kernels():
           f"B={2 * D1_SAMPLES}, H={D1_HEADS}, the unpadded query rows, keys padded to {D2_PADDED} with the padding "
           f"mask; the 16-key hole; {skv} keys at D={d} with {attended} attended: {attended // 16} live tiles in "
           f"{-(-attended // 16 // (bf16_keys(d) // 16))} slots, K1's second pass forming the scores anew; the slots' "
-          f"edges {[c[0] for c in cases[1:]]}; tile rules (K1 slot keys, groups, kept slots, live-tile keys, score "
-          f"groups, K2 slot keys, groups, K1 rows, K2 rows) { {d: t for d, t in tiles.items() if t[0]} }, as the "
+          f"edges {[c[0] for c in cases[1:]]}; tile rules (K1 slot keys, groups, live-tile keys, K2 slot keys, "
+          f"groups, K1 rows, K2 rows) { {d: t for d, t in tiles.items() if t[0]} }, as the "
           f"emulation's; K1's "
           f"o bitwise the plain version's on at least {D3_BITWISE_MIN} of its elements; device ms from CUDA-graph "
           f"replays; SDPA bf16 on the same inputs, on the padded q/k/v with the mask, and on the unpadded q/k/v, "
@@ -6051,7 +6049,7 @@ def phase_d64_valid_kernels() -> dict[str, Any]:
 
     from diffulab_tpu_torch.ops import _build
     from diffulab_tpu_torch.ops.fused_mha import (
-        bf16_kept_tiles,
+        BF16_KEPT_TILES,
         bf16_keys,
         f32_groups,
         f32_keys,
@@ -6067,7 +6065,7 @@ def phase_d64_valid_kernels() -> dict[str, Any]:
                   *(bwd_lib.fused_mha_bwd_valid_tiles(d, code, w) for w in (0, 1, 3)))
              for dt, code in (("fp32", 0), ("bf16", 1))}
     mirrored = {"fp32": (f32_keys(d, True), f32_groups(d), 0), "bf16": (bf16_keys(d, True), f32_groups(d),
-                                                                        bf16_kept_tiles(d))}
+                                                                        BF16_KEPT_TILES)}
     for dt, want in mirrored.items():
         got = tiles[dt]
         if got[:3] != want or got[4:6] != want[:2]:

@@ -55,10 +55,7 @@ __host__ __device__ constexpr int vr_bf16_tile() {
 // values a thread): keeping two took K1 to 226 registers against 158 and
 // G1's K1 from 0.0341 ms to 0.0410 (scripts/d64_valid_variants.py,
 // bf16_keep2; NVIDIA H100 80GB HBM3, 700 W)
-template <int D>
-__host__ __device__ constexpr int vr_bf16_keep() {
-  return 1;
-}
+constexpr int VR_BF16_KEEP = 1;
 
 // exp(x) in the instances at head dim 64: __expf (one ex2.approx, about 2
 // ulp), where the exponentials bound K1: with expf and p divided by l the
@@ -242,22 +239,6 @@ __host__ __device__ constexpr int vr_bf16_groups() {
 template <int D, bool BWD = false>
 __host__ __device__ constexpr int vr_bf16_threads() {
   return 32 * (vr_bf16_rows<D>() / 16) * vr_bf16_groups<D, BWD>();
-}
-
-// whether K1's column groups each form the scores over their own columns of D
-// and add the groups' partials (in group order, through shared memory) once a
-// slot, or each form them over the whole of D: at D = 512, where the whole of
-// D is 4x a group's products (0.0126 ms against 0.0128, no_exchange; the
-// PR 23 design's 0.0127-0.0131 in the same call)
-template <int D>
-__host__ __device__ constexpr bool vr_bf16_exchange() {
-  return D == 512;
-}
-
-// the groups that K1's scores are summed over (vr_bf16_exchange), 1 where each warp forms them over the whole of D
-template <int D>
-__host__ __device__ constexpr int vr_bf16_score_groups() {
-  return vr_bf16_exchange<D>() ? vr_bf16_groups<D>() : 1;
 }
 
 // queries of the dk/dv kernel's inner step: its scores stay 32 fp32 values a thread or fewer

@@ -940,8 +940,8 @@ mha_bwd_dkv_tf32x3_valid(const float* __restrict__ q, const float* __restrict__ 
   const float* wl = ws_lse + ((long long)b * H + h) * Sq;
   const float* wd = ws_di + ((long long)b * H + h) * Sq;
   const bool keep[2] = {mb == nullptr || mb[row] != 0, mb == nullptr || mb[row + 8] != 0};
-  // a warp whose 16 keys are all masked forms no product and writes zeros
-  const bool warp_live = mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
+  // one group: a warp whose 16 keys are all masked forms no product and writes zeros
+  const bool warp_live = GROUPS > 1 || mb == nullptr || tile_live<16>(mb + n0 + r0, 0);
   const int n_tiles = (Sq + QT - 1) / QT;
 
   auto stage = [&](int t) {  // the query tile's rows past Sq zero-filled, their lse +inf

@@ -823,7 +823,7 @@ inline int vr_live_bytes(int skv, int kt) {
 // softmax would round another p). So two passes over the live tiles: pass 1
 // brings K alone and forms m and l; pass 2 brings V, forms p and o += p.v.
 // One live tile (a 64-token row) keeps its scores in registers between the
-// passes (vr_bf16_keep) and pass 2 loads no K; above that pass 2 brings K
+// passes (VR_BF16_KEEP) and pass 2 loads no K; above that pass 2 brings K
 // again and forms the scores anew, bit for bit the same. p is exponentiated
 // by __expf and multiplied by 1 / l (bf16_exp). A batch row with no live
 // tile writes o = 0, lse = +inf without loading Q. 46 KB of shared memory.
@@ -834,7 +834,7 @@ mha_fwd_bf16_valid(const bf16* __restrict__ q, const bf16* __restrict__ k, const
                    const int* __restrict__ mask, bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int H,
                    long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                    float sm_scale) {
-  constexpr int KT = vr_bf16_tile<D>(), KEEP = vr_bf16_keep<D>(), DO = vr_cols<D>(), ROWS = vr_rows<D>();
+  constexpr int KT = vr_bf16_tile<D>(), KEEP = VR_BF16_KEEP, DO = vr_cols<D>(), ROWS = vr_rows<D>();
   constexpr int THREADS = vr_threads<D>(), LD = ldb<D>(), ROW_WARPS = ROWS / 16;
   constexpr int NS = VR_SLOTS;
   static_assert(vr_groups<D>() == 1, "one column group: each warp's scores over the whole of D");
@@ -981,9 +981,8 @@ __host__ __device__ constexpr int vr_bf16_fwd_smem_bytes() {
 // (the UNets'), the scores and p are formed while V lands, and the kernel
 // waits twice. Each warp forms its 16 rows' scores over the whole of D (the
 // column groups repeat them, a few hundred cycles of mma.sync) and the
-// groups split only P.V's output columns, so no partial scores cross warps;
-// at D = 512 the groups add their partials once a slot instead
-// (vr_bf16_exchange). K1's rounding stays the reference's: m and l over the
+// groups split only P.V's output columns, so no partial scores cross warps.
+// K1's rounding stays the reference's: m and l over the
 // whole row, then p = exp(s - m) * (1 / l) rounded to bf16 before P.V, the
 // exponentials by __expf (ex2.approx, about 2 ulp), as at D = 64 (expf and a
 // division by l took it from 0.0176 ms to 0.0196 at D = 192, B=128, H=2:
@@ -1005,9 +1004,7 @@ mha_fwd_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // [ROWS][LD]
   bf16* buf = qs + ROWS * LD;                            // [NB][SLOT][LD]: a slot's K or V
-  constexpr int SG = vr_bf16_score_groups<D>();
-  float* part = reinterpret_cast<float*>(buf + NB * SLOT * LD);  // [SG][ROWS][SLOT]: partial scores (SG > 1)
-  int* live = reinterpret_cast<int*>(part + (SG > 1 ? SG * ROWS * SLOT : 0));  // [Skv / KT + 1]: live tiles, count
+  int* live = reinterpret_cast<int*>(buf + NB * SLOT * LD);  // [Skv / KT + 1]: live tiles, count
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, r0 = 16 * (warp % ROW_WARPS);
@@ -1048,23 +1045,12 @@ mha_fwd_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
 #pragma unroll
   for (int dn = 0; dn < DO / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g, g + 8; l summed over the quad after pass 0
-  // SG > 1: s = the raw scores of a slot (K in kbuf), this group's columns' product and the groups' partials
-  // added in group order (every thread of the CTA calls it); else each warp forms them over the whole of D
-  auto exchange_scores = [&](const bf16* kbuf, int n) {
-    if (active) {
-      rows_dot_bf16_ldsm<DO, SLOT, LD>(s, qs + col0, r0, kbuf + col0, lane, n * KT);
-      put_c<SLOT>(part + grp * ROWS * SLOT, s, r0, lane >> 2, t4);
-    }
-    __syncthreads();
-    if (active) sum_c<SLOT, SG>(s, part, ROWS * SLOT, r0, lane >> 2, t4);
-  };
 
   for (int c = 0; c < n_slots; ++c) {  // pass 0: the row max and sum over the whole row
     await_items(c, c);
     const int n = min(CT, n_live - c * CT);
-    if constexpr (SG > 1) exchange_scores(buf + (c % NB) * SLOT * LD, n);
     if (active) {
-      if constexpr (SG == 1) rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (c % NB) * SLOT * LD, lane, n * KT);
+      rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (c % NB) * SLOT * LD, lane, n * KT);
       scale_and_mask_slot<SLOT, KT>(s, sm_scale, mb, live + c * CT, n, t4);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -1103,12 +1089,9 @@ mha_fwd_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
     const int kb_item = kept ? 0 : n_slots + 2 * c, vb_item = kept ? 1 : kb_item + 1;
     await_items(kept ? vb_item : kb_item, vb_item);
     const int n = min(CT, n_live - c * CT);
-    if constexpr (SG > 1)
-      if (!kept) exchange_scores(buf + (kb_item % NB) * SLOT * LD, n);
     if (active) {
       if (!kept) {
-        if constexpr (SG == 1)
-          rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (kb_item % NB) * SLOT * LD, lane, n * KT);
+        rows_dot_bf16_ldsm<D, SLOT, LD>(s, qs, r0, buf + (kb_item % NB) * SLOT * LD, lane, n * KT);
         scale_and_mask_slot<SLOT, KT>(s, sm_scale, mb, live + c * CT, n, t4);
         probs();
       }
@@ -1138,8 +1121,7 @@ mha_fwd_bf16_staged(const bf16* __restrict__ q, const bf16* __restrict__ k, cons
 
 template <int D>
 __host__ __device__ constexpr int vr_bf16_staged_fwd_smem_bytes() {
-  return 2 * ldb<D>() * (vr_bf16_rows<D>() + VR_BF16_BUFFERS * vr_bf16_slot<D>()) +
-         (vr_bf16_score_groups<D>() > 1 ? 4 * vr_bf16_score_groups<D>() * vr_bf16_rows<D>() * vr_bf16_slot<D>() : 0);
+  return 2 * ldb<D>() * (vr_bf16_rows<D>() + VR_BF16_BUFFERS * vr_bf16_slot<D>());
 }
 
 // ---- host side
@@ -1356,16 +1338,12 @@ extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
 
 // the staged bf16 K1 at the valid-rows head dims, by the rules its launch
 // follows: keys of a staged slot (what = 0), column groups of warps (what =
-// 1), slots whose scores stay in registers between the passes (what = 2),
-// keys of the mask's liveness tiles that a slot gathers (what = 3), groups
-// whose partial scores are added (what = 4); 0 for another D.
-// ops/fused_mha.py (bf16_keys, bf16_groups, BF16_KEPT_TILES, BF16_LIVE_KEYS,
-// bf16_score_groups) mirrors them.
+// 1), keys of the mask's liveness tiles that a slot gathers (what = 2); 0
+// for another D. ops/fused_mha.py (bf16_keys, bf16_groups, BF16_LIVE_KEYS)
+// mirrors them.
 extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
-#define K1_TILES_BF16(DD)                                                                                      \
-  if (D == DD)                                                                                                 \
-    return what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : what == 2 ? 1 : what == 3 ? VR_BF16_TILE \
-         : vr_bf16_score_groups<DD>();
+#define K1_TILES_BF16(DD) \
+  if (D == DD) return what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : VR_BF16_TILE;
   K1_TILES_BF16(192) K1_TILES_BF16(256) K1_TILES_BF16(384) K1_TILES_BF16(512)
 #undef K1_TILES_BF16
   return 0;
@@ -1374,17 +1352,17 @@ extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
 // the instance of K1 built around the valid rows at head dim D in dtype (0
 // fp32, 1 bf16), by the rules its launch follows: keys of a ring (or staged)
 // slot (what = 0), column groups of warps (what = 1), slots whose scores stay
-// in registers between the passes (what = 2; bf16 alone), query rows a CTA
-// (what = 3); 0 where D has no such instance. ops/fused_mha.py (f32_keys and
-// bf16_keys with valid_rows, f32_groups, bf16_groups, bf16_kept_tiles,
-// bf16_rows) mirrors them.
+// in registers between the passes (what = 2; the bf16 instance at D = 64
+// alone, else 0), query rows a CTA (what = 3); 0 where D has no such
+// instance. ops/fused_mha.py (f32_keys and bf16_keys with valid_rows,
+// f32_groups, bf16_groups, BF16_KEPT_TILES, bf16_rows) mirrors them.
 extern "C" int fused_mha_fwd_valid_tiles(int D, int dtype, int what) {
   if (D == 64)
     return what == 0 ? (dtype == 1 ? vr_bf16_tile<64>() : vr_tile<64>()) : what == 1 ? vr_groups<64>()
-         : what == 2 ? (dtype == 1 ? vr_bf16_keep<64>() : 0) : vr_rows<64>();
+         : what == 2 ? (dtype == 1 ? VR_BF16_KEEP : 0) : vr_rows<64>();
 #define K1_TILES_ANY(DD)                                                                                   \
   if (D == DD)                                                                                             \
-    return dtype == 1 ? (what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : what == 2 ? 1 \
+    return dtype == 1 ? (what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD>() : what == 2 ? 0 \
                          : vr_bf16_rows<DD>())                                                             \
                       : (what == 0 ? vr_tile<DD>() : what == 1 ? vr_groups<DD>() : what == 2 ? 0 : vr_rows<DD>());
   K1_TILES_ANY(192) K1_TILES_ANY(256) K1_TILES_ANY(384) K1_TILES_ANY(512)

@@ -48,9 +48,7 @@ staged: a slot of :func:`bf16_keys` keys (64 at D = 192 and 256, 16 at 384
 and 512: the UNets' whole live row) gathered from the mask's live 16-key
 tiles is requested at once, K beside V, each warp forms its rows' scores
 over the whole of D by ``mma.sync`` m16n8k16 and the groups
-(:func:`bf16_groups`) split only the output columns (K1 at D = 512 adds
-its groups' partial scores once a slot, :func:`bf16_score_groups`); K1
-keeps its rounding order in two passes over the slots, m and l first, then
+(:func:`bf16_groups`) split only the output columns; K1 keeps its rounding order in two passes over the slots, m and l first, then
 ``p = exp(s - m)·(1 / l)`` rounded to bf16 before PV, a one-slot row's p
 kept in registers (:func:`fused_mha_bf16_valid_emulation`); K2 runs as one
 kernel a batch and head where the head's valid query rows fit one CTA.
@@ -214,11 +212,9 @@ def f32_groups(d: int) -> int:
     return d // {192: 96, 384: 64}.get(d, 128) if d in VALID_ROWS_HEAD_DIMS else 1
 
 
-#: slots whose scores the bf16 K1 built around the valid rows keeps in
-#: registers between its two passes (``vr_bf16_keep``, and 1 in the staged
-#: instances at :data:`VALID_ROWS_HEAD_DIMS`): a live row of one slot (64 keys,
-#: 16 at D = 384 and 512: the UNets' 64 and 16 tokens) loads K once, above that
-#: K again
+#: live tiles whose scores the bf16 K1 built around the valid rows at
+#: :data:`SHORT_ROWS_HEAD_DIM` keeps in registers between its two passes
+#: (``VR_BF16_KEEP``): a 64-token row loads K once, a longer one K again
 BF16_KEPT_TILES = 1
 
 #: keys of the mask's liveness tiles at :data:`VALID_ROWS_HEAD_DIMS`
@@ -235,7 +231,7 @@ def bf16_keys(d: int, valid_rows: bool = False) -> int:
     at 384 and 512, gathered from live tiles of :data:`BF16_LIVE_KEYS` keys;
     with ``valid_rows`` 64 at :data:`SHORT_ROWS_HEAD_DIM`, where a slot is one
     tile (``vr_bf16_tile``); 0 elsewhere. This, :func:`bf16_groups`,
-    :func:`bf16_rows` and :func:`bf16_kept_tiles` mirror the built libraries'
+    :func:`bf16_rows` and :data:`BF16_KEPT_TILES` mirror the built libraries'
     ``fused_mha_fwd_bf16_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles`` and
     ``fused_mha_bwd_bf16_tiles``, which chip_smoke.py holds them to on the
     card."""
@@ -259,28 +255,12 @@ def bf16_groups(d: int, backward: bool = False) -> int:
     return 1 if d <= 256 else d // 128
 
 
-def bf16_score_groups(d: int) -> int:
-    """The column groups whose partial scores the staged bf16 K1 adds (in
-    group order) at head dim ``d`` (``vr_bf16_score_groups``): at D = 512
-    each group forms the scores over its 128 columns of D and the four
-    partials are summed once a slot; 1 elsewhere, where each warp forms them
-    over the whole of D."""
-    return bf16_groups(d) if d == 512 else 1
-
-
 def bf16_rows(d: int) -> int:
     """Query rows (keys in K2's dk/dv kernel) a CTA of the bf16 instances
     built around the valid rows at head dim ``d`` (``vr_bf16_rows``, and
     ``vr_rows`` at :data:`SHORT_ROWS_HEAD_DIM`): a head's 64 valid rows at D =
     64, 192 and 256, its 16 at 384 and 512."""
     return 16 if d in (384, 512) else 64
-
-
-def bf16_kept_tiles(d: int) -> int:
-    """Slots whose scores the bf16 K1 built around the valid rows keeps in
-    registers between its two passes at head dim ``d``:
-    :data:`BF16_KEPT_TILES`, a live row of :func:`bf16_keys` keys at most."""
-    return BF16_KEPT_TILES
 
 
 def takes_valid_rows(sq: int, d: int) -> bool:
@@ -589,19 +569,6 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
 # --- the bf16 kernels' arithmetic built around the valid rows, emulated ---------------------
 
 
-def _grouped_scores(a: torch.Tensor, b: torch.Tensor, groups: int) -> torch.Tensor:
-    """fp32 ``a @ b`` with the reduction split into ``groups`` equal chunks,
-    each chunk's product formed alone and the partials added in order: the
-    score products of column groups that add their partials. Products of
-    bf16 values are exact in fp32; the tensor cores sum them in another
-    order."""
-    n = a.shape[-1] // groups
-    out = torch.zeros(())
-    for c in range(groups):
-        out = out + a[..., c * n:(c + 1) * n] @ b[..., c * n:(c + 1) * n, :]
-    return out
-
-
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """x rounded to ``dtype`` (to nearest even) and back to fp32: an operand
     of the kernels' bf16 products."""
@@ -628,10 +595,8 @@ def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tupl
     :data:`SHORT_ROWS_HEAD_DIM` on CPU tensors, where it is built around the
     valid rows (``csrc/fused_mha_fwd.cu::mha_fwd_bf16_staged`` and
     ``mha_fwd_bf16_valid<64>``): for each batch row the slots of
-    :func:`bf16_slots`, each slot's scores one product over the whole of D,
-    or the sum of :func:`bf16_score_groups` column groups' partial products
-    in group order; pass 1 an online row
-    max m and sum l slot by slot; pass 2 ``p = exp(s - m)·(1 / l)`` rounded to
+    :func:`bf16_slots`, each slot's scores one product over the whole of D;
+    pass 1 an online row max m and sum l slot by slot; pass 2 ``p = exp(s - m)·(1 / l)`` rounded to
     q's dtype BEFORE ``o += p·v`` (fp32), o rounded at the end. The kernels'
     exp is ``__expf`` (ex2.approx, about 2 ulp): the emulation's exact exp
     rounds p the same but where a bf16 step falls between the two. A batch
@@ -648,7 +613,7 @@ def fused_mha_bf16_valid_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tupl
         slots = bf16_slots(row, kh.shape[2], d)
 
         def scores(keys):
-            s = _grouped_scores(qh[bi], kh[bi][:, keys].transpose(-1, -2), bf16_score_groups(d)) * sm_scale
+            s = qh[bi] @ kh[bi][:, keys].transpose(-1, -2) * sm_scale
             return s if row is None else torch.where(row[keys].bool(), s, DEFAULT_MASK_VALUE)
 
         m = torch.full((h, sq, 1), -torch.inf)

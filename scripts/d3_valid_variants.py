@@ -27,10 +27,6 @@ called through the port's wrappers, its libraries put in their place:
 - ``v_after_k``: K1 requests V once K has landed (the sources: with K);
   ``spec_kv``: K1 requests the K and V of the row's first slot with Q,
   before it has read the mask row, as K2 does (the sources: once it has);
-- ``exchange_384``: K1's column groups each form the scores over their own
-  columns of D and add the partials once a slot at D = 384 too (the
-  sources: at 512 alone); ``no_exchange``: nowhere, each warp forming them
-  over the whole of D;
 - ``precise_exp``: ``expf``, and K1's p divided by l (the sources:
   ``__expf`` and a product with 1 / l);
 - ``rows32``: 32 query rows (keys) a CTA at D = 192 and 256 (the sources:
@@ -97,10 +93,6 @@ VARIANTS = {
                  "  }\n"),
                 ("fused_mha_fwd.cu", "  int issued = 0;\n", "  int issued = kept && live_prefix<CT>(live, n_live) ? 2 : "
                  "0;\n")],
-    "exchange_384": [("bf16_valid.cuh", "constexpr bool vr_bf16_exchange() {\n  return D == 512;",
-                      "constexpr bool vr_bf16_exchange() {\n  return D >= 384;")],
-    "no_exchange": [("bf16_valid.cuh", "constexpr bool vr_bf16_exchange() {\n  return D == 512;",
-                     "constexpr bool vr_bf16_exchange() {\n  return false;")],
     "precise_exp": [("fused_mha_fwd.cu", "l[r] *= __expf(m[r] - m_new);", "l[r] *= expf(m[r] - m_new);"),
                     ("fused_mha_fwd.cu", "l[e >> 1] += __expf(s[nt][e] - m[e >> 1]);",
                      "l[e >> 1] += expf(s[nt][e] - m[e >> 1]);"),

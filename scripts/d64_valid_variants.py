@@ -41,7 +41,7 @@ from variant_build import build_variants, card
 
 SOURCES = ("fused_mha_fwd", "fused_mha_bwd")
 
-KEEP = "constexpr int vr_bf16_keep() {\n  return 1;"
+KEEP = "constexpr int VR_BF16_KEEP = 1;"
 
 #: variant -> [(file under csrc/, text, its replacement)]
 VARIANTS = {
@@ -51,7 +51,7 @@ VARIANTS = {
                 "  return D == 192 || D == 64 ? 32 : D <= 256 ? 64 : 16;")],
     "bf16_tile32": [("bf16_valid.cuh", "  return D == 64 ? 64 : VR_BF16_TILE;",
                      "  return D == 64 ? 32 : VR_BF16_TILE;"),
-                    ("bf16_valid.cuh", KEEP, "constexpr int vr_bf16_keep() {\n  return 2;")],
+                    ("bf16_valid.cuh", KEEP, "constexpr int VR_BF16_KEEP = 2;")],
     "precise_exp": [("bf16_valid.cuh", "  if constexpr (D == 64)\n    return __expf(x);",
                      "  if constexpr (false)\n    return __expf(x);"),
                     ("fused_mha_fwd.cu", "if constexpr (D == 64)  // p times 1 / l",
@@ -59,7 +59,7 @@ VARIANTS = {
                     ("fused_mha_bwd.cu", "probs_f32<KT, D == 64>(", "probs_f32<KT, false>(")],
     "dq_nokeep": [("tf32x3.cuh", "constexpr int vr_dq_keep() {\n  return D == 64 ? 2 : 0;",
                    "constexpr int vr_dq_keep() {\n  return 0;")],
-    "bf16_keep2": [("bf16_valid.cuh", KEEP, "constexpr int vr_bf16_keep() {\n  return 2;")],
+    "bf16_keep2": [("bf16_valid.cuh", KEEP, "constexpr int VR_BF16_KEEP = 2;")],
     "bf16_min3": [("fused_mha_fwd.cu", "__launch_bounds__(vr_threads<D>())\nmha_fwd_bf16_valid(",
                    "__launch_bounds__(vr_threads<D>(), D == 64 ? 3 : 1)\nmha_fwd_bf16_valid(")],
 }

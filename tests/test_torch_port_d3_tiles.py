@@ -10,8 +10,7 @@ mask padded. They are staged: a slot of ``bf16_keys`` keys (64 at D = 192 and
 row's live tiles of ``BF16_LIVE_KEYS`` keys (``bf16_slots``); each warp forms
 its rows' scores over the whole of D, the column groups (``bf16_groups``)
 splitting only the output columns, so a score is one product of bf16 values
-summed in fp32 (K1 at D = 512: the sum of its four groups' partial products,
-``bf16_score_groups``). K1 keeps the reference's rounding: m and l over the whole row
+summed in fp32. K1 keeps the reference's rounding: m and l over the whole row
 in a first pass over the slots, then ``p = exp(s - m)·(1 / l)`` rounded to
 bf16 before PV (an online softmax would round another p); K2 rounds p before
 dv and ds before dq and dk, and forms di from the fp32 p. The JAX kernels
@@ -39,7 +38,6 @@ import torch
 
 from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops.fused_mha import (
-    BF16_KEPT_TILES,
     BF16_LIVE_KEYS,
     KERNEL_HEAD_DIMS,
     MIN_BLOCK,
@@ -47,7 +45,6 @@ from diffulab_tpu_torch.ops.fused_mha import (
     bf16_groups,
     bf16_keys,
     bf16_rows,
-    bf16_score_groups,
     bf16_slots,
     fused_mha_bf16_valid_emulation,
     fused_mha_bwd_bf16_valid_emulation,
@@ -202,14 +199,12 @@ def test_bf16_k2_split_at_the_unet_head_dims_matches_the_jax_kernel(case):
 
 def test_bf16_tile_rules():
     # the staged slot: the UNets' whole live row (64 keys at D = 192 and 256, 16 at 384 and 512) in one slot
-    # gathered from 16-key liveness tiles, kept in registers between K1's passes; column groups that split only
-    # the output columns; a head's valid rows a CTA
+    # gathered from 16-key liveness tiles; column groups that split only the output columns, each warp forming
+    # its rows' scores over the whole of D; a head's valid rows a CTA
     assert [(bf16_keys(d), bf16_groups(d), bf16_groups(d, backward=True), bf16_rows(d))
             for d in VALID_ROWS_HEAD_DIMS] == [(64, 1, 2, 64), (64, 1, 2, 64), (16, 3, 6, 16), (16, 4, 4, 16)]
     assert [bf16_keys(d) for d in KERNEL_HEAD_DIMS] == [0, 0, 0, 0]
-    assert (BF16_KEPT_TILES, BF16_LIVE_KEYS) == (1, 16)
-    # K1 adds its column groups' partial scores at D = 512 alone
-    assert [bf16_score_groups(d) for d in VALID_ROWS_HEAD_DIMS] == [1, 1, 1, 4]
+    assert BF16_LIVE_KEYS == 16
     # the slots of a row: its live 16-key tiles in order, a slot's worth at a time
     row = torch.zeros(128, dtype=torch.bool)
     row[[3, 40, 41, 99]] = True

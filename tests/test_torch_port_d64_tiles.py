@@ -52,9 +52,9 @@ from diffulab_tpu_torch.networks.denoisers.mmdit import MMDiT
 from diffulab_tpu_torch.networks.embedders import TrainableTextEmbedder, byte_tokenize
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.fused_mha import (
+    BF16_KEPT_TILES,
     MIN_BLOCK,
     SHORT_ROWS_MAX_SQ,
-    bf16_kept_tiles,
     bf16_keys,
     f32_groups,
     f32_keys,
@@ -203,7 +203,7 @@ def test_k2_valid_rows_split_at_d64_matches_the_jax_kernel(case, dtype):
 def test_the_d64_valid_rows_tile_rules():
     # 32-key tiles in fp32 and 64-key ones in bf16, one column group, 1 live tile (a 64-token row) kept between
     # bf16 K1's passes; the padded instances keep theirs (32-key fp32 slots, no bf16 tiles)
-    assert (f32_keys(D, valid_rows=True), bf16_keys(D, valid_rows=True), f32_groups(D), bf16_kept_tiles(D)) \
+    assert (f32_keys(D, valid_rows=True), bf16_keys(D, valid_rows=True), f32_groups(D), BF16_KEPT_TILES) \
         == (32, 64, 1, 1)
     assert (f32_keys(D), bf16_keys(D)) == (32, 0)
     assert [takes_valid_rows(sq, D) for sq in (64, 72, 264, 37, 128, 256, 384)] == [True] * 4 + [False] * 3
