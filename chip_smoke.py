@@ -908,6 +908,9 @@ def phase_build():
     warnings = sorted({line.strip() for log in logs.values() for line in log.splitlines() if "warning" in line})
     print(f"phase 1 build: {len(logs)} kernel libraries in {seconds:.1f} s; ptxas: {json.dumps(usage)}; "
           f"warnings: {json.dumps(warnings)}")
+    staged = {name: use for lib in usage.values() for name, use in lib.items() if "tf32x3_staged" in name}
+    if len(staged) != 4 or any(not use.endswith(" 0 B spilled") for use in staged.values()):
+        fail(f"the staged fp32 K1/K2 at D = 256 and 512: ptxas {staged}, expected four instances and no spill")
 
 
 def phase_kernel():
@@ -3407,13 +3410,15 @@ def bitwise_share(o, ref) -> float:
 
 
 def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: int | None = None,
-                       dtype: str = "float32"):
+                       dtype: str = "float32", extra_edges: bool = False):
     """The K1 and K2 instances built around the valid rows (``dtype``: fp32,
     or bf16) at the head dims and token counts of ``attn`` against their
     plain versions, as the fused route hands them over: the unpadded query
     rows, k, v and the padding mask at 128 keys. First two edge cases each
     (an empty key tile between live ones beside a fully masked row: o = 0,
-    lse = +inf and zero gradients there; a ragged Sq). Then each kernel timed
+    lse = +inf and zero gradients there; a ragged Sq; with ``extra_edges``
+    also no mask, and an Sq past a CTA's rows with as many attended keys, so
+    that the keys fill more than one slot). Then each kernel timed
     from CUDA-graph replays at batch ``b`` (K1 also at ``sample_batch``)
     beside SDPA in ``dtype`` on the same inputs (the yardstick), on the
     padded q, k, v with the mask, and on the unpadded q, k, v; SDPA's
@@ -3448,8 +3453,12 @@ def valid_rows_kernels(tag: str, attn, b: int, h: int, seed: int, sample_batch: 
         def bounds(bb, backward, padded):
             return padded_bounds(bb, tokens, s, h, d, backward, padded, **bound_kw)
 
-        for label, sq, mask in (("hole", tokens, d2_mask("hole", b, tokens, tile)),
-                                ("ragged", tokens // 2 + 5, d2_mask("padded", b, tokens))):
+        edge_cases = [("hole", tokens, d2_mask("hole", b, tokens, tile)),
+                      ("ragged", tokens // 2 + 5, d2_mask("padded", b, tokens))]
+        if extra_edges:
+            past = tokens + tokens // 2 + 4  # past the CTA's rows: 100 at 64 tokens, 28 at 16
+            edge_cases += [("unmasked", tokens, None), ("past_rows", past, d2_mask("padded", b, past))]
+        for label, sq, mask in edge_cases:
             q, k, v, do = rand(b, sq), rand(b, s), rand(b, s), rand(b, sq)
             with torch.no_grad():
                 o, lse = fused_mha(q, k, v, mask)
@@ -3551,13 +3560,36 @@ def valid_rows_line(results, edges, dtype: str = "float32") -> str:
 
 
 def phase_d2_kernels():
-    """Phase 19a: the fp32 K1 and K2 instances at head dims 256 and 512 (the
-    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2) against
-    their plain versions, as the fused route hands them over, with the edge
-    cases, timings and bounds of :func:`valid_rows_kernels`."""
-    results, edges = valid_rows_kernels("D2", D2_ATTN, D2_BATCH, D2_HEADS, 19)
-    print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={D2_BATCH}, H={D2_HEADS}, the unpadded "
-          f"query rows, keys padded to {D2_PADDED} with the padding mask; {VALID_ROWS_TIMING}): "
+    """Phase 19a: the staged fp32 K1 and K2 at head dims 256 and 512 (the
+    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2; K1 also
+    at the request's B=16) against their plain versions, as the fused route
+    hands them over, with the edge cases, timings and bounds of
+    :func:`valid_rows_kernels` and its extra edge cases (no mask, and an Sq
+    past a CTA's rows: a head's row blocks in turn, keys in more than one
+    slot). First the libraries' staged rules against the ones
+    ``ops/fused_mha.py::f32_staged`` mirrors, and K2's products."""
+    from diffulab_tpu_torch.ops import _build
+    from diffulab_tpu_torch.ops.fused_mha import STAGED_F32_HEAD_DIMS, f32_staged
+
+    fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
+    rules = {d: ([fwd_lib.fused_mha_fwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4, 5)],
+                 [bwd_lib.fused_mha_bwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4, 5, 6, 7)])
+             for d in STAGED_F32_HEAD_DIMS}
+    mirrored = {d: ([r.slot, r.fwd_groups, r.fwd_rows, r.fwd_chunk, r.fwd_parts],
+                    [r.slot, 1, r.rows, r.chunk, r.key_parts, r.cluster, r.parts])
+                for d, r in ((d, f32_staged(d)) for d in STAGED_F32_HEAD_DIMS)}
+    if rules != mirrored:
+        fail(f"D2 staged rules: the libraries' (K1 slot, groups, rows, chunk, score partials; K2 slot, groups, rows, "
+             f"chunk, key parts, CTAs a head, score partials) {rules} differ from ops/fused_mha.py's {mirrored}")
+    products = {d: bwd_lib.fused_mha_bwd_f32_products(d, D2_PADDED) for d in STAGED_F32_HEAD_DIMS}
+    if set(products.values()) != {5}:
+        fail(f"D2 K2: the library counts {products} products at D = 256/512, expected 5 (s and dp once, dq, dk, dv)")
+    results, edges = valid_rows_kernels("D2", D2_ATTN, D2_BATCH, D2_HEADS, 19, sample_batch=D2_SAMPLES,
+                                        extra_edges=True)
+    print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={D2_BATCH}, K1 also at the request's "
+          f"B={D2_SAMPLES}, H={D2_HEADS}, the unpadded query rows, keys padded to {D2_PADDED} with the padding mask; "
+          f"the staged instances' rules (K1 slot, groups, rows, chunk, score partials; K2 slot, groups, rows, chunk, "
+          f"key parts, CTAs a head, score partials) {rules}, as the emulation's; K2 products {products}; {VALID_ROWS_TIMING}): "
           + valid_rows_line(results, edges))
     return results
 
@@ -6593,8 +6625,11 @@ def main() -> int:
         "sdpa_unpadded_ms": numbers[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
         "shape": f"B={batch} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
                  f"mask) H=2 D={d} fp32",
-        **({"sample_shape_b32": {key: numbers[f"fwd_d{d}_b{2 * D1_SAMPLES}"][key] for key in C1_KEYS}}
-           if f"{kind}_d{d}_b{2 * D1_SAMPLES}" in numbers else {}),
+        "instances": ([f"mha_fwd_tf32x3_staged<{d}>"] if kind == "fwd" else [f"mha_bwd_fused_tf32x3_staged<{d}>"])
+        if slice_name == "D2" else ([f"mha_fwd_tf32x3_valid<{d}>"] if kind == "fwd"
+                                    else [f"mha_bwd_dq_tf32x3_valid<{d}>", f"mha_bwd_dkv_tf32x3_valid<{d}>"]),
+        **{f"sample_shape_{key.rsplit('_', 1)[1]}": {k: numbers[key][k] for k in C1_KEYS}
+           for key in numbers if key.startswith(f"{kind}_d{d}_b")},
         "timing": "ms and library_ms (fp32 SDPA on the same inputs): device time per call from CUDA-graph replays"
                   + ("" if kind == "fwd" else " (SDPA's backward: its memory-efficient backward op)")
                   + "; bound_ms at 3xTF32 and 3.35 TB/s over the valid rows and keys; bound_padded_ms with q, o "

@@ -67,11 +67,14 @@
 //     two-slot cp.async ring brings with their lse and di: 4 products.
 // So 7 products of [Sq x Skv x D] where the bound counts 5 (9 where p and dp
 // do not fit). p and ds stay fp32: the input dtype's rounding is none. At the
-// UNets' head dims 192-512 (64 or 16 tokens, padded to 128 keys),
+// D1 UNet's head dims 192 and 384 (64 or 16 tokens, padded to 128 keys),
 // mha_bwd_{dq,dkv}_tf32x3_valid<D> are built around the valid rows: the dq
 // CTAs cover the unpadded query rows alone and skip every key tile whose mask
 // is all 0, a dk/dv CTA whose keys are all masked writes zeros, and the dk/dv
-// query loop walks the valid query rows; column groups of vr_cols columns.
+// query loop walks the valid query rows; column groups of vr_cols columns. At
+// the MNIST UNet's 256 and 512, mha_bwd_fused_tf32x3_staged<D>: one kernel a
+// (batch, head) that forms s and dp once over the live keys, D staged in
+// chunks, no workspace.
 // In bf16 at those dims, mha_bwd_{dq,dkv}_bf16_valid<D>: the same split on
 // mma.sync m16n8k16 over tiles of 16 keys or queries (bf16_valid.cuh). At D =
 // 64 both dtypes' valid-rows kernels take the padded short sequences (the
@@ -81,6 +84,7 @@
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
 
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -705,15 +709,16 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
   store_c_rows<D>(dv + (long long)b * Skv * o_ss + h * D, o_ss, row, dv_acc, t4);
 }
 
-// --- fp32 at D = 64 and 192-512: built around the valid rows (tf32x3.cuh) ----
+// --- fp32 at D = 64, 192 and 384: built around the valid rows (tf32x3.cuh) ----
 //
-// The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the UNets'
-// head dims: 64 tokens at D = 192 and 256, 16 at D = 384 and 512, keys padded
-// to 128. At B=128, H=2 a call must read q, do, k and v and write dq, dk and
+// The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the D1 UNet's
+// head dims: 64 tokens at D = 192, 16 at D = 384, keys padded to 128 (the
+// MNIST UNet's 256 and 512 run the staged kernel below; PR 13 ran these
+// there). At B=128, H=2 a call must read q, do, k and v and write dq, dk and
 // dv over the valid rows and keys (dk and dv: the route's pad drops the
-// padded keys' rows), 88.1 / 117.4 / 44.0 / 58.7 MB at D = 192 / 256 / 384 /
-// 512 (0.026 / 0.035 / 0.013 / 0.018 ms at 3.35 TB/s), against 2.01 / 2.68 /
-// 0.25 / 0.34 GFLOP (0.016 ms or less at 3xTF32): bound by bytes. Padded to
+// padded keys' rows), 88.1 / 44.0 MB at D = 192 / 384 (0.026 / 0.013 ms at
+// 3.35 TB/s), against 2.01 / 0.25 GFLOP (0.016 ms or less at 3xTF32): bound
+// by bytes. Padded to
 // 128 query rows and walking every key tile, the instances before this design
 // did 2x (64 tokens) and 8x (16) the bytes of q, do and dq and 4x and 64x the
 // score work. So the q, dO and lse rows are the unpadded ones (ragged ends
@@ -1038,6 +1043,380 @@ __host__ __device__ constexpr size_t vr_dkv_smem_bytes() {
 // the ints after the dq kernel's tiles: the live key tiles of kt keys and their count
 inline size_t vr_live_bytes(int skv, int kt) {
   return sizeof(int) * (skv / kt + 1);
+}
+
+// --- fp32 at D = 256 and 512: staged, one kernel a (batch, head) (tf32x3.cuh)
+//
+// The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the MNIST
+// UNet's head dims: 64 tokens at D = 256, 16 at 512, keys padded to 128. At
+// B=128, H=2 a call must read q, do, k and v and write dq, dk and dv over the
+// valid rows and keys, 117.4 / 58.7 MB (0.035 / 0.018 ms at 3.35 TB/s), and
+// the padded contract has the kernel write the zero dk and dv of the padded
+// keys too, 33.6 / 117.4 MB more; against 2.68 / 0.34 GFLOP (0.016 ms or
+// less at 3xTF32): bound by bytes. PR 13's pair (a dq kernel forming s and dp
+// twice over 8-key tiles, a dk/dv kernel forming them a third time, lse and
+// di through a workspace, the score reduction split between column groups
+// that added their partial tiles in shared memory every tile) took 6.2x /
+// 6.4x the valid bound. Here one CTA a (batch, head) forms s and dp once per
+// (row, live key), as the TPU kernel's one program a batch and head does:
+//  - the live 8-key tiles of the mask row are gathered into slots of
+//    vr_f32s_slot keys (the UNet's whole live row is one slot); the keys of
+//    the tiles without an attended key get dk = dv = 0 first;
+//  - phase 1 walks D a chunk of vr_f32s_chunk columns at a time through a
+//    ring of VR_F32S_STAGES cp.async stages (Q, dO, and the slot's K and V):
+//    a warp forms the s (or the dp) of its 16 rows and its keys, each chunk's
+//    3xTF32 product summed from zero and added to its fp32 sums (T25). Then
+//    p = exp(s - lse) goes to shared memory, the dp warp of the same rows
+//    sums di = rowsum(p * dp) from the fp32 p and dp and writes ds = p * (dp
+//    - di) * scale beside it;
+//  - phase 2 walks the chunks again (Q, dO and K, from L2): dq = ds.K, dk =
+//    ds^T.Q and dv = p^T.dO, each 16 x 16 output tile complete for its chunk
+//    of columns and stored at once.
+// A CTA holds 64 (or 16) query rows and 64 (or 16) keys at a time: the
+// whole head in fp32 (4 x 66.5 KB at D = 256) does not fit in one SM, so the
+// chunks (36.9 KB a stage at D = 256) keep two CTAs on an SM. A head whose
+// valid rows exceed vr_f32s_rows (the route hands these dims any Sq up to
+// 512; the UNets' are one block) loops over its row blocks inside the CTA,
+// carrying dk and dv: a later block adds its partial to the stored values;
+// a live row of more than one slot first sums di over its slots (s and dp
+// formed, p and dp not kept), then adds each slot's dq to the stored one. No
+// workspace, no second launch, no atomics: the sums run in a fixed order. A
+// batch row with no live tile writes dq = 0. With vr_f32s_cluster = 2, a
+// cluster of two CTAs a head splits each row block between them (each
+// loading the slot's K and V itself), and each adds its partner's partial dk
+// and dv of its half of the keys through distributed shared memory.
+
+// which pass, slot, phase and chunk a load of the staged K2 serves
+struct StagedItem {
+  int m0;     // the row block's first query row
+  int c;      // the slot
+  int ch;     // the chunk of columns
+  bool p2;    // phase 2 (dq, dk, dv), else phase 1 (s, dp)
+  bool full;  // the pass that forms ds and the outputs, else the di pass of a row of more than one slot
+};
+
+template <int D>
+__global__ void __launch_bounds__(vr_f32s_bwd_threads<D>(), vr_f32s_bwd_blocks<D>())
+mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                            const float* __restrict__ dout, const int* __restrict__ mask,
+                            const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ dk,
+                            float* __restrict__ dv, int Sq, int Skv, int H, long long q_sb, long long q_ss,
+                            long long k_sb, long long k_ss, long long v_sb, long long v_ss, long long do_sb,
+                            long long do_ss, float sm_scale) {
+  constexpr int KT = VR_TILE, SLOT = vr_f32s_slot<D>(), CT = SLOT / KT, ROWS = vr_f32s_rows<D>();
+  constexpr int C = vr_f32s_chunk<D>(), NC = D / C, LDC = C + 4, R = ROWS > SLOT ? ROWS : SLOT, TILE = R * LDC;
+  constexpr int NB = VR_F32S_STAGES, LDP = SLOT + 4, KP = vr_f32s_key_parts<D>(), KPW = SLOT / KP;
+  constexpr int THREADS = vr_f32s_bwd_threads<D>(), WARPS = THREADS / 32, RB = ROWS / 16, KB = SLOT / 16;
+  constexpr int CP = C / 16, UNITS = (RB + 2 * KB) * CP, UW = (UNITS + WARPS - 1) / WARPS;
+  constexpr int CL = vr_f32s_cluster<D>(), NG = KPW / 8 < 4 ? KPW / 8 : 4;  // n-tiles of a phase-1 partial
+  constexpr int PARTS = vr_f32s_parts<D>();
+  static_assert((KPW / 8) % NG == 0 && 2 * RB * KP <= WARPS && KPW % 8 == 0 && SLOT % 16 == 0 && ROWS % 16 == 0 && C % 16 == 0 &&
+                    D % C == 0 && (CL == 1 || KB % CL == 0),
+                "the staged fp32 K2's tiles");
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                // [NB][4][R][LDC]: chunks of Q, dO, K and V
+  float* ps = ring + NB * 4 * TILE;  // [ROWS][LDP]: p
+  float* dss = ps + ROWS * LDP;      // [ROWS][LDP]: ds
+  float* di_x = dss + ROWS * LDP;    // [KP][ROWS]: the key parts' di
+  float* xb = di_x + KP * ROWS;      // CL > 1: [2][KB][CP][256] the partial dk and dv tiles
+  int* live = reinterpret_cast<int*>(xb + (CL > 1 ? 2 * SLOT * C : 0));  // [Skv / KT + 1]: live tiles, count
+  int* dead = live + Skv / KT + 1;                                        // [Skv / KT]: 1 for a tile without one
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, rank = CL > 1 ? static_cast<int>(blockIdx.x % CL) : 0;
+  // phase 1: warp (is_dp, rb1, kp) forms the s (dp) of rows rb1 * 16 + [0, 16) and keys kp * KPW + [0, KPW)
+  const bool scorer = warp < 2 * RB * KP, is_dp = warp >= RB * KP;
+  const int rb1 = (warp % (RB * KP)) / KP, kp = warp % KP;
+  const long long o_ss = (long long)H * D;
+  const float* qb = q + b * q_sb + h * D;
+  const float* dob = dout + b * do_sb + h * D;
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
+  float* dqb = dq + (long long)b * Sq * o_ss + h * D;
+  float* dkb = dk + (long long)b * Skv * o_ss + h * D;
+  float* dvb = dv + (long long)b * Skv * o_ss + h * D;
+  const int* mb = mask == nullptr ? nullptr : mask + (long long)b * Skv;
+  const int n_tiles = Skv / KT;
+
+  find_live_tiles<KT>(live, mb, n_tiles);
+  for (int t = threadIdx.x; t < n_tiles; t += THREADS) dead[t] = mb != nullptr && !tile_live<KT>(mb, t);
+  __syncthreads();
+  const int n_live = live[n_tiles], n_slots = (n_live + CT - 1) / CT;
+  const bool kept = n_slots == 1;  // the same for every thread: one pass, di from the slot alone
+  const int n_blocks = (Sq + CL * ROWS - 1) / (CL * ROWS);  // the row blocks of this CTA
+  const int per_block = kept ? 2 * NC : 3 * NC * n_slots;
+  const int n_items = n_slots > 0 ? n_blocks * per_block : 0;
+
+  // dk = dv = 0 on the keys of the tiles without an attended key (the padded keys: most of the bytes at D =
+  // 512); written after the first loads are requested they took as long (0.0862 ms against 0.0842 at D = 512,
+  // B=128, H=2; 0.1047 against 0.1063 at 256: scripts/d2_valid_variants.py; NVIDIA H100 80GB HBM3, 700 W)
+  for (int i = rank * THREADS + threadIdx.x; i < n_tiles * KT * (D / 4); i += CL * THREADS) {
+    const int key = i / (D / 4);
+    if (dead[key / KT]) {
+      const long long at = (long long)key * o_ss + (i % (D / 4)) * 4;
+      *reinterpret_cast<float4*>(dkb + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dvb + at) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  if (n_live == 0) {  // no attended key: dq = 0 (the rows of this CTA's blocks)
+    for (int i = threadIdx.x; i < n_blocks * ROWS * (D / 4); i += THREADS) {
+      const int row = ((i / (ROWS * (D / 4))) * CL + rank) * ROWS + (i / (D / 4)) % ROWS;
+      if (row < Sq)
+        *reinterpret_cast<float4*>(dqb + (long long)row * o_ss + (i % (D / 4)) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  auto decode = [&](int i) {
+    const int blk = i / per_block, j = i % per_block;
+    StagedItem it;
+    it.m0 = (blk * CL + rank) * ROWS;
+    if (kept) {
+      it.c = 0, it.full = true, it.p2 = j >= NC, it.ch = j % NC;
+    } else if (j < NC * n_slots) {
+      it.c = j / NC, it.full = false, it.p2 = false, it.ch = j % NC;
+    } else {
+      const int jj = j - NC * n_slots;
+      it.c = jj / (2 * NC), it.full = true, it.p2 = jj % (2 * NC) >= NC, it.ch = jj % NC;
+    }
+    return it;
+  };
+  // the loads of item i into stage i % NB: Q, dO (the row block, zero past Sq), K and, in phase 1, V (the
+  // slot's live tiles, zero past them)
+  auto stage = [&](int i) {
+    const StagedItem it = decode(i);
+    float* st = ring + (i % NB) * 4 * TILE;
+    const int col = it.ch * C, n = min(CT, n_live - it.c * CT);
+    stage_chunk_rows<C, ROWS, THREADS>(st, qb, q_ss, it.m0, Sq, col);
+    stage_chunk_rows<C, ROWS, THREADS>(st + TILE, dob, do_ss, it.m0, Sq, col);
+    stage_chunk_tiles<C, SLOT, KT, THREADS>(st + 2 * TILE, kb, k_ss, live + it.c * CT, n, col);
+    if (!it.p2) stage_chunk_tiles<C, SLOT, KT, THREADS>(st + 3 * TILE, vb, v_ss, live + it.c * CT, n, col);
+  };
+  for (int i = 0; i < NB - 1; ++i) {  // a group each, empty or not, so that the waits below count right
+    if (i < n_items) stage(i);
+    cp_async_commit();
+  }
+
+  // the items in order: a row block's passes (kept, one; else the di pass over the slots, then the full one),
+  // a pass's slots, a slot's phase-1 chunks and, in the full pass, its phase-2 chunks; item i is computed while
+  // the next NB - 1 load
+  int i = 0;
+  auto begin_item = [&]() {
+    if (i + NB - 1 < n_items) stage(i + NB - 1);
+    cp_async_commit();
+    cp_async_wait<NB - 1>();  // item i has landed
+    __syncthreads();
+    return static_cast<const float*>(ring + (i % NB) * 4 * TILE);
+  };
+  auto end_item = [&]() {
+    __syncthreads();  // the stage, p and ds are written again
+    ++i;
+  };
+  float di[2] = {0.f, 0.f};  // the dp warp's rows' di
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int m0 = (blk * CL + rank) * ROWS, row = m0 + rb1 * 16 + g;  // a scorer's rows: row, row + 8
+    float dsum[2] = {0.f, 0.f};  // the dp warp's rows: its keys' p * dp over the slots
+    for (int full = kept ? 1 : 0; full < 2; ++full) {
+      for (int c = 0; c < n_slots; ++c) {
+        const int n = min(CT, n_live - c * CT);
+        float acc[KPW / 8][4] = {};  // phase 1: the warp's s or dp, summed over the chunks
+        for (int ch = 0; ch < NC; ++ch) {
+          const float* st = begin_item();
+          if (scorer) {  // this chunk's s = Q.K^T (dp = dO.V^T), NG n-tiles at a time from zero, added to the sums
+#pragma unroll
+            for (int n0 = 0; n0 < KPW / 8; n0 += NG)
+              rows_dot_add<C, NG * 8, LDC, PARTS>(*reinterpret_cast<float(*)[NG][4]>(&acc[n0]), st + (is_dp ? TILE : 0),
+                                                  rb1 * 16, st + (is_dp ? 3 : 2) * TILE + (kp * KPW + n0 * 8) * LDC, g, t4);
+          }
+          if (ch == NC - 1) {  // the slot's s and dp are whole
+            if (scorer && !is_dp) {  // p = exp(s * scale - lse); a masked key at MASK_VALUE, a key past the slot 0
+              const float lse_r[2] = {row < Sq ? lse[((long long)b * Sq + row) * H + h] : INFINITY,
+                                      row + 8 < Sq ? lse[((long long)b * Sq + row + 8) * H + h] : INFINITY};
+#pragma unroll
+              for (int nt = 0; nt < KPW / 8; ++nt) {
+                const int col = kp * KPW + nt * 8 + 2 * t4, j = col / KT;
+                float p[4] = {0.f, 0.f, 0.f, 0.f};
+                if (j < n) {
+                  const int key = live[c * CT + j] * KT + col % KT;
+                  const int2 keep = mb == nullptr ? make_int2(1, 1) : *reinterpret_cast<const int2*>(mb + key);
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    p[e] = expf(((e & 1) ? keep.y : keep.x) ? acc[nt][e] * sm_scale - lse_r[e >> 1]
+                                                             : MASK_VALUE - lse_r[e >> 1]);
+                }
+                *reinterpret_cast<float2*>(ps + (rb1 * 16 + g) * LDP + col) = make_float2(p[0], p[1]);
+                *reinterpret_cast<float2*>(ps + (rb1 * 16 + g + 8) * LDP + col) = make_float2(p[2], p[3]);
+              }
+            }
+            __syncthreads();  // p is whole
+            // p where the dp warp's dp lies
+            auto p_at = [&](int nt, float (&pv)[4]) {
+              const int col = kp * KPW + nt * 8 + 2 * t4;
+              const float2 x = *reinterpret_cast<const float2*>(ps + (rb1 * 16 + g) * LDP + col);
+              const float2 y = *reinterpret_cast<const float2*>(ps + (rb1 * 16 + g + 8) * LDP + col);
+              pv[0] = x.x, pv[1] = x.y, pv[2] = y.x, pv[3] = y.y;
+            };
+            if (scorer && is_dp && (kept || !full)) {  // di's sum over the dp warp's keys
+#pragma unroll
+              for (int nt = 0; nt < KPW / 8; ++nt) {
+                float pv[4];
+                p_at(nt, pv);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) dsum[e >> 1] += pv[e] * acc[nt][e];
+              }
+            }
+            if (kept || (!full && c == n_slots - 1)) {  // di over the whole key row: the quads, the key parts in order
+              if (scorer && is_dp) {
+                dsum[0] = quad_sum(dsum[0]);
+                dsum[1] = quad_sum(dsum[1]);
+                if (t4 == 0) {
+                  di_x[kp * ROWS + rb1 * 16 + g] = dsum[0];
+                  di_x[kp * ROWS + rb1 * 16 + g + 8] = dsum[1];
+                }
+              }
+              __syncthreads();
+              if (scorer && is_dp) {
+                di[0] = di[1] = 0.f;
+#pragma unroll
+                for (int x = 0; x < KP; ++x) {
+                  di[0] += di_x[x * ROWS + rb1 * 16 + g];
+                  di[1] += di_x[x * ROWS + rb1 * 16 + g + 8];
+                }
+              }
+            }
+            if (full && scorer && is_dp) {  // ds = p * (dp - di) * scale, beside p
+#pragma unroll
+              for (int nt = 0; nt < KPW / 8; ++nt) {
+                const int col = kp * KPW + nt * 8 + 2 * t4;
+                float pv[4], ds[4];
+                p_at(nt, pv);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) ds[e] = pv[e] * (acc[nt][e] - di[e >> 1]) * sm_scale;
+                *reinterpret_cast<float2*>(dss + (rb1 * 16 + g) * LDP + col) = make_float2(ds[0], ds[1]);
+                *reinterpret_cast<float2*>(dss + (rb1 * 16 + g + 8) * LDP + col) = make_float2(ds[2], ds[3]);
+              }
+            }
+          }
+          end_item();
+        }
+        for (int ch = 0; full && ch < NC; ++ch) {
+          // phase 2: the warp's 16 x 16 tiles of this chunk's columns, unit u: dq rows (u < RB CP), dk keys, dv keys
+          const float* st = begin_item();
+          auto product = [&](int u, float (&o)[2][4]) {
+            const int prod = u < RB * CP ? 0 : u < (RB + KB) * CP ? 1 : 2;
+            const int w = u - (prod == 0 ? 0 : prod == 1 ? RB * CP : (RB + KB) * CP), rb = w / CP, cp = w % CP;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+            if (prod == 0) {  // dq = ds.K over the slot's keys
+#pragma unroll
+              for (int kk = 0; kk < SLOT / 8; ++kk) {
+                uint32_t ah[4], al[4];
+                frag_a_rows_perm<LDP>(ah, al, dss, rb * 16, kk, g, t4);
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) {
+                  uint32_t bh[2], bl[2];
+                  frag_b_cols<C, LDC>(bh, bl, st + 2 * TILE, kk, cp * 16 + nt * 8, g, t4);
+                  mma3(o[nt], ah, al, bh, bl);
+                }
+              }
+            } else {  // dk = ds^T.Q, dv = p^T.dO over the block's query rows
+              const float* a = prod == 1 ? dss : ps;
+              const float* bt = st + (prod == 1 ? 0 : TILE);
+#pragma unroll
+              for (int kk = 0; kk < ROWS / 8; ++kk) {
+                uint32_t ah[4], al[4];
+                frag_a_cols_perm<LDP>(ah, al, a, rb * 16, kk, g, t4);
+#pragma unroll
+                for (int nt = 0; nt < 2; ++nt) {
+                  uint32_t bh[2], bl[2];
+                  frag_b_cols<C, LDC>(bh, bl, bt, kk, cp * 16 + nt * 8, g, t4);
+                  mma3(o[nt], ah, al, bh, bl);
+                }
+              }
+            }
+          };
+          // stored, or added to what an earlier slot (dq) or row block (dk, dv) stored
+          auto store = [&](int u, const float (&o)[2][4]) {
+            const int prod = u < RB * CP ? 0 : u < (RB + KB) * CP ? 1 : 2;
+            const int w = u - (prod == 0 ? 0 : prod == 1 ? RB * CP : (RB + KB) * CP), rb = w / CP, cp = w % CP;
+            if (prod > 0 && rb % CL != rank) return;  // the partner stores this key block
+            const int col = ch * C + cp * 16 + 2 * t4;
+            const bool add = prod == 0 ? c > 0 : blk > 0;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              long long at;
+              if (prod == 0) {
+                const int r = m0 + rb * 16 + g + 8 * half;
+                if (r >= Sq) continue;
+                at = (long long)r * o_ss;
+              } else {
+                const int r = rb * 16 + g + 8 * half;
+                if (r / KT >= n) continue;
+                at = ((long long)live[c * CT + r / KT] * KT + r % KT) * o_ss;
+              }
+              float* dst = (prod == 0 ? dqb : prod == 1 ? dkb : dvb) + at + col;
+#pragma unroll
+              for (int nt = 0; nt < 2; ++nt) {
+                float2 val = make_float2(o[nt][2 * half], o[nt][2 * half + 1]);
+                if (add) {
+                  const float2 was = *reinterpret_cast<const float2*>(dst + nt * 8);
+                  val = make_float2(was.x + val.x, was.y + val.y);
+                }
+                *reinterpret_cast<float2*>(dst + nt * 8) = val;
+              }
+            }
+          };
+          if constexpr (CL == 1) {  // a tile at a time: one accumulator live
+#pragma unroll 1
+            for (int u = warp; u < UNITS; u += WARPS) {
+              float o[2][4];
+              product(u, o);
+              store(u, o);
+            }
+          } else {  // the partner's partial dk and dv of this CTA's key blocks added, in rank order
+            namespace cg = cooperative_groups;
+            cg::cluster_group cluster = cg::this_cluster();
+            float out[UW][2][4];
+#pragma unroll
+            for (int x = 0; x < UW; ++x) {
+              const int u = warp + x * WARPS;
+              if (u >= UNITS) break;
+              product(u, out[x]);
+              const int w = u - RB * CP;  // (dk or dv, key block, column part)
+              if (u >= RB * CP && (w % (KB * CP)) / CP % CL != rank)
+#pragma unroll
+                for (int e = 0; e < 8; ++e) xb[w * 256 + e * 32 + lane] = out[x][e >> 2][e & 3];
+            }
+            cluster.sync();
+            const float* other = cluster.map_shared_rank(xb, rank ^ 1);
+#pragma unroll
+            for (int x = 0; x < UW; ++x) {
+              const int u = warp + x * WARPS;
+              if (u >= UNITS) break;
+              const int w = u - RB * CP;
+              if (u >= RB * CP && (w % (KB * CP)) / CP % CL == rank)
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                  const float theirs = other[w * 256 + e * 32 + lane];
+                  out[x][e >> 2][e & 3] = rank == 0 ? out[x][e >> 2][e & 3] + theirs : theirs + out[x][e >> 2][e & 3];
+                }
+              store(u, out[x]);
+            }
+            cluster.sync();  // the partner has read this CTA's partials
+          }
+          end_item();
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+__host__ __device__ constexpr size_t vr_f32s_bwd_smem_bytes() {
+  constexpr int R = vr_f32s_rows<D>() > vr_f32s_slot<D>() ? vr_f32s_rows<D>() : vr_f32s_slot<D>();
+  return sizeof(float) * (VR_F32S_STAGES * 4 * R * (vr_f32s_chunk<D>() + 4) +
+                          2 * vr_f32s_rows<D>() * (vr_f32s_slot<D>() + 4) + vr_f32s_key_parts<D>() * vr_f32s_rows<D>() +
+                          (vr_f32s_cluster<D>() > 1 ? 2 * vr_f32s_slot<D>() * vr_f32s_chunk<D>() : 0));
 }
 
 // --- bf16 at D = 64: the same split around the valid rows (bf16_valid.cuh)
@@ -1794,6 +2173,47 @@ cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the staged fp32 K2 at D = 256 and 512: one kernel a (batch, head), or a
+// cluster of vr_f32s_cluster CTAs a head; no workspace
+template <int D>
+cudaError_t launch_f32_staged(const Args& a, cudaStream_t stream) {
+  static bool configured[MAX_DEVICES] = {};
+  auto kernel = mha_bwd_fused_tf32x3_staged<D>;
+  int device = 0;
+  cudaError_t err = current_device(device);
+  if (err == cudaSuccess) err = allow_smem(kernel, configured, device);
+  if (err != cudaSuccess) return err;
+  static_assert(vr_f32s_bwd_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K2's tiles exceed shared memory");
+  const size_t smem = vr_f32s_bwd_smem_bytes<D>() + vr_live_bytes(a.Skv, VR_TILE) + sizeof(int) * (a.Skv / VR_TILE);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  constexpr int CL = vr_f32s_cluster<D>();
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
+  const float *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
+  float *dq = static_cast<float*>(a.dq), *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
+  if constexpr (CL == 1) {
+    kernel<<<dim3(1, a.H, a.B), vr_f32s_bwd_threads<D>(), smem, stream>>>(
+        q, k, v, dout, a.mask, a.lse, dq, dk, dv, a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
+        a.do_sb, a.do_ss, a.sm_scale);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL, a.H, a.B);
+    cfg.blockDim = dim3(vr_f32s_bwd_threads<D>());
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, dout, a.mask, a.lse, dq, dk, dv, a.Sq, a.Skv, a.H, a.q_sb, a.q_ss,
+                             a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
 // the bf16 dq kernel, then the dk/dv kernel, built around the valid rows (D
 // = 64, 192-512); a.ws holds lse, then di, rows (b, h) Sq apart
 template <int D>
@@ -1941,9 +2361,9 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
       break;
     case 128: err = launch<128>(dtype, a, s); break;
     case 192: err = dtype == 0 ? launch_f32_valid<192>(a, s) : launch_bf16_staged<192>(a, s); break;
-    case 256: err = dtype == 0 ? launch_f32_valid<256>(a, s) : launch_bf16_staged<256>(a, s); break;
+    case 256: err = dtype == 0 ? launch_f32_staged<256>(a, s) : launch_bf16_staged<256>(a, s); break;
     case 384: err = dtype == 0 ? launch_f32_valid<384>(a, s) : launch_bf16_staged<384>(a, s); break;
-    case 512: err = dtype == 0 ? launch_f32_valid<512>(a, s) : launch_bf16_staged<512>(a, s); break;
+    case 512: err = dtype == 0 ? launch_f32_staged<512>(a, s) : launch_bf16_staged<512>(a, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
@@ -1953,31 +2373,32 @@ extern "C" int fused_mha_bwd(const void* q, const void* k, const void* v, const 
 // by the rule its launch follows: the dq kernel's s and dp, then dq (and s and
 // dp again unless f32_keeps), and the dk/dv kernel's s, dv, dp and dk; 0 for
 // another D. At D <= 128 the padded instances' (the valid-rows instance at D
-// = 64 runs 5 + 4 over the live key tiles, as at 192-512, or 3 + 4 where its
-// dq kernel keeps p and dp, vr_dq_keep)
+// = 64 runs 5 + 4 over the live key tiles, as at 192 and 384, or 3 + 4 where
+// its dq kernel keeps p and dp, vr_dq_keep); the staged instance at 256 and
+// 512 forms s and dp once, then dq, dk and dv (5, over the live keys of a
+// one-slot row)
 extern "C" int fused_mha_bwd_f32_products(int D, int Skv) {
   switch (D) {
     case 16: return (f32_keeps<16>(Skv) ? 3 : 5) + 4;
     case 32: return (f32_keeps<32>(Skv) ? 3 : 5) + 4;
     case 64: return (f32_keeps<64>(Skv) ? 3 : 5) + 4;
     case 128: return (f32_keeps<128>(Skv) ? 3 : 5) + 4;
-    case 192: case 256: case 384: case 512: return 5 + 4;  // over the live key tiles alone
+    case 192: case 384: return 5 + 4;  // over the live key tiles alone
+    case 256: case 512: return 5;
     default: return 0;
   }
 }
 
 // column groups of warps whose partial score tiles are summed in shared
 // memory, in the fp32 dq and dk/dv kernels at head dim D, by the rule their
-// launch follows: vr_groups at the valid-rows head dims, 1 where a warp forms
-// the products over the whole of D; 0 for another D. The emulation in
-// ops/fused_mha.py (f32_groups) mirrors it.
+// launch follows: vr_groups at 192 and 384, 1 where a warp forms the products
+// over the whole of D (the staged instance at 256 and 512 too); 0 for another
+// D. The emulation in ops/fused_mha.py (f32_groups) mirrors it.
 extern "C" int fused_mha_bwd_f32_groups(int D) {
   switch (D) {
-    case 16: case 32: case 64: case 128: return 1;
+    case 16: case 32: case 64: case 128: case 256: case 512: return 1;
     case 192: return vr_groups<192>();
-    case 256: return vr_groups<256>();
     case 384: return vr_groups<384>();
-    case 512: return vr_groups<512>();
     default: return 0;
   }
 }
@@ -2000,10 +2421,22 @@ extern "C" int fused_mha_bwd_bf16_tiles(int D, int what) {
 // fp32, 1 bf16), by the rules their launch follows: keys (dq kernel) or
 // queries (dk/dv kernel) of a ring (or staged) slot (what = 0), column groups
 // of warps (what = 1), rows a CTA (what = 3); 0 where D has no such instance
-// (and for what = 2, which the forward's export uses for its kept slots).
-// ops/fused_mha.py (f32_keys and bf16_keys with valid_rows, f32_groups,
-// bf16_groups, bf16_rows) mirrors them.
+// (and for what = 2, which the forward's export uses for its kept slots). The
+// staged fp32 instance at 256 and 512 (one group: no warp splits the
+// columns) also reports the columns of a stage (what = 4), the key parts of
+// its score warps (what = 5), its CTAs a head (what = 6) and its score
+// partials a stage (what = 7); what >= 4 is 0 elsewhere. ops/fused_mha.py (f32_keys and bf16_keys with valid_rows,
+// f32_groups, bf16_groups, bf16_rows, f32_staged) mirrors them.
 extern "C" int fused_mha_bwd_valid_tiles(int D, int dtype, int what) {
+  if (what >= 4) {
+#define K2_TILES_STAGED(DD)                                                                                   \
+  if (D == DD && dtype == 0)                                                                                  \
+    return what == 4 ? vr_f32s_chunk<DD>() : what == 5 ? vr_f32s_key_parts<DD>() : what == 6 ? vr_f32s_cluster<DD>() \
+         : what == 7 ? vr_f32s_parts<DD>() : 0;
+    K2_TILES_STAGED(256) K2_TILES_STAGED(512)
+#undef K2_TILES_STAGED
+    return 0;
+  }
   if (D == 64)
     return what == 0 ? (dtype == 1 ? vr_bf16_tile<64>() : vr_tile<64>()) : what == 1 ? vr_groups<64>()
          : what == 2 ? 0 : vr_rows<64>();
@@ -2011,6 +2444,7 @@ extern "C" int fused_mha_bwd_valid_tiles(int D, int dtype, int what) {
   if (D == DD)                                                                                                  \
     return what == 2 ? 0                                                                                        \
          : dtype == 1 ? (what == 0 ? vr_bf16_slot<DD>() : what == 1 ? vr_bf16_groups<DD, true>() : vr_bf16_rows<DD>()) \
+         : staged_f32_instance(DD) ? (what == 0 ? vr_f32s_slot<DD>() : what == 1 ? 1 : vr_f32s_rows<DD>())            \
                       : (what == 0 ? vr_tile<DD>() : what == 1 ? vr_groups<DD>() : vr_rows<DD>());
   K2_TILES_ANY(192) K2_TILES_ANY(256) K2_TILES_ANY(384) K2_TILES_ANY(512)
 #undef K2_TILES_ANY

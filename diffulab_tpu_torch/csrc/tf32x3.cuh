@@ -130,7 +130,10 @@ __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, lo
 // columns, which also split the score products' reduction over D: the
 // partial tiles are added in group order in shared memory (put_c, sum_c).
 // At D = 64 one group holds the whole head: no partial tiles, each warp's
-// scores stay in its registers.
+// scores stay in its registers. The fp32 launches take these instances at D =
+// 64, 192 and 384, and the staged ones below at 256 and 512; the rules' values
+// at 256 and 512 are PR 13's instances', which scripts/d2_valid_variants.py
+// (split, k1_valid) still builds to compare.
 
 // the head dims where these are the only instances, the one place that names
 // them: both entry points' rules read it, the fwd library exports it
@@ -451,6 +454,206 @@ __device__ __forceinline__ void sum_c(float (&c)[N / 8][4], const float* buf, in
       c[nt][2] += b.x;
       c[nt][3] += b.y;
     }
+}
+
+// ---- the staged instances at the MNIST UNet's head dims 256 and 512
+//
+// mha_fwd_tf32x3_staged<D> (K1) and mha_bwd_fused_tf32x3_staged<D> (K2): a
+// slot of vr_f32s_slot keys gathered from the mask row's live VR_TILE-key
+// tiles (the UNet's whole live row: 64 keys at D = 256, 16 at 512), D staged
+// vr_f32s_chunk columns at a time through a ring of VR_F32S_STAGES cp.async
+// stages. Each warp forms its rows' s (and dp) over the whole of D: every
+// chunk's 3xTF32 product summed from zero and added to the warp's fp32 sums
+// (T25: a chain of 3 C / 8 products a chunk), so no partial score crosses
+// warps. The slot's p and ds stay in shared memory (K2) or registers (K1),
+// and the outputs come one chunk of columns at a time from a second walk
+// over the chunks. The other head dims keep the instances above.
+
+// head dims of the staged fp32 instances
+__host__ __device__ constexpr bool staged_f32_instance(int D) {
+  return D == 256 || D == 512;
+}
+
+// keys of a staged slot: the UNet's live row, 64 at D = 256, 16 at 512; a
+// longer live row goes through its slots in turn
+template <int D>
+__host__ __device__ constexpr int vr_f32s_slot() {
+  return D == 256 ? 64 : 16;
+}
+
+// query rows of K2's CTA: a head's valid rows at the UNet's token counts, a
+// longer head's row blocks in turn inside the one CTA
+template <int D>
+__host__ __device__ constexpr int vr_f32s_rows() {
+  return D == 256 ? 64 : 16;
+}
+
+// columns of D a K2 stage holds of Q, dO, K and V: 32 at D = 256 (four tiles
+// of 64 rows, 36.9 KB a stage, two CTAs an SM), 128 at 512
+template <int D>
+__host__ __device__ constexpr int vr_f32s_chunk() {
+  return D == 256 ? 32 : 128;
+}
+
+// K2's score partials a stage: its chunk's columns split into this many
+// sums, each from zero, interleaved so that their mma.sync chains overlap,
+// added in order (a sum over chunk / parts columns): 1 at D = 256, where a
+// warp's eight n-tiles already overlap, 4 at 512, where a warp has one
+template <int D>
+__host__ __device__ constexpr int vr_f32s_parts() {
+  return D == 256 ? 1 : 4;
+}
+
+// K2: the slot's keys split between this many warps for s, and as many for
+// dp, of each 16 query rows: 1 at D = 256 (a warp's s or dp over 64 keys), 2
+// at 512 (8 keys each, so that four warps form the 16 rows' scores)
+template <int D>
+__host__ __device__ constexpr int vr_f32s_key_parts() {
+  return D == 256 ? 1 : 2;
+}
+
+// K2's CTAs a head: 1, or a cluster that splits the head's rows and adds
+// its partial dk and dv through distributed shared memory
+template <int D>
+__host__ __device__ constexpr int vr_f32s_cluster() {
+  return 1;
+}
+
+// K2's CTAs an SM that its registers must allow (128 a thread at D = 256)
+template <int D>
+__host__ __device__ constexpr int vr_f32s_bwd_blocks() {
+  return 2;
+}
+
+// K2's warps: one for the s and one for the dp of each 16 rows and key part
+template <int D>
+__host__ __device__ constexpr int vr_f32s_bwd_threads() {
+  return 32 * 2 * (vr_f32s_rows<D>() / 16) * vr_f32s_key_parts<D>();
+}
+
+// query rows of K1's CTA: a head's 64 or 16 valid rows
+template <int D>
+__host__ __device__ constexpr int vr_f32s_fwd_rows() {
+  return D == 256 ? 64 : 16;
+}
+
+// columns of D a K1 stage holds of Q and K (or of V): 64 at D = 256, 256 at
+// 512, where a head's 16 rows and keys make small stages whose load
+// latencies would each stand alone
+template <int D>
+__host__ __device__ constexpr int vr_f32s_fwd_chunk() {
+  return D == 256 ? 64 : 256;
+}
+
+// K1's score partials a stage (as vr_f32s_parts): 1 at D = 256, 4 at 512
+template <int D>
+__host__ __device__ constexpr int vr_f32s_fwd_parts() {
+  return D == 256 ? 1 : 4;
+}
+
+// K1's column groups of warps, which split only P.V's output columns (each
+// group forms its rows' scores whole): one at D = 256, four at 512
+template <int D>
+__host__ __device__ constexpr int vr_f32s_fwd_groups() {
+  return D == 256 ? 1 : 4;
+}
+
+template <int D>
+__host__ __device__ constexpr int vr_f32s_fwd_threads() {
+  return 32 * (vr_f32s_fwd_rows<D>() / 16) * vr_f32s_fwd_groups<D>();
+}
+
+// stages of the staged instances' rings, one loading while one is computed
+constexpr int VR_F32S_STAGES = 2;
+
+// acc += s for a warp's 16 rows (rows a0 of tile `a`) against tile rows 8
+// nt, over C columns, as P sums of C / P columns each from zero, their
+// k-steps interleaved (P independent mma.sync chains), added to acc in order
+template <int C, int N, int LDT, int P>
+__device__ __forceinline__ void rows_dot_add(float (&acc)[N / 8][4], const float* a, int a0, const float* t, int g,
+                                             int t4) {
+  static_assert(C % (8 * P) == 0, "whole k-steps a partial");
+  constexpr int KS = C / 8 / P;
+  float part[P][N / 8][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) part[p][nt][0] = part[p][nt][1] = part[p][nt][2] = part[p][nt][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      uint32_t ah[4], al[4];
+      frag_a<C, LDT>(ah, al, a, a0, p * KS + ks, g, t4);
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt) {
+        uint32_t bh[2], bl[2];
+        frag_b_rows<C, LDT>(bh, bl, t, nt * 8, p * KS + ks, g, t4);
+        mma3(part[p][nt], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] += part[p][nt][e];
+}
+
+// A of a warp's rows r0 + [0, 16) of a row-major tile (rows LDT floats
+// apart), the reduction over its columns 8 kk + [0, 8) in the permuted order
+// of frag_b_cols (slot t4: column 2 t4, slot t4 + 4: 2 t4 + 1), two floats a load
+template <int LDT>
+__device__ __forceinline__ void frag_a_rows_perm(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* t, int r0, int kk,
+                                                 int g, int t4) {
+  const float2 x = *reinterpret_cast<const float2*>(t + (r0 + g) * LDT + kk * 8 + 2 * t4);
+  const float2 y = *reinterpret_cast<const float2*>(t + (r0 + g + 8) * LDT + kk * 8 + 2 * t4);
+  split_tf32(x.x, hi[0], lo[0]);
+  split_tf32(y.x, hi[1], lo[1]);
+  split_tf32(x.y, hi[2], lo[2]);
+  split_tf32(y.y, hi[3], lo[3]);
+}
+
+// A = T^T for the warp's rows c0 + [0, 16), which are columns of the
+// row-major tile T (rows LDT floats apart): the reduction runs over T's rows
+// 8 kk + [0, 8) in the permuted order of frag_b_cols
+template <int LDT>
+__device__ __forceinline__ void frag_a_cols_perm(uint32_t (&hi)[4], uint32_t (&lo)[4], const float* t, int c0, int kk,
+                                                 int g, int t4) {
+  const float* p = t + (kk * 8 + 2 * t4) * LDT + c0 + g;
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8], hi[1], lo[1]);
+  split_tf32(p[LDT], hi[2], lo[2]);
+  split_tf32(p[LDT + 8], hi[3], lo[3]);
+}
+
+// rows r0 + [0, ROWS) of one head, columns col + [0, C), into a [ROWS][C + 4]
+// tile by the CTA's THREADS threads: a row at or past `end` is zero-filled
+// by the copy itself; not awaited
+template <int C, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_chunk_rows(float* dst, const float* src, long long ss, int r0, int end,
+                                                 int col) {
+  constexpr int CHUNKS = C / 4;
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+    const bool in = r0 + r < end;
+    cp_async16(dst + r * (C + 4) + c, in ? src + (long long)(r0 + r) * ss + col + c : src, in ? 16 : 0);
+  }
+}
+
+// the rows of a slot, columns col + [0, C): tiles[0, n) of KT rows each (row
+// tiles[j] KT + r of one head) into rows j KT + r of a [SLOT][C + 4] tile,
+// the rows past n KT zero-filled; not awaited
+template <int C, int SLOT, int KT, int THREADS>
+__device__ __forceinline__ void stage_chunk_tiles(float* dst, const float* src, long long ss, const int* tiles, int n,
+                                                  int col) {
+  constexpr int CHUNKS = C / 4;
+  for (int i = threadIdx.x; i < SLOT * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+    const bool in = r / KT < n;
+    const long long row = in ? (long long)tiles[r / KT] * KT + r % KT : 0;
+    cp_async16(dst + r * (C + 4) + c, src + row * ss + col + c, in ? 16 : 0);
+  }
 }
 
 }  // namespace

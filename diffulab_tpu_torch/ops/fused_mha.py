@@ -40,10 +40,19 @@ tokens at D = 192 and 256, 16 at 384 and 512, padded to 128 keys) have
 instances of their own in both dtypes, built around the valid rows: they
 take the unpadded query rows (``ops/attention.py`` pads only k, v and the
 mask for them), neither load nor multiply a key tile whose mask is all 0,
-and split each row's output between column groups of warps; K2's dk/dv
-kernel writes zeros for a CTA whose keys are all masked. In fp32 the groups
-split the score products' reduction over D too (:func:`f32_groups`), and
-the products are 3xTF32 over tiles of 8 keys. In bf16 the instances are
+and split each row's output between column groups of warps; K2 writes
+zeros for the keys whose mask tile is all 0. In fp32 at D = 192 and 384 the
+groups split the score products' reduction over D too (:func:`f32_groups`),
+and the products are 3xTF32 over tiles of 8 keys; at 256 and 512
+(:data:`STAGED_F32_HEAD_DIMS`) the fp32 instances are staged
+(:func:`f32_staged`): a slot of the live 8-key tiles (64 keys at 256, 16 at
+512: the UNet's whole live row), D staged in chunks through a cp.async ring,
+each warp's score sums over the whole of D, each chunk's 3xTF32 product from
+zero; K1 keeps ``p = exp(s - m) / l`` in fp32 registers for P.V
+(:func:`fused_mha_tf32x3_staged_emulation`), and K2 is one kernel a batch
+and head that forms s and dp once, keeps p and ds in shared memory and
+forms dq, dk and dv a chunk of columns at a time, a head's row blocks in
+turn (:func:`fused_mha_bwd_tf32x3_staged_emulation`). In bf16 the instances are
 staged: a slot of :func:`bf16_keys` keys (64 at D = 192 and 256, 16 at 384
 and 512: the UNets' whole live row) gathered from the mask's live 16-key
 tiles is requested at once, K beside V, each warp forms its rows' scores
@@ -88,7 +97,10 @@ CTA). In fp32, 3xTF32 ``mma.sync`` kernels of 64 queries or keys a CTA: the
 dq kernel keeps its fp32 p and dp in shared memory between the di pass and
 the dq pass where they fit (the launch decides, ``f32_keeps`` in the source),
 so the pair runs 7 products of [Sq x Skv x D] (the bound counts 5), else 9;
-:func:`fused_mha_bwd_tf32x3_emulation` emulates both forms.
+:func:`fused_mha_bwd_tf32x3_emulation` emulates both forms. The staged fp32
+K2 at :data:`STAGED_F32_HEAD_DIMS` runs as one kernel a batch and head at any
+Sq (its row blocks in turn), the bf16 K2 at the UNets' head dims where the
+head's rows fit one CTA: no workspace, no second launch.
 
 :func:`fused_mha_reference` and :func:`fused_mha_bwd_reference` are the
 plain PyTorch versions with the same op order. Every call goes through
@@ -185,12 +197,54 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
 F32_KEYS = 32
 
 
+#: the head dims of the staged fp32 K1 and K2 (the MNIST UNet's, ``csrc/tf32x3.cuh``'s
+#: ``staged_f32_instance``): a slot of live keys, D staged in chunks, each warp's scores over the whole of D
+STAGED_F32_HEAD_DIMS = (256, 512)
+#: keys of the mask's liveness tiles of the fp32 instances at :data:`VALID_ROWS_HEAD_DIMS` (``VR_TILE``)
+F32_LIVE_KEYS = 8
+
+
+class F32Staged(NamedTuple):
+    """The rules of the staged fp32 K1 and K2 at a head dim of
+    :data:`STAGED_F32_HEAD_DIMS` (``vr_f32s_*`` in ``csrc/tf32x3.cuh``)."""
+
+    slot: int  # keys of a slot, gathered from the live 8-key tiles (K1 and K2)
+    rows: int  # K2's query rows a CTA (a row block; a longer head's blocks in turn)
+    chunk: int  # K2's columns of D a stage holds
+    parts: int  # K2's score sums a stage, each over chunk / parts columns from zero, added in order
+    key_parts: int  # K2's warps that split a slot's keys for the s (and the dp) of 16 rows
+    cluster: int  # K2's CTAs a head
+    fwd_rows: int  # K1's query rows a CTA
+    fwd_chunk: int  # K1's columns of D a stage holds
+    fwd_parts: int  # K1's score sums a stage (as parts)
+    fwd_groups: int  # K1's column groups of warps (they split only P.V's output columns)
+
+
+def f32_staged(d: int) -> F32Staged:
+    """The staged fp32 K1/K2's rules at head dim ``d`` (one of
+    :data:`STAGED_F32_HEAD_DIMS`): a slot of 64 keys and 64 rows at D = 256,
+    16 and 16 at 512 (the UNet's whole live row and a head's valid rows); K2
+    stages 32 columns (128 at 512) in 1 (4) score sums a stage and splits a
+    slot's keys between 1 (2) warps; K1 stages 64 (256) columns in 1 (4) sums
+    and 1 (4) column groups. They mirror the built libraries'
+    ``fused_mha_{fwd,bwd}_valid_tiles``, which chip_smoke.py holds them to on
+    the card."""
+    if d not in STAGED_F32_HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no staged fp32 instance (only {STAGED_F32_HEAD_DIMS})")
+    if d == 256:
+        return F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1, cluster=1, fwd_rows=64, fwd_chunk=64,
+                         fwd_parts=1, fwd_groups=1)
+    return F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2, cluster=1, fwd_rows=16, fwd_chunk=256,
+                     fwd_parts=4, fwd_groups=4)
+
+
 def f32_keys(d: int, valid_rows: bool = False) -> int:
     """Keys of a ring slot of the fp32 K1 at head dim ``d``, the tile of its
-    online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), and 8 at
-    :data:`VALID_ROWS_HEAD_DIMS` (``VR_TILE``), where K2's dq kernel takes
-    key tiles and its dk/dv kernel query tiles of the same size; with
-    ``valid_rows``, the instance built around the valid rows at
+    online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), 8 at D = 192
+    and 384 (``VR_TILE``), where K2's dq kernel takes key tiles and its dk/dv
+    kernel query tiles of the same size, and at :data:`STAGED_F32_HEAD_DIMS`
+    the staged instances' slot (:func:`f32_staged`: 64 at 256, 16 at 512);
+    with ``valid_rows``, the instance built around the valid rows at
     :data:`SHORT_ROWS_HEAD_DIM`: 32 (``vr_tile`` in the source). This and
     :func:`f32_groups` mirror the built libraries'
     ``fused_mha_fwd_f32_tiles``, ``fused_mha_{fwd,bwd}_valid_tiles`` and
@@ -198,18 +252,21 @@ def f32_keys(d: int, valid_rows: bool = False) -> int:
     card."""
     if valid_rows and d == SHORT_ROWS_HEAD_DIM:
         return 32
-    return 8 if d in VALID_ROWS_HEAD_DIMS else F32_KEYS
+    if d in STAGED_F32_HEAD_DIMS:
+        return f32_staged(d).slot
+    return F32_LIVE_KEYS if d in VALID_ROWS_HEAD_DIMS else F32_KEYS
 
 
 def f32_groups(d: int) -> int:
     """Column groups of warps that split the score products' D-reduction in
-    the kernels built around the valid rows (K1, and K2's dq and dk/dv
-    kernels, fp32 and bf16) at head dim ``d``: at :data:`VALID_ROWS_HEAD_DIMS`
-    groups of 96 columns at D = 192, 64 at 384 and 128 at 256 and 512
-    (``vr_cols``, ``vr_groups`` in ``csrc/tf32x3.cuh``), 2, 2, 6 and 4 groups
-    at D = 192, 256, 384 and 512, each group's partial tile summed with the
-    others' in group order; else 1 (the fp32 kernels at D <= 128)."""
-    return d // {192: 96, 384: 64}.get(d, 128) if d in VALID_ROWS_HEAD_DIMS else 1
+    the fp32 kernels built around the valid rows at head dim ``d`` (K1, and
+    K2's dq and dk/dv kernels): at D = 192 and 384 groups of 96 and 64
+    columns (``vr_cols``, ``vr_groups`` in ``csrc/tf32x3.cuh``), 2 and 6
+    groups, each group's partial tile summed with the others' in group order;
+    else 1 (the fp32 kernels at D <= 128, and the staged ones at
+    :data:`STAGED_F32_HEAD_DIMS`, where each warp forms its scores over the
+    whole of D)."""
+    return d // {192: 96, 384: 64}[d] if d in (192, 384) else 1
 
 
 #: live tiles whose scores the bf16 K1 built around the valid rows at
@@ -490,8 +547,12 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     around the valid rows skip a key tile whose mask is all 0; that changes
     no value (a masked p is exactly 0, and alpha = 0 drops what a masked tile
     leaves before the first live one), so the emulation walks every tile. At
-    :data:`VALID_ROWS_HEAD_DIMS` the scores are the sum of the column groups'
-    products (:func:`f32_groups`). Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    D = 192 and 384 the scores are the sum of the column groups' products
+    (:func:`f32_groups`); at :data:`STAGED_F32_HEAD_DIMS` it is
+    :func:`fused_mha_tf32x3_staged_emulation`. Returns (o [B,Sq,H,D], lse
+    [B,Sq,H])."""
+    if q.shape[-1] in STAGED_F32_HEAD_DIMS:
+        return fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
@@ -529,10 +590,14 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     64-key step, half 0's sum plus half 1's; else one warp a row sums them
     key tile after key tile (the instances above D = 64, and those built
     around the valid rows at :data:`SHORT_ROWS_HEAD_DIM`, whose fp32 dq kernel
-    keeps a 64-token row's p and dp too). At :data:`VALID_ROWS_HEAD_DIMS` the
-    score products are split over column groups (:func:`f32_groups`), and
-    the key tiles the kernels skip add exact zeros here. Returns (dq, dk, dv,
-    di [B,H,Sq])."""
+    keeps a 64-token row's p and dp too). At D = 192 and 384 the score
+    products are split over column groups (:func:`f32_groups`), and the key
+    tiles the kernels skip add exact zeros here; at
+    :data:`STAGED_F32_HEAD_DIMS` it is
+    :func:`fused_mha_bwd_tf32x3_staged_emulation` (``kept`` unread). Returns
+    (dq, dk, dv, di [B,H,Sq])."""
+    if q.shape[-1] in STAGED_F32_HEAD_DIMS:
+        return fused_mha_bwd_tf32x3_staged_emulation(q, k, v, kv_mask, lse, do, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     groups = f32_groups(q.shape[-1])
@@ -562,6 +627,117 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
     dv = matmul_3xtf32(pt, doh)
     dst = pt * (matmul_3xtf32_grouped(vh, doh.transpose(-1, -2), groups) - di.transpose(-1, -2)) * sm_scale
     dk = matmul_3xtf32(dst, qh)
+    back = (t.permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
+    return (*back, di[..., 0])
+
+
+def f32_slots(mask_row: torch.Tensor | None, skv: int, d: int) -> list[torch.Tensor]:
+    """The key indices of the slots that the staged fp32 instances walk for
+    one batch row at head dim ``d`` (:data:`STAGED_F32_HEAD_DIMS`): the live
+    tiles of :data:`F32_LIVE_KEYS` keys (a tile with an attended key; every
+    tile without a mask) in order, :func:`f32_staged` ``.slot`` keys a slot."""
+    slot = f32_staged(d).slot
+    tiles = torch.arange(skv).reshape(-1, F32_LIVE_KEYS)
+    if mask_row is not None:
+        tiles = tiles[mask_row.bool().reshape(-1, F32_LIVE_KEYS).any(dim=1)]
+    keys = tiles.reshape(-1)
+    return [keys[i:i + slot] for i in range(0, keys.numel(), slot)]
+
+
+def _chunked_scores(a: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``a·bᵀ`` over D as the staged instances sum it: each chunk of
+    ``chunk`` columns a :func:`matmul_3xtf32` product from zero, the chunks
+    added in order in fp32."""
+    return matmul_3xtf32_grouped(a, b.transpose(-1, -2), a.shape[-1] // chunk)
+
+
+def fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The staged fp32 K1's arithmetic (``csrc/fused_mha_fwd.cu::
+    mha_fwd_tf32x3_staged``) on fp32 CPU tensors at :data:`STAGED_F32_HEAD_DIMS`:
+    for each batch row the slots of :func:`f32_slots`; a slot's scores summed
+    over D a partial at a time (:func:`f32_staged` ``.fwd_chunk // .fwd_parts``
+    columns, each partial's 3xTF32 product from zero); m and l over the slots in order, then
+    ``p = exp(s - m) / l`` normalised before P.V and kept in fp32; o the sum
+    of the slots' ``p·v`` (each a :func:`matmul_3xtf32` product), added in
+    slot order. A row without an attended key gives o = 0, lse = +inf.
+    Returns (o [B,Sq,H,D], lse [B,Sq,H])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+    b, h, sq, d = qh.shape
+    rules = f32_staged(d)
+    chunk = rules.fwd_chunk // rules.fwd_parts
+    o = torch.zeros(b, h, sq, d)
+    lse = torch.full((b, h, sq, 1), torch.inf)
+    for bi in range(b):
+        row = None if kv_mask is None else kv_mask[bi]
+        slots = f32_slots(row, kh.shape[2], d)
+
+        def scores(keys):
+            s = _chunked_scores(qh[bi], kh[bi][:, keys], chunk) * sm_scale
+            return s if row is None else torch.where(row[keys].bool(), s, DEFAULT_MASK_VALUE)
+
+        m = torch.full((h, sq, 1), -torch.inf)
+        l = torch.zeros(h, sq, 1)
+        for keys in slots:
+            s = scores(keys)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            l = l * torch.exp(m - m_new) + torch.exp(s - m_new).sum(dim=-1, keepdim=True)
+            m = m_new
+        dead = (m <= DEFAULT_MASK_VALUE) if row is not None else torch.zeros_like(m, dtype=torch.bool)
+        for keys in slots:
+            p = torch.where(dead, 0.0, torch.exp(scores(keys) - m) / l)
+            o[bi] = o[bi] + matmul_3xtf32(p, vh[bi][:, keys])
+        if slots:
+            lse[bi] = torch.where(dead, torch.inf, m + torch.log(l))
+    return o.permute(0, 2, 1, 3).contiguous(), lse[..., 0].permute(0, 2, 1).contiguous()
+
+
+def fused_mha_bwd_tf32x3_staged_emulation(q, k, v, kv_mask, lse, do, sm_scale=None):
+    """The staged fp32 K2's arithmetic (``csrc/fused_mha_bwd.cu::
+    mha_bwd_fused_tf32x3_staged``, one kernel a batch and head) on fp32 CPU
+    tensors at :data:`STAGED_F32_HEAD_DIMS`, products by
+    :func:`matmul_3xtf32`: the query rows in blocks of :func:`f32_staged`
+    ``.rows``, the keys in the slots of :func:`f32_slots`; a slot's s and dp
+    summed over D a partial at a time (``.chunk // .parts`` columns, each from
+    zero), formed once; ``p = exp(s - lse)``, ``di = rowsum(p·dp)`` from the fp32 p and dp
+    (a slot's sum, the slots' added in order), ``ds = p·(dp - di)·scale``;
+    ``dq`` the sum of the slots' ``ds·k`` in slot order, ``dk`` and ``dv`` the
+    sums of the row blocks' ``dsᵀ·q`` and ``pᵀ·do`` in block order; the keys
+    of the tiles without an attended key get exact zeros. Returns (dq, dk,
+    dv, di [B,H,Sq])."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
+    b, h, sq, d = qh.shape
+    rules = f32_staged(d)
+    chunk = rules.chunk // rules.parts
+    lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
+    dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
+    di = torch.zeros(b, h, sq, 1)
+    for bi in range(b):
+        row = None if kv_mask is None else kv_mask[bi]
+        slots = f32_slots(row, kh.shape[2], d)
+        for m0 in range(0, sq, rules.rows):
+            rows = slice(m0, m0 + rules.rows)
+            qb, dob, lb = qh[bi][:, rows], doh[bi][:, rows], lse_r[bi][:, rows]
+
+            def probs_and_dp(keys):
+                s = _chunked_scores(qb, kh[bi][:, keys], chunk) * sm_scale
+                if row is not None:
+                    s = torch.where(row[keys].bool(), s, DEFAULT_MASK_VALUE)
+                return torch.exp(s - lb), _chunked_scores(dob, vh[bi][:, keys], chunk)
+
+            formed = [probs_and_dp(keys) for keys in slots]
+            dib = torch.zeros(h, qb.shape[1], 1)
+            for p, dp in formed:
+                dib = dib + (p * dp).sum(dim=-1, keepdim=True)
+            di[bi][:, rows] = dib
+            for keys, (p, dp) in zip(slots, formed):
+                ds = p * (dp - dib) * sm_scale
+                dq[bi][:, rows] += matmul_3xtf32(ds, kh[bi][:, keys])
+                dk[bi][:, keys] += matmul_3xtf32(ds.transpose(-1, -2), qb)
+                dv[bi][:, keys] += matmul_3xtf32(p.transpose(-1, -2), dob)
     back = (t.permute(0, 2, 1, 3).contiguous() for t in (dq, dk, dv))
     return (*back, di[..., 0])
 

@@ -241,9 +241,10 @@ def ab_main(doc: str, script: str, measure, profiles: dict[str, tuple[str, list[
     group = parser.add_mutually_exclusive_group(required=True)
     group.add_argument("--root", type=Path, help="time the package under this directory")
     group.add_argument("--ab", type=Path, metavar="PARENT", help="parent, change, change, parent")
-    mode_group = parser.add_mutually_exclusive_group()
-    for flag, (help_text, _) in modes.items():
-        mode_group.add_argument(f"--{flag}", action="store_true", help=help_text)
+    if modes:  # argparse cannot print the usage of an empty group
+        mode_group = parser.add_mutually_exclusive_group()
+        for flag, (help_text, _) in modes.items():
+            mode_group.add_argument(f"--{flag}", action="store_true", help=help_text)
     for flag, (help_text, _) in profiles.items():
         parser.add_argument(f"--{flag}", action="store_true", help=help_text)
     args = parser.parse_args()

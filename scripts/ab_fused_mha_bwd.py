@@ -38,6 +38,16 @@ that forms all three), and ``<case>_sdpa_unpadded`` SDPA's bf16 backward on
 the unpadded tensors (its memory-efficient backward op from CUDA-graph
 replays, ``chip_smoke.sdpa_fp32_backward`` of this checkout).
 
+With ``--d2``, the fp32 K2 at the MNIST UNet's attention shapes at B=128
+(``ab_fused_mha_fwd.D2_CASES`` but the request's), on the tensors the fused
+route hands it, fp32 draws, from that tree's K1's lse: ``<case>`` its device
+time from CUDA-graph replays, ``<case>_dq``, ``<case>_dkv`` and
+``<case>_fused`` its kernels' from ``torch.profiler`` (PR 13's dq and dk/dv
+kernels, or the staged kernel that forms all three), and
+``<case>_sdpa_unpadded`` SDPA's fp32 backward on the unpadded tensors (its
+memory-efficient backward op from CUDA-graph replays,
+``chip_smoke.sdpa_fp32_backward`` of this checkout).
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -213,6 +223,34 @@ def measure_unet(root: Path) -> dict:
     return out
 
 
+def measure_d2(root: Path) -> dict:
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke  # this checkout's, before the measured tree's package is on the path
+
+    sys.path.insert(0, str(root))
+    import torch
+    from ab_fused_mha_fwd import D2_CASES, unet_inputs
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for case, (b, tokens, _, _) in D2_CASES.items():
+            if b != 128:
+                continue
+            q, k, v, do, mask = unet_inputs(case, gen, D2_CASES, "float32")
+            _, lse = fused_mha(q, k, v, mask)
+            out[case] = graph_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), calls=10)
+            for part, ms in kernel_device_ms(lambda: fused_mha_bwd(q, k, v, mask, lse, do), K2_PARTS).items():
+                out[f"{case}_{part.removeprefix('K2_')}"] = ms
+            kv = [t[:, :tokens].contiguous() for t in (k, v)]
+            out[f"{case}_sdpa_unpadded"] = graph_ms(chip_smoke.sdpa_fp32_backward(q, *kv, do), calls=10)
+    return out
+
+
 def main() -> int:
     return ab_main(__doc__, __file__, measure,
                    {"train": ("with --ab: the DiT-B/2 train profile of both trees",
@@ -222,7 +260,9 @@ def main() -> int:
                    modes={"short": ("time K2 at the padded short sequences at D = 64 (SHORT_CASES)",
                                     measure_short),
                           "unet": ("time the bf16 K2 at the UNets' attention shapes (UNET_CASES at B=128)",
-                                   measure_unet)})
+                                   measure_unet),
+                          "d2": ("time the fp32 K2 at the MNIST UNet's attention shapes (D2_CASES at B=128)",
+                                 measure_d2)})
 
 
 if __name__ == "__main__":

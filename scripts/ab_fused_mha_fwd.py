@@ -30,6 +30,13 @@ kernel there (the unpadded q, k and v padded to 128 keys with the padding
 mask): ``<case>`` its device time from CUDA-graph replays and
 ``<case>_sdpa_unpadded`` bf16 SDPA's on the unpadded tensors, the yardstick.
 
+With ``--d2``, the fp32 K1 at the MNIST UNet's attention shapes
+(:data:`D2_CASES`: head dims 256 at 64 tokens and 512 at 16, B=128, H=2, and
+the 16-image request's B=16), on the tensors the fused route hands it (the
+unpadded q, k and v padded to 128 keys with the padding mask), fp32 draws:
+``<case>`` its device time from CUDA-graph replays and
+``<case>_sdpa_unpadded`` fp32 SDPA's on the unpadded tensors.
+
 ``--ab PARENT`` runs ``--root PARENT``, ``--root`` this checkout, this
 checkout again, and PARENT again, each in its own process (the two packages
 share a name), and prints the four lines and their medians side by side;
@@ -38,7 +45,7 @@ with ``--c1`` it then runs ``scripts/profile_torch_train.py --c1`` and
 Unpack the parent commit into a directory that git ignores, e.g.
 ``git archive HEAD~1 | tar -x -C _parent``, then run from the repository
 root on the card: ``python3 scripts/ab_fused_mha_fwd.py --ab _parent``, or
-``python3 scripts/ab_fused_mha_fwd.py --ab _parent --fp32``.
+``python3 scripts/ab_fused_mha_fwd.py --ab _parent --fp32`` (or ``--d2``).
 """
 
 from __future__ import annotations
@@ -245,13 +252,23 @@ UNET_CASES = {
 }
 
 
-def unet_inputs(case: str, gen):
-    """bf16 q, do [B, tokens, H, D], k, v [B, 128, H, D] and the padding mask [B, 128]."""
+#: the fp32 MNIST UNet's attention shapes: tag -> (B, tokens, H, D), keys padded to 128 with the padding mask
+D2_CASES = {
+    "d2_256_B128": (128, 64, 2, 256),
+    "d2_512_B128": (128, 16, 2, 512),
+    "d2_request_256_B16": (16, 64, 2, 256),
+    "d2_request_512_B16": (16, 16, 2, 512),
+}
+
+
+def unet_inputs(case: str, gen, cases: dict | None = None, dtype: str = "bfloat16"):
+    """q, do [B, tokens, H, D], k, v [B, 128, H, D] in ``dtype`` (drawn in it) and the padding mask [B, 128]
+    of a case of ``cases`` (:data:`UNET_CASES` by default)."""
     import torch
 
-    b, tokens, h, d = UNET_CASES[case]
-    q, do = (torch.randn(b, tokens, h, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    k, v = (torch.randn(b, 128, h, d, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    b, tokens, h, d = (cases or UNET_CASES)[case]
+    q, do = (torch.randn(b, tokens, h, d, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(2))
+    k, v = (torch.randn(b, 128, h, d, generator=gen, device="cuda").to(getattr(torch, dtype)) for _ in range(2))
     mask = (torch.arange(128, device="cuda") < tokens)[None].expand(b, -1).contiguous()
     return q, k, v, do, mask
 
@@ -275,6 +292,26 @@ def measure_unet(root: Path) -> dict:
     return out
 
 
+def measure_d2(root: Path) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+    import torch.nn.functional as F
+
+    from diffulab_tpu_torch.ops.fused_mha import fused_mha
+
+    assert Path(sys.modules["diffulab_tpu_torch"].__file__).resolve().is_relative_to(root.resolve())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"root": str(root)}
+    with torch.no_grad():
+        for case, (_, tokens, _, _) in D2_CASES.items():
+            q, k, v, _, mask = unet_inputs(case, gen, D2_CASES, "float32")
+            out[case] = graph_ms(lambda: fused_mha(q, k, v, mask))
+            qt, kt, vt = (t[:, :tokens].transpose(1, 2) for t in (q, k, v))
+            out[f"{case}_sdpa_unpadded"] = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    return out
+
+
 def main() -> int:
     from ab_flash_attn_bwd import ab_main
     from ab_fused_mha_bwd import C1_PROFILES
@@ -284,7 +321,8 @@ def main() -> int:
                    fp32_measure=measure_fp32,
                    modes={"short": ("time K1 at the padded short sequences at D = 64 (SHORT_CASES)",
                                     measure_short),
-                          "unet": ("time the bf16 K1 at the UNets' attention shapes (UNET_CASES)", measure_unet)})
+                          "unet": ("time the bf16 K1 at the UNets' attention shapes (UNET_CASES)", measure_unet),
+                          "d2": ("time the fp32 K1 at the MNIST UNet's attention shapes (D2_CASES)", measure_d2)})
 
 
 if __name__ == "__main__":

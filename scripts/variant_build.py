@@ -22,10 +22,11 @@ ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "diffulab_tpu_torch/csrc"
 
 
-def build_variants(variants: dict, names, sources, usage_key: str) -> dict:
+def build_variants(variants: dict, names, sources, usage_key: str | tuple[str, ...]) -> dict:
     """{(variant, source): its loaded library} for each name in ``names`` and
     each source stem in ``sources``; prints ptxas's registers and spills of the
-    kernels whose names hold ``usage_key``."""
+    kernels whose names hold ``usage_key`` (or one of them)."""
+    keys = (usage_key,) if isinstance(usage_key, str) else usage_key
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from diffulab_tpu_torch.ops import _build
@@ -55,7 +56,8 @@ def build_variants(variants: dict, names, sources, usage_key: str) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{name} {src}: nvcc failed\n{log[-3000:]}")
-        print(name, src, json.dumps({k: v for k, v in chip_smoke.ptxas_usage(log).items() if usage_key in k}))
+        print(name, src, json.dumps({k: v for k, v in chip_smoke.ptxas_usage(log).items()
+                                     if any(key in k for key in keys)}))
         lib = ctypes.CDLL(str(out / f"{src}_{name}.so"))
         for entry, argtypes in _build.KERNELS[src][1].items():
             fn = getattr(lib, entry)

@@ -5,19 +5,24 @@ arithmetic and tiles, against the JAX kernels run in interpret mode in fp32;
 the route that hands them the unpadded query rows; and the UNet's
 ``AttentionBlock`` at those widths against the JAX block.
 
-These instances are built around the valid rows (``VALID_ROWS_HEAD_DIMS``):
-they take the unpadded q, do and lse rows, while k, v and the key mask stay
-padded to 128; K1 walks tiles of 8 keys and skips a tile whose mask is all 0
-(which changes no value, so the emulation walks every tile), and column
-groups of 128 output columns split the score products' reduction over D (2
-groups at D = 256, 4 at 512). K2 runs the dq kernel that forms s and dp
-again (``kept=False``), then the dk/dv kernel over the valid query rows. The
-JAX kernels take the reference's padded q (its ``_fused_path``): the rows
-are independent, so the valid rows are compared. Masks: the UNet's padding
-mask, an empty key tile between live ones beside a fully masked batch row
-(traps T1 and T18: the interpret-mode kernels, not
-``jax.nn.dot_product_attention``, give o = 0 and lse = +inf there), no mask,
-and a ragged Sq. Tolerances are those of ``tests/test_torch_port_d1_tiles.py``
+These instances are staged (``STAGED_F32_HEAD_DIMS``, ``f32_staged``): they
+take the unpadded q, do and lse rows, while k, v and the key mask stay
+padded to 128; the live 8-key tiles of the mask row are gathered into slots
+of 64 keys (16 at D = 512: the UNet's whole live row is one slot), and a
+score sum runs over D chunk by chunk, each chunk's 3xTF32 product from zero
+and the chunks added in fp32, within one warp (no column groups split the
+reduction). K1 takes m and l over the slots, then p = exp(s - m) / l before
+P.V (``fused_mha_tf32x3_staged_emulation``); K2 is one kernel a batch and
+head that forms s and dp once, di from the fp32 p and dp, and dq, dk and dv
+from them, a head's row blocks of 64 (16) query rows in turn
+(``fused_mha_bwd_tf32x3_staged_emulation``). The JAX kernels take the
+reference's padded q (its ``_fused_path``): the rows are independent, so the
+valid rows are compared. Masks: the UNet's padding mask, an empty key tile
+between live ones beside a fully masked batch row (traps T1 and T18: the
+interpret-mode kernels, not ``jax.nn.dot_product_attention``, give o = 0 and
+lse = +inf there), no mask (two slots at D = 256, eight at 512), a ragged
+Sq, and an Sq past a CTA's rows (the row blocks in turn; two slots at 256,
+three at 512). Tolerances are those of ``tests/test_torch_port_d1_tiles.py``
 and of ``chip_smoke.py``: o within atol 2e-5 + rtol 2e-5, lse within atol
 1e-4 + rtol 1e-5, each gradient within 2e-5·(max|ref| + |ref|); the block's
 output within atol 1e-5 + rtol 1e-5 and its gradients within 1e-4 of each
@@ -39,14 +44,20 @@ from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.fused_mha import (
     MIN_BLOCK,
+    STAGED_F32_HEAD_DIMS,
     VALID_ROWS_HEAD_DIMS,
+    F32Staged,
     f32_groups,
     f32_keys,
+    f32_slots,
+    f32_staged,
     fused_mha,
     fused_mha_bwd_reference,
     fused_mha_bwd_tf32x3_emulation,
+    fused_mha_bwd_tf32x3_staged_emulation,
     fused_mha_reference,
     fused_mha_tf32x3_emulation,
+    fused_mha_tf32x3_staged_emulation,
     takes_valid_rows,
 )
 from diffulab_tpu_torch.weights import state_dict_from_jax
@@ -61,8 +72,12 @@ CASES = {
     "d256_hole_and_dead_row": (64, 256, "hole"),
     "d256_unmasked": (64, 256, None),
     "d256_ragged": (37, 256, "padded"),
+    "d256_past_rows": (100, 256, "padded"),
     "d512_ds8_padded": (16, 512, "padded"),
     "d512_hole_and_dead_row": (16, 512, "hole"),
+    "d512_unmasked": (16, 512, None),
+    "d512_ragged": (9, 512, "padded"),
+    "d512_past_rows": (40, 512, "padded"),
 }
 
 
@@ -128,8 +143,11 @@ def test_k1_tiles_at_the_mnist_head_dims_match_the_jax_kernel(case):
     jo, jlse, _ = _jax_forward(q, k, v, mask, scale)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     tmask = None if mask is None else torch.from_numpy(mask)
-    o, lse = fused_mha_tf32x3_emulation(tq, tk, tv, tmask, scale)
+    o, lse = fused_mha_tf32x3_staged_emulation(tq, tk, tv, tmask, scale)
     assert o.shape == q.shape and lse.shape == q.shape[:3]
+    # the general emulation takes the staged instance's arithmetic at these dims
+    go, glse = fused_mha_tf32x3_emulation(tq, tk, tv, tmask, scale)
+    assert torch.equal(go, o) and torch.equal(glse, lse)
     _close(o.numpy(), jo, *O_TOL, "o vs JAX")
     _close(lse.numpy(), jlse, *LSE_TOL, "lse vs JAX")
     ro, rlse = fused_mha_reference(tq, tk, tv, tmask, scale)
@@ -151,7 +169,9 @@ def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
     tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
     tmask = None if mask is None else torch.from_numpy(mask)
     lse = torch.from_numpy(np.array(jlse)[:, :sq])
-    *grads, _ = fused_mha_bwd_tf32x3_emulation(tq, tk, tv, tmask, lse, tdo, scale, kept=False)
+    *grads, di = fused_mha_bwd_tf32x3_staged_emulation(tq, tk, tv, tmask, lse, tdo, scale)
+    *general, _ = fused_mha_bwd_tf32x3_emulation(tq, tk, tv, tmask, lse, tdo, scale)
+    assert all(torch.equal(a, b) for a, b in zip(general, grads))
     plain = fused_mha_bwd_reference(tq, tk, tv, tmask, lse, tdo, scale)
     for label, g, r, pr in zip(("dq", "dk", "dv"), grads, jax_grads, plain):
         _within(g.numpy(), r, f"{label} vs JAX")
@@ -164,11 +184,40 @@ def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
 
 
 def test_the_tile_rules_at_the_mnist_head_dims():
-    # every UNet head dim (the D1 UNet's 192 and 384 too) is built around the valid rows
-    assert VALID_ROWS_HEAD_DIMS == (192, 256, 384, 512)
-    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (8, 2), (8, 6), (8, 4)]
-    # the padded instances keep their tiles
+    # every UNet head dim (the D1 UNet's 192 and 384 too) is built around the valid rows; the MNIST UNet's are staged
+    assert VALID_ROWS_HEAD_DIMS == (192, 256, 384, 512) and STAGED_F32_HEAD_DIMS == (256, 512)
+    # the staged instances: a slot of the UNet's whole live row, no column group splitting the score reduction
+    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (64, 1), (8, 6), (16, 1)]
+    assert f32_staged(256) == F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1, cluster=1, fwd_rows=64,
+                                        fwd_chunk=64, fwd_parts=1, fwd_groups=1)
+    assert f32_staged(512) == F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2, cluster=1, fwd_rows=16,
+                                        fwd_chunk=256, fwd_parts=4, fwd_groups=4)
+    with pytest.raises(ValueError):
+        f32_staged(192)
+    # the padded instances, and the valid-rows ones at 64, keep their tiles
     assert [(f32_keys(d), f32_groups(d)) for d in (64, 128)] == [(32, 1), (32, 1)]
+    assert (f32_keys(64, valid_rows=True), f32_groups(64)) == (32, 1)
+
+
+@pytest.mark.parametrize("kind,d,want", [
+    ("hole", 256, [[*range(8), *range(16, 72)]]),
+    ("hole", 512, [[*range(8), *range(16, 24)]]),
+    ("padded", 512, [list(range(16))]),
+    (None, 256, [list(range(64)), list(range(64, 128))]),
+    ("padded100", 256, [list(range(64)), list(range(64, 104))]),
+], ids=["d256_hole", "d512_hole", "d512_padded", "d256_unmasked", "d256_past_rows"])
+def test_the_staged_slots_gather_the_live_tiles(kind, d, want):
+    """The slots of the staged instances: the live 8-key tiles in order
+    (a tile with an attended key is live whole), a slot's worth at a time."""
+    sq = {256: 64, 512: 16}[d]
+    if kind == "padded100":
+        row = torch.arange(MIN_BLOCK) < 100
+    else:
+        mask = _mask(kind, sq, 2)
+        row = None if mask is None else torch.from_numpy(mask[0])
+    assert [s.tolist() for s in f32_slots(row, MIN_BLOCK, d)] == want
+    if kind == "hole":  # the fully masked batch row has no slot
+        assert f32_slots(torch.from_numpy(_mask(kind, sq, 2)[1]), MIN_BLOCK, d) == []
 
 
 def _recording(monkeypatch):
