@@ -525,10 +525,14 @@ __host__ __device__ constexpr int vr_f32s_bwd_blocks() {
   return 2;
 }
 
-// K2's warps: one for the s and one for the dp of each 16 rows and key part
+// K2's threads: eight warps, a warp for the s and one for the dp of each 16
+// rows and key part (at D = 512 four of them, the others idle in phase 1),
+// all sharing phase 2's tiles and the zero dk and dv of the padded keys;
+// eight took K2 at D = 512, B=128, H=2 to 0.0798 ms from four's 0.0831-0.0841
+// (scripts/d2_valid_variants.py, warps8_512; NVIDIA H100 80GB HBM3, 700 W)
 template <int D>
 __host__ __device__ constexpr int vr_f32s_bwd_threads() {
-  return 32 * 2 * (vr_f32s_rows<D>() / 16) * vr_f32s_key_parts<D>();
+  return 256;
 }
 
 // query rows of K1's CTA: a head's 64 or 16 valid rows

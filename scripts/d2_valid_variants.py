@@ -11,15 +11,16 @@ called through the port's wrappers, its libraries put in their place:
 
 - ``kernel``: the sources as they are (K2 route (b): one CTA a head, D
   staged 32 columns at a time at D = 256, two CTAs an SM; 128 columns in
-  four score partials at 512; K1 64 columns at 256, 256 in four partials and
-  four column groups at 512);
+  four score partials at 512, eight warps; K1 64 columns at 256, 256 in four
+  partials and four column groups at 512);
 - ``cluster2``: K2 route (a) at D = 256, a cluster of two CTAs a head, each
   taking 32 of the 64 rows (its s and dp over the whole of D, four warps of
   32 keys and four of dp), each loading the slot's K and V itself (no TMA
   multicast), the pair's partial dk and dv added through distributed shared
   memory every chunk;
 - ``blocks1``: K2's registers bound for one CTA an SM, not two (255 a
-  thread at D = 256, not 128);
+  thread at D = 256, not 128); ``warps4_512``: K2 in four warps at D = 512,
+  the ones phase 1 needs (the sources: eight);
 - ``chunk64``: K2 stages 64 columns at D = 256 (one CTA an SM);
   ``c64_512``: 64 at 512 (the sources: 128); ``parts1_512``: one score sum a
   stage at 512 (the sources: four interleaved partials);
@@ -34,8 +35,8 @@ called through the port's wrappers, its libraries put in their place:
   sources: 256); ``k1_parts1_512``, ``k1_parts8_512``: one or eight score
   sums a stage at 512 (the sources: four);
 - ``k1_groups2``: K1 in two column groups at D = 256 (eight warps, each
-  group forming the scores whole); ``k1_groups2_512``: two at 512 (the
-  sources: four);
+  group forming the scores whole); ``k1_groups2_512``, ``k1_groups8_512``:
+  two or eight at 512 (the sources: four);
 - ``split``: K2 as PR 13's two kernels at D = 256 and 512 (a dq kernel that
   forms s and dp twice over 8-key tiles, then a dk/dv kernel, lse and di
   through a workspace; 2 and 4 column groups of 128);
@@ -83,6 +84,7 @@ VARIANTS = {
                  rule("vr_f32s_rows", "D == 256 ? 64 : 16", "D == 256 ? 32 : 16"),
                  rule("vr_f32s_key_parts", "D == 256 ? 1 : 2", "2")],
     "blocks1": [rule("vr_f32s_bwd_blocks", "2", "1")],
+    "warps4_512": [rule("vr_f32s_bwd_threads", "256", "D == 256 ? 256 : 128")],
     "chunk64": [rule("vr_f32s_chunk", "D == 256 ? 32 : 128", "D == 256 ? 64 : 128")],
     "c64_512": [rule("vr_f32s_chunk", "D == 256 ? 32 : 128", "D == 256 ? 32 : 64")],
     "parts1_512": [rule("vr_f32s_parts", "D == 256 ? 1 : 4", "1")],
@@ -97,6 +99,7 @@ VARIANTS = {
     "k1_parts1_512": [rule("vr_f32s_fwd_parts", "D == 256 ? 1 : 4", "1")],
     "k1_groups2": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 2 : 4")],
     "k1_groups2_512": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 1 : 2")],
+    "k1_groups8_512": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 1 : 8")],
     "k1_parts8_512": [rule("vr_f32s_fwd_parts", "D == 256 ? 1 : 4", "D == 256 ? 1 : 8")],
     "split": [("fused_mha_bwd.cu", K2_DISPATCH[0].format(d=d), K2_DISPATCH[1].format(d=d)) for d in (256, 512)],
     "k1_valid": [("fused_mha_fwd.cu", K1_DISPATCH[0].format(d=d), K1_DISPATCH[1].format(d=d)) for d in (256, 512)],
