@@ -909,8 +909,9 @@ def phase_build():
     print(f"phase 1 build: {len(logs)} kernel libraries in {seconds:.1f} s; ptxas: {json.dumps(usage)}; "
           f"warnings: {json.dumps(warnings)}")
     staged = {name: use for lib in usage.values() for name, use in lib.items() if "tf32x3_staged" in name}
-    if len(staged) != 4 or any(not use.endswith(" 0 B spilled") for use in staged.values()):
-        fail(f"the staged fp32 K1/K2 at D = 256 and 512: ptxas {staged}, expected four instances and no spill")
+    if len(staged) != 3 or any(not use.endswith(" 0 B spilled") for use in staged.values()):
+        fail(f"the staged fp32 K1 at D = 256 and K2 at 256 and 512: ptxas {staged}, expected three instances and "
+             f"no spill")
 
 
 def phase_kernel():
@@ -2879,7 +2880,7 @@ def phase_d1_kernels():
     fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
     tiles = {d: (fwd_lib.fused_mha_fwd_f32_tiles(d, 0), fwd_lib.fused_mha_fwd_f32_tiles(d, 1),
                  bwd_lib.fused_mha_bwd_f32_groups(d)) for d in FUSED_HEAD_DIMS}
-    mirrored = {d: (f32_keys(d), f32_groups(d), f32_groups(d)) for d in FUSED_HEAD_DIMS}
+    mirrored = {d: (f32_keys(d), f32_groups(d), f32_groups(d, backward=True)) for d in FUSED_HEAD_DIMS}
     if tiles != mirrored:
         fail(f"D1 fp32 tile rules: the libraries' (K1 keys, K1 groups, K2 groups) {tiles} differ from "
              f"ops/fused_mha.py's {mirrored}")
@@ -3560,27 +3561,37 @@ def valid_rows_line(results, edges, dtype: str = "float32") -> str:
 
 
 def phase_d2_kernels():
-    """Phase 19a: the staged fp32 K1 and K2 at head dims 256 and 512 (the
-    MNIST UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2; K1 also
-    at the request's B=16) against their plain versions, as the fused route
-    hands them over, with the edge cases, timings and bounds of
+    """Phase 19a: the fp32 K1 and K2 at head dims 256 and 512 (the MNIST
+    UNet's: 64 and 16 tokens, keys padded to 128, B=128, H=2; K1 also at the
+    request's B=16) against their plain versions, as the fused route hands
+    them over, with the edge cases, timings and bounds of
     :func:`valid_rows_kernels` and its extra edge cases (no mask, and an Sq
     past a CTA's rows: a head's row blocks in turn, keys in more than one
-    slot). First the libraries' staged rules against the ones
-    ``ops/fused_mha.py::f32_staged`` mirrors, and K2's products."""
+    slot). K2 is staged at both dims, K1 at 256 (at 512 the split instance
+    of 8-key tiles, whose rules phase 17a holds). First the libraries'
+    staged rules against the ones ``ops/fused_mha.py`` mirrors
+    (``f32_staged``, ``F32_STAGED_FWD_*``), and K2's products."""
     from diffulab_tpu_torch.ops import _build
-    from diffulab_tpu_torch.ops.fused_mha import STAGED_F32_HEAD_DIMS, f32_staged
+    from diffulab_tpu_torch.ops.fused_mha import (
+        F32_STAGED_FWD_CHUNK,
+        F32_STAGED_FWD_ROWS,
+        STAGED_F32_FWD_HEAD_DIMS,
+        STAGED_F32_HEAD_DIMS,
+        f32_staged,
+    )
 
     fwd_lib, bwd_lib = _build.load("fused_mha_fwd"), _build.load("fused_mha_bwd")
-    rules = {d: ([fwd_lib.fused_mha_fwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4, 5)],
-                 [bwd_lib.fused_mha_bwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4, 5, 6, 7)])
-             for d in STAGED_F32_HEAD_DIMS}
-    mirrored = {d: ([r.slot, r.fwd_groups, r.fwd_rows, r.fwd_chunk, r.fwd_parts],
-                    [r.slot, 1, r.rows, r.chunk, r.key_parts, r.cluster, r.parts])
-                for d, r in ((d, f32_staged(d)) for d in STAGED_F32_HEAD_DIMS)}
+    rules = {("K1", d): [fwd_lib.fused_mha_fwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4)]
+             for d in STAGED_F32_FWD_HEAD_DIMS}
+    rules.update({("K2", d): [bwd_lib.fused_mha_bwd_valid_tiles(d, 0, w) for w in (0, 1, 3, 4, 5, 6)]
+                  for d in STAGED_F32_HEAD_DIMS})
+    mirrored = {("K1", d): [f32_staged(d).slot, 1, F32_STAGED_FWD_ROWS, F32_STAGED_FWD_CHUNK]
+                for d in STAGED_F32_FWD_HEAD_DIMS}
+    mirrored.update({("K2", d): [r.slot, 1, r.rows, r.chunk, r.key_parts, r.parts]
+                     for d, r in ((d, f32_staged(d)) for d in STAGED_F32_HEAD_DIMS)})
     if rules != mirrored:
-        fail(f"D2 staged rules: the libraries' (K1 slot, groups, rows, chunk, score partials; K2 slot, groups, rows, "
-             f"chunk, key parts, CTAs a head, score partials) {rules} differ from ops/fused_mha.py's {mirrored}")
+        fail(f"D2 staged rules: the libraries' (K1 slot, groups, rows, chunk; K2 slot, groups, rows, chunk, key "
+             f"parts, score partials) {rules} differ from ops/fused_mha.py's {mirrored}")
     products = {d: bwd_lib.fused_mha_bwd_f32_products(d, D2_PADDED) for d in STAGED_F32_HEAD_DIMS}
     if set(products.values()) != {5}:
         fail(f"D2 K2: the library counts {products} products at D = 256/512, expected 5 (s and dp once, dq, dk, dv)")
@@ -3588,8 +3599,8 @@ def phase_d2_kernels():
                                         extra_edges=True)
     print(f"phase 19 kernels fp32 at the MNIST UNet's attention shapes (B={D2_BATCH}, K1 also at the request's "
           f"B={D2_SAMPLES}, H={D2_HEADS}, the unpadded query rows, keys padded to {D2_PADDED} with the padding mask; "
-          f"the staged instances' rules (K1 slot, groups, rows, chunk, score partials; K2 slot, groups, rows, chunk, "
-          f"key parts, CTAs a head, score partials) {rules}, as the emulation's; K2 products {products}; {VALID_ROWS_TIMING}): "
+          f"the staged instances' rules (K1 slot, groups, rows, chunk; K2 slot, groups, rows, chunk, key parts, "
+          f"score partials) {rules}, as the emulation's; K2 products {products}; {VALID_ROWS_TIMING}): "
           + valid_rows_line(results, edges))
     return results
 
@@ -6625,9 +6636,10 @@ def main() -> int:
         "sdpa_unpadded_ms": numbers[f"{kind}_d{d}"]["sdpa_unpadded_ms"],
         "shape": f"B={batch} Sq={tokens} (unpadded) Skv={D2_PADDED} (padded from {tokens} keys, the padding key "
                  f"mask) H=2 D={d} fp32",
-        "instances": ([f"mha_fwd_tf32x3_staged<{d}>"] if kind == "fwd" else [f"mha_bwd_fused_tf32x3_staged<{d}>"])
-        if slice_name == "D2" else ([f"mha_fwd_tf32x3_valid<{d}>"] if kind == "fwd"
-                                    else [f"mha_bwd_dq_tf32x3_valid<{d}>", f"mha_bwd_dkv_tf32x3_valid<{d}>"]),
+        "instances": [f"mha_{kind}{'_fused' if kind == 'bwd' else ''}_tf32x3_staged<{d}>"]
+        if slice_name == "D2" and (kind == "bwd" or d == 256)
+        else ([f"mha_fwd_tf32x3_valid<{d}>"] if kind == "fwd"
+              else [f"mha_bwd_dq_tf32x3_valid<{d}>", f"mha_bwd_dkv_tf32x3_valid<{d}>"]),
         **{f"sample_shape_{key.rsplit('_', 1)[1]}": {k: numbers[key][k] for k in C1_KEYS}
            for key in numbers if key.startswith(f"{kind}_d{d}_b")},
         "timing": "ms and library_ms (fp32 SDPA on the same inputs): device time per call from CUDA-graph replays"

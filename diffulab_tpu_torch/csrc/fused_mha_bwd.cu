@@ -84,7 +84,6 @@
 // Plain C interface (bound with ctypes): fused_mha_bwd launches both kernels
 // on the given stream and returns the first CUDA error.
 
-#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -713,8 +712,8 @@ mha_bwd_dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, con
 //
 // The fp32 instance of K2 (diffulab_tpu/ops/fused_mha.py:87) at the D1 UNet's
 // head dims: 64 tokens at D = 192, 16 at D = 384, keys padded to 128 (the
-// MNIST UNet's 256 and 512 run the staged kernel below; PR 13 ran these
-// there). At B=128, H=2 a call must read q, do, k and v and write dq, dk and
+// MNIST UNet's 256 and 512 run the staged kernel below, which took these
+// kernels' place there). At B=128, H=2 a call must read q, do, k and v and write dq, dk and
 // dv over the valid rows and keys (dk and dv: the route's pad drops the
 // padded keys' rows), 88.1 / 44.0 MB at D = 192 / 384 (0.026 / 0.013 ms at
 // 3.35 TB/s), against 2.01 / 0.25 GFLOP (0.016 ms or less at 3xTF32): bound
@@ -1053,7 +1052,7 @@ inline size_t vr_live_bytes(int skv, int kt) {
 // valid rows and keys, 117.4 / 58.7 MB (0.035 / 0.018 ms at 3.35 TB/s), and
 // the padded contract has the kernel write the zero dk and dv of the padded
 // keys too, 33.6 / 117.4 MB more; against 2.68 / 0.34 GFLOP (0.016 ms or
-// less at 3xTF32): bound by bytes. PR 13's pair (a dq kernel forming s and dp
+// less at 3xTF32): bound by bytes. The split pair above (a dq kernel forming s and dp
 // twice over 8-key tiles, a dk/dv kernel forming them a third time, lse and
 // di through a workspace, the score reduction split between column groups
 // that added their partial tiles in shared memory every tile) took 6.2x /
@@ -1081,10 +1080,10 @@ inline size_t vr_live_bytes(int skv, int kt) {
 // a live row of more than one slot first sums di over its slots (s and dp
 // formed, p and dp not kept), then adds each slot's dq to the stored one. No
 // workspace, no second launch, no atomics: the sums run in a fixed order. A
-// batch row with no live tile writes dq = 0. With vr_f32s_cluster = 2, a
-// cluster of two CTAs a head splits each row block between them (each
-// loading the slot's K and V itself), and each adds its partner's partial dk
-// and dv of its half of the keys through distributed shared memory.
+// batch row with no live tile writes dq = 0. A cluster of two CTAs a head,
+// each taking half of a row block and adding its partner's partial dk and dv
+// through distributed shared memory, took twice as long at D = 256 (0.2037
+// against 0.1062 ms, B=128, H=2; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 
 // which pass, slot, phase and chunk a load of the staged K2 serves
 struct StagedItem {
@@ -1096,7 +1095,7 @@ struct StagedItem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(vr_f32s_bwd_threads<D>(), vr_f32s_bwd_blocks<D>())
+__global__ void __launch_bounds__(VR_F32S_BWD_THREADS, VR_F32S_BWD_BLOCKS)
 mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                             const float* __restrict__ dout, const int* __restrict__ mask,
                             const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ dk,
@@ -1106,24 +1105,23 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
   constexpr int KT = VR_TILE, SLOT = vr_f32s_slot<D>(), CT = SLOT / KT, ROWS = vr_f32s_rows<D>();
   constexpr int C = vr_f32s_chunk<D>(), NC = D / C, LDC = C + 4, R = ROWS > SLOT ? ROWS : SLOT, TILE = R * LDC;
   constexpr int NB = VR_F32S_STAGES, LDP = SLOT + 4, KP = vr_f32s_key_parts<D>(), KPW = SLOT / KP;
-  constexpr int THREADS = vr_f32s_bwd_threads<D>(), WARPS = THREADS / 32, RB = ROWS / 16, KB = SLOT / 16;
-  constexpr int CP = C / 16, UNITS = (RB + 2 * KB) * CP, UW = (UNITS + WARPS - 1) / WARPS;
-  constexpr int CL = vr_f32s_cluster<D>(), NG = KPW / 8 < 4 ? KPW / 8 : 4;  // n-tiles of a phase-1 partial
+  constexpr int THREADS = VR_F32S_BWD_THREADS, WARPS = THREADS / 32, RB = ROWS / 16, KB = SLOT / 16;
+  constexpr int CP = C / 16, UNITS = (RB + 2 * KB) * CP;
+  constexpr int NG = KPW / 8 < 4 ? KPW / 8 : 4;  // n-tiles of a phase-1 partial
   constexpr int PARTS = vr_f32s_parts<D>();
-  static_assert((KPW / 8) % NG == 0 && 2 * RB * KP <= WARPS && KPW % 8 == 0 && SLOT % 16 == 0 && ROWS % 16 == 0 && C % 16 == 0 &&
-                    D % C == 0 && (CL == 1 || KB % CL == 0),
+  static_assert((KPW / 8) % NG == 0 && 2 * RB * KP <= WARPS && KPW % 8 == 0 && SLOT % 16 == 0 && ROWS % 16 == 0 &&
+                    C % 16 == 0 && D % C == 0,
                 "the staged fp32 K2's tiles");
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                // [NB][4][R][LDC]: chunks of Q, dO, K and V
   float* ps = ring + NB * 4 * TILE;  // [ROWS][LDP]: p
   float* dss = ps + ROWS * LDP;      // [ROWS][LDP]: ds
   float* di_x = dss + ROWS * LDP;    // [KP][ROWS]: the key parts' di
-  float* xb = di_x + KP * ROWS;      // CL > 1: [2][KB][CP][256] the partial dk and dv tiles
-  int* live = reinterpret_cast<int*>(xb + (CL > 1 ? 2 * SLOT * C : 0));  // [Skv / KT + 1]: live tiles, count
-  int* dead = live + Skv / KT + 1;                                        // [Skv / KT]: 1 for a tile without one
+  int* live = reinterpret_cast<int*>(di_x + KP * ROWS);  // [Skv / KT + 1]: live tiles, count
+  int* dead = live + Skv / KT + 1;                        // [Skv / KT]: 1 for a tile without one
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, rank = CL > 1 ? static_cast<int>(blockIdx.x % CL) : 0;
+  const int b = blockIdx.z, h = blockIdx.y;
   // phase 1: warp (is_dp, rb1, kp) forms the s (dp) of rows rb1 * 16 + [0, 16) and keys kp * KPW + [0, KPW)
   const bool scorer = warp < 2 * RB * KP, is_dp = warp >= RB * KP;
   const int rb1 = (warp % (RB * KP)) / KP, kp = warp % KP;
@@ -1143,14 +1141,14 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
   __syncthreads();
   const int n_live = live[n_tiles], n_slots = (n_live + CT - 1) / CT;
   const bool kept = n_slots == 1;  // the same for every thread: one pass, di from the slot alone
-  const int n_blocks = (Sq + CL * ROWS - 1) / (CL * ROWS);  // the row blocks of this CTA
+  const int n_blocks = (Sq + ROWS - 1) / ROWS;  // the head's row blocks, in turn
   const int per_block = kept ? 2 * NC : 3 * NC * n_slots;
   const int n_items = n_slots > 0 ? n_blocks * per_block : 0;
 
   // dk = dv = 0 on the keys of the tiles without an attended key (the padded keys: most of the bytes at D =
   // 512); written after the first loads are requested they took as long (0.0862 ms against 0.0842 at D = 512,
   // B=128, H=2; 0.1047 against 0.1063 at 256: scripts/d2_valid_variants.py; NVIDIA H100 80GB HBM3, 700 W)
-  for (int i = rank * THREADS + threadIdx.x; i < n_tiles * KT * (D / 4); i += CL * THREADS) {
+  for (int i = threadIdx.x; i < n_tiles * KT * (D / 4); i += THREADS) {
     const int key = i / (D / 4);
     if (dead[key / KT]) {
       const long long at = (long long)key * o_ss + (i % (D / 4)) * 4;
@@ -1158,19 +1156,17 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
       *reinterpret_cast<float4*>(dvb + at) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  if (n_live == 0) {  // no attended key: dq = 0 (the rows of this CTA's blocks)
-    for (int i = threadIdx.x; i < n_blocks * ROWS * (D / 4); i += THREADS) {
-      const int row = ((i / (ROWS * (D / 4))) * CL + rank) * ROWS + (i / (D / 4)) % ROWS;
-      if (row < Sq)
-        *reinterpret_cast<float4*>(dqb + (long long)row * o_ss + (i % (D / 4)) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+  if (n_live == 0) {  // no attended key: dq = 0
+    for (int i = threadIdx.x; i < Sq * (D / 4); i += THREADS)
+      *reinterpret_cast<float4*>(dqb + (long long)(i / (D / 4)) * o_ss + (i % (D / 4)) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
 
   auto decode = [&](int i) {
     const int blk = i / per_block, j = i % per_block;
     StagedItem it;
-    it.m0 = (blk * CL + rank) * ROWS;
+    it.m0 = blk * ROWS;
     if (kept) {
       it.c = 0, it.full = true, it.p2 = j >= NC, it.ch = j % NC;
     } else if (j < NC * n_slots) {
@@ -1214,7 +1210,7 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
   };
   float di[2] = {0.f, 0.f};  // the dp warp's rows' di
   for (int blk = 0; blk < n_blocks; ++blk) {
-    const int m0 = (blk * CL + rank) * ROWS, row = m0 + rb1 * 16 + g;  // a scorer's rows: row, row + 8
+    const int m0 = blk * ROWS, row = m0 + rb1 * 16 + g;  // a scorer's rows: row, row + 8
     float dsum[2] = {0.f, 0.f};  // the dp warp's rows: its keys' p * dp over the slots
     for (int full = kept ? 1 : 0; full < 2; ++full) {
       for (int c = 0; c < n_slots; ++c) {
@@ -1339,7 +1335,6 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
           auto store = [&](int u, const float (&o)[2][4]) {
             const int prod = u < RB * CP ? 0 : u < (RB + KB) * CP ? 1 : 2;
             const int w = u - (prod == 0 ? 0 : prod == 1 ? RB * CP : (RB + KB) * CP), rb = w / CP, cp = w % CP;
-            if (prod > 0 && rb % CL != rank) return;  // the partner stores this key block
             const int col = ch * C + cp * 16 + 2 * t4;
             const bool add = prod == 0 ? c > 0 : blk > 0;
 #pragma unroll
@@ -1366,43 +1361,11 @@ mha_bwd_fused_tf32x3_staged(const float* __restrict__ q, const float* __restrict
               }
             }
           };
-          if constexpr (CL == 1) {  // a tile at a time: one accumulator live
 #pragma unroll 1
-            for (int u = warp; u < UNITS; u += WARPS) {
-              float o[2][4];
-              product(u, o);
-              store(u, o);
-            }
-          } else {  // the partner's partial dk and dv of this CTA's key blocks added, in rank order
-            namespace cg = cooperative_groups;
-            cg::cluster_group cluster = cg::this_cluster();
-            float out[UW][2][4];
-#pragma unroll
-            for (int x = 0; x < UW; ++x) {
-              const int u = warp + x * WARPS;
-              if (u >= UNITS) break;
-              product(u, out[x]);
-              const int w = u - RB * CP;  // (dk or dv, key block, column part)
-              if (u >= RB * CP && (w % (KB * CP)) / CP % CL != rank)
-#pragma unroll
-                for (int e = 0; e < 8; ++e) xb[w * 256 + e * 32 + lane] = out[x][e >> 2][e & 3];
-            }
-            cluster.sync();
-            const float* other = cluster.map_shared_rank(xb, rank ^ 1);
-#pragma unroll
-            for (int x = 0; x < UW; ++x) {
-              const int u = warp + x * WARPS;
-              if (u >= UNITS) break;
-              const int w = u - RB * CP;
-              if (u >= RB * CP && (w % (KB * CP)) / CP % CL == rank)
-#pragma unroll
-                for (int e = 0; e < 8; ++e) {
-                  const float theirs = other[w * 256 + e * 32 + lane];
-                  out[x][e >> 2][e & 3] = rank == 0 ? out[x][e >> 2][e & 3] + theirs : theirs + out[x][e >> 2][e & 3];
-                }
-              store(u, out[x]);
-            }
-            cluster.sync();  // the partner has read this CTA's partials
+          for (int u = warp; u < UNITS; u += WARPS) {  // a tile at a time: one accumulator live
+            float o[2][4];
+            product(u, o);
+            store(u, o);
           }
           end_item();
         }
@@ -1415,8 +1378,7 @@ template <int D>
 __host__ __device__ constexpr size_t vr_f32s_bwd_smem_bytes() {
   constexpr int R = vr_f32s_rows<D>() > vr_f32s_slot<D>() ? vr_f32s_rows<D>() : vr_f32s_slot<D>();
   return sizeof(float) * (VR_F32S_STAGES * 4 * R * (vr_f32s_chunk<D>() + 4) +
-                          2 * vr_f32s_rows<D>() * (vr_f32s_slot<D>() + 4) + vr_f32s_key_parts<D>() * vr_f32s_rows<D>() +
-                          (vr_f32s_cluster<D>() > 1 ? 2 * vr_f32s_slot<D>() * vr_f32s_chunk<D>() : 0));
+                          2 * vr_f32s_rows<D>() * (vr_f32s_slot<D>() + 4) + vr_f32s_key_parts<D>() * vr_f32s_rows<D>());
 }
 
 // --- bf16 at D = 64: the same split around the valid rows (bf16_valid.cuh)
@@ -2173,8 +2135,7 @@ cudaError_t launch_f32_valid(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the staged fp32 K2 at D = 256 and 512: one kernel a (batch, head), or a
-// cluster of vr_f32s_cluster CTAs a head; no workspace
+// the staged fp32 K2 at D = 256 and 512: one kernel a (batch, head); no workspace
 template <int D>
 cudaError_t launch_f32_staged(const Args& a, cudaStream_t stream) {
   static bool configured[MAX_DEVICES] = {};
@@ -2186,31 +2147,11 @@ cudaError_t launch_f32_staged(const Args& a, cudaStream_t stream) {
   static_assert(vr_f32s_bwd_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K2's tiles exceed shared memory");
   const size_t smem = vr_f32s_bwd_smem_bytes<D>() + vr_live_bytes(a.Skv, VR_TILE) + sizeof(int) * (a.Skv / VR_TILE);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  constexpr int CL = vr_f32s_cluster<D>();
-  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k);
-  const float *v = static_cast<const float*>(a.v), *dout = static_cast<const float*>(a.dout);
-  float *dq = static_cast<float*>(a.dq), *dk = static_cast<float*>(a.dk), *dv = static_cast<float*>(a.dv);
-  if constexpr (CL == 1) {
-    kernel<<<dim3(1, a.H, a.B), vr_f32s_bwd_threads<D>(), smem, stream>>>(
-        q, k, v, dout, a.mask, a.lse, dq, dk, dv, a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss,
-        a.do_sb, a.do_ss, a.sm_scale);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(CL, a.H, a.B);
-    cfg.blockDim = dim3(vr_f32s_bwd_threads<D>());
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, kernel, q, k, v, dout, a.mask, a.lse, dq, dk, dv, a.Sq, a.Skv, a.H, a.q_sb, a.q_ss,
-                             a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss, a.sm_scale);
-    if (err != cudaSuccess) return err;
-  }
+  kernel<<<dim3(1, a.H, a.B), VR_F32S_BWD_THREADS, smem, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const float*>(a.dout), a.mask, a.lse, static_cast<float*>(a.dq), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.Sq, a.Skv, a.H, a.q_sb, a.q_ss, a.k_sb, a.k_ss, a.v_sb, a.v_ss, a.do_sb, a.do_ss,
+      a.sm_scale);
   return cudaGetLastError();
 }
 
@@ -2424,15 +2365,15 @@ extern "C" int fused_mha_bwd_bf16_tiles(int D, int what) {
 // (and for what = 2, which the forward's export uses for its kept slots). The
 // staged fp32 instance at 256 and 512 (one group: no warp splits the
 // columns) also reports the columns of a stage (what = 4), the key parts of
-// its score warps (what = 5), its CTAs a head (what = 6) and its score
-// partials a stage (what = 7); what >= 4 is 0 elsewhere. ops/fused_mha.py (f32_keys and bf16_keys with valid_rows,
+// its score warps (what = 5) and its score partials a stage (what = 6); what
+// >= 4 is 0 elsewhere. ops/fused_mha.py (f32_keys and bf16_keys with valid_rows,
 // f32_groups, bf16_groups, bf16_rows, f32_staged) mirrors them.
 extern "C" int fused_mha_bwd_valid_tiles(int D, int dtype, int what) {
   if (what >= 4) {
 #define K2_TILES_STAGED(DD)                                                                                   \
   if (D == DD && dtype == 0)                                                                                  \
-    return what == 4 ? vr_f32s_chunk<DD>() : what == 5 ? vr_f32s_key_parts<DD>() : what == 6 ? vr_f32s_cluster<DD>() \
-         : what == 7 ? vr_f32s_parts<DD>() : 0;
+    return what == 4 ? vr_f32s_chunk<DD>() : what == 5 ? vr_f32s_key_parts<DD>() : what == 6 ? vr_f32s_parts<DD>() \
+                                                                                              : 0;
     K2_TILES_STAGED(256) K2_TILES_STAGED(512)
 #undef K2_TILES_STAGED
     return 0;

@@ -52,9 +52,9 @@
 // rounding only: fp32 p is never rounded to a narrower type. Two products of
 // [S x S x D], not the three of a two-pass softmax. At the UNets' head dims
 // 192-512 the instances are built around the valid rows: in fp32
-// mha_fwd_tf32x3_valid<D> at 192 and 384 and mha_fwd_tf32x3_staged<D> (a
-// slot of live keys, D staged in chunks, each warp's scores over the whole
-// of D) at 256 and 512; in bf16 mha_fwd_bf16_staged<D>. At D = 64 the valid
+// mha_fwd_tf32x3_valid<D> at 192, 384 and 512 and mha_fwd_tf32x3_staged<D>
+// (a slot of live keys, D staged in chunks, each warp's scores over the
+// whole of D) at 256; in bf16 mha_fwd_bf16_staged<D>. At D = 64 the valid
 // instances (mha_fwd_tf32x3_valid<64>, mha_fwd_bf16_valid<64>) take the
 // padded short sequences (64, 72 or 264 tokens), which the caller picks by
 // shape (valid_rows = 1), and the padded ones keep the rest.
@@ -639,17 +639,20 @@ mha_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const f
 // The fp32 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the D1
 // UNet's head dims, built around the valid rows (tf32x3.cuh,
 // valid_rows_instance): 64 tokens at D = 192 (train_synthetic_ddpm, ds 4),
-// 16 at D = 384 (ds 8), keys padded to 128 with the mask (the MNIST UNet's
-// 256 and 512 run mha_fwd_tf32x3_staged below; PR 13 ran this one there). At
-// B=128, H=2 a call must read q, k and v and write o over the valid rows and
-// keys, 50.4 / 25.2 MB at D = 192 / 384 (0.015 / 0.0075 ms at 3.35 TB/s),
+// 16 at D = 384 (ds 8), keys padded to 128 with the mask, and the MNIST
+// UNet's 16 tokens at D = 512 (its 256 runs mha_fwd_tf32x3_staged below,
+// which took this instance's place there; at 512 the staged one lost at the
+// sampler's batch). At B=128, H=2 a call must read q, k and v and write o
+// over the valid rows and keys, 50.4 / 25.2 MB at D = 192 / 384 (0.015 /
+// 0.0075 ms at 3.35 TB/s),
 // against 0.81 / 0.10 GFLOP (0.005 ms or less at 3xTF32): bound by bytes.
 // Padded to 128 rows and walking every key tile, the instances before this
 // design did 2x (64 tokens) and 8x (16) the bytes of q and o and 4x and 64x
 // the score work. So: one CTA per (vr_rows queries, head, batch) of the
-// UNPADDED query rows (32 at D = 192, 16 at 384), rows past Sq zero-filled in
-// shared memory and never stored; a warp for each 16 rows in each column
-// group of vr_cols output columns (2 groups at D = 192, 6 at 384), each group
+// UNPADDED query rows (32 at D = 192, 16 at 384 and 512), rows past Sq
+// zero-filled in shared memory and never stored; a warp for each 16 rows in
+// each column group of vr_cols output columns (2 groups at D = 192, 6 at
+// 384, 4 at 512), each group
 // forming the scores over its columns of D and the partial tiles added in
 // group order. The ring
 // brings only the key tiles of VR_TILE keys that hold an attended key: a tile
@@ -816,43 +819,41 @@ inline int vr_live_bytes(int skv, int kt) {
 }
 
 // The fp32 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) at the MNIST
-// UNet's head dims 256 and 512 (64 and 16 tokens, keys padded to 128),
-// staged (tf32x3.cuh, the vr_f32s rules). At B=128, H=2 a call must read q, k
-// and v and write o over the valid rows and keys, 67.1 / 33.6 MB (0.020 /
-// 0.010 ms at 3.35 TB/s): bound by bytes. PR 13's instance streamed 8-key
-// tiles, each its own ring wait, and split the score reduction between 2 / 4
-// column groups that added their partial tiles in shared memory every tile.
-// Here a CTA takes vr_f32s_fwd_rows unpadded query rows (a head's 64 or 16)
-// and the live keys a slot of vr_f32s_slot at a time (the UNet's whole live
-// row), gathered from the mask row's live 8-key tiles. Phase 1 walks D a
-// chunk of vr_f32s_fwd_chunk columns at a time (Q and the slot's K through a
-// ring of VR_F32S_STAGES cp.async stages): each warp forms its 16 rows'
-// scores over the whole of D, each chunk's 3xTF32 product summed from zero
-// and added in fp32 (T25), so no partial score crosses warps; the column
-// groups (vr_f32s_fwd_groups, four at D = 512) repeat the scores and split
-// only P.V's output columns. Then K1's op order: m and l over the whole row,
+// UNet's head dim 256 (64 tokens, keys padded to 128), staged (tf32x3.cuh,
+// the vr_f32s rules). At B=128, H=2 a call must read q, k and v and write o
+// over the valid rows and keys, 67.1 MB (0.020 ms at 3.35 TB/s): bound by
+// bytes. The split instance above streams 8-key tiles, each its own ring
+// wait, and splits the score reduction between 2 column groups that add
+// their partial tiles in shared memory every tile. Here a CTA takes
+// VR_F32S_FWD_ROWS unpadded query rows (a head's 64) and the live keys a slot
+// of vr_f32s_slot at a time (the UNet's whole live row), gathered from the
+// mask row's live 8-key tiles. Phase 1 walks D a chunk of VR_F32S_FWD_CHUNK
+// columns at a time (Q and the slot's K through a ring of VR_F32S_STAGES
+// cp.async stages): each warp forms its 16 rows' scores over the whole of D,
+// each chunk's 3xTF32 product summed from zero and added in fp32 (T25), so
+// no partial score crosses warps. Then K1's op order: m and l over the whole row,
 // p = exp(s - m) / l normalised before P.V and kept in fp32 registers. Phase
 // 2 walks V's chunks: o = p.V a chunk of columns at a time, each stored at
 // once. A live row of more than one slot runs pass 0 (m and l over its
 // slots), then each slot's scores anew and its P.V added to the stored o. A
 // row without an attended key gives o = 0, lse = +inf.
 template <int D>
-__global__ void __launch_bounds__(vr_f32s_fwd_threads<D>())
+__global__ void __launch_bounds__(VR_F32S_FWD_THREADS)
 mha_fwd_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                       const int* __restrict__ mask, float* __restrict__ o, float* __restrict__ lse, int Sq, int Skv,
                       int H, long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
                       long long v_ss, float sm_scale) {
-  constexpr int KT = VR_TILE, SLOT = vr_f32s_slot<D>(), CT = SLOT / KT, ROWS = vr_f32s_fwd_rows<D>();
-  constexpr int C = vr_f32s_fwd_chunk<D>(), NC = D / C, LDC = C + 4, R = ROWS > SLOT ? ROWS : SLOT, TILE = R * LDC;
-  constexpr int G = vr_f32s_fwd_groups<D>(), CG = C / G, RW = ROWS / 16, THREADS = vr_f32s_fwd_threads<D>();
-  constexpr int NB = VR_F32S_STAGES;
-  static_assert(CG % 8 == 0 && D % C == 0 && SLOT % 8 == 0 && ROWS % 16 == 0, "the staged fp32 K1's tiles");
+  constexpr int KT = VR_TILE, SLOT = vr_f32s_slot<D>(), CT = SLOT / KT, ROWS = VR_F32S_FWD_ROWS;
+  constexpr int C = VR_F32S_FWD_CHUNK, NC = D / C, LDC = C + 4, R = ROWS > SLOT ? ROWS : SLOT, TILE = R * LDC;
+  constexpr int THREADS = VR_F32S_FWD_THREADS, NB = VR_F32S_STAGES;
+  static_assert(C % 8 == 0 && D % C == 0 && SLOT % 8 == 0 && ROWS % 16 == 0 && THREADS == 32 * ROWS / 16,
+                "the staged fp32 K1's tiles");
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                                         // [NB][2][R][LDC]: chunks of Q and K, or of V
   int* live = reinterpret_cast<int*>(ring + NB * 2 * TILE);  // [Skv / KT + 1]: live tiles, count
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, rb = warp % RW, grp = warp / RW;
+  const int b = blockIdx.z, h = blockIdx.y, m0 = blockIdx.x * ROWS, rb = warp;
   const int row = m0 + rb * 16 + g;   // this thread's rows: row, row + 8
   const bool active = m0 + rb * 16 < Sq;  // the warp has a valid row
   const long long o_ss = (long long)H * D;
@@ -917,11 +918,11 @@ mha_fwd_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, 
     bool is_v, pass1;
     decode(i, c, ch, is_v, pass1);
     const float* st = ring + (i % NB) * 2 * TILE;
-    if (!is_v && active) {  // this chunk's scores, its partials each from zero, added to the sums
+    if (!is_v && active) {  // this chunk's scores, summed from zero, added to the sums
       if (ch == 0)
 #pragma unroll
         for (int nt = 0; nt < SLOT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      rows_dot_add<C, SLOT, LDC, vr_f32s_fwd_parts<D>()>(s, st, rb * 16, st + TILE, g, t4);
+      rows_dot_add<C, SLOT, LDC, 1>(s, st, rb * 16, st + TILE, g, t4);
       if (ch == NC - 1) {  // the slot's scores are whole: scale and mask; a key past the slot's tiles -inf
         const int n = min(CT, n_live - c * CT);
         float mx[2] = {-INFINITY, -INFINITY};
@@ -963,17 +964,17 @@ mha_fwd_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, 
             for (int e = 0; e < 4; ++e) s[nt][e] = dead[e >> 1] ? 0.f : expf(s[nt][e] - m[e >> 1]) / lsum[e >> 1];
         }
       }
-    } else if (is_v && active) {  // o = p.V over this chunk's group columns, stored, or added to the earlier slots'
-      float acc[CG / 8][4];
+    } else if (is_v && active) {  // o = p.V over this chunk's columns, stored, or added to the earlier slots'
+      float acc[C / 8][4];
 #pragma unroll
-      for (int dn = 0; dn < CG / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-      scores_times_tile<CG, SLOT, LDC>(acc, s, st + grp * CG, g, t4);
+      for (int dn = 0; dn < C / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+      scores_times_tile<C, SLOT, LDC>(acc, s, st, g, t4);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         if (row + 8 * half >= Sq) continue;
-        float* dst = ob + (long long)(row + 8 * half) * o_ss + ch * C + grp * CG + 2 * t4;
+        float* dst = ob + (long long)(row + 8 * half) * o_ss + ch * C + 2 * t4;
 #pragma unroll
-        for (int dn = 0; dn < CG / 8; ++dn) {
+        for (int dn = 0; dn < C / 8; ++dn) {
           float2 val = make_float2(acc[dn][2 * half], acc[dn][2 * half + 1]);
           if (c > 0) {
             const float2 was = *reinterpret_cast<const float2*>(dst + dn * 8);
@@ -987,7 +988,7 @@ mha_fwd_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, 
   }
 
   // lse = m + log l; a row without an attended key (m still MASK_VALUE) +inf
-  if (active && grp == 0 && t4 == 0) {
+  if (active && t4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const bool dead = mb != nullptr && m[r] <= MASK_VALUE;
@@ -998,8 +999,8 @@ mha_fwd_tf32x3_staged(const float* __restrict__ q, const float* __restrict__ k, 
 
 template <int D>
 __host__ __device__ constexpr int vr_f32s_fwd_smem_bytes() {
-  constexpr int R = vr_f32s_fwd_rows<D>() > vr_f32s_slot<D>() ? vr_f32s_fwd_rows<D>() : vr_f32s_slot<D>();
-  return 4 * VR_F32S_STAGES * 2 * R * (vr_f32s_fwd_chunk<D>() + 4);
+  constexpr int R = VR_F32S_FWD_ROWS > vr_f32s_slot<D>() ? VR_F32S_FWD_ROWS : vr_f32s_slot<D>();
+  return 4 * VR_F32S_STAGES * 2 * R * (VR_F32S_FWD_CHUNK + 4);
 }
 
 // The bf16 instance of K1 (diffulab_tpu/ops/fused_mha.py:50) around the same
@@ -1420,8 +1421,7 @@ cudaError_t launch_f32_staged(const void* q, const void* k, const void* v, const
   static_assert(vr_f32s_fwd_smem_bytes<D>() <= SMEM_LIMIT, "the fp32 K1's tiles exceed shared memory");
   const int smem = vr_f32s_fwd_smem_bytes<D>() + vr_live_bytes(Skv, VR_TILE);
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  kernel<<<dim3((Sq + vr_f32s_fwd_rows<D>() - 1) / vr_f32s_fwd_rows<D>(), H, B), vr_f32s_fwd_threads<D>(), smem,
-           stream>>>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
+  kernel<<<dim3((Sq + VR_F32S_FWD_ROWS - 1) / VR_F32S_FWD_ROWS, H, B), VR_F32S_FWD_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), mask,
                      static_cast<float*>(o), lse, Sq, Skv, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, sm_scale);
   return cudaGetLastError();
 }
@@ -1472,7 +1472,7 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* mask, vo
                                              v_ss, sm_scale, device, stream);
   K1_VALID(64, launch_bf16_valid, launch_f32_valid) K1_VALID(192, launch_bf16_staged, launch_f32_valid)
   K1_VALID(256, launch_bf16_staged, launch_f32_staged) K1_VALID(384, launch_bf16_staged, launch_f32_valid)
-  K1_VALID(512, launch_bf16_staged, launch_f32_staged)
+  K1_VALID(512, launch_bf16_staged, launch_f32_valid)
 #undef K1_VALID
   if (dtype == 1) {
     if (smem_bytes(D, resident != 0, Skv, buffers) > SMEM_LIMIT) return cudaErrorInvalidValue;
@@ -1531,8 +1531,8 @@ extern "C" int fused_mha_fwd(const void* q, const void* k, const void* v, const 
 
 // keys of the fp32 K1's ring slot (what = 0) and its column groups of warps
 // that split the score reduction (what = 1) at head dim D, by the rules its
-// launch follows: at 256 and 512 the staged instance's slot, and 1 (each warp
-// forms its scores over the whole of D); 0 for another D. The emulation in
+// launch follows: at 256 the staged instance's slot, and 1 (each warp forms
+// its scores over the whole of D); 0 for another D. The emulation in
 // ops/fused_mha.py (f32_keys, f32_groups) mirrors them. what = 2: 1 where the
 // fp32 K1 and K2 take the unpadded query rows (valid_rows_instance;
 // VALID_ROWS_HEAD_DIMS in ops/fused_mha.py), else 0.
@@ -1540,10 +1540,9 @@ extern "C" int fused_mha_fwd_f32_tiles(int D, int what) {
   if (what == 2) return valid_rows_instance(D) ? 1 : 0;
   if (D == 16 || D == 32 || D == 64 || D == 128) return what == 0 ? F32_KEYS : 1;
   if (D == 256) return what == 0 ? vr_f32s_slot<256>() : 1;
-  if (D == 512) return what == 0 ? vr_f32s_slot<512>() : 1;
 #define K1_TILES_VALID(DD) \
   if (D == DD) return what == 0 ? VR_TILE : vr_groups<DD>();
-  K1_TILES_VALID(192) K1_TILES_VALID(384)
+  K1_TILES_VALID(192) K1_TILES_VALID(384) K1_TILES_VALID(512)
 #undef K1_TILES_VALID
   return 0;
 }
@@ -1566,17 +1565,14 @@ extern "C" int fused_mha_fwd_bf16_tiles(int D, int what) {
 // slot (what = 0), column groups of warps (what = 1), slots whose scores stay
 // in registers between the passes (what = 2; the bf16 instance at D = 64
 // alone, else 0), query rows a CTA (what = 3), and, of the staged fp32
-// instance at 256 and 512, the columns of a stage (what = 4) and its score
-// partials (what = 5; 0 elsewhere); 0 where D has no such instance. ops/fused_mha.py (f32_keys and bf16_keys with
+// instance at 256, the columns of a stage (what = 4; 0 elsewhere); 0 where D
+// has no such instance. ops/fused_mha.py (f32_keys and bf16_keys with
 // valid_rows, f32_groups, bf16_groups, BF16_KEPT_TILES, bf16_rows,
 // f32_staged) mirrors them.
 extern "C" int fused_mha_fwd_valid_tiles(int D, int dtype, int what) {
-#define K1_TILES_STAGED(DD)                                                                                       \
-  if (D == DD && dtype == 0)                                                                                      \
-    return what == 0 ? vr_f32s_slot<DD>() : what == 1 ? vr_f32s_fwd_groups<DD>() : what == 3 ? vr_f32s_fwd_rows<DD>() \
-         : what == 4 ? vr_f32s_fwd_chunk<DD>() : what == 5 ? vr_f32s_fwd_parts<DD>() : 0;
-  K1_TILES_STAGED(256) K1_TILES_STAGED(512)
-#undef K1_TILES_STAGED
+  if (D == 256 && dtype == 0)
+    return what == 0 ? vr_f32s_slot<256>() : what == 1 ? 1 : what == 3 ? VR_F32S_FWD_ROWS
+         : what == 4 ? VR_F32S_FWD_CHUNK : 0;
   if (what >= 4) return 0;
   if (D == 64)
     return what == 0 ? (dtype == 1 ? vr_bf16_tile<64>() : vr_tile<64>()) : what == 1 ? vr_groups<64>()

@@ -131,9 +131,10 @@ __device__ __forceinline__ void stage_rows_upto(float* dst, const float* src, lo
 // partial tiles are added in group order in shared memory (put_c, sum_c).
 // At D = 64 one group holds the whole head: no partial tiles, each warp's
 // scores stay in its registers. The fp32 launches take these instances at D =
-// 64, 192 and 384, and the staged ones below at 256 and 512; the rules' values
-// at 256 and 512 are PR 13's instances', which scripts/d2_valid_variants.py
-// (split, k1_valid) still builds to compare.
+// 64, 192 and 384, and K1 at 512 too; the staged ones below take K2 at 256
+// and 512 and K1 at 256. The rules' values at 256 and 512 are the split
+// instances' of 8-key tiles, which scripts/d2_valid_variants.py (split,
+// k1_valid) still builds to compare.
 
 // the head dims where these are the only instances, the one place that names
 // them: both entry points' rules read it, the fwd library exports it
@@ -458,18 +459,18 @@ __device__ __forceinline__ void sum_c(float (&c)[N / 8][4], const float* buf, in
 
 // ---- the staged instances at the MNIST UNet's head dims 256 and 512
 //
-// mha_fwd_tf32x3_staged<D> (K1) and mha_bwd_fused_tf32x3_staged<D> (K2): a
-// slot of vr_f32s_slot keys gathered from the mask row's live VR_TILE-key
-// tiles (the UNet's whole live row: 64 keys at D = 256, 16 at 512), D staged
-// vr_f32s_chunk columns at a time through a ring of VR_F32S_STAGES cp.async
-// stages. Each warp forms its rows' s (and dp) over the whole of D: every
+// mha_fwd_tf32x3_staged<D> (K1, at D = 256 alone) and
+// mha_bwd_fused_tf32x3_staged<D> (K2, at 256 and 512): a slot of
+// vr_f32s_slot keys gathered from the mask row's live VR_TILE-key tiles (the
+// UNet's whole live row: 64 keys at D = 256, 16 at 512), D staged in chunks
+// through a ring of VR_F32S_STAGES cp.async stages. Each warp forms its rows' s (and dp) over the whole of D: every
 // chunk's 3xTF32 product summed from zero and added to the warp's fp32 sums
 // (T25: a chain of 3 C / 8 products a chunk), so no partial score crosses
 // warps. The slot's p and ds stay in shared memory (K2) or registers (K1),
 // and the outputs come one chunk of columns at a time from a second walk
 // over the chunks. The other head dims keep the instances above.
 
-// head dims of the staged fp32 instances
+// head dims of the staged fp32 K2 (K1's: 256 alone)
 __host__ __device__ constexpr bool staged_f32_instance(int D) {
   return D == 256 || D == 512;
 }
@@ -512,60 +513,25 @@ __host__ __device__ constexpr int vr_f32s_key_parts() {
   return D == 256 ? 1 : 2;
 }
 
-// K2's CTAs a head: 1, or a cluster that splits the head's rows and adds
-// its partial dk and dv through distributed shared memory
-template <int D>
-__host__ __device__ constexpr int vr_f32s_cluster() {
-  return 1;
-}
-
 // K2's CTAs an SM that its registers must allow (128 a thread at D = 256)
-template <int D>
-__host__ __device__ constexpr int vr_f32s_bwd_blocks() {
-  return 2;
-}
+constexpr int VR_F32S_BWD_BLOCKS = 2;
 
 // K2's threads: eight warps, a warp for the s and one for the dp of each 16
 // rows and key part (at D = 512 four of them, the others idle in phase 1),
 // all sharing phase 2's tiles and the zero dk and dv of the padded keys;
 // eight took K2 at D = 512, B=128, H=2 to 0.0798 ms from four's 0.0831-0.0841
-// (scripts/d2_valid_variants.py, warps8_512; NVIDIA H100 80GB HBM3, 700 W)
-template <int D>
-__host__ __device__ constexpr int vr_f32s_bwd_threads() {
-  return 256;
-}
+// (scripts/d2_valid_variants.py; NVIDIA H100 80GB HBM3, 700 W)
+constexpr int VR_F32S_BWD_THREADS = 256;
 
-// query rows of K1's CTA: a head's 64 or 16 valid rows
-template <int D>
-__host__ __device__ constexpr int vr_f32s_fwd_rows() {
-  return D == 256 ? 64 : 16;
-}
-
-// columns of D a K1 stage holds of Q and K (or of V): 64 at D = 256, 256 at
-// 512, where a head's 16 rows and keys make small stages whose load
-// latencies would each stand alone
-template <int D>
-__host__ __device__ constexpr int vr_f32s_fwd_chunk() {
-  return D == 256 ? 64 : 256;
-}
-
-// K1's score partials a stage (as vr_f32s_parts): 1 at D = 256, 4 at 512
-template <int D>
-__host__ __device__ constexpr int vr_f32s_fwd_parts() {
-  return D == 256 ? 1 : 4;
-}
-
-// K1's column groups of warps, which split only P.V's output columns (each
-// group forms its rows' scores whole): one at D = 256, four at 512
-template <int D>
-__host__ __device__ constexpr int vr_f32s_fwd_groups() {
-  return D == 256 ? 1 : 4;
-}
-
-template <int D>
-__host__ __device__ constexpr int vr_f32s_fwd_threads() {
-  return 32 * (vr_f32s_fwd_rows<D>() / 16) * vr_f32s_fwd_groups<D>();
-}
+// K1's query rows a CTA (a head's 64 valid rows at D = 256) and the columns
+// of D a stage holds of Q and K (or of V). Each warp forms its 16 rows'
+// scores over the whole of D, one sum from zero a stage, and one column
+// group holds the head. At D = 512 the split instance of 8-key tiles stays:
+// the staged one tied it at B=128 and lost 0.91x at the sampler's B=16
+// (PERF.md, NVIDIA H100 80GB HBM3, 700 W)
+constexpr int VR_F32S_FWD_ROWS = 64;
+constexpr int VR_F32S_FWD_CHUNK = 64;
+constexpr int VR_F32S_FWD_THREADS = 32 * VR_F32S_FWD_ROWS / 16;
 
 // stages of the staged instances' rings, one loading while one is computed
 constexpr int VR_F32S_STAGES = 2;

@@ -41,14 +41,15 @@ instances of their own in both dtypes, built around the valid rows: they
 take the unpadded query rows (``ops/attention.py`` pads only k, v and the
 mask for them), neither load nor multiply a key tile whose mask is all 0,
 and split each row's output between column groups of warps; K2 writes
-zeros for the keys whose mask tile is all 0. In fp32 at D = 192 and 384 the
-groups split the score products' reduction over D too (:func:`f32_groups`),
-and the products are 3xTF32 over tiles of 8 keys; at 256 and 512
-(:data:`STAGED_F32_HEAD_DIMS`) the fp32 instances are staged
-(:func:`f32_staged`): a slot of the live 8-key tiles (64 keys at 256, 16 at
-512: the UNet's whole live row), D staged in chunks through a cp.async ring,
-each warp's score sums over the whole of D, each chunk's 3xTF32 product from
-zero; K1 keeps ``p = exp(s - m) / l`` in fp32 registers for P.V
+zeros for the keys whose mask tile is all 0. In fp32 at D = 192 and 384,
+and K1 at 512, the groups split the score products' reduction over D too
+(:func:`f32_groups`), and the products are 3xTF32 over tiles of 8 keys; K2
+at 256 and 512 (:data:`STAGED_F32_HEAD_DIMS`) and K1 at 256
+(:data:`STAGED_F32_FWD_HEAD_DIMS`) are staged (:func:`f32_staged`): a slot
+of the live 8-key tiles (64 keys at 256, 16 at 512: the UNet's whole live
+row), D staged in chunks through a cp.async ring, each warp's score sums
+over the whole of D, each chunk's 3xTF32 product from zero; K1 keeps
+``p = exp(s - m) / l`` in fp32 registers for P.V
 (:func:`fused_mha_tf32x3_staged_emulation`), and K2 is one kernel a batch
 and head that forms s and dp once, keeps p and ds in shared memory and
 forms dq, dk and dv a chunk of columns at a time, a head's row blocks in
@@ -197,53 +198,54 @@ def forward_instance(skv: int, d: int) -> FwdInstance:
 F32_KEYS = 32
 
 
-#: the head dims of the staged fp32 K1 and K2 (the MNIST UNet's, ``csrc/tf32x3.cuh``'s
+#: the head dims of the staged fp32 K2 (the MNIST UNet's, ``csrc/tf32x3.cuh``'s
 #: ``staged_f32_instance``): a slot of live keys, D staged in chunks, each warp's scores over the whole of D
 STAGED_F32_HEAD_DIMS = (256, 512)
+#: the head dims of the staged fp32 K1: at 512 the split instance of 8-key tiles stays (the faster at the
+#: sampler's batch)
+STAGED_F32_FWD_HEAD_DIMS = (256,)
+#: the staged fp32 K1's query rows a CTA and columns of D a stage, each stage's score sum from zero
+#: (``VR_F32S_FWD_ROWS``, ``VR_F32S_FWD_CHUNK``)
+F32_STAGED_FWD_ROWS = 64
+F32_STAGED_FWD_CHUNK = 64
 #: keys of the mask's liveness tiles of the fp32 instances at :data:`VALID_ROWS_HEAD_DIMS` (``VR_TILE``)
 F32_LIVE_KEYS = 8
 
 
 class F32Staged(NamedTuple):
-    """The rules of the staged fp32 K1 and K2 at a head dim of
+    """The rules of the staged fp32 K2 at a head dim of
     :data:`STAGED_F32_HEAD_DIMS` (``vr_f32s_*`` in ``csrc/tf32x3.cuh``)."""
 
-    slot: int  # keys of a slot, gathered from the live 8-key tiles (K1 and K2)
-    rows: int  # K2's query rows a CTA (a row block; a longer head's blocks in turn)
-    chunk: int  # K2's columns of D a stage holds
-    parts: int  # K2's score sums a stage, each over chunk / parts columns from zero, added in order
-    key_parts: int  # K2's warps that split a slot's keys for the s (and the dp) of 16 rows
-    cluster: int  # K2's CTAs a head
-    fwd_rows: int  # K1's query rows a CTA
-    fwd_chunk: int  # K1's columns of D a stage holds
-    fwd_parts: int  # K1's score sums a stage (as parts)
-    fwd_groups: int  # K1's column groups of warps (they split only P.V's output columns)
+    slot: int  # keys of a slot, gathered from the live 8-key tiles (K2, and K1 at 256)
+    rows: int  # query rows a CTA (a row block; a longer head's blocks in turn)
+    chunk: int  # columns of D a stage holds
+    parts: int  # score sums a stage, each over chunk / parts columns from zero, added in order
+    key_parts: int  # warps that split a slot's keys for the s (and the dp) of 16 rows
 
 
 def f32_staged(d: int) -> F32Staged:
-    """The staged fp32 K1/K2's rules at head dim ``d`` (one of
+    """The staged fp32 K2's rules at head dim ``d`` (one of
     :data:`STAGED_F32_HEAD_DIMS`): a slot of 64 keys and 64 rows at D = 256,
-    16 and 16 at 512 (the UNet's whole live row and a head's valid rows); K2
+    16 and 16 at 512 (the UNet's whole live row and a head's valid rows); it
     stages 32 columns (128 at 512) in 1 (4) score sums a stage and splits a
-    slot's keys between 1 (2) warps; K1 stages 64 (256) columns in 1 (4) sums
-    and 1 (4) column groups. They mirror the built libraries'
-    ``fused_mha_{fwd,bwd}_valid_tiles``, which chip_smoke.py holds them to on
-    the card."""
+    slot's keys between 1 (2) warps. The staged K1 at 256 takes the same slot
+    (:data:`F32_STAGED_FWD_ROWS`, :data:`F32_STAGED_FWD_CHUNK`). They mirror
+    the built libraries' ``fused_mha_{fwd,bwd}_valid_tiles``, which
+    chip_smoke.py holds them to on the card."""
     if d not in STAGED_F32_HEAD_DIMS:
         raise ValueError(f"head dim {d} has no staged fp32 instance (only {STAGED_F32_HEAD_DIMS})")
     if d == 256:
-        return F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1, cluster=1, fwd_rows=64, fwd_chunk=64,
-                         fwd_parts=1, fwd_groups=1)
-    return F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2, cluster=1, fwd_rows=16, fwd_chunk=256,
-                     fwd_parts=4, fwd_groups=4)
+        return F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1)
+    return F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2)
 
 
 def f32_keys(d: int, valid_rows: bool = False) -> int:
     """Keys of a ring slot of the fp32 K1 at head dim ``d``, the tile of its
-    online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), 8 at D = 192
-    and 384 (``VR_TILE``), where K2's dq kernel takes key tiles and its dk/dv
-    kernel query tiles of the same size, and at :data:`STAGED_F32_HEAD_DIMS`
-    the staged instances' slot (:func:`f32_staged`: 64 at 256, 16 at 512);
+    online softmax: 32 at D <= 128 (``F32_KEYS`` in the source), 8 at D = 192,
+    384 and 512 (``VR_TILE``), where K2's dq kernel takes key tiles and its
+    dk/dv kernel query tiles of the same size (at 192 and 384), and at
+    :data:`STAGED_F32_FWD_HEAD_DIMS` the staged instance's slot
+    (:func:`f32_staged`: 64 at 256);
     with ``valid_rows``, the instance built around the valid rows at
     :data:`SHORT_ROWS_HEAD_DIM`: 32 (``vr_tile`` in the source). This and
     :func:`f32_groups` mirror the built libraries'
@@ -252,20 +254,23 @@ def f32_keys(d: int, valid_rows: bool = False) -> int:
     card."""
     if valid_rows and d == SHORT_ROWS_HEAD_DIM:
         return 32
-    if d in STAGED_F32_HEAD_DIMS:
+    if d in STAGED_F32_FWD_HEAD_DIMS:
         return f32_staged(d).slot
     return F32_LIVE_KEYS if d in VALID_ROWS_HEAD_DIMS else F32_KEYS
 
 
-def f32_groups(d: int) -> int:
+def f32_groups(d: int, backward: bool = False) -> int:
     """Column groups of warps that split the score products' D-reduction in
-    the fp32 kernels built around the valid rows at head dim ``d`` (K1, and
-    K2's dq and dk/dv kernels): at D = 192 and 384 groups of 96 and 64
-    columns (``vr_cols``, ``vr_groups`` in ``csrc/tf32x3.cuh``), 2 and 6
-    groups, each group's partial tile summed with the others' in group order;
-    else 1 (the fp32 kernels at D <= 128, and the staged ones at
-    :data:`STAGED_F32_HEAD_DIMS`, where each warp forms its scores over the
-    whole of D)."""
+    the fp32 kernels built around the valid rows at head dim ``d`` (K1, or
+    with ``backward`` K2's dq and dk/dv kernels): at D = 192 and 384 groups
+    of 96 and 64 columns (``vr_cols``, ``vr_groups`` in
+    ``csrc/tf32x3.cuh``), 2 and 6 groups, and K1's 4 groups of 128 at 512,
+    each group's partial tile summed with the others' in group order; else 1
+    (the fp32 kernels at D <= 128, and the staged ones, K2 at
+    :data:`STAGED_F32_HEAD_DIMS` and K1 at :data:`STAGED_F32_FWD_HEAD_DIMS`,
+    where each warp forms its scores over the whole of D)."""
+    if d == 512 and not backward:
+        return 4
     return d // {192: 96, 384: 64}[d] if d in (192, 384) else 1
 
 
@@ -548,10 +553,10 @@ def fused_mha_tf32x3_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[to
     no value (a masked p is exactly 0, and alpha = 0 drops what a masked tile
     leaves before the first live one), so the emulation walks every tile. At
     D = 192 and 384 the scores are the sum of the column groups' products
-    (:func:`f32_groups`); at :data:`STAGED_F32_HEAD_DIMS` it is
+    (:func:`f32_groups`); at :data:`STAGED_F32_FWD_HEAD_DIMS` it is
     :func:`fused_mha_tf32x3_staged_emulation`. Returns (o [B,Sq,H,D], lse
     [B,Sq,H])."""
-    if q.shape[-1] in STAGED_F32_HEAD_DIMS:
+    if q.shape[-1] in STAGED_F32_FWD_HEAD_DIMS:
         return fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
@@ -600,7 +605,7 @@ def fused_mha_bwd_tf32x3_emulation(q, k, v, kv_mask, lse, do, sm_scale=None, kep
         return fused_mha_bwd_tf32x3_staged_emulation(q, k, v, kv_mask, lse, do, sm_scale)
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    groups = f32_groups(q.shape[-1])
+    groups = f32_groups(q.shape[-1], backward=True)
     qh, kh, vh, doh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))  # [B, H, S, D]
     lse_r = lse.float().permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
 
@@ -653,10 +658,10 @@ def _chunked_scores(a: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tenso
 
 def fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask=None, sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The staged fp32 K1's arithmetic (``csrc/fused_mha_fwd.cu::
-    mha_fwd_tf32x3_staged``) on fp32 CPU tensors at :data:`STAGED_F32_HEAD_DIMS`:
+    mha_fwd_tf32x3_staged``) on fp32 CPU tensors at :data:`STAGED_F32_FWD_HEAD_DIMS`:
     for each batch row the slots of :func:`f32_slots`; a slot's scores summed
-    over D a partial at a time (:func:`f32_staged` ``.fwd_chunk // .fwd_parts``
-    columns, each partial's 3xTF32 product from zero); m and l over the slots in order, then
+    over D a stage at a time (:data:`F32_STAGED_FWD_CHUNK` columns, each
+    stage's 3xTF32 product from zero); m and l over the slots in order, then
     ``p = exp(s - m) / l`` normalised before P.V and kept in fp32; o the sum
     of the slots' ``p·v`` (each a :func:`matmul_3xtf32` product), added in
     slot order. A row without an attended key gives o = 0, lse = +inf.
@@ -665,8 +670,8 @@ def fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask=None, sm_scale=None) -> t
         sm_scale = q.shape[-1] ** -0.5
     qh, kh, vh = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
     b, h, sq, d = qh.shape
-    rules = f32_staged(d)
-    chunk = rules.fwd_chunk // rules.fwd_parts
+    if d not in STAGED_F32_FWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d} has no staged fp32 K1 (only {STAGED_F32_FWD_HEAD_DIMS})")
     o = torch.zeros(b, h, sq, d)
     lse = torch.full((b, h, sq, 1), torch.inf)
     for bi in range(b):
@@ -674,7 +679,7 @@ def fused_mha_tf32x3_staged_emulation(q, k, v, kv_mask=None, sm_scale=None) -> t
         slots = f32_slots(row, kh.shape[2], d)
 
         def scores(keys):
-            s = _chunked_scores(qh[bi], kh[bi][:, keys], chunk) * sm_scale
+            s = _chunked_scores(qh[bi], kh[bi][:, keys], F32_STAGED_FWD_CHUNK) * sm_scale
             return s if row is None else torch.where(row[keys].bool(), s, DEFAULT_MASK_VALUE)
 
         m = torch.full((h, sq, 1), -torch.inf)

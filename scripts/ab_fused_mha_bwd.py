@@ -42,8 +42,8 @@ With ``--d2``, the fp32 K2 at the MNIST UNet's attention shapes at B=128
 (``ab_fused_mha_fwd.D2_CASES`` but the request's), on the tensors the fused
 route hands it, fp32 draws, from that tree's K1's lse: ``<case>`` its device
 time from CUDA-graph replays, ``<case>_dq``, ``<case>_dkv`` and
-``<case>_fused`` its kernels' from ``torch.profiler`` (PR 13's dq and dk/dv
-kernels, or the staged kernel that forms all three), and
+``<case>_fused`` its kernels' from ``torch.profiler`` (the split dq and
+dk/dv kernels of 8-key tiles, or the staged kernel that forms all three), and
 ``<case>_sdpa_unpadded`` SDPA's fp32 backward on the unpadded tensors (its
 memory-efficient backward op from CUDA-graph replays,
 ``chip_smoke.sdpa_fp32_backward`` of this checkout).

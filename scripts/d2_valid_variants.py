@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Variants of the staged fp32 K1 and K2 at the MNIST UNet's head dims 256
-and 512 (``csrc/fused_mha_{fwd,bwd}.cu``: ``mha_fwd_tf32x3_staged``,
-``mha_bwd_fused_tf32x3_staged``; their rules in ``tf32x3.cuh``), built side
-by side and timed on one card.
+"""Variants of the staged fp32 K2 at the MNIST UNet's head dims 256 and 512
+and of the staged fp32 K1 at 256 (``csrc/fused_mha_{fwd,bwd}.cu``:
+``mha_bwd_fused_tf32x3_staged``, ``mha_fwd_tf32x3_staged``; their rules in
+``tf32x3.cuh``), built side by side and timed on one card.
 
 Each variant is the kernels' sources under textual substitutions (each
 asserted to apply), built with the port's ``nvcc`` flags into
@@ -11,16 +11,10 @@ called through the port's wrappers, its libraries put in their place:
 
 - ``kernel``: the sources as they are (K2 route (b): one CTA a head, D
   staged 32 columns at a time at D = 256, two CTAs an SM; 128 columns in
-  four score partials at 512, eight warps; K1 64 columns at 256, 256 in four
-  partials and four column groups at 512);
-- ``cluster2``: K2 route (a) at D = 256, a cluster of two CTAs a head, each
-  taking 32 of the 64 rows (its s and dp over the whole of D, four warps of
-  32 keys and four of dp), each loading the slot's K and V itself (no TMA
-  multicast), the pair's partial dk and dv added through distributed shared
-  memory every chunk;
+  four score partials at 512, eight warps; K1 64 columns at 256, and at 512
+  the split instance of 8-key tiles);
 - ``blocks1``: K2's registers bound for one CTA an SM, not two (255 a
-  thread at D = 256, not 128); ``warps4_512``: K2 in four warps at D = 512,
-  the ones phase 1 needs (the sources: eight);
+  thread at D = 256, not 128);
 - ``chunk64``: K2 stages 64 columns at D = 256 (one CTA an SM);
   ``c64_512``: 64 at 512 (the sources: 128); ``parts1_512``: one score sum a
   stage at 512 (the sources: four interleaved partials);
@@ -31,16 +25,11 @@ called through the port's wrappers, its libraries put in their place:
   inside the CTA (the sources: 64);
 - ``k1_rows32``: K1 takes 32 rows a CTA at D = 256 (two CTAs a head);
 - ``k1_chunk32``, ``k1_chunk128``: K1 stages 32 or 128 columns at D = 256
-  (the sources: 64); ``k1_c64_512``, ``k1_c512``: 64 or 512 at D = 512 (the
-  sources: 256); ``k1_parts1_512``, ``k1_parts8_512``: one or eight score
-  sums a stage at 512 (the sources: four);
-- ``k1_groups2``: K1 in two column groups at D = 256 (eight warps, each
-  group forming the scores whole); ``k1_groups2_512``, ``k1_groups8_512``:
-  two or eight at 512 (the sources: four);
-- ``split``: K2 as PR 13's two kernels at D = 256 and 512 (a dq kernel that
-  forms s and dp twice over 8-key tiles, then a dk/dv kernel, lse and di
-  through a workspace; 2 and 4 column groups of 128);
-- ``k1_valid``: K1 as PR 13's instance at D = 256 and 512 (8-key tiles, a
+  (the sources: 64);
+- ``split``: K2 as the split pair of 8-key tiles at D = 256 and 512 (a dq
+  kernel that forms s and dp twice, then a dk/dv kernel, lse and di through
+  a workspace; 2 and 4 column groups of 128);
+- ``k1_valid``: K1 as the split instance of 8-key tiles at D = 256 (a
   partial-score exchange between column groups every tile).
 
 At the shapes of ``ab_fused_mha_fwd.D2_CASES`` (K2 at B=128) it prints, for
@@ -80,29 +69,18 @@ K1_DISPATCH = ("K1_VALID({d}, launch_bf16_staged, launch_f32_staged)", "K1_VALID
 #: variant -> [(file under csrc/, text, its replacement)]
 VARIANTS = {
     "kernel": [],
-    "cluster2": [rule("vr_f32s_cluster", "1", "D == 256 ? 2 : 1"),
-                 rule("vr_f32s_rows", "D == 256 ? 64 : 16", "D == 256 ? 32 : 16"),
-                 rule("vr_f32s_key_parts", "D == 256 ? 1 : 2", "2")],
-    "blocks1": [rule("vr_f32s_bwd_blocks", "2", "1")],
-    "warps4_512": [rule("vr_f32s_bwd_threads", "256", "D == 256 ? 256 : 128")],
+    "blocks1": [(HEADER, "constexpr int VR_F32S_BWD_BLOCKS = 2;", "constexpr int VR_F32S_BWD_BLOCKS = 1;")],
     "chunk64": [rule("vr_f32s_chunk", "D == 256 ? 32 : 128", "D == 256 ? 64 : 128")],
     "c64_512": [rule("vr_f32s_chunk", "D == 256 ? 32 : 128", "D == 256 ? 32 : 64")],
     "parts1_512": [rule("vr_f32s_parts", "D == 256 ? 1 : 4", "1")],
     "stages3": [(HEADER, "constexpr int VR_F32S_STAGES = 2;", "constexpr int VR_F32S_STAGES = 3;")],
     "slot32": [rule("vr_f32s_slot", "D == 256 ? 64 : 16", "D == 256 ? 32 : 16")],
     "k2_rows32": [rule("vr_f32s_rows", "D == 256 ? 64 : 16", "D == 256 ? 32 : 16")],
-    "k1_rows32": [rule("vr_f32s_fwd_rows", "D == 256 ? 64 : 16", "D == 256 ? 32 : 16")],
-    "k1_chunk32": [rule("vr_f32s_fwd_chunk", "D == 256 ? 64 : 256", "D == 256 ? 32 : 256")],
-    "k1_chunk128": [rule("vr_f32s_fwd_chunk", "D == 256 ? 64 : 256", "D == 256 ? 128 : 256")],
-    "k1_c64_512": [rule("vr_f32s_fwd_chunk", "D == 256 ? 64 : 256", "64")],
-    "k1_c512": [rule("vr_f32s_fwd_chunk", "D == 256 ? 64 : 256", "D == 256 ? 64 : 512")],
-    "k1_parts1_512": [rule("vr_f32s_fwd_parts", "D == 256 ? 1 : 4", "1")],
-    "k1_groups2": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 2 : 4")],
-    "k1_groups2_512": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 1 : 2")],
-    "k1_groups8_512": [rule("vr_f32s_fwd_groups", "D == 256 ? 1 : 4", "D == 256 ? 1 : 8")],
-    "k1_parts8_512": [rule("vr_f32s_fwd_parts", "D == 256 ? 1 : 4", "D == 256 ? 1 : 8")],
+    "k1_rows32": [(HEADER, "constexpr int VR_F32S_FWD_ROWS = 64;", "constexpr int VR_F32S_FWD_ROWS = 32;")],
+    "k1_chunk32": [(HEADER, "constexpr int VR_F32S_FWD_CHUNK = 64;", "constexpr int VR_F32S_FWD_CHUNK = 32;")],
+    "k1_chunk128": [(HEADER, "constexpr int VR_F32S_FWD_CHUNK = 64;", "constexpr int VR_F32S_FWD_CHUNK = 128;")],
     "split": [("fused_mha_bwd.cu", K2_DISPATCH[0].format(d=d), K2_DISPATCH[1].format(d=d)) for d in (256, 512)],
-    "k1_valid": [("fused_mha_fwd.cu", K1_DISPATCH[0].format(d=d), K1_DISPATCH[1].format(d=d)) for d in (256, 512)],
+    "k1_valid": [("fused_mha_fwd.cu", K1_DISPATCH[0].format(d=256), K1_DISPATCH[1].format(d=256))],
 }
 
 

@@ -5,14 +5,17 @@ arithmetic and tiles, against the JAX kernels run in interpret mode in fp32;
 the route that hands them the unpadded query rows; and the UNet's
 ``AttentionBlock`` at those widths against the JAX block.
 
-These instances are staged (``STAGED_F32_HEAD_DIMS``, ``f32_staged``): they
-take the unpadded q, do and lse rows, while k, v and the key mask stay
-padded to 128; the live 8-key tiles of the mask row are gathered into slots
-of 64 keys (16 at D = 512: the UNet's whole live row is one slot), and a
-score sum runs over D chunk by chunk, each chunk's 3xTF32 product from zero
-and the chunks added in fp32, within one warp (no column groups split the
-reduction). K1 takes m and l over the slots, then p = exp(s - m) / l before
-P.V (``fused_mha_tf32x3_staged_emulation``); K2 is one kernel a batch and
+K2 at both dims and K1 at 256 are staged (``STAGED_F32_HEAD_DIMS``,
+``STAGED_F32_FWD_HEAD_DIMS``, ``f32_staged``): they take the unpadded q, do
+and lse rows, while k, v and the key mask stay padded to 128; the live
+8-key tiles of the mask row are gathered into slots of 64 keys (16 at D =
+512: the UNet's whole live row is one slot), and a score sum runs over D
+chunk by chunk, each chunk's 3xTF32 product from zero and the chunks added
+in fp32, within one warp (no column groups split the reduction). K1 takes m
+and l over the slots, then p = exp(s - m) / l before P.V
+(``fused_mha_tf32x3_staged_emulation``); at 512 it is the split instance of
+8-key tiles whose 4 column groups add their partial scores
+(``fused_mha_tf32x3_emulation``). K2 is one kernel a batch and
 head that forms s and dp once, di from the fp32 p and dp, and dq, dk and dv
 from them, a head's row blocks of 64 (16) query rows in turn
 (``fused_mha_bwd_tf32x3_staged_emulation``). The JAX kernels take the
@@ -44,6 +47,9 @@ from diffulab_tpu.ops.fused_mha import _mha_backward, _mha_forward
 from diffulab_tpu_torch.ops import dot_product_attention
 from diffulab_tpu_torch.ops.fused_mha import (
     MIN_BLOCK,
+    F32_STAGED_FWD_CHUNK,
+    F32_STAGED_FWD_ROWS,
+    STAGED_F32_FWD_HEAD_DIMS,
     STAGED_F32_HEAD_DIMS,
     VALID_ROWS_HEAD_DIMS,
     F32Staged,
@@ -143,11 +149,15 @@ def test_k1_tiles_at_the_mnist_head_dims_match_the_jax_kernel(case):
     jo, jlse, _ = _jax_forward(q, k, v, mask, scale)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     tmask = None if mask is None else torch.from_numpy(mask)
-    o, lse = fused_mha_tf32x3_staged_emulation(tq, tk, tv, tmask, scale)
+    o, lse = fused_mha_tf32x3_emulation(tq, tk, tv, tmask, scale)
     assert o.shape == q.shape and lse.shape == q.shape[:3]
-    # the general emulation takes the staged instance's arithmetic at these dims
-    go, glse = fused_mha_tf32x3_emulation(tq, tk, tv, tmask, scale)
-    assert torch.equal(go, o) and torch.equal(glse, lse)
+    # the general emulation takes the staged instance's arithmetic at 256, the split instance's at 512
+    if CASES[case][1] in STAGED_F32_FWD_HEAD_DIMS:
+        so, slse = fused_mha_tf32x3_staged_emulation(tq, tk, tv, tmask, scale)
+        assert torch.equal(so, o) and torch.equal(slse, lse)
+    else:
+        with pytest.raises(ValueError):
+            fused_mha_tf32x3_staged_emulation(tq, tk, tv, tmask, scale)
     _close(o.numpy(), jo, *O_TOL, "o vs JAX")
     _close(lse.numpy(), jlse, *LSE_TOL, "lse vs JAX")
     ro, rlse = fused_mha_reference(tq, tk, tv, tmask, scale)
@@ -159,6 +169,8 @@ def test_k1_tiles_at_the_mnist_head_dims_match_the_jax_kernel(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
+    """The staged one-kernel K2 (the name is kept from the split pair of
+    kernels that ran these dims before it)."""
     q, k, v, do, mask, scale = _inputs(case)
     sq = q.shape[1]
     _, _, jlse = _jax_forward(q, k, v, mask, scale)
@@ -186,12 +198,14 @@ def test_k2_split_at_the_mnist_head_dims_matches_the_jax_kernel(case):
 def test_the_tile_rules_at_the_mnist_head_dims():
     # every UNet head dim (the D1 UNet's 192 and 384 too) is built around the valid rows; the MNIST UNet's are staged
     assert VALID_ROWS_HEAD_DIMS == (192, 256, 384, 512) and STAGED_F32_HEAD_DIMS == (256, 512)
-    # the staged instances: a slot of the UNet's whole live row, no column group splitting the score reduction
-    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (64, 1), (8, 6), (16, 1)]
-    assert f32_staged(256) == F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1, cluster=1, fwd_rows=64,
-                                        fwd_chunk=64, fwd_parts=1, fwd_groups=1)
-    assert f32_staged(512) == F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2, cluster=1, fwd_rows=16,
-                                        fwd_chunk=256, fwd_parts=4, fwd_groups=4)
+    assert STAGED_F32_FWD_HEAD_DIMS == (256,)
+    # the staged instances: a slot of the UNet's whole live row, no column group splitting the score reduction;
+    # K1 at 512 keeps 8-key tiles and 4 groups of 128 columns
+    assert [(f32_keys(d), f32_groups(d)) for d in VALID_ROWS_HEAD_DIMS] == [(8, 2), (64, 1), (8, 6), (8, 4)]
+    assert [f32_groups(d, backward=True) for d in VALID_ROWS_HEAD_DIMS] == [2, 1, 6, 1]
+    assert f32_staged(256) == F32Staged(slot=64, rows=64, chunk=32, parts=1, key_parts=1)
+    assert f32_staged(512) == F32Staged(slot=16, rows=16, chunk=128, parts=4, key_parts=2)
+    assert (F32_STAGED_FWD_ROWS, F32_STAGED_FWD_CHUNK) == (64, 64)
     with pytest.raises(ValueError):
         f32_staged(192)
     # the padded instances, and the valid-rows ones at 64, keep their tiles
